@@ -1,0 +1,104 @@
+"""The port stands alone: it imports neither JAX nor the JAX package, never
+falls back to the CPU when a card was asked for, and never falls back to a
+plain version when its kernels cannot be built."""
+
+import pkgutil
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+import vit_with_opencl_tpu_torch
+from vit_with_opencl_tpu_torch import ViTConfig
+from vit_with_opencl_tpu_torch.harness import fixtures
+from vit_with_opencl_tpu_torch.ops import _build
+
+PACKAGE_DIR = Path(vit_with_opencl_tpu_torch.__file__).parent
+REPO = PACKAGE_DIR.parent
+
+
+def _port_modules():
+    return sorted(m.name for m in pkgutil.walk_packages(
+        [str(PACKAGE_DIR)], prefix="vit_with_opencl_tpu_torch."))
+
+
+def test_importing_every_module_loads_no_jax():
+    modules = _port_modules()
+    assert "vit_with_opencl_tpu_torch.ops.fused_block" in modules
+    code = "\n".join([
+        "import importlib, sys",
+        f"for name in {modules!r}: importlib.import_module(name)",
+        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')",
+        "             or m == 'vit_with_opencl_tpu'",
+        "             or m.startswith('vit_with_opencl_tpu.'))",
+        "print(bad)",
+    ])
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "[]"
+
+
+FORBIDDEN = [re.compile(p, re.MULTILINE) for p in (
+    r"^\s*(import|from)\s+jax\b",
+    r"^\s*(import|from)\s+vit_with_opencl_tpu\b",  # \b: not ..._torch
+    r"\bvit_with_opencl_tpu\.",
+)]
+
+
+def test_sources_do_not_name_jax():
+    files = sorted(PACKAGE_DIR.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    for path in files:
+        text = path.read_text()
+        for pattern in FORBIDDEN:
+            match = pattern.search(text)
+            assert match is None, f"{path}: {match and match.group(0)!r}"
+
+
+def test_build_without_nvcc_raises(monkeypatch, tmp_path):
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no-cuda"))
+    monkeypatch.setattr(_build, "DEFAULT_CUDA_HOME", str(tmp_path / "no-cuda"))
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(_build, "_lib", None)
+    assert _build.find_nvcc() is None
+    with pytest.raises(RuntimeError, match="nvcc"):
+        _build.library()
+
+
+def test_build_failure_carries_nvcc_stderr(monkeypatch, tmp_path):
+    fake = tmp_path / "nvcc"
+    fake.write_text("#!/bin/sh\necho 'error: no such intrinsic' >&2\nexit 2\n")
+    fake.chmod(0o755)
+    monkeypatch.setattr(_build, "find_nvcc", lambda: str(fake))
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    with pytest.raises(RuntimeError, match="no such intrinsic"):
+        _build.build()
+    assert not list((tmp_path / "build").glob("*.so"))
+
+
+def test_build_key_follows_the_sources(monkeypatch, tmp_path):
+    for name in ("a.cu", "common.cuh"):
+        (tmp_path / name).write_text("// v1\n")
+    monkeypatch.setattr(_build, "CSRC_DIR", tmp_path)
+    first = _build.source_key()
+    assert _build.source_key() == first
+    (tmp_path / "common.cuh").write_text("// v2\n")
+    assert _build.source_key() != first
+
+
+def test_engine_needs_cuda_unless_cpu_is_asked(monkeypatch):
+    from vit_with_opencl_tpu_torch.engine import InferenceEngine
+
+    cfg = ViTConfig(name="iso", img_size=16, patch_size=8, embed_dim=16,
+                    depth=1, num_heads=2, num_classes=3)
+    params = fixtures.random_params(cfg, seed=0)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        InferenceEngine(cfg, params)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        InferenceEngine(cfg, params, device="cuda")
+    assert InferenceEngine(cfg, params, device="cpu").device.type == "cpu"

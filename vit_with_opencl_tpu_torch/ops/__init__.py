@@ -1,0 +1,17 @@
+"""Kernel layer: each module holds one hand-written CUDA kernel's wrapper
+(launch on a CUDA tensor) beside its plain PyTorch version (computed on a
+CPU tensor), and counts its launches.
+
+| JAX package (Pallas, TPU)            | port (CUDA, sm_90a)                  |
+|--------------------------------------|--------------------------------------|
+| ops/layernorm.py:_ln_kernel          | ops/layernorm.py, csrc/layernorm.cu  |
+| ops/linear.py:_linear_kernel         | ops/linear.py, csrc/linear.cu        |
+| ops/attention.py:_packed_kernel      | ops/attention.py, csrc/attention.cu  |
+| ops/fused_block.py:_block_kernel     | ops/fused_block.py (a chain of the   |
+|   (bf16)                             |   three kernels above)               |
+"""
+
+from .attention import packed_fused_attention  # noqa: F401
+from .fused_block import fused_encoder_layer  # noqa: F401
+from .layernorm import layer_norm  # noqa: F401
+from .linear import fused_linear  # noqa: F401

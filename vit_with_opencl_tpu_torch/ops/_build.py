@@ -1,0 +1,164 @@
+"""Build the port's CUDA kernels with ``nvcc`` and load them with ``ctypes``.
+
+Every ``csrc/*.cu`` file is compiled for ``sm_90a`` (Hopper; the ``a`` keeps
+``wgmma`` and ``setmaxnreg`` available), one ``nvcc`` process per source, all
+started together, then linked into one shared library with a plain C
+interface. The library lands in ``vit_with_opencl_tpu_torch/_build/`` under a
+name keyed by a hash of the sources and flags, so an unchanged tree loads
+the earlier build and an edited one rebuilds. Nothing here runs at import:
+the build happens at the first kernel launch, so the CPU tests import every
+module on a machine with no CUDA toolkit.
+
+There is no fallback. Without ``nvcc``, or when a compile fails, ``library()``
+raises a ``RuntimeError`` that carries the compiler's messages; the kernel
+wrappers never swap in their plain PyTorch versions for a CUDA tensor.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Optional
+
+import torch
+
+PACKAGE_DIR = Path(__file__).resolve().parent.parent
+CSRC_DIR = PACKAGE_DIR / "csrc"
+BUILD_DIR = PACKAGE_DIR / "_build"
+DEFAULT_CUDA_HOME = "/usr/local/cuda"
+
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
+
+# dtype codes of csrc/common.cuh (vit::DType).
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+# name -> argtypes; every entry point returns its cudaError_t as an int.
+SIGNATURES = {
+    # x, x_dtype, w, b, y, y_dtype, rows, cols, eps, stream
+    "vit_layernorm": [_P, _I, _P, _P, _P, _I, _I, _I, _F, _P],
+    # x, w, bias, residual, residual_kind, out, out_bf16, gelu, M, N, K, stream
+    "vit_linear_bf16": [_P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _P],
+    # qkv, out, B, T, num_heads, head_dim, scale, stream
+    "vit_packed_attention_bf16": [_P, _P, _I, _I, _I, _I, _F, _P],
+}
+
+_lib: Optional[ctypes.CDLL] = None
+
+
+def find_nvcc() -> Optional[str]:
+    """``nvcc`` on PATH, else under ``$CUDA_HOME/bin`` or the default
+    toolkit directory; None when there is none."""
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or DEFAULT_CUDA_HOME
+    candidate = os.path.join(home, "bin", "nvcc")
+    return candidate if os.path.isfile(candidate) else None
+
+
+def sources() -> list[Path]:
+    return sorted(CSRC_DIR.glob("*.cu"))
+
+
+def source_key() -> str:
+    """Hash of every source and header and of the flags: the build's name."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sorted(CSRC_DIR.glob("*.cu*")):
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build() -> Path:
+    """Compile ``csrc/`` into the keyed shared library (once) and return
+    its path."""
+    lib_path = BUILD_DIR / f"libvit_kernels_{source_key()}.so"
+    if lib_path.exists():
+        return lib_path
+    nvcc = find_nvcc()
+    if nvcc is None:
+        raise RuntimeError(
+            "nvcc not found: the port's CUDA kernels are compiled at first "
+            "use, which needs the CUDA toolkit's nvcc on PATH or under "
+            f"$CUDA_HOME/bin (default {DEFAULT_CUDA_HOME})")
+    work = BUILD_DIR / f"tmp_{lib_path.stem}_{os.getpid()}"
+    work.mkdir(parents=True, exist_ok=True)
+    try:
+        jobs = []
+        for src in sources():
+            obj = work / (src.stem + ".o")
+            cmd = [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
+            jobs.append((src, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True)))
+        failures = []
+        for src, _obj, proc in jobs:
+            _out, err = proc.communicate()
+            if proc.returncode != 0:
+                failures.append(f"--- {src.name} (exit {proc.returncode}):\n{err}")
+        if failures:
+            raise RuntimeError("nvcc failed to compile the port's kernels:\n"
+                               + "\n".join(failures))
+        tmp_lib = work / lib_path.name
+        link = subprocess.run(
+            [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp_lib),
+             *(str(obj) for _src, obj, _proc in jobs)],
+            capture_output=True, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc failed to link the port's kernels:\n"
+                               f"{link.stderr}")
+        os.replace(tmp_lib, lib_path)  # atomic: a reader sees all or nothing
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return lib_path
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built at first use."""
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build()))
+        for name, argtypes in SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        lib.vit_error_string.argtypes = [ctypes.c_int]
+        lib.vit_error_string.restype = ctypes.c_char_p
+        _lib = lib
+    return _lib
+
+
+def check_launch(err: int, what: str) -> None:
+    """Raise if a kernel's entry point returned a CUDA error."""
+    if err != 0:
+        msg = library().vit_error_string(err).decode()
+        raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
+
+
+def stream_handle(t: torch.Tensor) -> int:
+    """PyTorch's current stream on ``t``'s device, as the entry points take it."""
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def require(t: torch.Tensor, name: str, *, device: torch.device,
+            dtypes: tuple, shape: Optional[tuple] = None) -> None:
+    """Check what a kernel takes: device, dtype, shape, contiguity and the
+    16-byte alignment of its vector loads."""
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype not in dtypes:
+        raise TypeError(f"{name} has dtype {t.dtype}, expected one of {dtypes}")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name} must be 16-byte aligned")
