@@ -15,8 +15,9 @@ import torch
 
 from vit_with_opencl_tpu_torch import ViTConfig
 from vit_with_opencl_tpu_torch.harness import fixtures
-from vit_with_opencl_tpu_torch.models import vit
-from vit_with_opencl_tpu_torch.ops import attention, fused_block, layernorm, linear
+from vit_with_opencl_tpu_torch.models import quant, vit
+from vit_with_opencl_tpu_torch.ops import (attention, fused_block, layernorm,
+                                           linear, quantize)
 
 pytestmark = pytest.mark.cuda
 
@@ -28,6 +29,16 @@ BF16_TOL = dict(rtol=1.6e-2, atol=1e-2)
 F32_TOL = dict(rtol=1e-4, atol=1e-4)
 MIN_SAME_KERNEL = 0.99
 MIN_SAME_CHAIN = 0.7  # the chain compounds the flips of its 7 launches
+# The int8 chains against their plain versions. Weight-only int8 rounds as
+# the bf16 chain does. W8A8 adds its quantizes: an fp32 LN output or GELU'd
+# hidden one ulp away from the plain version's (another summation order, a
+# contracted multiply-add) flips an int8 decision now and then, which moves
+# its row's products by a quantum: up to 1.8e-2 on outputs that 2 bf16 ulps
+# do not cover, hence its own atol. Both chains keep 87-89% of their outputs
+# bit-identical at ViT-B shapes (chip_smoke.py phase 2b, H100 80GB HBM3).
+MIN_SAME_CHAIN_INT8W = 0.8
+MIN_SAME_CHAIN_W8A8 = 0.8
+W8A8_CHAIN_TOL = dict(rtol=1.6e-2, atol=3e-2)
 
 
 @pytest.fixture
@@ -44,11 +55,11 @@ def _rand(shape, dev, dtype=torch.float32, std=1.0, seed=0):
     return torch.from_numpy(a).to(dev).to(dtype)
 
 
-def _close(out, ref, min_same=MIN_SAME_KERNEL):
+def _close(out, ref, min_same=MIN_SAME_KERNEL, tol=BF16_TOL):
     if out.dtype != torch.bfloat16:
         torch.testing.assert_close(out.float(), ref.float(), **F32_TOL)
         return
-    torch.testing.assert_close(out.float(), ref.float(), **BF16_TOL)
+    torch.testing.assert_close(out.float(), ref.float(), **tol)
     assert (out == ref).float().mean().item() >= min_same
 
 
@@ -117,6 +128,150 @@ def test_encoder_layer_chain(dev, d, nh, t):
         before[0] + 2, before[1] + 4, before[2] + 1)
     _close(out, fused_block.fused_encoder_layer_reference(x, lp, cfg),
            min_same=MIN_SAME_CHAIN)
+
+
+def _with_special_rows(x):
+    """Row 3 all zeros (the 2^-93 floor); row 5 with absmax 127, so r = 1
+    and the half-way values must round to even."""
+    x[3] = 0
+    x[5] = 0
+    x[5, :5] = torch.tensor([127.0, 2.5, 3.5, -2.5, 0.5])
+    return x
+
+
+@pytest.mark.parametrize("rows,cols", [(37, 768), (3152, 768), (197, 3072)])
+@pytest.mark.parametrize("in_dtype", [torch.float32, torch.bfloat16])
+def test_quantize_rows_kernel(dev, rows, cols, in_dtype):
+    x = _with_special_rows(_rand((rows, cols), dev, in_dtype, std=2.0))
+    before = quantize.LAUNCHES
+    q, s = quantize.quantize_rows(x)
+    torch.cuda.synchronize()
+    assert quantize.LAUNCHES == before + 1
+    rq, rs = quantize.quantize_rows_reference(x)
+    assert q.dtype == torch.int8 and s.shape == (rows, 1)
+    assert torch.equal(q, rq) and torch.equal(s, rs)
+    assert q[5, :5].tolist() == [127, 2, 4, -2, 0] and not q[3].any()
+
+
+def _int8_weight(k, n, dev, seed=1):
+    return quant.quantize_weight_device(_rand((k, n), dev, std=0.05, seed=seed))
+
+
+def _epilogue_kw(epilogue, m, n, dev):
+    kw = {"fuse_gelu": epilogue == "gelu",
+          "out_dtype": torch.bfloat16 if epilogue == "bias_bf16" else torch.float32}
+    if epilogue.startswith("res"):
+        rdt = torch.float32 if epilogue == "res_f32" else torch.bfloat16
+        kw["residual"] = _rand((m, n), dev, rdt, seed=3)
+    return kw
+
+
+@pytest.mark.parametrize("m,k,n", [(74, 64, 192), (3152, 768, 2304),
+                                   (33, 3072, 768), (1, 48, 16)])
+@pytest.mark.parametrize("epilogue", ["bias_bf16", "bias_f32", "res_f32",
+                                      "res_bf16", "gelu"])
+def test_fused_linear_w8a8_kernel(dev, m, k, n, epilogue):
+    """Exact integer sums and the plain version's fp32 epilogue, operation
+    for operation: bit-identical without GELU. The GELU's polynomial is
+    contracted into multiply-adds in the kernel and not in PyTorch."""
+    xq, sx = quant.quantize_act(_rand((m, k), dev))
+    w = _int8_weight(k, n, dev)
+    b = _rand((n,), dev, std=0.1, seed=2)
+    kw = _epilogue_kw(epilogue, m, n, dev)
+    before = linear.LAUNCHES_W8A8
+    out = linear.fused_linear_w8a8(xq, sx, w["q"], w["scale"], b, **kw)
+    torch.cuda.synchronize()
+    assert linear.LAUNCHES_W8A8 == before + 1
+    ref = linear.fused_linear_w8a8_reference(xq, sx, w["q"], w["scale"], b, **kw)
+    assert out.dtype == kw["out_dtype"]
+    if epilogue != "gelu":
+        assert torch.equal(out, ref)
+    else:
+        torch.testing.assert_close(out, ref, **F32_TOL)
+        assert (out == ref).float().mean().item() >= MIN_SAME_KERNEL
+
+
+@pytest.mark.parametrize("m,k,n", [(74, 64, 192), (394, 768, 2304),
+                                   (33, 40, 32), (1, 3072, 768)])
+@pytest.mark.parametrize("epilogue", ["bias_bf16", "gelu", "res_f32", "res_bf16"])
+def test_fused_linear_int8w_kernel(dev, m, k, n, epilogue):
+    x = _rand((m, k), dev, torch.bfloat16)
+    w = _int8_weight(k, n, dev)
+    b = _rand((n,), dev, std=0.1, seed=2)
+    kw = _epilogue_kw(epilogue, m, n, dev)
+    if epilogue == "gelu":
+        kw["out_dtype"] = torch.bfloat16
+    before = linear.LAUNCHES_INT8W
+    out = linear.fused_linear(x, w["q"], b, w_scale=w["scale"], **kw)
+    torch.cuda.synchronize()
+    assert linear.LAUNCHES_INT8W == before + 1
+    _close(out, linear.fused_linear_reference(x, w["q"], b, w_scale=w["scale"], **kw))
+
+
+def test_int8_wrappers_refuse_shapes(dev):
+    """int8 operands move in 16-byte chunks: K and N must be multiples of 16
+    (N only, for the int8-weight GEMM). The wrappers raise; they never fall
+    back to a plain version."""
+    w = _int8_weight(24, 32, dev)
+    with pytest.raises(ValueError, match="multiple"):
+        quantize.quantize_rows(_rand((4, 24), dev))
+    xq = torch.zeros((4, 24), dtype=torch.int8, device=dev)
+    sx = torch.ones((4, 1), device=dev)
+    with pytest.raises(ValueError, match="multiples of 16"):
+        linear.fused_linear_w8a8(xq, sx, w["q"], w["scale"])
+    w = _int8_weight(32, 24, dev)
+    with pytest.raises(ValueError, match="multiples of 16"):
+        linear.fused_linear_w8a8(xq[:, :16].contiguous(), sx, w["q"][:16].contiguous(),
+                                 w["scale"])
+    with pytest.raises(ValueError, match="of 16"):
+        linear.fused_linear(_rand((4, 32), dev, torch.bfloat16), w["q"],
+                            w_scale=w["scale"])
+
+
+@pytest.mark.parametrize("d,nh,t", [(64, 4, 37), (768, 12, 197)])
+@pytest.mark.parametrize("w8a8", [False, True], ids=["int8w", "w8a8"])
+def test_int8_encoder_layer_chain(dev, d, nh, t, w8a8):
+    cfg = ViTConfig(name="chain", img_size=32, patch_size=8, embed_dim=d,
+                    depth=1, num_heads=nh, num_classes=9)
+    params = quant.quantize_stacked_params(
+        vit.stack_params(fixtures.random_params(cfg, seed=5), cfg,
+                         param_dtype=torch.bfloat16, device=dev), cfg)
+    lp = vit._layer(params, 0)
+    x = _rand((2, t, d), dev, torch.bfloat16, std=0.5, seed=6)
+    counters = ((layernorm, "LAUNCHES"), (quantize, "LAUNCHES"),
+                (linear, "LAUNCHES_W8A8" if w8a8 else "LAUNCHES_INT8W"),
+                (attention, "LAUNCHES"),
+                (fused_block, "LAUNCHES_W8A8" if w8a8 else "LAUNCHES_INT8W"))
+    before = [getattr(mod, name) for mod, name in counters]
+    out = fused_block.fused_encoder_layer(x, lp, cfg, w8a8=w8a8)
+    torch.cuda.synchronize()
+    after = [getattr(mod, name) for mod, name in counters]
+    assert [a - b for a, b in zip(after, before)] == (
+        [2, 4, 4, 1, 1] if w8a8 else [2, 0, 4, 1, 1])
+    _close(out, fused_block.fused_encoder_layer_reference(x, lp, cfg, w8a8=w8a8),
+           min_same=MIN_SAME_CHAIN_W8A8 if w8a8 else MIN_SAME_CHAIN_INT8W,
+           tol=W8A8_CHAIN_TOL if w8a8 else BF16_TOL)
+
+
+def test_w8a8_flash_forward_matches_plain_chain(dev, monkeypatch):
+    """The W8A8 forward through the kernels against the same forward with
+    the chain's links swapped for their plain versions: the 1e-3 budget on
+    probabilities."""
+    cfg = ViTConfig(name="fwd", img_size=32, patch_size=8, embed_dim=64,
+                    depth=2, num_heads=4, num_classes=9)
+    params = quant.quantize_stacked_params(
+        vit.stack_params(fixtures.random_params(cfg, seed=7, scale=0.05), cfg,
+                         device=dev), cfg)
+    images = torch.from_numpy(fixtures.random_images(cfg, n=3, seed=3)).to(dev)
+    kernels = vit.resolve_kernels("flash", w8a8=True)
+    before = fused_block.LAUNCHES_W8A8
+    probs = vit.forward(images, params, cfg, kernels=kernels)
+    torch.cuda.synchronize()
+    assert fused_block.LAUNCHES_W8A8 == before + cfg.depth
+    monkeypatch.setattr(fused_block, "fused_encoder_layer",
+                        fused_block.fused_encoder_layer_reference)
+    ref = vit.forward(images, params, cfg, kernels=kernels)
+    assert (probs - ref).abs().max().item() < 1e-3
 
 
 def test_flash_forward_within_parity_budget(dev):

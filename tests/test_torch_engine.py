@@ -40,10 +40,13 @@ def _argv(ws, output, *extra):
     ("--backend", "gpu", "--attention", "xla", "--device", "cpu"),
     ("--backend", "gpu", "--attention", "flash", "--device", "cpu",
      "--batch-size", "2"),
-], ids=["golden", "gpu_xla_cpu", "gpu_flash_cpu"])
+    ("--backend", "gpu", "--attention", "fused_block", "--device", "cpu",
+     "--batch-size", "2"),
+], ids=["golden", "gpu_xla_cpu", "gpu_flash_cpu", "gpu_fused_block_cpu"])
 def test_cli_matches_answer(workspace, monkeypatch, capsys, backend_args):
     monkeypatch.setitem(config_lib.PRESETS, CFG.name, CFG)
-    rc = cli.main(_argv(workspace, f"result_{backend_args[1]}.txt", *backend_args))
+    rc = cli.main(_argv(workspace, f"result_{'_'.join(backend_args[1::2])}.txt",
+                        *backend_args))
     out = capsys.readouterr().out
     assert rc == 0, out
     assert "Comparator: files match." in out
@@ -101,6 +104,10 @@ def test_engine_normalize_uint8(small):
 
 
 def test_engine_quantize_not_ported(small):
-    params, _, _ = small
+    """int8 and W8A8 run (tests/test_torch_quant.py); the calibrated
+    outlier-aware W8A8 mode is not ported yet and must not quietly run as
+    plain W8A8."""
+    params, images, _ = small
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        InferenceEngine(CFG, params, quantize="int8-w8a8", device="cpu")
+        InferenceEngine(CFG, params, quantize="int8-w8a8", calibrate=images,
+                        device="cpu")

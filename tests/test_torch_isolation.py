@@ -27,7 +27,8 @@ def _port_modules():
 
 def test_importing_every_module_loads_no_jax():
     modules = _port_modules()
-    assert "vit_with_opencl_tpu_torch.ops.fused_block" in modules
+    for name in ("ops.fused_block", "ops.quantize", "models.quant"):
+        assert f"vit_with_opencl_tpu_torch.{name}" in modules
     code = "\n".join([
         "import importlib, sys",
         f"for name in {modules!r}: importlib.import_module(name)",

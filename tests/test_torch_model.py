@@ -60,6 +60,31 @@ def test_forward_matches_jax(setup, route, dtype):
     np.testing.assert_allclose(tprobs, ref, atol=PROB_ATOL[dtype])
 
 
+def test_fused_block_is_a_synonym_of_flash(setup):
+    """Both packages accept ``fused_block`` as another name of ``flash``:
+    the port's two tables hold the same entries, and a forward through each
+    agrees with the JAX package's forward through its own table of that name
+    (forced onto its per-layer kernel, as above)."""
+    params, images, _ = setup
+    flash, alias = vit.resolve_kernels("flash"), vit.resolve_kernels("fused_block")
+    assert flash.keys() == alias.keys()
+    assert all(flash[k] is alias[k] for k in flash if k not in ("matmul_gelu",))
+    stacked = jvit.stack_params(params, CFG, param_dtype=jnp.float32)
+    jkernels = jvit.resolve_kernels("fused_block")
+    jkernels["encoder_block"] = functools.partial(jfused.fused_encoder_layer,
+                                                  interpret=True)
+    jprobs = np.asarray(jvit.forward(jnp.asarray(images), stacked, CFG,
+                                     compute_dtype=jnp.float32, kernels=jkernels))
+    tparams = vit.params_from_jax(stacked, device="cpu")
+    x = torch.from_numpy(images)
+    probs = [vit.forward(x, tparams, CFG, compute_dtype=torch.float32,
+                         kernels=k) for k in (flash, alias)]
+    torch.testing.assert_close(probs[0], probs[1], rtol=0, atol=0)
+    np.testing.assert_allclose(probs[1].numpy(), jprobs, atol=PROB_ATOL["f32"])
+    with pytest.raises(ValueError, match="attention_impl"):
+        vit.resolve_kernels("pallas")
+
+
 def test_tanh_gelu_flash_route_matches_jax():
     """A config ``fused_block.supports`` refuses: the flash route sends only
     the attention core to the packed-attention kernel."""

@@ -8,7 +8,8 @@ run a backend over all images → per-image argmax → write
 card by default (``--device cpu`` runs its plain versions on the CPU).
 
     python -m vit_with_opencl_tpu_torch.cli --input input.bin --weights Network \
-        --output result.txt --answer answer.txt --backend gpu --attention flash
+        --output result.txt --answer answer.txt --backend gpu --attention flash \
+        [--quantize int8|int8-w8a8|auto]
 
 Exit code 0, or 1 when the comparator finds mismatches.
 """
@@ -28,7 +29,8 @@ from .io.labels import IMAGENET_LABELS
 
 
 def _run_backend(backend: str, images: np.ndarray, params, cfg,
-                 batch_size: int, attention: str, device: str) -> np.ndarray:
+                 batch_size: int, attention: str, device: str,
+                 quantize=None, calibrate=None) -> np.ndarray:
     if backend == "golden":
         from .models import golden
 
@@ -36,7 +38,8 @@ def _run_backend(backend: str, images: np.ndarray, params, cfg,
     from .engine import InferenceEngine
 
     engine = InferenceEngine(cfg, params, batch_size=batch_size,
-                             attention_impl=attention, device=device)
+                             attention_impl=attention, device=device,
+                             quantize=quantize, calibrate=calibrate)
     return engine.run(images)
 
 
@@ -57,9 +60,22 @@ def main(argv=None) -> int:
     parser.add_argument("--config", default="vit_b_16_224",
                         choices=sorted(config_lib.PRESETS))
     parser.add_argument("--batch-size", type=int, default=32)
-    parser.add_argument("--attention", choices=["xla", "flash"], default="xla",
+    parser.add_argument("--attention", choices=["xla", "flash", "fused_block"],
+                        default="xla",
                         help="plain PyTorch ops, or the CUDA kernels (the "
-                        "encoder-layer chain and packed attention)")
+                        "encoder-layer chain and packed attention); "
+                        "fused_block is a synonym of flash")
+    parser.add_argument("--quantize", choices=["int8", "int8-w8a8", "auto"],
+                        default=None,
+                        help="int8 quantization for the gpu backend: weight-"
+                        "only (int8 weights into the bf16 GEMM) or w8a8 "
+                        "(also per-token int8 activations, int8 x int8 "
+                        "GEMMs); auto picks w8a8 for ViT-B and larger")
+    parser.add_argument("--calibrate", default=None, metavar="IMAGES.BIN",
+                        help="calibration images for outlier-aware W8A8; "
+                        "not ported yet: the engine raises "
+                        "NotImplementedError (implies w8a8 when --quantize "
+                        "is auto or unset)")
     parser.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                         help="device of the gpu backend; cpu runs every "
                         "kernel's plain PyTorch version")
@@ -81,10 +97,20 @@ def main(argv=None) -> int:
     print(f"loaded {images.shape[0]} images + {len(weights)} weights "
           f"in {t_load:.2f}s (numpy io)")
 
+    calibrate = None
+    if args.calibrate:
+        if args.backend != "gpu":
+            raise SystemExit("--calibrate only applies to the gpu backend")
+        if args.quantize in (None, "auto"):
+            args.quantize = "int8-w8a8"
+        calibrate = binfmt.load_image_data(args.calibrate)
+        print(f"calibration set: {calibrate.shape[0]} images "
+              f"({args.calibrate})")
+
     print("=====================Start========================")
     t0 = time.perf_counter()
     probs = _run_backend(args.backend, images, params, cfg, args.batch_size,
-                         args.attention, args.device)
+                         args.attention, args.device, args.quantize, calibrate)
     elapsed = time.perf_counter() - t0
     n = images.shape[0]
     print(f"Elapsed time: {elapsed:.4f} sec ({n / elapsed:.2f} images/sec)")

@@ -17,7 +17,8 @@ import numpy as np
 import torch
 
 from .config import ViTConfig
-from .models import vit
+from .models import quant, vit
+from .ops import fused_block
 
 # ImageNet normalisation for raw uint8 pixels: x_norm = (x - mean) * inv_std
 # (the JAX package's io/preprocess.py IMAGENET_MEAN, IMAGENET_STD and
@@ -38,6 +39,23 @@ def resolve_device(device: Optional[torch.device | str]) -> torch.device:
     return dev
 
 
+def resolve_quantize(quantize: Optional[str], config: ViTConfig,
+                     *, calibrated: bool = False) -> Optional[str]:
+    """Resolve the ``"auto"`` quantize mode to a concrete one, by the JAX
+    package's rule: ``int8-w8a8`` unless the config's bf16 encoder is the
+    JAX package's whole-stack kernel (``fused_block.supports_stack``, the
+    small configs), where ``auto`` stays unquantized. ``calibrated`` (the
+    caller gave calibration images) picks ``int8-w8a8`` for every config.
+    ViT-B/16 resolves to ``int8-w8a8``."""
+    if quantize != "auto":
+        return quantize
+    if calibrated:
+        return "int8-w8a8"
+    if fused_block.supports_stack(config, dtype_bytes=2):
+        return None
+    return "int8-w8a8"
+
+
 class InferenceEngine:
     """Batched ViT inference on one device.
 
@@ -49,8 +67,13 @@ class InferenceEngine:
       param_dtype / compute_dtype: bf16 by default, fp32 for parity testing.
       attention_impl: 'xla' (plain PyTorch) or 'flash' (the CUDA kernels).
       device: 'cuda' (default) or 'cpu'.
-      quantize: must be None; int8 and W8A8 are not ported yet.
+      quantize: None, 'int8' (weight-only: int8 weights, per-channel scale
+        epilogue), 'int8-w8a8' (also per-token int8 activations into the
+        encoder's GEMMs) or 'auto' (``resolve_quantize``). The weights are
+        stacked to ``param_dtype`` first and quantized from that.
       normalize_uint8: take raw uint8 pixels and normalise them on the device.
+      calibrate: calibration images for the outlier-aware W8A8 mode, which is
+        not ported yet: with ``int8-w8a8`` it raises NotImplementedError.
     """
 
     def __init__(
@@ -65,22 +88,37 @@ class InferenceEngine:
         device: Optional[torch.device | str] = None,
         quantize: Optional[str] = None,
         normalize_uint8: bool = False,
+        calibrate: Optional[np.ndarray] = None,
     ):
-        if quantize is not None:
+        quantize = resolve_quantize(quantize, config,
+                                    calibrated=calibrate is not None)
+        if quantize not in (None, "int8", "int8-w8a8"):
+            raise ValueError(f"unknown quantize mode {quantize!r}")
+        if calibrate is not None and quantize == "int8-w8a8":
+            # The JAX engine would run the calibrated outlier-aware W8A8
+            # here; plain W8A8 would be a different result, not a stand-in.
             raise NotImplementedError(
-                f"quantize={quantize!r}: int8 and W8A8 inference are not "
-                "ported yet (ROADMAP.md, Queue 2: _block_kernel quantized "
-                "with models/quant.py)")
+                "calibrate=: outlier-aware W8A8 is not ported yet "
+                "(ROADMAP.md, Queue 2 item 2)")
+        if calibrate is not None and quantize is None:
+            raise ValueError(
+                "calibrate= images are only meaningful with "
+                "quantize='int8-w8a8' (outlier-aware activation quantization)")
         self.config = config
+        self.quantize = quantize
         self.batch_size = int(batch_size)
         self.compute_dtype = compute_dtype
         self.device = resolve_device(device)
         self.normalize_uint8 = normalize_uint8
         t0 = time.perf_counter()
-        self.params = vit.stack_params(named_params, config,
-                                       param_dtype=param_dtype,
-                                       device=self.device)
-        self.kernels = vit.resolve_kernels(attention_impl)
+        params = vit.stack_params(named_params, config,
+                                  param_dtype=param_dtype, device=self.device)
+        if quantize is not None:
+            params = quant.quantize_stacked_params(params, config)
+        self.params = params
+        self.kernels = vit.resolve_kernels(
+            attention_impl, w8a8=quantize == "int8-w8a8",
+            heads=(config.num_heads, config.head_dim))
         self._mean = torch.from_numpy(
             IMAGENET_MEAN.reshape(1, 3, 1, 1) * 255.0).to(self.device)
         self._inv_std = torch.from_numpy(

@@ -20,10 +20,16 @@ statistics and softmax, as the JAX package. Every GEMM outside the kernels
 is an fp32-output product of the upcast operands, because a bf16-output
 matmul would round where the reference does not. ``param_dtype`` and
 ``compute_dtype`` of ``torch.float32`` give the tight-parity mode.
+
+int8 weights (``models/quant``: {"q": int8, "scale": fp32} leaves) run
+everywhere a weight does: the chain takes them as weight-only int8, or as
+W8A8 when ``resolve_kernels(..., w8a8=True)``; the patch embedding and the
+head multiply their fp32 products by the scale, as the JAX package does.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Any, Callable, Dict, Optional
 
 import numpy as np
@@ -34,6 +40,7 @@ from ..config import ViTConfig
 from ..ops import attention as attention_ops
 from ..ops import fused_block
 from ..ops import layernorm as layernorm_ops
+from . import quant
 
 Params = Dict[str, Any]
 
@@ -121,9 +128,13 @@ def params_from_jax(stacked: Params, *,
     as ``ml_dtypes.bfloat16``) → the port's params, value for value.
 
     Both packages then compute on identical weights. bf16 leaves go through
-    float32, which is exact, and come back to bf16 unchanged."""
+    float32, which is exact, and come back to bf16 unchanged. Quantized
+    weights ({"q": int8, "scale": fp32} dicts of ``quantize_stacked_params``)
+    keep their layout: int8 as ``torch.int8``, scales as fp32."""
 
     def conv(a):
+        if isinstance(a, dict):
+            return {k: conv(v) for k, v in a.items()}
         a = np.asarray(a)
         if a.dtype.name == "bfloat16":
             return torch.from_numpy(a.astype(np.float32)).to(
@@ -257,15 +268,6 @@ def _gelu(x: torch.Tensor, config: ViTConfig) -> torch.Tensor:
     return gelu_erf(x)
 
 
-def _matmul(x: torch.Tensor, w: torch.Tensor,
-            b: Optional[torch.Tensor]) -> torch.Tensor:
-    """x @ w (+ b) with fp32 accumulation; result in x's dtype."""
-    out = x.float() @ w.float()
-    if b is not None:
-        out = out + b
-    return out.to(x.dtype)
-
-
 def xla_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   config: ViTConfig) -> torch.Tensor:
     """Reference attention math on [B, H, T, hd] inputs: fp32 scores, the
@@ -303,26 +305,40 @@ def _mlp_block(x: torch.Tensor, lp: Params, config: ViTConfig,
 def _default_kernels() -> Dict[str, Any]:
     return {
         "layer_norm": layer_norm,
-        "matmul": _matmul,
-        "matmul_gelu": lambda x, w, b, cfg: _gelu(_matmul(x, w, b), cfg),
+        # x @ w (+ b), fp32 accumulation, x's dtype; int8 weight dicts too.
+        "matmul": quant.matmul_q,
+        "matmul_gelu": lambda x, w, b, cfg: _gelu(quant.matmul_q(x, w, b), cfg),
         "attention": xla_attention,
     }
 
 
-def resolve_kernels(attention_impl: str = "xla") -> Dict[str, Any]:
+def resolve_kernels(attention_impl: str = "xla", w8a8: bool = False,
+                    heads: Optional[tuple] = None) -> Dict[str, Any]:
     """Kernel table for the forward pass.
 
     ``attention_impl``:
       * 'xla'   — plain PyTorch ops;
-      * 'flash' — the packed-attention kernel for the per-op path, and the
-        encoder-layer chain for every config ``fused_block.supports``.
+      * 'flash' (or its synonym 'fused_block', as in the JAX package) — the
+        packed-attention kernel for the per-op path, and the encoder-layer
+        chain for every config ``fused_block.supports``.
+
+    ``w8a8``: per-token dynamic int8 activations into the encoder's four
+    GEMMs (``quant.matmul_w8a8`` on the per-op path, the W8A8 chain on the
+    fused one). It needs int8 weight dicts; fp weights run as before. The
+    embedding, head and attention core stay in the activation dtype.
+    ``heads`` is passed on to ``matmul_w8a8``.
     """
     kernels = _default_kernels()
-    if attention_impl == "flash":
+    if attention_impl in ("flash", "fused_block"):
         kernels["attention_packed"] = attention_ops.packed_fused_attention
         kernels["_fused_block_if_supported"] = True
     elif attention_impl != "xla":
         raise ValueError(f"unknown attention_impl {attention_impl!r}")
+    if w8a8:
+        mm = functools.partial(quant.matmul_w8a8, heads=heads)
+        kernels["matmul"] = mm
+        kernels["matmul_gelu"] = lambda x, w, b, cfg: _gelu(mm(x, w, b), cfg)
+        kernels["w8a8"] = True
     return kernels
 
 
@@ -340,13 +356,23 @@ def patchify(images: torch.Tensor, config: ViTConfig) -> torch.Tensor:
     return x.reshape(b, g * g, c * p * p)
 
 
+def _weight_product(x: torch.Tensor, w: Any,
+                  compute_dtype: torch.dtype) -> torch.Tensor:
+    """x @ w with fp32 output, the weight in ``compute_dtype``; an int8
+    weight's per-channel scale multiplies the product."""
+    if quant.is_quantized(w):
+        out = x.float() @ w["q"].to(compute_dtype).float()
+        return out * w["scale"][0]
+    return x.float() @ w.to(compute_dtype).float()
+
+
 def embed(images: torch.Tensor, params: Params, config: ViTConfig,
           compute_dtype: torch.dtype) -> torch.Tensor:
     """Patch-embed + prefix tokens + positional embedding → [B, T, D]:
     one GEMM (fp32 output) and an fp32 epilogue."""
     b = images.shape[0]
     patches = patchify(images, config).to(compute_dtype)
-    tok = patches.float() @ params["patch_w"].to(compute_dtype).float()
+    tok = _weight_product(patches, params["patch_w"], compute_dtype)
     tok = tok + params["patch_b"]
     prefix = params["prefix_tokens"][None].expand(
         (b,) + tuple(params["prefix_tokens"].shape))
@@ -355,17 +381,29 @@ def embed(images: torch.Tensor, params: Params, config: ViTConfig,
 
 
 def _layer(params: Params, layer: int) -> Params:
-    return {k: v[layer] for k, v in params["layers"].items()}
+    def take(v):
+        return {k: t[layer] for k, t in v.items()} if isinstance(v, dict) else v[layer]
+
+    return {k: take(v) for k, v in params["layers"].items()}
 
 
 def encoder(x: torch.Tensor, params: Params, config: ViTConfig,
             kernels: Dict[str, Any]) -> torch.Tensor:
-    """The layers in order over the stacked weights."""
-    block: Optional[Callable] = kernels.get("encoder_block")
+    """The layers in order over the stacked weights.
+
+    Quantized params ignore a forced ``encoder_block``, as in the JAX
+    package. Where the JAX package runs the whole stack in one kernel
+    (``fused_block.supports_stack``: small configs, never W8A8), the port
+    has no such kernel yet and takes the per-layer chain."""
+    qkv_w = params["layers"]["qkv_w"]
+    quantized = quant.is_quantized(qkv_w)
+    block: Optional[Callable] = None if quantized else kernels.get("encoder_block")
     if block is None and kernels.get("_fused_block_if_supported"):
-        wbytes = params["layers"]["qkv_w"].element_size()
+        wbytes = 1 if quantized else qkv_w.element_size()
         if fused_block.supports(config, dtype_bytes=wbytes):
-            block = fused_block.fused_encoder_layer
+            block = functools.partial(
+                fused_block.fused_encoder_layer,
+                w8a8=bool(kernels.get("w8a8")) and quantized)
     for layer in range(config.depth):
         lp = _layer(params, layer)
         if block is not None:
@@ -411,8 +449,7 @@ def classifier_logits(feats: torch.Tensor, params: Params, config: ViTConfig,
     dual head averages the CLS and distillation heads."""
 
     def head(feat, w, bias):
-        x = feat.to(compute_dtype).float()
-        return x @ w.to(compute_dtype).float() + bias
+        return _weight_product(feat.to(compute_dtype), w, compute_dtype) + bias
 
     logits = head(feats[:, 0], params["head_w"], params["head_b"])
     if config.head_type == "cls+dist":

@@ -9,9 +9,13 @@ CPU tensor), and counts its launches.
 | ops/attention.py:_packed_kernel      | ops/attention.py, csrc/attention.cu  |
 | ops/fused_block.py:_block_kernel     | ops/fused_block.py (a chain of the   |
 |   (bf16)                             |   three kernels above)               |
+| ops/fused_block.py:_block_kernel     | ops/quantize.py, csrc/quantize.cu;   |
+|   (quantized: int8 weights, W8A8)    |   the int8 GEMMs of csrc/linear.cu;  |
+|                                      |   chained in ops/fused_block.py      |
 """
 
 from .attention import packed_fused_attention  # noqa: F401
 from .fused_block import fused_encoder_layer  # noqa: F401
 from .layernorm import layer_norm  # noqa: F401
-from .linear import fused_linear  # noqa: F401
+from .linear import fused_linear, fused_linear_w8a8  # noqa: F401
+from .quantize import quantize_rows  # noqa: F401

@@ -46,8 +46,17 @@ SIGNATURES = {
     "vit_layernorm": [_P, _I, _P, _P, _P, _I, _I, _I, _F, _P],
     # x, w, bias, residual, residual_kind, out, out_bf16, gelu, M, N, K, stream
     "vit_linear_bf16": [_P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _P],
+    # x, w (int8), w_scale, bias, residual, residual_kind, out, out_bf16,
+    # gelu, M, N, K, stream
+    "vit_linear_int8w": [_P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _P],
+    # xq, x_scale, w (int8), w_scale, bias, residual, residual_kind, out,
+    # out_bf16, gelu, M, N, K, stream
+    "vit_linear_w8a8": [_P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I,
+                        _P],
     # qkv, out, B, T, num_heads, head_dim, scale, stream
     "vit_packed_attention_bf16": [_P, _P, _I, _I, _I, _I, _F, _P],
+    # x, x_dtype, q, scale, rows, cols, stream
+    "vit_quantize_rows": [_P, _I, _P, _P, _I, _I, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -1,21 +1,33 @@
 """One pre-LN encoder layer as a chain of the port's CUDA kernels.
 
-Replaces ``vit_with_opencl_tpu/ops/fused_block.py:_block_kernel`` in bf16
-(``fused_encoder_layer``). The TPU kernel keeps a whole layer's weights
-(14.2 MB for ViT-B in bf16) resident in on-chip memory and never writes an
-activation back between stages. A Hopper SM has 227 KB of shared memory, so
-here the layer is seven launches of three kernels, with the activations
-passing through device memory between them:
+Replaces ``vit_with_opencl_tpu/ops/fused_block.py:_block_kernel``
+(``fused_encoder_layer``) in its three forms. The TPU kernel keeps a whole
+layer's weights (14.2 MB for ViT-B in bf16, 7.1 MB in int8) resident in
+on-chip memory and never writes an activation back between stages. A Hopper
+SM has 227 KB of shared memory, so here the layer is a chain of launches,
+with the activations passing through device memory between them:
 
-  LN1 (layernorm.cu) → qkv GEMM + bias (linear.cu) → packed attention
-  (attention.cu) → out-proj GEMM + fp32 residual + bias → LN2 (fp32 in)
-  → fc1 GEMM + bias + ``_gelu_fast`` → fc2 GEMM + fp32 residual + bias.
+  bf16 and weight-only int8 (``quantized=True``), 7 launches:
+    LN1 (layernorm.cu) → qkv GEMM + bias (linear.cu) → packed attention
+    (attention.cu) → out-proj GEMM + fp32 residual + bias → LN2 (fp32 in)
+    → fc1 GEMM + bias + ``_gelu_fast`` → fc2 GEMM + fp32 residual + bias;
+    with int8 weights each GEMM is the int8-weight one, whose fp32 product
+    is multiplied by the per-channel scale before the epilogue.
+  W8A8 (``quantized=True, w8a8=True``), 11 launches:
+    LN1 (fp32 out) → quantize (quantize.cu) → int8 qkv GEMM + bias → packed
+    attention → quantize → int8 out-proj + fp32 residual + bias → LN2 (fp32
+    out) → quantize → int8 fc1 + bias + ``_gelu_fast`` (fp32 out) → quantize
+    → int8 fc2 + fp32 residual + bias.
 
-The numerics are the TPU kernel's: fp32 LN statistics, fp32 accumulation,
-the residual stream kept in fp32 inside the layer (the fp32 ``x1`` crosses
-two launches; rounding it to bf16 would change the result), residual added
-before the bias, the tanh-polynomial ``_gelu_fast`` (not erf), and the
-activation dtype at the layer's output.
+The numerics are the TPU kernel's: fp32 LN statistics, fp32 accumulation
+(exact int32 for W8A8), the residual stream kept in fp32 inside the layer
+(the fp32 ``x1`` crosses launches; rounding it to bf16 would change the
+result), residual added before the bias, the tanh-polynomial ``_gelu_fast``
+(not erf), and the activation dtype at the layer's output. W8A8 quantizes
+the fp32 LN outputs and the fp32 GELU'd hidden directly, with no bf16
+rounding first (a rounding there would move int8 decisions); the qkv
+product is rounded to the activation dtype after its bias, and the
+attention context is quantized from the activation dtype.
 
 ``fused_encoder_layer`` launches the kernels for CUDA tensors; for CPU
 tensors every link computes its plain version, which is
@@ -27,11 +39,15 @@ from __future__ import annotations
 import torch
 
 from ..config import ViTConfig
-from . import attention, layernorm, linear
+from ..models.quant import is_quantized, refuse_outliers
+from . import attention, layernorm, linear, quantize
 
-# Chain runs on the card since the count was last set to 0: one per layer
-# whose seven kernel launches went out (chip_smoke.py reads it).
+# Chain runs on the card since the counts were last set to 0: one per layer
+# whose launches all went out (chip_smoke.py reads them), for the bf16,
+# weight-only int8 and W8A8 chains.
 LAUNCHES = 0
+LAUNCHES_INT8W = 0
+LAUNCHES_W8A8 = 0
 
 # Minimax-fitted odd polynomial inside tanh: GELU(x) = 0.5x(1+tanh(x P(x^2))),
 # |err| <= 3.4e-6 against erf-GELU on all of R. The same five coefficients
@@ -44,6 +60,10 @@ _GELU_P = (0.79782813653302, 0.03646878821593782, -0.00012485972711897262,
 # limit; ``supports`` keeps the bound so that both packages route each
 # config the same way and their forwards stay comparable.
 FUSED_BLOCK_MAX_WEIGHT_BYTES = 40 << 20
+# Whole-stack weight bytes up to which the JAX package runs every layer in
+# one kernel (``_stack_kernel``, not ported). Kept for ``supports_stack``,
+# which decides what ``engine.resolve_quantize("auto")`` picks.
+FUSED_STACK_MAX_WEIGHT_BYTES = 44 << 20
 
 
 def _gelu_fast(x: torch.Tensor) -> torch.Tensor:
@@ -55,50 +75,108 @@ def _gelu_fast(x: torch.Tensor) -> torch.Tensor:
     return 0.5 * x * (1.0 + torch.tanh(x * p))
 
 
+def _layer_weight_bytes(config: ViTConfig, dtype_bytes: int) -> int:
+    d, h = config.embed_dim, config.hidden_dim
+    return (d * 3 * d + d * d + d * h + h * d) * dtype_bytes
+
+
 def supports(config: ViTConfig, dtype_bytes: int = 2) -> bool:
     """Whether the ``flash`` route sends this config's layers to the chain:
     erf-GELU configs whose per-layer weights are within the JAX package's
     fused-layer bound (tanh-GELU configs take the per-op path)."""
     if config.gelu_approx != "erf":
         return False
-    d, h = config.embed_dim, config.hidden_dim
-    weight_bytes = (d * 3 * d + d * d + d * h + h * d) * dtype_bytes
-    return weight_bytes <= FUSED_BLOCK_MAX_WEIGHT_BYTES
+    return _layer_weight_bytes(config, dtype_bytes) <= FUSED_BLOCK_MAX_WEIGHT_BYTES
+
+
+def supports_stack(config: ViTConfig, dtype_bytes: int = 2) -> bool:
+    """Whether the JAX package runs this config's whole encoder in one
+    kernel: its full weight stack within the on-chip budget."""
+    if config.gelu_approx != "erf":
+        return False
+    return (config.depth * _layer_weight_bytes(config, dtype_bytes)
+            <= FUSED_STACK_MAX_WEIGHT_BYTES)
 
 
 def _chain(x, lp, config: ViTConfig, ln, mm, attn) -> torch.Tensor:
+    """bf16 or weight-only int8: the 7-link chain."""
     cdt = x.dtype
     eps = config.eps
 
-    def w(key):
-        return lp[key].to(cdt)
+    def mm_w(h, key, bkey, **kw):
+        w = lp[key]
+        if is_quantized(w):
+            refuse_outliers(w)
+            return mm(h, w["q"], lp[bkey], w_scale=w["scale"], **kw)
+        return mm(h, w.to(cdt), lp[bkey], **kw)
 
     h = ln(x, lp["ln1_w"], lp["ln1_b"], eps, out_dtype=cdt)
-    qkv = mm(h, w("qkv_w"), lp["qkv_b"], out_dtype=cdt)
+    qkv = mm_w(h, "qkv_w", "qkv_b", out_dtype=cdt)
     ctx = attn(qkv, num_heads=config.num_heads, head_dim=config.head_dim)
-    x1 = mm(ctx, w("out_w"), lp["out_b"], residual=x, out_dtype=torch.float32)
+    x1 = mm_w(ctx, "out_w", "out_b", residual=x, out_dtype=torch.float32)
     h2 = ln(x1, lp["ln2_w"], lp["ln2_b"], eps, out_dtype=cdt)
-    hid = mm(h2, w("fc1_w"), lp["fc1_b"], fuse_gelu=True, out_dtype=cdt)
-    return mm(hid, w("fc2_w"), lp["fc2_b"], residual=x1, out_dtype=cdt)
+    hid = mm_w(h2, "fc1_w", "fc1_b", fuse_gelu=True, out_dtype=cdt)
+    return mm_w(hid, "fc2_w", "fc2_b", residual=x1, out_dtype=cdt)
 
 
-def fused_encoder_layer(x: torch.Tensor, lp, config: ViTConfig) -> torch.Tensor:
+def _chain_w8a8(x, lp, config: ViTConfig, ln, quant, mm8,
+                attn) -> torch.Tensor:
+    """W8A8: the 11-link chain."""
+    cdt, f32 = x.dtype, torch.float32
+    eps = config.eps
+
+    def mm_q(h, key, bkey, **kw):
+        w = lp[key]
+        refuse_outliers(w)
+        hq, hs = quant(h)
+        return mm8(hq, hs, w["q"], w["scale"], lp[bkey], **kw)
+
+    h = ln(x, lp["ln1_w"], lp["ln1_b"], eps, out_dtype=f32)
+    qkv = mm_q(h, "qkv_w", "qkv_b", out_dtype=cdt)
+    ctx = attn(qkv, num_heads=config.num_heads, head_dim=config.head_dim)
+    x1 = mm_q(ctx, "out_w", "out_b", residual=x, out_dtype=f32)
+    h2 = ln(x1, lp["ln2_w"], lp["ln2_b"], eps, out_dtype=f32)
+    hid = mm_q(h2, "fc1_w", "fc1_b", fuse_gelu=True, out_dtype=f32)
+    return mm_q(hid, "fc2_w", "fc2_b", residual=x1, out_dtype=cdt)
+
+
+def fused_encoder_layer(x: torch.Tensor, lp, config: ViTConfig, *,
+                        w8a8: bool = False) -> torch.Tensor:
     """One pre-LN encoder layer. x: [B, T, D] → [B, T, D] in x's dtype.
 
     ``lp`` is one layer's slice of the stacked params (models/vit layout:
     qkv_w [D, 3D], out_w [D, D], fc1_w [D, H], fc2_w [H, D] in the param
-    dtype, fp32 LN parameters and biases)."""
-    global LAUNCHES
-    out = _chain(x, lp, config, layernorm.layer_norm, linear.fused_linear,
-                 attention.packed_fused_attention)
+    dtype, or as int8 dicts {"q": [in, out], "scale": [1, out]} from
+    models/quant; fp32 LN parameters and biases). ``w8a8`` quantizes the
+    activations too; it needs int8 weights and is ignored without them,
+    as in the JAX package."""
+    global LAUNCHES, LAUNCHES_INT8W, LAUNCHES_W8A8
+    quantized = is_quantized(lp["qkv_w"])
+    if w8a8 and quantized:
+        out = _chain_w8a8(x, lp, config, layernorm.layer_norm,
+                          quantize.quantize_rows, linear.fused_linear_w8a8,
+                          attention.packed_fused_attention)
+    else:
+        out = _chain(x, lp, config, layernorm.layer_norm, linear.fused_linear,
+                     attention.packed_fused_attention)
     if x.is_cuda:
-        LAUNCHES += 1
+        if w8a8 and quantized:
+            LAUNCHES_W8A8 += 1
+        elif quantized:
+            LAUNCHES_INT8W += 1
+        else:
+            LAUNCHES += 1
     return out
 
 
-def fused_encoder_layer_reference(x: torch.Tensor, lp,
-                                  config: ViTConfig) -> torch.Tensor:
+def fused_encoder_layer_reference(x: torch.Tensor, lp, config: ViTConfig, *,
+                                  w8a8: bool = False) -> torch.Tensor:
     """The chain computed by each link's plain version, on any device."""
+    if w8a8 and is_quantized(lp["qkv_w"]):
+        return _chain_w8a8(x, lp, config, layernorm.layer_norm_reference,
+                           quantize.quantize_rows_reference,
+                           linear.fused_linear_w8a8_reference,
+                           attention.packed_fused_attention_reference)
     return _chain(x, lp, config, layernorm.layer_norm_reference,
                   linear.fused_linear_reference,
                   attention.packed_fused_attention_reference)

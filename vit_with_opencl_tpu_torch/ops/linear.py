@@ -1,17 +1,26 @@
-"""Fused linear layer: the CUDA GEMM ``csrc/linear.cu`` and its plain version.
+"""Fused linear layer: the CUDA GEMMs of ``csrc/linear.cu`` and their plain
+versions.
 
 Replaces ``vit_with_opencl_tpu/ops/linear.py:_linear_kernel``
-(``fused_linear``) and is the GEMM link of the encoder chain
-(``ops/fused_block.py``). ``x @ w`` accumulates in fp32; the epilogue adds,
-in fp32 and in this order, an optional residual, the bias, the optional
-``_gelu_fast``, and casts to ``out_dtype``. The residual and ``out_dtype``
-are the port's additions for the chain: the layer keeps its residual stream
-in fp32 between kernels. Bound on the card: operations (see the note in the
-source). The kernel takes bf16 ``x`` and ``w``; fp32 inputs on the card are
-not supported in this slice.
+(``fused_linear``) and is the GEMM link of the encoder chains
+(``ops/fused_block.py``). The product accumulates in fp32 (int32 for W8A8);
+the epilogue adds, in fp32 and in this order, an optional residual, the bias,
+the optional ``_gelu_fast``, and casts to ``out_dtype``. The residual and
+``out_dtype`` are the port's additions for the chain: the layer keeps its
+residual stream in fp32 between kernels. Three kernels, each with its own
+launch count:
 
-``fused_linear`` launches the kernel for a CUDA tensor and computes
-``fused_linear_reference`` for a CPU tensor; there is no other fallback.
+  * ``fused_linear`` with bf16 ``w``: bf16 x @ bf16 w (``LAUNCHES``);
+  * ``fused_linear`` with int8 ``w`` and ``w_scale``: weight-only int8, the
+    fp32 product times the per-column scale (``LAUNCHES_INT8W``);
+  * ``fused_linear_w8a8``: int8 x (with its per-row scale, from
+    ``ops/quantize.py``) @ int8 w, ``acc · s_x · s_w`` (``LAUNCHES_W8A8``).
+
+Bound on the card: operations (see the note in the source). The kernels take
+bf16 or int8 operands; fp32 ``x`` on the card is not supported yet.
+
+Each wrapper launches its kernel for a CUDA tensor and computes its
+``*_reference`` for a CPU tensor; there is no other fallback.
 """
 
 from __future__ import annotations
@@ -22,10 +31,27 @@ import torch
 
 from . import _build
 
-# Kernel launches since the count was last set to 0 (chip_smoke.py reads it).
+# Kernel launches since the counts were last set to 0 (chip_smoke.py reads
+# them): the bf16 GEMM, the int8-weight GEMM and the W8A8 GEMM.
 LAUNCHES = 0
+LAUNCHES_INT8W = 0
+LAUNCHES_W8A8 = 0
 
 _RESIDUAL_KINDS = {None: 0, torch.float32: 1, torch.bfloat16: 2}
+
+
+def _epilogue(out: torch.Tensor, b, residual, fuse_gelu: bool,
+              out_dtype: torch.dtype) -> torch.Tensor:
+    """The plain epilogue on an fp32 [M, N] product."""
+    from .fused_block import _gelu_fast
+
+    if residual is not None:
+        out = residual.reshape(out.shape).float() + out
+    if b is not None:
+        out = out + b.float()
+    if fuse_gelu:
+        out = _gelu_fast(out)
+    return out.to(out_dtype)
 
 
 def fused_linear_reference(
@@ -33,24 +59,45 @@ def fused_linear_reference(
     w: torch.Tensor,
     b: Optional[torch.Tensor] = None,
     *,
+    w_scale: Optional[torch.Tensor] = None,
     fuse_gelu: bool = False,
     residual: Optional[torch.Tensor] = None,
     out_dtype: Optional[torch.dtype] = None,
 ) -> torch.Tensor:
-    """``epilogue(x @ w)`` with an fp32-output GEMM (never a bf16-output
-    matmul, which would round where the reference does not)."""
-    from .fused_block import _gelu_fast
-
+    """``epilogue(x @ w [* w_scale])`` with an fp32-output GEMM (never a
+    bf16-output matmul, which would round where the reference does not)."""
     *lead, k = x.shape
     n = w.shape[1]
     out = x.reshape(-1, k).float() @ w.float()
-    if residual is not None:
-        out = residual.reshape(-1, n).float() + out
+    if w_scale is not None:
+        out = out * w_scale.reshape(n).float()
+    out = _epilogue(out, b, residual, fuse_gelu, out_dtype or x.dtype)
+    return out.reshape(*lead, n)
+
+
+def _check_epilogue(lead, n, dev, b, residual, out_dtype) -> None:
     if b is not None:
-        out = out + b.float()
-    if fuse_gelu:
-        out = _gelu_fast(out)
-    return out.to(out_dtype or x.dtype).reshape(*lead, n)
+        _build.require(b, "b", device=dev, dtypes=(torch.float32,), shape=(n,))
+    if residual is not None:
+        _build.require(residual, "residual", device=dev,
+                       dtypes=(torch.float32, torch.bfloat16),
+                       shape=(*lead, n))
+    if out_dtype not in _build.DTYPE_CODES:
+        raise TypeError(f"out_dtype {out_dtype} not in "
+                        f"{tuple(_build.DTYPE_CODES)}")
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return t.data_ptr() if t is not None else None
+
+
+def _scale_vector(s: torch.Tensor, n: int, name: str, dev) -> torch.Tensor:
+    """A per-column scale [N] or [1, N] as a contiguous fp32 [N] view."""
+    if s.numel() != n:
+        raise ValueError(f"{name} has shape {tuple(s.shape)}, expected ({n},)")
+    s = s.reshape(n)
+    _build.require(s, name, device=dev, dtypes=(torch.float32,))
+    return s
 
 
 def fused_linear(
@@ -58,6 +105,7 @@ def fused_linear(
     w: torch.Tensor,
     b: Optional[torch.Tensor] = None,
     *,
+    w_scale: Optional[torch.Tensor] = None,
     fuse_gelu: bool = False,
     residual: Optional[torch.Tensor] = None,
     out_dtype: Optional[torch.dtype] = None,
@@ -65,44 +113,121 @@ def fused_linear(
     """``x`` [..., K] @ ``w`` [K, N] (right-multiply layout) with bias ``b``
     [N] (fp32), an optional ``residual`` [..., N] (fp32 or bf16) added before
     the bias, and an optional ``_gelu_fast``. Result in ``out_dtype``
-    (default x's dtype)."""
-    global LAUNCHES
+    (default x's dtype). An int8 ``w`` needs its per-column fp32 ``w_scale``
+    ([N] or [1, N]), which multiplies the product before the epilogue."""
+    global LAUNCHES, LAUNCHES_INT8W
     out_dtype = out_dtype or x.dtype
+    int8w = w.dtype == torch.int8
+    if int8w != (w_scale is not None):
+        raise ValueError("w_scale goes with an int8 w, and only with one")
     if not x.is_cuda:
-        return fused_linear_reference(x, w, b, fuse_gelu=fuse_gelu,
-                                      residual=residual, out_dtype=out_dtype)
+        return fused_linear_reference(x, w, b, w_scale=w_scale,
+                                      fuse_gelu=fuse_gelu, residual=residual,
+                                      out_dtype=out_dtype)
     *lead, k = x.shape
-    if x.dtype != torch.bfloat16 or w.dtype != torch.bfloat16:
+    if x.dtype != torch.bfloat16 or w.dtype not in (torch.bfloat16, torch.int8):
         raise NotImplementedError(
-            "the CUDA GEMM takes bf16 x and w; an fp32 variant is not "
-            f"ported yet (got x {x.dtype}, w {w.dtype})")
+            "the CUDA GEMM takes bf16 x and a bf16 or int8 w; an fp32 variant "
+            f"is not ported yet (got x {x.dtype}, w {w.dtype})")
     if w.dim() != 2 or w.shape[0] != k:
         raise ValueError(f"w has shape {tuple(w.shape)}, expected ({k}, N)")
     n = w.shape[1]
-    if k % 8 or n % 8:
-        raise ValueError(f"K={k} and N={n} must be multiples of 8")
+    if k % 8 or n % (16 if int8w else 8):
+        raise ValueError(f"K={k} must be a multiple of 8 and N={n} of "
+                         f"{16 if int8w else 8}")
     _build.require(x, "x", device=x.device, dtypes=(torch.bfloat16,))
-    _build.require(w, "w", device=x.device, dtypes=(torch.bfloat16,))
-    if b is not None:
-        _build.require(b, "b", device=x.device, dtypes=(torch.float32,),
-                       shape=(n,))
-    if residual is not None:
-        _build.require(residual, "residual", device=x.device,
-                       dtypes=(torch.float32, torch.bfloat16),
-                       shape=(*lead, n))
-    if out_dtype not in _build.DTYPE_CODES:
-        raise TypeError(f"out_dtype {out_dtype} not in "
-                        f"{tuple(_build.DTYPE_CODES)}")
+    _build.require(w, "w", device=x.device, dtypes=(w.dtype,))
+    _check_epilogue(lead, n, x.device, b, residual, out_dtype)
     out = torch.empty((*lead, n), dtype=out_dtype, device=x.device)
     m = x.numel() // k
     if m == 0:
         return out
-    err = _build.library().vit_linear_bf16(
-        x.data_ptr(), w.data_ptr(), b.data_ptr() if b is not None else None,
-        residual.data_ptr() if residual is not None else None,
+    lib = _build.library()
+    tail = (_ptr(b), _ptr(residual),
+            _RESIDUAL_KINDS[None if residual is None else residual.dtype],
+            out.data_ptr(), int(out_dtype == torch.bfloat16), int(fuse_gelu),
+            m, n, k, _build.stream_handle(x))
+    if int8w:
+        s = _scale_vector(w_scale, n, "w_scale", x.device)
+        err = lib.vit_linear_int8w(x.data_ptr(), w.data_ptr(), s.data_ptr(),
+                                   *tail)
+        _build.check_launch(err, "fused_linear (int8 w)")
+        LAUNCHES_INT8W += 1
+    else:
+        err = lib.vit_linear_bf16(x.data_ptr(), w.data_ptr(), *tail)
+        _build.check_launch(err, "fused_linear")
+        LAUNCHES += 1
+    return out
+
+
+def fused_linear_w8a8_reference(
+    xq: torch.Tensor,
+    sx: torch.Tensor,
+    wq: torch.Tensor,
+    sw: torch.Tensor,
+    b: Optional[torch.Tensor] = None,
+    *,
+    residual: Optional[torch.Tensor] = None,
+    fuse_gelu: bool = False,
+    out_dtype: torch.dtype = torch.float32,
+) -> torch.Tensor:
+    """``epilogue((xq @ wq) · sx · sw)``: the integer sums exactly (in
+    float64), rounded once to fp32, then the scales in the TPU kernel's
+    order, ``(acc · s_x) · s_w``."""
+    from ..models.quant import int8_product
+
+    *lead, k = xq.shape
+    n = wq.shape[1]
+    acc = int8_product(xq.reshape(-1, k), wq)
+    out = acc * sx.reshape(-1, 1).float() * sw.reshape(1, n).float()
+    return _epilogue(out, b, residual, fuse_gelu, out_dtype).reshape(*lead, n)
+
+
+def fused_linear_w8a8(
+    xq: torch.Tensor,
+    sx: torch.Tensor,
+    wq: torch.Tensor,
+    sw: torch.Tensor,
+    b: Optional[torch.Tensor] = None,
+    *,
+    residual: Optional[torch.Tensor] = None,
+    fuse_gelu: bool = False,
+    out_dtype: torch.dtype = torch.float32,
+) -> torch.Tensor:
+    """W8A8 GEMM: ``xq`` [..., K] int8 with its per-row scale ``sx``
+    [..., 1] (``ops/quantize.quantize_rows``) @ ``wq`` [K, N] int8 with its
+    per-column scale ``sw`` ([N] or [1, N]), int32 accumulation, then
+    ``(acc · s_x) · s_w``, the residual, the bias and the GELU in fp32.
+    K and N must be multiples of 16."""
+    global LAUNCHES_W8A8
+    if not xq.is_cuda:
+        return fused_linear_w8a8_reference(xq, sx, wq, sw, b, residual=residual,
+                                           fuse_gelu=fuse_gelu,
+                                           out_dtype=out_dtype)
+    *lead, k = xq.shape
+    if wq.dim() != 2 or wq.shape[0] != k:
+        raise ValueError(f"wq has shape {tuple(wq.shape)}, expected ({k}, N)")
+    n = wq.shape[1]
+    if k % 16 or n % 16:
+        raise ValueError(f"K={k} and N={n} must be multiples of 16")
+    m = xq.numel() // k if k else 0
+    _build.require(xq, "xq", device=xq.device, dtypes=(torch.int8,))
+    _build.require(wq, "wq", device=xq.device, dtypes=(torch.int8,))
+    if sx.numel() != m:
+        raise ValueError(f"sx has shape {tuple(sx.shape)}, expected "
+                         f"({', '.join(map(str, lead))}, 1)")
+    _build.require(sx, "sx", device=xq.device, dtypes=(torch.float32,))
+    s = _scale_vector(sw, n, "sw", xq.device)
+    _check_epilogue(lead, n, xq.device, b, residual, out_dtype)
+    out = torch.empty((*lead, n), dtype=out_dtype, device=xq.device)
+    if m == 0:
+        return out
+    err = _build.library().vit_linear_w8a8(
+        xq.data_ptr(), sx.data_ptr(), wq.data_ptr(), s.data_ptr(), _ptr(b),
+        _ptr(residual),
         _RESIDUAL_KINDS[None if residual is None else residual.dtype],
         out.data_ptr(), int(out_dtype == torch.bfloat16), int(fuse_gelu),
-        m, n, k, _build.stream_handle(x))
-    _build.check_launch(err, "fused_linear")
-    LAUNCHES += 1
+        m, n, k, _build.stream_handle(xq))
+    _build.check_launch(err, "fused_linear_w8a8")
+    LAUNCHES_W8A8 += 1
     return out
