@@ -274,6 +274,153 @@ def test_w8a8_flash_forward_matches_plain_chain(dev, monkeypatch):
     assert (probs - ref).abs().max().item() < 1e-3
 
 
+def _outlier_rows(rows, cols, dev, dtype, hot=(5, 63, 700)):
+    """Rows with hot columns (60x), a zero row (3), and a row (5) whose
+    absmax is 127 with half-way values."""
+    x = _rand((rows, cols), dev, std=1.0, seed=8)
+    x[:, [c for c in hot if c < cols]] *= 60.0
+    x = _with_special_rows(x.to(dtype))
+    return x
+
+
+@pytest.mark.parametrize("rows,cols,m", [(37, 768, 640), (3152, 768, 640),
+                                         (197, 3072, 2944), (6, 64, 48),
+                                         (50, 512, 496)])
+def test_quantize_rows_split_kernel(dev, rows, cols, m):
+    """Bit-identical to the plain version: codes, scales and the tail (bf16
+    rounded to nearest even)."""
+    x = _outlier_rows(rows, cols, dev, torch.float32)
+    bf = torch.bfloat16
+    before = quantize.LAUNCHES_SPLIT
+    q, s, hi = quantize.quantize_rows_split(x, m, bf)
+    torch.cuda.synchronize()
+    assert quantize.LAUNCHES_SPLIT == before + 1
+    rq, rs, rhi = quantize.quantize_rows_split_reference(x, m, bf)
+    assert q.shape == (rows, m) and hi.shape == (rows, cols - m) and hi.dtype == bf
+    assert torch.equal(q, rq) and torch.equal(s, rs) and torch.equal(hi, rhi)
+    assert q[5, :5].tolist() == [127, 2, 4, -2, 0] and not q[3].any()
+
+
+@pytest.mark.parametrize("rows,nh,hd,kh", [(37, 12, 64, 8), (3152, 12, 64, 8),
+                                           (6, 4, 16, 2), (74, 4, 32, 4),
+                                           (33, 16, 64, 8), (9, 12, 64, 1)])
+def test_quantize_rows_masked_kernel(dev, rows, nh, hd, kh):
+    """Bit-identical to the plain version, with tails above the kept absmax
+    clipped to +-127 (not wrapped around)."""
+    dtype = torch.bfloat16
+    x = _outlier_rows(rows, nh * hd, dev, dtype, hot=(hd - 1, 2 * hd - 1))
+    x[5, hd - 1] = 900.0  # far above row 5's kept absmax of 127
+    before = quantize.LAUNCHES_MASKED
+    q, s, hi = quantize.quantize_rows_masked(x, nh, hd, kh)
+    torch.cuda.synchronize()
+    assert quantize.LAUNCHES_MASKED == before + 1
+    rq, rs, rhi = quantize.quantize_rows_masked_reference(x, nh, hd, kh)
+    assert hi.shape == (rows, nh * kh) and hi.dtype == dtype
+    assert torch.equal(q, rq) and torch.equal(s, rs) and torch.equal(hi, rhi)
+    assert q[5, hd - 1].item() == 127 and q[5, :5].tolist() == [127, 2, 4, -2, 0]
+    assert not q[3].any()
+
+
+@pytest.mark.parametrize("m,k,n,k_hi", [(74, 64, 192, 16), (3152, 640, 2304, 128),
+                                        (33, 2944, 768, 128), (1, 768, 768, 96),
+                                        (394, 768, 768, 96)])
+@pytest.mark.parametrize("epilogue", ["bias_bf16", "bias_f32", "res_f32",
+                                      "res_bf16", "gelu"])
+def test_fused_linear_w8a8_side_kernel(dev, m, k, n, k_hi, epilogue):
+    """The int8 sums are exact; the bf16 side product sums in another order
+    than the plain version's fp32 GEMM, so the outputs are close, not
+    identical, and bf16 outputs almost always identical."""
+    xq, sx = quant.quantize_act(_rand((m, k), dev))
+    w = _int8_weight(k, n, dev)
+    x_hi = _rand((m, k_hi), dev, torch.bfloat16, std=20.0, seed=4)
+    w_hi = _rand((k_hi, n), dev, torch.bfloat16, std=0.05, seed=5)
+    b = _rand((n,), dev, std=0.1, seed=2)
+    kw = _epilogue_kw(epilogue, m, n, dev)
+    before = (linear.LAUNCHES_W8A8, linear.LAUNCHES_W8A8_HI)
+    out = linear.fused_linear_w8a8(xq, sx, w["q"], w["scale"], b, x_hi=x_hi,
+                                   w_hi=w_hi, **kw)
+    torch.cuda.synchronize()
+    assert (linear.LAUNCHES_W8A8, linear.LAUNCHES_W8A8_HI) == (before[0], before[1] + 1)
+    ref = linear.fused_linear_w8a8_reference(xq, sx, w["q"], w["scale"], b,
+                                             x_hi=x_hi, w_hi=w_hi, **kw)
+    assert out.dtype == kw["out_dtype"]
+    _close(out, ref)
+
+
+def test_outlier_wrappers_refuse_shapes(dev):
+    x, bf = _rand((4, 64), dev), torch.bfloat16
+    with pytest.raises(ValueError, match="multiple of 16"):
+        quantize.quantize_rows_split(x, 40, bf)
+    with pytest.raises(ValueError, match="K - m"):
+        quantize.quantize_rows_split(x, 64, bf)
+    for x_dtype, hi_dtype in ((bf, bf), (torch.float32, torch.float32)):
+        with pytest.raises(TypeError, match="fp32 x"):
+            quantize.quantize_rows_split(x.to(x_dtype), 48, hi_dtype)
+    with pytest.raises(ValueError, match="num_heads"):
+        quantize.quantize_rows_masked(x.to(bf), 4, 8, 2)
+    with pytest.raises(TypeError, match="bf16 x"):
+        quantize.quantize_rows_masked(x, 4, 16, 2)
+    xq, sx = quant.quantize_act(x)
+    w = _int8_weight(64, 16, dev)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        linear.fused_linear_w8a8(xq, sx, w["q"], w["scale"],
+                                 x_hi=_rand((4, 12), dev, torch.bfloat16),
+                                 w_hi=_rand((12, 16), dev, torch.bfloat16))
+    with pytest.raises(TypeError, match="x_hi"):
+        linear.fused_linear_w8a8(xq, sx, w["q"], w["scale"],
+                                 x_hi=_rand((4, 16), dev),
+                                 w_hi=_rand((16, 16), dev, torch.bfloat16))
+
+
+def _calibrated(cfg, dev, seed=5, head_scale=6.0):
+    """Adversarial weights, bf16 on the card, calibrated there."""
+    pn = fixtures.adversarial_params(cfg, seed=seed)
+    pn["heads_head_weight"] = pn["heads_head_weight"] * head_scale
+    stacked = vit.stack_params(pn, cfg, device=dev)
+    calib = fixtures.random_images(cfg, n=8, seed=99)
+    return vit.params_to(quant.calibrate_w8a8(calib, stacked, cfg), dev)
+
+
+@pytest.mark.parametrize("d,nh,t", [(128, 4, 37), (768, 12, 197)])
+def test_outlier_encoder_layer_chain(dev, d, nh, t):
+    cfg = ViTConfig(name="chain", img_size=32, patch_size=8, embed_dim=d,
+                    depth=1, num_heads=nh, num_classes=9)
+    lp = vit._layer(_calibrated(cfg, dev), 0)
+    x = _rand((2, t, d), dev, torch.bfloat16, std=0.5, seed=6)
+    counters = ((layernorm, "LAUNCHES"), (quantize, "LAUNCHES"),
+                (quantize, "LAUNCHES_SPLIT"), (quantize, "LAUNCHES_MASKED"),
+                (linear, "LAUNCHES_W8A8"), (linear, "LAUNCHES_W8A8_HI"),
+                (attention, "LAUNCHES"), (fused_block, "LAUNCHES_W8A8"),
+                (fused_block, "LAUNCHES_W8A8_OUTLIER"))
+    before = [getattr(mod, name) for mod, name in counters]
+    out = fused_block.fused_encoder_layer(x, lp, cfg, w8a8=True)
+    torch.cuda.synchronize()
+    after = [getattr(mod, name) for mod, name in counters]
+    assert [a - b for a, b in zip(after, before)] == [2, 0, 3, 1, 0, 4, 1, 0, 1]
+    _close(out, fused_block.fused_encoder_layer_reference(x, lp, cfg, w8a8=True),
+           min_same=MIN_SAME_CHAIN_W8A8, tol=W8A8_CHAIN_TOL)
+
+
+def test_outlier_flash_forward_matches_plain_chain(dev, monkeypatch):
+    """Calibrated outlier-aware W8A8 through the kernels against the same
+    forward with the chain's links swapped for their plain versions: the
+    1e-3 budget on probabilities."""
+    cfg = ViTConfig(name="fwd", img_size=32, patch_size=8, embed_dim=128,
+                    depth=2, num_heads=4, num_classes=9)
+    params = _calibrated(cfg, dev, seed=7)
+    images = torch.from_numpy(fixtures.random_images(cfg, n=3, seed=3)).to(dev)
+    kernels = vit.resolve_kernels("flash", w8a8=True,
+                                  heads=(cfg.num_heads, cfg.head_dim))
+    before = fused_block.LAUNCHES_W8A8_OUTLIER
+    probs = vit.forward(images, params, cfg, kernels=kernels)
+    torch.cuda.synchronize()
+    assert fused_block.LAUNCHES_W8A8_OUTLIER == before + cfg.depth
+    monkeypatch.setattr(fused_block, "fused_encoder_layer",
+                        fused_block.fused_encoder_layer_reference)
+    ref = vit.forward(images, params, cfg, kernels=kernels)
+    assert (probs - ref).abs().max().item() < 1e-3
+
+
 def test_flash_forward_within_parity_budget(dev):
     """bf16 through the kernels against the plain fp32 forward: the
     reference's 1e-3 budget on probabilities."""

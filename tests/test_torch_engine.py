@@ -105,9 +105,14 @@ def test_engine_normalize_uint8(small):
 
 def test_engine_quantize_not_ported(small):
     """int8 and W8A8 run (tests/test_torch_quant.py); the calibrated
-    outlier-aware W8A8 mode is not ported yet and must not quietly run as
-    plain W8A8."""
-    params, images, _ = small
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        InferenceEngine(CFG, params, quantize="int8-w8a8", calibrate=images,
-                        device="cpu")
+    outlier-aware W8A8 mode, once not ported, now runs, and never quietly as
+    plain W8A8: its encoder weights carry the bf16 outlier groups."""
+    params, images, ref = small
+    engine = InferenceEngine(CFG, params, quantize="int8-w8a8", calibrate=images,
+                             device="cpu", attention_impl="flash", batch_size=2,
+                             param_dtype=torch.float32, compute_dtype=torch.float32)
+    for key in ("qkv_w", "out_w", "fc1_w", "fc2_w"):
+        assert engine.params["layers"][key]["hi"].dtype == torch.bfloat16
+    probs = engine.run(images)
+    np.testing.assert_allclose(probs, ref, atol=1e-2)
+    assert (probs.argmax(-1) == ref.argmax(-1)).all()

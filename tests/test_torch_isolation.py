@@ -1,6 +1,7 @@
-"""The port stands alone: it imports neither JAX nor the JAX package, never
-falls back to the CPU when a card was asked for, and never falls back to a
-plain version when its kernels cannot be built."""
+"""The port stands alone: it imports neither JAX nor the JAX package, nor
+``ml_dtypes`` (the machine with the card lacks it: the port rounds its bf16
+weights with torch), never falls back to the CPU when a card was asked for,
+and never falls back to a plain version when its kernels cannot be built."""
 
 import pkgutil
 import re
@@ -34,7 +35,8 @@ def test_importing_every_module_loads_no_jax():
         f"for name in {modules!r}: importlib.import_module(name)",
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')",
         "             or m == 'vit_with_opencl_tpu'",
-        "             or m.startswith('vit_with_opencl_tpu.'))",
+        "             or m.startswith('vit_with_opencl_tpu.')",
+        "             or m == 'ml_dtypes' or m.startswith('ml_dtypes.'))",
         "print(bad)",
     ])
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
@@ -47,6 +49,7 @@ FORBIDDEN = [re.compile(p, re.MULTILINE) for p in (
     r"^\s*(import|from)\s+jax\b",
     r"^\s*(import|from)\s+vit_with_opencl_tpu\b",  # \b: not ..._torch
     r"\bvit_with_opencl_tpu\.",
+    r"^\s*(import|from)\s+ml_dtypes\b",  # also a lazy import in a function
 )]
 
 

@@ -199,6 +199,10 @@ def test_int8_matmuls_match_jax(dtype, fn):
 
 
 def test_int8_matmuls_refuse_stacked_and_outlier_weights():
+    """Stacked weights are refused by both int8 matmuls. Outlier-aware dicts
+    (a bf16 "hi" group) run W8A8 in the trailing and the masked form, as the
+    JAX package's matmul_w8a8 does, and are refused by weight-only int8
+    (ValueError, as the JAX package's fused layer refuses them)."""
     rng = np.random.default_rng(8)
     tw, _ = _weight_pair(rng, 16, 16)
     x = torch.zeros(3, 16)
@@ -206,8 +210,21 @@ def test_int8_matmuls_refuse_stacked_and_outlier_weights():
     for fn in (quant.matmul_q, quant.matmul_w8a8):
         with pytest.raises(ValueError, match="single layer"):
             fn(x, stacked, None)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            fn(x, {**tw, "hi": torch.zeros(4, 16)}, None)
+    heads = (4, 4)
+    xs = rng.standard_normal((2, 5, 16)).astype(np.float32) * 3.0
+    w = rng.standard_normal((16, 8)).astype(np.float32) * 0.2
+    mask = np.zeros(16, bool)
+    mask[3::4] = True  # the last column of each 4-wide head
+    for jw in (jquant._split_weight(w, 4), jquant._masked_weight(w, mask)):
+        ours = tvit.params_from_jax({"layers": {"w": jw}}, device="cpu")["layers"]["w"]
+        assert ours["hi"].dtype == torch.bfloat16
+        ref = jquant.matmul_w8a8(jnp.asarray(xs), {k: jnp.asarray(v) for k, v in jw.items()},
+                                 None, heads=heads)
+        out = quant.matmul_w8a8(torch.from_numpy(xs), ours, None, heads=heads)
+        np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=MATMUL_RTOL,
+                                   atol=MATMUL_ATOL)
+        with pytest.raises(ValueError, match="w8a8"):
+            quant.matmul_q(torch.from_numpy(xs), ours, None)
     # fp weights through matmul_w8a8 run as matmul_q, as in the JAX package.
     w = torch.from_numpy(rng.standard_normal((16, 8)).astype(np.float32))
     torch.testing.assert_close(quant.matmul_w8a8(x, w, None),
@@ -274,16 +291,24 @@ def test_int8_encoder_layer_matches_jax(encoder_layer_inputs, dtype, w8a8):
 
 
 def test_outlier_weights_refused_by_the_chains(encoder_layer_inputs):
+    """Calibrated outlier-aware weights: the weight-only chain refuses them
+    (ValueError, as the JAX package's _group_call); the W8A8 chain runs its
+    outlier form (tests/test_torch_quant_outlier.py holds it to JAX)."""
     params, x = encoder_layer_inputs
-    stacked = quant.quantize_stacked_params(
-        tvit.stack_params(params, ENC_CFG, param_dtype=torch.float32,
-                          device="cpu"), ENC_CFG)
+    stacked = quant.calibrate_w8a8(
+        jfixtures.random_images(ENC_CFG, n=2, seed=1),
+        tvit.stack_params(params, ENC_CFG, param_dtype=torch.float32, device="cpu"),
+        ENC_CFG)
     lp = tvit._layer(stacked, 0)
-    lp["fc2_w"] = {**lp["fc2_w"], "hi": torch.zeros(8, 64)}
-    for w8a8 in (False, True):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            fused_block.fused_encoder_layer(torch.from_numpy(x), lp, ENC_CFG,
-                                            w8a8=w8a8)
+    assert "hi" in lp["fc2_w"]
+    tx = torch.from_numpy(x)
+    with pytest.raises(ValueError, match="w8a8"):
+        fused_block.fused_encoder_layer(tx, lp, ENC_CFG)
+    out = fused_block.fused_encoder_layer(tx, lp, ENC_CFG, w8a8=True)
+    assert out.shape == tx.shape and torch.isfinite(out).all()
+    torch.testing.assert_close(
+        out, fused_block.fused_encoder_layer_reference(tx, lp, ENC_CFG, w8a8=True),
+        rtol=0, atol=0)
 
 
 @pytest.fixture(scope="module")
@@ -393,15 +418,26 @@ def test_engine_quantize_modes(forward_setup):
         tengine.InferenceEngine(CFG, params, quantize="int4", **kw)
 
 
-def test_calibrate_raises_until_ported(forward_setup, workspace, monkeypatch):
-    params, images, _ = forward_setup
-    for mode in ("auto", "int8-w8a8"):  # never plain W8A8 in its place
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tengine.InferenceEngine(CFG, params, quantize=mode,
-                                    calibrate=images, device="cpu")
+def test_calibrate_raises_until_ported(forward_setup, workspace, monkeypatch,
+                                      capsys):
+    """``calibrate=`` ran into NotImplementedError until the outlier-aware
+    mode was ported; now it runs the calibrated W8A8 (never plain W8A8 in
+    its place), and still raises ValueError without a W8A8 mode."""
+    params, images, ref = forward_setup
+    for mode in ("auto", "int8-w8a8"):
+        engine = tengine.InferenceEngine(CFG, params, quantize=mode,
+                                         calibrate=images, device="cpu",
+                                         param_dtype=torch.float32,
+                                         compute_dtype=torch.float32)
+        assert engine.quantize == "int8-w8a8"
+        assert "hi" in engine.params["layers"]["qkv_w"]
+        probs = engine.run(images)
+        np.testing.assert_allclose(probs, ref, atol=PROB_TOL_GOLDEN)
+        assert (probs.argmax(-1) == ref.argmax(-1)).all()
     with pytest.raises(ValueError, match="calibrate"):
         tengine.InferenceEngine(CFG, params, calibrate=images, device="cpu")
     monkeypatch.setitem(tconfig.PRESETS, E2E_CFG.name, E2E_CFG)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cli.main(_argv(workspace, "result_cal.txt", "--calibrate",
-                       str(workspace / "input.bin")))
+    rc = cli.main(_argv(workspace, "result_cal.txt", "--calibrate",
+                        str(workspace / "input.bin")))
+    out = capsys.readouterr().out
+    assert rc == 0 and "Comparator: files match." in out, out

@@ -9,7 +9,7 @@ card by default (``--device cpu`` runs its plain versions on the CPU).
 
     python -m vit_with_opencl_tpu_torch.cli --input input.bin --weights Network \
         --output result.txt --answer answer.txt --backend gpu --attention flash \
-        [--quantize int8|int8-w8a8|auto]
+        [--quantize int8|int8-w8a8|auto] [--calibrate CALIB.bin]
 
 Exit code 0, or 1 when the comparator finds mismatches.
 """
@@ -72,10 +72,10 @@ def main(argv=None) -> int:
                         "(also per-token int8 activations, int8 x int8 "
                         "GEMMs); auto picks w8a8 for ViT-B and larger")
     parser.add_argument("--calibrate", default=None, metavar="IMAGES.BIN",
-                        help="calibration images for outlier-aware W8A8; "
-                        "not ported yet: the engine raises "
-                        "NotImplementedError (implies w8a8 when --quantize "
-                        "is auto or unset)")
+                        help="calibration images for outlier-aware W8A8: "
+                        "calibrated per-channel absmax, hot channels kept in "
+                        "bf16 (implies w8a8 when --quantize is auto or "
+                        "unset)")
     parser.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                         help="device of the gpu backend; cpu runs every "
                         "kernel's plain PyTorch version")

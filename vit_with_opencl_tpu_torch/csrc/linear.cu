@@ -9,7 +9,13 @@
 //                        accumulator is multiplied by the per-column scale;
 //   linear_w8a8_kernel   x int8 @ w int8 (quantized=True, w8a8=True), int32
 //                        accumulation (exact: 3072 * 127^2 < 2^31), then
-//                        ((float)acc * x_scale[m]) * w_scale[n].
+//                        ((float)acc * x_scale[m]) * w_scale[n]; with a side
+//                        product (outlier=True: _mm with hi_ref,
+//                        fused_block.py:108-116, and _mm_ctx_masked, :128),
+//                        a second K loop over bf16 x_hi [M, K_hi] @ w_hi
+//                        [K_hi, N] into an fp32 accumulator of the same
+//                        output tile, added after the scales:
+//                        t = ((float)acc * x_scale[m]) * w_scale[n] + side.
 // w is the right-multiply layout [K, N] of models/vit.stack_params, row-major.
 // The epilogue then runs in fp32 in this order:
 //   + residual (optional; fp32 or bf16 [M, N]), + bias (optional; fp32 [N]),
@@ -30,8 +36,10 @@
 // per-warp 16x16 staging tile in shared memory, because WMMA's accumulator
 // layout is opaque. The int8 tiles are kept as 16-byte-wide column chunks
 // ([chunk][row][16]) so that every 8-bit WMMA fragment starts on a 32-byte
-// boundary. Not yet used: Hopper's wgmma and TMA, which a later tuning pass
-// needs to approach peak.
+// boundary. The side product (K_hi = 96 or 128 at ViT-B against an int8 K of
+// 640 to 2944) is one kernel, not a second GEMM with an fp32 [M, N] addend:
+// that round trip would cost 2 x 620 MB for fc1 at B = 256. Not yet used:
+// Hopper's wgmma and TMA, which a later tuning pass needs to approach peak.
 #include "common.cuh"  // cuda_bf16.h before mma.h: the bf16 fragments
 
 #include <mma.h>
@@ -54,6 +62,10 @@ constexpr int kQBK = 64;
 constexpr int kQAStage = kBM * kQBK;  // bytes: [kQBK/16][kBM][16]
 constexpr int kQBStage = kQBK * kBN;  // bytes: [kBN/16][kQBK][16]
 constexpr int kSmemBytesW8A8 = kStages * (kQAStage + kQBStage);
+// With the side product the ring is reused for the bf16 slices after the
+// int8 loop.
+constexpr int kSmemBytesW8A8Side =
+    kSmemBytesW8A8 > kSmemBytes ? kSmemBytesW8A8 : kSmemBytes;
 
 // Residual kinds (ops/linear.py passes the same codes).
 enum Residual : int { kNoResidual = 0, kResidualF32 = 1, kResidualBF16 = 2 };
@@ -357,12 +369,61 @@ __device__ __forceinline__ void load_slice_int8(
   }
 }
 
+// The epilogue of the W8A8 GEMM with a side product: each fragment's int32
+// sums and its fp32 side sums are staged side by side, then
+// t = ((float)acc * x_scale[m]) * w_scale[n] + side, in that order (the
+// plain version's), before the rest of the epilogue.
+__device__ __forceinline__ void write_tiles_side(
+    nvcuda::wmma::fragment<nvcuda::wmma::accumulator, 16, 16, 16, int> (
+        &acc)[4][2],
+    nvcuda::wmma::fragment<nvcuda::wmma::accumulator, 16, 16, 16, float> (
+        &side)[4][2],
+    unsigned char* smem, int m0, int n0, int M, int N, const Epilogue& ep,
+    const float* __restrict__ x_scale, const float* __restrict__ w_scale) {
+  using namespace nvcuda;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int wm = warp / 4, wn = warp % 4;
+  int* istage = reinterpret_cast<int*>(smem) + warp * 16 * kEpiLd;
+  float* fstage = reinterpret_cast<float*>(smem) +
+                  (kThreads / 32 + warp) * 16 * kEpiLd;
+  const int r = lane / 2, c = (lane % 2) * 8;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      wmma::store_matrix_sync(istage, acc[i][j], kEpiLd, wmma::mem_row_major);
+      wmma::store_matrix_sync(fstage, side[i][j], kEpiLd, wmma::mem_row_major);
+      __syncwarp();
+      const int gm = m0 + wm * 64 + i * 16 + r;
+      const int gn = n0 + wn * 32 + j * 16 + c;
+      if (gm < M && gn < N) {
+        float v[8];
+#pragma unroll
+        for (int e = 0; e < 8; ++e)
+          v[e] = __fadd_rn(
+              __fmul_rn(__fmul_rn(__int2float_rn(istage[r * kEpiLd + c + e]),
+                                  x_scale[gm]),
+                        w_scale[gn + e]),
+              fstage[r * kEpiLd + c + e]);
+        finish8(v, gm, gn, N, ep);
+      }
+      __syncwarp();
+    }
+  }
+}
+
+// kSide: also the bf16 side product x_hi @ w_hi (K_hi deep, a multiple of
+// 8), run after the int8 loop in the same ring of shared memory. Both
+// accumulators stay in registers (128 of them for a warp's 64x32 sub-tile).
+template <bool kSide>
 __global__ void __launch_bounds__(kThreads)
 linear_w8a8_kernel(const int8_t* __restrict__ xq,
                    const float* __restrict__ x_scale,
                    const int8_t* __restrict__ w,
-                   const float* __restrict__ w_scale, Epilogue ep, int M,
-                   int N, int K) {
+                   const float* __restrict__ w_scale,
+                   const bf16* __restrict__ x_hi,
+                   const bf16* __restrict__ w_hi, int K_hi, Epilogue ep,
+                   int M, int N, int K) {
   using namespace nvcuda;
   extern __shared__ __align__(128) unsigned char smem[];
   int8_t* as = reinterpret_cast<int8_t*>(smem);
@@ -425,12 +486,48 @@ linear_w8a8_kernel(const int8_t* __restrict__ xq,
     }
   }
   cp_async_wait<0>();
-  __syncthreads();
-  write_tiles<int>(acc, smem, m0, n0, M, N, ep,
-                   [x_scale, w_scale](int a, int m, int n) {
-                     return __fmul_rn(__fmul_rn(__int2float_rn(a), x_scale[m]),
-                                      w_scale[n]);
-                   });
+  __syncthreads();  // the ring is idle
+  if constexpr (kSide) {
+    bf16* as16 = reinterpret_cast<bf16*>(smem);
+    bf16* bs16 = as16 + kStages * kAStage;
+    wmma::fragment<wmma::accumulator, 16, 16, 16, float> side[4][2];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) wmma::fill_fragment(side[i][j], 0.f);
+    const int hslices = (K_hi + kBK - 1) / kBK;
+#pragma unroll
+    for (int s = 0; s < kStages - 1; ++s) {
+      if (s < hslices) {
+        load_a_bf16(as16 + s * kAStage, x_hi, M, K_hi, m0, s * kBK);
+        load_b_bf16(bs16 + s * kBStage, w_hi, N, K_hi, n0, s * kBK);
+      }
+      cp_async_commit();
+    }
+    for (int kt = 0; kt < hslices; ++kt) {
+      cp_async_wait<kStages - 2>();
+      __syncthreads();
+      const int next = kt + kStages - 1;
+      if (next < hslices) {
+        load_a_bf16(as16 + (next % kStages) * kAStage, x_hi, M, K_hi, m0,
+                    next * kBK);
+        load_b_bf16(bs16 + (next % kStages) * kBStage, w_hi, N, K_hi, n0,
+                    next * kBK);
+      }
+      cp_async_commit();
+      mma_slice_bf16(side, as16 + (kt % kStages) * kAStage,
+                     bs16 + (kt % kStages) * kBStage);
+    }
+    cp_async_wait<0>();
+    __syncthreads();
+    write_tiles_side(acc, side, smem, m0, n0, M, N, ep, x_scale, w_scale);
+  } else {
+    write_tiles<int>(acc, smem, m0, n0, M, N, ep,
+                     [x_scale, w_scale](int a, int m, int n) {
+                       return __fmul_rn(
+                           __fmul_rn(__int2float_rn(a), x_scale[m]), w_scale[n]);
+                     });
+  }
 }
 
 inline bool bad_epilogue(int residual_kind) {
@@ -476,22 +573,37 @@ VIT_EXPORT int vit_linear_int8w(const void* x, const void* w,
   return cudaGetLastError();
 }
 
+// x_hi and w_hi null (K_hi 0): the plain W8A8 GEMM; else with the bf16
+// side product.
 VIT_EXPORT int vit_linear_w8a8(const void* xq, const float* x_scale,
                                const void* w, const float* w_scale,
+                               const void* x_hi, const void* w_hi, int K_hi,
                                const float* bias, const void* residual,
                                int residual_kind, void* out, int out_bf16,
                                int gelu, int M, int N, int K, void* stream) {
   using namespace vit;
+  const bool side = x_hi != nullptr;
   if (M <= 0 || N <= 0 || K <= 0 || N % 16 != 0 || K % 16 != 0 ||
-      x_scale == nullptr || w_scale == nullptr || bad_epilogue(residual_kind))
+      x_scale == nullptr || w_scale == nullptr || bad_epilogue(residual_kind) ||
+      side != (w_hi != nullptr) || (side && (K_hi <= 0 || K_hi % 8 != 0)))
     return cudaErrorInvalidValue;
-  cudaError_t err = allow_dynamic_smem(linear_w8a8_kernel, kSmemBytesW8A8);
-  if (err != cudaSuccess) return err;
+  const Epilogue ep{bias, residual, residual_kind, out, out_bf16, gelu};
   const dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM);
-  linear_w8a8_kernel<<<grid, kThreads, kSmemBytesW8A8,
-                       static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int8_t*>(xq), x_scale, static_cast<const int8_t*>(w),
-      w_scale,
-      Epilogue{bias, residual, residual_kind, out, out_bf16, gelu}, M, N, K);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int8_t* xq8 = static_cast<const int8_t*>(xq);
+  const int8_t* w8 = static_cast<const int8_t*>(w);
+  cudaError_t err;
+  if (side) {
+    err = allow_dynamic_smem(linear_w8a8_kernel<true>, kSmemBytesW8A8Side);
+    if (err != cudaSuccess) return err;
+    linear_w8a8_kernel<true><<<grid, kThreads, kSmemBytesW8A8Side, s>>>(
+        xq8, x_scale, w8, w_scale, static_cast<const bf16*>(x_hi),
+        static_cast<const bf16*>(w_hi), K_hi, ep, M, N, K);
+  } else {
+    err = allow_dynamic_smem(linear_w8a8_kernel<false>, kSmemBytesW8A8);
+    if (err != cudaSuccess) return err;
+    linear_w8a8_kernel<false><<<grid, kThreads, kSmemBytesW8A8, s>>>(
+        xq8, x_scale, w8, w_scale, nullptr, nullptr, 0, ep, M, N, K);
+  }
   return cudaGetLastError();
 }

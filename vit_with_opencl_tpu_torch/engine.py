@@ -72,8 +72,10 @@ class InferenceEngine:
         encoder's GEMMs) or 'auto' (``resolve_quantize``). The weights are
         stacked to ``param_dtype`` first and quantized from that.
       normalize_uint8: take raw uint8 pixels and normalise them on the device.
-      calibrate: calibration images for the outlier-aware W8A8 mode, which is
-        not ported yet: with ``int8-w8a8`` it raises NotImplementedError.
+      calibrate: calibration images (normalised fp32 [n, C, H, W]) for the
+        outlier-aware W8A8 mode: with ``int8-w8a8`` (or ``auto``, which then
+        picks it) the weights go through ``quant.calibrate_w8a8`` instead of
+        plain quantization.
     """
 
     def __init__(
@@ -94,12 +96,6 @@ class InferenceEngine:
                                     calibrated=calibrate is not None)
         if quantize not in (None, "int8", "int8-w8a8"):
             raise ValueError(f"unknown quantize mode {quantize!r}")
-        if calibrate is not None and quantize == "int8-w8a8":
-            # The JAX engine would run the calibrated outlier-aware W8A8
-            # here; plain W8A8 would be a different result, not a stand-in.
-            raise NotImplementedError(
-                "calibrate=: outlier-aware W8A8 is not ported yet "
-                "(ROADMAP.md, Queue 2 item 2)")
         if calibrate is not None and quantize is None:
             raise ValueError(
                 "calibrate= images are only meaningful with "
@@ -113,7 +109,14 @@ class InferenceEngine:
         t0 = time.perf_counter()
         params = vit.stack_params(named_params, config,
                                   param_dtype=param_dtype, device=self.device)
-        if quantize is not None:
+        if calibrate is not None and quantize == "int8-w8a8":
+            # Outlier-aware W8A8: calibrate per-channel activation absmax on
+            # the images (on the device), permute the hot channels into
+            # groups that stay bf16 and quantize the rest (on the host), as
+            # the JAX engine does; then the weights go back to the device.
+            params = vit.params_to(quant.calibrate_w8a8(
+                np.asarray(calibrate, np.float32), params, config), self.device)
+        elif quantize is not None:
             params = quant.quantize_stacked_params(params, config)
         self.params = params
         self.kernels = vit.resolve_kernels(

@@ -53,3 +53,45 @@ def random_images(
     return rng.standard_normal(
         (n, config.in_chans, config.img_size, config.img_size)
     ).astype(np.float32)
+
+
+def adversarial_params(
+    config: ViTConfig,
+    seed: int = 0,
+    scale: float = 0.02,
+    outlier_channels: int = 8,
+    ln_gain: float = 30.0,
+    v_gain: float = 12.0,
+    fc1_gain: float = 12.0,
+) -> Dict[str, np.ndarray]:
+    """Weights that mimic trained-ViT activation statistics: the regime that
+    breaks per-token absmax W8A8 quantization.
+
+    Trained transformers carry a few persistent channels whose activations
+    run 10-100x hotter than the rest, amplified by LayerNorm gains (the
+    SmoothQuant paper, arXiv:2211.10438). Gaussian weights (``random_params``)
+    have none, so a W8A8 parity number measured on them says nothing about
+    real checkpoints. This fixture injects the mechanism on the same channel
+    identities at every layer:
+
+      * ``ln_gain`` lognormal-jittered spikes on ``outlier_channels`` of the
+        ln_1/ln_2 gains: outlier channels at the qkv and fc1 GEMM inputs;
+      * ``v_gain`` on the V rows of in_proj: outlier channels in the
+        attention context (the out-proj GEMM input);
+      * ``fc1_gain`` on fc1 output rows: hot GELU outputs into fc2.
+    """
+    params = random_params(config, seed=seed, scale=scale)
+    rng = np.random.default_rng(seed + 7919)
+    d, h = config.embed_dim, config.hidden_dim
+    k = min(outlier_channels, d, h)
+    ch_d = rng.choice(d, k, replace=False)
+    ch_h = rng.choice(h, k, replace=False)
+    for layer in range(config.depth):
+        pfx = f"encoder_layers_encoder_layer_{layer}_"
+        for ln_key in ("ln_1_weight", "ln_2_weight"):
+            g = ln_gain * np.exp(0.25 * rng.standard_normal(k))
+            params[pfx + ln_key][ch_d] *= g.astype(np.float32)
+        # torch [out, in] layouts: V block rows 2D..3D of in_proj, fc1 out rows
+        params[pfx + "self_attention_in_proj_weight"][2 * d + ch_d, :] *= v_gain
+        params[pfx + "mlp_0_weight"][ch_h, :] *= fc1_gain
+    return params

@@ -25,6 +25,9 @@ int8 weights (``models/quant``: {"q": int8, "scale": fp32} leaves) run
 everywhere a weight does: the chain takes them as weight-only int8, or as
 W8A8 when ``resolve_kernels(..., w8a8=True)``; the patch embedding and the
 head multiply their fp32 products by the scale, as the JAX package does.
+The calibrated outlier-aware weights (a bf16 "hi" group beside the encoder's
+int8 leaves) need ``w8a8``: the chain's outlier form, or ``matmul_w8a8``'s
+trailing and masked forms on the per-op route.
 """
 
 from __future__ import annotations
@@ -129,8 +132,9 @@ def params_from_jax(stacked: Params, *,
 
     Both packages then compute on identical weights. bf16 leaves go through
     float32, which is exact, and come back to bf16 unchanged. Quantized
-    weights ({"q": int8, "scale": fp32} dicts of ``quantize_stacked_params``)
-    keep their layout: int8 as ``torch.int8``, scales as fp32."""
+    weights ({"q": int8, "scale": fp32} dicts of ``quantize_stacked_params``,
+    with the bf16 "hi" group of ``quantize_stacked_params_outlier``) keep
+    their layout: int8 as ``torch.int8``, scales as fp32, "hi" as bf16."""
 
     def conv(a):
         if isinstance(a, dict):
@@ -144,6 +148,13 @@ def params_from_jax(stacked: Params, *,
     out = {k: conv(v) for k, v in stacked.items() if k != "layers"}
     out["layers"] = {k: conv(v) for k, v in stacked["layers"].items()}
     return out
+
+
+def params_to(params: Params, device: torch.device | str) -> Params:
+    """Every tensor of a (nested) param dict on ``device``: a host pytree
+    (``quant.calibrate_w8a8``) onto the card."""
+    return {k: params_to(v, device) if isinstance(v, dict) else v.to(device)
+            for k, v in params.items()}
 
 
 def unstack_params(params: Params, config: ViTConfig) -> Dict[str, np.ndarray]:

@@ -7,14 +7,17 @@ Replaces ``vit_with_opencl_tpu/ops/linear.py:_linear_kernel``
 the epilogue adds, in fp32 and in this order, an optional residual, the bias,
 the optional ``_gelu_fast``, and casts to ``out_dtype``. The residual and
 ``out_dtype`` are the port's additions for the chain: the layer keeps its
-residual stream in fp32 between kernels. Three kernels, each with its own
-launch count:
+residual stream in fp32 between kernels. Three kernels (the W8A8 one in two
+forms), each form with its own launch count:
 
   * ``fused_linear`` with bf16 ``w``: bf16 x @ bf16 w (``LAUNCHES``);
   * ``fused_linear`` with int8 ``w`` and ``w_scale``: weight-only int8, the
     fp32 product times the per-column scale (``LAUNCHES_INT8W``);
   * ``fused_linear_w8a8``: int8 x (with its per-row scale, from
-    ``ops/quantize.py``) @ int8 w, ``acc · s_x · s_w`` (``LAUNCHES_W8A8``).
+    ``ops/quantize.py``) @ int8 w, ``acc · s_x · s_w`` (``LAUNCHES_W8A8``);
+    with ``x_hi`` and ``w_hi`` (the outlier-aware layer's bf16 groups) the
+    same kernel also runs the bf16 side product and adds it after the
+    scales (``LAUNCHES_W8A8_HI``).
 
 Bound on the card: operations (see the note in the source). The kernels take
 bf16 or int8 operands; fp32 ``x`` on the card is not supported yet.
@@ -32,10 +35,12 @@ import torch
 from . import _build
 
 # Kernel launches since the counts were last set to 0 (chip_smoke.py reads
-# them): the bf16 GEMM, the int8-weight GEMM and the W8A8 GEMM.
+# them): the bf16 GEMM, the int8-weight GEMM, the W8A8 GEMM and the W8A8 GEMM
+# with the bf16 side product.
 LAUNCHES = 0
 LAUNCHES_INT8W = 0
 LAUNCHES_W8A8 = 0
+LAUNCHES_W8A8_HI = 0
 
 _RESIDUAL_KINDS = {None: 0, torch.float32: 1, torch.bfloat16: 2}
 
@@ -170,16 +175,21 @@ def fused_linear_w8a8_reference(
     residual: Optional[torch.Tensor] = None,
     fuse_gelu: bool = False,
     out_dtype: torch.dtype = torch.float32,
+    x_hi: Optional[torch.Tensor] = None,
+    w_hi: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """``epilogue((xq @ wq) · sx · sw)``: the integer sums exactly (in
-    float64), rounded once to fp32, then the scales in the TPU kernel's
-    order, ``(acc · s_x) · s_w``."""
+    """``epilogue((xq @ wq) · sx · sw [+ x_hi @ w_hi])``: the integer sums
+    exactly (in float64), rounded once to fp32, then the scales in the TPU
+    kernel's order, ``(acc · s_x) · s_w``, then the side product (fp32
+    accumulation of the operands as given)."""
     from ..models.quant import int8_product
 
     *lead, k = xq.shape
     n = wq.shape[1]
     acc = int8_product(xq.reshape(-1, k), wq)
     out = acc * sx.reshape(-1, 1).float() * sw.reshape(1, n).float()
+    if x_hi is not None:
+        out = out + x_hi.reshape(-1, x_hi.shape[-1]).float() @ w_hi.float()
     return _epilogue(out, b, residual, fuse_gelu, out_dtype).reshape(*lead, n)
 
 
@@ -193,17 +203,24 @@ def fused_linear_w8a8(
     residual: Optional[torch.Tensor] = None,
     fuse_gelu: bool = False,
     out_dtype: torch.dtype = torch.float32,
+    x_hi: Optional[torch.Tensor] = None,
+    w_hi: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """W8A8 GEMM: ``xq`` [..., K] int8 with its per-row scale ``sx``
     [..., 1] (``ops/quantize.quantize_rows``) @ ``wq`` [K, N] int8 with its
     per-column scale ``sw`` ([N] or [1, N]), int32 accumulation, then
-    ``(acc · s_x) · s_w``, the residual, the bias and the GELU in fp32.
-    K and N must be multiples of 16."""
-    global LAUNCHES_W8A8
+    ``(acc · s_x) · s_w``, plus the side product ``x_hi`` [..., K_hi] @
+    ``w_hi`` [K_hi, N] (bf16 on the card, fp32 accumulation) if given, then
+    the residual, the bias and the GELU in fp32. K and N must be multiples
+    of 16, K_hi of 8."""
+    global LAUNCHES_W8A8, LAUNCHES_W8A8_HI
+    if (x_hi is None) != (w_hi is None):
+        raise ValueError("x_hi and w_hi go together")
     if not xq.is_cuda:
         return fused_linear_w8a8_reference(xq, sx, wq, sw, b, residual=residual,
                                            fuse_gelu=fuse_gelu,
-                                           out_dtype=out_dtype)
+                                           out_dtype=out_dtype, x_hi=x_hi,
+                                           w_hi=w_hi)
     *lead, k = xq.shape
     if wq.dim() != 2 or wq.shape[0] != k:
         raise ValueError(f"wq has shape {tuple(wq.shape)}, expected ({k}, N)")
@@ -219,15 +236,28 @@ def fused_linear_w8a8(
     _build.require(sx, "sx", device=xq.device, dtypes=(torch.float32,))
     s = _scale_vector(sw, n, "sw", xq.device)
     _check_epilogue(lead, n, xq.device, b, residual, out_dtype)
+    k_hi = 0
+    if x_hi is not None:
+        k_hi = x_hi.shape[-1]
+        if k_hi % 8:
+            raise ValueError(f"K_hi={k_hi} must be a multiple of 8")
+        _build.require(x_hi, "x_hi", device=xq.device, dtypes=(torch.bfloat16,),
+                       shape=(*lead, k_hi))
+        _build.require(w_hi, "w_hi", device=xq.device, dtypes=(torch.bfloat16,),
+                       shape=(k_hi, n))
     out = torch.empty((*lead, n), dtype=out_dtype, device=xq.device)
     if m == 0:
         return out
     err = _build.library().vit_linear_w8a8(
-        xq.data_ptr(), sx.data_ptr(), wq.data_ptr(), s.data_ptr(), _ptr(b),
-        _ptr(residual),
+        xq.data_ptr(), sx.data_ptr(), wq.data_ptr(), s.data_ptr(), _ptr(x_hi),
+        _ptr(w_hi), k_hi, _ptr(b), _ptr(residual),
         _RESIDUAL_KINDS[None if residual is None else residual.dtype],
         out.data_ptr(), int(out_dtype == torch.bfloat16), int(fuse_gelu),
         m, n, k, _build.stream_handle(xq))
-    _build.check_launch(err, "fused_linear_w8a8")
-    LAUNCHES_W8A8 += 1
+    if x_hi is None:
+        _build.check_launch(err, "fused_linear_w8a8")
+        LAUNCHES_W8A8 += 1
+    else:
+        _build.check_launch(err, "fused_linear_w8a8 (bf16 side product)")
+        LAUNCHES_W8A8_HI += 1
     return out
