@@ -1,38 +1,31 @@
 """The port's forward pass against the JAX package's and the golden oracle.
 
 Small config, CPU tensors: the ``flash`` route runs the kernels' plain
-versions, the JAX side runs its Pallas kernels in interpret mode. JAX is
-forced onto its per-layer fused kernel (small configs otherwise take its
-whole-stack kernel, which the port has not ported), so both sides route the
-encoder through the same layer function.
+versions, the JAX side runs its Pallas kernels in interpret mode. Both
+packages route by their own rules: this small config's whole weight stack
+fits the JAX package's on-chip budget, so both run its encoder as the whole
+stack (``fused_encoder_stack``), with the residual stream in fp32 across
+every layer.
 """
-
-import functools
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from vit_with_opencl_tpu.models import quant as jquant
 from vit_with_opencl_tpu.models import vit as jvit
 from vit_with_opencl_tpu.ops import fused_block as jfused
 from vit_with_opencl_tpu_torch import ViTConfig
 from vit_with_opencl_tpu_torch.harness import fixtures
 from vit_with_opencl_tpu_torch.models import golden, vit
+from vit_with_opencl_tpu_torch.ops import fused_block
 
 CFG = ViTConfig(name="small", img_size=32, patch_size=8, embed_dim=64,
                 depth=2, num_heads=4, num_classes=9)
 DTYPES = {"f32": (torch.float32, jnp.float32), "bf16": (torch.bfloat16, jnp.bfloat16)}
 # Probabilities: fp32 tight; bf16 within the reference's 1e-3 parity budget.
 PROB_ATOL = {"f32": 1e-5, "bf16": 1e-3}
-
-
-def _jax_kernels(route: str):
-    kernels = jvit.resolve_kernels(route)
-    if route == "flash":
-        kernels["encoder_block"] = functools.partial(
-            jfused.fused_encoder_layer, interpret=True)
-    return kernels
 
 
 @pytest.fixture(scope="module")
@@ -50,7 +43,7 @@ def test_forward_matches_jax(setup, route, dtype):
     stacked = jvit.stack_params(params, CFG, param_dtype=jdt)
     jprobs = np.asarray(jvit.forward(jnp.asarray(images), stacked, CFG,
                                      compute_dtype=jdt,
-                                     kernels=_jax_kernels(route)))
+                                     kernels=jvit.resolve_kernels(route)))
     tparams = vit.params_from_jax(stacked, device="cpu")
     tprobs = vit.forward(torch.from_numpy(images), tparams, CFG,
                          compute_dtype=tdt,
@@ -60,19 +53,39 @@ def test_forward_matches_jax(setup, route, dtype):
     np.testing.assert_allclose(tprobs, ref, atol=PROB_ATOL[dtype])
 
 
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_int8_weight_forward_matches_jax(setup, dtype):
+    """Weight-only int8 from the same stack on both sides: the ``flash``
+    forward of each package runs its int8-weight stack (the config is
+    stack-class at 1 byte a weight)."""
+    params, images, ref = setup
+    tdt, jdt = DTYPES[dtype]
+    assert jfused.supports_stack(CFG, dtype_bytes=1)
+    assert fused_block.supports_stack(CFG, dtype_bytes=1)
+    jq = jquant.quantize_stacked_params(jvit.stack_params(params, CFG, param_dtype=jdt),
+                                        CFG)
+    jprobs = np.asarray(jvit.forward(jnp.asarray(images), jq, CFG, compute_dtype=jdt,
+                                     kernels=jvit.resolve_kernels("flash")))
+    tprobs = vit.forward(torch.from_numpy(images), vit.params_from_jax(jq, device="cpu"),
+                         CFG, compute_dtype=tdt,
+                         kernels=vit.resolve_kernels("flash")).numpy()
+    np.testing.assert_allclose(tprobs, jprobs, atol=PROB_ATOL[dtype])
+    # int8 weights move the probabilities further from the fp32 golden model.
+    np.testing.assert_allclose(tprobs, ref, atol=1e-2)
+    assert (tprobs.argmax(-1) == ref.argmax(-1)).all()
+
+
 def test_fused_block_is_a_synonym_of_flash(setup):
     """Both packages accept ``fused_block`` as another name of ``flash``:
     the port's two tables hold the same entries, and a forward through each
     agrees with the JAX package's forward through its own table of that name
-    (forced onto its per-layer kernel, as above)."""
+    (its whole-stack kernel, as above)."""
     params, images, _ = setup
     flash, alias = vit.resolve_kernels("flash"), vit.resolve_kernels("fused_block")
     assert flash.keys() == alias.keys()
     assert all(flash[k] is alias[k] for k in flash if k not in ("matmul_gelu",))
     stacked = jvit.stack_params(params, CFG, param_dtype=jnp.float32)
     jkernels = jvit.resolve_kernels("fused_block")
-    jkernels["encoder_block"] = functools.partial(jfused.fused_encoder_layer,
-                                                  interpret=True)
     jprobs = np.asarray(jvit.forward(jnp.asarray(images), stacked, CFG,
                                      compute_dtype=jnp.float32, kernels=jkernels))
     tparams = vit.params_from_jax(stacked, device="cpu")

@@ -265,9 +265,9 @@ def encoder_layer_inputs():
 @pytest.mark.parametrize("w8a8", [False, True], ids=["int8w", "w8a8"])
 def test_int8_encoder_layer_matches_jax(encoder_layer_inputs, dtype, w8a8):
     """One quantized layer (the same int8 lp on both sides) against the JAX
-    fused layer in interpret mode. The layer level is where the two compare
-    like with like: JAX's forward sends small int8 configs to its
-    whole-stack kernel, which the port has not ported."""
+    fused layer in interpret mode. The int8-weight and W8A8 stacks, which
+    JAX's forward picks for small int8 configs, are held to JAX's
+    ``fused_encoder_stack`` in tests/test_torch_stack.py."""
     params, x = encoder_layer_inputs
     tdt, jdt = DTYPES[dtype]
     stacked = jquant.quantize_stacked_params(

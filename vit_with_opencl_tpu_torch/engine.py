@@ -42,11 +42,11 @@ def resolve_device(device: Optional[torch.device | str]) -> torch.device:
 def resolve_quantize(quantize: Optional[str], config: ViTConfig,
                      *, calibrated: bool = False) -> Optional[str]:
     """Resolve the ``"auto"`` quantize mode to a concrete one, by the JAX
-    package's rule: ``int8-w8a8`` unless the config's bf16 encoder is the
-    JAX package's whole-stack kernel (``fused_block.supports_stack``, the
-    small configs), where ``auto`` stays unquantized. ``calibrated`` (the
-    caller gave calibration images) picks ``int8-w8a8`` for every config.
-    ViT-B/16 resolves to ``int8-w8a8``."""
+    package's rule: ``int8-w8a8`` unless the config's bf16 encoder runs as
+    the whole stack (``fused_block.supports_stack``, the small configs,
+    which W8A8 would send back to the per-layer chain), where ``auto`` stays
+    unquantized. ``calibrated`` (the caller gave calibration images) picks
+    ``int8-w8a8`` for every config. ViT-B/16 resolves to ``int8-w8a8``."""
     if quantize != "auto":
         return quantize
     if calibrated:

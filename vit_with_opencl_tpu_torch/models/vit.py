@@ -8,12 +8,12 @@ heads). Two routes, chosen by ``resolve_kernels``:
 
   * ``xla``   — plain PyTorch ops throughout (the JAX package leaves this
     route to XLA, outside any Pallas kernel);
-  * ``flash`` — every encoder layer of a config that ``fused_block.supports``
-    goes to the chain of CUDA kernels (``ops/fused_block``); other configs
+  * ``flash`` — the encoder of a config that ``fused_block.supports`` goes
+    to chains of CUDA kernels (``ops/fused_block``): the small configs whose
+    whole weight stack fits the JAX package's on-chip budget (ViT-Ti, ViT-S)
+    to the stack, with its fp32 residual stream across every layer, the
+    others to the per-layer chain, as ``encoder`` says; other configs
     (tanh-GELU) send only the attention core to the packed-attention kernel.
-    The JAX package sends the small configs whose whole weight stack fits on
-    chip to its ``_stack_kernel`` instead; the port has no such kernel yet,
-    so they take the per-layer chain.
 
 Numerics: bf16 storage and matmul inputs with fp32 accumulation, fp32 LN
 statistics and softmax, as the JAX package. Every GEMM outside the kernels
@@ -330,8 +330,9 @@ def resolve_kernels(attention_impl: str = "xla", w8a8: bool = False,
     ``attention_impl``:
       * 'xla'   — plain PyTorch ops;
       * 'flash' (or its synonym 'fused_block', as in the JAX package) — the
-        packed-attention kernel for the per-op path, and the encoder-layer
-        chain for every config ``fused_block.supports``.
+        packed-attention kernel for the per-op path, and the chains of
+        ``ops/fused_block`` (whole stack, layer groups or per layer, as
+        ``encoder`` routes) for every config ``fused_block.supports``.
 
     ``w8a8``: per-token dynamic int8 activations into the encoder's four
     GEMMs (``quant.matmul_w8a8`` on the per-op path, the W8A8 chain on the
@@ -400,21 +401,31 @@ def _layer(params: Params, layer: int) -> Params:
 
 def encoder(x: torch.Tensor, params: Params, config: ViTConfig,
             kernels: Dict[str, Any]) -> torch.Tensor:
-    """The layers in order over the stacked weights.
+    """The layers in order over the stacked weights, routed as the JAX
+    package routes them.
 
-    Quantized params ignore a forced ``encoder_block``, as in the JAX
-    package. Where the JAX package runs the whole stack in one kernel
-    (``fused_block.supports_stack``: small configs, never W8A8), the port
-    has no such kernel yet and takes the per-layer chain."""
+    A forced ``encoder_block`` runs every layer (ignored for quantized
+    params). Otherwise the ``flash`` route takes, in this order: layer
+    groups of ``kernels["fused_group_size"]`` when it divides the depth and
+    ``fused_block.supports`` the config; the whole stack when not W8A8 and
+    ``fused_block.supports_stack`` (small configs: ViT-Ti and ViT-S, in
+    bf16 or int8 weights); the per-layer chain when ``supports``; else the
+    per-op path."""
     qkv_w = params["layers"]["qkv_w"]
     quantized = quant.is_quantized(qkv_w)
     block: Optional[Callable] = None if quantized else kernels.get("encoder_block")
     if block is None and kernels.get("_fused_block_if_supported"):
         wbytes = 1 if quantized else qkv_w.element_size()
+        w8a8 = bool(kernels.get("w8a8")) and quantized
+        gs = kernels.get("fused_group_size")
+        if (gs and gs > 1 and config.depth % gs == 0
+                and fused_block.supports(config, dtype_bytes=wbytes)):
+            return fused_block.fused_encoder_group(
+                x, params["layers"], config, group_size=gs, w8a8=w8a8)
+        if not w8a8 and fused_block.supports_stack(config, dtype_bytes=wbytes):
+            return fused_block.fused_encoder_stack(x, params["layers"], config)
         if fused_block.supports(config, dtype_bytes=wbytes):
-            block = functools.partial(
-                fused_block.fused_encoder_layer,
-                w8a8=bool(kernels.get("w8a8")) and quantized)
+            block = functools.partial(fused_block.fused_encoder_layer, w8a8=w8a8)
     for layer in range(config.depth):
         lp = _layer(params, layer)
         if block is not None:
