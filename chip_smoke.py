@@ -71,11 +71,35 @@ line.
    layer group at depth 4 against theirs; for comparison the per-layer
    chain over the same 12 layers against its plain version. No yardstick
    for the stacks.
+2e. Training: every kernel of the backward and the backward's stages
+   against their plain versions at ViT-B shapes, B = 16, on the backward's
+   own intermediates: the packed attention backward with bf16 and fp32
+   dqkv (yardstick: the backward of ``F.scaled_dot_product_attention``
+   alone), the GEMM forms at the four ViT-B shapes (dgrad, fc2's with the
+   GELU gradient, wgrad into fp32, the fc1 recompute's two outputs;
+   yardstick ``torch.mm``/``addmm`` with the epilogue as ops), the LN
+   backward at LN2 and LN1 (autograd of ``F.layer_norm``), the column sum,
+   the three stages and ``fused_encoder_layer_bwd``. fp32 outputs are held
+   to a share of their own largest magnitude.
+5. The training main path: ``Trainer(VIT_B_16_224, device="cuda",
+   compute_dtype=bf16, optimizer="adamw")`` from seeded ``init_params``,
+   8 steps at batch 32 on a memorised seeded batch, in each route
+   (``fused``, ``flash``, ``xla``): the loss falls, and the launch counts of
+   those steps are every backward kernel's 12 a step in its route; in
+   ``fused`` and ``flash`` one step from seeded random params against the
+   same Trainer on the plain links (loss, AdamW's first moment, the mean
+   update); in ``fused`` save → resume restores step, params and AdamW
+   state exactly, and ``export_reference`` → ``cli --backend gpu`` gives
+   the trained params' top-1 labels on every decisive image.
 4. Throughput of the full-depth bf16, W8A8, int8 and calibrated W8A8 flash
    forwards at batch 64 and 256, beside the sums of their kernels' times and
    bounds at the same batch; then ViT-Ti and ViT-S (bf16 and int8-weight
    stacks) at batch 64 and 256, beside the same engines on the per-layer
    chain, with the rows of phase 2d timed again at batch 256.
+4b. Training throughput at batch 64: ms per AdamW step, img/s and peak
+   memory in each route, the split of a ``fused`` step (forward chain, the
+   three backward stages, AdamW, the rest), and phase 2e's rows again at
+   batch 64.
 
 Counts are set to 0 just before each main-path run and read just after.
 The line before the last is the kernels' JSON record; the last line is
@@ -99,9 +123,11 @@ import numpy as np
 import torch
 
 try:
-    from vit_with_opencl_tpu_torch import VIT_B_16_224, cli
+    from vit_with_opencl_tpu_torch import VIT_B_16_224, cli, data, optim
     from vit_with_opencl_tpu_torch.config import VIT_S_16_224, VIT_TINY_16_224
     from vit_with_opencl_tpu_torch.engine import InferenceEngine
+    from vit_with_opencl_tpu_torch.parallel import spmd
+    from vit_with_opencl_tpu_torch.train import Trainer
     from vit_with_opencl_tpu_torch.harness import fixtures, results
     from vit_with_opencl_tpu_torch.io import binfmt
     from vit_with_opencl_tpu_torch.models import quant, vit
@@ -189,6 +215,43 @@ STACK_W8A8_TOL = (1.6e-2, 6e-2)
 MIN_SAME_STACK_W8A8 = 0.15
 REDUCED_DEPTH = 4  # the W8A8 stack and the group in phase 2d
 
+# Phases 2e, 4b and 5: training. The backward's fp32 outputs (gradients,
+# dx2, x2, hid_pre) are long sums that the kernels take in another order than
+# the plain versions' library calls: each is held to GRAD_REL of its largest
+# magnitude. The whole backward compounds bf16 flips through the attention
+# (a flipped rounding of qkvc, ctx or dctx moves a gradient's summands), so
+# its gradients get STAGE_GRAD_REL.
+GRAD_REL = 1e-3
+STAGE_GRAD_REL = 2e-2
+MIN_SAME_ATTN_BWD = 0.9
+TRAIN_ROUTES = ("fused", "flash", "xla")
+TRAIN_BATCH = 32  # phase 5: one memorised batch of seeded images
+TRAIN_STEPS = 8
+TRAIN_LR = 1e-3
+TRAIN_THROUGHPUT_BATCH = 64  # phase 4b
+# Phase 5's step against the same step on the plain links, from random
+# (non-zero-headed) params: the loss, and each layer leaf's first moment
+# (AdamW's mu = 0.1·g after one step) within MU_REL of its largest magnitude
+# (measured 1.5e-2 and 1.8e-2, fused and flash, on an H100 80GB HBM3). The
+# update itself is ±lr wherever |g| is well above eps, so where a gradient
+# is below the bf16 noise its sign, and the update, is a coin toss (the mean
+# update difference was 0.31 and 0.28 lr there): the updates must agree, to
+# UPDATE_ATOL·lr, where |mu| is above MU_REL of its leaf's largest (there the
+# noise cannot flip the sign), and nowhere differ by more than 2·lr.
+STEP_LOSS_REL = 1e-3
+MU_REL = 5e-2
+UPDATE_ATOL = 1e-2
+# The launches of one training step, per layer, in each kernel route.
+TRAIN_PER_LAYER = {
+    "fused": {"fused_block": 1, "fused_bwd": 1, "fused_bwd_x2": 1,
+              "fused_bwd_mlp": 1, "fused_bwd_attn": 1, "attention": 3,
+              "attention_bwd": 1, "layernorm": 5, "linear": 7,
+              "linear_gelu_pair": 1, "linear_dgrad": 4, "linear_wgrad": 4,
+              "layernorm_bwd": 2, "column_sum": 8},
+    "flash": {"attention": 1, "attention_bwd": 1},
+    "xla": {},
+}
+
 # Published dense peaks (NVIDIA data sheets): tensor-core bf16 FLOP/s,
 # CUDA-core fp32 FLOP/s, tensor-core int8 OP/s, memory bytes/s.
 PEAKS = {
@@ -216,6 +279,16 @@ COUNTERS = {
     "fused_block_stack_int8w": (fused_block, "LAUNCHES_STACK_INT8W"),
     "fused_block_stack_w8a8": (fused_block, "LAUNCHES_STACK_W8A8"),
     "fused_block_group": (fused_block, "LAUNCHES_GROUP"),
+    "attention_bwd": (attention, "LAUNCHES_BWD"),
+    "linear_dgrad": (linear, "LAUNCHES_DGRAD"),
+    "linear_wgrad": (linear, "LAUNCHES_WGRAD"),
+    "linear_gelu_pair": (linear, "LAUNCHES_GELU_PAIR"),
+    "layernorm_bwd": (layernorm, "LAUNCHES_BWD"),
+    "column_sum": (layernorm, "LAUNCHES_COLSUM"),
+    "fused_bwd_x2": (fused_block, "LAUNCHES_BWD_X2"),
+    "fused_bwd_mlp": (fused_block, "LAUNCHES_BWD_MLP"),
+    "fused_bwd_attn": (fused_block, "LAUNCHES_BWD_ATTN"),
+    "fused_bwd": (fused_block, "LAUNCHES_BWD"),
 }
 _QUANTIZED_LAYER = "vit_with_opencl_tpu/ops/fused_block.py:198"
 REPLACES = {
@@ -236,6 +309,18 @@ REPLACES = {
     "fused_block_stack_int8w": "vit_with_opencl_tpu/ops/fused_block.py:471",
     "fused_block_stack_w8a8": "vit_with_opencl_tpu/ops/fused_block.py:471",
     "fused_block_group": _QUANTIZED_LAYER,
+    # Training: _packed_bwd_kernel, and the three kernels of
+    # fused_encoder_layer_bwd; the GEMM forms, the LN backward and the column
+    # sum are links of the MLP-backward kernel (and of _attn_bwd_kernel).
+    "attention_bwd": "vit_with_opencl_tpu/ops/attention.py:463",
+    "fused_bwd_x2": "vit_with_opencl_tpu/ops/fused_block.py:744",
+    "fused_bwd_mlp": "vit_with_opencl_tpu/ops/fused_block.py:762",
+    "fused_bwd_attn": "vit_with_opencl_tpu/ops/fused_block.py:875",
+    "linear_dgrad": "vit_with_opencl_tpu/ops/fused_block.py:762",
+    "linear_wgrad": "vit_with_opencl_tpu/ops/fused_block.py:762",
+    "linear_gelu_pair": "vit_with_opencl_tpu/ops/fused_block.py:762",
+    "layernorm_bwd": "vit_with_opencl_tpu/ops/fused_block.py:762",
+    "column_sum": "vit_with_opencl_tpu/ops/fused_block.py:762",
 }
 _CSRC = "vit_with_opencl_tpu_torch/csrc/"
 SOURCES = {
@@ -254,6 +339,15 @@ SOURCES = {
     "fused_block_w8a8_outlier": "vit_with_opencl_tpu_torch/ops/fused_block.py",
     "fused_block_stack": "vit_with_opencl_tpu_torch/ops/fused_block.py",
     "fused_block_stack_int8w": "vit_with_opencl_tpu_torch/ops/fused_block.py",
+    "attention_bwd": _CSRC + "attention_bwd.cu",
+    "linear_dgrad": _CSRC + "linear.cu",
+    "linear_wgrad": _CSRC + "linear.cu",
+    "linear_gelu_pair": _CSRC + "linear.cu",
+    "layernorm_bwd": _CSRC + "layernorm.cu",
+    "column_sum": _CSRC + "reduce.cu",
+    "fused_bwd_x2": "vit_with_opencl_tpu_torch/ops/fused_block.py",
+    "fused_bwd_mlp": "vit_with_opencl_tpu_torch/ops/fused_block.py",
+    "fused_bwd_attn": "vit_with_opencl_tpu_torch/ops/fused_block.py",
 }
 # The main-path runs: phase name → CLI flags (the outlier runs add
 # --calibrate with their workspace's calibration binary).
@@ -838,9 +932,11 @@ def run_cases(cases: list[dict], batch: int, name_prefix: str = "") -> list[dict
         errs = [max_err(o, r, tol) for o, r, tol in zip(outs, refs, tols)]
         if len(outs) > 1:
             for i, (e, tol) in enumerate(zip(errs, tols)):
+                rel = e[0] / max(float(refs[i].float().abs().max()), 1e-30)
                 print(f"  B={batch} {case['name']} output {i} ({outs[i].dtype}): "
-                      f"max_abs_err {e[0]:.3e} (tol rtol {tol[0]} atol {tol[1]}), "
-                      f"{e[2]:.2%} bit-identical", flush=True)
+                      f"max_abs_err {e[0]:.3e}, relative {rel:.3e} (tol rtol "
+                      f"{tol[0]} atol {tol[1]:.3g}), {e[2]:.2%} bit-identical",
+                      flush=True)
         err = max(e[0] for e in errs)
         within = all(e[1] for e in errs)
         same = min(e[2] for e in errs)
@@ -855,7 +951,8 @@ def run_cases(cases: list[dict], batch: int, name_prefix: str = "") -> list[dict
                 library_ms = time_ms(case["library"])
             except RuntimeError as exc:  # e.g. _int_mm refusing a shape
                 print(f"  library call refused: {str(exc).splitlines()[0]}")
-        row = dict(name=case["name"], counter=case["counter"], max_abs_err=err,
+        row = dict(name=case["name"], counter=case["counter"],
+                   replaces=case.get("replaces"), max_abs_err=err,
                    mean_abs_err=mean_err, tol=tols[0], within=within, same=same,
                    ms=time_ms(case["kernel"]),
                    plain_ms=time_ms(case["plain"], reps=PLAIN_REPS),
@@ -874,6 +971,442 @@ def run_cases(cases: list[dict], batch: int, name_prefix: str = "") -> list[dict
                   f"bit-identical share {same:.4f} >= {min(mins)}, mean abs error "
                   f"{mean_err:.3e} <= {max_mean:.3e}")
     return rows
+
+
+def train_layer(gen: torch.Generator, dev, cfg=CFG) -> dict:
+    """One layer's fp32 master weights, as training holds them."""
+    return {k: v.float() for k, v in layer_params(gen, dev, cfg).items()}
+
+
+def sdpa_backward(qkvc, dctx, nh, hd):
+    """The library yardstick of the attention backward: autograd of
+    ``F.scaled_dot_product_attention``, the backward alone."""
+    b, t, _ = qkvc.shape
+    with torch.enable_grad():
+        q, k, v = (z.detach().clone().requires_grad_(True) for z in
+                   qkvc.reshape(b, t, 3, nh, hd).permute(2, 0, 3, 1, 4))
+        out = torch.nn.functional.scaled_dot_product_attention(q, k, v)
+    g = dctx.reshape(b, t, nh, hd).permute(0, 2, 1, 3)
+    return lambda: torch.autograd.grad(out, (q, k, v), g, retain_graph=True)
+
+
+def ln_autograd(x, dy, w, b, eps):
+    """The library yardstick of the LN backward: autograd of F.layer_norm."""
+    with torch.enable_grad():
+        xs = x.float().detach().requires_grad_(True)
+        ws, bs = w.detach().clone().requires_grad_(True), b.detach().clone().requires_grad_(True)
+        y = torch.nn.functional.layer_norm(xs, (x.shape[-1],), ws, bs, eps)
+    return lambda: torch.autograd.grad(y, (xs, ws, bs), dy, retain_graph=True)
+
+
+def _scaled_tol(ref, rel=GRAD_REL) -> tuple:
+    """(rtol, atol) for an fp32 output: rel of its largest magnitude."""
+    return (0.0, rel * max(float(ref.float().abs().max()), 1e-30))
+
+
+def _grad_case(name, counter, kernel, plain, rel=GRAD_REL, **kw):
+    """A case whose outputs are fp32 sums (each held to ``rel`` of its own
+    scale) and bf16 roundings (BF16_TOL, its atol taken relative to the
+    output's scale as gradients are small, and the kernel's share)."""
+    refs = _outputs(plain())
+    tols = [(BF16_TOL[0], _scaled_tol(r, BF16_TOL[1])[1])
+            if r.dtype == torch.bfloat16 else _scaled_tol(r, rel) for r in refs]
+    low = kw.pop("min_same", MIN_SAME_KERNEL)
+    mins = [low if r.dtype == torch.bfloat16 else 0.0 for r in refs]
+    return dict(name=name, counter=counter, kernel=kernel, plain=plain, tol=tols,
+                min_same=mins, **kw)
+
+
+def train_kernel_rows(batch: int, dev, seed: int = 0, cfg=CFG) -> list[dict]:
+    """Phase 2e: every kernel of the training backward and the three stages
+    on the backward's own intermediates (from the plain versions) at
+    ``batch`` images, against their plain versions."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    lp = train_layer(gen, dev, cfg)
+    d, h, t, nh, hd, eps = (cfg.embed_dim, cfg.hidden_dim, cfg.num_tokens,
+                            cfg.num_heads, cfg.head_dim, cfg.eps)
+    m, bf, f32 = batch * t, torch.bfloat16, torch.float32
+    x = (torch.randn((batch, t, d), generator=gen, device=dev) * 0.5).to(bf)
+    dout = (torch.randn((batch, t, d), generator=gen, device=dev) * 0.01).to(bf)
+    wb = {k: lp[k].to(bf) for k in ("qkv_w", "out_w", "fc1_w", "fc2_w")}
+    # The backward's intermediates, from the plain versions.
+    h1c = layernorm.layer_norm_reference(x, lp["ln1_w"], lp["ln1_b"], eps)
+    qkvc = linear.fused_linear_reference(h1c, wb["qkv_w"], lp["qkv_b"])
+    ctx = attention.packed_fused_attention_reference(qkvc, nh, hd)
+    x2 = linear.fused_linear_reference(ctx, wb["out_w"], lp["out_b"], residual=x,
+                                       out_dtype=f32)
+    h2c = layernorm.layer_norm_reference(x2, lp["ln2_w"], lp["ln2_b"], eps,
+                                         out_dtype=bf)
+    hid_pre, hidc = linear.fused_linear_with_gelu_reference(h2c, wb["fc1_w"],
+                                                            lp["fc1_b"])
+    dhid_pre, dhpc = linear.linear_dgrad_reference(dout, wb["fc2_w"],
+                                                   gelu_grad_of=hid_pre,
+                                                   out2_dtype=bf)
+    dh2 = linear.linear_dgrad_reference(dhpc, wb["fc1_w"])
+    dx2 = layernorm.layer_norm_bwd_reference(x2, dh2, lp["ln2_w"], eps,
+                                             residual=dout, out_dtype=f32)[0]
+    dac = dx2.to(bf)
+    dctx = linear.linear_dgrad_reference(dac, wb["out_w"], out_dtype=bf)
+    dqkv = attention.packed_attention_bwd_reference(qkvc, dctx, nh, hd,
+                                                    out_dtype=f32)
+    dqkv_c = dqkv.to(bf)
+    dh1 = linear.linear_dgrad_reference(dqkv_c, wb["qkv_w"])
+    attn_ops = 10 * batch * t * t * d  # s, dp, dv, dq, dk
+
+    def attn_case(out_dtype):
+        tag = "bf16" if out_dtype == bf else "fp32"
+        return _grad_case(
+            f"packed_attention_bwd (bf16 in, {tag} dqkv)", "attention_bwd",
+            lambda: attention.packed_attention_bwd(qkvc, dctx, nh, hd,
+                                                   out_dtype=out_dtype),
+            lambda: attention.packed_attention_bwd_reference(
+                qkvc, dctx, nh, hd, out_dtype=out_dtype),
+            min_same=MIN_SAME_ATTN_BWD, library=sdpa_backward(qkvc, dctx, nh, hd),
+            bytes=m * (3 * d * 2 + d * 2 + 3 * d * (2 if out_dtype == bf else 4)),
+            ops={"bf16": attn_ops})
+
+    attn_stage = "vit_with_opencl_tpu/ops/fused_block.py:875"
+
+    def dgrad_case(name, dy, wkey, out_dtype, gelu=False):
+        n, k = wb[wkey].shape[1], wb[wkey].shape[0]
+        kw = dict(out_dtype=out_dtype)
+        if gelu:
+            kw.update(gelu_grad_of=hid_pre, out2_dtype=bf)
+        out_b = (2 if out_dtype == bf else 4) + (6 if gelu else 0)
+
+        def library():
+            y = torch.mm(dy.reshape(m, n), wb[wkey].t())
+            if gelu:
+                y = y.float() * fused_block._gelu_fast_grad(hid_pre.reshape(m, k))
+                return y, y.to(bf)
+            return y.to(out_dtype)
+
+        return _grad_case(
+            name, "linear_dgrad",
+            lambda: linear.linear_dgrad(dy, wb[wkey], **kw),
+            lambda: linear.linear_dgrad_reference(dy, wb[wkey], **kw),
+            library=library, bytes=m * n * 2 + k * n * 2 + m * k * out_b,
+            ops={"bf16": 2 * m * n * k},
+            replaces=attn_stage if wkey in ("qkv_w", "out_w") else None)
+
+    def wgrad_case(name, xin, dy):
+        k, n = xin.shape[-1], dy.shape[-1]
+        return _grad_case(
+            name, "linear_wgrad", lambda: linear.linear_wgrad(xin, dy),
+            lambda: linear.linear_wgrad_reference(xin, dy),
+            library=lambda: torch.mm(xin.reshape(m, k).t(), dy.reshape(m, n)).float(),
+            bytes=m * (k + n) * 2 + k * n * 4, ops={"bf16": 2 * m * n * k},
+            replaces=attn_stage if xin is h1c or xin is ctx else None)
+
+    def ln_bwd_case(name, xin, dy, wkey, bkey, residual, out_dtype):
+        out_b = 2 if out_dtype == bf else 4
+        return _grad_case(
+            name, "layernorm_bwd",
+            lambda: layernorm.layer_norm_bwd(xin, dy, lp[wkey], eps,
+                                             residual=residual,
+                                             out_dtype=out_dtype),
+            lambda: layernorm.layer_norm_bwd_reference(xin, dy, lp[wkey], eps,
+                                                       residual=residual,
+                                                       out_dtype=out_dtype),
+            library=ln_autograd(xin, dy, lp[wkey], lp[bkey], eps),
+            bytes=m * d * (xin.element_size() + 4 + residual.element_size()
+                           + out_b) + 3 * d * 4,
+            ops={"fp32": 16 * m * d}, replaces=attn_stage if xin is x else None)
+
+    def colsum_case(name, xin):
+        c = xin.shape[-1]
+        return _grad_case(
+            name, "column_sum", lambda: layernorm.column_sum(xin),
+            lambda: layernorm.column_sum_reference(xin),
+            library=lambda: xin.reshape(m, c).float().sum(0),
+            bytes=m * c * xin.element_size() + c * 4, ops={"fp32": m * c},
+            replaces=attn_stage if xin is dqkv else None)
+
+    wbytes_attn = (4 * d * d) * 2 + 8 * d * 4
+    wbytes_mlp = (2 * d * h) * 2 + (3 * d + h) * 4
+    stage_x2_ops = 2 * m * d * 4 * d + 4 * batch * t * t * d
+    stage_mlp_ops = 10 * m * d * h
+    stage_attn_ops = 22 * m * d * d + 14 * batch * t * t * d
+
+    def flat(value):
+        out, grads = value
+        return (out, *grads.values())
+
+    cases = [
+        attn_case(bf), attn_case(f32),
+        dgrad_case("linear_dgrad qkv (dqkv_c . qkv_w^T, fp32 out)", dqkv_c, "qkv_w", f32),
+        dgrad_case("linear_dgrad out-proj (dx2_c . out_w^T, bf16 out)", dac, "out_w", bf),
+        dgrad_case("linear_dgrad fc1 (dhpc . fc1_w^T, fp32 out)", dhpc, "fc1_w", f32),
+        dgrad_case("linear_dgrad fc2 (dOut . fc2_w^T * gelu', fp32 + bf16)", dout,
+                   "fc2_w", f32, gelu=True),
+        wgrad_case("linear_wgrad qkv (h1c^T . dqkv_c)", h1c, dqkv_c),
+        wgrad_case("linear_wgrad out-proj (ctx^T . dx2_c)", ctx, dac),
+        wgrad_case("linear_wgrad fc1 (h2c^T . dhpc)", h2c, dhpc),
+        wgrad_case("linear_wgrad fc2 (hidc^T . dOut)", hidc, dout),
+        _grad_case("fused_linear_with_gelu fc1 recompute (fp32 + bf16 GELU)",
+                   "linear_gelu_pair",
+                   lambda: linear.fused_linear_with_gelu(h2c, wb["fc1_w"], lp["fc1_b"]),
+                   lambda: linear.fused_linear_with_gelu_reference(
+                       h2c, wb["fc1_w"], lp["fc1_b"]),
+                   library=lambda: (lambda y: (y, torch.nn.functional.gelu(
+                       y, approximate="tanh").to(bf)))(
+                           torch.addmm(lp["fc1_b"], h2c.reshape(m, d).float(),
+                                       lp["fc1_w"])),
+                   bytes=m * d * 2 + d * h * 2 + h * 4 + m * h * 6,
+                   ops={"bf16": 2 * m * d * h}),
+        ln_bwd_case("layer_norm_bwd LN2 (fp32 x2, + dOut, fp32 dx2)", x2, dh2,
+                    "ln2_w", "ln2_b", dout, f32),
+        ln_bwd_case("layer_norm_bwd LN1 (bf16 x, + dx2, bf16 dx)", x, dh1, "ln1_w",
+                    "ln1_b", dx2, bf),
+        colsum_case("column_sum dqkv (fp32)", dqkv),
+        colsum_case("column_sum dOut (bf16)", dout),
+        _grad_case("fused_bwd_stage_x2 (_attn_half_fwd_kernel: 4 launches)",
+                   "fused_bwd_x2",
+                   lambda: fused_block.fused_bwd_stage_x2(x, lp, cfg),
+                   lambda: fused_block.fused_bwd_stage_x2_reference(x, lp, cfg),
+                   library=None, bytes=m * d * (2 + 4) + wbytes_attn,
+                   ops={"bf16": stage_x2_ops}),
+        _grad_case("fused_bwd_stage_mlp_mono (_mlp_bwd_kernel: 10 launches)",
+                   "fused_bwd_mlp",
+                   lambda: flat(fused_block.fused_bwd_stage_mlp_mono(x2, dout, lp, cfg)),
+                   lambda: flat(fused_block.fused_bwd_stage_mlp_mono_reference(
+                       x2, dout, lp, cfg)),
+                   rel=STAGE_GRAD_REL, library=None,
+                   bytes=m * d * (4 + 2 + 4) + wbytes_mlp + wbytes_mlp * 2,
+                   ops={"bf16": stage_mlp_ops}),
+        _grad_case("fused_bwd_stage_attn (_attn_bwd_kernel: 13 launches)",
+                   "fused_bwd_attn",
+                   lambda: flat(fused_block.fused_bwd_stage_attn(x, dx2, lp, cfg)),
+                   lambda: flat(fused_block.fused_bwd_stage_attn_reference(
+                       x, dx2, lp, cfg)),
+                   rel=STAGE_GRAD_REL, min_same=MIN_SAME_CHAIN, library=None,
+                   bytes=m * d * (2 + 4 + 2) + wbytes_attn + wbytes_attn * 2,
+                   ops={"bf16": stage_attn_ops}),
+        _grad_case("fused_encoder_layer_bwd (the three stages)", "fused_bwd",
+                   lambda: flat(fused_block.fused_encoder_layer_bwd(x, lp, dout, cfg)),
+                   lambda: flat(fused_block.fused_encoder_layer_bwd_reference(
+                       x, lp, dout, cfg)),
+                   rel=STAGE_GRAD_REL, min_same=MIN_SAME_CHAIN, library=None,
+                   bytes=m * d * (2 + 2 + 2) + 3 * (wbytes_attn + wbytes_mlp),
+                   ops={"bf16": stage_x2_ops + stage_mlp_ops + stage_attn_ops}),
+    ]
+    return run_cases(cases, batch, "train ")
+
+
+def train_batch(n: int, seed: int, cfg=CFG) -> tuple:
+    """Seeded images, all of one seeded label. A few steps from the
+    zero-initialised head learn a batch's label frequencies first (with 32
+    distinct labels the loss sat at ln 32 after 8 steps, every image's
+    top-2 logits tied, on an H100 80GB HBM3), so one label is what makes the
+    trained model's top-1 margin decisive and its exported labels
+    checkable."""
+    images = fixtures.random_images(cfg, n=n, seed=seed)
+    return images, np.full(n, seed % cfg.num_classes)
+
+
+def one_step_vs_plain(route: str, dev, images, labels) -> None:
+    """One AdamW step of a Trainer from random params against the same
+    Trainer with its links swapped for their plain versions."""
+    def step():
+        tr = Trainer(CFG, device=dev, lr=TRAIN_LR, optimizer="adamw",
+                     compute_dtype=torch.bfloat16, attention_impl=route,
+                     log_every=0, seed=0)
+        tr.params = vit.stack_params(fixtures.random_params(CFG, seed=1), CFG,
+                                     param_dtype=torch.float32, device=dev)
+        tr.opt_state = tr._init_opt(tr.params)
+        start = {k: v.clone() for k, v in tr.params["layers"].items()}
+        tr.fit(iter([(images, labels)]), steps=1)
+        torch.cuda.synchronize()
+        return tr, start
+
+    tr, start = step()
+    # Every link of the training routes on its plain version.
+    with plain_chain("packed_fused_attention", "packed_attention_bwd",
+                     module=attention), \
+            plain_chain("fused_encoder_layer", "fused_encoder_layer_bwd"):
+        plain, _ = step()
+    loss_err = abs(tr.last_loss - plain.last_loss) / abs(plain.last_loss)
+    mu_err, sure_err, any_err, mean_err = 0.0, 0.0, 0.0, 0.0
+    for key in start:
+        mu, mu_plain = (t.opt_state["mu"]["layers"][key] for t in (tr, plain))
+        scale = max(float(mu_plain.abs().max()), 1e-30)
+        mu_err = max(mu_err, float((mu - mu_plain).abs().max()) / scale)
+        diff = (tr.params["layers"][key] - plain.params["layers"][key]).abs() / TRAIN_LR
+        sure = mu_plain.abs() > MU_REL * scale
+        sure_err = max(sure_err, float(diff[sure].max()))
+        any_err = max(any_err, float(diff.max()))
+        mean_err = max(mean_err, float(diff.mean()))
+    print(f"  {route}: one step vs the plain links: loss {tr.last_loss:.6f} vs "
+          f"{plain.last_loss:.6f} (rel {loss_err:.2e}); layer mu max rel err "
+          f"{mu_err:.3e}; update difference {sure_err:.3e} lr where |mu| > "
+          f"{MU_REL} of its leaf's largest, {any_err:.3f} lr at most, "
+          f"{mean_err:.3f} lr on average", flush=True)
+    check(loss_err <= STEP_LOSS_REL and mu_err <= MU_REL
+          and sure_err <= UPDATE_ATOL and any_err <= 2.0 + UPDATE_ATOL,
+          f"{route} step within tolerance of its plain links (loss {loss_err:.2e} "
+          f"<= {STEP_LOSS_REL}, mu {mu_err:.2e} <= {MU_REL}, updates "
+          f"{sure_err:.2e} lr <= {UPDATE_ATOL} lr where the gradient is "
+          f"resolved, {any_err:.3f} lr <= 2 lr anywhere)")
+
+
+def training_main_path(dev, tmp: Path) -> dict:
+    """Phase 5: ViT-B/16 at full width through Trainer in each route: the
+    loss falls over TRAIN_STEPS steps on a memorised batch, the launch
+    counts of those steps, a step against the plain links, save → resume,
+    and export → the CLI's labels."""
+    images, labels = train_batch(TRAIN_BATCH, seed=3)
+    counts = {}
+    for route in TRAIN_ROUTES:
+        logs = []
+        t0 = time.perf_counter()
+        tr = Trainer(CFG, device=dev, lr=TRAIN_LR, optimizer="adamw",
+                     compute_dtype=torch.bfloat16, attention_impl=route,
+                     log_every=1, log_fn=logs.append, seed=0,
+                     checkpoint_dir=str(tmp / f"ck_{route}"))
+        setup = time.perf_counter() - t0
+        batches = data.memory_dataset(images, labels, TRAIN_BATCH, epochs=None,
+                                      seed=1)
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        tr.fit(batches, steps=TRAIN_STEPS)
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+        counts[route] = read_counts()
+        losses = [float(line.split("loss ")[1].split(",")[0]) for line in logs]
+        print(f"  {route}: Trainer set up in {setup:.1f} s; {TRAIN_STEPS} steps at "
+              f"B={TRAIN_BATCH} in {elapsed:.2f} s; losses "
+              f"{' '.join(f'{v:.4f}' for v in losses)}", flush=True)
+        check(len(losses) == TRAIN_STEPS and all(np.isfinite(losses))
+              and losses[-1] < losses[0],
+              f"{route}: the loss falls over {TRAIN_STEPS} steps "
+              f"({losses[0]:.4f} -> {losses[-1]:.4f})")
+        expected = {key: TRAIN_PER_LAYER[route].get(key, 0) * CFG.depth * TRAIN_STEPS
+                    for key in COUNTERS}
+        check(counts[route] == expected,
+              f"{route}: launches of {TRAIN_STEPS} steps {counts[route]}, expected "
+              f"{expected}")
+        if route != "xla":
+            one_step_vs_plain(route, dev, images, labels)
+        if route == "fused":
+            resume_and_export(tr, dev, tmp, images)
+        del tr
+        torch.cuda.empty_cache()
+    return counts
+
+
+def resume_and_export(tr, dev, tmp: Path, images) -> None:
+    """save → resume restores step, params and AdamW state exactly; the
+    exported weights through the CLI give the trained params' labels."""
+    tr.save()
+    back = Trainer(CFG, device=dev, lr=TRAIN_LR, optimizer="adamw",
+                   compute_dtype=torch.bfloat16, attention_impl="fused",
+                   log_every=0, seed=5, checkpoint_dir=tr.checkpoint_dir)
+    def state(t):
+        return optim.tree_leaves({"params": t.params, **t.opt_state})
+
+    same = back.resume() and back.step_idx == tr.step_idx and all(
+        torch.equal(a, b) for a, b in zip(state(tr), state(back)))
+    check(same, f"save -> resume restores step {tr.step_idx}, params and the "
+                f"AdamW state exactly")
+    del back
+    ws = tmp / "trained"
+    files = tr.export_reference(str(ws / "Network"))
+    binfmt.save_image_data(ws / "input.bin", images)
+    with torch.no_grad():
+        logits = vit.forward(torch.from_numpy(images).to(dev), tr.params, CFG,
+                             compute_dtype=torch.bfloat16,
+                             kernels=vit.resolve_kernels("flash"),
+                             return_logits=True).float()
+    top2 = logits.topk(2, dim=-1)
+    decisive = (top2.values[:, 0] - top2.values[:, 1]) >= MIN_LOGIT_GAP
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(["--input", str(ws / "input.bin"), "--weights",
+                       str(ws / "Network"), "--output", str(ws / "result.txt"),
+                       "--backend", "gpu", "--attention", "flash", "--config",
+                       CFG.name, "--batch-size", str(SMOKE_BATCH)])
+    lines = [results.parse_result_line(line) for line in
+             (ws / "result.txt").read_text().splitlines()]
+    want = top2.indices[:, 0].tolist()
+    agree = [lab == w for (lab, _), w, dec in zip(lines, want, decisive.tolist())
+             if dec]
+    probs = torch.softmax(logits, -1).max(-1).values.tolist()
+    prob_err = max((abs(p - q) for (_, p), q in zip(lines, probs)), default=1.0)
+    print(f"  exported {len(files)} weight files; the CLI's top-1 labels vs the "
+          f"trained params' forward: {sum(agree)} of {len(agree)} decisive images "
+          f"(top-2 logit gap >= {MIN_LOGIT_GAP}) agree, {len(images) - len(agree)} "
+          f"near-ties left out; top-1 probabilities within {prob_err:.3e}",
+          flush=True)
+    check(rc == 0 and len(lines) == len(images) and agree and all(agree)
+          and prob_err <= PROB_TOL,
+          f"export_reference -> cli --backend gpu: the trained params' labels, "
+          f"probabilities within {PROB_TOL}")
+
+
+def training_throughput(dev) -> dict:
+    """Phase 4b: ms per AdamW step, img/s and peak memory of each route at
+    TRAIN_THROUGHPUT_BATCH, and the split of a fused step."""
+    batch = TRAIN_THROUGHPUT_BATCH
+    images, labels = train_batch(batch, seed=4)
+    ti = torch.from_numpy(images).to(dev)
+    tl = torch.from_numpy(labels).to(dev)
+    out = {}
+    for route in TRAIN_ROUTES:
+        init, step = spmd.make_train_step(CFG, device=dev, lr=TRAIN_LR,
+                                          compute_dtype=torch.bfloat16,
+                                          optimizer="adamw", attention_impl=route)
+        params = vit.init_params(CFG, seed=0, device=dev)
+        state = init(params)
+        step(params, state, ti, tl)  # warm-up (and a non-zero head)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ms = time_ms(lambda: step(params, state, ti, tl), reps=5)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        out[route] = ms
+        print(f"throughput train {route} B={batch}: {ms:.2f} ms per AdamW step, "
+              f"{batch / ms * 1e3:.1f} img/s, peak memory {peak:.2f} GiB", flush=True)
+        print(json.dumps({"train_throughput": {
+            "route": route, "batch": batch, "step_ms": ms,
+            "img_per_s": batch / ms * 1e3, "peak_gib": peak}}), flush=True)
+        if route == "fused":
+            fused_step_split(dev, params, state, ti, tl, ms)
+        del params, state, init, step
+        torch.cuda.empty_cache()
+    return out
+
+
+def fused_step_split(dev, params, state, images, labels, step_ms) -> None:
+    """Where a fused step's time goes: the 12-layer forward chain, each
+    backward stage over 12 layers, the AdamW update, the rest."""
+    batch = images.shape[0]
+    with torch.no_grad():
+        x = vit.embed(images, params, CFG, torch.bfloat16)
+        lps = vit._layer_list(params)
+        fwd = time_ms(lambda: [fused_block.fused_encoder_layer(x, lp, CFG) for lp in lps],
+                      reps=3)
+        x2 = fused_block.fused_bwd_stage_x2(x, lps[0], CFG)
+        dout = torch.full_like(x, 1e-3)
+        dx2, _ = fused_block.fused_bwd_stage_mlp_mono(x2, dout, lps[0], CFG)
+        t_x2 = time_ms(lambda: [fused_block.fused_bwd_stage_x2(x, lp, CFG) for lp in lps],
+                       reps=3)
+        t_mlp = time_ms(lambda: [fused_block.fused_bwd_stage_mlp_mono(x2, dout, lp, CFG)
+                                 for lp in lps], reps=3)
+        t_attn = time_ms(lambda: [fused_block.fused_bwd_stage_attn(x, dx2, lp, CFG)
+                                  for lp in lps], reps=3)
+        tx = optim.adamw(TRAIN_LR, weight_decay=0.05)
+        grads = optim.tree_map(lambda p: torch.full_like(p, 1e-4), params)
+        t_opt = time_ms(lambda: optim.apply_updates(params, tx.update(grads, state, params)[0]),
+                        reps=3)
+    rest = step_ms - (fwd + t_x2 + t_mlp + t_attn + t_opt)
+    print(f"  fused step split at B={batch} (ms): forward chain {fwd:.2f}, stage x2 "
+          f"{t_x2:.2f}, stage MLP {t_mlp:.2f}, stage attention {t_attn:.2f} "
+          f"({CFG.depth} layers each), AdamW {t_opt:.2f}, the rest (embedding, "
+          f"head, loss, autograd) {rest:.2f}; step {step_ms:.2f}", flush=True)
+    print(json.dumps({"fused_step_split": {
+        "batch": batch, "forward_chain_ms": fwd, "stage_x2_ms": t_x2,
+        "stage_mlp_ms": t_mlp, "stage_attn_ms": t_attn, "adamw_ms": t_opt,
+        "rest_ms": rest, "step_ms": step_ms}}), flush=True)
 
 
 def fp32_layer_norm_check(dev) -> None:
@@ -924,15 +1457,18 @@ def decisive_images(params: dict, dev, cfg=CFG) -> np.ndarray:
 
 
 @contextlib.contextmanager
-def plain_chain(name: str = "fused_encoder_layer"):
-    """The engine's encoder through the plain versions of the chain
-    ``fused_block.<name>`` (the per-layer chain, or the stack)."""
-    kernel_version = getattr(fused_block, name)
-    setattr(fused_block, name, getattr(fused_block, name + "_reference"))
+def plain_chain(*names: str, module=fused_block):
+    """The functions ``module.<name>`` (by default the per-layer chain,
+    ``fused_block.fused_encoder_layer``) swapped for their plain versions."""
+    names = names or ("fused_encoder_layer",)
+    kernel_versions = [getattr(module, name) for name in names]
+    for name in names:
+        setattr(module, name, getattr(module, name + "_reference"))
     try:
         yield
     finally:
-        setattr(fused_block, name, kernel_version)
+        for name, fn in zip(names, kernel_versions):
+            setattr(module, name, fn)
 
 
 @contextlib.contextmanager
@@ -1243,6 +1779,10 @@ def main() -> int:
               f"plain versions, B={SMOKE_BATCH}", flush=True)
         small_rows = {cfg.name: stack_kernel_rows(cfg, SMOKE_BATCH, dev)
                       for cfg in SMALL_CFGS}
+    # Outside inference mode: the yardsticks of the backward are autograd.
+    print(f"== phase 2e: training kernels and backward stages vs plain versions, "
+          f"B={SMOKE_BATCH}", flush=True)
+    train_rows = train_kernel_rows(SMOKE_BATCH, dev)
 
     with tempfile.TemporaryDirectory() as tmp:
         print(f"== phase 2c: outlier-aware W8A8 kernels vs plain versions, "
@@ -1278,12 +1818,19 @@ def main() -> int:
               flush=True)
         small = {cfg.name: small_main_path(Path(tmp) / cfg.name, dev, cfg)
                  for cfg in SMALL_CFGS}
+        print(f"== phase 5: training main path (Trainer, ViT-B/16, bf16, AdamW; "
+              f"routes {', '.join(TRAIN_ROUTES)})", flush=True)
+        train_counts = training_main_path(dev, Path(tmp))
 
     print("== phase 4: throughput", flush=True)
     with torch.inference_mode():
         throughput({"bf16": engine, **engines, "w8a8_outlier": outlier_engine}, dev)
         for cfg in SMALL_CFGS:
             small_throughput(cfg, small[cfg.name][1], dev)
+    print("== phase 4b: training throughput", flush=True)
+    training_throughput(dev)
+    print(f"  the training kernels at B={TRAIN_THROUGHPUT_BATCH}:", flush=True)
+    train_kernel_rows(TRAIN_THROUGHPUT_BATCH, dev, seed=TRAIN_THROUGHPUT_BATCH)
 
     # Each row's launches: from the main-path run that drives its kernel.
     runs = [(counts, r) for r in rows] + [
@@ -1306,9 +1853,15 @@ def main() -> int:
                  + [(cli["int8"] if int8w(r) else cli["bf16"], r) for r in stacks_])
         runs += [(run, r) for run, r in pairs
                  if run and r["counter"] in SOURCES and run[r["counter"]]]
+    # The training rows, from the phase-5 run of their route (the attention
+    # backward from flash, where it is the route's one backward kernel); the
+    # whole-backward row is printed above, not recorded (no one TPU kernel).
+    runs += [(train_counts["flash" if r["counter"] == "attention_bwd" else "fused"], r)
+             for r in train_rows if r["counter"] != "fused_bwd"]
     record = {"kernels": [
         {"name": r["name"], "route": "cuda", "source": SOURCES[r["counter"]],
-         "replaces": REPLACES[r["counter"]], "launches": run[r["counter"]],
+         "replaces": r["replaces"] or REPLACES[r["counter"]],
+         "launches": run[r["counter"]],
          "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
          "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
          "library_ms": r["library_ms"]} for run, r in runs]}

@@ -532,3 +532,230 @@ def test_encoder_group_chain(dev, form):
     ref = fused_block.fused_encoder_group_reference(x, layers, cfg, group_size=2)
     _close(out, ref, min_same=MIN_SAME_STACK, tol=STACK_TOL)
     _assert_nearer_than_fault(out, ref, x, layers, cfg)
+
+
+# -- training: the backward's kernels and stages ----------------------------
+
+# The backward's fp32 outputs (gradients, dx2) are long sums the kernels take
+# in another order than the plain versions' library calls: held to a share
+# of each output's largest magnitude. bf16 outputs as elsewhere.
+GRAD_REL = 1e-3
+MIN_SAME_ATTN_BWD = 0.9
+
+
+def _rel_close(out, ref, rel=GRAD_REL):
+    out, ref = out.float(), ref.float()
+    scale = max(float(ref.abs().max()), 1e-30)
+    assert float((out - ref).abs().max()) <= rel * scale
+
+
+@pytest.mark.parametrize("b,t,nh,hd", [(2, 37, 4, 16), (2, 197, 12, 64),
+                                       (1, 50, 2, 104), (1, 197, 2, 128)])
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+def test_packed_attention_bwd_kernel(dev, b, t, nh, hd, out_dtype):
+    qkv = _rand((b, t, 3 * nh * hd), dev, torch.bfloat16)
+    do = _rand((b, t, nh * hd), dev, torch.bfloat16, seed=1)
+    before = attention.LAUNCHES_BWD
+    out = attention.packed_attention_bwd(qkv, do, nh, hd, out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    assert attention.LAUNCHES_BWD == before + 1 and out.dtype == out_dtype
+    ref = attention.packed_attention_bwd_reference(qkv, do, nh, hd,
+                                                   out_dtype=out_dtype)
+    if out_dtype == torch.bfloat16:
+        _close(out, ref, min_same=MIN_SAME_ATTN_BWD,
+               tol=dict(rtol=1.6e-2, atol=1e-2 * float(ref.float().abs().max())))
+    else:
+        _rel_close(out, ref)
+
+
+def test_packed_attention_bwd_refuses(dev):
+    qkv = _rand((1, 8, 3 * 64), dev, torch.bfloat16)
+    with pytest.raises(NotImplementedError):
+        attention.packed_attention_bwd(qkv.float(), qkv[..., :64].float(), 4, 16)
+    big = _rand((1, 900, 3 * 64), dev, torch.bfloat16)
+    with pytest.raises(NotImplementedError, match="blockwise"):
+        attention.packed_attention_bwd(big, big[..., :64].contiguous(), 1, 64)
+
+
+@pytest.mark.parametrize("m,k,n", [(74, 64, 192), (3152, 768, 2304),
+                                   (3152, 3072, 768), (33, 40, 24)])
+@pytest.mark.parametrize("form", ["dgrad_bf16", "dgrad_gelu", "wgrad", "fc1"])
+def test_grad_gemm_kernels(dev, m, k, n, form):
+    """dgrad: dY [m, n] · Wᵀ (W [k, n]); wgrad: Xᵀ [k, m] · dY [m, n]; the
+    fc1 recompute: X [m, k] · W2 [k, n] + b with its GELU'd bf16 copy."""
+    x = _rand((m, k), dev, torch.bfloat16)
+    dy = _rand((m, n), dev, torch.bfloat16, seed=1)
+    w = _rand((k, n), dev, torch.bfloat16, std=0.05, seed=2)
+    if form == "dgrad_bf16":
+        before = linear.LAUNCHES_DGRAD
+        out = linear.linear_dgrad(dy, w, out_dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        assert linear.LAUNCHES_DGRAD == before + 1
+        _close(out, linear.linear_dgrad_reference(dy, w, out_dtype=torch.bfloat16))
+    elif form == "dgrad_gelu":
+        pre = _rand((m, k), dev, seed=3)
+        out, out_bf = linear.linear_dgrad(dy, w, gelu_grad_of=pre,
+                                          out2_dtype=torch.bfloat16)
+        ref, ref_bf = linear.linear_dgrad_reference(dy, w, gelu_grad_of=pre,
+                                                    out2_dtype=torch.bfloat16)
+        _rel_close(out, ref, 1e-4)
+        _close(out_bf, ref_bf)
+    elif form == "wgrad":
+        before = linear.LAUNCHES_WGRAD
+        if k % 8:
+            with pytest.raises(ValueError):
+                linear.linear_wgrad(x, dy)
+            return
+        out = linear.linear_wgrad(x, dy)
+        torch.cuda.synchronize()
+        assert linear.LAUNCHES_WGRAD == before + 1 and out.shape == (k, n)
+        _rel_close(out, linear.linear_wgrad_reference(x, dy), 1e-4)
+    else:
+        b = _rand((n,), dev, std=0.1, seed=4)
+        before = linear.LAUNCHES_GELU_PAIR
+        pre, hid = linear.fused_linear_with_gelu(x, w, b)
+        torch.cuda.synchronize()
+        assert linear.LAUNCHES_GELU_PAIR == before + 1
+        rpre, rhid = linear.fused_linear_with_gelu_reference(x, w, b)
+        _rel_close(pre, rpre, 1e-4)
+        _close(hid, rhid)
+
+
+@pytest.mark.parametrize("rows,cols", [(74, 64), (3152, 768)])
+@pytest.mark.parametrize("x_dtype,g_dtype,out_dtype", [
+    (torch.float32, torch.bfloat16, torch.float32),
+    (torch.bfloat16, torch.float32, torch.bfloat16),
+    (torch.float32, None, torch.float32)])
+def test_layer_norm_bwd_kernel(dev, rows, cols, x_dtype, g_dtype, out_dtype):
+    x = _rand((rows, cols), dev, x_dtype, std=2.0)
+    dy = _rand((rows, cols), dev, seed=1)
+    w = _rand((cols,), dev, std=0.1, seed=2) + 1.0
+    g = None if g_dtype is None else _rand((rows, cols), dev, g_dtype, seed=3)
+    before = (layernorm.LAUNCHES_BWD, layernorm.LAUNCHES_COLSUM)
+    dx, dw, db = layernorm.layer_norm_bwd(x, dy, w, 1e-6, residual=g,
+                                          out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    assert (layernorm.LAUNCHES_BWD, layernorm.LAUNCHES_COLSUM) == (
+        before[0] + 1, before[1] + 2)
+    rdx, rdw, rdb = layernorm.layer_norm_bwd_reference(
+        x, dy, w, 1e-6, residual=g, out_dtype=out_dtype)
+    if out_dtype == torch.bfloat16:
+        _close(dx, rdx)
+    else:
+        _rel_close(dx, rdx, 1e-4)
+    _rel_close(dw, rdw, 1e-4)
+    _rel_close(db, rdb, 1e-4)
+
+
+@pytest.mark.parametrize("rows,cols", [(3152, 2304), (70, 24)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_column_sum_kernel(dev, rows, cols, dtype):
+    x = _rand((rows, cols), dev, dtype)
+    out = layernorm.column_sum(x)
+    torch.cuda.synchronize()
+    _rel_close(out, layernorm.column_sum_reference(x), 1e-5)
+    assert torch.equal(out, layernorm.column_sum(x))  # no atomics
+
+
+def _train_layer(cfg, dev, seed=5):
+    params = vit.stack_params(fixtures.random_params(cfg, seed=seed), cfg,
+                              param_dtype=torch.float32, device=dev)
+    return {k: v[0] for k, v in params["layers"].items()}
+
+
+@pytest.mark.parametrize("d,nh,t", [(64, 4, 37), (192, 3, 197)])
+def test_fused_backward_stages(dev, d, nh, t):
+    cfg = ViTConfig(name="bwd", img_size=32, patch_size=8, embed_dim=d,
+                    depth=1, num_heads=nh, num_classes=9)
+    lp = _train_layer(cfg, dev)
+    x = _rand((2, t, d), dev, torch.bfloat16, std=0.5, seed=6)
+    dout = _rand((2, t, d), dev, torch.bfloat16, std=0.1, seed=7)
+    before = (fused_block.LAUNCHES_BWD, fused_block.LAUNCHES_BWD_X2,
+              fused_block.LAUNCHES_BWD_MLP, fused_block.LAUNCHES_BWD_ATTN)
+    dx, dlp = fused_block.fused_encoder_layer_bwd(x, lp, dout, cfg)
+    torch.cuda.synchronize()
+    assert (fused_block.LAUNCHES_BWD, fused_block.LAUNCHES_BWD_X2,
+            fused_block.LAUNCHES_BWD_MLP, fused_block.LAUNCHES_BWD_ATTN) == tuple(
+                c + 1 for c in before)
+    rdx, rdlp = fused_block.fused_encoder_layer_bwd_reference(x, lp, dout, cfg)
+    _close(dx, rdx, min_same=MIN_SAME_CHAIN)
+    for key in rdlp:
+        assert dlp[key].dtype == torch.float32
+        _rel_close(dlp[key], rdlp[key], 2e-2)
+
+
+def test_fused_layer_trainable_on_card(dev):
+    cfg = ViTConfig(name="bwd", img_size=32, patch_size=8, embed_dim=64,
+                    depth=1, num_heads=4, num_classes=9)
+    lp = {k: v.requires_grad_(True) for k, v in _train_layer(cfg, dev).items()}
+    x = _rand((2, cfg.num_tokens, 64), dev, torch.bfloat16, std=0.5, seed=6)
+    x.requires_grad_(True)
+    out = fused_block.fused_encoder_layer_trainable(x, lp, cfg)
+    out.float().square().sum().backward()
+    assert x.grad is not None and all(v.grad is not None for v in lp.values())
+    ref_dx, ref = fused_block.fused_encoder_layer_bwd_reference(
+        x.detach(), {k: v.detach() for k, v in lp.items()},
+        (2 * out.float()).to(torch.bfloat16).detach(), cfg)
+    _close(x.grad, ref_dx, min_same=MIN_SAME_CHAIN)
+    for key, v in lp.items():
+        _rel_close(v.grad, ref[key], 2e-2)
+
+
+def test_inference_wrappers_refuse_autograd_on_card(dev):
+    """A kernel's result carries no graph: under autograd with a tensor that
+    requires grad the wrappers raise; inference_mode and no_grad run."""
+    cfg = ViTConfig(name="guard", img_size=32, patch_size=8, embed_dim=64,
+                    depth=1, num_heads=4, num_classes=9)
+    lp = _train_layer(cfg, dev)
+    x = _rand((2, cfg.num_tokens, 64), dev, torch.bfloat16)
+    w = lp["ln1_w"].clone().requires_grad_(True)
+    with pytest.raises(RuntimeError, match="trainable"):
+        layernorm.layer_norm(x, w, lp["ln1_b"])
+    xr = x.clone().requires_grad_(True)
+    with pytest.raises(RuntimeError, match="fused_encoder_layer_trainable"):
+        fused_block.fused_encoder_layer(xr, lp, cfg)
+    qkv = _rand((2, 17, 192), dev, torch.bfloat16).requires_grad_(True)
+    with pytest.raises(RuntimeError, match="packed_fused_attention_trainable"):
+        attention.packed_fused_attention(qkv, num_heads=4, head_dim=16)
+    with torch.inference_mode():
+        layernorm.layer_norm(x, w, lp["ln1_b"])
+        fused_block.fused_encoder_layer(xr, lp, cfg)
+    with torch.no_grad():
+        attention.packed_fused_attention(qkv, num_heads=4, head_dim=16)
+
+
+@pytest.mark.parametrize("route", ["flash", "fused"])
+def test_train_step_on_card_matches_plain_links(dev, route, monkeypatch):
+    """One bf16 AdamW step through the kernels against the same step with
+    every link swapped for its plain version."""
+    from vit_with_opencl_tpu_torch.parallel import spmd
+
+    cfg = ViTConfig(name="step", img_size=32, patch_size=8, embed_dim=192,
+                    depth=2, num_heads=3, num_classes=10)
+    images = torch.from_numpy(fixtures.random_images(cfg, n=4, seed=1)).to(dev)
+    labels = torch.arange(4, device=dev)
+
+    def run():
+        params = vit.stack_params(fixtures.random_params(cfg, seed=2), cfg,
+                                  param_dtype=torch.float32, device=dev)
+        init, step = spmd.make_train_step(cfg, device=dev, lr=1e-3,
+                                          compute_dtype=torch.bfloat16,
+                                          optimizer="adamw",
+                                          attention_impl=route)
+        state = init(params)
+        params, state, loss = step(params, state, images, labels)
+        return float(loss), state["mu"]
+
+    before = (attention.LAUNCHES_BWD, fused_block.LAUNCHES_BWD)
+    loss, mu = run()
+    torch.cuda.synchronize()
+    assert attention.LAUNCHES_BWD - before[0] == 2  # one a layer, both routes
+    assert fused_block.LAUNCHES_BWD - before[1] == (2 if route == "fused" else 0)
+    for name in ("packed_fused_attention", "packed_attention_bwd"):
+        monkeypatch.setattr(attention, name, getattr(attention, name + "_reference"))
+    for name in ("fused_encoder_layer", "fused_encoder_layer_bwd"):
+        monkeypatch.setattr(fused_block, name, getattr(fused_block, name + "_reference"))
+    plain_loss, plain_mu = run()
+    assert abs(loss - plain_loss) <= 1e-3 * abs(plain_loss)
+    for key in ("qkv_w", "fc1_w"):
+        _rel_close(mu["layers"][key], plain_mu["layers"][key], 5e-2)

@@ -1,6 +1,7 @@
 """The port stands alone: it imports neither JAX nor the JAX package, nor
 ``ml_dtypes`` (the machine with the card lacks it: the port rounds its bf16
-weights with torch), never falls back to the CPU when a card was asked for,
+weights with torch), nor optax or orbax (its optimizers and checkpoints are
+its own torch code), never falls back to the CPU when a card was asked for,
 and never falls back to a plain version when its kernels cannot be built."""
 
 import pkgutil
@@ -28,7 +29,9 @@ def _port_modules():
 
 def test_importing_every_module_loads_no_jax():
     modules = _port_modules()
-    for name in ("ops.fused_block", "ops.quantize", "models.quant"):
+    for name in ("ops.fused_block", "ops.quantize", "models.quant", "train",
+                 "optim", "data", "parallel.spmd", "io.checkpoint",
+                 "io.export"):
         assert f"vit_with_opencl_tpu_torch.{name}" in modules
     code = "\n".join([
         "import importlib, sys",
@@ -36,7 +39,7 @@ def test_importing_every_module_loads_no_jax():
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')",
         "             or m == 'vit_with_opencl_tpu'",
         "             or m.startswith('vit_with_opencl_tpu.')",
-        "             or m == 'ml_dtypes' or m.startswith('ml_dtypes.'))",
+        "             or m.split('.')[0] in ('ml_dtypes', 'optax', 'orbax'))",
         "print(bad)",
     ])
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
@@ -50,6 +53,7 @@ FORBIDDEN = [re.compile(p, re.MULTILINE) for p in (
     r"^\s*(import|from)\s+vit_with_opencl_tpu\b",  # \b: not ..._torch
     r"\bvit_with_opencl_tpu\.",
     r"^\s*(import|from)\s+ml_dtypes\b",  # also a lazy import in a function
+    r"^\s*(import|from)\s+(optax|orbax)\b",
 )]
 
 

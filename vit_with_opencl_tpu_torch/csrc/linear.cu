@@ -1,4 +1,5 @@
-// Tiled GEMMs with an fp32 epilogue: out = epi(x @ w), in three forms.
+// Tiled GEMMs with an fp32 epilogue: out = epi(x @ w), in three forms, and
+// the training backward's GEMM forms (grad_gemm_kernel, further down).
 //
 // Replaces vit_with_opencl_tpu/ops/linear.py:_linear_kernel (fused_linear)
 // and the four matmuls that ops/fused_block.py:_block_kernel inlines (_mm):
@@ -43,6 +44,8 @@
 #include "common.cuh"  // cuda_bf16.h before mma.h: the bf16 fragments
 
 #include <mma.h>
+
+#include <type_traits>
 
 namespace vit {
 
@@ -530,6 +533,248 @@ linear_w8a8_kernel(const int8_t* __restrict__ xq,
   }
 }
 
+// ---------------------------------------------------------------------------
+// The backward's GEMM forms (ops/fused_block.py:_mlp_bwd_kernel and
+// _attn_bwd_kernel, and the fc1 recompute they share):
+//   dgrad   dY [M, N] . W^T with W stored [K, N]: B is read transposed;
+//           optionally times _gelu_fast_grad(pre [M, K]) (fc2's dgrad);
+//   wgrad   X^T . dY over the M = B*T tokens (X [M, K], dY [M, N]) into an
+//           fp32 [K, N] weight gradient: A is read transposed, and the
+//           contraction runs over the ragged token axis;
+//   fc1     x . w + bias with two outputs: fp32 hid_pre for the GELU
+//           gradient and bf16 _gelu_fast(hid_pre) for dfc2_w.
+// One kernel, grad_gemm_kernel<AT, BT>, serves all three: the same 128x128
+// tiles, 8 warps and 3-stage cp.async ring as linear_bf16_kernel, with A or
+// B staged k-major when it is stored transposed and read through WMMA's
+// col_major fragments. Its epilogue: + bias, * _gelu_fast_grad(pre), the
+// store in fp32 or bf16, and an optional bf16 second output of the value or
+// of its _gelu_fast. On the TPU each weight gradient was a sum carried in
+// VMEM over a sequential batch grid; here one block owns an output tile and
+// walks the whole token axis itself, so nothing sums across blocks (the
+// result is the same from run to run; the order of the sum differs from
+// the TPU's, which per image sums 197 tokens and then adds the images).
+// Bound: operations. Not yet used: split-K for the wgrad tiles (768 x 768
+// has 36 tiles for 132 SMs), wgmma and TMA.
+// ---------------------------------------------------------------------------
+
+constexpr int kATLd = kBM + 8;  // A staged k-major: [kBK][kBM + 8]
+constexpr int kBTLd = kBK + 8;  // B staged n-major: [kBN][kBK + 8]
+constexpr int kGStage = kBM * kALd;  // the larger of the four stage sizes
+static_assert(kGStage >= kBK * kATLd && kGStage >= kBStage &&
+                  kGStage >= kBN * kBTLd,
+              "grad GEMM stage");
+constexpr int kSmemBytesGrad = kStages * 2 * kGStage * 2;
+
+struct GradEpilogue {
+  const float* bias;          // [N] or null
+  const float* gelu_grad_of;  // [M, N] fp32 pre-activation or null
+  void* out;                  // [M, N]
+  int out_bf16;
+  bf16* out2;                 // [M, N] bf16 or null
+  int out2_gelu;              // out2 = bf16(_gelu_fast(v)) instead of bf16(v)
+};
+
+// d/dx of gelu_fast (ops/fused_block.py:_gelu_fast_grad): with w = x P(x^2),
+// g'(x) = 0.5 (1 + t) + 0.5 x (1 - t^2) (P(u) + 2 u P'(u)), t = tanh(w).
+__device__ __forceinline__ float gelu_fast_grad(float x) {
+  const float u = x * x;
+  float p = 1.1191059256776888e-06f;
+  p = p * u + -3.0581402420578764e-05f;
+  p = p * u + -0.00012485972711897262f;
+  p = p * u + 0.03646878821593782f;
+  p = p * u + 0.79782813653302f;
+  float dp = 4.0f * 1.1191059256776888e-06f;
+  dp = dp * u + 3.0f * -3.0581402420578764e-05f;
+  dp = dp * u + 2.0f * -0.00012485972711897262f;
+  dp = dp * u + 1.0f * 0.03646878821593782f;
+  const float t = tanhf(x * p);
+  return 0.5f * (1.0f + t) + 0.5f * x * (1.0f - t * t) * (p + 2.0f * u * dp);
+}
+
+__device__ __forceinline__ void store8(void* base, size_t off, int as_bf16,
+                                       const float (&v)[8]) {
+  if (as_bf16) {
+    uint4 packed;
+    packed.x = pack_bf16x2(v[0], v[1]);
+    packed.y = pack_bf16x2(v[2], v[3]);
+    packed.z = pack_bf16x2(v[4], v[5]);
+    packed.w = pack_bf16x2(v[6], v[7]);
+    *reinterpret_cast<uint4*>(static_cast<bf16*>(base) + off) = packed;
+  } else {
+    float4* op = reinterpret_cast<float4*>(static_cast<float*>(base) + off);
+    op[0] = make_float4(v[0], v[1], v[2], v[3]);
+    op[1] = make_float4(v[4], v[5], v[6], v[7]);
+  }
+}
+
+__device__ __forceinline__ void finish8_grad(float (&v)[8], int gm, int gn, int N,
+                                             const GradEpilogue& ep) {
+  const size_t off = static_cast<size_t>(gm) * N + gn;
+  if (ep.bias != nullptr) {
+#pragma unroll
+    for (int e = 0; e < 8; ++e) v[e] = v[e] + ep.bias[gn + e];
+  }
+  if (ep.gelu_grad_of != nullptr) {
+    const float4* pp = reinterpret_cast<const float4*>(ep.gelu_grad_of + off);
+    const float4 p0 = pp[0], p1 = pp[1];
+    const float pre[8] = {p0.x, p0.y, p0.z, p0.w, p1.x, p1.y, p1.z, p1.w};
+#pragma unroll
+    for (int e = 0; e < 8; ++e) v[e] = v[e] * gelu_fast_grad(pre[e]);
+  }
+  store8(ep.out, off, ep.out_bf16, v);
+  if (ep.out2 != nullptr) {
+    float w[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) w[e] = ep.out2_gelu ? gelu_fast(v[e]) : v[e];
+    store8(ep.out2, off, 1, w);
+  }
+}
+
+// One [kBK, kBM] slice of A = S^T, S stored [K, M]: staged k-major.
+__device__ __forceinline__ void load_a_trans(bf16* as, const bf16* __restrict__ s,
+                                             int M, int K, int m0, int k0) {
+  for (int i = threadIdx.x; i < kBK * (kBM / 8); i += kThreads) {
+    const int r = i / (kBM / 8), c = (i % (kBM / 8)) * 8;
+    const bool ok = k0 + r < K && m0 + c < M;
+    const bf16* src = ok ? s + static_cast<size_t>(k0 + r) * M + m0 + c : s;
+    cp_async16(as + r * kATLd + c, src, ok);
+  }
+}
+
+// One [kBN, kBK] slice of B = W^T, W stored [N, K]: staged n-major.
+__device__ __forceinline__ void load_b_trans(bf16* bs, const bf16* __restrict__ w,
+                                             int N, int K, int n0, int k0) {
+  for (int i = threadIdx.x; i < kBN * (kBK / 8); i += kThreads) {
+    const int r = i / (kBK / 8), c = (i % (kBK / 8)) * 8;
+    const bool ok = n0 + r < N && k0 + c < K;
+    const bf16* src = ok ? w + static_cast<size_t>(n0 + r) * K + k0 + c : w;
+    cp_async16(bs + r * kBTLd + c, src, ok);
+  }
+}
+
+template <bool AT, bool BT>
+__device__ __forceinline__ void load_grad_slice(bf16* as, bf16* bs, const bf16* a,
+                                                const bf16* b, int M, int N, int K,
+                                                int m0, int n0, int k0) {
+  if constexpr (AT) load_a_trans(as, a, M, K, m0, k0);
+  else load_a_bf16(as, a, M, K, m0, k0);
+  if constexpr (BT) load_b_trans(bs, b, N, K, n0, k0);
+  else load_b_bf16(bs, b, N, K, n0, k0);
+}
+
+template <bool AT, bool BT>
+__device__ __forceinline__ void mma_slice_grad(
+    nvcuda::wmma::fragment<nvcuda::wmma::accumulator, 16, 16, 16, float> (
+        &acc)[4][2],
+    const bf16* a_stage, const bf16* b_stage) {
+  using namespace nvcuda;
+  using ALayout = typename std::conditional<AT, wmma::col_major, wmma::row_major>::type;
+  using BLayout = typename std::conditional<BT, wmma::col_major, wmma::row_major>::type;
+  const int warp = threadIdx.x / 32;
+  const int wm = warp / 4, wn = warp % 4;  // 2 x 4 warps of 64x32
+#pragma unroll
+  for (int kk = 0; kk < kBK; kk += 16) {
+    wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, ALayout> af[4];
+    wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, BLayout> bfr[2];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int row = wm * 64 + i * 16;
+      if constexpr (AT)
+        wmma::load_matrix_sync(af[i], a_stage + kk * kATLd + row, kATLd);
+      else
+        wmma::load_matrix_sync(af[i], a_stage + row * kALd + kk, kALd);
+    }
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int col = wn * 32 + j * 16;
+      if constexpr (BT)
+        wmma::load_matrix_sync(bfr[j], b_stage + col * kBTLd + kk, kBTLd);
+      else
+        wmma::load_matrix_sync(bfr[j], b_stage + kk * kBLd + col, kBLd);
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+        wmma::mma_sync(acc[i][j], af[i], bfr[j], acc[i][j]);
+  }
+}
+
+// out[M, N] = epi(A . B): A is [M, K] row-major, or (AT) stored [K, M];
+// B is [K, N] row-major, or (BT) stored [N, K].
+template <bool AT, bool BT>
+__global__ void __launch_bounds__(kThreads)
+grad_gemm_kernel(const bf16* __restrict__ a, const bf16* __restrict__ b,
+                 GradEpilogue ep, int M, int N, int K) {
+  using namespace nvcuda;
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* as = reinterpret_cast<bf16*>(smem);
+  bf16* bs = as + kStages * kGStage;
+  const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * kBN;
+
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[4][2];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
+
+  const int slices = (K + kBK - 1) / kBK;
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < slices)
+      load_grad_slice<AT, BT>(as + s * kGStage, bs + s * kGStage, a, b, M, N, K, m0,
+                              n0, s * kBK);
+    cp_async_commit();
+  }
+  for (int kt = 0; kt < slices; ++kt) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();  // slice kt landed; slice kt-1's stage is free again
+    const int next = kt + kStages - 1;
+    if (next < slices)
+      load_grad_slice<AT, BT>(as + (next % kStages) * kGStage,
+                              bs + (next % kStages) * kGStage, a, b, M, N, K, m0,
+                              n0, next * kBK);
+    cp_async_commit();
+    mma_slice_grad<AT, BT>(acc, as + (kt % kStages) * kGStage,
+                           bs + (kt % kStages) * kGStage);
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // the ring is idle: reuse it as the epilogue staging area
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int wm = warp / 4, wn = warp % 4;
+  float* stage = reinterpret_cast<float*>(smem) + warp * 16 * kEpiLd;
+  const int r = lane / 2, c = (lane % 2) * 8;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      wmma::store_matrix_sync(stage, acc[i][j], kEpiLd, wmma::mem_row_major);
+      __syncwarp();
+      const int gm = m0 + wm * 64 + i * 16 + r;
+      const int gn = n0 + wn * 32 + j * 16 + c;
+      if (gm < M && gn < N) {
+        float v[8];
+#pragma unroll
+        for (int e = 0; e < 8; ++e) v[e] = stage[r * kEpiLd + c + e];
+        finish8_grad(v, gm, gn, N, ep);
+      }
+      __syncwarp();
+    }
+  }
+}
+
+template <bool AT, bool BT>
+cudaError_t launch_grad_gemm(const void* a, const void* b, const GradEpilogue& ep,
+                             int M, int N, int K, cudaStream_t stream) {
+  cudaError_t err = allow_dynamic_smem(grad_gemm_kernel<AT, BT>, kSmemBytesGrad);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM);
+  grad_gemm_kernel<AT, BT><<<grid, kThreads, kSmemBytesGrad, stream>>>(
+      static_cast<const bf16*>(a), static_cast<const bf16*>(b), ep, M, N, K);
+  return cudaGetLastError();
+}
+
 inline bool bad_epilogue(int residual_kind) {
   return residual_kind < kNoResidual || residual_kind > kResidualBF16;
 }
@@ -606,4 +851,27 @@ VIT_EXPORT int vit_linear_w8a8(const void* xq, const float* x_scale,
         xq8, x_scale, w8, w_scale, nullptr, nullptr, 0, ep, M, N, K);
   }
   return cudaGetLastError();
+}
+
+// out [M, N] = epilogue(A . B) in bf16: A is [M, K] row-major, or (a_trans)
+// stored [K, M]; B is [K, N] row-major, or (b_trans) stored [N, K]. The
+// dgrad form is (0, 1), the wgrad form (1, 0) with fp32 out, the fc1
+// recompute (0, 0) with out2. N and each operand's contiguous axis must be
+// multiples of 8; ops/linear.py checks that before calling.
+VIT_EXPORT int vit_gemm_grad(const void* a, int a_trans, const void* b, int b_trans,
+                             const float* bias, const float* gelu_grad_of, void* out,
+                             int out_bf16, void* out2, int out2_gelu, int M, int N,
+                             int K, void* stream) {
+  using namespace vit;
+  // 16-byte loads run along each operand's contiguous axis.
+  if (M <= 0 || N <= 0 || K <= 0 || N % 8 != 0 || (a_trans ? M : K) % 8 != 0 ||
+      (b_trans && K % 8 != 0))
+    return cudaErrorInvalidValue;
+  const GradEpilogue ep{bias, gelu_grad_of, out, out_bf16, static_cast<bf16*>(out2),
+                        out2_gelu};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (!a_trans && !b_trans) return launch_grad_gemm<false, false>(a, b, ep, M, N, K, s);
+  if (!a_trans && b_trans) return launch_grad_gemm<false, true>(a, b, ep, M, N, K, s);
+  if (a_trans && !b_trans) return launch_grad_gemm<true, false>(a, b, ep, M, N, K, s);
+  return launch_grad_gemm<true, true>(a, b, ep, M, N, K, s);
 }

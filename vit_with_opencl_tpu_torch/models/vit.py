@@ -116,7 +116,9 @@ def stack_params(named: Dict[str, np.ndarray], config: ViTConfig, *,
 
 def _to_torch(host: Params, param_dtype: torch.dtype, device) -> Params:
     def conv(key, arr):
-        t = torch.from_numpy(np.ascontiguousarray(arr, np.float32))
+        # A copy: training updates params in place, which must not write
+        # through to the caller's arrays.
+        t = torch.from_numpy(np.array(arr, np.float32))
         dtype = param_dtype if key in _MATMUL_KEYS else torch.float32
         return t.to(device=device, dtype=dtype).contiguous()
 
@@ -126,7 +128,7 @@ def _to_torch(host: Params, param_dtype: torch.dtype, device) -> Params:
 
 
 def params_from_jax(stacked: Params, *,
-                    device: torch.device | str = "cuda") -> Params:
+                    device: torch.device | str = "cuda", opt_state=None):
     """The JAX package's stacked params (leaves as numpy arrays; bf16 leaves
     as ``ml_dtypes.bfloat16``) → the port's params, value for value.
 
@@ -134,7 +136,14 @@ def params_from_jax(stacked: Params, *,
     float32, which is exact, and come back to bf16 unchanged. Quantized
     weights ({"q": int8, "scale": fp32} dicts of ``quantize_stacked_params``,
     with the bf16 "hi" group of ``quantize_stacked_params_outlier``) keep
-    their layout: int8 as ``torch.int8``, scales as fp32, "hi" as bf16."""
+    their layout: int8 as ``torch.int8``, scales as fp32, "hi" as bf16.
+
+    With ``opt_state`` (an optax AdamW state: any pytree of tuples holding
+    one ``ScaleByAdamState``, as ``optax.adamw`` or a chain with
+    ``clip_by_global_norm`` makes), returns ``(params, state)``, the state
+    in ``optim.adamw``'s form: its ``count``, ``mu`` and ``nu`` carried
+    across value for value, so both packages can go on from one
+    mid-training state."""
 
     def conv(a):
         if isinstance(a, dict):
@@ -143,11 +152,40 @@ def params_from_jax(stacked: Params, *,
         if a.dtype.name == "bfloat16":
             return torch.from_numpy(a.astype(np.float32)).to(
                 device=device, dtype=torch.bfloat16)
-        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+        # A copy: a JAX array's host view is read-only to JAX, and training
+        # updates params in place.
+        return torch.from_numpy(np.array(a)).to(device)
 
     out = {k: conv(v) for k, v in stacked.items() if k != "layers"}
     out["layers"] = {k: conv(v) for k, v in stacked["layers"].items()}
-    return out
+    if opt_state is None:
+        return out
+    return out, _adam_state_from_jax(opt_state, conv)
+
+
+def _adam_state_from_jax(state, conv) -> dict:
+    """The one (count, mu, nu) record inside an optax state pytree."""
+    found = []
+
+    def walk(node):
+        if all(hasattr(node, f) for f in ("count", "mu", "nu")):
+            found.append(node)
+        elif isinstance(node, (tuple, list)):
+            for child in node:
+                walk(child)
+
+    walk(state)
+    if len(found) != 1:
+        raise ValueError(f"expected one Adam state (count, mu, nu) in the "
+                         f"optax state, found {len(found)}")
+    adam = found[0]
+
+    def tree(t):
+        return {k: tree(v) if isinstance(v, dict) else conv(v)
+                for k, v in t.items()}
+
+    return {"count": conv(np.asarray(adam.count)).to(torch.int32),
+            "mu": tree(adam.mu), "nu": tree(adam.nu)}
 
 
 def params_to(params: Params, device: torch.device | str) -> Params:
@@ -194,6 +232,60 @@ def unstack_params(params: Params, config: ViTConfig) -> Dict[str, np.ndarray]:
             named[f"encoder_layers_encoder_layer_{layer}_{ref}"] = (
                 np.ascontiguousarray(a.T) if transpose else a)
     return named
+
+
+def init_params(config: ViTConfig, seed: int = 0,
+                param_dtype: torch.dtype = torch.float32,
+                device: torch.device | str = "cuda") -> Params:
+    """Trainable from-scratch initialisation (stacked layout), the JAX
+    package's ``init_params`` value for value: NumPy's generator from
+    ``seed`` draws truncated-normal(0.02) matmul weights (clipped at 2
+    sigma) and positional embeddings in the same order, with zero biases and
+    prefix tokens, unit LNs and a zero-initialised classifier head. fp32 by
+    default (training keeps fp32 masters and casts per step); a bf16
+    ``param_dtype`` rounds the matmul weights with torch (to nearest even,
+    as ``ml_dtypes`` does)."""
+    rng = np.random.default_rng(seed)
+    f32 = np.float32
+    d, h, L = config.embed_dim, config.hidden_dim, config.depth
+
+    def tnorm(shape, std=0.02):
+        a = rng.standard_normal(shape, f32)
+        np.clip(a, -2.0, 2.0, out=a)  # truncation at 2 sigma
+        return a * std
+
+    host: Params = {
+        "prefix_tokens": np.zeros((config.num_prefix_tokens, d), f32),
+        "patch_w": tnorm((config.in_chans * config.patch_size**2, d)),
+        "patch_b": np.zeros((d,), f32),
+        "pos_emb": tnorm((config.num_tokens, d)),
+        "final_ln_w": np.ones((d,), f32),
+        "final_ln_b": np.zeros((d,), f32),
+    }
+    if config.pre_norm:
+        host["pre_ln_w"] = np.ones((d,), f32)
+        host["pre_ln_b"] = np.zeros((d,), f32)
+    if config.head_type != "none":
+        host["head_w"] = np.zeros((d, config.num_classes), f32)
+        host["head_b"] = np.zeros((config.num_classes,), f32)
+    if config.head_type == "cls+dist":
+        host["head_dist_w"] = np.zeros((d, config.num_classes), f32)
+        host["head_dist_b"] = np.zeros((config.num_classes,), f32)
+    host["layers"] = {
+        "ln1_w": np.ones((L, d), f32),
+        "ln1_b": np.zeros((L, d), f32),
+        "qkv_w": tnorm((L, d, 3 * d)),
+        "qkv_b": np.zeros((L, 3 * d), f32),
+        "out_w": tnorm((L, d, d)),
+        "out_b": np.zeros((L, d), f32),
+        "ln2_w": np.ones((L, d), f32),
+        "ln2_b": np.zeros((L, d), f32),
+        "fc1_w": tnorm((L, d, h)),
+        "fc1_b": np.zeros((L, h), f32),
+        "fc2_w": tnorm((L, h, d)),
+        "fc2_b": np.zeros((L, d), f32),
+    }
+    return _to_torch(host, param_dtype, device)
 
 
 def cheap_stacked_params(config: ViTConfig, *,
@@ -399,13 +491,27 @@ def _layer(params: Params, layer: int) -> Params:
     return {k: take(v) for k, v in params["layers"].items()}
 
 
+def _layer_list(params: Params) -> list:
+    """Every layer's slice of the stacked weights, one dict each, as views.
+    Unbinding once (not indexing per layer) keeps the backward to one
+    gradient per stacked leaf: autograd stacks the layers' gradients instead
+    of adding a full-size zero-padded one per layer."""
+    per_key = {}
+    for k, v in params["layers"].items():
+        per_key[k] = ([dict(zip(v, vals)) for vals in zip(*(t.unbind(0) for t in v.values()))]
+                      if isinstance(v, dict) else v.unbind(0))
+    depth = len(next(iter(per_key.values())))
+    return [{k: per_key[k][i] for k in per_key} for i in range(depth)]
+
+
 def encoder(x: torch.Tensor, params: Params, config: ViTConfig,
             kernels: Dict[str, Any]) -> torch.Tensor:
     """The layers in order over the stacked weights, routed as the JAX
     package routes them.
 
     A forced ``encoder_block`` runs every layer (ignored for quantized
-    params). Otherwise the ``flash`` route takes, in this order: layer
+    params), under autograd too: training's ``fused`` route puts
+    ``fused_block.fused_encoder_layer_trainable`` there. Otherwise the ``flash`` route takes, in this order: layer
     groups of ``kernels["fused_group_size"]`` when it divides the depth and
     ``fused_block.supports`` the config; the whole stack when not W8A8 and
     ``fused_block.supports_stack`` (small configs: ViT-Ti and ViT-S, in
@@ -426,8 +532,7 @@ def encoder(x: torch.Tensor, params: Params, config: ViTConfig,
             return fused_block.fused_encoder_stack(x, params["layers"], config)
         if fused_block.supports(config, dtype_bytes=wbytes):
             block = functools.partial(fused_block.fused_encoder_layer, w8a8=w8a8)
-    for layer in range(config.depth):
-        lp = _layer(params, layer)
+    for lp in _layer_list(params)[:config.depth]:
         if block is not None:
             x = block(x, lp, config)
         else:

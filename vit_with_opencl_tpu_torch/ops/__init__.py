@@ -12,6 +12,13 @@ CPU tensor), and counts its launches.
 | ops/fused_block.py:_block_kernel     | ops/quantize.py, csrc/quantize.cu;   |
 |   (quantized: int8 weights, W8A8)    |   the int8 GEMMs of csrc/linear.cu;  |
 |                                      |   chained in ops/fused_block.py      |
+| ops/attention.py:_packed_bwd_kernel  | ops/attention.py,                    |
+|                                      |   csrc/attention_bwd.cu              |
+| ops/fused_block.py:                  | ops/fused_block.py (chains of the    |
+|   _attn_half_fwd_kernel,             |   kernels above and of the backward's|
+|   _mlp_bwd_kernel, _attn_bwd_kernel  |   GEMM forms in csrc/linear.cu, LN   |
+|                                      |   backward in csrc/layernorm.cu and  |
+|                                      |   column sum in csrc/reduce.cu)      |
 """
 
 from .attention import packed_fused_attention  # noqa: F401

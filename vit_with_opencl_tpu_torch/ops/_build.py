@@ -61,6 +61,18 @@ SIGNATURES = {
     "vit_quantize_rows_split": [_P, _P, _P, _P, _I, _I, _I, _P],
     # x (bf16), q, scale, hi (bf16), rows, cols, head_dim, kh, stream
     "vit_quantize_rows_masked": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # qkv, dout, dqkv, dqkv_dtype, stats, B, T, num_heads, head_dim,
+    # q_scale, ds_scale, stream
+    "vit_packed_attention_bwd": [_P, _P, _P, _I, _P, _I, _I, _I, _I, _F, _F, _P],
+    # a, a_trans, b, b_trans, bias, gelu_grad_of, out, out_bf16, out2,
+    # out2_gelu, M, N, K, stream
+    "vit_gemm_grad": [_P, _I, _P, _I, _P, _P, _P, _I, _P, _I, _I, _I, _I, _P],
+    # x, x_dtype, dy, w, g, g_dtype, dx, dx_dtype, part_dw, part_db, rows,
+    # cols, eps, stream
+    "vit_layernorm_bwd": [_P, _I, _P, _P, _P, _I, _P, _I, _P, _P, _I, _I, _F,
+                          _P],
+    # x, x_dtype, out, partial, rows, cols, stream
+    "vit_column_sum": [_P, _I, _P, _P, _I, _I, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -159,6 +171,29 @@ def check_launch(err: int, what: str) -> None:
 def stream_handle(t: torch.Tensor) -> int:
     """PyTorch's current stream on ``t``'s device, as the entry points take it."""
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def refuse_autograd(what: str, tensors, trainable: str) -> None:
+    """Raise where a kernel would cut the autograd graph: grad mode on and
+    an input or weight that requires grad. The kernels write their results
+    through raw pointers, so the result would carry no graph and the
+    weights behind it would silently get no gradient (the JAX package
+    raises for a ``pallas_call`` without a VJP). ``torch.no_grad`` and
+    ``torch.inference_mode`` pass. ``tensors`` may hold dicts (quantized
+    weights) and None."""
+    if not torch.is_grad_enabled():
+        return
+    stack = list(tensors)
+    while stack:
+        t = stack.pop()
+        if isinstance(t, dict):
+            stack.extend(t.values())
+        elif isinstance(t, torch.Tensor) and t.requires_grad:
+            raise RuntimeError(
+                f"{what} has no backward: on the card it runs a kernel whose "
+                f"result carries no autograd graph. Use {trainable} to train "
+                "through it, or run it under torch.no_grad() or "
+                "torch.inference_mode()")
 
 
 def require(t: torch.Tensor, name: str, *, device: torch.device,

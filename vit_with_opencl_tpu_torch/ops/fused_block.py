@@ -49,7 +49,37 @@ bias, and the attention context is quantized from the activation dtype.
 
 Each function launches the kernels for CUDA tensors; for CPU tensors every
 link computes its plain version, which is its ``*_reference`` on any
-device.
+device. On the card the chains refuse to run under autograd (their results
+would carry no graph).
+
+Training (the JAX package's ``fused_encoder_layer_trainable`` and its
+three-kernel backward, ``fused_encoder_layer_bwd``) is here too: a
+``torch.autograd.Function`` whose forward is ``fused_encoder_layer`` and
+whose only saved activation is x, and whose backward is three stages, each
+a chain of the kernels above and of the backward's own (the GEMM forms of
+``linear.py``, ``layernorm.layer_norm_bwd`` and ``column_sum``, and
+``attention.packed_attention_bwd``):
+
+  ``fused_bwd_stage_x2`` (``_attn_half_fwd_kernel``): LN1 → qkv GEMM →
+    attention → out-proj GEMM with the fp32 x residual: fp32 x2 (4 launches);
+  ``fused_bwd_stage_mlp_mono`` (``_mlp_bwd_kernel``): LN2 → the fc1
+    recompute (fp32 hid_pre and bf16 GELU'd hidden) → dfc2_w, dfc2_b →
+    fc2's dgrad times the GELU gradient (fp32 dhid_pre and its bf16) →
+    dfc1_w, dfc1_b → fc1's dgrad → LN2 backward with dOut added: fp32 dx2
+    (10 launches with the column sums);
+  ``fused_bwd_stage_attn`` (``_attn_bwd_kernel``): the attention half
+    recomputed (3 launches) → dout_w, dout_b → out-proj dgrad (bf16 dctx)
+    → attention backward (fp32 dqkv) → dqkv_b, dqkv_w (from dqkv rounded
+    to the activation dtype) → qkv dgrad → LN1 backward with dx2 added: dx
+    in x's dtype (13 launches with the column sums).
+
+They keep the TPU kernels' rounding points: fp32 LN statistics, the
+activation dtype for h1c, qkvc, ctx, h2c, hidc, dmc, dac, dctx, dhpc and
+dqkv_c, fp32 for x2, dx2, hid_pre, dhid_pre and the dqkv that the bias sum
+reads, every gradient accumulated in fp32 and cast to its leaf's dtype at
+the end. The TPU split the backward in three to fit VMEM; here the split
+costs nothing more than the attention half's recompute, which stage 3 does
+again as the TPU kernel does.
 """
 
 from __future__ import annotations
@@ -60,11 +90,17 @@ import torch
 
 from ..config import ViTConfig
 from ..models.quant import is_quantized, refuse_outliers
-from . import attention, layernorm, linear, quantize
+from . import _build, attention, layernorm, linear, quantize
 
 # Runs on the card since the counts were last set to 0 (chip_smoke.py reads
 # them), counted when all of a run's launches went out. Per layer, for the
-# bf16, weight-only int8, W8A8 and outlier-aware W8A8 chains:
+# three backward stages and the whole backward:
+LAUNCHES_BWD_X2 = 0
+LAUNCHES_BWD_MLP = 0
+LAUNCHES_BWD_ATTN = 0
+LAUNCHES_BWD = 0
+# Per layer, for the bf16, weight-only int8, W8A8 and outlier-aware W8A8
+# chains:
 LAUNCHES = 0
 LAUNCHES_INT8W = 0
 LAUNCHES_W8A8 = 0
@@ -103,6 +139,28 @@ def _gelu_fast(x: torch.Tensor) -> torch.Tensor:
     return 0.5 * x * (1.0 + torch.tanh(x * p))
 
 
+def _gelu_fast_grad(x: torch.Tensor) -> torch.Tensor:
+    """Derivative of ``_gelu_fast`` (not of exact erf-GELU: the backward
+    differentiates what the forward computed).
+
+    g(x) = 0.5 x (1 + tanh(w)), w = x P(x²)
+    g'(x) = 0.5 (1 + t) + 0.5 x (1 − t²) (P(u) + 2 u P'(u)),  t = tanh(w)
+    """
+    u = x * x
+    p = _GELU_P[4]
+    for c in _GELU_P[3::-1]:
+        p = p * u + c
+
+    def f32(v):  # the coefficient as jnp.float32 rounds it
+        return float(torch.tensor(v, dtype=torch.float32))
+
+    dp = 4.0 * f32(_GELU_P[4])
+    for i, c in zip((3.0, 2.0, 1.0), _GELU_P[3:0:-1]):
+        dp = dp * u + i * f32(c)
+    t = torch.tanh(x * p)
+    return 0.5 * (1.0 + t) + 0.5 * x * (1.0 - t * t) * (p + 2.0 * u * dp)
+
+
 def _layer_weight_bytes(config: ViTConfig, dtype_bytes: int) -> int:
     d, h = config.embed_dim, config.hidden_dim
     return (d * 3 * d + d * d + d * h + h * d) * dtype_bytes
@@ -127,7 +185,8 @@ def supports_stack(config: ViTConfig, dtype_bytes: int = 2) -> bool:
 
 
 class _Links(NamedTuple):
-    """The kernels (or plain versions) a chain is made of."""
+    """The kernels (or plain versions) the chains are made of: the forward's,
+    then the training backward's."""
     ln: Callable
     mm: Callable
     attn: Callable
@@ -135,18 +194,32 @@ class _Links(NamedTuple):
     split: Callable
     masked: Callable
     mm8: Callable
+    mm_gelu: Callable
+    dgrad: Callable
+    wgrad: Callable
+    ln_bwd: Callable
+    csum: Callable
+    attn_bwd: Callable
 
 
 _KERNELS = _Links(layernorm.layer_norm, linear.fused_linear,
                   attention.packed_fused_attention, quantize.quantize_rows,
                   quantize.quantize_rows_split, quantize.quantize_rows_masked,
-                  linear.fused_linear_w8a8)
+                  linear.fused_linear_w8a8, linear.fused_linear_with_gelu,
+                  linear.linear_dgrad, linear.linear_wgrad,
+                  layernorm.layer_norm_bwd, layernorm.column_sum,
+                  attention.packed_attention_bwd)
 _PLAIN = _Links(layernorm.layer_norm_reference, linear.fused_linear_reference,
                 attention.packed_fused_attention_reference,
                 quantize.quantize_rows_reference,
                 quantize.quantize_rows_split_reference,
                 quantize.quantize_rows_masked_reference,
-                linear.fused_linear_w8a8_reference)
+                linear.fused_linear_w8a8_reference,
+                linear.fused_linear_with_gelu_reference,
+                linear.linear_dgrad_reference, linear.linear_wgrad_reference,
+                layernorm.layer_norm_bwd_reference,
+                layernorm.column_sum_reference,
+                attention.packed_attention_bwd_reference)
 
 
 def _chain(x, lps, config: ViTConfig, k: _Links) -> torch.Tensor:
@@ -202,6 +275,12 @@ def _chain_w8a8(x, lps, config: ViTConfig, k: _Links) -> torch.Tensor:
     return x
 
 
+def _refuse_autograd(what: str, x: torch.Tensor, weights: dict) -> None:
+    if x.is_cuda:
+        _build.refuse_autograd(what, (x, weights),
+                               "fused_encoder_layer_trainable")
+
+
 def _form(lp, w8a8: bool) -> str:
     """Which chain a layer's weights take: "bf16", "int8w", "w8a8" or
     "outlier". ``w8a8`` needs int8 weights and is ignored without them, as
@@ -240,6 +319,7 @@ def fused_encoder_layer(x: torch.Tensor, lp, config: ViTConfig, *,
     models/quant, with a bf16 "hi" group in the outlier-aware form; fp32
     LN parameters and biases). ``w8a8`` quantizes the activations too."""
     global LAUNCHES, LAUNCHES_INT8W, LAUNCHES_W8A8, LAUNCHES_W8A8_OUTLIER
+    _refuse_autograd("fused_encoder_layer", x, lp)
     form = _form(lp, w8a8)
     out = _run(x, [lp], config, w8a8, _KERNELS)
     if x.is_cuda:
@@ -276,6 +356,7 @@ def fused_encoder_group(x: torch.Tensor, layers, config: ViTConfig, *,
     ``layers`` is the stacked per-layer pytree of all ``config.depth``
     layers, in any of the four forms."""
     global LAUNCHES_GROUP
+    _refuse_autograd("fused_encoder_group", x, layers)
     for group in _groups(layers, config, group_size):
         x = _run(x, group, config, w8a8, _KERNELS)
         if x.is_cuda:
@@ -313,6 +394,7 @@ def fused_encoder_stack(x: torch.Tensor, layers, config: ViTConfig, *,
     GEMMs are row-wise, so padded rows never reach real ones: T stays as it
     is here."""
     global LAUNCHES_STACK, LAUNCHES_STACK_INT8W, LAUNCHES_STACK_W8A8
+    _refuse_autograd("fused_encoder_stack", x, layers)
     lps = _stack_layers(layers, config, num_layers)
     form = _form(lps[0], w8a8)
     out = _run(x, lps, config, w8a8, _KERNELS)
@@ -341,3 +423,255 @@ def fused_encoder_layer_flat(x: torch.Tensor, lp,
     layers1 = {k: ({kk: vv[None] for kk, vv in v.items()}
                    if isinstance(v, dict) else v[None]) for k, v in lp.items()}
     return fused_encoder_stack(x, layers1, config, num_layers=1)
+
+
+# ---------------------------------------------------------------------------
+# Training: the rematerialising backward of one layer (x is its only saved
+# activation) and the autograd Function around the forward chain
+# ---------------------------------------------------------------------------
+
+# The JAX package's resident ceilings, kept so that both packages route each
+# config the same way: the MLP backward runs as one stage when its bf16
+# weights and fp32 gradients fit ``MLP_BWD_RESIDENT_BUDGET`` (ViT-B: 28.3
+# MB), else the light/wgrad pair chunked over H; the attention side gates
+# ``supports_trainable``.
+MLP_BWD_RESIDENT_BUDGET = 40 << 20
+MLP_WGRAD_CHUNK_BUDGET = 32 << 20
+TRAINABLE_ATTN_RESIDENT_BUDGET = 52 << 20
+
+_ATTN_KEYS = ("ln1_w", "ln1_b", "qkv_w", "qkv_b", "out_w", "out_b")
+_MLP_KEYS = ("ln2_w", "ln2_b", "fc1_w", "fc1_b", "fc2_w", "fc2_b")
+
+
+def _ln_fwd_stats(xf: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                  eps: float):
+    """LN forward returning (x̂, inv_std, out) in fp32."""
+    mean = xf.mean(-1, keepdim=True)
+    var = (xf * xf).mean(-1, keepdim=True) - mean * mean
+    inv = torch.rsqrt(var + eps)
+    xhat = (xf - mean) * inv
+    return xhat, inv, xhat * w.float() + b.float()
+
+
+def _ln_bwd(dy: torch.Tensor, xhat: torch.Tensor, inv: torch.Tensor,
+            w: torch.Tensor):
+    """dx for y = x̂·w + b given fp32 dy: (dx, dw rows, db rows); the rows
+    still need the token-axis ``_csum``."""
+    dxhat = dy * w.float()
+    dx = inv * (dxhat - dxhat.mean(-1, keepdim=True)
+                - xhat * (dxhat * xhat).mean(-1, keepdim=True))
+    return dx, dy * xhat, dy
+
+
+def _csum(x: torch.Tensor) -> torch.Tensor:
+    """Token-axis column sum → [1, cols] fp32."""
+    return layernorm.column_sum_reference(x)[None]
+
+
+def _pick_mlp_chunks(d: int, hdim: int, itemsize: int) -> int:
+    """1 → the single MLP-backward stage; else the H-chunk count of the
+    JAX package's light/wgrad split (smallest divisor of H whose fp32
+    accumulators fit)."""
+    if 2 * d * hdim * (itemsize + 4) <= MLP_BWD_RESIDENT_BUDGET:
+        return 1
+    for nc in (2, 3, 4, 5, 6, 8, 10, 16):
+        if hdim % nc == 0 and 2 * d * (hdim // nc) * 4 <= MLP_WGRAD_CHUNK_BUDGET:
+            return nc
+    raise ValueError(
+        f"no H-chunking of hidden_dim={hdim} fits the wgrad VMEM budget")
+
+
+def supports_trainable(config: ViTConfig, dtype_bytes: int = 2) -> bool:
+    """Whether training routes this config through the fused layer and its
+    fused backward (the JAX package's gate)."""
+    if config.gelu_approx != "erf":
+        return False
+    d, h = config.embed_dim, config.hidden_dim
+    if (d * 3 * d + d * d) * (dtype_bytes + 4) > TRAINABLE_ATTN_RESIDENT_BUDGET:
+        return False
+    try:
+        _pick_mlp_chunks(d, h, dtype_bytes)
+    except ValueError:
+        return False
+    return True
+
+
+def _attn_recompute(x, lp, config: ViTConfig, k: _Links):
+    """The attention half's forward from x, as ``_block_kernel`` computes
+    it: (h1c, qkvc, ctx) in x's dtype."""
+    cdt = x.dtype
+    h1c = k.ln(x, lp["ln1_w"], lp["ln1_b"], config.eps, out_dtype=cdt)
+    qkvc = k.mm(h1c, lp["qkv_w"].to(cdt), lp["qkv_b"], out_dtype=cdt)
+    ctx = k.attn(qkvc, num_heads=config.num_heads, head_dim=config.head_dim)
+    return h1c, qkvc, ctx
+
+
+def _stage_x2(x, lp, config: ViTConfig, k: _Links) -> torch.Tensor:
+    _, _, ctx = _attn_recompute(x, lp, config, k)
+    return k.mm(ctx, lp["out_w"].to(x.dtype), lp["out_b"], residual=x,
+                out_dtype=torch.float32)
+
+
+def _stage_mlp(x2, dout, lp, config: ViTConfig, k: _Links):
+    cdt, f32 = dout.dtype, torch.float32
+    fc1_w, fc2_w = lp["fc1_w"].to(cdt), lp["fc2_w"].to(cdt)
+    h2c = k.ln(x2, lp["ln2_w"], lp["ln2_b"], config.eps, out_dtype=cdt)
+    hid_pre, hidc = k.mm_gelu(h2c, fc1_w, lp["fc1_b"], out2_dtype=cdt)
+    g = {"fc2_w": k.wgrad(hidc, dout), "fc2_b": k.csum(dout)}
+    dhid_pre, dhpc = k.dgrad(dout, fc2_w, gelu_grad_of=hid_pre, out_dtype=f32,
+                             out2_dtype=cdt)
+    g["fc1_w"] = k.wgrad(h2c, dhpc)
+    g["fc1_b"] = k.csum(dhid_pre)
+    dh2 = k.dgrad(dhpc, fc1_w, out_dtype=f32)
+    dx2, g["ln2_w"], g["ln2_b"] = k.ln_bwd(x2, dh2, lp["ln2_w"], config.eps,
+                                           residual=dout, out_dtype=f32)
+    return dx2, {key: g[key][None] for key in _MLP_KEYS}
+
+
+def _stage_attn(x, dx2, lp, config: ViTConfig, k: _Links):
+    cdt, f32 = x.dtype, torch.float32
+    h1c, qkvc, ctx = _attn_recompute(x, lp, config, k)
+    dac = dx2.to(cdt)
+    g = {"out_w": k.wgrad(ctx, dac), "out_b": k.csum(dx2)}
+    dctx = k.dgrad(dac, lp["out_w"].to(cdt), out_dtype=cdt)
+    dqkv = k.attn_bwd(qkvc, dctx, config.num_heads, config.head_dim,
+                      out_dtype=f32)
+    g["qkv_b"] = k.csum(dqkv)
+    dqkv_c = dqkv.to(cdt)
+    g["qkv_w"] = k.wgrad(h1c, dqkv_c)
+    dh1 = k.dgrad(dqkv_c, lp["qkv_w"].to(cdt), out_dtype=f32)
+    dx, g["ln1_w"], g["ln1_b"] = k.ln_bwd(x, dh1, lp["ln1_w"], config.eps,
+                                          residual=dx2, out_dtype=x.dtype)
+    return dx, {key: g[key][None] for key in _ATTN_KEYS}
+
+
+def fused_bwd_stage_x2(x: torch.Tensor, lp, config: ViTConfig) -> torch.Tensor:
+    """Backward stage 1 (``_attn_half_fwd_kernel``): the attention half's
+    forward recomputed from x [B, T, D], x → fp32 x2 = x + proj(attn(LN1 x))
+    + b."""
+    global LAUNCHES_BWD_X2
+    out = _stage_x2(x, lp, config, _KERNELS)
+    if x.is_cuda:
+        LAUNCHES_BWD_X2 += 1
+    return out
+
+
+def fused_bwd_stage_x2_reference(x: torch.Tensor, lp,
+                                 config: ViTConfig) -> torch.Tensor:
+    """Stage 1 computed by each link's plain version, on any device."""
+    return _stage_x2(x, lp, config, _PLAIN)
+
+
+def fused_bwd_stage_mlp_mono(x2: torch.Tensor, dout: torch.Tensor, lp,
+                             config: ViTConfig):
+    """Backward stage 2 (``_mlp_bwd_kernel``, the single-stage route of
+    ViT-B-class widths): (fp32 x2, dOut) → (fp32 dx2, the six MLP gradients
+    with a leading [1] axis, fp32)."""
+    global LAUNCHES_BWD_MLP
+    out = _stage_mlp(x2, dout, lp, config, _KERNELS)
+    if x2.is_cuda:
+        LAUNCHES_BWD_MLP += 1
+    return out
+
+
+def fused_bwd_stage_mlp_mono_reference(x2: torch.Tensor, dout: torch.Tensor,
+                                       lp, config: ViTConfig):
+    """Stage 2 computed by each link's plain version, on any device."""
+    return _stage_mlp(x2, dout, lp, config, _PLAIN)
+
+
+def fused_bwd_stage_attn(x: torch.Tensor, dx2: torch.Tensor, lp,
+                         config: ViTConfig):
+    """Backward stage 3 (``_attn_bwd_kernel``): (x, fp32 dx2) → (dx in x's
+    dtype, the six attention gradients with a leading [1] axis, fp32).
+    The attention half is recomputed from x; nothing [T, T]-shaped reaches
+    device memory."""
+    global LAUNCHES_BWD_ATTN
+    out = _stage_attn(x, dx2, lp, config, _KERNELS)
+    if x.is_cuda:
+        LAUNCHES_BWD_ATTN += 1
+    return out
+
+
+def fused_bwd_stage_attn_reference(x: torch.Tensor, dx2: torch.Tensor, lp,
+                                   config: ViTConfig):
+    """Stage 3 computed by each link's plain version, on any device."""
+    return _stage_attn(x, dx2, lp, config, _PLAIN)
+
+
+def grads_to_leaf_dtypes(lp, grads) -> dict:
+    """Strip the leading [1] axis and cast each gradient to its leaf's dtype
+    (the cotangent contract)."""
+    return {key: g[0].to(lp[key].dtype) for key, g in grads.items()}
+
+
+def _layer_bwd(x, lp, dout, config: ViTConfig, mlp_chunks, stages):
+    x2_fn, mlp_fn, attn_fn = stages
+    if mlp_chunks is None:
+        mlp_chunks = _pick_mlp_chunks(config.embed_dim, config.hidden_dim,
+                                      x.element_size())
+    if mlp_chunks != 1:
+        raise NotImplementedError(
+            f"mlp_chunks={mlp_chunks}: the H-chunked MLP backward "
+            "(_mlp_light_bwd_kernel, _mlp_wgrad_kernel: ViT-L/H widths) is "
+            "not ported yet")
+    dout = dout.contiguous()
+    x2 = x2_fn(x, lp, config)
+    dx2, mlp_grads = mlp_fn(x2, dout, lp, config)
+    dx, attn_grads = attn_fn(x, dx2, lp, config)
+    dlp = grads_to_leaf_dtypes(lp, mlp_grads)
+    dlp.update(grads_to_leaf_dtypes(lp, attn_grads))
+    return dx, dlp
+
+
+def fused_encoder_layer_bwd(x: torch.Tensor, lp, dout: torch.Tensor,
+                            config: ViTConfig, *, mlp_chunks=None):
+    """The fused backward: (x [B, T, D], one layer's params, dOut [B, T, D])
+    → (dx in x's dtype, {leaf: gradient in the leaf's dtype}). Three stages
+    (x2, MLP, attention); ``mlp_chunks`` > 1 (the JAX package's route past
+    ``MLP_BWD_RESIDENT_BUDGET``, ViT-L/H) raises ``NotImplementedError``."""
+    global LAUNCHES_BWD
+    out = _layer_bwd(x, lp, dout, config, mlp_chunks,
+                     (fused_bwd_stage_x2, fused_bwd_stage_mlp_mono,
+                      fused_bwd_stage_attn))
+    if x.is_cuda:
+        LAUNCHES_BWD += 1
+    return out
+
+
+def fused_encoder_layer_bwd_reference(x: torch.Tensor, lp, dout: torch.Tensor,
+                                      config: ViTConfig, *, mlp_chunks=None):
+    """The backward computed by each link's plain version, on any device."""
+    return _layer_bwd(x, lp, dout, config, mlp_chunks,
+                      (fused_bwd_stage_x2_reference,
+                       fused_bwd_stage_mlp_mono_reference,
+                       fused_bwd_stage_attn_reference))
+
+
+class _FusedLayer(torch.autograd.Function):
+    """``fused_encoder_layer`` forward, ``fused_encoder_layer_bwd`` backward;
+    saves x and the layer's parameter leaves (no activation but x)."""
+
+    @staticmethod
+    def forward(ctx, config, keys, x, *leaves):
+        ctx.config, ctx.keys = config, keys
+        ctx.save_for_backward(x, *leaves)
+        return fused_encoder_layer(x, dict(zip(keys, leaves)), config)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, *leaves = ctx.saved_tensors
+        dx, dlp = fused_encoder_layer_bwd(x, dict(zip(ctx.keys, leaves)), g,
+                                          ctx.config)
+        return (None, None, dx, *(dlp[key] for key in ctx.keys))
+
+
+def fused_encoder_layer_trainable(x: torch.Tensor, lp,
+                                  config: ViTConfig) -> torch.Tensor:
+    """Differentiable fused encoder layer: the ``encoder_block`` slot of
+    training's ``fused`` route. Forward ``fused_encoder_layer`` (the chain),
+    backward ``fused_encoder_layer_bwd``; gradients come back for x and for
+    every leaf of ``lp`` (float weights, fp32 masters or not) in the leaf's
+    dtype. First-order only."""
+    keys = tuple(lp)
+    return _FusedLayer.apply(config, keys, x, *(lp[key] for key in keys))

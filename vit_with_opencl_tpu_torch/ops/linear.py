@@ -22,6 +22,21 @@ forms), each form with its own launch count:
 Bound on the card: operations (see the note in the source). The kernels take
 bf16 or int8 operands; fp32 ``x`` on the card is not supported yet.
 
+The training backward's GEMM forms (``grad_gemm_kernel`` of the same
+source, one kernel for the three, each form with its own launch count):
+
+  * ``linear_dgrad``: ``dY @ Wᵀ`` with W stored [K, N], optionally times
+    ``_gelu_fast_grad(pre)``, with an optional second output rounded to
+    bf16 (``LAUNCHES_DGRAD``);
+  * ``linear_wgrad``: ``Xᵀ @ dY`` over the tokens into an fp32 weight
+    gradient (``LAUNCHES_WGRAD``);
+  * ``fused_linear_with_gelu``: the fc1 recompute, ``x @ w + b`` in fp32
+    beside its ``_gelu_fast`` rounded to bf16 (``LAUNCHES_GELU_PAIR``).
+
+The forward wrappers refuse to run under autograd on the card (their
+results would carry no graph): training goes through
+``ops/fused_block.fused_encoder_layer_trainable``.
+
 Each wrapper launches its kernel for a CUDA tensor and computes its
 ``*_reference`` for a CPU tensor; there is no other fallback.
 """
@@ -41,6 +56,11 @@ LAUNCHES = 0
 LAUNCHES_INT8W = 0
 LAUNCHES_W8A8 = 0
 LAUNCHES_W8A8_HI = 0
+# The backward's forms: dgrad, wgrad and the fc1 recompute.
+LAUNCHES_DGRAD = 0
+LAUNCHES_WGRAD = 0
+LAUNCHES_GELU_PAIR = 0
+_TRAINABLE = "ops/fused_block.fused_encoder_layer_trainable"
 
 _RESIDUAL_KINDS = {None: 0, torch.float32: 1, torch.bfloat16: 2}
 
@@ -140,6 +160,8 @@ def fused_linear(
     if k % 8 or n % (16 if int8w else 8):
         raise ValueError(f"K={k} must be a multiple of 8 and N={n} of "
                          f"{16 if int8w else 8}")
+    _build.refuse_autograd("fused_linear", (x, w, b, w_scale, residual),
+                           _TRAINABLE)
     _build.require(x, "x", device=x.device, dtypes=(torch.bfloat16,))
     _build.require(w, "w", device=x.device, dtypes=(w.dtype,))
     _check_epilogue(lead, n, x.device, b, residual, out_dtype)
@@ -228,6 +250,8 @@ def fused_linear_w8a8(
     if k % 16 or n % 16:
         raise ValueError(f"K={k} and N={n} must be multiples of 16")
     m = xq.numel() // k if k else 0
+    _build.refuse_autograd("fused_linear_w8a8",
+                           (xq, sx, wq, sw, b, residual, x_hi, w_hi), _TRAINABLE)
     _build.require(xq, "xq", device=xq.device, dtypes=(torch.int8,))
     _build.require(wq, "wq", device=xq.device, dtypes=(torch.int8,))
     if sx.numel() != m:
@@ -261,3 +285,150 @@ def fused_linear_w8a8(
         _build.check_launch(err, "fused_linear_w8a8 (bf16 side product)")
         LAUNCHES_W8A8_HI += 1
     return out
+
+
+# ---------------------------------------------------------------------------
+# The backward's GEMM forms
+# ---------------------------------------------------------------------------
+
+
+def _grad_gemm(what: str, a, a_trans: bool, b, b_trans: bool, m: int, n: int,
+               k: int, out_shape, *, bias=None, gelu_grad_of=None,
+               out_dtype=torch.float32, out2: bool = False,
+               out2_gelu: bool = False):
+    """Launch ``grad_gemm_kernel`` (operands checked by the caller)."""
+    dev = a.device
+    # 16-byte loads run along each operand's contiguous axis.
+    if n % 8 or (m if a_trans else k) % 8 or (b_trans and k % 8):
+        raise ValueError(f"{what}: N={n} and the operands' contiguous axes "
+                         f"(M={m} if A is transposed, else K={k}) must be "
+                         "multiples of 8")
+    if out_dtype not in _build.DTYPE_CODES:
+        raise TypeError(f"out_dtype {out_dtype} not in "
+                        f"{tuple(_build.DTYPE_CODES)}")
+    _build.require(a, "a", device=dev, dtypes=(torch.bfloat16,))
+    _build.require(b, "b", device=dev, dtypes=(torch.bfloat16,))
+    if bias is not None:
+        _build.require(bias, "bias", device=dev, dtypes=(torch.float32,),
+                       shape=(n,))
+    if gelu_grad_of is not None:
+        _build.require(gelu_grad_of, "gelu_grad_of", device=dev,
+                       dtypes=(torch.float32,), shape=out_shape)
+    out = torch.empty(out_shape, dtype=out_dtype, device=dev)
+    second = (torch.empty(out_shape, dtype=torch.bfloat16, device=dev)
+              if out2 else None)
+    if m and n and k:
+        err = _build.library().vit_gemm_grad(
+            a.data_ptr(), int(a_trans), b.data_ptr(), int(b_trans),
+            _ptr(bias), _ptr(gelu_grad_of), out.data_ptr(),
+            int(out_dtype == torch.bfloat16), _ptr(second), int(out2_gelu),
+            m, n, k, _build.stream_handle(a))
+        _build.check_launch(err, what)
+    elif not k:
+        out.zero_()
+    return out, second
+
+
+def linear_dgrad_reference(dy: torch.Tensor, w: torch.Tensor, *,
+                           gelu_grad_of: Optional[torch.Tensor] = None,
+                           out_dtype: torch.dtype = torch.float32,
+                           out2_dtype: Optional[torch.dtype] = None):
+    """``dy`` [..., N] @ ``w``ᵀ (``w`` stored [K, N]) with an fp32 product,
+    times ``_gelu_fast_grad(gelu_grad_of)`` if given; in ``out_dtype``, and
+    with ``out2_dtype`` also the same values in that dtype (a pair)."""
+    from .fused_block import _gelu_fast_grad
+
+    *lead, n = dy.shape
+    k = w.shape[0]
+    out = dy.reshape(-1, n).float() @ w.float().t()
+    if gelu_grad_of is not None:
+        out = out * _gelu_fast_grad(gelu_grad_of.reshape(-1, k).float())
+    out = out.reshape(*lead, k)
+    if out2_dtype is None:
+        return out.to(out_dtype)
+    return out.to(out_dtype), out.to(out2_dtype)
+
+
+def linear_dgrad(dy: torch.Tensor, w: torch.Tensor, *,
+                 gelu_grad_of: Optional[torch.Tensor] = None,
+                 out_dtype: torch.dtype = torch.float32,
+                 out2_dtype: Optional[torch.dtype] = None):
+    """The input gradient of ``x @ w``: ``dy`` [..., N] (bf16 on the card)
+    @ ``w``ᵀ, ``w`` [K, N] as the forward stores it; times
+    ``_gelu_fast_grad`` of the fp32 pre-activation ``gelu_grad_of``
+    [..., K] if given (the gradient through fc1's GELU). ``out2_dtype``
+    (bf16 on the card) adds a second output: the same values rounded."""
+    global LAUNCHES_DGRAD
+    if not dy.is_cuda:
+        return linear_dgrad_reference(dy, w, gelu_grad_of=gelu_grad_of,
+                                      out_dtype=out_dtype, out2_dtype=out2_dtype)
+    *lead, n = dy.shape
+    if w.dim() != 2 or w.shape[1] != n:
+        raise ValueError(f"w has shape {tuple(w.shape)}, expected (K, {n})")
+    if out2_dtype not in (None, torch.bfloat16):
+        raise TypeError(f"out2_dtype {out2_dtype}: the kernel's second output "
+                        "is bf16")
+    k = w.shape[0]
+    out, second = _grad_gemm("linear_dgrad", dy, False, w, True, dy.numel() // n
+                             if n else 0, k, n, (*lead, k),
+                             gelu_grad_of=gelu_grad_of, out_dtype=out_dtype,
+                             out2=out2_dtype is not None)
+    LAUNCHES_DGRAD += 1
+    return out if second is None else (out, second)
+
+
+def linear_wgrad_reference(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
+    """``x`` [..., K]ᵀ @ ``dy`` [..., N] over every token: fp32 [K, N]."""
+    k, n = x.shape[-1], dy.shape[-1]
+    return x.reshape(-1, k).float().t() @ dy.reshape(-1, n).float()
+
+
+def linear_wgrad(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
+    """The weight gradient of ``x @ w``: ``x`` [..., K]ᵀ @ ``dy`` [..., N]
+    (bf16 on the card), summed over all B·T tokens in fp32 → [K, N]."""
+    global LAUNCHES_WGRAD
+    if not x.is_cuda:
+        return linear_wgrad_reference(x, dy)
+    k, n = x.shape[-1], dy.shape[-1]
+    m = x.numel() // k if k else 0
+    if dy.numel() != m * n:
+        raise ValueError(f"x {tuple(x.shape)} and dy {tuple(dy.shape)} hold "
+                         "different token counts")
+    # Xᵀ [K, M] is A read transposed: the GEMM's M is K, its K the tokens.
+    out, _ = _grad_gemm("linear_wgrad", x, True, dy, False, k, n, m, (k, n))
+    LAUNCHES_WGRAD += 1
+    return out
+
+
+def fused_linear_with_gelu_reference(x: torch.Tensor, w: torch.Tensor,
+                                     b: torch.Tensor, *,
+                                     out2_dtype: Optional[torch.dtype] = None):
+    """(``x @ w + b`` in fp32, ``_gelu_fast`` of it in ``out2_dtype``,
+    default x's)."""
+    from .fused_block import _gelu_fast
+
+    *lead, k = x.shape
+    pre = (x.reshape(-1, k).float() @ w.float() + b.float()).reshape(
+        *lead, w.shape[1])
+    return pre, _gelu_fast(pre).to(out2_dtype or x.dtype)
+
+
+def fused_linear_with_gelu(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                           *, out2_dtype: Optional[torch.dtype] = None):
+    """The MLP backward's fc1 recompute: ``x`` [..., K] @ ``w`` [K, N] +
+    ``b`` as fp32 ``hid_pre`` (for the GELU gradient) and its
+    ``_gelu_fast`` rounded to bf16 (for dfc2_w), from one GEMM."""
+    global LAUNCHES_GELU_PAIR
+    if not x.is_cuda:
+        return fused_linear_with_gelu_reference(x, w, b, out2_dtype=out2_dtype)
+    *lead, k = x.shape
+    if w.dim() != 2 or w.shape[0] != k:
+        raise ValueError(f"w has shape {tuple(w.shape)}, expected ({k}, N)")
+    if (out2_dtype or x.dtype) != torch.bfloat16:
+        raise TypeError("the kernel's GELU output is bf16")
+    n = w.shape[1]
+    out, second = _grad_gemm("fused_linear_with_gelu", x, False, w, False,
+                             x.numel() // k if k else 0, n, k, (*lead, n),
+                             bias=b, out2=True, out2_gelu=True)
+    LAUNCHES_GELU_PAIR += 1
+    return out, second

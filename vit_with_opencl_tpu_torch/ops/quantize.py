@@ -42,7 +42,11 @@ LAUNCHES_MASKED = 0
 
 def _rows(x: torch.Tensor, q_cols: int) -> int:
     """Check x for a kernel whose int8 output has ``q_cols`` columns; the
-    number of rows."""
+    number of rows. Under autograd a quantize has no gradient to give (the
+    JAX package trains no quantized path): it refuses to run."""
+    _build.refuse_autograd("the int8 quantize", (x,),
+                           "an unquantized layer (training quantizes "
+                           "nothing)")
     if q_cols % 16:
         raise ValueError(f"K={q_cols} must be a multiple of 16 (the int8 "
                          "GEMMs' 16-byte chunks)")
