@@ -100,6 +100,25 @@ line.
    memory in each route, the split of a ``fused`` step (forward chain, the
    three backward stages, AdamW, the rest), and phase 2e's rows again at
    batch 64.
+2f. The training kernels of the larger presets: the streamed attention
+   backward at ViT-L/16@384's T = 577 (hd 64, 16 heads; B = 8 and 32, bf16
+   and fp32 dqkv), ViT-H/14's and ViT-G/14's T = 257 (hd 80 and 104, B =
+   16) and ViT-B's T = 197 (B = 16 and 64, beside the earlier resident
+   form's times), against ``packed_attention_bwd_reference`` with SDPA's backward
+   as the yardstick; the H-chunked MLP backward's light and wgrad stages at
+   ViT-L width (B = 8 and 32) and ViT-H width (B = 8) against their plain
+   versions, the pair equal to the mono stage on the card; and
+   ``fused_encoder_layer_bwd`` at ViT-L width with its stage launch counts.
+5b. The ViT-L/16@384 training main path: ``Trainer(VIT_L_16_384,
+   compute_dtype=bf16, optimizer="adamw", attention_impl="fused")``, full
+   depth (24) and widths, 8 steps at batch 16 on a memorised seeded batch:
+   the loss falls, and the launch counts are 24 a step of every kernel of
+   the route, the light and wgrad stages included and the mono MLP stage
+   never; one ``fused`` and one ``flash`` step from seeded random params
+   against the same step on the plain links.
+4c. ViT-L/16@384 training throughput at batch 32: ms per AdamW step, img/s
+   and peak memory of ``fused`` and ``flash``, and the split of a ``fused``
+   step (forward chain, stage x2, light, wgrad, attention, AdamW, the rest).
 
 Counts are set to 0 just before each main-path run and read just after.
 The line before the last is the kernels' JSON record; the last line is
@@ -124,7 +143,9 @@ import torch
 
 try:
     from vit_with_opencl_tpu_torch import VIT_B_16_224, cli, data, optim
-    from vit_with_opencl_tpu_torch.config import VIT_S_16_224, VIT_TINY_16_224
+    from vit_with_opencl_tpu_torch.config import (VIT_G_14_224, VIT_H_14_224,
+                                                  VIT_L_16_384, VIT_S_16_224,
+                                                  VIT_TINY_16_224)
     from vit_with_opencl_tpu_torch.engine import InferenceEngine
     from vit_with_opencl_tpu_torch.parallel import spmd
     from vit_with_opencl_tpu_torch.train import Trainer
@@ -252,6 +273,23 @@ TRAIN_PER_LAYER = {
     "xla": {},
 }
 
+# Phases 2f, 5b and 4c: ViT-L/16@384, whose MLP backward takes the H-chunked
+# pair. Its fused step launches what ViT-B's does, with the light and wgrad
+# stages for the mono one, and LN2 once more (the wgrad stage recomputes it).
+LARGE_CFG = VIT_L_16_384
+LARGE_TRAIN_BATCH = 16  # phase 5b
+LARGE_THROUGHPUT_BATCH = 32  # phase 4c
+# Phase 2f's chunked-MLP rows: (config, batch, with the whole layer's
+# backward and the pair against the mono stage).
+LARGE_MLP_ROWS = ((VIT_L_16_384, 8, True), (VIT_L_16_384, 32, False),
+                  (VIT_H_14_224, 8, False))
+LARGE_PER_LAYER = dict(TRAIN_PER_LAYER["fused"], fused_bwd_mlp=0,
+                       fused_bwd_mlp_light=1, fused_bwd_mlp_wgrad=1, layernorm=6)
+# The streamed attention backward's predecessor, which held a whole head in
+# shared memory, on an H100 80GB HBM3 at 700 W (PERF.md row 11), ViT-B's T =
+# 197, bf16 dqkv: ms at B = 16, 64.
+RESIDENT_ATTN_BWD_MS = {16: 0.2396, 64: 1.0585}
+
 # Published dense peaks (NVIDIA data sheets): tensor-core bf16 FLOP/s,
 # CUDA-core fp32 FLOP/s, tensor-core int8 OP/s, memory bytes/s.
 PEAKS = {
@@ -287,6 +325,8 @@ COUNTERS = {
     "column_sum": (layernorm, "LAUNCHES_COLSUM"),
     "fused_bwd_x2": (fused_block, "LAUNCHES_BWD_X2"),
     "fused_bwd_mlp": (fused_block, "LAUNCHES_BWD_MLP"),
+    "fused_bwd_mlp_light": (fused_block, "LAUNCHES_BWD_MLP_LIGHT"),
+    "fused_bwd_mlp_wgrad": (fused_block, "LAUNCHES_BWD_MLP_WGRAD"),
     "fused_bwd_attn": (fused_block, "LAUNCHES_BWD_ATTN"),
     "fused_bwd": (fused_block, "LAUNCHES_BWD"),
 }
@@ -315,6 +355,8 @@ REPLACES = {
     "attention_bwd": "vit_with_opencl_tpu/ops/attention.py:463",
     "fused_bwd_x2": "vit_with_opencl_tpu/ops/fused_block.py:744",
     "fused_bwd_mlp": "vit_with_opencl_tpu/ops/fused_block.py:762",
+    "fused_bwd_mlp_light": "vit_with_opencl_tpu/ops/fused_block.py:815",
+    "fused_bwd_mlp_wgrad": "vit_with_opencl_tpu/ops/fused_block.py:852",
     "fused_bwd_attn": "vit_with_opencl_tpu/ops/fused_block.py:875",
     "linear_dgrad": "vit_with_opencl_tpu/ops/fused_block.py:762",
     "linear_wgrad": "vit_with_opencl_tpu/ops/fused_block.py:762",
@@ -347,6 +389,8 @@ SOURCES = {
     "column_sum": _CSRC + "reduce.cu",
     "fused_bwd_x2": "vit_with_opencl_tpu_torch/ops/fused_block.py",
     "fused_bwd_mlp": "vit_with_opencl_tpu_torch/ops/fused_block.py",
+    "fused_bwd_mlp_light": "vit_with_opencl_tpu_torch/ops/fused_block.py",
+    "fused_bwd_mlp_wgrad": "vit_with_opencl_tpu_torch/ops/fused_block.py",
     "fused_bwd_attn": "vit_with_opencl_tpu_torch/ops/fused_block.py",
 }
 # The main-path runs: phase name → CLI flags (the outlier runs add
@@ -1017,6 +1061,24 @@ def _grad_case(name, counter, kernel, plain, rel=GRAD_REL, **kw):
                 min_same=mins, **kw)
 
 
+def attn_bwd_case(qkvc, dctx, nh: int, hd: int, out_dtype) -> dict:
+    """The packed attention backward on (qkvc, dctx) against its plain
+    version; yardstick: the backward of ``F.scaled_dot_product_attention``
+    alone. Bound: qkv and dO read, dqkv written; 10·T²·hd operations a head
+    (the products s, dp, dv, dq, dk)."""
+    b, t, _ = qkvc.shape
+    d = nh * hd
+    tag = "bf16" if out_dtype == torch.bfloat16 else "fp32"
+    return _grad_case(
+        f"packed_attention_bwd (bf16 in, {tag} dqkv)", "attention_bwd",
+        lambda: attention.packed_attention_bwd(qkvc, dctx, nh, hd, out_dtype=out_dtype),
+        lambda: attention.packed_attention_bwd_reference(qkvc, dctx, nh, hd,
+                                                         out_dtype=out_dtype),
+        min_same=MIN_SAME_ATTN_BWD, library=sdpa_backward(qkvc, dctx, nh, hd),
+        bytes=b * t * (3 * d * 2 + d * 2 + 3 * d * (2 if tag == "bf16" else 4)),
+        ops={"bf16": 10 * b * t * t * d})
+
+
 def train_kernel_rows(batch: int, dev, seed: int = 0, cfg=CFG) -> list[dict]:
     """Phase 2e: every kernel of the training backward and the three stages
     on the backward's own intermediates (from the plain versions) at
@@ -1051,20 +1113,7 @@ def train_kernel_rows(batch: int, dev, seed: int = 0, cfg=CFG) -> list[dict]:
                                                     out_dtype=f32)
     dqkv_c = dqkv.to(bf)
     dh1 = linear.linear_dgrad_reference(dqkv_c, wb["qkv_w"])
-    attn_ops = 10 * batch * t * t * d  # s, dp, dv, dq, dk
-
-    def attn_case(out_dtype):
-        tag = "bf16" if out_dtype == bf else "fp32"
-        return _grad_case(
-            f"packed_attention_bwd (bf16 in, {tag} dqkv)", "attention_bwd",
-            lambda: attention.packed_attention_bwd(qkvc, dctx, nh, hd,
-                                                   out_dtype=out_dtype),
-            lambda: attention.packed_attention_bwd_reference(
-                qkvc, dctx, nh, hd, out_dtype=out_dtype),
-            min_same=MIN_SAME_ATTN_BWD, library=sdpa_backward(qkvc, dctx, nh, hd),
-            bytes=m * (3 * d * 2 + d * 2 + 3 * d * (2 if out_dtype == bf else 4)),
-            ops={"bf16": attn_ops})
-
+    attn_case = functools.partial(attn_bwd_case, qkvc, dctx, nh, hd)
     attn_stage = "vit_with_opencl_tpu/ops/fused_block.py:875"
 
     def dgrad_case(name, dy, wkey, out_dtype, gelu=False):
@@ -1122,15 +1171,8 @@ def train_kernel_rows(batch: int, dev, seed: int = 0, cfg=CFG) -> list[dict]:
             bytes=m * c * xin.element_size() + c * 4, ops={"fp32": m * c},
             replaces=attn_stage if xin is dqkv else None)
 
-    wbytes_attn = (4 * d * d) * 2 + 8 * d * 4
-    wbytes_mlp = (2 * d * h) * 2 + (3 * d + h) * 4
-    stage_x2_ops = 2 * m * d * 4 * d + 4 * batch * t * t * d
-    stage_mlp_ops = 10 * m * d * h
-    stage_attn_ops = 22 * m * d * d + 14 * batch * t * t * d
-
-    def flat(value):
-        out, grads = value
-        return (out, *grads.values())
+    wbytes_attn, wbytes_mlp, (stage_x2_ops, stage_mlp_ops, stage_attn_ops) = \
+        stage_work(cfg, batch)
 
     cases = [
         attn_case(bf), attn_case(f32),
@@ -1166,7 +1208,7 @@ def train_kernel_rows(batch: int, dev, seed: int = 0, cfg=CFG) -> list[dict]:
                    lambda: fused_block.fused_bwd_stage_x2_reference(x, lp, cfg),
                    library=None, bytes=m * d * (2 + 4) + wbytes_attn,
                    ops={"bf16": stage_x2_ops}),
-        _grad_case("fused_bwd_stage_mlp_mono (_mlp_bwd_kernel: 10 launches)",
+        _grad_case("fused_bwd_stage_mlp_mono (_mlp_bwd_kernel: 11 launches)",
                    "fused_bwd_mlp",
                    lambda: flat(fused_block.fused_bwd_stage_mlp_mono(x2, dout, lp, cfg)),
                    lambda: flat(fused_block.fused_bwd_stage_mlp_mono_reference(
@@ -1182,15 +1224,123 @@ def train_kernel_rows(batch: int, dev, seed: int = 0, cfg=CFG) -> list[dict]:
                    rel=STAGE_GRAD_REL, min_same=MIN_SAME_CHAIN, library=None,
                    bytes=m * d * (2 + 4 + 2) + wbytes_attn + wbytes_attn * 2,
                    ops={"bf16": stage_attn_ops}),
-        _grad_case("fused_encoder_layer_bwd (the three stages)", "fused_bwd",
-                   lambda: flat(fused_block.fused_encoder_layer_bwd(x, lp, dout, cfg)),
-                   lambda: flat(fused_block.fused_encoder_layer_bwd_reference(
-                       x, lp, dout, cfg)),
-                   rel=STAGE_GRAD_REL, min_same=MIN_SAME_CHAIN, library=None,
-                   bytes=m * d * (2 + 2 + 2) + 3 * (wbytes_attn + wbytes_mlp),
-                   ops={"bf16": stage_x2_ops + stage_mlp_ops + stage_attn_ops}),
+        layer_bwd_case(x, lp, dout, cfg),
     ]
     return run_cases(cases, batch, "train ")
+
+
+def flat(value):
+    """A stage's (output(s), {leaf: gradient}) as one tuple of tensors."""
+    *outs, grads = value
+    return (*outs, *grads.values())
+
+
+def stage_work(cfg, batch: int) -> tuple:
+    """(bytes of the attention half's weights, of the MLP's, and the
+    operations of stages x2, MLP and attention at ``batch`` images)."""
+    d, h, t = cfg.embed_dim, cfg.hidden_dim, cfg.num_tokens
+    m = batch * t
+    return ((4 * d * d) * 2 + 8 * d * 4, (2 * d * h) * 2 + (3 * d + h) * 4,
+            (2 * m * d * 4 * d + 4 * batch * t * t * d, 10 * m * d * h,
+             22 * m * d * d + 14 * batch * t * t * d))
+
+
+def layer_bwd_case(x, lp, dout, cfg) -> dict:
+    """``fused_encoder_layer_bwd`` against its plain version (no one TPU
+    kernel: printed, not recorded)."""
+    batch, t, d = x.shape
+    wbytes_attn, wbytes_mlp, ops = stage_work(cfg, batch)
+    stages = "x2, light, wgrad, attention" if fused_block._pick_mlp_chunks(
+        d, cfg.hidden_dim, 2) > 1 else "the three stages"
+    return _grad_case(f"fused_encoder_layer_bwd ({stages})", "fused_bwd",
+                      lambda: flat(fused_block.fused_encoder_layer_bwd(x, lp, dout, cfg)),
+                      lambda: flat(fused_block.fused_encoder_layer_bwd_reference(
+                          x, lp, dout, cfg)),
+                      rel=STAGE_GRAD_REL, min_same=MIN_SAME_CHAIN, library=None,
+                      bytes=batch * t * d * (2 + 2 + 2) + 3 * (wbytes_attn + wbytes_mlp),
+                      ops={"bf16": sum(ops)})
+
+
+def large_kernel_rows(dev) -> list[dict]:
+    """Phase 2f: the streamed attention backward at the presets' T, the
+    chunked MLP pair at ViT-L and ViT-H widths, and a ViT-L-width layer
+    backward, against their plain versions."""
+    bf = torch.bfloat16
+    rows = []
+    for cfg, batch, dtypes in ((CFG, 16, (bf,)), (CFG, 64, (bf,)),
+                               (LARGE_CFG, 8, (bf, torch.float32)),
+                               (LARGE_CFG, 32, (bf, torch.float32)),
+                               (VIT_H_14_224, 16, (bf,)), (VIT_G_14_224, 16, (bf,))):
+        gen = torch.Generator(device=dev).manual_seed(batch)
+        t, d = cfg.num_tokens, cfg.embed_dim
+        qkvc = torch.randn((batch, t, 3 * d), generator=gen, device=dev).to(bf)
+        dctx = (torch.randn((batch, t, d), generator=gen, device=dev) * 0.01).to(bf)
+        got = run_cases([attn_bwd_case(qkvc, dctx, cfg.num_heads, cfg.head_dim, o)
+                         for o in dtypes], batch,
+                        f"{cfg.name} B={batch} T={t} hd={cfg.head_dim} ")
+        if cfg is CFG:
+            print(f"  B={batch} ViT-B attention backward: streamed {got[0]['ms']:.4f} ms, "
+                  f"the earlier resident form (H100 80GB HBM3, 700 W) "
+                  f"{RESIDENT_ATTN_BWD_MS[batch]:.4f} ms", flush=True)
+        rows += got
+    for cfg, batch, whole_layer in LARGE_MLP_ROWS:
+        rows += chunked_mlp_rows(cfg, batch, dev, whole_layer)
+    return rows
+
+
+def chunked_mlp_rows(cfg, batch: int, dev, whole_layer: bool) -> list[dict]:
+    """The light and wgrad stages at ``cfg``'s width against their plain
+    versions (wgrad on the plain light stage's streams); with
+    ``whole_layer`` also the pair against the mono stage and the whole
+    layer backward with its stage counts."""
+    gen = torch.Generator(device=dev).manual_seed(batch)
+    lp = train_layer(gen, dev, cfg)
+    d, h, t = cfg.embed_dim, cfg.hidden_dim, cfg.num_tokens
+    m, bf = batch * t, torch.bfloat16
+    x2 = torch.randn((batch, t, d), generator=gen, device=dev) * 0.5
+    dout = (torch.randn((batch, t, d), generator=gen, device=dev) * 0.01).to(bf)
+    _, hid, dhp, _ = fused_block.fused_bwd_stage_mlp_light_reference(x2, dout, lp, cfg)
+    cases = [
+        _grad_case("fused_bwd_stage_mlp_light (_mlp_light_bwd_kernel: 9 launches)",
+                   "fused_bwd_mlp_light",
+                   lambda: flat(fused_block.fused_bwd_stage_mlp_light(x2, dout, lp, cfg)),
+                   lambda: flat(fused_block.fused_bwd_stage_mlp_light_reference(
+                       x2, dout, lp, cfg)),
+                   rel=STAGE_GRAD_REL, library=None,
+                   bytes=m * d * (4 + 2 + 4) + m * h * 2 * 2 + 2 * d * h * 2,
+                   ops={"bf16": 6 * m * d * h}),
+        _grad_case("fused_bwd_stage_mlp_wgrad (_mlp_wgrad_kernel: 3 launches)",
+                   "fused_bwd_mlp_wgrad",
+                   lambda: fused_block.fused_bwd_stage_mlp_wgrad(x2, dout, hid, dhp, lp, cfg),
+                   lambda: fused_block.fused_bwd_stage_mlp_wgrad_reference(
+                       x2, dout, hid, dhp, lp, cfg),
+                   library=None, bytes=m * d * (4 + 2) + m * h * 2 * 2 + 2 * d * h * 4,
+                   ops={"bf16": 4 * m * d * h}),
+    ]
+    if whole_layer:
+        x = (torch.randn((batch, t, d), generator=gen, device=dev) * 0.5).to(bf)
+        cases.append(layer_bwd_case(x, lp, dout, cfg))
+    rows = run_cases(cases, batch, f"{cfg.name} B={batch} ")
+    if whole_layer:
+        dx2, hid_k, dhp_k, small = fused_block.fused_bwd_stage_mlp_light(x2, dout, lp, cfg)
+        wg = fused_block.fused_bwd_stage_mlp_wgrad(x2, dout, hid_k, dhp_k, lp, cfg)
+        mdx2, mono = fused_block.fused_bwd_stage_mlp_mono(x2, dout, lp, cfg)
+        check(torch.equal(dx2, mdx2) and torch.equal(wg[0], mono["fc1_w"])
+              and torch.equal(wg[1], mono["fc2_w"])
+              and all(torch.equal(v, mono[k]) for k, v in small.items()),
+              f"B={batch} {cfg.name}: light -> wgrad equals the mono MLP stage bit "
+              f"for bit on the card")
+        names = ("fused_bwd_mlp", "fused_bwd_mlp_light", "fused_bwd_mlp_wgrad",
+                 "fused_bwd_attn", "fused_bwd")
+        before = read_counts()
+        fused_block.fused_encoder_layer_bwd(x, lp, dout, cfg)
+        torch.cuda.synchronize()
+        after = read_counts()
+        moved = [after[n] - before[n] for n in names]
+        check(moved == [0, 1, 1, 1, 1],
+              f"{cfg.name}: one fused_encoder_layer_bwd launches {dict(zip(names, moved))} "
+              f"(light and wgrad once, the mono stage never)")
+    return rows
 
 
 def train_batch(n: int, seed: int, cfg=CFG) -> tuple:
@@ -1204,15 +1354,17 @@ def train_batch(n: int, seed: int, cfg=CFG) -> tuple:
     return images, np.full(n, seed % cfg.num_classes)
 
 
-def one_step_vs_plain(route: str, dev, images, labels) -> None:
-    """One AdamW step of a Trainer from random params against the same
-    Trainer with its links swapped for their plain versions."""
+def one_step_vs_plain(route: str, dev, images, labels, host_params: dict,
+                      cfg=CFG) -> None:
+    """One AdamW step of a Trainer from random params (``host_params``, from
+    ``fixtures.random_params``) against the same Trainer with its links
+    swapped for their plain versions."""
     def step():
-        tr = Trainer(CFG, device=dev, lr=TRAIN_LR, optimizer="adamw",
+        tr = Trainer(cfg, device=dev, lr=TRAIN_LR, optimizer="adamw",
                      compute_dtype=torch.bfloat16, attention_impl=route,
                      log_every=0, seed=0)
-        tr.params = vit.stack_params(fixtures.random_params(CFG, seed=1), CFG,
-                                     param_dtype=torch.float32, device=dev)
+        tr.params = vit.stack_params(host_params, cfg, param_dtype=torch.float32,
+                                     device=dev)
         tr.opt_state = tr._init_opt(tr.params)
         start = {k: v.clone() for k, v in tr.params["layers"].items()}
         tr.fit(iter([(images, labels)]), steps=1)
@@ -1236,14 +1388,14 @@ def one_step_vs_plain(route: str, dev, images, labels) -> None:
         sure_err = max(sure_err, float(diff[sure].max()))
         any_err = max(any_err, float(diff.max()))
         mean_err = max(mean_err, float(diff.mean()))
-    print(f"  {route}: one step vs the plain links: loss {tr.last_loss:.6f} vs "
+    print(f"  {cfg.name} {route}: one step vs the plain links: loss {tr.last_loss:.6f} vs "
           f"{plain.last_loss:.6f} (rel {loss_err:.2e}); layer mu max rel err "
           f"{mu_err:.3e}; update difference {sure_err:.3e} lr where |mu| > "
           f"{MU_REL} of its leaf's largest, {any_err:.3f} lr at most, "
           f"{mean_err:.3f} lr on average", flush=True)
     check(loss_err <= STEP_LOSS_REL and mu_err <= MU_REL
           and sure_err <= UPDATE_ATOL and any_err <= 2.0 + UPDATE_ATOL,
-          f"{route} step within tolerance of its plain links (loss {loss_err:.2e} "
+          f"{cfg.name} {route} step within tolerance of its plain links (loss {loss_err:.2e} "
           f"<= {STEP_LOSS_REL}, mu {mu_err:.2e} <= {MU_REL}, updates "
           f"{sure_err:.2e} lr <= {UPDATE_ATOL} lr where the gradient is "
           f"resolved, {any_err:.3f} lr <= 2 lr anywhere)")
@@ -1255,6 +1407,7 @@ def training_main_path(dev, tmp: Path) -> dict:
     counts of those steps, a step against the plain links, save → resume,
     and export → the CLI's labels."""
     images, labels = train_batch(TRAIN_BATCH, seed=3)
+    host_params = fixtures.random_params(CFG, seed=1)
     counts = {}
     for route in TRAIN_ROUTES:
         logs = []
@@ -1287,10 +1440,55 @@ def training_main_path(dev, tmp: Path) -> dict:
               f"{route}: launches of {TRAIN_STEPS} steps {counts[route]}, expected "
               f"{expected}")
         if route != "xla":
-            one_step_vs_plain(route, dev, images, labels)
+            one_step_vs_plain(route, dev, images, labels, host_params)
         if route == "fused":
             resume_and_export(tr, dev, tmp, images)
         del tr
+        torch.cuda.empty_cache()
+    return counts
+
+
+def large_training_main_path(dev) -> dict:
+    """Phase 5b: ViT-L/16@384 at full depth and widths through Trainer on
+    the fused route: the loss falls over TRAIN_STEPS steps on a memorised
+    batch, the launch counts of those steps (the chunked MLP pair, never the
+    mono stage), and one fused and one flash step against the plain
+    links."""
+    cfg, batch = LARGE_CFG, LARGE_TRAIN_BATCH
+    images, labels = train_batch(batch, seed=3, cfg=cfg)
+    logs = []
+    t0 = time.perf_counter()
+    tr = Trainer(cfg, device=dev, lr=TRAIN_LR, optimizer="adamw",
+                 compute_dtype=torch.bfloat16, attention_impl="fused",
+                 log_every=1, log_fn=logs.append, seed=0)
+    setup = time.perf_counter() - t0
+    batches = data.memory_dataset(images, labels, batch, epochs=None, seed=1)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    tr.fit(batches, steps=TRAIN_STEPS)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    counts = read_counts()
+    losses = [float(line.split("loss ")[1].split(",")[0]) for line in logs]
+    print(f"  {cfg.name} fused: Trainer set up in {setup:.1f} s; {TRAIN_STEPS} steps "
+          f"at B={batch} in {elapsed:.2f} s; losses "
+          f"{' '.join(f'{v:.4f}' for v in losses)}", flush=True)
+    check(len(losses) == TRAIN_STEPS and all(np.isfinite(losses))
+          and losses[-1] < losses[0],
+          f"{cfg.name} fused: the loss falls over {TRAIN_STEPS} steps "
+          f"({losses[0]:.4f} -> {losses[-1]:.4f})")
+    expected = {key: LARGE_PER_LAYER.get(key, 0) * cfg.depth * TRAIN_STEPS
+                for key in COUNTERS}
+    check(counts == expected,
+          f"{cfg.name} fused: launches of {TRAIN_STEPS} steps {counts}, expected "
+          f"{expected} (light and wgrad {cfg.depth} a step, the mono MLP stage "
+          f"{counts['fused_bwd_mlp']})")
+    del tr
+    torch.cuda.empty_cache()
+    host_params = fixtures.random_params(cfg, seed=1)
+    for route in ("fused", "flash"):
+        one_step_vs_plain(route, dev, images, labels, host_params, cfg)
         torch.cuda.empty_cache()
     return counts
 
@@ -1344,19 +1542,19 @@ def resume_and_export(tr, dev, tmp: Path, images) -> None:
           f"probabilities within {PROB_TOL}")
 
 
-def training_throughput(dev) -> dict:
-    """Phase 4b: ms per AdamW step, img/s and peak memory of each route at
-    TRAIN_THROUGHPUT_BATCH, and the split of a fused step."""
-    batch = TRAIN_THROUGHPUT_BATCH
-    images, labels = train_batch(batch, seed=4)
+def training_throughput(dev, cfg=CFG, batch: int = TRAIN_THROUGHPUT_BATCH,
+                        routes=TRAIN_ROUTES) -> dict:
+    """Phases 4b and 4c: ms per AdamW step, img/s and peak memory of each
+    route at ``batch``, and the split of a fused step."""
+    images, labels = train_batch(batch, seed=4, cfg=cfg)
     ti = torch.from_numpy(images).to(dev)
     tl = torch.from_numpy(labels).to(dev)
     out = {}
-    for route in TRAIN_ROUTES:
-        init, step = spmd.make_train_step(CFG, device=dev, lr=TRAIN_LR,
+    for route in routes:
+        init, step = spmd.make_train_step(cfg, device=dev, lr=TRAIN_LR,
                                           compute_dtype=torch.bfloat16,
                                           optimizer="adamw", attention_impl=route)
-        params = vit.init_params(CFG, seed=0, device=dev)
+        params = vit.init_params(cfg, seed=0, device=dev)
         state = init(params)
         step(params, state, ti, tl)  # warm-up (and a non-zero head)
         torch.cuda.synchronize()
@@ -1364,49 +1562,56 @@ def training_throughput(dev) -> dict:
         ms = time_ms(lambda: step(params, state, ti, tl), reps=5)
         peak = torch.cuda.max_memory_allocated() / 2**30
         out[route] = ms
-        print(f"throughput train {route} B={batch}: {ms:.2f} ms per AdamW step, "
-              f"{batch / ms * 1e3:.1f} img/s, peak memory {peak:.2f} GiB", flush=True)
+        print(f"throughput train {cfg.name} {route} B={batch}: {ms:.2f} ms per AdamW "
+              f"step, {batch / ms * 1e3:.1f} img/s, peak memory {peak:.2f} GiB",
+              flush=True)
         print(json.dumps({"train_throughput": {
-            "route": route, "batch": batch, "step_ms": ms,
+            "config": cfg.name, "route": route, "batch": batch, "step_ms": ms,
             "img_per_s": batch / ms * 1e3, "peak_gib": peak}}), flush=True)
         if route == "fused":
-            fused_step_split(dev, params, state, ti, tl, ms)
+            fused_step_split(dev, params, state, ti, tl, ms, cfg)
         del params, state, init, step
         torch.cuda.empty_cache()
     return out
 
 
-def fused_step_split(dev, params, state, images, labels, step_ms) -> None:
-    """Where a fused step's time goes: the 12-layer forward chain, each
-    backward stage over 12 layers, the AdamW update, the rest."""
+def fused_step_split(dev, params, state, images, labels, step_ms, cfg=CFG) -> None:
+    """Where a fused step's time goes: the forward chain, each backward
+    stage (the chunked MLP pair as two) over all layers, the AdamW update,
+    the rest."""
     batch = images.shape[0]
+    fb = fused_block
     with torch.no_grad():
-        x = vit.embed(images, params, CFG, torch.bfloat16)
+        x = vit.embed(images, params, cfg, torch.bfloat16)
         lps = vit._layer_list(params)
-        fwd = time_ms(lambda: [fused_block.fused_encoder_layer(x, lp, CFG) for lp in lps],
-                      reps=3)
-        x2 = fused_block.fused_bwd_stage_x2(x, lps[0], CFG)
+        fwd = time_ms(lambda: [fb.fused_encoder_layer(x, lp, cfg) for lp in lps], reps=3)
+        x2 = fb.fused_bwd_stage_x2(x, lps[0], cfg)
         dout = torch.full_like(x, 1e-3)
-        dx2, _ = fused_block.fused_bwd_stage_mlp_mono(x2, dout, lps[0], CFG)
-        t_x2 = time_ms(lambda: [fused_block.fused_bwd_stage_x2(x, lp, CFG) for lp in lps],
-                       reps=3)
-        t_mlp = time_ms(lambda: [fused_block.fused_bwd_stage_mlp_mono(x2, dout, lp, CFG)
-                                 for lp in lps], reps=3)
-        t_attn = time_ms(lambda: [fused_block.fused_bwd_stage_attn(x, dx2, lp, CFG)
-                                  for lp in lps], reps=3)
+        stages = {"x2": lambda lp: fb.fused_bwd_stage_x2(x, lp, cfg)}
+        if fb._pick_mlp_chunks(cfg.embed_dim, cfg.hidden_dim, 2) > 1:
+            dx2, hid, dhp, _ = fb.fused_bwd_stage_mlp_light(x2, dout, lps[0], cfg)
+            stages["mlp_light"] = lambda lp: fb.fused_bwd_stage_mlp_light(x2, dout, lp, cfg)
+            stages["mlp_wgrad"] = lambda lp: fb.fused_bwd_stage_mlp_wgrad(
+                x2, dout, hid, dhp, lp, cfg)
+        else:
+            dx2, _ = fb.fused_bwd_stage_mlp_mono(x2, dout, lps[0], cfg)
+            stages["mlp"] = lambda lp: fb.fused_bwd_stage_mlp_mono(x2, dout, lp, cfg)
+        stages["attn"] = lambda lp: fb.fused_bwd_stage_attn(x, dx2, lp, cfg)
+        times = {name: time_ms(lambda: [fn(lp) for lp in lps], reps=3)
+                 for name, fn in stages.items()}
         tx = optim.adamw(TRAIN_LR, weight_decay=0.05)
         grads = optim.tree_map(lambda p: torch.full_like(p, 1e-4), params)
         t_opt = time_ms(lambda: optim.apply_updates(params, tx.update(grads, state, params)[0]),
                         reps=3)
-    rest = step_ms - (fwd + t_x2 + t_mlp + t_attn + t_opt)
-    print(f"  fused step split at B={batch} (ms): forward chain {fwd:.2f}, stage x2 "
-          f"{t_x2:.2f}, stage MLP {t_mlp:.2f}, stage attention {t_attn:.2f} "
-          f"({CFG.depth} layers each), AdamW {t_opt:.2f}, the rest (embedding, "
+    rest = step_ms - (fwd + sum(times.values()) + t_opt)
+    print(f"  {cfg.name} fused step split at B={batch} (ms): forward chain {fwd:.2f}, "
+          + ", ".join(f"stage {name} {ms:.2f}" for name, ms in times.items())
+          + f" ({cfg.depth} layers each), AdamW {t_opt:.2f}, the rest (embedding, "
           f"head, loss, autograd) {rest:.2f}; step {step_ms:.2f}", flush=True)
     print(json.dumps({"fused_step_split": {
-        "batch": batch, "forward_chain_ms": fwd, "stage_x2_ms": t_x2,
-        "stage_mlp_ms": t_mlp, "stage_attn_ms": t_attn, "adamw_ms": t_opt,
-        "rest_ms": rest, "step_ms": step_ms}}), flush=True)
+        "config": cfg.name, "batch": batch, "forward_chain_ms": fwd,
+        **{f"stage_{name}_ms": ms for name, ms in times.items()},
+        "adamw_ms": t_opt, "rest_ms": rest, "step_ms": step_ms}}), flush=True)
 
 
 def fp32_layer_norm_check(dev) -> None:
@@ -1783,6 +1988,10 @@ def main() -> int:
     print(f"== phase 2e: training kernels and backward stages vs plain versions, "
           f"B={SMOKE_BATCH}", flush=True)
     train_rows = train_kernel_rows(SMOKE_BATCH, dev)
+    print("== phase 2f: training kernels at the larger presets' shapes (ViT-L/16@384, "
+          "ViT-H/14, ViT-G/14) vs plain versions", flush=True)
+    large_rows = large_kernel_rows(dev)
+    torch.cuda.empty_cache()
 
     with tempfile.TemporaryDirectory() as tmp:
         print(f"== phase 2c: outlier-aware W8A8 kernels vs plain versions, "
@@ -1821,6 +2030,9 @@ def main() -> int:
         print(f"== phase 5: training main path (Trainer, ViT-B/16, bf16, AdamW; "
               f"routes {', '.join(TRAIN_ROUTES)})", flush=True)
         train_counts = training_main_path(dev, Path(tmp))
+    print("== phase 5b: training main path (Trainer, ViT-L/16@384, bf16, AdamW, "
+          "fused; a fused and a flash step vs the plain links)", flush=True)
+    large_counts = large_training_main_path(dev)
 
     print("== phase 4: throughput", flush=True)
     with torch.inference_mode():
@@ -1831,6 +2043,9 @@ def main() -> int:
     training_throughput(dev)
     print(f"  the training kernels at B={TRAIN_THROUGHPUT_BATCH}:", flush=True)
     train_kernel_rows(TRAIN_THROUGHPUT_BATCH, dev, seed=TRAIN_THROUGHPUT_BATCH)
+    torch.cuda.empty_cache()
+    print("== phase 4c: ViT-L/16@384 training throughput", flush=True)
+    training_throughput(dev, LARGE_CFG, LARGE_THROUGHPUT_BATCH, ("fused", "flash"))
 
     # Each row's launches: from the main-path run that drives its kernel.
     runs = [(counts, r) for r in rows] + [
@@ -1858,6 +2073,10 @@ def main() -> int:
     # whole-backward row is printed above, not recorded (no one TPU kernel).
     runs += [(train_counts["flash" if r["counter"] == "attention_bwd" else "fused"], r)
              for r in train_rows if r["counter"] != "fused_bwd"]
+    # Phase 2f's rows at the ViT-L shapes, from phase 5b's run (the other
+    # presets' rows are printed above).
+    runs += [(large_counts, r) for r in large_rows
+             if r["name"].startswith(LARGE_CFG.name) and r["counter"] != "fused_bwd"]
     record = {"kernels": [
         {"name": r["name"], "route": "cuda", "source": SOURCES[r["counter"]],
          "replaces": r["replaces"] or REPLACES[r["counter"]],

@@ -550,9 +550,14 @@ def _rel_close(out, ref, rel=GRAD_REL):
 
 
 @pytest.mark.parametrize("b,t,nh,hd", [(2, 37, 4, 16), (2, 197, 12, 64),
-                                       (1, 50, 2, 104), (1, 197, 2, 128)])
+                                       (1, 50, 2, 104), (1, 197, 2, 128),
+                                       (1, 577, 2, 64), (1, 257, 2, 104),
+                                       (1, 257, 2, 80), (1, 900, 1, 64)])
 @pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
 def test_packed_attention_bwd_kernel(dev, b, t, nh, hd, out_dtype):
+    """The streamed kernels at ViT-B's T, the presets' (ViT-L/16@384's 577
+    at hd 64, ViT-H/14's and ViT-G/14's 257 at hd 80 and 104) and past
+    them: tiles of 64 rows, T not a multiple of them."""
     qkv = _rand((b, t, 3 * nh * hd), dev, torch.bfloat16)
     do = _rand((b, t, nh * hd), dev, torch.bfloat16, seed=1)
     before = attention.LAUNCHES_BWD
@@ -569,12 +574,18 @@ def test_packed_attention_bwd_kernel(dev, b, t, nh, hd, out_dtype):
 
 
 def test_packed_attention_bwd_refuses(dev):
+    """fp32 inputs raise; any T runs (the kernels stream their tiles), as
+    JAX's function takes any T."""
     qkv = _rand((1, 8, 3 * 64), dev, torch.bfloat16)
     with pytest.raises(NotImplementedError):
         attention.packed_attention_bwd(qkv.float(), qkv[..., :64].float(), 4, 16)
     big = _rand((1, 900, 3 * 64), dev, torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="blockwise"):
-        attention.packed_attention_bwd(big, big[..., :64].contiguous(), 1, 64)
+    do = big[..., :64].contiguous()
+    out = attention.packed_attention_bwd(big, do, 1, 64)
+    torch.cuda.synchronize()
+    ref = attention.packed_attention_bwd_reference(big, do, 1, 64)
+    _close(out, ref, min_same=MIN_SAME_ATTN_BWD,
+           tol=dict(rtol=1.6e-2, atol=1e-2 * float(ref.float().abs().max())))
 
 
 @pytest.mark.parametrize("m,k,n", [(74, 64, 192), (3152, 768, 2304),
@@ -677,6 +688,65 @@ def test_fused_backward_stages(dev, d, nh, t):
     assert (fused_block.LAUNCHES_BWD, fused_block.LAUNCHES_BWD_X2,
             fused_block.LAUNCHES_BWD_MLP, fused_block.LAUNCHES_BWD_ATTN) == tuple(
                 c + 1 for c in before)
+    rdx, rdlp = fused_block.fused_encoder_layer_bwd_reference(x, lp, dout, cfg)
+    _close(dx, rdx, min_same=MIN_SAME_CHAIN)
+    for key in rdlp:
+        assert dlp[key].dtype == torch.float32
+        _rel_close(dlp[key], rdlp[key], 2e-2)
+
+
+@pytest.mark.parametrize("d,nh,t", [(192, 3, 197), (1024, 16, 577)])
+def test_chunked_mlp_stages(dev, d, nh, t):
+    """The light and wgrad stages against their plain versions, and the two
+    together equal to the mono stage on the card (the same kernels on the
+    same values)."""
+    cfg = ViTConfig(name="bwd", img_size=32, patch_size=8, embed_dim=d,
+                    depth=1, num_heads=nh, num_classes=9)
+    lp = _train_layer(cfg, dev)
+    x2 = _rand((1, t, d), dev, std=0.5, seed=6)
+    dout = _rand((1, t, d), dev, torch.bfloat16, std=0.1, seed=7)
+    before = (fused_block.LAUNCHES_BWD_MLP_LIGHT, fused_block.LAUNCHES_BWD_MLP_WGRAD)
+    dx2, hid, dhp, small = fused_block.fused_bwd_stage_mlp_light(x2, dout, lp, cfg)
+    dfc1, dfc2 = fused_block.fused_bwd_stage_mlp_wgrad(x2, dout, hid, dhp, lp, cfg,
+                                                       mlp_chunks=2)
+    torch.cuda.synchronize()
+    assert (fused_block.LAUNCHES_BWD_MLP_LIGHT,
+            fused_block.LAUNCHES_BWD_MLP_WGRAD) == (before[0] + 1, before[1] + 1)
+    assert hid.shape == dhp.shape == (1, t, cfg.hidden_dim)
+    assert dfc1.shape == (1, d, cfg.hidden_dim) and dfc2.shape == (1, cfg.hidden_dim, d)
+    rdx2, rhid, rdhp, rsmall = fused_block.fused_bwd_stage_mlp_light_reference(
+        x2, dout, lp, cfg)
+    _rel_close(dx2, rdx2, 2e-2)
+    _close(hid, rhid)
+    _close(dhp, rdhp)
+    for key in rsmall:
+        _rel_close(small[key], rsmall[key], 2e-2)
+    # The wgrad stage recomputes h2c with the LN kernel: a bf16 flip there
+    # moves a row of dfc1's summands (1.6e-4 of scale at D = 1024).
+    rw = fused_block.fused_bwd_stage_mlp_wgrad_reference(x2, dout, hid, dhp, lp, cfg)
+    _rel_close(dfc1, rw[0])
+    _rel_close(dfc2, rw[1])
+    mdx2, mono = fused_block.fused_bwd_stage_mlp_mono(x2, dout, lp, cfg)
+    assert torch.equal(dx2, mdx2)
+    assert torch.equal(dfc1, mono["fc1_w"]) and torch.equal(dfc2, mono["fc2_w"])
+    assert all(torch.equal(small[k], mono[k]) for k in small)
+
+
+def test_fused_layer_bwd_at_vit_l_width(dev):
+    """One ViT-L/16@384-width layer backward (D = 1024, 16 heads, H = 4096,
+    T = 577): its own H-chunk count routes the MLP stage to light → wgrad."""
+    cfg = ViTConfig(name="bwd_l", img_size=384, patch_size=16, embed_dim=1024,
+                    depth=1, num_heads=16, num_classes=9)
+    assert fused_block._pick_mlp_chunks(1024, 4096, 2) == 2
+    lp = _train_layer(cfg, dev)
+    x = _rand((2, 577, 1024), dev, torch.bfloat16, std=0.5, seed=6)
+    dout = _rand((2, 577, 1024), dev, torch.bfloat16, std=0.1, seed=7)
+    names = ("LAUNCHES_BWD", "LAUNCHES_BWD_MLP", "LAUNCHES_BWD_MLP_LIGHT",
+             "LAUNCHES_BWD_MLP_WGRAD", "LAUNCHES_BWD_ATTN")
+    before = [getattr(fused_block, n) for n in names]
+    dx, dlp = fused_block.fused_encoder_layer_bwd(x, lp, dout, cfg)
+    torch.cuda.synchronize()
+    assert [getattr(fused_block, n) - b for n, b in zip(names, before)] == [1, 0, 1, 1, 1]
     rdx, rdlp = fused_block.fused_encoder_layer_bwd_reference(x, lp, dout, cfg)
     _close(dx, rdx, min_same=MIN_SAME_CHAIN)
     for key in rdlp:

@@ -1,12 +1,17 @@
 """The port's training kernels' plain versions against the JAX package's
 Pallas kernels (interpret mode on the CPU): the packed-attention backward,
-the three stages of the fused layer backward, the whole layer backward and
-the trainable layer and attention under autograd.
+the stages of the fused layer backward (with the H-chunked MLP pair of
+ViT-L/H widths), the whole layer backward and the trainable layer and
+attention under autograd.
 
 Inputs are made with numpy from seeds and given to both sides. Sizes: D =
 64, 4 heads of 16, H = 256, T = 17 (32-pixel images at patch 8), and T = 37
-for the attention backward. On CPU tensors every wrapper computes its plain
-version; no kernel launches, which the tests check through the counters.
+for the attention backward; the attention backward also at the presets'
+sequence lengths (T = 577, hd = 64; T = 257, hd = 104) on 1 image, and the
+trainable layer at D = 1024, H = 4096 (the narrowest width whose own
+H-chunk count is 2) on T = 17. On CPU tensors every wrapper computes its
+plain version; no kernel launches, which the tests check through the
+counters.
 """
 
 import jax
@@ -21,6 +26,8 @@ from vit_with_opencl_tpu.models import vit as jvit
 from vit_with_opencl_tpu.ops import attention as jattn
 from vit_with_opencl_tpu.ops import fused_block as jfused
 from vit_with_opencl_tpu_torch import ViTConfig
+from vit_with_opencl_tpu_torch import config as tconfig
+from vit_with_opencl_tpu_torch.models import vit as tvit
 from vit_with_opencl_tpu_torch.ops import (_build, attention, fused_block,
                                            layernorm, linear)
 
@@ -82,7 +89,8 @@ def _launches():
             linear.LAUNCHES_DGRAD, linear.LAUNCHES_WGRAD,
             linear.LAUNCHES_GELU_PAIR, fused_block.LAUNCHES,
             fused_block.LAUNCHES_BWD, fused_block.LAUNCHES_BWD_X2,
-            fused_block.LAUNCHES_BWD_MLP, fused_block.LAUNCHES_BWD_ATTN)
+            fused_block.LAUNCHES_BWD_MLP, fused_block.LAUNCHES_BWD_MLP_LIGHT,
+            fused_block.LAUNCHES_BWD_MLP_WGRAD, fused_block.LAUNCHES_BWD_ATTN)
 
 
 @pytest.fixture(autouse=True)
@@ -156,6 +164,33 @@ def test_packed_attention_trainable_matches_jax_grad(dtype):
     rel = F32_REL if dtype == "f32" else BF16_REL
     np.testing.assert_allclose(float(tv.detach()), float(jv), rtol=rel)
     _close(tq.grad, jg, rel, what="dqkv")
+
+
+@pytest.mark.parametrize("t,nh,hd", [(577, 1, 64), (257, 2, 104)])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_packed_attention_bwd_at_preset_lengths_matches_jax(t, nh, hd, dtype):
+    """The sequence lengths whose backward no longer fits one block's
+    shared memory as a whole head (ViT-L/16@384, ViT-G/14): the plain
+    version the streamed kernels are held to, against JAX's."""
+    tdt, jdt = DTYPES[dtype]
+    tq, jq = _pair(_rand((1, t, 3 * nh * hd), 7), tdt, jdt)
+    td, jd = _pair(_rand((1, t, nh * hd), 8), tdt, jdt)
+    want = jattn.packed_attention_bwd(jq, jd, nh, hd)
+    got = attention.packed_attention_bwd(tq, td, nh, hd)
+    if dtype == "f32":
+        _close(got, want, F32_REL, what="dqkv")
+    else:
+        _close(got, want, BF16_REL, MIN_SAME_ATTN_BWD, "dqkv")
+
+
+def test_kernel_bwd_smem_bytes_fits_every_head_dim():
+    """The streamed backward's shared memory depends on the head dim alone
+    (T is not an argument) and fits a block at every head dim the kernels
+    take, which covers every preset's, whatever its T."""
+    for hd in range(8, 129, 8):
+        assert attention.kernel_bwd_smem_bytes(hd) <= attention.MAX_SMEM_BYTES
+    for cfg in tconfig.PRESETS.values():
+        assert cfg.head_dim % 8 == 0 and cfg.head_dim <= 128, cfg.name
 
 
 def test_packed_attention_trainable_refuses_long_sequences():
@@ -312,15 +347,106 @@ def test_fused_encoder_layer_bwd_matches_jax(dtype):
     assert torch.equal(rdx, dx) and all(torch.equal(rg[k], g[k]) for k in g)
 
 
-def test_fused_encoder_layer_bwd_refuses_chunked_mlp():
-    tlp, _, tx, _, tdo, _ = _stage_inputs("f32")
-    with pytest.raises(NotImplementedError, match="_mlp_wgrad_kernel"):
-        fused_block.fused_encoder_layer_bwd(tx, tlp, tdo, CFG, mlp_chunks=2)
+# -- the H-chunked MLP backward (ViT-L/H widths), forced at D = 64 ----------
+
+# The bf16 streams are roundings of fp32 values that both sides sum in
+# their own order (measured 100% bit-identical to JAX's at these seeds).
+MIN_SAME_STREAM = 0.97
+
+
+def _light_inputs(dtype, seed=20):
+    tlp, jlp, tx, jx, tdo, jdo = _stage_inputs(dtype, seed)
+    jx2 = jfused.fused_bwd_stage_x2(jx, jlp, JCFG)
+    return tlp, jlp, torch.from_numpy(np.array(jx2)), jx2, tdo, jdo
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_stage_mlp_light_matches_jax(dtype):
+    tlp, jlp, tx2, jx2, tdo, jdo = _light_inputs(dtype)
+    jdx2, jhid, jdhp, jg = jfused.fused_bwd_stage_mlp_light(jx2, jdo, jlp, JCFG)
+    dx2, hid, dhp, g = fused_block.fused_bwd_stage_mlp_light(tx2, tdo, tlp, CFG)
+    rel = F32_REL if dtype == "f32" else BF16_GRAD_REL
+    assert dx2.dtype == torch.float32 and hid.dtype == dhp.dtype == tdo.dtype
+    _close(dx2, jdx2, rel, what="dx2")
+    for got, want, what in ((hid, jhid, "hid_s"), (dhp, jdhp, "dhp_s")):
+        if dtype == "f32":
+            _close(got, want, F32_REL, what=what)
+        else:
+            _close(got, want, BF16_REL, MIN_SAME_STREAM, what)
+    _grads_close(g, jg, rel)
+
+
+@pytest.mark.parametrize("chunks", [2, 4])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_stage_mlp_wgrad_matches_jax(dtype, chunks):
+    """From the same streams (JAX's light stage's), both sides' weight
+    gradients; the port's are one GEMM over H whatever ``chunks`` is."""
+    tdt = DTYPES[dtype][0]
+    tlp, jlp, tx2, jx2, tdo, jdo = _light_inputs(dtype)
+    _, jhid, jdhp, _ = jfused.fused_bwd_stage_mlp_light(jx2, jdo, jlp, JCFG)
+    thid, tdhp = (torch.from_numpy(np.array(_np(a))).to(tdt)
+                  for a in (jhid, jdhp))
+    want = jfused.fused_bwd_stage_mlp_wgrad(jx2, jdo, jhid, jdhp, jlp, JCFG,
+                                            mlp_chunks=chunks)
+    got = fused_block.fused_bwd_stage_mlp_wgrad(tx2, tdo, thid, tdhp, tlp, CFG,
+                                                mlp_chunks=chunks)
+    rel = F32_REL if dtype == "f32" else BF16_GRAD_REL
+    for g, w, what in zip(got, want, ("dfc1_w", "dfc2_w")):
+        assert g.dtype == torch.float32
+        _close(g, w, rel, what=what)
+    other = fused_block.fused_bwd_stage_mlp_wgrad(tx2, tdo, thid, tdhp, tlp,
+                                                  CFG, mlp_chunks=1)
+    assert all(torch.equal(a, b) for a, b in zip(got, other))
+
+
+@pytest.mark.parametrize("chunks", [1, 2, 4])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_chunked_layer_bwd_equals_mono(dtype, chunks):
+    """The layer backward through light → wgrad equals, bit for bit, the
+    mono stage's: the same links on the same values."""
+    tlp, _, tx, _, tdo, _ = _stage_inputs(dtype, seed=60)
+    dx, g = fused_block.fused_encoder_layer_bwd(tx, tlp, tdo, CFG,
+                                                mlp_chunks=chunks)
+    x2 = fused_block.fused_bwd_stage_x2(tx, tlp, CFG)
+    dx2, mono = fused_block.fused_bwd_stage_mlp_mono(x2, tdo, tlp, CFG)
+    mdx, attn_g = fused_block.fused_bwd_stage_attn(tx, dx2, tlp, CFG)
+    mono.update(attn_g)
+    assert torch.equal(dx, mdx)
+    assert set(g) == set(mono)
+    assert all(torch.equal(g[k], mono[k][0]) for k in g)
+
+
+def test_chunked_mlp_refuses_chunks_that_do_not_divide_h():
+    tlp, jlp, tx, jx, tdo, jdo = _stage_inputs("f32")
+    with pytest.raises(ValueError, match="must divide") as want:
+        jfused.fused_encoder_layer_bwd(jx, jlp, jdo, JCFG, mlp_chunks=7)
+    with pytest.raises(ValueError, match="must divide") as got:
+        fused_block.fused_encoder_layer_bwd(tx, tlp, tdo, CFG, mlp_chunks=7)
+    assert str(got.value) == str(want.value)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_fused_encoder_layer_bwd_chunked_matches_jax(dtype):
+    """``mlp_chunks=2`` forced at D = 64, on weights carried across by
+    ``params_from_jax``."""
+    tdt, jdt = DTYPES[dtype]
+    named = jfixtures.random_params(JCFG, seed=9, scale=0.05)
+    stacked = jvit.stack_params(named, JCFG, param_dtype=jnp.float32)
+    jlp = {k: jnp.asarray(v[0]) for k, v in stacked["layers"].items()}
+    tlp = {k: v[0] for k, v in tvit.params_from_jax(
+        stacked, device="cpu")["layers"].items()}
+    tx, jx = _pair(_rand((2, T, 64), 41, std=0.5), tdt, jdt)
+    tdo, jdo = _pair(_rand((2, T, 64), 42, std=0.1), tdt, jdt)
+    jdx, jg = jfused.fused_encoder_layer_bwd(jx, jlp, jdo, JCFG, mlp_chunks=2)
+    dx, g = fused_block.fused_encoder_layer_bwd(tx, tlp, tdo, CFG, mlp_chunks=2)
+    if dtype == "f32":
+        _close(dx, jdx, F32_REL, what="dx")
+    else:  # a bf16 output: a summation-order flip moves an element by an ulp
+        _close(dx, jdx, BF16_REL, MIN_SAME_DX, "dx")
+    _grads_close(g, jg, F32_REL if dtype == "f32" else BF16_GRAD_REL)
 
 
 def test_trainable_gates_match_jax():
-    from vit_with_opencl_tpu_torch import config as tconfig
-
     for name in ("vit_b_16_224", "vit_tiny_16_224", "vit_l_16_384",
                  "vit_h_14_224"):
         assert (fused_block.supports_trainable(tconfig.get_config(name))
@@ -328,6 +454,18 @@ def test_trainable_gates_match_jax():
     for d, h in ((768, 3072), (1024, 4096), (1280, 5120)):
         assert (fused_block._pick_mlp_chunks(d, h, 2)
                 == jfused._pick_mlp_chunks(d, h, 2))
+
+
+def test_train_kernels_send_large_presets_to_the_fused_layer():
+    """The fused route trains ViT-L/16@384 and ViT-H/14 through the
+    trainable layer (their MLP backward the chunked pair), as ViT-B."""
+    from vit_with_opencl_tpu_torch.parallel import spmd
+
+    for name in ("vit_b_16_224", "vit_l_16_384", "vit_h_14_224"):
+        kernels = spmd.train_kernels(tconfig.get_config(name), "fused",
+                                     torch.bfloat16)
+        assert (kernels["encoder_block"]
+                is fused_block.fused_encoder_layer_trainable), name
 
 
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
@@ -354,6 +492,49 @@ def test_fused_layer_trainable_matches_jax_value_and_grad(dtype):
     np.testing.assert_allclose(float(tv.detach()), float(jv), rtol=rel)
     _close(tx.grad, jgx, rel, what="dx")
     _grads_close({k: v.grad for k, v in tlp.items()}, jglp, rel)
+
+
+# The narrowest width whose own H-chunk count is 2, as ViT-L's and ViT-H's:
+# D = 1024, H = 4096, 16 heads of 64, T = 17, one layer.
+LCFG = ViTConfig(name="train_ops_l", img_size=32, patch_size=8,
+                 embed_dim=1024, depth=1, num_heads=16, num_classes=9,
+                 mlp_ratio=4.0)
+JLCFG = jconfig.ViTConfig(name="train_ops_l", img_size=32, patch_size=8,
+                          embed_dim=1024, depth=1, num_heads=16,
+                          num_classes=9, mlp_ratio=4.0)
+
+
+def test_fused_layer_trainable_chunked_matches_jax_value_and_grad():
+    """Autograd through the trainable layer at a width that picks the
+    light/wgrad pair itself, against JAX's, B = 2, in fp32. (In bf16 at this
+    width the two packages' fp32 sums of 1024 and 4096 terms, taken in
+    other orders, flip bf16 roundings that compound through the layer: dx
+    77% bit-identical, gradients up to 3.5e-3 of scale, the same for the
+    mono and the chunked route, which are bit-identical on the CPU; the
+    chunked bf16 route is held to JAX's at D = 64 above.)"""
+    assert fused_block._pick_mlp_chunks(1024, 4096, 4) == 2
+    assert jfused._pick_mlp_chunks(1024, 4096, 4) == 2
+    named = jfixtures.random_params(JLCFG, seed=11, scale=0.02)
+    stacked = jvit.stack_params(named, JLCFG, param_dtype=jnp.float32)
+    jlp = {k: jnp.asarray(v[0]) for k, v in stacked["layers"].items()}
+    tlp = {k: torch.from_numpy(np.array(v)) for k, v in jlp.items()}
+    tx, jx = _pair(_rand((2, T, 1024), 51, std=0.5), torch.float32,
+                   jnp.float32)
+
+    def jloss(x, lp):
+        out = jfused.fused_encoder_layer_trainable(x, lp, JLCFG)
+        return jnp.sum(out.astype(jnp.float32) ** 2)
+
+    jv, (jgx, jglp) = jax.value_and_grad(jloss, argnums=(0, 1))(jx, jlp)
+    tx.requires_grad_(True)
+    for v in tlp.values():
+        v.requires_grad_(True)
+    out = fused_block.fused_encoder_layer_trainable(tx, tlp, LCFG)
+    tv = torch.sum(out.float() ** 2)
+    tv.backward()
+    np.testing.assert_allclose(float(tv.detach()), float(jv), rtol=F32_REL)
+    _close(tx.grad, jgx, F32_REL, what="dx")
+    _grads_close({k: v.grad for k, v in tlp.items()}, jglp, F32_REL)
 
 
 # -- the inference wrappers under autograd ----------------------------------

@@ -18,8 +18,9 @@ route); those raise ``NotImplementedError``.
 
 The backward, ``packed_attention_bwd``, replaces ``_packed_bwd_kernel``
 with the two kernels of ``csrc/attention_bwd.cu`` (plain version
-``packed_attention_bwd_reference``); ``packed_fused_attention_trainable``
-is the differentiable form that training's ``flash`` route uses. The
+``packed_attention_bwd_reference``), which stream their tiles and so take
+any T; ``packed_fused_attention_trainable`` is the differentiable form that
+training's ``flash`` route uses. The
 forward wrapper refuses to run under autograd on the card (its result would
 carry no graph); the trainable form is the way to train through it.
 """
@@ -172,19 +173,21 @@ def packed_attention_bwd_reference(qkv: torch.Tensor, do: torch.Tensor,
         out_dtype or qkv.dtype)
 
 
-def kernel_bwd_smem_bytes(seq_len: int, head_dim: int) -> int:
-    """Shared memory of the larger of the backward's two kernels (the dK/dV
-    one): q scaled and transposed, dO and dOᵀ, and the rows' statistics."""
-    tp = -(-seq_len // 16) * 16
+def kernel_bwd_smem_bytes(head_dim: int) -> int:
+    """Shared memory of one block of the larger of the backward's two
+    kernels (the dK/dV one): a ring of two stages, each a 64-query tile of q
+    and of dO (head dim padded to 16, rows to pitch + 8) and the tile's rows'
+    statistics. It does not depend on T: the kernels stream their tiles."""
     hdp = -(-head_dim // 16) * 16
-    return (2 * tp * (hdp + 8) + 2 * hdp * (tp + 8)) * 2 + tp * 3 * 4
+    return 2 * (2 * 64 * (hdp + 8) * 2 + 64 * 3 * 4)
 
 
 def packed_attention_bwd(qkv: torch.Tensor, do: torch.Tensor, num_heads: int,
                          head_dim: int, *,
                          out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """Fused backward: (qkv [B, T, 3D], dO [B, T, D]) → dqkv [B, T, 3D] in
-    ``out_dtype`` (default qkv's; the kernels write bf16 or fp32)."""
+    ``out_dtype`` (default qkv's; the kernels write bf16 or fp32), at any T
+    (as the JAX function: the kernels stream q, k, v and dO tiles)."""
     global LAUNCHES_BWD
     b, t, three_d = qkv.shape
     d = num_heads * head_dim
@@ -205,11 +208,6 @@ def packed_attention_bwd(qkv: torch.Tensor, do: torch.Tensor, num_heads: int,
     if head_dim % 8 or head_dim > 128:
         raise NotImplementedError(
             f"head_dim {head_dim}: the kernel takes multiples of 8 up to 128")
-    if kernel_bwd_smem_bytes(t, head_dim) > MAX_SMEM_BYTES:
-        raise NotImplementedError(
-            f"T={t}: q, dO and their transposes of one head exceed one "
-            "block's shared memory; the blockwise backward "
-            "(_flash_bwd_dq_kernel, _flash_bwd_dkv_kernel) is not ported yet")
     _build.require(qkv, "qkv", device=qkv.device, dtypes=(torch.bfloat16,))
     _build.require(do, "do", device=qkv.device, dtypes=(torch.bfloat16,))
     out = torch.empty((b, t, 3 * d), dtype=out_dtype, device=qkv.device)

@@ -66,7 +66,19 @@ a chain of the kernels above and of the backward's own (the GEMM forms of
     recompute (fp32 hid_pre and bf16 GELU'd hidden) → dfc2_w, dfc2_b →
     fc2's dgrad times the GELU gradient (fp32 dhid_pre and its bf16) →
     dfc1_w, dfc1_b → fc1's dgrad → LN2 backward with dOut added: fp32 dx2
-    (10 launches with the column sums);
+    (11 launches with the column sums);
+  or, past ``MLP_BWD_RESIDENT_BUDGET`` (ViT-L/H widths), the same split at
+  the GELU as the JAX package's pair:
+  ``fused_bwd_stage_mlp_light`` (``_mlp_light_bwd_kernel``): the mono
+    stage without its two weight gradients, returning the bf16 GELU'd
+    hidden and dhid_pre streams it made (9 launches);
+  ``fused_bwd_stage_mlp_wgrad`` (``_mlp_wgrad_kernel``): LN2 recomputed
+    from x2 → dfc1_w = h2cᵀ · dhpc and dfc2_w = hidcᵀ · dOut over all B·T
+    tokens (3 launches). The TPU kernel chunks H so that its fp32
+    accumulators fit VMEM; a GEMM block here keeps its output tile's fp32
+    accumulator in registers whatever H is, so each gradient is one launch
+    over the whole H, and ``mlp_chunks`` is validated as in JAX but does
+    not change the result;
   ``fused_bwd_stage_attn`` (``_attn_bwd_kernel``): the attention half
     recomputed (3 launches) → dout_w, dout_b → out-proj dgrad (bf16 dctx)
     → attention backward (fp32 dqkv) → dqkv_b, dqkv_w (from dqkv rounded
@@ -77,9 +89,11 @@ They keep the TPU kernels' rounding points: fp32 LN statistics, the
 activation dtype for h1c, qkvc, ctx, h2c, hidc, dmc, dac, dctx, dhpc and
 dqkv_c, fp32 for x2, dx2, hid_pre, dhid_pre and the dqkv that the bias sum
 reads, every gradient accumulated in fp32 and cast to its leaf's dtype at
-the end. The TPU split the backward in three to fit VMEM; here the split
-costs nothing more than the attention half's recompute, which stage 3 does
-again as the TPU kernel does.
+the end. The TPU split the backward in three (four with the chunked MLP
+pair) to fit VMEM; here the split costs nothing more than the attention
+half's recompute, which stage 3 does again as the TPU kernel does, and, in
+the chunked pair, LN2 again and a [B, T, H] round trip of the two bf16
+streams.
 """
 
 from __future__ import annotations
@@ -97,6 +111,8 @@ from . import _build, attention, layernorm, linear, quantize
 # three backward stages and the whole backward:
 LAUNCHES_BWD_X2 = 0
 LAUNCHES_BWD_MLP = 0
+LAUNCHES_BWD_MLP_LIGHT = 0
+LAUNCHES_BWD_MLP_WGRAD = 0
 LAUNCHES_BWD_ATTN = 0
 LAUNCHES_BWD = 0
 # Per layer, for the bf16, weight-only int8, W8A8 and outlier-aware W8A8
@@ -512,20 +528,55 @@ def _stage_x2(x, lp, config: ViTConfig, k: _Links) -> torch.Tensor:
                 out_dtype=torch.float32)
 
 
-def _stage_mlp(x2, dout, lp, config: ViTConfig, k: _Links):
+def _h2c(x2, lp, config: ViTConfig, k: _Links, cdt):
+    return k.ln(x2, lp["ln2_w"], lp["ln2_b"], config.eps, out_dtype=cdt)
+
+
+def _mlp_light(x2, dout, lp, config: ViTConfig, k: _Links):
+    """The MLP backward but its two weight gradients: (h2c, fp32 dx2, the
+    bf16 streams hidc and dhpc, the four small gradients)."""
     cdt, f32 = dout.dtype, torch.float32
     fc1_w, fc2_w = lp["fc1_w"].to(cdt), lp["fc2_w"].to(cdt)
-    h2c = k.ln(x2, lp["ln2_w"], lp["ln2_b"], config.eps, out_dtype=cdt)
+    h2c = _h2c(x2, lp, config, k, cdt)
     hid_pre, hidc = k.mm_gelu(h2c, fc1_w, lp["fc1_b"], out2_dtype=cdt)
-    g = {"fc2_w": k.wgrad(hidc, dout), "fc2_b": k.csum(dout)}
+    g = {"fc2_b": k.csum(dout)}
     dhid_pre, dhpc = k.dgrad(dout, fc2_w, gelu_grad_of=hid_pre, out_dtype=f32,
                              out2_dtype=cdt)
-    g["fc1_w"] = k.wgrad(h2c, dhpc)
     g["fc1_b"] = k.csum(dhid_pre)
     dh2 = k.dgrad(dhpc, fc1_w, out_dtype=f32)
     dx2, g["ln2_w"], g["ln2_b"] = k.ln_bwd(x2, dh2, lp["ln2_w"], config.eps,
                                            residual=dout, out_dtype=f32)
+    return h2c, dx2, hidc, dhpc, g
+
+
+def _mlp_wgrad(h2c, dout, hidc, dhpc, k: _Links):
+    """(dfc1_w, dfc2_w) in fp32, each one GEMM over every token."""
+    return k.wgrad(h2c, dhpc), k.wgrad(hidc, dout)
+
+
+def _stage_mlp(x2, dout, lp, config: ViTConfig, k: _Links):
+    h2c, dx2, hidc, dhpc, g = _mlp_light(x2, dout, lp, config, k)
+    g["fc1_w"], g["fc2_w"] = _mlp_wgrad(h2c, dout, hidc, dhpc, k)
     return dx2, {key: g[key][None] for key in _MLP_KEYS}
+
+
+_SMALL_KEYS = ("ln2_w", "ln2_b", "fc1_b", "fc2_b")
+
+
+def _stage_mlp_light(x2, dout, lp, config: ViTConfig, k: _Links):
+    _, dx2, hidc, dhpc, g = _mlp_light(x2, dout, lp, config, k)
+    return dx2, hidc, dhpc, {key: g[key][None] for key in _SMALL_KEYS}
+
+
+def _stage_mlp_wgrad(x2, dout, hid_s, dhp_s, lp, config: ViTConfig, k: _Links,
+                     mlp_chunks: int):
+    hdim = config.hidden_dim
+    if mlp_chunks < 1 or hdim % mlp_chunks:
+        raise ValueError(
+            f"mlp_chunks={mlp_chunks} must divide hidden_dim={hdim}")
+    h2c = _h2c(x2, lp, config, k, dout.dtype)
+    dfc1_w, dfc2_w = _mlp_wgrad(h2c, dout, hid_s, dhp_s, k)
+    return dfc1_w[None], dfc2_w[None]
 
 
 def _stage_attn(x, dx2, lp, config: ViTConfig, k: _Links):
@@ -580,6 +631,52 @@ def fused_bwd_stage_mlp_mono_reference(x2: torch.Tensor, dout: torch.Tensor,
     return _stage_mlp(x2, dout, lp, config, _PLAIN)
 
 
+def fused_bwd_stage_mlp_light(x2: torch.Tensor, dout: torch.Tensor, lp,
+                              config: ViTConfig):
+    """Backward stage 2a of the chunked route (``_mlp_light_bwd_kernel``,
+    ViT-L/H widths): the MLP backward but its two weight gradients. (fp32
+    x2, dOut) → (fp32 dx2, hid_s and dhp_s: the GELU'd hidden and dhid_pre
+    [B, T, H] in dOut's dtype, {ln2_w, ln2_b, fc1_b, fc2_b} with a leading
+    [1] axis, fp32)."""
+    global LAUNCHES_BWD_MLP_LIGHT
+    out = _stage_mlp_light(x2, dout, lp, config, _KERNELS)
+    if x2.is_cuda:
+        LAUNCHES_BWD_MLP_LIGHT += 1
+    return out
+
+
+def fused_bwd_stage_mlp_light_reference(x2: torch.Tensor, dout: torch.Tensor,
+                                        lp, config: ViTConfig):
+    """Stage 2a computed by each link's plain version, on any device."""
+    return _stage_mlp_light(x2, dout, lp, config, _PLAIN)
+
+
+def fused_bwd_stage_mlp_wgrad(x2: torch.Tensor, dout: torch.Tensor,
+                              hid_s: torch.Tensor, dhp_s: torch.Tensor, lp,
+                              config: ViTConfig, *, mlp_chunks: int = 2):
+    """Backward stage 2b of the chunked route (``_mlp_wgrad_kernel``): LN2
+    recomputed from x2, then (dfc1_w [1, D, H], dfc2_w [1, H, D]) in fp32
+    from the streams of stage 2a. ``mlp_chunks`` must divide H
+    (``ValueError`` otherwise, as in JAX); the result does not depend on
+    it: each gradient is one GEMM over the whole H."""
+    global LAUNCHES_BWD_MLP_WGRAD
+    out = _stage_mlp_wgrad(x2, dout, hid_s, dhp_s, lp, config, _KERNELS,
+                           mlp_chunks)
+    if x2.is_cuda:
+        LAUNCHES_BWD_MLP_WGRAD += 1
+    return out
+
+
+def fused_bwd_stage_mlp_wgrad_reference(x2: torch.Tensor, dout: torch.Tensor,
+                                        hid_s: torch.Tensor,
+                                        dhp_s: torch.Tensor, lp,
+                                        config: ViTConfig, *,
+                                        mlp_chunks: int = 2):
+    """Stage 2b computed by each link's plain version, on any device."""
+    return _stage_mlp_wgrad(x2, dout, hid_s, dhp_s, lp, config, _PLAIN,
+                            mlp_chunks)
+
+
 def fused_bwd_stage_attn(x: torch.Tensor, dx2: torch.Tensor, lp,
                          config: ViTConfig):
     """Backward stage 3 (``_attn_bwd_kernel``): (x, fp32 dx2) → (dx in x's
@@ -606,18 +703,18 @@ def grads_to_leaf_dtypes(lp, grads) -> dict:
 
 
 def _layer_bwd(x, lp, dout, config: ViTConfig, mlp_chunks, stages):
-    x2_fn, mlp_fn, attn_fn = stages
+    x2_fn, mono_fn, light_fn, wgrad_fn, attn_fn = stages
     if mlp_chunks is None:
         mlp_chunks = _pick_mlp_chunks(config.embed_dim, config.hidden_dim,
                                       x.element_size())
-    if mlp_chunks != 1:
-        raise NotImplementedError(
-            f"mlp_chunks={mlp_chunks}: the H-chunked MLP backward "
-            "(_mlp_light_bwd_kernel, _mlp_wgrad_kernel: ViT-L/H widths) is "
-            "not ported yet")
     dout = dout.contiguous()
     x2 = x2_fn(x, lp, config)
-    dx2, mlp_grads = mlp_fn(x2, dout, lp, config)
+    if mlp_chunks == 1:
+        dx2, mlp_grads = mono_fn(x2, dout, lp, config)
+    else:
+        dx2, hid_s, dhp_s, mlp_grads = light_fn(x2, dout, lp, config)
+        mlp_grads["fc1_w"], mlp_grads["fc2_w"] = wgrad_fn(
+            x2, dout, hid_s, dhp_s, lp, config, mlp_chunks=mlp_chunks)
     dx, attn_grads = attn_fn(x, dx2, lp, config)
     dlp = grads_to_leaf_dtypes(lp, mlp_grads)
     dlp.update(grads_to_leaf_dtypes(lp, attn_grads))
@@ -628,11 +725,14 @@ def fused_encoder_layer_bwd(x: torch.Tensor, lp, dout: torch.Tensor,
                             config: ViTConfig, *, mlp_chunks=None):
     """The fused backward: (x [B, T, D], one layer's params, dOut [B, T, D])
     → (dx in x's dtype, {leaf: gradient in the leaf's dtype}). Three stages
-    (x2, MLP, attention); ``mlp_chunks`` > 1 (the JAX package's route past
-    ``MLP_BWD_RESIDENT_BUDGET``, ViT-L/H) raises ``NotImplementedError``."""
+    (x2, MLP, attention); the MLP stage is the mono one for ``mlp_chunks``
+    = 1, else the light → wgrad pair (the JAX package's route past
+    ``MLP_BWD_RESIDENT_BUDGET``, ViT-L/H). ``None`` picks as JAX does
+    (``_pick_mlp_chunks``)."""
     global LAUNCHES_BWD
     out = _layer_bwd(x, lp, dout, config, mlp_chunks,
                      (fused_bwd_stage_x2, fused_bwd_stage_mlp_mono,
+                      fused_bwd_stage_mlp_light, fused_bwd_stage_mlp_wgrad,
                       fused_bwd_stage_attn))
     if x.is_cuda:
         LAUNCHES_BWD += 1
@@ -645,6 +745,8 @@ def fused_encoder_layer_bwd_reference(x: torch.Tensor, lp, dout: torch.Tensor,
     return _layer_bwd(x, lp, dout, config, mlp_chunks,
                       (fused_bwd_stage_x2_reference,
                        fused_bwd_stage_mlp_mono_reference,
+                       fused_bwd_stage_mlp_light_reference,
+                       fused_bwd_stage_mlp_wgrad_reference,
                        fused_bwd_stage_attn_reference))
 
 

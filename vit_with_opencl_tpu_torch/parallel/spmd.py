@@ -10,8 +10,9 @@ JAX package's:
     forward, ``packed_attention_bwd`` backward);
   * ``fused`` — ``flash``, and every encoder layer through
     ``ops/fused_block.fused_encoder_layer_trainable`` (the forward chain and
-    the three-stage fused backward) where ``fused_block.supports_trainable``
-    holds for the compute dtype (ViT-B does).
+    the three-stage fused backward, its MLP stage split in the H-chunked
+    pair at ViT-L/H widths) where ``fused_block.supports_trainable`` holds
+    for the compute dtype (ViT-B, ViT-L/16@384 and ViT-H/14 do).
 
 fp32 master weights stay fp32: the per-op route multiplies bf16 activations
 by them in fp32, and the fused chain casts its four matmul weights to the
