@@ -119,6 +119,27 @@ line.
 4c. ViT-L/16@384 training throughput at batch 32: ms per AdamW step, img/s
    and peak memory of ``fused`` and ``flash``, and the split of a ``fused``
    step (forward chain, stage x2, light, wgrad, attention, AdamW, the rest).
+2g. The blockwise attention kernels (the JAX package's route for padded T >
+   1024) against their plain versions: the forward without and with the
+   LSE and the backward (dq and dK/dV kernels) at ViT-L/16@512's T = 1025
+   (16 heads of 64; B = 4 and 16), ViT-H/14@518's T = 1370 (hd 80) and an
+   odd tail (T = 1337); yardsticks SDPA's forward and its backward alone;
+   and at ViT-L/16@512, B = 16, the streamed packed backward that the
+   ``fused`` route's attention stage takes there.
+3e. The ViT-L/16@512 inference main path: ``InferenceEngine(vit_l_16_512,
+   attention_impl="flash")`` in bf16 at batch 16, full depth and widths,
+   on ``random_params`` seed 0 and 32 decisive images: 24 blockwise
+   forwards and no packed one per forward, probabilities within 1e-3 of the
+   port's plain fp32 path, and the comparator on the result files.
+5c. The ViT-L/16@512 training main path: ``Trainer`` (bf16, AdamW) on
+   ``flash`` and ``fused``, 8 steps at batch 8 on a memorised batch: the
+   loss falls, and the launch counts (``flash``: the blockwise forward with
+   its LSE and the blockwise backward, 24 a step; ``fused``: the blockwise
+   forward 72 a step); one step of each route from phase 3e's random
+   params against the plain links at batch 4.
+4d. ViT-L/16@512 training throughput at batch 16: ms per AdamW step, img/s
+   and peak memory of ``fused`` and ``flash``, and the split of a ``fused``
+   step.
 
 Counts are set to 0 just before each main-path run and read just after.
 The line before the last is the kernels' JSON record; the last line is
@@ -290,6 +311,38 @@ LARGE_PER_LAYER = dict(TRAIN_PER_LAYER["fused"], fused_bwd_mlp=0,
 # 197, bf16 dqkv: ms at B = 16, 64.
 RESIDENT_ATTN_BWD_MS = {16: 0.2396, 64: 1.0585}
 
+# Phases 2g, 3e, 5c and 4d: ViT-L/16@512, torchvision's vit_l_16 at the
+# resolution of its SWAG E2E weights (no preset: the JAX package's geometry
+# of VIT_L_16_384 at img_size 512). 32^2 + 1 = 1025 tokens pad past
+# SINGLE_PASS_MAX_T, so attention takes the blockwise kernels.
+LONG_CFG = dataclasses.replace(VIT_L_16_384, name="vit_l_16_512", img_size=512)
+LONG_BATCH = 16  # phases 3e and 4d
+LONG_IMAGES = 32  # phase 3e
+# Its pool of seeded images: 120 of the first 128 were decisive on an H100
+# 80GB HBM3, so half as many again as it needs leaves a margin.
+LONG_POOL = 48
+LONG_TRAIN_BATCH = 8  # phase 5c
+# Phase 5c's step against the plain links, whose attention holds [B, H, T,
+# T] fp32 scores.
+LONG_STEP_BATCH = 4
+# Phase 2g's rows: (config or its name, T, heads, head dim, batch). ViT-H/14
+# at 518 (its SWAG E2E resolution: 37^2 + 1 tokens) and JAX's own odd tail
+# (tests/test_kernels.py: SINGLE_PASS_MAX_T + 313) as kernel rows only.
+FLASH_ROWS = ((LONG_CFG.name, 1025, 16, 64, 4), (LONG_CFG.name, 1025, 16, 64, 16),
+              ("vit_h_14_518", 1370, 16, 80, 4), ("odd tail", 1337, 16, 64, 4))
+LSE_TOL = (1e-5, 0.0)  # fp32 on both sides: m + log(l) in another order
+# A forward of the per-layer chain at T = 1025: the blockwise forward is its
+# attention link, the packed kernel never runs.
+LONG_PER_LAYER = {"layernorm": 2, "linear": 4, "attention_flash": 1,
+                  "fused_block": 1}
+# A training step at T = 1025, per layer: `fused` as ViT-L/16@384's with the
+# blockwise forward for the packed one (the chain and the two recomputes);
+# `flash` the blockwise forward with its LSE and the blockwise backward.
+LONG_TRAIN_PER_LAYER = {
+    "fused": dict(LARGE_PER_LAYER, attention=0, attention_flash=3),
+    "flash": {"attention_flash_lse": 1, "attention_flash_bwd": 1},
+}
+
 # Published dense peaks (NVIDIA data sheets): tensor-core bf16 FLOP/s,
 # CUDA-core fp32 FLOP/s, tensor-core int8 OP/s, memory bytes/s.
 PEAKS = {
@@ -329,6 +382,9 @@ COUNTERS = {
     "fused_bwd_mlp_wgrad": (fused_block, "LAUNCHES_BWD_MLP_WGRAD"),
     "fused_bwd_attn": (fused_block, "LAUNCHES_BWD_ATTN"),
     "fused_bwd": (fused_block, "LAUNCHES_BWD"),
+    "attention_flash": (attention, "LAUNCHES_FLASH"),
+    "attention_flash_lse": (attention, "LAUNCHES_FLASH_LSE"),
+    "attention_flash_bwd": (attention, "LAUNCHES_FLASH_BWD"),
 }
 _QUANTIZED_LAYER = "vit_with_opencl_tpu/ops/fused_block.py:198"
 REPLACES = {
@@ -363,6 +419,11 @@ REPLACES = {
     "linear_gelu_pair": "vit_with_opencl_tpu/ops/fused_block.py:762",
     "layernorm_bwd": "vit_with_opencl_tpu/ops/fused_block.py:762",
     "column_sum": "vit_with_opencl_tpu/ops/fused_block.py:762",
+    # The blockwise route: _flash_kernel, _flash_kernel_lse, and the pair
+    # _flash_bwd_dq_kernel (:586) and _flash_bwd_dkv_kernel (:614).
+    "attention_flash": "vit_with_opencl_tpu/ops/attention.py:85",
+    "attention_flash_lse": "vit_with_opencl_tpu/ops/attention.py:140",
+    "attention_flash_bwd": "vit_with_opencl_tpu/ops/attention.py:586",
 }
 _CSRC = "vit_with_opencl_tpu_torch/csrc/"
 SOURCES = {
@@ -392,6 +453,9 @@ SOURCES = {
     "fused_bwd_mlp_light": "vit_with_opencl_tpu_torch/ops/fused_block.py",
     "fused_bwd_mlp_wgrad": "vit_with_opencl_tpu_torch/ops/fused_block.py",
     "fused_bwd_attn": "vit_with_opencl_tpu_torch/ops/fused_block.py",
+    "attention_flash": _CSRC + "attention_flash.cu",
+    "attention_flash_lse": _CSRC + "attention_flash.cu",
+    "attention_flash_bwd": _CSRC + "attention_flash.cu",
 }
 # The main-path runs: phase name → CLI flags (the outlier runs add
 # --calibrate with their workspace's calibration binary).
@@ -413,6 +477,14 @@ PER_LAYER["w8a8_outlier"] = PER_LAYER["auto_outlier"] = {
     "linear_w8a8_hi": 4, "attention": 1, "fused_block_w8a8_outlier": 1}
 
 failures: list[str] = []
+
+
+T_START = time.perf_counter()
+
+
+def phase(title: str) -> None:
+    """A phase's heading, with the seconds since the script started."""
+    print(f"{title} [{time.perf_counter() - T_START:.1f} s]", flush=True)
 
 
 def check(ok: bool, what: str) -> None:
@@ -1009,6 +1081,11 @@ def run_cases(cases: list[dict], batch: int, name_prefix: str = "") -> list[dict
               f"{same:.2%} bit-identical) "
               f"{row['ms']:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
               f"plain {row['plain_ms']:.4f} ms, library {lib} ms", flush=True)
+        if "kernel_ops" in case:
+            print(f"  B={batch} {row['name']}: {case['ops']['bf16'] / row['ms'] / 1e9:.1f} "
+                  f"TFLOP/s of the function's work, "
+                  f"{case['kernel_ops'] / row['ms'] / 1e9:.1f} TFLOP/s of the kernels' "
+                  f"own (recomputation included)", flush=True)
         if case.get("gate", True):
             check(within and share_ok and mean_err <= max_mean,
                   f"B={batch} {row['name']} within tolerance of its plain version, "
@@ -1288,6 +1365,64 @@ def large_kernel_rows(dev) -> list[dict]:
     return rows
 
 
+def flash_kernel_rows(dev) -> list[dict]:
+    """Phase 2g: the blockwise forward, without and with the LSE, and its
+    backward at FLASH_ROWS' shapes against their plain versions (the
+    backward on the plain forward's out and lse); yardsticks SDPA's forward
+    and its backward alone. Bounds: qkv (and out, lse, dO) read and the
+    outputs written once; 4·T²·hd a head forward, 10·T²·hd backward (the
+    products s, dp, dq, dk and dv, as row 11's). The backward's kernels do
+    14·T²·hd (the dK/dV kernel computes s and dp again); their rate on that
+    work is printed beside the function's."""
+    bf, F = torch.bfloat16, torch.nn.functional
+    rows = []
+    for name, t, nh, hd, batch in FLASH_ROWS:
+        gen = torch.Generator(device=dev).manual_seed(t + batch)
+        d, n = nh * hd, batch * nh
+        qkv = torch.randn((batch, t, 3 * d), generator=gen, device=dev).to(bf)
+        do = (torch.randn((batch, t, d), generator=gen, device=dev) * 0.01).to(bf)
+        out, lse = attention.blockwise_attention_fwd_reference(qkv, nh, hd,
+                                                               return_lse=True)
+        q, k, v = qkv.reshape(batch, t, 3, nh, hd).permute(2, 0, 3, 1, 4)
+        fwd_ops = {"bf16": 4 * n * t * t * hd}
+        cases = [
+            dict(name="blockwise_attention_fwd (bf16)", counter="attention_flash",
+                 tol=BF16_TOL, min_same=MIN_SAME_KERNEL,
+                 kernel=lambda: attention.blockwise_attention_fwd(qkv, nh, hd)[0],
+                 plain=lambda: attention.blockwise_attention_fwd_reference(
+                     qkv, nh, hd)[0],
+                 library=lambda: F.scaled_dot_product_attention(q, k, v),
+                 bytes=batch * t * 4 * d * 2, ops=fwd_ops),
+            dict(name="blockwise_attention_fwd with LSE (bf16 out, fp32 lse)",
+                 counter="attention_flash_lse", tol=[BF16_TOL, LSE_TOL],
+                 min_same=[MIN_SAME_KERNEL, 0.0],
+                 kernel=lambda: attention.blockwise_attention_fwd(
+                     qkv, nh, hd, return_lse=True),
+                 plain=lambda: attention.blockwise_attention_fwd_reference(
+                     qkv, nh, hd, return_lse=True),
+                 library=lambda: F.scaled_dot_product_attention(q, k, v),
+                 bytes=batch * t * 4 * d * 2 + n * t * 4, ops=fwd_ops),
+            _grad_case("blockwise_attention_bwd (bf16 dqkv)", "attention_flash_bwd",
+                       lambda: attention.blockwise_attention_bwd(qkv, out, lse, do,
+                                                                 nh, hd),
+                       lambda: attention.blockwise_attention_bwd_reference(
+                           qkv, out, lse, do, nh, hd),
+                       min_same=MIN_SAME_ATTN_BWD,
+                       library=sdpa_backward(qkv, do, nh, hd),
+                       bytes=batch * t * 8 * d * 2 + n * t * 4,
+                       ops={"bf16": 10 * n * t * t * hd},
+                       kernel_ops=14 * n * t * t * hd),
+        ]
+        if name == LONG_CFG.name and batch == LONG_BATCH:
+            # The `fused` route's attention backward at this T (row 11's
+            # streamed kernels, fp32 dqkv as its attention stage takes it).
+            cases.append(attn_bwd_case(qkv, do, nh, hd, torch.float32))
+        rows += run_cases(cases, batch, f"{name} B={batch} T={t} hd={hd} ")
+        del qkv, do, out, lse, q, k, v, cases
+        torch.cuda.empty_cache()
+    return rows
+
+
 def chunked_mlp_rows(cfg, batch: int, dev, whole_layer: bool) -> list[dict]:
     """The light and wgrad stages at ``cfg``'s width against their plain
     versions (wgrad on the plain light stage's streams); with
@@ -1354,42 +1489,48 @@ def train_batch(n: int, seed: int, cfg=CFG) -> tuple:
     return images, np.full(n, seed % cfg.num_classes)
 
 
-def one_step_vs_plain(route: str, dev, images, labels, host_params: dict,
+def start_params(cfg, seed: int, dev) -> dict:
+    """Stacked fp32 params on the card from ``fixtures.random_params``
+    (non-zero heads, unlike a Trainer's own initialisation)."""
+    return vit.stack_params(fixtures.random_params(cfg, seed=seed), cfg,
+                            param_dtype=torch.float32, device=dev)
+
+
+def one_step_vs_plain(tr: Trainer, route: str, images, labels, start: dict,
                       cfg=CFG) -> None:
-    """One AdamW step of a Trainer from random params (``host_params``, from
-    ``fixtures.random_params``) against the same Trainer with its links
-    swapped for their plain versions."""
+    """One AdamW step of the Trainer ``tr`` (built on ``route``) from
+    ``start`` against the same step with its links swapped for their plain
+    versions. ``tr`` restarts from a copy of ``start`` with a fresh AdamW
+    state and step count before each (one Trainer serves both: building
+    another would only initialise weights that are replaced)."""
     def step():
-        tr = Trainer(cfg, device=dev, lr=TRAIN_LR, optimizer="adamw",
-                     compute_dtype=torch.bfloat16, attention_impl=route,
-                     log_every=0, seed=0)
-        tr.params = vit.stack_params(host_params, cfg, param_dtype=torch.float32,
-                                     device=dev)
+        tr.params = optim.tree_map(torch.clone, start)
         tr.opt_state = tr._init_opt(tr.params)
-        start = {k: v.clone() for k, v in tr.params["layers"].items()}
+        tr.step_idx = 0
         tr.fit(iter([(images, labels)]), steps=1)
         torch.cuda.synchronize()
-        return tr, start
+        return tr.last_loss, tr.params["layers"], tr.opt_state["mu"]["layers"]
 
-    tr, start = step()
+    loss, params, mus = step()
     # Every link of the training routes on its plain version.
     with plain_chain("packed_fused_attention", "packed_attention_bwd",
+                     "blockwise_attention_fwd", "blockwise_attention_bwd",
                      module=attention), \
             plain_chain("fused_encoder_layer", "fused_encoder_layer_bwd"):
-        plain, _ = step()
-    loss_err = abs(tr.last_loss - plain.last_loss) / abs(plain.last_loss)
+        plain_loss, plain_params, plain_mus = step()
+    loss_err = abs(loss - plain_loss) / abs(plain_loss)
     mu_err, sure_err, any_err, mean_err = 0.0, 0.0, 0.0, 0.0
-    for key in start:
-        mu, mu_plain = (t.opt_state["mu"]["layers"][key] for t in (tr, plain))
+    for key in start["layers"]:
+        mu, mu_plain = mus[key], plain_mus[key]
         scale = max(float(mu_plain.abs().max()), 1e-30)
         mu_err = max(mu_err, float((mu - mu_plain).abs().max()) / scale)
-        diff = (tr.params["layers"][key] - plain.params["layers"][key]).abs() / TRAIN_LR
+        diff = (params[key] - plain_params[key]).abs() / TRAIN_LR
         sure = mu_plain.abs() > MU_REL * scale
         sure_err = max(sure_err, float(diff[sure].max()))
         any_err = max(any_err, float(diff.max()))
         mean_err = max(mean_err, float(diff.mean()))
-    print(f"  {cfg.name} {route}: one step vs the plain links: loss {tr.last_loss:.6f} vs "
-          f"{plain.last_loss:.6f} (rel {loss_err:.2e}); layer mu max rel err "
+    print(f"  {cfg.name} {route}: one step vs the plain links: loss {loss:.6f} vs "
+          f"{plain_loss:.6f} (rel {loss_err:.2e}); layer mu max rel err "
           f"{mu_err:.3e}; update difference {sure_err:.3e} lr where |mu| > "
           f"{MU_REL} of its leaf's largest, {any_err:.3f} lr at most, "
           f"{mean_err:.3f} lr on average", flush=True)
@@ -1407,7 +1548,7 @@ def training_main_path(dev, tmp: Path) -> dict:
     counts of those steps, a step against the plain links, save → resume,
     and export → the CLI's labels."""
     images, labels = train_batch(TRAIN_BATCH, seed=3)
-    host_params = fixtures.random_params(CFG, seed=1)
+    start = start_params(CFG, 1, dev)
     counts = {}
     for route in TRAIN_ROUTES:
         logs = []
@@ -1439,27 +1580,24 @@ def training_main_path(dev, tmp: Path) -> dict:
         check(counts[route] == expected,
               f"{route}: launches of {TRAIN_STEPS} steps {counts[route]}, expected "
               f"{expected}")
-        if route != "xla":
-            one_step_vs_plain(route, dev, images, labels, host_params)
         if route == "fused":
             resume_and_export(tr, dev, tmp, images)
+        if route != "xla":
+            one_step_vs_plain(tr, route, images, labels, start)
         del tr
         torch.cuda.empty_cache()
     return counts
 
 
-def large_training_main_path(dev) -> dict:
-    """Phase 5b: ViT-L/16@384 at full depth and widths through Trainer on
-    the fused route: the loss falls over TRAIN_STEPS steps on a memorised
-    batch, the launch counts of those steps (the chunked MLP pair, never the
-    mono stage), and one fused and one flash step against the plain
-    links."""
-    cfg, batch = LARGE_CFG, LARGE_TRAIN_BATCH
-    images, labels = train_batch(batch, seed=3, cfg=cfg)
+def fit_and_count(cfg, route: str, batch: int, per_layer: dict, dev, images,
+                  labels) -> tuple:
+    """TRAIN_STEPS steps of ``Trainer(cfg)`` on ``route`` at ``batch`` on one
+    memorised batch: the loss falls, and the launches of those steps are
+    ``per_layer`` a layer a step. Returns the counts and the Trainer."""
     logs = []
     t0 = time.perf_counter()
     tr = Trainer(cfg, device=dev, lr=TRAIN_LR, optimizer="adamw",
-                 compute_dtype=torch.bfloat16, attention_impl="fused",
+                 compute_dtype=torch.bfloat16, attention_impl=route,
                  log_every=1, log_fn=logs.append, seed=0)
     setup = time.perf_counter() - t0
     batches = data.memory_dataset(images, labels, batch, epochs=None, seed=1)
@@ -1471,24 +1609,63 @@ def large_training_main_path(dev) -> dict:
     elapsed = time.perf_counter() - t0
     counts = read_counts()
     losses = [float(line.split("loss ")[1].split(",")[0]) for line in logs]
-    print(f"  {cfg.name} fused: Trainer set up in {setup:.1f} s; {TRAIN_STEPS} steps "
-          f"at B={batch} in {elapsed:.2f} s; losses "
+    print(f"  {cfg.name} {route}: Trainer set up in {setup:.1f} s; {TRAIN_STEPS} "
+          f"steps at B={batch} in {elapsed:.2f} s; losses "
           f"{' '.join(f'{v:.4f}' for v in losses)}", flush=True)
     check(len(losses) == TRAIN_STEPS and all(np.isfinite(losses))
           and losses[-1] < losses[0],
-          f"{cfg.name} fused: the loss falls over {TRAIN_STEPS} steps "
+          f"{cfg.name} {route}: the loss falls over {TRAIN_STEPS} steps "
           f"({losses[0]:.4f} -> {losses[-1]:.4f})")
-    expected = {key: LARGE_PER_LAYER.get(key, 0) * cfg.depth * TRAIN_STEPS
+    expected = {key: per_layer.get(key, 0) * cfg.depth * TRAIN_STEPS
                 for key in COUNTERS}
     check(counts == expected,
-          f"{cfg.name} fused: launches of {TRAIN_STEPS} steps {counts}, expected "
-          f"{expected} (light and wgrad {cfg.depth} a step, the mono MLP stage "
-          f"{counts['fused_bwd_mlp']})")
+          f"{cfg.name} {route}: launches of {TRAIN_STEPS} steps {counts}, "
+          f"expected {expected}")
+    return counts, tr
+
+
+def large_training_main_path(dev) -> dict:
+    """Phase 5b: ViT-L/16@384 at full depth and widths through Trainer on
+    the fused route: the loss falls over TRAIN_STEPS steps on a memorised
+    batch, the launch counts of those steps (the chunked MLP pair, never the
+    mono stage), and one fused and one flash step against the plain
+    links."""
+    cfg, batch = LARGE_CFG, LARGE_TRAIN_BATCH
+    images, labels = train_batch(batch, seed=3, cfg=cfg)
+    counts, tr = fit_and_count(cfg, "fused", batch, LARGE_PER_LAYER, dev, images,
+                               labels)
+    start = start_params(cfg, 1, dev)
+    one_step_vs_plain(tr, "fused", images, labels, start, cfg)
     del tr
+    tr = Trainer(cfg, device=dev, lr=TRAIN_LR, optimizer="adamw",
+                 compute_dtype=torch.bfloat16, attention_impl="flash",
+                 log_every=0, seed=0)
+    one_step_vs_plain(tr, "flash", images, labels, start, cfg)
+    del tr, start
     torch.cuda.empty_cache()
-    host_params = fixtures.random_params(cfg, seed=1)
-    for route in ("fused", "flash"):
-        one_step_vs_plain(route, dev, images, labels, host_params, cfg)
+    return counts
+
+
+def long_training_main_path(dev, host_params: dict) -> dict:
+    """Phase 5c: ViT-L/16@512 at full depth and widths through Trainer on
+    ``flash`` and ``fused``: the loss falls over TRAIN_STEPS steps at
+    LONG_TRAIN_BATCH on a memorised batch, with each route's launch counts
+    (the blockwise forward with its LSE and the blockwise backward in
+    ``flash``; the blockwise forward in ``fused``'s chain and recomputes);
+    one step of each route from ``host_params`` (phase 3e's random params)
+    against the plain links at LONG_STEP_BATCH. Returns the counts by
+    route."""
+    cfg, batch = LONG_CFG, LONG_TRAIN_BATCH
+    images, labels = train_batch(batch, seed=3, cfg=cfg)
+    start = vit.stack_params(host_params, cfg, param_dtype=torch.float32, device=dev)
+    counts = {}
+    for route in ("flash", "fused"):
+        counts[route], tr = fit_and_count(cfg, route, batch,
+                                          LONG_TRAIN_PER_LAYER[route], dev, images,
+                                          labels)
+        one_step_vs_plain(tr, route, images[:LONG_STEP_BATCH],
+                          labels[:LONG_STEP_BATCH], start, cfg)
+        del tr
         torch.cuda.empty_cache()
     return counts
 
@@ -1549,12 +1726,14 @@ def training_throughput(dev, cfg=CFG, batch: int = TRAIN_THROUGHPUT_BATCH,
     images, labels = train_batch(batch, seed=4, cfg=cfg)
     ti = torch.from_numpy(images).to(dev)
     tl = torch.from_numpy(labels).to(dev)
+    # Initialised once on the host; each route gets its own copy on the card.
+    host = vit.init_params(cfg, seed=0, device="cpu")
     out = {}
     for route in routes:
         init, step = spmd.make_train_step(cfg, device=dev, lr=TRAIN_LR,
                                           compute_dtype=torch.bfloat16,
                                           optimizer="adamw", attention_impl=route)
-        params = vit.init_params(cfg, seed=0, device=dev)
+        params = optim.tree_map(lambda t: t.to(dev), host)
         state = init(params)
         step(params, state, ti, tl)  # warm-up (and a non-zero head)
         torch.cuda.synchronize()
@@ -1646,19 +1825,24 @@ def fp32_logits(params: dict, images: np.ndarray, dev, cfg=CFG) -> torch.Tensor:
     return torch.cat(out)
 
 
-def decisive_images(params: dict, dev, cfg=CFG) -> np.ndarray:
-    """40 seeded images on which the fp32 plain model's top-2 logits are at
-    least MIN_LOGIT_GAP apart, drawn in order from a seeded pool."""
-    pool = fixtures.random_images(cfg, n=4 * N_IMAGES, seed=1)
-    top2 = fp32_logits(params, pool, dev, cfg).topk(2, dim=-1).values
+def decisive_images(params: dict, dev, cfg=CFG, n: int = N_IMAGES,
+                    pool_size: int | None = None) -> tuple:
+    """``n`` seeded images on which the fp32 plain model's top-2 logits are
+    at least MIN_LOGIT_GAP apart, drawn in order from a seeded pool of
+    ``pool_size`` (4n by default), and that model's probabilities on them
+    (the port's plain fp32 path: ``vit.forward`` in fp32)."""
+    pool = fixtures.random_images(cfg, n=pool_size or 4 * n, seed=1)
+    logits = fp32_logits(params, pool, dev, cfg)
+    top2 = logits.topk(2, dim=-1).values
     gaps = (top2[:, 0] - top2[:, 1]).cpu().numpy()
-    keep = np.flatnonzero(gaps >= MIN_LOGIT_GAP)[:N_IMAGES]
+    keep = np.flatnonzero(gaps >= MIN_LOGIT_GAP)[:n]
     print(f"  {cfg.name}: {int((gaps >= MIN_LOGIT_GAP).sum())} of {len(pool)} pool "
           f"images have a top-2 logit gap >= {MIN_LOGIT_GAP} (median gap "
           f"{float(np.median(gaps)):.4f})", flush=True)
-    if len(keep) < N_IMAGES:
+    if len(keep) < n:
         raise RuntimeError(f"only {len(keep)} decisive images in the pool")
-    return pool[keep]
+    probs = torch.softmax(logits[torch.from_numpy(keep).to(logits.device)], dim=-1)
+    return pool[keep], probs.cpu().numpy()
 
 
 @contextlib.contextmanager
@@ -1710,14 +1894,8 @@ def make_workspace(ws: Path, dev, params: dict, cfg=CFG) -> tuple:
     # through the port's plain fp32 path on the card.
     rounded = {k: binfmt.round_6dp(v) for k, v in params.items()}
     with torch.inference_mode():
-        images = decisive_images(rounded, dev, cfg)
+        images, ref_probs = decisive_images(rounded, dev, cfg)
     binfmt.save_image_data(ws / "input.bin", images)
-    ref_engine = InferenceEngine(cfg, rounded, batch_size=SMOKE_BATCH,
-                                 param_dtype=torch.float32,
-                                 compute_dtype=torch.float32,
-                                 attention_impl="xla", device=dev)
-    ref_probs = ref_engine.run(images)
-    del ref_engine
     results.write_results(ws / "answer.txt", ref_probs)
     print(f"  workspace: {cfg.name} weights, {N_IMAGES} images, fp32 answer "
           f"file in {time.perf_counter() - t0:.1f} s", flush=True)
@@ -1773,6 +1951,52 @@ def main_path(ws: Path, dev, rounded, images, ref_probs) -> tuple:
           f"bf16 flash probabilities vs fp32 plain: max abs err {prob_err:.3e} "
           f"(result file {file_err:.3e}), budget {PROB_TOL}")
     return counts, engine
+
+
+def long_inference_main_path(dev, tmp: Path, params: dict) -> dict:
+    """Phase 3e: ``InferenceEngine(LONG_CFG, attention_impl="flash")`` in
+    bf16 at LONG_BATCH, full depth and widths, on ``params``
+    (``random_params`` seed 0) and LONG_IMAGES decisive images: the
+    launches of that run, the probabilities within PROB_TOL of the port's
+    plain fp32 path, and the comparator on the two result files. Returns
+    the counts."""
+    cfg = LONG_CFG
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        images, ref_probs = decisive_images(params, dev, cfg, n=LONG_IMAGES,
+                                            pool_size=LONG_POOL)
+    engine = InferenceEngine(cfg, params, batch_size=LONG_BATCH,
+                             attention_impl="flash", device=dev)
+    print(f"  {cfg.name}: weights, {LONG_IMAGES} decisive images, the fp32 "
+          f"answer and the engine in {time.perf_counter() - t0:.1f} s", flush=True)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    probs = engine.run(images)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    counts = read_counts()
+    forwards = -(-LONG_IMAGES // LONG_BATCH)
+    expected = {key: LONG_PER_LAYER.get(key, 0) * cfg.depth * forwards
+                for key in COUNTERS}
+    check(counts == expected, f"launches of the {cfg.name} flash run ({forwards} "
+                              f"forwards in {elapsed:.2f} s) {counts}, expected {expected}")
+    err = float(np.abs(probs - ref_probs).max())
+    check(err <= PROB_TOL, f"{cfg.name} bf16 flash probabilities vs fp32 plain: "
+                           f"max abs err {err:.3e}, budget {PROB_TOL}")
+    results.write_results(tmp / "long_answer.txt", ref_probs)
+    results.write_results(tmp / "long_result.txt", probs)
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        errors = results.compare_result_files(tmp / "long_result.txt",
+                                              tmp / "long_answer.txt")
+    if out.getvalue().strip():
+        print("  " + out.getvalue().strip().replace("\n", "\n  "))
+    check(errors == 0, f"{cfg.name}: comparator on {LONG_IMAGES} images, "
+                       f"{errors} mismatches")
+    del engine
+    torch.cuda.empty_cache()
+    return counts
 
 
 def int8_main_path(ws: Path, dev, rounded, images, ref_probs) -> tuple:
@@ -1960,9 +2184,8 @@ def main() -> int:
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    t_start = time.perf_counter()
 
-    print("== phase 1: device and build", flush=True)
+    phase("== phase 1: device and build")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True)
     print(smi.stdout.strip().splitlines()[0] if smi.stdout.strip()
@@ -1974,28 +2197,30 @@ def main() -> int:
     print(f"kernels built and loaded in {time.perf_counter() - t0:.1f} s", flush=True)
 
     with torch.inference_mode():
-        print(f"== phase 2: kernels vs plain versions, B={SMOKE_BATCH}", flush=True)
+        phase(f"== phase 2: kernels vs plain versions, B={SMOKE_BATCH}")
         rows = kernel_rows(SMOKE_BATCH, dev)
         fp32_layer_norm_check(dev)
-        print(f"== phase 2b: int8 kernels vs plain versions, B={SMOKE_BATCH}",
-              flush=True)
+        phase(f"== phase 2b: int8 kernels vs plain versions, B={SMOKE_BATCH}")
         int8_rows = int8_kernel_rows(SMOKE_BATCH, dev)
-        print(f"== phase 2d: the whole-encoder stack of ViT-Ti/16 and ViT-S/16 vs "
-              f"plain versions, B={SMOKE_BATCH}", flush=True)
+        phase(f"== phase 2d: the whole-encoder stack of ViT-Ti/16 and ViT-S/16 vs "
+              f"plain versions, B={SMOKE_BATCH}")
         small_rows = {cfg.name: stack_kernel_rows(cfg, SMOKE_BATCH, dev)
                       for cfg in SMALL_CFGS}
     # Outside inference mode: the yardsticks of the backward are autograd.
-    print(f"== phase 2e: training kernels and backward stages vs plain versions, "
-          f"B={SMOKE_BATCH}", flush=True)
+    phase(f"== phase 2e: training kernels and backward stages vs plain versions, "
+          f"B={SMOKE_BATCH}")
     train_rows = train_kernel_rows(SMOKE_BATCH, dev)
-    print("== phase 2f: training kernels at the larger presets' shapes (ViT-L/16@384, "
-          "ViT-H/14, ViT-G/14) vs plain versions", flush=True)
+    phase("== phase 2f: training kernels at the larger presets' shapes (ViT-L/16@384, "
+          "ViT-H/14, ViT-G/14) vs plain versions")
     large_rows = large_kernel_rows(dev)
     torch.cuda.empty_cache()
+    phase("== phase 2g: the blockwise attention kernels at ViT-L/16@512's T = 1025 "
+          "(ViT-H/14@518's 1370, an odd tail) vs plain versions")
+    flash_rows = flash_kernel_rows(dev)
 
     with tempfile.TemporaryDirectory() as tmp:
-        print(f"== phase 2c: outlier-aware W8A8 kernels vs plain versions, "
-              f"B={SMOKE_BATCH}", flush=True)
+        phase(f"== phase 2c: outlier-aware W8A8 kernels vs plain versions, "
+              f"B={SMOKE_BATCH}")
         t0 = time.perf_counter()
         adv_ws = Path(tmp) / "adversarial"
         adv_rounded, adv_images, adv_ref = make_workspace(adv_ws, dev,
@@ -2011,41 +2236,51 @@ def main() -> int:
                                                outlier_engine.params)
 
         ws = Path(tmp) / "random"
-        print("== phase 3: main path (cli, ViT-B/16, bf16, flash)", flush=True)
+        phase("== phase 3: main path (cli, ViT-B/16, bf16, flash)")
         rounded, images, ref_probs = make_workspace(
             ws, dev, fixtures.random_params(CFG, seed=0))
         counts, engine = main_path(ws, dev, rounded, images, ref_probs)
-        print("== phase 3b: int8 main path (cli --quantize int8-w8a8, int8, auto)",
-              flush=True)
+        phase("== phase 3b: int8 main path (cli --quantize int8-w8a8, int8, auto)")
         int8_counts, engines = int8_main_path(ws, dev, rounded, images, ref_probs)
-        print("== phase 3c: calibrated outlier-aware W8A8 main path (cli "
-              "--quantize int8-w8a8|auto --calibrate)", flush=True)
+        phase("== phase 3c: calibrated outlier-aware W8A8 main path (cli "
+              "--quantize int8-w8a8|auto --calibrate)")
         outlier_counts = outlier_main_path(adv_ws, dev, adv_rounded, adv_images,
                                            adv_ref, outlier_engine)
-        print("== phase 3d: the stack's main path (cli --config vit_tiny_16_224|"
-              "vit_s_16_224, no flags, --quantize auto, int8; int8-w8a8 on ViT-S)",
-              flush=True)
+        phase("== phase 3d: the stack's main path (cli --config vit_tiny_16_224|"
+              "vit_s_16_224, no flags, --quantize auto, int8; int8-w8a8 on ViT-S)")
         small = {cfg.name: small_main_path(Path(tmp) / cfg.name, dev, cfg)
                  for cfg in SMALL_CFGS}
-        print(f"== phase 5: training main path (Trainer, ViT-B/16, bf16, AdamW; "
-              f"routes {', '.join(TRAIN_ROUTES)})", flush=True)
+        phase(f"== phase 5: training main path (Trainer, ViT-B/16, bf16, AdamW; "
+              f"routes {', '.join(TRAIN_ROUTES)})")
         train_counts = training_main_path(dev, Path(tmp))
-    print("== phase 5b: training main path (Trainer, ViT-L/16@384, bf16, AdamW, "
-          "fused; a fused and a flash step vs the plain links)", flush=True)
+    phase("== phase 5b: training main path (Trainer, ViT-L/16@384, bf16, AdamW, "
+          "fused; a fused and a flash step vs the plain links)")
     large_counts = large_training_main_path(dev)
+    # Phases 3e and 5c share one draw of ViT-L/16@512's random weights.
+    long_params = fixtures.random_params(LONG_CFG, seed=0)
+    with tempfile.TemporaryDirectory() as tmp:
+        phase(f"== phase 3e: ViT-L/16@512 inference main path (InferenceEngine, bf16, "
+              f"flash, B={LONG_BATCH})")
+        long_counts = long_inference_main_path(dev, Path(tmp), long_params)
+    phase("== phase 5c: ViT-L/16@512 training main path (Trainer, bf16, AdamW; "
+          "flash and fused; a step of each vs the plain links)")
+    long_train_counts = long_training_main_path(dev, long_params)
+    del long_params
 
-    print("== phase 4: throughput", flush=True)
+    phase("== phase 4: throughput")
     with torch.inference_mode():
         throughput({"bf16": engine, **engines, "w8a8_outlier": outlier_engine}, dev)
         for cfg in SMALL_CFGS:
             small_throughput(cfg, small[cfg.name][1], dev)
-    print("== phase 4b: training throughput", flush=True)
+    phase("== phase 4b: training throughput")
     training_throughput(dev)
     print(f"  the training kernels at B={TRAIN_THROUGHPUT_BATCH}:", flush=True)
     train_kernel_rows(TRAIN_THROUGHPUT_BATCH, dev, seed=TRAIN_THROUGHPUT_BATCH)
     torch.cuda.empty_cache()
-    print("== phase 4c: ViT-L/16@384 training throughput", flush=True)
+    phase("== phase 4c: ViT-L/16@384 training throughput")
     training_throughput(dev, LARGE_CFG, LARGE_THROUGHPUT_BATCH, ("fused", "flash"))
+    phase("== phase 4d: ViT-L/16@512 training throughput")
+    training_throughput(dev, LONG_CFG, LONG_BATCH, ("fused", "flash"))
 
     # Each row's launches: from the main-path run that drives its kernel.
     runs = [(counts, r) for r in rows] + [
@@ -2077,6 +2312,16 @@ def main() -> int:
     # presets' rows are printed above).
     runs += [(large_counts, r) for r in large_rows
              if r["name"].startswith(LARGE_CFG.name) and r["counter"] != "fused_bwd"]
+    # Phase 2g's rows at ViT-L/16@512 shapes, from the run that drives each:
+    # the forward from phase 3e's, the forward with the LSE and the blockwise
+    # backward from phase 5c's flash run, the packed backward from its fused
+    # run (the other shapes are printed above).
+    long_runs = {"attention_flash": long_counts,
+                 "attention_flash_lse": long_train_counts["flash"],
+                 "attention_flash_bwd": long_train_counts["flash"],
+                 "attention_bwd": long_train_counts["fused"]}
+    runs += [(long_runs[r["counter"]], r) for r in flash_rows
+             if r["name"].startswith(LONG_CFG.name)]
     record = {"kernels": [
         {"name": r["name"], "route": "cuda", "source": SOURCES[r["counter"]],
          "replaces": r["replaces"] or REPLACES[r["counter"]],
@@ -2084,7 +2329,7 @@ def main() -> int:
          "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
          "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
          "library_ms": r["library_ms"]} for run, r in runs]}
-    print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
+    print(f"total {time.perf_counter() - T_START:.1f} s", flush=True)
     if failures:
         print(f"FAILED: {len(failures)} check(s): {failures}")
         return 1

@@ -668,6 +668,83 @@ def test_column_sum_kernel(dev, rows, cols, dtype):
     assert torch.equal(out, layernorm.column_sum(x))  # no atomics
 
 
+# The blockwise (long-sequence) kernels: the forward's bf16 output as the
+# packed forward's, its LSE to fp32 summation order, the backward's dqkv as
+# the packed backward's.
+LSE_REL = 1e-5
+FLASH_SHAPES = [(2, 1025, 2, 64), (1, 1370, 2, 80), (1, 1337, 1, 64),
+                (1, 300, 1, 128), (2, 37, 2, 16), (1, 200, 1, 104)]
+
+
+@pytest.mark.parametrize("b,t,nh,hd", FLASH_SHAPES)
+@pytest.mark.parametrize("return_lse", [False, True])
+def test_flash_attention_fwd_kernel(dev, b, t, nh, hd, return_lse):
+    """ViT-L/16@512's T = 1025 at hd 64, ViT-H/14@518's T = 1370 at hd 80,
+    JAX's own odd tail (1337), and shorter or wider heads."""
+    qkv = _rand((b, t, 3 * nh * hd), dev, torch.bfloat16)
+    counter = "LAUNCHES_FLASH_LSE" if return_lse else "LAUNCHES_FLASH"
+    before = getattr(attention, counter)
+    out, lse = attention.blockwise_attention_fwd(qkv, nh, hd, return_lse=return_lse)
+    torch.cuda.synchronize()
+    assert getattr(attention, counter) == before + 1
+    ref, ref_lse = attention.blockwise_attention_fwd_reference(
+        qkv, nh, hd, return_lse=return_lse)
+    _close(out, ref)
+    if return_lse:
+        assert lse.shape == (b, nh, t) and lse.dtype == torch.float32
+        _rel_close(lse, ref_lse, LSE_REL)
+    else:
+        assert lse is None
+
+
+@pytest.mark.parametrize("b,t,nh,hd", FLASH_SHAPES)
+def test_flash_attention_bwd_kernel(dev, b, t, nh, hd):
+    qkv = _rand((b, t, 3 * nh * hd), dev, torch.bfloat16)
+    do = _rand((b, t, nh * hd), dev, torch.bfloat16, seed=1)
+    out, lse = attention.blockwise_attention_fwd_reference(qkv, nh, hd,
+                                                           return_lse=True)
+    before = attention.LAUNCHES_FLASH_BWD
+    dqkv = attention.blockwise_attention_bwd(qkv, out, lse, do, nh, hd)
+    torch.cuda.synchronize()
+    assert attention.LAUNCHES_FLASH_BWD == before + 1 and dqkv.dtype == torch.bfloat16
+    ref = attention.blockwise_attention_bwd_reference(qkv, out, lse, do, nh, hd)
+    _close(dqkv, ref, min_same=MIN_SAME_ATTN_BWD,
+           tol=dict(rtol=1.6e-2, atol=1e-2 * float(ref.float().abs().max())))
+    assert torch.equal(dqkv, attention.blockwise_attention_bwd(qkv, out, lse, do,
+                                                               nh, hd))  # no atomics
+
+
+def test_long_sequences_route_to_the_flash_kernels(dev):
+    """Past SINGLE_PASS_MAX_T the packed and the trainable attention launch
+    the blockwise kernels and not the packed ones; fp32 inputs raise, and so
+    does the packed route's shared-memory window (849-1024 tokens at hd 64),
+    where JAX keeps the one-shot route."""
+    qkv = _rand((1, 1025, 3 * 64), dev, torch.bfloat16)
+    counts = lambda: (attention.LAUNCHES, attention.LAUNCHES_BWD,  # noqa: E731
+                      attention.LAUNCHES_FLASH, attention.LAUNCHES_FLASH_LSE,
+                      attention.LAUNCHES_FLASH_BWD)
+    before = counts()
+    with torch.no_grad():
+        attention.packed_fused_attention(qkv, num_heads=1, head_dim=64)
+    assert counts() == (before[0], before[1], before[2] + 1, *before[3:])
+    x = qkv.clone().requires_grad_(True)
+    attention.packed_fused_attention_trainable(x, 1, 64).float().sum().backward()
+    torch.cuda.synchronize()
+    assert counts() == (before[0], before[1], before[2] + 1, before[3] + 1,
+                        before[4] + 1)
+    with pytest.raises(NotImplementedError, match="bf16"):
+        attention.packed_fused_attention(qkv.float(), num_heads=1, head_dim=64)
+    with pytest.raises(NotImplementedError, match="bf16"):
+        attention.blockwise_attention_bwd(qkv.float(), qkv[..., :64].float(),
+                                          torch.zeros((1, 1, 1025), device=dev),
+                                          qkv[..., :64].float(), 1, 64)
+    with pytest.raises(RuntimeError, match="packed_fused_attention_trainable"):
+        attention.packed_fused_attention(x, num_heads=1, head_dim=64)
+    window = _rand((1, 900, 3 * 64), dev, torch.bfloat16)
+    with pytest.raises(NotImplementedError, match="shared memory"):
+        attention.packed_fused_attention(window, num_heads=1, head_dim=64)
+
+
 def _train_layer(cfg, dev, seed=5):
     params = vit.stack_params(fixtures.random_params(cfg, seed=seed), cfg,
                               param_dtype=torch.float32, device=dev)
@@ -794,16 +871,45 @@ def test_inference_wrappers_refuse_autograd_on_card(dev):
         attention.packed_fused_attention(qkv, num_heads=4, head_dim=16)
 
 
+# The step test's configs: (config, batch, {route: {counter: launches of
+# one step}}). At T = 17 both routes run the packed backward once a layer,
+# and `fused` its layer backward too. At T = 1025 (256-pixel images at patch
+# 8) `flash` runs the blockwise forward with its LSE and the blockwise
+# backward a layer, `fused` the blockwise forward three times a layer (the
+# chain and the two recomputes) and the streamed packed backward once.
+STEP_CASES = {
+    "t17": (ViTConfig(name="step", img_size=32, patch_size=8, embed_dim=192,
+                      depth=2, num_heads=3, num_classes=10), 4,
+            {"flash": {"attention.LAUNCHES_BWD": 2, "fused_block.LAUNCHES_BWD": 0},
+             "fused": {"attention.LAUNCHES_BWD": 2, "fused_block.LAUNCHES_BWD": 2}}),
+    "t1025": (ViTConfig(name="long_step", img_size=256, patch_size=8,
+                        embed_dim=128, depth=2, num_heads=2, num_classes=10), 2,
+              {"flash": {"attention.LAUNCHES": 0, "attention.LAUNCHES_BWD": 0,
+                         "attention.LAUNCHES_FLASH": 0,
+                         "attention.LAUNCHES_FLASH_LSE": 2,
+                         "attention.LAUNCHES_FLASH_BWD": 2},
+               "fused": {"attention.LAUNCHES": 0, "attention.LAUNCHES_BWD": 2,
+                         "attention.LAUNCHES_FLASH": 6,
+                         "attention.LAUNCHES_FLASH_LSE": 0,
+                         "attention.LAUNCHES_FLASH_BWD": 0}}),
+}
+
+
+@pytest.mark.parametrize("case", list(STEP_CASES))
 @pytest.mark.parametrize("route", ["flash", "fused"])
-def test_train_step_on_card_matches_plain_links(dev, route, monkeypatch):
-    """One bf16 AdamW step through the kernels against the same step with
-    every link swapped for its plain version."""
+def test_train_step_on_card_matches_plain_links(dev, route, case, monkeypatch):
+    """One bf16 AdamW step through the kernels, with its launch counts,
+    against the same step with every link swapped for its plain version."""
     from vit_with_opencl_tpu_torch.parallel import spmd
 
-    cfg = ViTConfig(name="step", img_size=32, patch_size=8, embed_dim=192,
-                    depth=2, num_heads=3, num_classes=10)
-    images = torch.from_numpy(fixtures.random_images(cfg, n=4, seed=1)).to(dev)
-    labels = torch.arange(4, device=dev)
+    cfg, batch, launches = STEP_CASES[case]
+    images = torch.from_numpy(fixtures.random_images(cfg, n=batch, seed=1)).to(dev)
+    labels = torch.arange(batch, device=dev)
+    modules = {"attention": attention, "fused_block": fused_block}
+
+    def count(key):
+        module, name = key.split(".")
+        return getattr(modules[module], name)
 
     def run():
         params = vit.stack_params(fixtures.random_params(cfg, seed=2), cfg,
@@ -816,12 +922,12 @@ def test_train_step_on_card_matches_plain_links(dev, route, monkeypatch):
         params, state, loss = step(params, state, images, labels)
         return float(loss), state["mu"]
 
-    before = (attention.LAUNCHES_BWD, fused_block.LAUNCHES_BWD)
+    before = {key: count(key) for key in launches[route]}
     loss, mu = run()
     torch.cuda.synchronize()
-    assert attention.LAUNCHES_BWD - before[0] == 2  # one a layer, both routes
-    assert fused_block.LAUNCHES_BWD - before[1] == (2 if route == "fused" else 0)
-    for name in ("packed_fused_attention", "packed_attention_bwd"):
+    assert {key: count(key) - n for key, n in before.items()} == launches[route]
+    for name in ("packed_fused_attention", "packed_attention_bwd",
+                 "blockwise_attention_fwd", "blockwise_attention_bwd"):
         monkeypatch.setattr(attention, name, getattr(attention, name + "_reference"))
     for name in ("fused_encoder_layer", "fused_encoder_layer_bwd"):
         monkeypatch.setattr(fused_block, name, getattr(fused_block, name + "_reference"))

@@ -84,7 +84,9 @@ def _close(got, want, rel, min_same=None, what=""):
 
 
 def _launches():
-    return (attention.LAUNCHES, attention.LAUNCHES_BWD, layernorm.LAUNCHES,
+    return (attention.LAUNCHES, attention.LAUNCHES_BWD, attention.LAUNCHES_FLASH,
+            attention.LAUNCHES_FLASH_LSE, attention.LAUNCHES_FLASH_BWD,
+            layernorm.LAUNCHES,
             layernorm.LAUNCHES_BWD, layernorm.LAUNCHES_COLSUM, linear.LAUNCHES,
             linear.LAUNCHES_DGRAD, linear.LAUNCHES_WGRAD,
             linear.LAUNCHES_GELU_PAIR, fused_block.LAUNCHES,
@@ -194,9 +196,20 @@ def test_kernel_bwd_smem_bytes_fits_every_head_dim():
 
 
 def test_packed_attention_trainable_refuses_long_sequences():
-    qkv = torch.zeros((1, 1025, 48))
-    with pytest.raises(NotImplementedError, match="_flash_bwd_dq_kernel"):
-        attention.packed_fused_attention_trainable(qkv, 1, 16)
+    """Past SINGLE_PASS_MAX_T the trainable attention no longer refuses (the
+    name dates from when it did): it runs the blockwise route, as JAX's,
+    and returns JAX's shapes, the context [B, T, D] in qkv's dtype forward
+    and dqkv [B, T, 3D] backward (the values are held to JAX's in
+    tests/test_torch_long_seq.py)."""
+    a = _rand((1, 1025, 48), 9)
+    tq, jq = _pair(a, torch.float32, jnp.float32)
+    want = jattn.packed_fused_attention_trainable(jq, 1, 16)
+    tq.requires_grad_(True)
+    out = attention.packed_fused_attention_trainable(tq, 1, 16)
+    assert out.shape == want.shape == (1, 1025, 16) and out.dtype == tq.dtype
+    out.float().square().sum().backward()
+    assert tq.grad.shape == tq.shape and torch.isfinite(tq.grad).all()
+    _close(out.detach(), want, F32_REL, what="out")
 
 
 # -- helpers of the fused backward ----------------------------------------

@@ -14,6 +14,10 @@ CPU tensor), and counts its launches.
 |                                      |   chained in ops/fused_block.py      |
 | ops/attention.py:_packed_bwd_kernel  | ops/attention.py,                    |
 |                                      |   csrc/attention_bwd.cu              |
+| ops/attention.py:_flash_kernel,      | ops/attention.py,                    |
+|   _flash_kernel_lse,                 |   csrc/attention_flash.cu (with the  |
+|   _flash_bwd_dq_kernel,              |   tile helpers of                    |
+|   _flash_bwd_dkv_kernel              |   csrc/attention_tiles.cuh)          |
 | ops/fused_block.py:                  | ops/fused_block.py (chains of the    |
 |   _attn_half_fwd_kernel,             |   kernels above and of the backward's|
 |   _mlp_bwd_kernel, _attn_bwd_kernel  |   GEMM forms in csrc/linear.cu, LN   |

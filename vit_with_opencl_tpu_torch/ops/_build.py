@@ -64,6 +64,11 @@ SIGNATURES = {
     # qkv, dout, dqkv, dqkv_dtype, stats, B, T, num_heads, head_dim,
     # q_scale, ds_scale, stream
     "vit_packed_attention_bwd": [_P, _P, _P, _I, _P, _I, _I, _I, _I, _F, _F, _P],
+    # qkv, out, lse (or NULL), B, T, num_heads, head_dim, scale, stream
+    "vit_flash_attention_fwd": [_P, _P, _P, _I, _I, _I, _I, _F, _P],
+    # qkv, out, lse, dout, dqkv, dvec, B, T, num_heads, head_dim, scale,
+    # stream
+    "vit_flash_attention_bwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
     # a, a_trans, b, b_trans, bias, gelu_grad_of, out, out_bf16, out2,
     # out2_gelu, M, N, K, stream
     "vit_gemm_grad": [_P, _I, _P, _I, _P, _P, _P, _I, _P, _I, _I, _I, _I, _P],

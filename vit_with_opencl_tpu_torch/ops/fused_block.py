@@ -47,6 +47,19 @@ directly, with no bf16 rounding first (a rounding there would move int8
 decisions); the qkv product is rounded to the activation dtype after its
 bias, and the attention context is quantized from the activation dtype.
 
+The attention link is ``attention.packed_fused_attention``, which routes
+as JAX's packed attention does: past ``SINGLE_PASS_MAX_T`` (padded T >
+1024, e.g. ViT-L/16@512's 1025 tokens) it runs the blockwise kernel
+(``csrc/attention_flash.cu``), in the forward chain and in the backward's
+two recomputes (``_attn_recompute``), and the plain links take the plain
+blockwise version. JAX's fused layer keeps the whole-row one-shot softmax
+there: the same function with other rounding points (the scale on the fp32
+scores instead of a bf16-scaled q, and p rounded to bf16 against the running
+max of each 128-key tile instead of the row's max). The backward's
+attention stage still takes ``packed_attention_bwd`` (the streamed
+``csrc/attention_bwd.cu``, any T), which recomputes the whole-row softmax
+as JAX's ``_attn_bwd_kernel`` does.
+
 Each function launches the kernels for CUDA tensors; for CPU tensors every
 link computes its plain version, which is its ``*_reference`` on any
 device. On the card the chains refuse to run under autograd (their results
