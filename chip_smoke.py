@@ -140,6 +140,26 @@ line.
 4d. ViT-L/16@512 training throughput at batch 16: ms per AdamW step, img/s
    and peak memory of ``fused`` and ``flash``, and the split of a ``fused``
    step.
+2h. The kernel layer's public ops against their plain versions:
+   ``flash_attention`` (the single-pass kernel) at ViT-B/16's heads (B = 16
+   as split heads and as the permuted views of a packed GEMM output, B =
+   256, fp32 at B = 16), T = 577 (B = 8) and 1024 (B = 4), and at T = 1025
+   (the blockwise kernel on split heads, B = 4); ``packed_fused_attention``
+   at T = 900 and 1024 (16 heads of 64, B = 4: the single-pass kernel on the
+   slabs, where the packed kernel's shared memory ends); and
+   ``residual_layer_norm`` at D = 768, M = 3152 and 50432, bf16 and fp32
+   (``summed`` bit-identical). Yardsticks: SDPA on the same tensors; ``x +
+   r`` then ``F.layer_norm`` (two calls).
+6. The public ops and the perf tools: one ViT-B/16 layer and its head
+   composed of ``ops.layer_norm``, ``fused_linear``, ``flash_attention``,
+   ``residual_layer_norm`` and ``softmax`` at B = 16, and ``flash_attention``
+   at T = 1025 (their launches; the layer against the same composition of
+   the plain versions); ``perf.profile_ops`` at ViT-B/16, bf16, ``flash``,
+   B = 64 (the table, JAX's stage names, one single-pass launch);
+   ``perf.device_kernel_table`` of the phase-3 engine's forward at B = 256
+   and of the ViT-Ti/16 stack's at B = 16 (the table, each chain kernel's
+   traced calls equal to its counter's rise, the card's busy share); and
+   ``perf.throughput_report`` of phase 4's bf16 forward at B = 256 (MFU).
 
 Counts are set to 0 just before each main-path run and read just after.
 The line before the last is the kernels' JSON record; the last line is
@@ -163,7 +183,7 @@ import numpy as np
 import torch
 
 try:
-    from vit_with_opencl_tpu_torch import VIT_B_16_224, cli, data, optim
+    from vit_with_opencl_tpu_torch import VIT_B_16_224, cli, data, ops, optim, perf
     from vit_with_opencl_tpu_torch.config import (VIT_G_14_224, VIT_H_14_224,
                                                   VIT_L_16_384, VIT_S_16_224,
                                                   VIT_TINY_16_224)
@@ -343,6 +363,45 @@ LONG_TRAIN_PER_LAYER = {
     "flash": {"attention_flash_lse": 1, "attention_flash_bwd": 1},
 }
 
+# Phase 2h: the kernel layer's public ops against their plain versions.
+# flash_attention's rows: (name, batch, heads, T, head dim, dtype, as the
+# permuted views of a packed GEMM output): ViT-B/16 at B = 16 (contiguous
+# and as views), B = 256 and fp32 at B = 16; ViT-L/16@384's T = 577 (B = 8);
+# the single-pass route's last T, 1024 (B = 4); ViT-L/16@512's T = 1025, the
+# split-head blockwise route (B = 4).
+PUBLIC_ATTN_ROWS = (
+    ("ViT-B/16", 16, 12, 197, 64, torch.bfloat16, False),
+    ("ViT-B/16", 16, 12, 197, 64, torch.bfloat16, True),
+    ("ViT-B/16", 256, 12, 197, 64, torch.bfloat16, False),
+    ("ViT-B/16", 16, 12, 197, 64, torch.float32, False),
+    ("ViT-L/16@384", 8, 16, 577, 64, torch.bfloat16, False),
+    ("the single-pass route's last T", 4, 16, 1024, 64, torch.bfloat16, False),
+    ("ViT-L/16@512", 4, 16, 1025, 64, torch.bfloat16, False),
+)
+# packed_fused_attention in its 849-1024 window (16 heads of 64, B = 4),
+# which raised on the card before the single-pass kernel took it.
+WINDOW_TS = (900, 1024)
+# residual_layer_norm at ViT-B/16's width, M = 197 x 16 and x 256 tokens.
+RESIDUAL_LN_ROWS = (3152, 50432)
+# fp32 outputs of the single-pass kernel (plain FMA, no TF32): the plain
+# version's library matmuls sum in another order; held to this share of the
+# output's largest magnitude.
+SINGLE_F32_REL = 1e-5
+# Phase 6: the public ops composed into one ViT-B/16 layer and its head at
+# B = 16 (and flash_attention at ViT-L/16@512's T = 1025, B = 4): launches
+# of that run.
+PUBLIC_PATH_COUNTS = {"layernorm": 1, "linear": 5, "attention_single": 1,
+                      "layernorm_residual": 1, "attention_flash_split": 1}
+PROFILE_BATCH = 64
+PROFILE_STAGES = ["patch_embed(+cls+pos)", "layer_norm", "qkv_proj",
+                  "attention_core(packed)", "out_proj", "mlp_fc1_gelu", "mlp_fc2",
+                  "head+softmax"]
+TRACE_ITERS = 3
+# The kernel names (substrings of the demangled names in the trace) of the
+# forward chains, with the counter of each.
+TRACE_KERNELS = {"packed_attention_kernel": "attention",
+                 "linear_bf16_kernel": "linear", "layernorm_kernel<": "layernorm"}
+
 # Published dense peaks (NVIDIA data sheets): tensor-core bf16 FLOP/s,
 # CUDA-core fp32 FLOP/s, tensor-core int8 OP/s, memory bytes/s.
 PEAKS = {
@@ -385,6 +444,9 @@ COUNTERS = {
     "attention_flash": (attention, "LAUNCHES_FLASH"),
     "attention_flash_lse": (attention, "LAUNCHES_FLASH_LSE"),
     "attention_flash_bwd": (attention, "LAUNCHES_FLASH_BWD"),
+    "attention_single": (attention, "LAUNCHES_SINGLE"),
+    "attention_flash_split": (attention, "LAUNCHES_FLASH_SPLIT"),
+    "layernorm_residual": (layernorm, "LAUNCHES_RESIDUAL"),
 }
 _QUANTIZED_LAYER = "vit_with_opencl_tpu/ops/fused_block.py:198"
 REPLACES = {
@@ -424,6 +486,12 @@ REPLACES = {
     "attention_flash": "vit_with_opencl_tpu/ops/attention.py:85",
     "attention_flash_lse": "vit_with_opencl_tpu/ops/attention.py:140",
     "attention_flash_bwd": "vit_with_opencl_tpu/ops/attention.py:586",
+    # The kernel layer's public ops: _single_pass_kernel (flash_attention up
+    # to T = 1024, and the packed route's 849-1024 window), _flash_kernel on
+    # split heads, _ln_residual_kernel.
+    "attention_single": "vit_with_opencl_tpu/ops/attention.py:146",
+    "attention_flash_split": "vit_with_opencl_tpu/ops/attention.py:85",
+    "layernorm_residual": "vit_with_opencl_tpu/ops/layernorm.py:44",
 }
 _CSRC = "vit_with_opencl_tpu_torch/csrc/"
 SOURCES = {
@@ -456,6 +524,9 @@ SOURCES = {
     "attention_flash": _CSRC + "attention_flash.cu",
     "attention_flash_lse": _CSRC + "attention_flash.cu",
     "attention_flash_bwd": _CSRC + "attention_flash.cu",
+    "attention_single": _CSRC + "attention_single.cu",
+    "attention_flash_split": _CSRC + "attention_flash.cu",
+    "layernorm_residual": _CSRC + "layernorm.cu",
 }
 # The main-path runs: phase name → CLI flags (the outlier runs add
 # --calibrate with their workspace's calibration binary).
@@ -1423,6 +1494,95 @@ def flash_kernel_rows(dev) -> list[dict]:
     return rows
 
 
+def heads_cfg(nh: int, hd: int):
+    """A config whose only use is its head dim (flash_attention's scale)."""
+    return dataclasses.replace(CFG, name=f"heads {nh}x{hd}", embed_dim=nh * hd,
+                               num_heads=nh)
+
+
+def public_op_rows(dev) -> list[dict]:
+    """Phase 2h: ``flash_attention`` at PUBLIC_ATTN_ROWS' shapes,
+    ``packed_fused_attention`` in its 849-1024 window and
+    ``residual_layer_norm`` at ViT-B/16's width, against their plain
+    versions. Yardsticks: SDPA on the same [B, H, T, hd] tensors; ``x + r``
+    then ``F.layer_norm`` (two calls). Bounds: q, k, v read and the output
+    written once, 4·T²·hd a head (the function's; the single-pass kernel
+    does 6, recomputing the scores); the LN's inputs read and outputs
+    written once."""
+    F, bf, f32 = torch.nn.functional, torch.bfloat16, torch.float32
+    rows = []
+    for name, batch, nh, t, hd, dtype, as_view in PUBLIC_ATTN_ROWS:
+        gen = torch.Generator(device=dev).manual_seed(t + batch)
+        cfg = heads_cfg(nh, hd)
+        n = batch * nh
+        if as_view:
+            qkv = torch.randn((batch, t, 3 * nh * hd), generator=gen,
+                              device=dev).to(dtype)
+            q, k, v = qkv.reshape(batch, t, 3, nh, hd).permute(2, 0, 3, 1, 4)
+        else:
+            q, k, v = (torch.randn((batch, nh, t, hd), generator=gen,
+                                   device=dev).to(dtype) for _ in range(3))
+        long_route = t > attention.SINGLE_PASS_MAX_T
+        ref = attention.flash_attention_reference(q, k, v, cfg)
+        bf16 = dtype == bf
+        what = ("split-head blockwise" if long_route else "single-pass") + (
+            ", permuted views of the qkv GEMM output" if as_view else "")
+        case = dict(
+            name=f"flash_attention {name} B={batch} T={t} hd={hd} ({what}, "
+                 f"{'bf16' if bf16 else 'fp32'})",
+            counter="attention_flash_split" if long_route else "attention_single",
+            tol=BF16_TOL if bf16 else _scaled_tol(ref, SINGLE_F32_REL),
+            min_same=MIN_SAME_KERNEL if bf16 else 0.0,
+            kernel=lambda q=q, k=k, v=v, cfg=cfg: ops.flash_attention(q, k, v, cfg),
+            plain=lambda q=q, k=k, v=v, cfg=cfg: attention.flash_attention_reference(
+                q, k, v, cfg),
+            library=lambda q=q, k=k, v=v: F.scaled_dot_product_attention(q, k, v),
+            bytes=4 * n * t * hd * q.element_size(),
+            ops={"bf16" if bf16 else "fp32": 4 * n * t * t * hd})
+        rows += run_cases([case], batch)
+        del q, k, v, ref, case
+    for t in WINDOW_TS:
+        batch, nh, hd = 4, 16, 64
+        gen = torch.Generator(device=dev).manual_seed(t)
+        qkv = torch.randn((batch, t, 3 * nh * hd), generator=gen, device=dev).to(bf)
+        q, k, v = qkv.reshape(batch, t, 3, nh, hd).permute(2, 0, 3, 1, 4)
+        rows += run_cases([dict(
+            name=f"packed_fused_attention B={batch} T={t} hd={hd} (the single-pass kernel "
+                 f"on the slabs)", counter="attention_single",
+            tol=BF16_TOL, min_same=MIN_SAME_KERNEL,
+            kernel=lambda qkv=qkv: attention.packed_fused_attention(
+                qkv, num_heads=nh, head_dim=hd),
+            plain=lambda qkv=qkv: attention.packed_fused_attention_reference(
+                qkv, nh, hd),
+            library=lambda q=q, k=k, v=v: F.scaled_dot_product_attention(q, k, v),
+            bytes=4 * batch * nh * t * hd * 2,
+            ops={"bf16": 4 * batch * nh * t * t * hd})], batch)
+    d, eps = CFG.embed_dim, CFG.eps
+    for m in RESIDUAL_LN_ROWS:
+        for dtype in (bf, f32):
+            gen = torch.Generator(device=dev).manual_seed(m)
+            x = (torch.randn((m, d), generator=gen, device=dev) * 0.5).to(dtype)
+            r = torch.randn((m, d), generator=gen, device=dev).to(dtype)
+            w = torch.randn(d, generator=gen, device=dev) * 0.02 + 1.0
+            b = torch.randn(d, generator=gen, device=dev) * 0.02
+            w_lib, b_lib = w.to(dtype), b.to(dtype)
+            bf16 = dtype == bf
+            rows += run_cases([dict(
+                name=f"residual_layer_norm M={m} D={d} ({'bf16' if bf16 else 'fp32'}; "
+                     f"normalized, summed)", counter="layernorm_residual",
+                tol=[BF16_TOL if bf16 else F32_TOL, EXACT],
+                min_same=[MIN_SAME_KERNEL if bf16 else 0.0, 1.0],
+                kernel=lambda x=x, r=r, w=w, b=b: ops.residual_layer_norm(
+                    x, r, w, b, eps),
+                plain=lambda x=x, r=r, w=w, b=b:
+                    layernorm.residual_layer_norm_reference(x, r, w, b, eps),
+                library=lambda x=x, r=r, w=w_lib, b=b_lib: F.layer_norm(
+                    x + r, (d,), w, b, eps),
+                bytes=4 * m * d * x.element_size() + 2 * d * 4,
+                ops={"fp32": 9 * m * d})], m // CFG.num_tokens)
+    return rows
+
+
 def chunked_mlp_rows(cfg, batch: int, dev, whole_layer: bool) -> list[dict]:
     """The light and wgrad stages at ``cfg``'s width against their plain
     versions (wgrad on the plain light stage's streams); with
@@ -2134,7 +2294,10 @@ def log_int8_logit_errors(engines, rounded, images, ref_probs, dev) -> None:
               f"{float((top2[:, 0] - top2[:, 1]).min()):.4f}", flush=True)
 
 
-def throughput(engines: dict, dev) -> None:
+def throughput(engines: dict, dev) -> dict:
+    """The engines' forwards at THROUGHPUT_BATCHES beside their kernels' rows:
+    ms per forward by (mode, batch)."""
+    forward_ms = {}
     for batch in THROUGHPUT_BATCHES:
         gen = torch.Generator(device=dev).manual_seed(batch)
         images = torch.randn((batch, 3, CFG.img_size, CFG.img_size),
@@ -2159,6 +2322,7 @@ def throughput(engines: dict, dev) -> None:
         for mode, engine in engines.items():
             engine.forward(images)  # warm-up
             ms = time_ms(lambda: engine.forward(images), reps=10)
+            forward_ms[mode, batch] = ms
             per_layer = sum(r["ms"] for r in layer_rows[mode])
             bound_layer = sum(r["bound_ms"] for r in layer_rows[mode])
             print(f"throughput {mode} B={batch}: {batch / ms * 1e3:.1f} img/s "
@@ -2175,6 +2339,146 @@ def throughput(engines: dict, dev) -> None:
                                                "bound_by", "max_abs_err", "same")}
                             for r in layer_rows[mode] + [chains[mode]]]}}),
                   flush=True)
+    return forward_ms
+
+
+def public_layer(x, lp, cfg, fns) -> tuple:
+    """One pre-norm encoder layer and the classifier head as a user of the
+    kernel layer composes its public ops (``fns``: the ops or their plain
+    versions): LN1, the qkv GEMM, ``flash_attention`` on the permuted views
+    of its output, the out-proj GEMM, ``residual_layer_norm`` (LN2 and the
+    residual sum), fc1 with GELU, fc2 with the residual, the head GEMM on the
+    CLS row and ``softmax``. Returns (the layer's output, probabilities)."""
+    b, t, d = x.shape
+    nh, hd = cfg.num_heads, cfg.head_dim
+    h1 = fns["layer_norm"](x, lp["ln1_w"], lp["ln1_b"], cfg.eps)
+    qkv = fns["fused_linear"](h1, lp["qkv_w"], lp["qkv_b"])
+    q, k, v = qkv.reshape(b, t, 3, nh, hd).permute(2, 0, 3, 1, 4)
+    ctx = fns["flash_attention"](q, k, v, cfg).permute(0, 2, 1, 3).reshape(b, t, d)
+    a = fns["fused_linear"](ctx, lp["out_w"], lp["out_b"])
+    h2, x1 = fns["residual_layer_norm"](a, x, lp["ln2_w"], lp["ln2_b"], cfg.eps)
+    hid = fns["fused_linear"](h2, lp["fc1_w"], lp["fc1_b"], fuse_gelu=True)
+    y = fns["fused_linear"](hid, lp["fc2_w"], lp["fc2_b"], residual=x1)
+    logits = fns["fused_linear"](y[:, 0].contiguous(), lp["head_w"], lp["head_b"],
+                                 out_dtype=torch.float32)
+    return y, fns["softmax"](logits)
+
+
+PUBLIC_OPS = {"layer_norm": ops.layer_norm, "fused_linear": ops.fused_linear,
+              "flash_attention": ops.flash_attention,
+              "residual_layer_norm": ops.residual_layer_norm, "softmax": ops.softmax}
+PLAIN_OPS = {"layer_norm": layernorm.layer_norm_reference,
+             "fused_linear": linear.fused_linear_reference,
+             "flash_attention": attention.flash_attention_reference,
+             "residual_layer_norm": layernorm.residual_layer_norm_reference,
+             "softmax": ops.softmax}
+
+
+def public_ops_main_path(dev) -> dict:
+    """Phase 6a: the kernel layer's public ops driven as a user calls them,
+    at ViT-B/16's full width (one layer and the head at B = 16, seeded
+    weights) and ``flash_attention`` at ViT-L/16@512's T = 1025 (B = 4):
+    the launches of that run, the layer and its probabilities against the
+    same composition of the plain versions."""
+    gen = torch.Generator(device=dev).manual_seed(6)
+    lp = layer_params(gen, dev)
+    lp["head_w"] = (torch.randn((CFG.embed_dim, CFG.num_classes), generator=gen,
+                                device=dev) * 0.02).to(torch.bfloat16)
+    lp["head_b"] = torch.zeros(CFG.num_classes, device=dev)
+    x = (torch.randn((SMOKE_BATCH, CFG.num_tokens, CFG.embed_dim), generator=gen,
+                     device=dev) * 0.5).to(torch.bfloat16)
+    long_cfg = heads_cfg(LONG_CFG.num_heads, LONG_CFG.head_dim)
+    q, k, v = (torch.randn((4, LONG_CFG.num_heads, LONG_CFG.num_tokens,
+                            LONG_CFG.head_dim), generator=gen, device=dev
+                           ).to(torch.bfloat16) for _ in range(3))
+    reset_counts()
+    y, probs = public_layer(x, lp, CFG, PUBLIC_OPS)
+    long_ctx = ops.flash_attention(q, k, v, long_cfg)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    expected = {key: PUBLIC_PATH_COUNTS.get(key, 0) for key in COUNTERS}
+    check(counts == expected, f"launches of the public ops' run {counts}, "
+                              f"expected {expected}")
+    y_ref, probs_ref = public_layer(x, lp, CFG, PLAIN_OPS)
+    err, within, same, _ = max_err(y, y_ref, BF16_TOL)
+    check(within and same >= MIN_SAME_CHAIN,
+          f"the public ops' ViT-B layer vs the same plain composition: max abs err "
+          f"{err:.3e}, {same:.2%} bit-identical (>= {MIN_SAME_CHAIN})")
+    prob_err = float((probs - probs_ref).abs().max())
+    check(bool(torch.isfinite(probs).all()) and prob_err <= PROB_TOL,
+          f"the public ops' probabilities vs the plain composition's: max abs err "
+          f"{prob_err:.3e}, budget {PROB_TOL}")
+    err, within, same, _ = max_err(
+        long_ctx, attention.flash_attention_reference(q, k, v, long_cfg), BF16_TOL)
+    check(within and same >= MIN_SAME_KERNEL,
+          f"flash_attention at T = {LONG_CFG.num_tokens} vs its plain version: max "
+          f"abs err {err:.3e}, {same:.2%} bit-identical")
+    return counts
+
+
+def profile_main_path(engine, dev) -> dict:
+    """Phase 6b: ``perf.profile_ops`` at ViT-B/16, bf16, ``flash``, B =
+    PROFILE_BATCH on the phase-3 engine's weights: the table, JAX's stage
+    names, and the launches of the run (the generic slot's one
+    ``flash_attention`` call on the permuted qkv views before timing)."""
+    gen = torch.Generator(device=dev).manual_seed(PROFILE_BATCH)
+    images = torch.randn((PROFILE_BATCH, 3, CFG.img_size, CFG.img_size),
+                         generator=gen, device=dev)
+    reset_counts()
+    stages = perf.profile_ops(CFG, engine.params, images,
+                              compute_dtype=torch.bfloat16, attention_impl="flash")
+    torch.cuda.synchronize()
+    counts = read_counts()
+    print("  " + perf.format_profile(stages, PROFILE_BATCH).replace("\n", "\n  "),
+          flush=True)
+    names = [s.name for s in stages]
+    check(names == PROFILE_STAGES, f"profile_ops stages {names}")
+    check(counts["attention_single"] == 1,
+          f"profile_ops: the single-pass kernel launched "
+          f"{counts['attention_single']} time(s), expected 1 (the generic slot)")
+    return counts
+
+
+def traced_forward(name: str, fn, images) -> None:
+    """Phase 6c: ``perf.device_kernel_table`` of ``fn(images)`` (one run
+    outside the trace, TRACE_ITERS traced): the table; each chain kernel's
+    traced calls against its counter's rise over the traced runs; the
+    card's busy share, the table's device total over the CUDA-event time of
+    the same runs."""
+    events = []
+
+    def timed(im):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn(im)
+        end.record()
+        events.append((start, end))
+        return out
+
+    before = read_counts()
+    table = perf.device_kernel_table(timed, (images,), iters=TRACE_ITERS)
+    torch.cuda.synchronize()
+    after = read_counts()
+    print("  " + perf.format_kernel_table(table, iters=TRACE_ITERS).replace(
+        "\n", "\n  "), flush=True)
+    for sub, counter in TRACE_KERNELS.items():
+        calls = sum(s.calls for s in table if sub in s.name)
+        rise = after[counter] - before[counter]  # TRACE_ITERS + 1 runs
+        traced = rise * TRACE_ITERS // (TRACE_ITERS + 1)
+        check(calls == traced and calls > 0,
+              f"{name}: {calls} traced launches of {sub!r}, {traced} by the "
+              f"{counter!r} counter")
+    device_ms = sum(s.total_ms for s in table)
+    window_ms = events[1][0].elapsed_time(events[-1][1])
+    print(f"  {name}: device busy share {device_ms / window_ms:.4f} (kernels "
+          f"{device_ms:.3f} ms of {window_ms:.3f} ms by CUDA events over the "
+          f"{TRACE_ITERS} traced runs)", flush=True)
+    print(json.dumps({"trace": {"name": name, "iters": TRACE_ITERS,
+                                "device_ms": device_ms, "window_ms": window_ms,
+                                "busy_share": device_ms / window_ms,
+                                "kernels": [dataclasses.asdict(s) for s in table]}}),
+          flush=True)
 
 
 def main() -> int:
@@ -2188,8 +2492,9 @@ def main() -> int:
     phase("== phase 1: device and build")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True)
-    print(smi.stdout.strip().splitlines()[0] if smi.stdout.strip()
-          else f"nvidia-smi: {smi.stderr.strip()}", flush=True)
+    smi_line = (smi.stdout.strip().splitlines()[0] if smi.stdout.strip()
+                else f"nvidia-smi: {smi.stderr.strip()}")
+    print(smi_line, flush=True)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}, peaks {peaks()}", flush=True)
     t0 = time.perf_counter()
@@ -2217,6 +2522,13 @@ def main() -> int:
     phase("== phase 2g: the blockwise attention kernels at ViT-L/16@512's T = 1025 "
           "(ViT-H/14@518's 1370, an odd tail) vs plain versions")
     flash_rows = flash_kernel_rows(dev)
+    torch.cuda.empty_cache()
+    with torch.inference_mode():
+        phase("== phase 2h: the kernel layer's public ops (flash_attention, "
+              "residual_layer_norm) and the packed attention's 849-1024 window "
+              "vs plain versions")
+        public_rows = public_op_rows(dev)
+    torch.cuda.empty_cache()
 
     with tempfile.TemporaryDirectory() as tmp:
         phase(f"== phase 2c: outlier-aware W8A8 kernels vs plain versions, "
@@ -2269,7 +2581,8 @@ def main() -> int:
 
     phase("== phase 4: throughput")
     with torch.inference_mode():
-        throughput({"bf16": engine, **engines, "w8a8_outlier": outlier_engine}, dev)
+        forward_ms = throughput({"bf16": engine, **engines,
+                                 "w8a8_outlier": outlier_engine}, dev)
         for cfg in SMALL_CFGS:
             small_throughput(cfg, small[cfg.name][1], dev)
     phase("== phase 4b: training throughput")
@@ -2281,6 +2594,31 @@ def main() -> int:
     training_throughput(dev, LARGE_CFG, LARGE_THROUGHPUT_BATCH, ("fused", "flash"))
     phase("== phase 4d: ViT-L/16@512 training throughput")
     training_throughput(dev, LONG_CFG, LONG_BATCH, ("fused", "flash"))
+    torch.cuda.empty_cache()
+
+    with torch.inference_mode():
+        phase("== phase 6: the kernel layer's public ops and the perf tools "
+              "(profile_ops, device_kernel_table, throughput_report)")
+        public_counts = public_ops_main_path(dev)
+        profile_counts = profile_main_path(engine, dev)
+        big = THROUGHPUT_BATCHES[-1]
+        gen = torch.Generator(device=dev).manual_seed(big)
+        traced_forward(f"{CFG.name} bf16 flash forward B={big}", engine.forward,
+                       torch.randn((big, 3, CFG.img_size, CFG.img_size),
+                                   generator=gen, device=dev))
+        tiny = VIT_TINY_16_224
+        traced_forward(f"{tiny.name} bf16 stack forward B={SMOKE_BATCH}",
+                       small[tiny.name][1]["bf16"].forward,
+                       torch.randn((SMOKE_BATCH, 3, tiny.img_size, tiny.img_size),
+                                   generator=gen, device=dev))
+        report = perf.throughput_report(CFG, big, forward_ms["bf16", big] / 1e3, 1)
+        print(f"  throughput_report {CFG.name} bf16 flash B={big} (phase 4): "
+              f"{report['images_per_sec']:.1f} img/s, "
+              f"{report['achieved_tflops']:.2f} TFLOP/s, MFU {report['mfu']:.4f} "
+              f"of {perf.profiler.PEAK_BF16_TFLOPS['h100']} TFLOP/s "
+              f"(card: {smi_line})", flush=True)
+        print(json.dumps({"throughput_report": dict(report, card=smi_line)}),
+              flush=True)
 
     # Each row's launches: from the main-path run that drives its kernel.
     runs = [(counts, r) for r in rows] + [
@@ -2322,6 +2660,11 @@ def main() -> int:
                  "attention_bwd": long_train_counts["fused"]}
     runs += [(long_runs[r["counter"]], r) for r in flash_rows
              if r["name"].startswith(LONG_CFG.name)]
+    # Phase 2h's rows, from phase 6: the single-pass kernel's from
+    # profile_ops' run, residual_layer_norm's and the split-head blockwise
+    # forward's from the public ops' run.
+    runs += [(profile_counts if r["counter"] == "attention_single" else public_counts, r)
+             for r in public_rows]
     record = {"kernels": [
         {"name": r["name"], "route": "cuda", "source": SOURCES[r["counter"]],
          "replaces": r["replaces"] or REPLACES[r["counter"]],

@@ -716,9 +716,10 @@ def test_flash_attention_bwd_kernel(dev, b, t, nh, hd):
 
 def test_long_sequences_route_to_the_flash_kernels(dev):
     """Past SINGLE_PASS_MAX_T the packed and the trainable attention launch
-    the blockwise kernels and not the packed ones; fp32 inputs raise, and so
-    does the packed route's shared-memory window (849-1024 tokens at hd 64),
-    where JAX keeps the one-shot route."""
+    the blockwise kernels and not the packed ones; fp32 inputs raise. In the
+    packed route's shared-memory window (849-1024 tokens at hd 64), where JAX
+    keeps the one-shot route, the single-pass kernel runs (this test raised
+    there before that kernel existed)."""
     qkv = _rand((1, 1025, 3 * 64), dev, torch.bfloat16)
     counts = lambda: (attention.LAUNCHES, attention.LAUNCHES_BWD,  # noqa: E731
                       attention.LAUNCHES_FLASH, attention.LAUNCHES_FLASH_LSE,
@@ -740,9 +741,136 @@ def test_long_sequences_route_to_the_flash_kernels(dev):
                                           qkv[..., :64].float(), 1, 64)
     with pytest.raises(RuntimeError, match="packed_fused_attention_trainable"):
         attention.packed_fused_attention(x, num_heads=1, head_dim=64)
+    # The packed route's shared-memory window (849-1024 tokens at hd 64) now
+    # runs, through the single-pass kernel.
     window = _rand((1, 900, 3 * 64), dev, torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="shared memory"):
-        attention.packed_fused_attention(window, num_heads=1, head_dim=64)
+    single = attention.LAUNCHES_SINGLE
+    out = attention.packed_fused_attention(window, num_heads=1, head_dim=64)
+    torch.cuda.synchronize()
+    assert attention.LAUNCHES_SINGLE == single + 1
+    _close(out, attention.packed_fused_attention_reference(window, 1, 64))
+
+
+# The single-pass kernel (flash_attention up to T = 1024, and the packed
+# route's 849-1024 window): bf16 outputs as the packed forward's; fp32
+# outputs (plain FMA, no TF32) within 1e-5 of scale of the plain version's
+# library matmuls, another summation order.
+SINGLE_F32_REL = 1e-5
+SINGLE_SHAPES = [(16, 12, 197, 64), (8, 16, 577, 64), (4, 16, 1024, 64),
+                 (2, 3, 37, 16), (1, 2, 200, 104), (1, 2, 130, 128),
+                 (1, 1, 1000, 80)]
+
+
+def _heads_cfg(nh, hd):
+    return ViTConfig(name="heads", img_size=16, patch_size=8, embed_dim=nh * hd,
+                     depth=1, num_heads=nh, num_classes=2)
+
+
+@pytest.mark.parametrize("b,nh,t,hd", SINGLE_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_attention_single_pass_kernel(dev, b, nh, t, hd, dtype):
+    """ViT-B's heads at B = 16, ViT-L/16@384's T = 577, the route's last T
+    (1024), and ragged or wide heads."""
+    cfg = _heads_cfg(nh, hd)
+    q, k, v = (_rand((b, nh, t, hd), dev, dtype, seed=i) for i in range(3))
+    before = attention.LAUNCHES_SINGLE
+    out = attention.flash_attention(q, k, v, cfg)
+    torch.cuda.synchronize()
+    assert attention.LAUNCHES_SINGLE == before + 1 and out.dtype == dtype
+    ref = attention.flash_attention_reference(q, k, v, cfg)
+    if dtype == torch.bfloat16:
+        _close(out, ref)
+    else:
+        _rel_close(out, ref, SINGLE_F32_REL)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_single_pass_kernel_masks_keys_past_kv_len(dev, dtype):
+    q, k, v = (_rand((2, 2, 150, 64), dev, dtype, seed=i) for i in range(3))
+    out = attention.single_pass_attention(q, k, v, 64, kv_len=97)
+    ref = attention.single_pass_attention_reference(q, k, v, 64, kv_len=97)
+    if dtype == torch.bfloat16:
+        _close(out, ref)
+    else:
+        _rel_close(out, ref, SINGLE_F32_REL)
+
+
+def test_flash_attention_on_permuted_views(dev):
+    """``profile_ops``'s q, k and v: views of a [B, T, 3D] GEMM output with
+    row stride 3D, read in place. A view whose rows are not 16-byte aligned
+    raises instead of reading the wrong elements."""
+    b, t, nh, hd = 4, 197, 12, 64
+    cfg = _heads_cfg(nh, hd)
+    qkv = _rand((b, t, 3 * nh * hd), dev, torch.bfloat16)
+    q, k, v = qkv.reshape(b, t, 3, nh, hd).permute(2, 0, 3, 1, 4)
+    out = attention.flash_attention(q, k, v, cfg)
+    ref = attention.flash_attention_reference(q, k, v, cfg)
+    torch.cuda.synchronize()
+    _close(out, ref)
+    assert torch.equal(out, attention.flash_attention(
+        q.contiguous(), k.contiguous(), v.contiguous(), cfg))
+    ragged = _rand((b, nh, t, hd + 4), dev, torch.bfloat16)[..., :hd]
+    with pytest.raises(ValueError, match="16-byte"):
+        attention.flash_attention(ragged, k, v, cfg)
+
+
+@pytest.mark.parametrize("b,nh,t,hd", [(2, 2, 1025, 64), (1, 2, 1370, 80)])
+def test_flash_attention_blockwise_on_split_heads(dev, b, nh, t, hd):
+    """Past T = 1024: row 9's kernel through its strided entry, bit-equal
+    to its slab entry on the same values; a key tile other than 128 and
+    fp32 raise on the card."""
+    cfg = _heads_cfg(nh, hd)
+    q, k, v = (_rand((b, nh, t, hd), dev, torch.bfloat16, seed=i) for i in range(3))
+    before = (attention.LAUNCHES_FLASH_SPLIT, attention.LAUNCHES_SINGLE)
+    out = attention.flash_attention(q, k, v, cfg)
+    torch.cuda.synchronize()
+    assert (attention.LAUNCHES_FLASH_SPLIT, attention.LAUNCHES_SINGLE) == (
+        before[0] + 1, before[1])
+    _close(out, attention.flash_attention_reference(q, k, v, cfg))
+    qkv = torch.stack([q, k, v]).permute(1, 3, 0, 2, 4).reshape(b, t, 3 * nh * hd)
+    slab, _ = attention.blockwise_attention_fwd(qkv.contiguous(), nh, hd)
+    assert torch.equal(out, slab.reshape(b, t, nh, hd).permute(0, 2, 1, 3))
+    with pytest.raises(NotImplementedError, match="block_k"):
+        attention.flash_attention(q, k, v, cfg, block_k=256)
+    with pytest.raises(NotImplementedError, match="bf16"):
+        attention.flash_attention(q.float(), k.float(), v.float(), cfg)
+
+
+@pytest.mark.parametrize("t", [848, 849, 900, 1024])
+def test_packed_attention_window_takes_the_single_pass_kernel(dev, t):
+    """At hd 64 the packed kernel runs up to T = 848; from 849 to 1024 the
+    same function through the single-pass kernel on the slabs."""
+    b, nh, hd = 2, 4, 64
+    qkv = _rand((b, t, 3 * nh * hd), dev, torch.bfloat16)
+    before = (attention.LAUNCHES, attention.LAUNCHES_SINGLE)
+    out = attention.packed_fused_attention(qkv, num_heads=nh, head_dim=hd)
+    torch.cuda.synchronize()
+    window = attention.kernel_smem_bytes(t, hd) > attention.MAX_SMEM_BYTES
+    assert window == (t > 848)
+    assert (attention.LAUNCHES, attention.LAUNCHES_SINGLE) == (
+        before[0] + (not window), before[1] + window)
+    _close(out, attention.packed_fused_attention_reference(qkv, nh, hd))
+
+
+@pytest.mark.parametrize("rows,cols", [(74, 64), (3152, 768), (197, 1000)])
+@pytest.mark.parametrize("x_dtype,r_dtype", [
+    (torch.bfloat16, torch.bfloat16), (torch.float32, torch.float32),
+    (torch.bfloat16, torch.float32), (torch.float32, torch.bfloat16)])
+def test_residual_layer_norm_kernel(dev, rows, cols, x_dtype, r_dtype):
+    """``summed`` is the fp32 sum rounded once: bit-identical; the
+    normalised output as the LN kernel's."""
+    x = _rand((rows, cols), dev, x_dtype, std=2.0)
+    r = _rand((rows, cols), dev, r_dtype, std=2.0, seed=3)
+    w = (_rand((cols,), dev, std=0.1, seed=1) + 1.0).to(x_dtype)
+    b = _rand((cols,), dev, std=0.1, seed=2).to(x_dtype)
+    before = layernorm.LAUNCHES_RESIDUAL
+    out, summed = layernorm.residual_layer_norm(x, r, w, b, 1e-6)
+    torch.cuda.synchronize()
+    assert layernorm.LAUNCHES_RESIDUAL == before + 1
+    assert out.dtype == summed.dtype == x_dtype
+    ref_out, ref_sum = layernorm.residual_layer_norm_reference(x, r, w, b, 1e-6)
+    assert torch.equal(summed, ref_sum)
+    _close(out, ref_out)
 
 
 def _train_layer(cfg, dev, seed=5):
@@ -869,6 +997,14 @@ def test_inference_wrappers_refuse_autograd_on_card(dev):
         fused_block.fused_encoder_layer(xr, lp, cfg)
     with torch.no_grad():
         attention.packed_fused_attention(qkv, num_heads=4, head_dim=16)
+    q = _rand((2, 4, 17, 16), dev, torch.bfloat16).requires_grad_(True)
+    with pytest.raises(RuntimeError, match="packed_fused_attention_trainable"):
+        attention.flash_attention(q, q, q, cfg)
+    with pytest.raises(RuntimeError, match="trainable"):
+        layernorm.residual_layer_norm(x, x, w, lp["ln1_b"])
+    with torch.no_grad():
+        attention.flash_attention(q, q, q, cfg)
+        layernorm.residual_layer_norm(x, x, w, lp["ln1_b"])
 
 
 # The step test's configs: (config, batch, {route: {counter: launches of

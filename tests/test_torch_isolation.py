@@ -31,7 +31,8 @@ def test_importing_every_module_loads_no_jax():
     modules = _port_modules()
     for name in ("ops.fused_block", "ops.quantize", "models.quant", "train",
                  "optim", "data", "parallel.spmd", "io.checkpoint",
-                 "io.export"):
+                 "io.export", "ops.softmax", "perf.profiler",
+                 "perf.kernel_trace"):
         assert f"vit_with_opencl_tpu_torch.{name}" in modules
     code = "\n".join([
         "import importlib, sys",

@@ -9,7 +9,10 @@
 // k and v are the hd columns at h*hd, D + h*hd and 2D + h*hd of [B, T, 3D];
 // the kernels read them there (rows past T as zeros) and write the
 // head-major context [B, T, D] or the dqkv slabs, so no split or padded copy
-// is made. Per head, the numerics of the TPU kernels:
+// is made. The forward also has a strided entry for split heads ([B, H, T,
+// hd] views, flash_attention past T = 1024); the slab entry passes the slabs
+// to it as views, reading and writing the same addresses. Per head, the
+// numerics of the TPU kernels:
 //   forward   s = (q . k^T) * scale, fp32 (scale is fp32, not folded into q);
 //             keys past T masked to MASK_VALUE; over key tiles of 128 in
 //             order: m' = max(m, rowmax(s)), a = exp(m - m'),
@@ -56,15 +59,6 @@ using namespace tiles;
 constexpr int kKeyTile = 128;  // the forward's K/V tile: the running max's step
 constexpr int kTile = 64;      // the backward's streamed tiles
 
-__device__ __forceinline__ void quad_max(float& v) {  // the 4 lanes of a row
-  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
-}
-__device__ __forceinline__ void quad_sum(float& v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  v += __shfl_xor_sync(0xffffffffu, v, 2);
-}
-
 template <int HDP>
 __host__ __device__ constexpr size_t fwd_stage_bytes() {  // a K and a V tile
   return 2 * tile_elems<HDP, kKeyTile>() * sizeof(bf16);
@@ -80,22 +74,24 @@ __host__ __device__ constexpr size_t dkv_stage_bytes() {  // q, dO, lse, dvec
 
 template <int HDP>
 __global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out,
+flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                 const bf16* __restrict__ v, bf16* __restrict__ out, HeadViews views,
                  float* __restrict__ lse, int T, int num_heads, int hd, float scale) {
   const int b = blockIdx.z, h = blockIdx.y;
-  const int D = num_heads * hd, pitch = 3 * D;
   const int Tp = (T + 15) & ~15;
   extern __shared__ __align__(16) unsigned char smem[];
-  const bf16* img = qkv + static_cast<size_t>(b) * T * pitch;
+  const bf16* qb = head_base(q, views.q, b, h);
+  const bf16* kb = head_base(k, views.k, b, h);
+  const bf16* vb = head_base(v, views.v, b, h);
   const int ntiles = (T + kKeyTile - 1) / kKeyTile;
   auto stage = [&](int s) {
     return reinterpret_cast<bf16*>(smem + (s % kStages) * fwd_stage_bytes<HDP>());
   };
   auto fetch = [&](int s) {
     const int k0 = s * kKeyTile;
-    load_tile<HDP, kKeyTile>(stage(s), img, pitch, D + h * hd, k0, T, hd);
-    load_tile<HDP, kKeyTile>(stage(s) + tile_elems<HDP, kKeyTile>(), img, pitch,
-                             2 * D + h * hd, k0, T, hd);
+    load_tile<HDP, kKeyTile>(stage(s), kb, views.k.row, 0, k0, T, hd);
+    load_tile<HDP, kKeyTile>(stage(s) + tile_elems<HDP, kKeyTile>(), vb,
+                             views.v.row, 0, k0, T, hd);
     cp_async_commit();
   };
   fetch(0);
@@ -105,7 +101,7 @@ flash_fwd_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out,
   // must stay for the block's barriers.
   const int r0 = blockIdx.x * kRows + (threadIdx.x / 32) * 16;
   uint32_t qa[HDP / 16][4];
-  load_a<HDP>(qa, img, pitch, h * hd, r0, T, hd, 1.f, g, t);
+  load_a<HDP>(qa, qb, views.q.row, 0, r0, T, hd, 1.f, g, t);
 
   // Rows g (0) and g + 8 (1) of the warp's 16.
   float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
@@ -198,7 +194,7 @@ flash_fwd_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out,
     o[d][2] *= inv1;
     o[d][3] *= inv1;
   }
-  store_rows<HDP, bf16>(out + static_cast<size_t>(b) * T * D, D, h * hd, o, r0, T, hd,
+  store_rows<HDP, bf16>(head_base(out, views.o, b, h), views.o.row, 0, o, r0, T, hd,
                         g, t);
   if (lse != nullptr && t == 0) {  // one lane per row
     float* row_lse = lse + (static_cast<size_t>(b) * num_heads + h) * T;
@@ -414,15 +410,17 @@ flash_bwd_dkv_kernel(const bf16* __restrict__ qkv, const float* __restrict__ lse
 }
 
 template <int HDP>
-cudaError_t launch_fwd(const void* qkv, void* out, float* lse, int B, int T,
-                       int num_heads, int hd, float scale, cudaStream_t stream) {
+cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* out,
+                       HeadViews views, float* lse, int B, int T, int num_heads,
+                       int hd, float scale, cudaStream_t stream) {
   constexpr size_t smem = kStages * fwd_stage_bytes<HDP>();
   cudaError_t err = allow_dynamic_smem(flash_fwd_kernel<HDP>, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((T + kRows - 1) / kRows, num_heads, B);
   flash_fwd_kernel<HDP><<<grid, kThreads, smem, stream>>>(
-      static_cast<const bf16*>(qkv), static_cast<bf16*>(out), lse, T, num_heads, hd,
-      scale);
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<bf16*>(out), views, lse, T, num_heads,
+      hd, scale);
   return cudaGetLastError();
 }
 
@@ -475,7 +473,28 @@ VIT_EXPORT int vit_flash_attention_fwd(const void* qkv, void* out, float* lse, i
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (B <= 0 || T <= 0 || num_heads <= 0 || head_dim % 8 != 0 || head_dim > 128)
     return cudaErrorInvalidValue;
-  VIT_FLASH_DISPATCH(launch_fwd, qkv, out, lse, B, T, num_heads, head_dim, scale, s)
+  const vit::bf16* base = static_cast<const vit::bf16*>(qkv);
+  const int D = num_heads * head_dim;
+  VIT_FLASH_DISPATCH(launch_fwd, base, base + D, base + 2 * D, out,
+                     slab_views(T, num_heads, head_dim), lse, B, T, num_heads,
+                     head_dim, scale, s)
+}
+
+// The same kernel on split heads: q, k, v and out are [B, num_heads, T,
+// head_dim] views given by base pointers and `strides` (12 element strides:
+// image, head and row of q, k, v and out in turn; the last axis contiguous,
+// rows 16-byte aligned), all bf16; lse as above or null.
+VIT_EXPORT int vit_flash_attention_fwd_strided(const void* q, const void* k,
+                                               const void* v, void* out, float* lse,
+                                               const long long* strides, int B, int T,
+                                               int num_heads, int head_dim, float scale,
+                                               void* stream) {
+  using namespace vit::flash;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (B <= 0 || T <= 0 || num_heads <= 0 || head_dim % 8 != 0 || head_dim > 128)
+    return cudaErrorInvalidValue;
+  VIT_FLASH_DISPATCH(launch_fwd, q, k, v, out, head_views(strides), lse, B, T,
+                     num_heads, head_dim, scale, s)
 }
 
 // qkv [B, T, 3D], the forward's out [B, T, D] and lse [B, num_heads, T],

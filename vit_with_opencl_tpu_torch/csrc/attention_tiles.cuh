@@ -1,9 +1,10 @@
 // Tile helpers of the attention kernels that stream their K/V or q/dO
-// tiles (attention_bwd.cu, attention_flash.cu): mma.sync m16n8k16 (bf16 in,
-// fp32 out) on fragments in registers, cp.async copies of row-major tiles
-// into a shared-memory ring (rows padded to HDP + 8 against bank
-// conflicts), and ldmatrix.trans reads of a tile as the B operand of a
-// product that contracts over its rows. A block is 4 warps; each warp owns
+// tiles (attention_bwd.cu, attention_flash.cu, attention_single.cu):
+// mma.sync m16n8k16 (bf16 in, fp32 out) on fragments in registers, cp.async
+// copies of row-major tiles into a shared-memory ring (rows padded to
+// HDP + 8 against bank conflicts), ldmatrix.trans reads of a tile as the B
+// operand of a product that contracts over its rows, and strided [B, H, T,
+// hd] views of q, k, v and the output. A block is 4 warps; each warp owns
 // 16 rows (queries or keys) of the block's 64. HDP is the head dim padded
 // to a multiple of 16.
 #pragma once
@@ -28,6 +29,15 @@ __device__ __forceinline__ void mma_16816(float c[4], const uint32_t a[4],
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void quad_max(float& v) {  // the 4 lanes of a row
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+__device__ __forceinline__ void quad_sum(float& v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  v += __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
 __device__ __forceinline__ uint32_t ld32(const bf16* p) {
@@ -186,6 +196,35 @@ __device__ __forceinline__ void store_rows(TOut* img, int pitch, int off,
 template <int HDP, int ROWS>
 __host__ __device__ constexpr int tile_elems() {
   return ROWS * (HDP + 8);
+}
+
+// Element strides (image, head, row) of a [B, H, T, hd] view whose last
+// axis is contiguous: split-head tensors, their permuted views of a [B, T,
+// 3D] GEMM output, or a head's columns of the packed slabs.
+struct Strides {
+  long long batch, head, row;
+};
+struct HeadViews {
+  Strides q, k, v, o;
+};
+
+// Views from the 12 strides q, k, v, o (batch, head, row each) in order.
+__host__ inline HeadViews head_views(const long long* s) {
+  return HeadViews{{s[0], s[1], s[2]}, {s[3], s[4], s[5]},
+                   {s[6], s[7], s[8]}, {s[9], s[10], s[11]}};
+}
+
+// The slab-packed qkv [B, T, 3D] and the head-major context [B, T, D] as
+// views: q, k and v start at columns 0, D and 2D of each row.
+__host__ inline HeadViews slab_views(int T, int num_heads, int hd) {
+  const long long D = static_cast<long long>(num_heads) * hd;
+  return HeadViews{{T * 3 * D, hd, 3 * D}, {T * 3 * D, hd, 3 * D},
+                   {T * 3 * D, hd, 3 * D}, {T * D, hd, D}};
+}
+
+template <typename T>
+__device__ __forceinline__ T* head_base(T* p, Strides s, int b, int h) {
+  return p + b * s.batch + h * s.head;
 }
 
 }  // namespace tiles

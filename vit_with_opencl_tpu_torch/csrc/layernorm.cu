@@ -1,7 +1,8 @@
 // Per-row LayerNorm with fp32 statistics.
 //
 // Replaces vit_with_opencl_tpu/ops/layernorm.py:_ln_kernel (layer_norm) and
-// the two LN stages that ops/fused_block.py:_block_kernel inlines (_ln).
+// the two LN stages that ops/fused_block.py:_block_kernel inlines (_ln);
+// below, its residual form (_ln_residual_kernel) and the LN backward.
 // Contract: mean = E[x], var = E[x^2] - E[x]^2, both in fp32 whatever the
 // input dtype; y = (x - mean) * rsqrt(var + eps) * w + b, cast to the output
 // dtype. The input is bf16 or fp32 and the output dtype is chosen separately:
@@ -75,6 +76,81 @@ VIT_EXPORT int vit_layernorm(const void* x, int x_dtype, const float* w,
     return launch_layernorm<bf16, float>(x, w, b, y, rows, cols, eps, s);
   if (x_dtype == kF32 && y_dtype == kF32)
     return launch_layernorm<float, float>(x, w, b, y, rows, cols, eps, s);
+  return cudaErrorInvalidValue;
+}
+
+// ---------------------------------------------------------------------------
+// Residual add + LayerNorm (vit_with_opencl_tpu/ops/layernorm.py:
+// _ln_residual_kernel, residual_layer_norm). Per row: s = x + r in fp32;
+// summed = s cast to x's dtype; the statistics from the fp32 s (not the
+// rounded one), mean = E[s], var = E[s^2] - E[s]^2; y = (s - mean) *
+// rsqrt(var + eps) * w + b, cast to x's dtype. The row kernel above with one
+// more input and one more output: bound by bytes (x and r read, y and s
+// written once; the second read of a row comes from L1/L2).
+// ---------------------------------------------------------------------------
+
+namespace vit {
+
+template <typename TX, typename TR>
+__global__ void __launch_bounds__(kLnWarps * 32)
+layernorm_residual_kernel(const TX* __restrict__ x, const TR* __restrict__ r,
+                          const float* __restrict__ w, const float* __restrict__ b,
+                          TX* __restrict__ y, TX* __restrict__ summed, int rows,
+                          int cols, float eps) {
+  const int lane = threadIdx.x % 32;
+  const int row = blockIdx.x * kLnWarps + threadIdx.x / 32;
+  if (row >= rows) return;
+  const size_t base = static_cast<size_t>(row) * cols;
+  float sum = 0.f, sum_sq = 0.f;
+  for (int c = lane; c < cols; c += 32) {
+    const float v = to_float(x[base + c]) + to_float(r[base + c]);
+    summed[base + c] = from_float<TX>(v);
+    sum += v;
+    sum_sq += v * v;
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    sum += __shfl_xor_sync(0xffffffffu, sum, off);
+    sum_sq += __shfl_xor_sync(0xffffffffu, sum_sq, off);
+  }
+  const float mean = sum / cols;
+  const float var = sum_sq / cols - mean * mean;
+  const float inv = rsqrtf(var + eps);
+  for (int c = lane; c < cols; c += 32) {
+    const float v = to_float(x[base + c]) + to_float(r[base + c]);
+    y[base + c] = from_float<TX>((v - mean) * inv * w[c] + b[c]);
+  }
+}
+
+template <typename TX, typename TR>
+cudaError_t launch_layernorm_residual(const void* x, const void* r, const float* w,
+                                      const float* b, void* y, void* summed, int rows,
+                                      int cols, float eps, cudaStream_t stream) {
+  const dim3 grid((rows + kLnWarps - 1) / kLnWarps);
+  layernorm_residual_kernel<TX, TR><<<grid, kLnWarps * 32, 0, stream>>>(
+      static_cast<const TX*>(x), static_cast<const TR*>(r), w, b, static_cast<TX*>(y),
+      static_cast<TX*>(summed), rows, cols, eps);
+  return cudaGetLastError();
+}
+
+}  // namespace vit
+
+// x [rows, cols] and r (same shape), each bf16 or fp32 -> y = LN(x + r) and
+// summed = x + r, both in x's dtype; w and b fp32 [cols].
+VIT_EXPORT int vit_layernorm_residual(const void* x, int x_dtype, const void* r,
+                                      int r_dtype, const float* w, const float* b,
+                                      void* y, void* summed, int rows, int cols,
+                                      float eps, void* stream) {
+  using namespace vit;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (x_dtype == kBF16 && r_dtype == kBF16)
+    return launch_layernorm_residual<bf16, bf16>(x, r, w, b, y, summed, rows, cols, eps, s);
+  if (x_dtype == kBF16 && r_dtype == kF32)
+    return launch_layernorm_residual<bf16, float>(x, r, w, b, y, summed, rows, cols, eps, s);
+  if (x_dtype == kF32 && r_dtype == kBF16)
+    return launch_layernorm_residual<float, bf16>(x, r, w, b, y, summed, rows, cols, eps, s);
+  if (x_dtype == kF32 && r_dtype == kF32)
+    return launch_layernorm_residual<float, float>(x, r, w, b, y, summed, rows, cols, eps, s);
   return cudaErrorInvalidValue;
 }
 

@@ -422,9 +422,12 @@ def resolve_kernels(attention_impl: str = "xla", w8a8: bool = False,
     ``attention_impl``:
       * 'xla'   — plain PyTorch ops;
       * 'flash' (or its synonym 'fused_block', as in the JAX package) — the
-        packed-attention kernel for the per-op path, and the chains of
-        ``ops/fused_block`` (whole stack, layer groups or per layer, as
-        ``encoder`` routes) for every config ``fused_block.supports``.
+        packed-attention kernel for the per-op path, the split-head
+        ``flash_attention`` in the generic ``attention`` slot for callers
+        that hold split heads (``perf/profiler.profile_ops``), and the
+        chains of ``ops/fused_block`` (whole stack, layer groups or per
+        layer, as ``encoder`` routes) for every config
+        ``fused_block.supports``.
 
     ``w8a8``: per-token dynamic int8 activations into the encoder's four
     GEMMs (``quant.matmul_w8a8`` on the per-op path, the W8A8 chain on the
@@ -434,6 +437,7 @@ def resolve_kernels(attention_impl: str = "xla", w8a8: bool = False,
     """
     kernels = _default_kernels()
     if attention_impl in ("flash", "fused_block"):
+        kernels["attention"] = attention_ops.flash_attention
         kernels["attention_packed"] = attention_ops.packed_fused_attention
         kernels["_fused_block_if_supported"] = True
     elif attention_impl != "xla":

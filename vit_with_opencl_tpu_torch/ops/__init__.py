@@ -7,6 +7,12 @@ CPU tensor), and counts its launches.
 | ops/layernorm.py:_ln_kernel          | ops/layernorm.py, csrc/layernorm.cu  |
 | ops/linear.py:_linear_kernel         | ops/linear.py, csrc/linear.cu        |
 | ops/attention.py:_packed_kernel      | ops/attention.py, csrc/attention.cu  |
+| ops/attention.py:_single_pass_kernel | ops/attention.py (flash_attention,   |
+|                                      |   single_pass_attention),            |
+|                                      |   csrc/attention_single.cu           |
+| ops/layernorm.py:_ln_residual_kernel | ops/layernorm.py                     |
+|                                      |   (residual_layer_norm),             |
+|                                      |   csrc/layernorm.cu                  |
 | ops/fused_block.py:_block_kernel     | ops/fused_block.py (a chain of the   |
 |   (bf16)                             |   three kernels above)               |
 | ops/fused_block.py:_block_kernel     | ops/quantize.py, csrc/quantize.cu;   |
@@ -23,10 +29,17 @@ CPU tensor), and counts its launches.
 |   _mlp_bwd_kernel, _attn_bwd_kernel  |   GEMM forms in csrc/linear.cu, LN   |
 |                                      |   backward in csrc/layernorm.cu and  |
 |                                      |   column sum in csrc/reduce.cu)      |
+
+The public ops are JAX's (``flash_attention``, ``layer_norm``,
+``residual_layer_norm``, ``fused_linear``, ``softmax``; the last has no
+kernel there either: XLA's softmax in fp32, PyTorch's here). JAX's
+``flash_attention_interpret`` has no counterpart: it runs the Pallas kernel
+in interpret mode off the TPU, and here a CPU tensor takes the plain version.
 """
 
-from .attention import packed_fused_attention  # noqa: F401
+from .attention import flash_attention, packed_fused_attention  # noqa: F401
 from .fused_block import fused_encoder_layer  # noqa: F401
-from .layernorm import layer_norm  # noqa: F401
+from .layernorm import layer_norm, residual_layer_norm  # noqa: F401
 from .linear import fused_linear, fused_linear_w8a8  # noqa: F401
 from .quantize import quantize_rows  # noqa: F401
+from .softmax import softmax  # noqa: F401

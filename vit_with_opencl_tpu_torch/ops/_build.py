@@ -40,10 +40,13 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_LL = ctypes.POINTER(ctypes.c_longlong)  # a host array of int64 (strides)
 # name -> argtypes; every entry point returns its cudaError_t as an int.
 SIGNATURES = {
     # x, x_dtype, w, b, y, y_dtype, rows, cols, eps, stream
     "vit_layernorm": [_P, _I, _P, _P, _P, _I, _I, _I, _F, _P],
+    # x, x_dtype, r, r_dtype, w, b, y, summed, rows, cols, eps, stream
+    "vit_layernorm_residual": [_P, _I, _P, _I, _P, _P, _P, _P, _I, _I, _F, _P],
     # x, w, bias, residual, residual_kind, out, out_bf16, gelu, M, N, K, stream
     "vit_linear_bf16": [_P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _P],
     # x, w (int8), w_scale, bias, residual, residual_kind, out, out_bf16,
@@ -66,6 +69,14 @@ SIGNATURES = {
     "vit_packed_attention_bwd": [_P, _P, _P, _I, _P, _I, _I, _I, _I, _F, _F, _P],
     # qkv, out, lse (or NULL), B, T, num_heads, head_dim, scale, stream
     "vit_flash_attention_fwd": [_P, _P, _P, _I, _I, _I, _I, _F, _P],
+    # q, k, v, out, lse (or NULL), strides (12), B, T, num_heads, head_dim,
+    # scale, stream
+    "vit_flash_attention_fwd_strided": [_P, _P, _P, _P, _P, _LL, _I, _I, _I,
+                                        _I, _F, _P],
+    # q, k, v, out, dtype, strides (12), B, num_heads, T, kv_len, head_dim,
+    # scale, stream
+    "vit_single_pass_attention": [_P, _P, _P, _P, _I, _LL, _I, _I, _I, _I, _I,
+                                  _F, _P],
     # qkv, out, lse, dout, dqkv, dvec, B, T, num_heads, head_dim, scale,
     # stream
     "vit_flash_attention_bwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
@@ -176,6 +187,32 @@ def check_launch(err: int, what: str) -> None:
 def stream_handle(t: torch.Tensor) -> int:
     """PyTorch's current stream on ``t``'s device, as the entry points take it."""
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def head_strides(*views: torch.Tensor):
+    """The (image, head, row) element strides of each [B, H, T, hd] view in
+    turn, as the strided attention entries take them (a host int64 array)."""
+    values = [st for v in views for st in v.stride()[:3]]
+    return (ctypes.c_longlong * len(values))(*values)
+
+
+def require_head_view(t: torch.Tensor, name: str, *, device: torch.device,
+                      dtypes: tuple) -> None:
+    """Check a [B, H, T, hd] view that a strided attention kernel reads or
+    writes: device, dtype, a contiguous last axis, and 16-byte rows (every
+    stride and the base address 16-byte aligned)."""
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype not in dtypes:
+        raise TypeError(f"{name} has dtype {t.dtype}, expected one of {dtypes}")
+    if t.dim() != 4 or t.stride(-1) != 1:
+        raise ValueError(f"{name} must be [B, H, T, hd] with a contiguous last "
+                         f"axis, got shape {tuple(t.shape)} strides {t.stride()}")
+    per16 = 16 // t.element_size()
+    if any(st % per16 for st in t.stride()[:3]) or t.data_ptr() % 16:
+        raise ValueError(f"{name}: the kernel copies 16-byte rows, so every "
+                         f"stride must be a multiple of {per16} elements and "
+                         f"the base 16-byte aligned, got strides {t.stride()}")
 
 
 def refuse_autograd(what: str, tensors, trainable: str) -> None:

@@ -1,5 +1,6 @@
-"""Packed-QKV attention: the CUDA kernels ``csrc/attention.cu`` and
-``csrc/attention_flash.cu`` and their plain versions.
+"""Attention: the CUDA kernels ``csrc/attention.cu``,
+``csrc/attention_single.cu`` and ``csrc/attention_flash.cu`` and their plain
+versions.
 
 Replaces ``vit_with_opencl_tpu/ops/attention.py:_packed_kernel``
 (``packed_fused_attention``): [B, T, 3D] packed q|k|v slabs in, the
@@ -18,13 +19,25 @@ softmax and optionally writes each row's log-sum-exp; its plain version is
 ``blockwise_attention_fwd_reference``. ``packed_fused_attention_reference``
 routes the same way, so the chains' plain links compare like with like.
 
-``packed_fused_attention`` launches a kernel for a CUDA tensor and computes
-its plain version for a CPU tensor; there is no other fallback. Not ported
-yet: "per_head" packing and ``true_seq_len`` (the tensor-parallel and
-sequence-parallel callers), fp32 inputs on the card, and on the card
-sequences of 849-1024 tokens at hd = 64 (fewer at larger hd): they stay on
-the packed route, whose K and V no longer fit one block's shared memory
-there; those raise ``NotImplementedError``.
+``flash_attention`` (the kernel layer's public op, JAX's
+``flash_attention``) takes split heads, [B, H, T, hd] → [B, H, T, hd], and
+routes as JAX's: T ≤ ``SINGLE_PASS_MAX_T`` to ``single_pass_attention``,
+whose kernel replaces ``_single_pass_kernel`` (the one-shot softmax of
+``_head_attention``, two passes over streamed K/V tiles, bf16 or fp32),
+longer T to the blockwise kernel through its strided entry. Its plain
+version is ``flash_attention_reference``. Both kernels read q, k and v as
+strided views (a contiguous last axis, 16-byte rows), so the permuted views
+of a [B, T, 3D] GEMM output go in without a copy. The packed kernel holds a
+head's K and V in one block's shared memory, which stops fitting at T = 849
+(hd 64); from there to padded T = 1024, where JAX keeps the one-shot route,
+``packed_fused_attention`` launches the single-pass kernel on the slabs.
+
+Every wrapper launches a kernel for a CUDA tensor and computes its plain
+version for a CPU tensor; there is no other fallback. Not ported yet:
+"per_head" packing and ``true_seq_len`` (the tensor-parallel and
+sequence-parallel callers), fp32 inputs on the card other than
+``flash_attention``'s at T ≤ 1024, and a blockwise key tile other than 128
+on the card; those raise ``NotImplementedError``.
 
 The backward, ``packed_attention_bwd``, replaces ``_packed_bwd_kernel``
 with the two kernels of ``csrc/attention_bwd.cu`` (plain version
@@ -51,12 +64,15 @@ from . import _build
 
 # Kernel launches since the counts were last set to 0 (chip_smoke.py reads
 # them): the packed forward, and its backward (one per call: its two
-# kernels); the blockwise forward without and with the log-sum-exp, and the
-# blockwise backward (one per call: its two kernels).
+# kernels); the single-pass forward (split heads or slabs); the blockwise
+# forward on the slabs without and with the log-sum-exp, on split heads, and
+# the blockwise backward (one per call: its two kernels).
 LAUNCHES = 0
 LAUNCHES_BWD = 0
+LAUNCHES_SINGLE = 0
 LAUNCHES_FLASH = 0
 LAUNCHES_FLASH_LSE = 0
+LAUNCHES_FLASH_SPLIT = 0
 LAUNCHES_FLASH_BWD = 0
 
 # Hopper's largest dynamic shared memory for one block.
@@ -67,6 +83,7 @@ SINGLE_PASS_MAX_T = 1024
 # The blockwise route's key tile: the running max moves once a tile, so the
 # tile decides where p is rounded (JAX's DEFAULT_BLOCK_K).
 FLASH_BLOCK_K = 128
+DEFAULT_BLOCK_Q = 128
 # Masked scores (keys past T): -inf would give NaN on a fully masked row
 # (attention.py:43).
 MASK_VALUE = -0.7 * float(np.finfo(np.float32).max)
@@ -78,14 +95,18 @@ def _is_long_seq(t: int) -> bool:
 
 
 def _head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    scale: float) -> torch.Tensor:
+                    scale: float, kv_len: Optional[int] = None) -> torch.Tensor:
     """softmax(q·scale @ kᵀ) @ v over the last two axes, fp32 output.
 
     The reference's rounding points: q is scaled in its own dtype, scores and
     the softmax are fp32, the unnormalised weights are cast to v's dtype for
-    the PV product, and the 1/rowsum scales the output, not the weights."""
+    the PV product, and the 1/rowsum scales the output, not the weights.
+    Keys at and past ``kv_len`` score MASK_VALUE."""
     qs = q * torch.tensor(scale, dtype=q.dtype)
     s = qs.float() @ k.float().transpose(-1, -2)
+    if kv_len is not None:
+        s = torch.where(torch.arange(s.shape[-1], device=s.device) < kv_len,
+                        s, MASK_VALUE)
     m = s.amax(-1, keepdim=True)
     e = torch.exp(s - m)
     inv = 1.0 / e.sum(-1, keepdim=True)
@@ -146,23 +167,23 @@ def packed_fused_attention(
     if hd % 8 or hd > 128:
         raise NotImplementedError(
             f"head_dim {hd}: the kernel takes multiples of 8 up to 128")
-    if kernel_smem_bytes(t, hd) > MAX_SMEM_BYTES:
-        raise NotImplementedError(
-            f"T={t}: K and V of one head exceed one block's shared memory "
-            f"and the padded T is at most {SINGLE_PASS_MAX_T}, where the "
-            "JAX package keeps the one-shot route; a kernel for that window "
-            "is not ported yet")
     _build.refuse_autograd("packed_fused_attention", (qkv,),
                            "packed_fused_attention_trainable")
     _build.require(qkv, "qkv", device=qkv.device, dtypes=(torch.bfloat16,))
     out = torch.empty((b, t, d), dtype=qkv.dtype, device=qkv.device)
     if b == 0 or t == 0:
         return out
-    # `jnp.asarray(scale, q.dtype)`: the scale rounded once to bf16.
-    scale = torch.tensor(float(1.0 / np.sqrt(hd)), dtype=torch.float64).to(
-        torch.bfloat16).item()
+    if kernel_smem_bytes(t, hd) > MAX_SMEM_BYTES:
+        # K and V of one head exceed one block's shared memory, and JAX keeps
+        # the one-shot route up to padded T = 1024: the same function through
+        # the single-pass kernel, which streams K and V, on the slabs.
+        q, k, v = _split_heads(qkv, 3, nh, hd)
+        single_pass_attention(q, k, v, hd,
+                              out=out.view(b, t, nh, hd).permute(0, 2, 1, 3))
+        return out
     err = _build.library().vit_packed_attention_bf16(
-        qkv.data_ptr(), out.data_ptr(), b, t, nh, hd, scale,
+        qkv.data_ptr(), out.data_ptr(), b, t, nh, hd,
+        _single_pass_scale(hd, torch.bfloat16),
         _build.stream_handle(qkv))
     _build.check_launch(err, "packed_fused_attention")
     LAUNCHES += 1
@@ -191,32 +212,43 @@ def blockwise_attention_fwd_reference(qkv: torch.Tensor, num_heads: int,
     lse [B, H, T] fp32, m + log(l), or None)."""
     b, t, _ = qkv.shape
     q, k, v = _split_heads(qkv, 3, num_heads, head_dim)
-    t_pad = -(-t // FLASH_BLOCK_K) * FLASH_BLOCK_K
+    out, lse = _blockwise_heads_reference(q, k, v, _flash_scale(head_dim),
+                                          FLASH_BLOCK_K, return_lse)
+    out = out.permute(0, 2, 1, 3).reshape(b, t, num_heads * head_dim)
+    return out.to(qkv.dtype), lse
+
+
+def _blockwise_heads_reference(q: torch.Tensor, k: torch.Tensor,
+                               v: torch.Tensor, scale: float, block_k: int,
+                               return_lse: bool = False):
+    """``_flash_kernel``'s arithmetic on split heads [B, H, T, hd]: (acc ·
+    (1/l), fp32; lse [B, H, T] or None). Keys past T are masked; the walk
+    over key tiles of ``block_k`` is part of the function."""
+    b, nh, t, hd = q.shape
+    t_pad = -(-t // block_k) * block_k
     pad = (0, 0, 0, t_pad - t)
     k = torch.nn.functional.pad(k, pad)
     v = torch.nn.functional.pad(v, pad)
-    scale = _flash_scale(head_dim)
     qf = q.float()
-    m = torch.full((b, num_heads, t, 1), -float("inf"), device=qkv.device)
-    l = torch.zeros((b, num_heads, t, 1), device=qkv.device)
-    acc = torch.zeros((b, num_heads, t, head_dim), device=qkv.device)
-    for k0 in range(0, t_pad, FLASH_BLOCK_K):
-        kt = k[..., k0:k0 + FLASH_BLOCK_K, :].float()
+    m = torch.full((b, nh, t, 1), -float("inf"), device=q.device)
+    l = torch.zeros((b, nh, t, 1), device=q.device)
+    acc = torch.zeros((b, nh, t, hd), device=q.device)
+    for k0 in range(0, t_pad, block_k):
+        kt = k[..., k0:k0 + block_k, :].float()
         s = (qf @ kt.transpose(-1, -2)) * scale
-        col = torch.arange(k0, k0 + FLASH_BLOCK_K, device=qkv.device)
+        col = torch.arange(k0, k0 + block_k, device=q.device)
         s = torch.where(col < t, s, MASK_VALUE)
         m_next = torch.maximum(m, s.amax(-1, keepdim=True))
         alpha = torch.exp(m - m_next)
         p = torch.exp(s - m_next)
         l = alpha * l + p.sum(-1, keepdim=True)
-        vt = v[..., k0:k0 + FLASH_BLOCK_K, :]
+        vt = v[..., k0:k0 + block_k, :]
         acc = acc * alpha + p.to(vt.dtype).float() @ vt.float()
         m = m_next
     l_safe = torch.where(l == 0.0, 1.0, l)
     out = acc * torch.where(l == 0.0, 1.0, 1.0 / l)
-    out = out.permute(0, 2, 1, 3).reshape(b, t, num_heads * head_dim)
     lse = (m + torch.log(l_safe))[..., 0] if return_lse else None
-    return out.to(qkv.dtype), lse
+    return out, lse
 
 
 def blockwise_attention_fwd(qkv: torch.Tensor, num_heads: int, head_dim: int,
@@ -257,6 +289,131 @@ def blockwise_attention_fwd(qkv: torch.Tensor, num_heads: int, head_dim: int,
     else:
         LAUNCHES_FLASH += 1
     return out, lse
+
+
+# ---------------------------------------------------------------------------
+# Split heads: the single-pass kernel and flash_attention
+# ---------------------------------------------------------------------------
+
+
+def _single_pass_scale(head_dim: int, dtype: torch.dtype) -> float:
+    """1/sqrt(hd) as ``_head_attention`` applies it (``jnp.asarray(scale,
+    q.dtype)``): rounded once to q's dtype."""
+    return torch.tensor(float(1.0 / np.sqrt(head_dim)), dtype=torch.float64).to(
+        dtype).item()
+
+
+def single_pass_attention_reference(q: torch.Tensor, k: torch.Tensor,
+                                    v: torch.Tensor, head_dim: int, *,
+                                    kv_len: Optional[int] = None) -> torch.Tensor:
+    """Plain version of ``single_pass_attention``: ``_head_attention`` on
+    [B, H, T, hd] with the scale of ``head_dim`` and keys at and past
+    ``kv_len`` masked; q's dtype out."""
+    o = _head_attention(q, k, v, float(1.0 / np.sqrt(head_dim)), kv_len)
+    return o.to(q.dtype)
+
+
+def single_pass_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          head_dim: int, *, kv_len: Optional[int] = None,
+                          out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One-shot attention on [B, H, T, hd] views (bf16 or fp32, one dtype),
+    the function of ``_single_pass_kernel`` at any T; keys at and past
+    ``kv_len`` (default T) are masked. Writes ``out`` (a view of the same
+    shape and dtype) if given, else a new tensor."""
+    global LAUNCHES_SINGLE
+    b, nh, t, hd = q.shape
+    kv_len = t if kv_len is None else kv_len
+    if k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)} and v "
+                         f"{tuple(v.shape)} differ")
+    if not 1 <= kv_len <= t:
+        raise ValueError(f"kv_len {kv_len} outside [1, {t}]")
+    if not q.is_cuda:
+        ref = single_pass_attention_reference(q, k, v, head_dim, kv_len=kv_len)
+        return ref if out is None else out.copy_(ref)
+    if q.dtype not in _build.DTYPE_CODES:
+        raise NotImplementedError(
+            f"the single-pass attention kernel takes bf16 or fp32, got {q.dtype}")
+    if hd % 8 or hd > 128:
+        raise NotImplementedError(
+            f"head_dim {hd}: the kernel takes multiples of 8 up to 128")
+    if out is None:
+        out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    if tuple(out.shape) != tuple(q.shape):
+        raise ValueError(f"out {tuple(out.shape)} != {tuple(q.shape)}")
+    for z, name in ((q, "q"), (k, "k"), (v, "v"), (out, "out")):
+        _build.require_head_view(z, name, device=q.device, dtypes=(q.dtype,))
+    _build.refuse_autograd("single_pass_attention", (q, k, v),
+                           "packed_fused_attention_trainable")
+    if b == 0 or t == 0 or nh == 0:
+        return out
+    err = _build.library().vit_single_pass_attention(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        _build.DTYPE_CODES[q.dtype], _build.head_strides(q, k, v, out), b, nh,
+        t, kv_len, hd, _single_pass_scale(head_dim, q.dtype),
+        _build.stream_handle(q))
+    _build.check_launch(err, "single_pass_attention")
+    LAUNCHES_SINGLE += 1
+    return out
+
+
+def flash_attention_reference(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, config: ViTConfig, *,
+                              block_q: int = DEFAULT_BLOCK_Q,
+                              block_k: int = FLASH_BLOCK_K) -> torch.Tensor:
+    """Plain version of ``flash_attention``, routed as JAX's: T ≤
+    ``SINGLE_PASS_MAX_T`` the one-shot softmax, longer T the blockwise walk
+    over key tiles of ``block_k`` (``block_q`` moves no result)."""
+    if q.shape[2] <= SINGLE_PASS_MAX_T:
+        return single_pass_attention_reference(q, k, v, config.head_dim)
+    out, _ = _blockwise_heads_reference(q, k, v, _flash_scale(config.head_dim),
+                                        block_k)
+    return out.to(q.dtype)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    config: ViTConfig, *, block_q: int = DEFAULT_BLOCK_Q,
+                    block_k: int = FLASH_BLOCK_K) -> torch.Tensor:
+    """softmax(QKᵀ / sqrt(hd)) V on split heads: [B, H, T, hd] → [B, H, T,
+    hd] in q's dtype, the drop-in for ``models.vit.xla_attention`` (the same
+    kernel-table slot). T ≤ ``SINGLE_PASS_MAX_T``: the single-pass kernel
+    (bf16 or fp32); longer: the blockwise kernel (bf16, ``block_k`` 128,
+    the tile being part of its function). q, k and v may be strided views
+    with a contiguous last axis and 16-byte rows."""
+    global LAUNCHES_FLASH_SPLIT
+    if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)} and v "
+                         f"{tuple(v.shape)} must be one [B, H, T, hd] shape")
+    if not q.is_cuda:
+        return flash_attention_reference(q, k, v, config, block_q=block_q,
+                                         block_k=block_k)
+    b, nh, t, hd = q.shape
+    if t <= SINGLE_PASS_MAX_T:
+        return single_pass_attention(q, k, v, config.head_dim)
+    if q.dtype != torch.bfloat16:
+        raise NotImplementedError(
+            f"the CUDA blockwise attention kernel takes bf16, got {q.dtype}")
+    if block_k != FLASH_BLOCK_K:
+        raise NotImplementedError(
+            f"block_k {block_k}: the blockwise kernel's key tile is "
+            f"{FLASH_BLOCK_K}, and the tile decides where p is rounded")
+    if hd % 8 or hd > 128:
+        raise NotImplementedError(
+            f"head_dim {hd}: the kernel takes multiples of 8 up to 128")
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    for z, name in ((q, "q"), (k, "k"), (v, "v"), (out, "out")):
+        _build.require_head_view(z, name, device=q.device, dtypes=(q.dtype,))
+    _build.refuse_autograd("flash_attention", (q, k, v),
+                           "packed_fused_attention_trainable")
+    if b == 0 or nh == 0:
+        return out
+    err = _build.library().vit_flash_attention_fwd_strided(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), None,
+        _build.head_strides(q, k, v, out), b, t, nh, hd,
+        _flash_scale(config.head_dim), _build.stream_handle(q))
+    _build.check_launch(err, "flash_attention")
+    LAUNCHES_FLASH_SPLIT += 1
+    return out
 
 
 def blockwise_attention_bwd_reference(qkv: torch.Tensor, out: torch.Tensor,
@@ -412,8 +569,7 @@ def packed_attention_bwd(qkv: torch.Tensor, do: torch.Tensor, num_heads: int,
         return out
     stats = torch.empty((b, num_heads, t, 3), dtype=torch.float32,
                         device=qkv.device)
-    q_scale = torch.tensor(float(1.0 / np.sqrt(head_dim)),
-                           dtype=torch.float64).to(torch.bfloat16).item()
+    q_scale = _single_pass_scale(head_dim, torch.bfloat16)
     ds_scale = float(np.float32(1.0 / np.sqrt(head_dim)))
     err = _build.library().vit_packed_attention_bwd(
         qkv.data_ptr(), do.data_ptr(), out.data_ptr(),

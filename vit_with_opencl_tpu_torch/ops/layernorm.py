@@ -11,6 +11,12 @@ the note in the source).
 the card it refuses to run under autograd (its result would carry no
 graph).
 
+``residual_layer_norm`` replaces ``_ln_residual_kernel`` (JAX's
+``residual_layer_norm``, a public op of the kernel layer that no forward of
+either package calls): s = x + residual in fp32, returned rounded to x's
+dtype beside LN(s), whose statistics come from the fp32 s. Its kernel is the
+row kernel's residual form (``csrc/layernorm.cu``).
+
 The training backward adds two kernels: ``layer_norm_bwd`` (the LN
 backward of ``ops/fused_block.py:_ln_bwd``, ``csrc/layernorm.cu``), which
 also writes per-block partial column sums of ``dy·x̂`` and ``dy``, and
@@ -27,8 +33,9 @@ import torch
 from . import _build
 
 # Kernel launches since the counts were last set to 0 (chip_smoke.py reads
-# them): the forward, the backward, and the column sum.
+# them): the forward, its residual form, the backward, and the column sum.
 LAUNCHES = 0
+LAUNCHES_RESIDUAL = 0
 LAUNCHES_BWD = 0
 LAUNCHES_COLSUM = 0
 # Rows per block of the backward kernel: one partial row of dw and db each.
@@ -78,6 +85,53 @@ def layer_norm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     _build.check_launch(err, "layer_norm")
     LAUNCHES += 1
     return out
+
+
+def residual_layer_norm_reference(x: torch.Tensor, residual: torch.Tensor,
+                                  w: torch.Tensor, b: torch.Tensor,
+                                  eps: float = 1e-6):
+    """(LN(x + residual), x + residual), both in x's dtype: the sum in fp32,
+    the statistics of the fp32 sum, w and b read as fp32."""
+    s = x.float() + residual.float()
+    mean = s.mean(-1, keepdim=True)
+    mean_sq = (s * s).mean(-1, keepdim=True)
+    inv = torch.rsqrt(mean_sq - mean * mean + eps)
+    out = (s - mean) * inv * w.float() + b.float()
+    return out.to(x.dtype), s.to(x.dtype)
+
+
+def residual_layer_norm(x: torch.Tensor, residual: torch.Tensor,
+                        w: torch.Tensor, b: torch.Tensor, eps: float = 1e-6):
+    """(x + residual) then LayerNorm, one pass over [..., D]: returns
+    ``(normalized, summed)`` in x's dtype (bf16 or fp32; the residual bf16
+    or fp32 too). ``w`` and ``b`` [D] may be any float dtype."""
+    global LAUNCHES_RESIDUAL
+    if x.shape != residual.shape:
+        raise ValueError(f"x {tuple(x.shape)} and residual "
+                         f"{tuple(residual.shape)} differ")
+    if not x.is_cuda:
+        return residual_layer_norm_reference(x, residual, w, b, eps)
+    d = x.shape[-1]
+    dtypes = tuple(_build.DTYPE_CODES)
+    _build.require(x, "x", device=x.device, dtypes=dtypes)
+    _build.require(residual, "residual", device=x.device, dtypes=dtypes)
+    w32, b32 = w.float().contiguous(), b.float().contiguous()
+    _build.require(w32, "w", device=x.device, dtypes=(torch.float32,), shape=(d,))
+    _build.require(b32, "b", device=x.device, dtypes=(torch.float32,), shape=(d,))
+    _build.refuse_autograd("residual_layer_norm", (x, residual, w, b),
+                           "ops/fused_block.fused_encoder_layer_trainable")
+    out = torch.empty_like(x)
+    summed = torch.empty_like(x)
+    rows = x.numel() // d if d else 0
+    if rows == 0:
+        return out, summed
+    err = _build.library().vit_layernorm_residual(
+        x.data_ptr(), _build.DTYPE_CODES[x.dtype], residual.data_ptr(),
+        _build.DTYPE_CODES[residual.dtype], w32.data_ptr(), b32.data_ptr(),
+        out.data_ptr(), summed.data_ptr(), rows, d, eps, _build.stream_handle(x))
+    _build.check_launch(err, "residual_layer_norm")
+    LAUNCHES_RESIDUAL += 1
+    return out, summed
 
 
 def column_sum_reference(x: torch.Tensor) -> torch.Tensor:
