@@ -150,6 +150,28 @@ line.
    ``residual_layer_norm`` at D = 768, M = 3152 and 50432, bf16 and fp32
    (``summed`` bit-identical). Yardsticks: SDPA on the same tensors; ``x +
    r`` then ``F.layer_norm`` (two calls).
+2i. The ring step kernel (``blockwise_ring_step``, the local step of ring
+   attention) against its plain version at the ring's shard shapes:
+   ViT-L/16@512 on 4 shards (t_loc 257, the last shard's 3 padded keys
+   masked; B = 8 and 4, 16 heads of 64), on 8 shards (129), ViT-B/16 on one
+   shard (197), ViT-H/14@518 on 4 shards (343, hd 80) and two 512-key
+   blocks (1024); bf16 and fp32, as a first rotation and 4 rotations
+   chained. SDPA on the same [n, t_loc, hd] is printed as a yardstick (it
+   does not compute the carried function, so no library time is recorded).
+3f. Multi-device inference on virtual meshes of the one card (every shard
+   on cuda:0): ``sp_forward(kv="ring")`` at ViT-L/16@512, bf16, mesh (1, 4),
+   B = 8 on phase 3e's weights and images (24 layers x 4 rotations x 4
+   shards = 384 ring launches, nothing else; within 1e-3 of the plain fp32
+   path, of ``kv="gather"`` and of the same ring on the plain step; phase
+   3e's labels) and in fp32 at B = 2; at ViT-B/16 on phase 3's workspace,
+   ``tp_forward`` and ``sp_tp_forward`` (flash, bf16, mesh (1, 4): the
+   single-pass kernel once a layer a shard, T padded to 200 and masked in
+   SP x TP; within 1e-3 of fp32 and phase 3's labels), W8A8 ``tp_forward``
+   (within 1e-2 of fp32, 1e-3 of its plain attention) and
+   ``DataParallelEngine`` on (4, 1) (phase 3's labels and probabilities).
+4e. ms and img/s of phase 3f's ring forward at B = 8 and 16: 4 virtual
+   shards on one card, a number about the kernel path, not multi-card
+   scaling.
 6. The public ops and the perf tools: one ViT-B/16 layer and its head
    composed of ``ops.layer_norm``, ``fused_linear``, ``flash_attention``,
    ``residual_layer_norm`` and ``softmax`` at B = 16, and ``flash_attention``
@@ -187,7 +209,7 @@ try:
     from vit_with_opencl_tpu_torch.config import (VIT_G_14_224, VIT_H_14_224,
                                                   VIT_L_16_384, VIT_S_16_224,
                                                   VIT_TINY_16_224)
-    from vit_with_opencl_tpu_torch.engine import InferenceEngine
+    from vit_with_opencl_tpu_torch.engine import DataParallelEngine, InferenceEngine
     from vit_with_opencl_tpu_torch.parallel import spmd
     from vit_with_opencl_tpu_torch.train import Trainer
     from vit_with_opencl_tpu_torch.harness import fixtures, results
@@ -402,6 +424,36 @@ TRACE_ITERS = 3
 TRACE_KERNELS = {"packed_attention_kernel": "attention",
                  "linear_bf16_kernel": "linear", "layernorm_kernel<": "layernorm"}
 
+# Phases 2i, 3f and 4e: ring attention and the multi-device forwards on a
+# virtual mesh of the one card (MESH_SHARDS shards, all cuda:0): a real
+# 4-step ring through the carried kernel, not multi-card scaling.
+MESH_SHARDS = 4
+RING_BATCH = 8  # phase 3f's bf16 ring forward at ViT-L/16@512
+RING_F32_BATCH = 2  # and its fp32 one
+RING_THROUGHPUT_BATCHES = (8, 16)  # phase 4e
+# Phase 2i's rows: (name, batch, heads, t_loc, head dim, block_k, masked
+# keys): ViT-L/16@512 (T = 1025) on 4 shards (t_loc 257, the last shard's
+# 3 padded keys) at phase 3f's B = 8 and at B = 4, on 8 shards (129, 7
+# padded), ViT-B/16 on one shard (197), ViT-H/14@518 (T = 1370) on 4 shards
+# (343, hd 80, 2 padded), and two 512-key blocks in one call.
+RING_ROWS = (
+    ("ViT-L/16@512 4 shards", RING_BATCH, 16, 257, 64, 257, 3),
+    ("ViT-L/16@512 4 shards", 4, 16, 257, 64, 257, 3),
+    ("ViT-L/16@512 8 shards", 4, 16, 129, 64, 129, 7),
+    ("ViT-B/16 1 shard", 16, 12, 197, 64, 197, 0),
+    ("ViT-H/14@518 4 shards", 4, 16, 343, 80, 343, 2),
+    ("two 512-key blocks", 4, 16, 1024, 64, 512, 0),
+)
+RING_ROTATIONS = 4
+# The ring step's outputs are fp32: m and l the same sums in another order
+# (1e-5 of scale); acc too at fp32, and at bf16 a p rounded the other way
+# moves its term by a bf16 ulp (2e-3 of scale covers it).
+RING_REL = {torch.float32: 1e-5, torch.bfloat16: 2e-3}
+# Phase 3f's W8A8 tensor-parallel forward against fp32 (the comparator's
+# probability gate): int8 activations move probabilities by more than the
+# bf16 budget.
+W8A8_TP_TOL = 1e-2
+
 # Published dense peaks (NVIDIA data sheets): tensor-core bf16 FLOP/s,
 # CUDA-core fp32 FLOP/s, tensor-core int8 OP/s, memory bytes/s.
 PEAKS = {
@@ -447,6 +499,7 @@ COUNTERS = {
     "attention_single": (attention, "LAUNCHES_SINGLE"),
     "attention_flash_split": (attention, "LAUNCHES_FLASH_SPLIT"),
     "layernorm_residual": (layernorm, "LAUNCHES_RESIDUAL"),
+    "attention_ring": (attention, "LAUNCHES_RING"),
 }
 _QUANTIZED_LAYER = "vit_with_opencl_tpu/ops/fused_block.py:198"
 REPLACES = {
@@ -492,6 +545,8 @@ REPLACES = {
     "attention_single": "vit_with_opencl_tpu/ops/attention.py:146",
     "attention_flash_split": "vit_with_opencl_tpu/ops/attention.py:85",
     "layernorm_residual": "vit_with_opencl_tpu/ops/layernorm.py:44",
+    # The ring-attention local step (blockwise_ring_step).
+    "attention_ring": "vit_with_opencl_tpu/ops/attention.py:354",
 }
 _CSRC = "vit_with_opencl_tpu_torch/csrc/"
 SOURCES = {
@@ -527,6 +582,7 @@ SOURCES = {
     "attention_single": _CSRC + "attention_single.cu",
     "attention_flash_split": _CSRC + "attention_flash.cu",
     "layernorm_residual": _CSRC + "layernorm.cu",
+    "attention_ring": _CSRC + "attention_ring.cu",
 }
 # The main-path runs: phase name → CLI flags (the outlier runs add
 # --calibrate with their workspace's calibration binary).
@@ -2119,7 +2175,8 @@ def long_inference_main_path(dev, tmp: Path, params: dict) -> dict:
     (``random_params`` seed 0) and LONG_IMAGES decisive images: the
     launches of that run, the probabilities within PROB_TOL of the port's
     plain fp32 path, and the comparator on the two result files. Returns
-    the counts."""
+    the counts, the images, the fp32 path's and the engine's
+    probabilities."""
     cfg = LONG_CFG
     t0 = time.perf_counter()
     with torch.inference_mode():
@@ -2156,7 +2213,7 @@ def long_inference_main_path(dev, tmp: Path, params: dict) -> dict:
                        f"{errors} mismatches")
     del engine
     torch.cuda.empty_cache()
-    return counts
+    return counts, images, ref_probs, probs
 
 
 def int8_main_path(ws: Path, dev, rounded, images, ref_probs) -> tuple:
@@ -2481,6 +2538,259 @@ def traced_forward(name: str, fn, images) -> None:
           flush=True)
 
 
+def ring_kernel_rows(dev) -> list[dict]:
+    """Phase 2i: the ring step kernel against its plain version at
+    RING_ROWS' shapes, bf16 and fp32, as a first rotation from (-inf, 0, 0)
+    with the shard's padded keys masked, and as RING_ROTATIONS rotations
+    chained (each side carrying its own state). Bound: q, k, v and the bias
+    read, m and l read and written, acc read and written in fp32, once a
+    rotation; 4·t_loc²·hd a row. No library call computes the carried
+    function; SDPA on the same [n, t_loc, hd] (the same QKᵀ and PV work) is
+    printed as a yardstick."""
+    F = torch.nn.functional
+    rows = []
+    for name, batch, heads, t_loc, hd, block, masked in RING_ROWS:
+        n = batch * heads
+        for dtype in (torch.bfloat16, torch.float32):
+            gen = torch.Generator(device=dev).manual_seed(n + t_loc + hd)
+            qkvs = [tuple(torch.randn((n, t_loc, hd), generator=gen,
+                                      device=dev).to(dtype) for _ in range(3))
+                    for _ in range(RING_ROTATIONS)]
+            bias = torch.zeros((1, t_loc), device=dev)
+            if masked:
+                bias[:, t_loc - masked:] = attention.MASK_VALUE
+            live = torch.zeros_like(bias)
+            start = (torch.full((n, t_loc), -float("inf"), device=dev),
+                     torch.zeros((n, t_loc), device=dev),
+                     torch.zeros((n, t_loc, hd), device=dev))
+            kw = dict(scale=float(1.0 / np.sqrt(hd)), block_q=block, block_k=block)
+            kind = "bf16" if dtype == torch.bfloat16 else "fp32"
+
+            def first(step, qkv=qkvs[0], bias=bias, start=start, kw=kw):
+                return step(*qkv, bias, *start, **kw)
+
+            def chained(step, qkvs=qkvs, bias=bias, live=live, start=start, kw=kw):
+                state = start
+                for i, qkv in enumerate(qkvs):
+                    state = step(*qkv, bias if i == len(qkvs) - 1 else live,
+                                 *state, **kw)
+                return state
+
+            one_bytes = (3 * n * t_loc * hd * qkvs[0][0].element_size() + t_loc * 4
+                         + 4 * n * t_loc * 4 + 2 * n * t_loc * hd * 4)
+            cases = []
+            for what, fn, reps in (("first rotation", first, 1),
+                                   (f"{RING_ROTATIONS} rotations chained", chained,
+                                    RING_ROTATIONS)):
+                refs = fn(attention.blockwise_ring_step_reference)
+                cases.append(dict(
+                    name=f"blockwise_ring_step {name} B={batch} n={n} t_loc={t_loc} "
+                         f"hd={hd} block {block} ({kind}, {what})",
+                    counter="attention_ring",
+                    tol=[_scaled_tol(refs[0], 1e-5), _scaled_tol(refs[1], 1e-5),
+                         _scaled_tol(refs[2], RING_REL[dtype])],
+                    min_same=0.0,
+                    kernel=lambda fn=fn: fn(attention.blockwise_ring_step),
+                    plain=lambda fn=fn: fn(attention.blockwise_ring_step_reference),
+                    library=None, bytes=reps * one_bytes,
+                    ops={kind: reps * 4 * n * t_loc * t_loc * hd}))
+                del refs
+            rows += run_cases(cases, batch)
+            q, k, v = qkvs[0]
+            sdpa = time_ms(lambda: F.scaled_dot_product_attention(q, k, v))
+            print(f"  B={batch} yardstick: SDPA on the same [n, t_loc, hd] ({kind}; "
+                  f"softmax(q·kᵀ)·v, not the carried function): {sdpa:.4f} ms "
+                  f"(ring step, first rotation {rows[-2]['ms']:.4f} ms)", flush=True)
+            del qkvs, cases
+        torch.cuda.empty_cache()
+    return rows
+
+
+def counted(fn) -> tuple:
+    """``fn()`` with the counts set to 0 just before it and read just after:
+    (its result, the counts, its seconds on the host clock)."""
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, read_counts(), time.perf_counter() - t0
+
+
+def expect_only(counts: dict, what: str, **launches) -> None:
+    expected = {key: launches.get(key, 0) for key in COUNTERS}
+    check(counts == expected, f"launches of {what} {counts}, expected {expected}")
+
+
+@contextlib.contextmanager
+def swapped(module, name: str, replacement):
+    """``module.<name>`` replaced for the duration."""
+    kernel_version = getattr(module, name)
+    setattr(module, name, replacement)
+    try:
+        yield
+    finally:
+        setattr(module, name, kernel_version)
+
+
+def virtual_mesh(dev, data: int, model: int):
+    return spmd.make_mesh(data=data, model=model, devices=[dev] * (data * model))
+
+
+def ring_main_path(dev, params: dict, images: np.ndarray, ref_probs: np.ndarray,
+                   engine_probs: np.ndarray) -> dict:
+    """Phase 3f's ring part: ``sp_forward(kv="ring")`` at ViT-L/16@512, full
+    depth and widths, on a (1, MESH_SHARDS) virtual mesh of the card, on
+    phase 3e's weights and first RING_BATCH decisive images, bf16: the
+    launches (every layer's ring: depth x shards x shards kernels, nothing
+    else), within PROB_TOL of the port's plain fp32 path, of
+    ``kv="gather"`` and of the same ring on the plain step, phase 3e's
+    engine's labels; then one fp32 ring forward at RING_F32_BATCH. Returns
+    the bf16 and fp32 runs' counts."""
+    cfg, s = LONG_CFG, MESH_SHARDS
+    mesh = virtual_mesh(dev, 1, s)
+    per_forward = cfg.depth * s * s
+    out = {}
+    for dtype, batch in ((torch.bfloat16, RING_BATCH), (torch.float32, RING_F32_BATCH)):
+        kind = "bf16" if dtype == torch.bfloat16 else "fp32"
+        params_d = vit.stack_params(params, cfg, param_dtype=dtype, device=dev)
+        x = torch.from_numpy(images[:batch]).to(dev)
+
+        def ring(x=x, params_d=params_d, dtype=dtype):
+            return spmd.sp_forward(x, params_d, cfg, mesh, compute_dtype=dtype,
+                                   kv="ring")
+
+        probs, counts, secs = counted(ring)
+        probs = probs.cpu().numpy()
+        out[kind] = counts
+        expect_only(counts, f"the {cfg.name} {kind} ring forward (B={batch}, "
+                            f"{secs:.2f} s)", attention_ring=per_forward)
+        err = float(np.abs(probs - ref_probs[:batch]).max())
+        check(err <= PROB_TOL, f"{cfg.name} {kind} sp_forward(kv='ring') on {s} "
+                               f"virtual shards vs fp32 plain: max abs err "
+                               f"{err:.3e}, budget {PROB_TOL}")
+        if dtype == torch.bfloat16:
+            same = (probs.argmax(-1) == engine_probs[:batch].argmax(-1)).all()
+            check(bool(same), f"{cfg.name} ring forward: phase 3e's engine's top-1 "
+                              f"labels on all {batch} images")
+            gather = spmd.sp_forward(x, params_d, cfg, mesh, compute_dtype=dtype,
+                                     kv="gather").cpu().numpy()
+            with swapped(attention, "blockwise_ring_step",
+                         attention.blockwise_ring_step_reference):
+                plain = ring().cpu().numpy()
+            for what, other in (("kv='gather'", gather), ("the plain ring step", plain)):
+                err = float(np.abs(probs - other).max())
+                check(err <= PROB_TOL, f"{cfg.name} bf16 ring forward vs {what}: max "
+                                       f"abs err {err:.3e}, budget {PROB_TOL}")
+        del params_d
+        torch.cuda.empty_cache()
+    return out
+
+
+def tensor_parallel_main_path(dev, rounded: dict, images: np.ndarray,
+                              ref_probs: np.ndarray, engine) -> None:
+    """Phase 3f's ViT-B/16 part, on phase 3's workspace weights and 40
+    decisive images, on virtual meshes of the card: ``tp_forward`` and
+    ``sp_tp_forward`` (flash, bf16; T = 197 padded to 200 and masked by
+    ``true_seq_len`` in SP x TP) on (1, MESH_SHARDS): the single-pass
+    kernel once a layer a shard, within PROB_TOL of the port's plain fp32
+    path and phase 3's engine's labels; W8A8 ``tp_forward`` within
+    W8A8_TP_TOL of fp32 and PROB_TOL of the same forward on the plain
+    attention; ``DataParallelEngine`` on (MESH_SHARDS, 1) with phase 3's
+    labels, within PROB_TOL of its probabilities, and the chain's launches."""
+    cfg, s = CFG, MESH_SHARDS
+    mesh = virtual_mesh(dev, 1, s)
+    stacked = vit.stack_params(rounded, cfg, param_dtype=torch.bfloat16, device=dev)
+    x = torch.from_numpy(images).to(dev)
+    engine_probs = engine.run(images)
+    labels = engine_probs.argmax(-1)
+    shards = spmd.shard_params_tp(stacked, mesh, cfg)
+    for name, fwd in (("tp_forward", spmd.tp_forward),
+                      ("sp_tp_forward", spmd.sp_tp_forward)):
+        probs, counts, secs = counted(lambda fwd=fwd: fwd(
+            x, shards, cfg, mesh, attention_impl="flash").cpu().numpy())
+        expect_only(counts, f"{cfg.name} {name} flash bf16 on {s} virtual shards "
+                            f"({len(images)} images, {secs:.2f} s)",
+                    attention_single=cfg.depth * s)
+        err = float(np.abs(probs - ref_probs).max())
+        check(err <= PROB_TOL and bool((probs.argmax(-1) == labels).all()),
+              f"{cfg.name} {name}: max abs err {err:.3e} vs fp32 plain (budget "
+              f"{PROB_TOL}), phase 3's engine's labels")
+    qshards = spmd.shard_params_tp(quant.quantize_stacked_params(stacked, cfg), mesh, cfg)
+
+    def w8a8():
+        return spmd.tp_forward(x, qshards, cfg, mesh, attention_impl="flash",
+                               w8a8=True).cpu().numpy()
+
+    probs = w8a8()
+    with swapped(attention, "packed_fused_attention",
+                 lambda qkv, **kw: attention.packed_fused_attention_reference(
+                     qkv, kw["num_heads"], kw["head_dim"], packing=kw["packing"],
+                     true_seq_len=kw.get("true_seq_len"))):
+        plain = w8a8()
+    err, plain_err = (float(np.abs(probs - ref_probs).max()),
+                      float(np.abs(probs - plain).max()))
+    check(err <= W8A8_TP_TOL and plain_err <= PROB_TOL,
+          f"{cfg.name} W8A8 tp_forward: max abs err {err:.3e} vs fp32 (budget "
+          f"{W8A8_TP_TOL}), {plain_err:.3e} vs its plain attention (budget {PROB_TOL})")
+    dp = DataParallelEngine(cfg, rounded, batch_size=SMOKE_BATCH, devices=[dev] * s,
+                            attention_impl="flash")
+    probs, counts, secs = counted(lambda: dp.run(images))
+    forwards = -(-len(images) // SMOKE_BATCH) * s
+    expect_only(counts, f"DataParallelEngine on ({s}, 1) virtual devices "
+                        f"({forwards} shard forwards, {secs:.2f} s)",
+                **{key: n * cfg.depth * forwards for key, n in PER_LAYER["bf16"].items()})
+    err = float(np.abs(probs - engine_probs).max())
+    check(err <= PROB_TOL and bool((probs.argmax(-1) == labels).all()),
+          f"DataParallelEngine ({s}, 1): max abs err {err:.3e} vs phase 3's engine "
+          f"(budget {PROB_TOL}), its labels")
+    del stacked, shards, qshards, dp
+    torch.cuda.empty_cache()
+
+
+def ring_throughput(dev, params: dict) -> None:
+    """Phase 4e: ms and img/s of phase 3f's bf16 ring forward at
+    RING_THROUGHPUT_BATCHES, CUDA events around 3 forwards after a warm-up:
+    MESH_SHARDS virtual shards on one card (the kernel path's cost, not
+    multi-card scaling); at RING_BATCH the kernels of a traced forward
+    (``perf.device_kernel_table``), the ring step's share and the card's
+    busy share."""
+    cfg = LONG_CFG
+    mesh = virtual_mesh(dev, 1, MESH_SHARDS)
+    params16 = vit.stack_params(params, cfg, param_dtype=torch.bfloat16, device=dev)
+    for batch in RING_THROUGHPUT_BATCHES:
+        gen = torch.Generator(device=dev).manual_seed(batch)
+        x = torch.randn((batch, 3, cfg.img_size, cfg.img_size), generator=gen,
+                        device=dev)
+        ms = time_ms(lambda: spmd.sp_forward(x, params16, cfg, mesh,
+                                             compute_dtype=torch.bfloat16,
+                                             kv="ring"), reps=3)
+        print(f"ring throughput {cfg.name} bf16 sp_forward(kv='ring'), "
+              f"{MESH_SHARDS} virtual shards on one card, B={batch}: "
+              f"{batch / ms * 1e3:.2f} img/s ({ms:.2f} ms per forward)", flush=True)
+        print(json.dumps({"ring_throughput": {
+            "config": cfg.name, "shards": MESH_SHARDS, "virtual": True,
+            "batch": batch, "forward_ms": ms, "img_per_s": batch / ms * 1e3}}),
+            flush=True)
+        if batch != RING_BATCH:
+            continue
+        # Where one forward's card time goes: the kernels of a traced run.
+        full = perf.device_kernel_table(
+            lambda im: spmd.sp_forward(im, params16, cfg, mesh,
+                                       compute_dtype=torch.bfloat16, kv="ring"),
+            (x,), iters=1)
+        device_ms = sum(k.total_ms for k in full)
+        ring_ms = sum(k.total_ms for k in full if "ring_step" in k.name)
+        print("  " + perf.format_kernel_table(full[:12]).replace("\n", "\n  "),
+              flush=True)
+        print(f"  B={batch} ring forward: kernels {device_ms:.2f} ms of {ms:.2f} ms "
+              f"(busy share {device_ms / ms:.4f}); the ring step kernel "
+              f"{ring_ms:.2f} ms ({ring_ms / device_ms:.2%} of the kernels' time)",
+              flush=True)
+    del params16
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("FAIL: torch.cuda.is_available() is false: chip_smoke needs a card")
@@ -2528,6 +2838,9 @@ def main() -> int:
               "residual_layer_norm) and the packed attention's 849-1024 window "
               "vs plain versions")
         public_rows = public_op_rows(dev)
+        phase("== phase 2i: the ring step kernel (blockwise_ring_step) vs its plain "
+              "version at the ring's shard shapes")
+        ring_rows = ring_kernel_rows(dev)
     torch.cuda.empty_cache()
 
     with tempfile.TemporaryDirectory() as tmp:
@@ -2573,11 +2886,17 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         phase(f"== phase 3e: ViT-L/16@512 inference main path (InferenceEngine, bf16, "
               f"flash, B={LONG_BATCH})")
-        long_counts = long_inference_main_path(dev, Path(tmp), long_params)
+        long_counts, long_images, long_ref, long_probs = long_inference_main_path(
+            dev, Path(tmp), long_params)
+    with torch.inference_mode():
+        phase(f"== phase 3f: multi-device inference on virtual meshes of the card "
+              f"(sp_forward kv='ring' at {LONG_CFG.name}; tp_forward, sp_tp_forward, "
+              f"W8A8 TP and DataParallelEngine at {CFG.name})")
+        ring_counts = ring_main_path(dev, long_params, long_images, long_ref, long_probs)
+        tensor_parallel_main_path(dev, rounded, images, ref_probs, engine)
     phase("== phase 5c: ViT-L/16@512 training main path (Trainer, bf16, AdamW; "
           "flash and fused; a step of each vs the plain links)")
     long_train_counts = long_training_main_path(dev, long_params)
-    del long_params
 
     phase("== phase 4: throughput")
     with torch.inference_mode():
@@ -2595,6 +2914,11 @@ def main() -> int:
     phase("== phase 4d: ViT-L/16@512 training throughput")
     training_throughput(dev, LONG_CFG, LONG_BATCH, ("fused", "flash"))
     torch.cuda.empty_cache()
+    with torch.inference_mode():
+        phase(f"== phase 4e: {LONG_CFG.name} ring forward throughput, {MESH_SHARDS} "
+              f"virtual shards on one card")
+        ring_throughput(dev, long_params)
+    del long_params
 
     with torch.inference_mode():
         phase("== phase 6: the kernel layer's public ops and the perf tools "
@@ -2665,6 +2989,12 @@ def main() -> int:
     # forward's from the public ops' run.
     runs += [(profile_counts if r["counter"] == "attention_single" else public_counts, r)
              for r in public_rows]
+    # Phase 2i's first-rotation rows at phase 3f's shape (ViT-L/16@512, 4
+    # shards, B = 8), from phase 3f's bf16 and fp32 ring forwards.
+    runs += [(ring_counts["bf16" if "(bf16," in r["name"] else "fp32"], r)
+             for r in ring_rows
+             if r["name"].startswith(f"blockwise_ring_step ViT-L/16@512 4 shards "
+                                     f"B={RING_BATCH} ") and "first rotation" in r["name"]]
     record = {"kernels": [
         {"name": r["name"], "route": "cuda", "source": SOURCES[r["counter"]],
          "replaces": r["replaces"] or REPLACES[r["counter"]],

@@ -1071,3 +1071,237 @@ def test_train_step_on_card_matches_plain_links(dev, route, case, monkeypatch):
     assert abs(loss - plain_loss) <= 1e-3 * abs(plain_loss)
     for key in ("qkv_w", "fc1_w"):
         _rel_close(mu["layers"][key], plain_mu["layers"][key], 5e-2)
+
+
+# The ring step kernel (row 10, ``blockwise_ring_step``): its outputs are
+# fp32. m and l: the same scores and sums in another order (1e-5 of
+# scale). acc: at fp32 the same; at bf16 a score an ulp off the plain
+# version's may round its p the other way, moving that term by a bf16 ulp
+# (2^-8 of the largest term, well inside 2e-3 of acc's scale).
+RING_REL = {torch.float32: 1e-5, torch.bfloat16: 2e-3}
+# (n, t_loc, hd, block_k, masked keys): ViT-L/16@512 on 4 shards (257, the
+# last shard's 3 padded keys) and 8 shards (129), ViT-B on one shard (197),
+# ViT-H/14@518 on 4 shards (343, hd 80), two 512-key blocks (1024), and
+# ViT-G's and the widest head dims.
+RING_SHAPES = [(64, 257, 64, 257, 3), (32, 129, 64, 129, 7), (48, 197, 64, 197, 0),
+               (16, 343, 80, 343, 1), (4, 1024, 64, 512, 0), (8, 96, 104, 48, 5),
+               (4, 200, 128, 100, 0), (3, 37, 16, 37, 2)]
+
+
+def _ring_inputs(dev, n, t_loc, hd, dtype, masked, seed=0):
+    q, k, v = (_rand((n, t_loc, hd), dev, dtype, seed=seed + i) for i in range(3))
+    bias = torch.zeros((1, t_loc), device=dev)
+    if masked:
+        bias[:, t_loc - masked:] = attention.MASK_VALUE
+    return q, k, v, bias
+
+
+def _ring_close(got, want, dtype):
+    for g, w, name in zip(got, want, ("m", "l", "acc")):
+        assert g.dtype == torch.float32 and g.shape == w.shape, name
+        rel = RING_REL[dtype] if name == "acc" else 1e-5
+        _rel_close(g, w, rel)
+
+
+@pytest.mark.parametrize("n,t_loc,hd,block,masked", RING_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_ring_step_kernel(dev, n, t_loc, hd, block, masked, dtype):
+    """The first rotation from (-inf, 0, 0), then 4 rotations chained (each
+    side carrying its own state) against the plain version."""
+    state = (torch.full((n, t_loc), -float("inf"), device=dev),
+             torch.zeros((n, t_loc), device=dev),
+             torch.zeros((n, t_loc, hd), device=dev))
+    kernel_state, plain_state = state, state
+    kw = dict(scale=float(1.0 / np.sqrt(hd)), block_q=block, block_k=block)
+    for rotation in range(4):
+        q, k, v, bias = _ring_inputs(dev, n, t_loc, hd, dtype,
+                                     masked if rotation == 3 else 0, seed=3 * rotation)
+        before = attention.LAUNCHES_RING
+        kernel_state = attention.blockwise_ring_step(q, k, v, bias, *kernel_state, **kw)
+        torch.cuda.synchronize()
+        assert attention.LAUNCHES_RING == before + 1
+        plain_state = attention.blockwise_ring_step_reference(q, k, v, bias,
+                                                              *plain_state, **kw)
+        _ring_close(kernel_state, plain_state, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_ring_step_kernel_wipes_a_masked_first_block(dev, dtype):
+    """A row whose first block is all masked gets m' near MASK_VALUE and
+    counts its masked keys as ones, as JAX's kernel does; the next live
+    block wipes that out with a = 0."""
+    n, t_loc, hd = 4, 129, 64
+    q, k, v, bias = _ring_inputs(dev, n, t_loc, hd, dtype, masked=t_loc)
+    state = (torch.full((n, t_loc), -float("inf"), device=dev),
+             torch.zeros((n, t_loc), device=dev), torch.zeros((n, t_loc, hd), device=dev))
+    kw = dict(scale=0.125, block_q=t_loc, block_k=t_loc)
+    got = attention.blockwise_ring_step(q, k, v, bias, *state, **kw)
+    want = attention.blockwise_ring_step_reference(q, k, v, bias, *state, **kw)
+    _ring_close(got, want, dtype)
+    assert float(got[0].max()) < -1e38 and torch.equal(got[1], want[1])
+    q2, k2, v2, live = _ring_inputs(dev, n, t_loc, hd, dtype, masked=0, seed=5)
+    _ring_close(attention.blockwise_ring_step(q, k2, v2, live, *got, **kw),
+                attention.blockwise_ring_step_reference(q, k2, v2, live, *want, **kw),
+                dtype)
+
+
+def test_ring_step_kernel_refusals(dev):
+    """Head dims the kernel does not take, blocks that do not divide t_loc,
+    other dtypes and tensors under autograd raise; nothing falls back."""
+    q, k, v, bias = _ring_inputs(dev, 2, 64, 64, torch.bfloat16, 0)
+    state = (torch.full((2, 64), -float("inf"), device=dev),
+             torch.zeros((2, 64), device=dev), torch.zeros((2, 64, 64), device=dev))
+    with pytest.raises(ValueError, match="must divide"):
+        attention.blockwise_ring_step(q, k, v, bias, *state, scale=0.1,
+                                      block_q=64, block_k=48)
+    with pytest.raises(NotImplementedError, match="bf16 or fp32"):
+        attention.blockwise_ring_step(q.half(), k.half(), v.half(), bias, *state,
+                                      scale=0.1, block_q=64, block_k=64)
+    q12, k12, v12, _ = _ring_inputs(dev, 2, 64, 12, torch.bfloat16, 0)
+    with pytest.raises(NotImplementedError, match="head_dim"):
+        attention.blockwise_ring_step(q12, k12, v12, bias, state[0], state[1],
+                                      torch.zeros((2, 64, 12), device=dev),
+                                      scale=0.1, block_q=64, block_k=64)
+    with pytest.raises(RuntimeError, match="einsum"):
+        attention.blockwise_ring_step(q.float().requires_grad_(True), k.float(),
+                                      v.float(), bias, *state, scale=0.1,
+                                      block_q=64, block_k=64)
+
+
+def test_ring_attention_on_a_virtual_mesh_of_the_card(dev):
+    """ring_attention over 4 shards of one card: a 4-step ring, one kernel
+    launch a shard a step, against the same ring on the CPU's plain steps."""
+    from vit_with_opencl_tpu_torch.ops import ring_attention
+    from vit_with_opencl_tpu_torch.parallel.mesh import Mesh
+
+    cfg = _heads_cfg(2, 64)
+    q, k, v = (_rand((2, 2, 1025, 64), dev, torch.bfloat16, seed=i) for i in range(3))
+    before = attention.LAUNCHES_RING
+    out = ring_attention.ring_attention(q, k, v, cfg, Mesh([dev] * 4, ("model",)))
+    torch.cuda.synchronize()
+    assert attention.LAUNCHES_RING == before + 16
+    ref = ring_attention.ring_attention(q.cpu(), k.cpu(), v.cpu(), cfg,
+                                        Mesh(["cpu"] * 4, ("model",)))
+    _close(out.cpu(), ref)
+
+
+@pytest.mark.parametrize("t,seq", [(200, 197), (1028, 1025), (64, 64)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_packed_attention_per_head_and_true_seq_len(dev, t, seq, dtype):
+    """Per-head packing and true_seq_len on the card: up to padded T = 1024
+    the single-pass kernel on strided views with kv_len, past it (slab
+    packing) the blockwise kernel with its kv_len; fp32 past 1024 and
+    per-head packing past 1024 raise."""
+    b, nh, hd = 2, 4, 64
+    qkv = _rand((b, t, 3 * nh * hd), dev, dtype)
+    long_seq = attention._is_long_seq(t)
+    for packing in ("per_head", "slab"):
+        if long_seq and (packing == "per_head" or dtype == torch.float32):
+            error = "slab packing only" if packing == "per_head" else "bf16"
+            with pytest.raises(NotImplementedError, match=error):
+                attention.packed_fused_attention(qkv, num_heads=nh, head_dim=hd,
+                                                 packing=packing, true_seq_len=seq)
+            continue
+        if not long_seq and packing == "slab" and seq == t and dtype == torch.float32:
+            continue  # the packed kernel takes bf16 only (unchanged)
+        before = (attention.LAUNCHES_SINGLE, attention.LAUNCHES_FLASH)
+        out = attention.packed_fused_attention(qkv, num_heads=nh, head_dim=hd,
+                                               packing=packing, true_seq_len=seq)
+        torch.cuda.synchronize()
+        if long_seq:
+            assert attention.LAUNCHES_FLASH == before[1] + 1
+        elif packing == "per_head" or seq != t:
+            assert attention.LAUNCHES_SINGLE == before[0] + 1
+        ref = attention.packed_fused_attention_reference(
+            qkv, nh, hd, packing=packing, true_seq_len=seq)
+        if dtype == torch.bfloat16:
+            _close(out, ref)
+        else:
+            _rel_close(out, ref, SINGLE_F32_REL)
+
+
+@pytest.fixture
+def cards(dev):
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs two or more NVIDIA cards")
+    return [torch.device("cuda", i) for i in range(n)]
+
+
+def test_kernels_launch_on_the_cards_of_their_tensors(cards):
+    """With cuda:0 current and a side stream current on another card,
+    wrappers given tensors on that card launch there, on the side stream,
+    after the op that wrote their inputs: a ring step, a layer norm, a GEMM
+    that opts into more than 48 KB of shared memory and the single-pass
+    attention, each against its plain version. (A launch from cuda:0 onto
+    another card's stream fails: the check is not left to a race.)"""
+    other = cards[-1]
+    side = torch.cuda.Stream(other)
+    with torch.cuda.stream(side), torch.cuda.device(cards[0]):
+        assert torch.cuda.current_device() == cards[0].index
+        assert torch.cuda.current_stream(other) == side
+        n, t_loc, hd = 64, 257, 64
+        q, k, v, bias = _ring_inputs(other, n, t_loc, hd, torch.bfloat16, 3)
+        q = (q.float() * 2).to(torch.bfloat16)  # written on the side stream
+        state = (torch.full((n, t_loc), -float("inf"), device=other),
+                 torch.zeros((n, t_loc), device=other),
+                 torch.zeros((n, t_loc, hd), device=other))
+        kw = dict(scale=0.125, block_q=t_loc, block_k=t_loc)
+        got = attention.blockwise_ring_step(q, k, v, bias, *state, **kw)
+        assert got[2].device == other
+        _ring_close(got, attention.blockwise_ring_step_reference(q, k, v, bias,
+                                                                 *state, **kw),
+                    torch.bfloat16)
+        x = _rand((3152, 768), other, torch.bfloat16, std=2.0)
+        lw = _rand((768,), other, std=0.1, seed=1) + 1.0
+        lb = _rand((768,), other, std=0.1, seed=2)
+        _close(layernorm.layer_norm(x, lw, lb, 1e-6),
+               layernorm.layer_norm_reference(x, lw, lb, 1e-6))
+        w = _rand((768, 2304), other, torch.bfloat16, std=0.05, seed=3)
+        _close(linear.fused_linear(x, w, lb.repeat(3)),
+               linear.fused_linear_reference(x, w, lb.repeat(3)))
+        qs, ks, vs = (_rand((4, 12, 197, 64), other, torch.bfloat16, seed=i)
+                      for i in range(3))
+        _close(attention.single_pass_attention(qs, ks, vs, 64),
+               attention.single_pass_attention_reference(qs, ks, vs, 64))
+        assert torch.cuda.current_device() == cards[0].index
+
+
+def test_mesh_paths_across_cards(cards):
+    """The mesh paths over every card give what the same paths give on a
+    virtual mesh of cuda:0: sp_forward with the ring kernel (t_loc >= 128
+    at 4 or 2 shards), tp_forward and sp_tp_forward with the single-pass
+    kernel, and DataParallelEngine against the one-card engine."""
+    from vit_with_opencl_tpu_torch.engine import DataParallelEngine, InferenceEngine
+    from vit_with_opencl_tpu_torch.parallel import spmd
+
+    s = 4 if len(cards) >= 4 else 2
+    cfg = ViTConfig(name="mesh", img_size=224, patch_size=8, embed_dim=256,
+                    depth=2, num_heads=4, num_classes=10)
+    named = fixtures.random_params(cfg, seed=0, scale=0.05)
+    x = torch.from_numpy(fixtures.random_images(cfg, n=4, seed=1)).to(cards[0])
+    real = spmd.make_mesh(1, s, devices=cards)
+    virtual = spmd.make_mesh(1, s, devices=[cards[0]] * s)
+    stacked = vit.stack_params(named, cfg, param_dtype=torch.bfloat16,
+                               device=cards[0])
+    reps = spmd.replicate_params(stacked, real)
+    assert set(reps) == set(cards[:s])
+    before = attention.LAUNCHES_RING
+    got = spmd.sp_forward(x, reps, cfg, real, compute_dtype=torch.bfloat16, kv="ring")
+    torch.cuda.synchronize()
+    assert attention.LAUNCHES_RING == before + cfg.depth * s * s
+    want = spmd.sp_forward(x, stacked, cfg, virtual, compute_dtype=torch.bfloat16,
+                           kv="ring")
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-6)
+    for fwd in (spmd.tp_forward, spmd.sp_tp_forward):
+        got = fwd(x, spmd.shard_params_tp(stacked, real, cfg), cfg, real,
+                  attention_impl="flash")
+        want = fwd(x, spmd.shard_params_tp(stacked, virtual, cfg), cfg, virtual,
+                   attention_impl="flash")
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-6)
+    images = fixtures.random_images(cfg, n=len(cards) * 2, seed=2)
+    dp = DataParallelEngine(cfg, named, batch_size=len(cards) * 2, devices=cards,
+                            attention_impl="flash")
+    one = InferenceEngine(cfg, named, batch_size=2, attention_impl="flash",
+                          device=cards[0])
+    np.testing.assert_allclose(dp.run(images), one.run(images), rtol=0, atol=1e-6)

@@ -32,7 +32,8 @@ def test_importing_every_module_loads_no_jax():
     for name in ("ops.fused_block", "ops.quantize", "models.quant", "train",
                  "optim", "data", "parallel.spmd", "io.checkpoint",
                  "io.export", "ops.softmax", "perf.profiler",
-                 "perf.kernel_trace"):
+                 "perf.kernel_trace", "parallel.mesh", "parallel.collectives",
+                 "ops.ring_attention"):
         assert f"vit_with_opencl_tpu_torch.{name}" in modules
     code = "\n".join([
         "import importlib, sys",
@@ -111,3 +112,22 @@ def test_engine_needs_cuda_unless_cpu_is_asked(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         InferenceEngine(cfg, params, device="cuda")
     assert InferenceEngine(cfg, params, device="cpu").device.type == "cpu"
+
+
+def test_mesh_needs_cuda_unless_devices_are_given(monkeypatch):
+    """``make_mesh`` and ``DataParallelEngine`` default to every CUDA device
+    and raise without one; CPU devices run only when passed."""
+    from vit_with_opencl_tpu_torch.engine import DataParallelEngine
+    from vit_with_opencl_tpu_torch.parallel import spmd
+
+    cfg = ViTConfig(name="iso", img_size=16, patch_size=8, embed_dim=16,
+                    depth=1, num_heads=2, num_classes=3)
+    params = fixtures.random_params(cfg, seed=0)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        spmd.make_mesh(1, 2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        DataParallelEngine(cfg, params, batch_size=2)
+    assert spmd.make_mesh(1, 2, devices=["cpu"] * 2).shape == {"data": 1, "model": 2}
+    engine = DataParallelEngine(cfg, params, batch_size=2, devices=["cpu"] * 2)
+    assert engine.device.type == "cpu"

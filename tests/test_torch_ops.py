@@ -130,13 +130,16 @@ def test_packed_attention_matches_jax(no_launches, dtype):
 
 
 def test_packed_attention_unported_options_raise():
-    qkv = torch.zeros(1, 5, 48)
-    with pytest.raises(NotImplementedError):
-        attention.packed_fused_attention(qkv, num_heads=2, head_dim=8,
-                                         packing="per_head")
-    with pytest.raises(NotImplementedError):
-        attention.packed_fused_attention(qkv, num_heads=2, head_dim=8,
-                                         true_seq_len=4)
+    """What the JAX package refuses, the port refuses: per-head packing past
+    padded T = 1024 (the blockwise route takes slabs only) and an unknown
+    packing. Per-head packing and ``true_seq_len`` below that are ported;
+    tests/test_torch_parallel.py holds them to JAX's."""
+    with pytest.raises(NotImplementedError, match="slab packing only"):
+        attention.packed_fused_attention(torch.zeros(1, 1030, 48), num_heads=2,
+                                         head_dim=8, packing="per_head")
+    with pytest.raises(ValueError, match="unknown packing"):
+        attention.packed_fused_attention(torch.zeros(1, 5, 48), num_heads=2,
+                                         head_dim=8, packing="diagonal")
 
 
 ENC_CFG = ViTConfig(name="enc", img_size=32, patch_size=8, embed_dim=64,

@@ -76,22 +76,25 @@ template <int HDP>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const bf16* __restrict__ v, bf16* __restrict__ out, HeadViews views,
-                 float* __restrict__ lse, int T, int num_heads, int hd, float scale) {
+                 float* __restrict__ lse, int T, int kv_len, int num_heads, int hd,
+                 float scale) {
   const int b = blockIdx.z, h = blockIdx.y;
-  const int Tp = (T + 15) & ~15;
+  const int kvp = (kv_len + 15) & ~15;
   extern __shared__ __align__(16) unsigned char smem[];
   const bf16* qb = head_base(q, views.q, b, h);
   const bf16* kb = head_base(k, views.k, b, h);
   const bf16* vb = head_base(v, views.v, b, h);
-  const int ntiles = (T + kKeyTile - 1) / kKeyTile;
+  // Key tiles wholly past kv_len hold masked keys only: a = 1, p = 0, so
+  // they move nothing and are skipped.
+  const int ntiles = (kv_len + kKeyTile - 1) / kKeyTile;
   auto stage = [&](int s) {
     return reinterpret_cast<bf16*>(smem + (s % kStages) * fwd_stage_bytes<HDP>());
   };
   auto fetch = [&](int s) {
     const int k0 = s * kKeyTile;
-    load_tile<HDP, kKeyTile>(stage(s), kb, views.k.row, 0, k0, T, hd);
+    load_tile<HDP, kKeyTile>(stage(s), kb, views.k.row, 0, k0, kv_len, hd);
     load_tile<HDP, kKeyTile>(stage(s) + tile_elems<HDP, kKeyTile>(), vb,
-                             views.v.row, 0, k0, T, hd);
+                             views.v.row, 0, k0, kv_len, hd);
     cp_async_commit();
   };
   fetch(0);
@@ -120,9 +123,9 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const bf16* ks = stage(s);
     const bf16* vs = ks + tile_elems<HDP, kKeyTile>();
     const int k0 = s * kKeyTile;
-    // 8-key sub-tiles up to Tp; the ones past it hold masked keys only,
-    // whose p is exactly 0, and a tile always holds a key below T.
-    const int nsub = min(kKeyTile, Tp - k0) / 8;
+    // 8-key sub-tiles up to kvp; the ones past it hold masked keys only,
+    // whose p is exactly 0, and a tile always holds a key below kv_len.
+    const int nsub = min(kKeyTile, kvp - k0) / 8;
 
     float sc[kKeyTile / 8][4];  // the tile's scores, then its p
     float mc0 = -INFINITY, mc1 = -INFINITY;
@@ -132,10 +135,10 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         float* c = sc[sub];
         dot_tile<HDP, false>(c, qa, ks, sub, 1.f, g, t);
         const int key = k0 + sub * 8 + 2 * t;
-        c[0] = key < T ? c[0] * scale : kMaskValue;
-        c[1] = key + 1 < T ? c[1] * scale : kMaskValue;
-        c[2] = key < T ? c[2] * scale : kMaskValue;
-        c[3] = key + 1 < T ? c[3] * scale : kMaskValue;
+        c[0] = key < kv_len ? c[0] * scale : kMaskValue;
+        c[1] = key + 1 < kv_len ? c[1] * scale : kMaskValue;
+        c[2] = key < kv_len ? c[2] * scale : kMaskValue;
+        c[3] = key + 1 < kv_len ? c[3] * scale : kMaskValue;
         mc0 = fmaxf(mc0, fmaxf(c[0], c[1]));
         mc1 = fmaxf(mc1, fmaxf(c[2], c[3]));
       }
@@ -411,16 +414,16 @@ flash_bwd_dkv_kernel(const bf16* __restrict__ qkv, const float* __restrict__ lse
 
 template <int HDP>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* out,
-                       HeadViews views, float* lse, int B, int T, int num_heads,
-                       int hd, float scale, cudaStream_t stream) {
+                       HeadViews views, float* lse, int B, int T, int kv_len,
+                       int num_heads, int hd, float scale, cudaStream_t stream) {
   constexpr size_t smem = kStages * fwd_stage_bytes<HDP>();
   cudaError_t err = allow_dynamic_smem(flash_fwd_kernel<HDP>, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((T + kRows - 1) / kRows, num_heads, B);
   flash_fwd_kernel<HDP><<<grid, kThreads, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(out), views, lse, T, num_heads,
-      hd, scale);
+      static_cast<const bf16*>(v), static_cast<bf16*>(out), views, lse, T, kv_len,
+      num_heads, hd, scale);
   return cudaGetLastError();
 }
 
@@ -464,20 +467,23 @@ cudaError_t launch_bwd(const void* qkv, const void* out, const float* lse,
   }
 
 // qkv [B, T, 3D] bf16 -> out [B, T, D] bf16 and, unless lse is null, lse
-// [B, num_heads, T] fp32. head_dim must be a multiple of 8 up to 128
+// [B, num_heads, T] fp32; keys at and past kv_len (1 <= kv_len <= T) are
+// masked (a caller whose token axis is already padded: JAX's
+// _blockwise_fwd_flat(seq_len=)). head_dim must be a multiple of 8 up to 128
 // (ops/attention.py checks it before calling); any T.
 VIT_EXPORT int vit_flash_attention_fwd(const void* qkv, void* out, float* lse, int B,
-                                       int T, int num_heads, int head_dim,
+                                       int T, int kv_len, int num_heads, int head_dim,
                                        float scale, void* stream) {
   using namespace vit::flash;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (B <= 0 || T <= 0 || num_heads <= 0 || head_dim % 8 != 0 || head_dim > 128)
+  if (B <= 0 || T <= 0 || kv_len <= 0 || kv_len > T || num_heads <= 0 ||
+      head_dim % 8 != 0 || head_dim > 128)
     return cudaErrorInvalidValue;
   const vit::bf16* base = static_cast<const vit::bf16*>(qkv);
   const int D = num_heads * head_dim;
   VIT_FLASH_DISPATCH(launch_fwd, base, base + D, base + 2 * D, out,
-                     slab_views(T, num_heads, head_dim), lse, B, T, num_heads,
-                     head_dim, scale, s)
+                     slab_views(T, num_heads, head_dim), lse, B, T, kv_len,
+                     num_heads, head_dim, scale, s)
 }
 
 // The same kernel on split heads: q, k, v and out are [B, num_heads, T,
@@ -493,7 +499,7 @@ VIT_EXPORT int vit_flash_attention_fwd_strided(const void* q, const void* k,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (B <= 0 || T <= 0 || num_heads <= 0 || head_dim % 8 != 0 || head_dim > 128)
     return cudaErrorInvalidValue;
-  VIT_FLASH_DISPATCH(launch_fwd, q, k, v, out, head_views(strides), lse, B, T,
+  VIT_FLASH_DISPATCH(launch_fwd, q, k, v, out, head_views(strides), lse, B, T, T,
                      num_heads, head_dim, scale, s)
 }
 

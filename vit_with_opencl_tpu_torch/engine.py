@@ -1,4 +1,4 @@
-"""Batched inference engine on one device.
+"""Batched inference engines: one device, and data-parallel over several.
 
 Counterpart of ``vit_with_opencl_tpu/engine.py:InferenceEngine``: the
 weights go to the device once at construction, the forward runs at one
@@ -6,6 +6,8 @@ static batch size and the last batch is padded (excess rows discarded), and
 every batch is enqueued before the results are gathered in one copy back to
 the host. PyTorch runs eagerly, so there is no compile step; ``warmup``
 builds the CUDA kernels (at first use) and runs one batch.
+``DataParallelEngine`` (JAX's of the same name) splits each batch over the
+devices of a mesh, with the weights replicated.
 """
 
 from __future__ import annotations
@@ -131,11 +133,17 @@ class InferenceEngine:
     @torch.inference_mode()
     def forward(self, images: torch.Tensor) -> torch.Tensor:
         """One batch already on the device → probabilities [B, classes]."""
-        if self.normalize_uint8:
-            images = (images.float() - self._mean) * self._inv_std
-        return vit.forward(images, self.params, self.config,
+        return vit.forward(self._preprocess(images), self.params, self.config,
                            compute_dtype=self.compute_dtype,
                            kernels=self.kernels)
+
+    def _preprocess(self, images: torch.Tensor) -> torch.Tensor:
+        """Raw uint8 pixels normalised on their device (with
+        ``normalize_uint8``); otherwise ``images`` as given."""
+        if not self.normalize_uint8:
+            return images
+        dev = images.device
+        return (images.float() - self._mean.to(dev)) * self._inv_std.to(dev)
 
     def warmup(self) -> float:
         """Run one zero batch (building the kernels at first use); returns
@@ -177,3 +185,65 @@ class InferenceEngine:
             outputs.append(self.forward(torch.from_numpy(chunk).to(self.device)))
         # One copy back to the host, after every batch was enqueued.
         return torch.cat(outputs).cpu().numpy()[:n]
+
+
+class DataParallelEngine(InferenceEngine):
+    """Batched inference data-parallel over a device mesh.
+
+    The same ``run``/``warmup``/``forward``/``batch_size`` surface as
+    ``InferenceEngine``: the batch is split over ``devices`` (a mesh of
+    (n, 1), as ``parallel.spmd.dp_forward_fn`` splits it), the weights
+    replicated on each (stacked, quantized or calibrated once, as the
+    single-device engine does), no communication but the results' copy to
+    the first device. ``batch_size`` is global and must divide by the device
+    count. ``devices`` defaults to every CUDA device (it raises without
+    one); ``["cpu"] * 8`` runs the plain versions on the CPU. A device may
+    repeat: ``["cuda:0"] * 4`` is a virtual mesh of one card.
+    ``tuning_path`` (the autotune cache) is not ported and raises."""
+
+    def __init__(
+        self,
+        config: ViTConfig,
+        named_params: Dict[str, np.ndarray],
+        *,
+        batch_size: int = 32,
+        devices=None,
+        param_dtype: torch.dtype = torch.bfloat16,
+        compute_dtype: torch.dtype = torch.bfloat16,
+        attention_impl: str = "flash",
+        quantize: Optional[str] = None,
+        normalize_uint8: bool = False,
+        tuning_path: Optional[str] = None,
+        calibrate: Optional[np.ndarray] = None,
+    ):
+        from .parallel import mesh as mesh_mod, spmd
+
+        if tuning_path is not None:
+            raise NotImplementedError(
+                "the autotune cache (tuning_path) is not ported yet")
+        devices = list(devices) if devices is not None else mesh_mod.default_devices()
+        self.n_devices = len(devices)
+        if int(batch_size) % self.n_devices:
+            raise ValueError(f"global batch {batch_size} not divisible by "
+                             f"{self.n_devices} devices")
+        t0 = time.perf_counter()
+        self.mesh = mesh_mod.make_mesh(data=self.n_devices, model=1,
+                                       devices=devices)
+        super().__init__(config, named_params, batch_size=batch_size,
+                         param_dtype=param_dtype, compute_dtype=compute_dtype,
+                         attention_impl=attention_impl,
+                         device=self.mesh.devices[0, 0],
+                         quantize=quantize, normalize_uint8=normalize_uint8,
+                         calibrate=calibrate)
+        self._replicas = spmd.replicate_params(self.params, self.mesh)
+        self._dp_forward = spmd.dp_forward_fn(
+            config, self.mesh, compute_dtype=compute_dtype,
+            kernels=self.kernels, preprocess=self._preprocess)
+        self.setup_time = time.perf_counter() - t0
+
+    @torch.inference_mode()
+    def forward(self, images: torch.Tensor) -> torch.Tensor:
+        """One global batch (on any device) → probabilities [B, classes] on
+        the first device: each device's slice through the forward there
+        (``parallel.spmd.dp_forward_fn``)."""
+        return self._dp_forward(images, self._replicas)

@@ -24,6 +24,10 @@ CPU tensor), and counts its launches.
 |   _flash_kernel_lse,                 |   csrc/attention_flash.cu (with the  |
 |   _flash_bwd_dq_kernel,              |   tile helpers of                    |
 |   _flash_bwd_dkv_kernel              |   csrc/attention_tiles.cuh)          |
+| ops/attention.py:_flash_carry_kernel | ops/attention.py                     |
+|   (blockwise_ring_step)              |   (blockwise_ring_step, the local    |
+|                                      |   step of ops/ring_attention.py),    |
+|                                      |   csrc/attention_ring.cu             |
 | ops/fused_block.py:                  | ops/fused_block.py (chains of the    |
 |   _attn_half_fwd_kernel,             |   kernels above and of the backward's|
 |   _mlp_bwd_kernel, _attn_bwd_kernel  |   GEMM forms in csrc/linear.cu, LN   |

@@ -67,8 +67,9 @@ SIGNATURES = {
     # qkv, dout, dqkv, dqkv_dtype, stats, B, T, num_heads, head_dim,
     # q_scale, ds_scale, stream
     "vit_packed_attention_bwd": [_P, _P, _P, _I, _P, _I, _I, _I, _I, _F, _F, _P],
-    # qkv, out, lse (or NULL), B, T, num_heads, head_dim, scale, stream
-    "vit_flash_attention_fwd": [_P, _P, _P, _I, _I, _I, _I, _F, _P],
+    # qkv, out, lse (or NULL), B, T, kv_len, num_heads, head_dim, scale,
+    # stream
+    "vit_flash_attention_fwd": [_P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
     # q, k, v, out, lse (or NULL), strides (12), B, T, num_heads, head_dim,
     # scale, stream
     "vit_flash_attention_fwd_strided": [_P, _P, _P, _P, _P, _LL, _I, _I, _I,
@@ -89,6 +90,10 @@ SIGNATURES = {
                           _P],
     # x, x_dtype, out, partial, rows, cols, stream
     "vit_column_sum": [_P, _I, _P, _P, _I, _I, _P],
+    # q, k, v, bias, m_in, l_in, acc_in, m_out, l_out, acc_out, dtype, n,
+    # t_loc, head_dim, block_k, scale, stream
+    "vit_ring_step": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                      _I, _F, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -184,9 +189,19 @@ def check_launch(err: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
 
 
-def stream_handle(t: torch.Tensor) -> int:
-    """PyTorch's current stream on ``t``'s device, as the entry points take it."""
-    return torch.cuda.current_stream(t.device).cuda_stream
+def launch(name: str, t: torch.Tensor, *args) -> int:
+    """Call entry point ``name`` with ``args`` and PyTorch's current stream
+    on ``t``'s device, with that device made current around the call.
+
+    The entry points launch through the CUDA runtime, which works on the
+    calling thread's current device: its null stream (the handle of
+    PyTorch's default stream is 0) and its per-device kernel attributes.
+    Without the guard a tensor on ``cuda:1`` would be read by a kernel on
+    ``cuda:0`` that does not wait for ``cuda:1``'s stream. Returns the
+    entry point's cudaError_t."""
+    with torch.cuda.device(t.device):
+        stream = torch.cuda.current_stream(t.device).cuda_stream
+        return getattr(library(), name)(*args, stream)
 
 
 def head_strides(*views: torch.Tensor):

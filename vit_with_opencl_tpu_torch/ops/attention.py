@@ -1,6 +1,6 @@
 """Attention: the CUDA kernels ``csrc/attention.cu``,
-``csrc/attention_single.cu`` and ``csrc/attention_flash.cu`` and their plain
-versions.
+``csrc/attention_single.cu``, ``csrc/attention_flash.cu`` and
+``csrc/attention_ring.cu`` and their plain versions.
 
 Replaces ``vit_with_opencl_tpu/ops/attention.py:_packed_kernel``
 (``packed_fused_attention``): [B, T, 3D] packed q|k|v slabs in, the
@@ -32,12 +32,24 @@ head's K and V in one block's shared memory, which stops fitting at T = 849
 (hd 64); from there to padded T = 1024, where JAX keeps the one-shot route,
 ``packed_fused_attention`` launches the single-pass kernel on the slabs.
 
+``packing="per_head"`` (head h's q, k and v at columns h·3·hd + {0, 1,
+2}·hd: the tensor-parallel layout) and ``true_seq_len`` (keys at and past
+it masked: a token axis that the caller already padded) take, on the card,
+the single-pass kernel on strided views of the slabs with ``kv_len`` up to
+padded T = 1024, and past it (slab packing only, as in JAX) the blockwise
+kernel with its ``kv_len``.
+
+``blockwise_ring_step`` replaces ``_flash_carry_kernel``, the local step of
+ring attention (``ops/ring_attention.py``): one rotation's blockwise
+attention whose (m, l, acc) come in from the previous rotation and go out
+un-normalised, bf16 or fp32, through ``csrc/attention_ring.cu``; its plain
+version is ``blockwise_ring_step_reference``.
+
 Every wrapper launches a kernel for a CUDA tensor and computes its plain
-version for a CPU tensor; there is no other fallback. Not ported yet:
-"per_head" packing and ``true_seq_len`` (the tensor-parallel and
-sequence-parallel callers), fp32 inputs on the card other than
-``flash_attention``'s at T ≤ 1024, and a blockwise key tile other than 128
-on the card; those raise ``NotImplementedError``.
+version for a CPU tensor; there is no other fallback. Not ported yet: fp32
+inputs on the card other than the single-pass kernel's and the ring
+step's, and a blockwise key tile other than 128 on the card; those raise
+``NotImplementedError``.
 
 The backward, ``packed_attention_bwd``, replaces ``_packed_bwd_kernel``
 with the two kernels of ``csrc/attention_bwd.cu`` (plain version
@@ -66,7 +78,7 @@ from . import _build
 # them): the packed forward, and its backward (one per call: its two
 # kernels); the single-pass forward (split heads or slabs); the blockwise
 # forward on the slabs without and with the log-sum-exp, on split heads, and
-# the blockwise backward (one per call: its two kernels).
+# the blockwise backward (one per call: its two kernels); the ring step.
 LAUNCHES = 0
 LAUNCHES_BWD = 0
 LAUNCHES_SINGLE = 0
@@ -74,6 +86,7 @@ LAUNCHES_FLASH = 0
 LAUNCHES_FLASH_LSE = 0
 LAUNCHES_FLASH_SPLIT = 0
 LAUNCHES_FLASH_BWD = 0
+LAUNCHES_RING = 0
 
 # Hopper's largest dynamic shared memory for one block.
 MAX_SMEM_BYTES = 227 * 1024
@@ -114,17 +127,45 @@ def _head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return o * inv
 
 
-def packed_fused_attention_reference(qkv: torch.Tensor, num_heads: int,
-                                     head_dim: int) -> torch.Tensor:
-    """Plain version: slab-packed [B, T, 3D] → head-major [B, T, D]. Slab
-    packing puts head h's q, k and v at columns h·hd, D + h·hd and 2D + h·hd
-    (the JAX package's ``_packed_offsets``), which is this reshape. Long
-    sequences take the blockwise route, as the kernel wrapper does."""
+def _packed_heads(qkv: torch.Tensor, num_heads: int, head_dim: int,
+                  packing: str) -> torch.Tensor:
+    """[B, T, 3D] packed → [3, B, H, T, hd] views (the JAX package's
+    ``_packed_offsets``): "slab" puts head h's q, k and v at columns h·hd,
+    D + h·hd and 2D + h·hd, "per_head" at h·3·hd + {0, 1, 2}·hd."""
     b, t, _ = qkv.shape
+    if packing == "slab":
+        return _split_heads(qkv, 3, num_heads, head_dim)
+    return qkv.reshape(b, t, num_heads, 3, head_dim).permute(3, 0, 2, 1, 4)
+
+
+def _packed_checks(t: int, packing: str, true_seq_len: Optional[int]) -> int:
+    """The key count of packed attention at T = t, as JAX checks it."""
+    if packing not in ("slab", "per_head"):
+        raise ValueError(f"unknown packing {packing!r}")
+    seq = t if true_seq_len is None else true_seq_len
+    if t and not 1 <= seq <= t:
+        raise ValueError(f"true_seq_len {seq} outside [1, {t}]")
+    if _is_long_seq(t) and packing != "slab":
+        raise NotImplementedError(
+            "long-sequence packed attention supports slab packing only")
+    return seq
+
+
+def packed_fused_attention_reference(qkv: torch.Tensor, num_heads: int,
+                                     head_dim: int, *, packing: str = "slab",
+                                     true_seq_len: Optional[int] = None
+                                     ) -> torch.Tensor:
+    """Plain version: packed [B, T, 3D] → head-major [B, T, D], keys at and
+    past ``true_seq_len`` masked. Long sequences take the blockwise route
+    (slab packing only), as the kernel wrapper does."""
+    b, t, _ = qkv.shape
+    seq = _packed_checks(t, packing, true_seq_len)
     if _is_long_seq(t):
-        return blockwise_attention_fwd_reference(qkv, num_heads, head_dim)[0]
-    q, k, v = qkv.reshape(b, t, 3, num_heads, head_dim).permute(2, 0, 3, 1, 4)
-    o = _head_attention(q, k, v, float(1.0 / np.sqrt(head_dim)))
+        return blockwise_attention_fwd_reference(qkv, num_heads, head_dim,
+                                                 kv_len=seq)[0]
+    q, k, v = _packed_heads(qkv, num_heads, head_dim, packing)
+    o = _head_attention(q, k, v, float(1.0 / np.sqrt(head_dim)),
+                        None if seq == t else seq)
     return o.permute(0, 2, 1, 3).reshape(b, t, num_heads * head_dim).to(qkv.dtype)
 
 
@@ -144,7 +185,12 @@ def packed_fused_attention(
     packing: str = "slab",
     true_seq_len: Optional[int] = None,
 ) -> torch.Tensor:
-    """Fused attention over packed QKV: [B, T, 3D] → [B, T, D]."""
+    """Fused attention over packed QKV: [B, T, 3D] → [B, T, D].
+
+    ``packing``: "slab" (q|k|v slabs of D) or "per_head" (head-major
+    q|k|v triples, the TP layout). ``true_seq_len``: keys at and past it
+    are masked (the token axis is already padded); padded query rows get
+    values in their own rows only."""
     global LAUNCHES
     b, t, three_d = qkv.shape
     nh = num_heads if num_heads is not None else config.num_heads
@@ -152,15 +198,20 @@ def packed_fused_attention(
     d = nh * hd
     if three_d != 3 * d:
         raise ValueError(f"qkv last dim {three_d} != 3 * {d}")
-    if packing not in ("slab", "per_head"):
-        raise ValueError(f"unknown packing {packing!r}")
-    if packing != "slab" or true_seq_len is not None:
-        raise NotImplementedError(
-            "per_head packing and true_seq_len are not ported yet")
+    seq = _packed_checks(t, packing, true_seq_len)
     if not qkv.is_cuda:
-        return packed_fused_attention_reference(qkv, nh, hd)
+        return packed_fused_attention_reference(qkv, nh, hd, packing=packing,
+                                                true_seq_len=true_seq_len)
     if _is_long_seq(t):
-        return blockwise_attention_fwd(qkv, nh, hd)[0]
+        return blockwise_attention_fwd(qkv, nh, hd, kv_len=seq)[0]
+    if packing != "slab" or seq != t:
+        # The packed kernel knows slabs of T keys only: the same function
+        # through the single-pass kernel, on strided views with kv_len.
+        out = torch.empty((b, t, d), dtype=qkv.dtype, device=qkv.device)
+        q, k, v = _packed_heads(qkv, nh, hd, packing)
+        single_pass_attention(q, k, v, hd, kv_len=seq,
+                              out=out.view(b, t, nh, hd).permute(0, 2, 1, 3))
+        return out
     if qkv.dtype != torch.bfloat16:
         raise NotImplementedError(
             f"the CUDA attention kernel takes bf16 qkv, got {qkv.dtype}")
@@ -181,10 +232,9 @@ def packed_fused_attention(
         single_pass_attention(q, k, v, hd,
                               out=out.view(b, t, nh, hd).permute(0, 2, 1, 3))
         return out
-    err = _build.library().vit_packed_attention_bf16(
+    err = _build.launch("vit_packed_attention_bf16", qkv,
         qkv.data_ptr(), out.data_ptr(), b, t, nh, hd,
-        _single_pass_scale(hd, torch.bfloat16),
-        _build.stream_handle(qkv))
+        _single_pass_scale(hd, torch.bfloat16))
     _build.check_launch(err, "packed_fused_attention")
     LAUNCHES += 1
     return out
@@ -202,10 +252,12 @@ def _flash_scale(head_dim: int) -> float:
 
 
 def blockwise_attention_fwd_reference(qkv: torch.Tensor, num_heads: int,
-                                      head_dim: int, *, return_lse: bool = False):
+                                      head_dim: int, *, return_lse: bool = False,
+                                      kv_len: Optional[int] = None):
     """Plain version of ``blockwise_attention_fwd`` with ``_flash_kernel``'s
-    arithmetic: fp32 scores times the fp32 scale, keys past T masked to
-    MASK_VALUE, and a walk over key tiles of FLASH_BLOCK_K in order with
+    arithmetic: fp32 scores times the fp32 scale, keys at and past
+    ``kv_len`` (default T) masked to MASK_VALUE, and a walk over key tiles
+    of FLASH_BLOCK_K in order with
     the running max moved once a tile: ``p = exp(s − m_next)`` (rounded to
     v's dtype for the PV product, fp32 in the row sum), ``acc = acc·α + pv``.
     Returns (out [B, T, D] in qkv's dtype, acc · (1/l) with l == 0 → 1;
@@ -213,18 +265,21 @@ def blockwise_attention_fwd_reference(qkv: torch.Tensor, num_heads: int,
     b, t, _ = qkv.shape
     q, k, v = _split_heads(qkv, 3, num_heads, head_dim)
     out, lse = _blockwise_heads_reference(q, k, v, _flash_scale(head_dim),
-                                          FLASH_BLOCK_K, return_lse)
+                                          FLASH_BLOCK_K, return_lse, kv_len)
     out = out.permute(0, 2, 1, 3).reshape(b, t, num_heads * head_dim)
     return out.to(qkv.dtype), lse
 
 
 def _blockwise_heads_reference(q: torch.Tensor, k: torch.Tensor,
                                v: torch.Tensor, scale: float, block_k: int,
-                               return_lse: bool = False):
+                               return_lse: bool = False,
+                               kv_len: Optional[int] = None):
     """``_flash_kernel``'s arithmetic on split heads [B, H, T, hd]: (acc ·
-    (1/l), fp32; lse [B, H, T] or None). Keys past T are masked; the walk
-    over key tiles of ``block_k`` is part of the function."""
+    (1/l), fp32; lse [B, H, T] or None). Keys at and past ``kv_len``
+    (default T) are masked; the walk over key tiles of ``block_k`` is part
+    of the function."""
     b, nh, t, hd = q.shape
+    kv_len = t if kv_len is None else kv_len
     t_pad = -(-t // block_k) * block_k
     pad = (0, 0, 0, t_pad - t)
     k = torch.nn.functional.pad(k, pad)
@@ -237,7 +292,7 @@ def _blockwise_heads_reference(q: torch.Tensor, k: torch.Tensor,
         kt = k[..., k0:k0 + block_k, :].float()
         s = (qf @ kt.transpose(-1, -2)) * scale
         col = torch.arange(k0, k0 + block_k, device=q.device)
-        s = torch.where(col < t, s, MASK_VALUE)
+        s = torch.where(col < kv_len, s, MASK_VALUE)
         m_next = torch.maximum(m, s.amax(-1, keepdim=True))
         alpha = torch.exp(m - m_next)
         p = torch.exp(s - m_next)
@@ -252,19 +307,25 @@ def _blockwise_heads_reference(q: torch.Tensor, k: torch.Tensor,
 
 
 def blockwise_attention_fwd(qkv: torch.Tensor, num_heads: int, head_dim: int,
-                            *, return_lse: bool = False):
+                            *, return_lse: bool = False,
+                            kv_len: Optional[int] = None):
     """Blockwise attention over packed [B, T, 3D] at any T: (out [B, T, D]
     in qkv's dtype, lse [B, H, T] fp32 or None). The kernel reads q, k and
     v straight from the slabs (rows past T as zeros) and writes the
-    head-major context, with or without each row's log-sum-exp."""
+    head-major context, with or without each row's log-sum-exp; keys at and
+    past ``kv_len`` (default T) are masked."""
     global LAUNCHES_FLASH, LAUNCHES_FLASH_LSE
     b, t, three_d = qkv.shape
     d = num_heads * head_dim
+    kv_len = t if kv_len is None else kv_len
     if three_d != 3 * d:
         raise ValueError(f"qkv last dim {three_d} != 3 * {d}")
+    if t and not 1 <= kv_len <= t:
+        raise ValueError(f"kv_len {kv_len} outside [1, {t}]")
     if not qkv.is_cuda:
         return blockwise_attention_fwd_reference(qkv, num_heads, head_dim,
-                                                 return_lse=return_lse)
+                                                 return_lse=return_lse,
+                                                 kv_len=kv_len)
     if qkv.dtype != torch.bfloat16:
         raise NotImplementedError(
             f"the CUDA blockwise attention kernel takes bf16 qkv, got {qkv.dtype}")
@@ -279,10 +340,9 @@ def blockwise_attention_fwd(qkv: torch.Tensor, num_heads: int, head_dim: int,
            if return_lse else None)
     if b == 0 or t == 0:
         return out, lse
-    err = _build.library().vit_flash_attention_fwd(
+    err = _build.launch("vit_flash_attention_fwd", qkv,
         qkv.data_ptr(), out.data_ptr(), lse.data_ptr() if return_lse else None,
-        b, t, num_heads, head_dim, _flash_scale(head_dim),
-        _build.stream_handle(qkv))
+        b, t, kv_len, num_heads, head_dim, _flash_scale(head_dim))
     _build.check_launch(err, "blockwise_attention_fwd")
     if return_lse:
         LAUNCHES_FLASH_LSE += 1
@@ -347,11 +407,10 @@ def single_pass_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            "packed_fused_attention_trainable")
     if b == 0 or t == 0 or nh == 0:
         return out
-    err = _build.library().vit_single_pass_attention(
+    err = _build.launch("vit_single_pass_attention", q,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         _build.DTYPE_CODES[q.dtype], _build.head_strides(q, k, v, out), b, nh,
-        t, kv_len, hd, _single_pass_scale(head_dim, q.dtype),
-        _build.stream_handle(q))
+        t, kv_len, hd, _single_pass_scale(head_dim, q.dtype))
     _build.check_launch(err, "single_pass_attention")
     LAUNCHES_SINGLE += 1
     return out
@@ -407,13 +466,109 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            "packed_fused_attention_trainable")
     if b == 0 or nh == 0:
         return out
-    err = _build.library().vit_flash_attention_fwd_strided(
+    err = _build.launch("vit_flash_attention_fwd_strided", q,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), None,
         _build.head_strides(q, k, v, out), b, t, nh, hd,
-        _flash_scale(config.head_dim), _build.stream_handle(q))
+        _flash_scale(config.head_dim))
     _build.check_launch(err, "flash_attention")
     LAUNCHES_FLASH_SPLIT += 1
     return out
+
+
+# ---------------------------------------------------------------------------
+# The ring-attention local step: blockwise with carried statistics
+# ---------------------------------------------------------------------------
+
+
+def _ring_step_checks(qf, kf, vf, kv_bias, m, l, acc, block_q: int,
+                      block_k: int) -> None:
+    n, t_loc, hd = qf.shape
+    shapes = {"kf": (kf, (n, t_loc, hd)), "vf": (vf, (n, t_loc, hd)),
+              "kv_bias": (kv_bias, (1, t_loc)), "m": (m, (n, t_loc)),
+              "l": (l, (n, t_loc)), "acc": (acc, (n, t_loc, hd))}
+    for name, (z, shape) in shapes.items():
+        if tuple(z.shape) != shape:
+            raise ValueError(f"{name} has shape {tuple(z.shape)}, expected {shape}")
+    if block_q <= 0 or block_k <= 0 or t_loc % block_q or t_loc % block_k:
+        raise ValueError(f"block_q {block_q} and block_k {block_k} must divide "
+                         f"t_loc {t_loc}")
+
+
+def blockwise_ring_step_reference(qf: torch.Tensor, kf: torch.Tensor,
+                                  vf: torch.Tensor, kv_bias: torch.Tensor,
+                                  m: torch.Tensor, l: torch.Tensor,
+                                  acc: torch.Tensor, *, scale: float,
+                                  block_q: int, block_k: int):
+    """Plain version of ``blockwise_ring_step`` with ``_flash_carry_kernel``'s
+    arithmetic: over key blocks of ``block_k`` in order, ``s = fp32(q·kᵀ) ·
+    scale + bias`` (the fp32 scale multiplies the fp32 scores), ``m' =
+    max(m, rowmax(s))``, ``α = exp(m − m')``, ``p = exp(s − m')``, ``l' =
+    α·l + rowsum(p)`` on the fp32 p, ``acc' = α·acc + dtype(p)·v`` with fp32
+    sums. ``block_q`` moves no result; it must divide t_loc, as JAX's
+    asserts. Returns the un-normalised (m, l, acc), fp32."""
+    _ring_step_checks(qf, kf, vf, kv_bias, m, l, acc, block_q, block_k)
+    scale = float(np.float32(scale))
+    qf32 = qf.float()
+    m, l = m[..., None], l[..., None]
+    for k0 in range(0, qf.shape[1], block_k):
+        kt = kf[:, k0:k0 + block_k].float()
+        s = (qf32 @ kt.transpose(-1, -2)) * scale + kv_bias[0, k0:k0 + block_k]
+        m_next = torch.maximum(m, s.amax(-1, keepdim=True))
+        alpha = torch.exp(m - m_next)
+        p = torch.exp(s - m_next)
+        l = alpha * l + p.sum(-1, keepdim=True)
+        vt = vf[:, k0:k0 + block_k]
+        acc = acc * alpha + p.to(vt.dtype).float() @ vt.float()
+        m = m_next
+    return m[..., 0], l[..., 0], acc
+
+
+def blockwise_ring_step(qf: torch.Tensor, kf: torch.Tensor, vf: torch.Tensor,
+                        kv_bias: torch.Tensor, m: torch.Tensor, l: torch.Tensor,
+                        acc: torch.Tensor, *, scale: float, block_q: int,
+                        block_k: int):
+    """One ring rotation's local attention, blockwise with carried stats.
+
+    qf, kf, vf: [n, t_loc, hd] (bf16 or fp32, one dtype); kv_bias: [1,
+    t_loc] fp32 additive key mask; m, l: [n, t_loc] fp32; acc: [n, t_loc,
+    hd] fp32. Returns new (m, l, acc), un-normalised: divide acc by l after
+    the last rotation. ``block_k`` (any divisor of t_loc, a ragged whole
+    shard too) is part of the function; ``block_q`` must divide t_loc and
+    moves nothing. The kernel takes head dims that are multiples of 8 up to
+    128."""
+    global LAUNCHES_RING
+    if qf.dim() != 3:
+        raise ValueError(f"qf must be [n, t_loc, hd], got {tuple(qf.shape)}")
+    _ring_step_checks(qf, kf, vf, kv_bias, m, l, acc, block_q, block_k)
+    if not qf.is_cuda:
+        return blockwise_ring_step_reference(qf, kf, vf, kv_bias, m, l, acc,
+                                             scale=scale, block_q=block_q,
+                                             block_k=block_k)
+    n, t_loc, hd = qf.shape
+    if qf.dtype not in _build.DTYPE_CODES:
+        raise NotImplementedError(
+            f"the ring step kernel takes bf16 or fp32, got {qf.dtype}")
+    if hd % 8 or hd > 128:
+        raise NotImplementedError(
+            f"head_dim {hd}: the kernel takes multiples of 8 up to 128")
+    dev = qf.device
+    for z, name in ((qf, "qf"), (kf, "kf"), (vf, "vf")):
+        _build.require(z, name, device=dev, dtypes=(qf.dtype,))
+    for z, name in ((kv_bias, "kv_bias"), (m, "m"), (l, "l"), (acc, "acc")):
+        _build.require(z, name, device=dev, dtypes=(torch.float32,))
+    _build.refuse_autograd("blockwise_ring_step", (qf, kf, vf, m, l, acc),
+                           "the einsum ring step (impl='einsum')")
+    m_out, l_out, acc_out = (torch.empty_like(z) for z in (m, l, acc))
+    if n == 0:
+        return m_out, l_out, acc_out
+    err = _build.launch("vit_ring_step", qf,
+        qf.data_ptr(), kf.data_ptr(), vf.data_ptr(), kv_bias.data_ptr(),
+        m.data_ptr(), l.data_ptr(), acc.data_ptr(), m_out.data_ptr(),
+        l_out.data_ptr(), acc_out.data_ptr(), _build.DTYPE_CODES[qf.dtype], n,
+        t_loc, hd, block_k, float(np.float32(scale)))
+    _build.check_launch(err, "blockwise_ring_step")
+    LAUNCHES_RING += 1
+    return m_out, l_out, acc_out
 
 
 def blockwise_attention_bwd_reference(qkv: torch.Tensor, out: torch.Tensor,
@@ -477,10 +632,10 @@ def blockwise_attention_bwd(qkv: torch.Tensor, out: torch.Tensor,
     if b == 0 or t == 0:
         return dqkv
     dvec = torch.empty((b, num_heads, t), dtype=torch.float32, device=qkv.device)
-    err = _build.library().vit_flash_attention_bwd(
+    err = _build.launch("vit_flash_attention_bwd", qkv,
         qkv.data_ptr(), out.data_ptr(), lse.data_ptr(), do.data_ptr(),
         dqkv.data_ptr(), dvec.data_ptr(), b, t, num_heads, head_dim,
-        _flash_scale(head_dim), _build.stream_handle(qkv))
+        _flash_scale(head_dim))
     _build.check_launch(err, "blockwise_attention_bwd")
     LAUNCHES_FLASH_BWD += 1
     return dqkv
@@ -571,10 +726,10 @@ def packed_attention_bwd(qkv: torch.Tensor, do: torch.Tensor, num_heads: int,
                         device=qkv.device)
     q_scale = _single_pass_scale(head_dim, torch.bfloat16)
     ds_scale = float(np.float32(1.0 / np.sqrt(head_dim)))
-    err = _build.library().vit_packed_attention_bwd(
+    err = _build.launch("vit_packed_attention_bwd", qkv,
         qkv.data_ptr(), do.data_ptr(), out.data_ptr(),
         _build.DTYPE_CODES[out_dtype], stats.data_ptr(), b, t, num_heads,
-        head_dim, q_scale, ds_scale, _build.stream_handle(qkv))
+        head_dim, q_scale, ds_scale)
     _build.check_launch(err, "packed_attention_bwd")
     LAUNCHES_BWD += 1
     return out

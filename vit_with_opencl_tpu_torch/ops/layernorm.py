@@ -78,10 +78,9 @@ def layer_norm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     rows = x.numel() // d
     if rows == 0:
         return out
-    err = _build.library().vit_layernorm(
+    err = _build.launch("vit_layernorm", x,
         x.data_ptr(), _build.DTYPE_CODES[x.dtype], w.data_ptr(), b.data_ptr(),
-        out.data_ptr(), _build.DTYPE_CODES[out_dtype], rows, d, eps,
-        _build.stream_handle(x))
+        out.data_ptr(), _build.DTYPE_CODES[out_dtype], rows, d, eps)
     _build.check_launch(err, "layer_norm")
     LAUNCHES += 1
     return out
@@ -125,10 +124,10 @@ def residual_layer_norm(x: torch.Tensor, residual: torch.Tensor,
     rows = x.numel() // d if d else 0
     if rows == 0:
         return out, summed
-    err = _build.library().vit_layernorm_residual(
+    err = _build.launch("vit_layernorm_residual", x,
         x.data_ptr(), _build.DTYPE_CODES[x.dtype], residual.data_ptr(),
         _build.DTYPE_CODES[residual.dtype], w32.data_ptr(), b32.data_ptr(),
-        out.data_ptr(), summed.data_ptr(), rows, d, eps, _build.stream_handle(x))
+        out.data_ptr(), summed.data_ptr(), rows, d, eps)
     _build.check_launch(err, "residual_layer_norm")
     LAUNCHES_RESIDUAL += 1
     return out, summed
@@ -154,9 +153,9 @@ def column_sum(x: torch.Tensor) -> torch.Tensor:
     out = torch.empty((c,), dtype=torch.float32, device=x.device)
     partial = torch.empty((-(-rows // 64), c), dtype=torch.float32,
                           device=x.device)
-    err = _build.library().vit_column_sum(
+    err = _build.launch("vit_column_sum", x,
         x.data_ptr(), _build.DTYPE_CODES[x.dtype], out.data_ptr(),
-        partial.data_ptr(), rows, c, _build.stream_handle(x))
+        partial.data_ptr(), rows, c)
     _build.check_launch(err, "column_sum")
     LAUNCHES_COLSUM += 1
     return out
@@ -213,12 +212,12 @@ def layer_norm_bwd(x: torch.Tensor, dy: torch.Tensor, w: torch.Tensor,
         return dx, zeros, zeros.clone()
     blocks = -(-rows // BWD_ROWS_PER_BLOCK)
     partial = torch.empty((2, blocks, d), dtype=torch.float32, device=x.device)
-    err = _build.library().vit_layernorm_bwd(
+    err = _build.launch("vit_layernorm_bwd", x,
         x.data_ptr(), _build.DTYPE_CODES[x.dtype], dy.data_ptr(), w.data_ptr(),
         None if residual is None else residual.data_ptr(),
         _build.DTYPE_CODES[residual.dtype] if residual is not None else 0,
         dx.data_ptr(), _build.DTYPE_CODES[out_dtype], partial[0].data_ptr(),
-        partial[1].data_ptr(), rows, d, eps, _build.stream_handle(x))
+        partial[1].data_ptr(), rows, d, eps)
     _build.check_launch(err, "layer_norm_bwd")
     LAUNCHES_BWD += 1
     return dx, column_sum(partial[0]), column_sum(partial[1])

@@ -169,19 +169,19 @@ def fused_linear(
     m = x.numel() // k
     if m == 0:
         return out
-    lib = _build.library()
     tail = (_ptr(b), _ptr(residual),
             _RESIDUAL_KINDS[None if residual is None else residual.dtype],
             out.data_ptr(), int(out_dtype == torch.bfloat16), int(fuse_gelu),
-            m, n, k, _build.stream_handle(x))
+            m, n, k)
     if int8w:
         s = _scale_vector(w_scale, n, "w_scale", x.device)
-        err = lib.vit_linear_int8w(x.data_ptr(), w.data_ptr(), s.data_ptr(),
-                                   *tail)
+        err = _build.launch("vit_linear_int8w", x, x.data_ptr(), w.data_ptr(),
+                            s.data_ptr(), *tail)
         _build.check_launch(err, "fused_linear (int8 w)")
         LAUNCHES_INT8W += 1
     else:
-        err = lib.vit_linear_bf16(x.data_ptr(), w.data_ptr(), *tail)
+        err = _build.launch("vit_linear_bf16", x, x.data_ptr(), w.data_ptr(),
+                            *tail)
         _build.check_launch(err, "fused_linear")
         LAUNCHES += 1
     return out
@@ -272,12 +272,12 @@ def fused_linear_w8a8(
     out = torch.empty((*lead, n), dtype=out_dtype, device=xq.device)
     if m == 0:
         return out
-    err = _build.library().vit_linear_w8a8(
+    err = _build.launch("vit_linear_w8a8", xq,
         xq.data_ptr(), sx.data_ptr(), wq.data_ptr(), s.data_ptr(), _ptr(x_hi),
         _ptr(w_hi), k_hi, _ptr(b), _ptr(residual),
         _RESIDUAL_KINDS[None if residual is None else residual.dtype],
         out.data_ptr(), int(out_dtype == torch.bfloat16), int(fuse_gelu),
-        m, n, k, _build.stream_handle(xq))
+        m, n, k)
     if x_hi is None:
         _build.check_launch(err, "fused_linear_w8a8")
         LAUNCHES_W8A8 += 1
@@ -318,11 +318,11 @@ def _grad_gemm(what: str, a, a_trans: bool, b, b_trans: bool, m: int, n: int,
     second = (torch.empty(out_shape, dtype=torch.bfloat16, device=dev)
               if out2 else None)
     if m and n and k:
-        err = _build.library().vit_gemm_grad(
+        err = _build.launch("vit_gemm_grad", a,
             a.data_ptr(), int(a_trans), b.data_ptr(), int(b_trans),
             _ptr(bias), _ptr(gelu_grad_of), out.data_ptr(),
             int(out_dtype == torch.bfloat16), _ptr(second), int(out2_gelu),
-            m, n, k, _build.stream_handle(a))
+            m, n, k)
         _build.check_launch(err, what)
     elif not k:
         out.zero_()

@@ -72,9 +72,9 @@ def quantize_rows(x: torch.Tensor):
     q, scale = _int8_and_scale(x, k)
     if rows == 0:
         return q, scale
-    err = _build.library().vit_quantize_rows(
+    err = _build.launch("vit_quantize_rows", x,
         x.data_ptr(), _build.DTYPE_CODES[x.dtype], q.data_ptr(),
-        scale.data_ptr(), rows, k, _build.stream_handle(x))
+        scale.data_ptr(), rows, k)
     _build.check_launch(err, "quantize_rows")
     LAUNCHES += 1
     return q, scale
@@ -101,9 +101,9 @@ def quantize_rows_split(x: torch.Tensor, m: int, hi_dtype: torch.dtype):
     hi = torch.empty((*x.shape[:-1], k - m), dtype=hi_dtype, device=x.device)
     if rows == 0:
         return q, scale, hi
-    err = _build.library().vit_quantize_rows_split(
+    err = _build.launch("vit_quantize_rows_split", x,
         x.data_ptr(), q.data_ptr(), scale.data_ptr(), hi.data_ptr(), rows, k,
-        m, _build.stream_handle(x))
+        m)
     _build.check_launch(err, "quantize_rows_split")
     LAUNCHES_SPLIT += 1
     return q, scale, hi
@@ -130,9 +130,9 @@ def quantize_rows_masked(x: torch.Tensor, num_heads: int, head_dim: int,
                      device=x.device)
     if rows == 0:
         return q, scale, hi
-    err = _build.library().vit_quantize_rows_masked(
+    err = _build.launch("vit_quantize_rows_masked", x,
         x.data_ptr(), q.data_ptr(), scale.data_ptr(), hi.data_ptr(), rows, k,
-        head_dim, kh, _build.stream_handle(x))
+        head_dim, kh)
     _build.check_launch(err, "quantize_rows_masked")
     LAUNCHES_MASKED += 1
     return q, scale, hi
