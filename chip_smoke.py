@@ -158,6 +158,17 @@ line.
    blocks (1024); bf16 and fp32, as a first rotation and 4 rotations
    chained. SDPA on the same [n, t_loc, hd] is printed as a yardstick (it
    does not compute the carried function, so no library time is recorded).
+2j. The W8A8 overlap probe's kernels (``csrc/probe_overlap.cu``: stream,
+   vpu:q, vpu:ln, mxu, fused, indep with the quantize and with the LN)
+   against their plain versions at a grid of 4 blocks and N = 3072, on the
+   probe's data and on seeded random data (bit-identical; the LN within one
+   bf16 ulp); then the probe's ``main()`` at its full grid of 256 blocks,
+   the main path of these kernels (151 launches of each form); each form
+   again on ``main()``'s own data at 256 blocks against its plain version
+   (the same tolerances: the int8 rows past the int32 wrap reach the
+   outputs there), and its time at 256 blocks over its time at 64 within
+   [3, 5] (no block's work dropped). Yardsticks: ``torch._int_mm`` with the epilogue as ops
+   (mxu), ``F.layer_norm`` (vpu:ln).
 3f. Multi-device inference on virtual meshes of the one card (every shard
    on cuda:0): ``sp_forward(kv="ring")`` at ViT-L/16@512, bf16, mesh (1, 4),
    B = 8 on phase 3e's weights and images (24 layers x 4 rotations x 4
@@ -182,6 +193,14 @@ line.
    and of the ViT-Ti/16 stack's at B = 16 (the table, each chain kernel's
    traced calls equal to its counter's rise, the card's busy share); and
    ``perf.throughput_report`` of phase 4's bf16 forward at B = 256 (MFU).
+7. The record-producing scripts as a user runs them: ``make_fixtures`` for
+   ViT-B/16 with 4 images, then ``cli --backend gpu --attention flash`` on
+   that workspace (the comparator green); ``soak`` of ViT-B/16 W8A8 at B =
+   256, 2 windows of 5 (finite); ``trace_table`` of ViT-B/16 W8A8 at B = 64
+   (the W8A8 GEMM kernel in the table); ``bench_train`` of ViT-B/16
+   ``fused`` at B = 32, 2 steps (a finite loss); and
+   ``InferenceEngine(check_numerics=True)`` on phase 3's weights (passes)
+   and with one weight NaN (raises).
 
 Counts are set to 0 just before each main-path run and read just after.
 The line before the last is the kernels' JSON record; the last line is
@@ -195,6 +214,7 @@ import dataclasses
 import functools
 import io
 import json
+import math
 import subprocess
 import sys
 import tempfile
@@ -217,6 +237,9 @@ try:
     from vit_with_opencl_tpu_torch.models import quant, vit
     from vit_with_opencl_tpu_torch.ops import (_build, attention, fused_block,
                                                layernorm, linear, quantize)
+    from vit_with_opencl_tpu_torch.scripts import (bench_train, make_fixtures,
+                                                   soak, trace_table)
+    from vit_with_opencl_tpu_torch.scripts import probe_w8a8_overlap as probe
 except ImportError as exc:  # run outside the repository
     print(f"FAIL: the port's package is not importable here: {exc}")
     sys.exit(1)
@@ -454,6 +477,37 @@ RING_REL = {torch.float32: 1e-5, torch.bfloat16: 2e-3}
 # bf16 budget.
 W8A8_TP_TOL = 1e-2
 
+# Phase 2j: the W8A8 overlap probe's kernels (csrc/probe_overlap.cu, the
+# last TPU kernels: scripts/probe_w8a8_overlap.py's six, the sixth in two
+# forms) against their plain versions at a grid of PROBE_CHECK_GRID blocks
+# and N = 3072, on the probe's data and on seeded random data: the int8
+# values, the scales, the stream's output and the GEMMs' bf16 outputs
+# bit-identical; the LN's bf16 outputs within one bf16 ulp (near 0, one fp32
+# ulp of their unit scale: the row's mean carries its own rounding there)
+# and MIN_SAME_KERNEL identical. Then the probe's main() at its full grid
+# (256 blocks) is the main path; each form is held to its plain version
+# again on main()'s data at that grid (the kernels line's max_abs_err), and
+# its time there over its time at PROBE_RATIO_GRID blocks must lie in
+# PROBE_RATIO (4 by the work; below it, blocks' work was dropped).
+PROBE_CHECK_GRID = 4
+PROBE_RATIO_GRID = 64
+PROBE_RATIO = (3.0, 5.0)
+# form (probe.FORMS) -> (its counter here, its PERF.md row, the TPU kernel's line)
+PROBE_FORMS = {
+    "stream": ("probe_stream", "18a", 88),
+    "vpu:q": ("probe_vpu_quant", "18b", 92),
+    "vpu:ln": ("probe_vpu_ln", "18c", 100),
+    "mxu": ("probe_mxu", "18d", 106),
+    "fused": ("probe_fused", "18e", 116),
+    "indep:q": ("probe_indep_quant", "18f quant", 126),
+    "indep:ln": ("probe_indep_ln", "18f ln", 126),
+}
+# Phase 7: the record-producing scripts on the card.
+FIXTURE_IMAGES = 4
+SOAK_ARGS = [CFG.name, "256", "10", "5", "int8-w8a8"]  # 2 windows of 5
+TRACE_ARGS = [CFG.name, "64", "2", "15", "int8-w8a8"]
+BENCH_TRAIN_ARGS = [CFG.name, "32", "2", "fused"]
+
 # Published dense peaks (NVIDIA data sheets): tensor-core bf16 FLOP/s,
 # CUDA-core fp32 FLOP/s, tensor-core int8 OP/s, memory bytes/s.
 PEAKS = {
@@ -500,6 +554,8 @@ COUNTERS = {
     "attention_flash_split": (attention, "LAUNCHES_FLASH_SPLIT"),
     "layernorm_residual": (layernorm, "LAUNCHES_RESIDUAL"),
     "attention_ring": (attention, "LAUNCHES_RING"),
+    **{counter: (probe, probe.FORMS[form].counter)
+       for form, (counter, *_) in PROBE_FORMS.items()},
 }
 _QUANTIZED_LAYER = "vit_with_opencl_tpu/ops/fused_block.py:198"
 REPLACES = {
@@ -583,6 +639,7 @@ SOURCES = {
     "attention_flash_split": _CSRC + "attention_flash.cu",
     "layernorm_residual": _CSRC + "layernorm.cu",
     "attention_ring": _CSRC + "attention_ring.cu",
+    **{counter: _CSRC + "probe_overlap.cu" for counter, *_ in PROBE_FORMS.values()},
 }
 # The main-path runs: phase name → CLI flags (the outlier runs add
 # --calibrate with their workspace's calibration binary).
@@ -2498,7 +2555,8 @@ def profile_main_path(engine, dev) -> dict:
 
 def traced_forward(name: str, fn, images) -> None:
     """Phase 6c: ``perf.device_kernel_table`` of ``fn(images)`` (one run
-    outside the trace, TRACE_ITERS traced): the table; each chain kernel's
+    outside the trace, TRACE_ITERS between its marks and one before and
+    one after them): the table; each chain kernel's
     traced calls against its counter's rise over the traced runs; the
     card's busy share, the table's device total over the CUDA-event time of
     the same runs."""
@@ -2521,13 +2579,13 @@ def traced_forward(name: str, fn, images) -> None:
         "\n", "\n  "), flush=True)
     for sub, counter in TRACE_KERNELS.items():
         calls = sum(s.calls for s in table if sub in s.name)
-        rise = after[counter] - before[counter]  # TRACE_ITERS + 1 runs
-        traced = rise * TRACE_ITERS // (TRACE_ITERS + 1)
+        rise = after[counter] - before[counter]  # TRACE_ITERS + 3 runs
+        traced = rise * TRACE_ITERS // (TRACE_ITERS + 3)
         check(calls == traced and calls > 0,
               f"{name}: {calls} traced launches of {sub!r}, {traced} by the "
               f"{counter!r} counter")
     device_ms = sum(s.total_ms for s in table)
-    window_ms = events[1][0].elapsed_time(events[-1][1])
+    window_ms = events[2][0].elapsed_time(events[-2][1])
     print(f"  {name}: device busy share {device_ms / window_ms:.4f} (kernels "
           f"{device_ms:.3f} ms of {window_ms:.3f} ms by CUDA events over the "
           f"{TRACE_ITERS} traced runs)", flush=True)
@@ -2791,6 +2849,159 @@ def ring_throughput(dev, params: dict) -> None:
     torch.cuda.empty_cache()
 
 
+def probe_data(dev, kind: str, grid: int, seed: int = 0) -> dict:
+    """The probe's operands at ``grid`` blocks: its own data (main()'s) or
+    seeded random data (x ~ N(0, 2), int8 uniform in [-127, 127], sw > 0)."""
+    rows = grid * probe.M_BLOCK
+    if kind == "probe":
+        w, sw = probe.weights(dev)
+        return dict(xf=probe._x_f32(rows, 7, dev), xq=probe._x_i8(rows, 11, dev),
+                    w=w, sw=sw)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def i8(*shape):
+        return torch.randint(-127, 128, shape, generator=gen, device=dev,
+                             dtype=torch.int8)
+
+    return dict(xf=torch.randn((rows, probe.K), generator=gen, device=dev) * 2.0,
+                xq=i8(rows, probe.K), w=i8(probe.K, probe.N),
+                sw=torch.rand((1, probe.N), generator=gen, device=dev) * 9e-4 + 1e-4)
+
+
+def probe_compare(form: str, outs: list, refs: list) -> tuple:
+    """(max abs error, within tolerance) of a form's outputs: bit-identical,
+    but the LN's bf16 output within one bf16 ulp (floored at one fp32 ulp of
+    1.0) and MIN_SAME_KERNEL identical."""
+    err, ok = 0.0, True
+    for i, (out, ref) in enumerate(zip(outs, refs)):
+        o, r = out.float(), ref.float()
+        diff = (o - r).abs()
+        err = max(err, float(diff.max()))
+        if form.endswith("ln") and i == 0:
+            _, exp = torch.frexp(r.abs())
+            ulp = torch.clamp_min(torch.ldexp(torch.ones_like(r), exp - 8), 2.0 ** -23)
+            ok = (ok and bool((diff <= ulp).all())
+                  and float((diff == 0).float().mean()) >= MIN_SAME_KERNEL)
+        else:
+            ok = ok and out.dtype == ref.dtype and torch.equal(out, ref)
+    return err, ok
+
+
+# One PyTorch call (and the epilogue as ops) computing a form's function over
+# every block, where one exists: timed as yardsticks, never called by the port.
+PROBE_LIBRARY = {
+    "mxu": lambda d: (torch._int_mm(d["xq"], d["w"]).float() * d["sw"]).to(torch.bfloat16),
+    "vpu:ln": lambda d: torch.nn.functional.layer_norm(
+        d["xf"], (probe.K,), eps=probe.EPS).to(torch.bfloat16),
+}
+
+
+def probe_phase(dev) -> tuple:
+    """Phase 2j: every form against its plain version (see PROBE_CHECK_GRID),
+    the probe's main() at full size with the counts of exactly that run,
+    every form against its plain version again on main()'s data at full
+    size, the GRID 256 / 64 time ratios, and each form's plain and library
+    times at the full size. Returns (the record's rows, main()'s counts)."""
+    for kind in ("probe", "random"):
+        d = probe_data(dev, kind, PROBE_CHECK_GRID)
+        for form in PROBE_FORMS:
+            outs, refs = probe.run(form, d), probe.run(form, d, plain=True)
+            torch.cuda.synchronize()
+            err, ok = probe_compare(form, outs, refs)
+            t4 = probe._call(lambda: probe.run(form, d), dev) * 1e3
+            check(ok, f"probe {form} GRID={PROBE_CHECK_GRID} N={probe.N} ({kind} data): "
+                      f"max abs err {err:.3e}, bit-identical (LN: one bf16 ulp, "
+                      f">= {MIN_SAME_KERNEL} identical); {t4:.4f} ms")
+        del d
+    times, counts, secs = counted(lambda: probe.main([]))
+    launches = 1 + probe.REPS * probe.CHAIN
+    for form, (counter, *_rest) in PROBE_FORMS.items():
+        check(counts[counter] == launches,
+              f"probe main() launched {form} {counts[counter]} times, expected {launches}")
+    print(f"  probe main() at GRID={probe.GRID}: {secs:.1f} s", flush=True)
+    big = probe_data(dev, "probe", probe.GRID)
+    small = dict(big, xf=big["xf"][:PROBE_RATIO_GRID * probe.M_BLOCK],
+                 xq=big["xq"][:PROBE_RATIO_GRID * probe.M_BLOCK])
+    rows = []
+    for form, (counter, row, line) in PROBE_FORMS.items():
+        outs, refs = probe.run(form, big), probe.run(form, big, plain=True)
+        torch.cuda.synchronize()
+        err, ok = probe_compare(form, outs, refs)
+        del outs, refs
+        check(ok, f"probe {form} GRID={probe.GRID} N={probe.N} (main()'s data): "
+                  f"max abs err {err:.3e}, bit-identical (LN: one bf16 ulp, "
+                  f">= {MIN_SAME_KERNEL} identical)")
+        t_small = probe._call(lambda: probe.run(form, small), dev) * 1e3
+        ratio = times[form] / t_small
+        check(PROBE_RATIO[0] <= ratio <= PROBE_RATIO[1],
+              f"probe {form}: {times[form]:.4f} ms at GRID={probe.GRID} over "
+              f"{t_small:.4f} ms at GRID={PROBE_RATIO_GRID} = {ratio:.3f}, in {PROBE_RATIO}")
+        plain_ms = time_ms(lambda: probe.run(form, big, plain=True), reps=PLAIN_REPS)
+        library = PROBE_LIBRARY.get(form)
+        library_ms = time_ms(lambda: library(big)) if library else None
+        bound_ms, bound_by = probe.bound(*probe.work(form, probe.GRID * probe.M_BLOCK))
+        rows.append(dict(
+            name=f"probe_w8a8_overlap {form} ({row}) GRID={probe.GRID} N={probe.N}",
+            counter=counter, replaces=f"scripts/probe_w8a8_overlap.py:{line}",
+            max_abs_err=err, ms=times[form], plain_ms=plain_ms,
+            library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by))
+        lib = "-" if library_ms is None else f"{library_ms:.4f}"
+        print(f"  {rows[-1]['name']}: {times[form]:.4f} ms, bound {bound_ms:.4f} ms "
+              f"({bound_by}), plain {plain_ms:.4f} ms, library {lib} ms, "
+              f"GRID={PROBE_RATIO_GRID} {t_small:.4f} ms", flush=True)
+    del big, small
+    torch.cuda.empty_cache()
+    return rows, counts
+
+
+def scripts_phase(dev, rounded: dict, images: np.ndarray) -> None:
+    """Phase 7: the record-producing scripts on the card, as a user runs
+    them (``main(argv)``, the card by default), and the engine's NaN guard
+    on phase 3's weights."""
+    with tempfile.TemporaryDirectory() as tmp:
+        ws = Path(tmp) / "fixtures"
+        rc = make_fixtures.main(["--out", str(ws), "--config", CFG.name,
+                                 "--images", str(FIXTURE_IMAGES)])
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            cli_rc = cli.main([
+                "--input", str(ws / f"input-{FIXTURE_IMAGES}.bin"),
+                "--weights", str(ws / "Network"), "--output", str(ws / "result.txt"),
+                "--answer", str(ws / "answer_result.txt"), "--backend", "gpu",
+                "--attention", "flash", "--config", CFG.name,
+                "--batch-size", str(FIXTURE_IMAGES)])
+        print("  " + out.getvalue().strip().replace("\n", "\n  "), flush=True)
+        check(rc == 0 and cli_rc == 0 and "Comparator: files match." in out.getvalue(),
+              f"make_fixtures --config {CFG.name} --images {FIXTURE_IMAGES}, then cli "
+              f"--backend gpu --attention flash on it: comparator green")
+    res = soak.main(SOAK_ARGS)
+    check(len(res["rates"]) == 2 and res["finite"],
+          f"soak {' '.join(SOAK_ARGS)}: 2 windows, finite={res['finite']}")
+    table = trace_table.main(TRACE_ARGS)
+    check(bool(table) and any("linear_w8a8_kernel" in s.name for s in table),
+          f"trace_table {' '.join(TRACE_ARGS)}: {len(table)} rows, the W8A8 GEMM "
+          f"kernel among them")
+    res = bench_train.main(BENCH_TRAIN_ARGS)
+    loss = res.get("fused", {}).get("loss", float("nan"))
+    check(math.isfinite(loss), f"bench_train {' '.join(BENCH_TRAIN_ARGS)}: loss {loss}")
+    batch = images[:SMOKE_BATCH]
+    guarded = InferenceEngine(CFG, rounded, batch_size=SMOKE_BATCH,
+                              attention_impl="flash", device=dev, check_numerics=True)
+    probs = guarded.run(batch)
+    check(bool(np.isfinite(probs).all()),
+          "InferenceEngine(check_numerics=True) passes on phase 3's weights")
+    bad = dict(rounded, heads_head_weight=rounded["heads_head_weight"].copy())
+    bad["heads_head_weight"].flat[0] = np.nan
+    try:
+        InferenceEngine(CFG, bad, batch_size=SMOKE_BATCH, attention_impl="flash",
+                        device=dev, check_numerics=True).run(batch)
+        caught = "nothing"
+    except FloatingPointError as exc:
+        caught = str(exc)
+    check(caught.endswith("non-finite output values"),
+          f"InferenceEngine(check_numerics=True) with one weight NaN raises: {caught}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("FAIL: torch.cuda.is_available() is false: chip_smoke needs a card")
@@ -2841,6 +3052,10 @@ def main() -> int:
         phase("== phase 2i: the ring step kernel (blockwise_ring_step) vs its plain "
               "version at the ring's shard shapes")
         ring_rows = ring_kernel_rows(dev)
+        torch.cuda.empty_cache()
+        phase("== phase 2j: the W8A8 overlap probe's kernels vs plain versions, then "
+              "the probe's main() (scripts/probe_w8a8_overlap)")
+        probe_rows, probe_counts = probe_phase(dev)
     torch.cuda.empty_cache()
 
     with tempfile.TemporaryDirectory() as tmp:
@@ -2943,6 +3158,10 @@ def main() -> int:
               f"(card: {smi_line})", flush=True)
         print(json.dumps({"throughput_report": dict(report, card=smi_line)}),
               flush=True)
+    torch.cuda.empty_cache()
+    phase("== phase 7: the record-producing scripts (make_fixtures, soak, trace_table, "
+          "bench_train) and InferenceEngine(check_numerics=True)")
+    scripts_phase(dev, rounded, images)
 
     # Each row's launches: from the main-path run that drives its kernel.
     runs = [(counts, r) for r in rows] + [
@@ -2995,6 +3214,8 @@ def main() -> int:
              for r in ring_rows
              if r["name"].startswith(f"blockwise_ring_step ViT-L/16@512 4 shards "
                                      f"B={RING_BATCH} ") and "first rotation" in r["name"]]
+    # Phase 2j's rows, from the probe's main() at its full grid.
+    runs += [(probe_counts, r) for r in probe_rows]
     record = {"kernels": [
         {"name": r["name"], "route": "cuda", "source": SOURCES[r["counter"]],
          "replaces": r["replaces"] or REPLACES[r["counter"]],

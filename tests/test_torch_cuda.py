@@ -1305,3 +1305,125 @@ def test_mesh_paths_across_cards(cards):
     one = InferenceEngine(cfg, named, batch_size=2, attention_impl="flash",
                           device=cards[0])
     np.testing.assert_allclose(dp.run(images), one.run(images), rtol=0, atol=1e-6)
+
+
+# The overlap probe's kernels (csrc/probe_overlap.cu) against their plain
+# versions at a grid of 2 and 4 blocks, on the probe's own data (degenerate:
+# every row of x alike, xq constant along each row, w along N) and on seeded
+# random data. The int8 values, the scales, the stream's output and the
+# GEMMs' bf16 outputs are bit-identical; the LN's bf16 outputs are within
+# one bf16 ulp (near 0, one fp32 ulp of their unit scale) and 99% identical.
+PROBE_FORMS = ("stream", "vpu:q", "vpu:ln", "mxu", "fused", "indep:q", "indep:ln")
+
+
+def _probe_data(dev, kind: str, grid: int, n: int, seed: int = 0) -> dict:
+    from vit_with_opencl_tpu_torch.scripts import probe_w8a8_overlap as probe
+
+    rows = grid * probe.M_BLOCK
+    if kind == "probe":
+        assert probe.N == n  # main()'s weights are N wide
+        w, sw = probe.weights(dev)
+        return dict(xf=probe._x_f32(rows, 7, dev), xq=probe._x_i8(rows, 11, dev),
+                    w=w, sw=sw)
+    rng = np.random.default_rng(seed)
+    return {key: torch.from_numpy(v).to(dev) for key, v in dict(
+        xf=rng.normal(0.0, 2.0, (rows, probe.K)).astype(np.float32),
+        xq=rng.integers(-127, 128, (rows, probe.K)).astype(np.int8),
+        w=rng.integers(-127, 128, (probe.K, n)).astype(np.int8),
+        sw=rng.uniform(1e-4, 1e-3, (1, n)).astype(np.float32)).items()}
+
+
+def _probe_run(form: str, d: dict, reference: bool):
+    from vit_with_opencl_tpu_torch.scripts import probe_w8a8_overlap as probe
+
+    return probe.run(form, d, plain=reference)
+
+
+def _probe_close(form: str, outs, refs) -> None:
+    for i, (out, ref) in enumerate(zip(outs, refs)):
+        assert out.shape == ref.shape and out.dtype == ref.dtype, (form, i)
+        if form.endswith("ln") and i == 0:
+            o, r = out.float(), ref.float()
+            _, exp = torch.frexp(r.abs())
+            ulp = torch.clamp_min(torch.ldexp(torch.ones_like(r), exp - 8),
+                                  2.0 ** -23)
+            assert bool(((o - r).abs() <= ulp).all()), float((o - r).abs().max())
+            assert float((o == r).float().mean()) >= MIN_SAME_KERNEL
+        else:
+            assert torch.equal(out, ref), (form, i)
+
+
+@pytest.mark.parametrize("kind", ["probe", "random"])
+@pytest.mark.parametrize("grid,n", [(2, 256), (4, 3072)])
+@pytest.mark.parametrize("form", PROBE_FORMS)
+def test_probe_kernel(dev, form, grid, n, kind, monkeypatch):
+    from vit_with_opencl_tpu_torch.scripts import probe_w8a8_overlap as probe
+
+    monkeypatch.setattr(probe, "N", n)
+    d = _probe_data(dev, kind, grid, n)
+    counter = probe.FORMS[form].counter
+    before = getattr(probe, counter)
+    outs = _probe_run(form, d, reference=False)
+    torch.cuda.synchronize()
+    assert all(o.is_cuda for o in outs)
+    assert getattr(probe, counter) == before + 1
+    _probe_close(form, outs, _probe_run(form, d, reference=True))
+
+
+@pytest.mark.parametrize("form", PROBE_FORMS)
+def test_probe_kernel_keeps_only_the_last_block(dev, form):
+    """Another first block leaves the outputs as they were; another last
+    block moves every output."""
+    base = _probe_data(dev, "random", 3, 256)
+    other = _probe_data(dev, "random", 3, 256, seed=1)
+    first = dict(base, xf=torch.cat([other["xf"][:1024], base["xf"][1024:]]),
+                 xq=torch.cat([other["xq"][:1024], base["xq"][1024:]]))
+    last = dict(base, xf=torch.cat([base["xf"][:-1024], other["xf"][-1024:]]),
+                xq=torch.cat([base["xq"][:-1024], other["xq"][-1024:]]))
+    want = _probe_run(form, base, reference=False)
+    for out, ref in zip(_probe_run(form, first, reference=False), want):
+        assert torch.equal(out, ref)
+    for out, ref in zip(_probe_run(form, last, reference=False), want):
+        assert not torch.equal(out, ref)
+
+
+def test_probe_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    from vit_with_opencl_tpu_torch.scripts import probe_w8a8_overlap as probe
+
+    d = _probe_data(dev, "random", 1, 256)
+    with pytest.raises(ValueError, match="blocks"):
+        probe.vpu_quant(d["xf"][:1000])
+    with pytest.raises(ValueError, match="multiple of 128"):
+        probe.mxu(d["xq"], d["w"][:, :200].contiguous(), d["sw"][:, :200].contiguous())
+    with pytest.raises(TypeError, match="dtype"):
+        probe.fused(d["xq"], d["w"], d["sw"])
+    with pytest.raises(ValueError, match="vpu_op"):
+        probe.indep(d["xf"], d["xq"], d["w"], d["sw"], "gelu")
+
+
+# perf.device_kernel_table on the card. The tracer drops the kernels at the
+# start of its window now and then (on an H100: the first launches of a
+# ViT-B forward, the first 3.5 layers of a host-bound ViT-Ti stack); the
+# marks around the counted runs keep every launch of those runs in the
+# table. TRACE_REPEATS traces of each forward, each of 3 runs.
+TRACE_REPEATS = 10
+
+
+@pytest.mark.parametrize("name,batch", [("vit_b_16_224", 256),
+                                        ("vit_tiny_16_224", 16)])
+def test_device_kernel_table_counts_every_launch(dev, name, batch):
+    from vit_with_opencl_tpu_torch import config, perf
+    from vit_with_opencl_tpu_torch.engine import InferenceEngine
+
+    cfg = config.get_config(name)
+    engine = InferenceEngine(cfg, fixtures.random_params(cfg, seed=2, scale=0.05),
+                             batch_size=batch, attention_impl="flash", device=dev)
+    x = _rand((batch, 3, cfg.img_size, cfg.img_size), dev)
+    per_forward = {"linear_bf16_kernel": 4 * cfg.depth,
+                   "layernorm_kernel<": 2 * cfg.depth,
+                   "packed_attention_kernel": cfg.depth}
+    with torch.inference_mode():
+        for _ in range(TRACE_REPEATS):
+            table = perf.device_kernel_table(engine.forward, (x,), iters=3)
+            got = {k: sum(s.calls for s in table if k in s.name) for k in per_forward}
+            assert got == {k: 3 * n for k, n in per_forward.items()}

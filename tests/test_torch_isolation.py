@@ -33,7 +33,9 @@ def test_importing_every_module_loads_no_jax():
                  "optim", "data", "parallel.spmd", "io.checkpoint",
                  "io.export", "ops.softmax", "perf.profiler",
                  "perf.kernel_trace", "parallel.mesh", "parallel.collectives",
-                 "ops.ring_attention"):
+                 "ops.ring_attention", "debug", "scripts.probe_w8a8_overlap",
+                 "scripts.make_fixtures", "scripts.soak", "scripts.trace_table",
+                 "scripts.bench_train"):
         assert f"vit_with_opencl_tpu_torch.{name}" in modules
     code = "\n".join([
         "import importlib, sys",

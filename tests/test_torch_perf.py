@@ -144,6 +144,25 @@ def test_kernel_events_on_the_card_or_none():
         kernel_trace._select_events(events[:1], on_card=True)
 
 
+@pytest.mark.parametrize("on_card", [True, False])
+def test_marks_fence_the_traced_runs(on_card):
+    """Only the events between the two marks count; a trace that lost a
+    mark (the tracer dropped events at an edge of its window) raises."""
+    if on_card:
+        mark = {"ph": "X", "cat": "kernel", "dur": 1.0,
+                "name": "void at::cuda::(anonymous namespace)::spin_kernel(long)"}
+    else:
+        mark = {"ph": "X", "cat": "user_annotation", "dur": 1.0,
+                "name": kernel_trace._MARK}
+    k = {"ph": "X", "cat": "kernel", "name": "void k<64>()", "dur": 2.0}
+    events = [dict(k, ts=0.0), dict(mark, ts=3.0), dict(k, ts=4.0),
+              dict(k, ts=7.0), dict(mark, ts=9.0), dict(k, ts=10.0),
+              {"ph": "M", "name": "process_name"}]
+    assert kernel_trace._between_marks(events, on_card) == events[2:4]
+    with pytest.raises(RuntimeError, match="1 of its 2 marks"):
+        kernel_trace._between_marks(events[2:], on_card)
+
+
 def test_trace_writes_a_chrome_trace(tmp_path, monkeypatch):
     with perf.trace(str(tmp_path), device="cpu") as d:
         torch.ones(8, 8) @ torch.ones(8, 8)

@@ -41,9 +41,7 @@
 // 640 to 2944) is one kernel, not a second GEMM with an fp32 [M, N] addend:
 // that round trip would cost 2 x 620 MB for fc1 at B = 256. Not yet used:
 // Hopper's wgmma and TMA, which a later tuning pass needs to approach peak.
-#include "common.cuh"  // cuda_bf16.h before mma.h: the bf16 fragments
-
-#include <mma.h>
+#include "int8_tiles.cuh"  // common.cuh, mma.h, cp.async, the int8 slices
 
 #include <type_traits>
 
@@ -60,10 +58,13 @@ constexpr int kEpiLd = 20;  // staging pitch (fp32 or int32 elements)
 constexpr int kB8Stage = kBK * kBN;
 constexpr int kSmemBytesInt8W =
     kStages * kAStage * 2 + kStages * kB8Stage + kBStage * 2;
-// linear_w8a8_kernel: 64-deep int8 slices, stored as 16-byte column chunks.
-constexpr int kQBK = 64;
-constexpr int kQAStage = kBM * kQBK;  // bytes: [kQBK/16][kBM][16]
-constexpr int kQBStage = kQBK * kBN;  // bytes: [kBN/16][kQBK][16]
+// linear_w8a8_kernel: 64-deep int8 slices, stored as 16-byte column chunks
+// (int8_tiles.cuh, whose tile is this file's).
+static_assert(kBM == kI8BM && kBN == kI8BN && kThreads == kI8Threads,
+              "the int8 slices of int8_tiles.cuh assume this file's tile");
+constexpr int kQBK = kI8BK;
+constexpr int kQAStage = kI8AStage;  // bytes: [kQBK/16][kBM][16]
+constexpr int kQBStage = kI8BStage;  // bytes: [kBN/16][kQBK][16]
 constexpr int kSmemBytesW8A8 = kStages * (kQAStage + kQBStage);
 // With the side product the ring is reused for the bf16 slices after the
 // int8 loop.
@@ -93,21 +94,6 @@ __device__ __forceinline__ float gelu_fast(float x) {
   p = p * u + 0.03646878821593782f;
   p = p * u + 0.79782813653302f;
   return 0.5f * x * (1.0f + tanhf(x * p));
-}
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
-                                           bool valid) {
-  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  const int src_bytes = valid ? 16 : 0;  // 0: fill the 16 bytes with zeros
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(gmem), "r"(src_bytes));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
 // Residual, bias, GELU and the store for 8 consecutive columns gn..gn+7 of
@@ -356,20 +342,8 @@ __device__ __forceinline__ void load_slice_int8(
     int8_t* as, int8_t* bs, const int8_t* __restrict__ xq,
     const int8_t* __restrict__ w, int M, int N, int K, int m0, int n0,
     int k0) {
-  for (int i = threadIdx.x; i < kBM * (kQBK / 16); i += kThreads) {
-    const int r = i / (kQBK / 16), c = i % (kQBK / 16);
-    const bool ok = m0 + r < M && k0 + c * 16 < K;
-    const int8_t* src =
-        ok ? xq + static_cast<size_t>(m0 + r) * K + k0 + c * 16 : xq;
-    cp_async16(as + (c * kBM + r) * 16, src, ok);
-  }
-  for (int i = threadIdx.x; i < kQBK * (kBN / 16); i += kThreads) {
-    const int r = i / (kBN / 16), c = i % (kBN / 16);
-    const bool ok = k0 + r < K && n0 + c * 16 < N;
-    const int8_t* src =
-        ok ? w + static_cast<size_t>(k0 + r) * N + n0 + c * 16 : w;
-    cp_async16(bs + (c * kQBK + r) * 16, src, ok);
-  }
+  load_a_slice_int8(as, xq, M, K, m0, k0);
+  load_b_slice_int8(bs, w, N, K, n0, k0);
 }
 
 // The epilogue of the W8A8 GEMM with a side product: each fragment's int32
@@ -431,8 +405,6 @@ linear_w8a8_kernel(const int8_t* __restrict__ xq,
   extern __shared__ __align__(128) unsigned char smem[];
   int8_t* as = reinterpret_cast<int8_t*>(smem);
   int8_t* bs = as + kStages * kQAStage;
-  const int warp = threadIdx.x / 32;
-  const int wm = warp / 4, wn = warp % 4;  // 2 x 4 warps of 64x32
   const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * kBN;
 
   wmma::fragment<wmma::accumulator, 16, 16, 16, int> acc[4][2];
@@ -458,35 +430,8 @@ linear_w8a8_kernel(const int8_t* __restrict__ xq,
                       bs + (next % kStages) * kQBStage, xq, w, M, N, K, m0,
                       n0, next * kQBK);
     cp_async_commit();
-
-    const int8_t* a_stage = as + (kt % kStages) * kQAStage;
-    const int8_t* b_stage = bs + (kt % kStages) * kQBStage;
-#pragma unroll
-    for (int kc = 0; kc < kQBK / 16; ++kc) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, signed char, wmma::row_major>
-          af[4];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, signed char, wmma::row_major>
-          bfr[2];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        wmma::load_matrix_sync(
-            af[i],
-            reinterpret_cast<const signed char*>(
-                a_stage + (kc * kBM + wm * 64 + i * 16) * 16),
-            16);
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(
-            bfr[j],
-            reinterpret_cast<const signed char*>(
-                b_stage + ((wn * 2 + j) * kQBK + kc * 16) * 16),
-            16);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j)
-          wmma::mma_sync(acc[i][j], af[i], bfr[j], acc[i][j]);
-    }
+    mma_slice_int8(acc, as + (kt % kStages) * kQAStage,
+                   bs + (kt % kStages) * kQBStage);
   }
   cp_async_wait<0>();
   __syncthreads();  // the ring is idle

@@ -34,7 +34,7 @@
 //     weight rows are zero), and copied out in head order for the side GEMM.
 // Bound: bytes, M*(4*K + m + 2*(K - m) + 4) (split), M*(3*K + 2*nh*kh + 4)
 // (masked).
-#include "common.cuh"
+#include "int8_tiles.cuh"  // warp_absmax, quantize_one
 
 namespace vit {
 
@@ -56,19 +56,6 @@ __device__ __forceinline__ void store4(bf16* p, const float (&v)[4]) {
   raw.x = pack_bf16x2(v[0], v[1]);
   raw.y = pack_bf16x2(v[2], v[3]);
   *reinterpret_cast<uint2*>(p) = raw;
-}
-
-// The warp's absmax (every lane gets it), floored, and r = 127 / absmax.
-__device__ __forceinline__ float warp_absmax(float amax) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, off));
-  return fmaxf(amax, 0x1p-93f);
-}
-
-// __float2int_rn rounds half to even, as jnp.round; roundf would not.
-__device__ __forceinline__ signed char quantize_one(float v, float r) {
-  return static_cast<signed char>(__float2int_rn(__fmul_rn(v, r)));
 }
 
 template <typename TIn>

@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from .config import ViTConfig
+from .debug import checked_forward
 from .models import quant, vit
 from .ops import fused_block
 
@@ -78,6 +79,9 @@ class InferenceEngine:
         outlier-aware W8A8 mode: with ``int8-w8a8`` (or ``auto``, which then
         picks it) the weights go through ``quant.calibrate_w8a8`` instead of
         plain quantization.
+      check_numerics: every forward counts its non-finite outputs on the
+        device and raises ``FloatingPointError`` if there are any
+        (``debug.checked_forward``; one scalar read back a batch).
     """
 
     def __init__(
@@ -93,6 +97,7 @@ class InferenceEngine:
         quantize: Optional[str] = None,
         normalize_uint8: bool = False,
         calibrate: Optional[np.ndarray] = None,
+        check_numerics: bool = False,
     ):
         quantize = resolve_quantize(quantize, config,
                                     calibrated=calibrate is not None)
@@ -128,6 +133,11 @@ class InferenceEngine:
             IMAGENET_MEAN.reshape(1, 3, 1, 1) * 255.0).to(self.device)
         self._inv_std = torch.from_numpy(
             1.0 / (IMAGENET_STD.reshape(1, 3, 1, 1) * 255.0)).to(self.device)
+        if check_numerics:
+            # NaN guard (the reference's findNaN, ViT_opencl.c:1050-1061, as
+            # an always-on option instead of commented-out call sites).
+            self.forward = checked_forward(self.forward,
+                                           what=f"{config.name} forward")
         self.setup_time = time.perf_counter() - t0
 
     @torch.inference_mode()

@@ -94,6 +94,15 @@ SIGNATURES = {
     # t_loc, head_dim, block_k, scale, stream
     "vit_ring_step": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                       _I, _F, _P],
+    # The overlap probe (csrc/probe_overlap.cu): x, o, scratch, blocks, stream
+    "vit_probe_stream": [_P, _P, _P, _I, _P],
+    # x, ln, out, scale, scratch, blocks, stream
+    "vit_probe_vpu": [_P, _I, _P, _P, _P, _I, _P],
+    # xq (or x for fused), w, sw, o, scratch, blocks, n, stream
+    "vit_probe_mxu": [_P, _P, _P, _P, _P, _I, _I, _P],
+    "vit_probe_fused": [_P, _P, _P, _P, _P, _I, _I, _P],
+    # xa, xqb, w, sw, ln, oq, os, o, scratch, blocks, n, stream
+    "vit_probe_indep": [_P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -64,6 +64,44 @@ def _select_events(events: List[dict], on_card: bool) -> List[dict]:
     return kernels
 
 
+# The two marks around the traced runs: a short spin kernel on the card
+# (``torch.cuda._sleep``), an empty named range on the CPU.
+_SPIN = "spin_kernel"
+_MARK = "vit-kernel-trace-mark"
+
+
+def _mark(on_card: bool) -> None:
+    """A mark in the trace after everything launched so far has run."""
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+    else:
+        with torch.profiler.record_function(_MARK):
+            pass
+
+
+def _between_marks(events: List[dict], on_card: bool) -> List[dict]:
+    """The complete events that start after the first mark ends and end
+    before the second starts. A trace that lost a mark raises: the tracer
+    dropped events at its edges, and the counts would come out short."""
+    def is_mark(e: dict) -> bool:
+        if on_card:
+            return (str(e.get("cat", "")).lower() == "kernel"
+                    and _SPIN in str(e.get("name", "")))
+        return e.get("name") == _MARK
+
+    complete = [e for e in events if e.get("ph") == "X"]
+    marks = sorted((e for e in complete if is_mark(e)), key=lambda e: e["ts"])
+    if len(marks) != 2:
+        raise RuntimeError(f"the profiler's trace holds {len(marks)} of its 2 "
+                           "marks: it lost events at its edges")
+    lo = marks[0]["ts"] + marks[0].get("dur", 0)
+    hi = marks[1]["ts"]
+    return [e for e in complete
+            if e["ts"] >= lo and e["ts"] + e.get("dur", 0) <= hi]
+
+
 def device_kernel_table(
     fn: Callable,
     args: tuple,
@@ -75,10 +113,17 @@ def device_kernel_table(
     """Run ``fn(*args)`` ``iters`` times under ``torch.profiler`` and return
     per-kernel device-time totals/averages, largest first.
 
-    Runs once OUTSIDE the traced window (builds, allocator warm-up) so the
-    table reflects steady state. Totals cover all ``iters`` runs; divide by
-    ``iters`` for per-invocation numbers (the call count is as traced). The
-    card is traced when any tensor in ``args`` lies on it."""
+    Runs once OUTSIDE the traced window (builds, allocator warm-up), so the
+    table reflects steady state, and once more before and once after the
+    ``iters`` runs inside the trace, where marks fence them off: the
+    tracer drops events at the start of its window now and then (on an
+    H100: the first launches of a ViT-B forward, the first 3.5 layers of a
+    host-bound ViT-Ti stack), and the runs outside the marks take that
+    loss.
+    ``fn`` runs ``iters + 3`` times in all. Totals cover the ``iters``
+    runs; divide by ``iters`` for per-invocation numbers (the call count is
+    as traced). The card is traced when any tensor in ``args`` lies on
+    it."""
     on_card = any(t.is_cuda for t in tensors_in(args))
 
     def sync():
@@ -92,8 +137,12 @@ def device_kernel_table(
     activity = torch.profiler.ProfilerActivity
     with torch.profiler.profile(
             activities=[activity.CUDA if on_card else activity.CPU]) as prof:
+        fn(*args)
+        _mark(on_card)
         for _ in range(iters):
             fn(*args)
+        _mark(on_card)
+        fn(*args)
         sync()
     path = os.path.join(d, "trace.json")
     prof.export_chrome_trace(path)
@@ -101,7 +150,7 @@ def device_kernel_table(
         events = json.load(f).get("traceEvents", [])
 
     agg: dict = {}
-    for e in _select_events(events, on_card):
+    for e in _select_events(_between_marks(events, on_card), on_card):
         name = e.get("name", "?")
         dur_ms = float(e["dur"]) / 1e3  # trace durations are microseconds
         span = agg.get(name)
