@@ -1,0 +1,386 @@
+#!/usr/bin/env python3
+"""A parent tree's bf16 GEMMs and paths beside this tree's, on one card.
+
+    python3 before_after.py --parent DIR [--pairs N]
+
+Run from the repository root on a machine with a card and the CUDA toolkit.
+DIR holds the parent commit's files, unpacked into a git-ignored directory
+of the checkout, for example::
+
+    mkdir -p scratch_tree/parent && git archive HEAD~1 | tar -x -C scratch_tree/parent
+
+Each tree is measured by ``before_after.py --figures ROOT`` in a process of
+its own, with ROOT's package (built from ROOT's sources) and this file's
+figures, in turns: parent, this, this, parent. A side's figure is the mean
+of its two runs. The figures (ms):
+
+* row 3's four GEMMs (``fused_linear``, ViT-B/16's shapes and epilogues) at
+  B = 16 and 256;
+* row 14a's forms (``linear_wgrad``, ``linear_dgrad``,
+  ``fused_linear_with_gelu``) at ViT-B/16's B = 16 and 64 and at
+  ViT-L/16@384's widths at B = 8;
+* the ViT-B/16 bf16 forward at B = 64 and 256; W8A8, int8 weights and
+  calibrated W8A8 at 256; the ViT-Ti and ViT-S stacks at 16 and 256;
+* the ViT-B/16 ``fused`` AdamW step at B = 64 and ViT-L/16@384's at 32.
+
+Then the host-bound figures (the ViT-Ti and ViT-S stacks at B = 16, 84
+launches a forward) two ways, N times each (default 10):
+
+* process pairs, in alternating order: each tree's package in a process of
+  its own, a figure the best of 10 timings of 10 forwards. Reported: each
+  pair's ratio, their median and spread. A process's host speed moves with
+  the cores it shares (the same tree has read 2.5 and 4.1 ms in two
+  processes), so these mostly measure that;
+* library swaps, in one process (``--swap DIR N``): this tree's package
+  launching through its own kernel library and through the parent's, in
+  alternating windows, a figure the best of 3 timings of 10 forwards.
+  Every entry point the forward calls must have the same signature in
+  both (the proxy raises otherwise). This holds the host and the Python
+  fixed and measures what the kernel layer costs; a change to the
+  forward's Python shows only in the pairs.
+
+Gates (slower only, so a later tree that is faster passes): W8A8, int8
+weights and calibrated W8A8 at B = 256 at most 3% slower than the parent's;
+the median of the library swaps' ViT-Ti stack ratios at B = 16 at most 5%
+slower. Exits 1 if a gate fails, 2 without ``--parent``. The last line is
+one JSON object with every run's figures, the pairs and the gates.
+"""
+
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import sys
+from pathlib import Path
+
+import torch
+
+STEADY_PATHS_TOL = 0.03
+HOST_BOUND_TOL = 0.05
+DEFAULT_PAIRS = 10
+SMOKE_BATCH = 16
+THROUGHPUT_BATCHES = (64, 256)
+GEMM_BATCHES = (16, 256)
+# (name, width, hidden width, tokens, batch) of row 14a's figures.
+GRAD_SHAPES = (("ViT-B/16", 768, 3072, 197, 16), ("ViT-B/16", 768, 3072, 197, 64),
+               ("ViT-L/16@384", 1024, 4096, 577, 8))
+N_CALIB = 16
+TRAIN_LR = 1e-3
+TRAIN_BATCH = 64  # ViT-B/16
+LARGE_TRAIN_BATCH = 32  # ViT-L/16@384
+REPS = 10
+WINDOWS = 10  # the stacks: best of this many timings
+SWAP_WINDOWS = 3  # the library swaps: best of this many timings
+PROCESS_TIMEOUT = 900
+
+
+def time_ms(fn, reps: int = REPS) -> float:
+    """Mean device time of one call, by CUDA events around ``reps`` calls
+    after a warm-up."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def gemm_figures(pkg, dev) -> dict:
+    """Row 3's four GEMMs with their chain's epilogues, and row 14a's forms
+    (the wgrads, the dgrads with fc2's through the GELU gradient, the fc1
+    pair)."""
+    linear, cfg = pkg["linear"], pkg["VIT_B_16_224"]
+    gen = torch.Generator(device=dev).manual_seed(8)
+    bf, f32 = torch.bfloat16, torch.float32
+
+    def rnd(*shape, std=1.0, dtype=bf):
+        return (torch.randn(shape, generator=gen, device=dev) * std).to(dtype)
+
+    out = {}
+    d, h = cfg.embed_dim, cfg.hidden_dim
+    for batch in GEMM_BATCHES:
+        m = batch * cfg.num_tokens
+        for name, k, n, kw in (("qkv", d, 3 * d, {}), ("out", d, d, "res"),
+                               ("fc1", d, h, {"fuse_gelu": True}), ("fc2", h, d, "res")):
+            x, w, b = rnd(m, k), rnd(k, n, std=0.02), rnd(n, std=0.02, dtype=f32)
+            if kw == "res":
+                kw = {"residual": rnd(m, n, dtype=f32), "out_dtype": f32}
+            out[f"row 3 {name} ViT-B/16 B={batch}"] = time_ms(
+                lambda: linear.fused_linear(x, w, b, **kw))
+    for cfg_name, d, h, t, batch in GRAD_SHAPES:
+        m = batch * t
+        tag = f"{cfg_name} B={batch}"
+        for name, k, n in (("qkv", d, 3 * d), ("out", d, d), ("fc1", d, h), ("fc2", h, d)):
+            x, dy, w = rnd(m, k), rnd(m, n, std=0.01), rnd(k, n, std=0.02)
+            out[f"row 14a wgrad {name} {tag}"] = time_ms(lambda: linear.linear_wgrad(x, dy))
+            if name == "fc2":
+                pre = rnd(m, k, dtype=f32)
+                out[f"row 14a dgrad fc2 * gelu' {tag}"] = time_ms(
+                    lambda: linear.linear_dgrad(dy, w, gelu_grad_of=pre, out2_dtype=bf))
+            else:
+                out[f"row 14a dgrad {name} {tag}"] = time_ms(
+                    lambda: linear.linear_dgrad(dy, w, out_dtype=bf if name == "out" else f32))
+        x, w1, b1 = rnd(m, d), rnd(d, h, std=0.02), rnd(h, std=0.02, dtype=f32)
+        out[f"row 14a fc1 pair {tag}"] = time_ms(
+            lambda: linear.fused_linear_with_gelu(x, w1, b1))
+    return out
+
+
+def stack_figures(pkg, dev, batches, windows: int = WINDOWS) -> dict:
+    """The ViT-Ti and ViT-S bf16 stacks (one stack call a forward) at
+    ``batches``, each figure the best of ``windows`` timings."""
+    out = {}
+    for cfg in (pkg["VIT_TINY_16_224"], pkg["VIT_S_16_224"]):
+        engine = pkg["InferenceEngine"](cfg, pkg["fixtures"].random_params(cfg, seed=0),
+                                        batch_size=SMOKE_BATCH, attention_impl="flash",
+                                        device=dev)
+        for batch in batches:
+            gen = torch.Generator(device=dev).manual_seed(batch)
+            images = torch.randn((batch, 3, cfg.img_size, cfg.img_size), generator=gen,
+                                 device=dev)
+            out[f"forward {cfg.name} bf16 stack B={batch}"] = min(
+                time_ms(lambda: engine.forward(images)) for _ in range(windows))
+    return out
+
+
+def forward_figures(pkg, dev) -> dict:
+    """ViT-B/16 bf16 at B = 64 and 256; W8A8, int8 weights and calibrated
+    W8A8 at 256 (ms a forward)."""
+    cfg, fixtures = pkg["VIT_B_16_224"], pkg["fixtures"]
+    params = fixtures.random_params(cfg, seed=0)
+    calib = fixtures.random_images(cfg, n=N_CALIB, seed=5)
+    engines = {mode: pkg["InferenceEngine"](cfg, params, batch_size=SMOKE_BATCH,
+                                            attention_impl="flash", device=dev,
+                                            quantize=q, calibrate=c)
+               for mode, q, c in (("bf16", None, None), ("w8a8", "int8-w8a8", None),
+                                  ("int8", "int8", None),
+                                  ("w8a8_outlier", "int8-w8a8", calib))}
+    out = {}
+    for batch in THROUGHPUT_BATCHES:
+        gen = torch.Generator(device=dev).manual_seed(batch)
+        images = torch.randn((batch, 3, cfg.img_size, cfg.img_size), generator=gen,
+                             device=dev)
+        for mode, engine in engines.items():
+            if mode == "bf16" or batch == THROUGHPUT_BATCHES[-1]:
+                out[f"forward {cfg.name} {mode} B={batch}"] = time_ms(
+                    lambda: engine.forward(images), reps=5)
+    return out
+
+
+def training_figures(pkg, dev) -> dict:
+    """The ViT-B/16 fused AdamW step at B = 64 and ViT-L/16@384's at 32
+    (ms a step)."""
+    out = {}
+    torch.cuda.empty_cache()
+    for cfg, batch in ((pkg["VIT_B_16_224"], TRAIN_BATCH),
+                       (pkg["VIT_L_16_384"], LARGE_TRAIN_BATCH)):
+        images = pkg["fixtures"].random_images(cfg, n=batch, seed=4)
+        ti = torch.from_numpy(images).to(dev)
+        tl = torch.full((batch,), 4 % cfg.num_classes, dtype=torch.int64, device=dev)
+        init, step = pkg["spmd"].make_train_step(cfg, device=dev, lr=TRAIN_LR,
+                                                 compute_dtype=torch.bfloat16,
+                                                 optimizer="adamw", attention_impl="fused")
+        params = pkg["optim"].tree_map(lambda t: t.to(dev),
+                                       pkg["vit"].init_params(cfg, seed=0, device="cpu"))
+        state = init(params)
+        out[f"train step {cfg.name} fused B={batch}"] = time_ms(
+            lambda: step(params, state, ti, tl), reps=3)
+        del params, state, init, step
+        torch.cuda.empty_cache()
+    return out
+
+
+def figures_main(root: str, host_only: bool) -> int:
+    """``--figures ROOT [--host]``: the figures with ROOT's package on the
+    card (only the host-bound ones with --host), one JSON object on the last
+    line naming the root its package came from."""
+    sys.path.insert(0, str(Path(root).resolve()))
+    import vit_with_opencl_tpu_torch as port
+    from vit_with_opencl_tpu_torch import optim
+    from vit_with_opencl_tpu_torch.config import (VIT_B_16_224, VIT_L_16_384,
+                                                  VIT_S_16_224, VIT_TINY_16_224)
+    from vit_with_opencl_tpu_torch.engine import InferenceEngine
+    from vit_with_opencl_tpu_torch.harness import fixtures
+    from vit_with_opencl_tpu_torch.models import vit
+    from vit_with_opencl_tpu_torch.ops import _build, linear
+    from vit_with_opencl_tpu_torch.parallel import spmd
+    pkg = dict(linear=linear, optim=optim, vit=vit, spmd=spmd, fixtures=fixtures,
+               InferenceEngine=InferenceEngine, VIT_B_16_224=VIT_B_16_224,
+               VIT_L_16_384=VIT_L_16_384, VIT_S_16_224=VIT_S_16_224,
+               VIT_TINY_16_224=VIT_TINY_16_224)
+    if not torch.cuda.is_available():
+        print("FAIL: torch.cuda.is_available() is false")
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    _build.library()
+    with torch.inference_mode():
+        if host_only:
+            out = stack_figures(pkg, dev, (SMOKE_BATCH,))
+        else:
+            out = gemm_figures(pkg, dev)
+            out.update(forward_figures(pkg, dev))
+            out.update(stack_figures(pkg, dev, (SMOKE_BATCH, THROUGHPUT_BATCHES[-1])))
+    if not host_only:
+        out.update(training_figures(pkg, dev))
+    print(json.dumps({"root": str(Path(port.__file__).resolve().parents[1]), "ms": out}))
+    return 0
+
+
+class SharedEntries:
+    """The parent's kernel library, its entry points callable where their
+    signatures equal this tree's (any other raises when called)."""
+
+    def __init__(self, lib, theirs: dict, ours: dict):
+        self._lib = lib
+        self._same = {n for n in ours if theirs.get(n) == ours[n]} | {"vit_error_string"}
+
+    def __getattr__(self, name):
+        if name not in self._same:
+            raise RuntimeError(f"{name}: the parent's entry point has another signature")
+        return getattr(self._lib, name)
+
+
+def swap_main(parent: str, pairs: int) -> int:
+    """``--swap DIR N``: the host-bound stacks at B = 16 in this process,
+    this tree's package launching through its own kernel library and
+    through DIR's (built from DIR's sources by DIR's ``_build``) in
+    alternating windows, N of each; one JSON object on the last line."""
+    import importlib.util
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    from vit_with_opencl_tpu_torch.config import VIT_S_16_224, VIT_TINY_16_224
+    from vit_with_opencl_tpu_torch.engine import InferenceEngine
+    from vit_with_opencl_tpu_torch.harness import fixtures
+    from vit_with_opencl_tpu_torch.ops import _build
+    spec = importlib.util.spec_from_file_location(
+        "parent_build", Path(parent) / "vit_with_opencl_tpu_torch" / "ops" / "_build.py")
+    parent_build = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(parent_build)
+    libs = {"this": _build.library(),
+            "parent": SharedEntries(parent_build.library(), parent_build.SIGNATURES,
+                                    _build.SIGNATURES)}
+    dev = torch.device("cuda")
+    out = {}
+    with torch.inference_mode():
+        for cfg in (VIT_TINY_16_224, VIT_S_16_224):
+            engine = InferenceEngine(cfg, fixtures.random_params(cfg, seed=0),
+                                     batch_size=SMOKE_BATCH, attention_impl="flash",
+                                     device=dev)
+            gen = torch.Generator(device=dev).manual_seed(SMOKE_BATCH)
+            images = torch.randn((SMOKE_BATCH, 3, cfg.img_size, cfg.img_size),
+                                 generator=gen, device=dev)
+            ms = {"this": [], "parent": []}
+            for i in range(2 * pairs):
+                tag = ("this", "parent")[(i + i // 2) % 2]  # this, parent, parent, this, ...
+                _build._lib = libs[tag]
+                ms[tag].append(min(time_ms(lambda: engine.forward(images))
+                                   for _ in range(SWAP_WINDOWS)))
+            _build._lib = libs["this"]
+            out[f"forward {cfg.name} bf16 stack B={SMOKE_BATCH}"] = ms
+    print(json.dumps({"swaps": out}))
+    return 0
+
+
+def run_figures(root: Path, host_only: bool = False) -> dict:
+    """``before_after.py --figures root`` in a process of its own: its
+    figures, after checking that they came from root's package."""
+    cmd = [sys.executable, str(Path(__file__).resolve()), "--figures", str(root)]
+    proc = subprocess.run(cmd + (["--host"] if host_only else []), capture_output=True,
+                          text=True, timeout=PROCESS_TIMEOUT)
+    lines = proc.stdout.strip().splitlines()
+    if proc.returncode != 0 or not lines:
+        raise RuntimeError(f"--figures {root} exited {proc.returncode}:\n"
+                           f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+    result = json.loads(lines[-1])
+    if Path(result["root"]) != root:
+        raise RuntimeError(f"--figures {root} measured the package of {result['root']}")
+    return result["ms"]
+
+
+def main(argv: list[str]) -> int:
+    if "--parent" not in argv:
+        print(__doc__)
+        print("FAIL: no --parent DIR: nothing to compare")
+        return 2
+    parent = Path(argv[argv.index("--parent") + 1]).resolve()
+    pairs = int(argv[argv.index("--pairs") + 1]) if "--pairs" in argv else DEFAULT_PAIRS
+    here = Path(__file__).resolve().parent
+    if not (parent / "vit_with_opencl_tpu_torch").is_dir() or parent == here:
+        print(f"FAIL: {parent} holds no other tree's vit_with_opencl_tpu_torch")
+        return 2
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True)
+    print(f"card: {smi.stdout.strip()}", flush=True)
+
+    runs = [run_figures(root) for root in (parent, here, here, parent)]
+    before = {k: (runs[0][k] + runs[3][k]) / 2 for k in runs[0]}
+    after = {k: (runs[1][k] + runs[2][k]) / 2 for k in runs[1]}
+    for key in before:
+        b, a = before[key], after[key]
+        print(f"before / after {key}: {b:.4f} / {a:.4f} ms ({b / a:.4f}x; runs "
+              f"{runs[0][key]:.4f}, {runs[1][key]:.4f}, {runs[2][key]:.4f}, "
+              f"{runs[3][key]:.4f})", flush=True)
+
+    # The host-bound figures: pairs in alternating order (parent first, then
+    # this tree first), each ratio this tree's ms over the parent's.
+    pair_runs = []
+    for i in range(pairs):
+        order = (parent, here) if i % 2 == 0 else (here, parent)
+        ms = {root: run_figures(root, host_only=True) for root in order}
+        pair_runs.append({"parent": ms[parent], "this": ms[here]})
+    ratios = {}
+    for key in pair_runs[0]["parent"] if pairs else ():
+        ratios[key] = [p["this"][key] / p["parent"][key] for p in pair_runs]
+        r = ratios[key]
+        print(f"pairs {key}: this / parent median {statistics.median(r):.4f}, "
+              f"min {min(r):.4f}, max {max(r):.4f} over {len(r)} pairs "
+              f"(ratios {', '.join(f'{v:.4f}' for v in r)})", flush=True)
+
+    proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--swap",
+                           str(parent), str(pairs)], capture_output=True, text=True,
+                          timeout=PROCESS_TIMEOUT)
+    if proc.returncode != 0:
+        raise RuntimeError(f"--swap exited {proc.returncode}:\n{proc.stderr[-4000:]}")
+    swaps = json.loads(proc.stdout.strip().splitlines()[-1])["swaps"]
+    swap_ratios = {}
+    for key, ms in swaps.items():
+        r = [a / b for a, b in zip(ms["this"], ms["parent"])]
+        swap_ratios[key] = r
+        print(f"library swaps {key}: this / parent median {statistics.median(r):.4f}, "
+              f"min {min(r):.4f}, max {max(r):.4f} over {len(r)} windows each "
+              f"(this median {statistics.median(ms['this']):.4f} ms, parent "
+              f"{statistics.median(ms['parent']):.4f})", flush=True)
+
+    gates = {}
+    for mode in ("w8a8", "int8", "w8a8_outlier"):
+        key = f"forward vit_b_16_224 {mode} B={THROUGHPUT_BATCHES[-1]}"
+        ratio = after[key] / before[key]
+        gates[key] = ratio <= 1 + STEADY_PATHS_TOL
+        print(f"{'ok  ' if gates[key] else 'FAIL'} {key}: this / parent {ratio:.4f} "
+              f"(at most {STEADY_PATHS_TOL:.0%} slower; within {STEADY_PATHS_TOL:.0%} "
+              f"either way: {abs(ratio - 1) <= STEADY_PATHS_TOL})", flush=True)
+    key = f"forward vit_tiny_16_224 bf16 stack B={SMOKE_BATCH}"
+    if key in swap_ratios:
+        median = statistics.median(swap_ratios[key])
+        gates[key] = median <= 1 + HOST_BOUND_TOL
+        print(f"{'ok  ' if gates[key] else 'FAIL'} {key} (host-bound): median this / "
+              f"parent {median:.4f} over {pairs} library swaps (at most "
+              f"{HOST_BOUND_TOL:.0%} slower)", flush=True)
+    print(json.dumps({"parent": str(parent), "card": smi.stdout.strip(), "runs": runs,
+                      "pairs": pair_runs, "swaps": swaps, "gates": gates}))
+    return 0 if all(gates.values()) else 1
+
+
+if __name__ == "__main__":
+    if len(sys.argv) == 4 and sys.argv[1] == "--swap":
+        sys.exit(swap_main(sys.argv[2], int(sys.argv[3])))
+    if len(sys.argv) >= 3 and sys.argv[1] == "--figures":
+        sys.exit(figures_main(sys.argv[2], "--host" in sys.argv[3:]))
+    sys.exit(main(sys.argv[1:]))

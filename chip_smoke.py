@@ -445,7 +445,7 @@ TRACE_ITERS = 3
 # The kernel names (substrings of the demangled names in the trace) of the
 # forward chains, with the counter of each.
 TRACE_KERNELS = {"packed_attention_kernel": "attention",
-                 "linear_bf16_kernel": "linear", "layernorm_kernel<": "layernorm"}
+                 "gemm_sm90_kernel": "linear", "layernorm_kernel<": "layernorm"}
 
 # Phases 2i, 3f and 4e: ring attention and the multi-device forwards on a
 # virtual mesh of the one card (MESH_SHARDS shards, all cuda:0): a real
@@ -607,7 +607,7 @@ REPLACES = {
 _CSRC = "vit_with_opencl_tpu_torch/csrc/"
 SOURCES = {
     "layernorm": _CSRC + "layernorm.cu",
-    "linear": _CSRC + "linear.cu",
+    "linear": _CSRC + "gemm_sm90.cuh",
     "attention": _CSRC + "attention.cu",
     "fused_block": "vit_with_opencl_tpu_torch/ops/fused_block.py",
     "quantize": _CSRC + "quantize.cu",
@@ -622,9 +622,9 @@ SOURCES = {
     "fused_block_stack": "vit_with_opencl_tpu_torch/ops/fused_block.py",
     "fused_block_stack_int8w": "vit_with_opencl_tpu_torch/ops/fused_block.py",
     "attention_bwd": _CSRC + "attention_bwd.cu",
-    "linear_dgrad": _CSRC + "linear.cu",
-    "linear_wgrad": _CSRC + "linear.cu",
-    "linear_gelu_pair": _CSRC + "linear.cu",
+    "linear_dgrad": _CSRC + "gemm_sm90.cuh",
+    "linear_wgrad": _CSRC + "gemm_sm90.cuh",
+    "linear_gelu_pair": _CSRC + "gemm_sm90.cuh",
     "layernorm_bwd": _CSRC + "layernorm.cu",
     "column_sum": _CSRC + "reduce.cu",
     "fused_bwd_x2": "vit_with_opencl_tpu_torch/ops/fused_block.py",

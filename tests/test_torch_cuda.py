@@ -9,9 +9,15 @@ conftest, which does, is left out):
     python -m pytest --noconftest -p no:cacheprovider -q -m cuda tests/test_torch_cuda.py
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
+
+if os.environ.get("PYTEST_XDIST_WORKER"):
+    # The xdist workers share the host's cores: one torch thread each.
+    torch.set_num_threads(1)
 
 from vit_with_opencl_tpu_torch import ViTConfig
 from vit_with_opencl_tpu_torch.harness import fixtures
@@ -97,8 +103,15 @@ def test_layer_norm_kernel(dev, rows, cols, in_dtype, out_dtype):
     _close(out, layernorm.layer_norm_reference(x, w, b, 1e-6, out_dtype=out_dtype))
 
 
+# Beyond ViT-B: the ViT-L and ViT-H widths (K, N = 1024, 4096 and 1280,
+# 5120) and ViT-Ti's, whose N or K of 192 is not a multiple of the 128-wide
+# tile (16 * 197 rows: B = 16).
+WIDE_GEMMS = [(3152, 1024, 4096), (1576, 1280, 5120), (16 * 197, 192, 576),
+              (16 * 197, 768, 192)]
+
+
 @pytest.mark.parametrize("m,k,n", [(74, 64, 192), (394, 768, 2304),
-                                   (33, 40, 24), (1, 3072, 768)])
+                                   (33, 40, 24), (1, 3072, 768)] + WIDE_GEMMS)
 @pytest.mark.parametrize("epilogue", ["bias", "gelu", "res_f32", "res_bf16"])
 def test_fused_linear_kernel(dev, m, k, n, epilogue):
     x = _rand((m, k), dev, torch.bfloat16)
@@ -588,8 +601,10 @@ def test_packed_attention_bwd_refuses(dev):
            tol=dict(rtol=1.6e-2, atol=1e-2 * float(ref.float().abs().max())))
 
 
+# (40, 768, 768): a wgrad over fewer tokens than one split run.
 @pytest.mark.parametrize("m,k,n", [(74, 64, 192), (3152, 768, 2304),
-                                   (3152, 3072, 768), (33, 40, 24)])
+                                   (3152, 3072, 768), (33, 40, 24),
+                                   (40, 768, 768)] + WIDE_GEMMS)
 @pytest.mark.parametrize("form", ["dgrad_bf16", "dgrad_gelu", "wgrad", "fc1"])
 def test_grad_gemm_kernels(dev, m, k, n, form):
     """dgrad: dY [m, n] · Wᵀ (W [k, n]); wgrad: Xᵀ [k, m] · dY [m, n]; the
@@ -630,6 +645,25 @@ def test_grad_gemm_kernels(dev, m, k, n, form):
         rpre, rhid = linear.fused_linear_with_gelu_reference(x, w, b)
         _rel_close(pre, rpre, 1e-4)
         _close(hid, rhid)
+
+
+@pytest.mark.parametrize("k,n", [(768, 768), (3072, 768)])
+def test_wgrad_is_deterministic(dev, k, n):
+    """The split-K weight gradient at ViT-B's B = 64 (12,608 tokens; out-proj
+    all split, fc2 a whole wave and the rest split): the partials are summed
+    in a fixed order, so two calls give the same bits."""
+    m = 64 * 197
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert linear._wgrad_splits(m, k, n, sms)[1] > 1  # the split path runs
+    x = _rand((m, k), dev, torch.bfloat16)
+    dy = _rand((m, n), dev, torch.bfloat16, seed=1)
+    before = linear.LAUNCHES_WGRAD
+    first = linear.linear_wgrad(x, dy)
+    second = linear.linear_wgrad(x, dy)
+    torch.cuda.synchronize()
+    assert linear.LAUNCHES_WGRAD == before + 2
+    assert torch.equal(first, second)
+    _rel_close(first, linear.linear_wgrad_reference(x, dy), 1e-4)
 
 
 @pytest.mark.parametrize("rows,cols", [(74, 64), (3152, 768)])
@@ -1419,7 +1453,7 @@ def test_device_kernel_table_counts_every_launch(dev, name, batch):
     engine = InferenceEngine(cfg, fixtures.random_params(cfg, seed=2, scale=0.05),
                              batch_size=batch, attention_impl="flash", device=dev)
     x = _rand((batch, 3, cfg.img_size, cfg.img_size), dev)
-    per_forward = {"linear_bf16_kernel": 4 * cfg.depth,
+    per_forward = {"gemm_sm90_kernel": 4 * cfg.depth,
                    "layernorm_kernel<": 2 * cfg.depth,
                    "packed_attention_kernel": cfg.depth}
     with torch.inference_mode():

@@ -3,10 +3,16 @@ and ``InferenceEngine(check_numerics=True)``), on the CPU: the mirror of
 ``tests/test_debug.py``, with ``find_nan``'s report held to the JAX
 package's on the same trees."""
 
+import os
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+
+if os.environ.get("PYTEST_XDIST_WORKER"):
+    # The xdist workers share the host's cores: one torch thread each.
+    torch.set_num_threads(1)
 
 from vit_with_opencl_tpu.debug import find_nan as jax_find_nan
 from vit_with_opencl_tpu_torch import ViTConfig

@@ -1,9 +1,15 @@
 """The port's engine and CLI on the CPU: the flow of tests/test_e2e.py
 (fixtures on disk → CLI → comparator green), batch padding and uint8 input."""
 
+import os
+
 import numpy as np
 import pytest
 import torch
+
+if os.environ.get("PYTEST_XDIST_WORKER"):
+    # The xdist workers share the host's cores: one torch thread each.
+    torch.set_num_threads(1)
 
 from vit_with_opencl_tpu_torch import ViTConfig, cli
 from vit_with_opencl_tpu_torch import config as config_lib

@@ -4,14 +4,20 @@ weights with torch), nor optax or orbax (its optimizers and checkpoints are
 its own torch code), never falls back to the CPU when a card was asked for,
 and never falls back to a plain version when its kernels cannot be built."""
 
-import pkgutil
+import os
 import re
 import subprocess
 import sys
 from pathlib import Path
 
+import pkgutil
+
 import pytest
 import torch
+
+if os.environ.get("PYTEST_XDIST_WORKER"):
+    # The xdist workers share the host's cores: one torch thread each.
+    torch.set_num_threads(1)
 
 import vit_with_opencl_tpu_torch
 from vit_with_opencl_tpu_torch import ViTConfig
@@ -62,7 +68,8 @@ FORBIDDEN = [re.compile(p, re.MULTILINE) for p in (
 
 
 def test_sources_do_not_name_jax():
-    files = sorted(PACKAGE_DIR.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    files = sorted(PACKAGE_DIR.rglob("*.py")) + [
+        REPO / name for name in ("chip_smoke.py", "before_after.py", "wgrad_split_rules.py")]
     for path in files:
         text = path.read_text()
         for pattern in FORBIDDEN:

@@ -8,10 +8,16 @@ stack (``fused_encoder_stack``), with the residual stream in fp32 across
 every layer.
 """
 
+import os
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+
+if os.environ.get("PYTEST_XDIST_WORKER"):
+    # The xdist workers share the host's cores: one torch thread each.
+    torch.set_num_threads(1)
 
 from vit_with_opencl_tpu.models import quant as jquant
 from vit_with_opencl_tpu.models import vit as jvit

@@ -6,6 +6,7 @@ Each case makes its inputs with numpy from a seed, runs the JAX function
 tensors no kernel may launch, which each case checks through the counters.
 """
 
+import os
 import re
 from pathlib import Path
 
@@ -13,6 +14,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+
+if os.environ.get("PYTEST_XDIST_WORKER"):
+    # The xdist workers share the host's cores: one torch thread each.
+    torch.set_num_threads(1)
 
 from vit_with_opencl_tpu import ViTConfig
 from vit_with_opencl_tpu.models import vit as jvit
@@ -175,13 +180,13 @@ def test_fused_encoder_layer_matches_jax(no_launches, encoder_layer_inputs, dtyp
 
 def test_gelu_fast_matches_jax_and_cuda_source():
     """One polynomial in three places: the JAX package, the port's plain
-    version, and the coefficients written out in csrc/linear.cu."""
+    version, and the coefficients written out in csrc/epilogue.cuh."""
     x = np.linspace(-8, 8, 2001, dtype=np.float32)
     ref = np.asarray(jfused._gelu_fast(jnp.asarray(x)))
     out = fused_block._gelu_fast(torch.from_numpy(x)).numpy()
     np.testing.assert_allclose(out, ref, atol=1e-6)
     assert fused_block._GELU_P == jfused._GELU_P
-    src = (Path(linear.__file__).parent.parent / "csrc" / "linear.cu").read_text()
+    src = (Path(linear.__file__).parent.parent / "csrc" / "epilogue.cuh").read_text()
     body = src[src.index("float p = "):src.index("return 0.5f")]
     coeffs = [float(c) for c in re.findall(r"(-?\d\.\d+e?-?\d*)f", body)]
     assert coeffs == list(fused_block._GELU_P[::-1])

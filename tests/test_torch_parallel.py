@@ -15,11 +15,17 @@ across with ``models/vit.params_from_jax``; inputs are made with numpy from
 seeds. On CPU tensors no kernel launches, which each test checks.
 """
 
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+
+if os.environ.get("PYTEST_XDIST_WORKER"):
+    # The xdist workers share the host's cores: one torch thread each.
+    torch.set_num_threads(1)
 
 from vit_with_opencl_tpu import ViTConfig as JViTConfig
 from vit_with_opencl_tpu.engine import DataParallelEngine as JDataParallelEngine

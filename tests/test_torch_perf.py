@@ -16,6 +16,10 @@ import numpy as np
 import pytest
 import torch
 
+if os.environ.get("PYTEST_XDIST_WORKER"):
+    # The xdist workers share the host's cores: one torch thread each.
+    torch.set_num_threads(1)
+
 from vit_with_opencl_tpu import config as jconfig
 from vit_with_opencl_tpu import perf as jperf
 from vit_with_opencl_tpu.harness import fixtures as jfixtures

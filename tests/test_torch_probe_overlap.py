@@ -19,6 +19,7 @@ ulp of their unit scale) and at least 99% bit-identical.
 
 import functools
 import importlib.util
+import os
 from pathlib import Path
 
 import jax
@@ -26,6 +27,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+
+if os.environ.get("PYTEST_XDIST_WORKER"):
+    # The xdist workers share the host's cores: one torch thread each.
+    torch.set_num_threads(1)
+
 from jax.experimental import pallas as pl
 
 from vit_with_opencl_tpu_torch.scripts import probe_w8a8_overlap as probe

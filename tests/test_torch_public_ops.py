@@ -10,10 +10,16 @@ tensors every wrapper computes its plain version; no kernel launches, which
 the tests check through the counters.
 """
 
+import os
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+
+if os.environ.get("PYTEST_XDIST_WORKER"):
+    # The xdist workers share the host's cores: one torch thread each.
+    torch.set_num_threads(1)
 
 from vit_with_opencl_tpu import config as jconfig
 from vit_with_opencl_tpu import ops as jops

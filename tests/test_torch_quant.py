@@ -7,10 +7,16 @@ Inputs are made with numpy from seeds. On CPU tensors no kernel launches,
 which the layer tests check through the counters.
 """
 
+import os
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+
+if os.environ.get("PYTEST_XDIST_WORKER"):
+    # The xdist workers share the host's cores: one torch thread each.
+    torch.set_num_threads(1)
 
 from vit_with_opencl_tpu import config as jconfig
 from vit_with_opencl_tpu import engine as jengine

@@ -13,10 +13,16 @@ bit for bit on JAX's own stats, fed to both sides; the calibration forward
 is held separately, to a tolerance. Inputs are made with numpy from seeds.
 """
 
+import os
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+
+if os.environ.get("PYTEST_XDIST_WORKER"):
+    # The xdist workers share the host's cores: one torch thread each.
+    torch.set_num_threads(1)
 
 from vit_with_opencl_tpu.harness import fixtures as jfixtures
 from vit_with_opencl_tpu.models import quant as jquant

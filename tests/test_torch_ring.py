@@ -14,11 +14,18 @@ tensors the wrappers compute their plain versions; no kernel launches,
 which each test checks through the counter.
 """
 
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+
+if os.environ.get("PYTEST_XDIST_WORKER"):
+    # The xdist workers share the host's cores: one torch thread each.
+    torch.set_num_threads(1)
+
 from jax.sharding import Mesh as JMesh
 
 from vit_with_opencl_tpu import ViTConfig as JViTConfig

@@ -11,10 +11,15 @@ card unless ``device="cpu"`` is passed.
 
 import importlib.util
 import math
+import os
 from pathlib import Path
 
 import pytest
 import torch
+
+if os.environ.get("PYTEST_XDIST_WORKER"):
+    # The xdist workers share the host's cores: one torch thread each.
+    torch.set_num_threads(1)
 
 from vit_with_opencl_tpu_torch.scripts import (bench_train, make_fixtures,
                                                probe_w8a8_overlap, soak,

@@ -10,12 +10,18 @@ Config: D = 64, 4 heads, H = 256, depth 2, 32-pixel images at patch 8
 (T = 17), 17 classes.
 """
 
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import optax
 import pytest
 import torch
+
+if os.environ.get("PYTEST_XDIST_WORKER"):
+    # The xdist workers share the host's cores: one torch thread each.
+    torch.set_num_threads(1)
 
 from vit_with_opencl_tpu import config as jconfig
 from vit_with_opencl_tpu import data as jdata

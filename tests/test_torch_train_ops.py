@@ -14,11 +14,17 @@ plain version; no kernel launches, which the tests check through the
 counters.
 """
 
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+
+if os.environ.get("PYTEST_XDIST_WORKER"):
+    # The xdist workers share the host's cores: one torch thread each.
+    torch.set_num_threads(1)
 
 from vit_with_opencl_tpu import config as jconfig
 from vit_with_opencl_tpu.harness import fixtures as jfixtures
@@ -287,6 +293,52 @@ def test_gemm_forms_match_jnp():
     _close(thid, jfused._gelu_fast(jpre).astype(jnp.bfloat16), BF16_REL, 0.97,
            "hidc")
     assert thid.dtype == bf
+
+
+# -- the weight gradients' split-K (csrc/gemm_sm90.cuh) ----------------------
+
+# (D, H) of ViT-Ti, -S, -B, -L and -H.
+WIDTHS = {"ti": (192, 768), "s": (384, 1536), "b": (768, 3072),
+          "l": (1024, 4096), "h": (1280, 5120)}
+
+
+@pytest.mark.parametrize("batch", [1, 16, 64, 256])
+@pytest.mark.parametrize("width", sorted(WIDTHS))
+def test_wgrad_splits_cover_every_token_once(width, batch):
+    """The split of each of a layer's four weight gradients over B·197
+    tokens on 132 SMs: runs aligned to the 64-deep K slice, every token in
+    exactly one run and no run empty, S ≥ 1, whole waves of whole tiles,
+    and the split units within the bound the function states."""
+    d, h = WIDTHS[width]
+    m = batch * 197
+    for k, n in ((d, 3 * d), (d, d), (d, h), (h, d)):
+        tiles = linear._tiles(k, n)
+        full, s, split_k = linear._wgrad_splits(m, k, n, 132)
+        assert s >= 1 and split_k > 0 and split_k % 64 == 0, (k, n, s, split_k)
+        assert (s - 1) * split_k < m <= s * split_k, (k, n, s, split_k)
+        if s == 1:
+            assert full == tiles
+        else:
+            assert full % 132 == 0 and 0 <= full < tiles
+            assert (tiles - full) * s <= 132
+            assert split_k >= linear._MIN_SPLIT_SLICES * 64
+
+
+@pytest.mark.parametrize("m,k,n,sms", [(3000, 256, 384, 4), (1000, 128, 256, 8)])
+def test_wgrad_split_sum_matches_reference_and_jnp(m, k, n, sms):
+    """The CPU twin of the card's split-K wgrad (whole tiles, then each split
+    tile's fp32 partials summed s = 0..S-1) against the plain product and
+    JAX's ``_dot`` form, on shapes where the split runs: a whole wave of 4
+    tiles and 2 split ones on 4 SMs, and 2 split tiles on 8."""
+    full, s, split_k = linear._wgrad_splits(m, k, n, sms)
+    assert s > 1 and full == linear._tiles(k, n) // sms * sms
+    bf = torch.bfloat16
+    tx, jx = _pair(_rand((m, k), 30), bf, jnp.bfloat16)
+    tdy, jdy = _pair(_rand((m, n), 31), bf, jnp.bfloat16)
+    got = linear.linear_wgrad_split_reference(tx, tdy, full, s, split_k)
+    _close(got, linear.linear_wgrad_reference(tx, tdy), F32_REL, what="split sum")
+    _close(got, jnp.dot(jx.T, jdy, preferred_element_type=jnp.float32), F32_REL,
+           what="split sum against jnp")
 
 
 # -- the three stages and the layer backward --------------------------------

@@ -1,0 +1,228 @@
+// The GEMMs' fp32 epilogue, one copy for every GEMM kernel: the Hopper core
+// (gemm_sm90.cuh: the bf16 forward, dgrad, wgrad and fc1-pair forms) and
+// the WMMA int8 kernels of linear.cu (W8A8, weight-only int8).
+//
+// After the product (already scaled for the int8 forms) the epilogue runs
+// in fp32 in this order, each step optional:
+//   + residual (fp32 or bf16 [M, N]), + bias (fp32 [N]),
+//   * _gelu_fast_grad(pre) (fp32 [M, N]: fc2's dgrad through fc1's GELU),
+//   _gelu_fast, then the store in bf16 or fp32,
+//   and a second bf16 output of the value or of its _gelu_fast.
+// That is the encoder layer's order (the residual first, then the bias),
+// and the backward's (the bias, then the GELU gradient). No caller sets both
+// a forward field (residual, gelu) and a backward one (gelu_grad_of, out2).
+#pragma once
+
+#include "common.cuh"
+
+namespace vit {
+
+// Residual kinds (ops/linear.py passes the same codes).
+enum Residual : int { kNoResidual = 0, kResidualF32 = 1, kResidualBF16 = 2 };
+
+struct Epilogue {
+  const float* bias;           // [N] or null
+  const void* residual;        // [M, N] or null
+  int residual_kind;
+  void* out;                   // [M, N]
+  int out_bf16;
+  int gelu;                    // _gelu_fast before the store
+  const float* gelu_grad_of;   // [M, N] fp32 pre-activation or null
+  bf16* out2;                  // [M, N] bf16 or null
+  int out2_gelu;               // out2 = bf16(_gelu_fast(v)) instead of bf16(v)
+};
+
+inline bool bad_epilogue(int residual_kind) {
+  return residual_kind < kNoResidual || residual_kind > kResidualBF16;
+}
+
+// vit_with_opencl_tpu_torch/ops/fused_block.py:_GELU_P, highest power first
+// in the Horner loop (tests/test_torch_ops.py checks the two agree).
+__device__ __forceinline__ float gelu_fast(float x) {
+  const float u = x * x;
+  float p = 1.1191059256776888e-06f;
+  p = p * u + -3.0581402420578764e-05f;
+  p = p * u + -0.00012485972711897262f;
+  p = p * u + 0.03646878821593782f;
+  p = p * u + 0.79782813653302f;
+  return 0.5f * x * (1.0f + tanhf(x * p));
+}
+
+// d/dx of gelu_fast (ops/fused_block.py:_gelu_fast_grad): with w = x P(x^2),
+// g'(x) = 0.5 (1 + t) + 0.5 x (1 - t^2) (P(u) + 2 u P'(u)), t = tanh(w).
+__device__ __forceinline__ float gelu_fast_grad(float x) {
+  const float u = x * x;
+  float p = 1.1191059256776888e-06f;
+  p = p * u + -3.0581402420578764e-05f;
+  p = p * u + -0.00012485972711897262f;
+  p = p * u + 0.03646878821593782f;
+  p = p * u + 0.79782813653302f;
+  float dp = 4.0f * 1.1191059256776888e-06f;
+  dp = dp * u + 3.0f * -3.0581402420578764e-05f;
+  dp = dp * u + 2.0f * -0.00012485972711897262f;
+  dp = dp * u + 1.0f * 0.03646878821593782f;
+  const float t = tanhf(x * p);
+  return 0.5f * (1.0f + t) + 0.5f * x * (1.0f - t * t) * (p + 2.0f * u * dp);
+}
+
+// V consecutive elements as one aligned access (V = 4 or 8; an offset of a
+// multiple of V elements keeps the alignment: the wrappers check 16-byte
+// bases and N % 8 == 0). 16 bytes is the widest access, so 8 floats are two.
+template <typename T, int V>
+struct alignas(sizeof(T) * V < 16 ? sizeof(T) * V : 16) Vec {
+  T v[V];
+};
+
+// The epilogue's inputs are read-only while a kernel runs (the wrappers
+// allocate every output), so they take the non-coherent path, which also
+// lets the compiler issue them ahead of earlier stores.
+template <int V>
+__device__ __forceinline__ void load_f32(float (&v)[V], const float* p) {
+  static_assert(V % 4 == 0, "16-byte loads");
+#pragma unroll
+  for (int e = 0; e < V; e += 4) {
+    const float4 r = __ldg(reinterpret_cast<const float4*>(p + e));
+    v[e] = r.x;
+    v[e + 1] = r.y;
+    v[e + 2] = r.z;
+    v[e + 3] = r.w;
+  }
+}
+
+template <int V>
+__device__ __forceinline__ void load_bf16(float (&v)[V], const bf16* p) {
+  static_assert(V == 4 || V == 8, "8- or 16-byte loads");
+  uint32_t w[V / 2];
+  if constexpr (V == 8) {
+    const uint4 r = __ldg(reinterpret_cast<const uint4*>(p));
+    w[0] = r.x; w[1] = r.y; w[2] = r.z; w[3] = r.w;
+  } else {
+    const uint2 r = __ldg(reinterpret_cast<const uint2*>(p));
+    w[0] = r.x; w[1] = r.y;
+  }
+#pragma unroll
+  for (int e = 0; e < V / 2; ++e) {
+    const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[e]));
+    v[2 * e] = f.x;
+    v[2 * e + 1] = f.y;
+  }
+}
+
+template <int V>
+__device__ __forceinline__ void store_vec(void* base, size_t off, int as_bf16,
+                                          const float (&v)[V]) {
+  if (as_bf16) {
+    Vec<uint32_t, V / 2> p;
+#pragma unroll
+    for (int e = 0; e < V / 2; ++e) p.v[e] = pack_bf16x2(v[2 * e], v[2 * e + 1]);
+    *reinterpret_cast<Vec<uint32_t, V / 2>*>(static_cast<bf16*>(base) + off) = p;
+  } else {
+    Vec<float, V> p;
+#pragma unroll
+    for (int e = 0; e < V; ++e) p.v[e] = v[e];
+    *reinterpret_cast<Vec<float, V>*>(static_cast<float*>(base) + off) = p;
+  }
+}
+
+// The epilogue of R rows gm[i] at the same V consecutive columns gn..gn+V-1,
+// whose products are in v[i]; ok[i] false leaves a row out. The steps run
+// over all R rows in turn (independent work for the GELU's tanh), each row
+// in the order of the note at the top. x[i] holds what the rows read besides
+// the product: the residual (as fp32) or the GELU's pre-activation (no
+// caller has both); load_rows reads it, so that a caller can issue the
+// reads of several rows before their arithmetic.
+template <int R, int V>
+__device__ __forceinline__ void load_rows(float (&x)[R][V], const int (&gm)[R],
+                                          const bool (&ok)[R], int gn, int N,
+                                          const Epilogue& ep) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    if (!ok[i]) continue;
+    const size_t off = static_cast<size_t>(gm[i]) * N + gn;
+    if (ep.residual_kind == kResidualF32)
+      load_f32<V>(x[i], static_cast<const float*>(ep.residual) + off);
+    else if (ep.residual_kind == kResidualBF16)
+      load_bf16<V>(x[i], static_cast<const bf16*>(ep.residual) + off);
+    else if (ep.gelu_grad_of != nullptr)
+      load_f32<V>(x[i], ep.gelu_grad_of + off);
+  }
+}
+
+template <int V>
+__device__ __forceinline__ void load_bias(float (&b)[V], int gn, const Epilogue& ep) {
+  if (ep.bias != nullptr) load_f32<V>(b, ep.bias + gn);
+}
+
+template <int R, int V>
+__device__ __forceinline__ void apply_rows(float (&v)[R][V], const float (&x)[R][V],
+                                           const float (&b)[V], const int (&gm)[R],
+                                           const bool (&ok)[R], int gn, int N,
+                                           const Epilogue& ep) {
+  if (ep.residual_kind != kNoResidual) {
+#pragma unroll
+    for (int i = 0; i < R; ++i)
+#pragma unroll
+      for (int e = 0; e < V; ++e) v[i][e] = x[i][e] + v[i][e];
+  }
+  if (ep.bias != nullptr) {
+#pragma unroll
+    for (int i = 0; i < R; ++i)
+#pragma unroll
+      for (int e = 0; e < V; ++e) v[i][e] = v[i][e] + b[e];
+  }
+  if (ep.gelu_grad_of != nullptr) {
+#pragma unroll
+    for (int i = 0; i < R; ++i)
+#pragma unroll
+      for (int e = 0; e < V; ++e) v[i][e] = v[i][e] * gelu_fast_grad(x[i][e]);
+  }
+  if (ep.gelu) {
+#pragma unroll
+    for (int i = 0; i < R; ++i)
+#pragma unroll
+      for (int e = 0; e < V; ++e) v[i][e] = gelu_fast(v[i][e]);
+  }
+#pragma unroll
+  for (int i = 0; i < R; ++i)
+    if (ok[i]) store_vec<V>(ep.out, static_cast<size_t>(gm[i]) * N + gn, ep.out_bf16, v[i]);
+  if (ep.out2 != nullptr) {
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      float w[V];
+#pragma unroll
+      for (int e = 0; e < V; ++e) w[e] = ep.out2_gelu ? gelu_fast(v[i][e]) : v[i][e];
+      if (ok[i]) store_vec<V>(ep.out2, static_cast<size_t>(gm[i]) * N + gn, 1, w);
+    }
+  }
+}
+
+// The forward epilogue (residual, bias, GELU, the store) of V consecutive
+// columns gn..gn+V-1 of one row gm, whose products are in v: apply_rows'
+// steps for one row, each input read where its step needs it. For the int8
+// kernels, which hold two accumulators and inline it 8 times a tile: the
+// backward's steps (no int8 caller has them) stay out of their code.
+template <int V>
+__device__ __forceinline__ void finish(float (&v)[V], int gm, int gn, int N,
+                                       const Epilogue& ep) {
+  const size_t off = static_cast<size_t>(gm) * N + gn;
+  if (ep.residual_kind != kNoResidual) {
+    float r[V];
+    if (ep.residual_kind == kResidualF32)
+      load_f32<V>(r, static_cast<const float*>(ep.residual) + off);
+    else
+      load_bf16<V>(r, static_cast<const bf16*>(ep.residual) + off);
+#pragma unroll
+    for (int e = 0; e < V; ++e) v[e] = r[e] + v[e];
+  }
+  if (ep.bias != nullptr) {
+#pragma unroll
+    for (int e = 0; e < V; ++e) v[e] = v[e] + ep.bias[gn + e];
+  }
+  if (ep.gelu) {
+#pragma unroll
+    for (int e = 0; e < V; ++e) v[e] = gelu_fast(v[e]);
+  }
+  store_vec<V>(ep.out, off, ep.out_bf16, v);
+}
+
+}  // namespace vit

@@ -82,8 +82,9 @@ SIGNATURES = {
     # stream
     "vit_flash_attention_bwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
     # a, a_trans, b, b_trans, bias, gelu_grad_of, out, out_bf16, out2,
-    # out2_gelu, M, N, K, stream
-    "vit_gemm_grad": [_P, _I, _P, _I, _P, _P, _P, _I, _P, _I, _I, _I, _I, _P],
+    # out2_gelu, M, N, K, full, splits, split_k, workspace, stream
+    "vit_gemm_grad": [_P, _I, _P, _I, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I,
+                      _I, _I, _P, _P],
     # x, x_dtype, dy, w, g, g_dtype, dx, dx_dtype, part_dw, part_db, rows,
     # cols, eps, stream
     "vit_layernorm_bwd": [_P, _I, _P, _P, _P, _I, _P, _I, _P, _P, _I, _I, _F,

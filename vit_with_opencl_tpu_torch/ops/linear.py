@@ -1,5 +1,5 @@
-"""Fused linear layer: the CUDA GEMMs of ``csrc/linear.cu`` and their plain
-versions.
+"""Fused linear layer: the CUDA GEMMs of ``csrc/gemm_sm90.cuh`` (bf16) and
+``csrc/linear.cu`` (int8), and their plain versions.
 
 Replaces ``vit_with_opencl_tpu/ops/linear.py:_linear_kernel``
 (``fused_linear``) and is the GEMM link of the encoder chains
@@ -10,7 +10,8 @@ the optional ``_gelu_fast``, and casts to ``out_dtype``. The residual and
 residual stream in fp32 between kernels. Three kernels (the W8A8 one in two
 forms), each form with its own launch count:
 
-  * ``fused_linear`` with bf16 ``w``: bf16 x @ bf16 w (``LAUNCHES``);
+  * ``fused_linear`` with bf16 ``w``: bf16 x @ bf16 w on the Hopper core
+    (TMA and wgmma, ``LAUNCHES``);
   * ``fused_linear`` with int8 ``w`` and ``w_scale``: weight-only int8, the
     fp32 product times the per-column scale (``LAUNCHES_INT8W``);
   * ``fused_linear_w8a8``: int8 x (with its per-row scale, from
@@ -19,17 +20,21 @@ forms), each form with its own launch count:
     same kernel also runs the bf16 side product and adds it after the
     scales (``LAUNCHES_W8A8_HI``).
 
-Bound on the card: operations (see the note in the source). The kernels take
-bf16 or int8 operands; fp32 ``x`` on the card is not supported yet.
+Bound on the card: operations (see the notes in the sources). The kernels
+take bf16 or int8 operands; fp32 ``x`` on the card is not supported yet.
 
-The training backward's GEMM forms (``grad_gemm_kernel`` of the same
-source, one kernel for the three, each form with its own launch count):
+The training backward's GEMM forms run on the same Hopper core, the operand
+layouts its transpose bits (each form with its own launch count):
 
   * ``linear_dgrad``: ``dY @ Wᵀ`` with W stored [K, N], optionally times
     ``_gelu_fast_grad(pre)``, with an optional second output rounded to
     bf16 (``LAUNCHES_DGRAD``);
   * ``linear_wgrad``: ``Xᵀ @ dY`` over the tokens into an fp32 weight
-    gradient (``LAUNCHES_WGRAD``);
+    gradient (``LAUNCHES_WGRAD``, one a call): the token axis split into
+    ``_wgrad_splits`` runs whose fp32 partials a second kernel sums in a
+    fixed order (``linear_wgrad_split_reference`` is its plain twin), so
+    one call launches two kernels when it splits and the result has the
+    same bits from run to run;
   * ``fused_linear_with_gelu``: the fc1 recompute, ``x @ w + b`` in fp32
     beside its ``_gelu_fast`` rounded to bf16 (``LAUNCHES_GELU_PAIR``).
 
@@ -43,6 +48,7 @@ Each wrapper launches its kernel for a CUDA tensor and computes its
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
@@ -295,10 +301,11 @@ def fused_linear_w8a8(
 def _grad_gemm(what: str, a, a_trans: bool, b, b_trans: bool, m: int, n: int,
                k: int, out_shape, *, bias=None, gelu_grad_of=None,
                out_dtype=torch.float32, out2: bool = False,
-               out2_gelu: bool = False):
-    """Launch ``grad_gemm_kernel`` (operands checked by the caller)."""
+               out2_gelu: bool = False, split: bool = False):
+    """Launch the Hopper core's backward forms (operands checked by the
+    caller); ``split``: the wgrad form's split-K over ``k`` (the tokens)."""
     dev = a.device
-    # 16-byte loads run along each operand's contiguous axis.
+    # TMA copies 16-byte rows along each operand's contiguous axis.
     if n % 8 or (m if a_trans else k) % 8 or (b_trans and k % 8):
         raise ValueError(f"{what}: N={n} and the operands' contiguous axes "
                          f"(M={m} if A is transposed, else K={k}) must be "
@@ -318,11 +325,18 @@ def _grad_gemm(what: str, a, a_trans: bool, b, b_trans: bool, m: int, n: int,
     second = (torch.empty(out_shape, dtype=torch.bfloat16, device=dev)
               if out2 else None)
     if m and n and k:
+        full, splits, split_k, parts = 0, 1, 0, None
+        if split:
+            full, splits, split_k = _wgrad_splits(k, m, n, _sm_count(dev.index))
+            if splits > 1:
+                rest = _tiles(m, n) - full
+                parts = torch.empty((splits, rest, _TILE_MN, _TILE_MN),
+                                    dtype=torch.float32, device=dev)
         err = _build.launch("vit_gemm_grad", a,
             a.data_ptr(), int(a_trans), b.data_ptr(), int(b_trans),
             _ptr(bias), _ptr(gelu_grad_of), out.data_ptr(),
             int(out_dtype == torch.bfloat16), _ptr(second), int(out2_gelu),
-            m, n, k)
+            m, n, k, full, splits, split_k, _ptr(parts))
         _build.check_launch(err, what)
     elif not k:
         out.zero_()
@@ -383,6 +397,77 @@ def linear_wgrad_reference(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
     return x.reshape(-1, k).float().t() @ dy.reshape(-1, n).float()
 
 
+# The Hopper core's tile (csrc/gemm_sm90.cuh): 128 x 128 outputs, 64-deep K
+# slices; a split weight gradient's runs hold at least _MIN_SPLIT_SLICES
+# slices.
+_TILE_MN, _TILE_K = 128, 64
+_MIN_SPLIT_SLICES = 4
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device_index: Optional[int]) -> int:
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
+def _tiles(k: int, n: int) -> int:
+    """The 128 x 128 tiles of a [K, N] output, in row-major order."""
+    return -(-k // _TILE_MN) * -(-n // _TILE_MN)
+
+
+@functools.lru_cache(maxsize=None)  # host time on every wgrad launch otherwise
+def _wgrad_splits(m_tokens: int, k: int, n: int,
+                  sms: int = 132) -> tuple[int, int, int]:
+    """The split-K of a weight gradient ``[K, N] = Xᵀ · dY`` over
+    ``m_tokens`` tokens: ``(full, S, split_k)``. Tiles ``0..full-1`` (in
+    row-major order) run whole; the others run over the token axis in S
+    runs of ``split_k`` tokens (a multiple of the 64-deep K slice; the last
+    run ragged, none empty: ``(S - 1) · split_k < m_tokens <= S · split_k``).
+    S = 1 means no split: ``full`` is every tile and ``split_k`` covers the
+    tokens.
+
+    A [K, N] gradient has few 128 x 128 tiles against the SMs (36 at ViT-B's
+    out-proj for 132, 144 at fc1), and each walks every token. ``full`` is
+    the tiles of the whole waves (a multiple of ``sms``); the rest split
+    into the most runs that fit in one round of the SMs, with runs of at
+    least ``_MIN_SPLIT_SLICES`` slices. The bound: S = 1, or ``(tiles -
+    full) · S <= sms``."""
+    if m_tokens < 1 or k < 1 or n < 1 or sms < 1:
+        raise ValueError(f"_wgrad_splits({m_tokens}, {k}, {n}, sms={sms})")
+    tiles = _tiles(k, n)
+    slices = -(-m_tokens // _TILE_K)
+    full = tiles // sms * sms
+    rest = tiles - full
+    s = min(sms // rest, slices // _MIN_SPLIT_SLICES) if rest else 1
+    if s <= 1:
+        return tiles, 1, slices * _TILE_K
+    chunk = -(-slices // s)
+    return full, -(-slices // chunk), chunk * _TILE_K
+
+
+def linear_wgrad_split_reference(x: torch.Tensor, dy: torch.Tensor, full: int,
+                                 splits: int, split_k: int) -> torch.Tensor:
+    """The split-K wgrad's plain twin: the whole product for tiles
+    ``0..full-1``; for the others, fp32 partials over the token runs of
+    ``_wgrad_splits`` summed in index order s = 0..S-1, as the card's second
+    kernel sums them."""
+    k, n = x.shape[-1], dy.shape[-1]
+    x2, dy2 = x.reshape(-1, k).float(), dy.reshape(-1, n).float()
+    out = x2.t() @ dy2
+    if splits == 1:
+        return out
+    summed = None
+    for s in range(splits):
+        rows = slice(s * split_k, (s + 1) * split_k)
+        part = x2[rows].t() @ dy2[rows]
+        summed = part if summed is None else summed + part
+    tiles_n = -(-n // _TILE_MN)
+    for tile in range(full, _tiles(k, n)):
+        r = slice(tile // tiles_n * _TILE_MN, (tile // tiles_n + 1) * _TILE_MN)
+        c = slice(tile % tiles_n * _TILE_MN, (tile % tiles_n + 1) * _TILE_MN)
+        out[r, c] = summed[r, c]
+    return out
+
+
 def linear_wgrad(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
     """The weight gradient of ``x @ w``: ``x`` [..., K]ᵀ @ ``dy`` [..., N]
     (bf16 on the card), summed over all B·T tokens in fp32 → [K, N]."""
@@ -395,7 +480,8 @@ def linear_wgrad(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"x {tuple(x.shape)} and dy {tuple(dy.shape)} hold "
                          "different token counts")
     # Xᵀ [K, M] is A read transposed: the GEMM's M is K, its K the tokens.
-    out, _ = _grad_gemm("linear_wgrad", x, True, dy, False, k, n, m, (k, n))
+    out, _ = _grad_gemm("linear_wgrad", x, True, dy, False, k, n, m, (k, n),
+                        split=True)
     LAUNCHES_WGRAD += 1
     return out
 
