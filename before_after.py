@@ -16,6 +16,9 @@ of its two runs. The figures (ms):
 
 * row 3's four GEMMs (``fused_linear``, ViT-B/16's shapes and epilogues) at
   B = 16 and 256;
+* row 4 (``packed_fused_attention``) at ViT-B/16's shape, B = 16 and 256,
+  and row 11 (``packed_attention_bwd``) at ViT-B/16's, B = 64, bf16 dqkv,
+  and ViT-L/16@384's, B = 32, bf16 and fp32 dqkv (the ``fused`` route's);
 * row 14a's forms (``linear_wgrad``, ``linear_dgrad``,
   ``fused_linear_with_gelu``) at ViT-B/16's B = 16 and 64 and at
   ViT-L/16@384's widths at B = 8;
@@ -65,6 +68,11 @@ GEMM_BATCHES = (16, 256)
 # (name, width, hidden width, tokens, batch) of row 14a's figures.
 GRAD_SHAPES = (("ViT-B/16", 768, 3072, 197, 16), ("ViT-B/16", 768, 3072, 197, 64),
                ("ViT-L/16@384", 1024, 4096, 577, 8))
+# (name, heads, head dim, tokens, batch, dqkv dtypes) of rows 4 (no dtypes:
+# the forward) and 11.
+ATTN_SHAPES = (("ViT-B/16", 12, 64, 197, 16, ()), ("ViT-B/16", 12, 64, 197, 256, ()),
+               ("ViT-B/16", 12, 64, 197, 64, (torch.bfloat16,)),
+               ("ViT-L/16@384", 16, 64, 577, 32, (torch.bfloat16, torch.float32)))
 N_CALIB = 16
 TRAIN_LR = 1e-3
 TRAIN_BATCH = 64  # ViT-B/16
@@ -129,6 +137,27 @@ def gemm_figures(pkg, dev) -> dict:
         x, w1, b1 = rnd(m, d), rnd(d, h, std=0.02), rnd(h, std=0.02, dtype=f32)
         out[f"row 14a fc1 pair {tag}"] = time_ms(
             lambda: linear.fused_linear_with_gelu(x, w1, b1))
+    return out
+
+
+def attention_figures(pkg, dev) -> dict:
+    """Row 4 and row 11 at ATTN_SHAPES, on seeded
+    unit-scale qkv and dO at 0.01 (chip_smoke.py phases 2 and 2f)."""
+    attention, bf = pkg["attention"], torch.bfloat16
+    out = {}
+    for cfg_name, nh, hd, t, batch, dtypes in ATTN_SHAPES:
+        gen = torch.Generator(device=dev).manual_seed(batch)
+        d = nh * hd
+        qkv = torch.randn((batch, t, 3 * d), generator=gen, device=dev).to(bf)
+        tag = f"{cfg_name} B={batch}"
+        if not dtypes:
+            out[f"row 4 attention {tag}"] = time_ms(
+                lambda: attention.packed_fused_attention(qkv, num_heads=nh, head_dim=hd))
+            continue
+        do = (torch.randn((batch, t, d), generator=gen, device=dev) * 0.01).to(bf)
+        for o in dtypes:
+            out[f"row 11 attention backward ({o}) {tag}"] = time_ms(
+                lambda: attention.packed_attention_bwd(qkv, do, nh, hd, out_dtype=o))
     return out
 
 
@@ -208,9 +237,10 @@ def figures_main(root: str, host_only: bool) -> int:
     from vit_with_opencl_tpu_torch.engine import InferenceEngine
     from vit_with_opencl_tpu_torch.harness import fixtures
     from vit_with_opencl_tpu_torch.models import vit
-    from vit_with_opencl_tpu_torch.ops import _build, linear
+    from vit_with_opencl_tpu_torch.ops import _build, attention, linear
     from vit_with_opencl_tpu_torch.parallel import spmd
-    pkg = dict(linear=linear, optim=optim, vit=vit, spmd=spmd, fixtures=fixtures,
+    pkg = dict(linear=linear, attention=attention, optim=optim, vit=vit, spmd=spmd,
+               fixtures=fixtures,
                InferenceEngine=InferenceEngine, VIT_B_16_224=VIT_B_16_224,
                VIT_L_16_384=VIT_L_16_384, VIT_S_16_224=VIT_S_16_224,
                VIT_TINY_16_224=VIT_TINY_16_224)
@@ -226,6 +256,7 @@ def figures_main(root: str, host_only: bool) -> int:
             out = stack_figures(pkg, dev, (SMOKE_BATCH,))
         else:
             out = gemm_figures(pkg, dev)
+            out.update(attention_figures(pkg, dev))
             out.update(forward_figures(pkg, dev))
             out.update(stack_figures(pkg, dev, (SMOKE_BATCH, THROUGHPUT_BATCHES[-1])))
     if not host_only:

@@ -105,9 +105,12 @@ line.
    and fp32 dqkv), ViT-H/14's and ViT-G/14's T = 257 (hd 80 and 104, B =
    16) and ViT-B's T = 197 (B = 16 and 64, beside the earlier resident
    form's times), against ``packed_attention_bwd_reference`` with SDPA's backward
-   as the yardstick; the H-chunked MLP backward's light and wgrad stages at
-   ViT-L width (B = 8 and 32) and ViT-H width (B = 8) against their plain
-   versions, the pair equal to the mono stage on the card; and
+   as the yardstick, and dqkv bit-identical over two runs at ViT-B B = 64
+   and ViT-L B = 32; the packed attention forward at ViT-L/16@384, B = 32
+   (the ``fused`` chain's shape; SDPA beside it); the H-chunked MLP
+   backward's light and wgrad stages at ViT-L width (B = 8 and 32) and
+   ViT-H width (B = 8) against their plain versions, the pair equal to the
+   mono stage on the card; and
    ``fused_encoder_layer_bwd`` at ViT-L width with its stage launch counts.
 5b. The ViT-L/16@384 training main path: ``Trainer(VIT_L_16_384,
    compute_dtype=bf16, optimizer="adamw", attention_impl="fused")``, full
@@ -375,6 +378,9 @@ LARGE_PER_LAYER = dict(TRAIN_PER_LAYER["fused"], fused_bwd_mlp=0,
 # shared memory, on an H100 80GB HBM3 at 700 W (PERF.md row 11), ViT-B's T =
 # 197, bf16 dqkv: ms at B = 16, 64.
 RESIDENT_ATTN_BWD_MS = {16: 0.2396, 64: 1.0585}
+# Row 11's dqkv must be the same bits from run to run at these (config,
+# batch) of phase 2f (no block sums into another's output).
+BWD_SAME_BITS = ((VIT_B_16_224, 64), (VIT_L_16_384, 32))
 
 # Phases 2g, 3e, 5c and 4d: ViT-L/16@512, torchvision's vit_l_16 at the
 # resolution of its SWAG E2E weights (no preset: the JAX package's geometry
@@ -761,6 +767,21 @@ def epilogue_ops(y, kw, n, out_dtype):
     return y.to(out_dtype)
 
 
+def attn_fwd_case(qkv, nh: int, hd: int) -> dict:
+    """The packed attention (row 4) on qkv [B, T, 3D] against its plain
+    version; yardstick SDPA on the same q, k, v. Bound: q, k, v read and the
+    context written once; 4·T²·hd operations a head."""
+    b, t, _ = qkv.shape
+    q, k, v = qkv.reshape(b, t, 3, nh, hd).permute(2, 0, 3, 1, 4)
+    return dict(name="packed_fused_attention (bf16)", counter="attention",
+                tol=BF16_TOL, min_same=MIN_SAME_KERNEL,
+                kernel=lambda: attention.packed_fused_attention(qkv, num_heads=nh,
+                                                                head_dim=hd),
+                plain=lambda: attention.packed_fused_attention_reference(qkv, nh, hd),
+                library=lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v),
+                bytes=b * t * 4 * nh * hd * 2, ops={"bf16": 4 * b * nh * t * t * hd})
+
+
 def kernel_rows(batch: int, dev, seed: int = 0, cfg=CFG) -> list[dict]:
     """Every kernel of the bf16 chain on the chain's own intermediates at
     ``batch`` images: error against the plain version, times, bound."""
@@ -780,7 +801,6 @@ def kernel_rows(batch: int, dev, seed: int = 0, cfg=CFG) -> list[dict]:
                                         out_dtype=bf)
     hid = linear.fused_linear_reference(h2, lp["fc1_w"], lp["fc1_b"],
                                         fuse_gelu=True)
-    q, k, v = qkv.reshape(batch, t, 3, nh, hd).permute(2, 0, 3, 1, 4)
     b16 = {key: lp[key].to(bf) for key in ("ln1_w", "ln1_b")}
     F = torch.nn.functional
 
@@ -812,13 +832,7 @@ def kernel_rows(batch: int, dev, seed: int = 0, cfg=CFG) -> list[dict]:
                 lambda: F.layer_norm(x, (d,), b16["ln1_w"], b16["ln1_b"], eps),
                 eps=eps),
         gemm("fused_linear qkv (+bias, bf16 out)", h1, "qkv_w", "qkv_b", 3 * d, d, bf),
-        dict(name="packed_fused_attention (bf16)", counter="attention",
-             tol=BF16_TOL, min_same=MIN_SAME_KERNEL,
-             kernel=lambda: attention.packed_fused_attention(qkv, num_heads=nh,
-                                                             head_dim=hd),
-             plain=lambda: attention.packed_fused_attention_reference(qkv, nh, hd),
-             library=lambda: F.scaled_dot_product_attention(q, k, v),
-             bytes=batch * t * 4 * d * 2, ops={"bf16": 4 * batch * nh * t * t * hd}),
+        attn_fwd_case(qkv, nh, hd),
         gemm("fused_linear out-proj (+bf16 residual, +bias, fp32 out)", ctx,
              "out_w", "out_b", d, d, f32, residual=x),
         ln_case("layer_norm LN2 (fp32 in, bf16 out)", "layernorm", x1,
@@ -1536,9 +1550,19 @@ def large_kernel_rows(dev) -> list[dict]:
         t, d = cfg.num_tokens, cfg.embed_dim
         qkvc = torch.randn((batch, t, 3 * d), generator=gen, device=dev).to(bf)
         dctx = (torch.randn((batch, t, d), generator=gen, device=dev) * 0.01).to(bf)
-        got = run_cases([attn_bwd_case(qkvc, dctx, cfg.num_heads, cfg.head_dim, o)
-                         for o in dtypes], batch,
-                        f"{cfg.name} B={batch} T={t} hd={cfg.head_dim} ")
+        nh, hd = cfg.num_heads, cfg.head_dim
+        cases = [attn_bwd_case(qkvc, dctx, nh, hd, o) for o in dtypes]
+        if (cfg, batch) == (LARGE_CFG, LARGE_THROUGHPUT_BATCH):
+            # Row 4 at the `fused` chain's forward shape of phase 4c.
+            cases.append(attn_fwd_case(qkvc, nh, hd))
+        got = run_cases(cases, batch, f"{cfg.name} B={batch} T={t} hd={hd} ")
+        if (cfg, batch) in BWD_SAME_BITS:
+            for o in dtypes:
+                first = attention.packed_attention_bwd(qkvc, dctx, nh, hd, out_dtype=o)
+                again = attention.packed_attention_bwd(qkvc, dctx, nh, hd, out_dtype=o)
+                check(torch.equal(first, again),
+                      f"{cfg.name} B={batch} packed_attention_bwd ({o} dqkv) "
+                      f"bit-identical over two runs")
         if cfg is CFG:
             print(f"  B={batch} ViT-B attention backward: streamed {got[0]['ms']:.4f} ms, "
                   f"the earlier resident form (H100 80GB HBM3, 700 W) "

@@ -1,0 +1,89 @@
+"""The Hopper attention kernels' host-side geometry (shared memory, the
+backward's statistics buffer, the route they keep), and the plain versions
+they are held to on the card against the JAX package at their tile edges:
+T about the 64-row tiles and the 256-key single pass, head dims below one
+64-column box and across two.
+"""
+
+import os
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+if os.environ.get("PYTEST_XDIST_WORKER"):
+    # The xdist workers share the host's cores: one torch thread each.
+    torch.set_num_threads(1)
+
+from vit_with_opencl_tpu.ops import attention as jattn
+from vit_with_opencl_tpu_torch import config as tconfig
+from vit_with_opencl_tpu_torch.ops import attention
+
+# bf16: the same rounding points on both sides, most outputs bit-identical
+# (the thresholds of tests/test_torch_train_ops.py and test_torch_ops.py).
+BF16_REL = 2e-2
+MIN_SAME = 0.99
+MIN_SAME_ATTN_BWD = 0.9
+EDGE_TS = (1, 16, 17, 63, 64, 65, 197, 255, 256, 257, 577, 848, 1025)
+
+
+def _pair(shape, seed, std=1.0):
+    a = np.random.default_rng(seed).normal(0, std, shape).astype(np.float32)
+    return torch.from_numpy(a).to(torch.bfloat16), jnp.asarray(a, jnp.bfloat16)
+
+
+def _close(got, want, min_same):
+    g = got.float().numpy()
+    w = np.asarray(jnp.asarray(want, jnp.float32))
+    assert g.shape == w.shape
+    scale = max(float(np.abs(w).max()), 1e-30)
+    assert float(np.abs(g - w).max()) <= BF16_REL * scale
+    assert float((g == w).mean()) >= min_same
+
+
+@pytest.mark.parametrize("hd", range(8, 129, 8))
+def test_kernels_shared_memory_fits_a_block_at_every_head_dim(hd):
+    """Both kernels stream their K/V (or q/dO) tiles, so their shared memory
+    depends on the head dim alone, and fits one block at every head dim the
+    route sends them (multiples of 8 up to 128)."""
+    assert attention.packed_kernel_smem_bytes(hd) <= attention.MAX_SMEM_BYTES
+    assert attention.kernel_bwd_smem_bytes(hd) <= attention.MAX_SMEM_BYTES
+    for cfg in tconfig.PRESETS.values():
+        assert attention.packed_kernel_smem_bytes(cfg.head_dim) <= attention.MAX_SMEM_BYTES
+
+
+def test_route_boundary_is_unchanged():
+    """``kernel_smem_bytes`` still draws the packed route's bound on T (hd 64:
+    848, hd 128: 432), past which the single-pass kernel takes the slabs."""
+    mx = attention.MAX_SMEM_BYTES
+    assert attention.kernel_smem_bytes(848, 64) <= mx < attention.kernel_smem_bytes(849, 64)
+    assert attention.kernel_smem_bytes(432, 128) <= mx < attention.kernel_smem_bytes(433, 128)
+
+
+@pytest.mark.parametrize("t", EDGE_TS)
+def test_stats_rows_are_whole_tiles(t):
+    """The dK/dV kernel copies each 64-query tile's statistics whole (16
+    bytes a row), so every (image, head) block of the buffer covers T in
+    whole tiles, and no more than one tile past T."""
+    rows = attention._stats_rows(t)
+    assert rows % attention.KERNEL_ROWS == 0 and t <= rows < t + attention.KERNEL_ROWS
+
+
+@pytest.mark.parametrize("t,hd", [(1, 16), (65, 80), (257, 104), (256, 128)])
+def test_packed_attention_plain_matches_jax_at_tile_edges(t, hd):
+    nh = 2
+    tq, jq = _pair((1, t, 3 * nh * hd), t)
+    want = jattn.packed_fused_attention(jq, num_heads=nh, head_dim=hd, interpret=True)
+    got = attention.packed_fused_attention(tq, num_heads=nh, head_dim=hd)
+    _close(got, want, MIN_SAME)
+
+
+@pytest.mark.parametrize("t,hd", [(1, 16), (65, 80), (257, 104)])
+def test_packed_attention_bwd_plain_matches_jax_at_tile_edges(t, hd):
+    nh = 2
+    tq, jq = _pair((1, t, 3 * nh * hd), t + 1)
+    td, jd = _pair((1, t, nh * hd), t + 2)
+    want = jattn.packed_attention_bwd(jq, jd, nh, hd)
+    got = attention.packed_attention_bwd(tq, td, nh, hd)
+    _close(got, want, MIN_SAME_ATTN_BWD)

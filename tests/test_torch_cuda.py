@@ -145,6 +145,27 @@ def test_packed_attention_kernel(dev, b, t, nh, hd):
     _close(out, attention.packed_fused_attention_reference(qkv, nh, hd))
 
 
+# The Hopper kernels' edges: sequence lengths about their 64-row tiles and
+# 256-key single pass, ViT-B's, ViT-L/16@384's and the route's last at hd
+# 64; head dims below one 64-column box, at it, and two boxes (ViT-H's 80,
+# ViT-G's 104, 128), where the packed route admits them.
+EDGE_TS = (1, 16, 17, 63, 64, 65, 197, 255, 256, 257, 577, 848)
+EDGE_HDS = (16, 64, 80, 104, 128)
+EDGE_SHAPES = [(t, hd) for t in EDGE_TS for hd in EDGE_HDS
+               if attention.kernel_smem_bytes(t, hd) <= attention.MAX_SMEM_BYTES]
+
+
+@pytest.mark.parametrize("t,hd", EDGE_SHAPES)
+def test_packed_attention_kernel_edges(dev, t, hd):
+    b, nh = 2, 2
+    qkv = _rand((b, t, 3 * nh * hd), dev, torch.bfloat16, seed=t + hd)
+    before = attention.LAUNCHES
+    out = attention.packed_fused_attention(qkv, num_heads=nh, head_dim=hd)
+    torch.cuda.synchronize()
+    assert attention.LAUNCHES == before + 1
+    _close(out, attention.packed_fused_attention_reference(qkv, nh, hd))
+
+
 @pytest.mark.parametrize("d,nh,t", [(64, 4, 37), (768, 12, 197)])
 def test_encoder_layer_chain(dev, d, nh, t):
     cfg = ViTConfig(name="chain", img_size=32, patch_size=8, embed_dim=d,
@@ -584,6 +605,41 @@ def test_packed_attention_bwd_kernel(dev, b, t, nh, hd, out_dtype):
                tol=dict(rtol=1.6e-2, atol=1e-2 * float(ref.float().abs().max())))
     else:
         _rel_close(out, ref)
+
+
+@pytest.mark.parametrize("t,hd,out_dtype",
+                         [(t, hd, torch.bfloat16) for t, hd in EDGE_SHAPES]
+                         + [(1025, 64, torch.float32)])
+def test_packed_attention_bwd_kernel_edges(dev, t, hd, out_dtype):
+    """The backward at EDGE_SHAPES, and at ViT-L/16@512's T = 1025, where
+    the `fused` route's attention stage takes it with fp32 dqkv."""
+    b, nh = 1, 2
+    qkv = _rand((b, t, 3 * nh * hd), dev, torch.bfloat16, seed=t + hd)
+    do = _rand((b, t, nh * hd), dev, torch.bfloat16, std=0.01, seed=t + hd + 1)
+    before = attention.LAUNCHES_BWD
+    out = attention.packed_attention_bwd(qkv, do, nh, hd, out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    assert attention.LAUNCHES_BWD == before + 1 and out.dtype == out_dtype
+    ref = attention.packed_attention_bwd_reference(qkv, do, nh, hd, out_dtype=out_dtype)
+    if out_dtype == torch.bfloat16:
+        _close(out, ref, min_same=MIN_SAME_ATTN_BWD,
+               tol=dict(rtol=1.6e-2, atol=1e-2 * float(ref.float().abs().max())))
+    else:
+        _rel_close(out, ref)
+
+
+@pytest.mark.parametrize("b,t,nh,hd", [(4, 197, 12, 64), (2, 577, 16, 64),
+                                       (2, 257, 16, 104)])
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+def test_packed_attention_bwd_is_deterministic(dev, b, t, nh, hd, out_dtype):
+    """No block sums into another's output: dqkv has the same bits from run
+    to run."""
+    qkv = _rand((b, t, 3 * nh * hd), dev, torch.bfloat16, seed=3)
+    do = _rand((b, t, nh * hd), dev, torch.bfloat16, std=0.01, seed=4)
+    first = attention.packed_attention_bwd(qkv, do, nh, hd, out_dtype=out_dtype)
+    for _ in range(3):
+        assert torch.equal(attention.packed_attention_bwd(qkv, do, nh, hd,
+                                                          out_dtype=out_dtype), first)
 
 
 def test_packed_attention_bwd_refuses(dev):

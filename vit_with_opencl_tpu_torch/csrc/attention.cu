@@ -8,207 +8,341 @@
 // [B, T, D]. Per head, the numerics of _head_attention:
 //   qs = q * scale               rounded to bf16, as the input dtype
 //   s  = qs . k^T                fp32 accumulation
-//   e  = exp(s - rowmax(s))      fp32, whole row; keys past T are masked to
-//                                MASK_VALUE (attention.py:43), not -inf
+//   e  = exp(s - rowmax(s))      fp32, against the row's exact final max;
+//                                keys past T score MASK_VALUE
+//                                (attention.py:43), not -inf
 //   o  = bf16(e) . v             fp32 accumulation
 //   o *= 1 / rowsum(e)           normalised after the product, then cast
+// The only reassociation is the order of rowsum(e)'s fp32 terms (a
+// pairwise tree within each chunk).
 //
 // Bound on the card: bytes at ViT-B's T = 197 (the operations are a third
-// of the time the bytes take, at the card's peaks). Design: one block of 4
-// warps per (image, head, 64-query tile). The head's K and V (T x hd bf16:
-// 25 KB each at T = 197, hd = 64) are staged in shared memory, V transposed,
-// so every tensor-core operand is one 32-bit shared-memory load. Each warp
-// owns 16 query rows and keeps everything else in registers: its Q
-// fragments, the scores of 8 or 16 keys at a time, and the [16, hd] fp32
-// output. The softmax takes two passes over the keys instead of an online
-// rescaling: pass 1 finds the exact row max, pass 2 recomputes the scores
-// (cheap: K is on chip) and accumulates e and e.v with that max, so e is
-// rounded to bf16 exactly where the reference rounds it and no [T, T] tile
-// is ever stored. Products use mma.sync m16n8k16 (bf16 in, fp32 out). Head
-// dims that are a multiple of 8 are zero-padded to the next of the compiled
-// widths (16..128). Not yet used: wgmma, TMA, and reuse of K/V across the
-// 4 query tiles of one (image, head), which each load them again from L2.
-#include <float.h>
+// of the time the bytes take, at the card's peaks). Design (Hopper, sm_90a;
+// tiles and maps in attention_sm90.cuh): a persistent grid of one block an
+// SM, each block walking work units of (image, head, 128 queries), the two
+// units of a head side by side. A block is one producer warpgroup and two
+// consumer warpgroups, each consumer owning 64 queries of the unit, so the
+// two query tiles share every K/V tile the block stages. One producer
+// thread loads 64-key K and V tiles by TMA into a ring of slots (8 up to hd
+// 64: the next unit's tiles load under this unit's products; 4 past it); V
+// stays row-major and is the PV product's MN-major B operand. Each consumer
+// holds qs (its words loaded a unit ahead, scaled and rounded in registers)
+// as the A operand of S = qs . K^T (wgmma m64n64k16, A from registers), one
+// 64-key chunk an accumulator of 32 registers.
+//   T <= 256: the row's scores fit registers (the chunk count a template
+//             parameter): one pass takes the exact max, e, its row sum and
+//             bf16(e) (the accumulators turned into A fragments) from the
+//             same registers, then o = bf16(e) . V. The two consumers take
+//             turns issuing their products (attention_sm90.cuh), so one's
+//             softmax runs under the other's products.
+//   T > 256:  the ring streams K alone (pass 1: the exact max, chunk by
+//             chunk), then K and V (pass 2: S again, e, the row sum and o
+//             += bf16(e) . V_chunk).
+// The output tile stays in registers until it is scaled by 1/l. Operations:
+// 4 T^2 hd a head at T <= 256 (padded to whole 64-key chunks and 64-query
+// tiles), 6 T^2 hd past it; the exponential is expf (the plain version's
+// torch.exp).
+#include <limits.h>
 
-#include "common.cuh"
+#include <type_traits>
+
+#include "attention_sm90.cuh"
 
 namespace vit {
+namespace attn90 {
 
-constexpr int kAttnWarps = 4;
-constexpr int kQTile = kAttnWarps * 16;
-constexpr float kMaskValue = -0.7f * FLT_MAX;
+constexpr int kMaxChunks = 4;  // keys held in registers: one pass up to 256
 
-__device__ __forceinline__ void mma_16816(float c[4], const uint32_t a[4],
-                                          uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// Scores of this warp's 16 query rows against keys [8 * tile, 8 * tile + 8):
-// c[0..1] are row g, keys 2t and 2t+1; c[2..3] are row g + 8 (g = lane / 4,
-// t = lane % 4: mma.sync's accumulator layout).
+// K/V tile pairs in the ring: two units' chunks at hd <= 64, so the next
+// unit's loads run under this one's products; one unit's past it.
 template <int HDP>
-__device__ __forceinline__ void score_tile(float c[4],
-                                           uint32_t (&qa)[HDP / 16][4],
-                                           const bf16* ks, int kld, int tile,
-                                           int T, int g, int t) {
-  c[0] = c[1] = c[2] = c[3] = 0.f;
-  const bf16* kr = ks + (tile * 8 + g) * kld + 2 * t;
-#pragma unroll
-  for (int s = 0; s < HDP / 16; ++s)
-    mma_16816(c, qa[s], ld32(kr + s * 16), ld32(kr + s * 16 + 8));
-  const int key = tile * 8 + 2 * t;
-  if (key >= T) c[0] = c[2] = kMaskValue;
-  if (key + 1 >= T) c[1] = c[3] = kMaskValue;
+__host__ __device__ constexpr int fwd_slots() {
+  return boxes<HDP>() == 1 ? 2 * kMaxChunks : kMaxChunks;
+}
+template <int HDP>
+__host__ __device__ constexpr int fwd_smem_bytes() {
+  return 1024 + fwd_slots<HDP>() * 2 * tile_bytes<HDP>() + 2 * fwd_slots<HDP>() * 8;
+}
+
+// Work unit u: 128 queries (block qb of nqb) of head h of image b; the two
+// blocks of a head are neighbours, so the blocks running at once share
+// their K/V in L2.
+struct FwdUnit {
+  int b, h, qb;
+};
+__device__ __forceinline__ FwdUnit fwd_unit(int u, int nqb, int num_heads) {
+  const int bh = u / nqb;
+  return FwdUnit{bh / num_heads, bh % num_heads, u % nqb};
 }
 
 template <int HDP>
-__global__ void __launch_bounds__(kAttnWarps * 32)
-packed_attention_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out,
-                        int T, int num_heads, int hd, float scale) {
-  const int b = blockIdx.z, h = blockIdx.y;
-  const int D = num_heads * hd, pitch = 3 * D;
-  const int Tp = (T + 15) & ~15;
-  const int kld = HDP + 8, vld = Tp + 8;  // padded against bank conflicts
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* ks = reinterpret_cast<bf16*>(smem);  // [Tp][kld]
-  bf16* vt = ks + Tp * kld;                  // [HDP][vld], V transposed
-  const bf16* img = qkv + static_cast<size_t>(b) * T * pitch;
-  const int qoff = h * hd, koff = D + h * hd, voff = 2 * D + h * hd;
+__global__ void __launch_bounds__(kThreads, 1)
+packed_attention_kernel(const __grid_constant__ CUtensorMap map_qkv,
+                        const bf16* __restrict__ qkv, bf16* __restrict__ out, int T,
+                        int num_heads, int hd, float scale, int units) {
+  constexpr int kB = boxes<HDP>(), kTile = tile_bytes<HDP>(), kSteps = HDP / 16;
+  constexpr int kSlots = fwd_slots<HDP>();
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t ring = smem_u32(aligned_smem(smem_raw));  // slot i: K, then V
+  const uint32_t full = ring + kSlots * 2 * kTile;
+  const uint32_t empty = full + kSlots * 8;
+  const int nchunks = (T + kRows - 1) / kRows, nqb = (T + 2 * kRows - 1) / (2 * kRows);
+  const bool one_pass = nchunks <= kMaxChunks;
+  const int steps = one_pass ? nchunks : 2 * nchunks;  // pass 1 loads K alone
+  // Tile steps n = 0, 1, ... of this block, over its units in turn, take
+  // slot n % kSlots in phase (n / kSlots) & 1, for the producer and the
+  // consumers alike.
+  auto slot_of = [](int n) { return n % kSlots; };
+  auto phase_of = [](int n) { return static_cast<uint32_t>((n / kSlots) & 1); };
 
-  for (int i = threadIdx.x; i < Tp * (HDP / 8); i += blockDim.x) {
-    const int t = i / (HDP / 8), c = (i % (HDP / 8)) * 8;
-    uint4 kv = make_uint4(0, 0, 0, 0), vv = make_uint4(0, 0, 0, 0);
-    if (t < T && c < hd) {
-      const bf16* row = img + static_cast<size_t>(t) * pitch;
-      kv = *reinterpret_cast<const uint4*>(row + koff + c);
-      vv = *reinterpret_cast<const uint4*>(row + voff + c);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kSlots; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 128 * kConsumers);
     }
-    *reinterpret_cast<uint4*>(ks + t * kld + c) = kv;
-    const bf16* ve = reinterpret_cast<const bf16*>(&vv);
-#pragma unroll
-    for (int e = 0; e < 8; ++e) vt[(c + e) * vld + t] = ve[e];
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
 
-  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
-  const int r0 = blockIdx.x * kQTile + (threadIdx.x / 32) * 16;
-  if (r0 >= T) return;  // no barrier follows
-
-  // Q fragments (mma.sync A layout), scaled and rounded to bf16 as
-  // `q * jnp.asarray(scale, q.dtype)` does. `scale` is already bf16-exact.
-  uint32_t qa[HDP / 16][4];
+  if (threadIdx.x < 128) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x == 0) {
+      int n = 0;
+      for (int u = blockIdx.x; u < units; u += gridDim.x) {
+        const FwdUnit w = fwd_unit(u, nqb, num_heads);
+        for (int s = 0; s < steps; ++s, ++n) {
+          const int c = s % nchunks;
+          const bool with_v = one_pass || s >= nchunks;
+          mbar_wait(empty + 8 * slot_of(n), phase_of(n) ^ 1);  // the first round passes
+          const uint32_t bar = full + 8 * slot_of(n), k = ring + slot_of(n) * 2 * kTile;
+          mbar_expect_tx(bar, (with_v ? 2 : 1) * kTile);  // zero-filled boxes count whole
 #pragma unroll
-  for (int s = 0; s < HDP / 16; ++s) {
-#pragma unroll
-    for (int reg = 0; reg < 4; ++reg) {
-      const int row = r0 + g + (reg & 1) * 8;
-      const int col = s * 16 + 2 * t + (reg >> 1) * 8;
-      float lo = 0.f, hi = 0.f;
-      if (row < T && col < hd) {
-        const __nv_bfloat162 q = *reinterpret_cast<const __nv_bfloat162*>(
-            img + static_cast<size_t>(row) * pitch + qoff + col);
-        lo = __bfloat162float(q.x) * scale;
-        hi = __bfloat162float(q.y) * scale;
+          for (int j = 0; j < kB; ++j) {
+            tma_load_4d(k + j * kBox, &map_qkv, 64 * j, num_heads + w.h, c * kRows, w.b, bar);
+            if (with_v)
+              tma_load_4d(k + kTile + j * kBox, &map_qkv, 64 * j, 2 * num_heads + w.h,
+                          c * kRows, w.b, bar);
+          }
+        }
       }
-      qa[s][reg] = pack_bf16x2(lo, hi);
     }
+    return;
   }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+  const int wg = threadIdx.x / 128 - 1;
+  const int t = threadIdx.x % 128, lane = t % 32, g = lane / 4, tq = lane % 4;
+  const int D = num_heads * hd;
+  auto first_row = [&](const FwdUnit& w) {  // the warp's first query in unit w
+    return (w.qb * kConsumers + wg) * kRows + 16 * (t / 32);
+  };
 
-  // Pass 1: the exact max of each row over all keys.
-  float mx0 = -FLT_MAX, mx1 = -FLT_MAX;
-  for (int tile = 0; tile < Tp / 8; ++tile) {
-    float c[4];
-    score_tile<HDP>(c, qa, ks, kld, tile, T, g, t);
-    mx0 = fmaxf(mx0, fmaxf(c[0], c[1]));
-    mx1 = fmaxf(mx1, fmaxf(c[2], c[3]));
-  }
+  auto mask = [&](float (&c)[32], int chunk) {
 #pragma unroll
-  for (int off = 1; off <= 2; off <<= 1) {  // the 4 lanes sharing a row
-    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
-    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
-  }
-
-  // Pass 2: e = exp(s - max) for 16 keys at a time; the rounded e feeds the
-  // PV product directly as the A operand (its accumulator layout is the A
-  // layout of the next mma), while the row sums take e in fp32.
-  float l0 = 0.f, l1 = 0.f;
-  float o[HDP / 8][4];
-#pragma unroll
-  for (int d = 0; d < HDP / 8; ++d) o[d][0] = o[d][1] = o[d][2] = o[d][3] = 0.f;
-  for (int chunk = 0; chunk < Tp / 16; ++chunk) {
-    float s0[4], s1[4];
-    score_tile<HDP>(s0, qa, ks, kld, 2 * chunk, T, g, t);
-    score_tile<HDP>(s1, qa, ks, kld, 2 * chunk + 1, T, g, t);
-    const float e00 = expf(s0[0] - mx0), e01 = expf(s0[1] - mx0);
-    const float e02 = expf(s0[2] - mx1), e03 = expf(s0[3] - mx1);
-    const float e10 = expf(s1[0] - mx0), e11 = expf(s1[1] - mx0);
-    const float e12 = expf(s1[2] - mx1), e13 = expf(s1[3] - mx1);
-    l0 += e00 + e01 + e10 + e11;
-    l1 += e02 + e03 + e12 + e13;
-    const uint32_t pa[4] = {pack_bf16x2(e00, e01), pack_bf16x2(e02, e03),
-                            pack_bf16x2(e10, e11), pack_bf16x2(e12, e13)};
-#pragma unroll
-    for (int d = 0; d < HDP / 8; ++d) {
-      const bf16* vr = vt + (d * 8 + g) * vld + chunk * 16 + 2 * t;
-      mma_16816(o[d], pa, ld32(vr), ld32(vr + 8));
+    for (int j = 0; j < 8; ++j) {
+      const int key = chunk * kRows + 8 * j + 2 * tq;
+      if (key >= T) c[4 * j] = c[4 * j + 2] = kMaskValue;
+      if (key + 1 >= T) c[4 * j + 1] = c[4 * j + 3] = kMaskValue;
     }
-  }
+  };
+  auto row_max = [](const float (&c)[32], float& m0, float& m1) {
 #pragma unroll
-  for (int off = 1; off <= 2; off <<= 1) {
-    l0 += __shfl_xor_sync(0xffffffffu, l0, off);
-    l1 += __shfl_xor_sync(0xffffffffu, l1, off);
-  }
-  const float inv0 = 1.f / l0, inv1 = 1.f / l1;
+    for (int j = 0; j < 8; ++j) {
+      m0 = fmaxf(m0, fmaxf(c[4 * j], c[4 * j + 1]));
+      m1 = fmaxf(m1, fmaxf(c[4 * j + 2], c[4 * j + 3]));
+    }
+  };
+  // e = exp(s - m) in place, its row sums (pairwise) added to (l0, l1).
+  auto exp_rows = [](float (&c)[32], float m0, float m1, float& l0, float& l1) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      c[4 * j] = expf(c[4 * j] - m0);
+      c[4 * j + 1] = expf(c[4 * j + 1] - m0);
+      c[4 * j + 2] = expf(c[4 * j + 2] - m1);
+      c[4 * j + 3] = expf(c[4 * j + 3] - m1);
+    }
+    float r0, r1;
+    row_sums(c, r0, r1);
+    l0 += r0;
+    l1 += r1;
+  };
 
-  const int row0 = r0 + g, row1 = r0 + g + 8;
-  bf16* out0 = out + (static_cast<size_t>(b) * T + row0) * D + h * hd;
-  bf16* out1 = out + (static_cast<size_t>(b) * T + row1) * D + h * hd;
+  // A unit's q words, raw (rows past T and columns past hd zero), loaded a
+  // unit ahead so that their latency runs under the unit before.
+  auto load_q = [&](uint32_t (&raw)[kSteps][4], int u) {
+    if (u >= units) return;
+    const FwdUnit w = fwd_unit(u, nqb, num_heads);
+    load_a_raw<HDP>(raw, qkv + static_cast<size_t>(w.b) * T * 3 * D, 3 * D, w.h * hd,
+                    first_row(w), T, hd, g, tq);
+  };
+  uint32_t q_next[kSteps][4];
+  load_q(q_next, blockIdx.x);
+  int n = 0;
+  if (one_pass) turns_begin(wg);  // the streamed passes take no turns
+  for (int u = blockIdx.x; u < units; u += gridDim.x) {
+    const FwdUnit w = fwd_unit(u, nqb, num_heads);
+    // qs in the A layout, scaled and rounded as `q * jnp.asarray(scale,
+    // q.dtype)` does (`scale` is bf16-exact).
+    uint32_t qa[kSteps][4];
 #pragma unroll
-  for (int d = 0; d < HDP / 8; ++d) {
-    const int col = d * 8 + 2 * t;
-    if (col >= hd) continue;
-    if (row0 < T)
-      *reinterpret_cast<uint32_t*>(out0 + col) =
-          pack_bf16x2(o[d][0] * inv0, o[d][1] * inv0);
-    if (row1 < T)
-      *reinterpret_cast<uint32_t*>(out1 + col) =
-          pack_bf16x2(o[d][2] * inv1, o[d][3] * inv1);
+    for (int kk = 0; kk < kSteps; ++kk)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) qa[kk][r] = tiles::scale2(q_next[kk][r], scale);
+    load_q(q_next, u + gridDim.x);
+    // s = qs . K^T of the K tile at `k` into c.
+    auto scores = [&](float (&c)[32], uint32_t k) {
+#pragma unroll
+      for (int kk = 0; kk < kSteps; ++kk) wgmma_rs<0>(c, qa[kk], desc_k(k, kk), kk > 0);
+    };
+    auto k_tile = [&](int m) { return ring + slot_of(m) * 2 * kTile; };
+
+    float m0 = -FLT_MAX, m1 = -FLT_MAX, l0 = 0.f, l1 = 0.f;
+    float o[kB][32];
+    // One pass over NC chunks, every chunk's scores held at once.
+    auto one_pass_unit = [&](auto nc) {
+      constexpr int NC = decltype(nc)::value;
+      float s[NC][32];
+      turn_wait(wg);
+      wgmma_fence();
+#pragma unroll
+      for (int c = 0; c < NC; ++c) {
+        mbar_wait(full + 8 * slot_of(n + c), phase_of(n + c));
+        scores(s[c], k_tile(n + c));
+      }
+      wgmma_commit();
+      turn_pass(wg);
+      wgmma_wait<0>();
+#pragma unroll
+      for (int c = 0; c < NC; ++c) {
+        fence_acc(s[c]);
+        if (c == NC - 1) mask(s[c], c);  // only the last chunk holds keys past T
+        row_max(s[c], m0, m1);
+      }
+      quad_max(m0);
+      quad_max(m1);
+      uint32_t pa[NC][4][4];
+#pragma unroll
+      for (int c = 0; c < NC; ++c) {
+        exp_rows(s[c], m0, m1, l0, l1);
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) to_a(pa[c][kk], s[c], kk);
+      }
+      turn_wait(wg);
+      wgmma_fence();
+#pragma unroll
+      for (int c = 0; c < NC; ++c) {
+        const uint32_t v = k_tile(n + c) + kTile;
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+          for (int j = 0; j < kB; ++j)
+            wgmma_rs<1>(o[j], pa[c][kk], desc_mn(v, j, kk), c + kk > 0);
+      }
+      wgmma_commit();
+      turn_pass(wg);
+      wgmma_wait<0>();
+#pragma unroll
+      for (int j = 0; j < kB; ++j) fence_acc(o[j]);
+#pragma unroll
+      for (int c = 0; c < NC; ++c) {
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) fence_frag(pa[c][kk]);
+        mbar_arrive(empty + 8 * slot_of(n + c));
+      }
+      n += NC;
+    };
+    if (one_pass) {
+      switch (nchunks) {
+        case 1: one_pass_unit(std::integral_constant<int, 1>()); break;
+        case 2: one_pass_unit(std::integral_constant<int, 2>()); break;
+        case 3: one_pass_unit(std::integral_constant<int, 3>()); break;
+        default: one_pass_unit(std::integral_constant<int, kMaxChunks>()); break;
+      }
+    } else {
+      // Pass 1: the exact max of each row over all keys.
+      for (int c = 0; c < nchunks; ++c, ++n) {
+        float s[32];
+        mbar_wait(full + 8 * slot_of(n), phase_of(n));
+        wgmma_fence();
+        scores(s, k_tile(n));
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_acc(s);
+        mbar_arrive(empty + 8 * slot_of(n));
+        mask(s, c);
+        row_max(s, m0, m1);
+      }
+      quad_max(m0);
+      quad_max(m1);
+      // Pass 2: e against that max, its row sums, o += bf16(e) . V.
+      for (int c = 0; c < nchunks; ++c, ++n) {
+        float s[32];
+        mbar_wait(full + 8 * slot_of(n), phase_of(n));
+        const uint32_t k = k_tile(n);
+        wgmma_fence();
+        scores(s, k);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_acc(s);
+        mask(s, c);
+        exp_rows(s, m0, m1, l0, l1);
+        uint32_t pa[4][4];
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) to_a(pa[kk], s, kk);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+          for (int j = 0; j < kB; ++j)
+            wgmma_rs<1>(o[j], pa[kk], desc_mn(k + kTile, j, kk), c + kk > 0);
+        wgmma_commit();
+        wgmma_wait<0>();
+#pragma unroll
+        for (int j = 0; j < kB; ++j) fence_acc(o[j]);
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) fence_frag(pa[kk]);
+        mbar_arrive(empty + 8 * slot_of(n));
+      }
+    }
+    quad_sum(l0);
+    quad_sum(l1);
+    store_rows<kB, bf16>(out + static_cast<size_t>(w.b) * T * D, D, w.h * hd, o, 1.f / l0,
+                         1.f / l1, first_row(w), T, hd, g, tq);
   }
+  if (one_pass) turns_end(wg);
 }
 
 template <int HDP>
-cudaError_t launch_attention(const void* qkv, void* out, int B, int T,
-                             int num_heads, int hd, float scale,
-                             cudaStream_t stream) {
-  const int Tp = (T + 15) & ~15;
-  const size_t smem =
-      (static_cast<size_t>(Tp) * (HDP + 8) + static_cast<size_t>(HDP) * (Tp + 8)) *
-      sizeof(bf16);
-  cudaError_t err = allow_dynamic_smem(packed_attention_kernel<HDP>, smem);
+cudaError_t launch_attention(const void* qkv, void* out, int B, int T, int num_heads, int hd,
+                             float scale, cudaStream_t stream) {
+  EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorSymbolNotFound;
+  const int sms = sm_count();
+  if (sms == 0) return cudaErrorInvalidDevice;
+  CUtensorMap map;
+  if (!encode_head_map(&map, encode, qkv, hd, 3 * num_heads, T, B))
+    return cudaErrorInvalidValue;
+  constexpr int smem = fwd_smem_bytes<HDP>();
+  const cudaError_t err = allow_dynamic_smem(packed_attention_kernel<HDP>, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((T + kQTile - 1) / kQTile, num_heads, B);
-  packed_attention_kernel<HDP><<<grid, kAttnWarps * 32, smem, stream>>>(
-      static_cast<const bf16*>(qkv), static_cast<bf16*>(out), T, num_heads, hd,
-      scale);
+  const long long units =
+      static_cast<long long>((T + 2 * kRows - 1) / (2 * kRows)) * num_heads * B;
+  if (units > INT_MAX) return cudaErrorInvalidValue;
+  const int grid = static_cast<int>(units < sms ? units : sms);  // persistent
+  packed_attention_kernel<HDP><<<grid, kThreads, smem, stream>>>(
+      map, static_cast<const bf16*>(qkv), static_cast<bf16*>(out), T, num_heads, hd, scale,
+      static_cast<int>(units));
   return cudaGetLastError();
 }
 
+}  // namespace attn90
 }  // namespace vit
 
 // head_dim must be a multiple of 8 and at most 128; ops/attention.py checks
-// that and the shared-memory size before calling.
+// that and the route's bound on T before calling.
 VIT_EXPORT int vit_packed_attention_bf16(const void* qkv, void* out, int B,
                                          int T, int num_heads, int head_dim,
                                          float scale, void* stream) {
-  using namespace vit;
+  using namespace vit::attn90;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (B <= 0 || T <= 0 || num_heads <= 0 || head_dim % 8 != 0)
     return cudaErrorInvalidValue;

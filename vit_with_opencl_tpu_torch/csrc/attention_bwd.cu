@@ -10,329 +10,429 @@
 //   s  = qs . k^T, fp32; m = rowmax(s); e = exp(s - m); inv = 1 / rowsum(e)
 //   p  = e * inv                  the NORMALISED fp32 probability
 //   dp = dO . v^T                 fp32
-//   ds = bf16((p * (dp - rowsum(dp * p))) * ds_scale)
+//   ds = bf16((p * (dp - delta)) * ds_scale),  delta = rowsum(dp * p)
 //   dq = ds . k,  dk = ds^T . q (the unscaled q),  dv = bf16(p)^T . dO
 // dqkv is written in bf16 or in fp32: the fused layer's backward keeps it in
-// fp32 for the bias gradient and rounds it for its GEMMs. rowsum(dp * p) is
-// taken from the recomputed p, not as FlashAttention's rowsum(dO * O) from
-// the forward's rounded output: the two differ by the output's rounding.
+// fp32 for the bias gradient and rounds it for its GEMMs. delta is taken
+// from the recomputed p, not as FlashAttention's rowsum(dO * O) from the
+// forward's rounded output: the two differ by the output's rounding. The
+// design's one reassociation: delta = inv * rowsum(e * dp), one fp32 scale
+// of the sum in place of a scale of each term, so that delta comes out of
+// the same pass as rowsum(e); besides that only the order of fp32 sums
+// differs from the plain version (rowsum(e) and rowsum(e * dp) pairwise
+// within each chunk).
 //
 // Bound on the card: bytes at ViT-B's T = 197 (qkv and dO read, dqkv
 // written: 136 MB at B = 64, about 0.04 ms; the products are about a
 // quarter of that at the bf16 peak), operations at ViT-L/16@384's T = 577
-// (10 T^2 hd a head: 109 GFLOP a layer at B = 32, about 0.11 ms), though
-// the recomputation makes this simple form compute-heavy everywhere (22 T^2
-// hd a head). Design: two kernels, in FlashAttention-2's split, so that no
-// block sums into another's output and the result is the same from run to
-// run. Neither holds a whole head: the other side of each product streams
-// through a double-buffered ring of 64-row tiles (cp.async), so a block's
-// shared memory depends on the head dim only, never on T (at most 71,168 B,
-// at hd = 128):
-//   dq kernel   one block of 4 warps per (image, head, 64-query tile); each
-//               warp owns 16 query rows (q and dO fragments in registers)
-//               and walks the key tiles four times, reading K (and, in the
-//               last two passes, V) again each pass: the row max, the row
-//               sum, the rowsum(dp * p) term, then ds and dq = ds . K
-//               accumulated in registers; it writes each row's (m, inv,
-//               delta) to a small fp32 buffer;
-//   dkv kernel  one block of 4 warps per (image, head, 64-key tile); each
-//               warp owns 16 keys (k and v fragments in registers), streams
-//               the q and dO tiles with the rows' statistics, rebuilds p^T
-//               and dp^T for its keys from the statistics, and accumulates
-//               dv = bf16(p)^T . dO and dk = ds^T . q in registers.
-// Every tile keeps the keys (or queries) in the order of the resident form
-// it replaces, so each sum takes its terms in the same order. Products use
-// mma.sync m16n8k16 (bf16 in, fp32 out) with the operand layouts of the
-// forward kernel: an accumulator tile rounded to bf16 is the A operand of
-// the next product, and ldmatrix.trans reads the B operand of dq, dk and dv
-// from a row-major tile. Head dims that are a multiple of 8 are zero-padded
-// to the next of the compiled widths (16..128). Not yet used: wgmma, TMA,
-// and keeping the scores between passes.
-#include "attention_tiles.cuh"
+// (10 T^2 hd a head: 109 GFLOP a layer at B = 32, about 0.11 ms). Design
+// (Hopper, sm_90a; tiles and maps in attention_sm90.cuh): FlashAttention-2's
+// split into two kernels, so that no block sums into another's output and
+// dqkv has the same bits from run to run. Each block is one producer
+// warpgroup, whose one thread keeps a TMA ring of 64-row tiles full, and two
+// consumer warpgroups of 64 rows each; products are wgmma m64n64k16 with
+// fp32 accumulators in registers. A block's shared memory depends on the
+// head dim only, never on T:
+//   dq kernel   per (image, head, 128 queries): qs and dO in registers as A
+//               operands; K and V tiles stream three times: pass 1 S = qs .
+//               K^T for the exact row max; pass 2 S and dP = dO . V^T for
+//               rowsum(e) and rowsum(e * dp); pass 3 S and dP again for ds,
+//               which (rounded in registers) is the A operand of dq += ds .
+//               K, K read MN-major. It writes each row's (m, inv, delta) to
+//               the stats buffer, 16 bytes a row, 64-row blocks whole.
+//   dkv kernel  per (image, head, 128 keys): each consumer's K and V tiles
+//               sit in shared memory as A operands; q tiles, dO tiles and
+//               their rows' statistics (one bulk copy) stream in once. A
+//               consumer writes qs = bf16(q * q_scale) into a tile of its
+//               own (the swizzle permutes whole 16-byte chunks, so element
+//               for element), then S^T = K . qs^T and dP^T = V . dO^T (both
+//               operands from shared memory); p^T and ds^T are built in
+//               registers and are the A operands of dv += bf16(p)^T . dO and
+//               dk += ds^T . q, dO and the unscaled q read MN-major.
+// Operations: 12 T^2 hd a head in the dq kernel, 8 in the dkv kernel (T
+// padded to whole 64-row tiles); exponentials: three a score, expf (the
+// plain version's torch.exp).
+#include "attention_sm90.cuh"
 
 namespace vit {
-namespace attn_bwd {
+namespace attn90 {
 
-using namespace tiles;
-constexpr int kTile = 64;  // rows of one streamed tile
+constexpr int kDqStages = 4;      // K/V tile pairs in the dq kernel's ring
+constexpr int kStatsBytes = kRows * 16;  // (m, inv, delta, unused) of 64 rows
 
 template <int HDP>
-__host__ __device__ constexpr int tile_elems() {
-  return tiles::tile_elems<HDP, kTile>();
+__host__ __device__ constexpr int dkv_stages() {
+  return boxes<HDP>() == 1 ? 4 : 3;
 }
-
-// One ring stage of the dq kernel: a K tile and a V tile.
 template <int HDP>
-__host__ __device__ constexpr size_t dq_stage_bytes() {
-  return 2 * tile_elems<HDP>() * sizeof(bf16);
+__host__ __device__ constexpr int dq_smem_bytes() {
+  return 1024 + kDqStages * 2 * tile_bytes<HDP>() + 2 * kDqStages * 8;
 }
-// One ring stage of the dkv kernel: a q tile, a dO tile and their rows'
-// (m, inv, delta).
+// The consumers' K and V tiles and qs tiles, then the ring (q, dO, stats).
 template <int HDP>
-__host__ __device__ constexpr size_t dkv_stage_bytes() {
-  return 2 * tile_elems<HDP>() * sizeof(bf16) + kTile * 3 * sizeof(float);
+__host__ __device__ constexpr int dkv_smem_bytes() {
+  return 1024 + 3 * kConsumers * tile_bytes<HDP>() +
+         dkv_stages<HDP>() * (2 * tile_bytes<HDP>() + kStatsBytes) +
+         (1 + 2 * dkv_stages<HDP>()) * 8;
 }
 
 template <int HDP, typename TOut>
-__global__ void __launch_bounds__(kThreads)
-attention_bwd_dq_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ dout,
-                        TOut* __restrict__ dqkv, float* __restrict__ stats, int T,
+__global__ void __launch_bounds__(kThreads, 1)
+attention_bwd_dq_kernel(const __grid_constant__ CUtensorMap map_qkv,
+                        const bf16* __restrict__ qkv, const bf16* __restrict__ dout,
+                        TOut* __restrict__ dqkv, float4* __restrict__ stats, int T,
                         int num_heads, int hd, float q_scale, float ds_scale) {
+  constexpr int kB = boxes<HDP>(), kTile = tile_bytes<HDP>(), kSteps = HDP / 16;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t ring = smem_u32(aligned_smem(smem_raw));  // stage i: K, then V
+  const uint32_t full = ring + kDqStages * 2 * kTile;
+  const uint32_t empty = full + kDqStages * 8;
   const int b = blockIdx.z, h = blockIdx.y;
-  const int D = num_heads * hd, pitch = 3 * D;
-  const int Tp = (T + 15) & ~15;
-  extern __shared__ __align__(16) unsigned char smem[];
-  const bf16* img = qkv + static_cast<size_t>(b) * T * pitch;
-  const bf16* dimg = dout + static_cast<size_t>(b) * T * D;
-  // Step s of the walk is pass s / ntiles over key tile s % ntiles.
-  const int ntiles = (T + kTile - 1) / kTile, steps = 4 * ntiles;
-  auto stage = [&](int s) {
-    return reinterpret_cast<bf16*>(smem + (s % kStages) * dq_stage_bytes<HDP>());
-  };
-  auto fetch = [&](int s) {  // K, and V in passes 3 and 4
-    const int k0 = (s % ntiles) * kTile;
-    load_tile<HDP, kTile>(stage(s), img, pitch, D + h * hd, k0, T, hd);
-    if (s / ntiles >= 2)
-      load_tile<HDP, kTile>(stage(s) + tile_elems<HDP>(), img, pitch, 2 * D + h * hd,
-                            k0, T, hd);
-    cp_async_commit();
-  };
-  fetch(0);
+  const int nchunks = (T + kRows - 1) / kRows;
+  const int active = min(kConsumers, (T - blockIdx.x * kConsumers * kRows + kRows - 1) / kRows);
 
-  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
-  // Warps whose rows lie past T compute on zero rows and store nothing: they
-  // must stay for the block's barriers.
-  const int r0 = blockIdx.x * kRows + (threadIdx.x / 32) * 16;
-  uint32_t qa[HDP / 16][4], da[HDP / 16][4];
-  load_a<HDP>(qa, img, pitch, h * hd, r0, T, hd, q_scale, g, t);
-  load_a<HDP>(da, dimg, D, h * hd, r0, T, hd, 1.f, g, t);
-
-  auto quad_max = [](float& v) {  // the 4 lanes that share a row
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
-  };
-  auto quad_sum = [](float& v) {
-    v += __shfl_xor_sync(0xffffffffu, v, 1);
-    v += __shfl_xor_sync(0xffffffffu, v, 2);
-  };
-  float mx0 = -FLT_MAX, mx1 = -FLT_MAX, l0 = 0.f, l1 = 0.f, inv0 = 0.f, inv1 = 0.f;
-  float dl0 = 0.f, dl1 = 0.f;
-  float dq[HDP / 8][4];
-#pragma unroll
-  for (int d = 0; d < HDP / 8; ++d) dq[d][0] = dq[d][1] = dq[d][2] = dq[d][3] = 0.f;
-
-  for (int s = 0; s < steps; ++s) {
-    if (s + 1 < steps) {
-      fetch(s + 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kDqStages; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 128 * active);
     }
-    __syncthreads();
-    const bf16* ks = stage(s);
-    const bf16* vs = ks + tile_elems<HDP>();
-    const int pass = s / ntiles, k0 = (s % ntiles) * kTile;
-    const int nsub = min(kTile, Tp - k0) / 8;  // 8-key sub-tiles up to Tp
-
-    // Scores of keys k0 + [8 * sub, 8 * sub + 8), keys past T masked.
-    auto scores = [&](float c[4], int sub) {
-      dot_tile<HDP, false>(c, qa, ks, sub, 1.f, g, t);
-      const int key = k0 + sub * 8 + 2 * t;
-      if (key >= T) c[0] = c[2] = kMaskValue;
-      if (key + 1 >= T) c[1] = c[3] = kMaskValue;
-    };
-    // p and dp of the same keys (V rows past T are zero).
-    auto probs = [&](float p[4], float dp[4], int sub) {
-      scores(p, sub);
-      p[0] = expf(p[0] - mx0) * inv0;
-      p[1] = expf(p[1] - mx0) * inv0;
-      p[2] = expf(p[2] - mx1) * inv1;
-      p[3] = expf(p[3] - mx1) * inv1;
-      dot_tile<HDP, false>(dp, da, vs, sub, 1.f, g, t);
-    };
-
-    if (pass == 0) {  // the exact row max
-      for (int sub = 0; sub < nsub; ++sub) {
-        float c[4];
-        scores(c, sub);
-        mx0 = fmaxf(mx0, fmaxf(c[0], c[1]));
-        mx1 = fmaxf(mx1, fmaxf(c[2], c[3]));
-      }
-    } else if (pass == 1) {  // the row sum of e
-      for (int sub = 0; sub < nsub; ++sub) {
-        float c[4];
-        scores(c, sub);
-        l0 += expf(c[0] - mx0) + expf(c[1] - mx0);
-        l1 += expf(c[2] - mx1) + expf(c[3] - mx1);
-      }
-    } else if (pass == 2) {  // delta = rowsum(dp * p)
-      for (int sub = 0; sub < nsub; ++sub) {
-        float p[4], dp[4];
-        probs(p, dp, sub);
-        dl0 += dp[0] * p[0] + dp[1] * p[1];
-        dl1 += dp[2] * p[2] + dp[3] * p[3];
-      }
-    } else {  // ds, rounded to bf16 as the A operand of dq += ds . K
-      for (int chunk = 0; chunk < nsub / 2; ++chunk) {
-        float p0[4], dp0[4], p1[4], dp1[4];
-        probs(p0, dp0, 2 * chunk);
-        probs(p1, dp1, 2 * chunk + 1);
-        const uint32_t dsa[4] = {
-            pack_bf16x2((p0[0] * (dp0[0] - dl0)) * ds_scale,
-                        (p0[1] * (dp0[1] - dl0)) * ds_scale),
-            pack_bf16x2((p0[2] * (dp0[2] - dl1)) * ds_scale,
-                        (p0[3] * (dp0[3] - dl1)) * ds_scale),
-            pack_bf16x2((p1[0] * (dp1[0] - dl0)) * ds_scale,
-                        (p1[1] * (dp1[1] - dl0)) * ds_scale),
-            pack_bf16x2((p1[2] * (dp1[2] - dl1)) * ds_scale,
-                        (p1[3] * (dp1[3] - dl1)) * ds_scale)};
-        accumulate<HDP>(dq, dsa, ks, chunk, lane);
-      }
-    }
-    if (s % ntiles == ntiles - 1) {  // a pass ends: combine the row's lanes
-      if (pass == 0) {
-        quad_max(mx0);
-        quad_max(mx1);
-      } else if (pass == 1) {
-        quad_sum(l0);
-        quad_sum(l1);
-        inv0 = 1.f / l0;
-        inv1 = 1.f / l1;
-      } else if (pass == 2) {
-        quad_sum(dl0);
-        quad_sum(dl1);
-      }
-    }
-    __syncthreads();  // the stage is refilled two steps on
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  store_rows<HDP, TOut>(dqkv + static_cast<size_t>(b) * T * pitch, pitch, h * hd, dq,
-                        r0, T, hd, g, t);
+  __syncthreads();
 
-  if (t == 0) {  // one lane per row: (max, inv, delta)
-    float* st = stats + (static_cast<size_t>(b) * num_heads + h) * T * 3;
-    if (r0 + g < T) {
-      st[(r0 + g) * 3 + 0] = mx0;
-      st[(r0 + g) * 3 + 1] = inv0;
-      st[(r0 + g) * 3 + 2] = dl0;
-    }
-    if (r0 + g + 8 < T) {
-      st[(r0 + g + 8) * 3 + 0] = mx1;
-      st[(r0 + g + 8) * 3 + 1] = inv1;
-      st[(r0 + g + 8) * 3 + 2] = dl1;
-    }
-  }
-}
-
-template <int HDP, typename TOut>
-__global__ void __launch_bounds__(kThreads)
-attention_bwd_dkv_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ dout,
-                         const float* __restrict__ stats, TOut* __restrict__ dqkv,
-                         int T, int num_heads, int hd, float q_scale, float ds_scale) {
-  const int b = blockIdx.z, h = blockIdx.y;
-  const int D = num_heads * hd, pitch = 3 * D;
-  const int Tp = (T + 15) & ~15;
-  extern __shared__ __align__(16) unsigned char smem[];
-  const bf16* img = qkv + static_cast<size_t>(b) * T * pitch;
-  const bf16* dimg = dout + static_cast<size_t>(b) * T * D;
-  const float* gst = stats + (static_cast<size_t>(b) * num_heads + h) * T * 3;
-  const int ntiles = (T + kTile - 1) / kTile;  // query tiles
-  auto stage = [&](int s) {
-    return reinterpret_cast<bf16*>(smem + (s % kStages) * dkv_stage_bytes<HDP>());
-  };
-  auto fetch = [&](int s) {  // q (unscaled), dO and the rows' statistics
-    const int q0 = s * kTile;
-    bf16* buf = stage(s);
-    load_tile<HDP, kTile>(buf, img, pitch, h * hd, q0, T, hd);
-    load_tile<HDP, kTile>(buf + tile_elems<HDP>(), dimg, D, h * hd, q0, T, hd);
-    float* st = reinterpret_cast<float*>(buf + 2 * tile_elems<HDP>());
-    for (int i = threadIdx.x; i < kTile * 3; i += kThreads) {
-      const bool ok = q0 * 3 + i < T * 3;
-      cp_async4(st + i, ok ? gst + q0 * 3 + i : gst, ok);
-    }
-    cp_async_commit();
-  };
-  fetch(0);
-
-  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
-  const int r0 = blockIdx.x * kRows + (threadIdx.x / 32) * 16;  // keys
-  uint32_t ka[HDP / 16][4], va[HDP / 16][4];
-  load_a<HDP>(ka, img, pitch, D + h * hd, r0, T, hd, 1.f, g, t);
-  load_a<HDP>(va, img, pitch, 2 * D + h * hd, r0, T, hd, 1.f, g, t);
-
-  float dk[HDP / 8][4], dv[HDP / 8][4];
+  if (threadIdx.x < 128) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x == 0) {
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int s = 0; s < 3 * nchunks; ++s) {  // pass 1 loads K alone
+        const int c = s % nchunks;
+        const bool with_v = s >= nchunks;
+        mbar_wait(empty + 8 * stage, phase ^ 1);  // the first round passes
+        const uint32_t bar = full + 8 * stage, k = ring + stage * 2 * kTile;
+        mbar_expect_tx(bar, (with_v ? 2 : 1) * kTile);  // zero-filled boxes count whole
 #pragma unroll
-  for (int d = 0; d < HDP / 8; ++d) {
-    dk[d][0] = dk[d][1] = dk[d][2] = dk[d][3] = 0.f;
-    dv[d][0] = dv[d][1] = dv[d][2] = dv[d][3] = 0.f;
-  }
-  for (int s = 0; s < ntiles; ++s) {
-    if (s + 1 < ntiles) {
-      fetch(s + 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const bf16* qt = stage(s);
-    const bf16* dt = qt + tile_elems<HDP>();
-    const float* st = reinterpret_cast<const float*>(qt + 2 * tile_elems<HDP>());
-    const int q0 = s * kTile;
-    const int nsub = min(kTile, Tp - q0) / 8;
-    // p^T and ds^T of this warp's 16 keys against queries q0 + [8 * sub, +8):
-    // element e is key row g (e < 2) or g + 8, query 8 * sub + 2t + (e & 1).
-    auto grads = [&](float p[4], float ds[4], int sub) {
-      float dp[4];
-      dot_tile<HDP, true>(p, ka, qt, sub, q_scale, g, t);  // s^T = k . bf16(q * scale)^T
-      dot_tile<HDP, false>(dp, va, dt, sub, 1.f, g, t);    // dp^T = v . dO^T
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int q = sub * 8 + 2 * t + (e & 1);
-        if (q0 + q < T) {
-          const float* sq = st + q * 3;
-          p[e] = expf(p[e] - sq[0]) * sq[1];
-          ds[e] = (p[e] * (dp[e] - sq[2])) * ds_scale;
-        } else {
-          p[e] = ds[e] = 0.f;
+        for (int j = 0; j < kB; ++j) {
+          tma_load_4d(k + j * kBox, &map_qkv, 64 * j, num_heads + h, c * kRows, b, bar);
+          if (with_v)
+            tma_load_4d(k + kTile + j * kBox, &map_qkv, 64 * j, 2 * num_heads + h,
+                        c * kRows, b, bar);
+        }
+        if (++stage == kDqStages) {
+          stage = 0;
+          phase ^= 1;
         }
       }
-    };
-    for (int chunk = 0; chunk < nsub / 2; ++chunk) {
-      float p0[4], ds0[4], p1[4], ds1[4];
-      grads(p0, ds0, 2 * chunk);
-      grads(p1, ds1, 2 * chunk + 1);
-      const uint32_t pa[4] = {pack_bf16x2(p0[0], p0[1]), pack_bf16x2(p0[2], p0[3]),
-                              pack_bf16x2(p1[0], p1[1]), pack_bf16x2(p1[2], p1[3])};
-      const uint32_t dsa[4] = {pack_bf16x2(ds0[0], ds0[1]), pack_bf16x2(ds0[2], ds0[3]),
-                               pack_bf16x2(ds1[0], ds1[1]), pack_bf16x2(ds1[2], ds1[3])};
-      accumulate<HDP>(dv, pa, dt, chunk, lane);   // dv += bf16(p)^T . dO
-      accumulate<HDP>(dk, dsa, qt, chunk, lane);  // dk += ds^T . q
     }
-    __syncthreads();  // the stage is refilled two steps on
+    return;
   }
-  TOut* out = dqkv + static_cast<size_t>(b) * T * pitch;
-  store_rows<HDP, TOut>(out, pitch, D + h * hd, dk, r0, T, hd, g, t);
-  store_rows<HDP, TOut>(out, pitch, 2 * D + h * hd, dv, r0, T, hd, g, t);
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+  const int wg = threadIdx.x / 128 - 1;
+  if (wg >= active) return;  // no barrier of the block waits for it
+  const int t = threadIdx.x % 128, lane = t % 32, g = lane / 4, tq = lane % 4;
+  const int r0 = (blockIdx.x * kConsumers + wg) * kRows + 16 * (t / 32);  // the warp's rows
+  const int D = num_heads * hd;
+  const bf16* img = qkv + static_cast<size_t>(b) * T * 3 * D;
+  uint32_t qa[kSteps][4], da[kSteps][4];
+  tiles::load_a<HDP>(qa, img, 3 * D, h * hd, r0, T, hd, q_scale, g, tq);
+  tiles::load_a<HDP>(da, dout + static_cast<size_t>(b) * T * D, D, h * hd, r0, T, hd, 1.f,
+                     g, tq);
+
+  int stage = 0;
+  uint32_t phase = 0;
+  // The next tile pair: wait for it, issue S = qs . K^T (and dP = dO . V^T).
+  auto products = [&](float (&s)[32], float (&dp)[32], bool with_dp) {
+    mbar_wait(full + 8 * stage, phase);
+    const uint32_t k = ring + stage * 2 * kTile;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kSteps; ++kk) wgmma_rs<0>(s, qa[kk], desc_k(k, kk), kk > 0);
+    if (with_dp)
+#pragma unroll
+      for (int kk = 0; kk < kSteps; ++kk)
+        wgmma_rs<0>(dp, da[kk], desc_k(k + kTile, kk), kk > 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_acc(s);
+    fence_acc(dp);
+  };
+  auto release = [&]() {
+    mbar_arrive(empty + 8 * stage);
+    if (++stage == kDqStages) {
+      stage = 0;
+      phase ^= 1;
+    }
+  };
+  auto mask = [&](float (&c)[32], int chunk) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int key = chunk * kRows + 8 * j + 2 * tq;
+      if (key >= T) c[4 * j] = c[4 * j + 2] = kMaskValue;
+      if (key + 1 >= T) c[4 * j + 1] = c[4 * j + 3] = kMaskValue;
+    }
+  };
+
+  // Pass 1: the exact row max.
+  float m0 = -FLT_MAX, m1 = -FLT_MAX;
+  for (int c = 0; c < nchunks; ++c) {
+    float s[32], dp[32];
+    products(s, dp, false);
+    release();
+    mask(s, c);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      m0 = fmaxf(m0, fmaxf(s[4 * j], s[4 * j + 1]));
+      m1 = fmaxf(m1, fmaxf(s[4 * j + 2], s[4 * j + 3]));
+    }
+  }
+  quad_max(m0);
+  quad_max(m1);
+  // Pass 2: rowsum(e) and rowsum(e * dp).
+  float l0 = 0.f, l1 = 0.f, el0 = 0.f, el1 = 0.f;
+  for (int c = 0; c < nchunks; ++c) {
+    float s[32], dp[32];
+    products(s, dp, true);
+    release();
+    mask(s, c);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[4 * j + e] = expf(s[4 * j + e] - (e < 2 ? m0 : m1));
+        dp[4 * j + e] *= s[4 * j + e];
+      }
+    float r0, r1, q0, q1;
+    row_sums(s, r0, r1);
+    row_sums(dp, q0, q1);
+    l0 += r0;
+    l1 += r1;
+    el0 += q0;
+    el1 += q1;
+  }
+  quad_sum(l0);
+  quad_sum(l1);
+  quad_sum(el0);
+  quad_sum(el1);
+  const float inv0 = 1.f / l0, inv1 = 1.f / l1;
+  const float dl0 = inv0 * el0, dl1 = inv1 * el1;
+  // Pass 3: ds, rounded to bf16 as the A operand of dq += ds . K.
+  float dq[kB][32];
+  for (int c = 0; c < nchunks; ++c) {
+    float s[32], dp[32];
+    products(s, dp, true);
+    mask(s, c);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = expf(s[4 * j + e] - (e < 2 ? m0 : m1)) * (e < 2 ? inv0 : inv1);
+        s[4 * j + e] = (p * (dp[4 * j + e] - (e < 2 ? dl0 : dl1))) * ds_scale;
+      }
+    uint32_t dsa[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) to_a(dsa[kk], s, kk);
+    const uint32_t k = ring + stage * 2 * kTile;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int j = 0; j < kB; ++j) wgmma_rs<1>(dq[j], dsa[kk], desc_mn(k, j, kk), c + kk > 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+#pragma unroll
+    for (int j = 0; j < kB; ++j) fence_acc(dq[j]);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) fence_frag(dsa[kk]);
+    release();
+  }
+  store_rows<kB, TOut>(dqkv + static_cast<size_t>(b) * T * 3 * D, 3 * D, h * hd, dq, 1.f, 1.f,
+                       r0, T, hd, g, tq);
+  if (tq == 0) {  // one lane a row
+    float4* st = stats + static_cast<size_t>(b * num_heads + h) * nchunks * kRows;
+    if (r0 + g < T) st[r0 + g] = make_float4(m0, inv0, dl0, 0.f);
+    if (r0 + g + 8 < T) st[r0 + g + 8] = make_float4(m1, inv1, dl1, 0.f);
+  }
+}
+
+template <int HDP, typename TOut>
+__global__ void __launch_bounds__(kThreads, 1)
+attention_bwd_dkv_kernel(const __grid_constant__ CUtensorMap map_qkv,
+                         const __grid_constant__ CUtensorMap map_do,
+                         const float4* __restrict__ stats, TOut* __restrict__ dqkv, int T,
+                         int num_heads, int hd, float q_scale, float ds_scale) {
+  constexpr int kB = boxes<HDP>(), kTile = tile_bytes<HDP>(), kSteps = HDP / 16;
+  constexpr int kStages = dkv_stages<HDP>(), kStage = 2 * kTile + kStatsBytes;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = aligned_smem(smem_raw);
+  const uint32_t base = smem_u32(smem);
+  // Consumer w's K tile at kv + 2w tiles, its V tile after it; its qs tile
+  // at qs + w tiles; ring stage i: q, dO, stats.
+  const uint32_t kv = base, qs = kv + 2 * kConsumers * kTile, ring = qs + kConsumers * kTile;
+  const uint32_t kv_full = ring + kStages * kStage, full = kv_full + 8,
+                 empty = full + kStages * 8;
+  const int b = blockIdx.z, h = blockIdx.y;
+  const int nchunks = (T + kRows - 1) / kRows;
+  const int active = min(kConsumers, (T - blockIdx.x * kConsumers * kRows + kRows - 1) / kRows);
+
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 128 * active);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(kv_full, active * 2 * kTile);
+      for (int w = 0; w < active; ++w) {
+        const int k0 = (blockIdx.x * kConsumers + w) * kRows;
+#pragma unroll
+        for (int j = 0; j < kB; ++j) {
+          tma_load_4d(kv + 2 * w * kTile + j * kBox, &map_qkv, 64 * j, num_heads + h, k0, b,
+                      kv_full);
+          tma_load_4d(kv + (2 * w + 1) * kTile + j * kBox, &map_qkv, 64 * j,
+                      2 * num_heads + h, k0, b, kv_full);
+        }
+      }
+      const float4* st = stats + static_cast<size_t>(b * num_heads + h) * nchunks * kRows;
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int c = 0; c < nchunks; ++c) {
+        mbar_wait(empty + 8 * stage, phase ^ 1);  // the first round passes
+        const uint32_t bar = full + 8 * stage, q = ring + stage * kStage;
+        mbar_expect_tx(bar, kStage);
+#pragma unroll
+        for (int j = 0; j < kB; ++j) {
+          tma_load_4d(q + j * kBox, &map_qkv, 64 * j, h, c * kRows, b, bar);
+          tma_load_4d(q + kTile + j * kBox, &map_do, 64 * j, h, c * kRows, b, bar);
+        }
+        bulk_load(q + 2 * kTile, st + c * kRows, kStatsBytes, bar);
+        if (++stage == kStages) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+    }
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+  const int wg = threadIdx.x / 128 - 1;
+  if (wg >= active) return;  // no barrier of the block waits for it
+  const int t = threadIdx.x % 128, lane = t % 32, g = lane / 4, tq = lane % 4;
+  const int r0 = (blockIdx.x * kConsumers + wg) * kRows + 16 * (t / 32);  // the warp's keys
+  const uint32_t kt = kv + 2 * wg * kTile, vt = kt + kTile, qst = qs + wg * kTile;
+  uint4* qs_tile = reinterpret_cast<uint4*>(smem + (qst - base));
+
+  mbar_wait(kv_full, 0);
+  float dk[kB][32], dv[kB][32];
+  int stage = 0;
+  uint32_t phase = 0;
+  for (int c = 0; c < nchunks; ++c) {
+    mbar_wait(full + 8 * stage, phase);
+    const uint32_t qt = ring + stage * kStage, dt = qt + kTile;
+    const unsigned char* stage_ptr = smem + (qt - base);
+    // qs = bf16(q * q_scale), element for element, once every warp's
+    // products of the last step have read the tile.
+    warpgroup_sync(wg);
+    for (int i = t; i < kTile / 16; i += 128) {
+      uint4 v = reinterpret_cast<const uint4*>(stage_ptr)[i];
+      v.x = tiles::scale2(v.x, q_scale);
+      v.y = tiles::scale2(v.y, q_scale);
+      v.z = tiles::scale2(v.z, q_scale);
+      v.w = tiles::scale2(v.w, q_scale);
+      qs_tile[i] = v;
+    }
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    warpgroup_sync(wg);
+    float s[32], dp[32];  // S^T and dP^T: rows are keys, columns queries
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kSteps; ++kk) wgmma_ss(s, desc_k(kt, kk), desc_k(qst, kk), kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < kSteps; ++kk) wgmma_ss(dp, desc_k(vt, kk), desc_k(dt, kk), kk > 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_acc(s);
+    fence_acc(dp);
+    // p^T into s, ds^T into dp; queries past T contribute nothing.
+    const float4* st = reinterpret_cast<const float4*>(stage_ptr + 2 * kTile);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int q = 8 * j + 2 * tq + (e & 1);
+        const float4 r = st[q];
+        const bool ok = c * kRows + q < T;
+        const float p = expf(s[4 * j + e] - r.x) * r.y;
+        s[4 * j + e] = ok ? p : 0.f;
+        dp[4 * j + e] = ok ? (p * (dp[4 * j + e] - r.z)) * ds_scale : 0.f;
+      }
+    uint32_t pa[4][4], dsa[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      to_a(pa[kk], s, kk);
+      to_a(dsa[kk], dp, kk);
+    }
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int j = 0; j < kB; ++j) {
+        wgmma_rs<1>(dv[j], pa[kk], desc_mn(dt, j, kk), c + kk > 0);
+        wgmma_rs<1>(dk[j], dsa[kk], desc_mn(qt, j, kk), c + kk > 0);
+      }
+    wgmma_commit();
+    wgmma_wait<0>();
+#pragma unroll
+    for (int j = 0; j < kB; ++j) {
+      fence_acc(dk[j]);
+      fence_acc(dv[j]);
+    }
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      fence_frag(pa[kk]);
+      fence_frag(dsa[kk]);
+    }
+    mbar_arrive(empty + 8 * stage);
+    if (++stage == kStages) {
+      stage = 0;
+      phase ^= 1;
+    }
+  }
+  const int D = num_heads * hd;
+  TOut* out = dqkv + static_cast<size_t>(b) * T * 3 * D;
+  store_rows<kB, TOut>(out, 3 * D, D + h * hd, dk, 1.f, 1.f, r0, T, hd, g, tq);
+  store_rows<kB, TOut>(out, 3 * D, 2 * D + h * hd, dv, 1.f, 1.f, r0, T, hd, g, tq);
 }
 
 template <int HDP, typename TOut>
 cudaError_t launch(const void* qkv, const void* dout, void* dqkv, float* stats, int B,
                    int T, int num_heads, int hd, float q_scale, float ds_scale,
                    cudaStream_t stream) {
-  constexpr size_t s_dq = kStages * dq_stage_bytes<HDP>();
-  constexpr size_t s_dkv = kStages * dkv_stage_bytes<HDP>();
+  EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorSymbolNotFound;
+  CUtensorMap map_qkv, map_do;
+  if (!encode_head_map(&map_qkv, encode, qkv, hd, 3 * num_heads, T, B) ||
+      !encode_head_map(&map_do, encode, dout, hd, num_heads, T, B))
+    return cudaErrorInvalidValue;
+  constexpr int s_dq = dq_smem_bytes<HDP>(), s_dkv = dkv_smem_bytes<HDP>();
   cudaError_t err = allow_dynamic_smem(attention_bwd_dq_kernel<HDP, TOut>, s_dq);
   if (err != cudaSuccess) return err;
   err = allow_dynamic_smem(attention_bwd_dkv_kernel<HDP, TOut>, s_dkv);
   if (err != cudaSuccess) return err;
-  const dim3 grid((T + kRows - 1) / kRows, num_heads, B);
+  const dim3 grid((T + kConsumers * kRows - 1) / (kConsumers * kRows), num_heads, B);
+  float4* st = reinterpret_cast<float4*>(stats);
   attention_bwd_dq_kernel<HDP, TOut><<<grid, kThreads, s_dq, stream>>>(
-      static_cast<const bf16*>(qkv), static_cast<const bf16*>(dout),
-      static_cast<TOut*>(dqkv), stats, T, num_heads, hd, q_scale, ds_scale);
+      map_qkv, static_cast<const bf16*>(qkv), static_cast<const bf16*>(dout),
+      static_cast<TOut*>(dqkv), st, T, num_heads, hd, q_scale, ds_scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   attention_bwd_dkv_kernel<HDP, TOut><<<grid, kThreads, s_dkv, stream>>>(
-      static_cast<const bf16*>(qkv), static_cast<const bf16*>(dout), stats,
-      static_cast<TOut*>(dqkv), T, num_heads, hd, q_scale, ds_scale);
+      map_qkv, map_do, st, static_cast<TOut*>(dqkv), T, num_heads, hd, q_scale, ds_scale);
   return cudaGetLastError();
 }
 
@@ -352,13 +452,14 @@ cudaError_t dispatch(const void* qkv, const void* dout, void* dqkv, float* stats
   }
 }
 
-}  // namespace attn_bwd
+}  // namespace attn90
 }  // namespace vit
 
 // qkv [B, T, 3D] and dout [B, T, D] bf16; dqkv [B, T, 3D] in fp32 (0) or
-// bf16 (1); stats: fp32 scratch of B * num_heads * T * 3. head_dim must be a
-// multiple of 8 up to 128 (ops/attention.py checks it before calling); any
-// T.
+// bf16 (1); stats: fp32 scratch of B * num_heads * ceil(T / 64) * 64 * 4,
+// 16-byte aligned (each row's (m, inv, delta), padded to 16 bytes, in whole
+// 64-row blocks). head_dim must be a multiple of 8 up to 128
+// (ops/attention.py checks it before calling); any T.
 VIT_EXPORT int vit_packed_attention_bwd(const void* qkv, const void* dout, void* dqkv,
                                         int dqkv_dtype, float* stats, int B, int T,
                                         int num_heads, int head_dim, float q_scale,
@@ -368,10 +469,10 @@ VIT_EXPORT int vit_packed_attention_bwd(const void* qkv, const void* dout, void*
   if (B <= 0 || T <= 0 || num_heads <= 0 || head_dim % 8 != 0 || head_dim > 128)
     return cudaErrorInvalidValue;
   if (dqkv_dtype == kBF16)
-    return attn_bwd::dispatch<bf16>(qkv, dout, dqkv, stats, B, T, num_heads, head_dim,
-                                    q_scale, ds_scale, s);
+    return attn90::dispatch<bf16>(qkv, dout, dqkv, stats, B, T, num_heads, head_dim,
+                                  q_scale, ds_scale, s);
   if (dqkv_dtype == kF32)
-    return attn_bwd::dispatch<float>(qkv, dout, dqkv, stats, B, T, num_heads, head_dim,
-                                     q_scale, ds_scale, s);
+    return attn90::dispatch<float>(qkv, dout, dqkv, stats, B, T, num_heads, head_dim,
+                                   q_scale, ds_scale, s);
   return cudaErrorInvalidValue;
 }

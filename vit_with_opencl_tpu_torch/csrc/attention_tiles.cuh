@@ -1,5 +1,7 @@
 // Tile helpers of the attention kernels that stream their K/V or q/dO
-// tiles (attention_bwd.cu, attention_flash.cu, attention_single.cu):
+// tiles (attention_flash.cu, attention_single.cu, attention_ring.cu; the
+// Hopper kernels of attention_sm90.cuh take load_a, store2 and the quad
+// reductions):
 // mma.sync m16n8k16 (bf16 in, fp32 out) on fragments in registers, cp.async
 // copies of row-major tiles into a shared-memory ring (rows padded to
 // HDP + 8 against bank conflicts), ldmatrix.trans reads of a tile as the B

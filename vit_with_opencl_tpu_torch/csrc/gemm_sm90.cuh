@@ -46,11 +46,8 @@
 // sums in a fixed order: no atomics, the same bits from run to run.
 #pragma once
 
-#include <cuda.h>  // CUtensorMap and the encode's enums (types only: no -lcuda)
-
-#include <mutex>
-
 #include "epilogue.cuh"
+#include "sm90.cuh"
 
 namespace vit {
 namespace sm90 {
@@ -85,85 +82,6 @@ struct GemmArgs {
   int store_out;    // whole tiles' epilogue: the bias at most, TMA stores
   Epilogue ep;
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count));
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-
-// Spin until the barrier's phase of the given parity has completed.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// A 2-D TMA load of one box at (c0 inner, c1 outer), completing on `bar`.
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         int c0, int c1, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar)
-      : "memory");
-}
-
-// A wgmma shared-memory descriptor, 128-byte swizzle: start address, leading
-// and stride byte offsets, all in 16-byte units. K-major: the stride byte
-// offset is the 1024 bytes between 8-row groups (the leading one unused).
-// MN-major: the leading offset is the 8 KiB between the two 64-wide boxes,
-// the stride offset the 1024 bytes between groups of 8 K rows.
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo,
-                                              uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         static_cast<uint64_t>(lbo >> 4) << 16 |
-         static_cast<uint64_t>(sbo >> 4) << 32 | 1ull << 62;
-}
-
-// The 128 threads of one consumer warpgroup (named barriers 1 and 2).
-__device__ __forceinline__ void warpgroup_sync(int wg) {
-  asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// Keep the compiler from moving accumulator reads or writes across the
-// asynchronous products.
-__device__ __forceinline__ void fence_acc(float (&d)[64]) {
-#pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
 
 // d[64 x 128] += A[64 x 16] . B[16 x 128], both from shared memory; kTA /
 // kTB: the operand is MN-major (transposed against wgmma's K-major default).
@@ -500,108 +418,8 @@ gemm_sm90_kernel(const __grid_constant__ CUtensorMap map_a,
 }
 
 // ---------------------------------------------------------------------------
-// Host side: the tensor maps and the launch.
+// Host side: the launch.
 // ---------------------------------------------------------------------------
-
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                  void*, const cuuint64_t*, const cuuint64_t*,
-                                  const cuuint32_t*, const cuuint32_t*,
-                                  CUtensorMapInterleave, CUtensorMapSwizzle,
-                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled through the runtime's driver entry point, so the
-// library links no libcuda; null if the driver has none.
-inline EncodeTiledFn encode_tiled() {
-  static EncodeTiledFn fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p,
-                                                       12000, cudaEnableDefault, &q);
-#else
-    cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
-#endif
-    if (err == cudaSuccess && q == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiledFn>(p);
-  }
-  return fn;
-}
-
-// A row-major bf16 or fp32 [outer, inner] matrix (inner contiguous, 16-byte
-// rows) as boxes of [box_outer, 128 bytes], 128-byte swizzled; loads
-// zero-fill past its edges and stores clip there.
-inline bool encode_map_uncached(CUtensorMap* map, EncodeTiledFn encode, const void* base,
-                                bool fp32, long long inner, long long outer,
-                                int box_outer) {
-  const int esize = fp32 ? 4 : 2;
-  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(inner),
-                              static_cast<cuuint64_t>(outer)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(inner) * esize};
-  const cuuint32_t box[2] = {static_cast<cuuint32_t>(128 / esize),
-                             static_cast<cuuint32_t>(box_outer)};
-  const cuuint32_t elem[2] = {1, 1};
-  return encode(map, fp32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
-                2, const_cast<void*>(base), dims, strides, box, elem,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
-// The same, through a cache of recent maps: a map is a pure function of
-// its base, shape, box and type, and the launches of a forward recur with
-// the same weights and (from PyTorch's caching allocator) the same
-// activation buffers. Encoding is host work on every launch, which the
-// host-bound small configs feel (the ViT-Ti stack at B = 16: 84 launches).
-struct MapKey {
-  const void* base;
-  long long inner, outer;
-  int box_outer;
-  bool fp32;
-  bool operator==(const MapKey& o) const {
-    return base == o.base && inner == o.inner && outer == o.outer &&
-           box_outer == o.box_outer && fp32 == o.fp32;
-  }
-};
-inline bool encode_map(CUtensorMap* map, EncodeTiledFn encode, const void* base,
-                       bool fp32, long long inner, long long outer, int box_outer) {
-  constexpr int kSets = 256, kWays = 4;  // a set-associative cache of 1024 maps
-  struct Slot {
-    MapKey key;
-    CUtensorMap map;
-    bool used;
-  };
-  static Slot slots[kSets][kWays];
-  static int next_way[kSets];
-  static std::mutex lock;
-  const MapKey key{base, inner, outer, box_outer, fp32};
-  // A 64-bit mix of the key's fields (splitmix64's finaliser).
-  uint64_t h = reinterpret_cast<uintptr_t>(base) ^ static_cast<uint64_t>(inner) << 20 ^
-               static_cast<uint64_t>(outer) << 40 ^ static_cast<uint64_t>(box_outer) << 4 ^
-               (fp32 ? 1 : 0);
-  h = (h ^ (h >> 30)) * 0xbf58476d1ce4e5b9ull;
-  h = (h ^ (h >> 27)) * 0x94d049bb133111ebull;
-  h ^= h >> 31;
-  const int set = static_cast<int>(h % kSets);
-  {
-    std::lock_guard<std::mutex> guard(lock);
-    for (const Slot& slot : slots[set]) {
-      if (slot.used && slot.key == key) {
-        *map = slot.map;
-        return true;
-      }
-    }
-  }
-  if (!encode_map_uncached(map, encode, base, fp32, inner, outer, box_outer)) return false;
-  std::lock_guard<std::mutex> guard(lock);
-  Slot& slot = slots[set][next_way[set]];
-  next_way[set] = (next_way[set] + 1) % kWays;
-  slot.key = key;
-  slot.map = *map;
-  slot.used = true;
-  return true;
-}
 
 // The calling thread's device: its SM count, and whether this form's kernel
 // may take kSmemBytes yet (both asked once per device).
@@ -615,9 +433,7 @@ inline DeviceInfo* device_info() {
   int dev = 0;
   if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= kMaxDevices) return nullptr;
   DeviceInfo* d = &info[dev];
-  if (d->sms == 0 &&
-      cudaDeviceGetAttribute(&d->sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
-    return nullptr;
+  if (d->sms == 0 && (d->sms = sm_count()) == 0) return nullptr;
   return d;
 }
 

@@ -32,7 +32,13 @@ BUILD_DIR = PACKAGE_DIR / "_build"
 DEFAULT_CUDA_HOME = "/usr/local/cuda"
 
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
-NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
+# Hidden by default: only the VIT_EXPORT entry points leave the library. Two
+# builds loaded in one process (before_after.py's library swap) then keep
+# their own host state; with default visibility the static locals of the
+# headers' inline functions (the tensor-map cache, the GEMM's per-device
+# flags) are process-wide unique symbols that the two would share.
+NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+                           "-Xcompiler", "-fvisibility=hidden"]
 
 # dtype codes of csrc/common.cuh (vit::DType).
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}

@@ -27,10 +27,12 @@ whose kernel replaces ``_single_pass_kernel`` (the one-shot softmax of
 longer T to the blockwise kernel through its strided entry. Its plain
 version is ``flash_attention_reference``. Both kernels read q, k and v as
 strided views (a contiguous last axis, 16-byte rows), so the permuted views
-of a [B, T, 3D] GEMM output go in without a copy. The packed kernel holds a
-head's K and V in one block's shared memory, which stops fitting at T = 849
-(hd 64); from there to padded T = 1024, where JAX keeps the one-shot route,
-``packed_fused_attention`` launches the single-pass kernel on the slabs.
+of a [B, T, 3D] GEMM output go in without a copy. The packed kernel's
+route ends where its first form's whole-head K and V stopped fitting one
+block's shared memory, T = 849 at hd 64 (``kernel_smem_bytes``; the Hopper
+kernel streams K/V tiles and keeps that route); from there to padded T =
+1024, where JAX keeps the one-shot route, ``packed_fused_attention``
+launches the single-pass kernel on the slabs.
 
 ``packing="per_head"`` (head h's q, k and v at columns h·3·hd + {0, 1,
 2}·hd: the tensor-parallel layout) and ``true_seq_len`` (keys at and past
@@ -170,10 +172,44 @@ def packed_fused_attention_reference(qkv: torch.Tensor, num_heads: int,
 
 
 def kernel_smem_bytes(seq_len: int, head_dim: int) -> int:
-    """Shared memory of one block of the kernel: K and Vᵀ of one head."""
+    """The route's bound on T: ``packed_fused_attention`` launches the packed
+    kernel where this is at most MAX_SMEM_BYTES (hd 64: T ≤ 848) and the
+    single-pass kernel from there to padded T = 1024. It is the shared
+    memory of the first form of the kernel (one head's K and Vᵀ whole in a
+    block), kept as the boundary so that the routes do not move; the
+    Hopper kernel streams its K/V tiles and takes ``packed_kernel_smem_bytes``
+    at any T."""
     tp = -(-seq_len // 16) * 16
     hdp = -(-head_dim // 16) * 16
     return (tp * (hdp + 8) + hdp * (tp + 8)) * 2
+
+
+# The Hopper attention kernels' geometry (csrc/attention_sm90.cuh): blocks
+# of one producer and two consumer warpgroups, each consumer owning 64 rows
+# (queries, or keys in the dK/dV kernel); tiles of 64 rows by 64 columns, two
+# of them side by side past hd 64, in 1024-byte-aligned shared memory.
+KERNEL_ROWS = 64
+KERNEL_CONSUMERS = 2
+_TILE_BOX_BYTES = KERNEL_ROWS * 64 * 2
+_ALIGN_BYTES = 1024
+
+
+def _tile_bytes(head_dim: int) -> int:
+    return _TILE_BOX_BYTES * (2 if head_dim > 64 else 1)
+
+
+def packed_kernel_smem_bytes(head_dim: int) -> int:
+    """Shared memory of one block of the packed forward (csrc/attention.cu
+    ``fwd_smem_bytes``): a ring of K/V tile pairs (8 up to hd 64, 4 past
+    it) and its barriers, at any T."""
+    slots = 8 if head_dim <= 64 else 4
+    return _ALIGN_BYTES + slots * 2 * _tile_bytes(head_dim) + 2 * slots * 8
+
+
+def _stats_rows(seq_len: int) -> int:
+    """Rows of each (image, head)'s block of the backward's statistics: T in
+    whole 64-row tiles, which the dK/dV kernel copies whole."""
+    return -(-seq_len // KERNEL_ROWS) * KERNEL_ROWS
 
 
 def packed_fused_attention(
@@ -225,9 +261,9 @@ def packed_fused_attention(
     if b == 0 or t == 0:
         return out
     if kernel_smem_bytes(t, hd) > MAX_SMEM_BYTES:
-        # K and V of one head exceed one block's shared memory, and JAX keeps
+        # Past the packed kernel's route (kernel_smem_bytes), and JAX keeps
         # the one-shot route up to padded T = 1024: the same function through
-        # the single-pass kernel, which streams K and V, on the slabs.
+        # the single-pass kernel on the slabs.
         q, k, v = _split_heads(qkv, 3, nh, hd)
         single_pass_attention(q, k, v, hd,
                               out=out.view(b, t, nh, hd).permute(0, 2, 1, 3))
@@ -684,11 +720,17 @@ def packed_attention_bwd_reference(qkv: torch.Tensor, do: torch.Tensor,
 
 def kernel_bwd_smem_bytes(head_dim: int) -> int:
     """Shared memory of one block of the larger of the backward's two
-    kernels (the dK/dV one): a ring of two stages, each a 64-query tile of q
-    and of dO (head dim padded to 16, rows to pitch + 8) and the tile's rows'
-    statistics. It does not depend on T: the kernels stream their tiles."""
-    hdp = -(-head_dim // 16) * 16
-    return 2 * (2 * 64 * (hdp + 8) * 2 + 64 * 3 * 4)
+    kernels (csrc/attention_bwd.cu ``dq_smem_bytes``, ``dkv_smem_bytes``):
+    the dq kernel's ring of 4 K/V tile pairs; the dK/dV kernel's K, V and
+    scaled-q tiles of its two consumers and a ring of q and dO tiles with
+    their rows' statistics (4 stages, 3 past hd 64). It does not depend on
+    T: the kernels stream their tiles."""
+    tile = _tile_bytes(head_dim)
+    stages = 4 if head_dim <= 64 else 3
+    dq = _ALIGN_BYTES + 4 * 2 * tile + 2 * 4 * 8
+    dkv = (_ALIGN_BYTES + 3 * KERNEL_CONSUMERS * tile
+           + stages * (2 * tile + KERNEL_ROWS * 16) + (1 + 2 * stages) * 8)
+    return max(dq, dkv)
 
 
 def packed_attention_bwd(qkv: torch.Tensor, do: torch.Tensor, num_heads: int,
@@ -722,7 +764,7 @@ def packed_attention_bwd(qkv: torch.Tensor, do: torch.Tensor, num_heads: int,
     out = torch.empty((b, t, 3 * d), dtype=out_dtype, device=qkv.device)
     if b == 0 or t == 0:
         return out
-    stats = torch.empty((b, num_heads, t, 3), dtype=torch.float32,
+    stats = torch.empty((b, num_heads, _stats_rows(t), 4), dtype=torch.float32,
                         device=qkv.device)
     q_scale = _single_pass_scale(head_dim, torch.bfloat16)
     ds_scale = float(np.float32(1.0 / np.sqrt(head_dim)))
