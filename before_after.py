@@ -19,12 +19,20 @@ of its two runs. The figures (ms):
 * row 4 (``packed_fused_attention``) at ViT-B/16's shape, B = 16 and 256,
   and row 11 (``packed_attention_bwd``) at ViT-B/16's, B = 64, bf16 dqkv,
   and ViT-L/16@384's, B = 32, bf16 and fp32 dqkv (the ``fused`` route's);
+* row 8 (``single_pass_attention``) at ViT-B/16's heads, B = 16 and 256,
+  as split heads and as the permuted views of a qkv GEMM output, at
+  ViT-L/16@384's T = 577 (B = 8) and at the route's last T, 1024 (B = 4);
+* row 9 (``blockwise_attention_fwd``) at chip_smoke.py's FLASH_ROWS
+  shapes (ViT-L/16@512's T = 1025 at B = 4 and 16, ViT-H/14@518's 1370,
+  the odd tail 1337, hd 128 at 1153), and with the LSE at T = 1025, B = 16;
 * row 14a's forms (``linear_wgrad``, ``linear_dgrad``,
   ``fused_linear_with_gelu``) at ViT-B/16's B = 16 and 64 and at
   ViT-L/16@384's widths at B = 8;
 * the ViT-B/16 bf16 forward at B = 64 and 256; W8A8, int8 weights and
   calibrated W8A8 at 256; the ViT-Ti and ViT-S stacks at 16 and 256;
-* the ViT-B/16 ``fused`` AdamW step at B = 64 and ViT-L/16@384's at 32.
+* the ViT-B/16 ``fused`` AdamW step at B = 64 and ViT-L/16@384's at 32;
+* ViT-L/16@512 (T = 1025, row 9's route) at B = 16: the bf16 ``flash``
+  forward and the ``fused`` AdamW step.
 
 Then the host-bound figures (the ViT-Ti and ViT-S stacks at B = 16, 84
 launches a forward) two ways, N times each (default 10):
@@ -44,13 +52,15 @@ launches a forward) two ways, N times each (default 10):
 
 Gates (slower only, so a later tree that is faster passes): W8A8, int8
 weights and calibrated W8A8 at B = 256 at most 3% slower than the parent's;
-the median of the library swaps' ViT-Ti stack ratios at B = 16 at most 5%
-slower. Exits 1 if a gate fails, 2 without ``--parent``. The last line is
+row 4 at ViT-B/16 B = 256 and the ViT-B/16 bf16 forward at B = 256 at most
+3% slower (row 4 shares its kernel body with row 8); the median of the
+library swaps' ViT-Ti stack ratios at B = 16 at most 5% slower. Exits 1 if a gate fails, 2 without ``--parent``. The last line is
 one JSON object with every run's figures, the pairs and the gates.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -73,6 +83,20 @@ GRAD_SHAPES = (("ViT-B/16", 768, 3072, 197, 16), ("ViT-B/16", 768, 3072, 197, 64
 ATTN_SHAPES = (("ViT-B/16", 12, 64, 197, 16, ()), ("ViT-B/16", 12, 64, 197, 256, ()),
                ("ViT-B/16", 12, 64, 197, 64, (torch.bfloat16,)),
                ("ViT-L/16@384", 16, 64, 577, 32, (torch.bfloat16, torch.float32)))
+# (name, heads, head dim, tokens, batch, as the permuted views of a packed
+# GEMM output) of row 8's figures.
+SINGLE_SHAPES = (("ViT-B/16", 12, 64, 197, 16, False), ("ViT-B/16", 12, 64, 197, 16, True),
+                 ("ViT-B/16", 12, 64, 197, 256, False),
+                 ("ViT-B/16", 12, 64, 197, 256, True),
+                 ("ViT-L/16@384", 16, 64, 577, 8, False),
+                 ("the route's last T", 16, 64, 1024, 4, False))
+# (name, tokens, heads, head dim, batch, with the LSE) of row 9's figures.
+FLASH_SHAPES = (("ViT-L/16@512", 1025, 16, 64, 4, False),
+                ("ViT-L/16@512", 1025, 16, 64, 16, False),
+                ("ViT-L/16@512", 1025, 16, 64, 16, True),
+                ("ViT-H/14@518", 1370, 16, 80, 4, False),
+                ("odd tail", 1337, 16, 64, 4, False), ("hd 128", 1153, 8, 128, 2, False))
+LONG_BATCH = 16  # ViT-L/16@512's forward and step
 N_CALIB = 16
 TRAIN_LR = 1e-3
 TRAIN_BATCH = 64  # ViT-B/16
@@ -161,6 +185,52 @@ def attention_figures(pkg, dev) -> dict:
     return out
 
 
+def long_attention_figures(pkg, dev) -> dict:
+    """Rows 8 and 9 at SINGLE_SHAPES and FLASH_SHAPES on seeded unit-scale
+    inputs (chip_smoke.py phases 2h and 2g)."""
+    attention, bf = pkg["attention"], torch.bfloat16
+    out = {}
+    for name, nh, hd, t, batch, as_view in SINGLE_SHAPES:
+        gen = torch.Generator(device=dev).manual_seed(t + batch)
+        if as_view:
+            qkv = torch.randn((batch, t, 3 * nh * hd), generator=gen, device=dev).to(bf)
+            q, k, v = qkv.reshape(batch, t, 3, nh, hd).permute(2, 0, 3, 1, 4)
+        else:
+            q, k, v = (torch.randn((batch, nh, t, hd), generator=gen, device=dev).to(bf)
+                       for _ in range(3))
+        tag = f"{name} B={batch} T={t}" + (" (views)" if as_view else "")
+        out[f"row 8 single-pass attention {tag}"] = time_ms(
+            lambda: attention.single_pass_attention(q, k, v, hd))
+    for name, t, nh, hd, batch, lse in FLASH_SHAPES:
+        gen = torch.Generator(device=dev).manual_seed(t + batch)
+        qkv = torch.randn((batch, t, 3 * nh * hd), generator=gen, device=dev).to(bf)
+        tag = f"{name} B={batch} T={t} hd={hd}" + (" with LSE" if lse else "")
+        out[f"row 9 blockwise forward {tag}"] = time_ms(
+            lambda: attention.blockwise_attention_fwd(qkv, nh, hd, return_lse=lse))
+    return out
+
+
+def long_config(pkg):
+    """ViT-L/16@512: ViT-L/16@384's geometry at 512 (chip_smoke.LONG_CFG)."""
+    return dataclasses.replace(pkg["VIT_L_16_384"], name="vit_l_16_512", img_size=512)
+
+
+def long_forward_figures(pkg, dev) -> dict:
+    """The ViT-L/16@512 bf16 ``flash`` forward at B = 16 (ms a forward)."""
+    cfg = long_config(pkg)
+    engine = pkg["InferenceEngine"](cfg, pkg["fixtures"].random_params(cfg, seed=0),
+                                    batch_size=LONG_BATCH, attention_impl="flash",
+                                    device=dev)
+    gen = torch.Generator(device=dev).manual_seed(LONG_BATCH)
+    images = torch.randn((LONG_BATCH, 3, cfg.img_size, cfg.img_size), generator=gen,
+                         device=dev)
+    out = {f"forward {cfg.name} bf16 B={LONG_BATCH}": time_ms(
+        lambda: engine.forward(images), reps=5)}
+    del engine
+    torch.cuda.empty_cache()
+    return out
+
+
 def stack_figures(pkg, dev, batches, windows: int = WINDOWS) -> dict:
     """The ViT-Ti and ViT-S bf16 stacks (one stack call a forward) at
     ``batches``, each figure the best of ``windows`` timings."""
@@ -203,12 +273,13 @@ def forward_figures(pkg, dev) -> dict:
 
 
 def training_figures(pkg, dev) -> dict:
-    """The ViT-B/16 fused AdamW step at B = 64 and ViT-L/16@384's at 32
-    (ms a step)."""
+    """The fused AdamW step of ViT-B/16 at B = 64, ViT-L/16@384 at 32 and
+    ViT-L/16@512 at 16 (ms a step)."""
     out = {}
     torch.cuda.empty_cache()
     for cfg, batch in ((pkg["VIT_B_16_224"], TRAIN_BATCH),
-                       (pkg["VIT_L_16_384"], LARGE_TRAIN_BATCH)):
+                       (pkg["VIT_L_16_384"], LARGE_TRAIN_BATCH),
+                       (long_config(pkg), LONG_BATCH)):
         images = pkg["fixtures"].random_images(cfg, n=batch, seed=4)
         ti = torch.from_numpy(images).to(dev)
         tl = torch.full((batch,), 4 % cfg.num_classes, dtype=torch.int64, device=dev)
@@ -257,7 +328,9 @@ def figures_main(root: str, host_only: bool) -> int:
         else:
             out = gemm_figures(pkg, dev)
             out.update(attention_figures(pkg, dev))
+            out.update(long_attention_figures(pkg, dev))
             out.update(forward_figures(pkg, dev))
+            out.update(long_forward_figures(pkg, dev))
             out.update(stack_figures(pkg, dev, (SMOKE_BATCH, THROUGHPUT_BATCHES[-1])))
     if not host_only:
         out.update(training_figures(pkg, dev))
@@ -397,6 +470,13 @@ def main(argv: list[str]) -> int:
         print(f"{'ok  ' if gates[key] else 'FAIL'} {key}: this / parent {ratio:.4f} "
               f"(at most {STEADY_PATHS_TOL:.0%} slower; within {STEADY_PATHS_TOL:.0%} "
               f"either way: {abs(ratio - 1) <= STEADY_PATHS_TOL})", flush=True)
+    for key in (f"row 4 attention ViT-B/16 B={THROUGHPUT_BATCHES[-1]}",
+                f"forward vit_b_16_224 bf16 B={THROUGHPUT_BATCHES[-1]}"):
+        ratio = after[key] / before[key]
+        gates[key] = ratio <= 1 + STEADY_PATHS_TOL
+        print(f"{'ok  ' if gates[key] else 'FAIL'} {key}: this / parent {ratio:.4f} "
+              f"(at most {STEADY_PATHS_TOL:.0%} slower: row 4 shares its body with "
+              f"row 8)", flush=True)
     key = f"forward vit_tiny_16_224 bf16 stack B={SMOKE_BATCH}"
     if key in swap_ratios:
         median = statistics.median(swap_ratios[key])

@@ -125,10 +125,12 @@ line.
 2g. The blockwise attention kernels (the JAX package's route for padded T >
    1024) against their plain versions: the forward without and with the
    LSE and the backward (dq and dK/dV kernels) at ViT-L/16@512's T = 1025
-   (16 heads of 64; B = 4 and 16), ViT-H/14@518's T = 1370 (hd 80) and an
-   odd tail (T = 1337); yardsticks SDPA's forward and its backward alone;
-   and at ViT-L/16@512, B = 16, the streamed packed backward that the
-   ``fused`` route's attention stage takes there.
+   (16 heads of 64; B = 4 and 16), ViT-H/14@518's T = 1370 (hd 80), an
+   odd tail (T = 1337) and hd 128 (T = 1153, 8 heads, B = 2); yardsticks
+   SDPA's forward and its backward alone, each row's time printed as a
+   factor of SDPA's and of its bound; the forward with the LSE gives the
+   same bits over two runs; and at ViT-L/16@512, B = 16, the streamed
+   packed backward that the ``fused`` route's attention stage takes there.
 3e. The ViT-L/16@512 inference main path: ``InferenceEngine(vit_l_16_512,
    attention_impl="flash")`` in bf16 at batch 16, full depth and widths,
    on ``random_params`` seed 0 and 32 decisive images: 24 blockwise
@@ -149,10 +151,13 @@ line.
    256, fp32 at B = 16), T = 577 (B = 8) and 1024 (B = 4), and at T = 1025
    (the blockwise kernel on split heads, B = 4); ``packed_fused_attention``
    at T = 900 and 1024 (16 heads of 64, B = 4: the single-pass kernel on the
-   slabs, where the packed kernel's shared memory ends); and
-   ``residual_layer_norm`` at D = 768, M = 3152 and 50432, bf16 and fp32
-   (``summed`` bit-identical). Yardsticks: SDPA on the same tensors; ``x +
-   r`` then ``F.layer_norm`` (two calls).
+   slabs, where the packed kernel's shared memory ends) and with per-head
+   packing and ``true_seq_len`` 256 and 257 of T = 264 (ViT-B/16's heads, B
+   = 16: the one-pass limit); and ``residual_layer_norm`` at D = 768, M =
+   3152 and 50432, bf16 and fp32 (``summed`` bit-identical). Yardsticks:
+   SDPA on the same tensors (over the first ``true_seq_len`` keys); ``x +
+   r`` then ``F.layer_norm`` (two calls). The bf16 single-pass rows give
+   the same bits over two runs.
 2i. The ring step kernel (``blockwise_ring_step``, the local step of ring
    attention) against its plain version at the ring's shard shapes:
    ViT-L/16@512 on 4 shards (t_loc 257, the last shard's 3 padded keys
@@ -397,10 +402,12 @@ LONG_TRAIN_BATCH = 8  # phase 5c
 # T] fp32 scores.
 LONG_STEP_BATCH = 4
 # Phase 2g's rows: (config or its name, T, heads, head dim, batch). ViT-H/14
-# at 518 (its SWAG E2E resolution: 37^2 + 1 tokens) and JAX's own odd tail
-# (tests/test_kernels.py: SINGLE_PASS_MAX_T + 313) as kernel rows only.
+# at 518 (its SWAG E2E resolution: 37^2 + 1 tokens), JAX's own odd tail
+# (tests/test_kernels.py: SINGLE_PASS_MAX_T + 313) and the widest head dim
+# the kernels take, 128, one key past 9 whole key tiles, as kernel rows only.
 FLASH_ROWS = ((LONG_CFG.name, 1025, 16, 64, 4), (LONG_CFG.name, 1025, 16, 64, 16),
-              ("vit_h_14_518", 1370, 16, 80, 4), ("odd tail", 1337, 16, 64, 4))
+              ("vit_h_14_518", 1370, 16, 80, 4), ("odd tail", 1337, 16, 64, 4),
+              ("hd 128", 1153, 8, 128, 2))
 LSE_TOL = (1e-5, 0.0)  # fp32 on both sides: m + log(l) in another order
 # A forward of the per-layer chain at T = 1025: the blockwise forward is its
 # attention link, the packed kernel never runs.
@@ -432,6 +439,11 @@ PUBLIC_ATTN_ROWS = (
 # packed_fused_attention in its 849-1024 window (16 heads of 64, B = 4),
 # which raised on the card before the single-pass kernel took it.
 WINDOW_TS = (900, 1024)
+# packed_fused_attention with per-head packing (the TP layout) and
+# true_seq_len at the single-pass body's one-pass limit: 256 keys (one
+# pass) and 257 (two) of T = 264, ViT-B/16's heads, B = 16.
+PER_HEAD_KV_LENS = (256, 257)
+PER_HEAD_T = 264
 # residual_layer_norm at ViT-B/16's width, M = 197 x 16 and x 256 tokens.
 RESIDUAL_LN_ROWS = (3152, 50432)
 # fp32 outputs of the single-pass kernel (plain FMA, no TF32): the plain
@@ -641,7 +653,9 @@ SOURCES = {
     "attention_flash": _CSRC + "attention_flash.cu",
     "attention_flash_lse": _CSRC + "attention_flash.cu",
     "attention_flash_bwd": _CSRC + "attention_flash.cu",
-    "attention_single": _CSRC + "attention_single.cu",
+    # bf16: the packed kernel's body (single_pass_attention_kernel); the
+    # fp32 rows name csrc/attention_single.cu themselves.
+    "attention_single": _CSRC + "attention.cu",
     "attention_flash_split": _CSRC + "attention_flash.cu",
     "layernorm_residual": _CSRC + "layernorm.cu",
     "attention_ring": _CSRC + "attention_ring.cu",
@@ -1266,19 +1280,22 @@ def run_cases(cases: list[dict], batch: int, name_prefix: str = "") -> list[dict
             except RuntimeError as exc:  # e.g. _int_mm refusing a shape
                 print(f"  library call refused: {str(exc).splitlines()[0]}")
         row = dict(name=case["name"], counter=case["counter"],
-                   replaces=case.get("replaces"), max_abs_err=err,
+                   replaces=case.get("replaces"), source=case.get("source"),
+                   max_abs_err=err,
                    mean_abs_err=mean_err, tol=tols[0], within=within, same=same,
                    ms=time_ms(case["kernel"]),
                    plain_ms=time_ms(case["plain"], reps=PLAIN_REPS),
                    library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
         rows.append(row)
-        lib = "-" if library_ms is None else f"{library_ms:.4f}"
+        lib = ("-" if library_ms is None
+               else f"{library_ms:.4f} ms ({row['ms'] / library_ms:.2f}x the kernel's)")
         print(f"  B={batch} {row['name']}: max_abs_err {err:.3e} "
               f"(mean {mean_err:.3e}; |plain| up to {scale:.3g}; "
               f"tol rtol {row['tol'][0]} atol {row['tol'][1]}; "
               f"{same:.2%} bit-identical) "
-              f"{row['ms']:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
-              f"plain {row['plain_ms']:.4f} ms, library {lib} ms", flush=True)
+              f"{row['ms']:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}; "
+              f"{row['ms'] / bound_ms:.2f}x), plain {row['plain_ms']:.4f} ms, "
+              f"library {lib}", flush=True)
         if "kernel_ops" in case:
             print(f"  B={batch} {row['name']}: {case['ops']['bf16'] / row['ms'] / 1e9:.1f} "
                   f"TFLOP/s of the function's work, "
@@ -1626,7 +1643,12 @@ def flash_kernel_rows(dev) -> list[dict]:
             # streamed kernels, fp32 dqkv as its attention stage takes it).
             cases.append(attn_bwd_case(qkv, do, nh, hd, torch.float32))
         rows += run_cases(cases, batch, f"{name} B={batch} T={t} hd={hd} ")
-        del qkv, do, out, lse, q, k, v, cases
+        first, again = (attention.blockwise_attention_fwd(qkv, nh, hd, return_lse=True)
+                        for _ in range(2))
+        check(torch.equal(first[0], again[0]) and torch.equal(first[1], again[1]),
+              f"{name} B={batch} T={t} hd={hd} blockwise_attention_fwd with LSE: the "
+              f"same bits over two runs")
+        del qkv, do, out, lse, q, k, v, cases, first, again
         torch.cuda.empty_cache()
     return rows
 
@@ -1639,9 +1661,9 @@ def heads_cfg(nh: int, hd: int):
 
 def public_op_rows(dev) -> list[dict]:
     """Phase 2h: ``flash_attention`` at PUBLIC_ATTN_ROWS' shapes,
-    ``packed_fused_attention`` in its 849-1024 window and
-    ``residual_layer_norm`` at ViT-B/16's width, against their plain
-    versions. Yardsticks: SDPA on the same [B, H, T, hd] tensors; ``x + r``
+    ``packed_fused_attention`` with per-head packing at PER_HEAD_KV_LENS
+    and in its 849-1024 window, and ``residual_layer_norm`` at ViT-B/16's
+    width, against their plain versions. Yardsticks: SDPA on the same [B, H, T, hd] tensors; ``x + r``
     then ``F.layer_norm`` (two calls). Bounds: q, k, v read and the output
     written once, 4·T²·hd a head (the function's; the single-pass kernel
     does 6, recomputing the scores); the LN's inputs read and outputs
@@ -1668,6 +1690,7 @@ def public_op_rows(dev) -> list[dict]:
             name=f"flash_attention {name} B={batch} T={t} hd={hd} ({what}, "
                  f"{'bf16' if bf16 else 'fp32'})",
             counter="attention_flash_split" if long_route else "attention_single",
+            source=None if bf16 else _CSRC + "attention_single.cu",
             tol=BF16_TOL if bf16 else _scaled_tol(ref, SINGLE_F32_REL),
             min_same=MIN_SAME_KERNEL if bf16 else 0.0,
             kernel=lambda q=q, k=k, v=v, cfg=cfg: ops.flash_attention(q, k, v, cfg),
@@ -1677,7 +1700,33 @@ def public_op_rows(dev) -> list[dict]:
             bytes=4 * n * t * hd * q.element_size(),
             ops={"bf16" if bf16 else "fp32": 4 * n * t * t * hd})
         rows += run_cases([case], batch)
+        if bf16:
+            check(torch.equal(case["kernel"](), case["kernel"]()),
+                  f"{case['name']}: the same bits over two runs")
         del q, k, v, ref, case
+    for kv_len in PER_HEAD_KV_LENS:
+        batch, nh, hd, t = SMOKE_BATCH, CFG.num_heads, CFG.head_dim, PER_HEAD_T
+        gen = torch.Generator(device=dev).manual_seed(kv_len)
+        qkv = torch.randn((batch, t, 3 * nh * hd), generator=gen, device=dev).to(bf)
+        q, k, v = qkv.reshape(batch, t, nh, 3, hd).permute(3, 0, 2, 1, 4)
+        case = dict(
+            name=f"packed_fused_attention per_head B={batch} T={t} hd={hd} true_seq_len="
+                 f"{kv_len} (the single-pass body on per-head views, "
+                 f"{'one pass' if kv_len <= 256 else 'two passes'})",
+            counter="attention_single", tol=BF16_TOL, min_same=MIN_SAME_KERNEL,
+            kernel=lambda qkv=qkv, kv_len=kv_len: attention.packed_fused_attention(
+                qkv, num_heads=nh, head_dim=hd, packing="per_head", true_seq_len=kv_len),
+            plain=lambda qkv=qkv, kv_len=kv_len: attention.packed_fused_attention_reference(
+                qkv, nh, hd, packing="per_head", true_seq_len=kv_len),
+            # The same function: SDPA over the first kv_len keys.
+            library=lambda q=q, k=k, v=v, kv_len=kv_len: F.scaled_dot_product_attention(
+                q, k[:, :, :kv_len], v[:, :, :kv_len]),
+            bytes=(2 * t + 2 * kv_len) * batch * nh * hd * 2,
+            ops={"bf16": 4 * batch * nh * t * kv_len * hd})
+        rows += run_cases([case], batch)
+        check(torch.equal(case["kernel"](), case["kernel"]()),
+              f"{case['name']}: the same bits over two runs")
+        del qkv, q, k, v, case
     for t in WINDOW_TS:
         batch, nh, hd = 4, 16, 64
         gen = torch.Generator(device=dev).manual_seed(t)
@@ -3241,7 +3290,8 @@ def main() -> int:
     # Phase 2j's rows, from the probe's main() at its full grid.
     runs += [(probe_counts, r) for r in probe_rows]
     record = {"kernels": [
-        {"name": r["name"], "route": "cuda", "source": SOURCES[r["counter"]],
+        {"name": r["name"], "route": "cuda",
+         "source": r.get("source") or SOURCES[r["counter"]],
          "replaces": r["replaces"] or REPLACES[r["counter"]],
          "launches": run[r["counter"]],
          "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],

@@ -2,7 +2,10 @@
 backward's statistics buffer, the route they keep), and the plain versions
 they are held to on the card against the JAX package at their tile edges:
 T about the 64-row tiles and the 256-key single pass, head dims below one
-64-column box and across two.
+64-column box and across two; the single-pass attention's key count about
+the one-pass limit (256 and 257 keys of 264) on slab and per-head packing,
+and the blockwise forward at T = 1153 (one key past 9 whole 128-key tiles)
+and hd 80, with and without a key count that leaves whole tiles masked.
 """
 
 import os
@@ -53,6 +56,15 @@ def test_kernels_shared_memory_fits_a_block_at_every_head_dim(hd):
         assert attention.packed_kernel_smem_bytes(cfg.head_dim) <= attention.MAX_SMEM_BYTES
 
 
+@pytest.mark.parametrize("hd", range(8, 129, 8))
+def test_blockwise_kernel_shared_memory_fits_a_block_at_every_head_dim(hd):
+    """The blockwise forward's ring of 128-key K/V tile pairs depends on the
+    head dim alone and fits one block at every head dim it takes."""
+    assert attention.blockwise_kernel_smem_bytes(hd) <= attention.MAX_SMEM_BYTES
+    # Six stages up to one 64-column box, three past it: at least three.
+    assert attention.blockwise_kernel_smem_bytes(hd) >= 3 * 2 * 2 * 8192
+
+
 def test_route_boundary_is_unchanged():
     """``kernel_smem_bytes`` still draws the packed route's bound on T (hd 64:
     848, hd 128: 432), past which the single-pass kernel takes the slabs."""
@@ -87,3 +99,46 @@ def test_packed_attention_bwd_plain_matches_jax_at_tile_edges(t, hd):
     want = jattn.packed_attention_bwd(jq, jd, nh, hd)
     got = attention.packed_attention_bwd(tq, td, nh, hd)
     _close(got, want, MIN_SAME_ATTN_BWD)
+
+
+@pytest.mark.parametrize("packing", ["slab", "per_head"])
+@pytest.mark.parametrize("kv_len,hd", [(256, 64), (257, 64), (257, 80)])
+def test_single_pass_plain_matches_jax_about_the_one_pass_limit(packing, kv_len, hd):
+    """``single_pass_attention_reference`` with a key count at the kernel's
+    one-pass limit (256 keys) and one past it (two passes), on strided views
+    of the packed slabs, against JAX's ``_packed_kernel`` with
+    ``true_seq_len``; the port's packed route gives the same values."""
+    nh, t = 2, 264
+    tq, jq = _pair((1, t, 3 * nh * hd), kv_len + hd)
+    want = jattn.packed_fused_attention(jq, num_heads=nh, head_dim=hd, packing=packing,
+                                        true_seq_len=kv_len, interpret=True)
+    q, k, v = attention._packed_heads(tq, nh, hd, packing)
+    got = attention.single_pass_attention_reference(q, k, v, hd, kv_len=kv_len)
+    _close(got.permute(0, 2, 1, 3).reshape(1, t, nh * hd), want, MIN_SAME)
+    packed = attention.packed_fused_attention(tq, num_heads=nh, head_dim=hd,
+                                              packing=packing, true_seq_len=kv_len)
+    assert torch.equal(packed, got.permute(0, 2, 1, 3).reshape(1, t, nh * hd))
+
+
+@pytest.mark.parametrize("kv_len", [1153, 700])
+def test_blockwise_plain_matches_jax_at_t_1153_hd_80(kv_len):
+    """``blockwise_attention_fwd_reference`` at T = 1153 (a last 128-key
+    tile of one key) and ViT-H/14's hd 80 (a second column box of 16), with
+    and without a key count that masks whole tiles, against JAX's
+    ``_blockwise_fwd_flat`` (the route JAX's packed and trainable attention
+    take there): the output and each row's log-sum-exp."""
+    nh, hd, t = 2, 80, 1153
+    tq, jq = _pair((1, t, 3 * nh * hd), kv_len)
+    t_pad = -(-t // 128) * 128
+    pad = ((0, 0), (0, t_pad - t), (0, 0))
+    qf, kf, vf = (jnp.pad(x, pad) for x in jattn._packed_split(jq, nh, hd))
+    of, lse = jattn._blockwise_fwd_flat(
+        qf, kf, vf, scale=float(1.0 / np.sqrt(hd)), seq_len=kv_len, block_q=128,
+        block_k=128, interpret=True, return_lse=True)
+    want = jattn._packed_merge(of[:, :t], 1, nh, hd)
+    got, got_lse = attention.blockwise_attention_fwd_reference(
+        tq, nh, hd, return_lse=True, kv_len=kv_len)
+    _close(got, want, MIN_SAME)
+    want_lse = np.asarray(lse).reshape(1, nh, t_pad)[:, :, :t]
+    scale = float(np.abs(want_lse).max())
+    assert float(np.abs(got_lse.numpy() - want_lse).max()) <= 1e-5 * scale

@@ -942,6 +942,141 @@ def test_packed_attention_window_takes_the_single_pass_kernel(dev, t):
     _close(out, attention.packed_fused_attention_reference(qkv, nh, hd))
 
 
+# The single-pass attention's Hopper body (shared with the packed kernel):
+# key counts about its 64-key chunks and its one-pass limit of 256 keys.
+KV_LEN_EDGES = (1, 64, 65, 256, 257)
+
+
+@pytest.mark.parametrize("kv_len", KV_LEN_EDGES)
+@pytest.mark.parametrize("hd", [64, 80])
+def test_single_pass_kernel_kv_len_edges(dev, kv_len, hd):
+    """Keys at and past kv_len are real data in memory and must be masked:
+    one pass up to 256 keys, two past it, at T = 264 (one 64-key chunk more
+    than 256)."""
+    b, nh, t = 2, 2, 264
+    q, k, v = (_rand((b, nh, t, hd), dev, torch.bfloat16, seed=kv_len + i)
+               for i in range(3))
+    before = attention.LAUNCHES_SINGLE
+    out = attention.single_pass_attention(q, k, v, hd, kv_len=kv_len)
+    torch.cuda.synchronize()
+    assert attention.LAUNCHES_SINGLE == before + 1
+    _close(out, attention.single_pass_attention_reference(q, k, v, hd, kv_len=kv_len))
+
+
+@pytest.mark.parametrize("t", [197, 300])
+def test_single_pass_kernel_view_layouts_agree(dev, t):
+    """Row 8 reads K and V through maps ordered by stride and q and out
+    through their strides: contiguous split heads, the permuted views of a
+    [B, T, 3D] GEMM output (the slabs), the same with the context written
+    head-major into [B, T, D], and per-head packing give the same bits on
+    the same values, and so does row 4's packed kernel (the same body)."""
+    b, nh, hd = 2, 4, 64
+    bf = torch.bfloat16
+    q, k, v = (_rand((b, nh, t, hd), dev, bf, seed=t + i) for i in range(3))
+    outs = {"contiguous": attention.single_pass_attention(q, k, v, hd)}
+    slab = torch.stack([q, k, v]).permute(1, 3, 0, 2, 4).reshape(b, t, 3 * nh * hd)
+    slab = slab.contiguous()
+    qs, ks, vs = slab.reshape(b, t, 3, nh, hd).permute(2, 0, 3, 1, 4)
+    outs["permuted"] = attention.single_pass_attention(qs, ks, vs, hd)
+    ctx = torch.empty((b, t, nh * hd), dtype=bf, device=dev)
+    heads = ctx.view(b, t, nh, hd).permute(0, 2, 1, 3)
+    attention.single_pass_attention(qs, ks, vs, hd, out=heads)
+    outs["slab, head-major context"] = heads
+    per_head = torch.stack([q, k, v], dim=3).permute(0, 2, 1, 3, 4)
+    per_head = per_head.reshape(b, t, 3 * nh * hd).contiguous()
+    before = (attention.LAUNCHES, attention.LAUNCHES_SINGLE)
+    ctx = attention.packed_fused_attention(per_head, num_heads=nh, head_dim=hd,
+                                           packing="per_head")
+    outs["per_head"] = ctx.view(b, t, nh, hd).permute(0, 2, 1, 3)
+    ctx = attention.packed_fused_attention(slab, num_heads=nh, head_dim=hd)
+    outs["packed kernel"] = ctx.view(b, t, nh, hd).permute(0, 2, 1, 3)
+    torch.cuda.synchronize()
+    assert (attention.LAUNCHES, attention.LAUNCHES_SINGLE) == (before[0] + 1, before[1] + 1)
+    _close(outs["contiguous"], attention.single_pass_attention_reference(q, k, v, hd))
+    for name, out in outs.items():
+        assert torch.equal(out, outs["contiguous"]), name
+
+
+# The blockwise forward's edges: T about its 128-key tiles and 128-query
+# units (ViT-L/16@512's 1025; 1151, 1152 and 1153 about 9 whole tiles),
+# head dims of one 16-wide step, one box and a 16-column tail, two boxes
+# with a ragged second and two whole.
+BLOCKWISE_EDGE_TS = (1025, 1151, 1152, 1153)
+BLOCKWISE_EDGE_HDS = (8, 80, 104, 128)
+
+
+@pytest.mark.parametrize("t", BLOCKWISE_EDGE_TS)
+@pytest.mark.parametrize("hd", BLOCKWISE_EDGE_HDS)
+@pytest.mark.parametrize("return_lse", [False, True])
+def test_blockwise_fwd_kernel_edges(dev, t, hd, return_lse):
+    b, nh = 1, 2
+    qkv = _rand((b, t, 3 * nh * hd), dev, torch.bfloat16, seed=t + hd)
+    counter = "LAUNCHES_FLASH_LSE" if return_lse else "LAUNCHES_FLASH"
+    before = getattr(attention, counter)
+    out, lse = attention.blockwise_attention_fwd(qkv, nh, hd, return_lse=return_lse)
+    torch.cuda.synchronize()
+    assert getattr(attention, counter) == before + 1
+    ref, ref_lse = attention.blockwise_attention_fwd_reference(
+        qkv, nh, hd, return_lse=return_lse)
+    _close(out, ref)
+    if return_lse:
+        _rel_close(lse, ref_lse, LSE_REL)
+
+
+@pytest.mark.parametrize("kv_len", [1, 64, 65, 128, 700, 1025])
+def test_blockwise_fwd_kernel_skips_masked_tiles(dev, kv_len):
+    """kv_len below T leaves whole 128-key tiles (and the second half of a
+    tile) masked: skipped, they move nothing; the keys in [kv_len, T) are
+    real data and are masked, not read as zeros."""
+    b, nh, hd, t = 2, 2, 64, 1153
+    qkv = _rand((b, t, 3 * nh * hd), dev, torch.bfloat16, seed=kv_len)
+    out, lse = attention.blockwise_attention_fwd(qkv, nh, hd, return_lse=True,
+                                                 kv_len=kv_len)
+    ref, ref_lse = attention.blockwise_attention_fwd_reference(
+        qkv, nh, hd, return_lse=True, kv_len=kv_len)
+    torch.cuda.synchronize()
+    _close(out, ref)
+    _rel_close(lse, ref_lse, LSE_REL)
+
+
+def test_attention_kernels_walk_more_units_than_sms(dev):
+    """Both persistent grids take their units (image, head, 128 queries) in
+    turns when there are more units than SMs."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    b, nh, t, hd = 16, 12, 300, 64
+    assert b * nh * -(-t // 128) > sms
+    q, k, v = (_rand((b, nh, t, hd), dev, torch.bfloat16, seed=i) for i in range(3))
+    _close(attention.single_pass_attention(q, k, v, hd),
+           attention.single_pass_attention_reference(q, k, v, hd))
+    b, nh, t = 4, 8, 1153
+    assert b * nh * -(-t // 128) > sms
+    qkv = _rand((b, t, 3 * nh * hd), dev, torch.bfloat16, seed=3)
+    out, lse = attention.blockwise_attention_fwd(qkv, nh, hd, return_lse=True)
+    ref, ref_lse = attention.blockwise_attention_fwd_reference(qkv, nh, hd,
+                                                               return_lse=True)
+    torch.cuda.synchronize()
+    _close(out, ref)
+    _rel_close(lse, ref_lse, LSE_REL)
+
+
+def test_rows_8_and_9_give_the_same_bits_every_run(dev):
+    """No atomics and a fixed order of every sum: the single-pass attention
+    and the blockwise forward (slabs with the LSE, and split heads) repeat
+    their bits."""
+    b, nh, hd = 4, 12, 64
+    q, k, v = (_rand((b, nh, 577, hd), dev, torch.bfloat16, seed=i) for i in range(3))
+    first = attention.single_pass_attention(q, k, v, hd, kv_len=500)
+    qkv = _rand((b, 1153, 3 * nh * hd), dev, torch.bfloat16, seed=7)
+    out, lse = attention.blockwise_attention_fwd(qkv, nh, hd, return_lse=True)
+    qh, kh, vh = qkv.reshape(b, 1153, 3, nh, hd).permute(2, 0, 3, 1, 4)
+    split = attention.flash_attention(qh, kh, vh, _heads_cfg(nh, hd))
+    for _ in range(3):
+        assert torch.equal(first, attention.single_pass_attention(q, k, v, hd, kv_len=500))
+        again, again_lse = attention.blockwise_attention_fwd(qkv, nh, hd, return_lse=True)
+        assert torch.equal(out, again) and torch.equal(lse, again_lse)
+        assert torch.equal(split, attention.flash_attention(qh, kh, vh, _heads_cfg(nh, hd)))
+
+
 @pytest.mark.parametrize("rows,cols", [(74, 64), (3152, 768), (197, 1000)])
 @pytest.mark.parametrize("x_dtype,r_dtype", [
     (torch.bfloat16, torch.bfloat16), (torch.float32, torch.float32),

@@ -69,7 +69,8 @@ FORBIDDEN = [re.compile(p, re.MULTILINE) for p in (
 
 def test_sources_do_not_name_jax():
     files = sorted(PACKAGE_DIR.rglob("*.py")) + [
-        REPO / name for name in ("chip_smoke.py", "before_after.py", "wgrad_split_rules.py")]
+        REPO / name for name in ("chip_smoke.py", "before_after.py", "wgrad_split_rules.py",
+                                 "step_noise.py")]
     for path in files:
         text = path.read_text()
         for pattern in FORBIDDEN:

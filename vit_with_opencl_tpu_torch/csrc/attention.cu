@@ -1,47 +1,68 @@
-// Multi-head attention over a packed QKV buffer: [B, T, 3D] -> [B, T, D].
-//
-// Replaces vit_with_opencl_tpu/ops/attention.py:_packed_kernel
-// (packed_fused_attention) and the per-head attention that
-// ops/fused_block.py:_block_kernel inlines (_head_attention). "slab" packing:
-// for head h, q, k and v are the hd columns at h*hd, D + h*hd and 2D + h*hd
-// (attention.py:_packed_offsets). The context is written head-major into
-// [B, T, D]. Per head, the numerics of _head_attention:
+// Multi-head attention with the one-shot softmax of _head_attention, one
+// body for two entries:
+//   packed       [B, T, 3D] packed q|k|v slabs -> the head-major context
+//                [B, T, D] (vit_packed_attention_bf16). Replaces
+//                vit_with_opencl_tpu/ops/attention.py:_packed_kernel
+//                (packed_fused_attention) and the per-head attention that
+//                ops/fused_block.py:_block_kernel inlines (_head_attention).
+//                "slab" packing: head h's q, k and v are the hd columns at
+//                h*hd, D + h*hd and 2D + h*hd (attention.py:_packed_offsets).
+//   single pass  q, k, v, out as strided [B, H, T, hd] views, keys at and
+//                past kv_len masked (vit_single_pass_attention in
+//                attention_single.cu, bf16). Replaces
+//                vit_with_opencl_tpu/ops/attention.py:_single_pass_kernel
+//                (flash_attention up to T = 1024; the packed route's
+//                per-head packing, true_seq_len and its 849-1024 window).
+// Per head, the numerics of _head_attention:
 //   qs = q * scale               rounded to bf16, as the input dtype
 //   s  = qs . k^T                fp32 accumulation
 //   e  = exp(s - rowmax(s))      fp32, against the row's exact final max;
-//                                keys past T score MASK_VALUE
-//                                (attention.py:43), not -inf
+//                                keys at and past kv_len (T for the packed
+//                                entry) score MASK_VALUE (attention.py:43),
+//                                not -inf
 //   o  = bf16(e) . v             fp32 accumulation
 //   o *= 1 / rowsum(e)           normalised after the product, then cast
 // The only reassociation is the order of rowsum(e)'s fp32 terms (a
 // pairwise tree within each chunk).
 //
 // Bound on the card: bytes at ViT-B's T = 197 (the operations are a third
-// of the time the bytes take, at the card's peaks). Design (Hopper, sm_90a;
-// tiles and maps in attention_sm90.cuh): a persistent grid of one block an
-// SM, each block walking work units of (image, head, 128 queries), the two
-// units of a head side by side. A block is one producer warpgroup and two
-// consumer warpgroups, each consumer owning 64 queries of the unit, so the
-// two query tiles share every K/V tile the block stages. One producer
-// thread loads 64-key K and V tiles by TMA into a ring of slots (8 up to hd
-// 64: the next unit's tiles load under this unit's products; 4 past it); V
-// stays row-major and is the PV product's MN-major B operand. Each consumer
-// holds qs (its words loaded a unit ahead, scaled and rounded in registers)
-// as the A operand of S = qs . K^T (wgmma m64n64k16, A from registers), one
-// 64-key chunk an accumulator of 32 registers.
-//   T <= 256: the row's scores fit registers (the chunk count a template
+// of the time the bytes take, at the card's peaks); operations at T = 1024
+// (B = 4, 16 heads: 17.2 GFLOP, 0.0174 ms, against 33.6 MB, 0.0100 ms).
+// Design (Hopper, sm_90a; tiles and maps in attention_sm90.cuh): a
+// persistent grid of one block an SM, each block walking work units of
+// (image, head, 128 queries), the units of a head side by side, so that the
+// blocks running at once share their K/V in L2. A block is one producer
+// warpgroup and two consumer warpgroups, each consumer owning 64 queries of
+// the unit, so the two query tiles share every K/V tile the block stages.
+// One producer thread loads 64-key K and V tiles by TMA from the K and V
+// views' maps (for the slabs one map of 3H heads, K and V at head
+// coordinates H + h and 2H + h) into a ring of slots (8 up to hd 64: the
+// next unit's tiles load under this unit's products; 4 past it); V stays
+// row-major and is the PV product's MN-major B operand. Each consumer holds
+// qs (its words loaded a unit ahead through q's strides, scaled and rounded
+// in registers) as the A operand of S = qs . K^T (wgmma m64n64k16, A from
+// registers), one 64-key chunk an accumulator of 32 registers. The key
+// chunks run to kv_len; chunks wholly past it hold masked keys only, whose
+// e is exactly 0, and are neither loaded nor multiplied.
+//   <= 256 keys: the row's scores fit registers (the chunk count a template
 //             parameter): one pass takes the exact max, e, its row sum and
 //             bf16(e) (the accumulators turned into A fragments) from the
 //             same registers, then o = bf16(e) . V. The two consumers take
 //             turns issuing their products (attention_sm90.cuh), so one's
 //             softmax runs under the other's products.
-//   T > 256:  the ring streams K alone (pass 1: the exact max, chunk by
+//   more:     the ring streams K alone (pass 1: the exact max, chunk by
 //             chunk), then K and V (pass 2: S again, e, the row sum and o
 //             += bf16(e) . V_chunk).
-// The output tile stays in registers until it is scaled by 1/l. Operations:
-// 4 T^2 hd a head at T <= 256 (padded to whole 64-key chunks and 64-query
-// tiles), 6 T^2 hd past it; the exponential is expf (the plain version's
-// torch.exp).
+// The output tile stays in registers until it is scaled by 1/l and stored
+// through out's strides, rows past T left alone. The two entries are two
+// kernels of one body (packed_attention_kernel, single_pass_attention_kernel:
+// a trace tells them apart). What differs between them is resolved at
+// compile time where the consumers would pay for it (q's and out's
+// addressing, kv_len == T); the maps' order is read by the producer's one
+// thread.
+// Operations: 4 T^2 hd a head up to 256 keys (padded to whole 64-key chunks
+// and 64-query tiles), 6 T^2 hd past it; the exponential is expf (the plain
+// version's torch.exp).
 #include <limits.h>
 
 #include <type_traits>
@@ -64,29 +85,36 @@ __host__ __device__ constexpr int fwd_smem_bytes() {
   return 1024 + fwd_slots<HDP>() * 2 * tile_bytes<HDP>() + 2 * fwd_slots<HDP>() * 8;
 }
 
-// Work unit u: 128 queries (block qb of nqb) of head h of image b; the two
-// blocks of a head are neighbours, so the blocks running at once share
-// their K/V in L2.
-struct FwdUnit {
-  int b, h, qb;
+// What the two entries pass the body besides the maps.
+struct FwdArgs {
+  const bf16* q;
+  bf16* out;
+  tiles::Strides qs, os;  // element strides (image, head, row) of q and out
+  MapOrder ko, vo;        // where K's and V's maps keep head, row and image (views)
+  int T, kv_len, num_heads, hd, units;
+  float scale;
 };
-__device__ __forceinline__ FwdUnit fwd_unit(int u, int nqb, int num_heads) {
-  const int bh = u / nqb;
-  return FwdUnit{bh / num_heads, bh % num_heads, u % nqb};
-}
 
-template <int HDP>
-__global__ void __launch_bounds__(kThreads, 1)
-packed_attention_kernel(const __grid_constant__ CUtensorMap map_qkv,
-                        const bf16* __restrict__ qkv, bf16* __restrict__ out, int T,
-                        int num_heads, int hd, float scale, int units) {
+// kViews: the single-pass entry (any view, a key count); otherwise the
+// packed entry, whose slab addressing of q and out and whose key count (T)
+// are fixed at compile time: read from the views' strides at run time, they
+// measured slower in the packed kernel at ViT-B B = 256.
+template <int HDP, bool kViews>
+__device__ __forceinline__ void attention_fwd(const CUtensorMap* map_k,
+                                              const CUtensorMap* map_v, const FwdArgs& a) {
+  const int T = a.T, kv_len = kViews ? a.kv_len : a.T, num_heads = a.num_heads, hd = a.hd;
+  const int units = a.units;
+  const float scale = a.scale;
+  const int D = num_heads * hd;
+  const bf16* __restrict__ q = a.q;
+  bf16* __restrict__ out = a.out;
   constexpr int kB = boxes<HDP>(), kTile = tile_bytes<HDP>(), kSteps = HDP / 16;
   constexpr int kSlots = fwd_slots<HDP>();
   extern __shared__ unsigned char smem_raw[];
   const uint32_t ring = smem_u32(aligned_smem(smem_raw));  // slot i: K, then V
   const uint32_t full = ring + kSlots * 2 * kTile;
   const uint32_t empty = full + kSlots * 8;
-  const int nchunks = (T + kRows - 1) / kRows, nqb = (T + 2 * kRows - 1) / (2 * kRows);
+  const int nchunks = (kv_len + kRows - 1) / kRows, nqb = (T + 2 * kRows - 1) / (2 * kRows);
   const bool one_pass = nchunks <= kMaxChunks;
   const int steps = one_pass ? nchunks : 2 * nchunks;  // pass 1 loads K alone
   // Tile steps n = 0, 1, ... of this block, over its units in turn, take
@@ -118,10 +146,12 @@ packed_attention_kernel(const __grid_constant__ CUtensorMap map_qkv,
           mbar_expect_tx(bar, (with_v ? 2 : 1) * kTile);  // zero-filled boxes count whole
 #pragma unroll
           for (int j = 0; j < kB; ++j) {
-            tma_load_4d(k + j * kBox, &map_qkv, 64 * j, num_heads + w.h, c * kRows, w.b, bar);
+            // The slabs: one map of 3H heads, K at H + h and V at 2H + h.
+            const int kh = kViews ? w.h : num_heads + w.h;
+            const int vh = kViews ? w.h : 2 * num_heads + w.h;
+            tma_load_view(k + j * kBox, map_k, a.ko, 64 * j, kh, c * kRows, w.b, bar);
             if (with_v)
-              tma_load_4d(k + kTile + j * kBox, &map_qkv, 64 * j, 2 * num_heads + w.h,
-                          c * kRows, w.b, bar);
+              tma_load_view(k + kTile + j * kBox, map_v, a.vo, 64 * j, vh, c * kRows, w.b, bar);
           }
         }
       }
@@ -131,7 +161,6 @@ packed_attention_kernel(const __grid_constant__ CUtensorMap map_qkv,
   asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
   const int wg = threadIdx.x / 128 - 1;
   const int t = threadIdx.x % 128, lane = t % 32, g = lane / 4, tq = lane % 4;
-  const int D = num_heads * hd;
   auto first_row = [&](const FwdUnit& w) {  // the warp's first query in unit w
     return (w.qb * kConsumers + wg) * kRows + 16 * (t / 32);
   };
@@ -140,8 +169,8 @@ packed_attention_kernel(const __grid_constant__ CUtensorMap map_qkv,
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
       const int key = chunk * kRows + 8 * j + 2 * tq;
-      if (key >= T) c[4 * j] = c[4 * j + 2] = kMaskValue;
-      if (key + 1 >= T) c[4 * j + 1] = c[4 * j + 3] = kMaskValue;
+      if (key >= kv_len) c[4 * j] = c[4 * j + 2] = kMaskValue;
+      if (key + 1 >= kv_len) c[4 * j + 1] = c[4 * j + 3] = kMaskValue;
     }
   };
   auto row_max = [](const float (&c)[32], float& m0, float& m1) {
@@ -171,8 +200,12 @@ packed_attention_kernel(const __grid_constant__ CUtensorMap map_qkv,
   auto load_q = [&](uint32_t (&raw)[kSteps][4], int u) {
     if (u >= units) return;
     const FwdUnit w = fwd_unit(u, nqb, num_heads);
-    load_a_raw<HDP>(raw, qkv + static_cast<size_t>(w.b) * T * 3 * D, 3 * D, w.h * hd,
-                    first_row(w), T, hd, g, tq);
+    if constexpr (kViews)
+      load_a_raw<HDP>(raw, q + w.b * a.qs.batch + w.h * a.qs.head,
+                      static_cast<int>(a.qs.row), 0, first_row(w), T, hd, g, tq);
+    else
+      load_a_raw<HDP>(raw, q + static_cast<size_t>(w.b) * T * 3 * D, 3 * D, w.h * hd,
+                      first_row(w), T, hd, g, tq);
   };
   uint32_t q_next[kSteps][4];
   load_q(q_next, blockIdx.x);
@@ -214,7 +247,7 @@ packed_attention_kernel(const __grid_constant__ CUtensorMap map_qkv,
 #pragma unroll
       for (int c = 0; c < NC; ++c) {
         fence_acc(s[c]);
-        if (c == NC - 1) mask(s[c], c);  // only the last chunk holds keys past T
+        if (c == NC - 1) mask(s[c], c);  // only the last chunk holds keys past kv_len
         row_max(s[c], m0, m1);
       }
       quad_max(m0);
@@ -305,33 +338,104 @@ packed_attention_kernel(const __grid_constant__ CUtensorMap map_qkv,
     }
     quad_sum(l0);
     quad_sum(l1);
-    store_rows<kB, bf16>(out + static_cast<size_t>(w.b) * T * D, D, w.h * hd, o, 1.f / l0,
-                         1.f / l1, first_row(w), T, hd, g, tq);
+    if constexpr (kViews)
+      store_rows<kB, bf16>(out + w.b * a.os.batch + w.h * a.os.head,
+                           static_cast<int>(a.os.row), 0, o, 1.f / l0, 1.f / l1, first_row(w),
+                           T, hd, g, tq);
+    else
+      store_rows<kB, bf16>(out + static_cast<size_t>(w.b) * T * D, D, w.h * hd, o, 1.f / l0,
+                           1.f / l1, first_row(w), T, hd, g, tq);
   }
   if (one_pass) turns_end(wg);
 }
 
 template <int HDP>
-cudaError_t launch_attention(const void* qkv, void* out, int B, int T, int num_heads, int hd,
-                             float scale, cudaStream_t stream) {
-  EncodeTiledFn encode = encode_tiled();
-  if (encode == nullptr) return cudaErrorSymbolNotFound;
+__global__ void __launch_bounds__(kThreads, 1)
+packed_attention_kernel(const __grid_constant__ CUtensorMap map_qkv,
+                        const __grid_constant__ FwdArgs args) {
+  attention_fwd<HDP, false>(&map_qkv, &map_qkv, args);
+}
+
+template <int HDP>
+__global__ void __launch_bounds__(kThreads, 1)
+single_pass_attention_kernel(const __grid_constant__ CUtensorMap map_k,
+                             const __grid_constant__ CUtensorMap map_v,
+                             const __grid_constant__ FwdArgs args) {
+  attention_fwd<HDP, true>(&map_k, &map_v, args);
+}
+
+// One launch of either kernel: the packed one when map_v is null (K and V
+// in map_k), the single-pass one otherwise; args.units set here.
+template <int HDP>
+cudaError_t launch_fwd(const CUtensorMap& map_k, const CUtensorMap* map_v, FwdArgs args,
+                       int B, cudaStream_t stream) {
   const int sms = sm_count();
   if (sms == 0) return cudaErrorInvalidDevice;
-  CUtensorMap map;
-  if (!encode_head_map(&map, encode, qkv, hd, 3 * num_heads, T, B))
-    return cudaErrorInvalidValue;
   constexpr int smem = fwd_smem_bytes<HDP>();
-  const cudaError_t err = allow_dynamic_smem(packed_attention_kernel<HDP>, smem);
-  if (err != cudaSuccess) return err;
   const long long units =
-      static_cast<long long>((T + 2 * kRows - 1) / (2 * kRows)) * num_heads * B;
-  if (units > INT_MAX) return cudaErrorInvalidValue;
+      static_cast<long long>((args.T + 2 * kRows - 1) / (2 * kRows)) * args.num_heads * B;
+  if (units > INT_MAX || args.qs.row > INT_MAX || args.os.row > INT_MAX)
+    return cudaErrorInvalidValue;
+  args.units = static_cast<int>(units);
   const int grid = static_cast<int>(units < sms ? units : sms);  // persistent
-  packed_attention_kernel<HDP><<<grid, kThreads, smem, stream>>>(
-      map, static_cast<const bf16*>(qkv), static_cast<bf16*>(out), T, num_heads, hd, scale,
-      static_cast<int>(units));
+  if (map_v == nullptr) {
+    const cudaError_t err = allow_dynamic_smem(packed_attention_kernel<HDP>, smem);
+    if (err != cudaSuccess) return err;
+    packed_attention_kernel<HDP><<<grid, kThreads, smem, stream>>>(map_k, args);
+  } else {
+    const cudaError_t err = allow_dynamic_smem(single_pass_attention_kernel<HDP>, smem);
+    if (err != cudaSuccess) return err;
+    single_pass_attention_kernel<HDP><<<grid, kThreads, smem, stream>>>(map_k, *map_v, args);
+  }
   return cudaGetLastError();
+}
+
+template <int HDP>
+cudaError_t launch_packed(const void* qkv, void* out, int B, int T, int num_heads, int hd,
+                          float scale, cudaStream_t stream) {
+  EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorSymbolNotFound;
+  const long long D = static_cast<long long>(num_heads) * hd;
+  FwdArgs args{static_cast<const bf16*>(qkv), static_cast<bf16*>(out),
+               {T * 3 * D, hd, 3 * D}, {T * D, hd, D}, {}, {}, T, T, num_heads, hd, 0, scale};
+  CUtensorMap map;
+  if (!encode_view_map(&map, &args.ko, encode, qkv, hd, B, 3 * num_heads, T, T * 3 * D, hd,
+                       3 * D))
+    return cudaErrorInvalidValue;
+  args.vo = args.ko;
+  return launch_fwd<HDP>(map, nullptr, args, B, stream);
+}
+
+template <int HDP>
+cudaError_t launch_views(const void* q, const void* k, const void* v, void* out,
+                         const long long* st, int B, int H, int T, int kv_len, int hd,
+                         float scale, cudaStream_t stream) {
+  EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorSymbolNotFound;
+  FwdArgs args{static_cast<const bf16*>(q), static_cast<bf16*>(out),
+               {st[0], st[1], st[2]}, {st[9], st[10], st[11]}, {}, {},
+               T, kv_len, H, hd, 0, scale};
+  CUtensorMap map_k, map_v;
+  if (!encode_view_map(&map_k, &args.ko, encode, k, hd, B, H, T, st[3], st[4], st[5]) ||
+      !encode_view_map(&map_v, &args.vo, encode, v, hd, B, H, T, st[6], st[7], st[8]))
+    return cudaErrorInvalidValue;
+  return launch_fwd<HDP>(map_k, &map_v, args, B, stream);
+}
+
+cudaError_t single_pass_views_bf16(const void* q, const void* k, const void* v, void* out,
+                                   const long long* strides, int B, int H, int T, int kv_len,
+                                   int hd, float scale, cudaStream_t stream) {
+  switch ((hd + 15) / 16 * 16) {
+    case 16: return launch_views<16>(q, k, v, out, strides, B, H, T, kv_len, hd, scale, stream);
+    case 32: return launch_views<32>(q, k, v, out, strides, B, H, T, kv_len, hd, scale, stream);
+    case 48: return launch_views<48>(q, k, v, out, strides, B, H, T, kv_len, hd, scale, stream);
+    case 64: return launch_views<64>(q, k, v, out, strides, B, H, T, kv_len, hd, scale, stream);
+    case 80: return launch_views<80>(q, k, v, out, strides, B, H, T, kv_len, hd, scale, stream);
+    case 96: return launch_views<96>(q, k, v, out, strides, B, H, T, kv_len, hd, scale, stream);
+    case 112: return launch_views<112>(q, k, v, out, strides, B, H, T, kv_len, hd, scale, stream);
+    case 128: return launch_views<128>(q, k, v, out, strides, B, H, T, kv_len, hd, scale, stream);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace attn90
@@ -347,14 +451,14 @@ VIT_EXPORT int vit_packed_attention_bf16(const void* qkv, void* out, int B,
   if (B <= 0 || T <= 0 || num_heads <= 0 || head_dim % 8 != 0)
     return cudaErrorInvalidValue;
   switch ((head_dim + 15) / 16 * 16) {
-    case 16: return launch_attention<16>(qkv, out, B, T, num_heads, head_dim, scale, s);
-    case 32: return launch_attention<32>(qkv, out, B, T, num_heads, head_dim, scale, s);
-    case 48: return launch_attention<48>(qkv, out, B, T, num_heads, head_dim, scale, s);
-    case 64: return launch_attention<64>(qkv, out, B, T, num_heads, head_dim, scale, s);
-    case 80: return launch_attention<80>(qkv, out, B, T, num_heads, head_dim, scale, s);
-    case 96: return launch_attention<96>(qkv, out, B, T, num_heads, head_dim, scale, s);
-    case 112: return launch_attention<112>(qkv, out, B, T, num_heads, head_dim, scale, s);
-    case 128: return launch_attention<128>(qkv, out, B, T, num_heads, head_dim, scale, s);
+    case 16: return launch_packed<16>(qkv, out, B, T, num_heads, head_dim, scale, s);
+    case 32: return launch_packed<32>(qkv, out, B, T, num_heads, head_dim, scale, s);
+    case 48: return launch_packed<48>(qkv, out, B, T, num_heads, head_dim, scale, s);
+    case 64: return launch_packed<64>(qkv, out, B, T, num_heads, head_dim, scale, s);
+    case 80: return launch_packed<80>(qkv, out, B, T, num_heads, head_dim, scale, s);
+    case 96: return launch_packed<96>(qkv, out, B, T, num_heads, head_dim, scale, s);
+    case 112: return launch_packed<112>(qkv, out, B, T, num_heads, head_dim, scale, s);
+    case 128: return launch_packed<128>(qkv, out, B, T, num_heads, head_dim, scale, s);
     default: return cudaErrorInvalidValue;
   }
 }

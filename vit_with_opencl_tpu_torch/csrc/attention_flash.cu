@@ -1,5 +1,5 @@
-// Blockwise (long-sequence) multi-head attention over a packed QKV buffer:
-// the forward, with each row's log-sum-exp as an option, and its backward.
+// Blockwise (long-sequence) multi-head attention: the forward, with each
+// row's log-sum-exp as an option, and its backward.
 //
 // Replaces vit_with_opencl_tpu/ops/attention.py:_flash_kernel and
 // _flash_kernel_lse (_blockwise_fwd_flat, one kernel here with the LSE as an
@@ -10,12 +10,11 @@
 // the kernels read them there (rows past T as zeros) and write the
 // head-major context [B, T, D] or the dqkv slabs, so no split or padded copy
 // is made. The forward also has a strided entry for split heads ([B, H, T,
-// hd] views, flash_attention past T = 1024); the slab entry passes the slabs
-// to it as views, reading and writing the same addresses. Per head, the
-// numerics of the TPU kernels:
+// hd] views, flash_attention past T = 1024): the same kernel, its K and V
+// maps over the views. Per head, the numerics of the TPU kernels:
 //   forward   s = (q . k^T) * scale, fp32 (scale is fp32, not folded into q);
-//             keys past T masked to MASK_VALUE; over key tiles of 128 in
-//             order: m' = max(m, rowmax(s)), a = exp(m - m'),
+//             keys at and past kv_len masked to MASK_VALUE; over key tiles
+//             of 128 in order: m' = max(m, rowmax(s)), a = exp(m - m'),
 //             p = exp(s - m'), l = a * l + rowsum(p),
 //             acc = acc * a + bf16(p) . v; then o = bf16(acc * (1 / l)) and
 //             lse = m + log(l) (l == 0 -> 1 in both);
@@ -30,13 +29,40 @@
 // by JAX; hd 64) the forward does 4 T^2 hd a head (69 GFLOP a layer at
 // B = 16, 0.07 ms at the bf16 peak) against 50 MB of bytes (0.015 ms); the
 // backward's two kernels do 4 + 6 T^2 hd (the dq kernel s, dp, dq; the
-// dK/dV kernel s, dp, dv, dk). Design: FlashAttention-2's split, so that no
-// block sums into another's output and results repeat from run to run.
-//   forward     one block of 4 warps per (image, head, 64-query tile); each
-//               warp owns 16 query rows (q fragment in registers) and the
-//               scores of one 128-key tile (64 fp32 registers), its running
-//               (m, l) and fp32 output accumulator; K and V tiles of 128 rows
-//               stream through a double-buffered cp.async ring;
+// dK/dV kernel s, dp, dv, dk).
+//
+// Forward design (Hopper, sm_90a; maps and tiles of attention_sm90.cuh):
+// a persistent grid of one block an SM walking units of (image, head, 192
+// queries up to hd 64, 128 past it), a head's units side by side so that
+// the blocks running at once share its K/V in L2. A block is one producer
+// warpgroup and three consumer warpgroups of 64 queries each up to hd 64
+// (two past it, where a consumer's accumulator doubles), which share every
+// staged K/V tile. One producer thread loads each unit's 64-row q tiles
+// (into two slots up to hd 64, so the next unit's load runs under this one;
+// one past it) and 128-key K and V tiles (two 64-row boxes of 64 columns
+// each, two column boxes past hd 64) by TMA into a ring of 5 stages up to
+// hd 64, 3 past it; rows past T and columns past hd arrive as zeros, and a
+// tile half wholly at or past kv_len is not loaded. V stays row-major, the
+// PV product's MN-major B operand. Each consumer multiplies its unscaled q
+// tile, from shared memory, into S = q . K^T (wgmma m64n128k16, both
+// operands in shared memory: no registers hold q, which at hd 128 would
+// spill), scales the fp32 scores, and runs the online softmax once per
+// 128-key tile on 64 fp32 scores a thread; p, rounded to bf16 in registers,
+// is the A operand of pv = bf16(p) . V (fp32, in registers), and acc = acc *
+// a + pv, the tile's sum complete before it meets acc, as in the TPU kernel.
+// The softmax, not the tensor cores, bounds a consumer (64 exponentials a
+// thread a tile), so the consumers run independently and more of them hide
+// more of its latency: a third consumer measured faster at hd 64, while
+// turns at the tensor cores (as the packed kernel takes them) and,
+// within a consumer, tile i's S issued with tile i - 1's PV product under
+// tile i's softmax both measured slower. A consumer whose 64 queries all
+// lie past T issues no products and stores nothing, but frees its stages.
+// Tiles wholly past kv_len are skipped (a = 1, p = 0), and so is the
+// product of a tile's second half when it holds only masked keys (p
+// exactly 0, and the first half holds the row's max).
+//
+// Backward design: FlashAttention-2's split, so that no block sums into
+// another's output and results repeat from run to run.
 //   dq          one block per (image, head, 64-query tile): q and dO
 //               fragments, each row's lse and dvec (computed here from dO and
 //               O, and written for the dK/dV kernel) stay in registers; K and
@@ -44,25 +70,22 @@
 //   dK/dV       one block per (image, head, 64-key tile): k and v fragments
 //               in registers; q, dO and the rows' lse and dvec stream in
 //               tiles of 64; dv and dk accumulate in registers.
-// Products use mma.sync m16n8k16 (bf16 in, fp32 out) as attention_bwd.cu,
-// whose tile helpers (attention_tiles.cuh) these kernels share. Head dims
-// that are a multiple of 8 are zero-padded to the next of the compiled
-// widths (16..128). Not yet used: wgmma, TMA.
+// The backward's products use mma.sync m16n8k16 (bf16 in, fp32 out) with the
+// tile helpers of attention_tiles.cuh. Head dims that are a multiple of 8
+// are zero-padded to the next of the compiled widths (16..128).
+#include <limits.h>
 #include <math.h>
 
-#include "attention_tiles.cuh"
+#include <type_traits>
+
+#include "attention_sm90.cuh"
 
 namespace vit {
 namespace flash {
 
 using namespace tiles;
-constexpr int kKeyTile = 128;  // the forward's K/V tile: the running max's step
-constexpr int kTile = 64;      // the backward's streamed tiles
+constexpr int kTile = 64;  // the backward's streamed tiles
 
-template <int HDP>
-__host__ __device__ constexpr size_t fwd_stage_bytes() {  // a K and a V tile
-  return 2 * tile_elems<HDP, kKeyTile>() * sizeof(bf16);
-}
 template <int HDP>
 __host__ __device__ constexpr size_t dq_stage_bytes() {  // a K and a V tile
   return 2 * tile_elems<HDP, kTile>() * sizeof(bf16);
@@ -70,140 +93,6 @@ __host__ __device__ constexpr size_t dq_stage_bytes() {  // a K and a V tile
 template <int HDP>
 __host__ __device__ constexpr size_t dkv_stage_bytes() {  // q, dO, lse, dvec
   return 2 * tile_elems<HDP, kTile>() * sizeof(bf16) + 2 * kTile * sizeof(float);
-}
-
-template <int HDP>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v, bf16* __restrict__ out, HeadViews views,
-                 float* __restrict__ lse, int T, int kv_len, int num_heads, int hd,
-                 float scale) {
-  const int b = blockIdx.z, h = blockIdx.y;
-  const int kvp = (kv_len + 15) & ~15;
-  extern __shared__ __align__(16) unsigned char smem[];
-  const bf16* qb = head_base(q, views.q, b, h);
-  const bf16* kb = head_base(k, views.k, b, h);
-  const bf16* vb = head_base(v, views.v, b, h);
-  // Key tiles wholly past kv_len hold masked keys only: a = 1, p = 0, so
-  // they move nothing and are skipped.
-  const int ntiles = (kv_len + kKeyTile - 1) / kKeyTile;
-  auto stage = [&](int s) {
-    return reinterpret_cast<bf16*>(smem + (s % kStages) * fwd_stage_bytes<HDP>());
-  };
-  auto fetch = [&](int s) {
-    const int k0 = s * kKeyTile;
-    load_tile<HDP, kKeyTile>(stage(s), kb, views.k.row, 0, k0, kv_len, hd);
-    load_tile<HDP, kKeyTile>(stage(s) + tile_elems<HDP, kKeyTile>(), vb,
-                             views.v.row, 0, k0, kv_len, hd);
-    cp_async_commit();
-  };
-  fetch(0);
-
-  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
-  // Warps whose rows lie past T compute on zero rows and store nothing: they
-  // must stay for the block's barriers.
-  const int r0 = blockIdx.x * kRows + (threadIdx.x / 32) * 16;
-  uint32_t qa[HDP / 16][4];
-  load_a<HDP>(qa, qb, views.q.row, 0, r0, T, hd, 1.f, g, t);
-
-  // Rows g (0) and g + 8 (1) of the warp's 16.
-  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
-  float o[HDP / 8][4];
-#pragma unroll
-  for (int d = 0; d < HDP / 8; ++d) o[d][0] = o[d][1] = o[d][2] = o[d][3] = 0.f;
-
-  for (int s = 0; s < ntiles; ++s) {
-    if (s + 1 < ntiles) {
-      fetch(s + 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const bf16* ks = stage(s);
-    const bf16* vs = ks + tile_elems<HDP, kKeyTile>();
-    const int k0 = s * kKeyTile;
-    // 8-key sub-tiles up to kvp; the ones past it hold masked keys only,
-    // whose p is exactly 0, and a tile always holds a key below kv_len.
-    const int nsub = min(kKeyTile, kvp - k0) / 8;
-
-    float sc[kKeyTile / 8][4];  // the tile's scores, then its p
-    float mc0 = -INFINITY, mc1 = -INFINITY;
-#pragma unroll
-    for (int sub = 0; sub < kKeyTile / 8; ++sub) {
-      if (sub < nsub) {
-        float* c = sc[sub];
-        dot_tile<HDP, false>(c, qa, ks, sub, 1.f, g, t);
-        const int key = k0 + sub * 8 + 2 * t;
-        c[0] = key < kv_len ? c[0] * scale : kMaskValue;
-        c[1] = key + 1 < kv_len ? c[1] * scale : kMaskValue;
-        c[2] = key < kv_len ? c[2] * scale : kMaskValue;
-        c[3] = key + 1 < kv_len ? c[3] * scale : kMaskValue;
-        mc0 = fmaxf(mc0, fmaxf(c[0], c[1]));
-        mc1 = fmaxf(mc1, fmaxf(c[2], c[3]));
-      }
-    }
-    quad_max(mc0);
-    quad_max(mc1);
-    const float mn0 = fmaxf(m0, mc0), mn1 = fmaxf(m1, mc1);
-    const float a0 = expf(m0 - mn0), a1 = expf(m1 - mn1);  // 0 on the first tile
-    float ls0 = 0.f, ls1 = 0.f;
-#pragma unroll
-    for (int sub = 0; sub < kKeyTile / 8; ++sub) {
-      if (sub < nsub) {
-        float* c = sc[sub];
-        c[0] = expf(c[0] - mn0);
-        c[1] = expf(c[1] - mn0);
-        c[2] = expf(c[2] - mn1);
-        c[3] = expf(c[3] - mn1);
-        ls0 += c[0] + c[1];
-        ls1 += c[2] + c[3];
-      }
-    }
-    quad_sum(ls0);
-    quad_sum(ls1);
-    l0 = a0 * l0 + ls0;
-    l1 = a1 * l1 + ls1;
-    m0 = mn0;
-    m1 = mn1;
-#pragma unroll
-    for (int d = 0; d < HDP / 8; ++d) {
-      o[d][0] *= a0;
-      o[d][1] *= a0;
-      o[d][2] *= a1;
-      o[d][3] *= a1;
-    }
-    // acc += bf16(p) . V, 16 keys at a time: two sub-tiles of p in the
-    // accumulator layout are the A operand of the next product.
-#pragma unroll
-    for (int chunk = 0; chunk < kKeyTile / 16; ++chunk) {
-      if (chunk < nsub / 2) {
-        const float* p0 = sc[2 * chunk];
-        const float* p1 = sc[2 * chunk + 1];
-        const uint32_t pa[4] = {pack_bf16x2(p0[0], p0[1]), pack_bf16x2(p0[2], p0[3]),
-                                pack_bf16x2(p1[0], p1[1]), pack_bf16x2(p1[2], p1[3])};
-        accumulate<HDP>(o, pa, vs, chunk, lane);
-      }
-    }
-    __syncthreads();  // the stage is refilled two steps on
-  }
-
-  const float inv0 = l0 == 0.f ? 1.f : 1.f / l0;
-  const float inv1 = l1 == 0.f ? 1.f : 1.f / l1;
-#pragma unroll
-  for (int d = 0; d < HDP / 8; ++d) {
-    o[d][0] *= inv0;
-    o[d][1] *= inv0;
-    o[d][2] *= inv1;
-    o[d][3] *= inv1;
-  }
-  store_rows<HDP, bf16>(head_base(out, views.o, b, h), views.o.row, 0, o, r0, T, hd,
-                        g, t);
-  if (lse != nullptr && t == 0) {  // one lane per row
-    float* row_lse = lse + (static_cast<size_t>(b) * num_heads + h) * T;
-    if (r0 + g < T) row_lse[r0 + g] = m0 + logf(l0 == 0.f ? 1.f : l0);
-    if (r0 + g + 8 < T) row_lse[r0 + g + 8] = m1 + logf(l1 == 0.f ? 1.f : l1);
-  }
 }
 
 template <int HDP>
@@ -413,21 +302,6 @@ flash_bwd_dkv_kernel(const bf16* __restrict__ qkv, const float* __restrict__ lse
 }
 
 template <int HDP>
-cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* out,
-                       HeadViews views, float* lse, int B, int T, int kv_len,
-                       int num_heads, int hd, float scale, cudaStream_t stream) {
-  constexpr size_t smem = kStages * fwd_stage_bytes<HDP>();
-  cudaError_t err = allow_dynamic_smem(flash_fwd_kernel<HDP>, smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((T + kRows - 1) / kRows, num_heads, B);
-  flash_fwd_kernel<HDP><<<grid, kThreads, smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(out), views, lse, T, kv_len,
-      num_heads, hd, scale);
-  return cudaGetLastError();
-}
-
-template <int HDP>
 cudaError_t launch_bwd(const void* qkv, const void* out, const float* lse,
                        const void* dout, void* dqkv, float* dvec, int B, int T,
                        int num_heads, int hd, float scale, cudaStream_t stream) {
@@ -451,6 +325,353 @@ cudaError_t launch_bwd(const void* qkv, const void* out, const float* lse,
 }
 
 }  // namespace flash
+
+namespace flash90 {
+
+using namespace attn90;
+
+constexpr int kKeyTile = 128;  // the running max's step (JAX's block_k)
+
+// A stage: a 128-key K tile, then its V tile. Column box j of a tile (64
+// columns) is 128 rows of 128 bytes, two 64-row boxes back to back.
+template <int HDP>
+__host__ __device__ constexpr int key_tile_bytes() {
+  return boxes<HDP>() * 2 * kBox;
+}
+// Consumer warpgroups of a block (64 queries each): three up to hd 64,
+// where a consumer's scores, accumulator and p fit 160 registers, two past
+// it; and the registers of a producer and of a consumer thread
+// (setmaxnreg: within the SM's 64K).
+template <int HDP>
+__host__ __device__ constexpr int fwd_consumers() {
+  return boxes<HDP>() == 1 ? 3 : 2;
+}
+template <int HDP>
+__host__ __device__ constexpr int fwd_threads() {
+  return 128 * (1 + fwd_consumers<HDP>());
+}
+template <int HDP>
+__host__ __device__ constexpr int producer_regs() {
+  return fwd_consumers<HDP>() == 2 ? 40 : 24;
+}
+template <int HDP>
+__host__ __device__ constexpr int consumer_regs() {
+  return fwd_consumers<HDP>() == 2 ? 232 : 160;
+}
+template <int HDP>
+__host__ __device__ constexpr int fwd_stages() {
+  return boxes<HDP>() == 1 ? 5 : 3;
+}
+// The consumers' q tiles: two units' at hd <= 64 (the next unit's load runs
+// under this one), one past it.
+template <int HDP>
+__host__ __device__ constexpr int q_slots() {
+  return boxes<HDP>() == 1 ? 2 : 1;
+}
+template <int HDP>
+__host__ __device__ constexpr int fwd_smem_bytes() {
+  return 1024 + fwd_stages<HDP>() * 2 * key_tile_bytes<HDP>() +
+         q_slots<HDP>() * fwd_consumers<HDP>() * tile_bytes<HDP>() +
+         2 * (fwd_stages<HDP>() + q_slots<HDP>()) * 8;
+}
+
+// K as the K-major B operand of S: keys 64 half.. (64 half + 63, or the
+// tile's 128 keys from half 0 for an m64n128 product), hd step kk.
+__device__ __forceinline__ uint64_t desc_key(uint32_t tile, int half, int kk) {
+  return smem_desc(tile + (kk / 4) * 2 * kBox + half * kBox + (kk % 4) * 32, 16, 1024);
+}
+// V as the MN-major B operand of PV: keys 16 kk..16 kk + 15, columns 64j..
+__device__ __forceinline__ uint64_t desc_val(uint32_t tile, int j, int kk) {
+  return smem_desc(tile + j * 2 * kBox + kk * 2048, 2 * kBox, 1024);
+}
+
+struct FwdArgs {
+  bf16* out;
+  float* lse;           // [B, H, T] or null
+  tiles::Strides os;    // element strides (image, head, row) of out
+  MapOrder qo, ko, vo;  // where the maps of q, K and V keep head, row and image
+  int q_head0, k_head0, v_head0;  // head h at head coordinate head0 + h of each map
+  int T, kv_len, num_heads, hd, units;
+  float scale;
+};
+
+template <int HDP>
+__global__ void __launch_bounds__(fwd_threads<HDP>(), 1)
+blockwise_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
+                     const __grid_constant__ CUtensorMap map_k,
+                     const __grid_constant__ CUtensorMap map_v,
+                     const __grid_constant__ FwdArgs a) {
+  constexpr int kB = boxes<HDP>(), kKT = key_tile_bytes<HDP>(), kSteps = HDP / 16;
+  constexpr int kStages = fwd_stages<HDP>(), kQSlots = q_slots<HDP>();
+  constexpr int kTile = tile_bytes<HDP>(), kConsumers = fwd_consumers<HDP>();
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t ring = smem_u32(aligned_smem(smem_raw));  // stage i: K, then V
+  const uint32_t qbuf = ring + kStages * 2 * kKT;  // slot i: consumer 0's q, then 1's
+  const uint32_t full = qbuf + kQSlots * kConsumers * kTile;
+  const uint32_t empty = full + kStages * 8;
+  const uint32_t q_full = empty + kStages * 8;
+  const uint32_t q_empty = q_full + kQSlots * 8;
+  const int T = a.T, kv_len = a.kv_len, num_heads = a.num_heads, hd = a.hd;
+  const int units = a.units;
+  const int ntiles = (kv_len + kKeyTile - 1) / kKeyTile;
+  const int nqb = (T + kConsumers * kRows - 1) / (kConsumers * kRows);
+  // Tile steps n = 0, 1, ... of this block, over its units in turn, take
+  // stage n % kStages in phase (n / kStages) & 1; the block's i-th unit
+  // takes q slot i % kQSlots in phase (i / kQSlots) & 1.
+  auto stage_of = [](int n) { return n % kStages; };
+  auto phase_of = [](int n) { return static_cast<uint32_t>((n / kStages) & 1); };
+  auto qslot_of = [](int i) { return i % kQSlots; };
+  auto qphase_of = [](int i) { return static_cast<uint32_t>((i / kQSlots) & 1); };
+  // Whether tile i's second half holds a key below kv_len.
+  auto both_halves = [kv_len](int i) { return i * kKeyTile + kRows < kv_len; };
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 128 * kConsumers);
+    }
+    for (int s = 0; s < kQSlots; ++s) {
+      mbar_init(q_full + 8 * s, 1);
+      mbar_init(q_empty + 8 * s, 128 * kConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(producer_regs<HDP>()));
+    if (threadIdx.x == 0) {
+      int n = 0, i = 0;
+      for (int u = blockIdx.x; u < units; u += gridDim.x, ++i) {
+        const FwdUnit w = fwd_unit(u, nqb, num_heads);
+        {  // the unit's two q tiles (rows past T zero-filled)
+          const int qs = qslot_of(i);
+          mbar_wait(q_empty + 8 * qs, qphase_of(i) ^ 1);  // the first round passes
+          const uint32_t bar = q_full + 8 * qs;
+          mbar_expect_tx(bar, kConsumers * kTile);
+          for (int c = 0; c < kConsumers; ++c)
+            for (int j = 0; j < kB; ++j)
+              tma_load_view(qbuf + (qs * kConsumers + c) * kTile + j * kBox, &map_q, a.qo,
+                            64 * j, a.q_head0 + w.h, (w.qb * kConsumers + c) * kRows, w.b,
+                            bar);
+        }
+        for (int it = 0; it < ntiles; ++it, ++n) {
+          const int halves = both_halves(it) ? 2 : 1;
+          mbar_wait(empty + 8 * stage_of(n), phase_of(n) ^ 1);  // the first round passes
+          const uint32_t bar = full + 8 * stage_of(n), k = ring + stage_of(n) * 2 * kKT;
+          mbar_expect_tx(bar, 2 * kB * halves * kBox);  // zero-filled boxes count whole
+          for (int j = 0; j < kB; ++j)
+            for (int hf = 0; hf < halves; ++hf) {
+              const int row = it * kKeyTile + hf * kRows;
+              const uint32_t off = j * 2 * kBox + hf * kBox;
+              tma_load_view(k + off, &map_k, a.ko, 64 * j, a.k_head0 + w.h, row, w.b, bar);
+              tma_load_view(k + kKT + off, &map_v, a.vo, 64 * j, a.v_head0 + w.h, row, w.b,
+                            bar);
+            }
+        }
+      }
+    }
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(consumer_regs<HDP>()));
+  const int wg = threadIdx.x / 128 - 1;
+  const int t = threadIdx.x % 128, lane = t % 32, g = lane / 4, tq = lane % 4;
+  const float scale = a.scale;
+  int n = 0, i = 0;
+  for (int u = blockIdx.x; u < units; u += gridDim.x, ++i) {
+    const FwdUnit w = fwd_unit(u, nqb, num_heads);
+    const int q0 = (w.qb * kConsumers + wg) * kRows;  // this consumer's first query
+    // Whether this consumer's 64 queries hold one below T (warpgroup-uniform).
+    const bool live = q0 < T;
+    const uint32_t qt = qbuf + (qslot_of(i) * kConsumers + wg) * kTile;
+    mbar_wait(q_full + 8 * qslot_of(i), qphase_of(i));
+
+    float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
+    float o[kB][32];
+#pragma unroll
+    for (int j = 0; j < kB; ++j)
+#pragma unroll
+      for (int e = 0; e < 32; ++e) o[j][e] = 0.f;
+
+    // One 128-key tile (NH 64-key halves of it): tile it of the unit, step n.
+    auto tile = [&](auto nh, int it) {
+      constexpr int NH = decltype(nh)::value;
+      const uint32_t kt = ring + stage_of(n) * 2 * kKT, vt = kt + kKT;
+      // A consumer past T leaves its products out, and its softmax runs on
+      // these zeros: only the products are predicated, since branches
+      // around the softmax made ptxas spill past hd 64.
+      float s[NH][32] = {};
+      mbar_wait(full + 8 * stage_of(n), phase_of(n));
+      if (live) {
+        wgmma_fence();
+        if constexpr (NH == 2) {  // one m64n128k16 product a step
+#pragma unroll
+          for (int kk = 0; kk < kSteps; ++kk)
+            wgmma_ss_n128(s[0], s[NH - 1], desc_k(qt, kk), desc_key(kt, 0, kk), kk > 0);
+        } else {
+#pragma unroll
+          for (int kk = 0; kk < kSteps; ++kk)
+            wgmma_ss(s[0], desc_k(qt, kk), desc_key(kt, 0, kk), kk > 0);
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+      }
+      if (it == ntiles - 1) mbar_arrive(q_empty + 8 * qslot_of(i));  // q read for good
+      const int k0 = it * kKeyTile;
+      float mc0 = -INFINITY, mc1 = -INFINITY;
+#pragma unroll
+      for (int hf = 0; hf < NH; ++hf) {
+        fence_acc(s[hf]);
+#pragma unroll
+        for (int e = 0; e < 32; ++e) s[hf][e] *= scale;
+        if (k0 + NH * kRows > kv_len) {  // the tile holds masked keys
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            const int key = k0 + hf * kRows + 8 * j + 2 * tq;
+            if (key >= kv_len) s[hf][4 * j] = s[hf][4 * j + 2] = kMaskValue;
+            if (key + 1 >= kv_len) s[hf][4 * j + 1] = s[hf][4 * j + 3] = kMaskValue;
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          mc0 = fmaxf(mc0, fmaxf(s[hf][4 * j], s[hf][4 * j + 1]));
+          mc1 = fmaxf(mc1, fmaxf(s[hf][4 * j + 2], s[hf][4 * j + 3]));
+        }
+      }
+      quad_max(mc0);
+      quad_max(mc1);
+      const float mn0 = fmaxf(m0, mc0), mn1 = fmaxf(m1, mc1);
+      const float a0 = expf(m0 - mn0), a1 = expf(m1 - mn1);  // 0 on the first tile
+      float ls0 = 0.f, ls1 = 0.f;
+      uint32_t pa[4 * NH][4];
+#pragma unroll
+      for (int hf = 0; hf < NH; ++hf) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          s[hf][4 * j] = expf(s[hf][4 * j] - mn0);
+          s[hf][4 * j + 1] = expf(s[hf][4 * j + 1] - mn0);
+          s[hf][4 * j + 2] = expf(s[hf][4 * j + 2] - mn1);
+          s[hf][4 * j + 3] = expf(s[hf][4 * j + 3] - mn1);
+        }
+        float r0, r1;
+        row_sums(s[hf], r0, r1);
+        ls0 += r0;
+        ls1 += r1;
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) to_a(pa[4 * hf + kk], s[hf], kk);
+      }
+      quad_sum(ls0);
+      quad_sum(ls1);
+      l0 = a0 * l0 + ls0;
+      l1 = a1 * l1 + ls1;
+      m0 = mn0;
+      m1 = mn1;
+#pragma unroll
+      for (int j = 0; j < kB; ++j)
+#pragma unroll
+        for (int d = 0; d < 8; ++d) {
+          o[j][4 * d] *= a0;
+          o[j][4 * d + 1] *= a0;
+          o[j][4 * d + 2] *= a1;
+          o[j][4 * d + 3] *= a1;
+        }
+      // The tile's bf16(p) . V in an accumulator of its own, then acc * a +
+      // pv: the TPU kernel's acc * alpha + pv, the tile's sum complete before
+      // it meets acc (accumulating into acc * a itself would round there
+      // after every 16 keys).
+      float pv[kB][32] = {};
+      if (live) {
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4 * NH; ++kk)
+#pragma unroll
+          for (int j = 0; j < kB; ++j) wgmma_rs<1>(pv[j], pa[kk], desc_val(vt, j, kk), kk > 0);
+        wgmma_commit();
+        wgmma_wait<0>();
+      }
+#pragma unroll
+      for (int j = 0; j < kB; ++j) {
+        fence_acc(pv[j]);
+#pragma unroll
+        for (int e = 0; e < 32; ++e) o[j][e] += pv[j][e];
+      }
+#pragma unroll
+      for (int kk = 0; kk < 4 * NH; ++kk) fence_frag(pa[kk]);
+      mbar_arrive(empty + 8 * stage_of(n));
+      ++n;
+    };
+    for (int it = 0; it < ntiles; ++it) {
+      if (both_halves(it))
+        tile(std::integral_constant<int, 2>(), it);
+      else
+        tile(std::integral_constant<int, 1>(), it);
+    }
+    if (!live) continue;
+    const float inv0 = l0 == 0.f ? 1.f : 1.f / l0, inv1 = l1 == 0.f ? 1.f : 1.f / l1;
+    const int r0 = q0 + 16 * (t / 32);  // the warp's first query
+    store_rows<kB, bf16>(a.out + w.b * a.os.batch + w.h * a.os.head,
+                         static_cast<int>(a.os.row), 0, o, inv0, inv1, r0, T, hd, g, tq);
+    if (a.lse != nullptr && tq == 0) {  // one lane per row
+      float* row_lse = a.lse + (static_cast<size_t>(w.b) * num_heads + w.h) * T;
+      if (r0 + g < T) row_lse[r0 + g] = m0 + logf(l0 == 0.f ? 1.f : l0);
+      if (r0 + g + 8 < T) row_lse[r0 + g + 8] = m1 + logf(l1 == 0.f ? 1.f : l1);
+    }
+  }
+}
+
+template <int HDP>
+cudaError_t launch_fwd(const CUtensorMap& map_q, const CUtensorMap& map_k,
+                       const CUtensorMap& map_v, FwdArgs args, int B, cudaStream_t stream) {
+  const int sms = sm_count();
+  if (sms == 0) return cudaErrorInvalidDevice;
+  constexpr int smem = fwd_smem_bytes<HDP>(), kQ = fwd_consumers<HDP>() * kRows;
+  const long long units =
+      static_cast<long long>((args.T + kQ - 1) / kQ) * args.num_heads * B;
+  if (units > INT_MAX || args.os.row > INT_MAX) return cudaErrorInvalidValue;
+  args.units = static_cast<int>(units);
+  const cudaError_t err = allow_dynamic_smem(blockwise_fwd_kernel<HDP>, smem);
+  if (err != cudaSuccess) return err;
+  const int grid = static_cast<int>(units < sms ? units : sms);  // persistent
+  blockwise_fwd_kernel<HDP><<<grid, fwd_threads<HDP>(), smem, stream>>>(map_q, map_k, map_v,
+                                                                       args);
+  return cudaGetLastError();
+}
+
+// The slabs of qkv [B, T, 3D]: one map of 3H heads, q, K and V at head
+// coordinates h, H + h and 2H + h; out [B, T, D].
+template <int HDP>
+cudaError_t launch_slabs(const void* qkv, void* out, float* lse, int B, int T, int kv_len,
+                         int num_heads, int hd, float scale, cudaStream_t stream) {
+  EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorSymbolNotFound;
+  const long long D = static_cast<long long>(num_heads) * hd;
+  FwdArgs args{static_cast<bf16*>(out), lse, {T * D, hd, D}, {}, {}, {},
+               0, num_heads, 2 * num_heads, T, kv_len, num_heads, hd, 0, scale};
+  CUtensorMap map;
+  if (!encode_view_map(&map, &args.qo, encode, qkv, hd, B, 3 * num_heads, T, T * 3 * D, hd,
+                       3 * D))
+    return cudaErrorInvalidValue;
+  args.ko = args.vo = args.qo;
+  return launch_fwd<HDP>(map, map, map, args, B, stream);
+}
+
+// Split heads: q, k, v and out as [B, H, T, hd] views (12 element strides).
+template <int HDP>
+cudaError_t launch_views(const void* q, const void* k, const void* v, void* out, float* lse,
+                         const long long* st, int B, int T, int num_heads, int hd,
+                         float scale, cudaStream_t stream) {
+  EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorSymbolNotFound;
+  FwdArgs args{static_cast<bf16*>(out), lse, {st[9], st[10], st[11]}, {}, {}, {},
+               0, 0, 0, T, T, num_heads, hd, 0, scale};
+  CUtensorMap map_q, map_k, map_v;
+  if (!encode_view_map(&map_q, &args.qo, encode, q, hd, B, num_heads, T, st[0], st[1], st[2]) ||
+      !encode_view_map(&map_k, &args.ko, encode, k, hd, B, num_heads, T, st[3], st[4], st[5]) ||
+      !encode_view_map(&map_v, &args.vo, encode, v, hd, B, num_heads, T, st[6], st[7], st[8]))
+    return cudaErrorInvalidValue;
+  return launch_fwd<HDP>(map_q, map_k, map_v, args, B, stream);
+}
+}  // namespace flash90
 }  // namespace vit
 
 #define VIT_FLASH_DISPATCH(launch, ...)                                    \
@@ -474,16 +695,12 @@ cudaError_t launch_bwd(const void* qkv, const void* out, const float* lse,
 VIT_EXPORT int vit_flash_attention_fwd(const void* qkv, void* out, float* lse, int B,
                                        int T, int kv_len, int num_heads, int head_dim,
                                        float scale, void* stream) {
-  using namespace vit::flash;
+  using namespace vit::flash90;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (B <= 0 || T <= 0 || kv_len <= 0 || kv_len > T || num_heads <= 0 ||
       head_dim % 8 != 0 || head_dim > 128)
     return cudaErrorInvalidValue;
-  const vit::bf16* base = static_cast<const vit::bf16*>(qkv);
-  const int D = num_heads * head_dim;
-  VIT_FLASH_DISPATCH(launch_fwd, base, base + D, base + 2 * D, out,
-                     slab_views(T, num_heads, head_dim), lse, B, T, kv_len,
-                     num_heads, head_dim, scale, s)
+  VIT_FLASH_DISPATCH(launch_slabs, qkv, out, lse, B, T, kv_len, num_heads, head_dim, scale, s)
 }
 
 // The same kernel on split heads: q, k, v and out are [B, num_heads, T,
@@ -495,12 +712,12 @@ VIT_EXPORT int vit_flash_attention_fwd_strided(const void* q, const void* k,
                                                const long long* strides, int B, int T,
                                                int num_heads, int head_dim, float scale,
                                                void* stream) {
-  using namespace vit::flash;
+  using namespace vit::flash90;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (B <= 0 || T <= 0 || num_heads <= 0 || head_dim % 8 != 0 || head_dim > 128)
     return cudaErrorInvalidValue;
-  VIT_FLASH_DISPATCH(launch_fwd, q, k, v, out, head_views(strides), lse, B, T, T,
-                     num_heads, head_dim, scale, s)
+  VIT_FLASH_DISPATCH(launch_views, q, k, v, out, lse, strides, B, T, num_heads, head_dim,
+                     scale, s)
 }
 
 // qkv [B, T, 3D], the forward's out [B, T, D] and lse [B, num_heads, T],

@@ -1,18 +1,22 @@
-// What the packed attention forward (attention.cu) and its backward
-// (attention_bwd.cu) share on Hopper: the head map, the tile geometry and
-// its wgmma descriptors, the conversion of a score accumulator into the A
-// operand of the next product, and the stores of a warpgroup's rows.
+// What the Hopper attention kernels share: the packed forward and the
+// single-pass attention (attention.cu, one body), the blockwise forward
+// (attention_flash.cu) and the packed backward (attention_bwd.cu): the head
+// maps, the tile geometry and its wgmma descriptors, the conversion of a
+// score accumulator into the A operand of the next product, and the stores
+// of a warpgroup's rows.
 //
 // Tiles. Each image's q, k and v of one head (and dO's) are read by TMA
-// from a 4-D map over the packed [B, T, 3D] buffer, {hd, 3H, T, B}
-// innermost first (dO [B, T, D]: {hd, H, T, B}): a box of {64, 1, 64, 1} is
-// 64 rows of one head's hd columns, 128-byte swizzled, and the map's bounds
-// zero-fill the columns past hd (the next head's, or past the row) and the
-// rows past T (the next image's). A tile is 64 rows by 64 columns (hd <= 64)
-// or two such boxes 8 KiB apart (hd <= 128). Read with its rows as M or N
-// and hd as the contraction it is a K-major operand; read with its rows as
-// the contraction it is an MN-major B operand through wgmma's transpose
-// bit, so V, dO, q and K serve both products with no transposing copy.
+// from a 4-D map over a [B, H, T, hd] view: the packed [B, T, 3D] buffer as
+// 3H heads ({hd, 3H, T, B} innermost first), dO [B, T, D] ({hd, H, T, B}),
+// or any strided view of split heads, its outer dimensions ordered by
+// stride (contiguous split heads: {hd, T, H, B}). A box of 64 columns by 64
+// rows of one head is 128-byte swizzled, and the map's bounds zero-fill the
+// columns past hd (the next head's, or past the row) and the rows past T
+// (the next image's). A tile is 64 rows by 64 columns (hd <= 64) or two
+// such boxes 8 KiB apart (hd <= 128). Read with its rows as M or N and hd
+// as the contraction it is a K-major operand; read with its rows as the
+// contraction it is an MN-major B operand through wgmma's transpose bit, so
+// V, dO, q and K serve both products with no transposing copy.
 #pragma once
 
 #include <float.h>
@@ -64,6 +68,67 @@ inline bool encode_head_map(CUtensorMap* map, EncodeTiledFn encode, const void* 
   const long long row = 2LL * hd * heads;
   MapKey key{base, 4, false, {hd, heads, T, B}, {2LL * hd, row, row * T}, {64, 1, kRows, 1}};
   return encode_map(map, encode, key);
+}
+
+// Work unit u: a block's queries (block qb of nqb) of head h of image b; a
+// head's units are neighbours, so the blocks running at once share its K/V
+// in L2.
+struct FwdUnit {
+  int b, h, qb;
+};
+__device__ __forceinline__ FwdUnit fwd_unit(int u, int nqb, int num_heads) {
+  const int bh = u / nqb;
+  return FwdUnit{bh / num_heads, bh % num_heads, u % nqb};
+}
+
+// Where the head, the row and the image of a view's map sit among its
+// coordinates 1..3 (coordinate 0 is the column).
+struct MapOrder {
+  int h, r, b;
+};
+
+// A 4-D map of 64-row boxes over a [B, H, T, hd] bf16 view at `base` with
+// element strides sb, sh, sr (image, head, row; the columns contiguous,
+// every stride a multiple of 8 elements): its outer dimensions ordered by
+// stride, a dimension of one element (whose stride is arbitrary) outermost
+// with a stride past the view's extent. `order` says where each landed. A
+// map is a pure function of these, so it goes through the cache.
+inline bool encode_view_map(CUtensorMap* map, MapOrder* order, EncodeTiledFn encode,
+                            const void* base, int hd, int B, int H, int T, long long sb,
+                            long long sh, long long sr) {
+  struct Dim {
+    long long size, stride;  // stride in bytes
+    int which;               // 0 head, 1 row, 2 image
+  };
+  Dim d[3] = {{H, 2 * sh, 0}, {T, 2 * sr, 1}, {B, 2 * sb, 2}};
+  long long extent = 2LL * hd;
+  for (const Dim& x : d)
+    if (x.size > 1 && x.stride * x.size > extent) extent = x.stride * x.size;
+  for (Dim& x : d)
+    if (x.size == 1) x.stride = extent;
+  for (int i = 1; i < 3; ++i)  // stable: a size-1 dimension keeps its place among equals
+    for (int j = i; j > 0 && d[j].stride < d[j - 1].stride; --j) {
+      const Dim tmp = d[j];
+      d[j] = d[j - 1];
+      d[j - 1] = tmp;
+    }
+  int* pos[3] = {&order->h, &order->r, &order->b};
+  MapKey key{base, 4, false, {hd, 0, 0, 0}, {0, 0, 0}, {64, 1, 1, 1}};
+  for (int i = 0; i < 3; ++i) {
+    *pos[d[i].which] = i + 1;
+    key.dims[i + 1] = d[i].size;
+    key.strides[i] = d[i].stride;
+    key.box[i + 1] = d[i].which == 1 ? kRows : 1;
+  }
+  return encode_map(map, encode, key);
+}
+
+// One 64-row box of a view's map: columns col.., head h, rows row.., image b.
+__device__ __forceinline__ void tma_load_view(uint32_t dst, const CUtensorMap* map,
+                                              MapOrder o, int col, int h, int row, int b,
+                                              uint32_t bar) {
+  auto at = [&](int i) { return o.h == i ? h : o.r == i ? row : b; };
+  tma_load_4d(dst, map, col, at(1), at(2), at(3), bar);
 }
 
 // The raw words of load_a's fragments (tiles::load_a without the scale):

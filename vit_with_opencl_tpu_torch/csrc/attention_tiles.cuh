@@ -1,7 +1,8 @@
 // Tile helpers of the attention kernels that stream their K/V or q/dO
-// tiles (attention_flash.cu, attention_single.cu, attention_ring.cu; the
-// Hopper kernels of attention_sm90.cuh take load_a, store2 and the quad
-// reductions):
+// tiles through cp.async (the blockwise backward in attention_flash.cu, the
+// ring step in attention_ring.cu; attention_single.cu's fp32 kernel takes
+// the strided views; the Hopper kernels of attention_sm90.cuh take load_a,
+// scale2, store2, the views' strides and the quad reductions):
 // mma.sync m16n8k16 (bf16 in, fp32 out) on fragments in registers, cp.async
 // copies of row-major tiles into a shared-memory ring (rows padded to
 // HDP + 8 against bank conflicts), ldmatrix.trans reads of a tile as the B
@@ -214,14 +215,6 @@ struct HeadViews {
 __host__ inline HeadViews head_views(const long long* s) {
   return HeadViews{{s[0], s[1], s[2]}, {s[3], s[4], s[5]},
                    {s[6], s[7], s[8]}, {s[9], s[10], s[11]}};
-}
-
-// The slab-packed qkv [B, T, 3D] and the head-major context [B, T, D] as
-// views: q, k and v start at columns 0, D and 2D of each row.
-__host__ inline HeadViews slab_views(int T, int num_heads, int hd) {
-  const long long D = static_cast<long long>(num_heads) * hd;
-  return HeadViews{{T * 3 * D, hd, 3 * D}, {T * 3 * D, hd, 3 * D},
-                   {T * 3 * D, hd, 3 * D}, {T * D, hd, D}};
 }
 
 template <typename T>

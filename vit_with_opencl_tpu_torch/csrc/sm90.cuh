@@ -1,8 +1,8 @@
 // Hopper (sm_90a) parts shared by the bf16 GEMM core (gemm_sm90.cuh) and the
-// packed attention kernels (attention.cu, attention_bwd.cu): mbarriers, TMA
-// loads, wgmma's shared-memory descriptors, fence, commit and wait, the
-// m64n64k16 products the attention kernels take, and the tensor maps'
-// encoding with a host-side cache.
+// attention kernels (attention.cu, attention_bwd.cu, attention_flash.cu's
+// forward): mbarriers, TMA loads, wgmma's shared-memory descriptors, fence,
+// commit and wait, the m64n64k16 and m64n128k16 products the attention
+// kernels take, and the tensor maps' encoding with a host-side cache.
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and the encode's enums (types only: no -lcuda)
@@ -163,6 +163,41 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da, uint64_t d
       ", %32, %33, p, 1, 1, 0, 0;\n"
       "}\n"
       : VIT_WGMMA_D32_OUT(d)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d0|d1[64 x 128] (+)= A[64 x 16] . B[16 x 128], both from shared memory,
+// K-major: d0 holds columns 0..63 and d1 columns 64..127, each in the
+// accumulator layout of the m64n64k16 products above.
+__device__ __forceinline__ void wgmma_ss_n128(float (&d0)[32], float (&d1)[32], uint64_t da,
+                                              uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d0[0]), "+f"(d0[1]), "+f"(d0[2]), "+f"(d0[3]),
+        "+f"(d0[4]), "+f"(d0[5]), "+f"(d0[6]), "+f"(d0[7]),
+        "+f"(d0[8]), "+f"(d0[9]), "+f"(d0[10]), "+f"(d0[11]),
+        "+f"(d0[12]), "+f"(d0[13]), "+f"(d0[14]), "+f"(d0[15]),
+        "+f"(d0[16]), "+f"(d0[17]), "+f"(d0[18]), "+f"(d0[19]),
+        "+f"(d0[20]), "+f"(d0[21]), "+f"(d0[22]), "+f"(d0[23]),
+        "+f"(d0[24]), "+f"(d0[25]), "+f"(d0[26]), "+f"(d0[27]),
+        "+f"(d0[28]), "+f"(d0[29]), "+f"(d0[30]), "+f"(d0[31]),
+        "+f"(d1[0]), "+f"(d1[1]), "+f"(d1[2]), "+f"(d1[3]),
+        "+f"(d1[4]), "+f"(d1[5]), "+f"(d1[6]), "+f"(d1[7]),
+        "+f"(d1[8]), "+f"(d1[9]), "+f"(d1[10]), "+f"(d1[11]),
+        "+f"(d1[12]), "+f"(d1[13]), "+f"(d1[14]), "+f"(d1[15]),
+        "+f"(d1[16]), "+f"(d1[17]), "+f"(d1[18]), "+f"(d1[19]),
+        "+f"(d1[20]), "+f"(d1[21]), "+f"(d1[22]), "+f"(d1[23]),
+        "+f"(d1[24]), "+f"(d1[25]), "+f"(d1[26]), "+f"(d1[27]),
+        "+f"(d1[28]), "+f"(d1[29]), "+f"(d1[30]), "+f"(d1[31])
       : "l"(da), "l"(db), "r"(accumulate));
 }
 

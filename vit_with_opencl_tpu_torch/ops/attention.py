@@ -22,24 +22,30 @@ routes the same way, so the chains' plain links compare like with like.
 ``flash_attention`` (the kernel layer's public op, JAX's
 ``flash_attention``) takes split heads, [B, H, T, hd] → [B, H, T, hd], and
 routes as JAX's: T ≤ ``SINGLE_PASS_MAX_T`` to ``single_pass_attention``,
-whose kernel replaces ``_single_pass_kernel`` (the one-shot softmax of
-``_head_attention``, two passes over streamed K/V tiles, bf16 or fp32),
-longer T to the blockwise kernel through its strided entry. Its plain
-version is ``flash_attention_reference``. Both kernels read q, k and v as
-strided views (a contiguous last axis, 16-byte rows), so the permuted views
-of a [B, T, 3D] GEMM output go in without a copy. The packed kernel's
-route ends where its first form's whole-head K and V stopped fitting one
-block's shared memory, T = 849 at hd 64 (``kernel_smem_bytes``; the Hopper
-kernel streams K/V tiles and keeps that route); from there to padded T =
-1024, where JAX keeps the one-shot route, ``packed_fused_attention``
-launches the single-pass kernel on the slabs.
+which replaces ``_single_pass_kernel`` (the one-shot softmax of
+``_head_attention``: in bf16 the packed kernel's Hopper body, whose
+function it is, on strided views with a key count; in fp32 a CUDA-core
+kernel of ``csrc/attention_single.cu``), longer T to the blockwise kernel
+through its strided entry. Its plain version is
+``flash_attention_reference``. Both kernels read q, k and v as strided
+views (a contiguous last axis, 16-byte rows), so the permuted views of a
+[B, T, 3D] GEMM output go in without a copy.
 
-``packing="per_head"`` (head h's q, k and v at columns h·3·hd + {0, 1,
-2}·hd: the tensor-parallel layout) and ``true_seq_len`` (keys at and past
-it masked: a token axis that the caller already padded) take, on the card,
-the single-pass kernel on strided views of the slabs with ``kv_len`` up to
-padded T = 1024, and past it (slab packing only, as in JAX) the blockwise
-kernel with its ``kv_len``.
+``packed_fused_attention`` keeps the routes its first kernels drew, which
+the launch counters and tests hold. The packed kernel's route ends where
+its first form's whole-head K and V stopped fitting one block's shared
+memory, T = 849 at hd 64 (``kernel_smem_bytes``); from there to padded T
+= 1024, where JAX keeps the one-shot route, it launches the single-pass
+attention on the slabs. ``packing="per_head"`` (head h's q, k and v at
+columns h·3·hd + {0, 1, 2}·hd: the tensor-parallel layout) and
+``true_seq_len`` (keys at and past it masked: a token axis that the caller
+already padded) take the single-pass attention on strided views of the
+slabs with ``kv_len`` up to padded T = 1024, and past it (slab packing
+only, as in JAX) the blockwise kernel with its ``kv_len``. JAX's
+``_packed_kernel`` takes the window, ``per_head`` and ``true_seq_len``
+itself; on the card the port reaches the same Hopper body (and the same
+function) through the single-pass entry, counted under
+``LAUNCHES_SINGLE``.
 
 ``blockwise_ring_step`` replaces ``_flash_carry_kernel``, the local step of
 ring attention (``ops/ring_attention.py``): one rotation's blockwise
@@ -204,6 +210,18 @@ def packed_kernel_smem_bytes(head_dim: int) -> int:
     it) and its barriers, at any T."""
     slots = 8 if head_dim <= 64 else 4
     return _ALIGN_BYTES + slots * 2 * _tile_bytes(head_dim) + 2 * slots * 8
+
+
+def blockwise_kernel_smem_bytes(head_dim: int) -> int:
+    """Shared memory of one block of the blockwise forward
+    (csrc/attention_flash.cu ``fwd_smem_bytes``): a ring of 128-key K/V tile
+    pairs (5 up to hd 64, 3 past it), the consumers' q tiles (three
+    consumers and two units' tiles up to hd 64, two consumers and one unit's
+    past it) and their barriers, at any T."""
+    stages, q_slots, consumers = (5, 2, 3) if head_dim <= 64 else (3, 1, 2)
+    return (_ALIGN_BYTES + stages * 2 * 2 * _tile_bytes(head_dim)
+            + q_slots * consumers * _tile_bytes(head_dim)
+            + 2 * (stages + q_slots) * 8)
 
 
 def _stats_rows(seq_len: int) -> int:
