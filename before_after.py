@@ -15,7 +15,8 @@ figures, in turns: parent, this, this, parent. A side's figure is the mean
 of its two runs. The figures (ms):
 
 * row 3's four GEMMs (``fused_linear``, ViT-B/16's shapes and epilogues) at
-  B = 16 and 256;
+  B = 16 and 256, and row 5c's (``fused_linear`` with an int8 w and its
+  scale, the int8-weight chain's epilogues) at the same shapes;
 * row 4 (``packed_fused_attention``) at ViT-B/16's shape, B = 16 and 256,
   and row 11 (``packed_attention_bwd``) at ViT-B/16's, B = 64, bf16 dqkv,
   and ViT-L/16@384's, B = 32, bf16 and fp32 dqkv (the ``fused`` route's);
@@ -25,6 +26,7 @@ of its two runs. The figures (ms):
 * row 9 (``blockwise_attention_fwd``) at chip_smoke.py's FLASH_ROWS
   shapes (ViT-L/16@512's T = 1025 at B = 4 and 16, ViT-H/14@518's 1370,
   the odd tail 1337, hd 128 at 1153), and with the LSE at T = 1025, B = 16;
+  row 12 (``blockwise_attention_bwd``) at the FLASH_ROWS shapes;
 * row 14a's forms (``linear_wgrad``, ``linear_dgrad``,
   ``fused_linear_with_gelu``) at ViT-B/16's B = 16 and 64 and at
   ViT-L/16@384's widths at B = 8;
@@ -32,7 +34,8 @@ of its two runs. The figures (ms):
   calibrated W8A8 at 256; the ViT-Ti and ViT-S stacks at 16 and 256;
 * the ViT-B/16 ``fused`` AdamW step at B = 64 and ViT-L/16@384's at 32;
 * ViT-L/16@512 (T = 1025, row 9's route) at B = 16: the bf16 ``flash``
-  forward and the ``fused`` AdamW step.
+  forward and the ``fused`` and ``flash`` AdamW steps (rows 9 and 12 are
+  the ``flash`` step's attention).
 
 Then the host-bound figures (the ViT-Ti and ViT-S stacks at B = 16, 84
 launches a forward) two ways, N times each (default 10):
@@ -52,8 +55,9 @@ launches a forward) two ways, N times each (default 10):
 
 Gates (slower only, so a later tree that is faster passes): W8A8, int8
 weights and calibrated W8A8 at B = 256 at most 3% slower than the parent's;
-row 4 at ViT-B/16 B = 256 and the ViT-B/16 bf16 forward at B = 256 at most
-3% slower (row 4 shares its kernel body with row 8); the median of the
+row 4 at ViT-B/16 B = 256, row 11 at each of its shapes and the ViT-B/16
+bf16 forward at B = 256 at most 3% slower (row 4 shares its kernel body
+with row 8, row 11 its design with row 12); the median of the
 library swaps' ViT-Ti stack ratios at B = 16 at most 5% slower. Exits 1 if a gate fails, 2 without ``--parent``. The last line is
 one JSON object with every run's figures, the pairs and the gates.
 """
@@ -90,7 +94,8 @@ SINGLE_SHAPES = (("ViT-B/16", 12, 64, 197, 16, False), ("ViT-B/16", 12, 64, 197,
                  ("ViT-B/16", 12, 64, 197, 256, True),
                  ("ViT-L/16@384", 16, 64, 577, 8, False),
                  ("the route's last T", 16, 64, 1024, 4, False))
-# (name, tokens, heads, head dim, batch, with the LSE) of row 9's figures.
+# (name, tokens, heads, head dim, batch, with the LSE) of row 9's figures;
+# row 12's at each shape without the LSE.
 FLASH_SHAPES = (("ViT-L/16@512", 1025, 16, 64, 4, False),
                 ("ViT-L/16@512", 1025, 16, 64, 16, False),
                 ("ViT-L/16@512", 1025, 16, 64, 16, True),
@@ -145,6 +150,19 @@ def gemm_figures(pkg, dev) -> dict:
                 kw = {"residual": rnd(m, n, dtype=f32), "out_dtype": f32}
             out[f"row 3 {name} ViT-B/16 B={batch}"] = time_ms(
                 lambda: linear.fused_linear(x, w, b, **kw))
+        # Row 5c: the int8-weight chain's epilogues (chip_smoke.py phase 2b).
+        for name, k, n, kw in (("qkv", d, 3 * d, {}),
+                               ("out", d, d, {"residual": bf, "out_dtype": f32}),
+                               ("fc1", d, h, {"fuse_gelu": True}),
+                               ("fc2", h, d, {"residual": f32})):
+            x, b = rnd(m, k), rnd(n, std=0.02, dtype=f32)
+            wq = torch.randint(-127, 128, (k, n), generator=gen, device=dev,
+                               dtype=torch.int8)
+            sw = rnd(n, std=1e-4, dtype=f32).abs() + 1e-4
+            kw = {key: rnd(m, n, dtype=v) if key == "residual" else v
+                  for key, v in kw.items()}
+            out[f"row 5c {name} ViT-B/16 B={batch}"] = time_ms(
+                lambda: linear.fused_linear(x, wq, b, w_scale=sw, **kw))
     for cfg_name, d, h, t, batch in GRAD_SHAPES:
         m = batch * t
         tag = f"{cfg_name} B={batch}"
@@ -207,6 +225,12 @@ def long_attention_figures(pkg, dev) -> dict:
         tag = f"{name} B={batch} T={t} hd={hd}" + (" with LSE" if lse else "")
         out[f"row 9 blockwise forward {tag}"] = time_ms(
             lambda: attention.blockwise_attention_fwd(qkv, nh, hd, return_lse=lse))
+        if lse:
+            continue
+        o, l = attention.blockwise_attention_fwd(qkv, nh, hd, return_lse=True)
+        do = (torch.randn((batch, t, nh * hd), generator=gen, device=dev) * 0.01).to(bf)
+        out[f"row 12 blockwise backward {tag}"] = time_ms(
+            lambda: attention.blockwise_attention_bwd(qkv, o, l, do, nh, hd))
     return out
 
 
@@ -274,22 +298,24 @@ def forward_figures(pkg, dev) -> dict:
 
 def training_figures(pkg, dev) -> dict:
     """The fused AdamW step of ViT-B/16 at B = 64, ViT-L/16@384 at 32 and
-    ViT-L/16@512 at 16 (ms a step)."""
+    ViT-L/16@512 at 16, and the flash step of ViT-L/16@512 at 16 (ms a
+    step)."""
     out = {}
     torch.cuda.empty_cache()
-    for cfg, batch in ((pkg["VIT_B_16_224"], TRAIN_BATCH),
-                       (pkg["VIT_L_16_384"], LARGE_TRAIN_BATCH),
-                       (long_config(pkg), LONG_BATCH)):
+    for cfg, batch, impl in ((pkg["VIT_B_16_224"], TRAIN_BATCH, "fused"),
+                             (pkg["VIT_L_16_384"], LARGE_TRAIN_BATCH, "fused"),
+                             (long_config(pkg), LONG_BATCH, "fused"),
+                             (long_config(pkg), LONG_BATCH, "flash")):
         images = pkg["fixtures"].random_images(cfg, n=batch, seed=4)
         ti = torch.from_numpy(images).to(dev)
         tl = torch.full((batch,), 4 % cfg.num_classes, dtype=torch.int64, device=dev)
         init, step = pkg["spmd"].make_train_step(cfg, device=dev, lr=TRAIN_LR,
                                                  compute_dtype=torch.bfloat16,
-                                                 optimizer="adamw", attention_impl="fused")
+                                                 optimizer="adamw", attention_impl=impl)
         params = pkg["optim"].tree_map(lambda t: t.to(dev),
                                        pkg["vit"].init_params(cfg, seed=0, device="cpu"))
         state = init(params)
-        out[f"train step {cfg.name} fused B={batch}"] = time_ms(
+        out[f"train step {cfg.name} {impl} B={batch}"] = time_ms(
             lambda: step(params, state, ti, tl), reps=3)
         del params, state, init, step
         torch.cuda.empty_cache()
@@ -471,12 +497,13 @@ def main(argv: list[str]) -> int:
               f"(at most {STEADY_PATHS_TOL:.0%} slower; within {STEADY_PATHS_TOL:.0%} "
               f"either way: {abs(ratio - 1) <= STEADY_PATHS_TOL})", flush=True)
     for key in (f"row 4 attention ViT-B/16 B={THROUGHPUT_BATCHES[-1]}",
+                *(k for k in after if k.startswith("row 11 ")),
                 f"forward vit_b_16_224 bf16 B={THROUGHPUT_BATCHES[-1]}"):
         ratio = after[key] / before[key]
         gates[key] = ratio <= 1 + STEADY_PATHS_TOL
         print(f"{'ok  ' if gates[key] else 'FAIL'} {key}: this / parent {ratio:.4f} "
               f"(at most {STEADY_PATHS_TOL:.0%} slower: row 4 shares its body with "
-              f"row 8)", flush=True)
+              f"row 8, row 11 its design with row 12)", flush=True)
     key = f"forward vit_tiny_16_224 bf16 stack B={SMOKE_BATCH}"
     if key in swap_ratios:
         median = statistics.median(swap_ratios[key])

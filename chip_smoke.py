@@ -128,8 +128,8 @@ line.
    (16 heads of 64; B = 4 and 16), ViT-H/14@518's T = 1370 (hd 80), an
    odd tail (T = 1337) and hd 128 (T = 1153, 8 heads, B = 2); yardsticks
    SDPA's forward and its backward alone, each row's time printed as a
-   factor of SDPA's and of its bound; the forward with the LSE gives the
-   same bits over two runs; and at ViT-L/16@512, B = 16, the streamed
+   factor of SDPA's and of its bound; the forward with the LSE and the
+   backward give the same bits over two runs; and at ViT-L/16@512, B = 16, the streamed
    packed backward that the ``fused`` route's attention stage takes there.
 3e. The ViT-L/16@512 inference main path: ``InferenceEngine(vit_l_16_512,
    attention_impl="flash")`` in bf16 at batch 16, full depth and widths,
@@ -150,10 +150,10 @@ line.
    as split heads and as the permuted views of a packed GEMM output, B =
    256, fp32 at B = 16), T = 577 (B = 8) and 1024 (B = 4), and at T = 1025
    (the blockwise kernel on split heads, B = 4); ``packed_fused_attention``
-   at T = 900 and 1024 (16 heads of 64, B = 4: the single-pass kernel on the
-   slabs, where the packed kernel's shared memory ends) and with per-head
+   at T = 900 and 1024 (16 heads of 64, B = 4: the packed kernel on the
+   slabs, where its first form's shared memory ended) and with per-head
    packing and ``true_seq_len`` 256 and 257 of T = 264 (ViT-B/16's heads, B
-   = 16: the one-pass limit); and ``residual_layer_norm`` at D = 768, M =
+   = 16: the one-pass limit; the packed kernel's key-count entry); and ``residual_layer_norm`` at D = 768, M =
    3152 and 50432, bf16 and fp32 (``summed`` bit-identical). Yardsticks:
    SDPA on the same tensors (over the first ``true_seq_len`` keys); ``x +
    r`` then ``F.layer_norm`` (two calls). The bf16 single-pass rows give
@@ -184,8 +184,8 @@ line.
    path, of ``kv="gather"`` and of the same ring on the plain step; phase
    3e's labels) and in fp32 at B = 2; at ViT-B/16 on phase 3's workspace,
    ``tp_forward`` and ``sp_tp_forward`` (flash, bf16, mesh (1, 4): the
-   single-pass kernel once a layer a shard, T padded to 200 and masked in
-   SP x TP; within 1e-3 of fp32 and phase 3's labels), W8A8 ``tp_forward``
+   packed kernel's per-head entry once a layer a shard, T padded to 200 and
+   masked in SP x TP; within 1e-3 of fp32 and phase 3's labels), W8A8 ``tp_forward``
    (within 1e-2 of fp32, 1e-3 of its plain attention) and
    ``DataParallelEngine`` on (4, 1) (phase 3's labels and probabilities).
 4e. ms and img/s of phase 3f's ring forward at B = 8 and 16: 4 virtual
@@ -197,9 +197,10 @@ line.
    at T = 1025 (their launches; the layer against the same composition of
    the plain versions); ``perf.profile_ops`` at ViT-B/16, bf16, ``flash``,
    B = 64 (the table, JAX's stage names, one single-pass launch);
-   ``perf.device_kernel_table`` of the phase-3 engine's forward at B = 256
-   and of the ViT-Ti/16 stack's at B = 16 (the table, each chain kernel's
-   traced calls equal to its counter's rise, the card's busy share); and
+   ``perf.device_kernel_table`` of the phase-3 engine's forward at B = 256,
+   of the int8-weight engine's (phase 3b) at B = 256 and of the ViT-Ti/16
+   stack's at B = 16 (the table, each chain kernel's traced calls equal to
+   its counter's rise, the card's busy share); and
    ``perf.throughput_report`` of phase 4's bf16 forward at B = 256 (MFU).
 7. The record-producing scripts as a user runs them: ``make_fixtures`` for
    ViT-B/16 with 4 images, then ``cli --backend gpu --attention flash`` on
@@ -437,11 +438,13 @@ PUBLIC_ATTN_ROWS = (
     ("ViT-L/16@512", 4, 16, 1025, 64, torch.bfloat16, False),
 )
 # packed_fused_attention in its 849-1024 window (16 heads of 64, B = 4),
-# which raised on the card before the single-pass kernel took it.
+# where the packed kernel's first form ran out of shared memory: the packed
+# kernel's slab entry.
 WINDOW_TS = (900, 1024)
 # packed_fused_attention with per-head packing (the TP layout) and
-# true_seq_len at the single-pass body's one-pass limit: 256 keys (one
-# pass) and 257 (two) of T = 264, ViT-B/16's heads, B = 16.
+# true_seq_len at the packed body's one-pass limit: 256 keys (one pass) and
+# 257 (two) of T = 264, ViT-B/16's heads, B = 16: the packed kernel's entry
+# with a key count and a packing.
 PER_HEAD_KV_LENS = (256, 257)
 PER_HEAD_T = 264
 # residual_layer_norm at ViT-B/16's width, M = 197 x 16 and x 256 tokens.
@@ -463,7 +466,13 @@ TRACE_ITERS = 3
 # The kernel names (substrings of the demangled names in the trace) of the
 # forward chains, with the counter of each.
 TRACE_KERNELS = {"packed_attention_kernel": "attention",
-                 "gemm_sm90_kernel": "linear", "layernorm_kernel<": "layernorm"}
+                 "gemm_sm90_kernel<false, true, false>": "linear",
+                 "layernorm_kernel<": "layernorm"}
+# The int8-weight chain: the GEMM core's int8-weight form, a kernel of its
+# own in the trace.
+TRACE_KERNELS_INT8W = {"packed_attention_kernel": "attention",
+                       "gemm_sm90_kernel<false, true, true>": "linear_int8w",
+                       "layernorm_kernel<": "layernorm"}
 
 # Phases 2i, 3f and 4e: ring attention and the multi-device forwards on a
 # virtual mesh of the one card (MESH_SHARDS shards, all cuda:0): a real
@@ -614,8 +623,7 @@ REPLACES = {
     "attention_flash_lse": "vit_with_opencl_tpu/ops/attention.py:140",
     "attention_flash_bwd": "vit_with_opencl_tpu/ops/attention.py:586",
     # The kernel layer's public ops: _single_pass_kernel (flash_attention up
-    # to T = 1024, and the packed route's 849-1024 window), _flash_kernel on
-    # split heads, _ln_residual_kernel.
+    # to T = 1024), _flash_kernel on split heads, _ln_residual_kernel.
     "attention_single": "vit_with_opencl_tpu/ops/attention.py:146",
     "attention_flash_split": "vit_with_opencl_tpu/ops/attention.py:85",
     "layernorm_residual": "vit_with_opencl_tpu/ops/layernorm.py:44",
@@ -630,7 +638,7 @@ SOURCES = {
     "fused_block": "vit_with_opencl_tpu_torch/ops/fused_block.py",
     "quantize": _CSRC + "quantize.cu",
     "linear_w8a8": _CSRC + "linear.cu",
-    "linear_int8w": _CSRC + "linear.cu",
+    "linear_int8w": _CSRC + "gemm_sm90.cuh",
     "fused_block_w8a8": "vit_with_opencl_tpu_torch/ops/fused_block.py",
     "fused_block_int8w": "vit_with_opencl_tpu_torch/ops/fused_block.py",
     "quantize_split": _CSRC + "quantize.cu",
@@ -1648,6 +1656,11 @@ def flash_kernel_rows(dev) -> list[dict]:
         check(torch.equal(first[0], again[0]) and torch.equal(first[1], again[1]),
               f"{name} B={batch} T={t} hd={hd} blockwise_attention_fwd with LSE: the "
               f"same bits over two runs")
+        first, again = (attention.blockwise_attention_bwd(qkv, out, lse, do, nh, hd)
+                        for _ in range(2))
+        check(torch.equal(first, again),
+              f"{name} B={batch} T={t} hd={hd} blockwise_attention_bwd: the same bits "
+              f"over two runs (no atomics)")
         del qkv, do, out, lse, q, k, v, cases, first, again
         torch.cuda.empty_cache()
     return rows
@@ -1711,9 +1724,9 @@ def public_op_rows(dev) -> list[dict]:
         q, k, v = qkv.reshape(batch, t, nh, 3, hd).permute(3, 0, 2, 1, 4)
         case = dict(
             name=f"packed_fused_attention per_head B={batch} T={t} hd={hd} true_seq_len="
-                 f"{kv_len} (the single-pass body on per-head views, "
+                 f"{kv_len} (the packed kernel's key-count entry, "
                  f"{'one pass' if kv_len <= 256 else 'two passes'})",
-            counter="attention_single", tol=BF16_TOL, min_same=MIN_SAME_KERNEL,
+            counter="attention", tol=BF16_TOL, min_same=MIN_SAME_KERNEL,
             kernel=lambda qkv=qkv, kv_len=kv_len: attention.packed_fused_attention(
                 qkv, num_heads=nh, head_dim=hd, packing="per_head", true_seq_len=kv_len),
             plain=lambda qkv=qkv, kv_len=kv_len: attention.packed_fused_attention_reference(
@@ -1733,8 +1746,8 @@ def public_op_rows(dev) -> list[dict]:
         qkv = torch.randn((batch, t, 3 * nh * hd), generator=gen, device=dev).to(bf)
         q, k, v = qkv.reshape(batch, t, 3, nh, hd).permute(2, 0, 3, 1, 4)
         rows += run_cases([dict(
-            name=f"packed_fused_attention B={batch} T={t} hd={hd} (the single-pass kernel "
-                 f"on the slabs)", counter="attention_single",
+            name=f"packed_fused_attention B={batch} T={t} hd={hd} (the packed kernel "
+                 f"on the slabs, the first form's window)", counter="attention",
             tol=BF16_TOL, min_same=MIN_SAME_KERNEL,
             kernel=lambda qkv=qkv: attention.packed_fused_attention(
                 qkv, num_heads=nh, head_dim=hd),
@@ -2626,11 +2639,12 @@ def profile_main_path(engine, dev) -> dict:
     return counts
 
 
-def traced_forward(name: str, fn, images) -> None:
+def traced_forward(name: str, fn, images, kernels: dict = TRACE_KERNELS) -> None:
     """Phase 6c: ``perf.device_kernel_table`` of ``fn(images)`` (one run
     outside the trace, TRACE_ITERS between its marks and one before and
     one after them): the table; each chain kernel's
-    traced calls against its counter's rise over the traced runs; the
+    traced calls (``kernels``: name substring → counter) against its
+    counter's rise over the traced runs; the
     card's busy share, the table's device total over the CUDA-event time of
     the same runs."""
     events = []
@@ -2650,7 +2664,7 @@ def traced_forward(name: str, fn, images) -> None:
     after = read_counts()
     print("  " + perf.format_kernel_table(table, iters=TRACE_ITERS).replace(
         "\n", "\n  "), flush=True)
-    for sub, counter in TRACE_KERNELS.items():
+    for sub, counter in kernels.items():
         calls = sum(s.calls for s in table if sub in s.name)
         rise = after[counter] - before[counter]  # TRACE_ITERS + 3 runs
         traced = rise * TRACE_ITERS // (TRACE_ITERS + 3)
@@ -2819,7 +2833,7 @@ def ring_main_path(dev, params: dict, images: np.ndarray, ref_probs: np.ndarray,
 
 
 def tensor_parallel_main_path(dev, rounded: dict, images: np.ndarray,
-                              ref_probs: np.ndarray, engine) -> None:
+                              ref_probs: np.ndarray, engine) -> dict:
     """Phase 3f's ViT-B/16 part, on phase 3's workspace weights and 40
     decisive images, on virtual meshes of the card: ``tp_forward`` and
     ``sp_tp_forward`` (flash, bf16; T = 197 padded to 200 and masked by
@@ -2836,13 +2850,15 @@ def tensor_parallel_main_path(dev, rounded: dict, images: np.ndarray,
     engine_probs = engine.run(images)
     labels = engine_probs.argmax(-1)
     shards = spmd.shard_params_tp(stacked, mesh, cfg)
+    runs = {}
     for name, fwd in (("tp_forward", spmd.tp_forward),
                       ("sp_tp_forward", spmd.sp_tp_forward)):
         probs, counts, secs = counted(lambda fwd=fwd: fwd(
             x, shards, cfg, mesh, attention_impl="flash").cpu().numpy())
+        runs[name] = counts
         expect_only(counts, f"{cfg.name} {name} flash bf16 on {s} virtual shards "
                             f"({len(images)} images, {secs:.2f} s)",
-                    attention_single=cfg.depth * s)
+                    attention=cfg.depth * s)
         err = float(np.abs(probs - ref_probs).max())
         check(err <= PROB_TOL and bool((probs.argmax(-1) == labels).all()),
               f"{cfg.name} {name}: max abs err {err:.3e} vs fp32 plain (budget "
@@ -2877,6 +2893,7 @@ def tensor_parallel_main_path(dev, rounded: dict, images: np.ndarray,
           f"(budget {PROB_TOL}), its labels")
     del stacked, shards, qshards, dp
     torch.cuda.empty_cache()
+    return runs
 
 
 def ring_throughput(dev, params: dict) -> None:
@@ -3181,7 +3198,7 @@ def main() -> int:
               f"(sp_forward kv='ring' at {LONG_CFG.name}; tp_forward, sp_tp_forward, "
               f"W8A8 TP and DataParallelEngine at {CFG.name})")
         ring_counts = ring_main_path(dev, long_params, long_images, long_ref, long_probs)
-        tensor_parallel_main_path(dev, rounded, images, ref_probs, engine)
+        tp_counts = tensor_parallel_main_path(dev, rounded, images, ref_probs, engine)
     phase("== phase 5c: ViT-L/16@512 training main path (Trainer, bf16, AdamW; "
           "flash and fused; a step of each vs the plain links)")
     long_train_counts = long_training_main_path(dev, long_params)
@@ -3215,9 +3232,12 @@ def main() -> int:
         profile_counts = profile_main_path(engine, dev)
         big = THROUGHPUT_BATCHES[-1]
         gen = torch.Generator(device=dev).manual_seed(big)
-        traced_forward(f"{CFG.name} bf16 flash forward B={big}", engine.forward,
-                       torch.randn((big, 3, CFG.img_size, CFG.img_size),
-                                   generator=gen, device=dev))
+        big_images = torch.randn((big, 3, CFG.img_size, CFG.img_size), generator=gen,
+                                 device=dev)
+        traced_forward(f"{CFG.name} bf16 flash forward B={big}", engine.forward, big_images)
+        traced_forward(f"{CFG.name} int8 flash forward B={big}", engines["int8"].forward,
+                       big_images, TRACE_KERNELS_INT8W)
+        del big_images
         tiny = VIT_TINY_16_224
         traced_forward(f"{tiny.name} bf16 stack forward B={SMOKE_BATCH}",
                        small[tiny.name][1]["bf16"].forward,
@@ -3276,11 +3296,17 @@ def main() -> int:
                  "attention_bwd": long_train_counts["fused"]}
     runs += [(long_runs[r["counter"]], r) for r in flash_rows
              if r["name"].startswith(LONG_CFG.name)]
-    # Phase 2h's rows, from phase 6: the single-pass kernel's from
-    # profile_ops' run, residual_layer_norm's and the split-head blockwise
-    # forward's from the public ops' run.
-    runs += [(profile_counts if r["counter"] == "attention_single" else public_counts, r)
-             for r in public_rows]
+    # Phase 2h's rows: the single-pass kernel's from phase 6's profile_ops
+    # run, residual_layer_norm's and the split-head blockwise forward's from
+    # its public ops' run; the packed kernel's per-head key-count rows from
+    # phase 3f's sp_tp_forward (per-head packing, a key count), its window
+    # rows from phase 3's run (the slab entry).
+    def public_run(r):
+        if r["counter"] == "attention":
+            return tp_counts["sp_tp_forward"] if "per_head" in r["name"] else counts
+        return profile_counts if r["counter"] == "attention_single" else public_counts
+
+    runs += [(public_run(r), r) for r in public_rows]
     # Phase 2i's first-rotation rows at phase 3f's shape (ViT-L/16@512, 4
     # shards, B = 8), from phase 3f's bf16 and fp32 ring forwards.
     runs += [(ring_counts["bf16" if "(bf16," in r["name"] else "fp32"], r)

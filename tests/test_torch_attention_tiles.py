@@ -1,5 +1,5 @@
 """The Hopper attention kernels' host-side geometry (shared memory, the
-backward's statistics buffer, the route they keep), and the plain versions
+backward's statistics buffer, the packed route's decision), and the plain versions
 they are held to on the card against the JAX package at their tile edges:
 T about the 64-row tiles and the 256-key single pass, head dims below one
 64-column box and across two; the single-pass attention's key count about
@@ -65,12 +65,58 @@ def test_blockwise_kernel_shared_memory_fits_a_block_at_every_head_dim(hd):
     assert attention.blockwise_kernel_smem_bytes(hd) >= 3 * 2 * 2 * 8192
 
 
+@pytest.mark.parametrize("hd", range(8, 129, 8))
+def test_blockwise_bwd_kernels_shared_memory_fits_a_block_at_every_head_dim(hd):
+    """The blockwise backward's dq kernel (a ring of K/V tile pairs) and its
+    dK/dV kernel (resident K/V tiles, a ring of q/dO tile pairs with their
+    rows' lse and dvec) depend on the head dim alone and fit one block at
+    every head dim they take."""
+    smem = attention.blockwise_bwd_kernel_smem_bytes(hd)
+    assert smem <= attention.MAX_SMEM_BYTES
+    # Four stages of two tiles and the consumers' K and V at least.
+    assert smem >= 1024 + 4 * 2 * attention._tile_bytes(hd) + 4 * attention._tile_bytes(hd)
+
+
 def test_route_boundary_is_unchanged():
-    """``kernel_smem_bytes`` still draws the packed route's bound on T (hd 64:
-    848, hd 128: 432), past which the single-pass kernel takes the slabs."""
-    mx = attention.MAX_SMEM_BYTES
-    assert attention.kernel_smem_bytes(848, 64) <= mx < attention.kernel_smem_bytes(849, 64)
-    assert attention.kernel_smem_bytes(432, 128) <= mx < attention.kernel_smem_bytes(433, 128)
+    """The packed route ends where JAX's one-shot route does, at padded T =
+    1024: the packed kernel (slab entry) takes every T up to it at every head
+    dim, the 849-1024 window of its first form included, and the blockwise
+    kernel every T past it."""
+    bf = torch.bfloat16
+    for hd in (64, 128):
+        for t in (1, 432, 433, 848, 849, 900, 1024):
+            assert attention._packed_route(t, "slab", t, bf) == "packed"
+        assert attention._packed_route(1025, "slab", 1025, bf) == "blockwise"
+
+
+# (T, packing, true_seq_len, route on the card for bf16 and for fp32).
+ROUTES = [
+    (197, "slab", None, "packed", "packed"),
+    (900, "slab", None, "packed", "packed"),
+    (1024, "slab", None, "packed", "packed"),
+    (1000, "slab", 1000, "packed", "packed"),
+    (200, "slab", 197, "packed_kv", "single_pass"),
+    (1024, "slab", 1001, "packed_kv", "single_pass"),
+    (197, "per_head", None, "packed_kv", "single_pass"),
+    (200, "per_head", 197, "packed_kv", "single_pass"),
+    (1024, "per_head", None, "packed_kv", "single_pass"),
+    (1025, "slab", None, "blockwise", "blockwise"),
+    (1028, "slab", 1025, "blockwise", "blockwise"),
+]
+
+
+@pytest.mark.parametrize("t,packing,seq,bf16_route,f32_route", ROUTES)
+def test_packed_route_decision(t, packing, seq, bf16_route, f32_route):
+    """``packed_fused_attention``'s route as JAX's ``_packed_kernel`` draws
+    it: up to padded T = 1024 the packed kernel, by its slab entry over every
+    key and by its key-count entry for per-head packing or
+    ``true_seq_len``; past it the blockwise kernel. The packed kernel takes
+    bf16, so fp32 with a key count or per-head packing takes the
+    single-pass attention's fp32 kernel."""
+    keys = attention._packed_checks(t, packing, seq)
+    assert keys == (t if seq is None else seq)
+    assert attention._packed_route(t, packing, keys, torch.bfloat16) == bf16_route
+    assert attention._packed_route(t, packing, keys, torch.float32) == f32_route
 
 
 @pytest.mark.parametrize("t", EDGE_TS)

@@ -146,13 +146,12 @@ def test_packed_attention_kernel(dev, b, t, nh, hd):
 
 
 # The Hopper kernels' edges: sequence lengths about their 64-row tiles and
-# 256-key single pass, ViT-B's, ViT-L/16@384's and the route's last at hd
-# 64; head dims below one 64-column box, at it, and two boxes (ViT-H's 80,
-# ViT-G's 104, 128), where the packed route admits them.
-EDGE_TS = (1, 16, 17, 63, 64, 65, 197, 255, 256, 257, 577, 848)
+# 256-key single pass, ViT-B's, ViT-L/16@384's, the first form's last (848)
+# and the route's last (1024); head dims below one 64-column box, at it, and
+# two boxes (ViT-H's 80, ViT-G's 104, 128).
+EDGE_TS = (1, 16, 17, 63, 64, 65, 197, 255, 256, 257, 577, 848, 1024)
 EDGE_HDS = (16, 64, 80, 104, 128)
-EDGE_SHAPES = [(t, hd) for t in EDGE_TS for hd in EDGE_HDS
-               if attention.kernel_smem_bytes(t, hd) <= attention.MAX_SMEM_BYTES]
+EDGE_SHAPES = [(t, hd) for t in EDGE_TS for hd in EDGE_HDS]
 
 
 @pytest.mark.parametrize("t,hd", EDGE_SHAPES)
@@ -244,15 +243,26 @@ def test_fused_linear_w8a8_kernel(dev, m, k, n, epilogue):
         assert (out == ref).float().mean().item() >= MIN_SAME_KERNEL
 
 
+# Ragged M, N and K (K = 40: one 64-deep slice, zero-filled), M = 1, the
+# ViT-Ti/S widths (K = 192 and 384), ViT-B's shapes, and 600 tiles (M = 3152:
+# ViT-B at B = 16, N = 3072), more than four waves of SMs, so that the
+# persistent grid wraps and the int8 ring's slots are reused across units.
 @pytest.mark.parametrize("m,k,n", [(74, 64, 192), (394, 768, 2304),
-                                   (33, 40, 32), (1, 3072, 768)])
-@pytest.mark.parametrize("epilogue", ["bias_bf16", "gelu", "res_f32", "res_bf16"])
+                                   (33, 40, 32), (1, 3072, 768),
+                                   (394, 192, 576), (394, 384, 1536),
+                                   (3152, 768, 3072)])
+@pytest.mark.parametrize("epilogue", ["bias_bf16", "gelu", "res_f32", "res_bf16",
+                                      "res_f32_bf16"])
 def test_fused_linear_int8w_kernel(dev, m, k, n, epilogue):
+    """The int8-weight GEMM on the Hopper core (w widened to bf16 in shared
+    memory) against its plain version, in every epilogue the chains take:
+    qkv's bias (TMA-store epilogue), fc1's GELU, out-proj's residual, fc2's
+    fp32 residual with bf16 out, and the stack's fp32 stream (res_f32)."""
     x = _rand((m, k), dev, torch.bfloat16)
     w = _int8_weight(k, n, dev)
     b = _rand((n,), dev, std=0.1, seed=2)
-    kw = _epilogue_kw(epilogue, m, n, dev)
-    if epilogue == "gelu":
+    kw = _epilogue_kw("res_f32" if epilogue == "res_f32_bf16" else epilogue, m, n, dev)
+    if epilogue in ("gelu", "res_f32_bf16"):
         kw["out_dtype"] = torch.bfloat16
     before = linear.LAUNCHES_INT8W
     out = linear.fused_linear(x, w["q"], b, w_scale=w["scale"], **kw)
@@ -762,8 +772,11 @@ def test_column_sum_kernel(dev, rows, cols, dtype):
 # packed forward's, its LSE to fp32 summation order, the backward's dqkv as
 # the packed backward's.
 LSE_REL = 1e-5
+# ... and more (image, head, 64-row tile) units than the card has SMs
+# (ViT-L/16@512's heads at B = 4), and T = 1153 with 8 heads of 128.
 FLASH_SHAPES = [(2, 1025, 2, 64), (1, 1370, 2, 80), (1, 1337, 1, 64),
-                (1, 300, 1, 128), (2, 37, 2, 16), (1, 200, 1, 104)]
+                (1, 300, 1, 128), (2, 37, 2, 16), (1, 200, 1, 104),
+                (4, 1025, 16, 64), (1, 1153, 8, 128)]
 
 
 @pytest.mark.parametrize("b,t,nh,hd", FLASH_SHAPES)
@@ -804,12 +817,39 @@ def test_flash_attention_bwd_kernel(dev, b, t, nh, hd):
                                                                nh, hd))  # no atomics
 
 
+KEY_COUNT_CASES = [(t, kv_len, packing)
+                   for t, kv_len in ((200, 197), (264, 257), (1024, 1000), (197, 197))
+                   for packing in ("per_head", "slab")
+                   if packing == "per_head" or kv_len < t]
+
+
+@pytest.mark.parametrize("t,kv_len,packing", KEY_COUNT_CASES)
+def test_packed_attention_key_count_entry_is_the_single_pass_function(dev, t, kv_len,
+                                                                      packing):
+    """The packed kernel's entry with a key count and a packing (per-head
+    packing, the TP layout; true_seq_len, a padded token axis) gives the
+    single-pass kernel's bits on the same strided views of the packed
+    buffer, one pass (<= 256 keys) or two, and counts under LAUNCHES."""
+    b, nh, hd = 2, 4, 64
+    qkv = _rand((b, t, 3 * nh * hd), dev, torch.bfloat16, seed=t + kv_len)
+    before = (attention.LAUNCHES, attention.LAUNCHES_SINGLE)
+    out = attention.packed_fused_attention(qkv, num_heads=nh, head_dim=hd, packing=packing,
+                                           true_seq_len=kv_len)
+    torch.cuda.synchronize()
+    assert (attention.LAUNCHES, attention.LAUNCHES_SINGLE) == (before[0] + 1, before[1])
+    q, k, v = attention._packed_heads(qkv, nh, hd, packing)
+    single = attention.single_pass_attention(q, k, v, hd, kv_len=kv_len)
+    assert torch.equal(out, single.permute(0, 2, 1, 3).reshape(b, t, nh * hd))
+    _close(out, attention.packed_fused_attention_reference(qkv, nh, hd, packing=packing,
+                                                            true_seq_len=kv_len))
+
+
 def test_long_sequences_route_to_the_flash_kernels(dev):
     """Past SINGLE_PASS_MAX_T the packed and the trainable attention launch
     the blockwise kernels and not the packed ones; fp32 inputs raise. In the
-    packed route's shared-memory window (849-1024 tokens at hd 64), where JAX
-    keeps the one-shot route, the single-pass kernel runs (this test raised
-    there before that kernel existed)."""
+    window of 849-1024 tokens at hd 64, where JAX keeps the one-shot route
+    and the packed kernel's first form ran out of shared memory, the packed
+    kernel runs (this test raised there before any kernel took it)."""
     qkv = _rand((1, 1025, 3 * 64), dev, torch.bfloat16)
     counts = lambda: (attention.LAUNCHES, attention.LAUNCHES_BWD,  # noqa: E731
                       attention.LAUNCHES_FLASH, attention.LAUNCHES_FLASH_LSE,
@@ -831,13 +871,13 @@ def test_long_sequences_route_to_the_flash_kernels(dev):
                                           qkv[..., :64].float(), 1, 64)
     with pytest.raises(RuntimeError, match="packed_fused_attention_trainable"):
         attention.packed_fused_attention(x, num_heads=1, head_dim=64)
-    # The packed route's shared-memory window (849-1024 tokens at hd 64) now
-    # runs, through the single-pass kernel.
+    # The packed route's first form's shared-memory window (849-1024 tokens
+    # at hd 64) runs on the packed kernel, which streams its K/V tiles.
     window = _rand((1, 900, 3 * 64), dev, torch.bfloat16)
-    single = attention.LAUNCHES_SINGLE
+    launches = (attention.LAUNCHES, attention.LAUNCHES_SINGLE)
     out = attention.packed_fused_attention(window, num_heads=1, head_dim=64)
     torch.cuda.synchronize()
-    assert attention.LAUNCHES_SINGLE == single + 1
+    assert (attention.LAUNCHES, attention.LAUNCHES_SINGLE) == (launches[0] + 1, launches[1])
     _close(out, attention.packed_fused_attention_reference(window, 1, 64))
 
 
@@ -928,18 +968,20 @@ def test_flash_attention_blockwise_on_split_heads(dev, b, nh, t, hd):
 
 @pytest.mark.parametrize("t", [848, 849, 900, 1024])
 def test_packed_attention_window_takes_the_single_pass_kernel(dev, t):
-    """At hd 64 the packed kernel runs up to T = 848; from 849 to 1024 the
-    same function through the single-pass kernel on the slabs."""
+    """At hd 64 the packed kernel's first form ran up to T = 848, and the
+    single-pass kernel took 849-1024 on the slabs; the packed kernel now
+    takes the whole window itself (the single-pass function, counted under
+    LAUNCHES), equal to the single-pass kernel's output on the same slabs."""
     b, nh, hd = 2, 4, 64
     qkv = _rand((b, t, 3 * nh * hd), dev, torch.bfloat16)
     before = (attention.LAUNCHES, attention.LAUNCHES_SINGLE)
     out = attention.packed_fused_attention(qkv, num_heads=nh, head_dim=hd)
     torch.cuda.synchronize()
-    window = attention.kernel_smem_bytes(t, hd) > attention.MAX_SMEM_BYTES
-    assert window == (t > 848)
-    assert (attention.LAUNCHES, attention.LAUNCHES_SINGLE) == (
-        before[0] + (not window), before[1] + window)
+    assert (attention.LAUNCHES, attention.LAUNCHES_SINGLE) == (before[0] + 1, before[1])
     _close(out, attention.packed_fused_attention_reference(qkv, nh, hd))
+    q, k, v = qkv.reshape(b, t, 3, nh, hd).permute(2, 0, 3, 1, 4)
+    single = attention.single_pass_attention(q, k, v, hd)
+    assert torch.equal(out, single.permute(0, 2, 1, 3).reshape(b, t, nh * hd))
 
 
 # The single-pass attention's Hopper body (shared with the packed kernel):
@@ -991,7 +1033,7 @@ def test_single_pass_kernel_view_layouts_agree(dev, t):
     ctx = attention.packed_fused_attention(slab, num_heads=nh, head_dim=hd)
     outs["packed kernel"] = ctx.view(b, t, nh, hd).permute(0, 2, 1, 3)
     torch.cuda.synchronize()
-    assert (attention.LAUNCHES, attention.LAUNCHES_SINGLE) == (before[0] + 1, before[1] + 1)
+    assert (attention.LAUNCHES, attention.LAUNCHES_SINGLE) == (before[0] + 2, before[1])
     _close(outs["contiguous"], attention.single_pass_attention_reference(q, k, v, hd))
     for name, out in outs.items():
         assert torch.equal(out, outs["contiguous"]), name
@@ -1414,9 +1456,10 @@ def test_ring_attention_on_a_virtual_mesh_of_the_card(dev):
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_packed_attention_per_head_and_true_seq_len(dev, t, seq, dtype):
     """Per-head packing and true_seq_len on the card: up to padded T = 1024
-    the single-pass kernel on strided views with kv_len, past it (slab
-    packing) the blockwise kernel with its kv_len; fp32 past 1024 and
-    per-head packing past 1024 raise."""
+    the packed kernel's key-count entry in bf16 (the single-pass kernel on
+    strided views with kv_len in fp32), past it (slab packing) the blockwise
+    kernel with its kv_len; fp32 past 1024 and per-head packing past 1024
+    raise."""
     b, nh, hd = 2, 4, 64
     qkv = _rand((b, t, 3 * nh * hd), dev, dtype)
     long_seq = attention._is_long_seq(t)
@@ -1429,14 +1472,16 @@ def test_packed_attention_per_head_and_true_seq_len(dev, t, seq, dtype):
             continue
         if not long_seq and packing == "slab" and seq == t and dtype == torch.float32:
             continue  # the packed kernel takes bf16 only (unchanged)
-        before = (attention.LAUNCHES_SINGLE, attention.LAUNCHES_FLASH)
+        before = (attention.LAUNCHES_SINGLE, attention.LAUNCHES_FLASH, attention.LAUNCHES)
         out = attention.packed_fused_attention(qkv, num_heads=nh, head_dim=hd,
                                                packing=packing, true_seq_len=seq)
         torch.cuda.synchronize()
         if long_seq:
             assert attention.LAUNCHES_FLASH == before[1] + 1
-        elif packing == "per_head" or seq != t:
+        elif dtype == torch.float32:
             assert attention.LAUNCHES_SINGLE == before[0] + 1
+        else:
+            assert (attention.LAUNCHES, attention.LAUNCHES_SINGLE) == (before[2] + 1, before[0])
         ref = attention.packed_fused_attention_reference(
             qkv, nh, hd, packing=packing, true_seq_len=seq)
         if dtype == torch.bfloat16:

@@ -167,13 +167,14 @@ def test_single_pass_masks_keys_past_kv_len():
 
 
 def test_packed_window_is_the_single_pass_function():
-    """At 849 ≤ T ≤ 1024 (hd 64) the packed kernel's K and V exceed one
-    block's shared memory, and on the card ``packed_fused_attention``
-    launches the single-pass kernel on the slabs: the same function, so its
-    plain version equals the packed route's bit for bit."""
+    """At 849 ≤ T ≤ 1024 (hd 64), the window where the packed kernel's first
+    form ran out of shared memory, ``packed_fused_attention`` launches the
+    packed kernel on the card again (it streams its K/V tiles): the
+    single-pass function, so the single-pass plain version equals the
+    packed route's bit for bit."""
     t = 900
-    assert attention.kernel_smem_bytes(t, HD) > attention.MAX_SMEM_BYTES
-    assert attention.kernel_smem_bytes(848, HD) <= attention.MAX_SMEM_BYTES
+    assert attention._packed_route(t, "slab", t, torch.bfloat16) == "packed"
+    assert attention._packed_route(848, "slab", 848, torch.bfloat16) == "packed"
     qkv = torch.from_numpy(_rand((1, t, 3 * NH * HD), 9)).to(torch.bfloat16)
     q, k, v = qkv.reshape(1, t, 3, NH, HD).permute(2, 0, 3, 1, 4)
     single = attention.single_pass_attention_reference(q, k, v, HD)

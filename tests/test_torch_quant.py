@@ -31,7 +31,7 @@ from vit_with_opencl_tpu_torch.harness import fixtures, results
 from vit_with_opencl_tpu_torch.io import binfmt
 from vit_with_opencl_tpu_torch.models import golden, quant
 from vit_with_opencl_tpu_torch.models import vit as tvit
-from vit_with_opencl_tpu_torch.ops import fused_block, linear, quantize
+from vit_with_opencl_tpu_torch.ops import attention, fused_block, linear, quantize
 
 DTYPES = {"f32": (torch.float32, jnp.float32), "bf16": (torch.bfloat16, jnp.bfloat16)}
 CFG = ViTConfig(name="q", img_size=32, patch_size=8, embed_dim=64, depth=2,
@@ -254,6 +254,20 @@ def test_int8_gemm_wrappers_match_plain_on_cpu():
     assert (linear.LAUNCHES_INT8W, linear.LAUNCHES_W8A8) == before
     with pytest.raises(ValueError, match="w_scale"):
         linear.fused_linear(x, tw["q"], b)
+
+
+@pytest.mark.parametrize("form", ["bf16", "int8w"])
+def test_gemm_core_shared_memory_fits_a_block(form):
+    """The Hopper GEMM core's shared memory (ops/linear.py's mirrors of
+    csrc/gemm_sm90.cuh's byte counts) fits one block in its bf16 forms and
+    in the int8-weight form, whose ring of int8 w slices sits beside the
+    bf16 form's; one int8 slot more would not fit."""
+    mx = attention.MAX_SMEM_BYTES
+    if form == "bf16":
+        assert linear.gemm_kernel_smem_bytes() <= mx
+    else:
+        assert linear.gemm_kernel_smem_bytes() < linear.int8w_kernel_smem_bytes() <= mx
+        assert linear.int8w_kernel_smem_bytes(linear.INT8W_STAGES + 1) > mx
 
 
 ENC_CFG = ViTConfig(name="enc", img_size=32, patch_size=8, embed_dim=64,

@@ -1,18 +1,21 @@
 // Multi-head attention with the one-shot softmax of _head_attention, one
 // body for two entries:
-//   packed       [B, T, 3D] packed q|k|v slabs -> the head-major context
-//                [B, T, D] (vit_packed_attention_bf16). Replaces
+//   packed       [B, T, 3D] packed q|k|v -> the head-major context [B, T, D]
+//                (vit_packed_attention_bf16: slab packing, T keys;
+//                vit_packed_attention_kv: slab or per-head packing, keys at
+//                and past kv_len masked). Replaces
 //                vit_with_opencl_tpu/ops/attention.py:_packed_kernel
-//                (packed_fused_attention) and the per-head attention that
+//                (packed_fused_attention, with its packings and
+//                true_seq_len) and the per-head attention that
 //                ops/fused_block.py:_block_kernel inlines (_head_attention).
 //                "slab" packing: head h's q, k and v are the hd columns at
-//                h*hd, D + h*hd and 2D + h*hd (attention.py:_packed_offsets).
+//                h*hd, D + h*hd and 2D + h*hd; "per_head" at 3h*hd, (3h +
+//                1)*hd and (3h + 2)*hd (attention.py:_packed_offsets).
 //   single pass  q, k, v, out as strided [B, H, T, hd] views, keys at and
 //                past kv_len masked (vit_single_pass_attention in
 //                attention_single.cu, bf16). Replaces
 //                vit_with_opencl_tpu/ops/attention.py:_single_pass_kernel
-//                (flash_attention up to T = 1024; the packed route's
-//                per-head packing, true_seq_len and its 849-1024 window).
+//                (flash_attention up to T = 1024).
 // Per head, the numerics of _head_attention:
 //   qs = q * scale               rounded to bf16, as the input dtype
 //   s  = qs . k^T                fp32 accumulation
@@ -58,7 +61,8 @@
 // kernels of one body (packed_attention_kernel, single_pass_attention_kernel:
 // a trace tells them apart). What differs between them is resolved at
 // compile time where the consumers would pay for it (q's and out's
-// addressing, kv_len == T); the maps' order is read by the producer's one
+// addressing; kv_len == T, also a form of the packed kernel); the maps'
+// order and the heads' coordinates in them are read by the producer's one
 // thread.
 // Operations: 4 T^2 hd a head up to 256 keys (padded to whole 64-key chunks
 // and 64-query tiles), 6 T^2 hd past it; the exponential is expf (the plain
@@ -85,7 +89,7 @@ __host__ __device__ constexpr int fwd_smem_bytes() {
   return 1024 + fwd_slots<HDP>() * 2 * tile_bytes<HDP>() + 2 * fwd_slots<HDP>() * 8;
 }
 
-// What the two entries pass the body besides the maps.
+// What the entries pass the body besides the maps.
 struct FwdArgs {
   const bf16* q;
   bf16* out;
@@ -96,13 +100,18 @@ struct FwdArgs {
 };
 
 // kViews: the single-pass entry (any view, a key count); otherwise the
-// packed entry, whose slab addressing of q and out and whose key count (T)
-// are fixed at compile time: read from the views' strides at run time, they
-// measured slower in the packed kernel at ViT-B B = 256.
-template <int HDP, bool kViews>
+// packed entries, whose addressing of q and out ([B, T, 3D] and [B, T, D])
+// is fixed at compile time: read from the views' strides at run time, they
+// measured slower in the packed kernel at ViT-B B = 256. The packed
+// kernel's slab form (kGeneral false) also fixes slab packing and T keys;
+// its general form reads the key count and the packing from the arguments
+// (qs.head: hd for slabs, 3 hd for per-head packing, whose head h has q, K
+// and V at head coordinates 3h, 3h + 1 and 3h + 2 of the packed map).
+template <int HDP, bool kViews, bool kGeneral>
 __device__ __forceinline__ void attention_fwd(const CUtensorMap* map_k,
                                               const CUtensorMap* map_v, const FwdArgs& a) {
-  const int T = a.T, kv_len = kViews ? a.kv_len : a.T, num_heads = a.num_heads, hd = a.hd;
+  const int T = a.T, kv_len = kViews || kGeneral ? a.kv_len : a.T;
+  const int num_heads = a.num_heads, hd = a.hd;
   const int units = a.units;
   const float scale = a.scale;
   const int D = num_heads * hd;
@@ -147,8 +156,9 @@ __device__ __forceinline__ void attention_fwd(const CUtensorMap* map_k,
 #pragma unroll
           for (int j = 0; j < kB; ++j) {
             // The slabs: one map of 3H heads, K at H + h and V at 2H + h.
-            const int kh = kViews ? w.h : num_heads + w.h;
-            const int vh = kViews ? w.h : 2 * num_heads + w.h;
+            const bool per_head = kGeneral && a.qs.head != hd;
+            const int kh = kViews ? w.h : per_head ? 3 * w.h + 1 : num_heads + w.h;
+            const int vh = kViews ? w.h : per_head ? 3 * w.h + 2 : 2 * num_heads + w.h;
             tma_load_view(k + j * kBox, map_k, a.ko, 64 * j, kh, c * kRows, w.b, bar);
             if (with_v)
               tma_load_view(k + kTile + j * kBox, map_v, a.vo, 64 * j, vh, c * kRows, w.b, bar);
@@ -204,8 +214,9 @@ __device__ __forceinline__ void attention_fwd(const CUtensorMap* map_k,
       load_a_raw<HDP>(raw, q + w.b * a.qs.batch + w.h * a.qs.head,
                       static_cast<int>(a.qs.row), 0, first_row(w), T, hd, g, tq);
     else
-      load_a_raw<HDP>(raw, q + static_cast<size_t>(w.b) * T * 3 * D, 3 * D, w.h * hd,
-                      first_row(w), T, hd, g, tq);
+      load_a_raw<HDP>(raw, q + static_cast<size_t>(w.b) * T * 3 * D, 3 * D,
+                      w.h * (kGeneral ? static_cast<int>(a.qs.head) : hd), first_row(w), T, hd,
+                      g, tq);
   };
   uint32_t q_next[kSteps][4];
   load_q(q_next, blockIdx.x);
@@ -349,11 +360,11 @@ __device__ __forceinline__ void attention_fwd(const CUtensorMap* map_k,
   if (one_pass) turns_end(wg);
 }
 
-template <int HDP>
+template <int HDP, bool kGeneral>
 __global__ void __launch_bounds__(kThreads, 1)
 packed_attention_kernel(const __grid_constant__ CUtensorMap map_qkv,
                         const __grid_constant__ FwdArgs args) {
-  attention_fwd<HDP, false>(&map_qkv, &map_qkv, args);
+  attention_fwd<HDP, false, kGeneral>(&map_qkv, &map_qkv, args);
 }
 
 template <int HDP>
@@ -361,11 +372,12 @@ __global__ void __launch_bounds__(kThreads, 1)
 single_pass_attention_kernel(const __grid_constant__ CUtensorMap map_k,
                              const __grid_constant__ CUtensorMap map_v,
                              const __grid_constant__ FwdArgs args) {
-  attention_fwd<HDP, true>(&map_k, &map_v, args);
+  attention_fwd<HDP, true, true>(&map_k, &map_v, args);
 }
 
 // One launch of either kernel: the packed one when map_v is null (K and V
-// in map_k), the single-pass one otherwise; args.units set here.
+// in map_k; its general form for a key count or per-head packing), the
+// single-pass one otherwise; args.units set here.
 template <int HDP>
 cudaError_t launch_fwd(const CUtensorMap& map_k, const CUtensorMap* map_v, FwdArgs args,
                        int B, cudaStream_t stream) {
@@ -378,10 +390,14 @@ cudaError_t launch_fwd(const CUtensorMap& map_k, const CUtensorMap* map_v, FwdAr
     return cudaErrorInvalidValue;
   args.units = static_cast<int>(units);
   const int grid = static_cast<int>(units < sms ? units : sms);  // persistent
-  if (map_v == nullptr) {
-    const cudaError_t err = allow_dynamic_smem(packed_attention_kernel<HDP>, smem);
+  if (map_v == nullptr && (args.kv_len < args.T || args.qs.head != args.hd)) {
+    const cudaError_t err = allow_dynamic_smem(packed_attention_kernel<HDP, true>, smem);
     if (err != cudaSuccess) return err;
-    packed_attention_kernel<HDP><<<grid, kThreads, smem, stream>>>(map_k, args);
+    packed_attention_kernel<HDP, true><<<grid, kThreads, smem, stream>>>(map_k, args);
+  } else if (map_v == nullptr) {
+    const cudaError_t err = allow_dynamic_smem(packed_attention_kernel<HDP, false>, smem);
+    if (err != cudaSuccess) return err;
+    packed_attention_kernel<HDP, false><<<grid, kThreads, smem, stream>>>(map_k, args);
   } else {
     const cudaError_t err = allow_dynamic_smem(single_pass_attention_kernel<HDP>, smem);
     if (err != cudaSuccess) return err;
@@ -390,14 +406,18 @@ cudaError_t launch_fwd(const CUtensorMap& map_k, const CUtensorMap* map_v, FwdAr
   return cudaGetLastError();
 }
 
+// The packed [B, T, 3D] buffer as one map of 3H heads of hd columns: slab
+// packing puts head h's q, K and V at head coordinates h, H + h and 2H + h,
+// per-head packing at 3h, 3h + 1 and 3h + 2.
 template <int HDP>
-cudaError_t launch_packed(const void* qkv, void* out, int B, int T, int num_heads, int hd,
-                          float scale, cudaStream_t stream) {
+cudaError_t launch_packed(const void* qkv, void* out, int B, int T, int kv_len, int num_heads,
+                          int hd, bool per_head, float scale, cudaStream_t stream) {
   EncodeTiledFn encode = encode_tiled();
   if (encode == nullptr) return cudaErrorSymbolNotFound;
   const long long D = static_cast<long long>(num_heads) * hd;
   FwdArgs args{static_cast<const bf16*>(qkv), static_cast<bf16*>(out),
-               {T * 3 * D, hd, 3 * D}, {T * D, hd, D}, {}, {}, T, T, num_heads, hd, 0, scale};
+               {T * 3 * D, per_head ? 3LL * hd : hd, 3 * D}, {T * D, hd, D}, {}, {},
+               T, kv_len, num_heads, hd, 0, scale};
   CUtensorMap map;
   if (!encode_view_map(&map, &args.ko, encode, qkv, hd, B, 3 * num_heads, T, T * 3 * D, hd,
                        3 * D))
@@ -441,8 +461,21 @@ cudaError_t single_pass_views_bf16(const void* q, const void* k, const void* v, 
 }  // namespace attn90
 }  // namespace vit
 
-// head_dim must be a multiple of 8 and at most 128; ops/attention.py checks
-// that and the route's bound on T before calling.
+#define VIT_PACKED_DISPATCH(...)                                         \
+  switch ((head_dim + 15) / 16 * 16) {                                   \
+    case 16: return launch_packed<16>(__VA_ARGS__);                      \
+    case 32: return launch_packed<32>(__VA_ARGS__);                      \
+    case 48: return launch_packed<48>(__VA_ARGS__);                      \
+    case 64: return launch_packed<64>(__VA_ARGS__);                      \
+    case 80: return launch_packed<80>(__VA_ARGS__);                      \
+    case 96: return launch_packed<96>(__VA_ARGS__);                      \
+    case 112: return launch_packed<112>(__VA_ARGS__);                    \
+    case 128: return launch_packed<128>(__VA_ARGS__);                    \
+    default: return cudaErrorInvalidValue;                               \
+  }
+
+// Slab packing, T keys. head_dim must be a multiple of 8 and at most 128
+// (ops/attention.py checks that before calling); any T.
 VIT_EXPORT int vit_packed_attention_bf16(const void* qkv, void* out, int B,
                                          int T, int num_heads, int head_dim,
                                          float scale, void* stream) {
@@ -450,15 +483,19 @@ VIT_EXPORT int vit_packed_attention_bf16(const void* qkv, void* out, int B,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (B <= 0 || T <= 0 || num_heads <= 0 || head_dim % 8 != 0)
     return cudaErrorInvalidValue;
-  switch ((head_dim + 15) / 16 * 16) {
-    case 16: return launch_packed<16>(qkv, out, B, T, num_heads, head_dim, scale, s);
-    case 32: return launch_packed<32>(qkv, out, B, T, num_heads, head_dim, scale, s);
-    case 48: return launch_packed<48>(qkv, out, B, T, num_heads, head_dim, scale, s);
-    case 64: return launch_packed<64>(qkv, out, B, T, num_heads, head_dim, scale, s);
-    case 80: return launch_packed<80>(qkv, out, B, T, num_heads, head_dim, scale, s);
-    case 96: return launch_packed<96>(qkv, out, B, T, num_heads, head_dim, scale, s);
-    case 112: return launch_packed<112>(qkv, out, B, T, num_heads, head_dim, scale, s);
-    case 128: return launch_packed<128>(qkv, out, B, T, num_heads, head_dim, scale, s);
-    default: return cudaErrorInvalidValue;
-  }
+  VIT_PACKED_DISPATCH(qkv, out, B, T, T, num_heads, head_dim, false, scale, s)
+}
+
+// The same kernel with keys at and past kv_len (1 <= kv_len <= T) masked
+// and slab (per_head 0) or per-head (1) packing: its general form, or its
+// slab form for slab packing and T keys.
+VIT_EXPORT int vit_packed_attention_kv(const void* qkv, void* out, int B, int T, int kv_len,
+                                       int num_heads, int head_dim, int per_head, float scale,
+                                       void* stream) {
+  using namespace vit::attn90;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (B <= 0 || T <= 0 || kv_len <= 0 || kv_len > T || num_heads <= 0 ||
+      head_dim % 8 != 0 || (per_head != 0 && per_head != 1))
+    return cudaErrorInvalidValue;
+  VIT_PACKED_DISPATCH(qkv, out, B, T, kv_len, num_heads, head_dim, per_head != 0, scale, s)
 }

@@ -28,7 +28,8 @@
 // Bound on the card: operations. At ViT-L/16@512 (T = 1025, padded to 1152
 // by JAX; hd 64) the forward does 4 T^2 hd a head (69 GFLOP a layer at
 // B = 16, 0.07 ms at the bf16 peak) against 50 MB of bytes (0.015 ms); the
-// backward's two kernels do 4 + 6 T^2 hd (the dq kernel s, dp, dq; the
+// backward's function is 10 T^2 hd a head (s, dp, dq, dk, dv: 0.17 ms a
+// layer at B = 16), its two kernels do 6 + 8 (the dq kernel s, dp, dq; the
 // dK/dV kernel s, dp, dv, dk).
 //
 // Forward design (Hopper, sm_90a; maps and tiles of attention_sm90.cuh):
@@ -61,18 +62,32 @@
 // product of a tile's second half when it holds only masked keys (p
 // exactly 0, and the first half holds the row's max).
 //
-// Backward design: FlashAttention-2's split, so that no block sums into
-// another's output and results repeat from run to run.
-//   dq          one block per (image, head, 64-query tile): q and dO
-//               fragments, each row's lse and dvec (computed here from dO and
-//               O, and written for the dK/dV kernel) stay in registers; K and
-//               V tiles of 64 rows stream; dq accumulates in registers;
-//   dK/dV       one block per (image, head, 64-key tile): k and v fragments
-//               in registers; q, dO and the rows' lse and dvec stream in
-//               tiles of 64; dv and dk accumulate in registers.
-// The backward's products use mma.sync m16n8k16 (bf16 in, fp32 out) with the
-// tile helpers of attention_tiles.cuh. Head dims that are a multiple of 8
-// are zero-padded to the next of the compiled widths (16..128).
+// Backward design (the same Hopper parts): FlashAttention-2's split into
+// two kernels, so that no block sums into another's output and dqkv has the
+// same bits from run to run (no atomics). Each block is one producer
+// warpgroup and two consumer warpgroups of 64 rows (queries in the dq
+// kernel, keys in the dK/dV kernel); products are wgmma m64n64k16 with fp32
+// accumulators in registers; a block's shared memory depends on the head
+// dim only.
+//   dq     per (image, head, 128 queries): each consumer holds its q and dO
+//          rows as A fragments, its rows' lse and their dvec (computed here
+//          from dO and O, and written for the dK/dV kernel). One producer
+//          thread streams each key tile's K and V once by TMA through a
+//          ring; per tile S = q . K^T and dP = dO . V^T, p = exp(S * scale -
+//          lse) (one expf a score), ds rounded in registers as the A
+//          operand of dq += ds . K, K read MN-major: 6 T^2 hd a head.
+//   dK/dV  per (image, head, 128 keys): each consumer's K and V tiles sit in
+//          shared memory as A operands; q and dO tiles stream in by TMA,
+//          and the producer warpgroup's 128 threads gather their rows' lse
+//          and dvec into the stage (64 of each) and arrive on its barrier.
+//          S^T = K . q^T and dP^T = V . dO^T from shared memory, p^T and
+//          ds^T built in registers as the A operands of dv += bf16(p)^T .
+//          dO and dk += ds^T . q (the unscaled q), dO and q read MN-major:
+//          8 T^2 hd a head.
+// Each accumulator takes its terms in tile order, as JAX's grids do: dq over
+// key tiles, dk and dv over query tiles. Head dims that are a multiple of 8
+// are zero-padded to the next of the compiled widths (16..128): the maps
+// zero-fill the columns past hd (a second 64-column box past hd 64).
 #include <limits.h>
 #include <math.h>
 
@@ -81,63 +96,106 @@
 #include "attention_sm90.cuh"
 
 namespace vit {
-namespace flash {
+namespace flash90 {
 
-using namespace tiles;
-constexpr int kTile = 64;  // the backward's streamed tiles
+using namespace attn90;
+
+// ---------------------------------------------------------------------------
+// The backward: the dq kernel, then the dK/dV kernel.
+// ---------------------------------------------------------------------------
+
+constexpr int kBwdStages = 4;  // the rings' stages
+// A dK/dV stage: a q tile, a dO tile, then 64 rows' lse and 64 dvec (512
+// bytes, padded to 1024 so that the next stage's tiles keep the swizzle's
+// alignment).
+constexpr int kRowStatsBytes = 1024;
 
 template <int HDP>
-__host__ __device__ constexpr size_t dq_stage_bytes() {  // a K and a V tile
-  return 2 * tile_elems<HDP, kTile>() * sizeof(bf16);
+__host__ __device__ constexpr int bwd_dq_smem_bytes() {
+  return 1024 + kBwdStages * 2 * tile_bytes<HDP>() + 2 * kBwdStages * 8;
 }
 template <int HDP>
-__host__ __device__ constexpr size_t dkv_stage_bytes() {  // q, dO, lse, dvec
-  return 2 * tile_elems<HDP, kTile>() * sizeof(bf16) + 2 * kTile * sizeof(float);
+__host__ __device__ constexpr int bwd_dkv_smem_bytes() {
+  return 1024 + 2 * kConsumers * tile_bytes<HDP>() +
+         kBwdStages * (2 * tile_bytes<HDP>() + kRowStatsBytes) + (1 + 2 * kBwdStages) * 8;
+}
+
+// Consumers of a block whose 64 rows start below T (warpgroup-uniform).
+__device__ __forceinline__ int active_consumers(int T) {
+  return min(kConsumers, (T - static_cast<int>(blockIdx.x) * kConsumers * kRows + kRows - 1) /
+                             kRows);
 }
 
 template <int HDP>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ out,
-                    const float* __restrict__ lse, const bf16* __restrict__ dout,
-                    bf16* __restrict__ dqkv, float* __restrict__ dvec, int T,
-                    int num_heads, int hd, float scale) {
+__global__ void __launch_bounds__(kThreads, 1)
+blockwise_bwd_dq_kernel(const __grid_constant__ CUtensorMap map_qkv,
+                        const bf16* __restrict__ qkv, const bf16* __restrict__ out,
+                        const float* __restrict__ lse, const bf16* __restrict__ dout,
+                        bf16* __restrict__ dqkv, float* __restrict__ dvec, int T,
+                        int num_heads, int hd, float scale) {
+  constexpr int kB = boxes<HDP>(), kTile = tile_bytes<HDP>(), kSteps = HDP / 16;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t ring = smem_u32(aligned_smem(smem_raw));  // stage i: K, then V
+  const uint32_t full = ring + kBwdStages * 2 * kTile;
+  const uint32_t empty = full + kBwdStages * 8;
   const int b = blockIdx.z, h = blockIdx.y;
-  const int D = num_heads * hd, pitch = 3 * D;
-  const int Tp = (T + 15) & ~15;
-  extern __shared__ __align__(16) unsigned char smem[];
-  const bf16* img = qkv + static_cast<size_t>(b) * T * pitch;
-  const bf16* oimg = out + static_cast<size_t>(b) * T * D;
-  const bf16* dimg = dout + static_cast<size_t>(b) * T * D;
-  const size_t row_stat = (static_cast<size_t>(b) * num_heads + h) * T;
-  const int ntiles = (T + kTile - 1) / kTile;  // key tiles
-  auto stage = [&](int s) {
-    return reinterpret_cast<bf16*>(smem + (s % kStages) * dq_stage_bytes<HDP>());
-  };
-  auto fetch = [&](int s) {
-    const int k0 = s * kTile;
-    load_tile<HDP, kTile>(stage(s), img, pitch, D + h * hd, k0, T, hd);
-    load_tile<HDP, kTile>(stage(s) + tile_elems<HDP, kTile>(), img, pitch,
-                          2 * D + h * hd, k0, T, hd);
-    cp_async_commit();
-  };
-  fetch(0);
+  const int nchunks = (T + kRows - 1) / kRows;
+  const int active = active_consumers(T);
 
-  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
-  const int r0 = blockIdx.x * kRows + (threadIdx.x / 32) * 16;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kBwdStages; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 128 * active);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x == 0) {
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int c = 0; c < nchunks; ++c) {
+        mbar_wait(empty + 8 * stage, phase ^ 1);  // the first round passes
+        const uint32_t bar = full + 8 * stage, k = ring + stage * 2 * kTile;
+        mbar_expect_tx(bar, 2 * kTile);  // zero-filled boxes count whole
+#pragma unroll
+        for (int j = 0; j < kB; ++j) {
+          tma_load_4d(k + j * kBox, &map_qkv, 64 * j, num_heads + h, c * kRows, b, bar);
+          tma_load_4d(k + kTile + j * kBox, &map_qkv, 64 * j, 2 * num_heads + h, c * kRows,
+                      b, bar);
+        }
+        if (++stage == kBwdStages) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+    }
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+  const int wg = threadIdx.x / 128 - 1;
+  if (wg >= active) return;  // no barrier of the block waits for it
+  const int t = threadIdx.x % 128, lane = t % 32, g = lane / 4, tq = lane % 4;
+  const int r0 = (blockIdx.x * kConsumers + wg) * kRows + 16 * (t / 32);  // the warp's rows
   const int row0 = r0 + g, row1 = r0 + g + 8;
-  uint32_t qa[HDP / 16][4], da[HDP / 16][4];
-  load_a<HDP>(qa, img, pitch, h * hd, r0, T, hd, 1.f, g, t);
-  load_a<HDP>(da, dimg, D, h * hd, r0, T, hd, 1.f, g, t);
-
-  // dvec = rowsum(dO * O): each lane takes the columns its dO fragment
-  // holds (zero past T and hd), then the row's 4 lanes combine.
+  const int D = num_heads * hd;
+  uint32_t qa[kSteps][4], da[kSteps][4];
+  tiles::load_a<HDP>(qa, qkv + static_cast<size_t>(b) * T * 3 * D, 3 * D, h * hd, r0, T, hd,
+                     1.f, g, tq);
+  tiles::load_a<HDP>(da, dout + static_cast<size_t>(b) * T * D, D, h * hd, r0, T, hd, 1.f, g,
+                     tq);
+  // dvec = rowsum(dO * O) of the forward's rounded output: each lane the
+  // columns of its dO fragment (zero past T and hd), then the row's 4 lanes.
+  const bf16* oimg = out + static_cast<size_t>(b) * T * D;
   float dl0 = 0.f, dl1 = 0.f;
 #pragma unroll
-  for (int s = 0; s < HDP / 16; ++s) {
+  for (int s = 0; s < kSteps; ++s)
 #pragma unroll
     for (int reg = 0; reg < 4; ++reg) {
       const int row = reg & 1 ? row1 : row0;
-      const int col = s * 16 + 2 * t + (reg >> 1) * 8;
+      const int col = s * 16 + 2 * tq + (reg >> 1) * 8;
       if (row < T && col < hd) {
         const __nv_bfloat162 dv = *reinterpret_cast<const __nv_bfloat162*>(&da[s][reg]);
         const __nv_bfloat162 ov = *reinterpret_cast<const __nv_bfloat162*>(
@@ -150,185 +208,243 @@ flash_bwd_dq_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ out,
           dl0 += part;
       }
     }
-  }
   quad_sum(dl0);
   quad_sum(dl1);
+  const size_t row_stat = (static_cast<size_t>(b) * num_heads + h) * T;
   const float lse0 = row0 < T ? lse[row_stat + row0] : 0.f;
   const float lse1 = row1 < T ? lse[row_stat + row1] : 0.f;
-  if (t == 0) {  // for the dK/dV kernel
+  if (tq == 0) {  // for the dK/dV kernel
     if (row0 < T) dvec[row_stat + row0] = dl0;
     if (row1 < T) dvec[row_stat + row1] = dl1;
   }
 
-  float dq[HDP / 8][4];
+  float dq[kB][32];
+  int stage = 0;
+  uint32_t phase = 0;
+  for (int c = 0; c < nchunks; ++c) {
+    mbar_wait(full + 8 * stage, phase);
+    const uint32_t k = ring + stage * 2 * kTile;
+    float s[32], dp[32];
+    wgmma_fence();
 #pragma unroll
-  for (int d = 0; d < HDP / 8; ++d) dq[d][0] = dq[d][1] = dq[d][2] = dq[d][3] = 0.f;
-
-  for (int s = 0; s < ntiles; ++s) {
-    if (s + 1 < ntiles) {
-      fetch(s + 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const bf16* ks = stage(s);
-    const bf16* vs = ks + tile_elems<HDP, kTile>();
-    const int k0 = s * kTile;
-    const int nsub = min(kTile, Tp - k0) / 8;  // 8-key sub-tiles up to Tp
-
-    // ds of keys k0 + [8 * sub, 8 * sub + 8), keys past T masked (p = 0).
-    auto grads = [&](float ds[4], int sub) {
-      float c[4], dp[4];
-      dot_tile<HDP, false>(c, qa, ks, sub, 1.f, g, t);
-      dot_tile<HDP, false>(dp, da, vs, sub, 1.f, g, t);  // V rows past T are zero
-      const int key = k0 + sub * 8 + 2 * t;
+    for (int kk = 0; kk < kSteps; ++kk) wgmma_rs<0>(s, qa[kk], desc_k(k, kk), kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < kSteps; ++kk) wgmma_rs<0>(dp, da[kk], desc_k(k + kTile, kk), kk > 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_acc(s);
+    fence_acc(dp);
+    // ds into s; keys at and past T masked (p = 0).
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const float sv = key + (e & 1) < T ? c[e] * scale : kMaskValue;
+        const int key = c * kRows + 8 * j + 2 * tq + (e & 1);
+        const float sv = key < T ? s[4 * j + e] * scale : kMaskValue;
         const float p = expf(sv - (e < 2 ? lse0 : lse1));
-        ds[e] = (p * (dp[e] - (e < 2 ? dl0 : dl1))) * scale;
+        s[4 * j + e] = (p * (dp[4 * j + e] - (e < 2 ? dl0 : dl1))) * scale;
       }
-    };
-    for (int chunk = 0; chunk < nsub / 2; ++chunk) {
-      float ds0[4], ds1[4];
-      grads(ds0, 2 * chunk);
-      grads(ds1, 2 * chunk + 1);
-      const uint32_t dsa[4] = {pack_bf16x2(ds0[0], ds0[1]), pack_bf16x2(ds0[2], ds0[3]),
-                               pack_bf16x2(ds1[0], ds1[1]), pack_bf16x2(ds1[2], ds1[3])};
-      accumulate<HDP>(dq, dsa, ks, chunk, lane);  // dq += ds . K
+    uint32_t dsa[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) to_a(dsa[kk], s, kk);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int j = 0; j < kB; ++j) wgmma_rs<1>(dq[j], dsa[kk], desc_mn(k, j, kk), c + kk > 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+#pragma unroll
+    for (int j = 0; j < kB; ++j) fence_acc(dq[j]);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) fence_frag(dsa[kk]);
+    mbar_arrive(empty + 8 * stage);
+    if (++stage == kBwdStages) {
+      stage = 0;
+      phase ^= 1;
     }
-    __syncthreads();  // the stage is refilled two steps on
   }
-  store_rows<HDP, bf16>(dqkv + static_cast<size_t>(b) * T * pitch, pitch, h * hd, dq,
-                        r0, T, hd, g, t);
+  store_rows<kB, bf16>(dqkv + static_cast<size_t>(b) * T * 3 * D, 3 * D, h * hd, dq, 1.f, 1.f,
+                       r0, T, hd, g, tq);
 }
 
 template <int HDP>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dkv_kernel(const bf16* __restrict__ qkv, const float* __restrict__ lse,
-                     const float* __restrict__ dvec, const bf16* __restrict__ dout,
-                     bf16* __restrict__ dqkv, int T, int num_heads, int hd,
-                     float scale) {
+__global__ void __launch_bounds__(kThreads, 1)
+blockwise_bwd_dkv_kernel(const __grid_constant__ CUtensorMap map_qkv,
+                         const __grid_constant__ CUtensorMap map_do,
+                         const float* __restrict__ lse, const float* __restrict__ dvec,
+                         bf16* __restrict__ dqkv, int T, int num_heads, int hd,
+                         float scale) {
+  constexpr int kB = boxes<HDP>(), kTile = tile_bytes<HDP>(), kSteps = HDP / 16;
+  constexpr int kStage = 2 * kTile + kRowStatsBytes;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = aligned_smem(smem_raw);
+  const uint32_t base = smem_u32(smem);
+  // Consumer w's K tile at kv + 2w tiles, its V tile after it; ring stage
+  // i: q, dO, the rows' lse and dvec.
+  const uint32_t kv = base, ring = kv + 2 * kConsumers * kTile;
+  const uint32_t kv_full = ring + kBwdStages * kStage, full = kv_full + 8,
+                 empty = full + kBwdStages * 8;
   const int b = blockIdx.z, h = blockIdx.y;
-  const int D = num_heads * hd, pitch = 3 * D;
-  const int Tp = (T + 15) & ~15;
-  extern __shared__ __align__(16) unsigned char smem[];
-  const bf16* img = qkv + static_cast<size_t>(b) * T * pitch;
-  const bf16* dimg = dout + static_cast<size_t>(b) * T * D;
-  const size_t row_stat = (static_cast<size_t>(b) * num_heads + h) * T;
-  const int ntiles = (T + kTile - 1) / kTile;  // query tiles
-  auto stage = [&](int s) {
-    return reinterpret_cast<bf16*>(smem + (s % kStages) * dkv_stage_bytes<HDP>());
-  };
-  auto fetch = [&](int s) {  // q (unscaled), dO and the rows' lse and dvec
-    const int q0 = s * kTile;
-    bf16* buf = stage(s);
-    load_tile<HDP, kTile>(buf, img, pitch, h * hd, q0, T, hd);
-    load_tile<HDP, kTile>(buf + tile_elems<HDP, kTile>(), dimg, D, h * hd, q0, T, hd);
-    float* st = reinterpret_cast<float*>(buf + 2 * tile_elems<HDP, kTile>());
-    for (int i = threadIdx.x; i < 2 * kTile; i += kThreads) {
-      const int row = q0 + i % kTile;
-      const float* src = (i < kTile ? lse : dvec) + row_stat;
-      const bool ok = row < T;
-      cp_async4(st + i, ok ? src + row : src, ok);
+  const int nchunks = (T + kRows - 1) / kRows;
+  const int active = active_consumers(T);
+
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    for (int s = 0; s < kBwdStages; ++s) {
+      mbar_init(full + 8 * s, 1 + 128);  // the TMA loads' expect_tx, the gathers
+      mbar_init(empty + 8 * s, 128 * active);
     }
-    cp_async_commit();
-  };
-  fetch(0);
-
-  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
-  // This warp's 16 keys. Keys past T compute on zero rows and are not
-  // stored, so they need no mask.
-  const int r0 = blockIdx.x * kRows + (threadIdx.x / 32) * 16;
-  uint32_t ka[HDP / 16][4], va[HDP / 16][4];
-  load_a<HDP>(ka, img, pitch, D + h * hd, r0, T, hd, 1.f, g, t);
-  load_a<HDP>(va, img, pitch, 2 * D + h * hd, r0, T, hd, 1.f, g, t);
-
-  float dk[HDP / 8][4], dv[HDP / 8][4];
-#pragma unroll
-  for (int d = 0; d < HDP / 8; ++d) {
-    dk[d][0] = dk[d][1] = dk[d][2] = dk[d][3] = 0.f;
-    dv[d][0] = dv[d][1] = dv[d][2] = dv[d][3] = 0.f;
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  for (int s = 0; s < ntiles; ++s) {
-    if (s + 1 < ntiles) {
-      fetch(s + 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const bf16* qt = stage(s);
-    const bf16* dt = qt + tile_elems<HDP, kTile>();
-    const float* st_lse = reinterpret_cast<const float*>(qt + 2 * tile_elems<HDP, kTile>());
-    const float* st_dvec = st_lse + kTile;
-    const int q0 = s * kTile;
-    const int nsub = min(kTile, Tp - q0) / 8;
-    // p^T and ds^T of this warp's 16 keys against queries q0 + [8 * sub, +8):
-    // element e is key row g (e < 2) or g + 8, query 8 * sub + 2t + (e & 1).
-    // Queries past T give zero (their q and dO rows are zero too).
-    auto grads = [&](float p[4], float ds[4], int sub) {
-      float dp[4];
-      dot_tile<HDP, false>(p, ka, qt, sub, 1.f, g, t);  // s^T = k . q^T
-      dot_tile<HDP, false>(dp, va, dt, sub, 1.f, g, t);  // dp^T = v . dO^T
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    const int t = threadIdx.x;
+    if (t == 0) {
+      mbar_expect_tx(kv_full, active * 2 * kTile);
+      for (int w = 0; w < active; ++w) {
+        const int k0 = (blockIdx.x * kConsumers + w) * kRows;
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int q = sub * 8 + 2 * t + (e & 1);
-        if (q0 + q < T) {
-          p[e] = expf(p[e] * scale - st_lse[q]);
-          ds[e] = (p[e] * (dp[e] - st_dvec[q])) * scale;
-        } else {
-          p[e] = ds[e] = 0.f;
+        for (int j = 0; j < kB; ++j) {
+          tma_load_4d(kv + 2 * w * kTile + j * kBox, &map_qkv, 64 * j, num_heads + h, k0, b,
+                      kv_full);
+          tma_load_4d(kv + (2 * w + 1) * kTile + j * kBox, &map_qkv, 64 * j,
+                      2 * num_heads + h, k0, b, kv_full);
         }
       }
-    };
-    for (int chunk = 0; chunk < nsub / 2; ++chunk) {
-      float p0[4], ds0[4], p1[4], ds1[4];
-      grads(p0, ds0, 2 * chunk);
-      grads(p1, ds1, 2 * chunk + 1);
-      const uint32_t pa[4] = {pack_bf16x2(p0[0], p0[1]), pack_bf16x2(p0[2], p0[3]),
-                              pack_bf16x2(p1[0], p1[1]), pack_bf16x2(p1[2], p1[3])};
-      const uint32_t dsa[4] = {pack_bf16x2(ds0[0], ds0[1]), pack_bf16x2(ds0[2], ds0[3]),
-                               pack_bf16x2(ds1[0], ds1[1]), pack_bf16x2(ds1[2], ds1[3])};
-      accumulate<HDP>(dv, pa, dt, chunk, lane);   // dv += bf16(p)^T . dO
-      accumulate<HDP>(dk, dsa, qt, chunk, lane);  // dk += ds^T . q
     }
-    __syncthreads();  // the stage is refilled two steps on
+    // Thread t gathers lse (t < 64) or dvec of query row t % 64 of each tile.
+    const float* src = (t < kRows ? lse : dvec) + (static_cast<size_t>(b) * num_heads + h) * T;
+    float* st = reinterpret_cast<float*>(smem + (ring - base) + 2 * kTile) + t;
+    int stage = 0;
+    uint32_t phase = 0;
+    for (int c = 0; c < nchunks; ++c) {
+      const int row = c * kRows + t % kRows;
+      const float v = row < T ? src[row] : 0.f;
+      mbar_wait(empty + 8 * stage, phase ^ 1);  // the first round passes
+      const uint32_t bar = full + 8 * stage, q = ring + stage * kStage;
+      if (t == 0) {
+        mbar_expect_tx(bar, 2 * kTile);
+#pragma unroll
+        for (int j = 0; j < kB; ++j) {
+          tma_load_4d(q + j * kBox, &map_qkv, 64 * j, h, c * kRows, b, bar);
+          tma_load_4d(q + kTile + j * kBox, &map_do, 64 * j, h, c * kRows, b, bar);
+        }
+      }
+      st[stage * (kStage / 4)] = v;
+      mbar_arrive(bar);
+      if (++stage == kBwdStages) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+    return;
   }
-  bf16* o = dqkv + static_cast<size_t>(b) * T * pitch;
-  store_rows<HDP, bf16>(o, pitch, D + h * hd, dk, r0, T, hd, g, t);
-  store_rows<HDP, bf16>(o, pitch, 2 * D + h * hd, dv, r0, T, hd, g, t);
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+  const int wg = threadIdx.x / 128 - 1;
+  if (wg >= active) return;  // no barrier of the block waits for it
+  const int t = threadIdx.x % 128, lane = t % 32, g = lane / 4, tq = lane % 4;
+  const int r0 = (blockIdx.x * kConsumers + wg) * kRows + 16 * (t / 32);  // the warp's keys
+  const uint32_t kt = kv + 2 * wg * kTile, vt = kt + kTile;
+
+  mbar_wait(kv_full, 0);
+  float dk[kB][32], dv[kB][32];
+  int stage = 0;
+  uint32_t phase = 0;
+  for (int c = 0; c < nchunks; ++c) {
+    mbar_wait(full + 8 * stage, phase);
+    const uint32_t qt = ring + stage * kStage, dt = qt + kTile;
+    float s[32], dp[32];  // S^T and dP^T: rows are keys, columns queries
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kSteps; ++kk) wgmma_ss(s, desc_k(kt, kk), desc_k(qt, kk), kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < kSteps; ++kk) wgmma_ss(dp, desc_k(vt, kk), desc_k(dt, kk), kk > 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_acc(s);
+    fence_acc(dp);
+    // p^T into s, ds^T into dp; queries past T contribute nothing.
+    const float* st = reinterpret_cast<const float*>(smem + (qt - base) + 2 * kTile);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int q = 8 * j + 2 * tq;
+      const float2 l = *reinterpret_cast<const float2*>(st + q);
+      const float2 dl = *reinterpret_cast<const float2*>(st + kRows + q);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const bool ok = c * kRows + q + (e & 1) < T;
+        const float p = expf(s[4 * j + e] * scale - (e & 1 ? l.y : l.x));
+        s[4 * j + e] = ok ? p : 0.f;
+        dp[4 * j + e] = ok ? (p * (dp[4 * j + e] - (e & 1 ? dl.y : dl.x))) * scale : 0.f;
+      }
+    }
+    uint32_t pa[4][4], dsa[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      to_a(pa[kk], s, kk);
+      to_a(dsa[kk], dp, kk);
+    }
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int j = 0; j < kB; ++j) {
+        wgmma_rs<1>(dv[j], pa[kk], desc_mn(dt, j, kk), c + kk > 0);
+        wgmma_rs<1>(dk[j], dsa[kk], desc_mn(qt, j, kk), c + kk > 0);
+      }
+    wgmma_commit();
+    wgmma_wait<0>();
+#pragma unroll
+    for (int j = 0; j < kB; ++j) {
+      fence_acc(dk[j]);
+      fence_acc(dv[j]);
+    }
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      fence_frag(pa[kk]);
+      fence_frag(dsa[kk]);
+    }
+    mbar_arrive(empty + 8 * stage);
+    if (++stage == kBwdStages) {
+      stage = 0;
+      phase ^= 1;
+    }
+  }
+  const int D = num_heads * hd;
+  bf16* o = dqkv + static_cast<size_t>(b) * T * 3 * D;
+  store_rows<kB, bf16>(o, 3 * D, D + h * hd, dk, 1.f, 1.f, r0, T, hd, g, tq);
+  store_rows<kB, bf16>(o, 3 * D, 2 * D + h * hd, dv, 1.f, 1.f, r0, T, hd, g, tq);
 }
 
 template <int HDP>
-cudaError_t launch_bwd(const void* qkv, const void* out, const float* lse,
-                       const void* dout, void* dqkv, float* dvec, int B, int T,
-                       int num_heads, int hd, float scale, cudaStream_t stream) {
-  constexpr size_t s_dq = kStages * dq_stage_bytes<HDP>();
-  constexpr size_t s_dkv = kStages * dkv_stage_bytes<HDP>();
-  cudaError_t err = allow_dynamic_smem(flash_bwd_dq_kernel<HDP>, s_dq);
+cudaError_t launch_bwd(const void* qkv, const void* out, const float* lse, const void* dout,
+                       void* dqkv, float* dvec, int B, int T, int num_heads, int hd,
+                       float scale, cudaStream_t stream) {
+  EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorSymbolNotFound;
+  CUtensorMap map_qkv, map_do;
+  if (!encode_head_map(&map_qkv, encode, qkv, hd, 3 * num_heads, T, B) ||
+      !encode_head_map(&map_do, encode, dout, hd, num_heads, T, B))
+    return cudaErrorInvalidValue;
+  constexpr int s_dq = bwd_dq_smem_bytes<HDP>(), s_dkv = bwd_dkv_smem_bytes<HDP>();
+  cudaError_t err = allow_dynamic_smem(blockwise_bwd_dq_kernel<HDP>, s_dq);
   if (err != cudaSuccess) return err;
-  err = allow_dynamic_smem(flash_bwd_dkv_kernel<HDP>, s_dkv);
+  err = allow_dynamic_smem(blockwise_bwd_dkv_kernel<HDP>, s_dkv);
   if (err != cudaSuccess) return err;
-  const dim3 grid((T + kRows - 1) / kRows, num_heads, B);
-  flash_bwd_dq_kernel<HDP><<<grid, kThreads, s_dq, stream>>>(
-      static_cast<const bf16*>(qkv), static_cast<const bf16*>(out), lse,
-      static_cast<const bf16*>(dout), static_cast<bf16*>(dqkv), dvec, T, num_heads,
-      hd, scale);
+  const dim3 grid((T + kConsumers * kRows - 1) / (kConsumers * kRows), num_heads, B);
+  blockwise_bwd_dq_kernel<HDP><<<grid, kThreads, s_dq, stream>>>(
+      map_qkv, static_cast<const bf16*>(qkv), static_cast<const bf16*>(out), lse,
+      static_cast<const bf16*>(dout), static_cast<bf16*>(dqkv), dvec, T, num_heads, hd, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  flash_bwd_dkv_kernel<HDP><<<grid, kThreads, s_dkv, stream>>>(
-      static_cast<const bf16*>(qkv), lse, dvec, static_cast<const bf16*>(dout),
-      static_cast<bf16*>(dqkv), T, num_heads, hd, scale);
+  blockwise_bwd_dkv_kernel<HDP><<<grid, kThreads, s_dkv, stream>>>(
+      map_qkv, map_do, lse, dvec, static_cast<bf16*>(dqkv), T, num_heads, hd, scale);
   return cudaGetLastError();
 }
 
-}  // namespace flash
-
-namespace flash90 {
-
-using namespace attn90;
 
 constexpr int kKeyTile = 128;  // the running max's step (JAX's block_k)
 
@@ -728,7 +844,7 @@ VIT_EXPORT int vit_flash_attention_bwd(const void* qkv, const void* out,
                                        const float* lse, const void* dout, void* dqkv,
                                        float* dvec, int B, int T, int num_heads,
                                        int head_dim, float scale, void* stream) {
-  using namespace vit::flash;
+  using namespace vit::flash90;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (B <= 0 || T <= 0 || num_heads <= 0 || head_dim % 8 != 0 || head_dim > 128)
     return cudaErrorInvalidValue;

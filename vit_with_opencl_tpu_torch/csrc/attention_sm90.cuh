@@ -66,7 +66,7 @@ __device__ __forceinline__ uint64_t desc_mn(uint32_t tile, int j, int kk) {
 inline bool encode_head_map(CUtensorMap* map, EncodeTiledFn encode, const void* base,
                             int hd, int heads, int T, int B) {
   const long long row = 2LL * hd * heads;
-  MapKey key{base, 4, false, {hd, heads, T, B}, {2LL * hd, row, row * T}, {64, 1, kRows, 1}};
+  MapKey key{base, 4, 2, {hd, heads, T, B}, {2LL * hd, row, row * T}, {64, 1, kRows, 1}};
   return encode_map(map, encode, key);
 }
 
@@ -113,7 +113,7 @@ inline bool encode_view_map(CUtensorMap* map, MapOrder* order, EncodeTiledFn enc
       d[j - 1] = tmp;
     }
   int* pos[3] = {&order->h, &order->r, &order->b};
-  MapKey key{base, 4, false, {hd, 0, 0, 0}, {0, 0, 0}, {64, 1, 1, 1}};
+  MapKey key{base, 4, 2, {hd, 0, 0, 0}, {0, 0, 0}, {64, 1, 1, 1}};
   for (int i = 0; i < 3; ++i) {
     *pos[d[i].which] = i + 1;
     key.dims[i + 1] = d[i].size;

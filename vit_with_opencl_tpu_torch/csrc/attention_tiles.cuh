@@ -1,8 +1,7 @@
-// Tile helpers of the attention kernels that stream their K/V or q/dO
-// tiles through cp.async (the blockwise backward in attention_flash.cu, the
-// ring step in attention_ring.cu; attention_single.cu's fp32 kernel takes
-// the strided views; the Hopper kernels of attention_sm90.cuh take load_a,
-// scale2, store2, the views' strides and the quad reductions):
+// Tile helpers of the attention kernel that streams its K/V tiles through
+// cp.async (the ring step in attention_ring.cu; attention_single.cu's fp32
+// kernel takes the strided views; the Hopper kernels of attention_sm90.cuh
+// take load_a, scale2, store2, the views' strides and the quad reductions):
 // mma.sync m16n8k16 (bf16 in, fp32 out) on fragments in registers, cp.async
 // copies of row-major tiles into a shared-memory ring (rows padded to
 // HDP + 8 against bank conflicts), ldmatrix.trans reads of a tile as the B
@@ -68,12 +67,6 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool va
   const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
   const int src_bytes = valid ? 16 : 0;  // 0: fill with zeros
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(gmem), "r"(src_bytes));
-}
-__device__ __forceinline__ void cp_async4(void* smem, const void* gmem, bool valid) {
-  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  const int src_bytes = valid ? 4 : 0;
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
                "l"(gmem), "r"(src_bytes));
 }
 __device__ __forceinline__ void cp_async_commit() {

@@ -1,6 +1,6 @@
 // The GEMMs' fp32 epilogue, one copy for every GEMM kernel: the Hopper core
-// (gemm_sm90.cuh: the bf16 forward, dgrad, wgrad and fc1-pair forms) and
-// the WMMA int8 kernels of linear.cu (W8A8, weight-only int8).
+// (gemm_sm90.cuh: the bf16 forward, dgrad, wgrad and fc1-pair forms and the
+// weight-only int8 form) and the WMMA W8A8 kernels of linear.cu.
 //
 // After the product (already scaled for the int8 forms) the epilogue runs
 // in fp32 in this order, each step optional:

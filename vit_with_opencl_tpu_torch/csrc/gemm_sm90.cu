@@ -1,5 +1,6 @@
 // The entry points of the bf16 GEMM core (gemm_sm90.cuh): the forward GEMM
-// (ops/linear.py fused_linear with a bf16 w) and the backward's forms
+// (ops/linear.py fused_linear with a bf16 w, and with an int8 w and its
+// scale) and the backward's forms
 // (linear_dgrad, linear_wgrad, fused_linear_with_gelu), and the fixed-order
 // sum of the weight gradients' split-K partials.
 #include "gemm_sm90.cuh"
@@ -51,6 +52,23 @@ VIT_EXPORT int vit_linear_bf16(const void* x, const void* w, const float* bias,
   Epilogue ep{bias, residual, residual_kind, out, out_bf16, gelu};
   return sm90::launch_gemm<false, true>(x, w, M, N, K, 0, 1, 0, nullptr, ep,
                                         static_cast<cudaStream_t>(stream));
+}
+
+// out [M, N] = epilogue((x [M, K] @ bf16(w [K, N] int8)) * w_scale [N]), the
+// product in fp32 on the same core, w widened to bf16 in shared memory
+// (exact). K must be a multiple of 8 and N of 16 (16-byte TMA row pitches of
+// x and of the int8 w; ops/linear.py checks them before calling).
+VIT_EXPORT int vit_linear_int8w(const void* x, const void* w, const float* w_scale,
+                                const float* bias, const void* residual, int residual_kind,
+                                void* out, int out_bf16, int gelu, int M, int N, int K,
+                                void* stream) {
+  using namespace vit;
+  if (M <= 0 || N <= 0 || K <= 0 || N % 16 != 0 || K % 8 != 0 || w_scale == nullptr ||
+      bad_epilogue(residual_kind))
+    return cudaErrorInvalidValue;
+  Epilogue ep{bias, residual, residual_kind, out, out_bf16, gelu};
+  return sm90::launch_gemm<false, true, true>(x, w, M, N, K, 0, 1, 0, nullptr, ep,
+                                              static_cast<cudaStream_t>(stream), w_scale);
 }
 
 // out [M, N] = epilogue(A . B) in bf16: A is [M, K] row-major, or (a_trans)

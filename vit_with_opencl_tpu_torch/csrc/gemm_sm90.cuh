@@ -10,7 +10,10 @@
 //     _mlp_bwd_kernel, _mlp_light_bwd_kernel, _mlp_wgrad_kernel and
 //     _attn_bwd_kernel): dgrad, dY [M, N'] . W^T with W stored [K', N'] (B
 //     read K-major), and wgrad, X^T . dY over the B*T tokens (A and B both
-//     read MN-major; the contraction is the ragged token axis).
+//     read MN-major; the contraction is the ragged token axis);
+//   * the int8-weight matmuls of ops/fused_block.py:_block_kernel (_mm with
+//     w8a8=False, :121-125): acc = x . bf16(w_int8) in fp32, then
+//     acc * w_scale[n] before the epilogue (kI8 below).
 // The three operand layouts are wgmma's transpose bits (kAMN, kBMN), not
 // separate staging code: a K-major operand is one TMA box of 64 x 128 (K
 // inner), an MN-major one two boxes of 64 x 64 (MN inner), both with the
@@ -44,6 +47,23 @@
 // rest run in `splits` runs of `chunk` slices, each unit storing its fp32
 // partial tile into a slot of `partial`, which gemm_sm90.cu's second kernel
 // sums in a fixed order: no atomics, the same bits from run to run.
+//
+// The int8-weight form (kI8) keeps the consumers' products and epilogues as
+// the bf16 form's: only the way B reaches the stage's bf16 slot differs.
+// The producer's one thread loads each [64 K x 128 N] int8 slice of w by
+// TMA (8 KiB, half the bytes of a bf16 slice) into a ring of kI8Stages
+// slots of its own, beside the A tile into the stage as before. The
+// consuming warpgroup widens each slice, exactly (|q| <= 127), into the
+// stage's B slot in the swizzled MN-major layout that the two bf16 TMA boxes
+// would have written, fences it for the async proxy and meets at its named
+// barrier; it widens slice n + 1 while slice n's products run, so the
+// widening takes the issue slots it would spend waiting. (Measured slower
+// on the card, PERF.md §6: the widening in the producer warpgroup, at its
+// 40 registers, and the consumers loading their int8 chunks from global
+// memory into registers a slice ahead, which spilled.) The epilogue
+// multiplies the accumulator by the column's scale (__fmul_rn, never
+// contracted into the bias or residual add that follows) before the bias:
+// the plain version's order.
 #pragma once
 
 #include "epilogue.cuh"
@@ -70,6 +90,15 @@ constexpr int kEpiBytes = kConsumers * 64 * kEpiPitch * 4;
 // empty barriers and the consumers' two turn barriers.
 constexpr int kSmemBytes =
     1024 + kStages * kStageBytes + kEpiBytes + (2 * kStages + 2) * 8;
+// The int8-weight form: a ring of int8 w slices (1024-byte aligned: the
+// staging tiles end on a multiple of 1024) before the barriers, and its full
+// and empty barriers after them. Two slots or three fit beside the bf16
+// form's 197 KiB; four would not (ops/linear.py int8w_kernel_smem_bytes).
+constexpr int kI8Stages = 3;
+constexpr int kI8Tile = kBK * kBN;  // [64 K, 128 N] int8: 8 KiB
+constexpr int kSmemBytesI8 = kSmemBytes + kI8Stages * kI8Tile + 2 * kI8Stages * 8;
+static_assert((kStages * kStageBytes + kEpiBytes) % 1024 == 0,
+              "the int8 ring's slots must be 1024-byte aligned for the swizzle");
 
 struct GemmArgs {
   int M, N;
@@ -80,6 +109,7 @@ struct GemmArgs {
   int chunk;
   float* partial;   // their fp32 slots [splits][tiles - full][kBM][kBN]
   int store_out;    // whole tiles' epilogue: the bias at most, TMA stores
+  const float* col_scale;  // the int8-weight form's [N] scale, else null
   Epilogue ep;
 };
 
@@ -152,13 +182,17 @@ __device__ __forceinline__ Unit unit_of(int u, const GemmArgs& g) {
 // tile; then thread t finishes columns 4(t%32)..+3 of rows t/32 + 4i (a warp
 // a whole row: 512 contiguous bytes of fp32), 4 rows at a time, their reads
 // issued before their arithmetic (the first batch's before the staging).
-// b: the bias of the thread's columns.
+// b: the bias of the thread's columns. kScale: the int8-weight form's
+// column scales multiply the products first.
+template <bool kScale>
 __device__ __forceinline__ void epilogue_rows(const float (&acc)[64], float* stage_tile,
                                               const Unit& w, int m0, int t, int wg,
                                               const float (&b)[4], const GemmArgs& g) {
   constexpr int kRows = 4;  // a batch
   const int c = 4 * (t % 32), gn = w.n0 + c;
   const bool col_ok = gn < g.N;  // N % 8 == 0: 4 columns all in or all out
+  float sc[4];
+  if (kScale && col_ok) load_f32<4>(sc, g.col_scale + gn);
   float x[kRows][4];
   int gm[kRows];
   bool ok[kRows];
@@ -193,6 +227,10 @@ __device__ __forceinline__ void epilogue_rows(const float (&acc)[64], float* sta
       v[i][1] = p.y;
       v[i][2] = p.z;
       v[i][3] = p.w;
+      if constexpr (kScale) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) v[i][e] = __fmul_rn(v[i][e], sc[e]);
+      }
     }
     apply_rows<kRows, 4>(v, x, b, gm, ok, gn, g.N, g.ep);
   }
@@ -222,7 +260,9 @@ __device__ __forceinline__ void tma_store(const CUtensorMap* map, uint32_t src, 
 // accumulator), by warpgroup wg's 128 threads; thread t holds the pairs of
 // wgmma's accumulator layout (see epilogue_rows). The staging tile's last
 // stores must have read it: the thread that issued them (t = 0) waits, then
-// the warpgroup meets.
+// the warpgroup meets. kScale: the int8-weight form's column scales multiply
+// the products before the bias.
+template <bool kScale>
 __device__ __forceinline__ void epilogue_tma(const float (&acc)[64], int blk,
                                              unsigned char* stage_tile, const Unit& w,
                                              int t, int wg, const CUtensorMap* map_out,
@@ -236,12 +276,18 @@ __device__ __forceinline__ void epilogue_tma(const float (&acc)[64], int blk,
 #pragma unroll
   for (int j = 0; j < kBN / 8; ++j) {
     const int c = 8 * j + cq;
-    float2 bj = make_float2(0.f, 0.f);
+    float2 bj = make_float2(0.f, 0.f), sj = make_float2(1.f, 1.f);
     if (bias && w.n0 + c < g.N) bj = __ldg(reinterpret_cast<const float2*>(g.ep.bias + w.n0 + c));
+    if (kScale && w.n0 + c < g.N)
+      sj = __ldg(reinterpret_cast<const float2*>(g.col_scale + w.n0 + c));
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int row = r + 8 * h;
       float v0 = acc[4 * j + 2 * h], v1 = acc[4 * j + 2 * h + 1];
+      if constexpr (kScale) {
+        v0 = __fmul_rn(v0, sj.x);
+        v1 = __fmul_rn(v1, sj.y);
+      }
       if (bias) {
         v0 = v0 + bj.x;
         v1 = v1 + bj.y;
@@ -280,19 +326,66 @@ __device__ __forceinline__ void epilogue_tma(const float (&acc)[64], int blk,
   }
 }
 
-template <bool kAMN, bool kBMN>
+// Four int8 values (a word) as four bf16 values, exactly (two words, in
+// order): the byte q + 128 under the fp32 exponent of 2^23 is 2^23 + q +
+// 128, less 2^23 + 128 is q, and q's top 16 bits are bf16(q) (|q| <= 128
+// needs 8 significant bits).
+__device__ __forceinline__ void widen4(uint32_t w, uint32_t& lo, uint32_t& hi) {
+  const uint32_t u = w ^ 0x80808080u;
+  const float f0 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7440)) - 8388736.f;
+  const float f1 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7441)) - 8388736.f;
+  const float f2 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7442)) - 8388736.f;
+  const float f3 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7443)) - 8388736.f;
+  lo = __byte_perm(__float_as_uint(f0), __float_as_uint(f1), 0x7632);
+  hi = __byte_perm(__float_as_uint(f2), __float_as_uint(f3), 0x7632);
+}
+
+// Thread t (0..127) of a warpgroup widens the 16-byte chunks t, t + 128, ...
+// of an int8 slice (64 K rows of 128 N bytes, TMA's 128-byte swizzle: chunk j
+// of row r at r * 128 + (j ^ r % 8) * 16) into a stage's bf16 B slot, laid
+// out as the two 64 x 64 MN-major TMA boxes of a bf16 w would be (box n /
+// 64, row r, 16-byte chunk (n % 64) / 8 at (chunk ^ r % 8) * 16). A
+// quarter-warp widens one row; its box-1 threads store their odd chunk
+// first, so that each store's 8 chunks fall in 8 distinct bank groups.
+__device__ __forceinline__ void widen_slice(const unsigned char* src, unsigned char* dst,
+                                            int t) {
+  const int j = t % 8, box = j / 4, cj = 2 * (j % 4);
+  const bool odd_first = box == 1;
+#pragma unroll
+  for (int i = 0; i < kI8Tile / 16 / 128; ++i) {
+    const int r = t / 8 + 16 * i, sw = r % 8;
+    const uint4 q = *reinterpret_cast<const uint4*>(src + r * 128 + ((j ^ sw) * 16));
+    uint4 a, b;  // bf16 columns 16j..16j+7, 16j+8..16j+15
+    widen4(q.x, a.x, a.y);
+    widen4(q.y, a.z, a.w);
+    widen4(q.z, b.x, b.y);
+    widen4(q.w, b.z, b.w);
+    unsigned char* row = dst + box * kBox + r * 128;
+    const int c0 = odd_first ? cj + 1 : cj, c1 = odd_first ? cj : cj + 1;
+    *reinterpret_cast<uint4*>(row + ((c0 ^ sw) * 16)) = odd_first ? b : a;
+    *reinterpret_cast<uint4*>(row + ((c1 ^ sw) * 16)) = odd_first ? a : b;
+  }
+}
+
+// kI8: B is an int8 w [K, N] (kBMN's layout), map_b its int8 map of
+// [64 K, 128 N] boxes, widened by the consumers (the note at the top); the
+// epilogue scales by g.col_scale.
+template <bool kAMN, bool kBMN, bool kI8>
 __global__ void __launch_bounds__(kThreads, 1)
 gemm_sm90_kernel(const __grid_constant__ CUtensorMap map_a,
                  const __grid_constant__ CUtensorMap map_b,
                  const __grid_constant__ CUtensorMap map_out,
                  const __grid_constant__ CUtensorMap map_part, const GemmArgs g) {
+  static_assert(!kI8 || (!kAMN && kBMN), "the int8 weight is the forward's B");
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
   const uint32_t ring = smem_u32(smem);
-  const uint32_t full = ring + kStages * kStageBytes + kEpiBytes;
+  const uint32_t ring8 = ring + kStages * kStageBytes + kEpiBytes;  // kI8's int8 slices
+  const uint32_t full = ring8 + (kI8 ? kI8Stages * kI8Tile : 0);
   const uint32_t empty = full + kStages * 8;
   const uint32_t turns = empty + kStages * 8;
+  const uint32_t full8 = turns + 16, empty8 = full8 + kI8Stages * 8;  // kI8 only
   const int units = g.full + (g.tiles_m * g.tiles_n - g.full) * g.splits;
 
   if (threadIdx.x == 0) {
@@ -302,6 +395,11 @@ gemm_sm90_kernel(const __grid_constant__ CUtensorMap map_a,
     }
     mbar_init(turns, 128);  // warpgroup 1 hands warpgroup 0 the ring
     mbar_init(turns + 8, 128);  // and 0 hands it to 1
+    if (kI8)
+      for (int s = 0; s < kI8Stages; ++s) {
+        mbar_init(full8 + 8 * s, 1);
+        mbar_init(empty8 + 8 * s, 1);  // the widening warpgroup, once it has met
+      }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
@@ -309,7 +407,26 @@ gemm_sm90_kernel(const __grid_constant__ CUtensorMap map_a,
   if (threadIdx.x < 128) {
     // Producer warpgroup: one thread keeps the ring full, unit after unit.
     asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
-    if (threadIdx.x == 0) {
+    if constexpr (kI8) {
+      // The int8 form never splits K: slice n of this block is slice n %
+      // k_tiles of its unit n / k_tiles, and takes stage n % kStages and
+      // int8 slot n % kI8Stages.
+      if (threadIdx.x == 0) {
+        const int k_tiles = g.k_tiles;
+        const int slices = (units - blockIdx.x + gridDim.x - 1) / gridDim.x * k_tiles;
+        for (int n = 0; n < slices; ++n) {
+          const int stage = n % kStages, slot = n % kI8Stages;
+          const int tile = blockIdx.x + n / k_tiles * gridDim.x, k0 = n % k_tiles * kBK;
+          mbar_wait(empty + 8 * stage, ((n / kStages) & 1) ^ 1);  // the first round passes
+          mbar_expect_tx(full + 8 * stage, kATile);  // zero-filled boxes count whole
+          tma_load(ring + stage * kStageBytes, &map_a, k0, tile / g.tiles_n * kBM,
+                   full + 8 * stage);
+          mbar_wait(empty8 + 8 * slot, ((n / kI8Stages) & 1) ^ 1);
+          mbar_expect_tx(full8 + 8 * slot, kI8Tile);
+          tma_load(ring8 + slot * kI8Tile, &map_b, tile % g.tiles_n * kBN, k0, full8 + 8 * slot);
+        }
+      }
+    } else if (threadIdx.x == 0) {
       int stage = 0;
       uint32_t phase = 0;
       for (int u = blockIdx.x; u < units; u += gridDim.x) {
@@ -357,12 +474,26 @@ gemm_sm90_kernel(const __grid_constant__ CUtensorMap map_a,
     uint32_t turn_phase = 0;
     bool first = wg == 0;
     int turn = 0;
+    // kI8: the block's slices so far (slice n8's int8 slot n8 % kI8Stages),
+    // and the widening of one into the B slot of stage st (in phase ph).
+    int n8 = 0;
+    auto widen = [&](int st, uint32_t ph) {
+      const int slot = n8 % kI8Stages;
+      mbar_wait(full + 8 * st, ph);  // the stage's earlier products are done
+      mbar_wait(full8 + 8 * slot, (n8 / kI8Stages) & 1);
+      widen_slice(smem + (ring8 - ring) + slot * kI8Tile, smem + st * kStageBytes + kATile, t);
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      warpgroup_sync(wg);
+      if (t == 0) mbar_arrive(empty8 + 8 * slot);
+      ++n8;
+    };
     for (int u = blockIdx.x; u < units; u += gridDim.x, turn ^= 1) {
       const Unit w = unit_of(u, g);
       if (turn != wg) {  // the other warpgroup's unit: step over its stages
         const int s = stage + (w.k_end - w.k_begin);
         phase ^= (s / kStages) & 1;
         stage = s % kStages;
+        n8 += w.k_end - w.k_begin;
         continue;
       }
       if (!first) {
@@ -374,6 +505,7 @@ gemm_sm90_kernel(const __grid_constant__ CUtensorMap map_a,
 #pragma unroll
       for (int i = 0; i < 64; ++i) acc[0][i] = acc[1][i] = 0.f;
       int prev = -1;
+      if constexpr (kI8) widen(stage, phase);
       for (int kt = w.k_begin; kt < w.k_end; ++kt) {
         mbar_wait(full + 8 * stage, phase);
         const uint32_t a = ring + stage * kStageBytes;
@@ -389,6 +521,10 @@ gemm_sm90_kernel(const __grid_constant__ CUtensorMap map_a,
               acc[1], smem_desc(a + kATile / 2 + kk * kAStep, kALbo, 1024), db);
         }
         wgmma_commit();
+        if constexpr (kI8) {  // the next slice's B, under this slice's products
+          if (kt + 1 < w.k_end)
+            widen(stage + 1 == kStages ? 0 : stage + 1, stage + 1 == kStages ? phase ^ 1 : phase);
+        }
         wgmma_wait<1>();  // the previous slice's products are done
         fence_acc(acc[0]);
         fence_acc(acc[1]);
@@ -403,15 +539,15 @@ gemm_sm90_kernel(const __grid_constant__ CUtensorMap map_a,
       if (prev >= 0) mbar_arrive(empty + 8 * prev);
       if (tma_epilogue(w, g)) {
         unsigned char* tile = reinterpret_cast<unsigned char*>(stage_tile);
-        epilogue_tma(acc[0], 0, tile, w, t, wg, &map_out, &map_part, g);
-        epilogue_tma(acc[1], 1, tile, w, t, wg, &map_out, &map_part, g);
+        epilogue_tma<kI8>(acc[0], 0, tile, w, t, wg, &map_out, &map_part, g);
+        epilogue_tma<kI8>(acc[1], 1, tile, w, t, wg, &map_out, &map_part, g);
         continue;
       }
       // The staged epilogue, 64 rows (one accumulator) at a time.
       float b[4];
       if (w.n0 + 4 * (t % 32) < g.N) load_bias<4>(b, w.n0 + 4 * (t % 32), g.ep);
-      epilogue_rows(acc[0], stage_tile, w, w.m0, t, wg, b, g);
-      epilogue_rows(acc[1], stage_tile, w, w.m0 + 64, t, wg, b, g);
+      epilogue_rows<kI8>(acc[0], stage_tile, w, w.m0, t, wg, b, g);
+      epilogue_rows<kI8>(acc[1], stage_tile, w, w.m0 + 64, t, wg, b, g);
     }
     if (t == 0) asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
   }
@@ -422,10 +558,10 @@ gemm_sm90_kernel(const __grid_constant__ CUtensorMap map_a,
 // ---------------------------------------------------------------------------
 
 // The calling thread's device: its SM count, and whether this form's kernel
-// may take kSmemBytes yet (both asked once per device).
+// may take its shared memory yet (both asked once per device).
 struct DeviceInfo {
   int sms = 0;
-  bool smem_set[4] = {false, false, false, false};
+  bool smem_set[5] = {false, false, false, false, false};
 };
 inline DeviceInfo* device_info() {
   constexpr int kMaxDevices = 64;
@@ -442,17 +578,21 @@ inline DeviceInfo* device_info() {
 // the tiles from `full` on run in `splits` runs of `chunk` slices each into
 // `partial` ([splits][tiles - full][kBM][kBN] fp32, no epilogue), which the
 // caller then sums. Every contiguous axis must be a multiple of 8 (16-byte
-// TMA row pitches), and N too (the epilogue's 4-column groups).
-template <bool kAMN, bool kBMN>
+// TMA row pitches), and N too (the epilogue's 4-column groups). kI8: B is
+// an int8 w [K, N] (kBMN, no split; N a multiple of 16), col_scale its [N]
+// fp32 scale.
+template <bool kAMN, bool kBMN, bool kI8 = false>
 cudaError_t launch_gemm(const void* a, const void* b, int M, int N, int K, int full,
                         int splits, int chunk, float* partial, const Epilogue& ep,
-                        cudaStream_t stream) {
+                        cudaStream_t stream, const float* col_scale = nullptr) {
+  static_assert(!kI8 || (!kAMN && kBMN), "the int8 weight is the forward's B");
   EncodeTiledFn encode = encode_tiled();
   if (encode == nullptr) return cudaErrorSymbolNotFound;
   DeviceInfo* dev = device_info();
   if (dev == nullptr) return cudaErrorInvalidDevice;
   const int tiles = ((M + kBM - 1) / kBM) * ((N + kBN - 1) / kBN);
   const int k_tiles = (K + kBK - 1) / kBK;
+  if (kI8 && (splits > 1 || col_scale == nullptr || N % 16 != 0)) return cudaErrorInvalidValue;
   if (splits > 1 && (full < 0 || full >= tiles || chunk <= 0 ||
                      static_cast<long long>(splits - 1) * chunk >= k_tiles ||
                      static_cast<long long>(splits) * chunk < k_tiles || partial == nullptr))
@@ -462,20 +602,22 @@ cudaError_t launch_gemm(const void* a, const void* b, int M, int N, int K, int f
                          !ep.gelu && ep.out2 == nullptr;
   CUtensorMap map_a, map_b, map_out = {}, map_part = {};
   const bool ok =
-      (kAMN ? encode_map(&map_a, encode, a, false, M, K, 64)
-            : encode_map(&map_a, encode, a, false, K, M, kBM)) &&
-      (kBMN ? encode_map(&map_b, encode, b, false, N, K, 64)
-            : encode_map(&map_b, encode, b, false, K, N, kBN)) &&
-      (!store_out || encode_map(&map_out, encode, ep.out, !ep.out_bf16, N, M, 64)) &&
+      (kAMN ? encode_map(&map_a, encode, a, 2, M, K, 64)
+            : encode_map(&map_a, encode, a, 2, K, M, kBM)) &&
+      (kI8    ? encode_map(&map_b, encode, b, 1, N, K, kBK)  // [64 K, 128 N] int8
+       : kBMN ? encode_map(&map_b, encode, b, 2, N, K, 64)
+              : encode_map(&map_b, encode, b, 2, K, N, kBN)) &&
+      (!store_out || encode_map(&map_out, encode, ep.out, ep.out_bf16 ? 2 : 4, N, M, 64)) &&
       (splits == 1 ||
-       encode_map(&map_part, encode, partial, true, kBN,
+       encode_map(&map_part, encode, partial, 4, kBN,
                   static_cast<long long>(splits) * (tiles - full) * kBM, 64));
   if (!ok) return cudaErrorInvalidValue;
-  constexpr int form = (kAMN ? 2 : 0) + (kBMN ? 1 : 0);
+  constexpr int form = kI8 ? 4 : (kAMN ? 2 : 0) + (kBMN ? 1 : 0);
+  constexpr int smem = kI8 ? kSmemBytesI8 : kSmemBytes;
   if (!dev->smem_set[form]) {
     const cudaError_t err = cudaFuncSetAttribute(
-        gemm_sm90_kernel<kAMN, kBMN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        kSmemBytes);
+        gemm_sm90_kernel<kAMN, kBMN, kI8>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem);
     if (err != cudaSuccess) return err;
     dev->smem_set[form] = true;
   }
@@ -490,11 +632,12 @@ cudaError_t launch_gemm(const void* a, const void* b, int M, int N, int K, int f
   g.chunk = splits > 1 ? chunk : g.k_tiles;
   g.partial = partial;
   g.store_out = store_out;
+  g.col_scale = col_scale;
   g.ep = ep;
   const long long units = g.full + static_cast<long long>(tiles - g.full) * g.splits;
   const int grid = static_cast<int>(units < dev->sms ? units : dev->sms);
-  gemm_sm90_kernel<kAMN, kBMN><<<grid, kThreads, kSmemBytes, stream>>>(map_a, map_b, map_out,
-                                                                       map_part, g);
+  gemm_sm90_kernel<kAMN, kBMN, kI8><<<grid, kThreads, smem, stream>>>(map_a, map_b, map_out,
+                                                                      map_part, g);
   return cudaGetLastError();
 }
 

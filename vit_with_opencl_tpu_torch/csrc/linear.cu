@@ -1,13 +1,9 @@
-// The int8 GEMMs with an fp32 epilogue: out = epi(x @ w), in two forms (the
-// bf16 forms run on the Hopper core, gemm_sm90.cuh).
+// The W8A8 GEMMs with an fp32 epilogue: out = epi(xq @ w) (the bf16 forms
+// and the weight-only int8 form run on the Hopper core, gemm_sm90.cuh).
 //
 // Replace the int8 matmuls that vit_with_opencl_tpu/ops/fused_block.py's
-// _block_kernel inlines (_mm, quantized=True):
-//   linear_int8w_kernel  x bf16 @ w int8 (weight-only int8): the int8 tile
-//                        is widened to bf16 in shared memory (exact:
-//                        |q| <= 127), then a bf16 product; the fp32
-//                        accumulator is multiplied by the per-column scale;
-//   linear_w8a8_kernel   x int8 @ w int8 (w8a8=True), int32 accumulation
+// _block_kernel inlines with w8a8=True (_mm, quantized=True):
+//   linear_w8a8_kernel   x int8 @ w int8, int32 accumulation
 //                        (exact: 3072 * 127^2 < 2^31), then
 //                        ((float)acc * x_scale[m]) * w_scale[n]; with a side
 //                        product (outlier=True: _mm with hi_ref,
@@ -21,23 +17,23 @@
 // residual and the bias, the optional _gelu_fast, and casts. The scale
 // products use __fmul_rn, which nvcc never contracts into an FMA with the
 // residual or bias add that follows: the plain version rounds after each
-// operation, and the int8 forms without GELU are bit-identical to it.
+// operation, and the W8A8 forms without GELU are bit-identical to it.
 //
 // Bound on the card: operations at the encoder's shapes (K = 768 or 3072
-// against M = B*197 rows: far above the card's ~295 bf16 or ~590 int8
-// operations per byte). Design, kept simple for a first port: 128x128 output
-// tiles, 8 warps each owning a 64x32 sub-tile of 16x16x16 WMMA fragments, and
-// a 3-stage cp.async ring of K slices so loads of slice k+2 overlap the
-// products of slice k. The ragged M edge (M = B*197) and the N edge are
-// zero-filled on load and masked on store; K must be a multiple of 8 (16 for
-// int8 x) and N of 16 (16-byte chunks). The epilogue goes through a per-warp
-// 16x16 staging tile in shared memory, because WMMA's accumulator layout is
-// opaque. The int8 tiles are kept as 16-byte-wide column chunks
-// ([chunk][row][16]) so that every 8-bit WMMA fragment starts on a 32-byte
-// boundary. The side product (K_hi = 96 or 128 at ViT-B against an int8 K of
-// 640 to 2944) is one kernel, not a second GEMM with an fp32 [M, N] addend:
-// that round trip would cost 2 x 620 MB for fc1 at B = 256. Not yet used:
-// Hopper's wgmma and TMA (ROADMAP: the int8-weight GEMM on the Hopper core).
+// against M = B*197 rows: far above the card's ~590 int8 operations per
+// byte). Design, kept simple for a first port: 128x128 output tiles, 8 warps
+// each owning a 64x32 sub-tile of 16x16x16 WMMA fragments, and a 3-stage
+// cp.async ring of K slices so loads of slice k+2 overlap the products of
+// slice k. The ragged M edge (M = B*197) and the N edge are zero-filled on
+// load and masked on store; K must be a multiple of 16 and N of 16 (16-byte
+// chunks), K_hi of 8. The epilogue goes through a per-warp 16x16 staging
+// tile in shared memory, because WMMA's accumulator layout is opaque. The
+// int8 tiles are kept as 16-byte-wide column chunks ([chunk][row][16]) so
+// that every 8-bit WMMA fragment starts on a 32-byte boundary. The side
+// product (K_hi = 96 or 128 at ViT-B against an int8 K of 640 to 2944) is
+// one kernel, not a second GEMM with an fp32 [M, N] addend: that round trip
+// would cost 2 x 620 MB for fc1 at B = 256. Not yet used: Hopper's wgmma and
+// TMA (ROADMAP: the W8A8 GEMMs on the Hopper core).
 #include "epilogue.cuh"
 #include "int8_tiles.cuh"  // common.cuh, mma.h, cp.async, the int8 slices
 
@@ -50,10 +46,6 @@ constexpr int kAStage = kBM * kALd;
 constexpr int kBStage = kBK * kBLd;
 constexpr int kSmemBytes = kStages * (kAStage + kBStage) * 2;
 constexpr int kEpiLd = 20;  // staging pitch (fp32 or int32 elements)
-// linear_int8w_kernel: a ring of int8 [kBK, kBN] tiles and one bf16 tile.
-constexpr int kB8Stage = kBK * kBN;
-constexpr int kSmemBytesInt8W =
-    kStages * kAStage * 2 + kStages * kB8Stage + kBStage * 2;
 // linear_w8a8_kernel: 64-deep int8 slices, stored as 16-byte column chunks
 // (int8_tiles.cuh, whose tile is this file's).
 static_assert(kBM == kI8BM && kBN == kI8BN && kThreads == kI8Threads,
@@ -122,18 +114,6 @@ __device__ __forceinline__ void load_b_bf16(bf16* bs, const bf16* __restrict__ w
   }
 }
 
-// One [kBK, kBN] int8 slice of w, unpadded (widened to bf16 before use).
-__device__ __forceinline__ void load_b_int8(int8_t* bs,
-                                            const int8_t* __restrict__ w,
-                                            int N, int K, int n0, int k0) {
-  for (int i = threadIdx.x; i < kBK * (kBN / 16); i += kThreads) {
-    const int r = i / (kBN / 16), c = (i % (kBN / 16)) * 16;
-    const bool ok = k0 + r < K && n0 + c < N;
-    const int8_t* src = ok ? w + static_cast<size_t>(k0 + r) * N + n0 + c : w;
-    cp_async16(bs + r * kBN + c, src, ok);
-  }
-}
-
 // The products of one bf16 slice: each warp's 64x32 sub-tile.
 __device__ __forceinline__ void mma_slice_bf16(
     nvcuda::wmma::fragment<nvcuda::wmma::accumulator, 16, 16, 16, float> (
@@ -160,67 +140,6 @@ __device__ __forceinline__ void mma_slice_bf16(
       for (int j = 0; j < 2; ++j)
         wmma::mma_sync(acc[i][j], af[i], bfr[j], acc[i][j]);
   }
-}
-
-__global__ void __launch_bounds__(kThreads)
-linear_int8w_kernel(const bf16* __restrict__ x, const int8_t* __restrict__ w,
-                    const float* __restrict__ w_scale, Epilogue ep, int M,
-                    int N, int K) {
-  using namespace nvcuda;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* as = reinterpret_cast<bf16*>(smem);
-  int8_t* b8 = reinterpret_cast<int8_t*>(as + kStages * kAStage);
-  bf16* bs = reinterpret_cast<bf16*>(b8 + kStages * kB8Stage);
-  const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * kBN;
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[4][2];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-
-  const int slices = (K + kBK - 1) / kBK;
-#pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) {
-    if (s < slices) {
-      load_a_bf16(as + s * kAStage, x, M, K, m0, s * kBK);
-      load_b_int8(b8 + s * kB8Stage, w, N, K, n0, s * kBK);
-    }
-    cp_async_commit();
-  }
-  // Widening: thread t turns 16 int8 of row t / 8 into 16 bf16.
-  const int wr = threadIdx.x / (kBN / 16), wc = (threadIdx.x % (kBN / 16)) * 16;
-  for (int kt = 0; kt < slices; ++kt) {
-    cp_async_wait<kStages - 2>();
-    __syncthreads();  // slice kt landed; every warp is done with bs
-    const int next = kt + kStages - 1;
-    if (next < slices) {
-      load_a_bf16(as + (next % kStages) * kAStage, x, M, K, m0, next * kBK);
-      load_b_int8(b8 + (next % kStages) * kB8Stage, w, N, K, n0, next * kBK);
-    }
-    cp_async_commit();
-    {
-      const uint4 raw = *reinterpret_cast<const uint4*>(
-          b8 + (kt % kStages) * kB8Stage + wr * kBN + wc);
-      const int8_t* q = reinterpret_cast<const int8_t*>(&raw);
-      uint4 lo, hi;
-      lo.x = pack_bf16x2(q[0], q[1]);   lo.y = pack_bf16x2(q[2], q[3]);
-      lo.z = pack_bf16x2(q[4], q[5]);   lo.w = pack_bf16x2(q[6], q[7]);
-      hi.x = pack_bf16x2(q[8], q[9]);   hi.y = pack_bf16x2(q[10], q[11]);
-      hi.z = pack_bf16x2(q[12], q[13]); hi.w = pack_bf16x2(q[14], q[15]);
-      uint4* dst = reinterpret_cast<uint4*>(bs + wr * kBLd + wc);
-      dst[0] = lo;
-      dst[1] = hi;
-    }
-    __syncthreads();  // the widened slice is complete
-    mma_slice_bf16(acc, as + (kt % kStages) * kAStage, bs);
-  }
-  cp_async_wait<0>();
-  __syncthreads();
-  write_tiles<float>(acc, smem, m0, n0, M, N, ep,
-                     [w_scale](float a, int, int n) {
-                       return __fmul_rn(a, w_scale[n]);
-                     });
 }
 
 // One 64-deep int8 slice of xq ([4 chunks][kBM rows][16]) and of w
@@ -367,25 +286,6 @@ linear_w8a8_kernel(const int8_t* __restrict__ xq,
 
 
 }  // namespace vit
-
-VIT_EXPORT int vit_linear_int8w(const void* x, const void* w,
-                                const float* w_scale, const float* bias,
-                                const void* residual, int residual_kind,
-                                void* out, int out_bf16, int gelu, int M,
-                                int N, int K, void* stream) {
-  using namespace vit;
-  if (M <= 0 || N <= 0 || K <= 0 || N % 16 != 0 || K % 8 != 0 ||
-      w_scale == nullptr || bad_epilogue(residual_kind))
-    return cudaErrorInvalidValue;
-  cudaError_t err = allow_dynamic_smem(linear_int8w_kernel, kSmemBytesInt8W);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM);
-  linear_int8w_kernel<<<grid, kThreads, kSmemBytesInt8W,
-                        static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(x), static_cast<const int8_t*>(w), w_scale,
-      Epilogue{bias, residual, residual_kind, out, out_bf16, gelu}, M, N, K);
-  return cudaGetLastError();
-}
 
 // x_hi and w_hi null (K_hi 0): the plain W8A8 GEMM; else with the bf16
 // side product.

@@ -234,19 +234,20 @@ inline EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// A bf16 or fp32 tensor of `rank` (2 to 4) dimensions, innermost first, with
-// the byte strides of dimensions 1.. (multiples of 16), read as boxes whose
-// inner extent is 128 bytes, 128-byte swizzled; loads zero-fill past its
-// edges and stores clip there.
+// An int8, bf16 or fp32 tensor (esize 1, 2 or 4 bytes an element) of
+// `rank` (2 to 4) dimensions, innermost first, with the byte strides of
+// dimensions 1.. (multiples of 16), read as boxes whose inner extent is 128
+// bytes, 128-byte swizzled; loads zero-fill past its edges and stores clip
+// there.
 struct MapKey {
   const void* base;
   int rank;
-  bool fp32;
+  int esize;
   long long dims[4];
   long long strides[3];
   int box[4];
   bool operator==(const MapKey& o) const {
-    if (base != o.base || rank != o.rank || fp32 != o.fp32) return false;
+    if (base != o.base || rank != o.rank || esize != o.esize) return false;
     for (int i = 0; i < 4; ++i)
       if (dims[i] != o.dims[i] || box[i] != o.box[i]) return false;
     for (int i = 0; i < 3; ++i)
@@ -263,8 +264,10 @@ inline bool encode_map_uncached(CUtensorMap* map, EncodeTiledFn encode, const Ma
     box[i] = static_cast<cuuint32_t>(k.box[i]);
     if (i > 0) strides[i - 1] = static_cast<cuuint64_t>(k.strides[i - 1]);
   }
-  return encode(map, k.fp32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
-                k.rank, const_cast<void*>(k.base), dims, strides, box, elem,
+  const CUtensorMapDataType type = k.esize == 4   ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                                   : k.esize == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                                                  : CU_TENSOR_MAP_DATA_TYPE_UINT8;
+  return encode(map, type, k.rank, const_cast<void*>(k.base), dims, strides, box, elem,
                 CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
@@ -287,7 +290,7 @@ inline bool encode_map(CUtensorMap* map, EncodeTiledFn encode, const MapKey& key
   static std::mutex lock;
   // A 64-bit mix of the key's fields (splitmix64's finaliser after each).
   uint64_t h = reinterpret_cast<uintptr_t>(key.base) ^ static_cast<uint64_t>(key.rank) << 56 ^
-               (key.fp32 ? 1 : 0);
+               static_cast<uint64_t>(key.esize);
   auto mix = [&h](uint64_t v) {
     h ^= v + 0x9e3779b97f4a7c15ull;
     h = (h ^ (h >> 30)) * 0xbf58476d1ce4e5b9ull;
@@ -331,12 +334,11 @@ inline int sm_count() {
   return sms[dev];
 }
 
-// A row-major bf16 or fp32 [outer, inner] matrix (inner contiguous, 16-byte
-// rows) as boxes of [box_outer, 128 bytes].
-inline bool encode_map(CUtensorMap* map, EncodeTiledFn encode, const void* base, bool fp32,
+// A row-major [outer, inner] matrix of esize-byte elements (inner
+// contiguous, 16-byte rows) as boxes of [box_outer, 128 bytes].
+inline bool encode_map(CUtensorMap* map, EncodeTiledFn encode, const void* base, int esize,
                        long long inner, long long outer, int box_outer) {
-  const int esize = fp32 ? 4 : 2;
-  MapKey key{base, 2, fp32, {inner, outer, 0, 0}, {inner * esize, 0, 0},
+  MapKey key{base, 2, esize, {inner, outer, 0, 0}, {inner * esize, 0, 0},
              {128 / esize, box_outer, 0, 0}};
   return encode_map(map, encode, key);
 }

@@ -5,7 +5,7 @@ CPU tensor), and counts its launches.
 | JAX package (Pallas, TPU)            | port (CUDA, sm_90a)                  |
 |--------------------------------------|--------------------------------------|
 | ops/layernorm.py:_ln_kernel          | ops/layernorm.py, csrc/layernorm.cu  |
-| ops/linear.py:_linear_kernel         | ops/linear.py, csrc/linear.cu        |
+| ops/linear.py:_linear_kernel         | ops/linear.py, csrc/gemm_sm90.cuh    |
 | ops/attention.py:_packed_kernel      | ops/attention.py, csrc/attention.cu  |
 | ops/attention.py:_single_pass_kernel | ops/attention.py (flash_attention,   |
 |                                      |   single_pass_attention),            |
@@ -16,21 +16,24 @@ CPU tensor), and counts its launches.
 | ops/fused_block.py:_block_kernel     | ops/fused_block.py (a chain of the   |
 |   (bf16)                             |   three kernels above)               |
 | ops/fused_block.py:_block_kernel     | ops/quantize.py, csrc/quantize.cu;   |
-|   (quantized: int8 weights, W8A8)    |   the int8 GEMMs of csrc/linear.cu;  |
-|                                      |   chained in ops/fused_block.py      |
+|   (quantized: int8 weights, W8A8)    |   the int8-weight GEMM of            |
+|                                      |   csrc/gemm_sm90.cuh, the W8A8 GEMMs |
+|                                      |   of csrc/linear.cu; chained in      |
+|                                      |   ops/fused_block.py                 |
 | ops/attention.py:_packed_bwd_kernel  | ops/attention.py,                    |
 |                                      |   csrc/attention_bwd.cu              |
 | ops/attention.py:_flash_kernel,      | ops/attention.py,                    |
 |   _flash_kernel_lse,                 |   csrc/attention_flash.cu (with the  |
-|   _flash_bwd_dq_kernel,              |   tile helpers of                    |
-|   _flash_bwd_dkv_kernel              |   csrc/attention_tiles.cuh)          |
+|   _flash_bwd_dq_kernel,              |   Hopper parts of csrc/sm90.cuh and  |
+|   _flash_bwd_dkv_kernel              |   csrc/attention_sm90.cuh)           |
 | ops/attention.py:_flash_carry_kernel | ops/attention.py                     |
 |   (blockwise_ring_step)              |   (blockwise_ring_step, the local    |
 |                                      |   step of ops/ring_attention.py),    |
 |                                      |   csrc/attention_ring.cu             |
 | ops/fused_block.py:                  | ops/fused_block.py (chains of the    |
 |   _attn_half_fwd_kernel,             |   kernels above and of the backward's|
-|   _mlp_bwd_kernel, _attn_bwd_kernel  |   GEMM forms in csrc/linear.cu, LN   |
+|   _mlp_bwd_kernel, _attn_bwd_kernel  |   GEMM forms in csrc/gemm_sm90.cuh,  |
+|                                      |   LN                                 |
 |                                      |   backward in csrc/layernorm.cu and  |
 |                                      |   column sum in csrc/reduce.cu)      |
 

@@ -64,6 +64,8 @@ SIGNATURES = {
                         _I, _I, _I, _P],
     # qkv, out, B, T, num_heads, head_dim, scale, stream
     "vit_packed_attention_bf16": [_P, _P, _I, _I, _I, _I, _F, _P],
+    # qkv, out, B, T, kv_len, num_heads, head_dim, per_head, scale, stream
+    "vit_packed_attention_kv": [_P, _P, _I, _I, _I, _I, _I, _I, _F, _P],
     # x, x_dtype, q, scale, rows, cols, stream
     "vit_quantize_rows": [_P, _I, _P, _P, _I, _I, _P],
     # x (fp32), q, scale, hi (bf16), rows, cols, m, stream

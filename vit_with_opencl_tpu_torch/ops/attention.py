@@ -31,21 +31,17 @@ through its strided entry. Its plain version is
 views (a contiguous last axis, 16-byte rows), so the permuted views of a
 [B, T, 3D] GEMM output go in without a copy.
 
-``packed_fused_attention`` keeps the routes its first kernels drew, which
-the launch counters and tests hold. The packed kernel's route ends where
-its first form's whole-head K and V stopped fitting one block's shared
-memory, T = 849 at hd 64 (``kernel_smem_bytes``); from there to padded T
-= 1024, where JAX keeps the one-shot route, it launches the single-pass
-attention on the slabs. ``packing="per_head"`` (head h's q, k and v at
-columns h·3·hd + {0, 1, 2}·hd: the tensor-parallel layout) and
-``true_seq_len`` (keys at and past it masked: a token axis that the caller
-already padded) take the single-pass attention on strided views of the
-slabs with ``kv_len`` up to padded T = 1024, and past it (slab packing
-only, as in JAX) the blockwise kernel with its ``kv_len``. JAX's
-``_packed_kernel`` takes the window, ``per_head`` and ``true_seq_len``
-itself; on the card the port reaches the same Hopper body (and the same
-function) through the single-pass entry, counted under
-``LAUNCHES_SINGLE``.
+``packed_fused_attention`` routes as JAX's ``_packed_kernel``
+(``_packed_route``): up to padded T = 1024 the packed kernel, which streams
+its K/V tiles and so takes any T; past it (slab packing only, as in JAX)
+the blockwise kernel with its ``kv_len``. Slab packing over all T keys
+launches the packed kernel's slab entry; ``packing="per_head"`` (head h's
+q, k and v at columns h·3·hd + {0, 1, 2}·hd: the tensor-parallel layout)
+and ``true_seq_len`` (keys at and past it masked: a token axis that the
+caller already padded) launch its entry with a key count and a packing;
+both count under ``LAUNCHES``. The packed kernel takes bf16; fp32 inputs
+with per-head packing or a key count take the single-pass attention's fp32
+kernel on strided views of the packed buffer (``LAUNCHES_SINGLE``).
 
 ``blockwise_ring_step`` replaces ``_flash_carry_kernel``, the local step of
 ring attention (``ops/ring_attention.py``): one rotation's blockwise
@@ -64,8 +60,10 @@ with the two kernels of ``csrc/attention_bwd.cu`` (plain version
 ``packed_attention_bwd_reference``), which stream their tiles and so take
 any T; ``blockwise_attention_bwd`` replaces ``_flash_bwd_dq_kernel`` and
 ``_flash_bwd_dkv_kernel`` (JAX's ``blockwise_attention_bwd``) with the dq and
-dK/dV kernels of ``csrc/attention_flash.cu``, which rebuild p from the
-forward's log-sum-exp (plain version ``blockwise_attention_bwd_reference``).
+dK/dV kernels of ``csrc/attention_flash.cu`` (TMA and wgmma: the dq kernel
+walks each head's K/V tiles once, the dK/dV kernel streams q and dO past
+resident K/V), which rebuild p from the forward's log-sum-exp (plain version
+``blockwise_attention_bwd_reference``).
 ``packed_fused_attention_trainable`` is the differentiable form that
 training's ``flash`` route uses, routed by ``_is_long_seq`` as JAX's. The
 forward wrappers refuse to run under autograd on the card (their results
@@ -177,17 +175,19 @@ def packed_fused_attention_reference(qkv: torch.Tensor, num_heads: int,
     return o.permute(0, 2, 1, 3).reshape(b, t, num_heads * head_dim).to(qkv.dtype)
 
 
-def kernel_smem_bytes(seq_len: int, head_dim: int) -> int:
-    """The route's bound on T: ``packed_fused_attention`` launches the packed
-    kernel where this is at most MAX_SMEM_BYTES (hd 64: T ≤ 848) and the
-    single-pass kernel from there to padded T = 1024. It is the shared
-    memory of the first form of the kernel (one head's K and Vᵀ whole in a
-    block), kept as the boundary so that the routes do not move; the
-    Hopper kernel streams its K/V tiles and takes ``packed_kernel_smem_bytes``
-    at any T."""
-    tp = -(-seq_len // 16) * 16
-    hdp = -(-head_dim // 16) * 16
-    return (tp * (hdp + 8) + hdp * (tp + 8)) * 2
+def _packed_route(t: int, packing: str, seq: int, dtype: torch.dtype) -> str:
+    """What ``packed_fused_attention`` launches on the card at T = t with
+    ``seq`` keys: "blockwise" past padded T = 1024 (JAX's route there);
+    below it the packed kernel, by its slab entry ("packed": slab packing,
+    every key) or by its entry with a key count and a packing
+    ("packed_kv"); "single_pass" for fp32 inputs that need a key count or
+    per-head packing (the packed kernel takes bf16, the single-pass
+    attention also fp32)."""
+    if _is_long_seq(t):
+        return "blockwise"
+    if packing == "slab" and seq == t:
+        return "packed"
+    return "packed_kv" if dtype == torch.bfloat16 else "single_pass"
 
 
 # The Hopper attention kernels' geometry (csrc/attention_sm90.cuh): blocks
@@ -224,6 +224,20 @@ def blockwise_kernel_smem_bytes(head_dim: int) -> int:
             + 2 * (stages + q_slots) * 8)
 
 
+def blockwise_bwd_kernel_smem_bytes(head_dim: int) -> int:
+    """Shared memory of one block of the larger of the blockwise backward's
+    two kernels (csrc/attention_flash.cu ``bwd_dq_smem_bytes``,
+    ``bwd_dkv_smem_bytes``): the dq kernel's ring of 4 K/V tile pairs; the
+    dK/dV kernel's K and V tiles of its two consumers and a ring of 4 q and
+    dO tile pairs, each with its 64 rows' lse and dvec (padded to 1024
+    bytes), and their barriers. It does not depend on T."""
+    tile, stages = _tile_bytes(head_dim), 4
+    dq = _ALIGN_BYTES + stages * 2 * tile + 2 * stages * 8
+    dkv = (_ALIGN_BYTES + 2 * KERNEL_CONSUMERS * tile
+           + stages * (2 * tile + 1024) + (1 + 2 * stages) * 8)
+    return max(dq, dkv)
+
+
 def _stats_rows(seq_len: int) -> int:
     """Rows of each (image, head)'s block of the backward's statistics: T in
     whole 64-row tiles, which the dK/dV kernel copies whole."""
@@ -256,11 +270,12 @@ def packed_fused_attention(
     if not qkv.is_cuda:
         return packed_fused_attention_reference(qkv, nh, hd, packing=packing,
                                                 true_seq_len=true_seq_len)
-    if _is_long_seq(t):
+    route = _packed_route(t, packing, seq, qkv.dtype)
+    if route == "blockwise":
         return blockwise_attention_fwd(qkv, nh, hd, kv_len=seq)[0]
-    if packing != "slab" or seq != t:
-        # The packed kernel knows slabs of T keys only: the same function
-        # through the single-pass kernel, on strided views with kv_len.
+    if route == "single_pass":
+        # fp32: the same function through the single-pass attention's fp32
+        # kernel, on strided views with kv_len.
         out = torch.empty((b, t, d), dtype=qkv.dtype, device=qkv.device)
         q, k, v = _packed_heads(qkv, nh, hd, packing)
         single_pass_attention(q, k, v, hd, kv_len=seq,
@@ -278,17 +293,14 @@ def packed_fused_attention(
     out = torch.empty((b, t, d), dtype=qkv.dtype, device=qkv.device)
     if b == 0 or t == 0:
         return out
-    if kernel_smem_bytes(t, hd) > MAX_SMEM_BYTES:
-        # Past the packed kernel's route (kernel_smem_bytes), and JAX keeps
-        # the one-shot route up to padded T = 1024: the same function through
-        # the single-pass kernel on the slabs.
-        q, k, v = _split_heads(qkv, 3, nh, hd)
-        single_pass_attention(q, k, v, hd,
-                              out=out.view(b, t, nh, hd).permute(0, 2, 1, 3))
-        return out
-    err = _build.launch("vit_packed_attention_bf16", qkv,
-        qkv.data_ptr(), out.data_ptr(), b, t, nh, hd,
-        _single_pass_scale(hd, torch.bfloat16))
+    scale = _single_pass_scale(hd, torch.bfloat16)
+    if route == "packed":
+        err = _build.launch("vit_packed_attention_bf16", qkv,
+            qkv.data_ptr(), out.data_ptr(), b, t, nh, hd, scale)
+    else:
+        err = _build.launch("vit_packed_attention_kv", qkv,
+            qkv.data_ptr(), out.data_ptr(), b, t, seq, nh, hd,
+            int(packing == "per_head"), scale)
     _build.check_launch(err, "packed_fused_attention")
     LAUNCHES += 1
     return out

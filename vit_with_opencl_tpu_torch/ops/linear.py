@@ -1,5 +1,5 @@
-"""Fused linear layer: the CUDA GEMMs of ``csrc/gemm_sm90.cuh`` (bf16) and
-``csrc/linear.cu`` (int8), and their plain versions.
+"""Fused linear layer: the CUDA GEMMs of ``csrc/gemm_sm90.cuh`` (bf16 x with
+a bf16 or int8 w) and ``csrc/linear.cu`` (W8A8), and their plain versions.
 
 Replaces ``vit_with_opencl_tpu/ops/linear.py:_linear_kernel``
 (``fused_linear``) and is the GEMM link of the encoder chains
@@ -12,8 +12,10 @@ forms), each form with its own launch count:
 
   * ``fused_linear`` with bf16 ``w``: bf16 x @ bf16 w on the Hopper core
     (TMA and wgmma, ``LAUNCHES``);
-  * ``fused_linear`` with int8 ``w`` and ``w_scale``: weight-only int8, the
-    fp32 product times the per-column scale (``LAUNCHES_INT8W``);
+  * ``fused_linear`` with int8 ``w`` and ``w_scale``: weight-only int8 on
+    the same Hopper core, w loaded by TMA as int8 and widened to bf16 in
+    shared memory by the consuming warpgroup, the fp32 product times the
+    per-column scale (``LAUNCHES_INT8W``);
   * ``fused_linear_w8a8``: int8 x (with its per-row scale, from
     ``ops/quantize.py``) @ int8 w, ``acc · s_x · s_w`` (``LAUNCHES_W8A8``);
     with ``x_hi`` and ``w_hi`` (the outlier-aware layer's bf16 groups) the
@@ -402,6 +404,31 @@ def linear_wgrad_reference(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
 # slices.
 _TILE_MN, _TILE_K = 128, 64
 _MIN_SPLIT_SLICES = 4
+# Its ring of bf16 A and B slices, and the int8-weight form's ring of int8
+# w slices beside it.
+GEMM_STAGES = 4
+INT8W_STAGES = 3
+_EPI_PITCH = _TILE_MN + 8  # the epilogue's fp32 staging rows, padded
+_CONSUMERS = 2
+
+
+def gemm_kernel_smem_bytes() -> int:
+    """Shared memory of one block of the Hopper GEMM core's bf16 forms
+    (csrc/gemm_sm90.cuh ``kSmemBytes``): 1024 bytes of alignment slack, the
+    ring of 128 x 64 bf16 A and B slices, the two consumer warpgroups'
+    64-row fp32 staging tiles and the barriers (full and empty a stage, two
+    turns)."""
+    ring = GEMM_STAGES * 2 * _TILE_MN * _TILE_K * 2
+    staging = _CONSUMERS * 64 * _EPI_PITCH * 4
+    return 1024 + ring + staging + (2 * GEMM_STAGES + 2) * 8
+
+
+def int8w_kernel_smem_bytes(int8_stages: int = INT8W_STAGES) -> int:
+    """Shared memory of one block of the core's int8-weight form
+    (``kSmemBytesI8``): the bf16 form's, and a ring of ``int8_stages``
+    [64 K, 128 N] int8 w slices (8 KiB each) with a full and an empty
+    barrier a slot."""
+    return gemm_kernel_smem_bytes() + int8_stages * (_TILE_K * _TILE_MN + 2 * 8)
 
 
 @functools.lru_cache(maxsize=None)
