@@ -30,6 +30,11 @@ of its two runs. The figures (ms):
 * row 14a's forms (``linear_wgrad``, ``linear_dgrad``,
   ``fused_linear_with_gelu``) at ViT-B/16's B = 16 and 64 and at
   ViT-L/16@384's widths at B = 8;
+* rows 2 and 5d (``layer_norm`` at ViT-B/16's D): LN1 (bf16 in) and LN2
+  (fp32 in), with bf16 out (row 2) and fp32 out (row 5d), at B = 16 and
+  256; row 14c (``column_sum``) on ViT-B/16's fp32 dqkv [M, 3D], bf16 dOut
+  [M, D] and the LN backward's fp32 partial rows [ceil(M / 64), D] at B =
+  16 and 64;
 * the ViT-B/16 bf16 forward at B = 64 and 256; W8A8, int8 weights and
   calibrated W8A8 at 256; the ViT-Ti and ViT-S stacks at 16 and 256;
 * the ViT-B/16 ``fused`` AdamW step at B = 64 and ViT-L/16@384's at 32;
@@ -57,8 +62,10 @@ Gates (slower only, so a later tree that is faster passes): W8A8, int8
 weights and calibrated W8A8 at B = 256 at most 3% slower than the parent's;
 row 4 at ViT-B/16 B = 256, row 11 at each of its shapes and the ViT-B/16
 bf16 forward at B = 256 at most 3% slower (row 4 shares its kernel body
-with row 8, row 11 its design with row 12); the median of the
-library swaps' ViT-Ti stack ratios at B = 16 at most 5% slower. Exits 1 if a gate fails, 2 without ``--parent``. The last line is
+with row 8, row 11 its design with row 12); the ViT-B/16 ``fused`` AdamW
+step at B = 64 (96 column sums and 24 LNs a step) at most 3% slower; the
+median of the library swaps' ViT-Ti stack ratios at B = 16 (its LNs at D
+= 192) at most 5% slower. Exits 1 if a gate fails, 2 without ``--parent``. The last line is
 one JSON object with every run's figures, the pairs and the gates.
 """
 
@@ -79,6 +86,9 @@ DEFAULT_PAIRS = 10
 SMOKE_BATCH = 16
 THROUGHPUT_BATCHES = (64, 256)
 GEMM_BATCHES = (16, 256)
+LN_BATCHES = (16, 256)  # rows 2 and 5d
+COLSUM_BATCHES = (16, 64)  # row 14c: phase 2e's and 4b's training batches
+LN_BWD_ROWS_PER_BLOCK = 64  # the LN backward's partial row a block
 # (name, width, hidden width, tokens, batch) of row 14a's figures.
 GRAD_SHAPES = (("ViT-B/16", 768, 3072, 197, 16), ("ViT-B/16", 768, 3072, 197, 64),
                ("ViT-L/16@384", 1024, 4096, 577, 8))
@@ -179,6 +189,37 @@ def gemm_figures(pkg, dev) -> dict:
         x, w1, b1 = rnd(m, d), rnd(d, h, std=0.02), rnd(h, std=0.02, dtype=f32)
         out[f"row 14a fc1 pair {tag}"] = time_ms(
             lambda: linear.fused_linear_with_gelu(x, w1, b1))
+    return out
+
+
+def reduction_figures(pkg, dev) -> dict:
+    """Rows 2 and 5d (``layer_norm``: LN1 on bf16 x, LN2 on the fp32
+    stream, each with bf16 and fp32 out) at LN_BATCHES, and row 14c
+    (``column_sum`` on the fp32 dqkv, the bf16 dOut and the LN backward's
+    fp32 partial rows) at COLSUM_BATCHES, at ViT-B/16's widths on seeded
+    inputs (chip_smoke.py phases 2, 2b and 2e)."""
+    layernorm, cfg = pkg["layernorm"], pkg["VIT_B_16_224"]
+    gen = torch.Generator(device=dev).manual_seed(15)
+    bf, f32 = torch.bfloat16, torch.float32
+    d, t = cfg.embed_dim, cfg.num_tokens
+    w = torch.randn(d, generator=gen, device=dev) * 0.02 + 1.0
+    b = torch.randn(d, generator=gen, device=dev) * 0.02
+    out = {}
+    for batch in LN_BATCHES:
+        for name, x_dtype in (("LN1", bf), ("LN2", f32)):
+            x = (torch.randn((batch, t, d), generator=gen, device=dev) * 0.5).to(x_dtype)
+            for row, out_dtype in (("row 2", bf), ("row 5d", f32)):
+                tag = "bf16" if out_dtype == bf else "fp32"
+                out[f"{row} layer_norm {name} ({tag} out) ViT-B/16 B={batch}"] = time_ms(
+                    lambda: layernorm.layer_norm(x, w, b, cfg.eps, out_dtype=out_dtype))
+    for batch in COLSUM_BATCHES:
+        m = batch * t
+        for name, shape, dtype in (
+                ("dqkv (fp32)", (m, 3 * d), f32), ("dOut (bf16)", (m, d), bf),
+                ("LN partial rows (fp32)", (-(-m // LN_BWD_ROWS_PER_BLOCK), d), f32)):
+            x = torch.randn(shape, generator=gen, device=dev).to(dtype)
+            out[f"row 14c column_sum {name} ViT-B/16 B={batch}"] = time_ms(
+                lambda: layernorm.column_sum(x))
     return out
 
 
@@ -334,10 +375,10 @@ def figures_main(root: str, host_only: bool) -> int:
     from vit_with_opencl_tpu_torch.engine import InferenceEngine
     from vit_with_opencl_tpu_torch.harness import fixtures
     from vit_with_opencl_tpu_torch.models import vit
-    from vit_with_opencl_tpu_torch.ops import _build, attention, linear
+    from vit_with_opencl_tpu_torch.ops import _build, attention, layernorm, linear
     from vit_with_opencl_tpu_torch.parallel import spmd
-    pkg = dict(linear=linear, attention=attention, optim=optim, vit=vit, spmd=spmd,
-               fixtures=fixtures,
+    pkg = dict(linear=linear, attention=attention, layernorm=layernorm, optim=optim,
+               vit=vit, spmd=spmd, fixtures=fixtures,
                InferenceEngine=InferenceEngine, VIT_B_16_224=VIT_B_16_224,
                VIT_L_16_384=VIT_L_16_384, VIT_S_16_224=VIT_S_16_224,
                VIT_TINY_16_224=VIT_TINY_16_224)
@@ -353,6 +394,7 @@ def figures_main(root: str, host_only: bool) -> int:
             out = stack_figures(pkg, dev, (SMOKE_BATCH,))
         else:
             out = gemm_figures(pkg, dev)
+            out.update(reduction_figures(pkg, dev))
             out.update(attention_figures(pkg, dev))
             out.update(long_attention_figures(pkg, dev))
             out.update(forward_figures(pkg, dev))
@@ -504,6 +546,12 @@ def main(argv: list[str]) -> int:
         print(f"{'ok  ' if gates[key] else 'FAIL'} {key}: this / parent {ratio:.4f} "
               f"(at most {STEADY_PATHS_TOL:.0%} slower: row 4 shares its body with "
               f"row 8, row 11 its design with row 12)", flush=True)
+    key = f"train step vit_b_16_224 fused B={TRAIN_BATCH}"
+    ratio = after[key] / before[key]
+    gates[key] = ratio <= 1 + STEADY_PATHS_TOL
+    print(f"{'ok  ' if gates[key] else 'FAIL'} {key}: this / parent {ratio:.4f} "
+          f"(at most {STEADY_PATHS_TOL:.0%} slower: 96 column sums and 24 LNs a "
+          f"step)", flush=True)
     key = f"forward vit_tiny_16_224 bf16 stack B={SMOKE_BATCH}"
     if key in swap_ratios:
         median = statistics.median(swap_ratios[key])

@@ -80,7 +80,16 @@ line.
    yardstick ``torch.mm``/``addmm`` with the epilogue as ops), the LN
    backward at LN2 and LN1 (autograd of ``F.layer_norm``), the column sum,
    the three stages and ``fused_encoder_layer_bwd``. fp32 outputs are held
-   to a share of their own largest magnitude.
+   to a share of their own largest magnitude. The column sum also on LN2's
+   partial dw rows (one a block of 64 tokens), as the LN backward hands them
+   on.
+2k. The LN kernel's forms at the stacks' and ViT-L's widths (D = 192 and
+   384 at B = 16 and 256, D = 1024 at ViT-L/16@384's B = 8 and 32) on the
+   fp32 stream, bf16 and fp32 out, against its plain version (yardstick
+   ``F.layer_norm``); then rows 2, 5d and 14c at ViT-B B = 16 traced alone
+   with ``perf.device_kernel_table``: device time a call beside the same
+   trace of ``F.layer_norm`` and ``x.float().sum(0)``, and the trace's
+   launches of the port's kernels against the calls.
 5. The training main path: ``Trainer(VIT_B_16_224, device="cuda",
    compute_dtype=bf16, optimizer="adamw")`` from seeded ``init_params``,
    8 steps at batch 32 on a memorised seeded batch, in each route
@@ -1464,12 +1473,24 @@ def train_kernel_rows(batch: int, dev, seed: int = 0, cfg=CFG) -> list[dict]:
 
     def colsum_case(name, xin):
         c = xin.shape[-1]
+        rows = xin.numel() // c
         return _grad_case(
             name, "column_sum", lambda: layernorm.column_sum(xin),
             lambda: layernorm.column_sum_reference(xin),
-            library=lambda: xin.reshape(m, c).float().sum(0),
-            bytes=m * c * xin.element_size() + c * 4, ops={"fp32": m * c},
+            library=lambda: xin.reshape(rows, c).float().sum(0),
+            bytes=rows * c * xin.element_size() + c * 4, ops={"fp32": rows * c},
             replaces=attn_stage if xin is dqkv else None)
+
+    # The LN backward's partial rows (one a block of BWD_ROWS_PER_BLOCK
+    # tokens), which column_sum finishes into dw and db: LN2's dw partials.
+    xhat2 = fused_block._ln_fwd_stats(x2.float(), lp["ln2_w"],
+                                      torch.zeros_like(lp["ln2_w"]), eps)[0]
+    per_block = layernorm.BWD_ROWS_PER_BLOCK
+    blocks = -(-m // per_block)
+    ln_partial = torch.cat([
+        (dh2.float() * xhat2).reshape(m, d),
+        torch.zeros((blocks * per_block - m, d), device=dev)]).reshape(
+            blocks, per_block, d).sum(1)
 
     wbytes_attn, wbytes_mlp, (stage_x2_ops, stage_mlp_ops, stage_attn_ops) = \
         stage_work(cfg, batch)
@@ -1502,6 +1523,8 @@ def train_kernel_rows(batch: int, dev, seed: int = 0, cfg=CFG) -> list[dict]:
                     "ln1_b", dx2, bf),
         colsum_case("column_sum dqkv (fp32)", dqkv),
         colsum_case("column_sum dOut (bf16)", dout),
+        colsum_case(f"column_sum LN2 partial dw rows (fp32, "
+                    f"{ln_partial.shape[0]} x {d})", ln_partial),
         _grad_case("fused_bwd_stage_x2 (_attn_half_fwd_kernel: 4 launches)",
                    "fused_bwd_x2",
                    lambda: fused_block.fused_bwd_stage_x2(x, lp, cfg),
@@ -2163,6 +2186,94 @@ def fp32_layer_norm_check(dev) -> None:
                              layernorm.layer_norm_reference(x, w, b, CFG.eps), F32_TOL)
     check(within, f"layer_norm fp32 in/out: max_abs_err {err:.3e} "
                   f"(tol rtol {F32_TOL[0]} atol {F32_TOL[1]})")
+
+
+# Phase 2k: the LN kernel's compile-time forms at the stacks' and ViT-L's
+# widths, with fp32 in (config, batch): ViT-Ti and ViT-S at the stacks' B
+# = 16 and 256, ViT-L/16@384 at its training batches.
+LN_WIDTH_ROWS = ((VIT_TINY_16_224, 16), (VIT_TINY_16_224, 256), (VIT_S_16_224, 16),
+                 (VIT_S_16_224, 256), (LARGE_CFG, 8), (LARGE_CFG, 32))
+DEVICE_TIME_ITERS = 20
+
+
+def ln_width_rows(dev) -> list[dict]:
+    """Phase 2k: ``layer_norm`` on the fp32 stream (the stack's LNs, the
+    chain's LN2) with bf16 and fp32 out at LN_WIDTH_ROWS' widths and rows,
+    against the plain version; yardstick ``F.layer_norm`` in fp32."""
+    rows = []
+    for cfg, batch in LN_WIDTH_ROWS:
+        gen = torch.Generator(device=dev).manual_seed(batch)
+        d = cfg.embed_dim
+        x = torch.randn((batch, cfg.num_tokens, d), generator=gen, device=dev) * 0.5
+        w = torch.randn(d, generator=gen, device=dev) * 0.02 + 1.0
+        b = torch.randn(d, generator=gen, device=dev) * 0.02
+        cases = [ln_case(f"layer_norm D={d} (fp32 in, {tag} out)", "layernorm", x, w, b,
+                         out_dtype,
+                         lambda: torch.nn.functional.layer_norm(x, (d,), w, b, cfg.eps),
+                         eps=cfg.eps)
+                 for tag, out_dtype in (("bf16", torch.bfloat16), ("fp32", torch.float32))]
+        rows += run_cases(cases, batch, f"{cfg.name} ")
+    return rows
+
+
+def reduction_device_times(dev) -> None:
+    """Phase 2k: the device time of one call of each LN form (rows 2 and
+    5d) and of ``column_sum`` (row 14c) at ViT-B/16 B = 16, from a
+    ``perf.device_kernel_table`` trace of the call alone (DEVICE_TIME_ITERS
+    calls), beside the same trace of its library call (``F.layer_norm``,
+    ``x.float().sum(0)``) and both calls' CUDA-event times. Checks that the
+    traced kernels are the port's and launched as often as the calls say."""
+    gen = torch.Generator(device=dev).manual_seed(15)
+    bf, f32 = torch.bfloat16, torch.float32
+    d, m, eps = CFG.embed_dim, SMOKE_BATCH * CFG.num_tokens, CFG.eps
+    w = torch.randn(d, generator=gen, device=dev) * 0.02 + 1.0
+    b = torch.randn(d, generator=gen, device=dev) * 0.02
+    F = torch.nn.functional
+    cases = []
+    for name, x_dtype, out_dtype in (("row 2 LN1 (bf16 in, bf16 out)", bf, bf),
+                                     ("row 2 LN2 (fp32 in, bf16 out)", f32, bf),
+                                     ("row 5d LN1 (bf16 in, fp32 out)", bf, f32),
+                                     ("row 5d LN2 (fp32 in, fp32 out)", f32, f32)):
+        x = (torch.randn((m, d), generator=gen, device=dev) * 0.5).to(x_dtype)
+        wl, bl = (w.to(bf), b.to(bf)) if x_dtype == bf else (w, b)
+        cases.append((name, x, "layernorm_kernel<", 1,
+                      functools.partial(layernorm.layer_norm, x, w, b, eps,
+                                        out_dtype=out_dtype),
+                      functools.partial(F.layer_norm, x, (d,), wl, bl, eps)))
+    for name, shape, dtype in (("row 14c dqkv (fp32)", (m, 3 * d), f32),
+                               ("row 14c dOut (bf16)", (m, d), bf),
+                               ("row 14c LN partial rows (fp32)",
+                                (-(-m // layernorm.BWD_ROWS_PER_BLOCK), d), f32)):
+        x = torch.randn(shape, generator=gen, device=dev).to(dtype)
+        per_chunk = layernorm.column_sum_rows_per_chunk(shape[0], shape[1],
+                                                        x.element_size())
+        cases.append((f"{name} [{shape[0]}, {shape[1]}]", x, "column_sum_kernel<",
+                      1 if per_chunk >= shape[0] else 2,
+                      functools.partial(layernorm.column_sum, x),
+                      lambda x=x: x.float().sum(0)))
+    out = []
+    for name, x, kernel_name, launches, kernel, library in cases:
+        def traced(fn):
+            table = perf.device_kernel_table(lambda _x: fn(), (x,), iters=DEVICE_TIME_ITERS)
+            return sum(s.total_ms for s in table) / DEVICE_TIME_ITERS, table
+
+        dev_ms, table = traced(kernel)
+        lib_dev_ms, lib_table = traced(library)
+        calls = sum(s.calls for s in table if kernel_name in s.name)
+        check(calls == launches * DEVICE_TIME_ITERS
+              and calls == sum(s.calls for s in table),
+              f"B={SMOKE_BATCH} {name}: the trace holds {calls} launches of "
+              f"{kernel_name!r} ({launches} a call) and nothing else")
+        row = dict(name=name, device_ms=dev_ms, library_device_ms=lib_dev_ms,
+                   ms=time_ms(kernel), library_ms=time_ms(library),
+                   library_kernels=[s.name[:80] for s in lib_table])
+        out.append(row)
+        print(f"  B={SMOKE_BATCH} {name}: device {dev_ms:.4f} ms a call, library "
+              f"{lib_dev_ms:.4f} ms ({lib_dev_ms / dev_ms:.2f}x the kernel's; "
+              f"{', '.join(row['library_kernels'])}); CUDA events {row['ms']:.4f} / "
+              f"{row['library_ms']:.4f} ms", flush=True)
+    print(json.dumps({"device_times": {"batch": SMOKE_BATCH, "iters": DEVICE_TIME_ITERS,
+                                       "rows": out}}), flush=True)
 
 
 def read_counts() -> dict:
@@ -3126,6 +3237,12 @@ def main() -> int:
     phase(f"== phase 2e: training kernels and backward stages vs plain versions, "
           f"B={SMOKE_BATCH}")
     train_rows = train_kernel_rows(SMOKE_BATCH, dev)
+    with torch.inference_mode():
+        phase(f"== phase 2k: the LN kernel at the stacks' and ViT-L's widths vs its "
+              f"plain version; device times of rows 2, 5d and 14c at B={SMOKE_BATCH} "
+              f"beside their library calls (torch.profiler)")
+        ln_width_rows(dev)
+        reduction_device_times(dev)
     phase("== phase 2f: training kernels at the larger presets' shapes (ViT-L/16@384, "
           "ViT-H/14, ViT-G/14) vs plain versions")
     large_rows = large_kernel_rows(dev)

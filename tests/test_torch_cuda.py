@@ -88,7 +88,12 @@ def _close(out, ref, min_same=MIN_SAME_KERNEL, tol=BF16_TOL):
     assert (out == ref).float().mean().item() >= min_same
 
 
-@pytest.mark.parametrize("rows,cols", [(74, 64), (3152, 768)])
+# The presets' widths (each a compile-time form of the kernel: 8, 16 or 32
+# lanes a row), a width of whole 16-byte vectors that is none of them (64),
+# and one whose rows are not 16-byte aligned in bf16 (100); one row, a
+# ragged block of rows, and ViT-B's B = 16.
+@pytest.mark.parametrize("cols", [64, 100, 192, 384, 768, 1024, 1280, 1664])
+@pytest.mark.parametrize("rows", [1, 74, 3152])
 @pytest.mark.parametrize("in_dtype,out_dtype", [
     (torch.bfloat16, torch.bfloat16), (torch.float32, torch.bfloat16),
     (torch.float32, torch.float32), (torch.bfloat16, torch.float32)])
@@ -101,6 +106,7 @@ def test_layer_norm_kernel(dev, rows, cols, in_dtype, out_dtype):
     torch.cuda.synchronize()
     assert layernorm.LAUNCHES == before + 1 and out.dtype == out_dtype
     _close(out, layernorm.layer_norm_reference(x, w, b, 1e-6, out_dtype=out_dtype))
+    assert torch.equal(out, layernorm.layer_norm(x, w, b, 1e-6, out_dtype=out_dtype))
 
 
 # Beyond ViT-B: the ViT-L and ViT-H widths (K, N = 1024, 4096 and 1280,
@@ -758,12 +764,22 @@ def test_layer_norm_bwd_kernel(dev, rows, cols, x_dtype, g_dtype, out_dtype):
     _rel_close(db, rdb, 1e-4)
 
 
-@pytest.mark.parametrize("rows,cols", [(3152, 2304), (70, 24)])
+# One row; the LN backward's partial rows at ViT-B B = 16 (50) and 64 (197)
+# and the one-pass limit's neighbours; ViT-B B = 64's tokens (two passes);
+# widths that are not whole 16-byte vectors (7, 24), ViT-B's D, 3D and H.
+COLSUM_SHAPES = ([(r, c) for r in (1, 50, 63, 64, 65, 197, 12608)
+                  for c in (7, 768, 2304, 3072)]
+                 + [(256, 768), (257, 768), (3152, 2304), (70, 24)])
+
+
+@pytest.mark.parametrize("rows,cols", COLSUM_SHAPES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_column_sum_kernel(dev, rows, cols, dtype):
     x = _rand((rows, cols), dev, dtype)
+    before = layernorm.LAUNCHES_COLSUM
     out = layernorm.column_sum(x)
     torch.cuda.synchronize()
+    assert layernorm.LAUNCHES_COLSUM == before + 1
     _rel_close(out, layernorm.column_sum_reference(x), 1e-5)
     assert torch.equal(out, layernorm.column_sum(x))  # no atomics
 

@@ -65,65 +65,6 @@ __device__ __forceinline__ float gelu_fast_grad(float x) {
   return 0.5f * (1.0f + t) + 0.5f * x * (1.0f - t * t) * (p + 2.0f * u * dp);
 }
 
-// V consecutive elements as one aligned access (V = 4 or 8; an offset of a
-// multiple of V elements keeps the alignment: the wrappers check 16-byte
-// bases and N % 8 == 0). 16 bytes is the widest access, so 8 floats are two.
-template <typename T, int V>
-struct alignas(sizeof(T) * V < 16 ? sizeof(T) * V : 16) Vec {
-  T v[V];
-};
-
-// The epilogue's inputs are read-only while a kernel runs (the wrappers
-// allocate every output), so they take the non-coherent path, which also
-// lets the compiler issue them ahead of earlier stores.
-template <int V>
-__device__ __forceinline__ void load_f32(float (&v)[V], const float* p) {
-  static_assert(V % 4 == 0, "16-byte loads");
-#pragma unroll
-  for (int e = 0; e < V; e += 4) {
-    const float4 r = __ldg(reinterpret_cast<const float4*>(p + e));
-    v[e] = r.x;
-    v[e + 1] = r.y;
-    v[e + 2] = r.z;
-    v[e + 3] = r.w;
-  }
-}
-
-template <int V>
-__device__ __forceinline__ void load_bf16(float (&v)[V], const bf16* p) {
-  static_assert(V == 4 || V == 8, "8- or 16-byte loads");
-  uint32_t w[V / 2];
-  if constexpr (V == 8) {
-    const uint4 r = __ldg(reinterpret_cast<const uint4*>(p));
-    w[0] = r.x; w[1] = r.y; w[2] = r.z; w[3] = r.w;
-  } else {
-    const uint2 r = __ldg(reinterpret_cast<const uint2*>(p));
-    w[0] = r.x; w[1] = r.y;
-  }
-#pragma unroll
-  for (int e = 0; e < V / 2; ++e) {
-    const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[e]));
-    v[2 * e] = f.x;
-    v[2 * e + 1] = f.y;
-  }
-}
-
-template <int V>
-__device__ __forceinline__ void store_vec(void* base, size_t off, int as_bf16,
-                                          const float (&v)[V]) {
-  if (as_bf16) {
-    Vec<uint32_t, V / 2> p;
-#pragma unroll
-    for (int e = 0; e < V / 2; ++e) p.v[e] = pack_bf16x2(v[2 * e], v[2 * e + 1]);
-    *reinterpret_cast<Vec<uint32_t, V / 2>*>(static_cast<bf16*>(base) + off) = p;
-  } else {
-    Vec<float, V> p;
-#pragma unroll
-    for (int e = 0; e < V; ++e) p.v[e] = v[e];
-    *reinterpret_cast<Vec<float, V>*>(static_cast<float*>(base) + off) = p;
-  }
-}
-
 // The epilogue of R rows gm[i] at the same V consecutive columns gn..gn+V-1,
 // whose products are in v[i]; ok[i] false leaves a row out. The steps run
 // over all R rows in turn (independent work for the GELU's tanh), each row

@@ -8,32 +8,119 @@
 // dtype. The input is bf16 or fp32 and the output dtype is chosen separately:
 // the encoder chain normalises the fp32 residual stream into bf16 (LN2).
 //
-// Bound on the card: bytes. A row is read twice (statistics, then the
-// normalised write), but the second read comes from L1/L2, so device memory
-// sees each input byte once and each output byte once. Design: one warp per
-// row, lanes striding over the row so each load instruction is coalesced, and
-// the two sums reduced with warp shuffles; no shared memory and no
-// __syncthreads, so a block of 8 warps normalises 8 independent rows.
+// Bound on the card: bytes (each input byte read once, each output byte
+// written once). Design: a row is read once, in 16-byte vectors (8 bf16 or
+// 4 fp32 a lane an instruction; w and b as float4), and held in registers
+// from its load to its write. At the presets' widths (192, 384, 768, 1024,
+// 1280, 1664) the vectors a lane are a compile-time count, so every load of
+// a lane is issued before the first sum: a row takes a group of 32 lanes
+// from 96 vectors a row up, 16 from 48, 8 below (3 or more vectors a lane),
+// and the group reduces its two sums with xor shuffles, without shared
+// memory. A block holds 1 to 4 warps, fewer where the rows are few, so that
+// the grid spreads over the card (kLnTargetBlocks). Any other width takes
+// the general form: a warp a row, the row read twice (statistics, then the
+// normalised write; the second read from L1/L2), in 16-byte vectors where
+// the width is a whole number of them, else an element a lane an
+// instruction (rows that are not 16-byte aligned).
+#include <type_traits>
+
 #include "common.cuh"
 
 namespace vit {
 
-constexpr int kLnWarps = 8;
+constexpr int kLnWarps = 8;     // the residual and backward kernels below
+constexpr int kLnMaxWarps = 4;  // the forward's blocks: 1, 2 or 4 warps
+constexpr int kLnTargetBlocks = 4 * 132;  // 4 blocks an SM of an H100
 
-template <typename TIn, typename TOut>
-__global__ void __launch_bounds__(kLnWarps * 32)
+// A row of kCols elements of TIn in 16-byte vectors: kLanes lanes a row,
+// kPerLane vectors a lane (with kRagged, the last lanes' last vector lies
+// past the row and is left out).
+template <typename TIn, int kCols>
+struct LnShape {
+  static constexpr int V = kVec16<TIn>;
+  static_assert(kCols % V == 0, "a row of whole vectors");
+  static constexpr int kVecs = kCols / V;
+  static constexpr int kLanes = kVecs >= 96 ? 32 : kVecs >= 48 ? 16 : kVecs >= 24 ? 8 : 4;
+  static constexpr int kPerLane = (kVecs + kLanes - 1) / kLanes;
+  static constexpr bool kRagged = kVecs % kLanes != 0;
+};
+
+template <typename T> constexpr int kIsBF16 = std::is_same<T, bf16>::value;
+
+template <typename TIn, typename TOut, int kCols>
+__global__ void __launch_bounds__(kLnMaxWarps * 32)
 layernorm_kernel(const TIn* __restrict__ x, const float* __restrict__ w,
                  const float* __restrict__ b, TOut* __restrict__ y, int rows,
-                 int cols, float eps) {
+                 float eps) {
+  using S = LnShape<TIn, kCols>;
+  constexpr int V = S::V, L = S::kLanes, N = S::kPerLane;
+  const int sub = threadIdx.x % L;
+  const int row = blockIdx.x * (blockDim.x / L) + threadIdx.x / L;
+  // A group past the last row loads nothing but still joins the shuffles.
+  const bool live = row < rows;
+  const TIn* xr = x + static_cast<size_t>(row) * kCols;
+  float v[N][V], wv[N][V], bv[N][V];
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    const int c = (j * L + sub) * V;
+    const bool in_row = !S::kRagged || c < kCols;
+#pragma unroll
+    for (int i = 0; i < V; ++i) v[j][i] = wv[j][i] = bv[j][i] = 0.f;
+    if (live && in_row) load_floats<V>(v[j], xr + c);
+    if (in_row) {
+      load_f32<V>(wv[j], w + c);
+      load_f32<V>(bv[j], b + c);
+    }
+  }
+  float sum = 0.f, sum_sq = 0.f;
+#pragma unroll
+  for (int j = 0; j < N; ++j)
+#pragma unroll
+    for (int i = 0; i < V; ++i) {
+      sum += v[j][i];
+      sum_sq += v[j][i] * v[j][i];
+    }
+#pragma unroll
+  for (int off = L / 2; off > 0; off >>= 1) {
+    sum += __shfl_xor_sync(0xffffffffu, sum, off);
+    sum_sq += __shfl_xor_sync(0xffffffffu, sum_sq, off);
+  }
+  const float mean = sum / kCols;
+  const float var = sum_sq / kCols - mean * mean;
+  const float inv = rsqrtf(var + eps);
+  if (!live) return;
+  const size_t base = static_cast<size_t>(row) * kCols;
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    const int c = (j * L + sub) * V;
+    if (S::kRagged && c >= kCols) continue;
+#pragma unroll
+    for (int i = 0; i < V; ++i) v[j][i] = (v[j][i] - mean) * inv * wv[j][i] + bv[j][i];
+    store_vec<V>(y, base + c, kIsBF16<TOut>, v[j]);
+  }
+}
+
+// The general form: any width, a warp a row; V elements a lane an
+// instruction (kVec16<TIn> where cols is a multiple of it, else 1).
+template <typename TIn, typename TOut, int V>
+__global__ void __launch_bounds__(kLnMaxWarps * 32)
+layernorm_any_width_kernel(const TIn* __restrict__ x, const float* __restrict__ w,
+                           const float* __restrict__ b, TOut* __restrict__ y,
+                           int rows, int cols, float eps) {
   const int lane = threadIdx.x % 32;
-  const int row = blockIdx.x * kLnWarps + threadIdx.x / 32;
+  const int row = blockIdx.x * (blockDim.x / 32) + threadIdx.x / 32;
   if (row >= rows) return;
   const TIn* xr = x + static_cast<size_t>(row) * cols;
   float sum = 0.f, sum_sq = 0.f;
-  for (int c = lane; c < cols; c += 32) {
-    const float v = to_float(xr[c]);
-    sum += v;
-    sum_sq += v * v;
+#pragma unroll 4
+  for (int c = lane * V; c < cols; c += 32 * V) {
+    float v[V];
+    load_floats<V>(v, xr + c);
+#pragma unroll
+    for (int i = 0; i < V; ++i) {
+      sum += v[i];
+      sum_sq += v[i] * v[i];
+    }
   }
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) {
@@ -43,21 +130,66 @@ layernorm_kernel(const TIn* __restrict__ x, const float* __restrict__ w,
   const float mean = sum / cols;
   const float var = sum_sq / cols - mean * mean;
   const float inv = rsqrtf(var + eps);
-  TOut* yr = y + static_cast<size_t>(row) * cols;
-  for (int c = lane; c < cols; c += 32) {
-    const float v = to_float(xr[c]);
-    yr[c] = from_float<TOut>((v - mean) * inv * w[c] + b[c]);
+  const size_t base = static_cast<size_t>(row) * cols;
+#pragma unroll 4
+  for (int c = lane * V; c < cols; c += 32 * V) {
+    float v[V];
+    load_floats<V>(v, xr + c);
+#pragma unroll
+    for (int i = 0; i < V; ++i) v[i] = (v[i] - mean) * inv * w[c + i] + b[c + i];
+    if constexpr (V == 1) {
+      y[base + c] = from_float<TOut>(v[0]);
+    } else {
+      store_vec<V>(y, base + c, kIsBF16<TOut>, v);
+    }
   }
+}
+
+// Warps a block for `rows_per_warp` rows a warp: 4, halved while the grid
+// would fall short of kLnTargetBlocks.
+inline int ln_warps(int rows, int rows_per_warp) {
+  int warps = kLnMaxWarps;
+  while (warps > 1 && (rows + rows_per_warp * warps - 1) / (rows_per_warp * warps) <
+                          kLnTargetBlocks)
+    warps /= 2;
+  return warps;
+}
+
+template <typename TIn, typename TOut, int kCols>
+cudaError_t launch_layernorm_width(const void* x, const float* w, const float* b,
+                                   void* y, int rows, float eps, cudaStream_t stream) {
+  constexpr int rows_per_warp = 32 / LnShape<TIn, kCols>::kLanes;
+  const int warps = ln_warps(rows, rows_per_warp);
+  const int per_block = rows_per_warp * warps;
+  layernorm_kernel<TIn, TOut, kCols><<<(rows + per_block - 1) / per_block, warps * 32, 0,
+                                       stream>>>(static_cast<const TIn*>(x), w, b,
+                                                 static_cast<TOut*>(y), rows, eps);
+  return cudaGetLastError();
 }
 
 template <typename TIn, typename TOut>
 cudaError_t launch_layernorm(const void* x, const float* w, const float* b,
                              void* y, int rows, int cols, float eps,
                              cudaStream_t stream) {
-  const dim3 grid((rows + kLnWarps - 1) / kLnWarps);
-  layernorm_kernel<TIn, TOut><<<grid, kLnWarps * 32, 0, stream>>>(
-      static_cast<const TIn*>(x), w, b, static_cast<TOut*>(y), rows, cols,
-      eps);
+  switch (cols) {
+    case 192: return launch_layernorm_width<TIn, TOut, 192>(x, w, b, y, rows, eps, stream);
+    case 384: return launch_layernorm_width<TIn, TOut, 384>(x, w, b, y, rows, eps, stream);
+    case 768: return launch_layernorm_width<TIn, TOut, 768>(x, w, b, y, rows, eps, stream);
+    case 1024: return launch_layernorm_width<TIn, TOut, 1024>(x, w, b, y, rows, eps, stream);
+    case 1280: return launch_layernorm_width<TIn, TOut, 1280>(x, w, b, y, rows, eps, stream);
+    case 1664: return launch_layernorm_width<TIn, TOut, 1664>(x, w, b, y, rows, eps, stream);
+    default: break;
+  }
+  const int warps = ln_warps(rows, 1);
+  const dim3 grid((rows + warps - 1) / warps);
+  const TIn* xt = static_cast<const TIn*>(x);
+  TOut* yt = static_cast<TOut*>(y);
+  if (cols % kVec16<TIn> == 0)
+    layernorm_any_width_kernel<TIn, TOut, kVec16<TIn>><<<grid, warps * 32, 0, stream>>>(
+        xt, w, b, yt, rows, cols, eps);
+  else
+    layernorm_any_width_kernel<TIn, TOut, 1><<<grid, warps * 32, 0, stream>>>(
+        xt, w, b, yt, rows, cols, eps);
   return cudaGetLastError();
 }
 
@@ -68,6 +200,7 @@ VIT_EXPORT int vit_layernorm(const void* x, int x_dtype, const float* w,
                              int cols, float eps, void* stream) {
   using namespace vit;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (rows <= 0 || cols <= 0) return cudaErrorInvalidValue;
   if (x_dtype == kBF16 && y_dtype == kBF16)
     return launch_layernorm<bf16, bf16>(x, w, b, y, rows, cols, eps, s);
   if (x_dtype == kF32 && y_dtype == kBF16)
@@ -84,9 +217,10 @@ VIT_EXPORT int vit_layernorm(const void* x, int x_dtype, const float* w,
 // _ln_residual_kernel, residual_layer_norm). Per row: s = x + r in fp32;
 // summed = s cast to x's dtype; the statistics from the fp32 s (not the
 // rounded one), mean = E[s], var = E[s^2] - E[s]^2; y = (s - mean) *
-// rsqrt(var + eps) * w + b, cast to x's dtype. The row kernel above with one
-// more input and one more output: bound by bytes (x and r read, y and s
-// written once; the second read of a row comes from L1/L2).
+// rsqrt(var + eps) * w + b, cast to x's dtype. A warp a row, an element a
+// lane an instruction, with one more input and one more output than the
+// row kernel: bound by bytes (x and r read, y and s written once; the
+// second read of a row comes from L1/L2).
 // ---------------------------------------------------------------------------
 
 namespace vit {

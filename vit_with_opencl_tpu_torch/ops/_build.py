@@ -97,8 +97,8 @@ SIGNATURES = {
     # cols, eps, stream
     "vit_layernorm_bwd": [_P, _I, _P, _P, _P, _I, _P, _I, _P, _P, _I, _I, _F,
                           _P],
-    # x, x_dtype, out, partial, rows, cols, stream
-    "vit_column_sum": [_P, _I, _P, _P, _I, _I, _P],
+    # x, x_dtype, out, partial, rows, cols, rows_per_chunk, stream
+    "vit_column_sum": [_P, _I, _P, _P, _I, _I, _I, _P],
     # q, k, v, bias, m_in, l_in, acc_in, m_out, l_out, acc_out, dtype, n,
     # t_loc, head_dim, block_k, scale, stream
     "vit_ring_step": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,

@@ -3,8 +3,9 @@
 Replaces ``vit_with_opencl_tpu/ops/layernorm.py:_ln_kernel`` (``layer_norm``)
 and is the LN link of the encoder chain (``ops/fused_block.py``). fp32
 statistics with var = E[x²]−E[x]², as the golden model. Bound on the card:
-bytes; the kernel gives each row one warp and reduces with shuffles (see
-the note in the source).
+bytes; the kernel reads each row once in 16-byte vectors, holds it in
+registers until its write, and reduces with shuffles (see the note in the
+source).
 
 ``layer_norm`` launches the kernel for a CUDA tensor and computes
 ``layer_norm_reference`` for a CPU tensor; there is no other fallback. On
@@ -26,6 +27,7 @@ finishes those partials and gives the bias gradients.
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
@@ -40,6 +42,14 @@ LAUNCHES_BWD = 0
 LAUNCHES_COLSUM = 0
 # Rows per block of the backward kernel: one partial row of dw and db each.
 BWD_ROWS_PER_BLOCK = 64
+# The column sum's chunks (csrc/reduce.cu): up to COLSUM_ONE_PASS_ROWS rows
+# in one pass; past that, chunks of at least COLSUM_MIN_CHUNK_ROWS rows, as
+# many as give about COLSUM_TARGET_BLOCKS blocks of 32 column vectors (4 an
+# SM of an H100) in the first pass.
+COLSUM_ONE_PASS_ROWS = 256
+COLSUM_MIN_CHUNK_ROWS = 32
+COLSUM_TARGET_BLOCKS = 4 * 132
+COLSUM_TILE_VECTORS = 32
 
 
 def layer_norm_reference(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
@@ -138,10 +148,29 @@ def column_sum_reference(x: torch.Tensor) -> torch.Tensor:
     return x.reshape(-1, x.shape[-1]).float().sum(0)
 
 
+@functools.lru_cache(maxsize=None)
+def column_sum_rows_per_chunk(rows: int, cols: int, itemsize: int) -> int:
+    """The rows of a chunk of ``column_sum``'s first pass over [rows, cols]
+    of ``itemsize``-byte elements: all of them (one pass) up to
+    COLSUM_ONE_PASS_ROWS, else enough chunks to give the first pass about
+    COLSUM_TARGET_BLOCKS blocks, each at least COLSUM_MIN_CHUNK_ROWS rows.
+    It depends on the shape alone, so the order of every column's sum does
+    too."""
+    if rows <= COLSUM_ONE_PASS_ROWS:
+        return rows
+    per_vec = 16 // itemsize
+    vectors = cols // per_vec if cols % per_vec == 0 else cols
+    tiles = -(-vectors // COLSUM_TILE_VECTORS)
+    chunks = -(-COLSUM_TARGET_BLOCKS // tiles)
+    return max(-(-rows // chunks), COLSUM_MIN_CHUNK_ROWS)
+
+
 def column_sum(x: torch.Tensor) -> torch.Tensor:
     """Sum over every axis but the last (the token axis of ``_csum``):
-    ``x`` [..., C] fp32 or bf16 → fp32 [C], in two passes without atomics
-    (the same result from run to run)."""
+    ``x`` [..., C] fp32 or bf16 → fp32 [C], without atomics and in an order
+    fixed by the shape (the same result from run to run): one launch up to
+    COLSUM_ONE_PASS_ROWS rows, else a pass over chunks of rows and a pass
+    over their partial sums."""
     global LAUNCHES_COLSUM
     if not x.is_cuda:
         return column_sum_reference(x)
@@ -151,11 +180,13 @@ def column_sum(x: torch.Tensor) -> torch.Tensor:
     if rows == 0 or c == 0:
         return torch.zeros((c,), dtype=torch.float32, device=x.device)
     out = torch.empty((c,), dtype=torch.float32, device=x.device)
-    partial = torch.empty((-(-rows // 64), c), dtype=torch.float32,
-                          device=x.device)
+    per_chunk = column_sum_rows_per_chunk(rows, c, x.element_size())
+    chunks = -(-rows // per_chunk)
+    partial = (torch.empty((chunks, c), dtype=torch.float32, device=x.device)
+               if chunks > 1 else None)
     err = _build.launch("vit_column_sum", x,
         x.data_ptr(), _build.DTYPE_CODES[x.dtype], out.data_ptr(),
-        partial.data_ptr(), rows, c)
+        None if partial is None else partial.data_ptr(), rows, c, per_chunk)
     _build.check_launch(err, "column_sum")
     LAUNCHES_COLSUM += 1
     return out
