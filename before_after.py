@@ -17,6 +17,12 @@ of its two runs. The figures (ms):
 * row 3's four GEMMs (``fused_linear``, ViT-B/16's shapes and epilogues) at
   B = 16 and 256, and row 5c's (``fused_linear`` with an int8 w and its
   scale, the int8-weight chain's epilogues) at the same shapes;
+* row 5b's four W8A8 GEMMs (``fused_linear_w8a8``, the W8A8 chain's
+  epilogues) and row 6c's (with the bf16 side product at the calibrated
+  chain's widths: int8 K 640 / 768 / 640 / 2944, K_hi 128 / 96 / 128 /
+  128) at ViT-B/16's shapes, B = 16 and 256, on the weights in the layout
+  each tree's W8A8 GEMM takes (``models/quant.k_major`` where the tree has
+  it, row-major before);
 * row 4 (``packed_fused_attention``) at ViT-B/16's shape, B = 16 and 256,
   and row 11 (``packed_attention_bwd``) at ViT-B/16's, B = 64, bf16 dqkv,
   and ViT-L/16@384's, B = 32, bf16 and fp32 dqkv (the ``fused`` route's);
@@ -60,6 +66,7 @@ launches a forward) two ways, N times each (default 10):
 
 Gates (slower only, so a later tree that is faster passes): W8A8, int8
 weights and calibrated W8A8 at B = 256 at most 3% slower than the parent's;
+rows 5b and 6c at each of their shapes at B = 256 at most 3% slower;
 row 4 at ViT-B/16 B = 256, row 11 at each of its shapes and the ViT-B/16
 bf16 forward at B = 256 at most 3% slower (row 4 shares its kernel body
 with row 8, row 11 its design with row 12); the ViT-B/16 ``fused`` AdamW
@@ -189,6 +196,56 @@ def gemm_figures(pkg, dev) -> dict:
         x, w1, b1 = rnd(m, d), rnd(d, h, std=0.02), rnd(h, std=0.02, dtype=f32)
         out[f"row 14a fc1 pair {tag}"] = time_ms(
             lambda: linear.fused_linear_with_gelu(x, w1, b1))
+    return out
+
+
+# (name, int8 K, N, K_hi of the side product, epilogue) of rows 5b and 6c
+# at ViT-B/16's widths: the W8A8 chain's epilogues (chip_smoke.py phases
+# 2b and 2c); row 5b's K is the whole input width, row 6c's the int8 part.
+W8A8_SHAPES = (("qkv", 768, 640, 2304, 128, {"out_dtype": torch.bfloat16}),
+               ("out", 768, 768, 768, 96, {"residual": torch.bfloat16,
+                                          "out_dtype": torch.float32}),
+               ("fc1", 768, 640, 3072, 128, {"fuse_gelu": True, "out_dtype": torch.float32}),
+               ("fc2", 3072, 2944, 768, 128, {"residual": torch.float32,
+                                            "out_dtype": torch.bfloat16}))
+
+
+def w8a8_figures(pkg, dev) -> dict:
+    """Rows 5b and 6c at W8A8_SHAPES and GEMM_BATCHES on seeded int8
+    operands, w in the layout the tree's W8A8 GEMM takes. Taken last: right
+    after them the memory-bound LN and attention figures, unchanged kernels,
+    read 2-5% slower in the tree whose W8A8 GEMMs ran faster."""
+    linear, quant, cfg = pkg["linear"], pkg["quant"], pkg["VIT_B_16_224"]
+    # K-major (the .t() of an [N, K] tensor) where the tree has the layout,
+    # else row-major: one allocation of the same size either way, so that
+    # both trees leave the caching allocator as the other does for the
+    # figures that follow.
+    k_major = hasattr(quant, "k_major")
+    gen = torch.Generator(device=dev).manual_seed(16)
+
+    def rnd(*shape, std=1.0, dtype=torch.bfloat16):
+        return (torch.randn(shape, generator=gen, device=dev) * std).to(dtype)
+
+    out = {}
+    for batch in GEMM_BATCHES:
+        m = batch * cfg.num_tokens
+        for name, k, k8, n, k_hi, kw in W8A8_SHAPES:
+            kw = {key: rnd(m, n, dtype=v) if key == "residual" else v
+                  for key, v in kw.items()}
+            b = rnd(n, std=0.02, dtype=torch.float32)
+            for row, kq in (("5b", k), ("6c", k8)):
+                xq = torch.randint(-127, 128, (m, kq), generator=gen, device=dev,
+                                   dtype=torch.int8)
+                wq = torch.randint(-127, 128, (n, kq) if k_major else (kq, n),
+                                   generator=gen, device=dev, dtype=torch.int8)
+                wq = wq.t() if k_major else wq
+                sx = torch.rand((m, 1), generator=gen, device=dev) * 1e-2 + 1e-3
+                sw = torch.rand(n, generator=gen, device=dev) * 1e-4 + 1e-5
+                side = {}
+                if row == "6c":
+                    side = {"x_hi": rnd(m, k_hi), "w_hi": rnd(k_hi, n, std=0.02)}
+                out[f"row {row} {name} ViT-B/16 B={batch}"] = time_ms(
+                    lambda: linear.fused_linear_w8a8(xq, sx, wq, sw, b, **side, **kw))
     return out
 
 
@@ -374,11 +431,11 @@ def figures_main(root: str, host_only: bool) -> int:
                                                   VIT_S_16_224, VIT_TINY_16_224)
     from vit_with_opencl_tpu_torch.engine import InferenceEngine
     from vit_with_opencl_tpu_torch.harness import fixtures
-    from vit_with_opencl_tpu_torch.models import vit
+    from vit_with_opencl_tpu_torch.models import quant, vit
     from vit_with_opencl_tpu_torch.ops import _build, attention, layernorm, linear
     from vit_with_opencl_tpu_torch.parallel import spmd
     pkg = dict(linear=linear, attention=attention, layernorm=layernorm, optim=optim,
-               vit=vit, spmd=spmd, fixtures=fixtures,
+               vit=vit, quant=quant, spmd=spmd, fixtures=fixtures,
                InferenceEngine=InferenceEngine, VIT_B_16_224=VIT_B_16_224,
                VIT_L_16_384=VIT_L_16_384, VIT_S_16_224=VIT_S_16_224,
                VIT_TINY_16_224=VIT_TINY_16_224)
@@ -402,6 +459,8 @@ def figures_main(root: str, host_only: bool) -> int:
             out.update(stack_figures(pkg, dev, (SMOKE_BATCH, THROUGHPUT_BATCHES[-1])))
     if not host_only:
         out.update(training_figures(pkg, dev))
+        with torch.inference_mode():
+            out.update(w8a8_figures(pkg, dev))
     print(json.dumps({"root": str(Path(port.__file__).resolve().parents[1]), "ms": out}))
     return 0
 
@@ -538,6 +597,12 @@ def main(argv: list[str]) -> int:
         print(f"{'ok  ' if gates[key] else 'FAIL'} {key}: this / parent {ratio:.4f} "
               f"(at most {STEADY_PATHS_TOL:.0%} slower; within {STEADY_PATHS_TOL:.0%} "
               f"either way: {abs(ratio - 1) <= STEADY_PATHS_TOL})", flush=True)
+    for key in (k for k in after
+                if k.startswith(("row 5b ", "row 6c ")) and k.endswith(f"B={GEMM_BATCHES[-1]}")):
+        ratio = after[key] / before[key]
+        gates[key] = ratio <= 1 + STEADY_PATHS_TOL
+        print(f"{'ok  ' if gates[key] else 'FAIL'} {key}: this / parent {ratio:.4f} "
+              f"(at most {STEADY_PATHS_TOL:.0%} slower)", flush=True)
     for key in (f"row 4 attention ViT-B/16 B={THROUGHPUT_BATCHES[-1]}",
                 *(k for k in after if k.startswith("row 11 ")),
                 f"forward vit_b_16_224 bf16 B={THROUGHPUT_BATCHES[-1]}"):

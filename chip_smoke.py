@@ -21,17 +21,21 @@ line.
    intermediates: the row quantize at its four sites (bit-identical to its
    plain version), the four W8A8 GEMMs (bit-identical without GELU), the
    four int8-weight GEMMs, the W8A8 chain's two LN links (fp32 out) and
-   both int8 chains. Yardsticks: ``torch._int_mm`` (cuBLASLt int8) with the
-   epilogue as PyTorch ops for W8A8, ``torch.mm`` on a bf16 copy of the
-   weight with the epilogue as ops for weight-only int8; none for the
-   quantize.
+   both int8 chains; the W8A8 GEMMs on int8 weights stored K-major, as the
+   W8A8 engine stores them. Yardsticks: ``torch._int_mm`` (cuBLASLt int8)
+   on the same K-major weights with the epilogue as PyTorch ops for W8A8
+   (printed beside it: ``_int_mm`` alone, and with the epilogue on the
+   row-major weights), ``torch.mm`` on a bf16 copy of the weight with the
+   epilogue as ops for weight-only int8; none for the quantize.
 2c. The calibrated outlier-aware W8A8 kernels the same way, on the
    intermediates of layer 0 of calibrated adversarial ViT-B weights (the
    phase-3c workspace's): the split quantize at LN1, LN2 and the GELU'd
    hidden and the masked quantize at the context (bit-identical to their
    plain versions), the four W8A8 GEMMs with their bf16 side products, and
-   the outlier chain. Yardsticks: ``torch._int_mm`` plus ``torch.mm`` on the
-   bf16 side, with the epilogue as PyTorch ops; none for the quantizes.
+   the outlier chain. Yardsticks: ``torch._int_mm`` on the K-major weights
+   plus ``torch.mm`` on the bf16 side, with the epilogue as PyTorch ops
+   (printed beside it: the same on the row-major weights); none for the
+   quantizes.
 3. The main path: a reference-format workspace (seeded ViT-B/16 weights,
    40 seeded images) goes through ``cli.main --backend gpu --attention
    flash``; the answer file comes from the port's plain fp32 path on the
@@ -42,7 +46,8 @@ line.
    ``--quantize int8-w8a8``, ``int8`` and ``auto`` (which resolves to W8A8
    on ViT-B). Each needs "Comparator: files match." and its launch counts;
    the W8A8 probabilities must be within 1e-3 of the same engine with the
-   chain's links swapped for their plain versions.
+   chain's links swapped for their plain versions. The bytes and device
+   time of the W8A8 set-up's K-major copy of the int8 weights are printed.
 3c. The calibrated outlier-aware W8A8 main path: a workspace of seeded
    adversarial ViT-B/16 weights (``fixtures.adversarial_params``, trained-ViT
    outlier channels; the head scaled by HEAD_SCALE so probabilities are
@@ -207,15 +212,17 @@ line.
    the plain versions); ``perf.profile_ops`` at ViT-B/16, bf16, ``flash``,
    B = 64 (the table, JAX's stage names, one single-pass launch);
    ``perf.device_kernel_table`` of the phase-3 engine's forward at B = 256,
-   of the int8-weight engine's (phase 3b) at B = 256 and of the ViT-Ti/16
-   stack's at B = 16 (the table, each chain kernel's traced calls equal to
-   its counter's rise, the card's busy share); and
+   of the int8-weight and W8A8 engines' (phase 3b) at B = 256 and of the
+   ViT-Ti/16 stack's at B = 16 (the table, each chain kernel's traced calls
+   equal to its counter's rise, the card's busy share); the W8A8 forward
+   runs no PyTorch op but views on an encoder int8 weight (no per-forward
+   transpose or copy); and
    ``perf.throughput_report`` of phase 4's bf16 forward at B = 256 (MFU).
 7. The record-producing scripts as a user runs them: ``make_fixtures`` for
    ViT-B/16 with 4 images, then ``cli --backend gpu --attention flash`` on
    that workspace (the comparator green); ``soak`` of ViT-B/16 W8A8 at B =
    256, 2 windows of 5 (finite); ``trace_table`` of ViT-B/16 W8A8 at B = 64
-   (the W8A8 GEMM kernel in the table); ``bench_train`` of ViT-B/16
+   (the W8A8 form of the GEMM core in the table); ``bench_train`` of ViT-B/16
    ``fused`` at B = 32, 2 steps (a finite loss); and
    ``InferenceEngine(check_numerics=True)`` on phase 3's weights (passes)
    and with one weight NaN (raises).
@@ -475,13 +482,18 @@ TRACE_ITERS = 3
 # The kernel names (substrings of the demangled names in the trace) of the
 # forward chains, with the counter of each.
 TRACE_KERNELS = {"packed_attention_kernel": "attention",
-                 "gemm_sm90_kernel<false, true, false>": "linear",
+                 "gemm_sm90_kernel<false, true, 0>": "linear",
                  "layernorm_kernel<": "layernorm"}
-# The int8-weight chain: the GEMM core's int8-weight form, a kernel of its
-# own in the trace.
+# The int8-weight and W8A8 chains: the GEMM core's int8-weight and W8A8
+# forms (csrc/gemm_sm90.cuh Form), kernels of their own in the trace.
 TRACE_KERNELS_INT8W = {"packed_attention_kernel": "attention",
-                       "gemm_sm90_kernel<false, true, true>": "linear_int8w",
+                       "gemm_sm90_kernel<false, true, 1>": "linear_int8w",
                        "layernorm_kernel<": "layernorm"}
+W8A8_GEMM_KERNEL = "gemm_sm90_kernel<false, false, 2>"
+TRACE_KERNELS_W8A8 = {"packed_attention_kernel": "attention",
+                      W8A8_GEMM_KERNEL: "linear_w8a8",
+                      "quantize_rows_kernel": "quantize",
+                      "layernorm_kernel<": "layernorm"}
 
 # Phases 2i, 3f and 4e: ring attention and the multi-device forwards on a
 # virtual mesh of the one card (MESH_SHARDS shards, all cuda:0): a real
@@ -646,13 +658,13 @@ SOURCES = {
     "attention": _CSRC + "attention.cu",
     "fused_block": "vit_with_opencl_tpu_torch/ops/fused_block.py",
     "quantize": _CSRC + "quantize.cu",
-    "linear_w8a8": _CSRC + "linear.cu",
+    "linear_w8a8": _CSRC + "gemm_sm90.cuh",
     "linear_int8w": _CSRC + "gemm_sm90.cuh",
     "fused_block_w8a8": "vit_with_opencl_tpu_torch/ops/fused_block.py",
     "fused_block_int8w": "vit_with_opencl_tpu_torch/ops/fused_block.py",
     "quantize_split": _CSRC + "quantize.cu",
     "quantize_masked": _CSRC + "quantize.cu",
-    "linear_w8a8_hi": _CSRC + "linear.cu",
+    "linear_w8a8_hi": _CSRC + "gemm_sm90.cuh",
     "fused_block_w8a8_outlier": "vit_with_opencl_tpu_torch/ops/fused_block.py",
     "fused_block_stack": "vit_with_opencl_tpu_torch/ops/fused_block.py",
     "fused_block_stack_int8w": "vit_with_opencl_tpu_torch/ops/fused_block.py",
@@ -893,6 +905,9 @@ def int8_kernel_rows(batch: int, dev, seed: int = 0, cfg=CFG) -> list[dict]:
     lp = layer_params(gen, dev, cfg)
     for key in ("qkv_w", "out_w", "fc1_w", "fc2_w"):
         lp[key] = quant.quantize_weight_device(lp[key])
+    # The W8A8 chain's weights in its GEMM's layout (K-major, as the engine
+    # stores them); the weight-only chain keeps the row-major ones.
+    lp8 = quant.w8a8_layout({"layers": lp})["layers"]
     d, h, t, nh, hd = (cfg.embed_dim, cfg.hidden_dim, cfg.num_tokens,
                        cfg.num_heads, cfg.head_dim)
     m, bf, f32 = batch * t, torch.bfloat16, torch.float32
@@ -937,13 +952,14 @@ def int8_kernel_rows(batch: int, dev, seed: int = 0, cfg=CFG) -> list[dict]:
 
     def w8a8_case(name, site, wkey, n, k_dim, out_dtype, **kw):
         xq, sx = quantized[site]
-        wq, sw, bias = lp[wkey]["q"], lp[wkey]["scale"], lp[wkey[:-1] + "b"]
+        wq, sw, bias = lp8[wkey]["q"], lp8[wkey]["scale"], lp8[wkey[:-1] + "b"]
+        w_rows = lp[wkey]["q"]  # the same values row-major
         res_b = kw["residual"].element_size() if "residual" in kw else 0
         out_b = 2 if out_dtype == bf else 4
         gelu = kw.get("fuse_gelu", False)
 
-        def library():
-            acc = torch._int_mm(xq.reshape(m, k_dim), wq)
+        def library(w=wq):
+            acc = torch._int_mm(xq.reshape(m, k_dim), w)
             y = acc.float() * sx.reshape(m, 1) * sw + bias
             return epilogue_ops(y, kw, n, out_dtype)
 
@@ -955,6 +971,10 @@ def int8_kernel_rows(batch: int, dev, seed: int = 0, cfg=CFG) -> list[dict]:
             plain=lambda: linear.fused_linear_w8a8_reference(
                 xq, sx, wq, sw, bias, out_dtype=out_dtype, **kw),
             library=library,
+            yardsticks={"torch._int_mm alone, K-major w":
+                        lambda: torch._int_mm(xq.reshape(m, k_dim), wq),
+                        "torch._int_mm + epilogue ops, row-major w":
+                        lambda: library(w_rows)},
             bytes=m * k_dim + k_dim * n + 4 * m + 8 * n + m * n * (res_b + out_b),
             ops={"int8": 2 * m * n * k_dim})
 
@@ -1015,8 +1035,8 @@ def int8_kernel_rows(batch: int, dev, seed: int = 0, cfg=CFG) -> list[dict]:
         dict(name="fused_encoder_layer W8A8 (the chain of 11 launches)",
              counter="fused_block_w8a8", tol=W8A8_CHAIN_TOL,
              min_same=MIN_SAME_INT8_CHAIN,
-             kernel=lambda: fused_block.fused_encoder_layer(x, lp, cfg, w8a8=True),
-             plain=lambda: fused_block.fused_encoder_layer_reference(x, lp, cfg,
+             kernel=lambda: fused_block.fused_encoder_layer(x, lp8, cfg, w8a8=True),
+             plain=lambda: fused_block.fused_encoder_layer_reference(x, lp8, cfg,
                                                                      w8a8=True),
              library=None, bytes=2 * m * d * 2 + weight_bytes,
              ops={"int8": gemm_ops, "bf16": attn_ops}),
@@ -1082,11 +1102,12 @@ def outlier_kernel_rows(batch: int, dev, params: dict, seed: int = 0) -> list[di
         xq, sx, x_hi = quantized[site]
         k_dim, k_hi = xq.shape[-1], x_hi.shape[-1]
         w, bias = lp[wkey], lp[wkey[:-1] + "b"]
+        w_rows = w["q"].contiguous()  # the same values row-major
         res_b = kw["residual"].element_size() if "residual" in kw else 0
         out_b = 2 if out_dtype == bf else 4
 
-        def library():
-            acc = torch._int_mm(xq.reshape(m, k_dim), w["q"])
+        def library(wq=w["q"]):  # K-major, as calibrated
+            acc = torch._int_mm(xq.reshape(m, k_dim), wq)
             side = torch.mm(x_hi.reshape(m, k_hi), w["hi"])
             y = acc.float() * sx.reshape(m, 1) * w["scale"] + side.float() + bias
             return epilogue_ops(y, kw, n, out_dtype)
@@ -1102,6 +1123,8 @@ def outlier_kernel_rows(batch: int, dev, params: dict, seed: int = 0) -> list[di
                 xq, sx, w["q"], w["scale"], bias, x_hi=x_hi, w_hi=w["hi"],
                 out_dtype=out_dtype, **kw),
             library=library,
+            yardsticks={"torch._int_mm + torch.mm + epilogue ops, row-major w":
+                        lambda: library(w_rows)},
             bytes=(m * k_dim + k_dim * n + 4 * m + 8 * n + (m * k_hi + k_hi * n) * 2
                    + m * n * (res_b + out_b)),
             ops={"int8": 2 * m * n * k_dim, "bf16": 2 * m * n * k_hi})
@@ -1244,7 +1267,8 @@ def stack_kernel_rows(cfg, batch: int, dev, seed: int = 0) -> tuple:
              library=None, bytes=2 * m * d * 2 + stack_weight_bytes(cfg, L, 2),
              ops={"bf16": stack_ops(cfg, batch, L)}),
         stack(f"fused_encoder_stack W8A8 ({r} layers, {11 * r} launches)",
-              "fused_block_stack_w8a8", first(params8["layers"], r), STACK_W8A8_TOL,
+              "fused_block_stack_w8a8", first(quant.w8a8_layout(params8)["layers"], r),
+              STACK_W8A8_TOL,
               MIN_SAME_STACK_W8A8, 1, depth=r, ops_kind="int8", w8a8=True),
         stack(f"fused_encoder_group bf16 (2 groups of 2 layers, {7 * r} launches)",
               "fused_block_group", first(params["layers"], r), BF16_TOL,
@@ -1313,6 +1337,14 @@ def run_cases(cases: list[dict], batch: int, name_prefix: str = "") -> list[dict
               f"{row['ms']:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}; "
               f"{row['ms'] / bound_ms:.2f}x), plain {row['plain_ms']:.4f} ms, "
               f"library {lib}", flush=True)
+        row["yardsticks_ms"] = {}
+        for label, fn in case.get("yardsticks", {}).items():
+            try:
+                ms = row["yardsticks_ms"][label] = time_ms(fn)
+                print(f"  B={batch} {row['name']}: yardstick {label} {ms:.4f} ms "
+                      f"({row['ms'] / ms:.2f}x the kernel's)", flush=True)
+            except RuntimeError as exc:
+                print(f"  yardstick {label} refused: {str(exc).splitlines()[0]}")
         if "kernel_ops" in case:
             print(f"  B={batch} {row['name']}: {case['ops']['bf16'] / row['ms'] / 1e9:.1f} "
                   f"TFLOP/s of the function's work, "
@@ -2480,6 +2512,7 @@ def int8_main_path(ws: Path, dev, rounded, images, ref_probs) -> tuple:
                                      quantize=flag)
                for mode, flag in (("w8a8", "int8-w8a8"), ("int8", "int8"))}
     w8a8 = engines["w8a8"]
+    w8a8_layout_cost(engines["int8"].params, w8a8)
     probs = w8a8.run(images)
     with plain_chain():
         plain_probs = w8a8.run(images)
@@ -2491,6 +2524,30 @@ def int8_main_path(ws: Path, dev, rounded, images, ref_probs) -> tuple:
     with torch.inference_mode():
         log_int8_logit_errors(engines, rounded, images, ref_probs, dev)
     return counts, engines
+
+
+def w8a8_layout_cost(params: dict, engine: InferenceEngine) -> None:
+    """Phase 3b: what the W8A8 engine's set-up pays to store the encoder's
+    int8 weights K-major (``quant.w8a8_layout`` of the row-major int8
+    ``params``, on the card): bytes copied and device time, beside the
+    engine's whole set-up time; the copy holds every value."""
+    keys = ("qkv_w", "out_w", "fc1_w", "fc2_w")
+    nbytes = sum(params["layers"][key]["q"].numel() for key in keys)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    start.record()
+    moved = quant.w8a8_layout(params)
+    end.record()
+    end.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    same = all(torch.equal(moved["layers"][k]["q"], params["layers"][k]["q"])
+               and quant.is_k_major(moved["layers"][k]["q"]) for k in keys)
+    print(f"  W8A8 set-up: the K-major copy of {nbytes} bytes of int8 encoder weights "
+          f"{start.elapsed_time(end):.4f} ms on the card ({host_ms:.3f} ms host clock); "
+          f"the W8A8 engine's whole set-up {engine.setup_time:.3f} s", flush=True)
+    check(same, "W8A8 set-up: the K-major copy holds every value of the int8 weights")
 
 
 def outlier_main_path(ws: Path, dev, rounded, images, ref_probs,
@@ -2792,6 +2849,39 @@ def traced_forward(name: str, fn, images, kernels: dict = TRACE_KERNELS) -> None
                                 "busy_share": device_ms / window_ms,
                                 "kernels": [dataclasses.asdict(s) for s in table]}}),
           flush=True)
+
+
+def weight_ops_in_forward(engine, images) -> None:
+    """Phase 6c: the PyTorch ops of one forward of the W8A8 ``engine`` that
+    make a new tensor from an encoder int8 weight (a dispatch mode sees
+    every op; a view shares the weight's storage): there must be none (the
+    GEMM reads the K-major weights as stored, so no forward transposes or
+    copies one)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    storages = {engine.params["layers"][key]["q"].untyped_storage().data_ptr()
+                for key in ("qkv_w", "out_w", "fc1_w", "fc2_w")}
+    seen = []
+
+    def ptrs(tree):
+        return {t.untyped_storage().data_ptr()
+                for t in torch.utils._pytree.tree_leaves(tree) if isinstance(t, torch.Tensor)}
+
+    class WeightOps(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            read = ptrs((args, kwargs)) & storages
+            if read and not ptrs(out) <= read:
+                seen.append(str(func))
+            return out
+
+    with WeightOps():
+        engine.forward(images)
+    torch.cuda.synchronize()
+    check(not seen and all(quant.is_k_major(engine.params["layers"][key]["q"])
+                           for key in ("qkv_w", "out_w", "fc1_w", "fc2_w")),
+          f"W8A8 forward: the encoder's int8 weights stored K-major, no op makes "
+          f"a tensor of one in a forward (ops that did: {sorted(set(seen)) or 'none'})")
 
 
 def ring_kernel_rows(dev) -> list[dict]:
@@ -3179,9 +3269,9 @@ def scripts_phase(dev, rounded: dict, images: np.ndarray) -> None:
     check(len(res["rates"]) == 2 and res["finite"],
           f"soak {' '.join(SOAK_ARGS)}: 2 windows, finite={res['finite']}")
     table = trace_table.main(TRACE_ARGS)
-    check(bool(table) and any("linear_w8a8_kernel" in s.name for s in table),
-          f"trace_table {' '.join(TRACE_ARGS)}: {len(table)} rows, the W8A8 GEMM "
-          f"kernel among them")
+    check(bool(table) and any(W8A8_GEMM_KERNEL in s.name for s in table),
+          f"trace_table {' '.join(TRACE_ARGS)}: {len(table)} rows, the W8A8 form of "
+          f"the GEMM core among them")
     res = bench_train.main(BENCH_TRAIN_ARGS)
     loss = res.get("fused", {}).get("loss", float("nan"))
     check(math.isfinite(loss), f"bench_train {' '.join(BENCH_TRAIN_ARGS)}: loss {loss}")
@@ -3354,6 +3444,9 @@ def main() -> int:
         traced_forward(f"{CFG.name} bf16 flash forward B={big}", engine.forward, big_images)
         traced_forward(f"{CFG.name} int8 flash forward B={big}", engines["int8"].forward,
                        big_images, TRACE_KERNELS_INT8W)
+        traced_forward(f"{CFG.name} W8A8 flash forward B={big}", engines["w8a8"].forward,
+                       big_images, TRACE_KERNELS_W8A8)
+        weight_ops_in_forward(engines["w8a8"], big_images[:SMOKE_BATCH])
         del big_images
         tiny = VIT_TINY_16_224
         traced_forward(f"{tiny.name} bf16 stack forward B={SMOKE_BATCH}",

@@ -224,8 +224,23 @@ def _epilogue_kw(epilogue, m, n, dev):
     return kw
 
 
-@pytest.mark.parametrize("m,k,n", [(74, 64, 192), (3152, 768, 2304),
-                                   (33, 3072, 768), (1, 48, 16)])
+def _w8a8_weight(k, n, dev, seed=1):
+    """An int8 weight in the W8A8 GEMM's layout (K-major) and its scale."""
+    w = _int8_weight(k, n, dev, seed)
+    return {**w, "q": quant.k_major(w["q"])}
+
+
+# Ragged M, N and K (K = 64, 48, 640, 672 and 2944 are not multiples of the
+# 128-deep int8 slice; TMA zero-fills the rest), M = 1 and N = 16, ViT-B's
+# shapes, the TP shards' (out-proj's K = 192 on 4 shards, qkv's N = 576),
+# ViT-S's K = 384, and 600 tiles (M = 3152, N = 3072: more than four waves
+# of SMs, so the persistent grid wraps).
+W8A8_SHAPES = [(74, 64, 192), (3152, 768, 2304), (33, 3072, 768), (1, 48, 16),
+               (394, 192, 768), (394, 768, 576), (394, 384, 1536), (74, 640, 256),
+               (37, 672, 768), (33, 2944, 768), (1, 672, 16), (3152, 768, 3072)]
+
+
+@pytest.mark.parametrize("m,k,n", W8A8_SHAPES)
 @pytest.mark.parametrize("epilogue", ["bias_bf16", "bias_f32", "res_f32",
                                       "res_bf16", "gelu"])
 def test_fused_linear_w8a8_kernel(dev, m, k, n, epilogue):
@@ -233,7 +248,7 @@ def test_fused_linear_w8a8_kernel(dev, m, k, n, epilogue):
     for operation: bit-identical without GELU. The GELU's polynomial is
     contracted into multiply-adds in the kernel and not in PyTorch."""
     xq, sx = quant.quantize_act(_rand((m, k), dev))
-    w = _int8_weight(k, n, dev)
+    w = _w8a8_weight(k, n, dev)
     b = _rand((n,), dev, std=0.1, seed=2)
     kw = _epilogue_kw(epilogue, m, n, dev)
     before = linear.LAUNCHES_W8A8
@@ -287,14 +302,44 @@ def test_int8_wrappers_refuse_shapes(dev):
     xq = torch.zeros((4, 24), dtype=torch.int8, device=dev)
     sx = torch.ones((4, 1), device=dev)
     with pytest.raises(ValueError, match="multiples of 16"):
-        linear.fused_linear_w8a8(xq, sx, w["q"], w["scale"])
+        linear.fused_linear_w8a8(xq, sx, quant.k_major(w["q"]), w["scale"])
     w = _int8_weight(32, 24, dev)
     with pytest.raises(ValueError, match="multiples of 16"):
-        linear.fused_linear_w8a8(xq[:, :16].contiguous(), sx, w["q"][:16].contiguous(),
-                                 w["scale"])
+        linear.fused_linear_w8a8(xq[:, :16].contiguous(), sx,
+                                 quant.k_major(w["q"][:16]), w["scale"])
     with pytest.raises(ValueError, match="of 16"):
         linear.fused_linear(_rand((4, 32), dev, torch.bfloat16), w["q"],
                             w_scale=w["scale"])
+
+
+def test_w8a8_wrapper_refuses_other_weight_layouts(dev):
+    """int8 wgmma reads w K-major only, and the wrapper never transposes a
+    weight itself: a row-major w, a K-major one whose columns are not
+    16-byte-aligned rows apart, and one at a misaligned base raise a
+    ValueError and launch nothing; the weight-only GEMM refuses the K-major
+    one (the two modes' weights are kept apart)."""
+    m, k, n = 8, 64, 32
+    xq, sx = quant.quantize_act(_rand((m, k), dev))
+    w = _int8_weight(k, n, dev)
+    padded = torch.zeros((n, k + 8), dtype=torch.int8, device=dev)
+    padded[:, :k] = w["q"].t()
+    shifted = torch.zeros((n * k + 16,), dtype=torch.int8, device=dev)
+    shifted[8:8 + n * k] = w["q"].t().reshape(-1)
+    before = (linear.LAUNCHES_W8A8, linear.LAUNCHES_INT8W)
+    for bad in (w["q"], padded[:, :k].t(), shifted[8:8 + n * k].view(n, k).t()):
+        assert torch.equal(bad, w["q"])
+        with pytest.raises(ValueError, match="K-major"):
+            linear.fused_linear_w8a8(xq, sx, bad, w["scale"])
+    with pytest.raises(ValueError, match="contiguous"):
+        linear.fused_linear(_rand((m, k), dev, torch.bfloat16), quant.k_major(w["q"]),
+                            w_scale=w["scale"])
+    assert (linear.LAUNCHES_W8A8, linear.LAUNCHES_INT8W) == before
+    # A 16-byte row pitch past K (a TP shard's view) is read as it is.
+    wide = torch.zeros((n, k + 16), dtype=torch.int8, device=dev)
+    wide[:, :k] = w["q"].t()
+    out = linear.fused_linear_w8a8(xq, sx, wide[:, :k].t(), w["scale"])
+    torch.cuda.synchronize()
+    assert torch.equal(out, linear.fused_linear_w8a8_reference(xq, sx, w["q"], w["scale"]))
 
 
 @pytest.mark.parametrize("d,nh,t", [(64, 4, 37), (768, 12, 197)])
@@ -305,6 +350,8 @@ def test_int8_encoder_layer_chain(dev, d, nh, t, w8a8):
     params = quant.quantize_stacked_params(
         vit.stack_params(fixtures.random_params(cfg, seed=5), cfg,
                          param_dtype=torch.bfloat16, device=dev), cfg)
+    if w8a8:
+        params = quant.w8a8_layout(params)
     lp = vit._layer(params, 0)
     x = _rand((2, t, d), dev, torch.bfloat16, std=0.5, seed=6)
     counters = ((layernorm, "LAUNCHES"), (quantize, "LAUNCHES"),
@@ -328,9 +375,9 @@ def test_w8a8_flash_forward_matches_plain_chain(dev, monkeypatch):
     probabilities."""
     cfg = ViTConfig(name="fwd", img_size=32, patch_size=8, embed_dim=64,
                     depth=2, num_heads=4, num_classes=9)
-    params = quant.quantize_stacked_params(
+    params = quant.w8a8_layout(quant.quantize_stacked_params(
         vit.stack_params(fixtures.random_params(cfg, seed=7, scale=0.05), cfg,
-                         device=dev), cfg)
+                         device=dev), cfg))
     images = torch.from_numpy(fixtures.random_images(cfg, n=3, seed=3)).to(dev)
     kernels = vit.resolve_kernels("flash", w8a8=True)
     before = fused_block.LAUNCHES_W8A8
@@ -390,9 +437,14 @@ def test_quantize_rows_masked_kernel(dev, rows, nh, hd, kh):
     assert not q[3].any()
 
 
+# ViT-B's four (K = 640, 768 masked, 640, 2944 against K_hi = 128, 96), a
+# ragged K and K_hi (672, 48), ViT-S's K = 384, M = 1 with N = 16, and 600
+# tiles (the persistent grid wraps; both warpgroups share each tile).
 @pytest.mark.parametrize("m,k,n,k_hi", [(74, 64, 192, 16), (3152, 640, 2304, 128),
                                         (33, 2944, 768, 128), (1, 768, 768, 96),
-                                        (394, 768, 768, 96)])
+                                        (394, 768, 768, 96), (74, 672, 768, 48),
+                                        (394, 384, 1536, 32), (1, 672, 16, 96),
+                                        (3152, 640, 3072, 128)])
 @pytest.mark.parametrize("epilogue", ["bias_bf16", "bias_f32", "res_f32",
                                       "res_bf16", "gelu"])
 def test_fused_linear_w8a8_side_kernel(dev, m, k, n, k_hi, epilogue):
@@ -400,7 +452,7 @@ def test_fused_linear_w8a8_side_kernel(dev, m, k, n, k_hi, epilogue):
     than the plain version's fp32 GEMM, so the outputs are close, not
     identical, and bf16 outputs almost always identical."""
     xq, sx = quant.quantize_act(_rand((m, k), dev))
-    w = _int8_weight(k, n, dev)
+    w = _w8a8_weight(k, n, dev)
     x_hi = _rand((m, k_hi), dev, torch.bfloat16, std=20.0, seed=4)
     w_hi = _rand((k_hi, n), dev, torch.bfloat16, std=0.05, seed=5)
     b = _rand((n,), dev, std=0.1, seed=2)
@@ -430,7 +482,7 @@ def test_outlier_wrappers_refuse_shapes(dev):
     with pytest.raises(TypeError, match="bf16 x"):
         quantize.quantize_rows_masked(x, 4, 16, 2)
     xq, sx = quant.quantize_act(x)
-    w = _int8_weight(64, 16, dev)
+    w = _w8a8_weight(64, 16, dev)
     with pytest.raises(ValueError, match="multiple of 8"):
         linear.fused_linear_w8a8(xq, sx, w["q"], w["scale"],
                                  x_hi=_rand((4, 12), dev, torch.bfloat16),
@@ -523,6 +575,8 @@ def _stack_case(dev, form, depth=3, d=192, nh=3):
                               device=dev)
     if form != "bf16":
         params = quant.quantize_stacked_params(params, cfg)
+    if form == "w8a8":
+        params = quant.w8a8_layout(params)
     x = _rand((2, 197, d), dev, torch.bfloat16, std=0.5, seed=6)
     return cfg, params["layers"], x
 

@@ -37,7 +37,7 @@ from vit_with_opencl_tpu.ops import attention as jattn
 from vit_with_opencl_tpu.parallel import spmd as jspmd
 from vit_with_opencl_tpu_torch import ViTConfig
 from vit_with_opencl_tpu_torch.engine import DataParallelEngine
-from vit_with_opencl_tpu_torch.models import vit
+from vit_with_opencl_tpu_torch.models import quant, vit
 from vit_with_opencl_tpu_torch.ops import attention, fused_block, layernorm, linear
 from vit_with_opencl_tpu_torch.ops import ring_attention
 from vit_with_opencl_tpu_torch.parallel import collectives, spmd
@@ -306,6 +306,29 @@ def test_tp_forward_w8a8_matches_jax(setup, outlier_params, no_launches, form):
     np.testing.assert_allclose(got, want, atol=QUANT_ATOL)
     assert np.abs(got - ref).max() < 1e-2
     assert (got.argmax(-1) == ref.argmax(-1)).all()
+
+
+@pytest.mark.parametrize("form", ["w8a8", "outlier"])
+def test_shard_params_tp_keeps_the_w8a8_layout(setup, outlier_params, form):
+    """Params in the W8A8 GEMM's layout (each int8 weight K-major,
+    quant.w8a8_layout) shard into K-major shards: a compact copy of each
+    shard's K or N slice; row-major params shard row-major. Both hold the
+    same values."""
+    _, stacked, _, _ = setup
+    qp = _port(jquant.quantize_stacked_params(stacked, JCFG) if form == "w8a8"
+               else outlier_params)
+    kmaj = quant.w8a8_layout(qp)
+    rows = {**kmaj, "layers": {
+        k: ({**v, "q": v["q"].contiguous()} if quant.is_quantized(v) else v)
+        for k, v in kmaj["layers"].items()}}
+    mesh = _mesh(1, 4)
+    a = spmd.shard_params_tp(kmaj, mesh, CFG)[0]
+    b = spmd.shard_params_tp(rows, mesh, CFG)[0]
+    for j in range(4):
+        for key in ("qkv_w", "out_w", "fc1_w", "fc2_w"):
+            qa, qb = a[j]["layers"][key]["q"], b[j]["layers"][key]["q"]
+            assert quant.is_k_major(qa) and qb.is_contiguous(), (j, key)
+            assert torch.equal(qa, qb), (j, key)
 
 
 def test_tp_outlier_requires_w8a8(setup, outlier_params, no_launches):

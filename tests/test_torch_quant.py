@@ -256,18 +256,23 @@ def test_int8_gemm_wrappers_match_plain_on_cpu():
         linear.fused_linear(x, tw["q"], b)
 
 
-@pytest.mark.parametrize("form", ["bf16", "int8w"])
+@pytest.mark.parametrize("form", ["bf16", "int8w", "w8a8", "w8a8_side"])
 def test_gemm_core_shared_memory_fits_a_block(form):
     """The Hopper GEMM core's shared memory (ops/linear.py's mirrors of
     csrc/gemm_sm90.cuh's byte counts) fits one block in its bf16 forms and
     in the int8-weight form, whose ring of int8 w slices sits beside the
-    bf16 form's; one int8 slot more would not fit."""
+    bf16 form's; one int8 slot more would not fit. The W8A8 forms' 128-deep
+    int8 slices (and the side form's 64-deep bf16 ones) fill the bf16 form's
+    stages byte for byte: the same ring, the same block."""
     mx = attention.MAX_SMEM_BYTES
     if form == "bf16":
         assert linear.gemm_kernel_smem_bytes() <= mx
-    else:
+    elif form == "int8w":
         assert linear.gemm_kernel_smem_bytes() < linear.int8w_kernel_smem_bytes() <= mx
         assert linear.int8w_kernel_smem_bytes(linear.INT8W_STAGES + 1) > mx
+    else:
+        side = form == "w8a8_side"
+        assert linear.w8a8_kernel_smem_bytes(side) == linear.gemm_kernel_smem_bytes() <= mx
 
 
 ENC_CFG = ViTConfig(name="enc", img_size=32, patch_size=8, embed_dim=64,
@@ -285,7 +290,8 @@ def encoder_layer_inputs():
 @pytest.mark.parametrize("w8a8", [False, True], ids=["int8w", "w8a8"])
 def test_int8_encoder_layer_matches_jax(encoder_layer_inputs, dtype, w8a8):
     """One quantized layer (the same int8 lp on both sides) against the JAX
-    fused layer in interpret mode. The int8-weight and W8A8 stacks, which
+    fused layer in interpret mode; W8A8 on the int8 weights stored K-major,
+    as the card's GEMM takes them. The int8-weight and W8A8 stacks, which
     JAX's forward picks for small int8 configs, are held to JAX's
     ``fused_encoder_stack`` in tests/test_torch_stack.py."""
     params, x = encoder_layer_inputs
@@ -295,7 +301,11 @@ def test_int8_encoder_layer_matches_jax(encoder_layer_inputs, dtype, w8a8):
     jlp = {k: ({kk: jnp.asarray(vv[1]) for kk, vv in v.items()}
                if isinstance(v, dict) else jnp.asarray(v[1]))
            for k, v in stacked["layers"].items()}
-    tlp = tvit._layer(tvit.params_from_jax(stacked, device="cpu"), 1)
+    tparams = tvit.params_from_jax(stacked, device="cpu")
+    if w8a8:
+        tparams = quant.w8a8_layout(tparams)
+    tlp = tvit._layer(tparams, 1)
+    assert quant.is_k_major(tlp["fc2_w"]["q"]) or not w8a8
     ref = jfused.fused_encoder_layer(jnp.asarray(x, jdt), jlp, ENC_CFG,
                                      w8a8=w8a8, interpret=True)
     before = _counts()
@@ -349,13 +359,64 @@ def test_w8a8_forward_matches_jax(forward_setup, route):
     jprobs = np.asarray(jvit.forward(jnp.asarray(images), jq, CFG,
                                      compute_dtype=jnp.float32,
                                      kernels=jvit.resolve_kernels(route, w8a8=True)))
-    tq = tvit.params_from_jax(jq, device="cpu")
+    tq = quant.w8a8_layout(tvit.params_from_jax(jq, device="cpu"))
+    assert quant.is_k_major(tq["layers"]["qkv_w"]["q"])
     tprobs = tvit.forward(torch.from_numpy(images), tq, CFG,
                           compute_dtype=torch.float32,
                           kernels=tvit.resolve_kernels(route, w8a8=True)).numpy()
     np.testing.assert_allclose(tprobs, jprobs, atol=PROB_TOL_JAX)
     np.testing.assert_allclose(tprobs, ref, atol=PROB_TOL_GOLDEN)
     assert (tprobs.argmax(-1) == ref.argmax(-1)).all()
+
+
+def _layer_strides(params):
+    return {key: params["layers"][key]["q"].stride()
+            for key in ("qkv_w", "out_w", "fc1_w", "fc2_w")}
+
+
+@pytest.mark.parametrize("side", ["host", "device"])
+@pytest.mark.parametrize("form", ["plain", "calibrated"])
+def test_w8a8_layout_keeps_values_and_shapes(forward_setup, side, form):
+    """The W8A8 GEMM's layout (each int8 weight stored K-major, made once
+    at set-up) keeps every value and shape of the quantized params, in the
+    host and device quantizers, plain and calibrated; every other leaf is
+    the same tensor; a second call copies nothing; a layer's slice is
+    [K, N] with strides (1, K). The CPU GEMM wrapper gives the same bits on
+    either storage."""
+    params, images, _ = forward_setup
+    stacked = tvit.stack_params(params, CFG, param_dtype=torch.float32, device="cpu")
+    if form == "plain":
+        fn = (quant.quantize_stacked_params if side == "host"
+              else quant.quantize_stacked_params_device)
+        rows = fn(stacked, CFG)
+        kmaj = quant.w8a8_layout(rows)
+    else:
+        fn = quant.calibrate_w8a8 if side == "host" else quant.calibrate_w8a8_device
+        kmaj = fn(images, stacked, CFG)  # K-major as it comes
+        rows = {**kmaj, "layers": {
+            k: ({**v, "q": v["q"].contiguous()} if quant.is_quantized(v) else v)
+            for k, v in kmaj["layers"].items()}}
+    a, b = _flat(kmaj), _flat(rows)
+    assert a.keys() == b.keys()
+    for key in a:
+        assert a[key].shape == b[key].shape and a[key].dtype == b[key].dtype, key
+        assert torch.equal(a[key], b[key]), key
+        moved = key.startswith("layers.") and key.endswith("_w.q")
+        if a[key].dim() >= 2 and min(a[key].shape[-2:]) > 1:
+            assert quant.is_k_major(a[key]) == moved, key
+        assert moved or a[key] is b[key], key
+    assert _layer_strides(quant.w8a8_layout(kmaj)) == _layer_strides(kmaj)
+    assert (quant.w8a8_layout(kmaj)["layers"]["fc1_w"]["q"].data_ptr()
+            == kmaj["layers"]["fc1_w"]["q"].data_ptr())
+    lp = tvit._layer(kmaj, 1)
+    k, n = lp["fc1_w"]["q"].shape
+    assert lp["fc1_w"]["q"].stride() == (1, k)
+    x = torch.from_numpy(np.random.default_rng(3).standard_normal((5, k)).astype(np.float32))
+    xq, sx = quant.quantize_act(x)
+    w = lp["fc1_w"]
+    out = linear.fused_linear_w8a8(xq, sx, w["q"], w["scale"])
+    want = linear.fused_linear_w8a8(xq, sx, w["q"].contiguous(), w["scale"])
+    assert out.shape == (5, n) and torch.equal(out, want)
 
 
 def test_quantized_params_ignore_a_forced_encoder_block(forward_setup):
@@ -431,6 +492,10 @@ def test_engine_quantize_modes(forward_setup):
         engine = tengine.InferenceEngine(CFG, params, quantize=mode, **kw)
         assert engine.quantize == want
         assert engine.kernels.get("w8a8", False) == (want == "int8-w8a8")
+        if want:  # the W8A8 GEMM's layout; the weight-only GEMM's row-major
+            qkv = engine.params["layers"]["qkv_w"]["q"]
+            assert quant.is_k_major(qkv) == (want == "int8-w8a8")
+            assert qkv.is_contiguous() == (want == "int8")
         probs = engine.run(images)
         np.testing.assert_allclose(probs, ref, atol=PROB_TOL_GOLDEN)
         assert (probs.argmax(-1) == ref.argmax(-1)).all()

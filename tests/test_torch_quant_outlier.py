@@ -210,6 +210,7 @@ def test_apply_and_quantize_outlier_match_jax(setup, param_dtype):
     for key in ("qkv_w", "out_w", "fc1_w", "fc2_w"):
         assert lp[key]["hi"].dtype == torch.bfloat16
         assert lp[key]["q"].dtype == torch.int8
+        assert quant.is_k_major(lp[key]["q"])  # the W8A8 GEMM's layout
     assert not lp["out_w"]["q"][:, torch.from_numpy(quant._tail_mask(CFG, plan.kh))].any()
 
 
@@ -381,15 +382,18 @@ def jax_calibrated(setup):
 
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
 def test_outlier_encoder_layer_matches_jax(setup, jax_calibrated, dtype):
-    """One outlier-aware layer (the same dicts on both sides): the port's
-    chain, its plain versions on the CPU, against the JAX fused layer with
+    """One outlier-aware layer (the same dicts on both sides, the port's int8
+    weights stored K-major as the card's GEMM takes them): the port's chain,
+    its plain versions on the CPU, against the JAX fused layer with
     outlier=True in interpret mode."""
     tdt, jdt = DTYPES[dtype]
     layer = 2
     jlp = {k: ({kk: jnp.asarray(vv[layer]) for kk, vv in v.items()}
                if isinstance(v, dict) else jnp.asarray(v[layer]))
            for k, v in jax_calibrated["layers"].items()}
-    tlp = tvit._layer(tvit.params_from_jax(jax_calibrated, device="cpu"), layer)
+    tlp = tvit._layer(quant.w8a8_layout(
+        tvit.params_from_jax(jax_calibrated, device="cpu")), layer)
+    assert all(quant.is_k_major(tlp[key]["q"]) for key in ("qkv_w", "out_w", "fc1_w", "fc2_w"))
     x = np.random.default_rng(4).normal(0, 0.5, (2, CFG.num_tokens, CFG.embed_dim))
     x = x.astype(np.float32)
     ref = jfused.fused_encoder_layer(jnp.asarray(x, jdt), jlp, CFG, w8a8=True,

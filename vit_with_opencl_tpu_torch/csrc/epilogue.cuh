@@ -1,6 +1,6 @@
-// The GEMMs' fp32 epilogue, one copy for every GEMM kernel: the Hopper core
-// (gemm_sm90.cuh: the bf16 forward, dgrad, wgrad and fc1-pair forms and the
-// weight-only int8 form) and the WMMA W8A8 kernels of linear.cu.
+// The GEMMs' fp32 epilogue, one copy for every form of the Hopper core
+// (gemm_sm90.cuh: the bf16 forward, dgrad, wgrad and fc1-pair forms, the
+// weight-only int8 form and the W8A8 forms).
 //
 // After the product (already scaled for the int8 forms) the epilogue runs
 // in fp32 in this order, each step optional:
@@ -135,35 +135,6 @@ __device__ __forceinline__ void apply_rows(float (&v)[R][V], const float (&x)[R]
       if (ok[i]) store_vec<V>(ep.out2, static_cast<size_t>(gm[i]) * N + gn, 1, w);
     }
   }
-}
-
-// The forward epilogue (residual, bias, GELU, the store) of V consecutive
-// columns gn..gn+V-1 of one row gm, whose products are in v: apply_rows'
-// steps for one row, each input read where its step needs it. For the int8
-// kernels, which hold two accumulators and inline it 8 times a tile: the
-// backward's steps (no int8 caller has them) stay out of their code.
-template <int V>
-__device__ __forceinline__ void finish(float (&v)[V], int gm, int gn, int N,
-                                       const Epilogue& ep) {
-  const size_t off = static_cast<size_t>(gm) * N + gn;
-  if (ep.residual_kind != kNoResidual) {
-    float r[V];
-    if (ep.residual_kind == kResidualF32)
-      load_f32<V>(r, static_cast<const float*>(ep.residual) + off);
-    else
-      load_bf16<V>(r, static_cast<const bf16*>(ep.residual) + off);
-#pragma unroll
-    for (int e = 0; e < V; ++e) v[e] = r[e] + v[e];
-  }
-  if (ep.bias != nullptr) {
-#pragma unroll
-    for (int e = 0; e < V; ++e) v[e] = v[e] + ep.bias[gn + e];
-  }
-  if (ep.gelu) {
-#pragma unroll
-    for (int e = 0; e < V; ++e) v[e] = gelu_fast(v[e]);
-  }
-  store_vec<V>(ep.out, off, ep.out_bf16, v);
 }
 
 }  // namespace vit

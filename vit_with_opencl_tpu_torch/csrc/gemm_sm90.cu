@@ -1,8 +1,9 @@
-// The entry points of the bf16 GEMM core (gemm_sm90.cuh): the forward GEMM
+// The entry points of the GEMM core (gemm_sm90.cuh): the forward GEMM
 // (ops/linear.py fused_linear with a bf16 w, and with an int8 w and its
-// scale) and the backward's forms
-// (linear_dgrad, linear_wgrad, fused_linear_with_gelu), and the fixed-order
-// sum of the weight gradients' split-K partials.
+// scale), the W8A8 GEMM (fused_linear_w8a8, with and without the bf16 side
+// product) and the backward's forms (linear_dgrad, linear_wgrad,
+// fused_linear_with_gelu), and the fixed-order sum of the weight gradients'
+// split-K partials.
 #include "gemm_sm90.cuh"
 
 namespace vit {
@@ -69,6 +70,29 @@ VIT_EXPORT int vit_linear_int8w(const void* x, const void* w, const float* w_sca
   Epilogue ep{bias, residual, residual_kind, out, out_bf16, gelu};
   return sm90::launch_gemm<false, true, true>(x, w, M, N, K, 0, 1, 0, nullptr, ep,
                                               static_cast<cudaStream_t>(stream), w_scale);
+}
+
+// out [M, N] = epilogue(((float)(xq [M, K] @ w [K, N]) * x_scale[m]) *
+// w_scale[n] [+ x_hi [M, K_hi] @ w_hi [K_hi, N]]): int8 operands with int32
+// sums, w stored K-major (N rows of K bytes, ldw bytes apart: int8 wgmma
+// reads no other layout), the side product in bf16 with fp32 sums; x_hi and
+// w_hi null (K_hi 0): none. K, ldw and N must be multiples of 16 and K_hi of
+// 8 (ops/linear.py checks them before calling).
+VIT_EXPORT int vit_linear_w8a8(const void* xq, const float* x_scale, const void* w, int ldw,
+                               const float* w_scale, const void* x_hi, const void* w_hi,
+                               int K_hi, const float* bias, const void* residual,
+                               int residual_kind, void* out, int out_bf16, int gelu, int M,
+                               int N, int K, void* stream) {
+  using namespace vit;
+  const bool side = x_hi != nullptr;
+  if (M <= 0 || N <= 0 || K <= 0 || N % 16 != 0 || K % 16 != 0 || ldw < K ||
+      ldw % 16 != 0 || x_scale == nullptr || w_scale == nullptr ||
+      bad_epilogue(residual_kind) || side != (w_hi != nullptr) ||
+      (side && (K_hi <= 0 || K_hi % 8 != 0)))
+    return cudaErrorInvalidValue;
+  const Epilogue ep{bias, residual, residual_kind, out, out_bf16, gelu};
+  return sm90::launch_w8a8(xq, x_scale, w, ldw, w_scale, x_hi, w_hi, side ? K_hi : 0, M, N, K,
+                           ep, static_cast<cudaStream_t>(stream));
 }
 
 // out [M, N] = epilogue(A . B) in bf16: A is [M, K] row-major, or (a_trans)

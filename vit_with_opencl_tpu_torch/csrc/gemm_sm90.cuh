@@ -1,5 +1,5 @@
-// The bf16 GEMM core for Hopper (sm_90a): out[M, N] = epi(A[M, K] . B[K, N])
-// with fp32 accumulation, TMA loads and wgmma.
+// The GEMM core for Hopper (sm_90a): out[M, N] = epi(A[M, K] . B[K, N]) with
+// TMA loads and wgmma, in bf16 (fp32 sums) and in int8 (int32 sums).
 //
 // Replaces, on one core:
 //   * vit_with_opencl_tpu/ops/linear.py:_linear_kernel and the four bf16
@@ -13,15 +13,28 @@
 //     read MN-major; the contraction is the ragged token axis);
 //   * the int8-weight matmuls of ops/fused_block.py:_block_kernel (_mm with
 //     w8a8=False, :121-125): acc = x . bf16(w_int8) in fp32, then
-//     acc * w_scale[n] before the epilogue (kI8 below).
-// The three operand layouts are wgmma's transpose bits (kAMN, kBMN), not
+//     acc * w_scale[n] before the epilogue (kInt8W below);
+//   * the W8A8 matmuls of _block_kernel (_mm with w8a8=True, :92-120, and
+//     _mm_ctx_masked, :128-152): acc = xq . wq in int32 (exact: 3072 * 127^2
+//     < 2^31), then (fp32(acc) * sx[m]) * sw[n] (kW8A8), and with the
+//     outlier groups' bf16 side product x_hi . w_hi (its hi_ref split,
+//     :104-111, and the masked per-head tails) added after the scales
+//     (kW8A8Side).
+// The bf16 operand layouts are wgmma's transpose bits (kAMN, kBMN), not
 // separate staging code: a K-major operand is one TMA box of 64 x 128 (K
 // inner), an MN-major one two boxes of 64 x 64 (MN inner), both with the
 // 128-byte swizzle, which the shared-memory descriptors below describe.
+// int8 wgmma reads both operands K-major only, so the W8A8 forms take w
+// stored K-major ([N, K] rows: models/quant.k_major, done once where the
+// weights reach the card) and xq as it comes ([M, K] rows). A 128-deep int8
+// slice of either is one TMA box of 128 x 128 bytes: the bf16 form's 64-deep
+// slices in bytes, swizzle and descriptors, so the ring, the barriers and
+// the persistent grid carry over unchanged.
 //
 // Bound on the card: operations at the encoder's shapes (K = 768 or 3072
-// against M = B*197 rows, far above ~295 bf16 operations per byte); bytes
-// for out-proj and fc2 with their fp32 residual and output at small K/N.
+// against M = B*197 rows, far above ~295 bf16 and ~590 int8 operations per
+// byte); bytes for out-proj and fc2 with their fp32 residual and output at
+// small K/N (and for the int8 forms, whose products cost half).
 // Design: 128 x 128 output tiles, 64-deep K slices in a ring of kStages
 // stages (32 KiB a stage) that one producer warpgroup keeps full (one
 // thread issues the TMA loads; setmaxnreg gives the registers to the
@@ -41,15 +54,16 @@
 // reads issued first, with one copy of the epilogue's code (unrolled over
 // the accumulator's registers it ran from outside the instruction cache).
 // TMA zero-fills the ragged edges on load (M = B*197, the token axis of
-// wgrad, N or K = 192 at ViT-Ti) and clips them on store; the staged
-// epilogue masks its stores. Split-K (the weight gradients, few tiles over
-// many tokens): the first `full` tiles (whole waves of SMs) run whole; the
-// rest run in `splits` runs of `chunk` slices, each unit storing its fp32
-// partial tile into a slot of `partial`, which gemm_sm90.cu's second kernel
-// sums in a fixed order: no atomics, the same bits from run to run.
+// wgrad, N or K = 192 at ViT-Ti, K = 672 or K_hi = 96 of the outlier
+// groups) and clips them on store; the staged epilogue masks its stores.
+// Split-K (the weight gradients, few tiles over many tokens): the first
+// `full` tiles (whole waves of SMs) run whole; the rest run in `splits` runs
+// of `chunk` slices, each unit storing its fp32 partial tile into a slot of
+// `partial`, which gemm_sm90.cu's second kernel sums in a fixed order: no
+// atomics, the same bits from run to run.
 //
-// The int8-weight form (kI8) keeps the consumers' products and epilogues as
-// the bf16 form's: only the way B reaches the stage's bf16 slot differs.
+// The int8-weight form (kInt8W) keeps the consumers' products and epilogues
+// as the bf16 form's: only the way B reaches the stage's bf16 slot differs.
 // The producer's one thread loads each [64 K x 128 N] int8 slice of w by
 // TMA (8 KiB, half the bytes of a bf16 slice) into a ring of kI8Stages
 // slots of its own, beside the A tile into the stage as before. The
@@ -64,7 +78,20 @@
 // multiplies the accumulator by the column's scale (__fmul_rn, never
 // contracted into the bias or residual add that follows) before the bias:
 // the plain version's order.
+//
+// The W8A8 form (kW8A8) is the bf16 form with m64n128k32 s8 products into
+// int32 accumulators (the same 2 x 64 registers a tile); before the
+// epilogue each sum becomes fp32 (__int2float_rn) times its row's and then
+// its column's scale (__fmul_rn each). The side form (kW8A8Side) needs a
+// second accumulator for the bf16 side product, 64 int32 + 64 fp32 for a
+// 64-row half tile, so its two consumer warpgroups share each tile, 64 rows
+// each (no turns): the unit's int8 slices, then its 64-deep bf16 slices of
+// x_hi (K-major) and w_hi (MN-major, two boxes) through the same ring, each
+// into its own accumulator; the side sum is added after the scales, as the
+// plain version's acc * sx * sw + hi.
 #pragma once
+
+#include <type_traits>
 
 #include "epilogue.cuh"
 #include "sm90.cuh"
@@ -72,7 +99,12 @@
 namespace vit {
 namespace sm90 {
 
+// The core's forms: bf16 operands (every layout), the int8 weight widened
+// to bf16, W8A8, and W8A8 with the bf16 side product.
+enum Form : int { kBf16 = 0, kInt8W = 1, kW8A8 = 2, kW8A8Side = 3 };
+
 constexpr int kBM = 128, kBN = 128, kBK = 64;
+constexpr int kBK8 = 128;  // the int8 forms' slices: 128 bytes deep, as kBK's
 constexpr int kStages = 4;
 constexpr int kConsumers = 2;  // warpgroups, a whole tile each, in turns
 constexpr int kThreads = 128 * (1 + kConsumers);
@@ -109,7 +141,9 @@ struct GemmArgs {
   int chunk;
   float* partial;   // their fp32 slots [splits][tiles - full][kBM][kBN]
   int store_out;    // whole tiles' epilogue: the bias at most, TMA stores
-  const float* col_scale;  // the int8-weight form's [N] scale, else null
+  const float* col_scale;  // the int8 forms' [N] scale, else null
+  const float* row_scale;  // the W8A8 forms' [M] scale, else null
+  int hi_tiles;            // the side form: 64-deep bf16 slices after the int8 ones
   Epilogue ep;
 };
 
@@ -145,6 +179,39 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da,
         "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(da), "l"(db), "r"(1), "n"(kTA), "n"(kTB));
+}
+
+// d[64 x 128] += A[64 x 32] . B[32 x 128] in int8 with int32 sums, both
+// from shared memory, K-major (int8 wgmma has no transposed form).
+__device__ __forceinline__ void wgmma_m64n128k32_s8(int32_t (&d)[64], uint64_t da,
+                                                    uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39,"
+      " %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55,"
+      " %56, %57, %58, %59, %60, %61, %62, %63},"
+      " %64, %65, p;\n"
+      "}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
+        "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]),
+        "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+        "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
+        "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]), "+r"(d[40]), "+r"(d[41]),
+        "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]),
+        "+r"(d[54]), "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(da), "l"(db), "r"(1));
 }
 
 // Work unit u: the whole tiles first, in row-major tile order (the units
@@ -235,6 +302,43 @@ __device__ __forceinline__ void epilogue_rows(const float (&acc)[64], float* sta
     apply_rows<kRows, 4>(v, x, b, gm, ok, gn, g.N, g.ep);
   }
   warpgroup_sync(wg);  // the staging tile is rewritten next
+}
+
+// The W8A8 forms' fp32 products of rows m0..m0+63 of a tile at column n0,
+// from the int32 sums in acc (wgmma's accumulator layout, see
+// epilogue_rows): (fp32(acc) * sx[m]) * sw[n], each step rounded once
+// (__fmul_rn is never contracted), the plain version's order; then, with a
+// side accumulator, + side (__fadd_rn). Rows past M and columns past N
+// read no scale (the epilogues store nothing there).
+__device__ __forceinline__ void w8a8_products(float (&v)[64], const int32_t (&acc)[64],
+                                              int m0, int n0, int t, const GemmArgs& g) {
+  const int r = (t / 32) * 16 + (t % 32) / 4, cq = 2 * (t % 4);
+  float sx[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int gm = m0 + r + 8 * h;
+    sx[h] = gm < g.M ? __ldg(g.row_scale + gm) : 0.f;
+  }
+#pragma unroll
+  for (int j = 0; j < kBN / 8; ++j) {
+    const int gn = n0 + 8 * j + cq;  // even, and N % 8 == 0: both columns in or out
+    const float2 sw = gn < g.N ? __ldg(reinterpret_cast<const float2*>(g.col_scale + gn))
+                               : make_float2(0.f, 0.f);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int i = 4 * j + 2 * h;
+      v[i] = __fmul_rn(__fmul_rn(__int2float_rn(acc[i]), sx[h]), sw.x);
+      v[i + 1] = __fmul_rn(__fmul_rn(__int2float_rn(acc[i + 1]), sx[h]), sw.y);
+    }
+  }
+}
+
+__device__ __forceinline__ void w8a8_products(float (&v)[64], const int32_t (&acc)[64],
+                                              const float (&side)[64], int m0, int n0,
+                                              int t, const GemmArgs& g) {
+  w8a8_products(v, acc, m0, n0, t, g);
+#pragma unroll
+  for (int i = 0; i < 64; ++i) v[i] = __fadd_rn(v[i], side[i]);
 }
 
 // Whether a unit's epilogue reads nothing per element and computes nothing
@@ -367,16 +471,37 @@ __device__ __forceinline__ void widen_slice(const unsigned char* src, unsigned c
   }
 }
 
-// kI8: B is an int8 w [K, N] (kBMN's layout), map_b its int8 map of
-// [64 K, 128 N] boxes, widened by the consumers (the note at the top); the
-// epilogue scales by g.col_scale.
-template <bool kAMN, bool kBMN, bool kI8>
+// The W8A8 forms' staged epilogue of rows blk*64..+63 of unit w from their
+// fp32 products v, by warpgroup wg, with the bias of the thread's columns.
+__device__ __forceinline__ void staged_rows(const float (&v)[64], int blk, const Unit& w,
+                                            float* stage_tile, int t, int wg,
+                                            const GemmArgs& g) {
+  float b[4];
+  if (w.n0 + 4 * (t % 32) < g.N) load_bias<4>(b, w.n0 + 4 * (t % 32), g.ep);
+  epilogue_rows<false>(v, stage_tile, w, w.m0 + 64 * blk, t, wg, b, g);
+}
+
+// Form kForm of the core; kAMN / kBMN: A / B is read MN-major (the bf16
+// form; the others read A K-major). kInt8W: B is an int8 w [K, N] (kBMN's
+// layout), map_b its int8 map of [64 K, 128 N] boxes, widened by the
+// consumers (the note at the top); the epilogue scales by g.col_scale.
+// kW8A8, kW8A8Side: map_a and map_b are xq's and the K-major w's maps of
+// 128 x 128 int8 boxes; the side form's map_ahi and map_bhi are x_hi's (64
+// x 128 boxes, K-major) and w_hi's (two 64 x 64 boxes a slice, MN-major).
+template <bool kAMN, bool kBMN, int kForm>
 __global__ void __launch_bounds__(kThreads, 1)
 gemm_sm90_kernel(const __grid_constant__ CUtensorMap map_a,
                  const __grid_constant__ CUtensorMap map_b,
                  const __grid_constant__ CUtensorMap map_out,
-                 const __grid_constant__ CUtensorMap map_part, const GemmArgs g) {
+                 const __grid_constant__ CUtensorMap map_part,
+                 const __grid_constant__ CUtensorMap map_ahi,
+                 const __grid_constant__ CUtensorMap map_bhi, const GemmArgs g) {
+  constexpr bool kI8 = kForm == kInt8W;
+  constexpr bool kW8 = kForm == kW8A8 || kForm == kW8A8Side;
+  constexpr bool kSide = kForm == kW8A8Side;
   static_assert(!kI8 || (!kAMN && kBMN), "the int8 weight is the forward's B");
+  static_assert(!kW8 || (!kAMN && !kBMN), "int8 wgmma reads K-major operands");
+  constexpr int kDepth = kW8 ? kBK8 : kBK;  // elements a slice
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
@@ -390,8 +515,9 @@ gemm_sm90_kernel(const __grid_constant__ CUtensorMap map_a,
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < kStages; ++s) {
-      mbar_init(full + 8 * s, 1);      // the producer's expect_tx
-      mbar_init(empty + 8 * s, 128);   // every thread of the consuming warpgroup
+      mbar_init(full + 8 * s, 1);  // the producer's expect_tx
+      // Every thread of the consuming warpgroup (the side form: of both).
+      mbar_init(empty + 8 * s, kSide ? 256 : 128);
     }
     mbar_init(turns, 128);  // warpgroup 1 hands warpgroup 0 the ring
     mbar_init(turns + 8, 128);  // and 0 hands it to 1
@@ -431,137 +557,223 @@ gemm_sm90_kernel(const __grid_constant__ CUtensorMap map_a,
       uint32_t phase = 0;
       for (int u = blockIdx.x; u < units; u += gridDim.x) {
         const Unit w = unit_of(u, g);
-        for (int kt = w.k_begin; kt < w.k_end; ++kt) {
+        // The side form: the unit's bf16 slices follow its int8 ones.
+        const int k_end = w.k_end + (kSide ? g.hi_tiles : 0);
+        for (int kt = w.k_begin; kt < k_end; ++kt) {
           mbar_wait(empty + 8 * stage, phase ^ 1);  // the first round passes
           const uint32_t bar = full + 8 * stage;
           mbar_expect_tx(bar, kStageBytes);  // zero-filled boxes count whole
           const uint32_t a = ring + stage * kStageBytes, b = a + kATile;
-          const int k0 = kt * kBK;
-          if (kAMN) {
-            tma_load(a, &map_a, w.m0, k0, bar);
-            tma_load(a + kBox, &map_a, w.m0 + 64, k0, bar);
+          if (kSide && kt >= w.k_end) {
+            const int k0 = (kt - w.k_end) * kBK;
+            tma_load(a, &map_ahi, k0, w.m0, bar);
+            tma_load(b, &map_bhi, w.n0, k0, bar);
+            tma_load(b + kBox, &map_bhi, w.n0 + 64, k0, bar);
           } else {
-            tma_load(a, &map_a, k0, w.m0, bar);
-          }
-          if (kBMN) {
-            tma_load(b, &map_b, w.n0, k0, bar);
-            tma_load(b + kBox, &map_b, w.n0 + 64, k0, bar);
-          } else {
-            tma_load(b, &map_b, k0, w.n0, bar);
+            const int k0 = kt * kDepth;
+            if (kAMN) {
+              tma_load(a, &map_a, w.m0, k0, bar);
+              tma_load(a + kBox, &map_a, w.m0 + 64, k0, bar);
+            } else {
+              tma_load(a, &map_a, k0, w.m0, bar);
+            }
+            if (kBMN) {
+              tma_load(b, &map_b, w.n0, k0, bar);
+              tma_load(b + kBox, &map_b, w.n0 + 64, k0, bar);
+            } else {
+              tma_load(b, &map_b, k0, w.n0, bar);
+            }
           }
           if (++stage == kStages) { stage = 0; phase ^= 1; }
         }
       }
     }
   } else {
-    // Consumer warpgroup wg: this block's units wg, wg + 2, ... in turn.
     asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
     const int wg = threadIdx.x / 128 - 1;
     const int t = threadIdx.x % 128;
-    // Rows 64..127 of A sit 8 KiB in, in both layouts; a 16-deep step moves
-    // 32 bytes along a K-major row, or 16 rows of 128 bytes in an MN-major box.
+    // Rows 64..127 of A sit 8 KiB in, in both layouts; a 16-deep bf16 step
+    // (a 32-deep int8 one) moves 32 bytes along a K-major row, or 16 rows of
+    // 128 bytes in an MN-major box.
     constexpr uint32_t kAStep = kAMN ? 2048 : 32, kBStep = kBMN ? 2048 : 32;
     constexpr uint32_t kALbo = kAMN ? kBox : 16, kBLbo = kBMN ? kBox : 16;
     float* stage_tile = reinterpret_cast<float*>(smem + kStages * kStageBytes) +
                         wg * 64 * kEpiPitch;
     int stage = 0;
     uint32_t phase = 0;
-    // The turns: a warpgroup starts a unit's products only once the other
-    // has waited for every slice of the unit before (the first unit of
-    // warpgroup 0 excepted). That keeps each barrier of the ring at most
-    // one phase ahead of a waiter, which a parity wait needs, and the two
-    // warpgroups' products in turns.
-    uint32_t turn_phase = 0;
-    bool first = wg == 0;
-    int turn = 0;
-    // kI8: the block's slices so far (slice n8's int8 slot n8 % kI8Stages),
-    // and the widening of one into the B slot of stage st (in phase ph).
-    int n8 = 0;
-    auto widen = [&](int st, uint32_t ph) {
-      const int slot = n8 % kI8Stages;
-      mbar_wait(full + 8 * st, ph);  // the stage's earlier products are done
-      mbar_wait(full8 + 8 * slot, (n8 / kI8Stages) & 1);
-      widen_slice(smem + (ring8 - ring) + slot * kI8Tile, smem + st * kStageBytes + kATile, t);
-      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-      warpgroup_sync(wg);
-      if (t == 0) mbar_arrive(empty8 + 8 * slot);
-      ++n8;
-    };
-    for (int u = blockIdx.x; u < units; u += gridDim.x, turn ^= 1) {
-      const Unit w = unit_of(u, g);
-      if (turn != wg) {  // the other warpgroup's unit: step over its stages
-        const int s = stage + (w.k_end - w.k_begin);
-        phase ^= (s / kStages) & 1;
-        stage = s % kStages;
-        n8 += w.k_end - w.k_begin;
-        continue;
-      }
-      if (!first) {
-        mbar_wait(turns + 8 * wg, turn_phase);
-        turn_phase ^= 1;
-      }
-      first = false;
-      float acc[2][64];
+    if constexpr (kSide) {
+      // The side form: both warpgroups on every unit, warpgroup wg on rows
+      // 64wg..64wg+63; the int8 slices into acc, then the bf16 ones (x_hi
+      // K-major, w_hi MN-major) into side.
+      for (int u = blockIdx.x; u < units; u += gridDim.x) {
+        const Unit w = unit_of(u, g);
+        int32_t acc[64];
+        float side[64];
 #pragma unroll
-      for (int i = 0; i < 64; ++i) acc[0][i] = acc[1][i] = 0.f;
-      int prev = -1;
-      if constexpr (kI8) widen(stage, phase);
-      for (int kt = w.k_begin; kt < w.k_end; ++kt) {
-        mbar_wait(full + 8 * stage, phase);
-        const uint32_t a = ring + stage * kStageBytes;
-        const uint32_t b = a + kATile;
-        fence_acc(acc[0]);
-        fence_acc(acc[1]);
-        wgmma_fence();
+        for (int i = 0; i < 64; ++i) {
+          acc[i] = 0;
+          side[i] = 0.f;
+        }
+        const int k8 = w.k_end - w.k_begin, slices = k8 + g.hi_tiles;
+        int prev = -1;
+        for (int s = 0; s < slices; ++s) {
+          mbar_wait(full + 8 * stage, phase);
+          const uint32_t a = ring + stage * kStageBytes + wg * (kATile / 2);
+          const uint32_t b = ring + stage * kStageBytes + kATile;
+          fence_acc(acc);
+          fence_acc(side);
+          wgmma_fence();
+          if (s < k8) {
 #pragma unroll
-        for (int kk = 0; kk < kBK / 16; ++kk) {
-          const uint64_t db = smem_desc(b + kk * kBStep, kBLbo, 1024);
-          wgmma_m64n128k16<kAMN, kBMN>(acc[0], smem_desc(a + kk * kAStep, kALbo, 1024), db);
-          wgmma_m64n128k16<kAMN, kBMN>(
-              acc[1], smem_desc(a + kATile / 2 + kk * kAStep, kALbo, 1024), db);
+            for (int kk = 0; kk < 4; ++kk)
+              wgmma_m64n128k32_s8(acc, smem_desc(a + kk * 32, 16, 1024),
+                                  smem_desc(b + kk * 32, 16, 1024));
+          } else {
+#pragma unroll
+            for (int kk = 0; kk < kBK / 16; ++kk)
+              wgmma_m64n128k16<false, true>(side, smem_desc(a + kk * 32, 16, 1024),
+                                            smem_desc(b + kk * 2048, kBox, 1024));
+          }
+          wgmma_commit();
+          wgmma_wait<1>();  // the previous slice's products are done
+          fence_acc(acc);
+          fence_acc(side);
+          if (prev >= 0) mbar_arrive(empty + 8 * prev);
+          prev = stage;
+          if (++stage == kStages) { stage = 0; phase ^= 1; }
         }
-        wgmma_commit();
-        if constexpr (kI8) {  // the next slice's B, under this slice's products
-          if (kt + 1 < w.k_end)
-            widen(stage + 1 == kStages ? 0 : stage + 1, stage + 1 == kStages ? phase ^ 1 : phase);
+        wgmma_wait<0>();
+        fence_acc(acc);
+        fence_acc(side);
+        if (prev >= 0) mbar_arrive(empty + 8 * prev);
+        float v[64];
+        w8a8_products(v, acc, side, w.m0 + 64 * wg, w.n0, t, g);
+        if (tma_epilogue(w, g))
+          epilogue_tma<false>(v, wg, reinterpret_cast<unsigned char*>(stage_tile), w, t, wg,
+                              &map_out, &map_part, g);
+        else
+          staged_rows(v, wg, w, stage_tile, t, wg, g);
+      }
+    } else {
+      // Consumer warpgroup wg: this block's units wg, wg + 2, ... in turn.
+      using Acc = std::conditional_t<kW8, int32_t, float>;
+      // The turns: a warpgroup starts a unit's products only once the other
+      // has waited for every slice of the unit before (the first unit of
+      // warpgroup 0 excepted). That keeps each barrier of the ring at most
+      // one phase ahead of a waiter, which a parity wait needs, and the two
+      // warpgroups' products in turns.
+      uint32_t turn_phase = 0;
+      bool first = wg == 0;
+      int turn = 0;
+      // kI8: the block's slices so far (slice n8's int8 slot n8 % kI8Stages),
+      // and the widening of one into the B slot of stage st (in phase ph).
+      int n8 = 0;
+      auto widen = [&](int st, uint32_t ph) {
+        const int slot = n8 % kI8Stages;
+        mbar_wait(full + 8 * st, ph);  // the stage's earlier products are done
+        mbar_wait(full8 + 8 * slot, (n8 / kI8Stages) & 1);
+        widen_slice(smem + (ring8 - ring) + slot * kI8Tile, smem + st * kStageBytes + kATile, t);
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+        warpgroup_sync(wg);
+        if (t == 0) mbar_arrive(empty8 + 8 * slot);
+        ++n8;
+      };
+      for (int u = blockIdx.x; u < units; u += gridDim.x, turn ^= 1) {
+        const Unit w = unit_of(u, g);
+        if (turn != wg) {  // the other warpgroup's unit: step over its stages
+          const int s = stage + (w.k_end - w.k_begin);
+          phase ^= (s / kStages) & 1;
+          stage = s % kStages;
+          n8 += w.k_end - w.k_begin;
+          continue;
         }
-        wgmma_wait<1>();  // the previous slice's products are done
+        if (!first) {
+          mbar_wait(turns + 8 * wg, turn_phase);
+          turn_phase ^= 1;
+        }
+        first = false;
+        Acc acc[2][64];
+#pragma unroll
+        for (int i = 0; i < 64; ++i) acc[0][i] = acc[1][i] = 0;
+        int prev = -1;
+        if constexpr (kI8) widen(stage, phase);
+        for (int kt = w.k_begin; kt < w.k_end; ++kt) {
+          mbar_wait(full + 8 * stage, phase);
+          const uint32_t a = ring + stage * kStageBytes;
+          const uint32_t b = a + kATile;
+          fence_acc(acc[0]);
+          fence_acc(acc[1]);
+          wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk) {
+            const uint64_t db = smem_desc(b + kk * kBStep, kBLbo, 1024);
+            const uint64_t da0 = smem_desc(a + kk * kAStep, kALbo, 1024);
+            const uint64_t da1 = smem_desc(a + kATile / 2 + kk * kAStep, kALbo, 1024);
+            if constexpr (kW8) {
+              wgmma_m64n128k32_s8(acc[0], da0, db);
+              wgmma_m64n128k32_s8(acc[1], da1, db);
+            } else {
+              wgmma_m64n128k16<kAMN, kBMN>(acc[0], da0, db);
+              wgmma_m64n128k16<kAMN, kBMN>(acc[1], da1, db);
+            }
+          }
+          wgmma_commit();
+          if constexpr (kI8) {  // the next slice's B, under this slice's products
+            if (kt + 1 < w.k_end)
+              widen(stage + 1 == kStages ? 0 : stage + 1, stage + 1 == kStages ? phase ^ 1 : phase);
+          }
+          wgmma_wait<1>();  // the previous slice's products are done
+          fence_acc(acc[0]);
+          fence_acc(acc[1]);
+          if (prev >= 0) mbar_arrive(empty + 8 * prev);
+          prev = stage;
+          if (++stage == kStages) { stage = 0; phase ^= 1; }
+        }
+        mbar_arrive(turns + 8 * (1 - wg));  // the other's turn
+        wgmma_wait<0>();
         fence_acc(acc[0]);
         fence_acc(acc[1]);
         if (prev >= 0) mbar_arrive(empty + 8 * prev);
-        prev = stage;
-        if (++stage == kStages) { stage = 0; phase ^= 1; }
-      }
-      mbar_arrive(turns + 8 * (1 - wg));  // the other's turn
-      wgmma_wait<0>();
-      fence_acc(acc[0]);
-      fence_acc(acc[1]);
-      if (prev >= 0) mbar_arrive(empty + 8 * prev);
-      if (tma_epilogue(w, g)) {
+        // The epilogue, 64 rows (one accumulator) at a time: by TMA store
+        // where the unit takes it, else staged.
         unsigned char* tile = reinterpret_cast<unsigned char*>(stage_tile);
-        epilogue_tma<kI8>(acc[0], 0, tile, w, t, wg, &map_out, &map_part, g);
-        epilogue_tma<kI8>(acc[1], 1, tile, w, t, wg, &map_out, &map_part, g);
-        continue;
+        const bool by_tma = tma_epilogue(w, g);
+        if constexpr (kW8) {
+          float v[64];
+          w8a8_products(v, acc[0], w.m0, w.n0, t, g);
+          if (by_tma)
+            epilogue_tma<false>(v, 0, tile, w, t, wg, &map_out, &map_part, g);
+          else
+            staged_rows(v, 0, w, stage_tile, t, wg, g);
+          w8a8_products(v, acc[1], w.m0 + 64, w.n0, t, g);
+          if (by_tma)
+            epilogue_tma<false>(v, 1, tile, w, t, wg, &map_out, &map_part, g);
+          else
+            staged_rows(v, 1, w, stage_tile, t, wg, g);
+        } else if (by_tma) {
+          epilogue_tma<kI8>(acc[0], 0, tile, w, t, wg, &map_out, &map_part, g);
+          epilogue_tma<kI8>(acc[1], 1, tile, w, t, wg, &map_out, &map_part, g);
+        } else {
+          float b[4];
+          if (w.n0 + 4 * (t % 32) < g.N) load_bias<4>(b, w.n0 + 4 * (t % 32), g.ep);
+          epilogue_rows<kI8>(acc[0], stage_tile, w, w.m0, t, wg, b, g);
+          epilogue_rows<kI8>(acc[1], stage_tile, w, w.m0 + 64, t, wg, b, g);
+        }
       }
-      // The staged epilogue, 64 rows (one accumulator) at a time.
-      float b[4];
-      if (w.n0 + 4 * (t % 32) < g.N) load_bias<4>(b, w.n0 + 4 * (t % 32), g.ep);
-      epilogue_rows<kI8>(acc[0], stage_tile, w, w.m0, t, wg, b, g);
-      epilogue_rows<kI8>(acc[1], stage_tile, w, w.m0 + 64, t, wg, b, g);
     }
     if (t == 0) asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
   }
 }
 
 // ---------------------------------------------------------------------------
-// Host side: the launch.
+// Host side: the launches.
 // ---------------------------------------------------------------------------
 
-// The calling thread's device: its SM count, and whether this form's kernel
+// The calling thread's device: its SM count, and whether each form's kernel
 // may take its shared memory yet (both asked once per device).
 struct DeviceInfo {
   int sms = 0;
-  bool smem_set[5] = {false, false, false, false, false};
+  bool smem_set[8] = {};
 };
 inline DeviceInfo* device_info() {
   constexpr int kMaxDevices = 64;
@@ -571,6 +783,35 @@ inline DeviceInfo* device_info() {
   DeviceInfo* d = &info[dev];
   if (d->sms == 0 && (d->sms = sm_count()) == 0) return nullptr;
   return d;
+}
+
+// Whole tiles whose epilogue is the bias at most go out by TMA store.
+inline bool stores_by_tma(const Epilogue& ep) {
+  return ep.residual_kind == kNoResidual && ep.gelu_grad_of == nullptr && !ep.gelu &&
+         ep.out2 == nullptr;
+}
+
+// Launch form (kAMN, kBMN, kForm) over g's units, a block an SM at most.
+template <bool kAMN, bool kBMN, int kForm>
+cudaError_t run_gemm(DeviceInfo* dev, const CUtensorMap& map_a, const CUtensorMap& map_b,
+                     const CUtensorMap& map_out, const CUtensorMap& map_part,
+                     const CUtensorMap& map_ahi, const CUtensorMap& map_bhi, const GemmArgs& g,
+                     cudaStream_t stream) {
+  constexpr int form = kForm == kBf16 ? (kAMN ? 2 : 0) + (kBMN ? 1 : 0) : 3 + kForm;
+  constexpr int smem = kForm == kInt8W ? kSmemBytesI8 : kSmemBytes;
+  if (!dev->smem_set[form]) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        gemm_sm90_kernel<kAMN, kBMN, kForm>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem);
+    if (err != cudaSuccess) return err;
+    dev->smem_set[form] = true;
+  }
+  const long long units =
+      g.full + static_cast<long long>(g.tiles_m * g.tiles_n - g.full) * g.splits;
+  const int grid = static_cast<int>(units < dev->sms ? units : dev->sms);
+  gemm_sm90_kernel<kAMN, kBMN, kForm><<<grid, kThreads, smem, stream>>>(
+      map_a, map_b, map_out, map_part, map_ahi, map_bhi, g);
+  return cudaGetLastError();
 }
 
 // out [M, N] = epi(A . B): A is [M, K] row-major, or (kAMN) stored [K, M];
@@ -597,10 +838,8 @@ cudaError_t launch_gemm(const void* a, const void* b, int M, int N, int K, int f
                      static_cast<long long>(splits - 1) * chunk >= k_tiles ||
                      static_cast<long long>(splits) * chunk < k_tiles || partial == nullptr))
     return cudaErrorInvalidValue;
-  // Whole tiles whose epilogue is the bias at most go out by TMA store.
-  const bool store_out = ep.residual_kind == kNoResidual && ep.gelu_grad_of == nullptr &&
-                         !ep.gelu && ep.out2 == nullptr;
-  CUtensorMap map_a, map_b, map_out = {}, map_part = {};
+  const bool store_out = stores_by_tma(ep);
+  CUtensorMap map_a, map_b, map_out = {}, map_part = {}, none = {};
   const bool ok =
       (kAMN ? encode_map(&map_a, encode, a, 2, M, K, 64)
             : encode_map(&map_a, encode, a, 2, K, M, kBM)) &&
@@ -612,33 +851,64 @@ cudaError_t launch_gemm(const void* a, const void* b, int M, int N, int K, int f
        encode_map(&map_part, encode, partial, 4, kBN,
                   static_cast<long long>(splits) * (tiles - full) * kBM, 64));
   if (!ok) return cudaErrorInvalidValue;
-  constexpr int form = kI8 ? 4 : (kAMN ? 2 : 0) + (kBMN ? 1 : 0);
-  constexpr int smem = kI8 ? kSmemBytesI8 : kSmemBytes;
-  if (!dev->smem_set[form]) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        gemm_sm90_kernel<kAMN, kBMN, kI8>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem);
-    if (err != cudaSuccess) return err;
-    dev->smem_set[form] = true;
-  }
-  GemmArgs g;
+  GemmArgs g{};
   g.M = M;
   g.N = N;
   g.tiles_m = (M + kBM - 1) / kBM;
   g.tiles_n = (N + kBN - 1) / kBN;
-  g.k_tiles = (K + kBK - 1) / kBK;
+  g.k_tiles = k_tiles;
   g.full = splits > 1 ? full : tiles;
   g.splits = splits > 1 ? splits : 1;
-  g.chunk = splits > 1 ? chunk : g.k_tiles;
+  g.chunk = splits > 1 ? chunk : k_tiles;
   g.partial = partial;
   g.store_out = store_out;
   g.col_scale = col_scale;
   g.ep = ep;
-  const long long units = g.full + static_cast<long long>(tiles - g.full) * g.splits;
-  const int grid = static_cast<int>(units < dev->sms ? units : dev->sms);
-  gemm_sm90_kernel<kAMN, kBMN, kI8><<<grid, kThreads, smem, stream>>>(map_a, map_b, map_out,
-                                                                      map_part, g);
-  return cudaGetLastError();
+  return run_gemm<kAMN, kBMN, kI8 ? kInt8W : kBf16>(dev, map_a, map_b, map_out, map_part,
+                                                    none, none, g, stream);
+}
+
+// out [M, N] = epi((fp32(xq . w) * sx[m]) * sw[n] [+ x_hi . w_hi]): xq [M, K]
+// int8 row-major with its [M] scale sx; w [K, N] int8 stored K-major (N rows
+// of K bytes, ldw bytes apart) with its [N] scale sw; with x_hi [M, K_hi]
+// and w_hi [K_hi, N] bf16 row-major (x_hi null: no side product). K, ldw
+// and N multiples of 16, K_hi of 8 (16-byte TMA row pitches); the caller
+// checks them.
+inline cudaError_t launch_w8a8(const void* xq, const float* sx, const void* w, int ldw,
+                               const float* sw, const void* x_hi, const void* w_hi,
+                               int K_hi, int M, int N, int K, const Epilogue& ep,
+                               cudaStream_t stream) {
+  EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorSymbolNotFound;
+  DeviceInfo* dev = device_info();
+  if (dev == nullptr) return cudaErrorInvalidDevice;
+  const bool side = x_hi != nullptr, store_out = stores_by_tma(ep);
+  CUtensorMap map_a, map_b, map_out = {}, map_ahi = {}, map_bhi = {}, none = {};
+  const bool ok =
+      encode_map(&map_a, encode, xq, 1, K, M, kBM) &&
+      encode_map(&map_b, encode, w, 1, K, N, kBN, ldw) &&
+      (!store_out || encode_map(&map_out, encode, ep.out, ep.out_bf16 ? 2 : 4, N, M, 64)) &&
+      (!side || (encode_map(&map_ahi, encode, x_hi, 2, K_hi, M, kBM) &&
+                 encode_map(&map_bhi, encode, w_hi, 2, N, K_hi, 64)));
+  if (!ok) return cudaErrorInvalidValue;
+  GemmArgs g{};
+  g.M = M;
+  g.N = N;
+  g.tiles_m = (M + kBM - 1) / kBM;
+  g.tiles_n = (N + kBN - 1) / kBN;
+  g.k_tiles = (K + kBK8 - 1) / kBK8;
+  g.full = g.tiles_m * g.tiles_n;
+  g.splits = 1;
+  g.chunk = g.k_tiles;
+  g.store_out = store_out;
+  g.col_scale = sw;
+  g.row_scale = sx;
+  g.hi_tiles = side ? (K_hi + kBK - 1) / kBK : 0;
+  g.ep = ep;
+  return side ? run_gemm<false, false, kW8A8Side>(dev, map_a, map_b, map_out, none, map_ahi,
+                                                  map_bhi, g, stream)
+              : run_gemm<false, false, kW8A8>(dev, map_a, map_b, map_out, none, none, none, g,
+                                              stream);
 }
 
 }  // namespace sm90

@@ -1,5 +1,6 @@
-// The int8 building blocks that linear.cu's W8A8 GEMM, quantize.cu's row
-// quantize and probe_overlap.cu's probe kernels share:
+// The int8 building blocks that quantize.cu's row quantize and
+// probe_overlap.cu's probe kernels share (the W8A8 GEMMs run on the Hopper
+// core, gemm_sm90.cuh, and use none of them):
 //   * the row quantize's absmax (warp shuffles, the 2^-93 floor) and its
 //     rounding (round half to even, as jnp.round);
 //   * cp.async copies of 16 bytes, and the ring's commit and wait;

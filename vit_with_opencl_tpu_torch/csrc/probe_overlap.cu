@@ -43,7 +43,7 @@
 // rows in shared memory (96 KiB: quantized there from registers by the fused
 // kernel, copied by cp.async otherwise) and stream 64-deep w slices through a
 // 3-stage cp.async ring, 8 warps each owning 64x32 of a 128x128 output tile
-// of int8 WMMA fragments (int8_tiles.cuh, linear.cu's W8A8 slices), walking
+// of int8 WMMA fragments (int8_tiles.cuh's slices), walking
 // the N / 128 tiles of the row chunk. The independent kernel gives the VPU
 // work to 4 more warps of the same block, which never wait for the GEMM's 8
 // (those synchronise on a named barrier of their own): the card may then

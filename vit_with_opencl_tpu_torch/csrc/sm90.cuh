@@ -1,4 +1,4 @@
-// Hopper (sm_90a) parts shared by the bf16 GEMM core (gemm_sm90.cuh) and the
+// Hopper (sm_90a) parts shared by the GEMM core (gemm_sm90.cuh) and the
 // attention kernels (attention.cu, attention_bwd.cu, attention_flash.cu's
 // forward): mbarriers, TMA loads, wgmma's shared-memory descriptors, fence,
 // commit and wait, the m64n64k16 and m64n128k16 products the attention
@@ -113,6 +113,11 @@ template <int N>
 __device__ __forceinline__ void fence_acc(float (&d)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_acc(int32_t (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
 }
 // And A fragments in registers, which a product reads until it completes.
 template <int N>
@@ -335,10 +340,12 @@ inline int sm_count() {
 }
 
 // A row-major [outer, inner] matrix of esize-byte elements (inner
-// contiguous, 16-byte rows) as boxes of [box_outer, 128 bytes].
+// contiguous, rows `pitch` bytes apart, a multiple of 16; 0: inner * esize)
+// as boxes of [box_outer, 128 bytes].
 inline bool encode_map(CUtensorMap* map, EncodeTiledFn encode, const void* base, int esize,
-                       long long inner, long long outer, int box_outer) {
-  MapKey key{base, 2, esize, {inner, outer, 0, 0}, {inner * esize, 0, 0},
+                       long long inner, long long outer, int box_outer,
+                       long long pitch = 0) {
+  MapKey key{base, 2, esize, {inner, outer, 0, 0}, {pitch ? pitch : inner * esize, 0, 0},
              {128 / esize, box_outer, 0, 0}};
   return encode_map(map, encode, key);
 }

@@ -72,8 +72,9 @@ class InferenceEngine:
       device: 'cuda' (default) or 'cpu'.
       quantize: None, 'int8' (weight-only: int8 weights, per-channel scale
         epilogue), 'int8-w8a8' (also per-token int8 activations into the
-        encoder's GEMMs) or 'auto' (``resolve_quantize``). The weights are
-        stacked to ``param_dtype`` first and quantized from that.
+        encoder's GEMMs; the int8 weights stored K-major,
+        ``quant.w8a8_layout``) or 'auto' (``resolve_quantize``). The weights
+        are stacked to ``param_dtype`` first and quantized from that.
       normalize_uint8: take raw uint8 pixels and normalise them on the device.
       calibrate: calibration images (normalised fp32 [n, C, H, W]) for the
         outlier-aware W8A8 mode: with ``int8-w8a8`` (or ``auto``, which then
@@ -125,6 +126,10 @@ class InferenceEngine:
                 np.asarray(calibrate, np.float32), params, config), self.device)
         elif quantize is not None:
             params = quant.quantize_stacked_params(params, config)
+        if quantize == "int8-w8a8":
+            # The W8A8 GEMM reads its int8 weights K-major: one copy on the
+            # device now, none in a forward.
+            params = quant.w8a8_layout(params)
         self.params = params
         self.kernels = vit.resolve_kernels(
             attention_impl, w8a8=quantize == "int8-w8a8",

@@ -24,7 +24,13 @@ normal channels go through the int8 GEMM and the outlier group through a
 small bf16 side product (``matmul_w8a8``'s trailing and masked forms).
 
 Layout: stacked weights are right-multiply ``[..., in, out]``; scales are
-``[..., 1, out]``, so slicing one layer off the stack works on both.
+``[..., 1, out]``, so slicing one layer off the stack works on both. The
+W8A8 GEMM on the card reads its int8 weights K-major (int8 ``wgmma`` takes
+no other layout): ``w8a8_layout`` stores the encoder's four int8 weights so
+once, with the same logical ``[..., in, out]`` shape and values, where the
+W8A8 params reach the card (the engine, the calibrated quantizers). The
+weight-only int8 GEMM reads them row-major, so the two modes' params are
+kept apart.
 
 ``quantize_act``, ``quantize_act_split`` and ``quantize_act_masked`` are the
 plain versions of the quantize kernels (``ops/quantize.py``,
@@ -72,6 +78,31 @@ def dequantize_weight(qw: Dict[str, np.ndarray]) -> np.ndarray:
 
 def is_quantized(w: Any) -> bool:
     return isinstance(w, dict) and "q" in w and "scale" in w
+
+
+def is_k_major(q: torch.Tensor) -> bool:
+    """Whether ``q`` [..., K, N] is stored K-major: each column's K values
+    contiguous, the columns of a matrix one after another (the ``.mT`` of a
+    contiguous [..., N, K] tensor)."""
+    return q.dim() >= 2 and q.mT.is_contiguous()
+
+
+def k_major(q: torch.Tensor) -> torch.Tensor:
+    """``q`` [..., K, N] with its values and shape, stored K-major (one copy;
+    none where it is stored so already)."""
+    return q if is_k_major(q) else q.mT.contiguous().mT
+
+
+def w8a8_layout(params: Dict[str, Any]) -> Dict[str, Any]:
+    """Stacked params with the encoder's four int8 weights (``"q"`` of
+    ``params["layers"]``) stored K-major, as the W8A8 GEMM takes them on the
+    card: one copy of each, on its device, at set-up. Every other leaf,
+    every value and every shape stays as it is; fp weights pass through."""
+    layers = dict(params["layers"])
+    for key in _LAYER_MATMUL_KEYS:
+        if is_quantized(layers[key]):
+            layers[key] = {**layers[key], "q": k_major(layers[key]["q"])}
+    return {**params, "layers": layers}
 
 
 def _quantize_tensor(w: torch.Tensor) -> Dict[str, torch.Tensor]:
@@ -610,7 +641,8 @@ def quantize_stacked_params_outlier(
     bf16, fc2 its trailing ``k_h``; out-proj holds its per-head tails
     (``kh`` per head) as "hi" with the matching int8 rows zeroed. The patch
     embedding and the head quantize weight-only, as in
-    ``quantize_stacked_params``."""
+    ``quantize_stacked_params``. The encoder's int8 weights come K-major
+    (``w8a8_layout``): only the W8A8 path takes outlier-aware params."""
     out = dict(params)
     for key in _TOP_MATMUL_KEYS:
         if key in out:
@@ -621,7 +653,7 @@ def quantize_stacked_params_outlier(
     layers["fc2_w"] = _split_weight(layers["fc2_w"], plan.k_h)
     layers["out_w"] = _masked_weight(layers["out_w"], _tail_mask(config, plan.kh))
     out["layers"] = layers
-    return _as_torch(out)
+    return w8a8_layout(_as_torch(out))
 
 
 def calibrate_w8a8(
@@ -717,7 +749,7 @@ def quantize_stacked_params_outlier_device(
     params: Dict[str, Any], config: ViTConfig, plan: OutlierPlan
 ) -> Dict[str, Any]:
     """Torch twin of ``quantize_stacked_params_outlier`` on the params'
-    device."""
+    device (the int8 weights K-major too)."""
     out = dict(params)
     for key in _TOP_MATMUL_KEYS:
         if key in out:
@@ -729,7 +761,7 @@ def quantize_stacked_params_outlier_device(
     layers["out_w"] = _masked_weight_device(
         layers["out_w"], _tail_mask(config, plan.kh))
     out["layers"] = layers
-    return out
+    return w8a8_layout(out)
 
 
 def calibrate_w8a8_device(

@@ -17,8 +17,8 @@ CPU tensor), and counts its launches.
 |   (bf16)                             |   three kernels above)               |
 | ops/fused_block.py:_block_kernel     | ops/quantize.py, csrc/quantize.cu;   |
 |   (quantized: int8 weights, W8A8)    |   the int8-weight GEMM of            |
-|                                      |   csrc/gemm_sm90.cuh, the W8A8 GEMMs |
-|                                      |   of csrc/linear.cu; chained in      |
+|                                      |   csrc/gemm_sm90.cuh and its W8A8    |
+|                                      |   forms (int8 wgmma); chained in     |
 |                                      |   ops/fused_block.py                 |
 | ops/attention.py:_packed_bwd_kernel  | ops/attention.py,                    |
 |                                      |   csrc/attention_bwd.cu              |

@@ -58,10 +58,10 @@ SIGNATURES = {
     # x, w (int8), w_scale, bias, residual, residual_kind, out, out_bf16,
     # gelu, M, N, K, stream
     "vit_linear_int8w": [_P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _P],
-    # xq, x_scale, w (int8), w_scale, x_hi, w_hi, K_hi, bias, residual,
-    # residual_kind, out, out_bf16, gelu, M, N, K, stream
-    "vit_linear_w8a8": [_P, _P, _P, _P, _P, _P, _I, _P, _P, _I, _P, _I, _I,
-                        _I, _I, _I, _P],
+    # xq, x_scale, w (int8, K-major), ldw, w_scale, x_hi, w_hi, K_hi, bias,
+    # residual, residual_kind, out, out_bf16, gelu, M, N, K, stream
+    "vit_linear_w8a8": [_P, _P, _P, _I, _P, _P, _P, _I, _P, _P, _I, _P, _I,
+                        _I, _I, _I, _I, _P],
     # qkv, out, B, T, num_heads, head_dim, scale, stream
     "vit_packed_attention_bf16": [_P, _P, _I, _I, _I, _I, _F, _P],
     # qkv, out, B, T, kv_len, num_heads, head_dim, per_head, scale, stream

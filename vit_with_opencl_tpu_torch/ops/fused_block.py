@@ -10,7 +10,7 @@ between stages. A Hopper SM has 227 KB of shared memory, so here each is a
 chain of launches, with the activations passing through device memory:
 
   bf16 and weight-only int8 (``quantized=True``), 7 launches a layer:
-    LN1 (layernorm.cu) → qkv GEMM + bias (linear.cu) → packed attention
+    LN1 (layernorm.cu) → qkv GEMM + bias (gemm_sm90.cuh) → packed attention
     (attention.cu) → out-proj GEMM + fp32 residual + bias → LN2 (fp32 in)
     → fc1 GEMM + bias + ``_gelu_fast`` → fc2 GEMM + fp32 residual + bias;
     with int8 weights each GEMM is the int8-weight one, whose fp32 product
@@ -18,7 +18,8 @@ chain of launches, with the activations passing through device memory:
     stack and a group, fc2 writes the fp32 stream and the next layer's LN1
     reads it.
   W8A8 (``quantized=True, w8a8=True``), 11 launches a layer:
-    LN1 (fp32 out) → quantize (quantize.cu) → int8 qkv GEMM + bias → packed
+    LN1 (fp32 out) → quantize (quantize.cu) → int8 qkv GEMM + bias (the
+    core's int8 ``wgmma`` form, its int8 weights stored K-major) → packed
     attention → quantize → int8 out-proj + fp32 residual + bias → LN2 (fp32
     out) → quantize → int8 fc1 + bias + ``_gelu_fast`` (fp32 out) → quantize
     → int8 fc2 + fp32 residual + bias.
@@ -31,8 +32,8 @@ chain of launches, with the activations passing through device memory:
   dtype; before out-proj the masked quantize leaves each head's tail
   columns of the context out of the absmax, clips them, and copies them
   out. Each GEMM then adds its bf16 side product over the outlier group
-  (linear.cu), after the scales and before the residual and the bias. The
-  stack has no such form (``ValueError``, as in the JAX package).
+  (the core's side form), after the scales and before the residual and the
+  bias. The stack has no such form (``ValueError``, as in the JAX package).
 
 The numerics are the TPU kernels': fp32 LN statistics, fp32 accumulation
 (exact int32 for W8A8), the residual stream kept in fp32 across the layers
@@ -143,7 +144,7 @@ LAUNCHES_GROUP = 0
 
 # Minimax-fitted odd polynomial inside tanh: GELU(x) = 0.5x(1+tanh(x P(x^2))),
 # |err| <= 3.4e-6 against erf-GELU on all of R. The same five coefficients
-# are written out in csrc/linear.cu (gelu_fast).
+# are written out in csrc/epilogue.cuh (gelu_fast).
 _GELU_P = (0.79782813653302, 0.03646878821593782, -0.00012485972711897262,
            -3.0581402420578764e-05, 1.1191059256776888e-06)
 

@@ -1,5 +1,5 @@
-"""Fused linear layer: the CUDA GEMMs of ``csrc/gemm_sm90.cuh`` (bf16 x with
-a bf16 or int8 w) and ``csrc/linear.cu`` (W8A8), and their plain versions.
+"""Fused linear layer: the forms of the Hopper GEMM core ``csrc/gemm_sm90.cuh``
+(bf16 x with a bf16 or int8 w, and W8A8), and their plain versions.
 
 Replaces ``vit_with_opencl_tpu/ops/linear.py:_linear_kernel``
 (``fused_linear``) and is the GEMM link of the encoder chains
@@ -7,8 +7,8 @@ Replaces ``vit_with_opencl_tpu/ops/linear.py:_linear_kernel``
 the epilogue adds, in fp32 and in this order, an optional residual, the bias,
 the optional ``_gelu_fast``, and casts to ``out_dtype``. The residual and
 ``out_dtype`` are the port's additions for the chain: the layer keeps its
-residual stream in fp32 between kernels. Three kernels (the W8A8 one in two
-forms), each form with its own launch count:
+residual stream in fp32 between kernels. Four forms of one kernel, each
+with its own launch count:
 
   * ``fused_linear`` with bf16 ``w``: bf16 x @ bf16 w on the Hopper core
     (TMA and wgmma, ``LAUNCHES``);
@@ -17,10 +17,13 @@ forms), each form with its own launch count:
     shared memory by the consuming warpgroup, the fp32 product times the
     per-column scale (``LAUNCHES_INT8W``);
   * ``fused_linear_w8a8``: int8 x (with its per-row scale, from
-    ``ops/quantize.py``) @ int8 w, ``acc · s_x · s_w`` (``LAUNCHES_W8A8``);
-    with ``x_hi`` and ``w_hi`` (the outlier-aware layer's bf16 groups) the
-    same kernel also runs the bf16 side product and adds it after the
-    scales (``LAUNCHES_W8A8_HI``).
+    ``ops/quantize.py``) @ int8 w on the same core's int8 ``wgmma``
+    (int32 sums), ``acc · s_x · s_w`` (``LAUNCHES_W8A8``); with ``x_hi``
+    and ``w_hi`` (the outlier-aware layer's bf16 groups) the same kernel
+    also runs the bf16 side product and adds it after the scales
+    (``LAUNCHES_W8A8_HI``). On the card w must be stored K-major
+    (``models/quant.k_major``: int8 ``wgmma`` reads no other layout); the
+    wrapper raises on any other, and never transposes a weight itself.
 
 Bound on the card: operations (see the notes in the sources). The kernels
 take bf16 or int8 operands; fp32 ``x`` on the card is not supported yet.
@@ -195,6 +198,22 @@ def fused_linear(
     return out
 
 
+def _require_k_major(wq: torch.Tensor, k: int, dev) -> None:
+    """What the W8A8 kernel reads: an int8 [K, N] stored K-major (each
+    column's K values contiguous, columns 16-byte-aligned rows apart)."""
+    if wq.device != dev:
+        raise ValueError(f"wq is on {wq.device}, expected {dev}")
+    if wq.dtype != torch.int8:
+        raise TypeError(f"wq has dtype {wq.dtype}, expected torch.int8")
+    ld = wq.stride(1)
+    if wq.stride(0) != 1 or ld < k or ld % 16 or wq.data_ptr() % 16:
+        raise ValueError(
+            f"wq [K={k}, N] must be stored K-major (strides (1, ld), ld >= K a "
+            f"multiple of 16, 16-byte aligned), got strides {wq.stride()}: "
+            "int8 wgmma reads no other layout; store the weights so once "
+            "(models/quant.k_major or w8a8_layout)")
+
+
 def fused_linear_w8a8_reference(
     xq: torch.Tensor,
     sx: torch.Tensor,
@@ -242,7 +261,10 @@ def fused_linear_w8a8(
     ``(acc · s_x) · s_w``, plus the side product ``x_hi`` [..., K_hi] @
     ``w_hi`` [K_hi, N] (bf16 on the card, fp32 accumulation) if given, then
     the residual, the bias and the GELU in fp32. K and N must be multiples
-    of 16, K_hi of 8."""
+    of 16, K_hi of 8. On the card ``wq`` must be stored K-major
+    (``models/quant.k_major``, as ``quant.w8a8_layout`` stores the W8A8
+    params): strides (1, ld) with ld >= K a multiple of 16, 16-byte
+    aligned."""
     global LAUNCHES_W8A8, LAUNCHES_W8A8_HI
     if (x_hi is None) != (w_hi is None):
         raise ValueError("x_hi and w_hi go together")
@@ -261,7 +283,7 @@ def fused_linear_w8a8(
     _build.refuse_autograd("fused_linear_w8a8",
                            (xq, sx, wq, sw, b, residual, x_hi, w_hi), _TRAINABLE)
     _build.require(xq, "xq", device=xq.device, dtypes=(torch.int8,))
-    _build.require(wq, "wq", device=xq.device, dtypes=(torch.int8,))
+    _require_k_major(wq, k, xq.device)
     if sx.numel() != m:
         raise ValueError(f"sx has shape {tuple(sx.shape)}, expected "
                          f"({', '.join(map(str, lead))}, 1)")
@@ -281,8 +303,8 @@ def fused_linear_w8a8(
     if m == 0:
         return out
     err = _build.launch("vit_linear_w8a8", xq,
-        xq.data_ptr(), sx.data_ptr(), wq.data_ptr(), s.data_ptr(), _ptr(x_hi),
-        _ptr(w_hi), k_hi, _ptr(b), _ptr(residual),
+        xq.data_ptr(), sx.data_ptr(), wq.data_ptr(), wq.stride(1), s.data_ptr(),
+        _ptr(x_hi), _ptr(w_hi), k_hi, _ptr(b), _ptr(residual),
         _RESIDUAL_KINDS[None if residual is None else residual.dtype],
         out.data_ptr(), int(out_dtype == torch.bfloat16), int(fuse_gelu),
         m, n, k)
@@ -410,6 +432,25 @@ GEMM_STAGES = 4
 INT8W_STAGES = 3
 _EPI_PITCH = _TILE_MN + 8  # the epilogue's fp32 staging rows, padded
 _CONSUMERS = 2
+
+
+# The W8A8 forms' slices: 128 rows of 128 int8 values (128 bytes) of xq and
+# of the K-major w.
+_TILE_K8 = 128
+
+
+def w8a8_kernel_smem_bytes(side: bool = False) -> int:
+    """Shared memory of one block of the core's W8A8 forms (``kSmemBytes``
+    too): the ring of stages holding a 128 x 128-byte int8 xq slice and one
+    of the K-major w, with ``side`` also a 128 x 64 bf16 x_hi slice and a
+    64 x 128 bf16 w_hi one (into the same stages), the staging tiles and
+    the barriers."""
+    stage = 2 * _TILE_MN * _TILE_K8
+    if side:
+        stage = max(stage, 2 * _TILE_MN * _TILE_K * 2)
+    ring = GEMM_STAGES * stage
+    staging = _CONSUMERS * 64 * _EPI_PITCH * 4
+    return 1024 + ring + staging + (2 * GEMM_STAGES + 2) * 8
 
 
 def gemm_kernel_smem_bytes() -> int:

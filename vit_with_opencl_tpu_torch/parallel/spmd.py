@@ -262,11 +262,16 @@ def shard_params_tp(params: Params, mesh: Mesh, config: ViTConfig) -> list:
         tp = dict(tp)
         tp["layers"] = lp
     specs = tp_pspecs(tp, config)
+    # W8A8 params stored K-major (quant.w8a8_layout) keep that layout in
+    # each shard, as a compact copy of the shard's K or N slice.
+    qkv = params["layers"]["qkv_w"]
+    k_major = quant.is_quantized(qkv) and quant.is_k_major(qkv["q"])
 
     def shard(j, dev):
-        return optim.tree_map(
+        tree = optim.tree_map(
             lambda x, spec: _shard_leaf(x, spec, n_model, j).to(dev).contiguous(),
             tp, specs)
+        return quant.w8a8_layout(tree) if k_major else tree
 
     return [[shard(j, dev) for j, dev in enumerate(row)] for row in mesh.devices]
 

@@ -48,6 +48,8 @@ def main(argv=None, device=None) -> dict:
     params = vit.cheap_stacked_params(cfg, device=dev)
     if quant:
         params = quantlib.quantize_stacked_params_device(params, cfg)
+        if quant == "int8-w8a8":
+            params = quantlib.w8a8_layout(params)  # the W8A8 GEMM's layout
     r = np.random.default_rng(0)
     images = torch.from_numpy(
         r.standard_normal((batch, 3, cfg.img_size, cfg.img_size)) * 0.3

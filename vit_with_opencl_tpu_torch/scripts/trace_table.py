@@ -41,6 +41,8 @@ def main(argv=None, device=None) -> list:
                                       device=dev)
     if quant:
         params = quantlib.quantize_stacked_params_device(params, cfg)
+        if quant == "int8-w8a8":
+            params = quantlib.w8a8_layout(params)  # the W8A8 GEMM's layout
     gen = torch.Generator(device=dev).manual_seed(0)
     images = torch.randn((batch, cfg.in_chans, cfg.img_size, cfg.img_size),
                          generator=gen, device=dev)
