@@ -41,6 +41,11 @@ of its two runs. The figures (ms):
   256; row 14c (``column_sum``) on ViT-B/16's fp32 dqkv [M, 3D], bf16 dOut
   [M, D] and the LN backward's fp32 partial rows [ceil(M / 64), D] at B =
   16 and 64;
+* row 5a (``quantize_rows``) at its four ViT-B/16 sites (the fp32 LN1 and
+  LN2 outputs [M, 768], the bf16 context [M, 768], the fp32 GELU'd hidden
+  [M, 3072]) and row 6a (``quantize_rows_split``) at its three (LN1 and
+  LN2 768 / 640, the hidden 3072 / 2944: the calibrated chain's int8
+  widths), at B = 16 and 256;
 * the ViT-B/16 bf16 forward at B = 64 and 256; W8A8, int8 weights and
   calibrated W8A8 at 256; the ViT-Ti and ViT-S stacks at 16 and 256;
 * the ViT-B/16 ``fused`` AdamW step at B = 64 and ViT-L/16@384's at 32;
@@ -67,6 +72,7 @@ launches a forward) two ways, N times each (default 10):
 Gates (slower only, so a later tree that is faster passes): W8A8, int8
 weights and calibrated W8A8 at B = 256 at most 3% slower than the parent's;
 rows 5b and 6c at each of their shapes at B = 256 at most 3% slower;
+rows 5a and 6a at each of their sites at B = 256 at most 3% slower;
 row 4 at ViT-B/16 B = 256, row 11 at each of its shapes and the ViT-B/16
 bf16 forward at B = 256 at most 3% slower (row 4 shares its kernel body
 with row 8, row 11 its design with row 12); the ViT-B/16 ``fused`` AdamW
@@ -94,6 +100,18 @@ SMOKE_BATCH = 16
 THROUGHPUT_BATCHES = (64, 256)
 GEMM_BATCHES = (16, 256)
 LN_BATCHES = (16, 256)  # rows 2 and 5d
+QUANT_BATCHES = (16, 256)  # rows 5a and 6a
+# (row, site, width, int8 columns of the split (None: the whole row), input
+# dtype, scale) of rows 5a and 6a at ViT-B/16: the W8A8 and calibrated
+# chains' quantizes (chip_smoke.py phases 2b and 2c), at about their inputs'
+# magnitudes there.
+QUANT_SITES = (("5a", "LN1", 768, None, torch.float32, 1.0),
+               ("5a", "context", 768, None, torch.bfloat16, 0.5),
+               ("5a", "LN2", 768, None, torch.float32, 1.0),
+               ("5a", "GELU'd hidden", 3072, None, torch.float32, 0.5),
+               ("6a", "LN1", 768, 640, torch.float32, 1.0),
+               ("6a", "LN2", 768, 640, torch.float32, 1.0),
+               ("6a", "GELU'd hidden", 3072, 2944, torch.float32, 0.5))
 COLSUM_BATCHES = (16, 64)  # row 14c: phase 2e's and 4b's training batches
 LN_BWD_ROWS_PER_BLOCK = 64  # the LN backward's partial row a block
 # (name, width, hidden width, tokens, batch) of row 14a's figures.
@@ -280,6 +298,23 @@ def reduction_figures(pkg, dev) -> dict:
     return out
 
 
+def quantize_figures(pkg, dev) -> dict:
+    """Rows 5a and 6a at QUANT_SITES and QUANT_BATCHES on seeded inputs."""
+    quantize, cfg = pkg["quantize"], pkg["VIT_B_16_224"]
+    gen = torch.Generator(device=dev).manual_seed(17)
+    out = {}
+    for batch in QUANT_BATCHES:
+        m = batch * cfg.num_tokens
+        for row, site, k, mq, dtype, std in QUANT_SITES:
+            x = (torch.randn((m, k), generator=gen, device=dev) * std).to(dtype)
+            if mq is None:
+                fn = lambda x=x: quantize.quantize_rows(x)
+            else:
+                fn = lambda x=x, mq=mq: quantize.quantize_rows_split(x, mq, torch.bfloat16)
+            out[f"row {row} quantize {site} ViT-B/16 B={batch}"] = time_ms(fn)
+    return out
+
+
 def attention_figures(pkg, dev) -> dict:
     """Row 4 and row 11 at ATTN_SHAPES, on seeded
     unit-scale qkv and dO at 0.01 (chip_smoke.py phases 2 and 2f)."""
@@ -432,9 +467,11 @@ def figures_main(root: str, host_only: bool) -> int:
     from vit_with_opencl_tpu_torch.engine import InferenceEngine
     from vit_with_opencl_tpu_torch.harness import fixtures
     from vit_with_opencl_tpu_torch.models import quant, vit
-    from vit_with_opencl_tpu_torch.ops import _build, attention, layernorm, linear
+    from vit_with_opencl_tpu_torch.ops import (_build, attention, layernorm, linear,
+                                               quantize)
     from vit_with_opencl_tpu_torch.parallel import spmd
     pkg = dict(linear=linear, attention=attention, layernorm=layernorm, optim=optim,
+               quantize=quantize,
                vit=vit, quant=quant, spmd=spmd, fixtures=fixtures,
                InferenceEngine=InferenceEngine, VIT_B_16_224=VIT_B_16_224,
                VIT_L_16_384=VIT_L_16_384, VIT_S_16_224=VIT_S_16_224,
@@ -452,6 +489,7 @@ def figures_main(root: str, host_only: bool) -> int:
         else:
             out = gemm_figures(pkg, dev)
             out.update(reduction_figures(pkg, dev))
+            out.update(quantize_figures(pkg, dev))
             out.update(attention_figures(pkg, dev))
             out.update(long_attention_figures(pkg, dev))
             out.update(forward_figures(pkg, dev))
@@ -598,7 +636,8 @@ def main(argv: list[str]) -> int:
               f"(at most {STEADY_PATHS_TOL:.0%} slower; within {STEADY_PATHS_TOL:.0%} "
               f"either way: {abs(ratio - 1) <= STEADY_PATHS_TOL})", flush=True)
     for key in (k for k in after
-                if k.startswith(("row 5b ", "row 6c ")) and k.endswith(f"B={GEMM_BATCHES[-1]}")):
+                if k.startswith(("row 5b ", "row 6c ", "row 5a ", "row 6a "))
+                and k.endswith(f"B={GEMM_BATCHES[-1]}")):
         ratio = after[key] / before[key]
         gates[key] = ratio <= 1 + STEADY_PATHS_TOL
         print(f"{'ok  ' if gates[key] else 'FAIL'} {key}: this / parent {ratio:.4f} "

@@ -91,10 +91,15 @@ line.
 2k. The LN kernel's forms at the stacks' and ViT-L's widths (D = 192 and
    384 at B = 16 and 256, D = 1024 at ViT-L/16@384's B = 8 and 32) on the
    fp32 stream, bf16 and fp32 out, against its plain version (yardstick
-   ``F.layer_norm``); then rows 2, 5d and 14c at ViT-B B = 16 traced alone
-   with ``perf.device_kernel_table``: device time a call beside the same
-   trace of ``F.layer_norm`` and ``x.float().sum(0)``, and the trace's
-   launches of the port's kernels against the calls.
+   ``F.layer_norm``); the quantizes' forms (rows 5a and 6a) at the same
+   configs' D and MLP widths and at ViT-H/14's and ViT-G/14's (B = 8), fp32
+   and bf16 in, bit-identical to their plain versions (no yardstick), and
+   the registers and spills of each form of ``csrc/quantize.cu`` (``nvcc
+   -Xptxas -v``); then rows 2, 5d, 14c, 5a and 6a at ViT-B B = 16 traced
+   alone with ``perf.device_kernel_table``: device time a call beside the
+   same trace of ``F.layer_norm`` and ``x.float().sum(0)`` (none for the
+   quantizes), and the trace's launches of the port's kernels against the
+   calls.
 5. The training main path: ``Trainer(VIT_B_16_224, device="cuda",
    compute_dtype=bf16, optimizer="adamw")`` from seeded ``init_params``,
    8 steps at batch 32 on a memorised seeded batch, in each route
@@ -767,7 +772,9 @@ def max_err(out: torch.Tensor, ref: torch.Tensor, tol: tuple) -> tuple:
     diff = (out - ref).abs()
     rtol, atol = tol
     within = bool((diff <= atol + rtol * ref.abs()).all())
-    return (float(diff.max()), within, float((diff == 0).float().mean()),
+    # The share from an exact count: a float32 mean of ones over millions of
+    # elements (a sum times 1/N) can come out one ulp below 1.
+    return (float(diff.max()), within, int((diff == 0).sum()) / diff.numel(),
             float(diff.mean()))
 
 
@@ -823,6 +830,34 @@ def attn_fwd_case(qkv, nh: int, hd: int) -> dict:
                 plain=lambda: attention.packed_fused_attention_reference(qkv, nh, hd),
                 library=lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v),
                 bytes=b * t * 4 * nh * hd * 2, ops={"bf16": 4 * b * nh * t * t * hd})
+
+
+def quantize_case(site: str, inp: torch.Tensor) -> dict:
+    """Row 5a (``quantize_rows``) on ``inp`` against its plain version:
+    codes and scales bit-identical. Bound: each value read once, each code
+    and scale written once."""
+    rows = inp.numel() // inp.shape[-1]
+    return dict(
+        name=f"quantize_rows {site} ({'bf16' if inp.dtype == torch.bfloat16 else 'fp32'} in)",
+        counter="quantize", tol=EXACT, min_same=1.0,
+        kernel=lambda: quantize.quantize_rows(inp),
+        plain=lambda: quantize.quantize_rows_reference(inp), library=None,
+        bytes=inp.numel() * (inp.element_size() + 1) + 4 * rows,
+        ops={"fp32": 3 * inp.numel()})
+
+
+def split_case(site: str, inp: torch.Tensor, mq: int) -> dict:
+    """Row 6a (``quantize_rows_split``) on the fp32 ``inp``, its leading
+    ``mq`` columns quantized: codes, scales and the bf16 tail bit-identical
+    to its plain version."""
+    k, rows, bf = inp.shape[-1], inp.numel() // inp.shape[-1], torch.bfloat16
+    return dict(
+        name=f"quantize_rows_split {site} (fp32 in, int8 [{mq}] + bf16 [{k - mq}] out)",
+        counter="quantize_split", tol=EXACT, min_same=1.0,
+        kernel=lambda: quantize.quantize_rows_split(inp, mq, bf),
+        plain=lambda: quantize.quantize_rows_split_reference(inp, mq, bf),
+        library=None, bytes=rows * (k * 4 + mq + (k - mq) * 2 + 4),
+        ops={"fp32": 3 * rows * mq})
 
 
 def kernel_rows(batch: int, dev, seed: int = 0, cfg=CFG) -> list[dict]:
@@ -940,15 +975,6 @@ def int8_kernel_rows(batch: int, dev, seed: int = 0, cfg=CFG) -> list[dict]:
     bx1 = iw("out_w", bctx, residual=x, out_dtype=f32)
     b2 = layernorm.layer_norm_reference(bx1, lp["ln2_w"], lp["ln2_b"], eps, out_dtype=bf)
     bhid = iw("fc1_w", b2, fuse_gelu=True)
-
-    def quantize_case(site, inp):
-        return dict(
-            name=f"quantize_rows {site} ({'bf16' if inp.dtype == bf else 'fp32'} in)",
-            counter="quantize", tol=EXACT, min_same=1.0,
-            kernel=lambda: quantize.quantize_rows(inp),
-            plain=lambda: quantize.quantize_rows_reference(inp), library=None,
-            bytes=inp.numel() * (inp.element_size() + 1) + 4 * (inp.numel() // inp.shape[-1]),
-            ops={"fp32": 3 * inp.numel()})
 
     def w8a8_case(name, site, wkey, n, k_dim, out_dtype, **kw):
         xq, sx = quantized[site]
@@ -1088,16 +1114,6 @@ def outlier_kernel_rows(batch: int, dev, params: dict, seed: int = 0) -> list[di
     q3 = split(hid, "fc2_w")
     quantized = {"qkv": q1, "out": qc, "fc1": q2, "fc2": q3}
 
-    def split_case(site, inp, key):
-        k, mq = inp.shape[-1], lp[key]["q"].shape[0]
-        return dict(
-            name=f"quantize_rows_split {site} (fp32 in, int8 [{mq}] + bf16 [{k - mq}] out)",
-            counter="quantize_split", tol=EXACT, min_same=1.0,
-            kernel=lambda: quantize.quantize_rows_split(inp, mq, bf),
-            plain=lambda: quantize.quantize_rows_split_reference(inp, mq, bf),
-            library=None, bytes=m * k * 4 + m * mq + m * (k - mq) * 2 + 4 * m,
-            ops={"fp32": 3 * m * mq})
-
     def side_case(name, site, wkey, n, out_dtype, **kw):
         xq, sx, x_hi = quantized[site]
         k_dim, k_hi = xq.shape[-1], x_hi.shape[-1]
@@ -1136,15 +1152,15 @@ def outlier_kernel_rows(batch: int, dev, params: dict, seed: int = 0) -> list[di
     bf16_w = k_d * (3 * d + h) + nh * kh * d + k_h * d
     weight_bytes = int8_w + 2 * bf16_w + (5 * d + h) * 4 + (9 * d + h) * 4
     cases = [
-        split_case("LN1 out", a1, "qkv_w"),
+        split_case("LN1 out", a1, lp["qkv_w"]["q"].shape[0]),
         dict(name=f"quantize_rows_masked context (bf16 in, {nh} x {kh} tails out)",
              counter="quantize_masked", tol=EXACT, min_same=1.0,
              kernel=lambda: quantize.quantize_rows_masked(ctx, nh, hd, kh),
              plain=lambda: quantize.quantize_rows_masked_reference(ctx, nh, hd, kh),
              library=None, bytes=m * d * 3 + m * nh * kh * 2 + 4 * m,
              ops={"fp32": 3 * m * d}),
-        split_case("LN2 out", a2, "fc1_w"),
-        split_case("GELU'd hidden", hid, "fc2_w"),
+        split_case("LN2 out", a2, lp["fc1_w"]["q"].shape[0]),
+        split_case("GELU'd hidden", hid, lp["fc2_w"]["q"].shape[0]),
         side_case("fused_linear_w8a8 + bf16 side qkv (+bias, bf16 out)", "qkv",
                   "qkv_w", 3 * d, bf),
         side_case("fused_linear_w8a8 + bf16 side out-proj (+bf16 residual, +bias, "
@@ -2248,13 +2264,53 @@ def ln_width_rows(dev) -> list[dict]:
     return rows
 
 
+# Phase 2k: rows 5a and 6a's compile-time forms at the same widths (each
+# config's D and MLP width H), and at ViT-H/14's and ViT-G/14's (H = 5120
+# and 8192: four warps a row in fp32) at QUANT_WIDE_BATCH; the split's bf16 tail of
+# QUANT_TAIL columns (64 of 192), as ViT-B's calibrated plan leaves.
+QUANT_WIDE_BATCH = 8
+QUANT_TAIL = 128
+
+
+def quantize_width_rows(dev) -> list[dict]:
+    """Phase 2k: ``quantize_rows`` on fp32 rows of D and H and bf16 rows of
+    D (the context), and ``quantize_rows_split`` on fp32 rows of D and H,
+    against their plain versions, bit for bit. Seeded rows at unit scale
+    with every 97th column 30x (outlier channels)."""
+    rows = []
+    for cfg, batch in LN_WIDTH_ROWS + ((VIT_H_14_224, QUANT_WIDE_BATCH),
+                                       (VIT_G_14_224, QUANT_WIDE_BATCH)):
+        gen = torch.Generator(device=dev).manual_seed(batch + cfg.embed_dim)
+        cases = []
+        for k in (cfg.embed_dim, cfg.hidden_dim):
+            x = torch.randn((batch * cfg.num_tokens, k), generator=gen, device=dev)
+            x[:, ::97] *= 30.0
+            cases.append(quantize_case(f"K={k}", x))
+            if k == cfg.embed_dim:
+                cases.append(quantize_case(f"K={k}", x.to(torch.bfloat16)))
+            cases.append(split_case(f"K={k}", x, k - (64 if k == 192 else QUANT_TAIL)))
+        rows += run_cases(cases, batch, f"{cfg.name} ")
+    return rows
+
+
+def print_resource_usage(source: str) -> None:
+    """Phase 2k: each kernel of ``csrc/<source>``'s registers a thread and
+    spills, as ptxas reports them for the build's flags."""
+    for k in _build.resource_usage(source):
+        print(f"  ptxas {source}: {k['name'][:110]}: {k['registers']} registers, "
+              f"{k['spill_stores']} bytes spill stores, {k['spill_loads']} bytes spill "
+              f"loads", flush=True)
+
+
 def reduction_device_times(dev) -> None:
     """Phase 2k: the device time of one call of each LN form (rows 2 and
-    5d) and of ``column_sum`` (row 14c) at ViT-B/16 B = 16, from a
+    5d), of ``column_sum`` (row 14c) and of the quantizes at the GELU'd
+    hidden (rows 5a and 6a) at ViT-B/16 B = 16, from a
     ``perf.device_kernel_table`` trace of the call alone (DEVICE_TIME_ITERS
-    calls), beside the same trace of its library call (``F.layer_norm``,
-    ``x.float().sum(0)``) and both calls' CUDA-event times. Checks that the
-    traced kernels are the port's and launched as often as the calls say."""
+    calls), beside the same trace of its library call where one computes
+    the function (``F.layer_norm``, ``x.float().sum(0)``; none quantizes)
+    and the calls' CUDA-event times. Checks that the traced kernels are the
+    port's and launched as often as the calls say."""
     gen = torch.Generator(device=dev).manual_seed(15)
     bf, f32 = torch.bfloat16, torch.float32
     d, m, eps = CFG.embed_dim, SMOKE_BATCH * CFG.num_tokens, CFG.eps
@@ -2283,6 +2339,13 @@ def reduction_device_times(dev) -> None:
                       1 if per_chunk >= shape[0] else 2,
                       functools.partial(layernorm.column_sum, x),
                       lambda x=x: x.float().sum(0)))
+    k, mq = CFG.hidden_dim, CFG.hidden_dim - QUANT_TAIL
+    hid = torch.randn((m, k), generator=gen, device=dev)
+    cases += [("row 5a GELU'd hidden (fp32 in)", hid, "quantize_rows_kernel<", 1,
+               functools.partial(quantize.quantize_rows, hid), None),
+              (f"row 6a GELU'd hidden (fp32 in, int8 [{mq}] + bf16 [{k - mq}] out)", hid,
+               "quantize_rows_split_kernel<", 1,
+               functools.partial(quantize.quantize_rows_split, hid, mq, bf), None)]
     out = []
     for name, x, kernel_name, launches, kernel, library in cases:
         def traced(fn):
@@ -2290,20 +2353,23 @@ def reduction_device_times(dev) -> None:
             return sum(s.total_ms for s in table) / DEVICE_TIME_ITERS, table
 
         dev_ms, table = traced(kernel)
-        lib_dev_ms, lib_table = traced(library)
         calls = sum(s.calls for s in table if kernel_name in s.name)
         check(calls == launches * DEVICE_TIME_ITERS
               and calls == sum(s.calls for s in table),
               f"B={SMOKE_BATCH} {name}: the trace holds {calls} launches of "
               f"{kernel_name!r} ({launches} a call) and nothing else")
-        row = dict(name=name, device_ms=dev_ms, library_device_ms=lib_dev_ms,
-                   ms=time_ms(kernel), library_ms=time_ms(library),
-                   library_kernels=[s.name[:80] for s in lib_table])
+        row = dict(name=name, device_ms=dev_ms, ms=time_ms(kernel))
+        lib = "no library call"
+        if library is not None:
+            lib_dev_ms, lib_table = traced(library)
+            row.update(library_device_ms=lib_dev_ms, library_ms=time_ms(library),
+                       library_kernels=[s.name[:80] for s in lib_table])
+            lib = (f"library {lib_dev_ms:.4f} ms ({lib_dev_ms / dev_ms:.2f}x the "
+                   f"kernel's; {', '.join(row['library_kernels'])}), CUDA events "
+                   f"{row['library_ms']:.4f} ms")
         out.append(row)
-        print(f"  B={SMOKE_BATCH} {name}: device {dev_ms:.4f} ms a call, library "
-              f"{lib_dev_ms:.4f} ms ({lib_dev_ms / dev_ms:.2f}x the kernel's; "
-              f"{', '.join(row['library_kernels'])}); CUDA events {row['ms']:.4f} / "
-              f"{row['library_ms']:.4f} ms", flush=True)
+        print(f"  B={SMOKE_BATCH} {name}: device {dev_ms:.4f} ms a call, CUDA events "
+              f"{row['ms']:.4f} ms; {lib}", flush=True)
     print(json.dumps({"device_times": {"batch": SMOKE_BATCH, "iters": DEVICE_TIME_ITERS,
                                        "rows": out}}), flush=True)
 
@@ -3328,10 +3394,13 @@ def main() -> int:
           f"B={SMOKE_BATCH}")
     train_rows = train_kernel_rows(SMOKE_BATCH, dev)
     with torch.inference_mode():
-        phase(f"== phase 2k: the LN kernel at the stacks' and ViT-L's widths vs its "
-              f"plain version; device times of rows 2, 5d and 14c at B={SMOKE_BATCH} "
-              f"beside their library calls (torch.profiler)")
+        phase(f"== phase 2k: the LN and quantize kernels at the stacks', ViT-L's "
+              f"(and the quantizes at ViT-H's and ViT-G's) widths vs their plain "
+              f"versions; the quantize forms' registers; device times of rows 2, 5d, "
+              f"14c, 5a and 6a at B={SMOKE_BATCH} (torch.profiler)")
         ln_width_rows(dev)
+        quantize_width_rows(dev)
+        print_resource_usage("quantize.cu")
         reduction_device_times(dev)
     phase("== phase 2f: training kernels at the larger presets' shapes (ViT-L/16@384, "
           "ViT-H/14, ViT-G/14) vs plain versions")

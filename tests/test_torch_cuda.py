@@ -197,7 +197,20 @@ def _with_special_rows(x):
     return x
 
 
-@pytest.mark.parametrize("rows,cols", [(37, 768), (3152, 768), (197, 3072)])
+# csrc/quantize.cu's compile-time forms (QuantWidths): the presets' D and
+# MLP widths. Rows of 3072 and 4096 fp32, 5120 and 8192 bf16 take two
+# warps each, 5120 and 8192 fp32 four.
+QUANT_WIDTHS = (192, 384, 768, 1024, 1280, 1536, 1664, 3072, 4096, 5120, 8192)
+# Each form at 19 ragged rows; the several-warp forms over several blocks,
+# at a few rows, and with two rows a block (3152 x 3072, 1100 x 8192 bf16:
+# enough rows for blocks of 4 warps); two general widths (112, 400).
+QUANT_SHAPES = ([(37, 768), (3152, 768), (197, 3072)]
+                + [(19, w) for w in QUANT_WIDTHS]
+                + [(197, 5120), (197, 8192), (7, 8192), (3152, 3072), (1100, 8192),
+                   (19, 112), (19, 400)])
+
+
+@pytest.mark.parametrize("rows,cols", QUANT_SHAPES)
 @pytest.mark.parametrize("in_dtype", [torch.float32, torch.bfloat16])
 def test_quantize_rows_kernel(dev, rows, cols, in_dtype):
     x = _with_special_rows(_rand((rows, cols), dev, in_dtype, std=2.0))
@@ -399,9 +412,17 @@ def _outlier_rows(rows, cols, dev, dtype, hot=(5, 63, 700)):
     return x
 
 
-@pytest.mark.parametrize("rows,cols,m", [(37, 768, 640), (3152, 768, 640),
-                                         (197, 3072, 2944), (6, 64, 48),
-                                         (50, 512, 496)])
+# The calibrated chains' splits at ViT-B (768/640, 3072/2944), each form
+# with its last 128 columns (64 of 192) in the bf16 tail, the several-warp
+# forms over several blocks and with two rows a block, and general widths.
+SPLIT_SHAPES = ([(37, 768, 640), (3152, 768, 640), (197, 3072, 2944), (6, 64, 48),
+                 (50, 512, 496)]
+                + [(19, w, w - (64 if w == 192 else 128)) for w in QUANT_WIDTHS]
+                + [(197, 8192, 8064), (197, 5120, 4992), (3152, 3072, 2944),
+                   (19, 400, 272)])
+
+
+@pytest.mark.parametrize("rows,cols,m", SPLIT_SHAPES)
 def test_quantize_rows_split_kernel(dev, rows, cols, m):
     """Bit-identical to the plain version: codes, scales and the tail (bf16
     rounded to nearest even)."""

@@ -100,6 +100,30 @@ def test_build_failure_carries_nvcc_stderr(monkeypatch, tmp_path):
     assert not list((tmp_path / "build").glob("*.so"))
 
 
+def test_resource_usage_reads_the_ptxas_report(monkeypatch, tmp_path):
+    """Each entry function's registers and spills, the names demangled by
+    the toolkit's cu++filt beside nvcc."""
+    report = ("ptxas info    : Compiling entry function '_Z1av' for 'sm_90a'\n"
+              "ptxas info    : Function properties for _Z1av\n"
+              "    0 bytes stack frame, 8 bytes spill stores, 4 bytes spill loads\n"
+              "ptxas info    : Used 168 registers, used 1 barriers\n"
+              "ptxas info    : Compiling entry function '_Z1bv' for 'sm_90a'\n"
+              "ptxas info    : Function properties for _Z1bv\n"
+              "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+              "ptxas info    : Used 40 registers, used 0 barriers\n")
+    (tmp_path / "report").write_text(report)
+    fake = tmp_path / "nvcc"
+    fake.write_text(f"#!/bin/sh\ncat {tmp_path / 'report'} >&2\n")
+    (tmp_path / "cu++filt").write_text("#!/bin/sh\nsed 's/_Z1\\(.\\)v/\\1()/'\n")
+    for tool in (fake, tmp_path / "cu++filt"):
+        tool.chmod(0o755)
+    monkeypatch.setattr(_build, "find_nvcc", lambda: str(fake))
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    assert _build.resource_usage("quantize.cu") == [
+        {"name": "a()", "registers": 168, "spill_stores": 8, "spill_loads": 4},
+        {"name": "b()", "registers": 40, "spill_stores": 0, "spill_loads": 0}]
+
+
 def test_build_key_follows_the_sources(monkeypatch, tmp_path):
     for name in ("a.cu", "common.cuh"):
         (tmp_path / name).write_text("// v1\n")

@@ -167,6 +167,32 @@ def test_marks_fence_the_traced_runs(on_card):
         kernel_trace._between_marks(events[2:], on_card)
 
 
+def test_a_trace_that_lost_a_mark_is_taken_again(monkeypatch):
+    """A trace whose first mark is missing is thrown away and taken again;
+    when every one of TRACE_ATTEMPTS traces loses a mark, the table raises."""
+    runs, marks = [], []
+    real_mark = kernel_trace._mark
+
+    def first_mark_lost(on_card):
+        marks.append(on_card)
+        if len(marks) > 1:
+            real_mark(on_card)
+
+    def fn(x):
+        runs.append(1)
+        return x * 2
+
+    monkeypatch.setattr(kernel_trace, "_mark", first_mark_lost)
+    table = kernel_trace.device_kernel_table(fn, (torch.ones(4),), iters=2)
+    assert len(runs) == 1 + 2 * (2 + 2) and len(marks) == 4
+    assert any("mul" in s.name for s in table)
+    monkeypatch.setattr(kernel_trace, "_mark", lambda on_card: None)
+    runs.clear()
+    with pytest.raises(kernel_trace.LostMark, match="0 of its 2 marks"):
+        kernel_trace.device_kernel_table(fn, (torch.ones(4),), iters=2)
+    assert len(runs) == 1 + kernel_trace.TRACE_ATTEMPTS * (2 + 2)
+
+
 def test_trace_writes_a_chrome_trace(tmp_path, monkeypatch):
     with perf.trace(str(tmp_path), device="cpu") as d:
         torch.ones(8, 8) @ torch.ones(8, 8)

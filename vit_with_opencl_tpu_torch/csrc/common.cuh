@@ -118,6 +118,69 @@ __device__ __forceinline__ void load_floats(float (&v)[V], const bf16* p) {
   }
 }
 
+// Row kernels (the LN, the int8 quantize): a row of kCols elements of T in
+// 16-byte vectors, held in registers from its load to its write. kThreads
+// threads take a row: a group of kLanes lanes of one warp (32 from 96
+// vectors a row up, 16 from 48, 8 from 24, else 4), or kWarps whole warps
+// (2 or 4) where one warp's share would pass kRowMaxPerLane vectors a lane
+// (64 registers of data; at 32 the int8 quantize's 8192-wide bf16 form
+// spilled). kPerLane vectors a lane; with kRagged,
+// the last lanes' last vector lies past the row and is left out. Vector j
+// of lane `sub` starts at column (j * kThreads + sub) * V, so each
+// instruction of the row's lanes reads or writes one contiguous run.
+constexpr int kRowMaxPerLane = 16;
+constexpr int kRowMaxWarps = 4;  // a block: 1, 2 or 4 warps
+constexpr int kRowTargetBlocks = 4 * 132;  // 4 blocks an SM of an H100
+
+template <typename T, int kCols>
+struct RowShape {
+  static constexpr int V = kVec16<T>;
+  static_assert(kCols % V == 0, "a row of whole vectors");
+  static constexpr int kVecs = kCols / V;
+  static constexpr int kLanes = kVecs >= 96 ? 32 : kVecs >= 48 ? 16 : kVecs >= 24 ? 8 : 4;
+  static constexpr int kWarps = kVecs <= 32 * kRowMaxPerLane   ? 1
+                                : kVecs <= 64 * kRowMaxPerLane ? 2
+                                                               : 4;
+  static_assert(kVecs <= 32 * kRowMaxWarps * kRowMaxPerLane, "a row of at most a block");
+  static constexpr int kThreads = kLanes * kWarps;
+  static constexpr int kPerLane = (kVecs + kThreads - 1) / kThreads;
+  static constexpr bool kRagged = kVecs % kThreads != 0;
+};
+
+// The grid and block of a row kernel whose rows take `row_threads` threads
+// (a divisor or a multiple of 32): blocks of kRowMaxWarps warps (at least a
+// row's), halved while the grid would fall short of kRowTargetBlocks.
+inline void row_launch(int rows, int row_threads, dim3& grid, dim3& block) {
+  const int row_min = (row_threads + 31) / 32;
+  int warps = row_min > kRowMaxWarps ? row_min : kRowMaxWarps;
+  auto blocks = [&](int w) {
+    const int per_block = w * 32 / row_threads;
+    return (rows + per_block - 1) / per_block;
+  };
+  while (warps > row_min && blocks(warps) < kRowTargetBlocks) warps /= 2;
+  grid = dim3(blocks(warps));
+  block = dim3(warps * 32);
+}
+
+// The absmax of a group of kLanes lanes (every lane of the group gets it),
+// floored at 2^-93, so that a zero row keeps a finite 127 / absmax. fmaxf
+// returns the other operand where one is NaN, so a NaN is left out of the
+// max in any order of the reduction.
+template <int kLanes = 32>
+__device__ __forceinline__ float warp_absmax(float amax) {
+#pragma unroll
+  for (int off = kLanes / 2; off > 0; off >>= 1)
+    amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, off));
+  return fmaxf(amax, 0x1p-93f);
+}
+
+// An int8 code: __float2int_rn rounds half to even, as jnp.round and
+// torch.round; roundf would not. No clip: |v| <= absmax gives |v * r| <=
+// 127 * (1 + 2^-23) < 127.5.
+__device__ __forceinline__ signed char quantize_one(float v, float r) {
+  return static_cast<signed char>(__float2int_rn(__fmul_rn(v, r)));
+}
+
 // Opt a kernel into more than 48 KB of dynamic shared memory (Hopper allows
 // up to 227 KB per block).
 template <typename Kernel>

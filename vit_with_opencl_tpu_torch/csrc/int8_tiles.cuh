@@ -1,8 +1,6 @@
-// The int8 building blocks that quantize.cu's row quantize and
-// probe_overlap.cu's probe kernels share (the W8A8 GEMMs run on the Hopper
-// core, gemm_sm90.cuh, and use none of them):
-//   * the row quantize's absmax (warp shuffles, the 2^-93 floor) and its
-//     rounding (round half to even, as jnp.round);
+// The int8 building blocks of probe_overlap.cu's probe kernels (the W8A8
+// GEMMs run on the Hopper core, gemm_sm90.cuh, and use none of them; the
+// row quantize's absmax and rounding are common.cuh's):
 //   * cp.async copies of 16 bytes, and the ring's commit and wait;
 //   * the int8 GEMM's 64-deep slices: an A slice of 128 rows stored as four
 //     16-byte column chunks ([4][128][16]), a w slice of 128 columns stored
@@ -22,20 +20,6 @@ namespace vit {
 constexpr int kI8BM = 128, kI8BN = 128, kI8BK = 64, kI8Threads = 256;
 constexpr int kI8AStage = kI8BM * kI8BK;  // bytes: [kI8BK/16][kI8BM][16]
 constexpr int kI8BStage = kI8BK * kI8BN;  // bytes: [kI8BN/16][kI8BK][16]
-
-// The warp's absmax (every lane gets it), floored at 2^-93, so that a zero
-// row keeps a finite 127 / absmax.
-__device__ __forceinline__ float warp_absmax(float amax) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, off));
-  return fmaxf(amax, 0x1p-93f);
-}
-
-// __float2int_rn rounds half to even, as jnp.round; roundf would not.
-__device__ __forceinline__ signed char quantize_one(float v, float r) {
-  return static_cast<signed char>(__float2int_rn(__fmul_rn(v, r)));
-}
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
                                            bool valid) {

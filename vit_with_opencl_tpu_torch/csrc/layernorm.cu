@@ -14,10 +14,11 @@
 // from its load to its write. At the presets' widths (192, 384, 768, 1024,
 // 1280, 1664) the vectors a lane are a compile-time count, so every load of
 // a lane is issued before the first sum: a row takes a group of 32 lanes
-// from 96 vectors a row up, 16 from 48, 8 below (3 or more vectors a lane),
-// and the group reduces its two sums with xor shuffles, without shared
-// memory. A block holds 1 to 4 warps, fewer where the rows are few, so that
-// the grid spreads over the card (kLnTargetBlocks). Any other width takes
+// from 96 vectors a row up, 16 from 48, 8 below (3 or more vectors a lane;
+// common.cuh's RowShape), and the group reduces its two sums with xor
+// shuffles, without shared memory. A block holds 1 to 4 warps, fewer where
+// the rows are few, so that the grid spreads over the card (row_launch,
+// kRowTargetBlocks). Any other width takes
 // the general form: a warp a row, the row read twice (statistics, then the
 // normalised write; the second read from L1/L2), in 16-byte vectors where
 // the width is a whole number of them, else an element a lane an
@@ -28,31 +29,17 @@
 
 namespace vit {
 
-constexpr int kLnWarps = 8;     // the residual and backward kernels below
-constexpr int kLnMaxWarps = 4;  // the forward's blocks: 1, 2 or 4 warps
-constexpr int kLnTargetBlocks = 4 * 132;  // 4 blocks an SM of an H100
-
-// A row of kCols elements of TIn in 16-byte vectors: kLanes lanes a row,
-// kPerLane vectors a lane (with kRagged, the last lanes' last vector lies
-// past the row and is left out).
-template <typename TIn, int kCols>
-struct LnShape {
-  static constexpr int V = kVec16<TIn>;
-  static_assert(kCols % V == 0, "a row of whole vectors");
-  static constexpr int kVecs = kCols / V;
-  static constexpr int kLanes = kVecs >= 96 ? 32 : kVecs >= 48 ? 16 : kVecs >= 24 ? 8 : 4;
-  static constexpr int kPerLane = (kVecs + kLanes - 1) / kLanes;
-  static constexpr bool kRagged = kVecs % kLanes != 0;
-};
+constexpr int kLnWarps = 8;  // the residual and backward kernels below
 
 template <typename T> constexpr int kIsBF16 = std::is_same<T, bf16>::value;
 
 template <typename TIn, typename TOut, int kCols>
-__global__ void __launch_bounds__(kLnMaxWarps * 32)
+__global__ void __launch_bounds__(kRowMaxWarps * 32)
 layernorm_kernel(const TIn* __restrict__ x, const float* __restrict__ w,
                  const float* __restrict__ b, TOut* __restrict__ y, int rows,
                  float eps) {
-  using S = LnShape<TIn, kCols>;
+  using S = RowShape<TIn, kCols>;
+  static_assert(S::kWarps == 1, "a row within one warp");
   constexpr int V = S::V, L = S::kLanes, N = S::kPerLane;
   const int sub = threadIdx.x % L;
   const int row = blockIdx.x * (blockDim.x / L) + threadIdx.x / L;
@@ -103,7 +90,7 @@ layernorm_kernel(const TIn* __restrict__ x, const float* __restrict__ w,
 // The general form: any width, a warp a row; V elements a lane an
 // instruction (kVec16<TIn> where cols is a multiple of it, else 1).
 template <typename TIn, typename TOut, int V>
-__global__ void __launch_bounds__(kLnMaxWarps * 32)
+__global__ void __launch_bounds__(kRowMaxWarps * 32)
 layernorm_any_width_kernel(const TIn* __restrict__ x, const float* __restrict__ w,
                            const float* __restrict__ b, TOut* __restrict__ y,
                            int rows, int cols, float eps) {
@@ -145,25 +132,13 @@ layernorm_any_width_kernel(const TIn* __restrict__ x, const float* __restrict__ 
   }
 }
 
-// Warps a block for `rows_per_warp` rows a warp: 4, halved while the grid
-// would fall short of kLnTargetBlocks.
-inline int ln_warps(int rows, int rows_per_warp) {
-  int warps = kLnMaxWarps;
-  while (warps > 1 && (rows + rows_per_warp * warps - 1) / (rows_per_warp * warps) <
-                          kLnTargetBlocks)
-    warps /= 2;
-  return warps;
-}
-
 template <typename TIn, typename TOut, int kCols>
 cudaError_t launch_layernorm_width(const void* x, const float* w, const float* b,
                                    void* y, int rows, float eps, cudaStream_t stream) {
-  constexpr int rows_per_warp = 32 / LnShape<TIn, kCols>::kLanes;
-  const int warps = ln_warps(rows, rows_per_warp);
-  const int per_block = rows_per_warp * warps;
-  layernorm_kernel<TIn, TOut, kCols><<<(rows + per_block - 1) / per_block, warps * 32, 0,
-                                       stream>>>(static_cast<const TIn*>(x), w, b,
-                                                 static_cast<TOut*>(y), rows, eps);
+  dim3 grid, block;
+  row_launch(rows, RowShape<TIn, kCols>::kLanes, grid, block);
+  layernorm_kernel<TIn, TOut, kCols><<<grid, block, 0, stream>>>(
+      static_cast<const TIn*>(x), w, b, static_cast<TOut*>(y), rows, eps);
   return cudaGetLastError();
 }
 
@@ -180,15 +155,15 @@ cudaError_t launch_layernorm(const void* x, const float* w, const float* b,
     case 1664: return launch_layernorm_width<TIn, TOut, 1664>(x, w, b, y, rows, eps, stream);
     default: break;
   }
-  const int warps = ln_warps(rows, 1);
-  const dim3 grid((rows + warps - 1) / warps);
+  dim3 grid, block;
+  row_launch(rows, 32, grid, block);
   const TIn* xt = static_cast<const TIn*>(x);
   TOut* yt = static_cast<TOut*>(y);
   if (cols % kVec16<TIn> == 0)
-    layernorm_any_width_kernel<TIn, TOut, kVec16<TIn>><<<grid, warps * 32, 0, stream>>>(
+    layernorm_any_width_kernel<TIn, TOut, kVec16<TIn>><<<grid, block, 0, stream>>>(
         xt, w, b, yt, rows, cols, eps);
   else
-    layernorm_any_width_kernel<TIn, TOut, 1><<<grid, warps * 32, 0, stream>>>(
+    layernorm_any_width_kernel<TIn, TOut, 1><<<grid, block, 0, stream>>>(
         xt, w, b, yt, rows, cols, eps);
   return cudaGetLastError();
 }

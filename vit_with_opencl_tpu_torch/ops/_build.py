@@ -19,6 +19,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -183,6 +184,48 @@ def build() -> Path:
     finally:
         shutil.rmtree(work, ignore_errors=True)
     return lib_path
+
+
+def resource_usage(source: str) -> list[dict]:
+    """Each kernel of ``csrc/<source>`` as ptxas compiles it with the build's
+    flags (``nvcc -Xptxas -v``): its name (demangled where the toolkit's
+    ``cu++filt`` is found), registers a thread, and bytes of spill stores
+    and loads. Needs ``nvcc``; builds nothing that ``library()`` loads."""
+    nvcc = find_nvcc()
+    if nvcc is None:
+        raise RuntimeError("nvcc not found: ptxas reports need the CUDA toolkit")
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    obj = BUILD_DIR / f"resource_usage_{os.getpid()}.o"
+    try:
+        proc = subprocess.run([nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-c",
+                               str(CSRC_DIR / source), "-o", str(obj)],
+                              capture_output=True, text=True)
+    finally:
+        obj.unlink(missing_ok=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {source}:\n{proc.stderr}")
+    kernels: list[dict] = []
+    for line in proc.stderr.splitlines():
+        found = re.search(r"Compiling entry function '(\S+)'", line)
+        if found:
+            kernels.append({"name": found.group(1), "registers": None,
+                            "spill_stores": None, "spill_loads": None})
+            continue
+        found = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if found and kernels:
+            kernels[-1]["spill_stores"] = int(found.group(1))
+            kernels[-1]["spill_loads"] = int(found.group(2))
+        found = re.search(r"Used (\d+) registers", line)
+        if found and kernels:
+            kernels[-1]["registers"] = int(found.group(1))
+    filt = Path(nvcc).with_name("cu++filt")
+    if filt.is_file() and kernels:
+        names = subprocess.run([str(filt)], input="\n".join(k["name"] for k in kernels),
+                               capture_output=True, text=True).stdout.splitlines()
+        if len(names) == len(kernels):
+            for k, name in zip(kernels, names):
+                k["name"] = name
+    return kernels
 
 
 def library() -> ctypes.CDLL:
