@@ -39,13 +39,19 @@ of its two runs. The figures (ms):
 * rows 2 and 5d (``layer_norm`` at ViT-B/16's D): LN1 (bf16 in) and LN2
   (fp32 in), with bf16 out (row 2) and fp32 out (row 5d), at B = 16 and
   256; row 14c (``column_sum``) on ViT-B/16's fp32 dqkv [M, 3D], bf16 dOut
-  [M, D] and the LN backward's fp32 partial rows [ceil(M / 64), D] at B =
-  16 and 64;
+  [M, D] and the LN backward's fp32 partial rows at B = 16 and 64 (as many
+  as the tree's ``layernorm.bwd_partial_rows`` gives, ceil(M / 64) where the
+  tree lacks it);
+* row 14b (``layer_norm_bwd``) in its two chain forms, LN2 (fp32 x, + bf16
+  dOut, fp32 dx) and LN1 (bf16 x, + fp32 dx2, bf16 dx), at ViT-B/16's
+  B = 16 and 64 and ViT-L/16@384's B = 32 (host-bound calls: a figure the
+  best of 10 timings);
 * row 5a (``quantize_rows``) at its four ViT-B/16 sites (the fp32 LN1 and
   LN2 outputs [M, 768], the bf16 context [M, 768], the fp32 GELU'd hidden
   [M, 3072]) and row 6a (``quantize_rows_split``) at its three (LN1 and
   LN2 768 / 640, the hidden 3072 / 2944: the calibrated chain's int8
-  widths), at B = 16 and 256;
+  widths), at B = 16 and 256; row 6b (``quantize_rows_masked``) on ViT-B/16's
+  bf16 context (12 heads of 64, tails of 8) at B = 16 and 256;
 * the ViT-B/16 bf16 forward at B = 64 and 256; W8A8, int8 weights and
   calibrated W8A8 at 256; the ViT-Ti and ViT-S stacks at 16 and 256;
 * the ViT-B/16 ``fused`` AdamW step at B = 64 and ViT-L/16@384's at 32;
@@ -73,6 +79,8 @@ Gates (slower only, so a later tree that is faster passes): W8A8, int8
 weights and calibrated W8A8 at B = 256 at most 3% slower than the parent's;
 rows 5b and 6c at each of their shapes at B = 256 at most 3% slower;
 rows 5a and 6a at each of their sites at B = 256 at most 3% slower;
+row 14b in both forms at ViT-B/16 B = 64 and ViT-L/16@384 B = 32 and row
+6b at B = 256 at most 3% slower;
 row 4 at ViT-B/16 B = 256, row 11 at each of its shapes and the ViT-B/16
 bf16 forward at B = 256 at most 3% slower (row 4 shares its kernel body
 with row 8, row 11 its design with row 12); the ViT-B/16 ``fused`` AdamW
@@ -113,7 +121,14 @@ QUANT_SITES = (("5a", "LN1", 768, None, torch.float32, 1.0),
                ("6a", "LN2", 768, 640, torch.float32, 1.0),
                ("6a", "GELU'd hidden", 3072, 2944, torch.float32, 0.5))
 COLSUM_BATCHES = (16, 64)  # row 14c: phase 2e's and 4b's training batches
-LN_BWD_ROWS_PER_BLOCK = 64  # the LN backward's partial row a block
+# The LN backward's rows a partial row where a tree has no bwd_partial_rows.
+LN_BWD_ROWS_PER_BLOCK = 64
+# (name, width, tokens, batch) of row 14b's figures; the gate takes the
+# larger batch of each config.
+LN_BWD_SHAPES = (("ViT-B/16", 768, 197, 16), ("ViT-B/16", 768, 197, 64),
+                 ("ViT-L/16@384", 1024, 577, 32))
+LN_BWD_GATED = ("ViT-B/16 B=64", "ViT-L/16@384 B=32")
+MASKED_BATCHES = (16, 256)  # row 6b at ViT-B/16's context
 # (name, width, hidden width, tokens, batch) of row 14a's figures.
 GRAD_SHAPES = (("ViT-B/16", 768, 3072, 197, 16), ("ViT-B/16", 768, 3072, 197, 64),
                ("ViT-L/16@384", 1024, 4096, 577, 8))
@@ -142,7 +157,7 @@ TRAIN_LR = 1e-3
 TRAIN_BATCH = 64  # ViT-B/16
 LARGE_TRAIN_BATCH = 32  # ViT-L/16@384
 REPS = 10
-WINDOWS = 10  # the stacks: best of this many timings
+WINDOWS = 10  # the host-bound figures (stacks, row 14b): best of this many timings
 SWAP_WINDOWS = 3  # the library swaps: best of this many timings
 PROCESS_TIMEOUT = 900
 
@@ -269,10 +284,11 @@ def w8a8_figures(pkg, dev) -> dict:
 
 def reduction_figures(pkg, dev) -> dict:
     """Rows 2 and 5d (``layer_norm``: LN1 on bf16 x, LN2 on the fp32
-    stream, each with bf16 and fp32 out) at LN_BATCHES, and row 14c
+    stream, each with bf16 and fp32 out) at LN_BATCHES, row 14c
     (``column_sum`` on the fp32 dqkv, the bf16 dOut and the LN backward's
-    fp32 partial rows) at COLSUM_BATCHES, at ViT-B/16's widths on seeded
-    inputs (chip_smoke.py phases 2, 2b and 2e)."""
+    fp32 partial rows) at COLSUM_BATCHES, at ViT-B/16's widths, and row 14b
+    (``layer_norm_bwd``, LN2 and LN1) at LN_BWD_SHAPES, on seeded inputs
+    (chip_smoke.py phases 2, 2b, 2e and 2f)."""
     layernorm, cfg = pkg["layernorm"], pkg["VIT_B_16_224"]
     gen = torch.Generator(device=dev).manual_seed(15)
     bf, f32 = torch.bfloat16, torch.float32
@@ -289,17 +305,35 @@ def reduction_figures(pkg, dev) -> dict:
                     lambda: layernorm.layer_norm(x, w, b, cfg.eps, out_dtype=out_dtype))
     for batch in COLSUM_BATCHES:
         m = batch * t
+        partial_rows = (layernorm.bwd_partial_rows(m, d)
+                        if hasattr(layernorm, "bwd_partial_rows")
+                        else -(-m // LN_BWD_ROWS_PER_BLOCK))
         for name, shape, dtype in (
                 ("dqkv (fp32)", (m, 3 * d), f32), ("dOut (bf16)", (m, d), bf),
-                ("LN partial rows (fp32)", (-(-m // LN_BWD_ROWS_PER_BLOCK), d), f32)):
+                ("LN partial rows (fp32)", (partial_rows, d), f32)):
             x = torch.randn(shape, generator=gen, device=dev).to(dtype)
             out[f"row 14c column_sum {name} ViT-B/16 B={batch}"] = time_ms(
                 lambda: layernorm.column_sum(x))
+    for cfg_name, d, t, batch in LN_BWD_SHAPES:
+        m = batch * t
+        w = torch.randn(d, generator=gen, device=dev) * 0.02 + 1.0
+        dy = torch.randn((m, d), generator=gen, device=dev) * 0.01
+        for name, x_dtype, g_dtype, out_dtype in (("LN2", f32, bf, f32),
+                                                  ("LN1", bf, f32, bf)):
+            x = torch.randn((m, d), generator=gen, device=dev).to(x_dtype)
+            g = (torch.randn((m, d), generator=gen, device=dev) * 0.01).to(g_dtype)
+            # The call is host-bound (its wrapper and two column sums'):
+            # the best of WINDOWS timings, as the host-bound stacks.
+            out[f"row 14b layer_norm_bwd {name} {cfg_name} B={batch}"] = min(
+                time_ms(lambda: layernorm.layer_norm_bwd(x, dy, w, cfg.eps, residual=g,
+                                                         out_dtype=out_dtype))
+                for _ in range(WINDOWS))
     return out
 
 
 def quantize_figures(pkg, dev) -> dict:
-    """Rows 5a and 6a at QUANT_SITES and QUANT_BATCHES on seeded inputs."""
+    """Rows 5a and 6a at QUANT_SITES and QUANT_BATCHES, and row 6b at
+    MASKED_BATCHES, on seeded inputs."""
     quantize, cfg = pkg["quantize"], pkg["VIT_B_16_224"]
     gen = torch.Generator(device=dev).manual_seed(17)
     out = {}
@@ -312,6 +346,13 @@ def quantize_figures(pkg, dev) -> dict:
             else:
                 fn = lambda x=x, mq=mq: quantize.quantize_rows_split(x, mq, torch.bfloat16)
             out[f"row {row} quantize {site} ViT-B/16 B={batch}"] = time_ms(fn)
+    nh, hd, kh = cfg.num_heads, cfg.head_dim, max(2, cfg.head_dim // 8)
+    for batch in MASKED_BATCHES:
+        ctx = torch.randn((batch * cfg.num_tokens, nh * hd), generator=gen, device=dev)
+        ctx[:, hd - 1::hd] *= 30.0  # outlier channels in the tails
+        ctx = ctx.to(torch.bfloat16)
+        out[f"row 6b quantize context ViT-B/16 B={batch}"] = time_ms(
+            lambda: quantize.quantize_rows_masked(ctx, nh, hd, kh))
     return out
 
 
@@ -636,8 +677,9 @@ def main(argv: list[str]) -> int:
               f"(at most {STEADY_PATHS_TOL:.0%} slower; within {STEADY_PATHS_TOL:.0%} "
               f"either way: {abs(ratio - 1) <= STEADY_PATHS_TOL})", flush=True)
     for key in (k for k in after
-                if k.startswith(("row 5b ", "row 6c ", "row 5a ", "row 6a "))
-                and k.endswith(f"B={GEMM_BATCHES[-1]}")):
+                if (k.startswith(("row 5b ", "row 6c ", "row 5a ", "row 6a ", "row 6b "))
+                    and k.endswith(f"B={GEMM_BATCHES[-1]}"))
+                or (k.startswith("row 14b ") and k.endswith(LN_BWD_GATED))):
         ratio = after[key] / before[key]
         gates[key] = ratio <= 1 + STEADY_PATHS_TOL
         print(f"{'ok  ' if gates[key] else 'FAIL'} {key}: this / parent {ratio:.4f} "

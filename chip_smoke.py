@@ -31,7 +31,8 @@ line.
    intermediates of layer 0 of calibrated adversarial ViT-B weights (the
    phase-3c workspace's): the split quantize at LN1, LN2 and the GELU'd
    hidden and the masked quantize at the context (bit-identical to their
-   plain versions), the four W8A8 GEMMs with their bf16 side products, and
+   plain versions; the masked one also at B = 256 on a seeded context), the
+   four W8A8 GEMMs with their bf16 side products, and
    the outlier chain. Yardsticks: ``torch._int_mm`` on the K-major weights
    plus ``torch.mm`` on the bf16 side, with the epilogue as PyTorch ops
    (printed beside it: the same on the row-major weights); none for the
@@ -83,23 +84,28 @@ line.
    alone), the GEMM forms at the four ViT-B shapes (dgrad, fc2's with the
    GELU gradient, wgrad into fp32, the fc1 recompute's two outputs;
    yardstick ``torch.mm``/``addmm`` with the epilogue as ops), the LN
-   backward at LN2 and LN1 (autograd of ``F.layer_norm``), the column sum,
-   the three stages and ``fused_encoder_layer_bwd``. fp32 outputs are held
-   to a share of their own largest magnitude. The column sum also on LN2's
-   partial dw rows (one a block of 64 tokens), as the LN backward hands them
-   on.
+   backward at LN2 and LN1 (autograd of ``F.layer_norm``; each also twice
+   for the same bits), the column sum, the three stages and
+   ``fused_encoder_layer_bwd``. fp32 outputs are held to a share of their
+   own largest magnitude. The column sum also on LN2's partial dw rows (one
+   a run of ``layernorm.bwd_partial_rows``' even split of the tokens), as
+   the LN backward hands them on.
 2k. The LN kernel's forms at the stacks' and ViT-L's widths (D = 192 and
    384 at B = 16 and 256, D = 1024 at ViT-L/16@384's B = 8 and 32) on the
    fp32 stream, bf16 and fp32 out, against its plain version (yardstick
    ``F.layer_norm``); the quantizes' forms (rows 5a and 6a) at the same
    configs' D and MLP widths and at ViT-H/14's and ViT-G/14's (B = 8), fp32
-   and bf16 in, bit-identical to their plain versions (no yardstick), and
-   the registers and spills of each form of ``csrc/quantize.cu`` (``nvcc
-   -Xptxas -v``); then rows 2, 5d, 14c, 5a and 6a at ViT-B B = 16 traced
+   and bf16 in, and the masked quantize (row 6b) at those configs' contexts
+   (their heads, the default tail), bit-identical to their plain versions
+   (no yardstick); the LN backward's forms (row 14b, LN2 and LN1) at ViT-Ti's,
+   ViT-S's, ViT-H's and ViT-G's widths against its plain version and twice
+   for the same bits; the registers and spills of each form of
+   ``csrc/quantize.cu`` and ``csrc/layernorm.cu`` (``nvcc -Xptxas -v``);
+   then rows 2, 5d, 14b, 14c, 5a, 6a and 6b at ViT-B B = 16 traced
    alone with ``perf.device_kernel_table``: device time a call beside the
    same trace of ``F.layer_norm`` and ``x.float().sum(0)`` (none for the
-   quantizes), and the trace's launches of the port's kernels against the
-   calls.
+   quantizes and the LN backward), and the trace's launches of the port's
+   kernels against the calls.
 5. The training main path: ``Trainer(VIT_B_16_224, device="cuda",
    compute_dtype=bf16, optimizer="adamw")`` from seeded ``init_params``,
    8 steps at batch 32 on a memorised seeded batch, in each route
@@ -129,8 +135,11 @@ line.
    (the ``fused`` chain's shape; SDPA beside it); the H-chunked MLP
    backward's light and wgrad stages at ViT-L width (B = 8 and 32) and
    ViT-H width (B = 8) against their plain versions, the pair equal to the
-   mono stage on the card; and
-   ``fused_encoder_layer_bwd`` at ViT-L width with its stage launch counts.
+   mono stage on the card;
+   ``fused_encoder_layer_bwd`` at ViT-L width with its stage launch counts;
+   and the LN backward (LN2 and LN1) at ViT-L's width, B = 8 and 32, on
+   seeded inputs (autograd of ``F.layer_norm`` beside it; twice for the same
+   bits).
 5b. The ViT-L/16@384 training main path: ``Trainer(VIT_L_16_384,
    compute_dtype=bf16, optimizer="adamw", attention_impl="fused")``, full
    depth (24) and widths, 8 steps at batch 16 on a memorised seeded batch:
@@ -160,7 +169,9 @@ line.
    loss falls, and the launch counts (``flash``: the blockwise forward with
    its LSE and the blockwise backward, 24 a step; ``fused``: the blockwise
    forward 72 a step); one step of each route from phase 3e's random
-   params against the plain links at batch 4.
+   params against the plain links at batch 4, the ``fused`` one (through
+   the LN backward) on batches of three seeds, each error printed beside
+   ``step_noise.py``'s noise floor.
 4d. ViT-L/16@512 training throughput at batch 16: ms per AdamW step, img/s
    and peak memory of ``fused`` and ``flash``, and the split of a ``fused``
    step.
@@ -352,6 +363,10 @@ STACK_W8A8_TOL = (1.6e-2, 6e-2)
 MIN_SAME_STACK_W8A8 = 0.15
 REDUCED_DEPTH = 4  # the W8A8 stack and the group in phase 2d
 
+# _attn_bwd_kernel, whose links (LN1's backward among them) the attention
+# stage's rows replace.
+ATTN_BWD_STAGE = "vit_with_opencl_tpu/ops/fused_block.py:875"
+
 # Phases 2e, 4b and 5: training. The backward's fp32 outputs (gradients,
 # dx2, x2, hid_pre) are long sums that the kernels take in another order than
 # the plain versions' library calls: each is held to GRAD_REL of its largest
@@ -421,8 +436,14 @@ LONG_IMAGES = 32  # phase 3e
 LONG_POOL = 48
 LONG_TRAIN_BATCH = 8  # phase 5c
 # Phase 5c's step against the plain links, whose attention holds [B, H, T,
-# T] fp32 scores.
+# T] fp32 scores. The fused step runs through the LN backward's summation
+# order and sits near its noise floor: it is checked on a batch of each of
+# LONG_STEP_SEEDS, each error printed beside the floor that step_noise.py
+# measured (the plain links with each key tile's sums reversed, on an H100
+# 80GB HBM3 at 700 W).
 LONG_STEP_BATCH = 4
+LONG_STEP_SEEDS = (3, 4, 5)
+STEP_NOISE_5C = 5.75e-4
 # Phase 2g's rows: (config or its name, T, heads, head dim, batch). ViT-H/14
 # at 518 (its SWAG E2E resolution: 37^2 + 1 tokens), JAX's own odd tail
 # (tests/test_kernels.py: SINGLE_PASS_MAX_T + 313) and the widest head dim
@@ -860,6 +881,32 @@ def split_case(site: str, inp: torch.Tensor, mq: int) -> dict:
         ops={"fp32": 3 * rows * mq})
 
 
+def masked_case(site: str, ctx: torch.Tensor, nh: int, hd: int, kh: int) -> dict:
+    """Row 6b (``quantize_rows_masked``) on the bf16 context ``ctx``: codes,
+    scales and the nh x kh tails bit-identical to its plain version. Bound:
+    the context read once, its codes, tails and scales written once."""
+    rows, d = ctx.numel() // ctx.shape[-1], ctx.shape[-1]
+    return dict(
+        name=f"quantize_rows_masked {site} (bf16 in, {nh} x {kh} tails out)",
+        counter="quantize_masked", tol=EXACT, min_same=1.0,
+        kernel=lambda: quantize.quantize_rows_masked(ctx, nh, hd, kh),
+        plain=lambda: quantize.quantize_rows_masked_reference(ctx, nh, hd, kh),
+        library=None, bytes=rows * (d * 3 + nh * kh * 2 + 4), ops={"fp32": 3 * rows * d})
+
+
+def seeded_context(cfg, batch: int, gen: torch.Generator, dev) -> torch.Tensor:
+    """A bf16 attention context [batch, T, D] at unit scale whose heads'
+    last columns are 30x (outlier channels in the tails, as calibrated)."""
+    ctx = torch.randn((batch, cfg.num_tokens, cfg.embed_dim), generator=gen, device=dev)
+    ctx[..., cfg.head_dim - 1::cfg.head_dim] *= 30.0
+    return ctx.to(torch.bfloat16)
+
+
+def default_kh(cfg) -> int:
+    """The calibrated planner's default tail a head (models/quant.py)."""
+    return max(2, cfg.head_dim // 8)
+
+
 def kernel_rows(batch: int, dev, seed: int = 0, cfg=CFG) -> list[dict]:
     """Every kernel of the bf16 chain on the chain's own intermediates at
     ``batch`` images: error against the plain version, times, bound."""
@@ -1153,12 +1200,7 @@ def outlier_kernel_rows(batch: int, dev, params: dict, seed: int = 0) -> list[di
     weight_bytes = int8_w + 2 * bf16_w + (5 * d + h) * 4 + (9 * d + h) * 4
     cases = [
         split_case("LN1 out", a1, lp["qkv_w"]["q"].shape[0]),
-        dict(name=f"quantize_rows_masked context (bf16 in, {nh} x {kh} tails out)",
-             counter="quantize_masked", tol=EXACT, min_same=1.0,
-             kernel=lambda: quantize.quantize_rows_masked(ctx, nh, hd, kh),
-             plain=lambda: quantize.quantize_rows_masked_reference(ctx, nh, hd, kh),
-             library=None, bytes=m * d * 3 + m * nh * kh * 2 + 4 * m,
-             ops={"fp32": 3 * m * d}),
+        masked_case("context", ctx, nh, hd, kh),
         split_case("LN2 out", a2, lp["fc1_w"]["q"].shape[0]),
         split_case("GELU'd hidden", hid, lp["fc2_w"]["q"].shape[0]),
         side_case("fused_linear_w8a8 + bf16 side qkv (+bias, bf16 out)", "qkv",
@@ -1180,6 +1222,19 @@ def outlier_kernel_rows(batch: int, dev, params: dict, seed: int = 0) -> list[di
                   "bf16": 2 * m * bf16_w + 4 * batch * CFG.num_tokens ** 2 * d}),
     ]
     return run_cases(cases, batch)
+
+
+# Phase 2c: row 6b again at B = 256 on a seeded context (ViT-B's heads, the
+# calibrated plan's default tail).
+MASKED_BATCH = 256
+
+
+def masked_kernel_rows(dev) -> list[dict]:
+    """Phase 2c: row 6b at MASKED_BATCH on a seeded ViT-B context."""
+    gen = torch.Generator(device=dev).manual_seed(MASKED_BATCH)
+    ctx = seeded_context(CFG, MASKED_BATCH, gen, dev)
+    return run_cases([masked_case("seeded context", ctx, CFG.num_heads, CFG.head_dim,
+                                  default_kh(CFG))], MASKED_BATCH)
 
 
 @functools.lru_cache(maxsize=None)
@@ -1400,6 +1455,62 @@ def ln_autograd(x, dy, w, b, eps):
     return lambda: torch.autograd.grad(y, (xs, ws, bs), dy, retain_graph=True)
 
 
+def ln_bwd_case(name, xin, dy, w, b, eps, residual, out_dtype, library=True,
+                replaces=None) -> dict:
+    """Row 14b (``layer_norm_bwd``: dx + residual, dw, db) against its plain
+    version; yardstick the autograd of ``F.layer_norm`` (outside inference
+    mode). Bound: x, dy and the residual read, dx written once."""
+    m, d = xin.numel() // xin.shape[-1], xin.shape[-1]
+    out_b = 2 if out_dtype == torch.bfloat16 else 4
+    print(f"  {name}: {layernorm.bwd_partial_rows(m, d)} partial rows of dw and db "
+          f"for [{m}, {d}]", flush=True)
+    return _grad_case(
+        name, "layernorm_bwd",
+        lambda: layernorm.layer_norm_bwd(xin, dy, w, eps, residual=residual,
+                                         out_dtype=out_dtype),
+        lambda: layernorm.layer_norm_bwd_reference(xin, dy, w, eps, residual=residual,
+                                                   out_dtype=out_dtype),
+        library=ln_autograd(xin, dy, w, b, eps) if library else None,
+        bytes=m * d * (xin.element_size() + 4 + residual.element_size() + out_b)
+        + 3 * d * 4,
+        ops={"fp32": 16 * m * d}, replaces=replaces)
+
+
+def ln_bwd_same_bits(tag: str, xin, dy, w, eps, residual, out_dtype) -> None:
+    """Two calls of ``layer_norm_bwd`` on the same inputs give the same
+    bits: dx, dw and db (every sum in an order fixed by the shape)."""
+    first = layernorm.layer_norm_bwd(xin, dy, w, eps, residual=residual,
+                                     out_dtype=out_dtype)
+    again = layernorm.layer_norm_bwd(xin, dy, w, eps, residual=residual,
+                                     out_dtype=out_dtype)
+    check(all(torch.equal(a, b) for a, b in zip(first, again)),
+          f"{tag} layer_norm_bwd (dx, dw, db) bit-identical over two calls")
+
+
+def ln_bwd_rows(cfg, batch: int, dev, library: bool = True) -> list[dict]:
+    """Row 14b at ``cfg``'s width and ``batch`` images on seeded inputs in
+    the two chain forms: LN2 (the fp32 stream x2, dy from fc1's dgrad, the
+    bf16 dOut added, fp32 dx2) and LN1 (bf16 x, dy from qkv's dgrad, the
+    fp32 dx2 added, bf16 dx); each also twice for the same bits."""
+    gen = torch.Generator(device=dev).manual_seed(batch + cfg.embed_dim)
+    shape, f32, bf = (batch, cfg.num_tokens, cfg.embed_dim), torch.float32, torch.bfloat16
+    w = torch.randn(cfg.embed_dim, generator=gen, device=dev) * 0.02 + 1.0
+    b = torch.randn(cfg.embed_dim, generator=gen, device=dev) * 0.02
+    x2 = torch.randn(shape, generator=gen, device=dev)
+    x = (torch.randn(shape, generator=gen, device=dev) * 0.5).to(bf)
+    dh = torch.randn(shape, generator=gen, device=dev) * 0.01
+    dout = (torch.randn(shape, generator=gen, device=dev) * 0.01).to(bf)
+    dx2 = torch.randn(shape, generator=gen, device=dev) * 0.01
+    tag = f"{cfg.name} B={batch}"
+    cases = [ln_bwd_case(f"{tag} layer_norm_bwd LN2 (fp32 x2, + dOut, fp32 dx2)", x2, dh,
+                         w, b, cfg.eps, dout, f32, library),
+             ln_bwd_case(f"{tag} layer_norm_bwd LN1 (bf16 x, + dx2, bf16 dx)", x, dh, w,
+                         b, cfg.eps, dx2, bf, library, replaces=ATTN_BWD_STAGE)]
+    ln_bwd_same_bits(f"{tag} LN2", x2, dh, w, cfg.eps, dout, f32)
+    ln_bwd_same_bits(f"{tag} LN1", x, dh, w, cfg.eps, dx2, bf)
+    return run_cases(cases, batch)
+
+
 def _scaled_tol(ref, rel=GRAD_REL) -> tuple:
     """(rtol, atol) for an fp32 output: rel of its largest magnitude."""
     return (0.0, rel * max(float(ref.float().abs().max()), 1e-30))
@@ -1471,7 +1582,7 @@ def train_kernel_rows(batch: int, dev, seed: int = 0, cfg=CFG) -> list[dict]:
     dqkv_c = dqkv.to(bf)
     dh1 = linear.linear_dgrad_reference(dqkv_c, wb["qkv_w"])
     attn_case = functools.partial(attn_bwd_case, qkvc, dctx, nh, hd)
-    attn_stage = "vit_with_opencl_tpu/ops/fused_block.py:875"
+    attn_stage = ATTN_BWD_STAGE
 
     def dgrad_case(name, dy, wkey, out_dtype, gelu=False):
         n, k = wb[wkey].shape[1], wb[wkey].shape[0]
@@ -1504,21 +1615,6 @@ def train_kernel_rows(batch: int, dev, seed: int = 0, cfg=CFG) -> list[dict]:
             bytes=m * (k + n) * 2 + k * n * 4, ops={"bf16": 2 * m * n * k},
             replaces=attn_stage if xin is h1c or xin is ctx else None)
 
-    def ln_bwd_case(name, xin, dy, wkey, bkey, residual, out_dtype):
-        out_b = 2 if out_dtype == bf else 4
-        return _grad_case(
-            name, "layernorm_bwd",
-            lambda: layernorm.layer_norm_bwd(xin, dy, lp[wkey], eps,
-                                             residual=residual,
-                                             out_dtype=out_dtype),
-            lambda: layernorm.layer_norm_bwd_reference(xin, dy, lp[wkey], eps,
-                                                       residual=residual,
-                                                       out_dtype=out_dtype),
-            library=ln_autograd(xin, dy, lp[wkey], lp[bkey], eps),
-            bytes=m * d * (xin.element_size() + 4 + residual.element_size()
-                           + out_b) + 3 * d * 4,
-            ops={"fp32": 16 * m * d}, replaces=attn_stage if xin is x else None)
-
     def colsum_case(name, xin):
         c = xin.shape[-1]
         rows = xin.numel() // c
@@ -1529,16 +1625,17 @@ def train_kernel_rows(batch: int, dev, seed: int = 0, cfg=CFG) -> list[dict]:
             bytes=rows * c * xin.element_size() + c * 4, ops={"fp32": rows * c},
             replaces=attn_stage if xin is dqkv else None)
 
-    # The LN backward's partial rows (one a block of BWD_ROWS_PER_BLOCK
-    # tokens), which column_sum finishes into dw and db: LN2's dw partials.
+    # The LN backward's partial rows (bwd_partial_rows: the tokens split
+    # evenly into that many runs, a row each), which column_sum finishes into
+    # dw and db: LN2's dw partials.
     xhat2 = fused_block._ln_fwd_stats(x2.float(), lp["ln2_w"],
                                       torch.zeros_like(lp["ln2_w"]), eps)[0]
-    per_block = layernorm.BWD_ROWS_PER_BLOCK
-    blocks = -(-m // per_block)
-    ln_partial = torch.cat([
-        (dh2.float() * xhat2).reshape(m, d),
-        torch.zeros((blocks * per_block - m, d), device=dev)]).reshape(
-            blocks, per_block, d).sum(1)
+    dw_rows = (dh2.float() * xhat2).reshape(m, d)
+    n = layernorm.bwd_partial_rows(m, d)
+    ln_partial = torch.stack([dw_rows[i * m // n:(i + 1) * m // n].sum(0)
+                              for i in range(n)])
+    ln_bwd_same_bits(f"{cfg.name} B={batch} LN2", x2, dh2, lp["ln2_w"], eps, dout, f32)
+    ln_bwd_same_bits(f"{cfg.name} B={batch} LN1", x, dh1, lp["ln1_w"], eps, dx2, bf)
 
     wbytes_attn, wbytes_mlp, (stage_x2_ops, stage_mlp_ops, stage_attn_ops) = \
         stage_work(cfg, batch)
@@ -1566,9 +1663,9 @@ def train_kernel_rows(batch: int, dev, seed: int = 0, cfg=CFG) -> list[dict]:
                    bytes=m * d * 2 + d * h * 2 + h * 4 + m * h * 6,
                    ops={"bf16": 2 * m * d * h}),
         ln_bwd_case("layer_norm_bwd LN2 (fp32 x2, + dOut, fp32 dx2)", x2, dh2,
-                    "ln2_w", "ln2_b", dout, f32),
-        ln_bwd_case("layer_norm_bwd LN1 (bf16 x, + dx2, bf16 dx)", x, dh1, "ln1_w",
-                    "ln1_b", dx2, bf),
+                    lp["ln2_w"], lp["ln2_b"], eps, dout, f32),
+        ln_bwd_case("layer_norm_bwd LN1 (bf16 x, + dx2, bf16 dx)", x, dh1, lp["ln1_w"],
+                    lp["ln1_b"], eps, dx2, bf, replaces=attn_stage),
         colsum_case("column_sum dqkv (fp32)", dqkv),
         colsum_case("column_sum dOut (bf16)", dout),
         colsum_case(f"column_sum LN2 partial dw rows (fp32, "
@@ -1666,6 +1763,8 @@ def large_kernel_rows(dev) -> list[dict]:
         rows += got
     for cfg, batch, whole_layer in LARGE_MLP_ROWS:
         rows += chunked_mlp_rows(cfg, batch, dev, whole_layer)
+    for batch in (8, LARGE_THROUGHPUT_BATCH):
+        rows += ln_bwd_rows(LARGE_CFG, batch, dev)
     return rows
 
 
@@ -1927,12 +2026,13 @@ def start_params(cfg, seed: int, dev) -> dict:
 
 
 def one_step_vs_plain(tr: Trainer, route: str, images, labels, start: dict,
-                      cfg=CFG) -> None:
+                      cfg=CFG) -> float:
     """One AdamW step of the Trainer ``tr`` (built on ``route``) from
     ``start`` against the same step with its links swapped for their plain
     versions. ``tr`` restarts from a copy of ``start`` with a fresh AdamW
     state and step count before each (one Trainer serves both: building
-    another would only initialise weights that are replaced)."""
+    another would only initialise weights that are replaced). Returns the
+    losses' relative difference."""
     def step():
         tr.params = optim.tree_map(torch.clone, start)
         tr.opt_state = tr._init_opt(tr.params)
@@ -1970,6 +2070,7 @@ def one_step_vs_plain(tr: Trainer, route: str, images, labels, start: dict,
           f"<= {STEP_LOSS_REL}, mu {mu_err:.2e} <= {MU_REL}, updates "
           f"{sure_err:.2e} lr <= {UPDATE_ATOL} lr where the gradient is "
           f"resolved, {any_err:.3f} lr <= 2 lr anywhere)")
+    return loss_err
 
 
 def training_main_path(dev, tmp: Path) -> dict:
@@ -2083,8 +2184,8 @@ def long_training_main_path(dev, host_params: dict) -> dict:
     (the blockwise forward with its LSE and the blockwise backward in
     ``flash``; the blockwise forward in ``fused``'s chain and recomputes);
     one step of each route from ``host_params`` (phase 3e's random params)
-    against the plain links at LONG_STEP_BATCH. Returns the counts by
-    route."""
+    against the plain links at LONG_STEP_BATCH, the ``fused`` one on a
+    batch of each of LONG_STEP_SEEDS. Returns the counts by route."""
     cfg, batch = LONG_CFG, LONG_TRAIN_BATCH
     images, labels = train_batch(batch, seed=3, cfg=cfg)
     start = vit.stack_params(host_params, cfg, param_dtype=torch.float32, device=dev)
@@ -2093,8 +2194,15 @@ def long_training_main_path(dev, host_params: dict) -> dict:
         counts[route], tr = fit_and_count(cfg, route, batch,
                                           LONG_TRAIN_PER_LAYER[route], dev, images,
                                           labels)
-        one_step_vs_plain(tr, route, images[:LONG_STEP_BATCH],
-                          labels[:LONG_STEP_BATCH], start, cfg)
+        if route == "flash":
+            one_step_vs_plain(tr, route, images[:LONG_STEP_BATCH],
+                              labels[:LONG_STEP_BATCH], start, cfg)
+        for seed in LONG_STEP_SEEDS if route == "fused" else ():
+            err = one_step_vs_plain(tr, route, *train_batch(LONG_STEP_BATCH, seed, cfg),
+                                    start, cfg)
+            print(f"  {cfg.name} fused, batch seed {seed}: loss rel err {err:.3e}, "
+                  f"{err / STEP_NOISE_5C:.2f}x the plain links' reordering noise "
+                  f"{STEP_NOISE_5C:.2e} (step_noise.py), gate {STEP_LOSS_REL}", flush=True)
         del tr
         torch.cuda.empty_cache()
     return counts
@@ -2293,6 +2401,34 @@ def quantize_width_rows(dev) -> list[dict]:
     return rows
 
 
+def ln_bwd_width_rows(dev) -> list[dict]:
+    """Phase 2k: row 14b's forms at the stacks' widths (ViT-Ti and ViT-S at
+    B = 16 and 256) and at ViT-H/14's and ViT-G/14's (QUANT_WIDE_BATCH)
+    against the plain version, LN2 and LN1, and the same bits over two
+    calls (ViT-L's width: phase 2f)."""
+    rows = []
+    for cfg, batch in LN_WIDTH_ROWS + ((VIT_H_14_224, QUANT_WIDE_BATCH),
+                                       (VIT_G_14_224, QUANT_WIDE_BATCH)):
+        if cfg is not LARGE_CFG:
+            rows += ln_bwd_rows(cfg, batch, dev, library=False)
+    return rows
+
+
+def masked_width_rows(dev) -> list[dict]:
+    """Phase 2k: row 6b's forms at the ViT-Ti, S, L, H and G contexts (each
+    config's heads and default tail), bit for bit against the plain
+    version."""
+    rows = []
+    for cfg, batch in LN_WIDTH_ROWS + ((VIT_H_14_224, QUANT_WIDE_BATCH),
+                                       (VIT_G_14_224, QUANT_WIDE_BATCH)):
+        gen = torch.Generator(device=dev).manual_seed(batch + cfg.embed_dim)
+        case = masked_case(f"K={cfg.embed_dim} hd={cfg.head_dim}",
+                           seeded_context(cfg, batch, gen, dev), cfg.num_heads,
+                           cfg.head_dim, default_kh(cfg))
+        rows += run_cases([case], batch, f"{cfg.name} ")
+    return rows
+
+
 def print_resource_usage(source: str) -> None:
     """Phase 2k: each kernel of ``csrc/<source>``'s registers a thread and
     spills, as ptxas reports them for the build's flags."""
@@ -2304,12 +2440,15 @@ def print_resource_usage(source: str) -> None:
 
 def reduction_device_times(dev) -> None:
     """Phase 2k: the device time of one call of each LN form (rows 2 and
-    5d), of ``column_sum`` (row 14c) and of the quantizes at the GELU'd
-    hidden (rows 5a and 6a) at ViT-B/16 B = 16, from a
+    5d), of the LN backward at LN2 and LN1 (row 14b: its row kernel and the
+    two column sums of its partial rows), of ``column_sum`` (row 14c), of
+    the quantizes at the GELU'd hidden (rows 5a and 6a) and of the masked
+    quantize at the context (row 6b) at ViT-B/16 B = 16, from a
     ``perf.device_kernel_table`` trace of the call alone (DEVICE_TIME_ITERS
     calls), beside the same trace of its library call where one computes
-    the function (``F.layer_norm``, ``x.float().sum(0)``; none quantizes)
-    and the calls' CUDA-event times. Checks that the traced kernels are the
+    the function (``F.layer_norm``, ``x.float().sum(0)``; none quantizes,
+    and the LN backward's is autograd, which inference mode refuses) and
+    the calls' CUDA-event times. Checks that the traced kernels are the
     port's and launched as often as the calls say."""
     gen = torch.Generator(device=dev).manual_seed(15)
     bf, f32 = torch.bfloat16, torch.float32
@@ -2324,30 +2463,46 @@ def reduction_device_times(dev) -> None:
                                      ("row 5d LN2 (fp32 in, fp32 out)", f32, f32)):
         x = (torch.randn((m, d), generator=gen, device=dev) * 0.5).to(x_dtype)
         wl, bl = (w.to(bf), b.to(bf)) if x_dtype == bf else (w, b)
-        cases.append((name, x, "layernorm_kernel<", 1,
+        cases.append((name, x, "layernorm_kernel<", 1, 0,
                       functools.partial(layernorm.layer_norm, x, w, b, eps,
                                         out_dtype=out_dtype),
                       functools.partial(F.layer_norm, x, (d,), wl, bl, eps)))
     for name, shape, dtype in (("row 14c dqkv (fp32)", (m, 3 * d), f32),
                                ("row 14c dOut (bf16)", (m, d), bf),
                                ("row 14c LN partial rows (fp32)",
-                                (-(-m // layernorm.BWD_ROWS_PER_BLOCK), d), f32)):
+                                (layernorm.bwd_partial_rows(m, d), d), f32)):
         x = torch.randn(shape, generator=gen, device=dev).to(dtype)
         per_chunk = layernorm.column_sum_rows_per_chunk(shape[0], shape[1],
                                                         x.element_size())
         cases.append((f"{name} [{shape[0]}, {shape[1]}]", x, "column_sum_kernel<",
-                      1 if per_chunk >= shape[0] else 2,
+                      1 if per_chunk >= shape[0] else 2, 0,
                       functools.partial(layernorm.column_sum, x),
                       lambda x=x: x.float().sum(0)))
     k, mq = CFG.hidden_dim, CFG.hidden_dim - QUANT_TAIL
     hid = torch.randn((m, k), generator=gen, device=dev)
-    cases += [("row 5a GELU'd hidden (fp32 in)", hid, "quantize_rows_kernel<", 1,
+    cases += [("row 5a GELU'd hidden (fp32 in)", hid, "quantize_rows_kernel<", 1, 0,
                functools.partial(quantize.quantize_rows, hid), None),
               (f"row 6a GELU'd hidden (fp32 in, int8 [{mq}] + bf16 [{k - mq}] out)", hid,
-               "quantize_rows_split_kernel<", 1,
+               "quantize_rows_split_kernel<", 1, 0,
                functools.partial(quantize.quantize_rows_split, hid, mq, bf), None)]
+    # Row 14b: the row kernel, then one column-sum launch for each of dw and
+    # db (its partial rows are within the column sum's one pass).
+    dy = torch.randn((m, d), generator=gen, device=dev) * 0.01
+    for name, x_dtype, g_dtype, out_dtype in (
+            ("row 14b LN2 (fp32 x2, + bf16 dOut, fp32 dx2)", f32, bf, f32),
+            ("row 14b LN1 (bf16 x, + fp32 dx2, bf16 dx)", bf, f32, bf)):
+        x = torch.randn((m, d), generator=gen, device=dev).to(x_dtype)
+        g = (torch.randn((m, d), generator=gen, device=dev) * 0.01).to(g_dtype)
+        cases.append((name, x, "layernorm_bwd_row_kernel<", 1, 2,
+                      functools.partial(layernorm.layer_norm_bwd, x, dy, w, eps,
+                                        residual=g, out_dtype=out_dtype), None))
+    ctx = seeded_context(CFG, SMOKE_BATCH, gen, dev)
+    nh, hd, kh = CFG.num_heads, CFG.head_dim, default_kh(CFG)
+    cases.append((f"row 6b context (bf16 in, {nh} x {kh} tails out)", ctx,
+                  "quantize_rows_masked_row_kernel<", 1, 0,
+                  functools.partial(quantize.quantize_rows_masked, ctx, nh, hd, kh), None))
     out = []
-    for name, x, kernel_name, launches, kernel, library in cases:
+    for name, x, kernel_name, launches, others, kernel, library in cases:
         def traced(fn):
             table = perf.device_kernel_table(lambda _x: fn(), (x,), iters=DEVICE_TIME_ITERS)
             return sum(s.total_ms for s in table) / DEVICE_TIME_ITERS, table
@@ -2355,10 +2510,11 @@ def reduction_device_times(dev) -> None:
         dev_ms, table = traced(kernel)
         calls = sum(s.calls for s in table if kernel_name in s.name)
         check(calls == launches * DEVICE_TIME_ITERS
-              and calls == sum(s.calls for s in table),
+              and sum(s.calls for s in table) == (launches + others) * DEVICE_TIME_ITERS,
               f"B={SMOKE_BATCH} {name}: the trace holds {calls} launches of "
-              f"{kernel_name!r} ({launches} a call) and nothing else")
-        row = dict(name=name, device_ms=dev_ms, ms=time_ms(kernel))
+              f"{kernel_name!r} ({launches} a call) and {others} other launches a call")
+        own_ms = sum(s.total_ms for s in table if kernel_name in s.name) / DEVICE_TIME_ITERS
+        row = dict(name=name, device_ms=dev_ms, kernel_device_ms=own_ms, ms=time_ms(kernel))
         lib = "no library call"
         if library is not None:
             lib_dev_ms, lib_table = traced(library)
@@ -2368,7 +2524,8 @@ def reduction_device_times(dev) -> None:
                    f"kernel's; {', '.join(row['library_kernels'])}), CUDA events "
                    f"{row['library_ms']:.4f} ms")
         out.append(row)
-        print(f"  B={SMOKE_BATCH} {name}: device {dev_ms:.4f} ms a call, CUDA events "
+        own = f" ({kernel_name} {own_ms:.4f})" if others else ""
+        print(f"  B={SMOKE_BATCH} {name}: device {dev_ms:.4f} ms a call{own}, CUDA events "
               f"{row['ms']:.4f} ms; {lib}", flush=True)
     print(json.dumps({"device_times": {"batch": SMOKE_BATCH, "iters": DEVICE_TIME_ITERS,
                                        "rows": out}}), flush=True)
@@ -3394,13 +3551,16 @@ def main() -> int:
           f"B={SMOKE_BATCH}")
     train_rows = train_kernel_rows(SMOKE_BATCH, dev)
     with torch.inference_mode():
-        phase(f"== phase 2k: the LN and quantize kernels at the stacks', ViT-L's "
-              f"(and the quantizes at ViT-H's and ViT-G's) widths vs their plain "
-              f"versions; the quantize forms' registers; device times of rows 2, 5d, "
-              f"14c, 5a and 6a at B={SMOKE_BATCH} (torch.profiler)")
+        phase(f"== phase 2k: the LN, LN backward and quantize kernels at the stacks', "
+              f"ViT-L's (and all but the LN at ViT-H's and ViT-G's) widths vs their "
+              f"plain versions; the quantize and LN forms' registers; device times of "
+              f"rows 2, 5d, 14b, 14c, 5a, 6a and 6b at B={SMOKE_BATCH} (torch.profiler)")
         ln_width_rows(dev)
         quantize_width_rows(dev)
+        masked_width_rows(dev)
+        ln_bwd_width_rows(dev)
         print_resource_usage("quantize.cu")
+        print_resource_usage("layernorm.cu")
         reduction_device_times(dev)
     phase("== phase 2f: training kernels at the larger presets' shapes (ViT-L/16@384, "
           "ViT-H/14, ViT-G/14) vs plain versions")
@@ -3440,6 +3600,7 @@ def main() -> int:
         with torch.inference_mode():
             outlier_rows = outlier_kernel_rows(SMOKE_BATCH, dev,
                                                outlier_engine.params)
+            outlier_rows += masked_kernel_rows(dev)
 
         ws = Path(tmp) / "random"
         phase("== phase 3: main path (cli, ViT-B/16, bf16, flash)")

@@ -438,9 +438,18 @@ def test_quantize_rows_split_kernel(dev, rows, cols, m):
     assert q[5, :5].tolist() == [127, 2, 4, -2, 0] and not q[3].any()
 
 
-@pytest.mark.parametrize("rows,nh,hd,kh", [(37, 12, 64, 8), (3152, 12, 64, 8),
-                                           (6, 4, 16, 2), (74, 4, 32, 4),
-                                           (33, 16, 64, 8), (9, 12, 64, 1)])
+# ViT-B's context at B = 16 and 256; each preset pair (num_heads * hd, hd),
+# a form of the kernel, at its default kh (max(2, hd // 8): 8, 10, 13) and
+# at tails of 16, 9 (4-byte stores of hi) and 3 heads of 3 (2-byte stores);
+# pairs of no preset (the general form): hd 16, 32 and 48.
+MASKED_SHAPES = [(37, 12, 64, 8), (3152, 12, 64, 8), (50432, 12, 64, 8),
+                 (6, 4, 16, 2), (74, 4, 32, 4), (33, 16, 64, 8), (9, 12, 64, 1),
+                 (19, 3, 64, 8), (19, 6, 64, 8), (19, 12, 64, 8), (19, 16, 64, 8),
+                 (19, 16, 80, 10), (19, 16, 104, 13), (197, 16, 104, 13),
+                 (19, 12, 64, 16), (19, 3, 64, 3), (19, 4, 48, 6)]
+
+
+@pytest.mark.parametrize("rows,nh,hd,kh", MASKED_SHAPES)
 def test_quantize_rows_masked_kernel(dev, rows, nh, hd, kh):
     """Bit-identical to the plain version, with tails above the kept absmax
     clipped to +-127 (not wrapped around)."""
@@ -813,12 +822,24 @@ def test_wgrad_is_deterministic(dev, k, n):
     _rel_close(first, linear.linear_wgrad_reference(x, dy), 1e-4)
 
 
-@pytest.mark.parametrize("rows,cols", [(74, 64), (3152, 768)])
+# The compile-time forms' widths, each at 19 rows (fewer blocks than the
+# target, a block's last turn ragged), ViT-B B = 16's tokens and B = 64's
+# plus 3 (the target count of blocks, runs of 23 and 24 rows); two widths of
+# the general form.
+LN_BWD_SHAPES = ([(74, 64), (3152, 768)]
+                 + [(r, c) for c in (192, 384, 768, 1024, 1280, 1664)
+                    for r in (19, 3152, 12611)]
+                 + [(19, 100), (3152, 520)])
+
+
+@pytest.mark.parametrize("rows,cols", LN_BWD_SHAPES)
 @pytest.mark.parametrize("x_dtype,g_dtype,out_dtype", [
     (torch.float32, torch.bfloat16, torch.float32),
     (torch.bfloat16, torch.float32, torch.bfloat16),
     (torch.float32, None, torch.float32)])
 def test_layer_norm_bwd_kernel(dev, rows, cols, x_dtype, g_dtype, out_dtype):
+    """Within the plain version's tolerances; a second call gives the same
+    bits (the partial rows and their sums in an order fixed by the shape)."""
     x = _rand((rows, cols), dev, x_dtype, std=2.0)
     dy = _rand((rows, cols), dev, seed=1)
     w = _rand((cols,), dev, std=0.1, seed=2) + 1.0
@@ -837,6 +858,8 @@ def test_layer_norm_bwd_kernel(dev, rows, cols, x_dtype, g_dtype, out_dtype):
         _rel_close(dx, rdx, 1e-4)
     _rel_close(dw, rdw, 1e-4)
     _rel_close(db, rdb, 1e-4)
+    again = layernorm.layer_norm_bwd(x, dy, w, 1e-6, residual=g, out_dtype=out_dtype)
+    assert all(torch.equal(a, b) for a, b in zip((dx, dw, db), again))
 
 
 # One row; the LN backward's partial rows at ViT-B B = 16 (50) and 64 (197)

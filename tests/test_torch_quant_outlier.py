@@ -303,12 +303,47 @@ def test_quantize_split_matches_jax(dtype):
         127, 2, 4, -2, 0, -2]
 
 
+def _masked_act(nh: int, hd: int) -> np.ndarray:
+    """``_act``'s rows at width nh·hd (a zero row, ties at .5 under an
+    absmax of 127), with 60x-hot columns and the far tail (900) at head 0's
+    last column."""
+    if (nh, hd) == (4, 32):
+        return _act()
+    x = _act(d=nh * hd, hot=(5, hd - 1, nh * hd - 1))
+    x[2, 0, 31] = 0.25
+    x[2, 0, hd - 1] = 900.0
+    return x
+
+
+def _jax_ctx_masked_parts(x, nh, hd, kh):
+    """JAX's ``_mm_ctx_masked`` (the calibrated layer's out-projection) on
+    x's heads, through an identity int8 weight (out: fp32(q)·scale) and
+    through an identity tail weight (out: the tails)."""
+    rows = x.reshape(-1, nh * hd)
+    parts = [rows[:, h * hd:(h + 1) * hd] for h in range(nh)]
+    d, nt, f32 = nh * hd, nh * kh, jnp.float32
+    eye8 = jnp.eye(d, dtype=jnp.int8)[None]
+    q_scaled = jfused._mm_ctx_masked(parts, eye8, jnp.zeros((1, nt, d), f32), 0,
+                                     jnp.ones((1, 1, d), f32), kh, f32)
+    tails = jfused._mm_ctx_masked(parts, jnp.zeros((1, d, nt), jnp.int8),
+                                  jnp.eye(nt, dtype=f32)[None], 0,
+                                  jnp.ones((1, 1, nt), f32), kh, f32)
+    return np.asarray(q_scaled), np.asarray(tails)
+
+
+# The small config's heads, and each preset's (num_heads, head_dim) at its
+# default kh = max(2, head_dim // 8): ViT-Ti, S, B, L (8), H (10), G (13).
+MASKED_PAIRS = [(4, 32, 4), (3, 64, 8), (6, 64, 8), (12, 64, 8), (16, 64, 8),
+                (16, 80, 10), (16, 104, 13)]
+
+
+@pytest.mark.parametrize("nh,hd,kh", MASKED_PAIRS)
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
-def test_quantize_masked_matches_jax(dtype):
+def test_quantize_masked_matches_jax(dtype, nh, hd, kh):
     tdt, jdt = DTYPES[dtype]
-    x = _act()
-    nh, hd, kh = 4, 32, 4
+    x = _masked_act(nh, hd)
     jq_, js, jhi = _jax_masked(jnp.asarray(x, jdt), nh, hd, kh)
+    q_scaled, jtails = _jax_ctx_masked_parts(jnp.asarray(x, jdt), nh, hd, kh)
     before = quantize.LAUNCHES_MASKED
     for q, s, hi in (quant.quantize_act_masked(torch.from_numpy(x).to(tdt), nh, hd, kh),
                      quantize.quantize_rows_masked(torch.from_numpy(x).to(tdt), nh, hd, kh)):
@@ -316,11 +351,17 @@ def test_quantize_masked_matches_jax(dtype):
         np.testing.assert_array_equal(q.numpy(), np.asarray(jq_))
         np.testing.assert_array_equal(s.numpy(), np.asarray(js))
         np.testing.assert_array_equal(_np(hi), _np(jhi))
+        # The fused layer's own quantize: the same codes times the same
+        # scale, one fp32 product each, and the same tails.
+        np.testing.assert_array_equal((q.float() * s).reshape(-1, nh * hd).numpy(),
+                                      q_scaled)
+        np.testing.assert_array_equal(_np(hi).reshape(-1, nh * kh), jtails)
     assert quantize.LAUNCHES_MASKED == before
     # The tails were clipped: 900 and 60x-hot values, beyond the kept absmax.
     q = quant.quantize_act_masked(torch.from_numpy(x).to(tdt), nh, hd, kh)[0]
-    assert q[2, 0, 31].item() == 127
+    assert q[2, 0, 31 if hd == 32 else hd - 1].item() == 127
     assert q[2, 0, :6].tolist() == [127, 2, 4, -2, 0, -2]
+    assert not q[1, 4].any()
     tails = torch.from_numpy(quant._tail_mask_heads(nh, hd, kh))
     assert (q[..., tails].abs() == 127).sum() > 3
 

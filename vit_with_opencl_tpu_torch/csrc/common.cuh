@@ -11,6 +11,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #define VIT_EXPORT extern "C" __attribute__((visibility("default")))
 
 namespace vit {
@@ -160,6 +162,18 @@ inline void row_launch(int rows, int row_threads, dim3& grid, dim3& block) {
   while (warps > row_min && blocks(warps) < kRowTargetBlocks) warps /= 2;
   grid = dim3(blocks(warps));
   block = dim3(warps * 32);
+}
+
+// A list of widths that have compile-time forms, and a call of
+// launch(std::integral_constant<int, W>) for the W equal to cols; false
+// where cols has no form.
+template <int... kWidths>
+struct Widths {};
+
+template <typename Launch, int... kWidths>
+bool with_width(Widths<kWidths...>, int cols, Launch&& launch) {
+  return ((cols == kWidths &&
+           (launch(std::integral_constant<int, kWidths>{}), true)) || ...);
 }
 
 // The absmax of a group of kLanes lanes (every lane of the group gets it),

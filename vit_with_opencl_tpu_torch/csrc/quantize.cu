@@ -41,11 +41,16 @@
 //     even, as XLA's convert). The row is read once and held as above at
 //     the same widths (m stays a run-time value: m is a multiple of 4, so
 //     no vector straddles it); other widths take the general form's loop;
-//   quantize_rows_masked_kernel  _mm_ctx_masked (fused_block.py:128-152):
+//   quantize_rows_masked_row_kernel  _mm_ctx_masked (fused_block.py:128-152):
 //     the bf16 attention context, whose per-head tails (the last kh of each
 //     head's head_dim columns) are left out of the absmax and clipped to
 //     +-127 before the int8 cast (they can exceed the kept absmax; their
 //     weight rows are zero), and copied out in head order for the side GEMM.
+//     The row is read once and held as above at the presets' (num_heads *
+//     head_dim, head_dim) pairs, head_dim a compile-time value and kh a
+//     run-time one; the tails are staged in shared memory and leave in
+//     coalesced stores. Other pairs take the general form
+//     (quantize_rows_masked_kernel: a warp a row, the row read twice).
 // Bound: bytes, M*(4*K + m + 2*(K - m) + 4) (split), M*(3*K + 2*nh*kh + 4)
 // (masked).
 #include <type_traits>
@@ -57,17 +62,7 @@ namespace vit {
 constexpr int kQuantWarps = 8;  // the masked kernel's block
 
 // The preset chains' widths: each has a compile-time form.
-template <int... kWidths>
-struct Widths {};
 using QuantWidths = Widths<192, 384, 768, 1024, 1280, 1536, 1664, 3072, 4096, 5120, 8192>;
-
-// Call launch(std::integral_constant<int, W>) for the W equal to cols;
-// false where cols has no form.
-template <typename Launch, int... kWidths>
-bool with_width(Widths<kWidths...>, int cols, Launch&& launch) {
-  return ((cols == kWidths &&
-           (launch(std::integral_constant<int, kWidths>{}), true)) || ...);
-}
 
 // 16 bytes as they were loaded, and element i of them as fp32 (bf16: the
 // high half of a word is the element with the odd index; widening is exact).
@@ -288,8 +283,91 @@ quantize_rows_split_any_width_kernel(const float* __restrict__ x,
   if (lane == 0) scale[row] = __fmul_rn(amax, 1.0f / 127.0f);
 }
 
-// The tail columns of head h are h*head_dim + [head_dim - kh, head_dim);
-// hi has row stride num_heads * kh.
+// Clip, then cast: a tail value may be many times the kept absmax
+// (__float2int_rn saturates, so even a huge product clips right). A kept
+// value's code is within +-127 already, so the clip leaves it as it is.
+__device__ __forceinline__ uint32_t clipped_code(float v, float r) {
+  const int qi = max(-127, min(127, __float2int_rn(__fmul_rn(v, r))));
+  return static_cast<uint32_t>(static_cast<uint8_t>(static_cast<signed char>(qi)));
+}
+
+// The masked quantize at the presets' (cols = num_heads * kHeadDim,
+// kHeadDim) pairs: row 5a's held row of bf16. kHeadDim is a compile-time
+// multiple of 8, so each 16-byte vector lies in one head and its place there
+// costs one division by a constant a vector; kh is a run-time value. The
+// absmax spans the kept columns ((c mod kHeadDim) < kHeadDim - kh); every
+// vector's 8 codes, clipped, leave as one 8-byte store; the tails go in
+// head order into the row's slot of shared memory, then out to hi in
+// 16-byte (else 4- or 2-byte) stores, coalesced across the row's lanes.
+template <int kCols, int kHeadDim>
+__global__ void __launch_bounds__(kRowMaxWarps * 32)
+quantize_rows_masked_row_kernel(const bf16* __restrict__ x, int8_t* __restrict__ q,
+                                float* __restrict__ scale, bf16* __restrict__ hi,
+                                int rows, int kh) {
+  using Row = HeldRow<bf16, kCols>;
+  using S = typename Row::S;
+  static_assert(kHeadDim % S::V == 0 && kCols % kHeadDim == 0, "a vector within a head");
+  static_assert(S::kWarps == 1, "a row within one warp");
+  constexpr int T = S::kThreads;
+  __shared__ __align__(16) uint16_t tails[kRowMaxWarps * 32 / T][kCols];
+  const int sub = threadIdx.x % T, slot = threadIdx.x / T;
+  const int row = blockIdx.x * (blockDim.x / T) + slot;
+  const bool live = row < rows;
+  const int keep = kHeadDim - kh;
+  Row held;
+  held.load(x + static_cast<size_t>(row) * kCols, sub, live);
+  float amax = 0.f;
+#pragma unroll
+  for (int j = 0; j < S::kPerLane; ++j) {
+    const int in_head = Row::col(j, sub) % kHeadDim;
+#pragma unroll
+    for (int i = 0; i < S::V; ++i)
+      if (in_head + i < keep) amax = fmaxf(amax, fabsf(elem<bf16>(held.v[j], i)));
+  }
+  amax = warp_absmax<S::kLanes>(amax);  // a group past the last row joins too
+  if (!live) return;
+  const float r = 127.0f / amax;
+  int8_t* qr = q + static_cast<size_t>(row) * kCols;
+  uint16_t* st = tails[slot];
+#pragma unroll
+  for (int j = 0; j < S::kPerLane; ++j) {
+    const int c = Row::col(j, sub);
+    if (!Row::in_row(c)) continue;
+    const Raw16& v = held.v[j];
+    uint2 codes;
+    codes.x = clipped_code(elem<bf16>(v, 0), r) | clipped_code(elem<bf16>(v, 1), r) << 8 |
+              clipped_code(elem<bf16>(v, 2), r) << 16 | clipped_code(elem<bf16>(v, 3), r) << 24;
+    codes.y = clipped_code(elem<bf16>(v, 4), r) | clipped_code(elem<bf16>(v, 5), r) << 8 |
+              clipped_code(elem<bf16>(v, 6), r) << 16 | clipped_code(elem<bf16>(v, 7), r) << 24;
+    *reinterpret_cast<uint2*>(qr + c) = codes;
+    const int head = c / kHeadDim, in_head = c - head * kHeadDim;
+    if (in_head + S::V > keep) {
+#pragma unroll
+      for (int i = 0; i < S::V; ++i)
+        if (in_head + i >= keep)  // the raw bf16: exact
+          st[head * kh + in_head + i - keep] =
+              static_cast<uint16_t>(i % 2 ? v.w[i / 2] >> 16 : v.w[i / 2] & 0xffffu);
+    }
+  }
+  // The row's lanes (one group of a warp) have staged every tail.
+  __syncwarp(T == 32 ? 0xffffffffu : ((1u << T) - 1) << (threadIdx.x % 32 / T * T));
+  const int n = (kCols / kHeadDim) * kh;
+  uint16_t* hr = reinterpret_cast<uint16_t*>(hi) + static_cast<size_t>(row) * n;
+  if (n % 8 == 0) {
+    for (int k = sub; k < n / 8; k += T)
+      reinterpret_cast<uint4*>(hr)[k] = reinterpret_cast<const uint4*>(st)[k];
+  } else if (n % 2 == 0) {
+    for (int k = sub; k < n / 2; k += T)
+      reinterpret_cast<uint32_t*>(hr)[k] = reinterpret_cast<const uint32_t*>(st)[k];
+  } else {
+    for (int k = sub; k < n; k += T) hr[k] = st[k];
+  }
+  if (sub == 0) scale[row] = __fmul_rn(amax, 1.0f / 127.0f);
+}
+
+// The general form, for any other (cols, head_dim): a warp a row, the row
+// read twice. The tail columns of head h are h*head_dim + [head_dim - kh,
+// head_dim); hi has row stride num_heads * kh.
 __global__ void __launch_bounds__(kQuantWarps * 32)
 quantize_rows_masked_kernel(const bf16* __restrict__ x, int8_t* __restrict__ q,
                             float* __restrict__ scale, bf16* __restrict__ hi,
@@ -314,18 +392,15 @@ quantize_rows_masked_kernel(const bf16* __restrict__ x, int8_t* __restrict__ q,
   for (int c = lane * 4; c < cols; c += 128) {
     float v[4];
     load4(xr + c, v);
-    signed char out[4];
+    uint32_t out = 0;
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int in_head = (c + e) % head_dim;
-      // Clip, then cast: a tail value may be many times the kept absmax
-      // (__float2int_rn saturates, so even a huge product clips right).
-      const int qi = __float2int_rn(__fmul_rn(v[e], r));
-      out[e] = static_cast<signed char>(max(-127, min(127, qi)));
+      out |= clipped_code(v[e], r) << (8 * e);
       if (in_head >= keep)  // exact: v[e] was read from bf16
         hr[((c + e) / head_dim) * kh + in_head - keep] = __float2bfloat16_rn(v[e]);
     }
-    *reinterpret_cast<char4*>(qr + c) = make_char4(out[0], out[1], out[2], out[3]);
+    *reinterpret_cast<uint32_t*>(qr + c) = out;
   }
   if (lane == 0) scale[row] = __fmul_rn(amax, 1.0f / 127.0f);
 }
@@ -368,6 +443,38 @@ cudaError_t launch_quantize_split(const float* x, void* q, float* scale, void* h
   return cudaGetLastError();
 }
 
+template <int kCols, int kHeadDim>
+void launch_quantize_masked_form(const bf16* x, int8_t* q, float* scale, bf16* hi,
+                                 int rows, int kh, cudaStream_t stream) {
+  dim3 grid, block;
+  row_launch(rows, RowShape<bf16, kCols>::kThreads, grid, block);
+  quantize_rows_masked_row_kernel<kCols, kHeadDim><<<grid, block, 0, stream>>>(
+      x, q, scale, hi, rows, kh);
+}
+
+cudaError_t launch_quantize_masked(const bf16* x, int8_t* q, float* scale, bf16* hi,
+                                   int rows, int cols, int head_dim, int kh,
+                                   cudaStream_t stream) {
+  // The presets' (num_heads * head_dim, head_dim): ViT-Ti, S, B, L, H, G.
+  if (head_dim == 64 && cols == 192)
+    launch_quantize_masked_form<192, 64>(x, q, scale, hi, rows, kh, stream);
+  else if (head_dim == 64 && cols == 384)
+    launch_quantize_masked_form<384, 64>(x, q, scale, hi, rows, kh, stream);
+  else if (head_dim == 64 && cols == 768)
+    launch_quantize_masked_form<768, 64>(x, q, scale, hi, rows, kh, stream);
+  else if (head_dim == 64 && cols == 1024)
+    launch_quantize_masked_form<1024, 64>(x, q, scale, hi, rows, kh, stream);
+  else if (head_dim == 80 && cols == 1280)
+    launch_quantize_masked_form<1280, 80>(x, q, scale, hi, rows, kh, stream);
+  else if (head_dim == 104 && cols == 1664)
+    launch_quantize_masked_form<1664, 104>(x, q, scale, hi, rows, kh, stream);
+  else
+    quantize_rows_masked_kernel<<<(rows + kQuantWarps - 1) / kQuantWarps,
+                                  kQuantWarps * 32, 0, stream>>>(x, q, scale, hi, rows,
+                                                                 cols, head_dim, kh);
+  return cudaGetLastError();
+}
+
 }  // namespace vit
 
 VIT_EXPORT int vit_quantize_rows(const void* x, int x_dtype, void* q,
@@ -403,10 +510,7 @@ VIT_EXPORT int vit_quantize_rows_masked(const void* x, void* q, float* scale,
   if (rows <= 0 || cols <= 0 || cols % 4 != 0 || head_dim <= 0 ||
       cols % head_dim != 0 || kh <= 0 || kh >= head_dim)
     return cudaErrorInvalidValue;
-  const dim3 grid((rows + kQuantWarps - 1) / kQuantWarps);
-  quantize_rows_masked_kernel<<<grid, kQuantWarps * 32, 0,
-                                static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(x), static_cast<int8_t*>(q), scale,
-      static_cast<bf16*>(hi), rows, cols, head_dim, kh);
-  return cudaGetLastError();
+  return launch_quantize_masked(static_cast<const bf16*>(x), static_cast<int8_t*>(q),
+                                scale, static_cast<bf16*>(hi), rows, cols, head_dim, kh,
+                                static_cast<cudaStream_t>(stream));
 }

@@ -95,9 +95,9 @@ SIGNATURES = {
     "vit_gemm_grad": [_P, _I, _P, _I, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I,
                       _I, _I, _P, _P],
     # x, x_dtype, dy, w, g, g_dtype, dx, dx_dtype, part_dw, part_db, rows,
-    # cols, eps, stream
-    "vit_layernorm_bwd": [_P, _I, _P, _P, _P, _I, _P, _I, _P, _P, _I, _I, _F,
-                          _P],
+    # cols, blocks, eps, stream
+    "vit_layernorm_bwd": [_P, _I, _P, _P, _P, _I, _P, _I, _P, _P, _I, _I, _I,
+                          _F, _P],
     # x, x_dtype, out, partial, rows, cols, rows_per_chunk, stream
     "vit_column_sum": [_P, _I, _P, _P, _I, _I, _I, _P],
     # q, k, v, bias, m_in, l_in, acc_in, m_out, l_out, acc_out, dtype, n,

@@ -40,8 +40,6 @@ LAUNCHES = 0
 LAUNCHES_RESIDUAL = 0
 LAUNCHES_BWD = 0
 LAUNCHES_COLSUM = 0
-# Rows per block of the backward kernel: one partial row of dw and db each.
-BWD_ROWS_PER_BLOCK = 64
 # The column sum's chunks (csrc/reduce.cu): up to COLSUM_ONE_PASS_ROWS rows
 # in one pass; past that, chunks of at least COLSUM_MIN_CHUNK_ROWS rows, as
 # many as give about COLSUM_TARGET_BLOCKS blocks of 32 column vectors (4 an
@@ -50,6 +48,17 @@ COLSUM_ONE_PASS_ROWS = 256
 COLSUM_MIN_CHUNK_ROWS = 32
 COLSUM_TARGET_BLOCKS = 4 * 132
 COLSUM_TILE_VECTORS = 32
+# The backward kernel's blocks (one partial row of dw and db each): up to
+# BWD_TARGET_BLOCKS, none with fewer rows than it takes at a time. The
+# target is the column sum's one-pass limit, so that each of dw and db is
+# finished by one launch (at 528 blocks, 4 an SM of an H100, the second
+# pass of each cost more than the row kernel gained). The compile-time forms
+# take rows in blocks of 128 threads (``csrc/layernorm.cu`` ``LnBwdShape``:
+# 8 to 128 threads a row, a thread holding at most 3 chunks of 8 columns),
+# the general form a row a warp of 8.
+BWD_TARGET_BLOCKS = COLSUM_ONE_PASS_ROWS
+BWD_FORM_ROWS_AT_A_TIME = {192: 16, 384: 8, 768: 4, 1024: 2, 1280: 2, 1664: 1}
+BWD_GENERAL_ROWS_AT_A_TIME = 8
 
 
 def layer_norm_reference(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
@@ -192,6 +201,16 @@ def column_sum(x: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def bwd_partial_rows(rows: int, cols: int) -> int:
+    """The n partial rows of dw and db that the backward kernel writes for
+    [rows, cols]: one a block, block b summing rows [b·rows // n,
+    (b + 1)·rows // n). BWD_TARGET_BLOCKS, or fewer where a block would get
+    fewer rows than it takes at a time. It depends on the shape alone, so
+    the order of every column's sum does too."""
+    at_a_time = BWD_FORM_ROWS_AT_A_TIME.get(cols, BWD_GENERAL_ROWS_AT_A_TIME)
+    return max(1, min(BWD_TARGET_BLOCKS, rows // at_a_time))
+
+
 def layer_norm_bwd_reference(x: torch.Tensor, dy: torch.Tensor,
                              w: torch.Tensor, eps: float = 1e-6, *,
                              residual: Optional[torch.Tensor] = None,
@@ -218,8 +237,8 @@ def layer_norm_bwd(x: torch.Tensor, dy: torch.Tensor, w: torch.Tensor,
     """LN backward of ``x`` [..., D] (fp32 or bf16) for the fp32 output
     gradient ``dy``: (dx in ``out_dtype``, default x's, plus ``residual``
     [..., D] fp32 or bf16 if given; fp32 dw [D]; fp32 db [D]). The row
-    kernel writes per-block partial column sums, which ``column_sum``
-    finishes."""
+    kernel writes per-block partial column sums (``bwd_partial_rows``),
+    which ``column_sum`` finishes."""
     global LAUNCHES_BWD
     out_dtype = out_dtype or x.dtype
     if not x.is_cuda:
@@ -241,14 +260,14 @@ def layer_norm_bwd(x: torch.Tensor, dy: torch.Tensor, w: torch.Tensor,
     if rows == 0:
         zeros = torch.zeros((d,), dtype=torch.float32, device=x.device)
         return dx, zeros, zeros.clone()
-    blocks = -(-rows // BWD_ROWS_PER_BLOCK)
+    blocks = bwd_partial_rows(rows, d)
     partial = torch.empty((2, blocks, d), dtype=torch.float32, device=x.device)
     err = _build.launch("vit_layernorm_bwd", x,
         x.data_ptr(), _build.DTYPE_CODES[x.dtype], dy.data_ptr(), w.data_ptr(),
         None if residual is None else residual.data_ptr(),
         _build.DTYPE_CODES[residual.dtype] if residual is not None else 0,
         dx.data_ptr(), _build.DTYPE_CODES[out_dtype], partial[0].data_ptr(),
-        partial[1].data_ptr(), rows, d, eps)
+        partial[1].data_ptr(), rows, d, blocks, eps)
     _build.check_launch(err, "layer_norm_bwd")
     LAUNCHES_BWD += 1
     return dx, column_sum(partial[0]), column_sum(partial[1])
