@@ -29,6 +29,14 @@ of its two runs. The figures (ms):
 * row 8 (``single_pass_attention``) at ViT-B/16's heads, B = 16 and 256,
   as split heads and as the permuted views of a qkv GEMM output, at
   ViT-L/16@384's T = 577 (B = 8) and at the route's last T, 1024 (B = 4);
+* row 8's fp32 form (the register-tiled body) at ViT-B/16's heads, B = 16
+  and 256;
+* row 10 (``blockwise_ring_step``, a first rotation) at chip_smoke.py's
+  RING_ROWS shapes of ViT-L/16@512 on 4 shards (bf16 and fp32, B = 8) and
+  on 8 shards (bf16, B = 4), in bf16 also the card's time a call from a
+  trace, and the bf16 ring forward
+  (``sp_forward(kv="ring")``, ViT-L/16@512, B = 8, 4 virtual shards of the
+  card: 384 ring steps);
 * row 9 (``blockwise_attention_fwd``) at chip_smoke.py's FLASH_ROWS
   shapes (ViT-L/16@512's T = 1025 at B = 4 and 16, ViT-H/14@518's 1370,
   the odd tail 1337, hd 128 at 1153), and with the LSE at T = 1025, B = 16;
@@ -83,8 +91,11 @@ row 14b in both forms at ViT-B/16 B = 64 and ViT-L/16@384 B = 32 and row
 6b at B = 256 at most 3% slower;
 row 4 at ViT-B/16 B = 256, row 11 at each of its shapes and the ViT-B/16
 bf16 forward at B = 256 at most 3% slower (row 4 shares its kernel body
-with row 8, row 11 its design with row 12); the ViT-B/16 ``fused`` AdamW
-step at B = 64 (96 column sums and 24 LNs a step) at most 3% slower; the
+with row 8, row 11 its design with row 12); row 10 at each of its shapes
+(bf16: the card's time a call from a ``perf.device_kernel_table`` trace,
+where CUDA events measure the wrapper's host work), row 8's fp32 form at
+B = 256 and the ring forward at most 3% slower; the ViT-B/16 ``fused``
+AdamW step at B = 64 (96 column sums and 24 LNs a step) at most 3% slower; the
 median of the library swaps' ViT-Ti stack ratios at B = 16 (its LNs at D
 = 192) at most 5% slower. Exits 1 if a gate fails, 2 without ``--parent``. The last line is
 one JSON object with every run's figures, the pairs and the gates.
@@ -144,6 +155,17 @@ SINGLE_SHAPES = (("ViT-B/16", 12, 64, 197, 16, False), ("ViT-B/16", 12, 64, 197,
                  ("ViT-B/16", 12, 64, 197, 256, True),
                  ("ViT-L/16@384", 16, 64, 577, 8, False),
                  ("the route's last T", 16, 64, 1024, 4, False))
+# (name, heads, head dim, tokens, batch) of row 8's fp32 figures (split
+# heads).
+SINGLE_F32_SHAPES = (("ViT-B/16", 12, 64, 197, 16), ("ViT-B/16", 12, 64, 197, 256))
+# (name, batch, heads, t_loc, head dim, block_k, masked keys, dtype) of row
+# 10's figures (chip_smoke.py's RING_ROWS): a first rotation from (-inf, 0,
+# 0), the shard's padded keys masked.
+RING_SHAPES = (("ViT-L/16@512 4 shards", 8, 16, 257, 64, 257, 3, torch.bfloat16),
+               ("ViT-L/16@512 8 shards", 4, 16, 129, 64, 129, 7, torch.bfloat16),
+               ("ViT-L/16@512 4 shards", 8, 16, 257, 64, 257, 3, torch.float32))
+RING_FORWARD_BATCH = 8  # chip_smoke.py's RING_BATCH
+RING_SHARDS = 4
 # (name, tokens, heads, head dim, batch, with the LSE) of row 9's figures;
 # row 12's at each shape without the LSE.
 FLASH_SHAPES = (("ViT-L/16@512", 1025, 16, 64, 4, False),
@@ -408,6 +430,53 @@ def long_attention_figures(pkg, dev) -> dict:
     return out
 
 
+def ring_figures(pkg, dev) -> dict:
+    """Row 8's fp32 form at SINGLE_F32_SHAPES, row 10 at RING_SHAPES (seeded
+    unit-scale inputs, chip_smoke.py phases 2h and 2i) and the bf16 ring
+    forward at ViT-L/16@512, B = 8 (phase 4e, ms a forward)."""
+    attention, f32 = pkg["attention"], torch.float32
+    out = {}
+    for name, nh, hd, t, batch in SINGLE_F32_SHAPES:
+        gen = torch.Generator(device=dev).manual_seed(t + batch)
+        q, k, v = (torch.randn((batch, nh, t, hd), generator=gen, device=dev)
+                   for _ in range(3))
+        out[f"row 8 fp32 single-pass attention {name} B={batch} T={t}"] = time_ms(
+            lambda: attention.single_pass_attention(q, k, v, hd))
+    for name, batch, heads, t_loc, hd, block, masked, dtype in RING_SHAPES:
+        n = batch * heads
+        gen = torch.Generator(device=dev).manual_seed(n + t_loc + hd)
+        q, k, v = (torch.randn((n, t_loc, hd), generator=gen, device=dev).to(dtype)
+                   for _ in range(3))
+        bias = torch.zeros((1, t_loc), device=dev)
+        bias[:, t_loc - masked:] = attention.MASK_VALUE
+        state = (torch.full((n, t_loc), -float("inf"), device=dev),
+                 torch.zeros((n, t_loc), device=dev), torch.zeros((n, t_loc, hd), device=dev))
+        kw = dict(scale=float(1.0 / hd ** 0.5), block_q=block, block_k=block)
+        kind = "bf16" if dtype == torch.bfloat16 else "fp32"
+
+        def step():
+            return attention.blockwise_ring_step(q, k, v, bias, *state, **kw)
+
+        out[f"row 10 ring step {name} B={batch} t_loc={t_loc} ({kind})"] = time_ms(step)
+        if kind == "bf16":  # CUDA events measure the wrapper's host work here
+            table = pkg["perf"].device_kernel_table(lambda _x: step(), (q,), iters=REPS)
+            out[f"row 10 ring step {name} B={batch} t_loc={t_loc} ({kind}, device)"] = sum(
+                s.total_ms for s in table if "ring_step" in s.name) / REPS
+    cfg, spmd = long_config(pkg), pkg["spmd"]
+    params = pkg["vit"].stack_params(pkg["fixtures"].random_params(cfg, seed=0), cfg,
+                                     param_dtype=torch.bfloat16, device=dev)
+    mesh = spmd.make_mesh(data=1, model=RING_SHARDS, devices=[dev] * RING_SHARDS)
+    gen = torch.Generator(device=dev).manual_seed(RING_FORWARD_BATCH)
+    x = torch.randn((RING_FORWARD_BATCH, 3, cfg.img_size, cfg.img_size), generator=gen,
+                    device=dev)
+    out[f"ring forward {cfg.name} bf16 B={RING_FORWARD_BATCH}"] = time_ms(
+        lambda: spmd.sp_forward(x, params, cfg, mesh, compute_dtype=torch.bfloat16,
+                                kv="ring"), reps=3)
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
 def long_config(pkg):
     """ViT-L/16@512: ViT-L/16@384's geometry at 512 (chip_smoke.LONG_CFG)."""
     return dataclasses.replace(pkg["VIT_L_16_384"], name="vit_l_16_512", img_size=512)
@@ -502,7 +571,7 @@ def figures_main(root: str, host_only: bool) -> int:
     line naming the root its package came from."""
     sys.path.insert(0, str(Path(root).resolve()))
     import vit_with_opencl_tpu_torch as port
-    from vit_with_opencl_tpu_torch import optim
+    from vit_with_opencl_tpu_torch import optim, perf
     from vit_with_opencl_tpu_torch.config import (VIT_B_16_224, VIT_L_16_384,
                                                   VIT_S_16_224, VIT_TINY_16_224)
     from vit_with_opencl_tpu_torch.engine import InferenceEngine
@@ -512,6 +581,7 @@ def figures_main(root: str, host_only: bool) -> int:
                                                quantize)
     from vit_with_opencl_tpu_torch.parallel import spmd
     pkg = dict(linear=linear, attention=attention, layernorm=layernorm, optim=optim,
+               perf=perf,
                quantize=quantize,
                vit=vit, quant=quant, spmd=spmd, fixtures=fixtures,
                InferenceEngine=InferenceEngine, VIT_B_16_224=VIT_B_16_224,
@@ -533,6 +603,7 @@ def figures_main(root: str, host_only: bool) -> int:
             out.update(quantize_figures(pkg, dev))
             out.update(attention_figures(pkg, dev))
             out.update(long_attention_figures(pkg, dev))
+            out.update(ring_figures(pkg, dev))
             out.update(forward_figures(pkg, dev))
             out.update(long_forward_figures(pkg, dev))
             out.update(stack_figures(pkg, dev, (SMOKE_BATCH, THROUGHPUT_BATCHES[-1])))
@@ -692,6 +763,14 @@ def main(argv: list[str]) -> int:
         print(f"{'ok  ' if gates[key] else 'FAIL'} {key}: this / parent {ratio:.4f} "
               f"(at most {STEADY_PATHS_TOL:.0%} slower: row 4 shares its body with "
               f"row 8, row 11 its design with row 12)", flush=True)
+    for key in (k for k in after
+                if k.startswith("ring forward ")
+                or (k.startswith("row 10 ") and k.endswith(("(bf16, device)", "(fp32)")))
+                or (k.startswith("row 8 fp32 ") and k.endswith(f"B={GEMM_BATCHES[-1]} T=197"))):
+        ratio = after[key] / before[key]
+        gates[key] = ratio <= 1 + STEADY_PATHS_TOL
+        print(f"{'ok  ' if gates[key] else 'FAIL'} {key}: this / parent {ratio:.4f} "
+              f"(at most {STEADY_PATHS_TOL:.0%} slower)", flush=True)
     key = f"train step vit_b_16_224 fused B={TRAIN_BATCH}"
     ratio = after[key] / before[key]
     gates[key] = ratio <= 1 + STEADY_PATHS_TOL

@@ -100,7 +100,10 @@ line.
    (no yardstick); the LN backward's forms (row 14b, LN2 and LN1) at ViT-Ti's,
    ViT-S's, ViT-H's and ViT-G's widths against its plain version and twice
    for the same bits; the registers and spills of each form of
-   ``csrc/quantize.cu`` and ``csrc/layernorm.cu`` (``nvcc -Xptxas -v``);
+   ``csrc/quantize.cu`` and ``csrc/layernorm.cu``, and of the ring step's
+   (``csrc/attention_ring.cu``: the bf16 kernel, the fp32 body) and the
+   single-pass attention's fp32 body (``csrc/attention_single.cu``), none of
+   which may spill (``nvcc -Xptxas -v``);
    then rows 2, 5d, 14b, 14c, 5a, 6a and 6b at ViT-B B = 16 traced
    alone with ``perf.device_kernel_table``: device time a call beside the
    same trace of ``F.layer_norm`` and ``x.float().sum(0)`` (none for the
@@ -186,16 +189,20 @@ line.
    = 16: the one-pass limit; the packed kernel's key-count entry); and ``residual_layer_norm`` at D = 768, M =
    3152 and 50432, bf16 and fp32 (``summed`` bit-identical). Yardsticks:
    SDPA on the same tensors (over the first ``true_seq_len`` keys); ``x +
-   r`` then ``F.layer_norm`` (two calls). The bf16 single-pass rows give
-   the same bits over two runs.
+   r`` then ``F.layer_norm`` (two calls). The single-pass rows (bf16, and
+   the fp32 body's) give the same bits over two runs.
 2i. The ring step kernel (``blockwise_ring_step``, the local step of ring
    attention) against its plain version at the ring's shard shapes:
    ViT-L/16@512 on 4 shards (t_loc 257, the last shard's 3 padded keys
    masked; B = 8 and 4, 16 heads of 64), on 8 shards (129), ViT-B/16 on one
    shard (197), ViT-H/14@518 on 4 shards (343, hd 80) and two 512-key
-   blocks (1024); bf16 and fp32, as a first rotation and 4 rotations
-   chained. SDPA on the same [n, t_loc, hd] is printed as a yardstick (it
-   does not compute the carried function, so no library time is recorded).
+   blocks (1024); bf16 (the wgmma kernel) and fp32 (the register-tiled
+   body), as a first rotation and 4 rotations chained, the first rotation
+   the same bits over two calls, and in bf16 traced alone
+   (``perf.device_kernel_table``: the card's time a call, one launch a
+   call). SDPA on the same [n, t_loc, hd] is printed
+   as a yardstick (it does not compute the carried function, so no library
+   time is recorded).
 2j. The W8A8 overlap probe's kernels (``csrc/probe_overlap.cu``: stream,
    vpu:q, vpu:ln, mxu, fused, indep with the quantize and with the LN)
    against their plain versions at a grid of 4 blocks and N = 3072, on the
@@ -1883,9 +1890,8 @@ def public_op_rows(dev) -> list[dict]:
             bytes=4 * n * t * hd * q.element_size(),
             ops={"bf16" if bf16 else "fp32": 4 * n * t * t * hd})
         rows += run_cases([case], batch)
-        if bf16:
-            check(torch.equal(case["kernel"](), case["kernel"]()),
-                  f"{case['name']}: the same bits over two runs")
+        check(torch.equal(case["kernel"](), case["kernel"]()),
+              f"{case['name']}: the same bits over two runs")
         del q, k, v, ref, case
     for kv_len in PER_HEAD_KV_LENS:
         batch, nh, hd, t = SMOKE_BATCH, CFG.num_heads, CFG.head_dim, PER_HEAD_T
@@ -2429,13 +2435,25 @@ def masked_width_rows(dev) -> list[dict]:
     return rows
 
 
-def print_resource_usage(source: str) -> None:
+# Phase 2k's ptxas reports: (source, whether a spill fails the run).
+USAGE_SOURCES = (("quantize.cu", False), ("layernorm.cu", False),
+                 ("attention_ring.cu", True), ("attention_single.cu", True))
+
+
+def print_resource_usage(source: str, no_spills: bool = False) -> None:
     """Phase 2k: each kernel of ``csrc/<source>``'s registers a thread and
-    spills, as ptxas reports them for the build's flags."""
-    for k in _build.resource_usage(source):
+    spills, as ptxas reports them for the build's flags; with
+    ``no_spills``, a check that no form spills."""
+    kernels = _build.resource_usage(source)
+    for k in kernels:
         print(f"  ptxas {source}: {k['name'][:110]}: {k['registers']} registers, "
               f"{k['spill_stores']} bytes spill stores, {k['spill_loads']} bytes spill "
               f"loads", flush=True)
+    if no_spills:
+        spilled = [k["name"][:80] for k in kernels if k["spill_stores"] or k["spill_loads"]]
+        check(bool(kernels) and not spilled,
+              f"ptxas {source}: {len(kernels)} kernel forms, none spills "
+              f"(spilled: {spilled or 'none'})")
 
 
 def reduction_device_times(dev) -> None:
@@ -3107,6 +3125,24 @@ def weight_ops_in_forward(engine, images) -> None:
           f"a tensor of one in a forward (ops that did: {sorted(set(seen)) or 'none'})")
 
 
+def ring_device_time(call, tensor: torch.Tensor, row: dict, batch: int) -> None:
+    """Phase 2i: the card's time of one ring step ``call()`` (``row``'s
+    kernel) from a ``perf.device_kernel_table`` trace of DEVICE_TIME_ITERS
+    calls alone, into ``row["device_ms"]``, and a check that the trace
+    holds one launch a call: CUDA events around the wrapper measure its
+    host work at the smaller shapes."""
+    table = perf.device_kernel_table(lambda _x: call(), (tensor,), iters=DEVICE_TIME_ITERS)
+    own = [s for s in table if "ring_step" in s.name]
+    calls = sum(s.calls for s in own)
+    row["device_ms"] = sum(s.total_ms for s in own) / DEVICE_TIME_ITERS
+    check(calls == DEVICE_TIME_ITERS,
+          f"{row['name']}: the trace holds {calls} ring step launches for "
+          f"{DEVICE_TIME_ITERS} calls ({sorted({s.name[:60] for s in own})})")
+    print(f"  B={batch} first rotation: device {row['device_ms']:.4f} ms a call (a trace "
+          f"of {DEVICE_TIME_ITERS} calls), CUDA events {row['ms']:.4f} ms, bound "
+          f"{row['bound_ms']:.4f} ms", flush=True)
+
+
 def ring_kernel_rows(dev) -> list[dict]:
     """Phase 2i: the ring step kernel against its plain version at
     RING_ROWS' shapes, bf16 and fp32, as a first rotation from (-inf, 0, 0)
@@ -3165,6 +3201,14 @@ def ring_kernel_rows(dev) -> list[dict]:
                     ops={kind: reps * 4 * n * t_loc * t_loc * hd}))
                 del refs
             rows += run_cases(cases, batch)
+            once, twice = first(attention.blockwise_ring_step), first(
+                attention.blockwise_ring_step)
+            check(all(torch.equal(a, b) for a, b in zip(once, twice)),
+                  f"{cases[0]['name']}: the same bits over two calls")
+            del once, twice
+            if kind == "bf16":  # fp32's calls outlast their host work
+                ring_device_time(lambda: first(attention.blockwise_ring_step),
+                                 qkvs[0][0], rows[-2], batch)
             q, k, v = qkvs[0]
             sdpa = time_ms(lambda: F.scaled_dot_product_attention(q, k, v))
             print(f"  B={batch} yardstick: SDPA on the same [n, t_loc, hd] ({kind}; "
@@ -3553,14 +3597,15 @@ def main() -> int:
     with torch.inference_mode():
         phase(f"== phase 2k: the LN, LN backward and quantize kernels at the stacks', "
               f"ViT-L's (and all but the LN at ViT-H's and ViT-G's) widths vs their "
-              f"plain versions; the quantize and LN forms' registers; device times of "
+              f"plain versions; the quantize, LN, ring step and fp32 attention forms' "
+              f"registers; device times of "
               f"rows 2, 5d, 14b, 14c, 5a, 6a and 6b at B={SMOKE_BATCH} (torch.profiler)")
         ln_width_rows(dev)
         quantize_width_rows(dev)
         masked_width_rows(dev)
         ln_bwd_width_rows(dev)
-        print_resource_usage("quantize.cu")
-        print_resource_usage("layernorm.cu")
+        for src, no_spills in USAGE_SOURCES:
+            print_resource_usage(src, no_spills)
         reduction_device_times(dev)
     phase("== phase 2f: training kernels at the larger presets' shapes (ViT-L/16@384, "
           "ViT-H/14, ViT-G/14) vs plain versions")

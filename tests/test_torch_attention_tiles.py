@@ -5,7 +5,10 @@ T about the 64-row tiles and the 256-key single pass, head dims below one
 64-column box and across two; the single-pass attention's key count about
 the one-pass limit (256 and 257 keys of 264) on slab and per-head packing,
 and the blockwise forward at T = 1153 (one key past 9 whole 128-key tiles)
-and hd 80, with and without a key count that leaves whole tiles masked.
+and hd 80, with and without a key count that leaves whole tiles masked;
+the single-pass attention in fp32 at key counts about the fp32 body's
+64-key tiles. The bf16 ring step kernel's and the fp32 body's shared
+memory, and the ring kernel's work units.
 """
 
 import os
@@ -19,6 +22,7 @@ if os.environ.get("PYTEST_XDIST_WORKER"):
     # The xdist workers share the host's cores: one torch thread each.
     torch.set_num_threads(1)
 
+from vit_with_opencl_tpu import ViTConfig as JViTConfig
 from vit_with_opencl_tpu.ops import attention as jattn
 from vit_with_opencl_tpu_torch import config as tconfig
 from vit_with_opencl_tpu_torch.ops import attention
@@ -75,6 +79,43 @@ def test_blockwise_bwd_kernels_shared_memory_fits_a_block_at_every_head_dim(hd):
     assert smem <= attention.MAX_SMEM_BYTES
     # Four stages of two tiles and the consumers' K and V at least.
     assert smem >= 1024 + 4 * 2 * attention._tile_bytes(hd) + 4 * attention._tile_bytes(hd)
+
+
+@pytest.mark.parametrize("hd", range(8, 129, 8))
+def test_ring_kernel_shared_memory_fits_a_block_at_every_head_dim(hd):
+    """The bf16 ring step kernel streams 64-key K/V tiles with their key
+    biases through a ring of stages and keeps its consumers' q tiles: its
+    shared memory depends on the head dim alone (any t_loc and block_k) and
+    fits one block at every head dim it takes."""
+    smem = attention.ring_kernel_smem_bytes(hd)
+    assert smem <= attention.MAX_SMEM_BYTES
+    # At least four stages of a K tile, a V tile and a bias tile.
+    assert smem >= 4 * (2 * attention._tile_bytes(hd) + attention.RING_STAGE_BIAS_BYTES)
+
+
+@pytest.mark.parametrize("hd", range(8, 129, 8))
+def test_f32_body_shared_memory_fits_a_block_at_every_head_dim(hd):
+    """The fp32 attention body (the single-pass attention's and the ring
+    step's fp32 forms) keeps row-major q, K and V tiles in rows of hd + 4
+    floats, K and V double-buffered, beside its p: the head dim alone
+    decides its shared memory, which fits one block at every head dim, and
+    two blocks an SM up to hd 64."""
+    smem = attention.f32_attention_smem_bytes(hd)
+    assert smem <= attention.MAX_SMEM_BYTES
+    if hd <= 64:
+        assert 2 * smem <= 228 * 1024
+
+
+@pytest.mark.parametrize("t_loc,hd,units", [(257, 64, 2), (129, 64, 1), (197, 64, 2),
+                                            (343, 80, 3), (1024, 64, 6), (37, 16, 1),
+                                            (200, 128, 2)])
+def test_ring_kernel_covers_a_row_group_in_few_units(t_loc, hd, units):
+    """A unit of the bf16 ring step kernel is one 64-query tile for each
+    consumer warpgroup (three up to hd 64, two past it), all sharing the
+    unit's K/V tiles: a row group's K and V are read once a unit, so its
+    queries take as few units as that allows (two at ViT-L/16@512's 257)."""
+    assert attention.ring_kernel_units(1, t_loc, hd) == units
+    assert attention.ring_kernel_units(128, t_loc, hd) == 128 * units
 
 
 def test_route_boundary_is_unchanged():
@@ -188,3 +229,25 @@ def test_blockwise_plain_matches_jax_at_t_1153_hd_80(kv_len):
     want_lse = np.asarray(lse).reshape(1, nh, t_pad)[:, :, :t]
     scale = float(np.abs(want_lse).max())
     assert float(np.abs(got_lse.numpy() - want_lse).max()) <= 1e-5 * scale
+
+
+@pytest.mark.parametrize("t", [63, 64, 65, 128, 129])
+@pytest.mark.parametrize("hd", [80, 104])
+def test_single_pass_plain_matches_jax_in_fp32_about_the_tile_edges(t, hd):
+    """``single_pass_attention_reference`` in fp32 (the function of the fp32
+    body's single-pass form) against JAX's ``_single_pass_kernel`` through
+    its ``flash_attention`` (interpret mode, the keys past T of its padded
+    128 masked), at key counts about the body's 64-key tiles and head dims
+    with a ragged last 16 (hd 80) and a ragged float4 column group (104):
+    fp32 sums in another order, within 1e-5 of the output's largest."""
+    nh = 2
+    r = np.random.default_rng(t + hd)
+    q, k, v = (r.standard_normal((1, nh, t, hd)).astype(np.float32) for _ in range(3))
+    cfg = JViTConfig(name="heads", img_size=16, patch_size=8, embed_dim=nh * hd, depth=1,
+                     num_heads=nh)
+    want = np.asarray(jattn.flash_attention(*(jnp.asarray(a) for a in (q, k, v)), cfg,
+                                            interpret=True))
+    got = attention.single_pass_attention_reference(
+        *(torch.from_numpy(a) for a in (q, k, v)), hd).numpy()
+    assert got.dtype == np.float32 and got.shape == want.shape
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5 * float(np.abs(want).max()))

@@ -22,8 +22,8 @@ if os.environ.get("PYTEST_XDIST_WORKER"):
 from vit_with_opencl_tpu_torch import ViTConfig
 from vit_with_opencl_tpu_torch.harness import fixtures
 from vit_with_opencl_tpu_torch.models import quant, vit
-from vit_with_opencl_tpu_torch.ops import (attention, fused_block, layernorm,
-                                           linear, quantize)
+from vit_with_opencl_tpu_torch.ops import (_build, attention, fused_block,
+                                           layernorm, linear, quantize)
 
 pytestmark = pytest.mark.cuda
 
@@ -1463,10 +1463,14 @@ RING_REL = {torch.float32: 1e-5, torch.bfloat16: 2e-3}
 # (n, t_loc, hd, block_k, masked keys): ViT-L/16@512 on 4 shards (257, the
 # last shard's 3 padded keys) and 8 shards (129), ViT-B on one shard (197),
 # ViT-H/14@518 on 4 shards (343, hd 80), two 512-key blocks (1024), and
-# ViT-G's and the widest head dims.
+# ViT-G's and the widest head dims (the 257-key shard at hd 128 too: the
+# bf16 kernel's two-consumer form and the fp32 body's widest PV tile), and
+# two ragged 129-key blocks (the bf16 kernel's 8-key tail chunk, whose tile
+# holds the next block's keys).
 RING_SHAPES = [(64, 257, 64, 257, 3), (32, 129, 64, 129, 7), (48, 197, 64, 197, 0),
                (16, 343, 80, 343, 1), (4, 1024, 64, 512, 0), (8, 96, 104, 48, 5),
-               (4, 200, 128, 100, 0), (3, 37, 16, 37, 2)]
+               (4, 200, 128, 100, 0), (3, 37, 16, 37, 2), (8, 257, 128, 257, 3),
+               (6, 258, 64, 129, 4)]
 
 
 def _ring_inputs(dev, n, t_loc, hd, dtype, masked, seed=0):
@@ -1524,6 +1528,52 @@ def test_ring_step_kernel_wipes_a_masked_first_block(dev, dtype):
     _ring_close(attention.blockwise_ring_step(q, k2, v2, live, *got, **kw),
                 attention.blockwise_ring_step_reference(q, k2, v2, live, *want, **kw),
                 dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_rows_8_and_10_give_the_same_bits_over_two_calls(dev, dtype):
+    """No atomics and a fixed order of every sum: the ring step (the bf16
+    kernel's units sharing K/V tiles, the fp32 body) at whole-shard blocks
+    with and without a ragged tail, two key blocks and both consumer forms,
+    from a carried state, and the
+    single-pass attention's fp32 form on the permuted views of a packed
+    buffer with a key count, repeat their bits."""
+    for n, t_loc, hd, block, masked in ((64, 257, 64, 257, 3), (16, 343, 80, 343, 2),
+                                        (8, 1024, 128, 512, 0), (12, 96, 64, 96, 1)):
+        q, k, v, bias = _ring_inputs(dev, n, t_loc, hd, dtype, masked, seed=t_loc)
+        state = (_rand((n, t_loc), dev, seed=1), _rand((n, t_loc), dev, seed=2).abs() + 1,
+                 _rand((n, t_loc, hd), dev, seed=3))
+        kw = dict(scale=float(1.0 / np.sqrt(hd)), block_q=block, block_k=block)
+        first = attention.blockwise_ring_step(q, k, v, bias, *state, **kw)
+        for _ in range(2):
+            again = attention.blockwise_ring_step(q, k, v, bias, *state, **kw)
+            assert all(torch.equal(a, b) for a, b in zip(first, again)), (n, t_loc, hd)
+        _ring_close(first, attention.blockwise_ring_step_reference(q, k, v, bias, *state,
+                                                                   **kw), dtype)
+    if dtype == torch.float32:
+        b, t, nh, hd = 4, 197, 12, 64
+        qkv = _rand((b, t, 3 * nh * hd), dev, dtype, seed=7)
+        qs, ks, vs = qkv.reshape(b, t, 3, nh, hd).permute(2, 0, 3, 1, 4)
+        first = attention.single_pass_attention(qs, ks, vs, hd, kv_len=190)
+        for _ in range(2):
+            assert torch.equal(first, attention.single_pass_attention(qs, ks, vs, hd,
+                                                                      kv_len=190))
+        _rel_close(first, attention.single_pass_attention_reference(qs, ks, vs, hd,
+                                                                     kv_len=190),
+                   SINGLE_F32_REL)
+
+
+@pytest.mark.parametrize("hd", range(8, 129, 8))
+def test_ring_and_f32_geometry_match_the_kernels(dev, hd):
+    """The host's copies of the kernels' geometry, which the CPU tests hold
+    to the card's limits, are the kernels' own: the bf16 ring step's shared
+    memory and queries a unit, and the fp32 body's shared memory."""
+    geometry = _build.library().vit_ring_step_geometry
+    assert geometry(hd, 0) == attention.ring_kernel_smem_bytes(hd)
+    queries = geometry(hd, 1)
+    assert attention.ring_kernel_units(1, queries, hd) == 1
+    assert attention.ring_kernel_units(1, queries + 1, hd) == 2
+    assert geometry(hd, 2) == attention.f32_attention_smem_bytes(hd)
 
 
 def test_ring_step_kernel_refusals(dev):

@@ -116,6 +116,45 @@ def test_ring_step_matches_jax(no_launches, dtype, t_loc, block, carried):
         assert (_np(got[0]) == _np(want[0])).mean() >= MIN_SAME_M
 
 
+# The bf16 kernel's edges (csrc/attention_ring.cu): a whole-shard block one
+# key past 256 (ViT-L/16@512 on 4 shards: two passes over five 64-key
+# chunks, the fifth of one key), a ragged 343-key block at hd 80 (ViT-H/14@518
+# on 4 shards: a second 64-column box of 16), and two 512-key blocks (the
+# running max moving between them).
+KERNEL_EDGES = [(257, 257, 64), (343, 343, 80), (1024, 512, 64)]
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("t_loc,block,hd", KERNEL_EDGES)
+def test_ring_step_matches_jax_at_the_kernel_edges(no_launches, dtype, t_loc, block, hd):
+    """The plain version of the ring step against JAX's kernel (interpret
+    mode) at the kernels' edges, n = 2, carrying JAX's (m, l, acc) from a
+    first step on other keys, a bias masking the last 3 keys."""
+    tdt, jdt = DTYPES[dtype]
+    n, scale = 2, float(1.0 / np.sqrt(hd))
+    q, k, v, bias = _step_inputs(t_loc + hd, n, t_loc, hd, masked=3)
+    _, k0, v0, _ = _step_inputs(t_loc + hd + 1, n, t_loc, hd, masked=0)
+    kw = dict(scale=scale, block_q=block, block_k=block)
+    m, l, acc = (np.array(a) for a in jattn.blockwise_ring_step(
+        jnp.asarray(q, jdt), jnp.asarray(k0, jdt), jnp.asarray(v0, jdt),
+        jnp.zeros((1, t_loc)), jnp.full((n, t_loc), -jnp.inf), jnp.zeros((n, t_loc)),
+        jnp.zeros((n, t_loc, hd)), **kw))
+    want = jattn.blockwise_ring_step(
+        *(jnp.asarray(a, jdt) for a in (q, k, v)), jnp.asarray(bias),
+        jnp.asarray(m), jnp.asarray(l), jnp.asarray(acc), **kw)
+    got = attention.blockwise_ring_step(
+        *(torch.from_numpy(a).to(tdt) for a in (q, k, v)),
+        *(torch.from_numpy(a) for a in (bias, m, l, acc)), **kw)
+    for name, g, w in zip(("m", "l", "acc"), got, want):
+        g, w = _np(g), _np(w)
+        assert g.dtype == np.float32 and g.shape == w.shape
+        if dtype == "bf16" and name == "acc":
+            np.testing.assert_allclose(g, w, **BF16_TOL)
+        else:
+            np.testing.assert_allclose(g, w, rtol=0, atol=F32_REL * np.abs(w).max(),
+                                       err_msg=name)
+
+
 def test_ring_step_refuses_blocks_that_do_not_divide(no_launches):
     q, k, v, bias = _step_inputs(0, 1, 100, 16, masked=0)
     args = [torch.from_numpy(a) for a in (q, k, v, bias)]

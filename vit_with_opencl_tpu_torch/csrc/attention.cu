@@ -93,8 +93,8 @@ __host__ __device__ constexpr int fwd_smem_bytes() {
 struct FwdArgs {
   const bf16* q;
   bf16* out;
-  tiles::Strides qs, os;  // element strides (image, head, row) of q and out
-  MapOrder ko, vo;        // where K's and V's maps keep head, row and image (views)
+  Strides qs, os;   // element strides (image, head, row) of q and out
+  MapOrder ko, vo;  // where K's and V's maps keep head, row and image (views)
   int T, kv_len, num_heads, hd, units;
   float scale;
 };
@@ -230,7 +230,7 @@ __device__ __forceinline__ void attention_fwd(const CUtensorMap* map_k,
 #pragma unroll
     for (int kk = 0; kk < kSteps; ++kk)
 #pragma unroll
-      for (int r = 0; r < 4; ++r) qa[kk][r] = tiles::scale2(q_next[kk][r], scale);
+      for (int r = 0; r < 4; ++r) qa[kk][r] = scale2(q_next[kk][r], scale);
     load_q(q_next, u + gridDim.x);
     // s = qs . K^T of the K tile at `k` into c.
     auto scores = [&](float (&c)[32], uint32_t k) {

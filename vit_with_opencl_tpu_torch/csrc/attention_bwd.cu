@@ -134,9 +134,8 @@ attention_bwd_dq_kernel(const __grid_constant__ CUtensorMap map_qkv,
   const int D = num_heads * hd;
   const bf16* img = qkv + static_cast<size_t>(b) * T * 3 * D;
   uint32_t qa[kSteps][4], da[kSteps][4];
-  tiles::load_a<HDP>(qa, img, 3 * D, h * hd, r0, T, hd, q_scale, g, tq);
-  tiles::load_a<HDP>(da, dout + static_cast<size_t>(b) * T * D, D, h * hd, r0, T, hd, 1.f,
-                     g, tq);
+  load_a<HDP>(qa, img, 3 * D, h * hd, r0, T, hd, q_scale, g, tq);
+  load_a<HDP>(da, dout + static_cast<size_t>(b) * T * D, D, h * hd, r0, T, hd, 1.f, g, tq);
 
   int stage = 0;
   uint32_t phase = 0;
@@ -340,10 +339,10 @@ attention_bwd_dkv_kernel(const __grid_constant__ CUtensorMap map_qkv,
     warpgroup_sync(wg);
     for (int i = t; i < kTile / 16; i += 128) {
       uint4 v = reinterpret_cast<const uint4*>(stage_ptr)[i];
-      v.x = tiles::scale2(v.x, q_scale);
-      v.y = tiles::scale2(v.y, q_scale);
-      v.z = tiles::scale2(v.z, q_scale);
-      v.w = tiles::scale2(v.w, q_scale);
+      v.x = scale2(v.x, q_scale);
+      v.y = scale2(v.y, q_scale);
+      v.z = scale2(v.z, q_scale);
+      v.w = scale2(v.w, q_scale);
       qs_tile[i] = v;
     }
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");

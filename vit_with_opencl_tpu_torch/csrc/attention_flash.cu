@@ -182,10 +182,9 @@ blockwise_bwd_dq_kernel(const __grid_constant__ CUtensorMap map_qkv,
   const int row0 = r0 + g, row1 = r0 + g + 8;
   const int D = num_heads * hd;
   uint32_t qa[kSteps][4], da[kSteps][4];
-  tiles::load_a<HDP>(qa, qkv + static_cast<size_t>(b) * T * 3 * D, 3 * D, h * hd, r0, T, hd,
-                     1.f, g, tq);
-  tiles::load_a<HDP>(da, dout + static_cast<size_t>(b) * T * D, D, h * hd, r0, T, hd, 1.f, g,
-                     tq);
+  load_a<HDP>(qa, qkv + static_cast<size_t>(b) * T * 3 * D, 3 * D, h * hd, r0, T, hd, 1.f,
+              g, tq);
+  load_a<HDP>(da, dout + static_cast<size_t>(b) * T * D, D, h * hd, r0, T, hd, 1.f, g, tq);
   // dvec = rowsum(dO * O) of the forward's rounded output: each lane the
   // columns of its dO fragment (zero past T and hd), then the row's 4 lanes.
   const bf16* oimg = out + static_cast<size_t>(b) * T * D;
@@ -504,7 +503,7 @@ __device__ __forceinline__ uint64_t desc_val(uint32_t tile, int j, int kk) {
 struct FwdArgs {
   bf16* out;
   float* lse;           // [B, H, T] or null
-  tiles::Strides os;    // element strides (image, head, row) of out
+  Strides os;           // element strides (image, head, row) of out
   MapOrder qo, ko, vo;  // where the maps of q, K and V keep head, row and image
   int q_head0, k_head0, v_head0;  // head h at head coordinate head0 + h of each map
   int T, kv_len, num_heads, hd, units;

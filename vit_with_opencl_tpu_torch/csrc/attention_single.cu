@@ -19,138 +19,35 @@
 // K and V read by TMA from maps over their views, wgmma products, one pass
 // up to 256 keys and the exact max then e in two passes past that.
 //
-// fp32 (not rebuilt for Hopper yet): plain FMA on the CUDA cores (no TF32,
-// e not rounded), one thread per query row (two for head dims past 64, each
-// holding half of the row), K/V tiles of 32 rows in shared memory read as
-// broadcasts, two passes (the exact row max, then e, its sum and e . V).
-// Bound on the card: operations (fp32 at ViT-B's T = 197, B = 16: 1.9
-// GFLOP, 0.0285 ms at 67 TFLOP/s).
-#include <math.h>
-
-#include "attention_tiles.cuh"
+// fp32: the register-tiled CUDA-core body of attention_f32.cuh (plain FMA,
+// no TF32, e not rounded), shared with the ring step's fp32 form: blocks of
+// 64 queries, 4 x 4 micro-tiles of S read as float4s from row-major q and
+// K tiles in rows of hd + 4 floats in shared memory, e staged in shared
+// memory for the register-tiled e . V (V row-major alike), two
+// passes over double-buffered 64-key tiles (the exact row max, then e, its
+// sum and e . V). Bound on the card: operations (fp32 at ViT-B's T = 197,
+// B = 16: 1.9 GFLOP, 0.0285 ms at 67 TFLOP/s).
+#include "attention_f32.cuh"
 
 namespace vit {
 namespace single {
 
-using namespace tiles;
-
-// fp32: one thread per query row, or two (SPLIT) holding half of the head
-// dim each, which add their partial dot products with a shuffle.
-constexpr int kF32Rows = 64;  // query rows of a block
-constexpr int kF32Tile = 32;  // K/V rows of a tile
-
 template <int HDP>
-__host__ __device__ constexpr int f32_split() {
-  return HDP > 64 ? 2 : 1;
-}
-template <int HDP>
-__host__ __device__ constexpr size_t f32_smem_bytes() {  // a K and a V tile
-  return 2 * kF32Tile * HDP * sizeof(float);
-}
-
-template <int HDP>
-__global__ void __launch_bounds__(kF32Rows * (HDP > 64 ? 2 : 1))
-single_pass_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                       const float* __restrict__ v, float* __restrict__ out,
-                       HeadViews views, int T, int kv_len, int hd, float scale) {
-  constexpr int kSplit = f32_split<HDP>();
-  constexpr int kDims = HDP / kSplit;  // a thread's share of the head dim
-  const int b = blockIdx.z, h = blockIdx.y;
-  const float* kb = head_base(k, views.k, b, h);
-  const float* vb = head_base(v, views.v, b, h);
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* ks = reinterpret_cast<float*>(smem);  // [kF32Tile][HDP]
-  float* vs = ks + kF32Tile * HDP;             // [kF32Tile][HDP]
-  const int part = threadIdx.x % kSplit, d0 = part * kDims;
-  const int row = blockIdx.x * kF32Rows + threadIdx.x / kSplit;
-
-  float qr[kDims], o[kDims];
-  const float* qrow = head_base(q, views.q, b, h) + static_cast<long long>(row) * views.q.row;
-#pragma unroll
-  for (int d = 0; d < kDims; ++d) {
-    qr[d] = row < T && d0 + d < hd ? qrow[d0 + d] * scale : 0.f;
-    o[d] = 0.f;
-  }
-  // Rows [j0, j0 + kF32Tile) of K (and V) into shared memory, zeros past
-  // kv_len and hd; 16-byte loads (hd and the row strides are multiples of 4).
-  auto load = [&](float* dst, const float* base, long long pitch, int j0) {
-    constexpr int kChunks = HDP / 4;
-    for (int i = threadIdx.x; i < kF32Tile * kChunks; i += blockDim.x) {
-      const int r = i / kChunks, c = (i % kChunks) * 4;
-      float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (j0 + r < kv_len && c < hd)
-        val = *reinterpret_cast<const float4*>(base + (j0 + r) * pitch + c);
-      *reinterpret_cast<float4*>(dst + r * HDP + c) = val;
-    }
-  };
-  auto score = [&](int j) {  // the same FMA order in both passes
-    const float* kr = ks + j * HDP + d0;
-    float s = 0.f;
-#pragma unroll
-    for (int d = 0; d < kDims; d += 4) {
-      const float4 kv = *reinterpret_cast<const float4*>(kr + d);
-      s = fmaf(qr[d], kv.x, s);
-      s = fmaf(qr[d + 1], kv.y, s);
-      s = fmaf(qr[d + 2], kv.z, s);
-      s = fmaf(qr[d + 3], kv.w, s);
-    }
-    if (kSplit == 2) s += __shfl_xor_sync(0xffffffffu, s, 1);
-    return s;
-  };
-
-  // Pass 1: each row's max over the keys below kv_len (masked keys score
-  // MASK_VALUE, below any real score, and their e is exactly 0: skipped).
-  float m = -INFINITY;
-  for (int j0 = 0; j0 < kv_len; j0 += kF32Tile) {
-    __syncthreads();
-    load(ks, kb, views.k.row, j0);
-    __syncthreads();
-    const int n = min(kF32Tile, kv_len - j0);
-    for (int j = 0; j < n; ++j) m = fmaxf(m, score(j));
-  }
-  // Pass 2: e against the final max, fp32 row sum, fp32 e . V.
-  float l = 0.f;
-  for (int j0 = 0; j0 < kv_len; j0 += kF32Tile) {
-    __syncthreads();
-    load(ks, kb, views.k.row, j0);
-    load(vs, vb, views.v.row, j0);
-    __syncthreads();
-    const int n = min(kF32Tile, kv_len - j0);
-    for (int j = 0; j < n; ++j) {
-      const float e = expf(score(j) - m);
-      l += e;
-      const float* vr = vs + j * HDP + d0;
-#pragma unroll
-      for (int d = 0; d < kDims; d += 4) {
-        const float4 vv = *reinterpret_cast<const float4*>(vr + d);
-        o[d] = fmaf(e, vv.x, o[d]);
-        o[d + 1] = fmaf(e, vv.y, o[d + 1]);
-        o[d + 2] = fmaf(e, vv.z, o[d + 2]);
-        o[d + 3] = fmaf(e, vv.w, o[d + 3]);
-      }
-    }
-  }
-  if (row >= T) return;  // no barrier follows
-  const float inv = 1.f / l;
-  float* orow = head_base(out, views.o, b, h) + static_cast<long long>(row) * views.o.row;
-#pragma unroll
-  for (int d = 0; d < kDims; ++d)
-    if (d0 + d < hd) orow[d0 + d] = o[d] * inv;
+__global__ void __launch_bounds__(f32attn::kThreads, f32attn::min_blocks<HDP>())
+single_pass_f32_tiled_kernel(const __grid_constant__ f32attn::Args args) {
+  f32attn::attention_f32<HDP, false>(args);
 }
 
 template <int HDP>
 cudaError_t launch_f32(const void* q, const void* k, const void* v, void* out,
                        HeadViews views, int B, int H, int T, int kv_len, int hd,
                        float scale, cudaStream_t stream) {
-  constexpr size_t smem = f32_smem_bytes<HDP>();
-  cudaError_t err = allow_dynamic_smem(single_pass_f32_kernel<HDP>, smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((T + kF32Rows - 1) / kF32Rows, H, B);
-  single_pass_f32_kernel<HDP><<<grid, kF32Rows * f32_split<HDP>(), smem, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(out), views, T, kv_len, hd,
-      scale);
-  return cudaGetLastError();
+  f32attn::Args args{static_cast<const float*>(q), static_cast<const float*>(k),
+                     static_cast<const float*>(v), static_cast<float*>(out),
+                     views.q, views.k, views.v, views.o, nullptr, nullptr, nullptr,
+                     nullptr, nullptr, nullptr, T, kv_len, kv_len, hd, scale};
+  return f32attn::launch(single_pass_f32_tiled_kernel<HDP>, f32attn::smem_bytes<HDP>(), args,
+                         H, B, stream);
 }
 
 }  // namespace single
@@ -183,7 +80,7 @@ VIT_EXPORT int vit_single_pass_attention(const void* q, const void* k, const voi
     return vit::attn90::single_pass_views_bf16(q, k, v, out, strides, B, num_heads, T,
                                                 kv_len, head_dim, scale, s);
   if (dtype != vit::kF32) return cudaErrorInvalidValue;
-  const vit::tiles::HeadViews views = vit::tiles::head_views(strides);
+  const vit::HeadViews views = vit::head_views(strides);
   switch ((head_dim + 15) / 16 * 16) {
     case 16: return launch_f32<16>(q, k, v, out, views, B, num_heads, T, kv_len, head_dim, scale, s);
     case 32: return launch_f32<32>(q, k, v, out, views, B, num_heads, T, kv_len, head_dim, scale, s);

@@ -1,9 +1,11 @@
 // What the Hopper attention kernels share: the packed forward and the
 // single-pass attention (attention.cu, one body), the blockwise forward
-// (attention_flash.cu) and the packed backward (attention_bwd.cu): the head
-// maps, the tile geometry and its wgmma descriptors, the conversion of a
-// score accumulator into the A operand of the next product, and the stores
-// of a warpgroup's rows.
+// (attention_flash.cu), the packed backward (attention_bwd.cu) and the ring
+// step (attention_ring.cu): the head maps, the tile geometry and its wgmma
+// descriptors, the A fragments of a row-major matrix in registers, the
+// conversion of a score accumulator into the A operand of the next product,
+// the row reductions of the accumulator layout, and the stores of a
+// warpgroup's rows.
 //
 // Tiles. Each image's q, k and v of one head (and dO's) are read by TMA
 // from a 4-D map over a [B, H, T, hd] view: the packed [B, T, 3D] buffer as
@@ -21,7 +23,6 @@
 
 #include <float.h>
 
-#include "attention_tiles.cuh"
 #include "sm90.cuh"
 
 namespace vit {
@@ -131,7 +132,39 @@ __device__ __forceinline__ void tma_load_view(uint32_t dst, const CUtensorMap* m
   tma_load_4d(dst, map, col, at(1), at(2), at(3), bar);
 }
 
-// The raw words of load_a's fragments (tiles::load_a without the scale):
+// Two bf16 values times `s`, rounded to bf16 again (a scale applied to q).
+__device__ __forceinline__ uint32_t scale2(uint32_t v, float s) {
+  const __nv_bfloat162 h = *reinterpret_cast<const __nv_bfloat162*>(&v);
+  return pack_bf16x2(__bfloat162float(h.x) * s, __bfloat162float(h.y) * s);
+}
+
+// A fragments (mma.sync's m16n8k16 A layout, wgmma_rs's A operand) of 16
+// rows [r0, r0 + 16) x HDP columns of a row-major bf16 matrix (row pitch
+// `pitch`, column offset `off`), each value times `scale` and rounded to
+// bf16 again; rows past T and columns past hd are zero.
+template <int HDP>
+__device__ __forceinline__ void load_a(uint32_t (&a)[HDP / 16][4], const bf16* base,
+                                       int pitch, int off, int r0, int T, int hd,
+                                       float scale, int g, int t) {
+#pragma unroll
+  for (int s = 0; s < HDP / 16; ++s) {
+#pragma unroll
+    for (int reg = 0; reg < 4; ++reg) {
+      const int row = r0 + g + (reg & 1) * 8;
+      const int col = s * 16 + 2 * t + (reg >> 1) * 8;
+      float lo = 0.f, hi = 0.f;
+      if (row < T && col < hd) {
+        const __nv_bfloat162 v = *reinterpret_cast<const __nv_bfloat162*>(
+            base + static_cast<size_t>(row) * pitch + off + col);
+        lo = __bfloat162float(v.x) * scale;
+        hi = __bfloat162float(v.y) * scale;
+      }
+      a[s][reg] = pack_bf16x2(lo, hi);
+    }
+  }
+}
+
+// The raw words of load_a's fragments (load_a without the scale):
 // rows past T and columns past hd are zero. Loads in flight until used.
 template <int HDP>
 __device__ __forceinline__ void load_a_raw(uint32_t (&a)[HDP / 16][4], const bf16* base,
@@ -199,8 +232,25 @@ __device__ __forceinline__ void turns_end(int wg) {
 }
 
 // The max and the sum over the 4 lanes that hold a row.
-__device__ __forceinline__ void quad_max(float& v) { tiles::quad_max(v); }
-__device__ __forceinline__ void quad_sum(float& v) { tiles::quad_sum(v); }
+__device__ __forceinline__ void quad_max(float& v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+__device__ __forceinline__ void quad_sum(float& v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  v += __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+template <typename TOut>
+__device__ __forceinline__ void store2(TOut* p, float lo, float hi);
+template <>
+__device__ __forceinline__ void store2<bf16>(bf16* p, float lo, float hi) {
+  *reinterpret_cast<uint32_t*>(p) = pack_bf16x2(lo, hi);
+}
+template <>
+__device__ __forceinline__ void store2<float>(float* p, float lo, float hi) {
+  *reinterpret_cast<float2*>(p) = make_float2(lo, hi);
+}
 
 // Rows r0 + g and r0 + g + 8 of a warp (accumulator layout, acc[j]: columns
 // 64j..64j+63) times (s0, s1), into row-major [T, pitch] at column `off`,
@@ -217,10 +267,10 @@ __device__ __forceinline__ void store_rows(TOut* img, int pitch, int off,
       const int col = 64 * j + 8 * d + 2 * t;
       if (col >= hd) continue;
       if (row0 < T)
-        tiles::store2<TOut>(img + static_cast<size_t>(row0) * pitch + off + col,
+        store2<TOut>(img + static_cast<size_t>(row0) * pitch + off + col,
                             acc[j][4 * d] * s0, acc[j][4 * d + 1] * s0);
       if (row1 < T)
-        tiles::store2<TOut>(img + static_cast<size_t>(row1) * pitch + off + col,
+        store2<TOut>(img + static_cast<size_t>(row1) * pitch + off + col,
                             acc[j][4 * d + 2] * s1, acc[j][4 * d + 3] * s1);
     }
 }

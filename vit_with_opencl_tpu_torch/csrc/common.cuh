@@ -204,4 +204,25 @@ __host__ inline cudaError_t allow_dynamic_smem(Kernel kernel, size_t bytes) {
                               static_cast<int>(bytes));
 }
 
+// Element strides (image, head, row) of a [B, H, T, hd] view whose last
+// axis is contiguous: split-head tensors, their permuted views of a [B, T,
+// 3D] GEMM output, or a head's columns of the packed slabs.
+struct Strides {
+  long long batch, head, row;
+};
+struct HeadViews {
+  Strides q, k, v, o;
+};
+
+// Views from the 12 strides q, k, v, o (batch, head, row each) in order.
+__host__ inline HeadViews head_views(const long long* s) {
+  return HeadViews{{s[0], s[1], s[2]}, {s[3], s[4], s[5]},
+                   {s[6], s[7], s[8]}, {s[9], s[10], s[11]}};
+}
+
+template <typename T>
+__device__ __forceinline__ T* head_base(T* p, Strides s, int b, int h) {
+  return p + b * s.batch + h * s.head;
+}
+
 }  // namespace vit

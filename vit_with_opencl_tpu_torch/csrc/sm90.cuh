@@ -1,8 +1,8 @@
 // Hopper (sm_90a) parts shared by the GEMM core (gemm_sm90.cuh) and the
 // attention kernels (attention.cu, attention_bwd.cu, attention_flash.cu's
 // forward): mbarriers, TMA loads, wgmma's shared-memory descriptors, fence,
-// commit and wait, the m64n64k16 and m64n128k16 products the attention
-// kernels take, and the tensor maps' encoding with a host-side cache.
+// commit and wait, the m64n64k16, m64n128k16 and m64n8k16 products the
+// attention kernels take, and the tensor maps' encoding with a host-side cache.
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and the encode's enums (types only: no -lcuda)
@@ -168,6 +168,22 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da, uint64_t d
       ", %32, %33, p, 1, 1, 0, 0;\n"
       "}\n"
       : VIT_WGMMA_D32_OUT(d)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d[64 x 8] (+)= A[64 x 16] . B[16 x 8], both from shared memory, K-major:
+// the accumulator layout of the first 8 columns of the m64n64k16 products
+// (d[0], d[1]: row g, columns 2t, 2t + 1; d[2], d[3]: row g + 8).
+__device__ __forceinline__ void wgmma_ss_n8(float (&d)[4], uint64_t da, uint64_t db,
+                                            int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %6, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3}, %4, %5, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "l"(da), "l"(db), "r"(accumulate));
 }
 

@@ -48,7 +48,8 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _LL = ctypes.POINTER(ctypes.c_longlong)  # a host array of int64 (strides)
-# name -> argtypes; every entry point returns its cudaError_t as an int.
+# name -> argtypes; every entry point returns an int: its cudaError_t (the
+# geometry query: a size).
 SIGNATURES = {
     # x, x_dtype, w, b, y, y_dtype, rows, cols, eps, stream
     "vit_layernorm": [_P, _I, _P, _P, _P, _I, _I, _I, _F, _P],
@@ -104,6 +105,8 @@ SIGNATURES = {
     # t_loc, head_dim, block_k, scale, stream
     "vit_ring_step": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                       _I, _F, _P],
+    # head_dim, what (0, 1, 2) -> bytes or queries, not an error code
+    "vit_ring_step_geometry": [_I, _I],
     # The overlap probe (csrc/probe_overlap.cu): x, o, scratch, blocks, stream
     "vit_probe_stream": [_P, _P, _P, _I, _P],
     # x, ln, out, scale, scratch, blocks, stream

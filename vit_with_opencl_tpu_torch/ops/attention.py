@@ -24,8 +24,9 @@ routes the same way, so the chains' plain links compare like with like.
 routes as JAX's: T ≤ ``SINGLE_PASS_MAX_T`` to ``single_pass_attention``,
 which replaces ``_single_pass_kernel`` (the one-shot softmax of
 ``_head_attention``: in bf16 the packed kernel's Hopper body, whose
-function it is, on strided views with a key count; in fp32 a CUDA-core
-kernel of ``csrc/attention_single.cu``), longer T to the blockwise kernel
+function it is, on strided views with a key count; in fp32 the
+register-tiled CUDA-core body of ``csrc/attention_f32.cuh``, which the
+ring step's fp32 form shares), longer T to the blockwise kernel
 through its strided entry. Its plain version is
 ``flash_attention_reference``. Both kernels read q, k and v as strided
 views (a contiguous last axis, 16-byte rows), so the permuted views of a
@@ -41,13 +42,15 @@ and ``true_seq_len`` (keys at and past it masked: a token axis that the
 caller already padded) launch its entry with a key count and a packing;
 both count under ``LAUNCHES``. The packed kernel takes bf16; fp32 inputs
 with per-head packing or a key count take the single-pass attention's fp32
-kernel on strided views of the packed buffer (``LAUNCHES_SINGLE``).
+form on strided views of the packed buffer (``LAUNCHES_SINGLE``).
 
 ``blockwise_ring_step`` replaces ``_flash_carry_kernel``, the local step of
 ring attention (``ops/ring_attention.py``): one rotation's blockwise
 attention whose (m, l, acc) come in from the previous rotation and go out
-un-normalised, bf16 or fp32, through ``csrc/attention_ring.cu``; its plain
-version is ``blockwise_ring_step_reference``.
+un-normalised, through ``csrc/attention_ring.cu``: bf16 on the Hopper parts
+(TMA-staged K/V tiles that a row group's query tiles share, ``wgmma``
+products), fp32 on the register-tiled body of ``csrc/attention_f32.cuh``;
+its plain version is ``blockwise_ring_step_reference``.
 
 Every wrapper launches a kernel for a CUDA tensor and computes its plain
 version for a CPU tensor; there is no other fallback. Not ported yet: fp32
@@ -236,6 +239,55 @@ def blockwise_bwd_kernel_smem_bytes(head_dim: int) -> int:
     dkv = (_ALIGN_BYTES + 2 * KERNEL_CONSUMERS * tile
            + stages * (2 * tile + 1024) + (1 + 2 * stages) * 8)
     return max(dq, dkv)
+
+
+# The ring step's bf16 kernel (csrc/attention_ring.cu): consumer warpgroups
+# of 64 queries a block (three up to hd 64, two past it), a ring of stages
+# (a 64-key K tile, its V tile and the tile's key biases padded to 1024
+# bytes: 6 up to hd 64, 4 past it) and q slots (two units' up to hd 64, one
+# past it).
+# The card tests hold these copies, and the fp32 body's below, against the
+# kernels' own (``vit_ring_step_geometry``).
+RING_STAGE_BIAS_BYTES = 1024
+
+
+def _ring_geometry(head_dim: int) -> tuple:
+    """(consumers, stages, q slots) of the bf16 ring step kernel."""
+    return (3, 6, 2) if head_dim <= 64 else (2, 4, 1)
+
+
+def ring_kernel_smem_bytes(head_dim: int) -> int:
+    """Shared memory of one block of the bf16 ring step kernel
+    (csrc/attention_ring.cu ``smem_bytes``): its ring of stages, the
+    consumers' q tiles and their barriers, at any t_loc and block_k."""
+    consumers, stages, q_slots = _ring_geometry(head_dim)
+    tile = _tile_bytes(head_dim)
+    return (_ALIGN_BYTES + stages * (2 * tile + RING_STAGE_BIAS_BYTES)
+            + q_slots * consumers * tile + 2 * (stages + q_slots) * 8)
+
+
+def ring_kernel_units(n: int, t_loc: int, head_dim: int) -> int:
+    """Work units of the bf16 ring step kernel: each row group's queries in
+    units of one 64-query tile a consumer, all sharing the unit's K/V."""
+    consumers = _ring_geometry(head_dim)[0]
+    return n * -(-t_loc // (consumers * KERNEL_ROWS))
+
+
+# The fp32 attention body (csrc/attention_f32.cuh), shared by the
+# single-pass attention's and the ring step's fp32 forms: blocks of 64
+# queries, 64-key tiles; q, K and V row-major in rows of hd + 4 floats, p
+# [query][key] in rows of 64 + 16, K, V and the keys' bias double buffered.
+F32_ROWS = 64
+F32_P_PITCH = F32_ROWS + 16
+
+
+def f32_attention_smem_bytes(head_dim: int) -> int:
+    """Shared memory of one block of the fp32 body (``f32attn::smem_bytes``):
+    q, two K and two V tiles, p and two bias tiles, at the head dim padded
+    to a multiple of 16; any T, kv_len and block_k."""
+    hdp = -(-head_dim // 16) * 16
+    floats = 5 * F32_ROWS * (hdp + 4) + F32_ROWS * F32_P_PITCH + 2 * F32_ROWS
+    return 4 * floats
 
 
 def _stats_rows(seq_len: int) -> int:
