@@ -62,6 +62,10 @@ of its two runs. The figures (ms):
   bf16 context (12 heads of 64, tails of 8) at B = 16 and 256;
 * the ViT-B/16 bf16 forward at B = 64 and 256; W8A8, int8 weights and
   calibrated W8A8 at 256; the ViT-Ti and ViT-S stacks at 16 and 256;
+* the W8A8 overlap probe's GEMM forms (rows 18d-18f: mxu, fused, indep:q,
+  indep:ln) at 256 and 64 blocks on its ``main()``'s data, w from each
+  tree's own ``weights()`` (stored K-major where the tree's kernels read it
+  so, row-major before);
 * the ViT-B/16 ``fused`` AdamW step at B = 64 and ViT-L/16@384's at 32;
 * ViT-L/16@512 (T = 1025, row 9's route) at B = 16: the bf16 ``flash``
   forward and the ``fused`` and ``flash`` AdamW steps (rows 9 and 12 are
@@ -87,6 +91,7 @@ Gates (slower only, so a later tree that is faster passes): W8A8, int8
 weights and calibrated W8A8 at B = 256 at most 3% slower than the parent's;
 rows 5b and 6c at each of their shapes at B = 256 at most 3% slower;
 rows 5a and 6a at each of their sites at B = 256 at most 3% slower;
+the probe's four GEMM forms (rows 18d-18f) at 256 blocks at most 3% slower;
 row 14b in both forms at ViT-B/16 B = 64 and ViT-L/16@384 B = 32 and row
 6b at B = 256 at most 3% slower;
 row 4 at ViT-B/16 B = 256, row 11 at each of its shapes and the ViT-B/16
@@ -165,6 +170,10 @@ RING_SHAPES = (("ViT-L/16@512 4 shards", 8, 16, 257, 64, 257, 3, torch.bfloat16)
                ("ViT-L/16@512 8 shards", 4, 16, 129, 64, 129, 7, torch.bfloat16),
                ("ViT-L/16@512 4 shards", 8, 16, 257, 64, 257, 3, torch.float32))
 RING_FORWARD_BATCH = 8  # chip_smoke.py's RING_BATCH
+# The overlap probe's grids (its main()'s and phase 2j's ratio grid) and GEMM
+# forms with their kernel table rows; the gate takes the first grid.
+PROBE_GRIDS = (256, 64)
+PROBE_ROWS = {"mxu": "18d", "fused": "18e", "indep:q": "18f", "indep:ln": "18f"}
 RING_SHARDS = 4
 # (name, tokens, heads, head dim, batch, with the LSE) of row 9's figures;
 # row 12's at each shape without the LSE.
@@ -477,6 +486,25 @@ def ring_figures(pkg, dev) -> dict:
     return out
 
 
+def probe_figures(pkg, dev) -> dict:
+    """Rows 18d-18f: each GEMM form of the tree's overlap probe on its
+    main()'s data at PROBE_GRIDS blocks, w and sw from the tree's own
+    ``weights()``."""
+    probe = pkg["probe"]
+    w, sw = probe.weights(dev)
+    out = {}
+    for grid in PROBE_GRIDS:
+        rows = grid * probe.M_BLOCK
+        ops = dict(xf=probe._x_f32(rows, 7, dev), xq=probe._x_i8(rows, 11, dev), w=w,
+                   sw=sw)
+        for form, row in PROBE_ROWS.items():
+            out[f"row {row} probe {form} GRID={grid}"] = time_ms(
+                lambda: probe.run(form, ops))
+        del ops
+        torch.cuda.empty_cache()
+    return out
+
+
 def long_config(pkg):
     """ViT-L/16@512: ViT-L/16@384's geometry at 512 (chip_smoke.LONG_CFG)."""
     return dataclasses.replace(pkg["VIT_L_16_384"], name="vit_l_16_512", img_size=512)
@@ -580,8 +608,9 @@ def figures_main(root: str, host_only: bool) -> int:
     from vit_with_opencl_tpu_torch.ops import (_build, attention, layernorm, linear,
                                                quantize)
     from vit_with_opencl_tpu_torch.parallel import spmd
+    from vit_with_opencl_tpu_torch.scripts import probe_w8a8_overlap as probe
     pkg = dict(linear=linear, attention=attention, layernorm=layernorm, optim=optim,
-               perf=perf,
+               perf=perf, probe=probe,
                quantize=quantize,
                vit=vit, quant=quant, spmd=spmd, fixtures=fixtures,
                InferenceEngine=InferenceEngine, VIT_B_16_224=VIT_B_16_224,
@@ -607,6 +636,7 @@ def figures_main(root: str, host_only: bool) -> int:
             out.update(forward_figures(pkg, dev))
             out.update(long_forward_figures(pkg, dev))
             out.update(stack_figures(pkg, dev, (SMOKE_BATCH, THROUGHPUT_BATCHES[-1])))
+            out.update(probe_figures(pkg, dev))
     if not host_only:
         out.update(training_figures(pkg, dev))
         with torch.inference_mode():
@@ -750,7 +780,8 @@ def main(argv: list[str]) -> int:
     for key in (k for k in after
                 if (k.startswith(("row 5b ", "row 6c ", "row 5a ", "row 6a ", "row 6b "))
                     and k.endswith(f"B={GEMM_BATCHES[-1]}"))
-                or (k.startswith("row 14b ") and k.endswith(LN_BWD_GATED))):
+                or (k.startswith("row 14b ") and k.endswith(LN_BWD_GATED))
+                or (k.startswith("row 18") and k.endswith(f"GRID={PROBE_GRIDS[0]}"))):
         ratio = after[key] / before[key]
         gates[key] = ratio <= 1 + STEADY_PATHS_TOL
         print(f"{'ok  ' if gates[key] else 'FAIL'} {key}: this / parent {ratio:.4f} "

@@ -102,8 +102,11 @@ line.
    for the same bits; the registers and spills of each form of
    ``csrc/quantize.cu`` and ``csrc/layernorm.cu``, and of the ring step's
    (``csrc/attention_ring.cu``: the bf16 kernel, the fp32 body) and the
-   single-pass attention's fp32 body (``csrc/attention_single.cu``), none of
-   which may spill (``nvcc -Xptxas -v``);
+   single-pass attention's fp32 body (``csrc/attention_single.cu``), and of
+   the overlap probe's kernels (``csrc/probe_overlap.cu``: the wgmma GEMM
+   kernels' warpgroups hold their ``setmaxnreg`` shares, printed beside),
+   none of which may spill or have its ``setmaxnreg`` ignored (``nvcc
+   -Xptxas -v``);
    then rows 2, 5d, 14b, 14c, 5a, 6a and 6b at ViT-B B = 16 traced
    alone with ``perf.device_kernel_table``: device time a call beside the
    same trace of ``F.layer_norm`` and ``x.float().sum(0)`` (none for the
@@ -181,7 +184,7 @@ line.
 2h. The kernel layer's public ops against their plain versions:
    ``flash_attention`` (the single-pass kernel) at ViT-B/16's heads (B = 16
    as split heads and as the permuted views of a packed GEMM output, B =
-   256, fp32 at B = 16), T = 577 (B = 8) and 1024 (B = 4), and at T = 1025
+   256, fp32 at B = 16 and 256), T = 577 (B = 8) and 1024 (B = 4), and at T = 1025
    (the blockwise kernel on split heads, B = 4); ``packed_fused_attention``
    at T = 900 and 1024 (16 heads of 64, B = 4: the packed kernel on the
    slabs, where its first form's shared memory ended) and with per-head
@@ -207,13 +210,17 @@ line.
    vpu:q, vpu:ln, mxu, fused, indep with the quantize and with the LN)
    against their plain versions at a grid of 4 blocks and N = 3072, on the
    probe's data and on seeded random data (bit-identical; the LN within one
-   bf16 ulp); then the probe's ``main()`` at its full grid of 256 blocks,
+   bf16 ulp; the GEMM forms on w stored K-major, as ``probe.weights()``
+   gives it: int8 wgmma reads no other layout); then the probe's ``main()``
+   at its full grid of 256 blocks,
    the main path of these kernels (151 launches of each form); each form
    again on ``main()``'s own data at 256 blocks against its plain version
    (the same tolerances: the int8 rows past the int32 wrap reach the
    outputs there), and its time at 256 blocks over its time at 64 within
-   [3, 5] (no block's work dropped). Yardsticks: ``torch._int_mm`` with the epilogue as ops
-   (mxu), ``F.layer_norm`` (vpu:ln).
+   [3, 5] (no block's work dropped). Yardsticks: ``torch._int_mm`` on the
+   K-major w with the epilogue as ops (mxu), ``F.layer_norm`` (vpu:ln).
+   Printed beside: mxu, indep:q and indep:ln at 256 blocks and N = 128 (the
+   row warpgroup with 1/24 of the GEMM beside it: its own time).
 3f. Multi-device inference on virtual meshes of the one card (every shard
    on cuda:0): ``sp_forward(kv="ring")`` at ViT-L/16@512, bf16, mesh (1, 4),
    B = 8 on phase 3e's weights and images (24 layers x 4 rotations x 4
@@ -263,6 +270,7 @@ import functools
 import io
 import json
 import math
+import re
 import subprocess
 import sys
 import tempfile
@@ -482,6 +490,7 @@ PUBLIC_ATTN_ROWS = (
     ("ViT-B/16", 16, 12, 197, 64, torch.bfloat16, True),
     ("ViT-B/16", 256, 12, 197, 64, torch.bfloat16, False),
     ("ViT-B/16", 16, 12, 197, 64, torch.float32, False),
+    ("ViT-B/16", 256, 12, 197, 64, torch.float32, False),
     ("ViT-L/16@384", 8, 16, 577, 64, torch.bfloat16, False),
     ("the single-pass route's last T", 4, 16, 1024, 64, torch.bfloat16, False),
     ("ViT-L/16@512", 4, 16, 1025, 64, torch.bfloat16, False),
@@ -2435,25 +2444,40 @@ def masked_width_rows(dev) -> list[dict]:
     return rows
 
 
-# Phase 2k's ptxas reports: (source, whether a spill fails the run).
+# Phase 2k's ptxas reports: (source, whether a spill or an ignored
+# setmaxnreg fails the run).
 USAGE_SOURCES = (("quantize.cu", False), ("layernorm.cu", False),
-                 ("attention_ring.cu", True), ("attention_single.cu", True))
+                 ("attention_ring.cu", True), ("attention_single.cu", True),
+                 ("probe_overlap.cu", True))
 
 
 def print_resource_usage(source: str, no_spills: bool = False) -> None:
     """Phase 2k: each kernel of ``csrc/<source>``'s registers a thread and
-    spills, as ptxas reports them for the build's flags; with
-    ``no_spills``, a check that no form spills."""
+    spills, as ptxas reports them for the build's flags (and its warnings),
+    and the source's ``k*Regs = n`` setmaxnreg shares where it names them;
+    with ``no_spills``, a check that no form spills and none has its
+    setmaxnreg ignored (a warpgroup's share ptxas cannot fit spills, one it
+    cannot determine is dropped with warning C7508)."""
     kernels = _build.resource_usage(source)
     for k in kernels:
         print(f"  ptxas {source}: {k['name'][:110]}: {k['registers']} registers, "
               f"{k['spill_stores']} bytes spill stores, {k['spill_loads']} bytes spill "
               f"loads", flush=True)
+        for warning in k["warnings"]:
+            print(f"    {warning[:160]}", flush=True)
+    shares = re.findall(r"\b(k\w*Regs) = (\d+)", (_build.CSRC_DIR / source).read_text())
+    if shares:
+        print(f"  {source} setmaxnreg shares (registers a thread): "
+              f"{', '.join(f'{name} {n}' for name, n in shares)}", flush=True)
     if no_spills:
         spilled = [k["name"][:80] for k in kernels if k["spill_stores"] or k["spill_loads"]]
         check(bool(kernels) and not spilled,
               f"ptxas {source}: {len(kernels)} kernel forms, none spills "
               f"(spilled: {spilled or 'none'})")
+        ignored = [k["name"][:80] for k in kernels
+                   if any("setmaxnreg" in w for w in k["warnings"])]
+        check(not ignored, f"ptxas {source}: no setmaxnreg ignored (ignored in: "
+                           f"{ignored or 'none'})")
 
 
 def reduction_device_times(dev) -> None:
@@ -3422,7 +3446,7 @@ def probe_data(dev, kind: str, grid: int, seed: int = 0) -> dict:
                              dtype=torch.int8)
 
     return dict(xf=torch.randn((rows, probe.K), generator=gen, device=dev) * 2.0,
-                xq=i8(rows, probe.K), w=i8(probe.K, probe.N),
+                xq=i8(rows, probe.K), w=quant.k_major(i8(probe.K, probe.N)),
                 sw=torch.rand((1, probe.N), generator=gen, device=dev) * 9e-4 + 1e-4)
 
 
@@ -3507,7 +3531,19 @@ def probe_phase(dev) -> tuple:
         print(f"  {rows[-1]['name']}: {times[form]:.4f} ms, bound {bound_ms:.4f} ms "
               f"({bound_by}), plain {plain_ms:.4f} ms, library {lib} ms, "
               f"GRID={PROBE_RATIO_GRID} {t_small:.4f} ms", flush=True)
-    del big, small
+    # The row warpgroup nearly alone: indep at N = 128 does 1/24 of the GEMM's
+    # work beside all of its row work (printed beside mxu at N = 128 and the
+    # row kernels alone: whether indep's time at N = 3072 is the GEMM's or
+    # the row warpgroup's own).
+    narrow = dict(big, w=big["w"][:, :128], sw=big["sw"][:, :128])
+    alone = {form: probe._call(lambda: probe.run(form, narrow), dev) * 1e3
+             for form in ("mxu", "indep:q", "indep:ln")}
+    print(f"  probe GRID={probe.GRID} N=128 (the row warpgroup nearly alone): "
+          + ", ".join(f"{form} {ms:.4f} ms" for form, ms in alone.items())
+          + f"; at N={probe.N}: vpu:q {times['vpu:q']:.4f}, vpu:ln {times['vpu:ln']:.4f}, "
+          f"mxu {times['mxu']:.4f}, indep:q {times['indep:q']:.4f}, indep:ln "
+          f"{times['indep:ln']:.4f} ms", flush=True)
+    del big, small, narrow
     torch.cuda.empty_cache()
     return rows, counts
 
@@ -3597,8 +3633,8 @@ def main() -> int:
     with torch.inference_mode():
         phase(f"== phase 2k: the LN, LN backward and quantize kernels at the stacks', "
               f"ViT-L's (and all but the LN at ViT-H's and ViT-G's) widths vs their "
-              f"plain versions; the quantize, LN, ring step and fp32 attention forms' "
-              f"registers; device times of "
+              f"plain versions; the quantize, LN, ring step, fp32 attention and probe "
+              f"kernels' registers; device times of "
               f"rows 2, 5d, 14b, 14c, 5a, 6a and 6b at B={SMOKE_BATCH} (torch.profiler)")
         ln_width_rows(dev)
         quantize_width_rows(dev)

@@ -1742,11 +1742,13 @@ def test_mesh_paths_across_cards(cards):
 
 
 # The overlap probe's kernels (csrc/probe_overlap.cu) against their plain
-# versions at a grid of 2 and 4 blocks, on the probe's own data (degenerate:
-# every row of x alike, xq constant along each row, w along N) and on seeded
-# random data. The int8 values, the scales, the stream's output and the
-# GEMMs' bf16 outputs are bit-identical; the LN's bf16 outputs are within
-# one bf16 ulp (near 0, one fp32 ulp of their unit scale) and 99% identical.
+# versions at a grid of 1 to 4 blocks and N = 128, 256 and 3072, on the
+# probe's own data (degenerate: every row of x alike, xq constant along each
+# row, w along N) and on seeded random data, w stored K-major (what the GEMM
+# kernels' int8 wgmma reads). The int8 values, the scales, the stream's
+# output and the GEMMs' bf16 outputs are bit-identical; the LN's bf16
+# outputs are within one bf16 ulp (near 0, one fp32 ulp of their unit
+# scale) and 99% identical; a second call gives the same bits.
 PROBE_FORMS = ("stream", "vpu:q", "vpu:ln", "mxu", "fused", "indep:q", "indep:ln")
 
 
@@ -1760,11 +1762,12 @@ def _probe_data(dev, kind: str, grid: int, n: int, seed: int = 0) -> dict:
         return dict(xf=probe._x_f32(rows, 7, dev), xq=probe._x_i8(rows, 11, dev),
                     w=w, sw=sw)
     rng = np.random.default_rng(seed)
-    return {key: torch.from_numpy(v).to(dev) for key, v in dict(
+    d = {key: torch.from_numpy(v).to(dev) for key, v in dict(
         xf=rng.normal(0.0, 2.0, (rows, probe.K)).astype(np.float32),
         xq=rng.integers(-127, 128, (rows, probe.K)).astype(np.int8),
         w=rng.integers(-127, 128, (probe.K, n)).astype(np.int8),
         sw=rng.uniform(1e-4, 1e-3, (1, n)).astype(np.float32)).items()}
+    return dict(d, w=probe.k_major(d["w"]))
 
 
 def _probe_run(form: str, d: dict, reference: bool):
@@ -1788,7 +1791,8 @@ def _probe_close(form: str, outs, refs) -> None:
 
 
 @pytest.mark.parametrize("kind", ["probe", "random"])
-@pytest.mark.parametrize("grid,n", [(2, 256), (4, 3072)])
+@pytest.mark.parametrize("grid,n", [(2, 256)] + [(g, n) for g in (1, 3, 4)
+                                                  for n in (128, 256, 3072)])
 @pytest.mark.parametrize("form", PROBE_FORMS)
 def test_probe_kernel(dev, form, grid, n, kind, monkeypatch):
     from vit_with_opencl_tpu_torch.scripts import probe_w8a8_overlap as probe
@@ -1801,6 +1805,26 @@ def test_probe_kernel(dev, form, grid, n, kind, monkeypatch):
     torch.cuda.synchronize()
     assert all(o.is_cuda for o in outs)
     assert getattr(probe, counter) == before + 1
+    _probe_close(form, outs, _probe_run(form, d, reference=True))
+    again = _probe_run(form, d, reference=False)
+    assert all(torch.equal(a, o) for a, o in zip(again, outs))
+
+
+@pytest.mark.parametrize("gemm_grid", [1, 3])
+@pytest.mark.parametrize("n", [128, 384, 3072])
+@pytest.mark.parametrize("form", ["mxu", "fused", "indep:q", "indep:ln"])
+def test_probe_gemm_kernel_walks_several_chunks_a_block(dev, form, n, gemm_grid,
+                                                        monkeypatch):
+    """The GEMM kernels' persistent grid cut to 1 and 3 blocks: each block
+    walks several of the 32 chunks (3: unevenly), with one column tile a
+    chunk (n = 128: one consumer warpgroup idle in each), an odd count (384)
+    and 24; the row warpgroup's stride over the rows changes with it."""
+    from vit_with_opencl_tpu_torch.scripts import probe_w8a8_overlap as probe
+
+    d = _probe_data(dev, "random", 4, n, seed=2)
+    monkeypatch.setattr(probe, "_gemm_grid", lambda blocks, device: gemm_grid)
+    outs = _probe_run(form, d, reference=False)
+    torch.cuda.synchronize()
     _probe_close(form, outs, _probe_run(form, d, reference=True))
 
 
@@ -1829,6 +1853,9 @@ def test_probe_wrappers_refuse_what_the_kernels_do_not_take(dev):
         probe.vpu_quant(d["xf"][:1000])
     with pytest.raises(ValueError, match="multiple of 128"):
         probe.mxu(d["xq"], d["w"][:, :200].contiguous(), d["sw"][:, :200].contiguous())
+    for form in ("mxu", "fused", "indep:q"):
+        with pytest.raises(ValueError, match="K-major"):
+            probe.run(form, dict(d, w=d["w"].contiguous()))
     with pytest.raises(TypeError, match="dtype"):
         probe.fused(d["xq"], d["w"], d["sw"])
     with pytest.raises(ValueError, match="vpu_op"):

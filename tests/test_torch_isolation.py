@@ -101,13 +101,15 @@ def test_build_failure_carries_nvcc_stderr(monkeypatch, tmp_path):
 
 
 def test_resource_usage_reads_the_ptxas_report(monkeypatch, tmp_path):
-    """Each entry function's registers and spills, the names demangled by
-    the toolkit's cu++filt beside nvcc."""
+    """Each entry function's registers, spills and warnings, the names
+    demangled by the toolkit's cu++filt beside nvcc."""
     report = ("ptxas info    : Compiling entry function '_Z1av' for 'sm_90a'\n"
               "ptxas info    : Function properties for _Z1av\n"
               "    0 bytes stack frame, 8 bytes spill stores, 4 bytes spill loads\n"
               "ptxas info    : Used 168 registers, used 1 barriers\n"
               "ptxas info    : Compiling entry function '_Z1bv' for 'sm_90a'\n"
+              "ptxas warning : (C7508) setmaxnreg ignored; unable to determine "
+              "register count at entry\n"
               "ptxas info    : Function properties for _Z1bv\n"
               "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
               "ptxas info    : Used 40 registers, used 0 barriers\n")
@@ -120,8 +122,11 @@ def test_resource_usage_reads_the_ptxas_report(monkeypatch, tmp_path):
     monkeypatch.setattr(_build, "find_nvcc", lambda: str(fake))
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
     assert _build.resource_usage("quantize.cu") == [
-        {"name": "a()", "registers": 168, "spill_stores": 8, "spill_loads": 4},
-        {"name": "b()", "registers": 40, "spill_stores": 0, "spill_loads": 0}]
+        {"name": "a()", "registers": 168, "spill_stores": 8, "spill_loads": 4,
+         "warnings": []},
+        {"name": "b()", "registers": 40, "spill_stores": 0, "spill_loads": 0,
+         "warnings": ["ptxas warning : (C7508) setmaxnreg ignored; unable to "
+                      "determine register count at entry"]}]
 
 
 def test_build_key_follows_the_sources(monkeypatch, tmp_path):

@@ -179,6 +179,53 @@ def test_generators_match_jax(jprobe, monkeypatch):
     assert sw.dtype == torch.float32 and (sw == np.float32(3e-4)).all()
 
 
+@pytest.mark.parametrize("n", [128, 3072])
+def test_weights_are_the_row_major_w_stored_k_major(monkeypatch, n):
+    """``weights()``' w is the JAX script's row-major w, one copy stored
+    K-major (what the GEMM kernels' int8 wgmma reads): same shape, dtype and
+    values, strides (1, K)."""
+    monkeypatch.setattr(probe, "N", n)
+    w, _ = probe.weights()
+    row_major = probe._weights_row_major()
+    assert row_major.is_contiguous() and row_major.shape == (probe.K, n)
+    assert w.shape == row_major.shape and w.dtype == row_major.dtype == torch.int8
+    assert w.stride() == (1, probe.K)
+    assert torch.equal(w, row_major)
+    assert w.data_ptr() != row_major.data_ptr()
+
+
+@pytest.mark.parametrize("form", ["mxu", "fused", "indep:q", "indep:ln"])
+def test_gemm_wrappers_refuse_a_row_major_w_before_the_launch(monkeypatch, form):
+    """On the card path (tensors that say they are CUDA tensors) each GEMM
+    wrapper raises on a row-major w before it allocates or launches
+    anything; the same call with w stored K-major gets past the check to
+    the launch."""
+    rng = np.random.default_rng(3)
+    rows = probe.M_BLOCK
+    d = dict(xf=torch.from_numpy(rng.normal(0.0, 2.0, (rows, probe.K)).astype(np.float32)),
+             xq=torch.from_numpy(rng.integers(-127, 128, (rows, probe.K)).astype(np.int8)),
+             w=torch.from_numpy(rng.integers(-127, 128, (probe.K, N)).astype(np.int8)),
+             sw=torch.from_numpy(rng.uniform(1e-4, 1e-3, (1, N)).astype(np.float32)))
+    launched = []
+
+    class Launched(Exception):
+        pass
+
+    def launch(name, *args):
+        launched.append(name)
+        raise Launched(name)
+
+    monkeypatch.setattr(probe._build, "launch", launch)
+    monkeypatch.setattr(probe, "_gemm_grid", lambda blocks, device: 1)
+    monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda self: True))
+    with pytest.raises(ValueError, match="K-major"):
+        probe.run(form, d)
+    assert launched == []
+    with pytest.raises(Launched):
+        probe.run(form, dict(d, w=probe.k_major(d["w"])))
+    assert len(launched) == 1
+
+
 def test_int8_generator_wraps_as_jax_int32(jprobe, monkeypatch):
     """``iota * 16807 + salt`` overflows int32 from row 127,774 on; the
     port's generator gives JAX's values at all 262,144 rows of the probe."""
@@ -214,7 +261,8 @@ def test_main_needs_a_card_unless_cpu_is_asked(monkeypatch, capsys):
     assert set(times) == set(FORMS) == set(probe.FORMS)
     assert all(t > 0 for t in times.values())
     out = capsys.readouterr().out.splitlines()
-    starts = ["device: cpu", "card:", "stream", "vpu:q", "vpu:ln", "mxu",
+    starts = ["device: cpu", "card:", "w K-major copy", "stream", "vpu:q",
+              "vpu:ln", "mxu",
               "fused", "indep   (vpu:q", "indep   (vpu:ln", "",
               "fused vs mxu+vpu:q serial sum"]
     assert len(out) == len(starts)

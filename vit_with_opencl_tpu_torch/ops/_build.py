@@ -111,11 +111,12 @@ SIGNATURES = {
     "vit_probe_stream": [_P, _P, _P, _I, _P],
     # x, ln, out, scale, scratch, blocks, stream
     "vit_probe_vpu": [_P, _I, _P, _P, _P, _I, _P],
-    # xq (or x for fused), w, sw, o, scratch, blocks, n, stream
-    "vit_probe_mxu": [_P, _P, _P, _P, _P, _I, _I, _P],
-    "vit_probe_fused": [_P, _P, _P, _P, _P, _I, _I, _P],
-    # xa, xqb, w, sw, ln, oq, os, o, scratch, blocks, n, stream
-    "vit_probe_indep": [_P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _P],
+    # xq (or x for fused), w (K-major), ldw, sw, o, scratch, blocks, n, grid,
+    # stream
+    "vit_probe_mxu": [_P, _P, _I, _P, _P, _P, _I, _I, _I, _P],
+    "vit_probe_fused": [_P, _P, _I, _P, _P, _P, _I, _I, _I, _P],
+    # xa, xqb, w, ldw, sw, ln, oq, os, o, scratch, blocks, n, grid, stream
+    "vit_probe_indep": [_P, _P, _P, _I, _P, _I, _P, _P, _P, _P, _I, _I, _I, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -192,8 +193,11 @@ def build() -> Path:
 def resource_usage(source: str) -> list[dict]:
     """Each kernel of ``csrc/<source>`` as ptxas compiles it with the build's
     flags (``nvcc -Xptxas -v``): its name (demangled where the toolkit's
-    ``cu++filt`` is found), registers a thread, and bytes of spill stores
-    and loads. Needs ``nvcc``; builds nothing that ``library()`` loads."""
+    ``cu++filt`` is found), registers a thread, bytes of spill stores and
+    loads, and the compiler's warnings printed while it was compiled (those
+    before the first kernel go with it; a ``setmaxnreg`` that ptxas ignores
+    says so there). Needs ``nvcc``; builds nothing that ``library()``
+    loads."""
     nvcc = find_nvcc()
     if nvcc is None:
         raise RuntimeError("nvcc not found: ptxas reports need the CUDA toolkit")
@@ -208,11 +212,17 @@ def resource_usage(source: str) -> list[dict]:
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed on {source}:\n{proc.stderr}")
     kernels: list[dict] = []
+    pending: list[str] = []  # warnings before the first kernel
     for line in proc.stderr.splitlines():
         found = re.search(r"Compiling entry function '(\S+)'", line)
         if found:
             kernels.append({"name": found.group(1), "registers": None,
-                            "spill_stores": None, "spill_loads": None})
+                            "spill_stores": None, "spill_loads": None,
+                            "warnings": pending})
+            pending = []
+            continue
+        if re.search(r"\bwarning\b", line):
+            (kernels[-1]["warnings"] if kernels else pending).append(line.strip())
             continue
         found = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
         if found and kernels:

@@ -198,17 +198,18 @@ def fused_linear(
     return out
 
 
-def _require_k_major(wq: torch.Tensor, k: int, dev) -> None:
-    """What the W8A8 kernel reads: an int8 [K, N] stored K-major (each
-    column's K values contiguous, columns 16-byte-aligned rows apart)."""
+def _require_k_major(wq: torch.Tensor, k: int, dev, name: str = "wq") -> None:
+    """What an int8 wgmma kernel reads (the W8A8 GEMM, the overlap probe's):
+    an int8 [K, N] stored K-major (each column's K values contiguous,
+    columns 16-byte-aligned rows apart)."""
     if wq.device != dev:
-        raise ValueError(f"wq is on {wq.device}, expected {dev}")
+        raise ValueError(f"{name} is on {wq.device}, expected {dev}")
     if wq.dtype != torch.int8:
-        raise TypeError(f"wq has dtype {wq.dtype}, expected torch.int8")
+        raise TypeError(f"{name} has dtype {wq.dtype}, expected torch.int8")
     ld = wq.stride(1)
     if wq.stride(0) != 1 or ld < k or ld % 16 or wq.data_ptr() % 16:
         raise ValueError(
-            f"wq [K={k}, N] must be stored K-major (strides (1, ld), ld >= K a "
+            f"{name} [K={k}, N] must be stored K-major (strides (1, ld), ld >= K a "
             f"multiple of 16, 16-byte aligned), got strides {wq.stride()}: "
             "int8 wgmma reads no other layout; store the weights so once "
             "(models/quant.k_major or w8a8_layout)")

@@ -13,10 +13,11 @@ overlap (``csrc/probe_overlap.cu``):
   mxu       int8 x int8 -> int32 GEMM only, fp32 scale epilogue
   fused     quantize chunk c -> GEMM chunk c (the production W8A8 shape)
   indep     quantize (or LN) of stream A beside the GEMM of stream B, with
-            NO data dependency between them: 8 warps run the GEMM and 4
-            more of the same block the row work. If the SM issues both side
-            by side, this runs at max(vpu, mxu); if they share issue slots
-            or memory bandwidth, at vpu + mxu.
+            NO data dependency between them: three warpgroups run the GEMM
+            (a TMA producer, two wgmma consumers) and a fourth of the same
+            block the row work. If the SM issues both side by side, this
+            runs at max(vpu, mxu); if they share issue slots or memory
+            bandwidth, at vpu + mxu.
 
 Interpretation:
   indep ~= max(vpu, mxu)  -> the row work hides behind the GEMM; fusing the
@@ -38,7 +39,10 @@ events.
 Each kernel has a wrapper that launches it for CUDA tensors (and counts the
 launch) and a plain PyTorch version beside it, which the wrapper computes
 for CPU tensors; the plain versions walk the grid block by block, each
-overwriting the outputs, as the TPU grid does.
+overwriting the outputs, as the TPU grid does. The GEMM kernels run on
+Hopper's int8 ``wgmma``, which reads w K-major only: on the card their
+wrappers take w stored so (``models/quant.k_major``, as ``weights()``
+returns it) and refuse a row-major one; the plain versions take either.
 
 Run on the card:  python -m vit_with_opencl_tpu_torch.scripts.probe_w8a8_overlap
 """
@@ -54,8 +58,10 @@ import numpy as np
 import torch
 
 from ..engine import resolve_device
+from ..models.quant import k_major
 from ..models.quant import quantize_act as _quantize_rows
 from ..ops import _build
+from ..ops.linear import _require_k_major
 
 M_BLOCK = 1024
 N_CHUNKS = 8
@@ -85,8 +91,12 @@ LAUNCHES_INDEP_LN = 0
 _F32_0_013 = float(np.float32(0.013))
 _F32_1_6 = float(np.float32(1.6))
 
-# The kernels' scratch: one checksum word a warp (12 warps a block at most).
-_SCRATCH_WORDS_PER_BLOCK = N_CHUNKS * 12
+# The kernels' scratch: one checksum word a warp of the launched grid. The
+# row kernels launch a block of 8 warps a 128-row chunk; the GEMM kernels a
+# persistent grid (``_gemm_grid``) of 12 warps a block (16 for indep).
+_ROW_KERNEL_WARPS = 8
+_GEMM_WARPS = 12
+_INDEP_WARPS = 16
 
 
 def _ln(xf: torch.Tensor, eps: float = EPS) -> torch.Tensor:
@@ -178,20 +188,31 @@ def _grid_of(x: torch.Tensor, name: str, dtype: torch.dtype) -> int:
 
 
 def _check_weights(w: torch.Tensor, sw: torch.Tensor, device) -> int:
-    """Check w int8 [K, n] and sw fp32 [1, n]; n (a multiple of 128)."""
-    _build.require(w, "w", device=device, dtypes=(torch.int8,))
+    """Check w int8 [K, n] stored K-major (what the GEMM kernels' TMA and
+    int8 wgmma read) and sw fp32 [1, n]; n (a multiple of 128)."""
     n = w.shape[-1]
     if w.dim() != 2 or w.shape[0] != K or n % 128 or not n:
         raise ValueError(f"w must be [{K}, n] with n a multiple of 128, got "
                          f"{tuple(w.shape)}")
+    _require_k_major(w, K, device, "w")
     _build.require(sw, "sw", device=device, dtypes=(torch.float32,),
                    shape=(1, n))
     return n
 
 
-def _scratch(blocks: int, device) -> torch.Tensor:
-    return torch.empty(blocks * _SCRATCH_WORDS_PER_BLOCK, dtype=torch.int32,
-                       device=device)
+def _scratch(words: int, device) -> torch.Tensor:
+    return torch.empty(words, dtype=torch.int32, device=device)
+
+
+def _row_scratch(blocks: int, device) -> torch.Tensor:
+    return _scratch(blocks * N_CHUNKS * _ROW_KERNEL_WARPS, device)
+
+
+def _gemm_grid(blocks: int, device) -> int:
+    """The GEMM kernels' persistent grid: a block an SM, at most one a
+    128-row chunk."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return min(blocks * N_CHUNKS, sms)
 
 
 def stream(x: torch.Tensor) -> torch.Tensor:
@@ -203,7 +224,7 @@ def stream(x: torch.Tensor) -> torch.Tensor:
     blocks = _grid_of(x, "x", torch.float32)
     o = torch.empty((8, 128), dtype=torch.float32, device=x.device)
     err = _build.launch("vit_probe_stream", x, x.data_ptr(), o.data_ptr(),
-                        _scratch(blocks, x.device).data_ptr(), blocks)
+                        _row_scratch(blocks, x.device).data_ptr(), blocks)
     _build.check_launch(err, "probe stream")
     LAUNCHES_STREAM += 1
     return o
@@ -218,7 +239,7 @@ def vpu_quant(x: torch.Tensor):
     q = torch.empty((M_BLOCK, K), dtype=torch.int8, device=x.device)
     s = torch.empty((M_BLOCK, 1), dtype=torch.float32, device=x.device)
     err = _build.launch("vit_probe_vpu", x, x.data_ptr(), 0, q.data_ptr(),
-                        s.data_ptr(), _scratch(blocks, x.device).data_ptr(),
+                        s.data_ptr(), _row_scratch(blocks, x.device).data_ptr(),
                         blocks)
     _build.check_launch(err, "probe vpu:q")
     LAUNCHES_VPU_QUANT += 1
@@ -233,7 +254,7 @@ def vpu_ln(x: torch.Tensor) -> torch.Tensor:
     blocks = _grid_of(x, "x", torch.float32)
     y = torch.empty((M_BLOCK, K), dtype=torch.bfloat16, device=x.device)
     err = _build.launch("vit_probe_vpu", x, x.data_ptr(), 1, y.data_ptr(),
-                        None, _scratch(blocks, x.device).data_ptr(), blocks)
+                        None, _row_scratch(blocks, x.device).data_ptr(), blocks)
     _build.check_launch(err, "probe vpu:ln")
     LAUNCHES_VPU_LN += 1
     return y
@@ -241,16 +262,18 @@ def vpu_ln(x: torch.Tensor) -> torch.Tensor:
 
 def mxu(xq: torch.Tensor, w: torch.Tensor, sw: torch.Tensor) -> torch.Tensor:
     """int8 xq [blocks * 1024, 768] @ int8 w [768, n], times sw [1, n] →
-    the last block's bf16 [1024, n]."""
+    the last block's bf16 [1024, n]. On the card w is stored K-major."""
     global LAUNCHES_MXU
     if not xq.is_cuda:
         return mxu_reference(xq, w, sw)
     blocks = _grid_of(xq, "xq", torch.int8)
     n = _check_weights(w, sw, xq.device)
     o = torch.empty((M_BLOCK, n), dtype=torch.bfloat16, device=xq.device)
+    grid = _gemm_grid(blocks, xq.device)
     err = _build.launch("vit_probe_mxu", xq, xq.data_ptr(), w.data_ptr(),
-                        sw.data_ptr(), o.data_ptr(),
-                        _scratch(blocks, xq.device).data_ptr(), blocks, n)
+                        w.stride(1), sw.data_ptr(), o.data_ptr(),
+                        _scratch(grid * _GEMM_WARPS, xq.device).data_ptr(),
+                        blocks, n, grid)
     _build.check_launch(err, "probe mxu")
     LAUNCHES_MXU += 1
     return o
@@ -258,16 +281,18 @@ def mxu(xq: torch.Tensor, w: torch.Tensor, sw: torch.Tensor) -> torch.Tensor:
 
 def fused(x: torch.Tensor, w: torch.Tensor, sw: torch.Tensor) -> torch.Tensor:
     """fp32 x quantized per row, then @ w, times its scale and sw → the last
-    block's bf16 [1024, n]."""
+    block's bf16 [1024, n]. On the card w is stored K-major."""
     global LAUNCHES_FUSED
     if not x.is_cuda:
         return fused_reference(x, w, sw)
     blocks = _grid_of(x, "x", torch.float32)
     n = _check_weights(w, sw, x.device)
     o = torch.empty((M_BLOCK, n), dtype=torch.bfloat16, device=x.device)
+    grid = _gemm_grid(blocks, x.device)
     err = _build.launch("vit_probe_fused", x, x.data_ptr(), w.data_ptr(),
-                        sw.data_ptr(), o.data_ptr(),
-                        _scratch(blocks, x.device).data_ptr(), blocks, n)
+                        w.stride(1), sw.data_ptr(), o.data_ptr(),
+                        _scratch(grid * _GEMM_WARPS, x.device).data_ptr(),
+                        blocks, n, grid)
     _build.check_launch(err, "probe fused")
     LAUNCHES_FUSED += 1
     return o
@@ -277,7 +302,8 @@ def indep(xa: torch.Tensor, xqb: torch.Tensor, w: torch.Tensor,
           sw: torch.Tensor, vpu_op: str = "quant"):
     """The row work on fp32 xa beside the GEMM of int8 xqb, no dependency
     between them → the last block's (oq, os, o): ``vpu_op="quant"`` int8 oq
-    and fp32 scales os; ``"ln"`` bf16 oq and os = xa's first column."""
+    and fp32 scales os; ``"ln"`` bf16 oq and os = xa's first column. On
+    the card w is stored K-major."""
     global LAUNCHES_INDEP_QUANT, LAUNCHES_INDEP_LN
     _check_vpu_op(vpu_op)
     if not xa.is_cuda:
@@ -292,10 +318,12 @@ def indep(xa: torch.Tensor, xqb: torch.Tensor, w: torch.Tensor,
                      device=xa.device)
     os_ = torch.empty((M_BLOCK, 1), dtype=torch.float32, device=xa.device)
     o = torch.empty((M_BLOCK, n), dtype=torch.bfloat16, device=xa.device)
+    grid = _gemm_grid(blocks, xa.device)
     err = _build.launch("vit_probe_indep", xa, xa.data_ptr(), xqb.data_ptr(),
-                        w.data_ptr(), sw.data_ptr(), int(ln), oq.data_ptr(),
-                        os_.data_ptr(), o.data_ptr(),
-                        _scratch(blocks, xa.device).data_ptr(), blocks, n)
+                        w.data_ptr(), w.stride(1), sw.data_ptr(), int(ln),
+                        oq.data_ptr(), os_.data_ptr(), o.data_ptr(),
+                        _scratch(grid * _INDEP_WARPS, xa.device).data_ptr(),
+                        blocks, n, grid)
     _build.check_launch(err, f"probe indep ({vpu_op})")
     if ln:
         LAUNCHES_INDEP_LN += 1
@@ -363,10 +391,17 @@ def _x_i8(rows: int, salt: int, device="cpu") -> torch.Tensor:
     return v.to(torch.int8)[:, None].expand(rows, K).contiguous()
 
 
+def _weights_row_major(device="cpu"):
+    """The JAX script's w int8 [K, N], constant along N, row-major."""
+    return _x_i8(K, 3, device)[:, :1].expand(K, N).clamp(-125, 125).contiguous()
+
+
 def weights(device="cpu"):
-    """main()'s (w int8 [K, N], constant along N; sw fp32 [1, N] = 3e-4)."""
-    w = _x_i8(K, 3, device)[:, :1].expand(K, N).clamp(-125, 125).contiguous()
-    return w, torch.full((1, N), 3e-4, dtype=torch.float32, device=device)
+    """main()'s (w int8 [K, N], constant along N, stored K-major: the
+    layout the GEMM kernels read, one copy of the JAX script's row-major w;
+    sw fp32 [1, N] = 3e-4)."""
+    return (k_major(_weights_row_major(device)),
+            torch.full((1, N), 3e-4, dtype=torch.float32, device=device))
 
 
 def bound(nbytes: float, int8_ops: float = 0.0) -> tuple:
@@ -445,6 +480,10 @@ def main(argv=None, device=None) -> dict:
     print(card_line(dev), flush=True)
 
     rows = GRID * M_BLOCK
+    w_row_major = _weights_row_major(dev)
+    t_copy = _call(lambda: k_major(w_row_major), dev)
+    print(f"w K-major copy  (weights(), before the chains): {t_copy * 1e3:7.4f} ms",
+          flush=True)
     w, sw = weights(dev)
     ops = dict(xf=_x_f32(rows, 7, dev), xq=_x_i8(rows, 11, dev), w=w, sw=sw)
     gemm_tops = 2 * rows * K * N / 1e12
