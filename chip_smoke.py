@@ -67,6 +67,37 @@ line.
    chain; the probabilities must be within 1e-3 of the same engine on the
    stack's plain version. ``--quantize int8-w8a8`` on ViT-S runs the
    per-layer W8A8 chain (its counts), as in the JAX package.
+3g. Serving on the card (``serve.InferenceServer`` on the phase-3
+   weights, ``attention_impl="flash"``, ``quantize="auto"``: W8A8, batch
+   32; the server on port 0, the engine warmed up first): four client
+   threads send phase 3's 40 decisive images as 8-image requests through
+   ``serve.classify`` (float32) and seeded raw pixels to a
+   ``normalize_uint8`` engine (uint8); the answers against the same
+   engine's ``run`` (labels exact, probabilities within 1e-3), the float32
+   answers as a result file against phase 3b's ``auto`` result file (the
+   comparator, 0 mismatches), the W8A8 chain's launches of exactly the
+   served batches (the batcher's thread launches them); a garbage and a
+   wrong-shape request each get an ``ERROR:`` line and the next request is
+   answered; STATS counts what was served; ``DataParallelEngine`` on
+   ``["cuda:0"] * 4`` behind a server, against the one-card labels and
+   probabilities. Printed, not gated: served img/s and request latency
+   p50/p99 at batch 32 and 256, uint8 and float32, 4 clients in a process
+   of their own (host clock; a window closes at 200 answered requests or
+   at 5 s (B = 32) / 10 s (B = 256); p99 only where it holds 100
+   requests), the batcher's busy share in ``engine.run`` split into
+   padding, upload, forward and copy back, the forward alone and
+   ``np.stack`` of a full batch alone, beside the card's name and power
+   limit.
+3h. The input side: the CLI on phase 3's workspace with libvitio (its
+   default; the ``loaded ... (libvitio io)`` line) and with
+   ``--pure-python`` (``auto``), byte-identical result files; where PIL
+   imports (a line says whether), ``--raw-images`` on 4 PNGs written from
+   seeded arrays against the CLI on ``images_to_input_bin``'s file of the
+   same PNGs (byte-identical result files, the W8A8 launches); phase 3's
+   weights through ``io.export.to_torchvision_state_dict`` →
+   ``torch.save`` → ``python -m vit_with_opencl_tpu_torch.io.export
+   --from-pth`` → the CLI (bf16, flash) against phase 3's answer file (0
+   mismatches).
 2d. The whole-encoder stack of the small configs (ViT-Ti/16 and ViT-S/16,
    T = 197) the same way at batch 16: every kernel of phases 2 and 2b at
    these configs' shapes; the full-depth bf16 and int8-weight stacks
@@ -253,9 +284,10 @@ line.
    that workspace (the comparator green); ``soak`` of ViT-B/16 W8A8 at B =
    256, 2 windows of 5 (finite); ``trace_table`` of ViT-B/16 W8A8 at B = 64
    (the W8A8 form of the GEMM core in the table); ``bench_train`` of ViT-B/16
-   ``fused`` at B = 32, 2 steps (a finite loss); and
-   ``InferenceEngine(check_numerics=True)`` on phase 3's weights (passes)
-   and with one weight NaN (raises).
+   ``fused`` at B = 32, 2 steps (a finite loss); ``soak_serve`` of
+   ViT-B/16 W8A8 at B = 64, 5 s, 2 clients (no failed request or batch);
+   and ``InferenceEngine(check_numerics=True)`` on phase 3's weights
+   (passes) and with one weight NaN (raises).
 
 Counts are set to 0 just before each main-path run and read just after.
 The line before the last is the kernels' JSON record; the last line is
@@ -271,9 +303,12 @@ import io
 import json
 import math
 import re
+import socket
+import struct
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -281,7 +316,8 @@ import numpy as np
 import torch
 
 try:
-    from vit_with_opencl_tpu_torch import VIT_B_16_224, cli, data, ops, optim, perf
+    from vit_with_opencl_tpu_torch import (VIT_B_16_224, cli, data, ops, optim, perf,
+                                           serve)
     from vit_with_opencl_tpu_torch.config import (VIT_G_14_224, VIT_H_14_224,
                                                   VIT_L_16_384, VIT_S_16_224,
                                                   VIT_TINY_16_224)
@@ -289,13 +325,14 @@ try:
     from vit_with_opencl_tpu_torch.parallel import spmd
     from vit_with_opencl_tpu_torch.train import Trainer
     from vit_with_opencl_tpu_torch.harness import fixtures, results
-    from vit_with_opencl_tpu_torch.io import binfmt
+    from vit_with_opencl_tpu_torch.io import binfmt, export, preprocess
     from vit_with_opencl_tpu_torch.models import quant, vit
     from vit_with_opencl_tpu_torch.ops import (_build, attention, fused_block,
                                                layernorm, linear, quantize)
     from vit_with_opencl_tpu_torch.scripts import (bench_train, make_fixtures,
-                                                   soak, trace_table)
+                                                   soak, soak_serve, trace_table)
     from vit_with_opencl_tpu_torch.scripts import probe_w8a8_overlap as probe
+    from vit_with_opencl_tpu_torch.runtime import native
 except ImportError as exc:  # run outside the repository
     print(f"FAIL: the port's package is not importable here: {exc}")
     sys.exit(1)
@@ -592,11 +629,31 @@ PROBE_FORMS = {
     "indep:q": ("probe_indep_quant", "18f quant", 126),
     "indep:ln": ("probe_indep_ln", "18f ln", 126),
 }
+# Phase 3g: serving on the card. The batch is serve.py's default; requests
+# of 8 images from 4 clients let the batcher fill a batch from several.
+SERVE_BATCH = 32
+SERVE_PAYLOAD = 8
+SERVE_CLIENTS = 4
+SERVE_WAIT_MS = 5.0  # serve.py's default --max-wait-ms
+SERVE_SHARDS = 4  # DataParallelEngine on a virtual mesh of the card
+# Printed, not gated: served img/s and request latency at these batches,
+# each request batch / SERVE_CLIENTS images (soak_serve's split). A window
+# closes once it has answered SERVE_RATE_REQUESTS requests, or at its
+# batch's time limit; a percentile is printed only where the window holds
+# enough requests for it (p99: 100, soak_serve.percentile_ms).
+SERVE_RATE_BATCHES = (32, 256)
+SERVE_RATE_REQUESTS = 200
+SERVE_RATE_SECONDS = {32: 5.0, 256: 10.0}
+# engine.run's stages, timed on the batcher's thread (split_run).
+RUN_STAGES = ("pad", "upload", "forward", "copy back")
+# Phase 3h: --raw-images on PNGs of these sizes (seeded uint8 pixels).
+RAW_IMAGE_SHAPES = ((250, 270, 3), (300, 240, 3), (224, 224, 3), (400, 300, 3))
 # Phase 7: the record-producing scripts on the card.
 FIXTURE_IMAGES = 4
 SOAK_ARGS = [CFG.name, "256", "10", "5", "int8-w8a8"]  # 2 windows of 5
 TRACE_ARGS = [CFG.name, "64", "2", "15", "int8-w8a8"]
 BENCH_TRAIN_ARGS = [CFG.name, "32", "2", "fused"]
+SOAK_SERVE_ARGS = [CFG.name, "64", "5", "2", "int8-w8a8"]
 
 # Published dense peaks (NVIDIA data sheets): tensor-core bf16 FLOP/s,
 # CUDA-core fp32 FLOP/s, tensor-core int8 OP/s, memory bytes/s.
@@ -2670,16 +2727,19 @@ def make_workspace(ws: Path, dev, params: dict, cfg=CFG) -> tuple:
 
 
 def run_cli(ws: Path, mode: str, ref_probs: np.ndarray, cfg=CFG,
-            per_forward: dict | None = None) -> tuple:
-    """One main-path run through the CLI: the counts of exactly this run, and
-    the max abs error of its result file's probabilities. The expected
-    counts are ``per_forward`` launches for each of the run's forwards, by
-    default PER_LAYER[mode] for each layer."""
-    flags = list(MODES[mode])
+            per_forward: dict | None = None, extra: tuple = (), tag: str = "",
+            weights: str = "Network") -> tuple:
+    """One main-path run through the CLI: the counts of exactly this run, the
+    max abs error of its result file's probabilities, and what the CLI
+    printed. The expected counts are ``per_forward`` launches for each of
+    the run's forwards, by default PER_LAYER[mode] for each layer. ``extra``
+    flags are added (the result file is then ``result_<mode><tag>.txt``);
+    ``weights`` names the weight directory in ``ws``."""
+    flags = list(MODES[mode]) + list(extra)
     if mode.endswith("_outlier"):
         flags += ["--calibrate", str(ws / "calib.bin")]
-    argv = ["--input", str(ws / "input.bin"), "--weights", str(ws / "Network"),
-            "--output", str(ws / f"result_{mode}.txt"),
+    argv = ["--input", str(ws / "input.bin"), "--weights", str(ws / weights),
+            "--output", str(ws / f"result_{mode}{tag}.txt"),
             "--answer", str(ws / "answer.txt"), "--backend", "gpu",
             "--attention", "flash", "--config", cfg.name,
             "--batch-size", str(SMOKE_BATCH), *flags]
@@ -2700,16 +2760,16 @@ def run_cli(ws: Path, mode: str, ref_probs: np.ndarray, cfg=CFG,
     check(counts == expected, f"launches on the {cfg.name} {mode} main path "
                               f"{counts}, expected {expected}")
     lines = [results.parse_result_line(line) for line in
-             (ws / f"result_{mode}.txt").read_text().splitlines()]
+             (ws / f"result_{mode}{tag}.txt").read_text().splitlines()]
     file_err = max(abs(p - float(ref_probs[i].max())) for i, (_, p) in
                    enumerate(lines))
-    print(f"  {cfg.name} {mode}: result-file probabilities vs the fp32 answer: max abs "
-          f"err {file_err:.3e}", flush=True)
-    return counts, file_err
+    print(f"  {cfg.name} {mode}{tag}: result-file probabilities vs the fp32 answer: "
+          f"max abs err {file_err:.3e}", flush=True)
+    return counts, file_err, out.getvalue()
 
 
 def main_path(ws: Path, dev, rounded, images, ref_probs) -> tuple:
-    counts, file_err = run_cli(ws, "bf16", ref_probs)
+    counts, file_err, _ = run_cli(ws, "bf16", ref_probs)
     engine = InferenceEngine(CFG, rounded, batch_size=SMOKE_BATCH,
                              attention_impl="flash", device=dev)
     probs = engine.run(images)
@@ -2841,6 +2901,344 @@ def outlier_main_path(ws: Path, dev, rounded, images, ref_probs,
                                "w8a8 uncalibrated": uncalibrated},
                               rounded, images, ref_probs, dev)
     return counts
+
+
+@contextlib.contextmanager
+def serving(engine):
+    """``engine`` behind a ``serve.InferenceServer`` on a free port, served
+    from a background thread; yields the port."""
+    srv = serve.InferenceServer(engine, port=0, max_wait_ms=SERVE_WAIT_MS)
+    srv.start_background()
+    try:
+        yield srv.address[1]
+    finally:
+        srv.shutdown()
+
+
+def served(port: int, images: np.ndarray) -> list:
+    """``images`` sent by SERVE_CLIENTS client threads as SERVE_PAYLOAD-image
+    requests (thread t sends requests t, t + SERVE_CLIENTS, ...); the
+    (label, prob) answers in image order."""
+    chunks = [images[i:i + SERVE_PAYLOAD] for i in range(0, len(images), SERVE_PAYLOAD)]
+    got = [None] * len(chunks)
+    errors = []
+
+    def client(t):
+        try:
+            for c in range(t, len(chunks), SERVE_CLIENTS):
+                got[c] = serve.classify(chunks[c], port=port)
+        except Exception as exc:  # reported on the main thread
+            errors.append(exc)
+
+    threads = [threading.Thread(target=client, args=(t,)) for t in range(SERVE_CLIENTS)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    if errors or any(t.is_alive() for t in threads):
+        raise RuntimeError(f"serving clients failed or hung: {errors[:3]}")
+    return [pair for chunk in got for pair in chunk]
+
+
+def check_served(engine, port: int, images: np.ndarray, what: str,
+                 ref: np.ndarray | None = None) -> list:
+    """One served run of ``images`` (``served``) with the counts set to 0
+    just before it and read just after: the W8A8 chain's launches for
+    exactly the batches the server ran, each a forward on each of the
+    engine's devices (the batcher's thread launches them); the answers
+    against ``ref`` probabilities, by default ``engine.run`` on the same
+    images: labels exact, probabilities within PROB_TOL. Returns the
+    answers."""
+    before = serve.stats(port=port)["batches_run"]
+    answers, counts, secs = counted(lambda: served(port, images))
+    batches = serve.stats(port=port)["batches_run"] - before
+    forwards = batches * getattr(engine, "n_devices", 1)
+    expect_only(counts, f"{what} ({len(images)} images in {batches} served batches, "
+                        f"{secs:.2f} s)",
+                **{key: n * CFG.depth * forwards for key, n in PER_LAYER["w8a8"].items()})
+    probs = engine.run(images) if ref is None else ref
+    err = max(abs(p - float(probs[i].max())) for i, (_, p) in enumerate(answers))
+    check([label for label, _ in answers] == [int(p.argmax()) for p in probs]
+          and err <= PROB_TOL,
+          f"{what}: {len(answers)} answers, labels equal the reference's, "
+          f"probabilities max abs err {err:.3e} (budget {PROB_TOL})")
+    return answers
+
+
+def serve_request(mode: str, batch: int, img_size: int) -> np.ndarray:
+    """Phase 3g's rate request for an engine of ``batch``: batch /
+    SERVE_CLIENTS seeded images, raw uint8 pixels or float32."""
+    shape = (batch // SERVE_CLIENTS, 3, img_size, img_size)
+    rng = np.random.default_rng(batch)
+    return (rng.integers(0, 256, shape, np.uint8) if mode == "uint8"
+            else rng.standard_normal(shape).astype(np.float32))
+
+
+# Phase 3g's clients as a program of their own: one process loads each
+# server in turn (argv: JSON [[port, mode, batch, img_size], ...]).
+_REMOTE_LOAD = """
+import json, sys
+import chip_smoke
+from vit_with_opencl_tpu_torch.scripts import soak_serve
+for port, mode, batch, img_size in json.loads(sys.argv[1]):
+    print(json.dumps(soak_serve.load(
+        port, chip_smoke.serve_request(mode, batch, img_size), chip_smoke.SERVE_CLIENTS,
+        chip_smoke.SERVE_RATE_SECONDS[batch], chip_smoke.SERVE_RATE_REQUESTS)), flush=True)
+"""
+
+
+def split_run(engine, spent: dict):
+    """``engine.run`` for the one batch the batcher hands it (at most the
+    engine's batch), each stage timed on the calling thread and added to
+    ``spent``: padding to the engine's batch, the upload, the forward and the
+    copy back, the card synchronised after the upload and the forward (the
+    copy back waits for the forward in ``engine.run`` too)."""
+    def run(images: np.ndarray) -> np.ndarray:
+        marks = [time.perf_counter()]
+        n = len(images)
+        if n < engine.batch_size:
+            images = np.concatenate([images, np.zeros(
+                (engine.batch_size - n, *images.shape[1:]), images.dtype)])
+        marks.append(time.perf_counter())
+        x = torch.from_numpy(images).to(engine.device)
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        probs = engine.forward(x)
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        out = probs.cpu().numpy()[:n]
+        marks.append(time.perf_counter())
+        for stage, t0, t1 in zip(RUN_STAGES, marks, marks[1:]):
+            spent[stage] += t1 - t0
+        return out
+    return run
+
+
+def serve_rates(engines: dict, rounded: dict, dev, smi_line: str) -> None:
+    """Phase 3g, printed and not gated: the B = 32 ``engines`` (mode, batch)
+    and B = 256 engines set up here, each behind a server; SERVE_CLIENTS
+    clients in a process of their own send ``serve_request``s to each in turn
+    (``soak_serve.load``: SERVE_RATE_REQUESTS requests or the batch's
+    SERVE_RATE_SECONDS): served img/s and request latency on the host clock;
+    beside them the batcher's time in ``engine.run`` split into its stages
+    (``split_run``), the forward alone on a batch already on the card (CUDA
+    events) and ``np.stack`` of a full batch of request images alone."""
+    t0 = time.perf_counter()
+    engines = dict(engines)
+    for mode in ("float32", "uint8"):
+        for batch in SERVE_RATE_BATCHES:
+            if (mode, batch) not in engines:
+                engines[mode, batch] = InferenceEngine(
+                    CFG, rounded, batch_size=batch, attention_impl="flash",
+                    device=dev, quantize="auto", normalize_uint8=mode == "uint8")
+                engines[mode, batch].warmup()  # before its server starts
+    check(all(e.quantize == "int8-w8a8" for e in engines.values()),
+          f"quantize='auto' on {CFG.name} serves W8A8 at every rate batch")
+    print(f"  rate engines at B = {', '.join(map(str, SERVE_RATE_BATCHES[1:]))} set up "
+          f"and warmed in {time.perf_counter() - t0:.1f} s", flush=True)
+    forward_ms, stack_ms, spent = {}, {}, {}
+    for key, engine in engines.items():
+        requests = [serve_request(*key, CFG.img_size).copy() for _ in range(SERVE_CLIENTS)]
+        views = [r[i] for r in requests for i in range(len(r))]
+        stack_s = []
+        for _ in range(3):
+            t1 = time.perf_counter()
+            np.stack(views)
+            stack_s.append(time.perf_counter() - t1)
+        stack_ms[key] = sorted(stack_s)[1] * 1e3
+        on_card = torch.from_numpy(np.stack(views)).to(dev)
+        forward_ms[key] = time_ms(lambda: engine.forward(on_card), reps=5)
+        del on_card
+        spent[key] = dict.fromkeys(RUN_STAGES, 0.0)
+        run = split_run(engine, dict(spent[key]))
+        check(np.array_equal(run(requests[0]), type(engine).run(engine, requests[0])),
+              f"{key[0]} B={key[1]}: split_run's probabilities equal engine.run's "
+              f"on one request")
+        engine.run = split_run(engine, spent[key])  # the batcher's thread calls it
+    try:
+        with contextlib.ExitStack() as servers:
+            ports = {key: servers.enter_context(serving(engine))
+                     for key, engine in engines.items()}
+            before = {key: serve.stats(port=port) for key, port in ports.items()}
+            proc = subprocess.run(
+                [sys.executable, "-c", _REMOTE_LOAD,
+                 json.dumps([[port, *key, CFG.img_size] for key, port in ports.items()])],
+                capture_output=True, text=True, timeout=300,
+                cwd=Path(__file__).resolve().parent)
+            check(proc.returncode == 0, f"phase 3g's client process: exit "
+                                        f"{proc.returncode} {proc.stderr[-300:]}")
+            windows = dict(zip(ports, map(json.loads,
+                                          proc.stdout.strip().splitlines()[-len(ports):])))
+            after = {key: serve.stats(port=port) for key, port in ports.items()}
+    finally:
+        for engine in engines.values():
+            vars(engine).pop("run", None)
+    rows = []
+    for key, res in windows.items():
+        mode, batch = key
+        batches = max(1, after[key]["batches_run"] - before[key]["batches_run"])
+        images = after[key]["images_served"] - before[key]["images_served"]
+        busy = sum(spent[key].values())
+        stages = " + ".join(f"{stage} {spent[key][stage] / batches * 1e3:.2f}"
+                            for stage in RUN_STAGES)
+        p99 = (f"p99 {res['p99_ms']:.2f} ms" if res["p99_ms"] is not None
+               else f"p99 not printed ({res['requests']} < 100 requests)")
+        print(f"  served {mode} W8A8 B={batch}, {SERVE_CLIENTS} clients (own "
+              f"process) x {batch // SERVE_CLIENTS} images a request: "
+              f"{res['img_per_s']:.1f} img/s, {res['requests']} requests in "
+              f"{res['seconds']:.2f} s, latency p50 {res['p50_ms']:.2f} ms, {p99} "
+              f"(max {res['max_ms']:.2f}); {batches} batches of "
+              f"{images / batches:.1f} images on average; engine.run busy "
+              f"{busy / res['seconds']:.3f} of the window, {busy / batches * 1e3:.2f} "
+              f"ms a batch: {stages}; the forward alone {forward_ms[key]:.3f} ms; "
+              f"np.stack of a full batch alone {stack_ms[key]:.2f} ms ({smi_line})",
+              flush=True)
+        rows.append(dict(res, mode=mode, batch=batch, batches=batches,
+                         images_a_batch=images / batches,
+                         run_busy_share=busy / res["seconds"],
+                         run_ms_a_batch={stage: v / batches * 1e3
+                                         for stage, v in spent[key].items()},
+                         forward_ms=forward_ms[key], stack_ms=stack_ms[key]))
+    check(all(after[key]["batch_errors"] == 0 for key in engines),
+          f"served rates: no failed batch ({len(windows)} windows)")
+    print(json.dumps({"serving": rows, "card": smi_line}), flush=True)
+
+
+def serving_main_path(ws: Path, dev, rounded: dict, images: np.ndarray,
+                      smi_line: str) -> None:
+    """Phase 3g: ``serve.InferenceServer`` on W8A8 engines (``quantize=
+    "auto"``) of phase 3's weights, float32 and uint8, one card and a
+    virtual mesh; then ``serve_rates``."""
+    t0 = time.perf_counter()
+    engines = {}
+    for mode in ("float32", "uint8"):
+        engine = InferenceEngine(CFG, rounded, batch_size=SERVE_BATCH,
+                                 attention_impl="flash", device=dev,
+                                 quantize="auto", normalize_uint8=mode == "uint8")
+        engine.warmup()  # on this thread, before any server starts
+        engines[mode, SERVE_BATCH] = engine
+    check(all(e.quantize == "int8-w8a8" for e in engines.values()),
+          f"quantize='auto' on {CFG.name} serves W8A8")
+    print(f"  {len(engines)} engines set up and warmed in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    one = engines["float32", SERVE_BATCH]
+    with serving(one) as port:
+        answers = check_served(one, port, images, f"served float32 B={SERVE_BATCH}")
+        (ws / "result_served.txt").write_text("".join(
+            results.format_result_line(i, label, prob) + "\n"
+            for i, (label, prob) in enumerate(answers)))
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            errors = results.compare_result_files(ws / "result_served.txt",
+                                                  ws / "result_auto.txt")
+        check(errors == 0, f"served answers as a result file vs phase 3b's "
+                           f"--quantize auto result file: {errors} mismatches "
+                           f"{out.getvalue().strip()}")
+        with socket.create_connection(("127.0.0.1", port), timeout=60) as sock:
+            garbage = b"not an image binary"
+            sock.sendall(struct.pack("<I", len(garbage)) + garbage)
+            reply = serve._recv_msg(sock).decode()
+        try:
+            serve.classify(np.zeros((1, 3, 16, 16), np.float32), port=port)
+            wrong = "an answer"
+        except RuntimeError as exc:
+            wrong = str(exc)
+        again = serve.classify(images[:2], port=port)
+        stats = serve.stats(port=port)
+        check(reply.startswith("ERROR:") and wrong.startswith("ERROR: expected images")
+              and again == answers[:2],
+              f"a garbage request ({reply!r}) and a wrong-shape one ({wrong!r}) get "
+              f"ERROR lines; the next request is answered as before")
+        check(stats["images_served"] == len(images) + 2 and stats["batch_errors"] == 0
+              and stats["n_devices"] == 1,
+              f"STATS counts what was served: {stats}")
+    u8 = engines["uint8", SERVE_BATCH]
+    raw = np.random.default_rng(7).integers(
+        0, 256, (N_IMAGES, 3, CFG.img_size, CFG.img_size), np.uint8)
+    with serving(u8) as port:
+        check_served(u8, port, raw, f"served uint8 B={SERVE_BATCH}")
+    dp = DataParallelEngine(CFG, rounded, batch_size=SERVE_BATCH,
+                            devices=[dev] * SERVE_SHARDS, attention_impl="flash",
+                            quantize="auto")
+    dp.warmup()
+    with serving(dp) as port:
+        check_served(dp, port, images, f"served DataParallelEngine ({SERVE_SHARDS}, 1) "
+                                       f"float32 B={SERVE_BATCH} vs the one-card engine",
+                     ref=one.run(images))
+        check(serve.stats(port=port)["n_devices"] == SERVE_SHARDS,
+              f"STATS of the DP server: n_devices {SERVE_SHARDS}")
+    del dp
+    serve_rates(engines, rounded, dev, smi_line)
+    del engines, one, u8
+    torch.cuda.empty_cache()
+
+
+def input_side_main_path(ws: Path, dev, rounded: dict, ref_probs: np.ndarray) -> None:
+    """Phase 3h: the CLI's io layers, ``--raw-images`` and the checkpoint
+    converter on the card."""
+    runs = {}
+    for tag, extra in (("_libvitio", ()), ("_numpy", ("--pure-python",))):
+        counts, _err, text = run_cli(ws, "auto", ref_probs, extra=extra, tag=tag)
+        io_line = "(numpy io)" if extra else "(libvitio io)"
+        check(io_line in text, f"cli {' '.join(extra) or '(default)'} loads with "
+                               f"{io_line}")
+        runs[tag] = (ws / f"result_auto{tag}.txt").read_bytes()
+    check(runs["_libvitio"] == runs["_numpy"] == (ws / "result_auto.txt").read_bytes(),
+          "libvitio and --pure-python: byte-identical result files (and phase "
+          "3b's --quantize auto file)")
+    try:
+        import PIL  # noqa: F401  (decoding --raw-images needs it)
+        have_pil = True
+    except ImportError:
+        have_pil = False
+    print(f"  PIL {'imports: --raw-images runs' if have_pil else 'is absent: --raw-images is not run'}",
+          flush=True)
+    if have_pil:
+        from PIL import Image
+
+        rng = np.random.default_rng(11)
+        pngs = []
+        for i, shape in enumerate(RAW_IMAGE_SHAPES):
+            pngs.append(ws / f"raw{i}.png")
+            Image.fromarray(rng.integers(0, 256, shape, np.uint8)).save(pngs[-1])
+        preprocess.images_to_input_bin(pngs, ws / "raw.bin", CFG.img_size,
+                                       round(CFG.img_size * 256 / 224))
+        common = ["--weights", str(ws / "Network"), "--backend", "gpu",
+                  "--attention", "flash", "--config", CFG.name, "--batch-size",
+                  str(SMOKE_BATCH), "--quantize", "auto"]
+        outs = {}
+        for tag, source in (("raw", ["--raw-images", *map(str, pngs)]),
+                            ("bin", ["--input", str(ws / "raw.bin")])):
+            out = io.StringIO()
+            with contextlib.redirect_stdout(out):
+                result = counted(lambda: cli.main(
+                    [*source, "--output", str(ws / f"result_{tag}.txt"), *common]))
+            print("  " + out.getvalue().strip().replace("\n", "\n  "), flush=True)
+            outs[tag] = result
+        rc, counts, secs = outs["raw"]
+        expect_only(counts, f"cli --raw-images ({len(pngs)} PNGs, one forward, "
+                            f"{secs:.2f} s)",
+                    **{key: n * CFG.depth for key, n in PER_LAYER["w8a8"].items()})
+        raw_text = (ws / "result_raw.txt").read_bytes()
+        check(rc == 0 and outs["bin"][0] == 0 and raw_text.count(b"\n") == len(pngs)
+              and raw_text == (ws / "result_bin.txt").read_bytes(),
+              "cli --raw-images and cli on images_to_input_bin's file of the same "
+              "PNGs: byte-identical result files")
+    t0 = time.perf_counter()
+    state = {k: torch.from_numpy(np.ascontiguousarray(v))
+             for k, v in export.to_torchvision_state_dict(rounded, CFG).items()}
+    torch.save(state, ws / "vit_b_16.pth")
+    del state
+    proc = subprocess.run(
+        [sys.executable, "-m", "vit_with_opencl_tpu_torch.io.export", "--config",
+         CFG.name, "--out", str(ws / "Exported"), "--from-pth",
+         str(ws / "vit_b_16.pth")], capture_output=True, text=True, timeout=300,
+        cwd=Path(__file__).resolve().parent)
+    print(f"  {proc.stdout.strip()} (torch.save and export in "
+          f"{time.perf_counter() - t0:.1f} s) {proc.stderr.strip()[-500:]}", flush=True)
+    check(proc.returncode == 0, "python -m vit_with_opencl_tpu_torch.io.export "
+                                "--from-pth: exit 0")
+    run_cli(ws, "bf16", ref_probs, tag="_exported", weights="Exported")
 
 
 def stack_per_forward(cfg, mode: str) -> dict:
@@ -3578,6 +3976,10 @@ def scripts_phase(dev, rounded: dict, images: np.ndarray) -> None:
     res = bench_train.main(BENCH_TRAIN_ARGS)
     loss = res.get("fused", {}).get("loss", float("nan"))
     check(math.isfinite(loss), f"bench_train {' '.join(BENCH_TRAIN_ARGS)}: loss {loss}")
+    res = soak_serve.main(SOAK_SERVE_ARGS)
+    check(res["images"] > 0 and res["stats"]["batch_errors"] == 0,
+          f"soak_serve {' '.join(SOAK_SERVE_ARGS)}: {res['images']} images, "
+          f"{res['img_per_s']:.1f} img/s, no failed request or batch")
     batch = images[:SMOKE_BATCH]
     guarded = InferenceEngine(CFG, rounded, batch_size=SMOKE_BATCH,
                               attention_impl="flash", device=dev, check_numerics=True)
@@ -3685,6 +4087,13 @@ def main() -> int:
 
         ws = Path(tmp) / "random"
         phase("== phase 3: main path (cli, ViT-B/16, bf16, flash)")
+        # libvitio, the CLI's default io layer: its first use in a checkout
+        # compiles it (g++), outside the CLI's "loaded ... in" span.
+        t0 = time.perf_counter()
+        fresh = not native.library_path().exists()
+        check(native.get_native_io() is not None,
+              f"libvitio {'compiled and ' if fresh else ''}loaded in "
+              f"{time.perf_counter() - t0:.2f} s ({native.library_path().name})")
         rounded, images, ref_probs = make_workspace(
             ws, dev, fixtures.random_params(CFG, seed=0))
         counts, engine = main_path(ws, dev, rounded, images, ref_probs)
@@ -3698,6 +4107,13 @@ def main() -> int:
               "vit_s_16_224, no flags, --quantize auto, int8; int8-w8a8 on ViT-S)")
         small = {cfg.name: small_main_path(Path(tmp) / cfg.name, dev, cfg)
                  for cfg in SMALL_CFGS}
+        phase(f"== phase 3g: serving on the card (serve.InferenceServer, {CFG.name}, "
+              f"W8A8 by --quantize auto, float32 and uint8, one card and "
+              f"DataParallelEngine on {SERVE_SHARDS} virtual shards)")
+        serving_main_path(ws, dev, rounded, images, smi_line)
+        phase("== phase 3h: the input side (libvitio and --pure-python, --raw-images, "
+              "io.export --from-pth → cli)")
+        input_side_main_path(ws, dev, rounded, ref_probs)
         phase(f"== phase 5: training main path (Trainer, ViT-B/16, bf16, AdamW; "
               f"routes {', '.join(TRAIN_ROUTES)})")
         train_counts = training_main_path(dev, Path(tmp))
@@ -3774,7 +4190,7 @@ def main() -> int:
               flush=True)
     torch.cuda.empty_cache()
     phase("== phase 7: the record-producing scripts (make_fixtures, soak, trace_table, "
-          "bench_train) and InferenceEngine(check_numerics=True)")
+          "bench_train, soak_serve) and InferenceEngine(check_numerics=True)")
     scripts_phase(dev, rounded, images)
 
     # Each row's launches: from the main-path run that drives its kernel.

@@ -1888,3 +1888,100 @@ def test_device_kernel_table_counts_every_launch(dev, name, batch):
             table = perf.device_kernel_table(engine.forward, (x,), iters=3)
             got = {k: sum(s.calls for s in table if k in s.name) for k in per_forward}
             assert got == {k: 3 * n for k, n in per_forward.items()}
+
+
+# The serving daemon on the card (serve.py): the batcher's thread launches
+# the encoder's kernels; every answer equals the same engine's run on the
+# same images (the forward's shape is the engine's batch either way, so a
+# row's sums do not depend on its neighbours).
+SERVE_CFG = ViTConfig(name="serve_card", img_size=64, patch_size=16, embed_dim=192,
+                      depth=2, num_heads=3, num_classes=10)
+
+
+@pytest.fixture
+def socket_timeout():
+    import socket
+
+    before = socket.getdefaulttimeout()
+    socket.setdefaulttimeout(30)
+    yield
+    socket.setdefaulttimeout(before)
+
+
+def _serve_and_check(engine, images, payload):
+    """Three client threads send ``images`` in ``payload``-image requests to
+    a server on ``engine``; checks a wrong-shape request's ERROR, STATS, and
+    the GEMM launches of every served batch (from the batcher's thread).
+    Returns the answers in image order."""
+    import threading
+
+    from vit_with_opencl_tpu_torch import serve
+
+    srv = serve.InferenceServer(engine, port=0, max_wait_ms=10.0)
+    srv.start_background()
+    try:
+        chunks = [images[i:i + payload] for i in range(0, len(images), payload)]
+        got = [None] * len(chunks)
+
+        def client(t):
+            for c in range(t, len(chunks), 3):
+                got[c] = serve.classify(chunks[c], port=srv.address[1])
+
+        before = linear.LAUNCHES + linear.LAUNCHES_W8A8
+        threads = [threading.Thread(target=client, args=(t,)) for t in range(3)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+        assert not any(t.is_alive() for t in threads)
+        launched = linear.LAUNCHES + linear.LAUNCHES_W8A8 - before
+        with pytest.raises(RuntimeError, match="ERROR: expected images"):
+            serve.classify(np.zeros((1, 3, 8, 8), images.dtype), port=srv.address[1])
+        stats = serve.stats(port=srv.address[1])
+    finally:
+        srv.shutdown()
+    assert stats["images_served"] == len(images) and stats["batch_errors"] == 0
+    assert launched == 4 * SERVE_CFG.depth * stats["batches_run"] * \
+        getattr(engine, "n_devices", 1)
+    return [pair for chunk in got for pair in chunk]
+
+
+@pytest.mark.parametrize("quantize", [None, "int8-w8a8"])
+@pytest.mark.parametrize("uint8", [False, True], ids=["float32", "uint8"])
+def test_server_on_the_card(dev, socket_timeout, quantize, uint8):
+    from vit_with_opencl_tpu_torch.engine import InferenceEngine
+
+    params = fixtures.random_params(SERVE_CFG, seed=1, scale=0.05)
+    engine = InferenceEngine(SERVE_CFG, params, batch_size=8, attention_impl="flash",
+                             device=dev, quantize=quantize, normalize_uint8=uint8)
+    engine.warmup()
+    shape = (20, 3, SERVE_CFG.img_size, SERVE_CFG.img_size)
+    rng = np.random.default_rng(2)
+    images = (rng.integers(0, 256, shape, np.uint8) if uint8
+              else rng.standard_normal(shape).astype(np.float32))
+    served = _serve_and_check(engine, images, payload=3)
+    want = engine.run(images)
+    assert [label for label, _ in served] == [int(p.argmax()) for p in want]
+    np.testing.assert_allclose([prob for _, prob in served], want.max(-1), atol=1e-3)
+
+
+def test_dp_serving_on_a_virtual_mesh(dev, socket_timeout):
+    from vit_with_opencl_tpu_torch.engine import DataParallelEngine, InferenceEngine
+
+    params = fixtures.random_params(SERVE_CFG, seed=1, scale=0.05)
+    dp = DataParallelEngine(SERVE_CFG, params, batch_size=8, devices=[dev] * 4,
+                            attention_impl="flash")
+    dp.warmup()
+    images = np.random.default_rng(3).standard_normal(
+        (20, 3, SERVE_CFG.img_size, SERVE_CFG.img_size)).astype(np.float32)
+    served = _serve_and_check(dp, images, payload=4)
+    one = InferenceEngine(SERVE_CFG, params, batch_size=8, attention_impl="flash",
+                          device=dev).run(images)
+    # Each shard's GEMMs are 4x shorter than the one-card engine's, so bf16
+    # may round elsewhere: labels are held where the top two are apart.
+    top2 = np.sort(one, axis=-1)[:, -2:]
+    decisive = top2[:, 1] - top2[:, 0] > 2e-3
+    labels = np.array([label for label, _ in served])
+    assert decisive.sum() >= 10
+    assert (labels[decisive] == one.argmax(-1)[decisive]).all()
+    np.testing.assert_allclose([prob for _, prob in served], one.max(-1), atol=1e-3)

@@ -13,7 +13,8 @@ if os.environ.get("PYTEST_XDIST_WORKER"):
 
 from vit_with_opencl_tpu_torch import ViTConfig, cli
 from vit_with_opencl_tpu_torch import config as config_lib
-from vit_with_opencl_tpu_torch.engine import IMAGENET_MEAN, IMAGENET_STD, InferenceEngine
+from vit_with_opencl_tpu_torch.engine import InferenceEngine
+from vit_with_opencl_tpu_torch.io.preprocess import IMAGENET_MEAN, IMAGENET_STD
 from vit_with_opencl_tpu_torch.harness import fixtures, results
 from vit_with_opencl_tpu_torch.io import binfmt
 from vit_with_opencl_tpu_torch.models import golden

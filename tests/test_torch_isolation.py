@@ -41,7 +41,8 @@ def test_importing_every_module_loads_no_jax():
                  "perf.kernel_trace", "parallel.mesh", "parallel.collectives",
                  "ops.ring_attention", "debug", "scripts.probe_w8a8_overlap",
                  "scripts.make_fixtures", "scripts.soak", "scripts.trace_table",
-                 "scripts.bench_train"):
+                 "scripts.bench_train", "serve", "io.preprocess", "runtime",
+                 "runtime.native", "scripts.soak_serve"):
         assert f"vit_with_opencl_tpu_torch.{name}" in modules
     code = "\n".join([
         "import importlib, sys",

@@ -600,7 +600,7 @@ def test_dp_engine_uint8_dtype_guards(no_launches):
     with pytest.raises(ValueError, match="preprocess first"):
         eng_f.run(floats.astype(np.uint8))
     raw = np.random.default_rng(1).integers(0, 256, (8, 3, 32, 32), np.uint8)
-    from vit_with_opencl_tpu_torch.engine import IMAGENET_MEAN, IMAGENET_STD
+    from vit_with_opencl_tpu_torch.io.preprocess import IMAGENET_MEAN, IMAGENET_STD
 
     norm = ((raw.astype(np.float32) / 255.0 - IMAGENET_MEAN.reshape(1, 3, 1, 1))
             / IMAGENET_STD.reshape(1, 3, 1, 1)).astype(np.float32)

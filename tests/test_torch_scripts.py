@@ -2,8 +2,9 @@
 on the CPU, at ``vit_tiny_16_224`` and a batch of 2.
 
 ``make_fixtures`` writes the JAX script's files byte for byte (weights,
-input, answers); ``soak``, ``trace_table`` and ``bench_train`` run their
-main paths on the plain versions and print finite results, and refuse what
+input, answers); ``soak``, ``soak_serve``, ``trace_table`` and
+``bench_train`` run their main paths on the plain versions and print finite
+results, and refuse what
 the port does not have yet (``bench_train``'s split routes, TUNE=1 and
 AUG=1) or never had (an unknown quant mode). Every script's ``main`` needs a
 card unless ``device="cpu"`` is passed.
@@ -12,8 +13,10 @@ card unless ``device="cpu"`` is passed.
 import importlib.util
 import math
 import os
+import time
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -21,9 +24,12 @@ if os.environ.get("PYTEST_XDIST_WORKER"):
     # The xdist workers share the host's cores: one torch thread each.
     torch.set_num_threads(1)
 
+from vit_with_opencl_tpu_torch import get_config, serve
+from vit_with_opencl_tpu_torch.engine import InferenceEngine
+from vit_with_opencl_tpu_torch.harness import fixtures
 from vit_with_opencl_tpu_torch.scripts import (bench_train, make_fixtures,
                                                probe_w8a8_overlap, soak,
-                                               trace_table)
+                                               soak_serve, trace_table)
 
 REPO = Path(__file__).resolve().parent.parent
 TINY = "vit_tiny_16_224"
@@ -64,6 +70,55 @@ def test_soak_runs_and_checks_finite(quant, capsys):
     out = capsys.readouterr().out
     assert "window   2:" in out and "finite=True" in out
     assert "soak: 3 batches x 2 = 6 images" in out
+
+
+@pytest.mark.parametrize("quant", ["none", "int8-w8a8"])
+def test_soak_serve_answers_through_the_socket(quant, capsys):
+    """Two clients pump uint8 payloads at the daemon for a second: every
+    request answered, no failed batch, the daemon counts what was served."""
+    res = soak_serve.main([TINY, "2", "1", "2", quant], device="cpu")
+    assert res["images"] > 0 and res["requests"] == res["images"]  # 1 a request
+    assert res["img_per_s"] > 0 and 0 < res["p50_ms"] <= res["max_ms"]
+    # p99 only where the window answered 100 requests or more.
+    assert (res["p99_ms"] is None) == (res["requests"] < 100)
+    if res["p99_ms"] is not None:
+        assert res["p50_ms"] <= res["p99_ms"] <= res["max_ms"]
+    assert res["stats"]["batch_errors"] == 0
+    assert res["stats"]["images_served"] >= res["images"]
+    out = capsys.readouterr().out
+    assert "img/s through the socket" in out and "daemon stats: " in out
+
+
+@pytest.mark.parametrize("n, shown", [(1, {}), (2, {50: 1.0}), (19, {50: 9.0}),
+                                      (20, {50: 10.0, 95: 19.0}),
+                                      (99, {50: 49.0, 95: 94.0}),
+                                      (100, {50: 50.0, 95: 95.0, 99: 99.0})])
+def test_soak_serve_prints_a_percentile_only_where_the_sample_holds_it(n, shown):
+    """p50 needs 2 requests, p95 20, p99 100: at least one request lies
+    above the percentile."""
+    lat = np.arange(n, dtype=np.float64)
+    assert {q: soak_serve.percentile_ms(lat, q) for q in (50, 95, 99)} == \
+        {q: shown.get(q) for q in (50, 95, 99)}
+
+
+def test_soak_serve_window_closes_at_its_request_count():
+    """``load`` with ``requests`` ends once that many are answered, long
+    before its time limit."""
+    params = fixtures.random_params(get_config(TINY), seed=0, scale=0.05)
+    engine = InferenceEngine(get_config(TINY), params, batch_size=2,
+                             device="cpu", normalize_uint8=True)
+    srv = serve.InferenceServer(engine, port=0, max_wait_ms=1.0)
+    srv.start_background()
+    try:
+        images = np.zeros((1, 3, 224, 224), np.uint8)
+        t0 = time.perf_counter()
+        res = soak_serve.load(srv.address[1], images, 2, 120.0, requests=5)
+        assert time.perf_counter() - t0 < 60
+    finally:
+        srv.shutdown()
+    # The clients' requests in flight when the fifth answer comes are answered too.
+    assert res["requests"] >= 5 and res["images"] == res["requests"]
+    assert res["p99_ms"] is None and res["p50_ms"] is not None
 
 
 @pytest.mark.parametrize("script", [soak, trace_table])
@@ -112,6 +167,7 @@ def test_bench_train_refuses_what_is_not_ported(monkeypatch, env, impls, item):
 
 @pytest.mark.parametrize("script,argv", [
     (soak, [TINY, "2", "1", "1"]),
+    (soak_serve, [TINY, "2", "1", "1"]),
     (trace_table, [TINY, "1", "1"]),
     (bench_train, [TINY, "2", "1", "xla"]),
     (make_fixtures, ["--out", "unused", "--config", TINY]),

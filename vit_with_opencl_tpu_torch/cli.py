@@ -11,6 +11,13 @@ card by default (``--device cpu`` runs its plain versions on the CPU).
         --output result.txt --answer answer.txt --backend gpu --attention flash \
         [--quantize int8|int8-w8a8|auto] [--calibrate CALIB.bin]
 
+Images, weights and the calibration set load through libvitio (``runtime``,
+compiled with g++ at first use) unless ``--pure-python`` asks for the NumPy
+io layer or there is no toolchain; the ``loaded ...`` line says which ran.
+``--raw-images a.jpg b.png ...`` preprocesses image files (torchvision's
+resize, center crop and normalization; ``io/preprocess``) instead of reading
+``--input``.
+
 Exit code 0, or 1 when the comparator finds mismatches.
 """
 
@@ -47,6 +54,9 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__)
     parser.add_argument("--input", default="./Data/input-100.bin",
                         help="packed image binary (header + NCHW fp32)")
+    parser.add_argument("--raw-images", nargs="+", default=None,
+                        help="raw image files (jpg/png/...): preprocess with "
+                        "torchvision semantics instead of reading --input")
     parser.add_argument("--weights", default="./Network",
                         help="directory of Weight_<idx>_<name>.bin files")
     parser.add_argument("--output", default="./Data/opencl_result.txt",
@@ -83,19 +93,43 @@ def main(argv=None) -> int:
                         help="skip the reference's 6-decimal weight rounding")
     parser.add_argument("--print-labels", action="store_true",
                         help="also print human-readable class names")
+    parser.add_argument("--pure-python", action="store_true",
+                        help="force the NumPy io layer instead of libvitio")
     args = parser.parse_args(argv)
 
     cfg = config_lib.get_config(args.config)
 
+    nio = None
+    if not args.pure_python:
+        from .runtime import get_native_io
+
+        nio = get_native_io()
+
     t0 = time.perf_counter()
-    images = binfmt.load_image_data(args.input)
-    weights = binfmt.load_weights(
-        args.weights, cfg, round_to_6dp=not args.no_round_weights, strict=True
-    )
+    if args.raw_images:
+        from .io import preprocess
+
+        images = preprocess.preprocess_files(
+            args.raw_images, img_size=cfg.img_size,
+            resize_size=round(cfg.img_size * 256 / 224),
+        )
+    elif nio is not None:
+        images = nio.load_images(args.input)
+    else:
+        images = binfmt.load_image_data(args.input)
+    if nio is not None:
+        weights = nio.load_weights(
+            args.weights, len(binfmt.weight_names(cfg)),
+            round_to_6dp=not args.no_round_weights, strict=True,
+        )
+    else:
+        weights = binfmt.load_weights(
+            args.weights, cfg, round_to_6dp=not args.no_round_weights, strict=True
+        )
     params = binfmt.weights_to_dict(weights, cfg)
     t_load = time.perf_counter() - t0
     print(f"loaded {images.shape[0]} images + {len(weights)} weights "
-          f"in {t_load:.2f}s (numpy io)")
+          f"in {t_load:.2f}s ({'libvitio' if nio else 'numpy'} io)")
 
     calibrate = None
     if args.calibrate:
@@ -103,7 +137,8 @@ def main(argv=None) -> int:
             raise SystemExit("--calibrate only applies to the gpu backend")
         if args.quantize in (None, "auto"):
             args.quantize = "int8-w8a8"
-        calibrate = binfmt.load_image_data(args.calibrate)
+        calibrate = (nio.load_images(args.calibrate) if nio is not None
+                     else binfmt.load_image_data(args.calibrate))
         print(f"calibration set: {calibrate.shape[0]} images "
               f"({args.calibrate})")
 

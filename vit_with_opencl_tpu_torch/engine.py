@@ -20,14 +20,9 @@ import torch
 
 from .config import ViTConfig
 from .debug import checked_forward
+from .io.preprocess import uint8_normalize_constants
 from .models import quant, vit
 from .ops import fused_block
-
-# ImageNet normalisation for raw uint8 pixels: x_norm = (x - mean) * inv_std
-# (the JAX package's io/preprocess.py IMAGENET_MEAN, IMAGENET_STD and
-# uint8_normalize_constants).
-IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], np.float32)
-IMAGENET_STD = np.array([0.229, 0.224, 0.225], np.float32)
 
 
 def resolve_device(device: Optional[torch.device | str]) -> torch.device:
@@ -83,6 +78,8 @@ class InferenceEngine:
       check_numerics: every forward counts its non-finite outputs on the
         device and raises ``FloatingPointError`` if there are any
         (``debug.checked_forward``; one scalar read back a batch).
+      tuning_path: the autotune cache; not ported, so anything but None
+        raises ``NotImplementedError``.
     """
 
     def __init__(
@@ -99,7 +96,11 @@ class InferenceEngine:
         normalize_uint8: bool = False,
         calibrate: Optional[np.ndarray] = None,
         check_numerics: bool = False,
+        tuning_path: Optional[str] = None,
     ):
+        if tuning_path is not None:
+            raise NotImplementedError(
+                "the autotune cache (tuning_path) is not ported yet")
         quantize = resolve_quantize(quantize, config,
                                     calibrated=calibrate is not None)
         if quantize not in (None, "int8", "int8-w8a8"):
@@ -134,10 +135,7 @@ class InferenceEngine:
         self.kernels = vit.resolve_kernels(
             attention_impl, w8a8=quantize == "int8-w8a8",
             heads=(config.num_heads, config.head_dim))
-        self._mean = torch.from_numpy(
-            IMAGENET_MEAN.reshape(1, 3, 1, 1) * 255.0).to(self.device)
-        self._inv_std = torch.from_numpy(
-            1.0 / (IMAGENET_STD.reshape(1, 3, 1, 1) * 255.0)).to(self.device)
+        self._mean, self._inv_std = uint8_normalize_constants(self.device)
         if check_numerics:
             # NaN guard (the reference's findNaN, ViT_opencl.c:1050-1061, as
             # an always-on option instead of commented-out call sites).
@@ -214,7 +212,8 @@ class DataParallelEngine(InferenceEngine):
     count. ``devices`` defaults to every CUDA device (it raises without
     one); ``["cpu"] * 8`` runs the plain versions on the CPU. A device may
     repeat: ``["cuda:0"] * 4`` is a virtual mesh of one card.
-    ``tuning_path`` (the autotune cache) is not ported and raises."""
+    ``tuning_path`` (the autotune cache) is not ported and raises, as in
+    ``InferenceEngine``."""
 
     def __init__(
         self,
@@ -233,9 +232,6 @@ class DataParallelEngine(InferenceEngine):
     ):
         from .parallel import mesh as mesh_mod, spmd
 
-        if tuning_path is not None:
-            raise NotImplementedError(
-                "the autotune cache (tuning_path) is not ported yet")
         devices = list(devices) if devices is not None else mesh_mod.default_devices()
         self.n_devices = len(devices)
         if int(batch_size) % self.n_devices:
@@ -249,7 +245,7 @@ class DataParallelEngine(InferenceEngine):
                          attention_impl=attention_impl,
                          device=self.mesh.devices[0, 0],
                          quantize=quantize, normalize_uint8=normalize_uint8,
-                         calibrate=calibrate)
+                         calibrate=calibrate, tuning_path=tuning_path)
         self._replicas = spmd.replicate_params(self.params, self.mesh)
         self._dp_forward = spmd.dp_forward_fn(
             config, self.mesh, compute_dtype=compute_dtype,

@@ -55,6 +55,33 @@ def load_image_data(path: str | os.PathLike) -> np.ndarray:
     return data.reshape(n, c, h, w)
 
 
+def load_image_data_bytes(payload: bytes) -> np.ndarray:
+    """Parse the packed image format from an in-memory buffer (same layout
+    as ``load_image_data``; used by the serving wire protocol).
+
+    Two payload dtypes, distinguished by size: float32 (the reference's
+    normalized-tensor format) or uint8 raw pixels (4x smaller on the wire;
+    the serving engine normalizes on the device). The result is a copy, so
+    it is writable (``np.frombuffer`` views of ``bytes`` are not)."""
+    if len(payload) < 16:
+        raise ValueError("truncated header (needed 4 int32)")
+    n, c, h, w = (int(x) for x in np.frombuffer(payload[:16], _HEADER_DTYPE))
+    if min(n, c, h, w) <= 0:
+        raise ValueError(f"bad header {(n, c, h, w)}")
+    count = n * c * h * w
+    body = len(payload) - 16
+    if body == count * 4:
+        data = np.frombuffer(payload, _DATA_DTYPE, offset=16)
+    elif body == count:
+        data = np.frombuffer(payload, np.uint8, offset=16)
+    else:
+        raise ValueError(
+            f"expected {count * 4} (float32) or {count} (uint8) body bytes, "
+            f"got {body}"
+        )
+    return data.reshape(n, c, h, w).copy()
+
+
 def save_image_data(path: str | os.PathLike, images: np.ndarray) -> None:
     """Write images (n, c, h, w) in the reference's packed binary format."""
     if images.ndim != 4:
