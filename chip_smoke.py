@@ -153,6 +153,27 @@ line.
    update); in ``fused`` save → resume restores step, params and AdamW
    state exactly, and ``export_reference`` → ``cli --backend gpu`` gives
    the trained params' top-1 labels on every decisive image.
+5d. The DeiT recipe on the card: ``Trainer(VIT_B_16_224, device="cuda",
+   optimizer="adamw", compute_dtype=bf16, attention_impl="fused",
+   device_augment={}, mixup={}, ema_decay=0.999)`` from seeded random params
+   (non-zero heads), 8 steps at batch 32 from ``augment_device.raw_batches``
+   over 64 seeded 256x256 uint8 images, saved at step 4. The losses are
+   finite; each step's batch equals ``device_augment`` then
+   ``device_mixup_cutmix`` called directly on the generators of its (seed,
+   step); a Trainer resumed from the step-4 checkpoint takes the same batches
+   and gives the same losses for steps 5-8; ``export_reference(use_ema=True)``
+   → ``cli --backend gpu`` gives the EMA params' top-1 labels; the launches
+   of the 8 steps equal phase 5's ``fused`` ones (the pipeline adds no
+   kernel). Printed beside the card's name and power limit:
+   ``device_augment`` ms a batch at B = 64 and 128 and ``device_mixup_cutmix``
+   ms (CUDA events), the ViT-B ``fused`` AdamW step at B = 64 with and
+   without the pipeline in front and the pipeline's share (CUDA events, one
+   thread) and ms a step through ``Trainer.fit`` from raw uint8 batches and
+   from normalized fp32 ones (host clock), the host ``augmented_dataset``
+   img/s at ``workers=1`` and at the host's cores against that step's
+   img/s, whether ``_resize`` ran PIL or NumPy, the memory the captured
+   pipelines held (released before the later phases), and the phase's own
+   seconds.
 4. Throughput of the full-depth bf16, W8A8, int8 and calibrated W8A8 flash
    forwards at batch 64 and 256, beside the sums of their kernels' times and
    bounds at the same batch; then ViT-Ti and ViT-S (bf16 and int8-weight
@@ -284,7 +305,10 @@ line.
    that workspace (the comparator green); ``soak`` of ViT-B/16 W8A8 at B =
    256, 2 windows of 5 (finite); ``trace_table`` of ViT-B/16 W8A8 at B = 64
    (the W8A8 form of the GEMM core in the table); ``bench_train`` of ViT-B/16
-   ``fused`` at B = 32, 2 steps (a finite loss); ``soak_serve`` of
+   ``fused`` at B = 32, 2 steps, with AUG=1 (a finite loss; the augment
+   probe's host img/s and ``device_augment`` ms); ``recipe_smoke`` of
+   ViT-B/16 ``fused`` at B = 32, 3 steps (a finite loss, the EMA export's 152
+   files, the pipeline's share of a staged step); ``soak_serve`` of
    ViT-B/16 W8A8 at B = 64, 5 s, 2 clients (no failed request or batch);
    and ``InferenceEngine(check_numerics=True)`` on phase 3's weights
    (passes) and with one weight NaN (raises).
@@ -299,9 +323,12 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import functools
+import gc
 import io
+import itertools
 import json
 import math
+import os
 import re
 import socket
 import struct
@@ -316,8 +343,8 @@ import numpy as np
 import torch
 
 try:
-    from vit_with_opencl_tpu_torch import (VIT_B_16_224, cli, data, ops, optim, perf,
-                                           serve)
+    from vit_with_opencl_tpu_torch import (VIT_B_16_224, augment, augment_device, cli,
+                                           data, ops, optim, perf, serve)
     from vit_with_opencl_tpu_torch.config import (VIT_G_14_224, VIT_H_14_224,
                                                   VIT_L_16_384, VIT_S_16_224,
                                                   VIT_TINY_16_224)
@@ -330,7 +357,8 @@ try:
     from vit_with_opencl_tpu_torch.ops import (_build, attention, fused_block,
                                                layernorm, linear, quantize)
     from vit_with_opencl_tpu_torch.scripts import (bench_train, make_fixtures,
-                                                   soak, soak_serve, trace_table)
+                                                   recipe_smoke, soak, soak_serve,
+                                                   trace_table)
     from vit_with_opencl_tpu_torch.scripts import probe_w8a8_overlap as probe
     from vit_with_opencl_tpu_torch.runtime import native
 except ImportError as exc:  # run outside the repository
@@ -455,6 +483,24 @@ TRAIN_PER_LAYER = {
     "flash": {"attention": 1, "attention_bwd": 1},
     "xla": {},
 }
+
+# Phase 5d: the DeiT recipe on the card. RECIPE_SOURCES seeded uint8 images
+# at the 256-for-224 source size, RECIPE_STEPS steps at RECIPE_BATCH with a
+# checkpoint at RECIPE_RESUME_AT; device_augment timed at RECIPE_TIME_BATCHES,
+# the fused step with and without the pipeline at RECIPE_STEP_BATCH (phase
+# 4b's), the host pipeline over RECIPE_HOST_BATCHES batches after one to warm.
+RECIPE_SEED = 5
+RECIPE_SOURCES = 64
+RECIPE_SRC = 256
+RECIPE_BATCH = 32
+RECIPE_STEPS = 8
+RECIPE_RESUME_AT = 4
+RECIPE_EMA = 0.999
+RECIPE_TIME_BATCHES = (64, 128)
+RECIPE_STEP_BATCH = TRAIN_THROUGHPUT_BATCH
+RECIPE_HOST_BATCHES = 2
+RECIPE_FIT_STEPS = 6  # Trainer.fit steps timed at RECIPE_STEP_BATCH, after 2
+RECIPE_SECONDS = 40.0
 
 # Phases 2f, 5b and 4c: ViT-L/16@384, whose MLP backward takes the H-chunked
 # pair. Its fused step launches what ViT-B's does, with the light and wgrad
@@ -652,7 +698,8 @@ RAW_IMAGE_SHAPES = ((250, 270, 3), (300, 240, 3), (224, 224, 3), (400, 300, 3))
 FIXTURE_IMAGES = 4
 SOAK_ARGS = [CFG.name, "256", "10", "5", "int8-w8a8"]  # 2 windows of 5
 TRACE_ARGS = [CFG.name, "64", "2", "15", "int8-w8a8"]
-BENCH_TRAIN_ARGS = [CFG.name, "32", "2", "fused"]
+BENCH_TRAIN_ARGS = [CFG.name, "32", "2", "fused"]  # with AUG=1
+RECIPE_SMOKE_ARGS = [CFG.name, "32", "3"]
 SOAK_SERVE_ARGS = [CFG.name, "64", "5", "2", "int8-w8a8"]
 
 # Published dense peaks (NVIDIA data sheets): tensor-core bf16 FLOP/s,
@@ -2295,11 +2342,19 @@ def resume_and_export(tr, dev, tmp: Path, images) -> None:
     check(same, f"save -> resume restores step {tr.step_idx}, params and the "
                 f"AdamW state exactly")
     del back
-    ws = tmp / "trained"
-    files = tr.export_reference(str(ws / "Network"))
+    export_through_cli(tr, dev, tmp / "trained", images)
+
+
+def export_through_cli(tr, dev, ws: Path, images, use_ema: bool = False) -> None:
+    """``tr.export_reference`` (the EMA shadow with ``use_ema``) → ``cli
+    --backend gpu`` on ``images``: the CLI's top-1 labels are those of the
+    exported params' own forward on every decisive image."""
+    what = "EMA params" if use_ema else "trained params"
+    files = tr.export_reference(str(ws / "Network"), use_ema=use_ema)
     binfmt.save_image_data(ws / "input.bin", images)
     with torch.no_grad():
-        logits = vit.forward(torch.from_numpy(images).to(dev), tr.params, CFG,
+        logits = vit.forward(torch.from_numpy(images).to(dev),
+                             tr.ema_params if use_ema else tr.params, CFG,
                              compute_dtype=torch.bfloat16,
                              kernels=vit.resolve_kernels("flash"),
                              return_logits=True).float()
@@ -2319,14 +2374,221 @@ def resume_and_export(tr, dev, tmp: Path, images) -> None:
     probs = torch.softmax(logits, -1).max(-1).values.tolist()
     prob_err = max((abs(p - q) for (_, p), q in zip(lines, probs)), default=1.0)
     print(f"  exported {len(files)} weight files; the CLI's top-1 labels vs the "
-          f"trained params' forward: {sum(agree)} of {len(agree)} decisive images "
+          f"{what}' forward: {sum(agree)} of {len(agree)} decisive images "
           f"(top-2 logit gap >= {MIN_LOGIT_GAP}) agree, {len(images) - len(agree)} "
           f"near-ties left out; top-1 probabilities within {prob_err:.3e}",
           flush=True)
     check(rc == 0 and len(lines) == len(images) and agree and all(agree)
           and prob_err <= PROB_TOL,
-          f"export_reference -> cli --backend gpu: the trained params' labels, "
-          f"probabilities within {PROB_TOL}")
+          f"export_reference{'(use_ema=True)' if use_ema else ''} -> cli --backend "
+          f"gpu: the {what}' labels, probabilities within {PROB_TOL}")
+
+
+def recording(tr: Trainer) -> list:
+    """Wrap ``tr``'s step to keep each step's batch (as the step got it:
+    after the input pipeline) and its loss tensor."""
+    seen, step = [], tr._step
+
+    def wrapped(*args):
+        out = step(*args)
+        seen.append((args[-2].clone(), args[-1].clone(), out[-1]))
+        return out
+
+    tr._step = wrapped
+    return seen
+
+
+def recipe_trainer(dev, ck: Path) -> Trainer:
+    return Trainer(CFG, device=dev, lr=TRAIN_LR, optimizer="adamw",
+                   compute_dtype=torch.bfloat16, attention_impl="fused",
+                   device_augment={}, mixup={}, ema_decay=RECIPE_EMA,
+                   log_every=0, seed=0, checkpoint_dir=str(ck))
+
+
+def recipe_main_path(dev, tmp: Path, smi_line: str, fused_counts: dict) -> None:
+    """Phase 5d: the DeiT recipe on the card. ``Trainer(device_augment={},
+    mixup={}, ema_decay=RECIPE_EMA)`` (fused, bf16, AdamW) from seeded random
+    params takes RECIPE_STEPS steps at RECIPE_BATCH from ``raw_batches`` over
+    RECIPE_SOURCES seeded uint8 images, saving at RECIPE_RESUME_AT. Gates:
+    finite losses; each step's batch equals ``device_augment`` then
+    ``device_mixup_cutmix`` called directly on its step's generators; a
+    Trainer resumed from the checkpoint takes the same batches and gives the
+    same losses; the EMA export through the CLI gives the EMA params'
+    labels; the launches equal phase 5's fused ones (the pipeline adds no
+    kernel). Then the pipeline's times beside a ViT-B fused step at
+    RECIPE_STEP_BATCH, and the host pipeline's img/s."""
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(RECIPE_SEED)
+    raw = rng.integers(0, 256, (RECIPE_SOURCES, RECIPE_SRC, RECIPE_SRC, 3),
+                       dtype=np.uint8)
+    labels = rng.integers(0, CFG.num_classes, RECIPE_SOURCES)
+
+    def batches():
+        return augment_device.raw_batches(raw, labels, RECIPE_BATCH, epochs=None,
+                                          seed=RECIPE_SEED)
+
+    ck = tmp / "ck_recipe"
+    tr = recipe_trainer(dev, ck)
+    # Random params with non-zero heads: the EMA of a zero head after a few
+    # steps has near-tied logits, and its exported labels could not be held.
+    tr.params = start_params(CFG, 1, dev)
+    tr.opt_state = tr._init_opt(tr.params)
+    tr.ema_params = optim.tree_map(torch.clone, tr.params)
+    plain_step = tr._step
+    seen = recording(tr)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    tr.fit(batches(), steps=RECIPE_RESUME_AT)
+    torch.cuda.synchronize()
+    t_save = time.perf_counter()
+    tr.save()
+    t_save = time.perf_counter() - t_save
+    tr.fit(itertools.islice(batches(), RECIPE_RESUME_AT, None), steps=RECIPE_STEPS)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0 - t_save
+    counts = read_counts()
+    losses = [float(loss) for *_, loss in seen]
+    print(f"  {RECIPE_STEPS} recipe steps at B={RECIPE_BATCH} in {elapsed:.2f} s "
+          f"(+ a save in {t_save:.2f} s); losses "
+          f"{' '.join(f'{v:.4f}' for v in losses)}", flush=True)
+    check(len(losses) == RECIPE_STEPS and all(np.isfinite(losses)),
+          f"the recipe's {RECIPE_STEPS} losses are finite")
+    expected = {k: v * RECIPE_STEPS // TRAIN_STEPS for k, v in fused_counts.items()}
+    check(counts == expected,
+          f"recipe launches of {RECIPE_STEPS} steps "
+          f"{ {k: v for k, v in counts.items() if v} } equal phase 5's fused "
+          f"steps' (the pipeline adds no kernel)")
+
+    key_seed = 0 + 101  # Trainer(seed=0): seed + 101
+    same = []
+    for i, (x, y) in enumerate(itertools.islice(batches(), RECIPE_STEPS)):
+        g_aug, g_mix = augment_device.step_generators(key_seed, i)
+        want = augment_device.device_augment(torch.from_numpy(x).to(dev), g_aug,
+                                             img_size=CFG.img_size)
+        want_x, want_y = augment.device_mixup_cutmix(
+            g_mix, want, torch.from_numpy(y).to(dev), CFG.num_classes)
+        same.append(torch.equal(seen[i][0], want_x)
+                    and torch.equal(seen[i][1], want_y))
+    check(all(same), f"each step's batch is device_augment + device_mixup_cutmix "
+                     f"of its (seed {key_seed}, step) ({sum(same)} of "
+                     f"{len(same)} equal)")
+
+    back = recipe_trainer(dev, ck)
+    resumed = back.resume() and back.step_idx == RECIPE_RESUME_AT
+    again = recording(back)
+    back.fit(itertools.islice(batches(), RECIPE_RESUME_AT, None), steps=RECIPE_STEPS)
+    after = [float(loss) for *_, loss in again]
+    check(resumed and after == losses[RECIPE_RESUME_AT:] and all(
+        torch.equal(a[0], b[0]) for a, b in zip(again, seen[RECIPE_RESUME_AT:])),
+        f"resumed at step {RECIPE_RESUME_AT}: steps {RECIPE_RESUME_AT + 1}-"
+        f"{RECIPE_STEPS} take the same batches and give the same losses "
+        f"({' '.join(f'{v:.6f}' for v in after)})")
+    del back, again
+    tr._step = plain_step
+    export_through_cli(tr, dev, tmp / "recipe_ema", fixtures.random_images(
+        CFG, n=TRAIN_BATCH, seed=RECIPE_SEED), use_ema=True)
+    del seen
+    torch.cuda.empty_cache()
+    t_gates = time.perf_counter() - t_phase
+
+    # The pipeline's times on the card (CUDA events).
+    times = {}
+    for batch in RECIPE_TIME_BATCHES:
+        xb = torch.from_numpy(np.resize(raw, (batch,) + raw.shape[1:])).to(dev)
+        gen = torch.Generator()
+        times[f"device_augment_ms_b{batch}"] = time_ms(
+            lambda: augment_device.device_augment(xb, gen, img_size=CFG.img_size),
+            reps=5)
+    xb = torch.from_numpy(np.resize(raw, (RECIPE_STEP_BATCH,) + raw.shape[1:])).to(dev)
+    yb = torch.from_numpy(np.resize(labels, RECIPE_STEP_BATCH)).to(dev)
+    xf = augment_device.device_augment(xb, torch.Generator(), img_size=CFG.img_size)
+    gen = torch.Generator()
+    times["device_mixup_cutmix_ms"] = time_ms(
+        lambda: augment.device_mixup_cutmix(gen, xf, yb, CFG.num_classes), reps=5)
+    step_ms = time_ms(lambda: tr._step(tr.params, tr.opt_state, xf, yb), reps=5)
+    prep_step_ms = time_ms(lambda: tr._step(tr.params, tr.opt_state,
+                                            *tr._prep(xb, yb, tr.step_idx)), reps=5)
+    share = (prep_step_ms - step_ms) / prep_step_ms
+    # Through Trainer.fit (host clock): raw uint8 batches through the
+    # pipeline against normalized fp32 ones (their upload) on one Trainer.
+    fit_ms = {}
+    normalized = fixtures.random_images(CFG, n=RECIPE_STEP_BATCH, seed=RECIPE_SEED)
+    for what in ("pipeline", "fp32"):
+        prep = tr._prep
+        if what == "fp32":
+            tr._prep = None
+
+            def feed():
+                return data.memory_dataset(
+                    normalized, np.resize(labels, RECIPE_STEP_BATCH),
+                    RECIPE_STEP_BATCH, epochs=None)
+        else:
+            def feed():
+                return augment_device.raw_batches(raw, labels, RECIPE_STEP_BATCH,
+                                                  epochs=None)
+        tr.fit(feed(), steps=tr.step_idx + 2)  # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tr.fit(feed(), steps=tr.step_idx + RECIPE_FIT_STEPS)
+        torch.cuda.synchronize()
+        fit_ms[what] = (time.perf_counter() - t0) / RECIPE_FIT_STEPS * 1e3
+        tr._prep = prep
+    times["fit_ms"] = fit_ms
+    print(f"  device_augment (RRC, flip, RandAugment 2 ops at 9, normalize; "
+          f"{RECIPE_SRC}x{RECIPE_SRC} uint8 -> {CFG.img_size}): "
+          + ", ".join(f"B={b} {times[f'device_augment_ms_b{b}']:.3f} ms"
+                      for b in RECIPE_TIME_BATCHES)
+          + f"; device_mixup_cutmix B={RECIPE_STEP_BATCH} "
+          f"{times['device_mixup_cutmix_ms']:.3f} ms", flush=True)
+    print(f"  {CFG.name} fused AdamW step at B={RECIPE_STEP_BATCH}: {step_ms:.2f} ms "
+          f"on a normalized batch, {prep_step_ms:.2f} ms with the pipeline in front "
+          f"({share * 100:.1f}% of it, in one thread); "
+          f"{RECIPE_STEP_BATCH / prep_step_ms * 1e3:.1f} img/s; through Trainer.fit: "
+          f"{fit_ms['pipeline']:.2f} ms a "
+          f"step from raw uint8, {fit_ms['fp32']:.2f} ms from normalized fp32 "
+          f"({(fit_ms['pipeline'] / fit_ms['fp32'] - 1) * 100:+.1f}%)", flush=True)
+    del xb, yb, xf
+    rates = {}
+    for workers in (1, os.cpu_count() or 1):
+        it = augment.augmented_dataset(raw, labels, RECIPE_STEP_BATCH,
+                                       CFG.num_classes, img_size=CFG.img_size,
+                                       epochs=None, seed=0, mix="device",
+                                       workers=workers)
+        try:
+            next(it)
+            t0 = time.perf_counter()
+            for _ in range(RECIPE_HOST_BATCHES):
+                next(it)
+            rates[workers] = RECIPE_HOST_BATCHES * RECIPE_STEP_BATCH / (
+                time.perf_counter() - t0)
+        finally:
+            it.close()
+    step_rate = RECIPE_STEP_BATCH / step_ms * 1e3
+    print("  host augmented_dataset (mix on the card): " + ", ".join(
+        f"workers={w} {r:.1f} img/s ({r / step_rate:.3f}x the step's {step_rate:.1f})"
+        for w, r in rates.items())
+        + f"; _resize ran {augment.resize_backend()} (card: {smi_line})", flush=True)
+    # The captured pipelines hold their pools: released here, so the later
+    # phases' peak memory is what it was before this phase.
+    gc.collect()
+    held = torch.cuda.memory_allocated()
+    augment_device.release_graphs()
+    gc.collect()
+    times["graphs_gib"] = (held - torch.cuda.memory_allocated()) / 2**30
+    print(f"  the captured pipelines held {times['graphs_gib']:.2f} GiB "
+          f"(B={RECIPE_BATCH}, {', '.join(map(str, RECIPE_TIME_BATCHES))})",
+          flush=True)
+    took = time.perf_counter() - t_phase
+    print(json.dumps({"recipe": {
+        "config": CFG.name, "card": smi_line, "batch": RECIPE_STEP_BATCH,
+        **times, "step_ms": step_ms, "step_with_pipeline_ms": prep_step_ms,
+        "pipeline_share": share,
+        "host_img_per_s": {str(w): r for w, r in rates.items()},
+        "step_img_per_s": step_rate, "resize": augment.resize_backend(),
+        "gates_s": t_gates, "phase_s": took}}), flush=True)
+    print(f"  phase 5d took {took:.1f} s (gates {t_gates:.1f} s; budget "
+          f"{RECIPE_SECONDS:.0f} s)", flush=True)
 
 
 def training_throughput(dev, cfg=CFG, batch: int = TRAIN_THROUGHPUT_BATCH,
@@ -3973,9 +4235,24 @@ def scripts_phase(dev, rounded: dict, images: np.ndarray) -> None:
     check(bool(table) and any(W8A8_GEMM_KERNEL in s.name for s in table),
           f"trace_table {' '.join(TRACE_ARGS)}: {len(table)} rows, the W8A8 form of "
           f"the GEMM core among them")
-    res = bench_train.main(BENCH_TRAIN_ARGS)
+    os.environ["AUG"] = "1"
+    try:
+        res = bench_train.main(BENCH_TRAIN_ARGS)
+    finally:
+        del os.environ["AUG"]
     loss = res.get("fused", {}).get("loss", float("nan"))
-    check(math.isfinite(loss), f"bench_train {' '.join(BENCH_TRAIN_ARGS)}: loss {loss}")
+    aug = res.get("augment", {})
+    check(math.isfinite(loss) and aug.get("device_augment_ms", 0) > 0
+          and all(r > 0 for r in aug.get("host_img_per_s", {0: 0}).values()),
+          f"AUG=1 bench_train {' '.join(BENCH_TRAIN_ARGS)}: loss {loss}, the augment "
+          f"probe's rates {aug.get('host_img_per_s')} img/s, device_augment "
+          f"{aug.get('device_augment_ms')} ms")
+    res = recipe_smoke.main(RECIPE_SMOKE_ARGS)
+    check(math.isfinite(res["loss"]) and res["export_files"] == len(
+        binfmt.weight_names(CFG)),
+          f"recipe_smoke {' '.join(RECIPE_SMOKE_ARGS)}: loss {res['loss']:.4f}, "
+          f"{res['export_files']} EMA weight files, the pipeline "
+          f"{res['pipeline_share'] * 100:.1f}% of a staged step")
     res = soak_serve.main(SOAK_SERVE_ARGS)
     check(res["images"] > 0 and res["stats"]["batch_errors"] == 0,
           f"soak_serve {' '.join(SOAK_SERVE_ARGS)}: {res['images']} images, "
@@ -4117,6 +4394,10 @@ def main() -> int:
         phase(f"== phase 5: training main path (Trainer, ViT-B/16, bf16, AdamW; "
               f"routes {', '.join(TRAIN_ROUTES)})")
         train_counts = training_main_path(dev, Path(tmp))
+        phase(f"== phase 5d: the DeiT recipe on the card (Trainer(device_augment, "
+              f"mixup, ema_decay), {CFG.name}, fused, B={RECIPE_BATCH}; "
+              f"raw_batches of {RECIPE_SRC}x{RECIPE_SRC} uint8)")
+        recipe_main_path(dev, Path(tmp), smi_line, train_counts["fused"])
     phase("== phase 5b: training main path (Trainer, ViT-L/16@384, bf16, AdamW, "
           "fused; a fused and a flash step vs the plain links)")
     large_counts = large_training_main_path(dev)
@@ -4190,7 +4471,8 @@ def main() -> int:
               flush=True)
     torch.cuda.empty_cache()
     phase("== phase 7: the record-producing scripts (make_fixtures, soak, trace_table, "
-          "bench_train, soak_serve) and InferenceEngine(check_numerics=True)")
+          "bench_train with AUG=1, recipe_smoke, soak_serve) and "
+          "InferenceEngine(check_numerics=True)")
     scripts_phase(dev, rounded, images)
 
     # Each row's launches: from the main-path run that drives its kernel.

@@ -1985,3 +1985,140 @@ def test_dp_serving_on_a_virtual_mesh(dev, socket_timeout):
     assert decisive.sum() >= 10
     assert (labels[decisive] == one.argmax(-1)[decisive]).all()
     np.testing.assert_allclose([prob for _, prob in served], one.max(-1), atol=1e-3)
+
+
+# -- the on-card input pipeline (augment_device, augment) -------------------
+
+AUG_OP_TOL = 1.0 + 1e-6  # one u8 level, the JAX package's bound a device op
+AUG_EXACT_OPS = ("identity", "equalize", "posterize", "solarize")
+
+
+def _aug_batch(n=16, src=64, seed=0):
+    rng = np.random.default_rng(seed)
+    return (torch.from_numpy(rng.integers(0, 256, (n, src, src, 3), dtype=np.uint8)),
+            torch.from_numpy(rng.integers(0, 10, n)))
+
+
+def test_device_augment_ops_on_the_card(dev):
+    """Each RandAugment op on the card against the same op on the CPU, the
+    same arguments: within one level, bit-identical for the exact ops."""
+    from vit_with_opencl_tpu_torch import augment_device as ad
+
+    imgs = _aug_batch(8, 48)[0].float()
+    for k, (name, fn, _, _) in enumerate(ad.DEVICE_RAND_AUGMENT_OPS):
+        v = torch.from_numpy(ad.op_arguments(
+            np.full(8, k), np.linspace(0.0, 10.0, 8, dtype=np.float32),
+            np.arange(8) % 2 == 1))
+        want = fn(imgs, v)
+        got = fn(imgs.to(dev), v.to(dev)).cpu()
+        same = float((got == want).float().mean())
+        print(f"{name}: max abs err {float((got - want).abs().max()):.3g}, "
+              f"{same:.4%} exact")
+        if name in AUG_EXACT_OPS:
+            assert torch.equal(got, want), name
+        else:
+            torch.testing.assert_close(got, want, rtol=0, atol=AUG_OP_TOL)
+
+
+@pytest.mark.parametrize("randaugment", [(2, 9.0), None])
+def test_device_augment_on_the_card_matches_the_cpu(dev, randaugment):
+    """The pipeline on the card and on the CPU, the same drawn parameters:
+    before the normalization within one level (nearly all exact); the flip
+    and the crop without RandAugment within fp32 rounding."""
+    from vit_with_opencl_tpu_torch import augment_device as ad
+    from vit_with_opencl_tpu_torch.io.preprocess import IMAGENET_MEAN, IMAGENET_STD
+
+    std = torch.from_numpy(IMAGENET_STD * np.float32(255.0))[:, None, None]
+    mean = torch.from_numpy(IMAGENET_MEAN * np.float32(255.0))[:, None, None]
+    # Three batches through one captured graph: the first call captures it,
+    # the others replay it on new images and new parameters.
+    for seed in (4, 5, 6):
+        imgs, _ = _aug_batch(32, 64, seed=seed)
+        p = ad.draw_augment_params(torch.Generator().manual_seed(seed), 32, 64,
+                                   64, randaugment=randaugment)
+        want = ad.apply_augment(imgs, p, img_size=48, randaugment=randaugment)
+        got = ad.apply_augment(imgs.to(dev), p, img_size=48,
+                               randaugment=randaugment).cpu()
+        pg, pw = got * std + mean, want * std + mean
+        same = float(((pg - pw).abs() < 1e-3).float().mean())
+        print(f"device_augment {randaugment} seed {seed}: max abs err "
+              f"{float((pg - pw).abs().max()):.3g} levels, {same:.4%} exact")
+        tol = AUG_OP_TOL if randaugment else 1e-3
+        torch.testing.assert_close(pg, pw, rtol=0, atol=tol)
+        assert same > 0.99
+    # The flip alone (no crop move): the card's flipped images are the
+    # CPU's unflipped ones reversed, bit for bit.
+    flip = p._replace(flip=torch.ones(32, dtype=torch.bool))
+    keep = p._replace(flip=torch.zeros(32, dtype=torch.bool))
+    a = ad.apply_augment(imgs.to(dev), flip, img_size=48, randaugment=None).cpu()
+    b = ad.apply_augment(imgs, keep, img_size=48, randaugment=None)
+    assert torch.equal(a, b.flip(-1))
+
+
+@pytest.mark.parametrize("kw", [{"mixup_alpha": 0.0}, {"cutmix_alpha": 0.0}, {}])
+def test_device_mixup_cutmix_on_the_card_matches_the_cpu(dev, kw):
+    """The batch mix on the card and on the CPU from the same generator
+    seed: CutMix and the labels exact, Mixup exact (the same fp32 lerp)."""
+    from vit_with_opencl_tpu_torch import augment
+
+    x = _rand((16, 3, 48, 48), "cpu", seed=3)
+    _, y = _aug_batch(16)
+    for seed in range(4):
+        want = augment.device_mixup_cutmix(torch.Generator().manual_seed(seed), x,
+                                           y, 10, **kw)
+        got = augment.device_mixup_cutmix(torch.Generator().manual_seed(seed),
+                                          x.to(dev), y.to(dev), 10, **kw)
+        for g, w in zip(got, want):
+            assert torch.equal(g.cpu(), w)
+
+
+def test_device_augment_replays_from_threads(dev):
+    """Calls from two threads on their own streams share the captured
+    graphs one at a time: each result equals the same call alone."""
+    import threading
+
+    from vit_with_opencl_tpu_torch import augment_device as ad
+
+    imgs = [_aug_batch(16, 64, seed=s)[0].to(dev) for s in range(6)]
+    alone = [ad.device_augment(x, torch.Generator().manual_seed(i), img_size=32)
+             for i, x in enumerate(imgs)]
+    got = [None] * len(imgs)
+
+    def work(which):
+        with torch.cuda.stream(torch.cuda.Stream()):
+            for i in which:
+                got[i] = ad.device_augment(imgs[i], torch.Generator().manual_seed(i),
+                                           img_size=32)
+            torch.cuda.current_stream().synchronize()
+
+    threads = [threading.Thread(target=work, args=(r,))
+               for r in (range(0, 6, 2), range(1, 6, 2))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+        assert not t.is_alive()
+    for a, b in zip(got, alone):
+        assert torch.equal(a, b)
+    held = torch.cuda.memory_allocated()
+    ad.release_graphs()
+    import gc
+
+    gc.collect()
+    assert torch.cuda.memory_allocated() < held  # the graphs' pools went
+
+
+def test_trainer_recipe_on_the_card(dev):
+    """Trainer(device_augment=..., mixup=..., ema_decay=...) on a tiny
+    config: the batches live on the card, the loss is finite."""
+    from vit_with_opencl_tpu_torch.augment_device import raw_batches
+    from vit_with_opencl_tpu_torch.train import Trainer
+
+    cfg = ViTConfig(name="aug_card", img_size=32, patch_size=8, embed_dim=64,
+                    depth=2, num_heads=4, num_classes=17)
+    raw = np.random.default_rng(0).integers(0, 256, (32, 40, 40, 3), dtype=np.uint8)
+    tr = Trainer(cfg, device=dev, lr=1e-3, optimizer="adamw",
+                 compute_dtype=torch.bfloat16, attention_impl="fused",
+                 device_augment={}, mixup={}, ema_decay=0.99, log_every=0)
+    tr.fit(raw_batches(raw, np.arange(32) % 17, 16, epochs=2, seed=1))
+    assert tr.step_idx == 4 and np.isfinite(tr.last_loss)

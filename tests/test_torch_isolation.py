@@ -42,7 +42,8 @@ def test_importing_every_module_loads_no_jax():
                  "ops.ring_attention", "debug", "scripts.probe_w8a8_overlap",
                  "scripts.make_fixtures", "scripts.soak", "scripts.trace_table",
                  "scripts.bench_train", "serve", "io.preprocess", "runtime",
-                 "runtime.native", "scripts.soak_serve"):
+                 "runtime.native", "scripts.soak_serve", "augment",
+                 "augment_device", "scripts.recipe_smoke"):
         assert f"vit_with_opencl_tpu_torch.{name}" in modules
     code = "\n".join([
         "import importlib, sys",

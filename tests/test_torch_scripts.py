@@ -2,12 +2,12 @@
 on the CPU, at ``vit_tiny_16_224`` and a batch of 2.
 
 ``make_fixtures`` writes the JAX script's files byte for byte (weights,
-input, answers); ``soak``, ``soak_serve``, ``trace_table`` and
-``bench_train`` run their main paths on the plain versions and print finite
-results, and refuse what
-the port does not have yet (``bench_train``'s split routes, TUNE=1 and
-AUG=1) or never had (an unknown quant mode). Every script's ``main`` needs a
-card unless ``device="cpu"`` is passed.
+input, answers); ``soak``, ``soak_serve``, ``trace_table``, ``bench_train``
+(also with AUG=1, the augment probe) and ``recipe_smoke`` run their main
+paths on the plain versions and print finite results, and refuse what the
+port does not have yet (``bench_train``'s split routes and TUNE=1) or never
+had (an unknown quant mode). Every script's ``main`` needs a card unless
+``device="cpu"`` is passed.
 """
 
 import importlib.util
@@ -28,8 +28,8 @@ from vit_with_opencl_tpu_torch import get_config, serve
 from vit_with_opencl_tpu_torch.engine import InferenceEngine
 from vit_with_opencl_tpu_torch.harness import fixtures
 from vit_with_opencl_tpu_torch.scripts import (bench_train, make_fixtures,
-                                               probe_w8a8_overlap, soak,
-                                               soak_serve, trace_table)
+                                               probe_w8a8_overlap, recipe_smoke,
+                                               soak, soak_serve, trace_table)
 
 REPO = Path(__file__).resolve().parent.parent
 TINY = "vit_tiny_16_224"
@@ -152,17 +152,55 @@ def test_bench_train_accumulation_and_bf16_masters(monkeypatch):
     assert math.isfinite(res["flash"]["loss"])
 
 
-@pytest.mark.parametrize("env,impls,item", [
-    ({"TUNE": "1"}, "fused", "item 6"),
-    ({"AUG": "1"}, "fused", "item 3"),
-    ({}, "fused_split4", "item 8"),
-    ({}, "flash,flash_split", "item 8"),
-])
-def test_bench_train_refuses_what_is_not_ported(monkeypatch, env, impls, item):
+# The ids keep the ROADMAP items these refusals once named; the messages now
+# name the module. AUG=1 (the augment pipeline) is ported: it must run.
+@pytest.mark.parametrize("env,impls,refusal", [
+    ({"TUNE": "1"}, "fused", "autotune cache"),
+    ({"AUG": "1"}, "fused", None),
+    ({}, "fused_split4", "parallel/split_step"),
+    ({}, "flash,flash_split", "parallel/split_step"),
+], ids=["env0-fused-item 6", "env1-fused-item 3", "env2-fused_split4-item 8",
+        "env3-flash,flash_split-item 8"])
+def test_bench_train_refuses_what_is_not_ported(monkeypatch, env, impls, refusal):
     for key, value in env.items():
         monkeypatch.setenv(key, value)
-    with pytest.raises(NotImplementedError, match=item):
+    if refusal is None:
+        assert math.isfinite(bench_train.main([TINY, "2", "1", impls],
+                                              device="cpu")["fused"]["loss"])
+        return
+    with pytest.raises(NotImplementedError, match=refusal) as exc:
         bench_train.main([TINY, "2", "1", impls], device="cpu")
+    assert "item" not in str(exc.value)
+
+
+def test_bench_train_augment_probe(monkeypatch, capsys):
+    """AUG=1: the host pipeline's img/s (1 producer, both mix placements,
+    and a pool), the on-card pipeline's ms a batch, each route's verdict."""
+    monkeypatch.setenv("AUG", "1")
+    monkeypatch.setattr(os, "cpu_count", lambda: 2)
+    res = bench_train.main([TINY, "2", "1", "xla"], device="cpu")
+    aug = res["augment"]
+    assert aug["workers"] == 2 and aug["pool_img_per_s"] > 0
+    assert set(aug["host_img_per_s"]) == {"host", "device"}
+    assert aug["device_augment_ms"] > 0 and aug["device_mixup_ms"] > 0
+    out = capsys.readouterr().out
+    for line in ("augment(mix=host  , workers=1)", "augment(mix=device, workers=2)",
+                 "device_augment: ", "  vs xla   ", "the pipeline on the CPU adds"):
+        assert line in out
+    assert "feeds the CPU" in out or "STARVES the CPU" in out
+
+
+def test_recipe_smoke_on_cpu(capsys):
+    """The recipe (raw uint8 → on-card augment + mixup → AdamW + EMA → the
+    EMA export) on the plain versions: finite, and its prints."""
+    res = recipe_smoke.main([TINY, "2", "1", "fused"], device="cpu")
+    assert math.isfinite(res["loss"]) and res["export_files"] > 100
+    assert res["staged_recipe_ms"] > 0 and res["staged_bare_ms"] > 0
+    out = capsys.readouterr().out
+    for line in ("recipe step (augment + mixup + EMA on the CPU)",
+                 "bare step (pre-normalized fp32 in)", "EMA shadow: ",
+                 "the pipeline on the CPU: "):
+        assert line in out
 
 
 @pytest.mark.parametrize("script,argv", [
@@ -172,6 +210,7 @@ def test_bench_train_refuses_what_is_not_ported(monkeypatch, env, impls, item):
     (bench_train, [TINY, "2", "1", "xla"]),
     (make_fixtures, ["--out", "unused", "--config", TINY]),
     (probe_w8a8_overlap, []),
+    (recipe_smoke, [TINY, "2", "1"]),
 ])
 def test_scripts_need_a_card_unless_cpu_is_asked(monkeypatch, tmp_path, script, argv):
     monkeypatch.chdir(tmp_path)

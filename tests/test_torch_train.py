@@ -3,7 +3,8 @@ data pipeline, the optimizers and schedules against optax, one
 ``make_train_step`` step per route and optimizer against JAX's
 ``spmd.make_train_step`` on a one-device mesh, and the ``Trainer``
 behaviours of ``tests/test_train.py`` (descent, checkpoints, resume across
-setting changes, EMA, label smoothing, clipping, export).
+setting changes, EMA, label smoothing, clipping, export, and the on-card
+input pipeline in front of the step: ``device_augment`` and ``mixup``).
 
 Inputs and weights are made with numpy from seeds and given to both sides.
 Config: D = 64, 4 heads, H = 256, depth 2, 32-pixel images at patch 8
@@ -124,8 +125,9 @@ def test_device_defaults_to_the_card(monkeypatch):
         data.DevicePrefetcher(iter([]))
 
 
-@pytest.mark.parametrize("kw", [dict(mesh=object()), dict(mixup={}),
-                                dict(device_augment={}),
+@pytest.mark.parametrize("kw", [dict(mesh=object()),
+                                dict(tuning_path="tuning.json"),
+                                dict(attention_impl="split:flash:2"),
                                 dict(attention_impl="split:fused"),
                                 dict(tuning={"attention_ipc": 2}),
                                 dict(batch_size=64)])
@@ -545,3 +547,132 @@ def test_ema_shadow_stays_fp32():
     tr.fit(data.memory_dataset(images, labels, 16, epochs=2, seed=6))
     assert tr.ema_params["head_w"].dtype == torch.float32
     assert (tr.ema_params["head_w"] - before).abs().max() > 0
+
+
+# -- the on-card input pipeline in front of the step -------------------------
+
+
+def _colored(n=32, src=40, seed=9):
+    """Raw uint8 images whose label is their colour (four classes of the
+    17), with noise: a label that the augment keeps, so a few steps learn."""
+    rng = np.random.default_rng(seed)
+    labels = np.arange(n) % 4
+    colors = np.array([[230, 40, 40], [40, 230, 40], [40, 40, 230],
+                       [230, 230, 40]])
+    raw = colors[labels][:, None, None, :] + rng.integers(-25, 26,
+                                                          (n, src, src, 3))
+    return np.clip(raw, 0, 255).astype(np.uint8), labels
+
+
+@pytest.mark.parametrize("mix", [None, {"prob": 1.0}])
+def test_trainer_device_augment_pipeline(mix):
+    """Trainer(device_augment=..., mixup=...) from raw uint8 batches: the
+    loss falls over 3 fits at lr 5e-2 with SGD, augment alone and with the
+    mix (tests/test_train.py's recipe)."""
+    from vit_with_opencl_tpu_torch.augment_device import raw_batches
+
+    raw, labels = _colored()
+    tr = Trainer(CFG, device=CPU, lr=5e-2, optimizer="sgd",
+                 compute_dtype=torch.float32,
+                 device_augment={"randaugment": (2, 9.0)}, mixup=mix,
+                 log_every=0, seed=6)
+    losses = []
+    for _ in range(3):
+        tr.fit(raw_batches(raw, labels, 16, epochs=1, seed=7))
+        losses.append(tr.last_loss)
+    assert np.isfinite(losses).all() and losses[-1] < losses[0], losses
+
+
+def test_trainer_adamw_with_mixup_prob():
+    from vit_with_opencl_tpu_torch.augment_device import raw_batches
+
+    raw, labels = _colored()
+    tr = Trainer(CFG, device=CPU, lr=1e-3, optimizer="adamw",
+                 compute_dtype=torch.float32, device_augment={},
+                 mixup={"prob": 0.5}, log_every=0, seed=8)
+    tr.fit(raw_batches(raw, labels, 16, epochs=1, seed=1))
+    assert tr.step_idx == 2 and np.isfinite(tr.last_loss)
+
+
+def test_mixup_prob_zero_is_the_int_label_loss():
+    """mixup={"prob": 0}: the batch passes unchanged with one-hot labels,
+    whose CE is the int-label loss."""
+    images, labels = _dataset(16)
+    losses = []
+    for mix in ({"prob": 0.0}, None):
+        tr = Trainer(CFG, device=CPU, lr=1e-2, optimizer="adamw",
+                     compute_dtype=torch.float32, mixup=mix, log_every=0,
+                     seed=3)
+        tr.fit(data.memory_dataset(images, labels, 8, epochs=1, seed=2))
+        losses.append(tr.last_loss)
+    np.testing.assert_allclose(losses[0], losses[1], rtol=0, atol=1e-6)
+
+
+def _recording(tr):
+    """Wrap ``tr``'s step to keep each step's batch and loss."""
+    seen, step = [], tr._step
+
+    def wrapped(*args):
+        out = step(*args)
+        seen.append((args[-2].clone(), args[-1].clone(), float(out[-1])))
+        return out
+
+    tr._step = wrapped
+    return seen
+
+
+def test_step_consumes_the_batch_drawn_for_its_step():
+    """Step i's batch is device_augment then device_mixup_cutmix on the
+    generators of (seed + 101, i), or of the "seed" given."""
+    from vit_with_opencl_tpu_torch import augment, augment_device
+
+    raw, labels = _colored(n=16)
+    for kw, key_seed in (({}, 5 + 101), ({"seed": 42}, 42)):
+        tr = Trainer(CFG, device=CPU, lr=1e-3, optimizer="adamw",
+                     compute_dtype=torch.float32, device_augment=dict(kw),
+                     mixup={"prob": 1.0}, log_every=0, seed=5)
+        seen = _recording(tr)
+        tr.fit(augment_device.raw_batches(raw, labels, 8, epochs=2, seed=3))
+        batches = list(augment_device.raw_batches(raw, labels, 8, epochs=2,
+                                                   seed=3))
+        assert len(seen) == len(batches) == 4
+        for i, ((x, y, _), (rx, ry)) in enumerate(zip(seen, batches)):
+            g_aug, g_mix = augment_device.step_generators(key_seed, i)
+            want = augment_device.device_augment(torch.from_numpy(rx), g_aug,
+                                                 img_size=CFG.img_size)
+            want_x, want_y = augment.device_mixup_cutmix(
+                g_mix, want, torch.from_numpy(ry), CFG.num_classes, prob=1.0)
+            assert y.shape == (8, CFG.num_classes)
+            assert torch.equal(x, want_x) and torch.equal(y, want_y)
+
+
+def test_resume_draws_what_the_unbroken_run_drew(tmp_path):
+    """Save at step 2 of 4, resume in a new Trainer: steps 3 and 4 take the
+    same batches and give the unbroken run's losses exactly."""
+    import itertools
+
+    from vit_with_opencl_tpu_torch.augment_device import raw_batches
+
+    raw, labels = _colored(n=16)
+
+    def trainer():
+        return Trainer(CFG, device=CPU, lr=1e-3, optimizer="adamw",
+                       compute_dtype=torch.float32, device_augment={},
+                       mixup={}, ema_decay=0.99, log_every=0, seed=4,
+                       checkpoint_dir=str(tmp_path))
+
+    def batches():
+        return raw_batches(raw, labels, 8, epochs=None, seed=2)
+
+    tr = trainer()
+    seen = _recording(tr)
+    tr.fit(batches(), steps=2)
+    tr.save()
+    tr.fit(itertools.islice(batches(), 2, None), steps=4)
+    back = trainer()
+    assert back.resume() and back.step_idx == 2
+    again = _recording(back)
+    back.fit(itertools.islice(batches(), 2, None), steps=4)
+    assert [loss for *_, loss in again] == [loss for *_, loss in seen[2:]]
+    for (x, y, _), (xb, yb, _) in zip(seen[2:], again):
+        assert torch.equal(x, xb) and torch.equal(y, yb)

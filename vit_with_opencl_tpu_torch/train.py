@@ -4,13 +4,16 @@ Counterpart of ``vit_with_opencl_tpu/train.py`` (``Trainer``) on one
 device: :class:`data.DevicePrefetcher` feeds
 :func:`parallel.spmd.make_train_step` (routes ``xla``, ``flash`` and
 ``fused``; SGD or AdamW, gradient accumulation, clipping, label smoothing),
-with an fp32 EMA shadow, periodic checkpoints (:mod:`io.checkpoint`) with
-resume, throughput and loss logging that reads the loss from the card only
-at log points, and export to the reference weight format.
+with the on-card input pipeline in front of the step (``device_augment``:
+:func:`augment_device.device_augment` on raw uint8 batches; ``mixup``:
+:func:`augment.device_mixup_cutmix` to soft labels), an fp32 EMA shadow,
+periodic checkpoints (:mod:`io.checkpoint`) with resume, throughput and
+loss logging that reads the loss from the card only at log points, and
+export to the reference weight format.
 
 Not ported yet, and refused with ``NotImplementedError``: a ``mesh``
-(multi-card training), ``mixup`` and ``device_augment`` (the on-card
-augment pipeline), the program-split ``attention_impl="split:..."`` route,
+(multi-card training, ``parallel/spmd``'s training on a mesh), the
+program-split ``attention_impl="split:..."`` route (``parallel/split_step``)
 and the autotune cache (``tuning``, ``tuning_path`` and the ``batch_size``
 lookup). ``scan_unroll`` is accepted and has no effect (see
 ``parallel/spmd``).
@@ -26,7 +29,7 @@ from typing import Iterable, Optional
 import numpy as np
 import torch
 
-from . import optim
+from . import augment, augment_device, optim
 from .config import ViTConfig
 from .data import DevicePrefetcher
 from .engine import resolve_device
@@ -57,6 +60,23 @@ class Trainer:
 
     ``batches`` is any iterable of host ``(images, labels)`` pairs (see
     :func:`data.memory_dataset`).
+
+    The on-card input pipeline runs in front of the step of every batch
+    with int labels:
+
+    - ``device_augment``: keyword arguments of
+      :func:`augment_device.device_augment` (RandomResizedCrop, flip,
+      RandAugment and normalization on the card); feed raw uint8 HWC
+      batches (:func:`augment_device.raw_batches`). ``img_size`` defaults
+      to the config's.
+    - ``mixup``: keyword arguments of :func:`augment.device_mixup_cutmix`
+      (``mixup_alpha``, ``cutmix_alpha``, ``prob``, ``switch_prob``); int
+      labels become soft ``[B, C]`` labels.
+
+    Either or both (the augment first). Step ``i`` draws from
+    :func:`augment_device.step_generators` of ``(seed + 101, i)``, so a
+    resumed run draws what the unbroken run drew; a ``"seed"`` key in
+    either dict replaces ``seed + 101``.
     """
 
     def __init__(
@@ -90,9 +110,6 @@ class Trainer:
         log_fn=print,
     ):
         refused = {"mesh (multi-card training)": mesh is not None,
-                   "mixup (on-card Mixup/CutMix)": mixup is not None,
-                   "device_augment (the on-card augment pipeline)":
-                       device_augment is not None,
                    "attention_impl='split:...' (program-split steps)":
                        attention_impl.startswith("split:"),
                    "tuning, tuning_path and batch_size (the autotune cache)":
@@ -139,6 +156,10 @@ class Trainer:
         else:
             self._init_opt, self._step = made
 
+        self._prep = None
+        if mixup is not None or device_augment is not None:
+            self._prep = self._make_prep(config, seed, mixup, device_augment)
+
         self.params = vit.init_params(config, seed=seed, device=self.device)
         self.opt_state = self._init_opt(self.params) if self._init_opt else None
 
@@ -151,6 +172,31 @@ class Trainer:
                 raise ValueError(f"ema_decay must be in (0, 1), got "
                                  f"{ema_decay}")
             self.ema_params = _f32_shadow(self.params)
+
+    @staticmethod
+    def _make_prep(config, seed, mixup, device_augment):
+        """The input pipeline of a step: ``prep(images, labels, step_idx)``
+        → (images, labels), the augment first, then the mix."""
+        mix_kw = dict(mixup) if mixup is not None else None
+        aug_kw = dict(device_augment) if device_augment is not None else None
+        key_seed = seed + 101
+        for kw in (aug_kw, mix_kw):
+            if kw is not None:
+                key_seed = kw.pop("seed", key_seed)
+        if aug_kw is not None:
+            aug_kw.setdefault("img_size", config.img_size)
+        num_classes = config.num_classes
+
+        def prep(images, labels, step_idx):
+            g_aug, g_mix = augment_device.step_generators(key_seed, step_idx)
+            if aug_kw is not None:
+                images = augment_device.device_augment(images, g_aug, **aug_kw)
+            if mix_kw is not None:
+                images, labels = augment.device_mixup_cutmix(
+                    g_mix, images, labels, num_classes, **mix_kw)
+            return images, labels
+
+        return prep
 
     def _ema_update(self) -> None:
         """ema = d·ema + (1 − d)·p in fp32, in place (d and 1 − d rounded
@@ -246,7 +292,12 @@ class Trainer:
     def fit(self, batches: Iterable, *, steps: Optional[int] = None,
             prefetch: int = 2):
         """Run updates until ``step_idx`` reaches ``steps`` (or ``batches``
-        runs out). Returns the params."""
+        runs out). Returns the params.
+
+        With ``device_augment`` or ``mixup``, a batch with int labels goes
+        through the input pipeline in front of its step, on this thread (on
+        the prefetcher's thread it contended with the step's launches for
+        the interpreter and measured slower)."""
         loader = DevicePrefetcher(batches, buffer_size=prefetch,
                                   device=self.device)
         loss = None
@@ -256,6 +307,9 @@ class Trainer:
             for images, labels in loader:
                 if steps is not None and self.step_idx >= steps:
                     break
+                if (self._prep is not None and labels is not None
+                        and labels.dim() == 1):
+                    images, labels = self._prep(images, labels, self.step_idx)
                 if self.opt_state is None:
                     self.params, loss = self._step(self.params, images, labels)
                 else:
