@@ -104,6 +104,15 @@ AdamW step at B = 64 (96 column sums and 24 LNs a step) at most 3% slower; the
 median of the library swaps' ViT-Ti stack ratios at B = 16 (its LNs at D
 = 192) at most 5% slower. Exits 1 if a gate fails, 2 without ``--parent``. The last line is
 one JSON object with every run's figures, the pairs and the gates.
+
+    python3 before_after.py --ptxas DIR
+
+compares ptxas's report (``ops/_build.resource_usage``: registers a thread,
+spill stores and loads) of each kernel of ``PTXAS_SOURCES`` in DIR's
+sources and in this tree's, kernel by kernel under the same name: it
+prints both lines of each, the kernels only this tree has, and exits 1 if a
+kernel of DIR's compiles to other registers or spills here, or is gone. It
+needs the CUDA toolkit, not a card.
 """
 
 from __future__ import annotations
@@ -191,6 +200,9 @@ REPS = 10
 WINDOWS = 10  # the host-bound figures (stacks, row 14b): best of this many timings
 SWAP_WINDOWS = 3  # the library swaps: best of this many timings
 PROCESS_TIMEOUT = 900
+# --ptxas: the sources whose kernels gained forms beside them (the
+# attribution probe's stand-ins), so the old forms must compile as before.
+PTXAS_SOURCES = ("attention.cu", "quantize.cu")
 
 
 def time_ms(fn, reps: int = REPS) -> float:
@@ -664,16 +676,12 @@ def swap_main(parent: str, pairs: int) -> int:
     this tree's package launching through its own kernel library and
     through DIR's (built from DIR's sources by DIR's ``_build``) in
     alternating windows, N of each; one JSON object on the last line."""
-    import importlib.util
     sys.path.insert(0, str(Path(__file__).resolve().parent))
     from vit_with_opencl_tpu_torch.config import VIT_S_16_224, VIT_TINY_16_224
     from vit_with_opencl_tpu_torch.engine import InferenceEngine
     from vit_with_opencl_tpu_torch.harness import fixtures
     from vit_with_opencl_tpu_torch.ops import _build
-    spec = importlib.util.spec_from_file_location(
-        "parent_build", Path(parent) / "vit_with_opencl_tpu_torch" / "ops" / "_build.py")
-    parent_build = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(parent_build)
+    parent_build = _parent_build(parent)
     libs = {"this": _build.library(),
             "parent": SharedEntries(parent_build.library(), parent_build.SIGNATURES,
                                     _build.SIGNATURES)}
@@ -697,6 +705,45 @@ def swap_main(parent: str, pairs: int) -> int:
             out[f"forward {cfg.name} bf16 stack B={SMOKE_BATCH}"] = ms
     print(json.dumps({"swaps": out}))
     return 0
+
+
+def _parent_build(parent: str):
+    """DIR's ``ops/_build`` module (its own sources and build directory)."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "parent_build", Path(parent) / "vit_with_opencl_tpu_torch" / "ops" / "_build.py")
+    parent_build = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(parent_build)
+    return parent_build
+
+
+def ptxas_main(parent: str) -> int:
+    """``--ptxas DIR``: each kernel's ptxas line in DIR's sources and in
+    this tree's; 1 if one of DIR's kernels changed or went."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    from vit_with_opencl_tpu_torch.ops import _build
+    theirs_build = _parent_build(parent)
+    same, out = True, {}
+    for source in PTXAS_SOURCES:
+        theirs = {k["name"]: k for k in theirs_build.resource_usage(source)}
+        ours = {k["name"]: k for k in _build.resource_usage(source)}
+        out[source] = {"parent": theirs, "this": ours}
+
+        def line(k):
+            return (f"{k['registers']} registers, {k['spill_stores']} bytes spill "
+                    f"stores, {k['spill_loads']} bytes spill loads")
+
+        for name, k in theirs.items():
+            mine = ours.get(name)
+            ok = mine is not None and all(
+                mine[f] == k[f] for f in ("registers", "spill_stores", "spill_loads"))
+            same &= ok
+            print(f"{'ok  ' if ok else 'FAIL'} ptxas {source}: {name[:100]}: parent "
+                  f"{line(k)}; this {line(mine) if mine else 'gone'}", flush=True)
+        for name in sorted(set(ours) - set(theirs)):
+            print(f"new  ptxas {source}: {name[:100]}: {line(ours[name])}", flush=True)
+    print(json.dumps({"ptxas": out, "same": same}))
+    return 0 if same else 1
 
 
 def run_figures(root: Path, host_only: bool = False) -> dict:
@@ -821,6 +868,8 @@ def main(argv: list[str]) -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 3 and sys.argv[1] == "--ptxas":
+        sys.exit(ptxas_main(sys.argv[2]))
     if len(sys.argv) == 4 and sys.argv[1] == "--swap":
         sys.exit(swap_main(sys.argv[2], int(sys.argv[3])))
     if len(sys.argv) >= 3 and sys.argv[1] == "--figures":

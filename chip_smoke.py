@@ -300,6 +300,23 @@ line.
    runs no PyTorch op but views on an encoder int8 weight (no per-forward
    transpose or copy); and
    ``perf.throughput_report`` of phase 4's bf16 forward at B = 256 (MFU).
+6c. Substitution attribution (``perf.attribute_forward``,
+   ``perf.kernel_substitutions``): the stand-ins against their plain
+   versions (JAX's stand-ins) at ViT-B/16, B = 16 and 256: row 4's
+   constant-scale form on a seeded qkv, rows 5a's and 6a's cheap forms at
+   the W8A8 and calibrated chains' sites (bit-identical; phase 2k prints the
+   cheap forms' registers beside the real ones, and ``before_after.py
+   --ptxas DIR`` holds the real forms' registers to the parent's); then
+   ``scripts/probe_tiny_bound`` (JAX's lines and the card's peaks) on
+   ViT-B/16 bf16 and W8A8 and the ViT-Ti/16 stack at B = 256, three runs
+   each, every run and each share's spread printed; the launches of one
+   real forward of phase 3's, 3b's, 2c's and 3d's engines (ViT-B/16 bf16,
+   W8A8, calibrated W8A8, the ViT-Ti/16 stack) against the same forward
+   under each substitution (every counter equal), and the real forward's
+   bits after them as before; ``attribute_forward`` raising while its lock
+   is held; and ``scripts/probe_midsize`` on ViT-S/16 at B = 256 (perop,
+   fused, stack, group2). The stand-in rows at B = 256 join the kernels'
+   record, their launches from the substituted forward that runs each.
 7. The record-producing scripts as a user runs them: ``make_fixtures`` for
    ViT-B/16 with 4 images, then ``cli --backend gpu --attention flash`` on
    that workspace (the comparator green); ``soak`` of ViT-B/16 W8A8 at B =
@@ -357,6 +374,7 @@ try:
     from vit_with_opencl_tpu_torch.ops import (_build, attention, fused_block,
                                                layernorm, linear, quantize)
     from vit_with_opencl_tpu_torch.scripts import (bench_train, make_fixtures,
+                                                   probe_midsize, probe_tiny_bound,
                                                    recipe_smoke, soak, soak_serve,
                                                    trace_table)
     from vit_with_opencl_tpu_torch.scripts import probe_w8a8_overlap as probe
@@ -3732,6 +3750,171 @@ def profile_main_path(engine, dev) -> dict:
     return counts
 
 
+# Phase 6c: substitution attribution. The stand-ins against their plain
+# versions at these batches; attribute_forward (through
+# scripts/probe_tiny_bound, as a user runs it) at ATTR_BATCH, ATTR_RUNS times
+# a forward so that the spread shows beside the shares; probe_midsize's
+# routes on ViT-S/16.
+ATTR_BATCH = 256
+ATTR_RUNS = 3
+ATTR_ITERS = 10
+ATTR_STAND_IN_BATCHES = (SMOKE_BATCH, ATTR_BATCH)
+ATTR_FORWARDS = (("ViT-B/16 bf16", "vit_b_16_224", None),
+                 ("ViT-B/16 W8A8", "vit_b_16_224", "int8-w8a8"),
+                 ("ViT-Ti/16 stack bf16", "vit_tiny_16_224", None))
+ATTR_SHARES = ("gelu_share", "softmax_share", "quantize_share", "vpu_share")
+MIDSIZE_ARGS = ["vit_s_16_224", str(ATTR_BATCH), "5", "perop,fused,stack,group2"]
+SUBSTITUTIONS = ((True, False, False), (False, True, False), (True, True, False))
+SUBSTITUTIONS_W8A8 = SUBSTITUTIONS + ((False, False, True), (True, True, True))
+
+
+def stand_in_rows(batch: int, dev) -> list[dict]:
+    """Phase 6c (a): row 4's constant-scale form on a seeded ViT-B/16 qkv,
+    rows 5a's and 6a's cheap forms at the W8A8 and calibrated chains'
+    ViT-B/16 sites (seeded inputs at 4x unit scale: codes across a few
+    tens), each under its substitution against its plain version (JAX's
+    stand-in). Their bytes are the real rows'; the quantizes' operations one
+    convert a value."""
+    gen = torch.Generator(device=dev).manual_seed(batch + 6)
+    nh, hd, t, d, h = (CFG.num_heads, CFG.head_dim, CFG.num_tokens, CFG.embed_dim,
+                       CFG.hidden_dim)
+    bf, f32 = torch.bfloat16, torch.float32
+    qkv = torch.randn((batch, t, 3 * d), generator=gen, device=dev).to(bf)
+    attn = dict(attn_fwd_case(qkv, nh, hd), library=None,
+                name="packed_fused_attention constant-scale stand-in (softmax_identity, "
+                     "bf16)")
+    with perf.kernel_substitutions(False, True):
+        rows = run_cases([attn], batch)
+
+    def rnd(k, dtype):
+        return (torch.randn((batch, t, k), generator=gen, device=dev) * 4.0).to(dtype)
+
+    cases = [dict(quantize_case(site, inp), ops={"fp32": inp.numel()},
+                  name=f"quantize_rows cheap stand-in (quant_cheap) {site} "
+                       f"({'bf16' if inp.dtype == bf else 'fp32'} in)")
+             for site, inp in (("LN1", rnd(d, f32)), ("context", rnd(d, bf)),
+                               ("GELU'd hidden", rnd(h, f32)))]
+    cases += [dict(split_case(site, inp, mq), ops={"fp32": inp.numel()},
+                   name=f"quantize_rows_split cheap stand-in (quant_cheap) {site} "
+                        f"(fp32 in, int8 [{mq}] + bf16 [{inp.shape[-1] - mq}] out)")
+              for site, inp, mq in (("LN1", rnd(d, f32), 640),
+                                    ("GELU'd hidden", rnd(h, f32), h - 128))]
+    with perf.kernel_substitutions(False, False, True):
+        rows += run_cases(cases, batch)
+    return rows
+
+
+def substituted_counts(what: str, forward, images, combos) -> dict:
+    """Phase 6c (c) and (d): the launches of one real forward and of the
+    same forward under each substitution (every counter equal: the same GEMM,
+    attention and quantize launches, the stand-ins counted as their real
+    kernels), and the real forward's bits after them as before. Returns
+    {combo: counts}, the real forward's under (False, False, False)."""
+    reset_counts()
+    before = forward(images)
+    torch.cuda.synchronize()
+    counts = {(False, False, False): read_counts()}
+    for combo in combos:
+        with perf.kernel_substitutions(*combo):
+            reset_counts()
+            out = forward(images)
+            torch.cuda.synchronize()
+            counts[combo] = read_counts()
+        check(out.shape == before.shape and bool(torch.isfinite(out).all()),
+              f"{what} under {combo}: finite {tuple(out.shape)}")
+    real = counts[(False, False, False)]
+    shown = {k: v for k, v in real.items() if v}
+    print(f"  {what}: real forward's launches {shown}", flush=True)
+    for combo in combos:
+        check(counts[combo] == real,
+              f"{what} under (gelu_identity, softmax_identity, quant_cheap) = {combo}: "
+              f"the same launches as the real forward "
+              f"({ {k: v for k, v in counts[combo].items() if v} })")
+    check(torch.equal(forward(images), before),
+          f"{what}: the real forward after the substitutions gives the bits it gave "
+          f"before them")
+    return counts
+
+
+def attribution_phase(dev, engines: dict, tiny_engine, smi_line: str) -> tuple:
+    """Phase 6c: (a) the stand-ins against their plain versions; (b)
+    ``attribute_forward`` through ``scripts/probe_tiny_bound`` on ViT-B/16
+    bf16 and W8A8 and the ViT-Ti/16 stack at B = ATTR_BATCH, ATTR_RUNS runs
+    each, every run printed; (c, d) the launch counts of real and
+    substituted forwards of the main path's engines and the restore; (e)
+    the re-entry guard; (f) ``scripts/probe_midsize`` on ViT-S/16. Returns
+    (the stand-in rows at ATTR_BATCH, the launches of the substituted
+    forwards that drive each)."""
+    rows = {batch: stand_in_rows(batch, dev) for batch in ATTR_STAND_IN_BATCHES}
+
+    results = {}
+    for label, name, quant_mode in ATTR_FORWARDS:
+        results[label] = []
+        for run in range(ATTR_RUNS):
+            print(f"  {label} B={ATTR_BATCH}, run {run + 1} of {ATTR_RUNS} "
+                  f"(scripts/probe_tiny_bound {ATTR_BATCH} {ATTR_ITERS} {name}"
+                  f"{' ' + quant_mode if quant_mode else ''}; card: {smi_line}):",
+                  flush=True)
+            a = probe_tiny_bound.main([str(ATTR_BATCH), str(ATTR_ITERS), name]
+                                      + ([quant_mode] if quant_mode else []))
+            results[label].append(a)
+            check(all(0.0 <= a[k] <= 1.0 for k in ATTR_SHARES if k in a)
+                  and a["gemm_skeleton_ms"] > 0,
+                  f"{label}: attribution shares in [0, 1]")
+        for key in ("total_ms", "gemm_skeleton_ms") + ATTR_SHARES:
+            if key in results[label][0]:
+                vals = [r[key] for r in results[label]]
+                print(f"  {label} {key}: runs {', '.join(f'{v:.4f}' for v in vals)}; "
+                      f"median {float(np.median(vals)):.4f}, spread "
+                      f"{max(vals) - min(vals):.4f}", flush=True)
+    print(json.dumps({"attribution": results, "batch": ATTR_BATCH,
+                      "iters": ATTR_ITERS, "card": smi_line}), flush=True)
+
+    gen = torch.Generator(device=dev).manual_seed(61)
+    images = torch.randn((SMOKE_BATCH, 3, CFG.img_size, CFG.img_size), generator=gen,
+                         device=dev)
+    tiny = VIT_TINY_16_224
+    tiny_images = torch.randn((SMOKE_BATCH, 3, tiny.img_size, tiny.img_size),
+                              generator=gen, device=dev)
+    counts = {
+        "bf16": substituted_counts(f"{CFG.name} bf16", engines["bf16"].forward, images,
+                                   SUBSTITUTIONS),
+        "w8a8": substituted_counts(f"{CFG.name} W8A8", engines["w8a8"].forward, images,
+                                   SUBSTITUTIONS_W8A8),
+        "w8a8_outlier": substituted_counts(f"{CFG.name} calibrated W8A8",
+                                           engines["w8a8_outlier"].forward, images,
+                                           SUBSTITUTIONS_W8A8),
+        "tiny": substituted_counts(f"{tiny.name} bf16 stack", tiny_engine.forward,
+                                   tiny_images, SUBSTITUTIONS),
+    }
+
+    params = engines["bf16"].params
+    assert perf.profiler._ATTRIBUTION_LOCK.acquire(blocking=False)
+    try:
+        perf.attribute_forward(CFG, params, images, iters=1)
+        check(False, "attribute_forward inside the lock: ran")
+    except RuntimeError as exc:
+        check("already running" in str(exc),
+              f"attribute_forward inside the lock raises: {str(exc)[:70]}...")
+    finally:
+        perf.profiler._ATTRIBUTION_LOCK.release()
+
+    print(f"  scripts/probe_midsize {' '.join(MIDSIZE_ARGS)} (card: {smi_line}):",
+          flush=True)
+    mid = probe_midsize.main(MIDSIZE_ARGS)
+    check(all(v is not None and v > 0 for v in mid.values()),
+          f"probe_midsize: every variant ran ({', '.join(mid)})")
+    # Each stand-in row's launches: from the substituted forward that runs it
+    # (one forward, counts set to 0 just before it and read just after).
+    launches = {"attention": counts["bf16"][(False, True, False)],
+                "quantize": counts["w8a8"][(False, False, True)],
+                "quantize_split": counts["w8a8_outlier"][(False, False, True)]}
+    for counter, run in launches.items():
+        check(run[counter] > 0, f"the {counter} stand-in launched {run[counter]} times "
+                                f"in its substituted forward")
+    return rows[ATTR_BATCH], launches
+
+
 def traced_forward(name: str, fn, images, kernels: dict = TRACE_KERNELS) -> None:
     """Phase 6c: ``perf.device_kernel_table`` of ``fn(images)`` (one run
     outside the trace, TRACE_ITERS between its marks and one before and
@@ -4470,6 +4653,15 @@ def main() -> int:
         print(json.dumps({"throughput_report": dict(report, card=smi_line)}),
               flush=True)
     torch.cuda.empty_cache()
+    with torch.inference_mode():
+        phase(f"== phase 6c: substitution attribution (perf.attribute_forward, "
+              f"kernel_substitutions; scripts/probe_tiny_bound on {CFG.name} bf16 and "
+              f"W8A8 and the ViT-Ti/16 stack at B={ATTR_BATCH}, scripts/probe_midsize "
+              f"on ViT-S/16) and the stand-ins vs their plain versions")
+        stand_in, stand_in_runs = attribution_phase(
+            dev, {"bf16": engine, **engines, "w8a8_outlier": outlier_engine},
+            small[VIT_TINY_16_224.name][1]["bf16"], smi_line)
+    torch.cuda.empty_cache()
     phase("== phase 7: the record-producing scripts (make_fixtures, soak, trace_table, "
           "bench_train with AUG=1, recipe_smoke, soak_serve) and "
           "InferenceEngine(check_numerics=True)")
@@ -4534,6 +4726,9 @@ def main() -> int:
                                      f"B={RING_BATCH} ") and "first rotation" in r["name"]]
     # Phase 2j's rows, from the probe's main() at its full grid.
     runs += [(probe_counts, r) for r in probe_rows]
+    # Phase 6c's stand-in rows at B = ATTR_BATCH, from the substituted
+    # forward of the main path's engine that runs each.
+    runs += [(stand_in_runs[r["counter"]], r) for r in stand_in]
     record = {"kernels": [
         {"name": r["name"], "route": "cuda",
          "source": r.get("source") or SOURCES[r["counter"]],

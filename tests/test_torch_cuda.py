@@ -2122,3 +2122,151 @@ def test_trainer_recipe_on_the_card(dev):
                  device_augment={}, mixup={}, ema_decay=0.99, log_every=0)
     tr.fit(raw_batches(raw, np.arange(32) % 17, 16, epochs=2, seed=1))
     assert tr.step_idx == 4 and np.isfinite(tr.last_loss)
+
+
+# -- the attribution probe's stand-ins (perf/profiler.kernel_substitutions) --
+
+
+def _substituted(gelu=False, softmax=False, cheap=False):
+    from vit_with_opencl_tpu_torch.perf import profiler
+
+    return profiler.kernel_substitutions(gelu, softmax, cheap)
+
+
+@pytest.mark.parametrize("b,t,nh,hd", [(2, 197, 12, 64), (16, 197, 12, 64),
+                                       (2, 577, 16, 64), (2, 257, 16, 80),
+                                       (3, 17, 4, 64)])
+def test_packed_attention_const_scale_stand_in(dev, b, t, nh, hd):
+    """Row 4's constant-scale form against its plain version (JAX's
+    fake_head) at ViT-B's shape, past the one-pass 256 keys, at ViT-H's head
+    dim and at a T below one tile; counted under the real kernel's count;
+    the real kernel gives the same bits before and after."""
+    qkv = _rand((b, t, 3 * nh * hd), dev, torch.bfloat16, seed=t)
+    real = attention.packed_fused_attention(qkv, num_heads=nh, head_dim=hd)
+    before = attention.LAUNCHES
+    with _substituted(softmax=True):
+        out = attention.packed_fused_attention(qkv, num_heads=nh, head_dim=hd)
+        ref = attention.packed_fused_attention_reference(qkv, nh, hd)
+    torch.cuda.synchronize()
+    assert attention.LAUNCHES == before + 1
+    _close(out, ref)
+    assert not torch.equal(out, real)
+    assert torch.equal(real, attention.packed_fused_attention(qkv, num_heads=nh,
+                                                              head_dim=hd))
+
+
+@pytest.mark.parametrize("rows,cols", [(19, 768), (3152, 768), (197, 3072), (7, 8192),
+                                       (1100, 8192), (19, 192)])
+@pytest.mark.parametrize("in_dtype", [torch.float32, torch.bfloat16])
+def test_quantize_rows_cheap_stand_in(dev, rows, cols, in_dtype):
+    """Row 5a's cheap form: bit-identical to its plain version (the codes
+    truncated and saturated, scale 1.0), with values past int8's range; the
+    real kernel's bits unchanged after it."""
+    x = _rand((rows, cols), dev, in_dtype, std=60.0)
+    real_q, real_s = quantize.quantize_rows(x)
+    before = quantize.LAUNCHES
+    with _substituted(cheap=True):
+        q, s = quantize.quantize_rows(x)
+        rq, rs = quantize.quantize_rows_reference(x)
+    torch.cuda.synchronize()
+    assert quantize.LAUNCHES == before + 1
+    assert torch.equal(q, rq) and torch.equal(s, rs) and bool((s == 1.0).all())
+    q2, s2 = quantize.quantize_rows(x)
+    assert torch.equal(q2, real_q) and torch.equal(s2, real_s)
+
+
+@pytest.mark.parametrize("rows,cols,m", [(19, 768, 640), (3152, 768, 640),
+                                         (197, 3072, 2944), (37, 1024, 896)])
+def test_quantize_rows_split_cheap_stand_in(dev, rows, cols, m):
+    x = _rand((rows, cols), dev, std=60.0, seed=2)
+    real = quantize.quantize_rows_split(x, m, torch.bfloat16)
+    before = quantize.LAUNCHES_SPLIT
+    with _substituted(cheap=True):
+        got = quantize.quantize_rows_split(x, m, torch.bfloat16)
+        ref = quantize.quantize_rows_split_reference(x, m, torch.bfloat16)
+    torch.cuda.synchronize()
+    assert quantize.LAUNCHES_SPLIT == before + 1
+    assert all(torch.equal(a, r) for a, r in zip(got, ref))
+    assert all(torch.equal(a, r) for a, r in
+               zip(quantize.quantize_rows_split(x, m, torch.bfloat16), real))
+
+
+def test_gelu_identity_runs_fc1_without_its_gelu(dev):
+    x = _rand((394, 768), dev, torch.bfloat16)
+    w = _rand((768, 3072), dev, torch.bfloat16, std=0.05, seed=1)
+    b = _rand((3072,), dev, std=0.1, seed=2)
+    with_gelu = linear.fused_linear(x, w, b, fuse_gelu=True)
+    with _substituted(gelu=True):
+        out = linear.fused_linear(x, w, b, fuse_gelu=True)
+        ref = linear.fused_linear_reference(x, w, b, fuse_gelu=True)
+    _close(out, ref)
+    assert torch.equal(out, linear.fused_linear(x, w, b))
+    assert torch.equal(with_gelu, linear.fused_linear(x, w, b, fuse_gelu=True))
+
+
+def test_routes_without_a_stand_in_raise(dev):
+    """Under each substitution the card routes that have no compiled
+    stand-in raise instead of running their real math."""
+    nh, hd, t = 4, 64, 37
+    qkv = _rand((2, t, 3 * nh * hd), dev, torch.bfloat16)
+    do = _rand((2, t, nh * hd), dev, torch.bfloat16, seed=1)
+    q, k, v = qkv.reshape(2, t, 3, nh, hd).permute(2, 0, 3, 1, 4)
+    cfg = ViTConfig(name="hd64", img_size=32, patch_size=8, embed_dim=nh * hd,
+                    depth=1, num_heads=nh, num_classes=9)
+    x = _rand((8, 768), dev, torch.bfloat16)
+    w = _rand((768, 256), dev, torch.bfloat16, std=0.05, seed=1)
+    counts = (attention.LAUNCHES, attention.LAUNCHES_SINGLE, attention.LAUNCHES_BWD,
+              linear.LAUNCHES_GELU_PAIR, quantize.LAUNCHES)
+    with _substituted(softmax=True):
+        for call in (
+                lambda: attention.packed_fused_attention(qkv, num_heads=nh, head_dim=hd,
+                                                         true_seq_len=t - 5),
+                lambda: attention.packed_fused_attention(qkv, num_heads=nh, head_dim=hd,
+                                                         packing="per_head"),
+                lambda: attention.packed_fused_attention(
+                    _rand((2, t, 3 * 4 * 32), dev, torch.bfloat16), num_heads=4,
+                    head_dim=32),
+                lambda: attention.single_pass_attention(q, k, v, hd),
+                lambda: attention.flash_attention(q, k, v, cfg),
+                lambda: attention.packed_attention_bwd(qkv, do, nh, hd)):
+            with pytest.raises(NotImplementedError, match="softmax_identity"):
+                call()
+    with _substituted(gelu=True):
+        with pytest.raises(NotImplementedError, match="gelu_identity"):
+            linear.fused_linear_with_gelu(x, w, _rand((256,), dev))
+    with _substituted(cheap=True):
+        with pytest.raises(NotImplementedError, match="quant_cheap"):
+            quantize.quantize_rows(_rand((4, 112), dev))
+    assert counts == (attention.LAUNCHES, attention.LAUNCHES_SINGLE,
+                      attention.LAUNCHES_BWD, linear.LAUNCHES_GELU_PAIR,
+                      quantize.LAUNCHES)
+
+
+def test_graph_capture_is_refused_under_a_substitution(dev):
+    qkv = _rand((2, 197, 3 * 12 * 64), dev, torch.bfloat16)
+    attention.packed_fused_attention(qkv, num_heads=12, head_dim=64)  # built, warm
+    graph = torch.cuda.CUDAGraph()
+    with _substituted(softmax=True), torch.cuda.graph(graph):
+        with pytest.raises(RuntimeError, match="substitution"):
+            attention.packed_fused_attention(qkv, num_heads=12, head_dim=64)
+
+
+def test_attribute_forward_on_the_card(dev):
+    """ViT-B/16's width at depth 2, B = 4: the shares lie in [0, 1] and the
+    real forward gives the same bits after the attribution as before."""
+    from vit_with_opencl_tpu_torch.config import VIT_B_16_224
+    from vit_with_opencl_tpu_torch.perf import profiler
+    import dataclasses
+
+    cfg = dataclasses.replace(VIT_B_16_224, depth=2)
+    params = vit.stack_params(fixtures.random_params(cfg, seed=1), cfg,
+                              param_dtype=torch.bfloat16, device=dev)
+    images = _rand((4, 3, 224, 224), dev, seed=3)
+    kernels = vit.resolve_kernels("flash")
+    with torch.inference_mode():
+        before = vit.forward(images, params, cfg, kernels=kernels)
+        a = profiler.attribute_forward(cfg, params, images, iters=2)
+        after = vit.forward(images, params, cfg, kernels=kernels)
+    assert torch.equal(before, after)
+    for key in ("gelu_share", "softmax_share", "vpu_share"):
+        assert 0.0 <= a[key] <= 1.0

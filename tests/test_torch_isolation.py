@@ -43,7 +43,8 @@ def test_importing_every_module_loads_no_jax():
                  "scripts.make_fixtures", "scripts.soak", "scripts.trace_table",
                  "scripts.bench_train", "serve", "io.preprocess", "runtime",
                  "runtime.native", "scripts.soak_serve", "augment",
-                 "augment_device", "scripts.recipe_smoke"):
+                 "augment_device", "scripts.recipe_smoke", "ops.substitutions",
+                 "scripts.probe_tiny_bound", "scripts.probe_midsize"):
         assert f"vit_with_opencl_tpu_torch.{name}" in modules
     code = "\n".join([
         "import importlib, sys",

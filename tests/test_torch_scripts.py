@@ -6,8 +6,10 @@ input, answers); ``soak``, ``soak_serve``, ``trace_table``, ``bench_train``
 (also with AUG=1, the augment probe) and ``recipe_smoke`` run their main
 paths on the plain versions and print finite results, and refuse what the
 port does not have yet (``bench_train``'s split routes and TUNE=1) or never
-had (an unknown quant mode). Every script's ``main`` needs a card unless
-``device="cpu"`` is passed.
+had (an unknown quant mode). ``probe_tiny_bound`` and ``probe_midsize`` run
+at a test size (depth 2, 32-pixel images, a batch of 2: their config
+patched in) and print the JAX scripts' labels. Every script's ``main``
+needs a card unless ``device="cpu"`` is passed.
 """
 
 import importlib.util
@@ -27,7 +29,9 @@ if os.environ.get("PYTEST_XDIST_WORKER"):
 from vit_with_opencl_tpu_torch import get_config, serve
 from vit_with_opencl_tpu_torch.engine import InferenceEngine
 from vit_with_opencl_tpu_torch.harness import fixtures
+from vit_with_opencl_tpu_torch.ops import fused_block
 from vit_with_opencl_tpu_torch.scripts import (bench_train, make_fixtures,
+                                               probe_midsize, probe_tiny_bound,
                                                probe_w8a8_overlap, recipe_smoke,
                                                soak, soak_serve, trace_table)
 
@@ -211,6 +215,8 @@ def test_recipe_smoke_on_cpu(capsys):
     (make_fixtures, ["--out", "unused", "--config", TINY]),
     (probe_w8a8_overlap, []),
     (recipe_smoke, [TINY, "2", "1"]),
+    (probe_tiny_bound, ["2", "1", TINY]),
+    (probe_midsize, ["vit_s_16_224", "2", "1"]),
 ])
 def test_scripts_need_a_card_unless_cpu_is_asked(monkeypatch, tmp_path, script, argv):
     monkeypatch.chdir(tmp_path)
@@ -218,3 +224,70 @@ def test_scripts_need_a_card_unless_cpu_is_asked(monkeypatch, tmp_path, script, 
     with pytest.raises(RuntimeError, match="CUDA"):
         script.main(argv)
     assert not (tmp_path / "unused").exists()
+
+
+PROBE_CFG = dict(name="probe_small", img_size=32, patch_size=8, embed_dim=64,
+                 depth=2, num_heads=4, num_classes=9)
+
+
+def _jax_labels(name: str) -> set:
+    """The labels (the text before " : ") of the JAX script's printed lines."""
+    import re
+
+    text = (REPO / "scripts" / f"{name}.py").read_text()
+    return set(re.findall(r'print\(f"([A-Za-z ]+?)\s*:', text))
+
+
+@pytest.mark.parametrize("quant", [None, "int8-w8a8"])
+def test_probe_tiny_bound_prints_the_jax_lines(monkeypatch, capsys, quant):
+    from vit_with_opencl_tpu_torch import ViTConfig
+
+    monkeypatch.setattr(probe_tiny_bound, "config_for",
+                        lambda name: ViTConfig(**PROBE_CFG))
+    res = probe_tiny_bound.main(["2", "1", TINY] + ([quant] if quant else []),
+                                device="cpu")
+    out = capsys.readouterr().out
+    labels = {line.split(":")[0].strip() for line in out.splitlines() if ":" in line}
+    want = _jax_labels("probe_tiny_bound")
+    if quant is None:
+        want.discard("quantize share")
+    assert want and want == labels
+    assert res["total_ms"] > 0 and res["skeleton_tflops"] > 0
+    assert ("quantize_share" in res) == (quant == "int8-w8a8")
+    for key in ("gelu_share", "softmax_share", "vpu_share"):
+        assert 0.0 <= res[key] <= 1.0
+    with pytest.raises(SystemExit, match="unknown quant"):
+        probe_tiny_bound.main(["2", "1", TINY, "fp8"], device="cpu")
+
+
+def test_probe_tiny_bound_d512_is_the_jax_preset():
+    cfg = probe_tiny_bound.config_for("d512")
+    assert (cfg.embed_dim, cfg.depth, cfg.num_heads, cfg.img_size) == (512, 12, 8, 224)
+
+
+def test_probe_midsize_runs_every_variant(monkeypatch, capsys):
+    """Each variant's line (the JAX script's format), ``fusedipc*`` refused
+    as FAILED with its reason while the run goes on, the patched routing
+    restored."""
+    from vit_with_opencl_tpu_torch import ViTConfig
+
+    monkeypatch.setattr(probe_midsize, "config_for", lambda name: ViTConfig(**PROBE_CFG))
+    real = (fused_block.supports, fused_block.supports_stack,
+            fused_block.fused_encoder_layer)
+    variants = ["perop", "fused", "fusedflat", "int8perop", "int8fused", "fusedipc1",
+                "group2", "stack", "fusedipc4"]
+    res = probe_midsize.main(["vit_s_16_224", "2", "1", ",".join(variants)], device="cpu")
+    out = capsys.readouterr().out.splitlines()
+    assert out[0].startswith("probe_small bs2 (")
+    assert (fused_block.supports, fused_block.supports_stack,
+            fused_block.fused_encoder_layer) == real
+    for label in variants:
+        line = next(x for x in out if x.startswith(f"  {label:6s}: "))
+        if label.startswith("fusedipc"):
+            assert res[label] is None
+            assert "FAILED NotImplementedError" in line and "grid" in line
+        else:
+            assert res[label] > 0
+            assert "ms/batch" in line and "img/s" in line and "TF/s" in line
+    with pytest.raises(SystemExit, match="unknown variants"):
+        probe_midsize.main(["vit_s_16_224", "2", "1", "fusedX"], device="cpu")

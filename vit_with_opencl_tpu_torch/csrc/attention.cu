@@ -67,6 +67,22 @@
 // Operations: 4 T^2 hd a head up to 256 keys (padded to whole 64-key chunks
 // and 64-query tiles), 6 T^2 hd past it; the exponential is expf (the plain
 // version's torch.exp).
+//
+// The attribution probe's softmax_identity stand-in (perf/profiler.py
+// kernel_substitutions; the JAX package's fake_head): the slab entry's
+// constant-scale form, packed_attention_const_kernel (vit_packed_attention_
+// const, head dims up to 64 and 65-80). Per head:
+//   qs = q * scale               as above
+//   s  = qs . k^T                fp32 accumulation, as above
+//   o  = bf16(s * c) . v         c = float32(1/T) from the host; keys past
+//                                T weigh exactly 0 (their K and V rows are
+//                                the maps' zero fill, and their s * c is
+//                                set to 0 besides)
+// with no max, no exp, no row sum and no 1/l. The same producer, ring and
+// products as the slab form; past 256 keys one streamed pass (K and V
+// together) instead of two. It is the body with kConst true: the real
+// kernels instantiate it with kConst false, and the body is inlined into
+// each kernel, so they compile as before.
 #include <limits.h>
 
 #include <type_traits>
@@ -107,9 +123,13 @@ struct FwdArgs {
 // its general form reads the key count and the packing from the arguments
 // (qs.head: hd for slabs, 3 hd for per-head packing, whose head h has q, K
 // and V at head coordinates 3h, 3h + 1 and 3h + 2 of the packed map).
-template <int HDP, bool kViews, bool kGeneral>
+// kConst: the constant-scale stand-in, each score times `const_c` (the
+// slab entry only: kViews and kGeneral false).
+template <int HDP, bool kViews, bool kGeneral, bool kConst = false>
 __device__ __forceinline__ void attention_fwd(const CUtensorMap* map_k,
-                                              const CUtensorMap* map_v, const FwdArgs& a) {
+                                              const CUtensorMap* map_v, const FwdArgs& a,
+                                              float const_c = 0.f) {
+  static_assert(!kConst || (!kViews && !kGeneral), "the stand-in is the slab entry's");
   const int T = a.T, kv_len = kViews || kGeneral ? a.kv_len : a.T;
   const int num_heads = a.num_heads, hd = a.hd;
   const int units = a.units;
@@ -125,7 +145,8 @@ __device__ __forceinline__ void attention_fwd(const CUtensorMap* map_k,
   const uint32_t empty = full + kSlots * 8;
   const int nchunks = (kv_len + kRows - 1) / kRows, nqb = (T + 2 * kRows - 1) / (2 * kRows);
   const bool one_pass = nchunks <= kMaxChunks;
-  const int steps = one_pass ? nchunks : 2 * nchunks;  // pass 1 loads K alone
+  // Pass 1 loads K alone; the stand-in has no pass 1.
+  const int steps = one_pass || kConst ? nchunks : 2 * nchunks;
   // Tile steps n = 0, 1, ... of this block, over its units in turn, take
   // slot n % kSlots in phase (n / kSlots) & 1, for the producer and the
   // consumers alike.
@@ -149,7 +170,7 @@ __device__ __forceinline__ void attention_fwd(const CUtensorMap* map_k,
         const FwdUnit w = fwd_unit(u, nqb, num_heads);
         for (int s = 0; s < steps; ++s, ++n) {
           const int c = s % nchunks;
-          const bool with_v = one_pass || s >= nchunks;
+          const bool with_v = one_pass || kConst || s >= nchunks;
           mbar_wait(empty + 8 * slot_of(n), phase_of(n) ^ 1);  // the first round passes
           const uint32_t bar = full + 8 * slot_of(n), k = ring + slot_of(n) * 2 * kTile;
           mbar_expect_tx(bar, (with_v ? 2 : 1) * kTile);  // zero-filled boxes count whole
@@ -181,6 +202,20 @@ __device__ __forceinline__ void attention_fwd(const CUtensorMap* map_k,
       const int key = chunk * kRows + 8 * j + 2 * tq;
       if (key >= kv_len) c[4 * j] = c[4 * j + 2] = kMaskValue;
       if (key + 1 >= kv_len) c[4 * j + 1] = c[4 * j + 3] = kMaskValue;
+    }
+  };
+  // The stand-in's weights: s * const_c; in the last chunk (the only one
+  // that holds keys at and past kv_len) those keys' weights are 0.
+  auto const_weights = [&](float (&c)[32], int chunk, bool last) {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) c[i] = __fmul_rn(c[i], const_c);
+    if (last) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int key = chunk * kRows + 8 * j + 2 * tq;
+        if (key >= kv_len) c[4 * j] = c[4 * j + 2] = 0.f;
+        if (key + 1 >= kv_len) c[4 * j + 1] = c[4 * j + 3] = 0.f;
+      }
     }
   };
   auto row_max = [](const float (&c)[32], float& m0, float& m1) {
@@ -258,15 +293,21 @@ __device__ __forceinline__ void attention_fwd(const CUtensorMap* map_k,
 #pragma unroll
       for (int c = 0; c < NC; ++c) {
         fence_acc(s[c]);
-        if (c == NC - 1) mask(s[c], c);  // only the last chunk holds keys past kv_len
-        row_max(s[c], m0, m1);
+        if constexpr (kConst) {
+          const_weights(s[c], c, c == NC - 1);
+        } else {
+          if (c == NC - 1) mask(s[c], c);  // only the last chunk holds keys past kv_len
+          row_max(s[c], m0, m1);
+        }
       }
-      quad_max(m0);
-      quad_max(m1);
+      if constexpr (!kConst) {
+        quad_max(m0);
+        quad_max(m1);
+      }
       uint32_t pa[NC][4][4];
 #pragma unroll
       for (int c = 0; c < NC; ++c) {
-        exp_rows(s[c], m0, m1, l0, l1);
+        if constexpr (!kConst) exp_rows(s[c], m0, m1, l0, l1);
 #pragma unroll
         for (int kk = 0; kk < 4; ++kk) to_a(pa[c][kk], s[c], kk);
       }
@@ -300,6 +341,35 @@ __device__ __forceinline__ void attention_fwd(const CUtensorMap* map_k,
         case 2: one_pass_unit(std::integral_constant<int, 2>()); break;
         case 3: one_pass_unit(std::integral_constant<int, 3>()); break;
         default: one_pass_unit(std::integral_constant<int, kMaxChunks>()); break;
+      }
+    } else if constexpr (kConst) {
+      // One pass: S, its weights and o += bf16(s * c) . V_chunk.
+      for (int c = 0; c < nchunks; ++c, ++n) {
+        float s[32];
+        mbar_wait(full + 8 * slot_of(n), phase_of(n));
+        const uint32_t k = k_tile(n);
+        wgmma_fence();
+        scores(s, k);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_acc(s);
+        const_weights(s, c, c == nchunks - 1);
+        uint32_t pa[4][4];
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) to_a(pa[kk], s, kk);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+          for (int j = 0; j < kB; ++j)
+            wgmma_rs<1>(o[j], pa[kk], desc_mn(k + kTile, j, kk), c + kk > 0);
+        wgmma_commit();
+        wgmma_wait<0>();
+#pragma unroll
+        for (int j = 0; j < kB; ++j) fence_acc(o[j]);
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) fence_frag(pa[kk]);
+        mbar_arrive(empty + 8 * slot_of(n));
       }
     } else {
       // Pass 1: the exact max of each row over all keys.
@@ -347,8 +417,12 @@ __device__ __forceinline__ void attention_fwd(const CUtensorMap* map_k,
         mbar_arrive(empty + 8 * slot_of(n));
       }
     }
-    quad_sum(l0);
-    quad_sum(l1);
+    if constexpr (kConst) {
+      l0 = l1 = 1.f;  // no normalisation: o * 1.f is o
+    } else {
+      quad_sum(l0);
+      quad_sum(l1);
+    }
     if constexpr (kViews)
       store_rows<kB, bf16>(out + w.b * a.os.batch + w.h * a.os.head,
                            static_cast<int>(a.os.row), 0, o, 1.f / l0, 1.f / l1, first_row(w),
@@ -369,6 +443,13 @@ packed_attention_kernel(const __grid_constant__ CUtensorMap map_qkv,
 
 template <int HDP>
 __global__ void __launch_bounds__(kThreads, 1)
+packed_attention_const_kernel(const __grid_constant__ CUtensorMap map_qkv,
+                              const __grid_constant__ FwdArgs args, float const_c) {
+  attention_fwd<HDP, false, false, true>(&map_qkv, &map_qkv, args, const_c);
+}
+
+template <int HDP>
+__global__ void __launch_bounds__(kThreads, 1)
 single_pass_attention_kernel(const __grid_constant__ CUtensorMap map_k,
                              const __grid_constant__ CUtensorMap map_v,
                              const __grid_constant__ FwdArgs args) {
@@ -378,18 +459,26 @@ single_pass_attention_kernel(const __grid_constant__ CUtensorMap map_k,
 // One launch of either kernel: the packed one when map_v is null (K and V
 // in map_k; its general form for a key count or per-head packing), the
 // single-pass one otherwise; args.units set here.
-template <int HDP>
-cudaError_t launch_fwd(const CUtensorMap& map_k, const CUtensorMap* map_v, FwdArgs args,
-                       int B, cudaStream_t stream) {
+// args.units for B images, and the persistent grid over them.
+inline cudaError_t fwd_grid(FwdArgs& args, int B, int& grid) {
   const int sms = sm_count();
   if (sms == 0) return cudaErrorInvalidDevice;
-  constexpr int smem = fwd_smem_bytes<HDP>();
   const long long units =
       static_cast<long long>((args.T + 2 * kRows - 1) / (2 * kRows)) * args.num_heads * B;
   if (units > INT_MAX || args.qs.row > INT_MAX || args.os.row > INT_MAX)
     return cudaErrorInvalidValue;
   args.units = static_cast<int>(units);
-  const int grid = static_cast<int>(units < sms ? units : sms);  // persistent
+  grid = static_cast<int>(units < sms ? units : sms);  // persistent
+  return cudaSuccess;
+}
+
+template <int HDP>
+cudaError_t launch_fwd(const CUtensorMap& map_k, const CUtensorMap* map_v, FwdArgs args,
+                       int B, cudaStream_t stream) {
+  constexpr int smem = fwd_smem_bytes<HDP>();
+  int grid = 0;
+  const cudaError_t geometry = fwd_grid(args, B, grid);
+  if (geometry != cudaSuccess) return geometry;
   if (map_v == nullptr && (args.kv_len < args.T || args.qs.head != args.hd)) {
     const cudaError_t err = allow_dynamic_smem(packed_attention_kernel<HDP, true>, smem);
     if (err != cudaSuccess) return err;
@@ -406,12 +495,33 @@ cudaError_t launch_fwd(const CUtensorMap& map_k, const CUtensorMap* map_v, FwdAr
   return cudaGetLastError();
 }
 
+// The constant-scale stand-in, compiled at the presets' head dims (64; 80
+// for ViT-H) only.
+template <int HDP>
+cudaError_t launch_const(const CUtensorMap& map, FwdArgs args, int B, float const_c,
+                         cudaStream_t stream) {
+  if constexpr (HDP == 64 || HDP == 80) {
+    constexpr int smem = fwd_smem_bytes<HDP>();
+    int grid = 0;
+    cudaError_t err = fwd_grid(args, B, grid);
+    if (err != cudaSuccess) return err;
+    err = allow_dynamic_smem(packed_attention_const_kernel<HDP>, smem);
+    if (err != cudaSuccess) return err;
+    packed_attention_const_kernel<HDP><<<grid, kThreads, smem, stream>>>(map, args, const_c);
+    return cudaGetLastError();
+  } else {
+    return cudaErrorInvalidValue;
+  }
+}
+
 // The packed [B, T, 3D] buffer as one map of 3H heads of hd columns: slab
 // packing puts head h's q, K and V at head coordinates h, H + h and 2H + h,
-// per-head packing at 3h, 3h + 1 and 3h + 2.
+// per-head packing at 3h, 3h + 1 and 3h + 2. With const_c, the slab entry's
+// constant-scale stand-in (kv_len T, slab packing).
 template <int HDP>
 cudaError_t launch_packed(const void* qkv, void* out, int B, int T, int kv_len, int num_heads,
-                          int hd, bool per_head, float scale, cudaStream_t stream) {
+                          int hd, bool per_head, float scale, cudaStream_t stream,
+                          const float* const_c = nullptr) {
   EncodeTiledFn encode = encode_tiled();
   if (encode == nullptr) return cudaErrorSymbolNotFound;
   const long long D = static_cast<long long>(num_heads) * hd;
@@ -423,6 +533,7 @@ cudaError_t launch_packed(const void* qkv, void* out, int B, int T, int kv_len, 
                        3 * D))
     return cudaErrorInvalidValue;
   args.vo = args.ko;
+  if (const_c != nullptr) return launch_const<HDP>(map, args, B, *const_c, stream);
   return launch_fwd<HDP>(map, nullptr, args, B, stream);
 }
 
@@ -484,6 +595,19 @@ VIT_EXPORT int vit_packed_attention_bf16(const void* qkv, void* out, int B,
   if (B <= 0 || T <= 0 || num_heads <= 0 || head_dim % 8 != 0)
     return cudaErrorInvalidValue;
   VIT_PACKED_DISPATCH(qkv, out, B, T, T, num_heads, head_dim, false, scale, s)
+}
+
+// The slab entry's softmax_identity stand-in: o = bf16(s * const_c) . v,
+// const_c = float32(1/T) (ops/attention.py const_scale); head_dim 64 or
+// 65-80 rounded up (any other gives cudaErrorInvalidValue).
+VIT_EXPORT int vit_packed_attention_const(const void* qkv, void* out, int B, int T,
+                                          int num_heads, int head_dim, float scale,
+                                          float const_c, void* stream) {
+  using namespace vit::attn90;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (B <= 0 || T <= 0 || num_heads <= 0 || head_dim % 8 != 0)
+    return cudaErrorInvalidValue;
+  VIT_PACKED_DISPATCH(qkv, out, B, T, T, num_heads, head_dim, false, scale, s, &const_c)
 }
 
 // The same kernel with keys at and past kv_len (1 <= kv_len <= T) masked

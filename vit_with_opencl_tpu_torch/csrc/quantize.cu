@@ -53,6 +53,17 @@
 //     (quantize_rows_masked_kernel: a warp a row, the row read twice).
 // Bound: bytes, M*(4*K + m + 2*(K - m) + 4) (split), M*(3*K + 2*nh*kh + 4)
 // (masked).
+//
+// The attribution probe's quant_cheap stand-in (perf/profiler.py
+// kernel_substitutions, the JAX package's `hf.astype(int8)` with a scale of
+// 1.0): quantize_rows_cheap_kernel and quantize_rows_split_cheap_kernel, at
+// the QuantWidths forms only. They read each row and write its codes, its
+// bf16 tail and its scale exactly as the real forms do, in the same vectors;
+// only the absmax reduction, the divide and the rounding go: a code is the
+// value truncated toward zero, saturated to [-128, 127], and the scale is
+// 1.0. Their time's difference from the real forms' is the compute share.
+// The real kernels are the same bodies with kCheap false (the bodies are
+// inlined into each kernel, so the real forms compile as before).
 #include <type_traits>
 
 #include "common.cuh"
@@ -92,16 +103,34 @@ __device__ __forceinline__ uint32_t pack_codes(float a, float b, float c, float 
   return u(a) | u(b) << 8 | u(c) << 16 | u(d) << 24;
 }
 
+// The stand-in's codes: truncated toward zero (__float2int_rz saturates to
+// int32), then saturated to int8.
+__device__ __forceinline__ uint32_t pack_cheap_codes(float a, float b, float c, float d) {
+  const auto u = [](float v) {
+    const int qi = max(-128, min(127, __float2int_rz(v)));
+    return static_cast<uint32_t>(static_cast<uint8_t>(static_cast<signed char>(qi)));
+  };
+  return u(a) | u(b) << 8 | u(c) << 16 | u(d) << 24;
+}
+
+template <bool kCheap>
+__device__ __forceinline__ uint32_t pack4(float a, float b, float c, float d, float r) {
+  if constexpr (kCheap)
+    return pack_cheap_codes(a, b, c, d);
+  else
+    return pack_codes(a, b, c, d, r);
+}
+
 // The V codes of vector v of T at q (4- or 8-byte aligned): one store.
-template <typename T>
+template <typename T, bool kCheap = false>
 __device__ __forceinline__ void store_codes(int8_t* q, const Raw16& v, float r) {
   if constexpr (sizeof(T) == 4) {
     *reinterpret_cast<uint32_t*>(q) =
-        pack_codes(elem<T>(v, 0), elem<T>(v, 1), elem<T>(v, 2), elem<T>(v, 3), r);
+        pack4<kCheap>(elem<T>(v, 0), elem<T>(v, 1), elem<T>(v, 2), elem<T>(v, 3), r);
   } else {
     uint2 out;
-    out.x = pack_codes(elem<T>(v, 0), elem<T>(v, 1), elem<T>(v, 2), elem<T>(v, 3), r);
-    out.y = pack_codes(elem<T>(v, 4), elem<T>(v, 5), elem<T>(v, 6), elem<T>(v, 7), r);
+    out.x = pack4<kCheap>(elem<T>(v, 0), elem<T>(v, 1), elem<T>(v, 2), elem<T>(v, 3), r);
+    out.y = pack4<kCheap>(elem<T>(v, 4), elem<T>(v, 5), elem<T>(v, 6), elem<T>(v, 7), r);
     *reinterpret_cast<uint2*>(q) = out;
   }
 }
@@ -151,10 +180,12 @@ struct HeldRow {
   }
 };
 
-template <typename TIn, int kCols>
-__global__ void __launch_bounds__(kRowMaxWarps * 32)
-quantize_rows_kernel(const TIn* __restrict__ x, int8_t* __restrict__ q,
-                     float* __restrict__ scale, int rows) {
+// kCheap: the stand-in (no absmax: every thread of the row skips it, so
+// no barrier is left half-taken).
+template <typename TIn, int kCols, bool kCheap>
+__device__ __forceinline__ void quantize_rows_body(const TIn* __restrict__ x,
+                                                   int8_t* __restrict__ q,
+                                                   float* __restrict__ scale, int rows) {
   using Row = HeldRow<TIn, kCols>;
   constexpr int T = Row::S::kThreads;
   const int sub = threadIdx.x % T;
@@ -162,24 +193,39 @@ quantize_rows_kernel(const TIn* __restrict__ x, int8_t* __restrict__ q,
   const bool live = row < rows;
   Row held;
   held.load(x + static_cast<size_t>(row) * kCols, sub, live);
-  const float amax = held.absmax(sub, kCols);
+  const float amax = kCheap ? 1.0f : held.absmax(sub, kCols);
   if (!live) return;
-  const float r = 127.0f / amax;  // IEEE division (nvcc's -prec-div=true)
+  const float r = kCheap ? 1.0f : 127.0f / amax;  // IEEE division (-prec-div=true)
   int8_t* qr = q + static_cast<size_t>(row) * kCols;
 #pragma unroll
   for (int j = 0; j < Row::S::kPerLane; ++j) {
     const int c = Row::col(j, sub);
-    if (Row::in_row(c)) store_codes<TIn>(qr + c, held.v[j], r);
+    if (Row::in_row(c)) store_codes<TIn, kCheap>(qr + c, held.v[j], r);
   }
-  if (sub == 0) scale[row] = __fmul_rn(amax, 1.0f / 127.0f);
+  if (sub == 0) scale[row] = kCheap ? 1.0f : __fmul_rn(amax, 1.0f / 127.0f);
+}
+
+template <typename TIn, int kCols>
+__global__ void __launch_bounds__(kRowMaxWarps * 32)
+quantize_rows_kernel(const TIn* __restrict__ x, int8_t* __restrict__ q,
+                     float* __restrict__ scale, int rows) {
+  quantize_rows_body<TIn, kCols, false>(x, q, scale, rows);
+}
+
+template <typename TIn, int kCols>
+__global__ void __launch_bounds__(kRowMaxWarps * 32)
+quantize_rows_cheap_kernel(const TIn* __restrict__ x, int8_t* __restrict__ q,
+                           float* __restrict__ scale, int rows) {
+  quantize_rows_body<TIn, kCols, true>(x, q, scale, rows);
 }
 
 // Row stride kCols in x, m in q, kCols - m in hi; m a multiple of 4.
-template <int kCols>
-__global__ void __launch_bounds__(kRowMaxWarps * 32)
-quantize_rows_split_kernel(const float* __restrict__ x, int8_t* __restrict__ q,
-                           float* __restrict__ scale, bf16* __restrict__ hi,
-                           int rows, int m) {
+template <int kCols, bool kCheap>
+__device__ __forceinline__ void quantize_rows_split_body(const float* __restrict__ x,
+                                                         int8_t* __restrict__ q,
+                                                         float* __restrict__ scale,
+                                                         bf16* __restrict__ hi, int rows,
+                                                         int m) {
   using Row = HeldRow<float, kCols>;
   constexpr int T = Row::S::kThreads;
   const int sub = threadIdx.x % T;
@@ -187,9 +233,9 @@ quantize_rows_split_kernel(const float* __restrict__ x, int8_t* __restrict__ q,
   const bool live = row < rows;
   Row held;
   held.load(x + static_cast<size_t>(row) * kCols, sub, live);
-  const float amax = held.absmax(sub, m);
+  const float amax = kCheap ? 1.0f : held.absmax(sub, m);
   if (!live) return;
-  const float r = 127.0f / amax;
+  const float r = kCheap ? 1.0f : 127.0f / amax;
   int8_t* qr = q + static_cast<size_t>(row) * m;
   bf16* hr = hi + static_cast<size_t>(row) * (kCols - m);
 #pragma unroll
@@ -197,7 +243,7 @@ quantize_rows_split_kernel(const float* __restrict__ x, int8_t* __restrict__ q,
     const int c = Row::col(j, sub);
     const Raw16& v = held.v[j];
     if (c < m) {
-      store_codes<float>(qr + c, v, r);
+      store_codes<float, kCheap>(qr + c, v, r);
     } else if (Row::in_row(c)) {
       uint2 out;
       out.x = pack_bf16x2(elem<float>(v, 0), elem<float>(v, 1));
@@ -205,7 +251,23 @@ quantize_rows_split_kernel(const float* __restrict__ x, int8_t* __restrict__ q,
       *reinterpret_cast<uint2*>(hr + (c - m)) = out;
     }
   }
-  if (sub == 0) scale[row] = __fmul_rn(amax, 1.0f / 127.0f);
+  if (sub == 0) scale[row] = kCheap ? 1.0f : __fmul_rn(amax, 1.0f / 127.0f);
+}
+
+template <int kCols>
+__global__ void __launch_bounds__(kRowMaxWarps * 32)
+quantize_rows_split_kernel(const float* __restrict__ x, int8_t* __restrict__ q,
+                           float* __restrict__ scale, bf16* __restrict__ hi,
+                           int rows, int m) {
+  quantize_rows_split_body<kCols, false>(x, q, scale, hi, rows, m);
+}
+
+template <int kCols>
+__global__ void __launch_bounds__(kRowMaxWarps * 32)
+quantize_rows_split_cheap_kernel(const float* __restrict__ x, int8_t* __restrict__ q,
+                                 float* __restrict__ scale, bf16* __restrict__ hi,
+                                 int rows, int m) {
+  quantize_rows_split_body<kCols, true>(x, q, scale, hi, rows, m);
 }
 
 // The general forms, for any width that is a multiple of 4: a warp a row.
@@ -443,6 +505,36 @@ cudaError_t launch_quantize_split(const float* x, void* q, float* scale, void* h
   return cudaGetLastError();
 }
 
+// The stand-ins, at the QuantWidths forms only (cudaErrorInvalidValue at
+// any other width).
+template <typename TIn>
+cudaError_t launch_quantize_cheap(const void* x, void* q, float* scale, int rows,
+                                  int cols, cudaStream_t stream) {
+  const TIn* xt = static_cast<const TIn*>(x);
+  int8_t* qt = static_cast<int8_t*>(q);
+  dim3 grid, block;
+  const bool has_form = with_width(QuantWidths{}, cols, [&](auto width) {
+    constexpr int kCols = decltype(width)::value;
+    row_launch(rows, RowShape<TIn, kCols>::kThreads, grid, block);
+    quantize_rows_cheap_kernel<TIn, kCols><<<grid, block, 0, stream>>>(xt, qt, scale, rows);
+  });
+  return has_form ? cudaGetLastError() : cudaErrorInvalidValue;
+}
+
+cudaError_t launch_quantize_split_cheap(const float* x, void* q, float* scale, void* hi,
+                                        int rows, int cols, int m, cudaStream_t stream) {
+  int8_t* qt = static_cast<int8_t*>(q);
+  bf16* ht = static_cast<bf16*>(hi);
+  dim3 grid, block;
+  const bool has_form = with_width(QuantWidths{}, cols, [&](auto width) {
+    constexpr int kCols = decltype(width)::value;
+    row_launch(rows, RowShape<float, kCols>::kThreads, grid, block);
+    quantize_rows_split_cheap_kernel<kCols><<<grid, block, 0, stream>>>(x, qt, scale, ht,
+                                                                        rows, m);
+  });
+  return has_form ? cudaGetLastError() : cudaErrorInvalidValue;
+}
+
 template <int kCols, int kHeadDim>
 void launch_quantize_masked_form(const bf16* x, int8_t* q, float* scale, bf16* hi,
                                  int rows, int kh, cudaStream_t stream) {
@@ -499,6 +591,30 @@ VIT_EXPORT int vit_quantize_rows_split(const float* x, void* q, float* scale,
     return cudaErrorInvalidValue;
   return launch_quantize_split(x, q, scale, hi, rows, cols, m,
                                static_cast<cudaStream_t>(stream));
+}
+
+// The quant_cheap stand-ins of the two entries above: the same arguments,
+// cols one of QuantWidths.
+VIT_EXPORT int vit_quantize_rows_cheap(const void* x, int x_dtype, void* q,
+                                       float* scale, int rows, int cols,
+                                       void* stream) {
+  using namespace vit;
+  if (rows <= 0 || cols <= 0 || cols % 4 != 0) return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (x_dtype == kF32) return launch_quantize_cheap<float>(x, q, scale, rows, cols, s);
+  if (x_dtype == kBF16) return launch_quantize_cheap<bf16>(x, q, scale, rows, cols, s);
+  return cudaErrorInvalidValue;
+}
+
+VIT_EXPORT int vit_quantize_rows_split_cheap(const float* x, void* q, float* scale,
+                                             void* hi, int rows, int cols, int m,
+                                             void* stream) {
+  using namespace vit;
+  if (rows <= 0 || cols <= 0 || m <= 0 || m >= cols || cols % 4 != 0 ||
+      m % 4 != 0)
+    return cudaErrorInvalidValue;
+  return launch_quantize_split_cheap(x, q, scale, hi, rows, cols, m,
+                                     static_cast<cudaStream_t>(stream));
 }
 
 // x bf16 [rows, cols = num_heads * head_dim]; q int8 [rows, cols];

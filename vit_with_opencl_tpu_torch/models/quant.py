@@ -162,7 +162,14 @@ def quantize_act(x: torch.Tensor):
     scale = rowwise absmax / 127. One divide per row, then multiplies; no
     clip is needed: |x| <= absmax elementwise, so |x·r| <= 127·(1 + 2⁻²³)
     < 127.5 and rounding half to even (``torch.round``) never gives 128.
+
+    Under the attribution probe's ``quant_cheap`` substitution
+    (``ops/substitutions``) it is ``quantize_act_cheap`` instead.
     """
+    from ..ops import substitutions  # the ops package imports this module
+
+    if substitutions.QUANT_CHEAP:
+        return quantize_act_cheap(x)
     xf = x.float()
     absmax = torch.clamp_min(xf.abs().amax(dim=-1, keepdim=True),
                              ACT_ABSMAX_FLOOR)
@@ -171,6 +178,16 @@ def quantize_act(x: torch.Tensor):
     r = torch.full_like(absmax, 127.0) / absmax
     q = torch.round(xf * r).to(torch.int8)
     return q, absmax * _INV_127
+
+
+def quantize_act_cheap(x: torch.Tensor):
+    """The ``quant_cheap`` stand-in (the JAX package's ``hf.astype(int8)``
+    with a scale of 1.0): the codes the fp32 values truncated toward zero,
+    the scale 1.0 a row, in ``quantize_act``'s shapes and dtypes. Outside
+    int8's range the codes saturate to [-128, 127] (JAX's convert leaves
+    that case to the backend)."""
+    q = torch.clamp(torch.trunc(x.float()), -128, 127).to(torch.int8)
+    return q, torch.ones((*x.shape[:-1], 1), dtype=torch.float32, device=x.device)
 
 
 def quantize_act_split(x: torch.Tensor, m: int, hi_dtype: torch.dtype):

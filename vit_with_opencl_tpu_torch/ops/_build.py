@@ -68,10 +68,16 @@ SIGNATURES = {
     "vit_packed_attention_bf16": [_P, _P, _I, _I, _I, _I, _F, _P],
     # qkv, out, B, T, kv_len, num_heads, head_dim, per_head, scale, stream
     "vit_packed_attention_kv": [_P, _P, _I, _I, _I, _I, _I, _I, _F, _P],
-    # x, x_dtype, q, scale, rows, cols, stream
+    # The slab entry's constant-scale stand-in: qkv, out, B, T, num_heads,
+    # head_dim, scale, the weight a key (float32(1/T)), stream
+    "vit_packed_attention_const": [_P, _P, _I, _I, _I, _I, _F, _F, _P],
+    # x, x_dtype, q, scale, rows, cols, stream (and the cheap stand-in's)
     "vit_quantize_rows": [_P, _I, _P, _P, _I, _I, _P],
-    # x (fp32), q, scale, hi (bf16), rows, cols, m, stream
+    "vit_quantize_rows_cheap": [_P, _I, _P, _P, _I, _I, _P],
+    # x (fp32), q, scale, hi (bf16), rows, cols, m, stream (and the cheap
+    # stand-in's)
     "vit_quantize_rows_split": [_P, _P, _P, _P, _I, _I, _I, _P],
+    "vit_quantize_rows_split_cheap": [_P, _P, _P, _P, _I, _I, _I, _P],
     # x (bf16), q, scale, hi (bf16), rows, cols, head_dim, kh, stream
     "vit_quantize_rows_masked": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     # qkv, dout, dqkv, dqkv_dtype, stats, B, T, num_heads, head_dim,

@@ -71,6 +71,23 @@ resident K/V), which rebuild p from the forward's log-sum-exp (plain version
 training's ``flash`` route uses, routed by ``_is_long_seq`` as JAX's. The
 forward wrappers refuse to run under autograd on the card (their results
 would carry no graph); the trainable form is the way to train through them.
+
+Under the attribution probe's ``softmax_identity`` substitution
+(``ops/substitutions``) ``_head_attention`` is JAX's ``fake_head``
+(``_const_scale_head``): the same two products with a constant weight
+``float32(1/T)`` in place of the softmax, and no mask (JAX's stand-in takes
+none). Every plain version that reaches ``_head_attention`` follows it
+(rows 4, 8 and, through p = s, 11), and so does the slab entry of the
+packed kernel, by its constant-scale form (``vit_packed_attention_const``,
+head dims 64 and 80). The card routes with no stand-in (the packed
+kernel's entry with a key count or per-head packing, rows 8 and 11) raise
+``NotImplementedError``; the blockwise route past T = 1024 keeps its real
+softmax, as JAX's ``_flash_kernel`` does (so a softmax share measured there
+is about 0 by construction). JAX's kernels pad T where the port's do not
+(its single-pass kernel to a multiple of 128, its whole-encoder stack to
+16, its padded packed route to 128), and its ``fake_head`` divides by that
+padded T and, in the stack, averages over the padded rows too; the port's
+stand-in is over the tensor's T keys.
 """
 
 from __future__ import annotations
@@ -81,7 +98,7 @@ import numpy as np
 import torch
 
 from ..config import ViTConfig
-from . import _build
+from . import _build, substitutions
 
 # Kernel launches since the counts were last set to 0 (chip_smoke.py reads
 # them): the packed forward, and its backward (one per call: its two
@@ -123,7 +140,10 @@ def _head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     The reference's rounding points: q is scaled in its own dtype, scores and
     the softmax are fp32, the unnormalised weights are cast to v's dtype for
     the PV product, and the 1/rowsum scales the output, not the weights.
-    Keys at and past ``kv_len`` score MASK_VALUE."""
+    Keys at and past ``kv_len`` score MASK_VALUE. Under ``softmax_identity``
+    the constant-scale stand-in instead (``_const_scale_head``)."""
+    if substitutions.SOFTMAX_IDENTITY:
+        return _const_scale_head(q, k, v, scale)
     qs = q * torch.tensor(scale, dtype=q.dtype)
     s = qs.float() @ k.float().transpose(-1, -2)
     if kv_len is not None:
@@ -134,6 +154,23 @@ def _head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     inv = 1.0 / e.sum(-1, keepdim=True)
     o = e.to(v.dtype).float() @ v.float()
     return o * inv
+
+
+def const_scale(t: int) -> float:
+    """The stand-in's weight a key, ``1.0 / T`` rounded once to fp32 (JAX
+    multiplies the fp32 scores by the Python float ``1.0 / s.shape[1]``)."""
+    return float(np.float32(1.0 / t))
+
+
+def _const_scale_head(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      scale: float) -> torch.Tensor:
+    """The ``softmax_identity`` stand-in (JAX's ``fake_head``): ``qs = q ·
+    scale`` in q's dtype, ``s = qs · kᵀ`` in fp32, ``o = v.dtype(s ·
+    float32(1/T)) · v`` with fp32 sums over all T keys; fp32 out. No max, no
+    exp, no row sum, no 1/l and no mask."""
+    qs = q * torch.tensor(scale, dtype=q.dtype)
+    s = qs.float() @ k.float().transpose(-1, -2)
+    return (s * const_scale(s.shape[-1])).to(v.dtype).float() @ v.float()
 
 
 def _packed_heads(qkv: torch.Tensor, num_heads: int, head_dim: int,
@@ -192,6 +229,10 @@ def _packed_route(t: int, packing: str, seq: int, dtype: torch.dtype) -> str:
         return "packed"
     return "packed_kv" if dtype == torch.bfloat16 else "single_pass"
 
+
+# The head dims (rounded up to 16) at which the packed kernel's
+# constant-scale form is compiled: the presets' 64 and ViT-H's 80.
+CONST_SCALE_HEAD_DIMS = (64, 80)
 
 # The Hopper attention kernels' geometry (csrc/attention_sm90.cuh): blocks
 # of one producer and two consumer warpgroups, each consumer owning 64 rows
@@ -325,6 +366,10 @@ def packed_fused_attention(
     route = _packed_route(t, packing, seq, qkv.dtype)
     if route == "blockwise":
         return blockwise_attention_fwd(qkv, nh, hd, kv_len=seq)[0]
+    const = substitutions.SOFTMAX_IDENTITY
+    if const and route != "packed":
+        substitutions.refuse(f"packed_fused_attention ({route} route: per-head "
+                             "packing, a key count or fp32)", "softmax_identity")
     if route == "single_pass":
         # fp32: the same function through the single-pass attention's fp32
         # kernel, on strided views with kv_len.
@@ -346,7 +391,15 @@ def packed_fused_attention(
     if b == 0 or t == 0:
         return out
     scale = _single_pass_scale(hd, torch.bfloat16)
-    if route == "packed":
+    if const:
+        if -(-hd // 16) * 16 not in CONST_SCALE_HEAD_DIMS:
+            substitutions.refuse(f"packed_fused_attention at head_dim {hd} (the "
+                                 f"stand-in is built for {CONST_SCALE_HEAD_DIMS})",
+                                 "softmax_identity")
+        substitutions.check_launch("packed_fused_attention")
+        err = _build.launch("vit_packed_attention_const", qkv,
+            qkv.data_ptr(), out.data_ptr(), b, t, nh, hd, scale, const_scale(t))
+    elif route == "packed":
         err = _build.launch("vit_packed_attention_bf16", qkv,
             qkv.data_ptr(), out.data_ptr(), b, t, nh, hd, scale)
     else:
@@ -509,6 +562,8 @@ def single_pass_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if not q.is_cuda:
         ref = single_pass_attention_reference(q, k, v, head_dim, kv_len=kv_len)
         return ref if out is None else out.copy_(ref)
+    if substitutions.SOFTMAX_IDENTITY:
+        substitutions.refuse("single_pass_attention", "softmax_identity")
     if q.dtype not in _build.DTYPE_CODES:
         raise NotImplementedError(
             f"the single-pass attention kernel takes bf16 or fp32, got {q.dtype}")
@@ -780,15 +835,20 @@ def packed_attention_bwd_reference(qkv: torch.Tensor, do: torch.Tensor,
     forward's (q scaled in its dtype, fp32 scores), p normalised in fp32,
     ``ds = (p ⊙ (dp − rowsum(dp ⊙ p))) · scale`` rounded to qkv's dtype,
     ``dv = p(do's dtype)ᵀ · dO``, ``dq = ds · k``, ``dk = dsᵀ · q`` with the
-    unscaled q, fp32 products; dqkv in ``out_dtype`` (default qkv's)."""
+    unscaled q, fp32 products; dqkv in ``out_dtype`` (default qkv's). Under
+    ``softmax_identity`` p is the stand-in's second output, the fp32 scores
+    s themselves, as JAX's ``fake_head`` returns them."""
     b, t, _ = qkv.shape
     q, k, v = _split_heads(qkv, 3, num_heads, head_dim)
     doh = _split_heads(do, 1, num_heads, head_dim)[0]
     scale = float(1.0 / np.sqrt(head_dim))
     qs = q * torch.tensor(scale, dtype=q.dtype)
     s = qs.float() @ k.float().transpose(-1, -2)
-    e = torch.exp(s - s.amax(-1, keepdim=True))
-    p = e * (1.0 / e.sum(-1, keepdim=True))
+    if substitutions.SOFTMAX_IDENTITY:
+        p = s
+    else:
+        e = torch.exp(s - s.amax(-1, keepdim=True))
+        p = e * (1.0 / e.sum(-1, keepdim=True))
     dp = doh.float() @ v.float().transpose(-1, -2)
     ds = p * (dp - (dp * p).sum(-1, keepdim=True))
     ds = (ds * scale).to(qkv.dtype).float()
@@ -831,6 +891,8 @@ def packed_attention_bwd(qkv: torch.Tensor, do: torch.Tensor, num_heads: int,
     if not qkv.is_cuda:
         return packed_attention_bwd_reference(qkv, do, num_heads, head_dim,
                                               out_dtype=out_dtype)
+    if substitutions.SOFTMAX_IDENTITY:
+        substitutions.refuse("packed_attention_bwd", "softmax_identity")
     if qkv.dtype != torch.bfloat16 or do.dtype != torch.bfloat16:
         raise NotImplementedError(
             f"the CUDA attention backward takes bf16 qkv and dO, got "

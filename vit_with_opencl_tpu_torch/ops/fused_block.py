@@ -118,7 +118,7 @@ import torch
 
 from ..config import ViTConfig
 from ..models.quant import is_quantized, refuse_outliers
-from . import _build, attention, layernorm, linear, quantize
+from . import _build, attention, layernorm, linear, quantize, substitutions
 
 # Runs on the card since the counts were last set to 0 (chip_smoke.py reads
 # them), counted when all of a run's launches went out. Per layer, for the
@@ -161,7 +161,11 @@ FUSED_STACK_MAX_WEIGHT_BYTES = 44 << 20
 
 
 def _gelu_fast(x: torch.Tensor) -> torch.Tensor:
-    """erf-GELU to 3.4e-6 through one tanh (fp32 in, fp32 out)."""
+    """erf-GELU to 3.4e-6 through one tanh (fp32 in, fp32 out); the
+    identity under the ``gelu_identity`` substitution (``ops/substitutions``),
+    as the JAX package's probe swaps it."""
+    if substitutions.GELU_IDENTITY:
+        return x
     u = x * x
     p = _GELU_P[4]
     for c in _GELU_P[3::-1]:

@@ -49,6 +49,13 @@ results would carry no graph): training goes through
 
 Each wrapper launches its kernel for a CUDA tensor and computes its
 ``*_reference`` for a CPU tensor; there is no other fallback.
+
+Under the attribution probe's ``gelu_identity`` substitution
+(``ops/substitutions``) the forward GEMMs launch with the epilogue's
+run-time ``gelu`` flag at 0 (the same kernel; a bias-only tile then leaves
+by TMA store, as the other bias-only GEMMs' do) and the plain epilogue's
+``_gelu_fast`` is the identity; ``fused_linear_with_gelu`` has no stand-in
+on the card and raises ``NotImplementedError`` there.
 """
 
 from __future__ import annotations
@@ -58,7 +65,7 @@ from typing import Optional
 
 import torch
 
-from . import _build
+from . import _build, substitutions
 
 # Kernel launches since the counts were last set to 0 (chip_smoke.py reads
 # them): the bf16 GEMM, the int8-weight GEMM, the W8A8 GEMM and the W8A8 GEMM
@@ -127,6 +134,14 @@ def _ptr(t: Optional[torch.Tensor]):
     return t.data_ptr() if t is not None else None
 
 
+def _gelu_flag(fuse_gelu: bool, what: str) -> int:
+    """The epilogue's run-time ``gelu`` flag: 0 under ``gelu_identity``."""
+    if fuse_gelu and substitutions.GELU_IDENTITY:
+        substitutions.check_launch(what)
+        return 0
+    return int(fuse_gelu)
+
+
 def _scale_vector(s: torch.Tensor, n: int, name: str, dev) -> torch.Tensor:
     """A per-column scale [N] or [1, N] as a contiguous fp32 [N] view."""
     if s.numel() != n:
@@ -182,8 +197,8 @@ def fused_linear(
         return out
     tail = (_ptr(b), _ptr(residual),
             _RESIDUAL_KINDS[None if residual is None else residual.dtype],
-            out.data_ptr(), int(out_dtype == torch.bfloat16), int(fuse_gelu),
-            m, n, k)
+            out.data_ptr(), int(out_dtype == torch.bfloat16),
+            _gelu_flag(fuse_gelu, "fused_linear"), m, n, k)
     if int8w:
         s = _scale_vector(w_scale, n, "w_scale", x.device)
         err = _build.launch("vit_linear_int8w", x, x.data_ptr(), w.data_ptr(),
@@ -307,8 +322,8 @@ def fused_linear_w8a8(
         xq.data_ptr(), sx.data_ptr(), wq.data_ptr(), wq.stride(1), s.data_ptr(),
         _ptr(x_hi), _ptr(w_hi), k_hi, _ptr(b), _ptr(residual),
         _RESIDUAL_KINDS[None if residual is None else residual.dtype],
-        out.data_ptr(), int(out_dtype == torch.bfloat16), int(fuse_gelu),
-        m, n, k)
+        out.data_ptr(), int(out_dtype == torch.bfloat16),
+        _gelu_flag(fuse_gelu, "fused_linear_w8a8"), m, n, k)
     if x_hi is None:
         _build.check_launch(err, "fused_linear_w8a8")
         LAUNCHES_W8A8 += 1
@@ -576,6 +591,8 @@ def fused_linear_with_gelu(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     global LAUNCHES_GELU_PAIR
     if not x.is_cuda:
         return fused_linear_with_gelu_reference(x, w, b, out2_dtype=out2_dtype)
+    if substitutions.GELU_IDENTITY:
+        substitutions.refuse("fused_linear_with_gelu", "gelu_identity")
     *lead, k = x.shape
     if w.dim() != 2 or w.shape[0] != k:
         raise ValueError(f"w has shape {tuple(w.shape)}, expected ({k}, N)")

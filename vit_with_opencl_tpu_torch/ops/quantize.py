@@ -22,6 +22,16 @@ Each kernel is bit-identical to its plain version. Bound on the card: bytes
 (see the note in the source). Each wrapper launches its kernel for a CUDA
 tensor and computes its plain version for a CPU tensor; there is no other
 fallback.
+
+Under the attribution probe's ``quant_cheap`` substitution
+(``ops/substitutions``) the plain versions of the first two follow
+``models/quant.quantize_act``'s stand-in, and on the card they launch their
+cheap forms (``vit_quantize_rows_cheap``, ``vit_quantize_rows_split_cheap``:
+the same loads and stores, the codes the values truncated toward zero and
+saturated, a scale of 1.0; compiled at the widths of ``CHEAP_WIDTHS`` only,
+any other width raises ``NotImplementedError``), counted under the real
+kernels' counts. The masked quantize stays real, as in JAX, whose masked
+branch does not call ``quantize_act``.
 """
 
 from __future__ import annotations
@@ -31,13 +41,29 @@ import torch
 from ..models.quant import quantize_act as quantize_rows_reference
 from ..models.quant import quantize_act_masked as quantize_rows_masked_reference
 from ..models.quant import quantize_act_split as quantize_rows_split_reference
-from . import _build
+from . import _build, substitutions
 
 # Kernel launches since the counts were last set to 0 (chip_smoke.py reads
 # them): the whole-row, split and masked forms.
 LAUNCHES = 0
 LAUNCHES_SPLIT = 0
 LAUNCHES_MASKED = 0
+
+# The widths at which the cheap forms are compiled (csrc/quantize.cu
+# QuantWidths: the presets' D and MLP widths).
+CHEAP_WIDTHS = (192, 384, 768, 1024, 1280, 1536, 1664, 3072, 4096, 5120, 8192)
+
+
+def _cheap_entry(name: str, what: str, cols: int) -> str:
+    """The cheap form's entry point of ``name`` under ``quant_cheap``, else
+    ``name``."""
+    if not substitutions.QUANT_CHEAP:
+        return name
+    if cols not in CHEAP_WIDTHS:
+        substitutions.refuse(f"{what} at width {cols} (the stand-in is built "
+                             f"for {CHEAP_WIDTHS})", "quant_cheap")
+    substitutions.check_launch(what)
+    return name + "_cheap"
 
 
 def _rows(x: torch.Tensor, q_cols: int) -> int:
@@ -72,7 +98,7 @@ def quantize_rows(x: torch.Tensor):
     q, scale = _int8_and_scale(x, k)
     if rows == 0:
         return q, scale
-    err = _build.launch("vit_quantize_rows", x,
+    err = _build.launch(_cheap_entry("vit_quantize_rows", "quantize_rows", k), x,
         x.data_ptr(), _build.DTYPE_CODES[x.dtype], q.data_ptr(),
         scale.data_ptr(), rows, k)
     _build.check_launch(err, "quantize_rows")
@@ -101,7 +127,8 @@ def quantize_rows_split(x: torch.Tensor, m: int, hi_dtype: torch.dtype):
     hi = torch.empty((*x.shape[:-1], k - m), dtype=hi_dtype, device=x.device)
     if rows == 0:
         return q, scale, hi
-    err = _build.launch("vit_quantize_rows_split", x,
+    err = _build.launch(_cheap_entry("vit_quantize_rows_split",
+                                     "quantize_rows_split", k), x,
         x.data_ptr(), q.data_ptr(), scale.data_ptr(), hi.data_ptr(), rows, k,
         m)
     _build.check_launch(err, "quantize_rows_split")

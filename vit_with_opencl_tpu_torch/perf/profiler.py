@@ -10,7 +10,11 @@ the port.
     text as JAX's for the same stages);
   * ``trace``: a ``torch.profiler`` context that writes a Chrome trace;
   * ``throughput_report``: images/sec, achieved TFLOP/s and MFU against the
-    card's published dense bf16 peak.
+    card's published dense bf16 peak;
+  * ``attribute_forward``: substitution attribution of the real forward
+    (the GELU, the softmax and, for W8A8, the row quantizes each replaced by
+    a cheap stand-in that keeps every GEMM: ``kernel_substitutions``), each
+    component's share the time it takes away.
 
 Times on the card come from CUDA events around queued calls; on CPU tensors
 from ``perf_counter`` (a CPU time, never a device metric).
@@ -22,6 +26,7 @@ import contextlib
 import dataclasses
 import os
 import tempfile
+import threading
 import time
 from typing import Any, Callable, Dict, List, Optional
 
@@ -30,10 +35,13 @@ import torch
 
 from ..config import ViTConfig
 from ..models import vit
+from ..ops import substitutions
 from .kernel_trace import tensors_in
 
-# Dense bf16 tensor-core peaks, TFLOP/s (NVIDIA's data sheet: the H100 SXM).
+# Dense bf16 tensor-core peaks, TFLOP/s, and dense int8 peaks, TOP/s
+# (NVIDIA's data sheet: the H100 SXM).
 PEAK_BF16_TFLOPS = {"h100": 989.0}
+PEAK_INT8_TOPS = {"h100": 1979.0}
 
 
 @dataclasses.dataclass
@@ -172,6 +180,136 @@ def format_profile(stages: List[OpProfile], batch: int) -> str:
     lines.append(f"{'sum (batch of ' + str(batch) + ')':<24}{'':>10}{'':>12}"
                  f"{total:>15.3f}")
     return "\n".join(lines)
+
+
+def attribute_forward(
+    config: ViTConfig,
+    params: Dict[str, Any],
+    images: torch.Tensor,
+    *,
+    compute_dtype: torch.dtype = torch.bfloat16,
+    iters: int = 10,
+    quant: Optional[str] = None,
+) -> Dict[str, float]:
+    """Substitution-based attribution of the real forward (the ``flash``
+    route: the chains of ``ops/fused_block``, or the per-op path where the
+    config takes it), on the device ``images`` lie on.
+
+    ``profile_ops`` times stages alone, which counts launch and memory
+    boundaries the chained forward never pays. This times the whole forward,
+    then times it again with one piece of work replaced by a cheap stand-in
+    that keeps every GEMM (``kernel_substitutions``: the GELU by the
+    identity; the softmax by a constant weight a key, both attention
+    products kept), and attributes each piece as the difference. The
+    substituted forwards compute wrong outputs by construction; only their
+    times are read.
+
+    Returns ms per batch: ``total_ms``, ``gelu_ms`` (what the identity GELU
+    takes away), ``softmax_ms``, ``gemm_skeleton_ms`` (both substitutions:
+    the GEMMs' and the rest of the kernels' time without either), and
+    ``gelu_share``, ``softmax_share`` and ``vpu_share`` (1 - skeleton /
+    total), each clamped at 0 as in the JAX package. The name ``vpu_share``
+    is JAX's: here it is the share of the work outside the GEMMs and
+    attention products that the substitutions remove.
+
+    ``quant="int8-w8a8"`` attributes the W8A8 forward (``params`` already
+    quantized, its int8 weights stored as ``models/quant.w8a8_layout``
+    stores them on the card): a third substitution replaces the per-row
+    absmax quantize (``models/quant.quantize_act``, and the cheap forms of
+    the row quantize kernels on the card) by a bare convert with a scale of
+    1.0, and its difference is ``quantize_ms`` / ``quantize_share``; the
+    skeleton then has all three.
+
+    The route past T = 1024 (the blockwise kernel) keeps its real softmax
+    under the substitution, as JAX's does, so ``softmax_share`` there is
+    about 0 by construction. The substitutions are process-wide and read at
+    every launch: a forward launched from another thread while this runs
+    gets the stand-ins' math. A process-wide lock therefore refuses a
+    second call while one runs.
+
+    Times: CUDA events on the card, ``perf_counter`` on CPU tensors (a CPU
+    time, never a device metric), by ``_time_op`` (the median of 3 timings
+    of ``iters`` forwards after a warm-up), per forward.
+    """
+    if not _ATTRIBUTION_LOCK.acquire(blocking=False):
+        raise RuntimeError(
+            "attribute_forward is already running in this process; its "
+            "kernel substitutions are process-global while it runs, so "
+            "concurrent use would run wrong-math kernels in other forwards. "
+            "Profile one model at a time.")
+    try:
+        w8a8 = quant == "int8-w8a8"
+        kernels = vit.resolve_kernels("flash", w8a8=w8a8)
+
+        def fwd(im, p):
+            return vit.forward(im, p, config, compute_dtype=compute_dtype,
+                               kernels=kernels)
+
+        def timed(gelu_identity: bool, softmax_identity: bool,
+                  quant_cheap: bool = False) -> float:
+            with kernel_substitutions(gelu_identity, softmax_identity,
+                                      quant_cheap):
+                return _time_op(fwd, (images, params), iters) / iters
+
+        with torch.inference_mode():
+            total = timed(False, False)
+            no_gelu = timed(True, False)
+            no_softmax = timed(False, True)
+            if w8a8:
+                no_quant = timed(False, False, quant_cheap=True)
+                skeleton = timed(True, True, quant_cheap=True)
+            else:
+                skeleton = timed(True, True)
+        out = {
+            "total_ms": total,
+            "gelu_ms": max(0.0, total - no_gelu),
+            "softmax_ms": max(0.0, total - no_softmax),
+            "gemm_skeleton_ms": skeleton,
+            "gelu_share": max(0.0, 1.0 - no_gelu / total),
+            "softmax_share": max(0.0, 1.0 - no_softmax / total),
+            "vpu_share": max(0.0, 1.0 - skeleton / total),
+        }
+        if w8a8:
+            out["quantize_ms"] = max(0.0, total - no_quant)
+            out["quantize_share"] = max(0.0, 1.0 - no_quant / total)
+        return out
+    finally:
+        _ATTRIBUTION_LOCK.release()
+
+
+# Guards attribute_forward's process-global kernel substitutions.
+_ATTRIBUTION_LOCK = threading.Lock()
+
+
+@contextlib.contextmanager
+def kernel_substitutions(gelu_identity: bool, softmax_identity: bool,
+                         quant_cheap: bool = False):
+    """The probe's kernel substitutions as a context (the JAX package's, on
+    the port's flags, ``ops/substitutions``): while it is active every
+    forward computes wrong math through the same GEMM, attention and
+    quantize launches, on the card and on CPU tensors alike; on exit the
+    earlier state comes back, also when the block raises.
+
+    - ``gelu_identity``: ``_gelu_fast`` → identity (fc1's epilogue launched
+      with its ``gelu`` flag at 0; both MLP GEMMs kept);
+    - ``softmax_identity``: the attention core → JAX's ``fake_head``, ``o =
+      bf16(s · float32(1/T)) · v`` (the packed kernel's slab entry in its
+      constant-scale form; both products kept);
+    - ``quant_cheap``: ``quantize_act`` → the codes truncated toward zero
+      with a scale of 1.0 (the cheap forms of the whole-row and split
+      quantize kernels; the same int8 GEMMs follow).
+
+    A card launch that has no stand-in for an active substitution raises
+    ``NotImplementedError`` instead of running its real math (the packed
+    kernel's key-count entry, the single-pass attention, the attention
+    backward and ``fused_linear_with_gelu``), and CUDA-graph capture is
+    refused while a substitution is active."""
+    before = substitutions.state()
+    substitutions.set_state(gelu_identity, softmax_identity, quant_cheap)
+    try:
+        yield
+    finally:
+        substitutions.set_state(*before)
 
 
 @contextlib.contextmanager
