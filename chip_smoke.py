@@ -217,6 +217,10 @@ line.
    factor of SDPA's and of its bound; the forward with the LSE and the
    backward give the same bits over two runs; and at ViT-L/16@512, B = 16, the streamed
    packed backward that the ``fused`` route's attention stage takes there.
+   At each shape the forward's 256- and 512-key instances (``block_k``,
+   JAX's key tile) on the slabs without and with the LSE and on split
+   heads, under the 128-key rows' gate, with SDPA's time and the bound
+   beside each; the LSE form of each gives the same bits over two runs.
 3e. The ViT-L/16@512 inference main path: ``InferenceEngine(vit_l_16_512,
    attention_impl="flash")`` in bf16 at batch 16, full depth and widths,
    on ``random_params`` seed 0 and 32 decisive images: 24 blockwise
@@ -287,6 +291,13 @@ line.
 4e. ms and img/s of phase 3f's ring forward at B = 8 and 16: 4 virtual
    shards on one card, a number about the kernel path, not multi-card
    scaling.
+6d. ``perf.autotune.tune_and_save`` on ViT-L/16@512 at B = 16, bf16, into a
+   temporary cache (its table of the blockwise forward's key tiles
+   printed), then ``InferenceEngine(tuning_path=)`` on phase 3e's weights
+   and decisive images: the winner bound, its forwards launching the
+   winner's instance and no other (24 a forward), within 1e-3 of the plain
+   fp32 path, 0 comparator mismatches; then the same with an entry naming
+   each other key tile, so that every instance runs on the main path.
 6. The public ops and the perf tools: one ViT-B/16 layer and its head
    composed of ``ops.layer_norm``, ``fused_linear``, ``flash_attention``,
    ``residual_layer_norm`` and ``softmax`` at B = 16, and ``flash_attention``
@@ -568,16 +579,21 @@ FLASH_ROWS = ((LONG_CFG.name, 1025, 16, 64, 4), (LONG_CFG.name, 1025, 16, 64, 16
               ("vit_h_14_518", 1370, 16, 80, 4), ("odd tail", 1337, 16, 64, 4),
               ("hd 128", 1153, 8, 128, 2))
 LSE_TOL = (1e-5, 0.0)  # fp32 on both sides: m + log(l) in another order
+# The blockwise forward's instances beside JAX's default key tile of 128:
+# the block_k of JAX's sweep (phase 2g's rows, phase 6d's tuned engines).
+FLASH_TUNED_KS = tuple(bk for bk in attention.FLASH_BLOCK_KS if bk != 128)
 # A forward of the per-layer chain at T = 1025: the blockwise forward is its
 # attention link, the packed kernel never runs.
 LONG_PER_LAYER = {"layernorm": 2, "linear": 4, "attention_flash": 1,
-                  "fused_block": 1}
+                  "attention_flash_k128": 1, "fused_block": 1}
 # A training step at T = 1025, per layer: `fused` as ViT-L/16@384's with the
 # blockwise forward for the packed one (the chain and the two recomputes);
 # `flash` the blockwise forward with its LSE and the blockwise backward.
 LONG_TRAIN_PER_LAYER = {
-    "fused": dict(LARGE_PER_LAYER, attention=0, attention_flash=3),
-    "flash": {"attention_flash_lse": 1, "attention_flash_bwd": 1},
+    "fused": dict(LARGE_PER_LAYER, attention=0, attention_flash=3,
+                  attention_flash_k128=3),
+    "flash": {"attention_flash_lse": 1, "attention_flash_k128": 1,
+              "attention_flash_bwd": 1},
 }
 
 # Phase 2h: the kernel layer's public ops against their plain versions.
@@ -616,7 +632,8 @@ SINGLE_F32_REL = 1e-5
 # B = 16 (and flash_attention at ViT-L/16@512's T = 1025, B = 4): launches
 # of that run.
 PUBLIC_PATH_COUNTS = {"layernorm": 1, "linear": 5, "attention_single": 1,
-                      "layernorm_residual": 1, "attention_flash_split": 1}
+                      "layernorm_residual": 1, "attention_flash_split": 1,
+                      "attention_flash_k128": 1}
 PROFILE_BATCH = 64
 PROFILE_STAGES = ["patch_embed(+cls+pos)", "layer_norm", "qkv_proj",
                   "attention_core(packed)", "out_proj", "mlp_fc1_gelu", "mlp_fc2",
@@ -766,6 +783,9 @@ COUNTERS = {
     "attention_flash_split": (attention, "LAUNCHES_FLASH_SPLIT"),
     "layernorm_residual": (layernorm, "LAUNCHES_RESIDUAL"),
     "attention_ring": (attention, "LAUNCHES_RING"),
+    # The blockwise forward's launches by key tile (its three forms together).
+    **{f"attention_flash_k{bk}": (attention, f"LAUNCHES_FLASH_K{bk}")
+       for bk in attention.FLASH_BLOCK_KS},
     **{counter: (probe, probe.FORMS[form].counter)
        for form, (counter, *_) in PROBE_FORMS.items()},
 }
@@ -814,6 +834,9 @@ REPLACES = {
     "layernorm_residual": "vit_with_opencl_tpu/ops/layernorm.py:44",
     # The ring-attention local step (blockwise_ring_step).
     "attention_ring": "vit_with_opencl_tpu/ops/attention.py:354",
+    # _flash_kernel at each key tile (JAX's block_k).
+    **{f"attention_flash_k{bk}": "vit_with_opencl_tpu/ops/attention.py:85"
+       for bk in attention.FLASH_BLOCK_KS},
 }
 _CSRC = "vit_with_opencl_tpu_torch/csrc/"
 SOURCES = {
@@ -852,6 +875,8 @@ SOURCES = {
     "attention_flash_split": _CSRC + "attention_flash.cu",
     "layernorm_residual": _CSRC + "layernorm.cu",
     "attention_ring": _CSRC + "attention_ring.cu",
+    **{f"attention_flash_k{bk}": _CSRC + "attention_flash.cu"
+       for bk in attention.FLASH_BLOCK_KS},
     **{counter: _CSRC + "probe_overlap.cu" for counter, *_ in PROBE_FORMS.values()},
 }
 # The main-path runs: phase name → CLI flags (the outlier runs add
@@ -1531,6 +1556,7 @@ def run_cases(cases: list[dict], batch: int, name_prefix: str = "") -> list[dict
                 print(f"  library call refused: {str(exc).splitlines()[0]}")
         row = dict(name=case["name"], counter=case["counter"],
                    replaces=case.get("replaces"), source=case.get("source"),
+                   record=case.get("record", True),
                    max_abs_err=err,
                    mean_abs_err=mean_err, tol=tols[0], within=within, same=same,
                    ms=time_ms(case["kernel"]),
@@ -1958,7 +1984,15 @@ def flash_kernel_rows(dev) -> list[dict]:
             # The `fused` route's attention backward at this T (row 11's
             # streamed kernels, fp32 dqkv as its attention stage takes it).
             cases.append(attn_bwd_case(qkv, do, nh, hd, torch.float32))
+        cases += tuned_flash_cases(qkv, q, k, v, nh, hd, batch, t)
         rows += run_cases(cases, batch, f"{name} B={batch} T={t} hd={hd} ")
+        for bk in FLASH_TUNED_KS:
+            first, again = (attention.blockwise_attention_fwd(qkv, nh, hd, return_lse=True,
+                                                              block_k=bk)
+                            for _ in range(2))
+            check(torch.equal(first[0], again[0]) and torch.equal(first[1], again[1]),
+                  f"{name} B={batch} T={t} hd={hd} blockwise_attention_fwd block_k={bk} "
+                  f"with LSE: the same bits over two runs")
         first, again = (attention.blockwise_attention_fwd(qkv, nh, hd, return_lse=True)
                         for _ in range(2))
         check(torch.equal(first[0], again[0]) and torch.equal(first[1], again[1]),
@@ -1972,6 +2006,49 @@ def flash_kernel_rows(dev) -> list[dict]:
         del qkv, do, out, lse, q, k, v, cases, first, again
         torch.cuda.empty_cache()
     return rows
+
+
+def tuned_flash_cases(qkv, q, k, v, nh: int, hd: int, batch: int, t: int) -> list[dict]:
+    """Phase 2g's rows of the blockwise forward's 256- and 512-key
+    instances (``block_k``, JAX's key tile, part of the function) on the
+    slabs without and with the LSE and on split heads, each against its
+    plain version at the same tile under the 128-key instance's gate;
+    yardstick SDPA. Bound as the 128-key rows': it depends on T and hd, not
+    on the tile. Only the slab form without the LSE, the one an engine's
+    forward runs, goes into the record (its launches from phase 6d)."""
+    F, d, n = torch.nn.functional, nh * hd, batch * nh
+    fwd_ops = {"bf16": 4 * n * t * t * hd}
+    cfg = heads_cfg(nh, hd)
+    cases = []
+    for bk in FLASH_TUNED_KS:
+        counter = f"attention_flash_k{bk}"
+        cases += [
+            dict(name=f"blockwise_attention_fwd block_k={bk} (bf16)", counter=counter,
+                 tol=BF16_TOL, min_same=MIN_SAME_KERNEL,
+                 kernel=lambda bk=bk: attention.blockwise_attention_fwd(
+                     qkv, nh, hd, block_k=bk)[0],
+                 plain=lambda bk=bk: attention.blockwise_attention_fwd_reference(
+                     qkv, nh, hd, block_k=bk)[0],
+                 library=lambda: F.scaled_dot_product_attention(q, k, v),
+                 bytes=batch * t * 4 * d * 2, ops=fwd_ops),
+            dict(name=f"blockwise_attention_fwd block_k={bk} with LSE (bf16 out, fp32 "
+                      f"lse)", counter=counter, record=False,
+                 tol=[BF16_TOL, LSE_TOL], min_same=[MIN_SAME_KERNEL, 0.0],
+                 kernel=lambda bk=bk: attention.blockwise_attention_fwd(
+                     qkv, nh, hd, return_lse=True, block_k=bk),
+                 plain=lambda bk=bk: attention.blockwise_attention_fwd_reference(
+                     qkv, nh, hd, return_lse=True, block_k=bk),
+                 library=lambda: F.scaled_dot_product_attention(q, k, v),
+                 bytes=batch * t * 4 * d * 2 + n * t * 4, ops=fwd_ops),
+            dict(name=f"flash_attention block_k={bk} (split heads, bf16)", counter=counter,
+                 record=False, tol=BF16_TOL, min_same=MIN_SAME_KERNEL,
+                 kernel=lambda bk=bk: attention.flash_attention(q, k, v, cfg, block_k=bk),
+                 plain=lambda bk=bk: attention.flash_attention_reference(q, k, v, cfg,
+                                                                         block_k=bk),
+                 library=lambda: F.scaled_dot_product_attention(q, k, v),
+                 bytes=batch * t * 4 * d * 2, ops=fwd_ops),
+        ]
+    return cases
 
 
 def heads_cfg(nh: int, hd: int):
@@ -3105,6 +3182,79 @@ def long_inference_main_path(dev, tmp: Path, params: dict) -> dict:
     del engine
     torch.cuda.empty_cache()
     return counts, images, ref_probs, probs
+
+
+def tuned_long_inference(dev, tmp: Path, params: dict, images: np.ndarray,
+                         ref_probs: np.ndarray, smi_line: str) -> dict:
+    """Phase 6d: ``perf.autotune.tune_and_save`` on LONG_CFG at LONG_BATCH,
+    bf16, into a cache of its own (its table printed), then
+    ``InferenceEngine(tuning_path=)`` on phase 3e's weights and decisive
+    images: the winner bound (``engine.tuning``), its forwards launching
+    the winner's instance of the blockwise forward and no other, the
+    probabilities within PROB_TOL of the port's plain fp32 path, 0
+    comparator mismatches. Then the same with an entry naming each other
+    instance, so that every key tile runs on the main path. Returns each
+    key tile's run's counts."""
+    cfg = LONG_CFG
+    path = tmp / "tuning.json"
+    t0 = time.perf_counter()
+    result = perf.autotune.tune_and_save(cfg, LONG_BATCH, dtype=torch.bfloat16,
+                                         path=path, device=dev)
+    table = result.get("blockwise_table_ms", {})
+    print(f"  tune_and_save {cfg.name} B={LONG_BATCH} bf16 in "
+          f"{time.perf_counter() - t0:.1f} s: blockwise_block_k "
+          f"{result.get('blockwise_block_k')}, table (ms a forward's attention, "
+          f"{LONG_BATCH} x {cfg.num_heads} heads) {table} (card: {smi_line})", flush=True)
+    print(json.dumps({"autotune": result, "card": smi_line}), flush=True)
+    winner = result.get("blockwise_block_k")
+    check(winner in attention.FLASH_BLOCK_KS and len(table) == len(attention.FLASH_BLOCK_KS)
+          and all(math.isfinite(v) for v in table.values()),
+          f"tune_and_save {cfg.name}: every key tile measured, winner {winner}")
+    if winner not in attention.FLASH_BLOCK_KS:
+        return {}
+    results.write_results(tmp / "tuned_answer.txt", ref_probs)
+    forwards = -(-len(images) // LONG_BATCH)
+    runs = {}
+    for bk in [winner] + [b for b in attention.FLASH_BLOCK_KS if b != winner]:
+        tuning = path
+        if bk != winner:  # an entry naming this instance, as a sweep would write it
+            tuning = tmp / f"tuning_{bk}.json"
+            perf.autotune.save_tuning(
+                tuning, perf.autotune.tuning_key(cfg, LONG_BATCH, torch.bfloat16),
+                dict(result, blockwise_block_k=bk))
+        engine = InferenceEngine(cfg, params, batch_size=LONG_BATCH, attention_impl="flash",
+                                 device=dev, tuning_path=str(tuning))
+        what = f"{cfg.name} engine tuned to block_k={bk}" + (" (the winner)"
+                                                            if bk == winner else "")
+        check(engine.tuning.get("blockwise_block_k") == bk,
+              f"{what}: engine.tuning {engine.tuning.get('blockwise_block_k')}")
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        probs = engine.run(images)
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+        counts = runs[bk] = read_counts()
+        per_layer = {**LONG_PER_LAYER, "attention_flash_k128": 0,
+                     f"attention_flash_k{bk}": 1}
+        expected = {key: per_layer.get(key, 0) * cfg.depth * forwards for key in COUNTERS}
+        check(counts == expected, f"{what}: launches of {forwards} forwards in "
+                                  f"{elapsed:.2f} s {counts}, expected {expected}")
+        err = float(np.abs(probs - ref_probs).max())
+        check(err <= PROB_TOL, f"{what}: probabilities vs fp32 plain: max abs err "
+                               f"{err:.3e}, budget {PROB_TOL}")
+        results.write_results(tmp / f"tuned_result_{bk}.txt", probs)
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            errors = results.compare_result_files(tmp / f"tuned_result_{bk}.txt",
+                                                  tmp / "tuned_answer.txt")
+        if out.getvalue().strip():
+            print("  " + out.getvalue().strip().replace("\n", "\n  "))
+        check(errors == 0, f"{what}: comparator on {len(images)} images, {errors} "
+                           f"mismatches")
+        del engine
+        torch.cuda.empty_cache()
+    return runs
 
 
 def int8_main_path(ws: Path, dev, rounded, images, ref_probs) -> tuple:
@@ -4621,6 +4771,12 @@ def main() -> int:
         phase(f"== phase 4e: {LONG_CFG.name} ring forward throughput, {MESH_SHARDS} "
               f"virtual shards on one card")
         ring_throughput(dev, long_params)
+    with tempfile.TemporaryDirectory() as tmp:
+        phase(f"== phase 6d: perf.autotune on {LONG_CFG.name} (tune_and_save B={LONG_BATCH} "
+              f"bf16: the blockwise forward's key tile) and InferenceEngine(tuning_path=) "
+              f"on phase 3e's weights and images at each key tile")
+        tuned_runs = tuned_long_inference(dev, Path(tmp), long_params, long_images,
+                                          long_ref, smi_line)
     del long_params
 
     with torch.inference_mode():
@@ -4701,12 +4857,16 @@ def main() -> int:
     # the forward from phase 3e's, the forward with the LSE and the blockwise
     # backward from phase 5c's flash run, the packed backward from its fused
     # run (the other shapes are printed above).
+    # The 256- and 512-key instances' slab rows from phase 6d's engine tuned
+    # to each (their LSE and split-head rows are printed above).
     long_runs = {"attention_flash": long_counts,
                  "attention_flash_lse": long_train_counts["flash"],
                  "attention_flash_bwd": long_train_counts["flash"],
-                 "attention_bwd": long_train_counts["fused"]}
+                 "attention_bwd": long_train_counts["fused"],
+                 **{f"attention_flash_k{bk}": tuned_runs.get(bk, {})
+                    for bk in FLASH_TUNED_KS}}
     runs += [(long_runs[r["counter"]], r) for r in flash_rows
-             if r["name"].startswith(LONG_CFG.name)]
+             if r["name"].startswith(LONG_CFG.name) and r["record"]]
     # Phase 2h's rows: the single-pass kernel's from phase 6's profile_ops
     # run, residual_layer_norm's and the split-head blockwise forward's from
     # its public ops' run; the packed kernel's per-head key-count rows from
@@ -4733,7 +4893,7 @@ def main() -> int:
         {"name": r["name"], "route": "cuda",
          "source": r.get("source") or SOURCES[r["counter"]],
          "replaces": r["replaces"] or REPLACES[r["counter"]],
-         "launches": run[r["counter"]],
+         "launches": run.get(r["counter"], 0),
          "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
          "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
          "library_ms": r["library_ms"]} for run, r in runs]}

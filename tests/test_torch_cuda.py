@@ -1061,23 +1061,71 @@ def test_flash_attention_on_permuted_views(dev):
 @pytest.mark.parametrize("b,nh,t,hd", [(2, 2, 1025, 64), (1, 2, 1370, 80)])
 def test_flash_attention_blockwise_on_split_heads(dev, b, nh, t, hd):
     """Past T = 1024: row 9's kernel through its strided entry, bit-equal
-    to its slab entry on the same values; a key tile other than 128 and
-    fp32 raise on the card."""
+    to its slab entry on the same values, at each key tile it is built for
+    (256 and 512 against their plain versions too, counted by tile); a key
+    tile without an instance and fp32 raise on the card."""
     cfg = _heads_cfg(nh, hd)
     q, k, v = (_rand((b, nh, t, hd), dev, torch.bfloat16, seed=i) for i in range(3))
-    before = (attention.LAUNCHES_FLASH_SPLIT, attention.LAUNCHES_SINGLE)
-    out = attention.flash_attention(q, k, v, cfg)
-    torch.cuda.synchronize()
-    assert (attention.LAUNCHES_FLASH_SPLIT, attention.LAUNCHES_SINGLE) == (
-        before[0] + 1, before[1])
-    _close(out, attention.flash_attention_reference(q, k, v, cfg))
     qkv = torch.stack([q, k, v]).permute(1, 3, 0, 2, 4).reshape(b, t, 3 * nh * hd)
-    slab, _ = attention.blockwise_attention_fwd(qkv.contiguous(), nh, hd)
-    assert torch.equal(out, slab.reshape(b, t, nh, hd).permute(0, 2, 1, 3))
+    for bk in attention.FLASH_BLOCK_KS:
+        counter = f"LAUNCHES_FLASH_K{bk}"
+        before = (attention.LAUNCHES_FLASH_SPLIT, attention.LAUNCHES_SINGLE,
+                  getattr(attention, counter))
+        out = attention.flash_attention(q, k, v, cfg, block_k=bk)
+        torch.cuda.synchronize()
+        assert (attention.LAUNCHES_FLASH_SPLIT, attention.LAUNCHES_SINGLE,
+                getattr(attention, counter)) == (before[0] + 1, before[1], before[2] + 1)
+        _close(out, attention.flash_attention_reference(q, k, v, cfg, block_k=bk))
+        slab, _ = attention.blockwise_attention_fwd(qkv.contiguous(), nh, hd, block_k=bk)
+        assert torch.equal(out, slab.reshape(b, t, nh, hd).permute(0, 2, 1, 3))
     with pytest.raises(NotImplementedError, match="block_k"):
-        attention.flash_attention(q, k, v, cfg, block_k=256)
+        attention.flash_attention(q, k, v, cfg, block_k=384)
     with pytest.raises(NotImplementedError, match="bf16"):
         attention.flash_attention(q.float(), k.float(), v.float(), cfg)
+
+
+@pytest.mark.parametrize("b,t,nh,hd", FLASH_SHAPES + [(2, 1537, 2, 64), (1, 2049, 2, 128)])
+@pytest.mark.parametrize("block_k", [256, 512])
+def test_flash_attention_fwd_kernel_key_tiles(dev, b, t, nh, hd, block_k):
+    """The 256- and 512-key instances (each step's 128-key tiles taken
+    twice: the step's max, then p, the row sums and the step's PV) against
+    their plain versions, with and without the LSE and with keys masked
+    from kv_len (steps of one live key, tiles wholly masked), under the
+    128-key instance's tolerances; the same bits over two runs."""
+    qkv = _rand((b, t, 3 * nh * hd), dev, torch.bfloat16, seed=t + block_k)
+    for kv_len in sorted({t, max(1, t - 512), 1, 129}):
+        if kv_len > t:
+            continue
+        out, lse = attention.blockwise_attention_fwd(qkv, nh, hd, return_lse=True,
+                                                     kv_len=kv_len, block_k=block_k)
+        ref, ref_lse = attention.blockwise_attention_fwd_reference(
+            qkv, nh, hd, return_lse=True, kv_len=kv_len, block_k=block_k)
+        torch.cuda.synchronize()
+        _close(out, ref)
+        _rel_close(lse, ref_lse, LSE_REL)
+        again, again_lse = attention.blockwise_attention_fwd(
+            qkv, nh, hd, return_lse=True, kv_len=kv_len, block_k=block_k)
+        assert torch.equal(out, again) and torch.equal(lse, again_lse)
+    plain, none = attention.blockwise_attention_fwd(qkv, nh, hd, block_k=block_k)
+    assert none is None
+    _close(plain, attention.blockwise_attention_fwd_reference(qkv, nh, hd,
+                                                              block_k=block_k)[0])
+
+
+@pytest.mark.parametrize("hd", [8, 16, 64, 80, 104, 128])
+def test_blockwise_fwd_geometry_matches_the_kernels(dev, hd):
+    """The host's copy of the blockwise forward's geometry (shared memory,
+    queries a unit, ring stages) against the kernel's own at every key tile
+    (the same geometry for all: a longer step takes the same ring twice);
+    a key tile without an instance has none."""
+    geometry = _build.library().vit_flash_fwd_geometry
+    stages, _q_slots, consumers = attention.blockwise_kernel_geometry(hd)
+    for bk in attention.FLASH_BLOCK_KS:
+        assert geometry(hd, bk, 0) == attention.blockwise_kernel_smem_bytes(hd, bk)
+        assert geometry(hd, bk, 1) == consumers * 64
+        assert geometry(hd, bk, 2) == stages
+        assert attention.blockwise_kernel_smem_bytes(hd, bk) <= attention.MAX_SMEM_BYTES
+    assert geometry(hd, 384, 0) == -1
 
 
 @pytest.mark.parametrize("t", [848, 849, 900, 1024])

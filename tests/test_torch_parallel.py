@@ -573,14 +573,22 @@ def test_dp_engine_matches_jax(setup, no_launches):
     np.testing.assert_allclose(got, ref[:6], atol=F32_ATOL)
 
 
-def test_dp_engine_batch_divisibility(no_launches, monkeypatch):
-    """JAX's tests/test_serve.py:227; and no devices and no card raises."""
+def test_dp_engine_batch_divisibility(no_launches, monkeypatch, tmp_path):
+    """JAX's tests/test_serve.py:227; the tuning cache is read at the batch
+    of one device, as JAX's DataParallelEngine reads it (an entry at the
+    global batch is not this engine's); and no devices and no card raises."""
+    from vit_with_opencl_tpu_torch.perf import autotune
+
     named = jfixtures.random_params(JCFG, seed=3, scale=0.05)
     with pytest.raises(ValueError, match="not divisible"):
         DataParallelEngine(CFG, named, batch_size=3, devices=CPUS)
-    with pytest.raises(NotImplementedError, match="tuning_path"):
-        DataParallelEngine(CFG, named, batch_size=8, devices=CPUS,
-                           tuning_path="knobs.json")
+    path = tmp_path / "knobs.json"
+    for batch, bk in ((1, 512), (8, 256)):
+        autotune.save_tuning(path, autotune.tuning_key(CFG, batch, torch.bfloat16),
+                             {"blockwise_block_k": bk, "device": "cpu"})
+    eng = DataParallelEngine(CFG, named, batch_size=8, devices=CPUS,
+                             tuning_path=str(path))
+    assert eng.tuning["blockwise_block_k"] == 512
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         DataParallelEngine(CFG, named, batch_size=8)

@@ -157,15 +157,19 @@ def test_bench_train_accumulation_and_bf16_masters(monkeypatch):
 
 
 # The ids keep the ROADMAP items these refusals once named; the messages now
-# name the module. AUG=1 (the augment pipeline) is ported: it must run.
+# name the module. AUG=1 (the augment pipeline) and TUNE=1 (the autotune
+# cache's train entry, from a cache of the test's own) are ported: they must
+# run.
 @pytest.mark.parametrize("env,impls,refusal", [
-    ({"TUNE": "1"}, "fused", "autotune cache"),
+    ({"TUNE": "1"}, "fused", None),
     ({"AUG": "1"}, "fused", None),
     ({}, "fused_split4", "parallel/split_step"),
     ({}, "flash,flash_split", "parallel/split_step"),
 ], ids=["env0-fused-item 6", "env1-fused-item 3", "env2-fused_split4-item 8",
         "env3-flash,flash_split-item 8"])
-def test_bench_train_refuses_what_is_not_ported(monkeypatch, env, impls, refusal):
+def test_bench_train_refuses_what_is_not_ported(monkeypatch, tmp_path, env, impls,
+                                               refusal):
+    monkeypatch.setenv("VIT_TORCH_TUNING", str(tmp_path / "tuning.json"))
     for key, value in env.items():
         monkeypatch.setenv(key, value)
     if refusal is None:

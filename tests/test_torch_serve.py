@@ -475,8 +475,26 @@ def test_main_serves_until_interrupted(dp, tmp_path, monkeypatch, capsys):
 
 
 @pytest.mark.parametrize("engine_cls", [InferenceEngine, DataParallelEngine])
-def test_engines_refuse_the_tuning_cache(engine_cls):
+def test_engines_refuse_the_tuning_cache(engine_cls, tmp_path):
+    """Once refused, the autotune cache is now read, as JAX's engines read
+    it (so the daemon's engines get it): the entry of the batch of one
+    device (8, or 8 over 8 devices), recorded on the CPU, is the engine's
+    tuning and binds its kernel table's key tile; at T = 17 the tile moves
+    nothing, so the answers equal the untuned engine's."""
+    from vit_with_opencl_tpu_torch.perf import autotune
+
     params = fixtures.random_params(CFG, seed=3, scale=0.05)
     kw = {"devices": CPUS} if engine_cls is DataParallelEngine else {"device": "cpu"}
-    with pytest.raises(NotImplementedError, match="tuning_path"):
-        engine_cls(CFG, params, batch_size=8, tuning_path="knobs.json", **kw)
+    kw["attention_impl"] = "flash"
+    per_device = 8 // (len(CPUS) if engine_cls is DataParallelEngine else 1)
+    path = tmp_path / "knobs.json"
+    autotune.save_tuning(path, autotune.tuning_key(CFG, per_device, torch.float32),
+                         {"blockwise_block_k": 256, "device": "cpu"})
+    eng = engine_cls(CFG, params, batch_size=8, tuning_path=str(path), **F32, **kw)
+    assert eng.tuning["blockwise_block_k"] == 256
+    assert eng.kernels["attention_packed"].keywords["block_k"] == 256
+    images = fixtures.random_images(CFG, n=8, seed=4)
+    plain = engine_cls(CFG, params, batch_size=8, tuning_path=str(tmp_path / "none.json"),
+                       **F32, **kw)
+    assert plain.tuning == {}
+    np.testing.assert_array_equal(eng.run(images), plain.run(images))

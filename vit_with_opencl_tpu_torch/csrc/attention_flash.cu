@@ -14,7 +14,7 @@
 // maps over the views. Per head, the numerics of the TPU kernels:
 //   forward   s = (q . k^T) * scale, fp32 (scale is fp32, not folded into q);
 //             keys at and past kv_len masked to MASK_VALUE; over key tiles
-//             of 128 in order: m' = max(m, rowmax(s)), a = exp(m - m'),
+//             of block_k in order: m' = max(m, rowmax(s)), a = exp(m - m'),
 //             p = exp(s - m'), l = a * l + rowsum(p),
 //             acc = acc * a + bf16(p) . v; then o = bf16(acc * (1 / l)) and
 //             lse = m + log(l) (l == 0 -> 1 in both);
@@ -22,8 +22,10 @@
 //             p = exp(s - lse), dp = dO . v^T,
 //             ds = bf16((p * (dp - dvec)) * scale),
 //             dq = ds . k,  dk = ds^T . q (unscaled q),  dv = bf16(p)^T . dO.
-// The key tile of the forward is 128, JAX's block_k: the running max moves
-// once a tile, so p is rounded to bf16 at the same values as on the TPU.
+// The key tile of the forward is JAX's block_k, 128 (its default), 256 or
+// 512 (the block_k of its sweep, perf/autotune.py), an instance each: the
+// running max moves once a tile, so p is rounded to bf16 at the same values
+// as on the TPU, and the tile is part of the function.
 //
 // Bound on the card: operations. At ViT-L/16@512 (T = 1025, padded to 1152
 // by JAX; hd 64) the forward does 4 T^2 hd a head (69 GFLOP a layer at
@@ -61,6 +63,21 @@
 // Tiles wholly past kv_len are skipped (a = 1, p = 0), and so is the
 // product of a tile's second half when it holds only masked keys (p
 // exactly 0, and the first half holds the row's max).
+// Key tiles of 256 and 512 (KT): a consumer cannot hold a step's scores
+// (128 or 256 a thread) with its accumulator, and the step's max must be
+// known before its first exponential. So the ring keeps its 128-key stages
+// and the geometry above, and each step takes its 128-key tiles twice: the
+// producer stages their K alone, then their K and V again (from L2: the
+// head's blocks read them together); the first pass runs S and takes the
+// step's row max, the second runs S again (the same products, so the same
+// scores), p = exp(s - m') against that max, the row sums and pv = bf16(p)
+// . V summed over the whole step in an accumulator of its own, 64 keys at a
+// time (s, p and pv of one 64-key half live at once: 3 consumers still fit
+// 160 registers up to hd 64), and only then acc = acc * a + pv, once a step.
+// The second S product is the price; the softmax bounds a consumer, not
+// its tensor cores. Tiles wholly past kv_len are not staged in either pass
+// (their p is exactly 0 and they hold no max); a step whose keys all lie
+// past kv_len does not exist (ceil(kv_len / 128) tiles in all).
 //
 // Backward design (the same Hopper parts): FlashAttention-2's split into
 // two kernels, so that no block sums into another's output and dqkv has the
@@ -445,7 +462,7 @@ cudaError_t launch_bwd(const void* qkv, const void* out, const float* lse, const
 }
 
 
-constexpr int kKeyTile = 128;  // the running max's step (JAX's block_k)
+constexpr int kKeyTile = 128;  // a ring stage's keys; block_k 128's step
 
 // A stage: a 128-key K tile, then its V tile. Column box j of a tile (64
 // columns) is 128 rows of 128 bytes, two 64-row boxes back to back.
@@ -510,7 +527,8 @@ struct FwdArgs {
   float scale;
 };
 
-template <int HDP>
+// KT: the running max's step (JAX's block_k), a multiple of kKeyTile.
+template <int HDP, int KT>
 __global__ void __launch_bounds__(fwd_threads<HDP>(), 1)
 blockwise_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
                      const __grid_constant__ CUtensorMap map_k,
@@ -519,6 +537,8 @@ blockwise_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
   constexpr int kB = boxes<HDP>(), kKT = key_tile_bytes<HDP>(), kSteps = HDP / 16;
   constexpr int kStages = fwd_stages<HDP>(), kQSlots = q_slots<HDP>();
   constexpr int kTile = tile_bytes<HDP>(), kConsumers = fwd_consumers<HDP>();
+  constexpr int kSub = KT / kKeyTile;  // 128-key tiles a step
+  static_assert(KT % kKeyTile == 0, "a step is whole 128-key tiles");
   extern __shared__ unsigned char smem_raw[];
   const uint32_t ring = smem_u32(aligned_smem(smem_raw));  // stage i: K, then V
   const uint32_t qbuf = ring + kStages * 2 * kKT;  // slot i: consumer 0's q, then 1's
@@ -570,19 +590,43 @@ blockwise_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
                             64 * j, a.q_head0 + w.h, (w.qb * kConsumers + c) * kRows, w.b,
                             bar);
         }
-        for (int it = 0; it < ntiles; ++it, ++n) {
-          const int halves = both_halves(it) ? 2 : 1;
-          mbar_wait(empty + 8 * stage_of(n), phase_of(n) ^ 1);  // the first round passes
-          const uint32_t bar = full + 8 * stage_of(n), k = ring + stage_of(n) * 2 * kKT;
-          mbar_expect_tx(bar, 2 * kB * halves * kBox);  // zero-filled boxes count whole
-          for (int j = 0; j < kB; ++j)
-            for (int hf = 0; hf < halves; ++hf) {
-              const int row = it * kKeyTile + hf * kRows;
-              const uint32_t off = j * 2 * kBox + hf * kBox;
-              tma_load_view(k + off, &map_k, a.ko, 64 * j, a.k_head0 + w.h, row, w.b, bar);
-              tma_load_view(k + kKT + off, &map_v, a.vo, 64 * j, a.v_head0 + w.h, row, w.b,
-                            bar);
-            }
+        if constexpr (KT == kKeyTile) {
+          for (int it = 0; it < ntiles; ++it, ++n) {
+            const int halves = both_halves(it) ? 2 : 1;
+            mbar_wait(empty + 8 * stage_of(n), phase_of(n) ^ 1);  // the first round passes
+            const uint32_t bar = full + 8 * stage_of(n), k = ring + stage_of(n) * 2 * kKT;
+            mbar_expect_tx(bar, 2 * kB * halves * kBox);  // zero-filled boxes count whole
+            for (int j = 0; j < kB; ++j)
+              for (int hf = 0; hf < halves; ++hf) {
+                const int row = it * kKeyTile + hf * kRows;
+                const uint32_t off = j * 2 * kBox + hf * kBox;
+                tma_load_view(k + off, &map_k, a.ko, 64 * j, a.k_head0 + w.h, row, w.b, bar);
+                tma_load_view(k + kKT + off, &map_v, a.vo, 64 * j, a.v_head0 + w.h, row, w.b,
+                              bar);
+              }
+          }
+        } else {
+          // Each step's tiles twice: K alone (the max pass), then K and V.
+          for (int it0 = 0; it0 < ntiles; it0 += kSub) {
+            const int nsub = min(kSub, ntiles - it0);
+            for (int pass = 0; pass < 2; ++pass)
+              for (int j = 0; j < nsub; ++j, ++n) {
+                const int it = it0 + j, halves = both_halves(it) ? 2 : 1;
+                mbar_wait(empty + 8 * stage_of(n), phase_of(n) ^ 1);  // the first round passes
+                const uint32_t bar = full + 8 * stage_of(n), k = ring + stage_of(n) * 2 * kKT;
+                mbar_expect_tx(bar, (1 + pass) * kB * halves * kBox);
+                for (int c = 0; c < kB; ++c)
+                  for (int hf = 0; hf < halves; ++hf) {
+                    const int row = it * kKeyTile + hf * kRows;
+                    const uint32_t off = c * 2 * kBox + hf * kBox;
+                    tma_load_view(k + off, &map_k, a.ko, 64 * c, a.k_head0 + w.h, row, w.b,
+                                  bar);
+                    if (pass)
+                      tma_load_view(k + kKT + off, &map_v, a.vo, 64 * c, a.v_head0 + w.h, row,
+                                    w.b, bar);
+                  }
+              }
+          }
         }
       }
     }
@@ -715,11 +759,123 @@ blockwise_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
       mbar_arrive(empty + 8 * stage_of(n));
       ++n;
     };
-    for (int it = 0; it < ntiles; ++it) {
-      if (both_halves(it))
-        tile(std::integral_constant<int, 2>(), it);
-      else
-        tile(std::integral_constant<int, 1>(), it);
+    if constexpr (KT == kKeyTile) {
+      for (int it = 0; it < ntiles; ++it) {
+        if (both_halves(it))
+          tile(std::integral_constant<int, 2>(), it);
+        else
+          tile(std::integral_constant<int, 1>(), it);
+      }
+    } else {
+      // S of 64 keys (half hf of 128-key tile it, staged at kt) for this
+      // consumer's queries, times the scale, keys at and past kv_len masked.
+      auto half_scores = [&](float (&s)[32], uint32_t kt, int it, int hf) {
+#pragma unroll
+        for (int e = 0; e < 32; ++e) s[e] = 0.f;
+        if (live) {
+          wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < kSteps; ++kk)
+            wgmma_ss(s, desc_k(qt, kk), desc_key(kt, hf, kk), kk > 0);
+          wgmma_commit();
+          wgmma_wait<0>();
+        }
+        fence_acc(s);
+#pragma unroll
+        for (int e = 0; e < 32; ++e) s[e] *= scale;
+        const int k0 = it * kKeyTile + hf * kRows;
+        if (k0 + kRows > kv_len) {
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            const int key = k0 + 8 * j + 2 * tq;
+            if (key >= kv_len) s[4 * j] = s[4 * j + 2] = kMaskValue;
+            if (key + 1 >= kv_len) s[4 * j + 1] = s[4 * j + 3] = kMaskValue;
+          }
+        }
+      };
+      for (int it0 = 0; it0 < ntiles; it0 += kSub) {
+        const int nsub = min(kSub, ntiles - it0);
+        // The first pass: the step's row max.
+        float mc0 = -INFINITY, mc1 = -INFINITY;
+        for (int j = 0; j < nsub; ++j, ++n) {
+          const int it = it0 + j, halves = both_halves(it) ? 2 : 1;
+          const uint32_t kt = ring + stage_of(n) * 2 * kKT;
+          mbar_wait(full + 8 * stage_of(n), phase_of(n));
+          for (int hf = 0; hf < halves; ++hf) {
+            float s[32];
+            half_scores(s, kt, it, hf);
+#pragma unroll
+            for (int e = 0; e < 8; ++e) {
+              mc0 = fmaxf(mc0, fmaxf(s[4 * e], s[4 * e + 1]));
+              mc1 = fmaxf(mc1, fmaxf(s[4 * e + 2], s[4 * e + 3]));
+            }
+          }
+          mbar_arrive(empty + 8 * stage_of(n));
+        }
+        quad_max(mc0);
+        quad_max(mc1);
+        const float mn0 = fmaxf(m0, mc0), mn1 = fmaxf(m1, mc1);
+        const float a0 = expf(m0 - mn0), a1 = expf(m1 - mn1);  // 0 on the first step
+        // The second pass: p against the step's max, the row sums, and the
+        // step's bf16(p) . V in an accumulator of its own.
+        float ls0 = 0.f, ls1 = 0.f;
+        float pv[kB][32] = {};
+        for (int j = 0; j < nsub; ++j, ++n) {
+          const int it = it0 + j, halves = both_halves(it) ? 2 : 1;
+          const uint32_t kt = ring + stage_of(n) * 2 * kKT, vt = kt + kKT;
+          mbar_wait(full + 8 * stage_of(n), phase_of(n));
+          for (int hf = 0; hf < halves; ++hf) {
+            float s[32];
+            half_scores(s, kt, it, hf);
+            if (it == ntiles - 1 && hf == halves - 1)
+              mbar_arrive(q_empty + 8 * qslot_of(i));  // q read for good
+#pragma unroll
+            for (int e = 0; e < 8; ++e) {
+              s[4 * e] = expf(s[4 * e] - mn0);
+              s[4 * e + 1] = expf(s[4 * e + 1] - mn0);
+              s[4 * e + 2] = expf(s[4 * e + 2] - mn1);
+              s[4 * e + 3] = expf(s[4 * e + 3] - mn1);
+            }
+            float r0, r1;
+            row_sums(s, r0, r1);
+            ls0 += r0;
+            ls1 += r1;
+            uint32_t pa[4][4];
+#pragma unroll
+            for (int kk = 0; kk < 4; ++kk) to_a(pa[kk], s, kk);
+            if (live) {
+              wgmma_fence();
+#pragma unroll
+              for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+                for (int c = 0; c < kB; ++c)
+                  wgmma_rs<1>(pv[c], pa[kk], desc_val(vt, c, 4 * hf + kk), 1);
+              wgmma_commit();
+              wgmma_wait<0>();
+            }
+#pragma unroll
+            for (int c = 0; c < kB; ++c) fence_acc(pv[c]);
+#pragma unroll
+            for (int kk = 0; kk < 4; ++kk) fence_frag(pa[kk]);
+          }
+          mbar_arrive(empty + 8 * stage_of(n));
+        }
+        quad_sum(ls0);
+        quad_sum(ls1);
+        l0 = a0 * l0 + ls0;
+        l1 = a1 * l1 + ls1;
+        m0 = mn0;
+        m1 = mn1;
+#pragma unroll
+        for (int c = 0; c < kB; ++c)
+#pragma unroll
+          for (int d = 0; d < 8; ++d) {
+            o[c][4 * d] = o[c][4 * d] * a0 + pv[c][4 * d];
+            o[c][4 * d + 1] = o[c][4 * d + 1] * a0 + pv[c][4 * d + 1];
+            o[c][4 * d + 2] = o[c][4 * d + 2] * a1 + pv[c][4 * d + 2];
+            o[c][4 * d + 3] = o[c][4 * d + 3] * a1 + pv[c][4 * d + 3];
+          }
+      }
     }
     if (!live) continue;
     const float inv0 = l0 == 0.f ? 1.f : 1.f / l0, inv1 = l1 == 0.f ? 1.f : 1.f / l1;
@@ -734,7 +890,7 @@ blockwise_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
   }
 }
 
-template <int HDP>
+template <int HDP, int KT>
 cudaError_t launch_fwd(const CUtensorMap& map_q, const CUtensorMap& map_k,
                        const CUtensorMap& map_v, FwdArgs args, int B, cudaStream_t stream) {
   const int sms = sm_count();
@@ -744,17 +900,17 @@ cudaError_t launch_fwd(const CUtensorMap& map_q, const CUtensorMap& map_k,
       static_cast<long long>((args.T + kQ - 1) / kQ) * args.num_heads * B;
   if (units > INT_MAX || args.os.row > INT_MAX) return cudaErrorInvalidValue;
   args.units = static_cast<int>(units);
-  const cudaError_t err = allow_dynamic_smem(blockwise_fwd_kernel<HDP>, smem);
+  const cudaError_t err = allow_dynamic_smem(blockwise_fwd_kernel<HDP, KT>, smem);
   if (err != cudaSuccess) return err;
   const int grid = static_cast<int>(units < sms ? units : sms);  // persistent
-  blockwise_fwd_kernel<HDP><<<grid, fwd_threads<HDP>(), smem, stream>>>(map_q, map_k, map_v,
-                                                                       args);
+  blockwise_fwd_kernel<HDP, KT><<<grid, fwd_threads<HDP>(), smem, stream>>>(map_q, map_k,
+                                                                           map_v, args);
   return cudaGetLastError();
 }
 
 // The slabs of qkv [B, T, 3D]: one map of 3H heads, q, K and V at head
 // coordinates h, H + h and 2H + h; out [B, T, D].
-template <int HDP>
+template <int HDP, int KT>
 cudaError_t launch_slabs(const void* qkv, void* out, float* lse, int B, int T, int kv_len,
                          int num_heads, int hd, float scale, cudaStream_t stream) {
   EncodeTiledFn encode = encode_tiled();
@@ -767,11 +923,11 @@ cudaError_t launch_slabs(const void* qkv, void* out, float* lse, int B, int T, i
                        3 * D))
     return cudaErrorInvalidValue;
   args.ko = args.vo = args.qo;
-  return launch_fwd<HDP>(map, map, map, args, B, stream);
+  return launch_fwd<HDP, KT>(map, map, map, args, B, stream);
 }
 
 // Split heads: q, k, v and out as [B, H, T, hd] views (12 element strides).
-template <int HDP>
+template <int HDP, int KT>
 cudaError_t launch_views(const void* q, const void* k, const void* v, void* out, float* lse,
                          const long long* st, int B, int T, int num_heads, int hd,
                          float scale, cudaStream_t stream) {
@@ -784,7 +940,20 @@ cudaError_t launch_views(const void* q, const void* k, const void* v, void* out,
       !encode_view_map(&map_k, &args.ko, encode, k, hd, B, num_heads, T, st[3], st[4], st[5]) ||
       !encode_view_map(&map_v, &args.vo, encode, v, hd, B, num_heads, T, st[6], st[7], st[8]))
     return cudaErrorInvalidValue;
-  return launch_fwd<HDP>(map_q, map_k, map_v, args, B, stream);
+  return launch_fwd<HDP, KT>(map_q, map_k, map_v, args, B, stream);
+}
+
+// The forward's geometry at head dim HDP (the same for every key tile):
+// what 0 its dynamic shared memory, 1 the queries of a unit, 2 its ring's
+// stages (the card tests hold ops/attention.py's copies against these).
+template <int HDP>
+int fwd_geometry(int what) {
+  switch (what) {
+    case 0: return fwd_smem_bytes<HDP>();
+    case 1: return fwd_consumers<HDP>() * kRows;
+    case 2: return fwd_stages<HDP>();
+    default: return -1;
+  }
 }
 }  // namespace flash90
 }  // namespace vit
@@ -802,37 +971,79 @@ cudaError_t launch_views(const void* q, const void* k, const void* v, void* out,
     default: return cudaErrorInvalidValue;                                 \
   }
 
+// The forward's instances: each head dim (rounded up to 16) at key tile KT.
+#define VIT_FLASH_DISPATCH_KT(launch, KT, ...)                             \
+  switch ((head_dim + 15) / 16 * 16) {                                     \
+    case 16: return launch<16, KT>(__VA_ARGS__);                           \
+    case 32: return launch<32, KT>(__VA_ARGS__);                           \
+    case 48: return launch<48, KT>(__VA_ARGS__);                           \
+    case 64: return launch<64, KT>(__VA_ARGS__);                           \
+    case 80: return launch<80, KT>(__VA_ARGS__);                           \
+    case 96: return launch<96, KT>(__VA_ARGS__);                           \
+    case 112: return launch<112, KT>(__VA_ARGS__);                         \
+    case 128: return launch<128, KT>(__VA_ARGS__);                         \
+    default: return cudaErrorInvalidValue;                                 \
+  }
+// ... and at key tile block_k, 128, 256 or 512; any other is refused.
+#define VIT_FLASH_DISPATCH_FWD(launch, ...)                                \
+  switch (block_k) {                                                       \
+    case 128: VIT_FLASH_DISPATCH_KT(launch, 128, __VA_ARGS__)              \
+    case 256: VIT_FLASH_DISPATCH_KT(launch, 256, __VA_ARGS__)              \
+    case 512: VIT_FLASH_DISPATCH_KT(launch, 512, __VA_ARGS__)              \
+    default: return cudaErrorInvalidValue;                                 \
+  }
+
 // qkv [B, T, 3D] bf16 -> out [B, T, D] bf16 and, unless lse is null, lse
 // [B, num_heads, T] fp32; keys at and past kv_len (1 <= kv_len <= T) are
 // masked (a caller whose token axis is already padded: JAX's
-// _blockwise_fwd_flat(seq_len=)). head_dim must be a multiple of 8 up to 128
-// (ops/attention.py checks it before calling); any T.
+// _blockwise_fwd_flat(seq_len=)); block_k (128, 256 or 512) is the running
+// max's step. head_dim must be a multiple of 8 up to 128 (ops/attention.py
+// checks it before calling); any T.
 VIT_EXPORT int vit_flash_attention_fwd(const void* qkv, void* out, float* lse, int B,
                                        int T, int kv_len, int num_heads, int head_dim,
-                                       float scale, void* stream) {
+                                       int block_k, float scale, void* stream) {
   using namespace vit::flash90;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (B <= 0 || T <= 0 || kv_len <= 0 || kv_len > T || num_heads <= 0 ||
       head_dim % 8 != 0 || head_dim > 128)
     return cudaErrorInvalidValue;
-  VIT_FLASH_DISPATCH(launch_slabs, qkv, out, lse, B, T, kv_len, num_heads, head_dim, scale, s)
+  VIT_FLASH_DISPATCH_FWD(launch_slabs, qkv, out, lse, B, T, kv_len, num_heads, head_dim,
+                         scale, s)
 }
 
 // The same kernel on split heads: q, k, v and out are [B, num_heads, T,
 // head_dim] views given by base pointers and `strides` (12 element strides:
 // image, head and row of q, k, v and out in turn; the last axis contiguous,
-// rows 16-byte aligned), all bf16; lse as above or null.
+// rows 16-byte aligned), all bf16; lse and block_k as above.
 VIT_EXPORT int vit_flash_attention_fwd_strided(const void* q, const void* k,
                                                const void* v, void* out, float* lse,
                                                const long long* strides, int B, int T,
-                                               int num_heads, int head_dim, float scale,
-                                               void* stream) {
+                                               int num_heads, int head_dim, int block_k,
+                                               float scale, void* stream) {
   using namespace vit::flash90;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (B <= 0 || T <= 0 || num_heads <= 0 || head_dim % 8 != 0 || head_dim > 128)
     return cudaErrorInvalidValue;
-  VIT_FLASH_DISPATCH(launch_views, q, k, v, out, lse, strides, B, T, num_heads, head_dim,
-                     scale, s)
+  VIT_FLASH_DISPATCH_FWD(launch_views, q, k, v, out, lse, strides, B, T, num_heads,
+                         head_dim, scale, s)
+}
+
+// The forward's geometry (vit::flash90::fwd_geometry) at head_dim and
+// block_k; -1 for a head dim or key tile that has no instance.
+VIT_EXPORT int vit_flash_fwd_geometry(int head_dim, int block_k, int what) {
+  if (head_dim <= 0 || head_dim % 8 != 0 || head_dim > 128 ||
+      (block_k != 128 && block_k != 256 && block_k != 512))
+    return -1;
+  switch ((head_dim + 15) / 16 * 16) {
+    case 16: return vit::flash90::fwd_geometry<16>(what);
+    case 32: return vit::flash90::fwd_geometry<32>(what);
+    case 48: return vit::flash90::fwd_geometry<48>(what);
+    case 64: return vit::flash90::fwd_geometry<64>(what);
+    case 80: return vit::flash90::fwd_geometry<80>(what);
+    case 96: return vit::flash90::fwd_geometry<96>(what);
+    case 112: return vit::flash90::fwd_geometry<112>(what);
+    default: return vit::flash90::fwd_geometry<128>(what);
+  }
 }
 
 // qkv [B, T, 3D], the forward's out [B, T, D] and lse [B, num_heads, T],

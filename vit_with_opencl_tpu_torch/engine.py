@@ -22,7 +22,7 @@ from .config import ViTConfig
 from .debug import checked_forward
 from .io.preprocess import uint8_normalize_constants
 from .models import quant, vit
-from .ops import fused_block
+from .ops import attention, fused_block
 
 
 def resolve_device(device: Optional[torch.device | str]) -> torch.device:
@@ -78,8 +78,14 @@ class InferenceEngine:
       check_numerics: every forward counts its non-finite outputs on the
         device and raises ``FloatingPointError`` if there are any
         (``debug.checked_forward``; one scalar read back a batch).
-      tuning_path: the autotune cache; not ported, so anything but None
-        raises ``NotImplementedError``.
+      tuning_path: the autotune cache (``perf/autotune``; default its
+        ``default_tuning_path()``): the entry of (config, batch,
+        compute_dtype, quantize) recorded on this device, if any, is
+        ``self.tuning`` and binds the kernel table
+        (``vit.resolve_kernels(tuning=)``: the blockwise route's key tile
+        past padded T = 1024), as the JAX engine's. On the card an entry
+        whose ``blockwise_block_k`` has no kernel instance raises
+        ``NotImplementedError``.
     """
 
     def __init__(
@@ -98,9 +104,6 @@ class InferenceEngine:
         check_numerics: bool = False,
         tuning_path: Optional[str] = None,
     ):
-        if tuning_path is not None:
-            raise NotImplementedError(
-                "the autotune cache (tuning_path) is not ported yet")
         quantize = resolve_quantize(quantize, config,
                                     calibrated=calibrate is not None)
         if quantize not in (None, "int8", "int8-w8a8"):
@@ -132,8 +135,17 @@ class InferenceEngine:
             # device now, none in a forward.
             params = quant.w8a8_layout(params)
         self.params = params
+        # Device-measured launch knobs (the perf/autotune cache, keyed on
+        # config, batch and dtype) bind the kernel table.
+        from .perf import autotune
+
+        self.tuning = autotune.lookup(config, self._tuning_batch(), compute_dtype,
+                                      path=tuning_path, quant=quantize,
+                                      device=self.device)
+        if self.device.type == "cuda" and self.tuning.get("blockwise_block_k"):
+            attention.require_block_k(vit.tuned_blocks(self.tuning)[1])
         self.kernels = vit.resolve_kernels(
-            attention_impl, w8a8=quantize == "int8-w8a8",
+            attention_impl, tuning=self.tuning, w8a8=quantize == "int8-w8a8",
             heads=(config.num_heads, config.head_dim))
         self._mean, self._inv_std = uint8_normalize_constants(self.device)
         if check_numerics:
@@ -142,6 +154,10 @@ class InferenceEngine:
             self.forward = checked_forward(self.forward,
                                            what=f"{config.name} forward")
         self.setup_time = time.perf_counter() - t0
+
+    def _tuning_batch(self) -> int:
+        """The batch whose tuning entry this engine reads: one forward's."""
+        return self.batch_size
 
     @torch.inference_mode()
     def forward(self, images: torch.Tensor) -> torch.Tensor:
@@ -212,8 +228,8 @@ class DataParallelEngine(InferenceEngine):
     count. ``devices`` defaults to every CUDA device (it raises without
     one); ``["cpu"] * 8`` runs the plain versions on the CPU. A device may
     repeat: ``["cuda:0"] * 4`` is a virtual mesh of one card.
-    ``tuning_path`` (the autotune cache) is not ported and raises, as in
-    ``InferenceEngine``."""
+    ``tuning_path``: as ``InferenceEngine``'s, read for the batch of one
+    device (``batch_size`` over the device count), as JAX's."""
 
     def __init__(
         self,
@@ -251,6 +267,9 @@ class DataParallelEngine(InferenceEngine):
             config, self.mesh, compute_dtype=compute_dtype,
             kernels=self.kernels, preprocess=self._preprocess)
         self.setup_time = time.perf_counter() - t0
+
+    def _tuning_batch(self) -> int:
+        return self.batch_size // self.n_devices
 
     @torch.inference_mode()
     def forward(self, images: torch.Tensor) -> torch.Tensor:

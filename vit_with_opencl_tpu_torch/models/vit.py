@@ -415,7 +415,40 @@ def _default_kernels() -> Dict[str, Any]:
     }
 
 
-def resolve_kernels(attention_impl: str = "xla", w8a8: bool = False,
+# JAX's autotune knobs that describe the TPU's grid: images per grid cell
+# and the ragged or padded block route. The Hopper kernels run on a
+# persistent grid and have neither.
+GRID_KNOBS = ("attention_ipc", "attention_bwd_ipc", "attention_ragged",
+              "fused_block_ipc", "fused_stack_ipc")
+
+
+def refuse_grid_knobs(tuning: Optional[Dict[str, Any]], where: str) -> None:
+    """Raise ``ValueError`` naming any of JAX's grid knobs in ``tuning``."""
+    given = sorted(k for k in GRID_KNOBS if (tuning or {}).get(k) is not None)
+    if given:
+        raise ValueError(
+            f"{where}: tuning knobs {given} describe the TPU's grid (images "
+            f"per grid cell, the ragged or padded route); the Hopper kernels "
+            f"run on a persistent grid with no images per cell and no ragged "
+            f"route, so these knobs have no meaning here")
+
+
+def tuned_blocks(tuning: Optional[Dict[str, Any]]) -> tuple:
+    """(block_q, block_k) of the blockwise route from the autotune knobs
+    ``blockwise_block_q``/``blockwise_block_k`` (JAX's defaults where one is
+    absent); positive sizes, else ``ValueError``."""
+    tuning = tuning or {}
+    bq = int(tuning.get("blockwise_block_q") or attention_ops.DEFAULT_BLOCK_Q)
+    bk = int(tuning.get("blockwise_block_k") or attention_ops.FLASH_BLOCK_K)
+    if bq < 1 or bk < 1:
+        raise ValueError(f"blockwise_block_q {bq} and blockwise_block_k {bk} "
+                         f"must be >= 1")
+    return bq, bk
+
+
+def resolve_kernels(attention_impl: str = "xla",
+                    tuning: Optional[Dict[str, Any]] = None,
+                    w8a8: bool = False,
                     heads: Optional[tuple] = None) -> Dict[str, Any]:
     """Kernel table for the forward pass.
 
@@ -429,17 +462,32 @@ def resolve_kernels(attention_impl: str = "xla", w8a8: bool = False,
         layer, as ``encoder`` routes) for every config
         ``fused_block.supports``.
 
+    ``tuning``: knobs from the autotune cache (``perf/autotune.lookup``), as
+    JAX's: ``blockwise_block_q``/``blockwise_block_k`` bind the
+    ``attention_packed`` slot's blockwise route past padded T = 1024, and
+    ``encoder`` passes ``blockwise_block_k`` to the chains' attention link.
+    JAX's grid knobs (``GRID_KNOBS``) raise ``ValueError`` by name;
+    bookkeeping keys (``device``, ``timestamp``, ``*_table_ms``,
+    ``fallback_from``) and any other key are ignored, as in JAX.
+
     ``w8a8``: per-token dynamic int8 activations into the encoder's four
     GEMMs (``quant.matmul_w8a8`` on the per-op path, the W8A8 chain on the
     fused one). It needs int8 weight dicts; fp weights run as before. The
     embedding, head and attention core stay in the activation dtype.
     ``heads`` is passed on to ``matmul_w8a8``.
     """
+    refuse_grid_knobs(tuning, "resolve_kernels")
     kernels = _default_kernels()
     if attention_impl in ("flash", "fused_block"):
         kernels["attention"] = attention_ops.flash_attention
         kernels["attention_packed"] = attention_ops.packed_fused_attention
         kernels["_fused_block_if_supported"] = True
+        if tuning and (tuning.get("blockwise_block_q")
+                       or tuning.get("blockwise_block_k")):
+            bq, bk = tuned_blocks(tuning)
+            kernels["attention_packed"] = functools.partial(
+                attention_ops.packed_fused_attention, block_q=bq, block_k=bk)
+            kernels["blockwise_block_k"] = bk
     elif attention_impl != "xla":
         raise ValueError(f"unknown attention_impl {attention_impl!r}")
     if w8a8:
@@ -520,7 +568,8 @@ def encoder(x: torch.Tensor, params: Params, config: ViTConfig,
     ``fused_block.supports`` the config; the whole stack when not W8A8 and
     ``fused_block.supports_stack`` (small configs: ViT-Ti and ViT-S, in
     bf16 or int8 weights); the per-layer chain when ``supports``; else the
-    per-op path."""
+    per-op path. The chains' attention link takes
+    ``kernels["blockwise_block_k"]`` (the tuned key tile) where it is set."""
     qkv_w = params["layers"]["qkv_w"]
     quantized = quant.is_quantized(qkv_w)
     block: Optional[Callable] = None if quantized else kernels.get("encoder_block")
@@ -528,14 +577,19 @@ def encoder(x: torch.Tensor, params: Params, config: ViTConfig,
         wbytes = 1 if quantized else qkv_w.element_size()
         w8a8 = bool(kernels.get("w8a8")) and quantized
         gs = kernels.get("fused_group_size")
+        # The tuned key tile, passed only where a tuning set it.
+        tile = ({"block_k": kernels["blockwise_block_k"]}
+                if "blockwise_block_k" in kernels else {})
         if (gs and gs > 1 and config.depth % gs == 0
                 and fused_block.supports(config, dtype_bytes=wbytes)):
             return fused_block.fused_encoder_group(
-                x, params["layers"], config, group_size=gs, w8a8=w8a8)
+                x, params["layers"], config, group_size=gs, w8a8=w8a8, **tile)
         if not w8a8 and fused_block.supports_stack(config, dtype_bytes=wbytes):
-            return fused_block.fused_encoder_stack(x, params["layers"], config)
+            return fused_block.fused_encoder_stack(x, params["layers"], config,
+                                                   **tile)
         if fused_block.supports(config, dtype_bytes=wbytes):
-            block = functools.partial(fused_block.fused_encoder_layer, w8a8=w8a8)
+            block = functools.partial(fused_block.fused_encoder_layer, w8a8=w8a8,
+                                      **tile)
     for lp in _layer_list(params)[:config.depth]:
         if block is not None:
             x = block(x, lp, config)

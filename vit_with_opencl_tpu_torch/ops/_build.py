@@ -83,13 +83,15 @@ SIGNATURES = {
     # qkv, dout, dqkv, dqkv_dtype, stats, B, T, num_heads, head_dim,
     # q_scale, ds_scale, stream
     "vit_packed_attention_bwd": [_P, _P, _P, _I, _P, _I, _I, _I, _I, _F, _F, _P],
-    # qkv, out, lse (or NULL), B, T, kv_len, num_heads, head_dim, scale,
-    # stream
-    "vit_flash_attention_fwd": [_P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
-    # q, k, v, out, lse (or NULL), strides (12), B, T, num_heads, head_dim,
+    # qkv, out, lse (or NULL), B, T, kv_len, num_heads, head_dim, block_k,
     # scale, stream
+    "vit_flash_attention_fwd": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P],
+    # q, k, v, out, lse (or NULL), strides (12), B, T, num_heads, head_dim,
+    # block_k, scale, stream
     "vit_flash_attention_fwd_strided": [_P, _P, _P, _P, _P, _LL, _I, _I, _I,
-                                        _I, _F, _P],
+                                        _I, _I, _F, _P],
+    # head_dim, block_k, what (0, 1, 2) -> bytes, queries or stages
+    "vit_flash_fwd_geometry": [_I, _I, _I],
     # q, k, v, out, dtype, strides (12), B, num_heads, T, kv_len, head_dim,
     # scale, stream
     "vit_single_pass_attention": [_P, _P, _P, _P, _I, _LL, _I, _I, _I, _I, _I,

@@ -15,7 +15,10 @@ takes the JAX package's blockwise route instead, as JAX's does:
 ``blockwise_attention_fwd`` replaces ``_flash_kernel`` and
 ``_flash_kernel_lse`` (``_blockwise_fwd_flat``) with one kernel of
 ``csrc/attention_flash.cu`` that streams 128-key tiles through an online
-softmax and optionally writes each row's log-sum-exp; its plain version is
+softmax whose running max moves once every ``block_k`` keys (JAX's key
+tile, part of the function: an instance each for 128, its default, and
+256 and 512, the key tiles of its autotune sweep), and optionally writes
+each row's log-sum-exp; its plain version is
 ``blockwise_attention_fwd_reference``. ``packed_fused_attention_reference``
 routes the same way, so the chains' plain links compare like with like.
 
@@ -55,8 +58,8 @@ its plain version is ``blockwise_ring_step_reference``.
 Every wrapper launches a kernel for a CUDA tensor and computes its plain
 version for a CPU tensor; there is no other fallback. Not ported yet: fp32
 inputs on the card other than the single-pass kernel's and the ring
-step's, and a blockwise key tile other than 128 on the card; those raise
-``NotImplementedError``.
+step's, and a blockwise key tile other than 128, 256 and 512 on the card;
+those raise ``NotImplementedError``.
 
 The backward, ``packed_attention_bwd``, replaces ``_packed_bwd_kernel``
 with the two kernels of ``csrc/attention_bwd.cu`` (plain version
@@ -105,6 +108,8 @@ from . import _build, substitutions
 # kernels); the single-pass forward (split heads or slabs); the blockwise
 # forward on the slabs without and with the log-sum-exp, on split heads, and
 # the blockwise backward (one per call: its two kernels); the ring step.
+# And the blockwise forward's launches by key tile (its three forms
+# together), so that a run shows which instance it ran.
 LAUNCHES = 0
 LAUNCHES_BWD = 0
 LAUNCHES_SINGLE = 0
@@ -113,6 +118,9 @@ LAUNCHES_FLASH_LSE = 0
 LAUNCHES_FLASH_SPLIT = 0
 LAUNCHES_FLASH_BWD = 0
 LAUNCHES_RING = 0
+LAUNCHES_FLASH_K128 = 0
+LAUNCHES_FLASH_K256 = 0
+LAUNCHES_FLASH_K512 = 0
 
 # Hopper's largest dynamic shared memory for one block.
 MAX_SMEM_BYTES = 227 * 1024
@@ -123,6 +131,9 @@ SINGLE_PASS_MAX_T = 1024
 # tile decides where p is rounded (JAX's DEFAULT_BLOCK_K).
 FLASH_BLOCK_K = 128
 DEFAULT_BLOCK_Q = 128
+# The key tiles the blockwise forward kernel is built for: JAX's default and
+# the block_k of its sweep's candidates (perf/autotune.py).
+FLASH_BLOCK_KS = (128, 256, 512)
 # Masked scores (keys past T): -inf would give NaN on a fully masked row
 # (attention.py:43).
 MASK_VALUE = -0.7 * float(np.finfo(np.float32).max)
@@ -199,16 +210,21 @@ def _packed_checks(t: int, packing: str, true_seq_len: Optional[int]) -> int:
 
 def packed_fused_attention_reference(qkv: torch.Tensor, num_heads: int,
                                      head_dim: int, *, packing: str = "slab",
-                                     true_seq_len: Optional[int] = None
+                                     true_seq_len: Optional[int] = None,
+                                     block_q: int = DEFAULT_BLOCK_Q,
+                                     block_k: int = FLASH_BLOCK_K
                                      ) -> torch.Tensor:
     """Plain version: packed [B, T, 3D] → head-major [B, T, D], keys at and
     past ``true_seq_len`` masked. Long sequences take the blockwise route
-    (slab packing only), as the kernel wrapper does."""
+    (slab packing only) at ``block_q``/``block_k``, as the kernel wrapper
+    does."""
     b, t, _ = qkv.shape
     seq = _packed_checks(t, packing, true_seq_len)
+    _check_blocks(block_q, block_k)
     if _is_long_seq(t):
         return blockwise_attention_fwd_reference(qkv, num_heads, head_dim,
-                                                 kv_len=seq)[0]
+                                                 kv_len=seq, block_q=block_q,
+                                                 block_k=block_k)[0]
     q, k, v = _packed_heads(qkv, num_heads, head_dim, packing)
     o = _head_attention(q, k, v, float(1.0 / np.sqrt(head_dim)),
                         None if seq == t else seq)
@@ -256,13 +272,23 @@ def packed_kernel_smem_bytes(head_dim: int) -> int:
     return _ALIGN_BYTES + slots * 2 * _tile_bytes(head_dim) + 2 * slots * 8
 
 
-def blockwise_kernel_smem_bytes(head_dim: int) -> int:
+def blockwise_kernel_geometry(head_dim: int) -> tuple:
+    """(ring stages, q slots, consumer warpgroups of 64 queries) of one
+    block of the blockwise forward, at every key tile it is built for."""
+    return (5, 2, 3) if head_dim <= 64 else (3, 1, 2)
+
+
+def blockwise_kernel_smem_bytes(head_dim: int,
+                                block_k: int = FLASH_BLOCK_K) -> int:
     """Shared memory of one block of the blockwise forward
     (csrc/attention_flash.cu ``fwd_smem_bytes``): a ring of 128-key K/V tile
     pairs (5 up to hd 64, 3 past it), the consumers' q tiles (three
     consumers and two units' tiles up to hd 64, two consumers and one unit's
-    past it) and their barriers, at any T."""
-    stages, q_slots, consumers = (5, 2, 3) if head_dim <= 64 else (3, 1, 2)
+    past it) and their barriers, at any T. The same at every key tile the
+    kernel is built for: a step of 256 or 512 keys takes its 128-key tiles
+    through the same ring twice."""
+    require_block_k(block_k)
+    stages, q_slots, consumers = blockwise_kernel_geometry(head_dim)
     return (_ALIGN_BYTES + stages * 2 * 2 * _tile_bytes(head_dim)
             + q_slots * consumers * _tile_bytes(head_dim)
             + 2 * (stages + q_slots) * 8)
@@ -345,13 +371,18 @@ def packed_fused_attention(
     head_dim: Optional[int] = None,
     packing: str = "slab",
     true_seq_len: Optional[int] = None,
+    block_q: int = DEFAULT_BLOCK_Q,
+    block_k: int = FLASH_BLOCK_K,
 ) -> torch.Tensor:
     """Fused attention over packed QKV: [B, T, 3D] → [B, T, D].
 
     ``packing``: "slab" (q|k|v slabs of D) or "per_head" (head-major
     q|k|v triples, the TP layout). ``true_seq_len``: keys at and past it
     are masked (the token axis is already padded); padded query rows get
-    values in their own rows only."""
+    values in their own rows only. ``block_q``/``block_k``: JAX's tiles of
+    the blockwise route past padded T = 1024 (``blockwise_attention_fwd``;
+    ``block_k`` is part of the function there, ``block_q`` moves nothing),
+    unused below it, as in JAX."""
     global LAUNCHES
     b, t, three_d = qkv.shape
     nh = num_heads if num_heads is not None else config.num_heads
@@ -360,12 +391,15 @@ def packed_fused_attention(
     if three_d != 3 * d:
         raise ValueError(f"qkv last dim {three_d} != 3 * {d}")
     seq = _packed_checks(t, packing, true_seq_len)
+    _check_blocks(block_q, block_k)
     if not qkv.is_cuda:
         return packed_fused_attention_reference(qkv, nh, hd, packing=packing,
-                                                true_seq_len=true_seq_len)
+                                                true_seq_len=true_seq_len,
+                                                block_q=block_q, block_k=block_k)
     route = _packed_route(t, packing, seq, qkv.dtype)
     if route == "blockwise":
-        return blockwise_attention_fwd(qkv, nh, hd, kv_len=seq)[0]
+        return blockwise_attention_fwd(qkv, nh, hd, kv_len=seq,
+                                       block_q=block_q, block_k=block_k)[0]
     const = substitutions.SOFTMAX_IDENTITY
     if const and route != "packed":
         substitutions.refuse(f"packed_fused_attention ({route} route: per-head "
@@ -422,21 +456,47 @@ def _flash_scale(head_dim: int) -> float:
     return float(np.float32(1.0 / np.sqrt(head_dim)))
 
 
+def _check_blocks(block_q: int, block_k: int) -> None:
+    """JAX's tiles of the blockwise route must be positive (it pads T to a
+    multiple of both)."""
+    if int(block_q) < 1 or int(block_k) < 1:
+        raise ValueError(f"block_q {block_q} and block_k {block_k} must be >= 1")
+
+
+def require_block_k(block_k: int) -> None:
+    """Raise ``NotImplementedError`` for a key tile that the blockwise
+    forward kernel has no instance for: the tile is part of the function,
+    so no other runs in its place."""
+    if block_k not in FLASH_BLOCK_KS:
+        raise NotImplementedError(
+            f"block_k {block_k}: the blockwise forward kernel is built for key "
+            f"tiles {FLASH_BLOCK_KS} only, and the tile decides where p is "
+            f"rounded")
+
+
+def _count_block_k(block_k: int) -> None:
+    globals()[f"LAUNCHES_FLASH_K{block_k}"] += 1
+
+
 def blockwise_attention_fwd_reference(qkv: torch.Tensor, num_heads: int,
                                       head_dim: int, *, return_lse: bool = False,
-                                      kv_len: Optional[int] = None):
+                                      kv_len: Optional[int] = None,
+                                      block_q: int = DEFAULT_BLOCK_Q,
+                                      block_k: int = FLASH_BLOCK_K):
     """Plain version of ``blockwise_attention_fwd`` with ``_flash_kernel``'s
     arithmetic: fp32 scores times the fp32 scale, keys at and past
     ``kv_len`` (default T) masked to MASK_VALUE, and a walk over key tiles
-    of FLASH_BLOCK_K in order with
+    of ``block_k`` (any positive size) in order with
     the running max moved once a tile: ``p = exp(s − m_next)`` (rounded to
     v's dtype for the PV product, fp32 in the row sum), ``acc = acc·α + pv``.
-    Returns (out [B, T, D] in qkv's dtype, acc · (1/l) with l == 0 → 1;
-    lse [B, H, T] fp32, m + log(l), or None)."""
+    ``block_q`` moves no result (JAX pads T to a multiple of it; padded
+    query rows are dropped). Returns (out [B, T, D] in qkv's dtype, acc ·
+    (1/l) with l == 0 → 1; lse [B, H, T] fp32, m + log(l), or None)."""
+    _check_blocks(block_q, block_k)
     b, t, _ = qkv.shape
     q, k, v = _split_heads(qkv, 3, num_heads, head_dim)
     out, lse = _blockwise_heads_reference(q, k, v, _flash_scale(head_dim),
-                                          FLASH_BLOCK_K, return_lse, kv_len)
+                                          block_k, return_lse, kv_len)
     out = out.permute(0, 2, 1, 3).reshape(b, t, num_heads * head_dim)
     return out.to(qkv.dtype), lse
 
@@ -479,12 +539,18 @@ def _blockwise_heads_reference(q: torch.Tensor, k: torch.Tensor,
 
 def blockwise_attention_fwd(qkv: torch.Tensor, num_heads: int, head_dim: int,
                             *, return_lse: bool = False,
-                            kv_len: Optional[int] = None):
+                            kv_len: Optional[int] = None,
+                            block_q: int = DEFAULT_BLOCK_Q,
+                            block_k: int = FLASH_BLOCK_K):
     """Blockwise attention over packed [B, T, 3D] at any T: (out [B, T, D]
     in qkv's dtype, lse [B, H, T] fp32 or None). The kernel reads q, k and
     v straight from the slabs (rows past T as zeros) and writes the
     head-major context, with or without each row's log-sum-exp; keys at and
-    past ``kv_len`` (default T) are masked."""
+    past ``kv_len`` (default T) are masked. ``block_k``, JAX's key tile, is
+    the running max's step and part of the function: the kernel has an
+    instance for each of ``FLASH_BLOCK_KS`` and raises
+    ``NotImplementedError`` for any other. ``block_q`` is range-checked and
+    moves no result, on the card or in JAX (it only sets JAX's padding)."""
     global LAUNCHES_FLASH, LAUNCHES_FLASH_LSE
     b, t, three_d = qkv.shape
     d = num_heads * head_dim
@@ -493,10 +559,13 @@ def blockwise_attention_fwd(qkv: torch.Tensor, num_heads: int, head_dim: int,
         raise ValueError(f"qkv last dim {three_d} != 3 * {d}")
     if t and not 1 <= kv_len <= t:
         raise ValueError(f"kv_len {kv_len} outside [1, {t}]")
+    _check_blocks(block_q, block_k)
     if not qkv.is_cuda:
         return blockwise_attention_fwd_reference(qkv, num_heads, head_dim,
                                                  return_lse=return_lse,
-                                                 kv_len=kv_len)
+                                                 kv_len=kv_len, block_q=block_q,
+                                                 block_k=block_k)
+    require_block_k(block_k)
     if qkv.dtype != torch.bfloat16:
         raise NotImplementedError(
             f"the CUDA blockwise attention kernel takes bf16 qkv, got {qkv.dtype}")
@@ -513,12 +582,13 @@ def blockwise_attention_fwd(qkv: torch.Tensor, num_heads: int, head_dim: int,
         return out, lse
     err = _build.launch("vit_flash_attention_fwd", qkv,
         qkv.data_ptr(), out.data_ptr(), lse.data_ptr() if return_lse else None,
-        b, t, kv_len, num_heads, head_dim, _flash_scale(head_dim))
+        b, t, kv_len, num_heads, head_dim, int(block_k), _flash_scale(head_dim))
     _build.check_launch(err, "blockwise_attention_fwd")
     if return_lse:
         LAUNCHES_FLASH_LSE += 1
     else:
         LAUNCHES_FLASH += 1
+    _count_block_k(block_k)
     return out, lse
 
 
@@ -596,6 +666,7 @@ def flash_attention_reference(q: torch.Tensor, k: torch.Tensor,
     """Plain version of ``flash_attention``, routed as JAX's: T ≤
     ``SINGLE_PASS_MAX_T`` the one-shot softmax, longer T the blockwise walk
     over key tiles of ``block_k`` (``block_q`` moves no result)."""
+    _check_blocks(block_q, block_k)
     if q.shape[2] <= SINGLE_PASS_MAX_T:
         return single_pass_attention_reference(q, k, v, config.head_dim)
     out, _ = _blockwise_heads_reference(q, k, v, _flash_scale(config.head_dim),
@@ -609,13 +680,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """softmax(QKᵀ / sqrt(hd)) V on split heads: [B, H, T, hd] → [B, H, T,
     hd] in q's dtype, the drop-in for ``models.vit.xla_attention`` (the same
     kernel-table slot). T ≤ ``SINGLE_PASS_MAX_T``: the single-pass kernel
-    (bf16 or fp32); longer: the blockwise kernel (bf16, ``block_k`` 128,
-    the tile being part of its function). q, k and v may be strided views
-    with a contiguous last axis and 16-byte rows."""
+    (bf16 or fp32); longer: the blockwise kernel (bf16, at ``block_k`` 128,
+    256 or 512, the tile being part of its function; ``block_q`` moves
+    nothing). q, k and v may be strided views with a contiguous last axis
+    and 16-byte rows."""
     global LAUNCHES_FLASH_SPLIT
     if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
         raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)} and v "
                          f"{tuple(v.shape)} must be one [B, H, T, hd] shape")
+    _check_blocks(block_q, block_k)
     if not q.is_cuda:
         return flash_attention_reference(q, k, v, config, block_q=block_q,
                                          block_k=block_k)
@@ -625,10 +698,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.dtype != torch.bfloat16:
         raise NotImplementedError(
             f"the CUDA blockwise attention kernel takes bf16, got {q.dtype}")
-    if block_k != FLASH_BLOCK_K:
-        raise NotImplementedError(
-            f"block_k {block_k}: the blockwise kernel's key tile is "
-            f"{FLASH_BLOCK_K}, and the tile decides where p is rounded")
+    require_block_k(block_k)
     if hd % 8 or hd > 128:
         raise NotImplementedError(
             f"head_dim {hd}: the kernel takes multiples of 8 up to 128")
@@ -641,10 +711,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return out
     err = _build.launch("vit_flash_attention_fwd_strided", q,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), None,
-        _build.head_strides(q, k, v, out), b, t, nh, hd,
+        _build.head_strides(q, k, v, out), b, t, nh, hd, int(block_k),
         _flash_scale(config.head_dim))
     _build.check_launch(err, "flash_attention")
     LAUNCHES_FLASH_SPLIT += 1
+    _count_block_k(block_k)
     return out
 
 
@@ -746,15 +817,20 @@ def blockwise_ring_step(qf: torch.Tensor, kf: torch.Tensor, vf: torch.Tensor,
 
 def blockwise_attention_bwd_reference(qkv: torch.Tensor, out: torch.Tensor,
                                       lse: torch.Tensor, do: torch.Tensor,
-                                      num_heads: int,
-                                      head_dim: int) -> torch.Tensor:
+                                      num_heads: int, head_dim: int, *,
+                                      block_q: int = DEFAULT_BLOCK_Q,
+                                      block_k: int = FLASH_BLOCK_K
+                                      ) -> torch.Tensor:
     """Plain version of ``blockwise_attention_bwd`` with the arithmetic of
     ``_flash_bwd_dq_kernel`` and ``_flash_bwd_dkv_kernel``: ``dvec =
     rowsum(fp32(dO) ⊙ fp32(O))`` from the forward's rounded output, ``p =
     exp(s − lse)`` with s as the forward's, ``dp = dO · vᵀ``, ``ds =
     dtype((p ⊙ (dp − dvec)) · scale)``, ``dq = ds · k``, ``dk = dsᵀ · q``
     (the unscaled q), ``dv = dtype(p)ᵀ · dO``, fp32 sums; dqkv in qkv's
-    dtype. Every key is below T here, so no column is masked."""
+    dtype. Every key is below T here, so no column is masked. JAX's
+    ``block_q``/``block_k`` are accepted and move no result: p is rebuilt
+    elementwise from the LSE, so a tile sets only the order of fp32 sums."""
+    _check_blocks(block_q, block_k)
     b, t, _ = qkv.shape
     q, k, v = (z.float() for z in _split_heads(qkv, 3, num_heads, head_dim))
     o = _split_heads(out, 1, num_heads, head_dim)[0].float()
@@ -773,11 +849,16 @@ def blockwise_attention_bwd_reference(qkv: torch.Tensor, out: torch.Tensor,
 
 def blockwise_attention_bwd(qkv: torch.Tensor, out: torch.Tensor,
                             lse: torch.Tensor, do: torch.Tensor,
-                            num_heads: int, head_dim: int) -> torch.Tensor:
+                            num_heads: int, head_dim: int, *,
+                            block_q: int = DEFAULT_BLOCK_Q,
+                            block_k: int = FLASH_BLOCK_K) -> torch.Tensor:
     """Blockwise backward: (qkv [B, T, 3D], the forward's out [B, T, D] and
     lse [B, H, T], dO [B, T, D]) → dqkv [B, T, 3D] in qkv's dtype, at any
     T. The dq kernel also computes dvec = rowsum(dO ⊙ O) for its rows, and
-    the dK/dV kernel reads it."""
+    the dK/dV kernel reads it. JAX's ``block_q``/``block_k`` are accepted
+    (any positive sizes) and the kernels keep their own tiles: p is rebuilt
+    elementwise from the forward's LSE, so JAX's tiles set only the order
+    of its fp32 sums, not a rounding point."""
     global LAUNCHES_FLASH_BWD
     b, t, three_d = qkv.shape
     d = num_heads * head_dim
@@ -788,6 +869,7 @@ def blockwise_attention_bwd(qkv: torch.Tensor, out: torch.Tensor,
             f"qkv {tuple(qkv.shape)}, out {tuple(out.shape)}, lse "
             f"{tuple(lse.shape)} and dO {tuple(do.shape)} do not fit "
             f"{num_heads} heads of {head_dim}")
+    _check_blocks(block_q, block_k)
     if not qkv.is_cuda:
         return blockwise_attention_bwd_reference(qkv, out, lse, do, num_heads,
                                                  head_dim)

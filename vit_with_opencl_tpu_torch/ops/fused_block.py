@@ -56,7 +56,13 @@ two recomputes (``_attn_recompute``), and the plain links take the plain
 blockwise version. JAX's fused layer keeps the whole-row one-shot softmax
 there: the same function with other rounding points (the scale on the fp32
 scores instead of a bf16-scaled q, and p rounded to bf16 against the running
-max of each 128-key tile instead of the row's max). The backward's
+max of each 128-key tile instead of the row's max). The forward chains
+(``fused_encoder_layer``, ``fused_encoder_group``, ``fused_encoder_stack``
+and their plain versions) take that link's key tile, ``block_k`` (128,
+256 or 512 on the card; the autotune cache's ``blockwise_block_k`` through
+``models/vit.resolve_kernels``), which joins that difference: JAX's fused
+layer takes no tile. Training's ``fused_encoder_layer_trainable`` keeps
+128, as JAX's trainable route does. The backward's
 attention stage still takes ``packed_attention_bwd`` (the streamed
 ``csrc/attention_bwd.cu``, any T), which recomputes the whole-row softmax
 as JAX's ``_attn_bwd_kernel`` does.
@@ -256,7 +262,8 @@ _PLAIN = _Links(layernorm.layer_norm_reference, linear.fused_linear_reference,
                 attention.packed_attention_bwd_reference)
 
 
-def _chain(x, lps, config: ViTConfig, k: _Links) -> torch.Tensor:
+def _chain(x, lps, config: ViTConfig, k: _Links,
+           block_k: int = attention.FLASH_BLOCK_K) -> torch.Tensor:
     """bf16 or weight-only int8 through the layers ``lps`` in order: 7
     launches a layer, the residual stream in fp32 between them."""
     cdt, f32, eps = x.dtype, torch.float32, config.eps
@@ -270,7 +277,8 @@ def _chain(x, lps, config: ViTConfig, k: _Links) -> torch.Tensor:
     for i, lp in enumerate(lps):
         h = k.ln(x, lp["ln1_w"], lp["ln1_b"], eps, out_dtype=cdt)
         qkv = mm(h, lp, "qkv_w", out_dtype=cdt)
-        ctx = k.attn(qkv, num_heads=config.num_heads, head_dim=config.head_dim)
+        ctx = k.attn(qkv, num_heads=config.num_heads, head_dim=config.head_dim,
+                     block_k=block_k)
         x1 = mm(ctx, lp, "out_w", residual=x, out_dtype=f32)
         h2 = k.ln(x1, lp["ln2_w"], lp["ln2_b"], eps, out_dtype=cdt)
         hid = mm(h2, lp, "fc1_w", fuse_gelu=True, out_dtype=cdt)
@@ -279,7 +287,8 @@ def _chain(x, lps, config: ViTConfig, k: _Links) -> torch.Tensor:
     return x
 
 
-def _chain_w8a8(x, lps, config: ViTConfig, k: _Links) -> torch.Tensor:
+def _chain_w8a8(x, lps, config: ViTConfig, k: _Links,
+                block_k: int = attention.FLASH_BLOCK_K) -> torch.Tensor:
     """W8A8, plain or outlier-aware, through the layers ``lps`` in order:
     11 launches a layer, the residual stream in fp32 between them."""
     cdt, f32 = x.dtype, torch.float32
@@ -300,7 +309,7 @@ def _chain_w8a8(x, lps, config: ViTConfig, k: _Links) -> torch.Tensor:
     for i, lp in enumerate(lps):
         h = k.ln(x, lp["ln1_w"], lp["ln1_b"], eps, out_dtype=f32)
         qkv = mm_q(h, lp, "qkv_w", out_dtype=cdt)
-        ctx = k.attn(qkv, num_heads=nh, head_dim=hd)
+        ctx = k.attn(qkv, num_heads=nh, head_dim=hd, block_k=block_k)
         x1 = mm_q(ctx, lp, "out_w", residual=x, out_dtype=f32)
         h2 = k.ln(x1, lp["ln2_w"], lp["ln2_b"], eps, out_dtype=f32)
         hid = mm_q(h2, lp, "fc1_w", fuse_gelu=True, out_dtype=f32)
@@ -328,10 +337,11 @@ def _form(lp, w8a8: bool) -> str:
     return "w8a8" if w8a8 else "int8w"
 
 
-def _run(x, lps, config: ViTConfig, w8a8: bool, k: _Links) -> torch.Tensor:
+def _run(x, lps, config: ViTConfig, w8a8: bool, k: _Links,
+         block_k: int = attention.FLASH_BLOCK_K) -> torch.Tensor:
     if _form(lps[0], w8a8) in ("w8a8", "outlier"):
-        return _chain_w8a8(x, lps, config, k)
-    return _chain(x, lps, config, k)
+        return _chain_w8a8(x, lps, config, k, block_k)
+    return _chain(x, lps, config, k, block_k)
 
 
 def _layers(layers, count: int) -> list:
@@ -344,18 +354,20 @@ def _layers(layers, count: int) -> list:
 
 
 def fused_encoder_layer(x: torch.Tensor, lp, config: ViTConfig, *,
-                        w8a8: bool = False) -> torch.Tensor:
+                        w8a8: bool = False,
+                        block_k: int = attention.FLASH_BLOCK_K) -> torch.Tensor:
     """One pre-LN encoder layer. x: [B, T, D] → [B, T, D] in x's dtype.
 
     ``lp`` is one layer's slice of the stacked params (models/vit layout:
     qkv_w [D, 3D], out_w [D, D], fc1_w [D, H], fc2_w [H, D] in the param
     dtype, or as int8 dicts {"q": [in, out], "scale": [1, out]} from
     models/quant, with a bf16 "hi" group in the outlier-aware form; fp32
-    LN parameters and biases). ``w8a8`` quantizes the activations too."""
+    LN parameters and biases). ``w8a8`` quantizes the activations too.
+    ``block_k``: the attention link's key tile past padded T = 1024."""
     global LAUNCHES, LAUNCHES_INT8W, LAUNCHES_W8A8, LAUNCHES_W8A8_OUTLIER
     _refuse_autograd("fused_encoder_layer", x, lp)
     form = _form(lp, w8a8)
-    out = _run(x, [lp], config, w8a8, _KERNELS)
+    out = _run(x, [lp], config, w8a8, _KERNELS, block_k)
     if x.is_cuda:
         if form == "outlier":
             LAUNCHES_W8A8_OUTLIER += 1
@@ -369,9 +381,11 @@ def fused_encoder_layer(x: torch.Tensor, lp, config: ViTConfig, *,
 
 
 def fused_encoder_layer_reference(x: torch.Tensor, lp, config: ViTConfig, *,
-                                  w8a8: bool = False) -> torch.Tensor:
+                                  w8a8: bool = False,
+                                  block_k: int = attention.FLASH_BLOCK_K
+                                  ) -> torch.Tensor:
     """The chain computed by each link's plain version, on any device."""
-    return _run(x, [lp], config, w8a8, _PLAIN)
+    return _run(x, [lp], config, w8a8, _PLAIN, block_k)
 
 
 def _groups(layers, config: ViTConfig, group_size: int) -> list:
@@ -383,27 +397,30 @@ def _groups(layers, config: ViTConfig, group_size: int) -> list:
 
 
 def fused_encoder_group(x: torch.Tensor, layers, config: ViTConfig, *,
-                        group_size: int, w8a8: bool = False) -> torch.Tensor:
+                        group_size: int, w8a8: bool = False,
+                        block_k: int = attention.FLASH_BLOCK_K) -> torch.Tensor:
     """The encoder as groups of ``group_size`` consecutive layers: the
     residual stream in fp32 inside a group, in x's dtype between groups
     (the JAX package's ``_block_kernel`` at ``depth = group_size``).
     ``layers`` is the stacked per-layer pytree of all ``config.depth``
-    layers, in any of the four forms."""
+    layers, in any of the four forms; ``block_k`` as in
+    ``fused_encoder_layer``."""
     global LAUNCHES_GROUP
     _refuse_autograd("fused_encoder_group", x, layers)
     for group in _groups(layers, config, group_size):
-        x = _run(x, group, config, w8a8, _KERNELS)
+        x = _run(x, group, config, w8a8, _KERNELS, block_k)
         if x.is_cuda:
             LAUNCHES_GROUP += 1
     return x
 
 
 def fused_encoder_group_reference(x: torch.Tensor, layers, config: ViTConfig,
-                                  *, group_size: int,
-                                  w8a8: bool = False) -> torch.Tensor:
+                                  *, group_size: int, w8a8: bool = False,
+                                  block_k: int = attention.FLASH_BLOCK_K
+                                  ) -> torch.Tensor:
     """The groups computed by each link's plain version, on any device."""
     for group in _groups(layers, config, group_size):
-        x = _run(x, group, config, w8a8, _PLAIN)
+        x = _run(x, group, config, w8a8, _PLAIN, block_k)
     return x
 
 
@@ -416,7 +433,8 @@ def _stack_layers(layers, config: ViTConfig, num_layers) -> list:
 
 
 def fused_encoder_stack(x: torch.Tensor, layers, config: ViTConfig, *,
-                        num_layers=None, w8a8: bool = False) -> torch.Tensor:
+                        num_layers=None, w8a8: bool = False,
+                        block_k: int = attention.FLASH_BLOCK_K) -> torch.Tensor:
     """``num_layers`` consecutive encoder layers (default ``config.depth``)
     as one chain: x [B, T, D] → [B, T, D] in x's dtype, the residual stream
     in fp32 throughout and rounded once, at the end.
@@ -426,12 +444,12 @@ def fused_encoder_stack(x: torch.Tensor, layers, config: ViTConfig, *,
     raise ``ValueError``. The JAX kernel pads T to a multiple of 16 and
     masks the padded keys, which then carry exactly zero weight, and its
     GEMMs are row-wise, so padded rows never reach real ones: T stays as it
-    is here."""
+    is here. ``block_k`` as in ``fused_encoder_layer``."""
     global LAUNCHES_STACK, LAUNCHES_STACK_INT8W, LAUNCHES_STACK_W8A8
     _refuse_autograd("fused_encoder_stack", x, layers)
     lps = _stack_layers(layers, config, num_layers)
     form = _form(lps[0], w8a8)
-    out = _run(x, lps, config, w8a8, _KERNELS)
+    out = _run(x, lps, config, w8a8, _KERNELS, block_k)
     if x.is_cuda:
         if form == "w8a8":
             LAUNCHES_STACK_W8A8 += 1
@@ -443,11 +461,12 @@ def fused_encoder_stack(x: torch.Tensor, layers, config: ViTConfig, *,
 
 
 def fused_encoder_stack_reference(x: torch.Tensor, layers, config: ViTConfig,
-                                  *, num_layers=None,
-                                  w8a8: bool = False) -> torch.Tensor:
+                                  *, num_layers=None, w8a8: bool = False,
+                                  block_k: int = attention.FLASH_BLOCK_K
+                                  ) -> torch.Tensor:
     """The stack computed by each link's plain version, on any device."""
     return _run(x, _stack_layers(layers, config, num_layers), config, w8a8,
-                _PLAIN)
+                _PLAIN, block_k)
 
 
 def fused_encoder_layer_flat(x: torch.Tensor, lp,

@@ -46,7 +46,8 @@ as in JAX.
 
 Not ported here: training on a mesh (``make_train_step(mesh)``,
 ``shard_params_gspmd``, ``gspmd_param_specs``: a ``mesh`` raises
-``NotImplementedError``) and the autotune ``tuning`` knobs.
+``NotImplementedError``). ``make_train_step(tuning=)`` takes the autotune
+knobs as JAX's step does, and refuses JAX's grid knobs by name.
 ``scan_unroll`` is accepted and has no effect: the port's encoder is a
 Python loop over the layers, with nothing to unroll.
 """
@@ -708,13 +709,20 @@ def make_train_step(config: ViTConfig, mesh=None, *, device=None,
     the given distribution); ``label_smoothing`` blends in the uniform CE;
     ``grad_accum=A`` splits the batch into A microbatches whose fp32
     gradients are averaged (the full-batch gradient); ``grad_clip_norm``
-    clips by global L2 norm before the update, on both optimizers."""
+    clips by global L2 norm before the update, on both optimizers.
+
+    ``tuning``: the autotune cache's knobs (``perf/autotune.lookup``, the
+    ``train`` entry). JAX's step reads its grid knobs (``attention_ipc``,
+    ``attention_bwd_ipc``), which have no meaning on the Hopper kernels and
+    raise ``ValueError`` by name (``models/vit.refuse_grid_knobs``); the
+    key tile (``blockwise_block_k``) is not a knob of training, whose
+    blockwise route keeps JAX's 128 (JAX's trainable attention takes no
+    tile), so the other keys are ignored."""
     if mesh is not None:
         raise NotImplementedError(
             "a mesh (data, tensor or sequence parallelism over several cards) "
             "is not ported yet; the port trains on one device")
-    if tuning:
-        raise NotImplementedError("the autotune knobs are not ported yet")
+    vit.refuse_grid_knobs(tuning, "make_train_step")
     del scan_unroll  # the encoder is a Python loop: nothing to unroll
     resolve_device(device)
     kernels = train_kernels(config, attention_impl, compute_dtype)

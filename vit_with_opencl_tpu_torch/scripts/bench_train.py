@@ -13,10 +13,13 @@ Usage: python -m vit_with_opencl_tpu_torch.scripts.bench_train [config]
 
 PARAM_DTYPE=bf16 keeps the master weights in bf16. ACCUM=A splits the batch
 into A microbatches. UNROLL is accepted and has no effect: the port's
-encoder is a Python loop, with nothing to unroll. Not ported yet (each
-raises ``NotImplementedError``): the ``*_split*`` routes
-(``parallel/split_step``) and TUNE=1 (the autotune cache). An
-out-of-memory step is a printed data point, not a failure.
+encoder is a Python loop, with nothing to unroll. TUNE=1 consults the
+autotune cache's ``train`` entry at the batch (falling back to the bf16
+inference entry), the lookup ``Trainer(batch_size=)`` makes, and hands it
+to every step; TUNE=0 (the default) runs the shipped defaults. Not ported
+yet (each raises ``NotImplementedError``): the ``*_split*`` routes
+(``parallel/split_step``). An out-of-memory step is a printed data point,
+not a failure.
 
 AUG=1 adds the augment probe: the host pipeline's img/s
 (``augment.augmented_dataset``, Mixup/CutMix on the host and left to the
@@ -40,13 +43,6 @@ from ..models import vit
 from ..parallel import spmd
 
 
-def _refuse_unported_options() -> None:
-    if os.environ.get("TUNE", "0") == "1":
-        raise NotImplementedError(
-            "TUNE=1 needs the autotune cache, which the port does not have "
-            "yet")
-
-
 def main(argv=None, device=None) -> dict:
     """Run the probe; returns {impl: {"ms": ms a step, "loss": last loss}}
     for every route that ran, and with AUG=1 the augment probe's numbers
@@ -57,7 +53,6 @@ def main(argv=None, device=None) -> dict:
     iters = int(argv[2]) if len(argv) > 2 else 20
     impls = tuple(argv[3].split(",")) if len(argv) > 3 else (
         "xla", "flash", "fused")
-    _refuse_unported_options()
     for impl in impls:
         if impl.startswith(("fused_split", "flash_split", "staged_split")):
             raise NotImplementedError(
@@ -78,12 +73,19 @@ def main(argv=None, device=None) -> dict:
     gflop_fwd = cfg.flops_per_image / 1e9
     accum = int(os.environ.get("ACCUM", "1"))
     unroll = int(os.environ.get("UNROLL", "1"))
+    tuning = None
+    if os.environ.get("TUNE", "0") == "1":
+        from ..perf import autotune
+
+        tuning = autotune.lookup(cfg, batch, torch.bfloat16, quant="train",
+                                 device=dev)
+        print(f"tuning: { {k: v for k, v in tuning.items() if not k.endswith('_ms')} }")
     results = {}
     for impl in impls:
         step = spmd.make_train_step(cfg, device=dev, lr=1e-4,
                                     compute_dtype=torch.bfloat16,
                                     attention_impl=impl, grad_accum=accum,
-                                    scan_unroll=unroll)
+                                    scan_unroll=unroll, tuning=tuning)
         # The step updates the weights in place: each route starts afresh.
         params = vit.cheap_stacked_params(cfg, param_dtype=pdt, device=dev)
         try:

@@ -11,12 +11,18 @@ periodic checkpoints (:mod:`io.checkpoint`) with resume, throughput and
 loss logging that reads the loss from the card only at log points, and
 export to the reference weight format.
 
+The autotune cache as JAX's: ``tuning`` knobs, or a ``batch_size`` hint
+that looks up the ``train`` entry of ``perf/autotune`` (in ``tuning_path``,
+default the cache's own path) for the batch of the one device, falling
+back to the inference entry. The training route keeps JAX's 128-key tile,
+so no knob of the port changes a step; JAX's grid knobs raise
+``ValueError`` (``parallel/spmd.make_train_step``).
+
 Not ported yet, and refused with ``NotImplementedError``: a ``mesh``
-(multi-card training, ``parallel/spmd``'s training on a mesh), the
-program-split ``attention_impl="split:..."`` route (``parallel/split_step``)
-and the autotune cache (``tuning``, ``tuning_path`` and the ``batch_size``
-lookup). ``scan_unroll`` is accepted and has no effect (see
-``parallel/spmd``).
+(multi-card training, ``parallel/spmd``'s training on a mesh) and the
+program-split ``attention_impl="split:..."`` route
+(``parallel/split_step``). ``scan_unroll`` is accepted and has no effect
+(see ``parallel/spmd``).
 """
 
 from __future__ import annotations
@@ -111,10 +117,7 @@ class Trainer:
     ):
         refused = {"mesh (multi-card training)": mesh is not None,
                    "attention_impl='split:...' (program-split steps)":
-                       attention_impl.startswith("split:"),
-                   "tuning, tuning_path and batch_size (the autotune cache)":
-                       bool(tuning) or tuning_path is not None
-                       or batch_size is not None}
+                       attention_impl.startswith("split:")}
         for what, given in refused.items():
             if given:
                 raise NotImplementedError(f"{what} is not ported yet")
@@ -145,12 +148,24 @@ class Trainer:
             else:
                 raise ValueError(f"unknown schedule {schedule!r}")
 
+        # The autotune cache's knobs for the training kernels, as JAX's:
+        # explicit ``tuning``, or a ``batch_size`` hint for a lookup of the
+        # "train" entry at the batch of each device (one here), which falls
+        # back to the inference entry of that batch.
+        if tuning is None and batch_size:
+            from .perf import autotune
+
+            tuning = autotune.lookup(config, int(batch_size), compute_dtype,
+                                     quant="train", path=tuning_path,
+                                     device=self.device)
+        self.tuning = tuning or {}
+
         made = spmd.make_train_step(
             config, device=self.device, lr=lr, compute_dtype=compute_dtype,
             optimizer=optimizer, weight_decay=weight_decay,
             attention_impl=attention_impl, grad_accum=grad_accum,
             scan_unroll=scan_unroll, grad_clip_norm=grad_clip_norm,
-            label_smoothing=label_smoothing)
+            label_smoothing=label_smoothing, tuning=self.tuning)
         if optimizer == "sgd":
             self._init_opt, self._step = None, made
         else:
