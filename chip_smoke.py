@@ -121,6 +121,17 @@ line.
    own largest magnitude. The column sum also on LN2's partial dw rows (one
    a run of ``layernorm.bwd_partial_rows``' even split of the tokens), as
    the LN backward hands them on.
+2 (fp32). The fp32 forms at ViT-B shapes, B = 16 and 256, on an fp32
+   layer's own intermediates against their plain versions: the fp32 GEMM
+   (``csrc/gemm_f32.cu``) at the forward's four sites and in the backward's
+   forms (dgrad with fc2's GELU gradient and its fp32 second output, wgrad
+   split over the tokens, the fc1 recompute's two fp32 outputs), the fp32
+   slab attention (``vit_packed_attention_f32``; also at T = 577, B = 8)
+   and the fp32 attention backward (``csrc/attention_bwd_f32.cu``), and the
+   fp32 layer chain. Yardsticks: ``torch.addmm`` / ``torch.mm`` in fp32
+   with TF32 off plus the epilogue as ops, SDPA in fp32 forward and
+   backward (the backend it takes named). fp32 outputs within 1e-4 (the
+   forward) or a share of their own largest magnitude (the gradients).
 2k. The LN kernel's forms at the stacks' and ViT-L's widths (D = 192 and
    384 at B = 16 and 256, D = 1024 at ViT-L/16@384's B = 8 and 32) on the
    fp32 stream, bf16 and fp32 out, against its plain version (yardstick
@@ -133,8 +144,9 @@ line.
    for the same bits; the registers and spills of each form of
    ``csrc/quantize.cu`` and ``csrc/layernorm.cu``, and of the ring step's
    (``csrc/attention_ring.cu``: the bf16 kernel, the fp32 body) and the
-   single-pass attention's fp32 body (``csrc/attention_single.cu``), and of
-   the overlap probe's kernels (``csrc/probe_overlap.cu``: the wgmma GEMM
+   single-pass attention's fp32 body (``csrc/attention_single.cu``), of the
+   fp32 GEMM and the fp32 attention backward (``csrc/gemm_f32.cu``,
+   ``csrc/attention_bwd_f32.cu``), and of the overlap probe's kernels (``csrc/probe_overlap.cu``: the wgmma GEMM
    kernels' warpgroups hold their ``setmaxnreg`` shares, printed beside),
    none of which may spill or have its ``setmaxnreg`` ignored (``nvcc
    -Xptxas -v``);
@@ -143,6 +155,19 @@ line.
    same trace of ``F.layer_norm`` and ``x.float().sum(0)`` (none for the
    quantizes and the LN backward), and the trace's launches of the port's
    kernels against the calls.
+3i. fp32 on the card up to padded T = 1024: ``InferenceEngine(VIT_B_16_224,
+   param_dtype=torch.float32, compute_dtype=torch.float32,
+   attention_impl="flash")`` (the per-layer chain on the fp32 GEMM and the
+   fp32 slab attention) at batch 16 on phase 3's 40 images, and the same
+   engine on ViT-Ti/16 (the whole-encoder stack) on a workspace of phase
+   3d's weights: the launches of each forward, the probabilities within
+   1e-4 of the plain fp32 path (``vit.forward`` in fp32, the answer file's
+   source; the error printed beside its budget) and 0 comparator
+   mismatches against the answer file. Then ``Trainer(VIT_B_16_224,
+   compute_dtype=torch.float32, optimizer="adamw")`` in ``fused`` and
+   ``flash``, 4 steps at batch 16 on a memorised batch: the loss falls,
+   the launches of those steps (every fp32 form), and one step against
+   the plain links under phase 5's gates.
 5. The training main path: ``Trainer(VIT_B_16_224, device="cuda",
    compute_dtype=bf16, optimizer="adamw")`` from seeded ``init_params``,
    8 steps at batch 32 on a memorised seeded batch, in each route
@@ -178,11 +203,13 @@ line.
    forwards at batch 64 and 256, beside the sums of their kernels' times and
    bounds at the same batch; then ViT-Ti and ViT-S (bf16 and int8-weight
    stacks) at batch 64 and 256, beside the same engines on the per-layer
-   chain, with the rows of phase 2d timed again at batch 256.
+   chain, with the rows of phase 2d timed again at batch 256; and the fp32
+   ``flash`` forward of phase 3i's engine at batch 64 beside the fp32
+   ``xla`` route (cuBLAS fp32, TF32 off).
 4b. Training throughput at batch 64: ms per AdamW step, img/s and peak
    memory in each route, the split of a ``fused`` step (forward chain, the
-   three backward stages, AdamW, the rest), and phase 2e's rows again at
-   batch 64.
+   three backward stages, AdamW, the rest), the fp32 ``fused`` and ``xla``
+   steps, and phase 2e's rows again at batch 64.
 2f. The training kernels of the larger presets: the streamed attention
    backward at ViT-L/16@384's T = 577 (hd 64, 16 heads; B = 8 and 32, bf16
    and fp32 dqkv), ViT-H/14's and ViT-G/14's T = 257 (hd 80 and 104, B =
@@ -348,6 +375,7 @@ The line before the last is the kernels' JSON record; the last line is
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import dataclasses
 import functools
@@ -365,6 +393,7 @@ import sys
 import tempfile
 import threading
 import time
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -511,6 +540,36 @@ TRAIN_PER_LAYER = {
               "layernorm_bwd": 2, "column_sum": 8},
     "flash": {"attention": 1, "attention_bwd": 1},
     "xla": {},
+}
+
+# fp32 compute up to padded T = 1024: the fp32 GEMM (rows 3 and 14a in fp32),
+# the fp32 slab entry of the packed attention (row 4) and the fp32 attention
+# backward (row 11). Phase 2's fp32 rows at F32_ROW_BATCHES (row 4's fp32
+# form also at ViT-L/16@384's T = 577, B = 8, its heads), phase 3i and the
+# fp32 rows of phases 4 and 4b. Phase 3i holds the fp32 engines to the plain
+# fp32 path (vit.forward in fp32 with TF32 off, the answer files' source)
+# within F32_PROB_TOL of probability, and fp32 training to phase 5's gates.
+F32_ROW_BATCHES = (SMOKE_BATCH, THROUGHPUT_BATCHES[-1])
+F32_ATTN_LONG = (8, 577, 16, 64)  # (B, T, heads, head dim)
+F32_PROB_TOL = 1e-4
+# The fp32 backward rows' fp32 outputs, each held to F32_GRAD_REL of its
+# largest magnitude (the cuda tests' F32_GEMM_REL): plain fp32 sums in
+# another order stay below 1.1e-5 of scale, TF32 products would give 5e-4.
+F32_GRAD_REL = 2e-5
+F32_TRAIN_BATCH = 16
+F32_TRAIN_STEPS = 4
+F32_THROUGHPUT_BATCH = 64
+F32_ROUTES = ("fused", "flash")
+# The launches of one fp32 forward a ViT-B layer (the per-layer chain), and
+# of one fp32 training step a layer in each kernel route.
+F32_PER_LAYER = {"layernorm": 2, "linear_f32": 4, "attention_f32": 1, "fused_block": 1}
+F32_TRAIN_PER_LAYER = {
+    "fused": {"fused_block": 1, "fused_bwd": 1, "fused_bwd_x2": 1,
+              "fused_bwd_mlp": 1, "fused_bwd_attn": 1, "attention_f32": 3,
+              "attention_bwd_f32": 1, "layernorm": 5, "linear_f32": 7,
+              "linear_gelu_pair_f32": 1, "linear_dgrad_f32": 4,
+              "linear_wgrad_f32": 4, "layernorm_bwd": 2, "column_sum": 8},
+    "flash": {"attention_f32": 1, "attention_bwd_f32": 1},
 }
 
 # Phase 5d: the DeiT recipe on the card. RECIPE_SOURCES seeded uint8 images
@@ -783,6 +842,14 @@ COUNTERS = {
     "attention_flash_split": (attention, "LAUNCHES_FLASH_SPLIT"),
     "layernorm_residual": (layernorm, "LAUNCHES_RESIDUAL"),
     "attention_ring": (attention, "LAUNCHES_RING"),
+    # The fp32 forms: the fp32 GEMM's four, the fp32 slab attention and the
+    # fp32 attention backward.
+    "linear_f32": (linear, "LAUNCHES_F32"),
+    "linear_dgrad_f32": (linear, "LAUNCHES_DGRAD_F32"),
+    "linear_wgrad_f32": (linear, "LAUNCHES_WGRAD_F32"),
+    "linear_gelu_pair_f32": (linear, "LAUNCHES_GELU_PAIR_F32"),
+    "attention_f32": (attention, "LAUNCHES_PACKED_F32"),
+    "attention_bwd_f32": (attention, "LAUNCHES_BWD_F32"),
     # The blockwise forward's launches by key tile (its three forms together).
     **{f"attention_flash_k{bk}": (attention, f"LAUNCHES_FLASH_K{bk}")
        for bk in attention.FLASH_BLOCK_KS},
@@ -834,6 +901,14 @@ REPLACES = {
     "layernorm_residual": "vit_with_opencl_tpu/ops/layernorm.py:44",
     # The ring-attention local step (blockwise_ring_step).
     "attention_ring": "vit_with_opencl_tpu/ops/attention.py:354",
+    # The fp32 forms: _linear_kernel and the encoder's _mm in fp32, the
+    # backward's _dot forms, _packed_kernel's slabs and _packed_bwd_kernel.
+    "linear_f32": "vit_with_opencl_tpu/ops/linear.py:36",
+    "linear_dgrad_f32": "vit_with_opencl_tpu/ops/fused_block.py:704",
+    "linear_wgrad_f32": "vit_with_opencl_tpu/ops/fused_block.py:704",
+    "linear_gelu_pair_f32": "vit_with_opencl_tpu/ops/fused_block.py:704",
+    "attention_f32": "vit_with_opencl_tpu/ops/attention.py:872",
+    "attention_bwd_f32": "vit_with_opencl_tpu/ops/attention.py:463",
     # _flash_kernel at each key tile (JAX's block_k).
     **{f"attention_flash_k{bk}": "vit_with_opencl_tpu/ops/attention.py:85"
        for bk in attention.FLASH_BLOCK_KS},
@@ -875,6 +950,12 @@ SOURCES = {
     "attention_flash_split": _CSRC + "attention_flash.cu",
     "layernorm_residual": _CSRC + "layernorm.cu",
     "attention_ring": _CSRC + "attention_ring.cu",
+    "linear_f32": _CSRC + "gemm_f32.cu",
+    "linear_dgrad_f32": _CSRC + "gemm_f32.cu",
+    "linear_wgrad_f32": _CSRC + "gemm_f32.cu",
+    "linear_gelu_pair_f32": _CSRC + "gemm_f32.cu",
+    "attention_f32": _CSRC + "attention_single.cu",
+    "attention_bwd_f32": _CSRC + "attention_bwd_f32.cu",
     **{f"attention_flash_k{bk}": _CSRC + "attention_flash.cu"
        for bk in attention.FLASH_BLOCK_KS},
     **{counter: _CSRC + "probe_overlap.cu" for counter, *_ in PROBE_FORMS.values()},
@@ -1620,7 +1701,7 @@ def ln_autograd(x, dy, w, b, eps):
 
 
 def ln_bwd_case(name, xin, dy, w, b, eps, residual, out_dtype, library=True,
-                replaces=None) -> dict:
+                replaces=None, rel=GRAD_REL) -> dict:
     """Row 14b (``layer_norm_bwd``: dx + residual, dw, db) against its plain
     version; yardstick the autograd of ``F.layer_norm`` (outside inference
     mode). Bound: x, dy and the residual read, dx written once."""
@@ -1634,7 +1715,7 @@ def ln_bwd_case(name, xin, dy, w, b, eps, residual, out_dtype, library=True,
                                          out_dtype=out_dtype),
         lambda: layernorm.layer_norm_bwd_reference(xin, dy, w, eps, residual=residual,
                                                    out_dtype=out_dtype),
-        library=ln_autograd(xin, dy, w, b, eps) if library else None,
+        rel=rel, library=ln_autograd(xin, dy, w, b, eps) if library else None,
         bytes=m * d * (xin.element_size() + 4 + residual.element_size() + out_b)
         + 3 * d * 4,
         ops={"fp32": 16 * m * d}, replaces=replaces)
@@ -1859,6 +1940,189 @@ def train_kernel_rows(batch: int, dev, seed: int = 0, cfg=CFG) -> list[dict]:
         layer_bwd_case(x, lp, dout, cfg),
     ]
     return run_cases(cases, batch, "train ")
+
+
+def sdpa_backend(q, k, v) -> str:
+    """The backend that ``F.scaled_dot_product_attention`` takes for q, k
+    and v: the first of PyTorch's that accepts them, in the order flash,
+    cuDNN, memory-efficient, math (fp32 rules out the first two)."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    for backend in (SDPBackend.FLASH_ATTENTION, SDPBackend.CUDNN_ATTENTION,
+                    SDPBackend.EFFICIENT_ATTENTION, SDPBackend.MATH):
+        try:
+            # A backend that refuses the inputs warns why; the refusal is the
+            # answer here.
+            with sdpa_kernel(backend), warnings.catch_warnings():
+                warnings.simplefilter("ignore")
+                torch.nn.functional.scaled_dot_product_attention(q, k, v)
+            return backend.name
+        except RuntimeError:
+            continue
+    return "none"
+
+
+def attn_f32_case(qkv, nh: int, hd: int, record: bool = True) -> dict:
+    """Row 4's fp32 form (the fp32 slab entry) on qkv [B, T, 3D] against its
+    plain version; yardstick SDPA in fp32 on the same q, k, v (its backend
+    named). Bound: q, k, v read and the context written once; 4·T²·hd
+    operations a head at the fp32 peak."""
+    b, t, _ = qkv.shape
+    q, k, v = qkv.reshape(b, t, 3, nh, hd).permute(2, 0, 3, 1, 4)
+    backend = sdpa_backend(q, k, v)
+    return dict(name=f"packed_fused_attention (fp32 slab; SDPA takes {backend})",
+                counter="attention_f32", tol=F32_TOL, min_same=0.0, record=record,
+                kernel=lambda: attention.packed_fused_attention(qkv, num_heads=nh,
+                                                                head_dim=hd),
+                plain=lambda: attention.packed_fused_attention_reference(qkv, nh, hd),
+                library=lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v),
+                bytes=b * t * 4 * nh * hd * 4, ops={"fp32": 4 * b * nh * t * t * hd})
+
+
+def fp32_kernel_rows(batch: int, dev, seed: int = 0, cfg=CFG) -> list[dict]:
+    """Phase 2's fp32 rows: the fp32 GEMM's forward at the chain's four
+    sites and its backward forms at the backward's, the fp32 slab attention
+    the fp32 attention backward and the LN backward's fp32 dtype set (its
+    general form) at LN2 and LN1, on an fp32 layer's own intermediates
+    (from the plain versions) at ``batch`` images, against their plain
+    versions (the backward's fp32 outputs within F32_GRAD_REL); yardsticks ``torch.addmm`` / ``torch.mm`` in fp32 with TF32
+    off plus the epilogue as ops, SDPA in fp32 forward and backward. The
+    fp32 layer (the chain of the forward's 7 launches) is held to its plain
+    version too (printed, not recorded)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    lp = train_layer(gen, dev, cfg)
+    d, h, t, nh, hd, eps = (cfg.embed_dim, cfg.hidden_dim, cfg.num_tokens,
+                            cfg.num_heads, cfg.head_dim, cfg.eps)
+    m, f32 = batch * t, torch.float32
+    x = torch.randn((batch, t, d), generator=gen, device=dev) * 0.5
+    dout = torch.randn((batch, t, d), generator=gen, device=dev) * 0.01
+    # The layer's intermediates, from the plain versions.
+    h1 = layernorm.layer_norm_reference(x, lp["ln1_w"], lp["ln1_b"], eps)
+    qkv = linear.fused_linear_reference(h1, lp["qkv_w"], lp["qkv_b"])
+    ctx = attention.packed_fused_attention_reference(qkv, nh, hd)
+    x2 = linear.fused_linear_reference(ctx, lp["out_w"], lp["out_b"], residual=x)
+    h2 = layernorm.layer_norm_reference(x2, lp["ln2_w"], lp["ln2_b"], eps)
+    hid_pre, hid = linear.fused_linear_with_gelu_reference(h2, lp["fc1_w"], lp["fc1_b"])
+    dhid_pre, dhp = linear.linear_dgrad_reference(dout, lp["fc2_w"], gelu_grad_of=hid_pre,
+                                                  out2_dtype=f32)
+    dh2 = linear.linear_dgrad_reference(dhp, lp["fc1_w"])
+    dx2 = layernorm.layer_norm_bwd_reference(x2, dh2, lp["ln2_w"], eps, residual=dout,
+                                             out_dtype=f32)[0]
+    dctx = linear.linear_dgrad_reference(dx2, lp["out_w"])
+    dqkv = attention.packed_attention_bwd_reference(qkv, dctx, nh, hd)
+    dh1 = linear.linear_dgrad_reference(dqkv, lp["qkv_w"])
+
+    def gemm(name, inp, wkey, bkey, n, k_dim, **kw):
+        res_b = 4 if "residual" in kw else 0
+
+        def library():
+            y = torch.addmm(lp[bkey], inp.reshape(m, k_dim), lp[wkey])
+            return epilogue_ops(y, kw, n, f32)
+
+        return dict(
+            name=f"fp32 {name}", counter="linear_f32", tol=F32_TOL, min_same=0.0,
+            kernel=lambda: linear.fused_linear(inp, lp[wkey], lp[bkey], **kw),
+            plain=lambda: linear.fused_linear_reference(inp, lp[wkey], lp[bkey], **kw),
+            library=library,
+            bytes=m * k_dim * 4 + k_dim * n * 4 + n * 4 + m * n * (res_b + 4),
+            ops={"fp32": 2 * m * n * k_dim})
+
+    def dgrad_case(name, dy, wkey, gelu=False):
+        n, k = lp[wkey].shape[1], lp[wkey].shape[0]
+        kw = dict(gelu_grad_of=hid_pre, out2_dtype=f32) if gelu else {}
+
+        def library():
+            y = torch.mm(dy.reshape(m, n), lp[wkey].t())
+            if gelu:
+                y = y * fused_block._gelu_fast_grad(hid_pre.reshape(m, k))
+                return y, y.clone()
+            return y
+
+        return _grad_case(
+            f"fp32 {name}", "linear_dgrad_f32",
+            lambda: linear.linear_dgrad(dy, lp[wkey], **kw),
+            lambda: linear.linear_dgrad_reference(dy, lp[wkey], **kw),
+            rel=F32_GRAD_REL, library=library, bytes=m * n * 4 + k * n * 4 + m * k * (12 if gelu else 4),
+            ops={"fp32": 2 * m * n * k})
+
+    def wgrad_case(name, xin, dy):
+        k, n = xin.shape[-1], dy.shape[-1]
+        return _grad_case(
+            f"fp32 {name}", "linear_wgrad_f32", lambda: linear.linear_wgrad(xin, dy),
+            lambda: linear.linear_wgrad_reference(xin, dy), rel=F32_GRAD_REL,
+            library=lambda: torch.mm(xin.reshape(m, k).t(), dy.reshape(m, n)),
+            bytes=m * (k + n) * 4 + k * n * 4, ops={"fp32": 2 * m * n * k})
+
+    cases = [
+        gemm("fused_linear qkv (+bias)", h1, "qkv_w", "qkv_b", 3 * d, d),
+        attn_f32_case(qkv, nh, hd),
+        gemm("fused_linear out-proj (+fp32 residual, +bias)", ctx, "out_w", "out_b",
+             d, d, residual=x),
+        gemm("fused_linear fc1 (+bias, _gelu_fast)", h2, "fc1_w", "fc1_b", h, d,
+             fuse_gelu=True),
+        gemm("fused_linear fc2 (+fp32 residual, +bias)", hid, "fc2_w", "fc2_b", d, h,
+             residual=x2),
+        _grad_case("fp32 packed_attention_bwd (fp32 dqkv)", "attention_bwd_f32",
+                   lambda: attention.packed_attention_bwd(qkv, dctx, nh, hd),
+                   lambda: attention.packed_attention_bwd_reference(qkv, dctx, nh, hd),
+                   rel=F32_GRAD_REL, library=sdpa_backward(qkv, dctx, nh, hd),
+                   bytes=batch * t * 7 * d * 4, ops={"fp32": 10 * batch * t * t * d}),
+        dgrad_case("linear_dgrad qkv (dqkv . qkv_w^T)", dqkv, "qkv_w"),
+        dgrad_case("linear_dgrad out-proj (dx2 . out_w^T)", dx2, "out_w"),
+        dgrad_case("linear_dgrad fc1 (dhp . fc1_w^T)", dhp, "fc1_w"),
+        dgrad_case("linear_dgrad fc2 (dOut . fc2_w^T * gelu', fp32 + fp32)", dout,
+                   "fc2_w", gelu=True),
+        wgrad_case("linear_wgrad qkv (h1^T . dqkv)", h1, dqkv),
+        wgrad_case("linear_wgrad out-proj (ctx^T . dx2)", ctx, dx2),
+        wgrad_case("linear_wgrad fc1 (h2^T . dhp)", h2, dhp),
+        wgrad_case("linear_wgrad fc2 (hid^T . dOut)", hid, dout),
+        _grad_case("fp32 fused_linear_with_gelu fc1 recompute (fp32 + fp32 GELU)",
+                   "linear_gelu_pair_f32",
+                   lambda: linear.fused_linear_with_gelu(h2, lp["fc1_w"], lp["fc1_b"]),
+                   lambda: linear.fused_linear_with_gelu_reference(h2, lp["fc1_w"],
+                                                                   lp["fc1_b"]),
+                   rel=F32_GRAD_REL, library=lambda: (lambda y: (y, torch.nn.functional.gelu(
+                       y, approximate="tanh")))(torch.addmm(lp["fc1_b"], h2.reshape(m, d),
+                                                            lp["fc1_w"])),
+                   bytes=m * d * 4 + d * h * 4 + h * 4 + m * h * 8,
+                   ops={"fp32": 2 * m * d * h}),
+        ln_bwd_case("fp32 layer_norm_bwd LN2 (fp32 x2, + fp32 dOut, fp32 dx2)", x2, dh2,
+                    lp["ln2_w"], lp["ln2_b"], eps, dout, f32, rel=F32_GRAD_REL),
+        ln_bwd_case("fp32 layer_norm_bwd LN1 (fp32 x, + fp32 dx2, fp32 dx)", x, dh1,
+                    lp["ln1_w"], lp["ln1_b"], eps, dx2, f32, replaces=ATTN_BWD_STAGE,
+                    rel=F32_GRAD_REL),
+        dict(name="fp32 fused_encoder_layer (the chain of the 7 launches)",
+             counter="fused_block", tol=F32_TOL, min_same=0.0, record=False,
+             kernel=lambda: fused_block.fused_encoder_layer(x, lp, cfg),
+             plain=lambda: fused_block.fused_encoder_layer_reference(x, lp, cfg),
+             library=None, bytes=2 * m * d * 4 + (4 * d * d + 2 * d * h + 9 * d + h) * 4,
+             ops={"fp32": 2 * m * d * (4 * d + 2 * h) + 4 * batch * t * t * d}),
+    ]
+    ln_bwd_same_bits(f"fp32 B={batch} LN2", x2, dh2, lp["ln2_w"], eps, dout, f32)
+    ln_bwd_same_bits(f"fp32 B={batch} LN1", x, dh1, lp["ln1_w"], eps, dx2, f32)
+    with torch.inference_mode():
+        forward = run_cases(cases[:5], batch)
+    rows = forward + run_cases(cases[5:-1], batch)
+    with torch.inference_mode():
+        rows += run_cases(cases[-1:], batch)
+    return rows
+
+
+def fp32_rows(dev) -> list[dict]:
+    """Phase 2's fp32 rows at F32_ROW_BATCHES (those at SMOKE_BATCH first)
+    and row 4's fp32 form at F32_ATTN_LONG (printed, not recorded)."""
+    rows = []
+    for batch in F32_ROW_BATCHES:
+        batch_rows = fp32_kernel_rows(batch, dev, seed=batch)
+        if batch == SMOKE_BATCH:
+            rows = batch_rows
+        torch.cuda.empty_cache()
+    b, t, nh, hd = F32_ATTN_LONG
+    gen = torch.Generator(device=dev).manual_seed(t)
+    qkv = torch.randn((b, t, 3 * nh * hd), generator=gen, device=dev)
+    with torch.inference_mode():
+        run_cases([attn_f32_case(qkv, nh, hd, record=False)], b, f"T={t} ")
+    return rows
 
 
 def flat(value):
@@ -2687,9 +2951,10 @@ def recipe_main_path(dev, tmp: Path, smi_line: str, fused_counts: dict) -> None:
 
 
 def training_throughput(dev, cfg=CFG, batch: int = TRAIN_THROUGHPUT_BATCH,
-                        routes=TRAIN_ROUTES) -> dict:
+                        routes=TRAIN_ROUTES,
+                        compute_dtype: torch.dtype = torch.bfloat16) -> dict:
     """Phases 4b and 4c: ms per AdamW step, img/s and peak memory of each
-    route at ``batch``, and the split of a fused step."""
+    route at ``batch``, and (bf16) the split of a fused step."""
     images, labels = train_batch(batch, seed=4, cfg=cfg)
     ti = torch.from_numpy(images).to(dev)
     tl = torch.from_numpy(labels).to(dev)
@@ -2698,7 +2963,7 @@ def training_throughput(dev, cfg=CFG, batch: int = TRAIN_THROUGHPUT_BATCH,
     out = {}
     for route in routes:
         init, step = spmd.make_train_step(cfg, device=dev, lr=TRAIN_LR,
-                                          compute_dtype=torch.bfloat16,
+                                          compute_dtype=compute_dtype,
                                           optimizer="adamw", attention_impl=route)
         params = optim.tree_map(lambda t: t.to(dev), host)
         state = init(params)
@@ -2708,13 +2973,15 @@ def training_throughput(dev, cfg=CFG, batch: int = TRAIN_THROUGHPUT_BATCH,
         ms = time_ms(lambda: step(params, state, ti, tl), reps=5)
         peak = torch.cuda.max_memory_allocated() / 2**30
         out[route] = ms
-        print(f"throughput train {cfg.name} {route} B={batch}: {ms:.2f} ms per AdamW "
-              f"step, {batch / ms * 1e3:.1f} img/s, peak memory {peak:.2f} GiB",
+        tag = "" if compute_dtype == torch.bfloat16 else " fp32"
+        print(f"throughput train {cfg.name} {route}{tag} B={batch}: {ms:.2f} ms per "
+              f"AdamW step, {batch / ms * 1e3:.1f} img/s, peak memory {peak:.2f} GiB",
               flush=True)
         print(json.dumps({"train_throughput": {
             "config": cfg.name, "route": route, "batch": batch, "step_ms": ms,
-            "img_per_s": batch / ms * 1e3, "peak_gib": peak}}), flush=True)
-        if route == "fused":
+            "img_per_s": batch / ms * 1e3, "peak_gib": peak,
+            "compute_dtype": str(compute_dtype).split(".")[-1]}}), flush=True)
+        if route == "fused" and compute_dtype == torch.bfloat16:
             fused_step_split(dev, params, state, ti, tl, ms, cfg)
         del params, state, init, step
         torch.cuda.empty_cache()
@@ -2862,17 +3129,24 @@ def masked_width_rows(dev) -> list[dict]:
 # setmaxnreg fails the run).
 USAGE_SOURCES = (("quantize.cu", False), ("layernorm.cu", False),
                  ("attention_ring.cu", True), ("attention_single.cu", True),
-                 ("probe_overlap.cu", True))
+                 ("probe_overlap.cu", True), ("gemm_f32.cu", True),
+                 ("attention_bwd_f32.cu", True))
 
 
-def print_resource_usage(source: str, no_spills: bool = False) -> None:
-    """Phase 2k: each kernel of ``csrc/<source>``'s registers a thread and
-    spills, as ptxas reports them for the build's flags (and its warnings),
-    and the source's ``k*Regs = n`` setmaxnreg shares where it names them;
-    with ``no_spills``, a check that no form spills and none has its
-    setmaxnreg ignored (a warpgroup's share ptxas cannot fit spills, one it
-    cannot determine is dropped with warning C7508)."""
-    kernels = _build.resource_usage(source)
+def resource_usages(sources) -> list:
+    """``_build.resource_usage`` of each source, the nvcc runs all at once."""
+    with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
+        return list(pool.map(_build.resource_usage, sources))
+
+
+def print_resource_usage(source: str, kernels: list, no_spills: bool = False) -> None:
+    """Phase 2k: each kernel of ``csrc/<source>`` (``kernels``, its
+    ``_build.resource_usage``): its registers a thread and spills, as ptxas
+    reports them for the build's flags (and its warnings), and the source's
+    ``k*Regs = n`` setmaxnreg shares where it names them; with
+    ``no_spills``, a check that no form spills and none has its setmaxnreg
+    ignored (a warpgroup's share ptxas cannot fit spills, one it cannot
+    determine is dropped with warning C7508)."""
     for k in kernels:
         print(f"  ptxas {source}: {k['name'][:110]}: {k['registers']} registers, "
               f"{k['spill_stores']} bytes spill stores, {k['spill_loads']} bytes spill "
@@ -3135,6 +3409,126 @@ def main_path(ws: Path, dev, rounded, images, ref_probs) -> tuple:
           f"bf16 flash probabilities vs fp32 plain: max abs err {prob_err:.3e} "
           f"(result file {file_err:.3e}), budget {PROB_TOL}")
     return counts, engine
+
+
+def fp32_engine_run(engine, ws: Path, images, ref_probs, cfg, per_forward: dict,
+                    what: str) -> dict:
+    """One fp32 engine's run over the workspace's images: its launches (each
+    of ``per_forward`` once a forward), its probabilities against the plain
+    fp32 path's (the answer file's source) within F32_PROB_TOL, and its
+    result file against the answer file (the comparator)."""
+    reset_counts()
+    probs = engine.run(images)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    forwards = -(-len(images) // engine.batch_size)
+    expected = {key: per_forward.get(key, 0) * forwards for key in COUNTERS}
+    check(counts == expected, f"{what}: launches of {forwards} forwards {counts}, "
+                              f"expected {expected}")
+    err = float(np.abs(probs - ref_probs).max())
+    print(f"  {what}: probabilities vs the plain fp32 path: max abs err {err:.3e} "
+          f"(budget {F32_PROB_TOL})", flush=True)
+    check(err <= F32_PROB_TOL, f"{what}: max abs probability error {err:.3e} <= "
+                               f"{F32_PROB_TOL}")
+    result = ws / f"result_fp32_{cfg.name}.txt"
+    results.write_results(result, probs)
+    mismatches = results.compare_result_files(result, ws / "answer.txt", verbose=False)
+    check(mismatches == 0, f"{what}: comparator against the fp32 answer file: "
+                           f"{mismatches} mismatches")
+    return counts
+
+
+def fp32_training(dev) -> dict:
+    """Phase 3i's training: ``Trainer(compute_dtype=torch.float32)`` on
+    ViT-B/16 in each of F32_ROUTES, F32_TRAIN_STEPS AdamW steps at
+    F32_TRAIN_BATCH on a memorised batch (the loss falls; the launches of
+    those steps), then one step against the plain links (phase 5's gates)."""
+    images, labels = train_batch(F32_TRAIN_BATCH, seed=3, cfg=CFG)
+    start = start_params(CFG, 1, dev)
+    counts = {}
+    for route in F32_ROUTES:
+        logs = []
+        tr = Trainer(CFG, device=dev, lr=TRAIN_LR, optimizer="adamw",
+                     compute_dtype=torch.float32, attention_impl=route,
+                     log_every=1, log_fn=logs.append, seed=0)
+        batches = data.memory_dataset(images, labels, F32_TRAIN_BATCH, epochs=None,
+                                      seed=1)
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        tr.fit(batches, steps=F32_TRAIN_STEPS)
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+        counts[route] = read_counts()
+        losses = [float(line.split("loss ")[1].split(",")[0]) for line in logs]
+        print(f"  fp32 {route}: {F32_TRAIN_STEPS} steps at B={F32_TRAIN_BATCH} in "
+              f"{elapsed:.2f} s; losses {' '.join(f'{v:.4f}' for v in losses)}",
+              flush=True)
+        check(len(losses) == F32_TRAIN_STEPS and all(np.isfinite(losses))
+              and losses[-1] < losses[0],
+              f"fp32 {route}: the loss falls over {F32_TRAIN_STEPS} steps "
+              f"({losses[0]:.4f} -> {losses[-1]:.4f})")
+        expected = {key: F32_TRAIN_PER_LAYER[route].get(key, 0) * CFG.depth
+                    * F32_TRAIN_STEPS for key in COUNTERS}
+        check(counts[route] == expected, f"fp32 {route}: launches of {F32_TRAIN_STEPS} "
+                                         f"steps {counts[route]}, expected {expected}")
+        one_step_vs_plain(tr, f"{route} fp32", images, labels, start)
+        del tr
+        torch.cuda.empty_cache()
+    return counts
+
+
+def fp32_main_path(ws: Path, dev, rounded, images, ref_probs, tmp: Path) -> tuple:
+    """Phase 3i: fp32 compute on the card up to padded T = 1024. The fp32
+    ViT-B/16 engine (``InferenceEngine(param_dtype=torch.float32,
+    compute_dtype=torch.float32, attention_impl="flash")``: the per-layer
+    chain on the fp32 GEMM and the fp32 slab attention) on phase 3's
+    images, the fp32 ViT-Ti/16 stack on its own workspace (phase 3d's
+    weights), each against the plain fp32 path; then fp32 training. Returns
+    ({run: counts}, the ViT-B fp32 engine)."""
+    counts = {}
+    kw = dict(batch_size=SMOKE_BATCH, param_dtype=torch.float32,
+              compute_dtype=torch.float32, attention_impl="flash", device=dev)
+    engine = InferenceEngine(CFG, rounded, **kw)
+    counts["vit_b"] = fp32_engine_run(
+        engine, ws, images, ref_probs, CFG,
+        {key: n * CFG.depth for key, n in F32_PER_LAYER.items()},
+        f"{CFG.name} fp32 flash engine (per-layer chain)")
+    tiny = VIT_TINY_16_224
+    tiny_ws = tmp / f"{tiny.name}_fp32"
+    tiny_rounded, tiny_images, tiny_ref = make_workspace(
+        tiny_ws, dev, fixtures.random_params(tiny, seed=0), tiny)
+    tiny_engine = InferenceEngine(tiny, tiny_rounded, **kw)
+    counts["vit_ti"] = fp32_engine_run(
+        tiny_engine, tiny_ws, tiny_images, tiny_ref, tiny,
+        {"layernorm": 2 * tiny.depth, "linear_f32": 4 * tiny.depth,
+         "attention_f32": tiny.depth, "fused_block_stack": 1},
+        f"{tiny.name} fp32 flash engine (the stack)")
+    del tiny_engine
+    counts.update(fp32_training(dev))
+    return counts, engine
+
+
+def fp32_throughput(engine, rounded: dict, dev) -> None:
+    """Phase 4's fp32 row: the fp32 flash engine's forward at
+    F32_THROUGHPUT_BATCH beside the same forward on the xla route (plain
+    PyTorch, cuBLAS fp32 with TF32 off)."""
+    batch = F32_THROUGHPUT_BATCH
+    gen = torch.Generator(device=dev).manual_seed(batch)
+    images = torch.randn((batch, 3, CFG.img_size, CFG.img_size), generator=gen,
+                         device=dev)
+    xla = InferenceEngine(CFG, rounded, batch_size=batch, param_dtype=torch.float32,
+                          compute_dtype=torch.float32, attention_impl="xla", device=dev)
+    ms = time_ms(lambda: engine.forward(images), reps=5)
+    ms_xla = time_ms(lambda: xla.forward(images), reps=5)
+    print(f"throughput fp32 B={batch}: flash {batch / ms * 1e3:.1f} img/s ({ms:.3f} ms "
+          f"per forward); xla {batch / ms_xla * 1e3:.1f} img/s ({ms_xla:.3f} ms); "
+          f"flash/xla time {ms / ms_xla:.3f}x", flush=True)
+    print(json.dumps({"throughput": {
+        "mode": "fp32", "batch": batch, "img_per_s": batch / ms * 1e3, "forward_ms": ms,
+        "xla_img_per_s": batch / ms_xla * 1e3, "xla_forward_ms": ms_xla}}), flush=True)
+    del xla
+    torch.cuda.empty_cache()
 
 
 def long_inference_main_path(dev, tmp: Path, params: dict) -> dict:
@@ -4642,18 +5036,23 @@ def main() -> int:
     phase(f"== phase 2e: training kernels and backward stages vs plain versions, "
           f"B={SMOKE_BATCH}")
     train_rows = train_kernel_rows(SMOKE_BATCH, dev)
+    phase(f"== phase 2 (fp32): the fp32 forms of rows 3, 14a, 4 and 11 and row 14b's "
+          f"fp32 dtype set vs plain versions, B={' and '.join(map(str, F32_ROW_BATCHES))}; row 4 also at "
+          f"T={F32_ATTN_LONG[1]}, B={F32_ATTN_LONG[0]}")
+    f32_rows = fp32_rows(dev)
     with torch.inference_mode():
         phase(f"== phase 2k: the LN, LN backward and quantize kernels at the stacks', "
               f"ViT-L's (and all but the LN at ViT-H's and ViT-G's) widths vs their "
-              f"plain versions; the quantize, LN, ring step, fp32 attention and probe "
+              f"plain versions; the quantize, LN, ring step, fp32 attention, fp32 GEMM and probe "
               f"kernels' registers; device times of "
               f"rows 2, 5d, 14b, 14c, 5a, 6a and 6b at B={SMOKE_BATCH} (torch.profiler)")
         ln_width_rows(dev)
         quantize_width_rows(dev)
         masked_width_rows(dev)
         ln_bwd_width_rows(dev)
-        for src, no_spills in USAGE_SOURCES:
-            print_resource_usage(src, no_spills)
+        usages = resource_usages([src for src, _ in USAGE_SOURCES])
+        for (src, no_spills), kernels in zip(USAGE_SOURCES, usages):
+            print_resource_usage(src, kernels, no_spills)
         reduction_device_times(dev)
     phase("== phase 2f: training kernels at the larger presets' shapes (ViT-L/16@384, "
           "ViT-H/14, ViT-G/14) vs plain versions")
@@ -4724,6 +5123,12 @@ def main() -> int:
         phase("== phase 3h: the input side (libvitio and --pure-python, --raw-images, "
               "io.export --from-pth → cli)")
         input_side_main_path(ws, dev, rounded, ref_probs)
+        phase(f"== phase 3i: fp32 on the card (InferenceEngine(param_dtype=float32, "
+              f"compute_dtype=float32, attention_impl='flash') on {CFG.name} and "
+              f"{VIT_TINY_16_224.name}; Trainer(compute_dtype=float32) on {CFG.name} "
+              f"{' and '.join(F32_ROUTES)}, B={F32_TRAIN_BATCH})")
+        f32_counts, f32_engine = fp32_main_path(ws, dev, rounded, images, ref_probs,
+                                                Path(tmp))
         phase(f"== phase 5: training main path (Trainer, ViT-B/16, bf16, AdamW; "
               f"routes {', '.join(TRAIN_ROUTES)})")
         train_counts = training_main_path(dev, Path(tmp))
@@ -4757,8 +5162,11 @@ def main() -> int:
                                  "w8a8_outlier": outlier_engine}, dev)
         for cfg in SMALL_CFGS:
             small_throughput(cfg, small[cfg.name][1], dev)
+        fp32_throughput(f32_engine, rounded, dev)
+    del f32_engine
     phase("== phase 4b: training throughput")
     training_throughput(dev)
+    training_throughput(dev, routes=("fused", "xla"), compute_dtype=torch.float32)
     print(f"  the training kernels at B={TRAIN_THROUGHPUT_BATCH}:", flush=True)
     train_kernel_rows(TRAIN_THROUGHPUT_BATCH, dev, seed=TRAIN_THROUGHPUT_BATCH)
     torch.cuda.empty_cache()
@@ -4886,6 +5294,14 @@ def main() -> int:
                                      f"B={RING_BATCH} ") and "first rotation" in r["name"]]
     # Phase 2j's rows, from the probe's main() at its full grid.
     runs += [(probe_counts, r) for r in probe_rows]
+    # Phase 2's fp32 rows at B = 16, from phase 3i: the forward forms from
+    # the fp32 ViT-B engine's run, the backward GEMM forms and the LN
+    # backward from the fp32 fused steps, the attention backward from the fp32 flash steps (its
+    # route's one backward kernel).
+    f32_runs = {"linear_f32": f32_counts["vit_b"], "attention_f32": f32_counts["vit_b"],
+                "attention_bwd_f32": f32_counts["flash"]}
+    runs += [(f32_runs.get(r["counter"], f32_counts["fused"]), r) for r in f32_rows
+             if r["record"]]
     # Phase 6c's stand-in rows at B = ATTR_BATCH, from the substituted
     # forward of the main path's engine that runs each.
     runs += [(stand_in_runs[r["counter"]], r) for r in stand_in]

@@ -132,10 +132,10 @@ def test_route_boundary_is_unchanged():
 
 # (T, packing, true_seq_len, route on the card for bf16 and for fp32).
 ROUTES = [
-    (197, "slab", None, "packed", "packed"),
-    (900, "slab", None, "packed", "packed"),
-    (1024, "slab", None, "packed", "packed"),
-    (1000, "slab", 1000, "packed", "packed"),
+    (197, "slab", None, "packed", "packed_f32"),
+    (900, "slab", None, "packed", "packed_f32"),
+    (1024, "slab", None, "packed", "packed_f32"),
+    (1000, "slab", 1000, "packed", "packed_f32"),
     (200, "slab", 197, "packed_kv", "single_pass"),
     (1024, "slab", 1001, "packed_kv", "single_pass"),
     (197, "per_head", None, "packed_kv", "single_pass"),
@@ -152,8 +152,10 @@ def test_packed_route_decision(t, packing, seq, bf16_route, f32_route):
     it: up to padded T = 1024 the packed kernel, by its slab entry over every
     key and by its key-count entry for per-head packing or
     ``true_seq_len``; past it the blockwise kernel. The packed kernel takes
-    bf16, so fp32 with a key count or per-head packing takes the
-    single-pass attention's fp32 kernel."""
+    bf16: fp32 slab packing over every key takes the fp32 slab entry
+    (``packed_f32``, the register-tiled fp32 body on the slabs), fp32 with
+    a key count or per-head packing the single-pass attention's fp32
+    kernel."""
     keys = attention._packed_checks(t, packing, seq)
     assert keys == (t if seq is None else seq)
     assert attention._packed_route(t, packing, keys, torch.bfloat16) == bf16_route

@@ -135,9 +135,16 @@ def test_fused_linear_kernel(dev, m, k, n, epilogue):
 
 
 def test_fused_linear_rejects_fp32(dev):
+    """fp32 x runs with an fp32 w (the fp32 GEMM: test_fused_linear_fp32_kernel);
+    fp32 x with a bf16 or int8 w, and bf16 x with an fp32 w, raise."""
     x = _rand((4, 8), dev)
     with pytest.raises(NotImplementedError):
-        linear.fused_linear(x, _rand((8, 8), dev))
+        linear.fused_linear(x, _rand((8, 8), dev, torch.bfloat16))
+    with pytest.raises(NotImplementedError):
+        linear.fused_linear(x.to(torch.bfloat16), _rand((8, 8), dev))
+    before = linear.LAUNCHES_F32
+    linear.fused_linear(x, _rand((8, 8), dev))
+    assert linear.LAUNCHES_F32 == before + 1
 
 
 @pytest.mark.parametrize("b,t,nh,hd", [(2, 37, 4, 16), (2, 197, 12, 64),
@@ -743,11 +750,15 @@ def test_packed_attention_bwd_is_deterministic(dev, b, t, nh, hd, out_dtype):
 
 
 def test_packed_attention_bwd_refuses(dev):
-    """fp32 inputs raise; any T runs (the kernels stream their tiles), as
-    JAX's function takes any T."""
+    """qkv and dO of two dtypes raise (fp32 ones run on the fp32 kernels:
+    test_packed_attention_bwd_fp32_kernel); any T runs (the kernels stream
+    their tiles), as JAX's function takes any T."""
     qkv = _rand((1, 8, 3 * 64), dev, torch.bfloat16)
     with pytest.raises(NotImplementedError):
-        attention.packed_attention_bwd(qkv.float(), qkv[..., :64].float(), 4, 16)
+        attention.packed_attention_bwd(qkv.float(), qkv[..., :64].contiguous(), 4, 16)
+    before = attention.LAUNCHES_BWD_F32
+    attention.packed_attention_bwd(qkv.float(), qkv[..., :64].float(), 4, 16)
+    assert attention.LAUNCHES_BWD_F32 == before + 1
     big = _rand((1, 900, 3 * 64), dev, torch.bfloat16)
     do = big[..., :64].contiguous()
     out = attention.packed_attention_bwd(big, do, 1, 64)
@@ -960,10 +971,12 @@ def test_packed_attention_key_count_entry_is_the_single_pass_function(dev, t, kv
 
 def test_long_sequences_route_to_the_flash_kernels(dev):
     """Past SINGLE_PASS_MAX_T the packed and the trainable attention launch
-    the blockwise kernels and not the packed ones; fp32 inputs raise. In the
-    window of 849-1024 tokens at hd 64, where JAX keeps the one-shot route
-    and the packed kernel's first form ran out of shared memory, the packed
-    kernel runs (this test raised there before any kernel took it)."""
+    the blockwise kernels and not the packed ones; fp32 inputs raise there
+    (the blockwise kernels take bf16). In the window of 849-1024 tokens at
+    hd 64, where JAX keeps the one-shot route and the packed kernel's first
+    form ran out of shared memory, the packed kernel runs (this test raised
+    there before any kernel took it), and fp32 runs on the fp32 slab
+    entry."""
     qkv = _rand((1, 1025, 3 * 64), dev, torch.bfloat16)
     counts = lambda: (attention.LAUNCHES, attention.LAUNCHES_BWD,  # noqa: E731
                       attention.LAUNCHES_FLASH, attention.LAUNCHES_FLASH_LSE,
@@ -993,6 +1006,12 @@ def test_long_sequences_route_to_the_flash_kernels(dev):
     torch.cuda.synchronize()
     assert (attention.LAUNCHES, attention.LAUNCHES_SINGLE) == (launches[0] + 1, launches[1])
     _close(out, attention.packed_fused_attention_reference(window, 1, 64))
+    before = attention.LAUNCHES_PACKED_F32
+    out = attention.packed_fused_attention(window.float(), num_heads=1, head_dim=64)
+    torch.cuda.synchronize()
+    assert attention.LAUNCHES_PACKED_F32 == before + 1
+    _rel_close(out, attention.packed_fused_attention_reference(window.float(), 1, 64),
+               SINGLE_F32_REL)
 
 
 # The single-pass kernel (flash_attention up to T = 1024, and the packed
@@ -2318,3 +2337,195 @@ def test_attribute_forward_on_the_card(dev):
     assert torch.equal(before, after)
     for key in ("gelu_share", "softmax_share", "vpu_share"):
         assert 0.0 <= a[key] <= 1.0
+
+
+# -- fp32 up to padded T = 1024: the fp32 GEMM (csrc/gemm_f32.cu), the fp32
+# slab entry of the packed attention and the fp32 attention backward
+# (csrc/attention_bwd_f32.cu). Plain fp32 FMA against the plain versions'
+# library matmuls (TF32 off): another summation order, held to F32_GEMM_REL
+# of each output's largest magnitude (measured below 3e-6 at ViT-B shapes on
+# an H100 80GB HBM3); bf16 outputs as the bf16 kernels'.
+F32_GEMM_REL = 2e-5
+
+
+@pytest.mark.parametrize("m,k,n", [(74, 64, 192), (394, 768, 2304), (33, 40, 24),
+                                   (1, 3072, 768), (3152, 3072, 768)] + WIDE_GEMMS)
+@pytest.mark.parametrize("epilogue", ["bias", "gelu", "res_f32", "res_bf16",
+                                      "res_bf16_out"])
+def test_fused_linear_fp32_kernel(dev, m, k, n, epilogue):
+    x = _rand((m, k), dev)
+    w = _rand((k, n), dev, std=0.05, seed=1)
+    b = _rand((n,), dev, std=0.1, seed=2)
+    kw = {"fuse_gelu": epilogue == "gelu"}
+    if epilogue.startswith("res"):
+        rdt = torch.float32 if epilogue == "res_f32" else torch.bfloat16
+        kw["residual"] = _rand((m, n), dev, rdt, seed=3)
+        if epilogue == "res_bf16_out":
+            kw["out_dtype"] = torch.bfloat16
+    before = linear.LAUNCHES_F32
+    out = linear.fused_linear(x, w, b, **kw)
+    torch.cuda.synchronize()
+    assert linear.LAUNCHES_F32 == before + 1
+    ref = linear.fused_linear_reference(x, w, b, **kw)
+    if out.dtype == torch.bfloat16:
+        _close(out, ref)
+    else:
+        _rel_close(out, ref, F32_GEMM_REL)
+    assert torch.equal(out, linear.fused_linear(x, w, b, **kw))
+
+
+@pytest.mark.parametrize("m,k,n", [(74, 64, 192), (3152, 768, 2304),
+                                   (3152, 3072, 768), (33, 40, 24),
+                                   (40, 768, 768)] + WIDE_GEMMS)
+@pytest.mark.parametrize("form", ["dgrad", "dgrad_gelu_f32", "dgrad_gelu_bf16",
+                                  "wgrad", "fc1"])
+def test_grad_gemm_fp32_kernels(dev, m, k, n, form):
+    """The fp32 GEMM's backward forms, each with its own count, the same
+    bits over two calls: dgrad dY [m, n] · Wᵀ (W [k, n]) with the GELU
+    gradient and a second output in fp32 or bf16; wgrad Xᵀ [k, m] · dY
+    [m, n] (split over the tokens where _wgrad_splits says so); the fc1
+    recompute X [m, k] · W2 [k, n] + b with its fp32 GELU'd copy."""
+    x = _rand((m, k), dev)
+    dy = _rand((m, n), dev, seed=1)
+    w = _rand((k, n), dev, std=0.05, seed=2)
+    if form.startswith("dgrad"):
+        kw = {}
+        if form != "dgrad":
+            kw = dict(gelu_grad_of=_rand((m, k), dev, seed=3),
+                      out2_dtype=torch.float32 if form.endswith("f32") else torch.bfloat16)
+        call = lambda: linear.linear_dgrad(dy, w, **kw)  # noqa: E731
+        plain = linear.linear_dgrad_reference(dy, w, **kw)
+        counter = "LAUNCHES_DGRAD_F32"
+    elif form == "wgrad":
+        call = lambda: linear.linear_wgrad(x, dy)  # noqa: E731
+        plain = linear.linear_wgrad_reference(x, dy)
+        counter = "LAUNCHES_WGRAD_F32"
+    else:
+        b = _rand((n,), dev, std=0.1, seed=4)
+        call = lambda: linear.fused_linear_with_gelu(x, w, b)  # noqa: E731
+        plain = linear.fused_linear_with_gelu_reference(x, w, b)
+        counter = "LAUNCHES_GELU_PAIR_F32"
+    before = getattr(linear, counter)
+    out = call()
+    torch.cuda.synchronize()
+    assert getattr(linear, counter) == before + 1
+    outs = out if isinstance(out, tuple) else (out,)
+    refs = plain if isinstance(plain, tuple) else (plain,)
+    for o, r in zip(outs, refs):
+        assert o.dtype == r.dtype
+        if o.dtype == torch.bfloat16:
+            _close(o, r)
+        else:
+            _rel_close(o, r, F32_GEMM_REL)
+    again = call()
+    for o, a in zip(outs, again if isinstance(again, tuple) else (again,)):
+        assert torch.equal(o, a)
+
+
+def test_grad_gemm_fp32_refuses_mixed_operands(dev):
+    with pytest.raises(NotImplementedError):
+        linear.linear_dgrad(_rand((8, 16), dev), _rand((8, 16), dev, torch.bfloat16))
+    with pytest.raises(NotImplementedError):
+        linear.linear_wgrad(_rand((8, 16), dev), _rand((8, 16), dev, torch.bfloat16))
+
+
+@pytest.mark.parametrize("k,n", [(768, 768), (3072, 768), (768, 2304)])
+def test_wgrad_fp32_is_deterministic(dev, k, n):
+    """The fp32 weight gradient at ViT-B's B = 64: its split partials are
+    summed by the same fixed-order kernel as the bf16 form's."""
+    m = 64 * 197
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    x = _rand((m, k), dev)
+    dy = _rand((m, n), dev, seed=1)
+    before = linear.LAUNCHES_WGRAD_F32
+    first = linear.linear_wgrad(x, dy)
+    torch.cuda.synchronize()
+    assert linear.LAUNCHES_WGRAD_F32 == before + 1
+    assert torch.equal(first, linear.linear_wgrad(x, dy))
+    full, splits, split_k = linear._wgrad_splits(m, k, n, sms)
+    if splits > 1:
+        # The split's order of sums, which the kernel keeps.
+        _rel_close(first, linear.linear_wgrad_split_reference(x, dy, full, splits,
+                                                              split_k), F32_GEMM_REL)
+    _rel_close(first, linear.linear_wgrad_reference(x, dy), F32_GEMM_REL)
+
+
+@pytest.mark.parametrize("b,t,nh,hd", [(2, 37, 4, 16), (16, 197, 12, 64),
+                                       (1, 50, 2, 104), (1, 130, 2, 128),
+                                       (8, 577, 16, 64), (1, 1000, 1, 80),
+                                       (1, 1024, 2, 64), (3, 1, 2, 16)])
+def test_packed_attention_fp32_kernel(dev, b, t, nh, hd):
+    """fp32 slab packing over every key on the fp32 slab entry, at ViT-B's
+    T, ViT-L/16@384's and the route's last, ragged T and head dims."""
+    qkv = _rand((b, t, 3 * nh * hd), dev, seed=t + hd)
+    launches = (attention.LAUNCHES, attention.LAUNCHES_SINGLE, attention.LAUNCHES_PACKED_F32)
+    out = attention.packed_fused_attention(qkv, num_heads=nh, head_dim=hd)
+    torch.cuda.synchronize()
+    assert (attention.LAUNCHES, attention.LAUNCHES_SINGLE,
+            attention.LAUNCHES_PACKED_F32) == (launches[0], launches[1], launches[2] + 1)
+    _rel_close(out, attention.packed_fused_attention_reference(qkv, nh, hd), SINGLE_F32_REL)
+    assert torch.equal(out, attention.packed_fused_attention(qkv, num_heads=nh, head_dim=hd))
+
+
+@pytest.mark.parametrize("b,t,nh,hd", [(2, 37, 4, 16), (16, 197, 12, 64),
+                                       (1, 50, 2, 104), (1, 197, 2, 128),
+                                       (2, 577, 16, 64), (1, 257, 2, 80),
+                                       (1, 1024, 2, 64), (1, 1, 2, 16),
+                                       (1, 65, 2, 48)])
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+def test_packed_attention_bwd_fp32_kernel(dev, b, t, nh, hd, out_dtype):
+    """The fp32 backward's dq and dK/dV kernels at ViT-B's T, the presets'
+    and the route's last, tiles of 64 rows, T not a multiple of them;
+    dqkv in fp32 or bf16; the same bits over two calls."""
+    qkv = _rand((b, t, 3 * nh * hd), dev, seed=t + hd)
+    do = _rand((b, t, nh * hd), dev, std=0.01, seed=t + hd + 1)
+    before = (attention.LAUNCHES_BWD, attention.LAUNCHES_BWD_F32)
+    out = attention.packed_attention_bwd(qkv, do, nh, hd, out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    assert (attention.LAUNCHES_BWD, attention.LAUNCHES_BWD_F32) == (before[0], before[1] + 1)
+    assert out.dtype == out_dtype
+    ref = attention.packed_attention_bwd_reference(qkv, do, nh, hd, out_dtype=out_dtype)
+    if out_dtype == torch.bfloat16:
+        _close(out, ref, min_same=MIN_SAME_KERNEL,
+               tol=dict(rtol=1.6e-2, atol=1e-2 * float(ref.float().abs().max())))
+    else:
+        _rel_close(out, ref, F32_GEMM_REL)
+    assert torch.equal(out, attention.packed_attention_bwd(qkv, do, nh, hd,
+                                                           out_dtype=out_dtype))
+
+
+def test_fp32_trainable_attention_and_layer_on_card(dev):
+    """fp32 training's two routes at a small width: the trainable packed
+    attention (fp32 slab forward, fp32 backward) and the trainable fused
+    layer (the fp32 GEMM's four forms, the fp32 attention both ways, the
+    LN backward's general form and the column sums) against their plain
+    versions."""
+    cfg = ViTConfig(name="bwd32", img_size=32, patch_size=8, embed_dim=64,
+                    depth=1, num_heads=4, num_classes=9)
+    qkv = _rand((2, 197, 192), dev, seed=8).requires_grad_(True)
+    before = (attention.LAUNCHES_PACKED_F32, attention.LAUNCHES_BWD_F32)
+    attention.packed_fused_attention_trainable(qkv, 4, 16).square().sum().backward()
+    torch.cuda.synchronize()
+    assert (attention.LAUNCHES_PACKED_F32, attention.LAUNCHES_BWD_F32) == (
+        before[0] + 1, before[1] + 1)
+    out = attention.packed_fused_attention_reference(qkv.detach(), 4, 16)
+    ref = attention.packed_attention_bwd_reference(qkv.detach(), 2 * out, 4, 16)
+    _rel_close(qkv.grad, ref, F32_GEMM_REL)
+
+    lp = {k: v.requires_grad_(True) for k, v in _train_layer(cfg, dev).items()}
+    x = _rand((2, cfg.num_tokens, 64), dev, std=0.5, seed=6).requires_grad_(True)
+    names = ("LAUNCHES_F32", "LAUNCHES_DGRAD_F32", "LAUNCHES_WGRAD_F32",
+             "LAUNCHES_GELU_PAIR_F32")
+    before = [getattr(linear, n) for n in names]
+    out = fused_block.fused_encoder_layer_trainable(x, lp, cfg)
+    out.square().sum().backward()
+    torch.cuda.synchronize()
+    # The forward's 4 GEMMs, the backward's recomputes (qkv and out-proj for
+    # x2, qkv again in the attention stage); 4 dgrads, 4 wgrads, the fc1
+    # recompute.
+    assert [getattr(linear, n) - b for n, b in zip(names, before)] == [7, 4, 4, 1]
+    ref_dx, ref = fused_block.fused_encoder_layer_bwd_reference(
+        x.detach(), {k: v.detach() for k, v in lp.items()}, 2 * out.detach(), cfg)
+    _rel_close(x.grad, ref_dx, F32_GEMM_REL)
+    for key, v in lp.items():
+        _rel_close(v.grad, ref[key], 1e-4)

@@ -93,6 +93,34 @@ def test_engine_pads_the_last_batch(small, route):
     assert engine.run(images[:0]).shape == (0, CFG.num_classes)
 
 
+def test_fp32_flash_engine_matches_jax_engine(small):
+    """The engine's fp32 mode (``param_dtype`` and ``compute_dtype`` fp32,
+    ``attention_impl="flash"``: on the card the fp32 GEMM and the fp32
+    packed attention in the encoder's chain) on the CPU, against the JAX
+    engine in the same mode (its Pallas kernels in interpret mode), on a
+    2-layer config. Tolerance: fp32 summation order, 1e-6 on probabilities
+    over 1000 classes (measured about 1e-8)."""
+    import dataclasses
+
+    import jax.numpy as jnp
+
+    from vit_with_opencl_tpu import ViTConfig as JViTConfig
+    from vit_with_opencl_tpu.engine import InferenceEngine as JInferenceEngine
+
+    params, images, ref = small
+    jcfg = JViTConfig(**dataclasses.asdict(CFG))
+    want = JInferenceEngine(jcfg, params, batch_size=2, param_dtype=jnp.float32,
+                            compute_dtype=jnp.float32,
+                            attention_impl="flash").run(images)
+    engine = InferenceEngine(CFG, params, batch_size=2, param_dtype=torch.float32,
+                             compute_dtype=torch.float32, attention_impl="flash",
+                             device="cpu")
+    got = engine.run(images)
+    assert got.shape == want.shape == ref.shape
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
+    assert (got.argmax(-1) == want.argmax(-1)).all()
+
+
 def test_engine_normalize_uint8(small):
     params, _, _ = small
     raw = np.random.default_rng(9).integers(0, 256, (3, 3, 32, 32), dtype=np.uint8)

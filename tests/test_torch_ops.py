@@ -134,6 +134,25 @@ def test_packed_attention_matches_jax(no_launches, dtype):
         _assert_bf16_close(out, ref)
 
 
+@pytest.mark.parametrize("t", [197, 1024])
+def test_packed_attention_fp32_slab_matches_jax(no_launches, t):
+    """fp32 slab packing over every key at ViT-B's T and at the packed
+    route's last T: on the card the fp32 slab entry
+    (``vit_packed_attention_f32``), here its plain version, against JAX's
+    ``_packed_kernel`` in interpret mode. Tolerance: fp32 summation order
+    (2e-5 on outputs of unit scale)."""
+    rng = np.random.default_rng(t)
+    nh, hd = 2, 64
+    qkv = rng.normal(0, 1, (1, t, 3 * nh * hd)).astype(np.float32)
+    tq, jq = _pair(qkv, "f32")
+    assert attention._packed_route(t, "slab", t, torch.float32) == "packed_f32"
+    ref = jattention.packed_fused_attention(jq, num_heads=nh, head_dim=hd,
+                                            interpret=True)
+    out = attention.packed_fused_attention(tq, num_heads=nh, head_dim=hd)
+    assert out.shape == (1, t, nh * hd) and out.dtype == torch.float32
+    np.testing.assert_allclose(_np(out), _np(ref), atol=2e-5)
+
+
 def test_packed_attention_unported_options_raise():
     """What the JAX package refuses, the port refuses: per-head packing past
     padded T = 1024 (the blockwise route takes slabs only) and an unknown

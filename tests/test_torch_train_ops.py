@@ -125,7 +125,7 @@ def _layer(seed=7):
 MIN_SAME_ATTN_BWD = 0.9
 
 
-@pytest.mark.parametrize("t", [17, 37])
+@pytest.mark.parametrize("t", [17, 37, 197])
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
 def test_packed_attention_bwd_matches_jax(t, dtype):
     tdt, jdt = DTYPES[dtype]
@@ -293,6 +293,47 @@ def test_gemm_forms_match_jnp():
     _close(thid, jfused._gelu_fast(jpre).astype(jnp.bfloat16), BF16_REL, 0.97,
            "hidc")
     assert thid.dtype == bf
+
+
+@pytest.mark.parametrize("out2", ["f32", "bf16"])
+def test_gemm_forms_fp32_match_jnp(out2):
+    """The fp32 GEMM's forms (csrc/gemm_f32.cu on the card, here their
+    plain versions) on fp32 operands against the same fp32 products in jnp,
+    JAX's ``_dot`` in fp32: dgrad with the GELU gradient and its second
+    output in fp32 or bf16, wgrad, and the fc1 recompute with its GELU'd
+    second output in fp32 or bf16. fp32 outputs within F32_REL of scale
+    (summation order); bf16 ones as the bf16 forms'."""
+    x = _rand((2 * T, 64), 23)
+    dy = _rand((2 * T, 256), 24)
+    w = _rand((64, 256), 25, std=0.05)
+    bias = _rand((256,), 26, std=0.1)
+    pre = _rand((2 * T, 64), 27)
+    f32 = jnp.float32
+    tdt, jdt = DTYPES[out2]
+    jx, jdy, jw = jnp.asarray(x), jnp.asarray(dy), jnp.asarray(w)
+    hi = jax.lax.Precision.HIGHEST
+    want = jnp.dot(jdy, jw.T, precision=hi) * jfused._gelu_fast_grad(jnp.asarray(pre))
+    got, got2 = linear.linear_dgrad(torch.from_numpy(dy), torch.from_numpy(w),
+                                    gelu_grad_of=torch.from_numpy(pre),
+                                    out2_dtype=tdt)
+    _close(got, want, F32_REL, what="dgrad")
+    assert got2.dtype == tdt
+    if out2 == "f32":
+        torch.testing.assert_close(got2, got, rtol=0, atol=0)
+    else:
+        _close(got2, want.astype(jdt), BF16_REL, 0.97, "dgrad bf16")
+    _close(linear.linear_wgrad(torch.from_numpy(x), torch.from_numpy(dy)),
+           jnp.dot(jx.T, jdy, precision=hi), F32_REL, what="wgrad")
+    jpre = jnp.dot(jx, jw, precision=hi) + jnp.asarray(bias)
+    tpre, thid = linear.fused_linear_with_gelu(
+        torch.from_numpy(x), torch.from_numpy(w), torch.from_numpy(bias),
+        out2_dtype=tdt)
+    _close(tpre, jpre, F32_REL, what="hid_pre")
+    assert thid.dtype == tdt and tpre.dtype == torch.float32
+    if out2 == "f32":
+        _close(thid, jfused._gelu_fast(jpre).astype(f32), F32_REL, what="hid")
+    else:
+        _close(thid, jfused._gelu_fast(jpre).astype(jdt), BF16_REL, 0.97, "hidc")
 
 
 # -- the weight gradients' split-K (csrc/gemm_sm90.cuh) ----------------------

@@ -45,6 +45,7 @@ constexpr int kQ = 64;          // queries of a block
 constexpr int kK = 64;          // keys of a tile
 constexpr int kThreads = 256;   // 16 query groups x 16 key (or column) groups
 constexpr int kPPitch = 64 + 16;  // a row of p, in floats: two rows 16 banks apart
+static_assert(kQ == 64 && kK == 64, "the tiles below are 64 rows");
 
 // Shared memory of a block, in floats: q [kQ][HDP + 4], K 2 x [kK][HDP + 4],
 // V 2 x [kK][HDP + 4], p [kQ][kPPitch], bias 2 x [kK].
@@ -53,9 +54,10 @@ struct Geom {
   static constexpr int kChunks = HDP / 4;            // float4 columns of a row
   static constexpr int kCols = (kChunks + 15) / 16;  // a thread's float4 columns of o
   static constexpr int kPitch = HDP + 4;             // a row of q, K and V
-  static constexpr int kKs = kQ * kPitch;
-  static constexpr int kVs = kKs + 2 * kK * kPitch;
-  static constexpr int kP = kVs + 2 * kK * kPitch;
+  static constexpr int kTile = 64 * kPitch;          // a 64-row tile, in floats
+  static constexpr int kKs = kTile;
+  static constexpr int kVs = kKs + 2 * kTile;
+  static constexpr int kP = kVs + 2 * kTile;
   static constexpr int kBias = kP + kQ * kPPitch;
   static constexpr int kFloats = kBias + 2 * kK;
 };
@@ -101,6 +103,118 @@ __device__ __forceinline__ float group_sum(float v) {
 
 __device__ __forceinline__ float lane_of(const float4& v, int i) {
   return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+}
+
+// The tiling, shared with the fp32 attention backward (attention_bwd_f32.cu).
+// A 64-row tile is [64][kPitch] floats; a thread's rows are rg + 16 i of
+// one operand and cg + 16 j of the other (i, j < 4), rg = t / 16, cg = t % 16
+// (or the other way round).
+
+// Rows r0.. of a [rows, hd] view (rows ld floats apart) into a 64-row tile
+// and, where `two`, the same rows of a second view into a second tile (one
+// loop); zeros at and past row `end` and past hd, by 16-byte cp.async; the
+// copies join the caller's group.
+template <int HDP>
+__device__ __forceinline__ void load_rows(float* tile, const float* src, long long ld,
+                                          float* tile2, const float* src2, long long ld2,
+                                          bool two, int r0, int end, int hd, int t) {
+  using G = Geom<HDP>;
+  for (int i = t; i < 64 * G::kChunks; i += kThreads) {
+    const int r = i / G::kChunks, c = i % G::kChunks;
+    const bool ok = r0 + r < end && 4 * c < hd;
+    cp_async16(tile + r * G::kPitch + 4 * c, ok ? src + (r0 + r) * ld + 4 * c : src, ok);
+    if (two)
+      cp_async16(tile2 + r * G::kPitch + 4 * c, ok ? src2 + (r0 + r) * ld2 + 4 * c : src2, ok);
+  }
+}
+template <int HDP>
+__device__ __forceinline__ void load_rows(float* tile, const float* src, long long ld, int r0,
+                                          int end, int hd, int t) {
+  load_rows<HDP>(tile, src, ld, nullptr, nullptr, 0, false, r0, end, hd, t);
+}
+
+// sc[i][j] = the sum over d, in order, of R[rg + 16 i][d] * C[cg + 16 j][d]
+// (two tiles); kScaleC: C's values times `scale` first (each product
+// rounded).
+template <int HDP, bool kScaleC = false>
+__device__ __forceinline__ void products(const float* R, const float* C, int rg, int cg,
+                                         float scale, float (&sc)[4][4]) {
+  constexpr int kPitch = Geom<HDP>::kPitch;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) sc[i][j] = 0.f;
+#pragma unroll 4
+  for (int d = 0; d < HDP; d += 4) {
+    float4 rv[4], cv[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      rv[i] = *reinterpret_cast<const float4*>(R + (rg + 16 * i) * kPitch + d);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      cv[j] = *reinterpret_cast<const float4*>(C + (cg + 16 * j) * kPitch + d);
+      if (kScaleC) {
+        cv[j].x = __fmul_rn(cv[j].x, scale);
+        cv[j].y = __fmul_rn(cv[j].y, scale);
+        cv[j].z = __fmul_rn(cv[j].z, scale);
+        cv[j].w = __fmul_rn(cv[j].w, scale);
+      }
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          sc[i][j] = fmaf(lane_of(rv[i], e), lane_of(cv[j], e), sc[i][j]);
+  }
+}
+
+// o[i][..] += P[rg + 16 i][j] * V[j][..] over j < nk, in order, in steps of
+// 4 (P [64][kPPitch], its entries past nk zeros; V a tile), the float4
+// columns cg + 16 c of V.
+template <int HDP>
+__device__ __forceinline__ void accumulate(const float* P, const float* V, int rg, int cg,
+                                           int nk, float (&o)[4][4 * Geom<HDP>::kCols]) {
+  using G = Geom<HDP>;
+  for (int j = 0; j < nk; j += 4) {
+    float4 pr[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      pr[i] = *reinterpret_cast<const float4*>(P + (rg + 16 * i) * kPPitch + j);
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+      for (int c = 0; c < G::kCols; ++c) {
+        const int chunk = cg + 16 * c;
+        if (chunk < G::kChunks) {
+          const float4 vv =
+              *reinterpret_cast<const float4*>(V + (j + jj) * G::kPitch + 4 * chunk);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const float pw = lane_of(pr[i], jj);
+            o[i][4 * c] = fmaf(pw, vv.x, o[i][4 * c]);
+            o[i][4 * c + 1] = fmaf(pw, vv.y, o[i][4 * c + 1]);
+            o[i][4 * c + 2] = fmaf(pw, vv.z, o[i][4 * c + 2]);
+            o[i][4 * c + 3] = fmaf(pw, vv.w, o[i][4 * c + 3]);
+          }
+        }
+      }
+  }
+}
+
+// A step of a double-buffered stream of nsteps steps: step s + 1's copies
+// issued (fetch, which commits them), step s's landed, then a barrier.
+// The step's end is a barrier too: a buffer is refilled two steps on.
+template <typename Fetch>
+__device__ __forceinline__ void begin_step(const Fetch& fetch, int s, int nsteps) {
+  if (s + 1 < nsteps) {
+    fetch(s + 1);
+    cp_async_wait<1>();
+  } else {
+    cp_async_wait<0>();
+  }
+  __syncthreads();
 }
 
 // What the two entries pass. Single pass: q, k, v, out views (image b =
@@ -191,31 +305,14 @@ __device__ __forceinline__ void attention_f32(const Args& a) {
   auto fetch = [&](int s) {
     const int bi = s / (2 * nt), r = s % (2 * nt), tile = r % nt, buf = s & 1;
     const int j0 = bi * block_k + tile * kK, kend = min(bi * block_k + block_k, kv_len);
-    float* kt = ks0 + buf * kK * kPitch;
-    float* vt = vs0 + buf * kK * kPitch;
-    for (int i = t; i < kK * kChunks; i += kThreads) {
-      const int rr = i / kChunks, c = i % kChunks;
-      const bool ok = j0 + rr < kend && 4 * c < hd;
-      cp_async16(kt + rr * kPitch + 4 * c, ok ? kb + (j0 + rr) * a.ks.row + 4 * c : kb, ok);
-      if (r >= nt)
-        cp_async16(vt + rr * kPitch + 4 * c, ok ? vb + (j0 + rr) * a.vs.row + 4 * c : vb, ok);
-    }
+    load_rows<HDP>(ks0 + buf * G::kTile, kb, a.ks.row, vs0 + buf * G::kTile, vb, a.vs.row,
+                   r >= nt, j0, kend, hd, t);
     if (t < kK)
       bs0[buf * kK + t] = j0 + t < kend ? (kRing ? __ldg(a.bias + j0 + t) : 0.f) : -INFINITY;
     cp_async_commit();
   };
   int s = 0;
-  // A step's start (the next step's copies issued, this one's landed) and
-  // end (the buffers are refilled two steps on, p one step on).
-  auto begin_step = [&]() {
-    if (s + 1 < nsteps) {
-      fetch(s + 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-  };
+  // A step's end (the buffers are refilled two steps on, p one step on).
   auto end_step = [&]() {
     __syncthreads();
     ++s;
@@ -225,28 +322,7 @@ __device__ __forceinline__ void attention_f32(const Args& a) {
   // single pass's s + 0 (or -inf past kv_len).
   auto scores = [&](float (&sc)[4][4]) {
     const int buf = s & 1;
-    const float* kt = ks0 + buf * kK * kPitch;
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) sc[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < HDP; d += 4) {
-      float4 qv[4], kv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        qv[i] = *reinterpret_cast<const float4*>(qs + (qg + 16 * i) * kPitch + d);
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        kv[j] = *reinterpret_cast<const float4*>(kt + (kg + 16 * j) * kPitch + d);
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j)
-            sc[i][j] = fmaf(lane_of(qv[i], e), lane_of(kv[j], e), sc[i][j]);
-    }
+    products<HDP>(qs, ks0 + buf * G::kTile, qg, kg, 0.f, sc);
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const float bj = bs0[buf * kK + kg + 16 * j];
@@ -287,31 +363,7 @@ __device__ __forceinline__ void attention_f32(const Args& a) {
       lb[i] += ((p[0] + p[1]) + p[2]) + p[3];
     }
     __syncthreads();
-    const float* vt = vs0 + (s & 1) * kK * kPitch;
-    for (int j = 0; j < nk; j += 4) {
-      float4 pr[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        pr[i] = *reinterpret_cast<const float4*>(ps + (qg + 16 * i) * kPPitch + j);
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj)
-#pragma unroll
-        for (int c = 0; c < kCols; ++c) {
-          const int chunk = kg + 16 * c;
-          if (chunk < kChunks) {
-            const float4 vv =
-                *reinterpret_cast<const float4*>(vt + (j + jj) * kPitch + 4 * chunk);
-#pragma unroll
-            for (int i = 0; i < 4; ++i) {
-              const float pw = lane_of(pr[i], jj);
-              o[i][4 * c] = fmaf(pw, vv.x, o[i][4 * c]);
-              o[i][4 * c + 1] = fmaf(pw, vv.y, o[i][4 * c + 1]);
-              o[i][4 * c + 2] = fmaf(pw, vv.z, o[i][4 * c + 2]);
-              o[i][4 * c + 3] = fmaf(pw, vv.w, o[i][4 * c + 3]);
-            }
-          }
-        }
-    }
+    accumulate<HDP>(ps, vs0 + (s & 1) * G::kTile, qg, kg, nk, o);
   };
   // The block is done: l' = a * l + rowsum(p).
   auto move_sum = [&]() {
@@ -333,7 +385,7 @@ __device__ __forceinline__ void attention_f32(const Args& a) {
     // Pass 1: the block's exact max; pass 2: S again, p and p . V.
     for (int tile = 0; tile < nt; ++tile) {
       float sc[4][4];
-      begin_step();
+      begin_step(fetch, s, nsteps);
       scores(sc);
       max_into(sc);
       end_step();
@@ -341,7 +393,7 @@ __device__ __forceinline__ void attention_f32(const Args& a) {
     move_max();
     for (int tile = 0; tile < nt; ++tile) {
       float sc[4][4];
-      begin_step();
+      begin_step(fetch, s, nsteps);
       scores(sc);
       pv(sc, min(kK, kend - (k0 + tile * kK)));
       end_step();

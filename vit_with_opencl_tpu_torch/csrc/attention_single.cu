@@ -27,6 +27,15 @@
 // passes over double-buffered 64-key tiles (the exact row max, then e, its
 // sum and e . V). Bound on the card: operations (fp32 at ViT-B's T = 197,
 // B = 16: 1.9 GFLOP, 0.0285 ms at 67 TFLOP/s).
+//
+// The fp32 slab entry (vit_packed_attention_f32) is the same body on the
+// packed [B, T, 3D] qkv over every key: it replaces
+// vit_with_opencl_tpu/ops/attention.py:_packed_kernel (packed_fused_attention
+// with slab packing, T <= 1024) in fp32, whose per-head arithmetic is
+// _head_attention's, this function's with kv_len = T (in fp32 the scale and
+// the PV operand round nowhere). Head h's q, k and v are the views at
+// columns h hd, D + h hd and 2 D + h hd of rows 3 D floats apart; the
+// context goes to columns h hd of [B, T, D].
 #include "attention_f32.cuh"
 
 namespace vit {
@@ -92,4 +101,19 @@ VIT_EXPORT int vit_single_pass_attention(const void* q, const void* k, const voi
     case 128: return launch_f32<128>(q, k, v, out, views, B, num_heads, T, kv_len, head_dim, scale, s);
     default: return cudaErrorInvalidValue;
   }
+}
+
+// qkv [B, T, 3D] fp32, slab-packed -> out [B, T, D] fp32, every key of each
+// head (packed_fused_attention's slab route in fp32). `scale` is
+// float32(1/sqrt(head_dim)); head_dim a multiple of 8 up to 128.
+VIT_EXPORT int vit_packed_attention_f32(const float* qkv, float* out, int B, int T,
+                                        int num_heads, int head_dim, float scale,
+                                        void* stream) {
+  if (B <= 0 || T <= 0 || num_heads <= 0 || head_dim % 8 != 0 || head_dim > 128)
+    return cudaErrorInvalidValue;
+  const long long D = static_cast<long long>(num_heads) * head_dim;
+  const long long strides[12] = {T * 3 * D, head_dim, 3 * D, T * 3 * D, head_dim, 3 * D,
+                                 T * 3 * D, head_dim, 3 * D, T * D,     head_dim, D};
+  return vit_single_pass_attention(qkv, qkv + D, qkv + 2 * D, out, vit::kF32, strides, B,
+                                   num_heads, T, T, head_dim, scale, stream);
 }

@@ -37,6 +37,21 @@ __global__ void wgrad_split_sum_kernel(const float4* __restrict__ parts,
   }
 }
 
+// The fixed-order sum of a split weight gradient's partials into out [M,
+// N], for every GEMM whose split tiles are kBM x kBN (this core's and the
+// fp32 GEMM's, gemm_f32.cu).
+cudaError_t launch_wgrad_split_sum(const float* parts, float* out, int M, int N, int full,
+                                   int splits, cudaStream_t s) {
+  if (splits < 2) return cudaErrorInvalidValue;
+  const int tiles_n = (N + sm90::kBN - 1) / sm90::kBN;
+  const int rest = ((M + sm90::kBM - 1) / sm90::kBM) * tiles_n - full;
+  const long long n4 = static_cast<long long>(rest) * sm90::kBM * sm90::kBN / 4;
+  const long long blocks = (n4 + 255) / 256;
+  wgrad_split_sum_kernel<<<static_cast<int>(blocks < 4096 ? blocks : 4096), 256, 0, s>>>(
+      reinterpret_cast<const float4*>(parts), out, M, N, tiles_n, full, rest, splits);
+  return cudaGetLastError();
+}
+
 }  // namespace vit
 
 // out [M, N] = epilogue(x [M, K] @ w [K, N]) in bf16 with fp32 accumulation;
@@ -134,12 +149,5 @@ VIT_EXPORT int vit_gemm_grad(const void* a, int a_trans, const void* b, int b_tr
   cudaError_t err = sm90::launch_gemm<true, true>(a, b, M, N, K, full, splits,
                                                   split_k / sm90::kBK, parts, ep, s);
   if (err != cudaSuccess) return err;
-  const int tiles_n = (N + sm90::kBN - 1) / sm90::kBN;
-  const int rest = ((M + sm90::kBM - 1) / sm90::kBM) * tiles_n - full;
-  const long long n4 = static_cast<long long>(rest) * sm90::kBM * sm90::kBN / 4;
-  const long long blocks = (n4 + 255) / 256;
-  wgrad_split_sum_kernel<<<static_cast<int>(blocks < 4096 ? blocks : 4096), 256, 0, s>>>(
-      reinterpret_cast<const float4*>(parts), static_cast<float*>(out), M, N, tiles_n,
-      full, rest, splits);
-  return cudaGetLastError();
+  return launch_wgrad_split_sum(parts, static_cast<float*>(out), M, N, full, splits, s);
 }

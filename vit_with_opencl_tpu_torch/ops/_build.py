@@ -60,6 +60,13 @@ SIGNATURES = {
     # x, w (int8), w_scale, bias, residual, residual_kind, out, out_bf16,
     # gelu, M, N, K, stream
     "vit_linear_int8w": [_P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _P],
+    # The fp32 GEMM (csrc/gemm_f32.cu): x, w, bias, residual, residual_kind,
+    # out, out_bf16, gelu, M, N, K, stream
+    "vit_linear_f32": [_P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _P],
+    # a, a_trans, b, b_trans, bias, gelu_grad_of, out, out_bf16, out2,
+    # out2_bf16, out2_gelu, M, N, K, full, splits, split_k, workspace, stream
+    "vit_gemm_grad_f32": [_P, _I, _P, _I, _P, _P, _P, _I, _P, _I, _I, _I, _I,
+                          _I, _I, _I, _I, _P, _P],
     # xq, x_scale, w (int8, K-major), ldw, w_scale, x_hi, w_hi, K_hi, bias,
     # residual, residual_kind, out, out_bf16, gelu, M, N, K, stream
     "vit_linear_w8a8": [_P, _P, _P, _I, _P, _P, _P, _I, _P, _P, _I, _P, _I,
@@ -68,6 +75,9 @@ SIGNATURES = {
     "vit_packed_attention_bf16": [_P, _P, _I, _I, _I, _I, _F, _P],
     # qkv, out, B, T, kv_len, num_heads, head_dim, per_head, scale, stream
     "vit_packed_attention_kv": [_P, _P, _I, _I, _I, _I, _I, _I, _F, _P],
+    # The fp32 slab entry (csrc/attention_single.cu): qkv, out, B, T,
+    # num_heads, head_dim, scale, stream
+    "vit_packed_attention_f32": [_P, _P, _I, _I, _I, _I, _F, _P],
     # The slab entry's constant-scale stand-in: qkv, out, B, T, num_heads,
     # head_dim, scale, the weight a key (float32(1/T)), stream
     "vit_packed_attention_const": [_P, _P, _I, _I, _I, _I, _F, _F, _P],
@@ -83,6 +93,9 @@ SIGNATURES = {
     # qkv, dout, dqkv, dqkv_dtype, stats, B, T, num_heads, head_dim,
     # q_scale, ds_scale, stream
     "vit_packed_attention_bwd": [_P, _P, _P, _I, _P, _I, _I, _I, _I, _F, _F, _P],
+    # Its fp32 form (csrc/attention_bwd_f32.cu): qkv, dout, dqkv, dqkv_dtype,
+    # stats, B, T, num_heads, head_dim, scale, stream
+    "vit_packed_attention_bwd_f32": [_P, _P, _P, _I, _P, _I, _I, _I, _I, _F, _P],
     # qkv, out, lse (or NULL), B, T, kv_len, num_heads, head_dim, block_k,
     # scale, stream
     "vit_flash_attention_fwd": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P],
@@ -205,12 +218,12 @@ def resource_usage(source: str) -> list[dict]:
     loads, and the compiler's warnings printed while it was compiled (those
     before the first kernel go with it; a ``setmaxnreg`` that ptxas ignores
     says so there). Needs ``nvcc``; builds nothing that ``library()``
-    loads."""
+    loads. Calls for different sources may run at once (threads)."""
     nvcc = find_nvcc()
     if nvcc is None:
         raise RuntimeError("nvcc not found: ptxas reports need the CUDA toolkit")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    obj = BUILD_DIR / f"resource_usage_{os.getpid()}.o"
+    obj = BUILD_DIR / f"resource_usage_{os.getpid()}_{Path(source).stem}.o"
     try:
         proc = subprocess.run([nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-c",
                                str(CSRC_DIR / source), "-o", str(obj)],

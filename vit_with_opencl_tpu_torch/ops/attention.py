@@ -43,9 +43,13 @@ launches the packed kernel's slab entry; ``packing="per_head"`` (head h's
 q, k and v at columns h·3·hd + {0, 1, 2}·hd: the tensor-parallel layout)
 and ``true_seq_len`` (keys at and past it masked: a token axis that the
 caller already padded) launch its entry with a key count and a packing;
-both count under ``LAUNCHES``. The packed kernel takes bf16; fp32 inputs
-with per-head packing or a key count take the single-pass attention's fp32
-form on strided views of the packed buffer (``LAUNCHES_SINGLE``).
+both count under ``LAUNCHES``. The packed kernel takes bf16. fp32 slab
+packing over every key takes the fp32 slab entry
+(``vit_packed_attention_f32``, ``csrc/attention_single.cu``: the
+register-tiled CUDA-core body of ``csrc/attention_f32.cuh`` on the slabs'
+head views; its own count, ``LAUNCHES_PACKED_F32``); fp32 inputs with
+per-head packing or a key count take the single-pass attention's fp32 form
+on strided views of the packed buffer (``LAUNCHES_SINGLE``).
 
 ``blockwise_ring_step`` replaces ``_flash_carry_kernel``, the local step of
 ring attention (``ops/ring_attention.py``): one rotation's blockwise
@@ -57,14 +61,16 @@ its plain version is ``blockwise_ring_step_reference``.
 
 Every wrapper launches a kernel for a CUDA tensor and computes its plain
 version for a CPU tensor; there is no other fallback. Not ported yet: fp32
-inputs on the card other than the single-pass kernel's and the ring
-step's, and a blockwise key tile other than 128, 256 and 512 on the card;
-those raise ``NotImplementedError``.
+inputs to the blockwise kernels (past padded T = 1024), and a blockwise
+key tile other than 128, 256 and 512 on the card; those raise
+``NotImplementedError``.
 
 The backward, ``packed_attention_bwd``, replaces ``_packed_bwd_kernel``
-with the two kernels of ``csrc/attention_bwd.cu`` (plain version
-``packed_attention_bwd_reference``), which stream their tiles and so take
-any T; ``blockwise_attention_bwd`` replaces ``_flash_bwd_dq_kernel`` and
+with the two kernels of ``csrc/attention_bwd.cu`` for bf16 qkv and dO, and
+with the two of ``csrc/attention_bwd_f32.cu`` (the register-tiled fp32 body:
+a dq kernel and a dK/dV kernel, no TF32, ``LAUNCHES_BWD_F32``) for fp32
+ones (plain version ``packed_attention_bwd_reference``), which stream
+their tiles and so take any T; ``blockwise_attention_bwd`` replaces ``_flash_bwd_dq_kernel`` and
 ``_flash_bwd_dkv_kernel`` (JAX's ``blockwise_attention_bwd``) with the dq and
 dK/dV kernels of ``csrc/attention_flash.cu`` (TMA and wgmma: the dq kernel
 walks each head's K/V tiles once, the dK/dV kernel streams q and dO past
@@ -113,6 +119,10 @@ from . import _build, substitutions
 LAUNCHES = 0
 LAUNCHES_BWD = 0
 LAUNCHES_SINGLE = 0
+# The fp32 slab entry of the packed forward and the fp32 backward (one per
+# call: its two kernels).
+LAUNCHES_PACKED_F32 = 0
+LAUNCHES_BWD_F32 = 0
 LAUNCHES_FLASH = 0
 LAUNCHES_FLASH_LSE = 0
 LAUNCHES_FLASH_SPLIT = 0
@@ -236,14 +246,16 @@ def _packed_route(t: int, packing: str, seq: int, dtype: torch.dtype) -> str:
     ``seq`` keys: "blockwise" past padded T = 1024 (JAX's route there);
     below it the packed kernel, by its slab entry ("packed": slab packing,
     every key) or by its entry with a key count and a packing
-    ("packed_kv"); "single_pass" for fp32 inputs that need a key count or
-    per-head packing (the packed kernel takes bf16, the single-pass
-    attention also fp32)."""
+    ("packed_kv"); for fp32 inputs (the packed kernel takes bf16) the fp32
+    slab entry ("packed_f32": slab packing, every key) or the single-pass
+    attention's fp32 form ("single_pass": a key count or per-head
+    packing)."""
     if _is_long_seq(t):
         return "blockwise"
+    bf16 = dtype == torch.bfloat16
     if packing == "slab" and seq == t:
-        return "packed"
-    return "packed_kv" if dtype == torch.bfloat16 else "single_pass"
+        return "packed" if bf16 else "packed_f32"
+    return "packed_kv" if bf16 else "single_pass"
 
 
 # The head dims (rounded up to 16) at which the packed kernel's
@@ -412,6 +424,8 @@ def packed_fused_attention(
         single_pass_attention(q, k, v, hd, kv_len=seq,
                               out=out.view(b, t, nh, hd).permute(0, 2, 1, 3))
         return out
+    if route == "packed_f32":
+        return _packed_attention_f32(qkv, nh, hd)
     if qkv.dtype != torch.bfloat16:
         raise NotImplementedError(
             f"the CUDA attention kernel takes bf16 qkv, got {qkv.dtype}")
@@ -442,6 +456,30 @@ def packed_fused_attention(
             int(packing == "per_head"), scale)
     _build.check_launch(err, "packed_fused_attention")
     LAUNCHES += 1
+    return out
+
+
+def _packed_attention_f32(qkv: torch.Tensor, nh: int, hd: int) -> torch.Tensor:
+    """The fp32 slab route of ``packed_fused_attention`` (every key)."""
+    global LAUNCHES_PACKED_F32
+    if qkv.dtype != torch.float32:
+        raise NotImplementedError(
+            f"the fp32 packed attention takes fp32 qkv, got {qkv.dtype}")
+    if hd % 8 or hd > 128:
+        raise NotImplementedError(
+            f"head_dim {hd}: the kernel takes multiples of 8 up to 128")
+    _build.refuse_autograd("packed_fused_attention", (qkv,),
+                           "packed_fused_attention_trainable")
+    _build.require(qkv, "qkv", device=qkv.device, dtypes=(torch.float32,))
+    b, t, _ = qkv.shape
+    out = torch.empty((b, t, nh * hd), dtype=qkv.dtype, device=qkv.device)
+    if b == 0 or t == 0:
+        return out
+    err = _build.launch("vit_packed_attention_f32", qkv, qkv.data_ptr(),
+                        out.data_ptr(), b, t, nh, hd,
+                        _single_pass_scale(hd, torch.float32))
+    _build.check_launch(err, "packed_fused_attention (fp32)")
+    LAUNCHES_PACKED_F32 += 1
     return out
 
 
@@ -962,8 +1000,10 @@ def packed_attention_bwd(qkv: torch.Tensor, do: torch.Tensor, num_heads: int,
                          out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """Fused backward: (qkv [B, T, 3D], dO [B, T, D]) → dqkv [B, T, 3D] in
     ``out_dtype`` (default qkv's; the kernels write bf16 or fp32), at any T
-    (as the JAX function: the kernels stream q, k, v and dO tiles)."""
-    global LAUNCHES_BWD
+    (as the JAX function: the kernels stream q, k, v and dO tiles). qkv and
+    dO both bf16 (``csrc/attention_bwd.cu``) or both fp32
+    (``csrc/attention_bwd_f32.cu``, ``LAUNCHES_BWD_F32``)."""
+    global LAUNCHES_BWD, LAUNCHES_BWD_F32
     b, t, three_d = qkv.shape
     d = num_heads * head_dim
     if three_d != 3 * d or tuple(do.shape) != (b, t, d):
@@ -975,25 +1015,34 @@ def packed_attention_bwd(qkv: torch.Tensor, do: torch.Tensor, num_heads: int,
                                               out_dtype=out_dtype)
     if substitutions.SOFTMAX_IDENTITY:
         substitutions.refuse("packed_attention_bwd", "softmax_identity")
-    if qkv.dtype != torch.bfloat16 or do.dtype != torch.bfloat16:
+    if qkv.dtype != do.dtype or qkv.dtype not in _build.DTYPE_CODES:
         raise NotImplementedError(
-            f"the CUDA attention backward takes bf16 qkv and dO, got "
-            f"{qkv.dtype} and {do.dtype}")
+            f"the CUDA attention backward takes bf16 or fp32 qkv and dO of one "
+            f"dtype, got {qkv.dtype} and {do.dtype}")
     if out_dtype not in _build.DTYPE_CODES:
         raise TypeError(f"out_dtype {out_dtype} not in "
                         f"{tuple(_build.DTYPE_CODES)}")
     if head_dim % 8 or head_dim > 128:
         raise NotImplementedError(
             f"head_dim {head_dim}: the kernel takes multiples of 8 up to 128")
-    _build.require(qkv, "qkv", device=qkv.device, dtypes=(torch.bfloat16,))
-    _build.require(do, "do", device=qkv.device, dtypes=(torch.bfloat16,))
+    _build.require(qkv, "qkv", device=qkv.device, dtypes=(qkv.dtype,))
+    _build.require(do, "do", device=qkv.device, dtypes=(qkv.dtype,))
     out = torch.empty((b, t, 3 * d), dtype=out_dtype, device=qkv.device)
     if b == 0 or t == 0:
         return out
     stats = torch.empty((b, num_heads, _stats_rows(t), 4), dtype=torch.float32,
                         device=qkv.device)
-    q_scale = _single_pass_scale(head_dim, torch.bfloat16)
     ds_scale = float(np.float32(1.0 / np.sqrt(head_dim)))
+    if qkv.dtype == torch.float32:
+        # In fp32 the q scale and the ds scale are the same float32 value.
+        err = _build.launch("vit_packed_attention_bwd_f32", qkv,
+            qkv.data_ptr(), do.data_ptr(), out.data_ptr(),
+            _build.DTYPE_CODES[out_dtype], stats.data_ptr(), b, t, num_heads,
+            head_dim, ds_scale)
+        _build.check_launch(err, "packed_attention_bwd (fp32)")
+        LAUNCHES_BWD_F32 += 1
+        return out
+    q_scale = _single_pass_scale(head_dim, torch.bfloat16)
     err = _build.launch("vit_packed_attention_bwd", qkv,
         qkv.data_ptr(), do.data_ptr(), out.data_ptr(),
         _build.DTYPE_CODES[out_dtype], stats.data_ptr(), b, t, num_heads,

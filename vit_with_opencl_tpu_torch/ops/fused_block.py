@@ -114,6 +114,16 @@ pair) to fit VMEM; here the split costs nothing more than the attention
 half's recompute, which stage 3 does again as the TPU kernel does, and, in
 the chunked pair, LN2 again and a [B, T, H] round trip of the two bf16
 streams.
+
+In fp32 (fp32 x and weights: the engine's parity mode, fp32 training) the
+same chains run with every activation in fp32: the GEMMs on the fp32 GEMM
+(``csrc/gemm_f32.cu``, its second outputs in fp32), the attention on the
+fp32 slab entry and the fp32 backward (``csrc/attention_single.cu``,
+``csrc/attention_bwd_f32.cu``) up to padded T = 1024. The LN backward's
+compile-time forms are for the two bf16 chains' dtype sets, so fp32's (fp32
+x, g and dx) takes its general form (``layernorm_bwd_any_width_kernel``);
+the column sums take fp32 rows in their one form. Past padded T = 1024 the
+blockwise kernels take bf16 only, and fp32 raises there.
 """
 
 from __future__ import annotations
@@ -571,7 +581,7 @@ def _h2c(x2, lp, config: ViTConfig, k: _Links, cdt):
 
 def _mlp_light(x2, dout, lp, config: ViTConfig, k: _Links):
     """The MLP backward but its two weight gradients: (h2c, fp32 dx2, the
-    bf16 streams hidc and dhpc, the four small gradients)."""
+    streams hidc and dhpc in dOut's dtype, the four small gradients)."""
     cdt, f32 = dout.dtype, torch.float32
     fc1_w, fc2_w = lp["fc1_w"].to(cdt), lp["fc2_w"].to(cdt)
     h2c = _h2c(x2, lp, config, k, cdt)

@@ -25,15 +25,24 @@ with its own launch count:
     (``models/quant.k_major``: int8 ``wgmma`` reads no other layout); the
     wrapper raises on any other, and never transposes a weight itself.
 
-Bound on the card: operations (see the notes in the sources). The kernels
-take bf16 or int8 operands; fp32 ``x`` on the card is not supported yet.
+With fp32 ``x`` and ``w`` every form (the forward and the backward's three)
+runs on the fp32 GEMM ``csrc/gemm_f32.cu`` instead: plain fp32 FMA on the
+CUDA cores (no TF32), register-tiled 8 x 8 micro-tiles of 128 x 128 output
+tiles, operand slices double-buffered in shared memory by cp.async, the
+same epilogue in the same order; each form with its own launch count
+(``LAUNCHES_F32``, ``LAUNCHES_DGRAD_F32``, ``LAUNCHES_WGRAD_F32``,
+``LAUNCHES_GELU_PAIR_F32``). Its weight gradient splits the tokens as the
+bf16 form's (``_wgrad_splits``, the same 128 x 128 tiles) and sums the
+partials with the same fixed-order kernel. Other dtype mixes raise.
+
+Bound on the card: operations (see the notes in the sources).
 
 The training backward's GEMM forms run on the same Hopper core, the operand
 layouts its transpose bits (each form with its own launch count):
 
   * ``linear_dgrad``: ``dY @ Wᵀ`` with W stored [K, N], optionally times
     ``_gelu_fast_grad(pre)``, with an optional second output rounded to
-    bf16 (``LAUNCHES_DGRAD``);
+    bf16 (fp32 or bf16 in the fp32 form) (``LAUNCHES_DGRAD``);
   * ``linear_wgrad``: ``Xᵀ @ dY`` over the tokens into an fp32 weight
     gradient (``LAUNCHES_WGRAD``, one a call): the token axis split into
     ``_wgrad_splits`` runs whose fp32 partials a second kernel sums in a
@@ -78,6 +87,12 @@ LAUNCHES_W8A8_HI = 0
 LAUNCHES_DGRAD = 0
 LAUNCHES_WGRAD = 0
 LAUNCHES_GELU_PAIR = 0
+# The fp32 GEMM's forms (csrc/gemm_f32.cu): the forward, dgrad, wgrad and
+# the fc1 recompute.
+LAUNCHES_F32 = 0
+LAUNCHES_DGRAD_F32 = 0
+LAUNCHES_WGRAD_F32 = 0
+LAUNCHES_GELU_PAIR_F32 = 0
 _TRAINABLE = "ops/fused_block.fused_encoder_layer_trainable"
 
 _RESIDUAL_KINDS = {None: 0, torch.float32: 1, torch.bfloat16: 2}
@@ -166,7 +181,7 @@ def fused_linear(
     the bias, and an optional ``_gelu_fast``. Result in ``out_dtype``
     (default x's dtype). An int8 ``w`` needs its per-column fp32 ``w_scale``
     ([N] or [1, N]), which multiplies the product before the epilogue."""
-    global LAUNCHES, LAUNCHES_INT8W
+    global LAUNCHES, LAUNCHES_INT8W, LAUNCHES_F32
     out_dtype = out_dtype or x.dtype
     int8w = w.dtype == torch.int8
     if int8w != (w_scale is not None):
@@ -176,10 +191,12 @@ def fused_linear(
                                       fuse_gelu=fuse_gelu, residual=residual,
                                       out_dtype=out_dtype)
     *lead, k = x.shape
-    if x.dtype != torch.bfloat16 or w.dtype not in (torch.bfloat16, torch.int8):
+    f32 = x.dtype == torch.float32 and w.dtype == torch.float32
+    if not f32 and (x.dtype != torch.bfloat16
+                    or w.dtype not in (torch.bfloat16, torch.int8)):
         raise NotImplementedError(
-            "the CUDA GEMM takes bf16 x and a bf16 or int8 w; an fp32 variant "
-            f"is not ported yet (got x {x.dtype}, w {w.dtype})")
+            "the CUDA GEMMs take bf16 x with a bf16 or int8 w, or fp32 x with "
+            f"an fp32 w (got x {x.dtype}, w {w.dtype})")
     if w.dim() != 2 or w.shape[0] != k:
         raise ValueError(f"w has shape {tuple(w.shape)}, expected ({k}, N)")
     n = w.shape[1]
@@ -188,7 +205,7 @@ def fused_linear(
                          f"{16 if int8w else 8}")
     _build.refuse_autograd("fused_linear", (x, w, b, w_scale, residual),
                            _TRAINABLE)
-    _build.require(x, "x", device=x.device, dtypes=(torch.bfloat16,))
+    _build.require(x, "x", device=x.device, dtypes=(x.dtype,))
     _build.require(w, "w", device=x.device, dtypes=(w.dtype,))
     _check_epilogue(lead, n, x.device, b, residual, out_dtype)
     out = torch.empty((*lead, n), dtype=out_dtype, device=x.device)
@@ -199,7 +216,11 @@ def fused_linear(
             _RESIDUAL_KINDS[None if residual is None else residual.dtype],
             out.data_ptr(), int(out_dtype == torch.bfloat16),
             _gelu_flag(fuse_gelu, "fused_linear"), m, n, k)
-    if int8w:
+    if f32:
+        err = _build.launch("vit_linear_f32", x, x.data_ptr(), w.data_ptr(), *tail)
+        _build.check_launch(err, "fused_linear (fp32)")
+        LAUNCHES_F32 += 1
+    elif int8w:
         s = _scale_vector(w_scale, n, "w_scale", x.device)
         err = _build.launch("vit_linear_int8w", x, x.data_ptr(), w.data_ptr(),
                             s.data_ptr(), *tail)
@@ -340,11 +361,23 @@ def fused_linear_w8a8(
 
 def _grad_gemm(what: str, a, a_trans: bool, b, b_trans: bool, m: int, n: int,
                k: int, out_shape, *, bias=None, gelu_grad_of=None,
-               out_dtype=torch.float32, out2: bool = False,
+               out_dtype=torch.float32, out2_dtype=None,
                out2_gelu: bool = False, split: bool = False):
-    """Launch the Hopper core's backward forms (operands checked by the
-    caller); ``split``: the wgrad form's split-K over ``k`` (the tokens)."""
+    """Launch the backward forms (operands checked by the caller): bf16
+    operands on the Hopper core (a bf16 second output), fp32 ones on the
+    fp32 GEMM (a second output in fp32 or bf16). ``out2_dtype``: the
+    second output's dtype, None for none; ``split``: the wgrad form's
+    split-K over ``k`` (the tokens). Returns (out, second)."""
     dev = a.device
+    f32 = a.dtype == torch.float32
+    if a.dtype != b.dtype or a.dtype not in (torch.bfloat16, torch.float32):
+        raise NotImplementedError(
+            f"{what}: the CUDA GEMMs take two bf16 or two fp32 operands, got "
+            f"{a.dtype} and {b.dtype}")
+    if out2_dtype not in ((None, torch.bfloat16, torch.float32) if f32
+                          else (None, torch.bfloat16)):
+        raise TypeError(f"{what}: out2_dtype {out2_dtype}: the bf16 kernel's "
+                        "second output is bf16, the fp32 kernel's fp32 or bf16")
     # TMA copies 16-byte rows along each operand's contiguous axis.
     if n % 8 or (m if a_trans else k) % 8 or (b_trans and k % 8):
         raise ValueError(f"{what}: N={n} and the operands' contiguous axes "
@@ -353,8 +386,8 @@ def _grad_gemm(what: str, a, a_trans: bool, b, b_trans: bool, m: int, n: int,
     if out_dtype not in _build.DTYPE_CODES:
         raise TypeError(f"out_dtype {out_dtype} not in "
                         f"{tuple(_build.DTYPE_CODES)}")
-    _build.require(a, "a", device=dev, dtypes=(torch.bfloat16,))
-    _build.require(b, "b", device=dev, dtypes=(torch.bfloat16,))
+    _build.require(a, "a", device=dev, dtypes=(a.dtype,))
+    _build.require(b, "b", device=dev, dtypes=(a.dtype,))
     if bias is not None:
         _build.require(bias, "bias", device=dev, dtypes=(torch.float32,),
                        shape=(n,))
@@ -362,8 +395,8 @@ def _grad_gemm(what: str, a, a_trans: bool, b, b_trans: bool, m: int, n: int,
         _build.require(gelu_grad_of, "gelu_grad_of", device=dev,
                        dtypes=(torch.float32,), shape=out_shape)
     out = torch.empty(out_shape, dtype=out_dtype, device=dev)
-    second = (torch.empty(out_shape, dtype=torch.bfloat16, device=dev)
-              if out2 else None)
+    second = (torch.empty(out_shape, dtype=out2_dtype, device=dev)
+              if out2_dtype is not None else None)
     if m and n and k:
         full, splits, split_k, parts = 0, 1, 0, None
         if split:
@@ -372,12 +405,20 @@ def _grad_gemm(what: str, a, a_trans: bool, b, b_trans: bool, m: int, n: int,
                 rest = _tiles(m, n) - full
                 parts = torch.empty((splits, rest, _TILE_MN, _TILE_MN),
                                     dtype=torch.float32, device=dev)
-        err = _build.launch("vit_gemm_grad", a,
-            a.data_ptr(), int(a_trans), b.data_ptr(), int(b_trans),
-            _ptr(bias), _ptr(gelu_grad_of), out.data_ptr(),
-            int(out_dtype == torch.bfloat16), _ptr(second), int(out2_gelu),
-            m, n, k, full, splits, split_k, _ptr(parts))
-        _build.check_launch(err, what)
+        out_bf16 = int(out_dtype == torch.bfloat16)
+        if f32:
+            err = _build.launch("vit_gemm_grad_f32", a,
+                a.data_ptr(), int(a_trans), b.data_ptr(), int(b_trans),
+                _ptr(bias), _ptr(gelu_grad_of), out.data_ptr(), out_bf16,
+                _ptr(second), int(out2_dtype == torch.bfloat16), int(out2_gelu),
+                m, n, k, full, splits, split_k, _ptr(parts))
+        else:
+            err = _build.launch("vit_gemm_grad", a,
+                a.data_ptr(), int(a_trans), b.data_ptr(), int(b_trans),
+                _ptr(bias), _ptr(gelu_grad_of), out.data_ptr(), out_bf16,
+                _ptr(second), int(out2_gelu), m, n, k, full, splits, split_k,
+                _ptr(parts))
+        _build.check_launch(err, what + (" (fp32)" if f32 else ""))
     elif not k:
         out.zero_()
     return out, second
@@ -407,27 +448,28 @@ def linear_dgrad(dy: torch.Tensor, w: torch.Tensor, *,
                  gelu_grad_of: Optional[torch.Tensor] = None,
                  out_dtype: torch.dtype = torch.float32,
                  out2_dtype: Optional[torch.dtype] = None):
-    """The input gradient of ``x @ w``: ``dy`` [..., N] (bf16 on the card)
-    @ ``w``ᵀ, ``w`` [K, N] as the forward stores it; times
-    ``_gelu_fast_grad`` of the fp32 pre-activation ``gelu_grad_of``
-    [..., K] if given (the gradient through fc1's GELU). ``out2_dtype``
-    (bf16 on the card) adds a second output: the same values rounded."""
-    global LAUNCHES_DGRAD
+    """The input gradient of ``x @ w``: ``dy`` [..., N] (bf16 or fp32 on
+    the card, w of the same dtype) @ ``w``ᵀ, ``w`` [K, N] as the forward
+    stores it; times ``_gelu_fast_grad`` of the fp32 pre-activation
+    ``gelu_grad_of`` [..., K] if given (the gradient through fc1's GELU).
+    ``out2_dtype`` (bf16, or also fp32 for fp32 operands) adds a second
+    output: the same values in that dtype."""
+    global LAUNCHES_DGRAD, LAUNCHES_DGRAD_F32
     if not dy.is_cuda:
         return linear_dgrad_reference(dy, w, gelu_grad_of=gelu_grad_of,
                                       out_dtype=out_dtype, out2_dtype=out2_dtype)
     *lead, n = dy.shape
     if w.dim() != 2 or w.shape[1] != n:
         raise ValueError(f"w has shape {tuple(w.shape)}, expected (K, {n})")
-    if out2_dtype not in (None, torch.bfloat16):
-        raise TypeError(f"out2_dtype {out2_dtype}: the kernel's second output "
-                        "is bf16")
     k = w.shape[0]
-    out, second = _grad_gemm("linear_dgrad", dy, False, w, True, dy.numel() // n
-                             if n else 0, k, n, (*lead, k),
-                             gelu_grad_of=gelu_grad_of, out_dtype=out_dtype,
-                             out2=out2_dtype is not None)
-    LAUNCHES_DGRAD += 1
+    out, second = _grad_gemm(
+        "linear_dgrad", dy, False, w, True, dy.numel() // n if n else 0, k, n,
+        (*lead, k), gelu_grad_of=gelu_grad_of, out_dtype=out_dtype,
+        out2_dtype=out2_dtype)
+    if dy.dtype == torch.float32:
+        LAUNCHES_DGRAD_F32 += 1
+    else:
+        LAUNCHES_DGRAD += 1
     return out if second is None else (out, second)
 
 
@@ -554,8 +596,9 @@ def linear_wgrad_split_reference(x: torch.Tensor, dy: torch.Tensor, full: int,
 
 def linear_wgrad(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
     """The weight gradient of ``x @ w``: ``x`` [..., K]ᵀ @ ``dy`` [..., N]
-    (bf16 on the card), summed over all B·T tokens in fp32 → [K, N]."""
-    global LAUNCHES_WGRAD
+    (both bf16 or both fp32 on the card), summed over all B·T tokens in fp32
+    → [K, N]."""
+    global LAUNCHES_WGRAD, LAUNCHES_WGRAD_F32
     if not x.is_cuda:
         return linear_wgrad_reference(x, dy)
     k, n = x.shape[-1], dy.shape[-1]
@@ -566,7 +609,10 @@ def linear_wgrad(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
     # Xᵀ [K, M] is A read transposed: the GEMM's M is K, its K the tokens.
     out, _ = _grad_gemm("linear_wgrad", x, True, dy, False, k, n, m, (k, n),
                         split=True)
-    LAUNCHES_WGRAD += 1
+    if x.dtype == torch.float32:
+        LAUNCHES_WGRAD_F32 += 1
+    else:
+        LAUNCHES_WGRAD += 1
     return out
 
 
@@ -587,8 +633,9 @@ def fused_linear_with_gelu(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                            *, out2_dtype: Optional[torch.dtype] = None):
     """The MLP backward's fc1 recompute: ``x`` [..., K] @ ``w`` [K, N] +
     ``b`` as fp32 ``hid_pre`` (for the GELU gradient) and its
-    ``_gelu_fast`` rounded to bf16 (for dfc2_w), from one GEMM."""
-    global LAUNCHES_GELU_PAIR
+    ``_gelu_fast`` in ``out2_dtype`` (default x's; bf16 for bf16 x, fp32
+    or bf16 for fp32 x) (for dfc2_w), from one GEMM."""
+    global LAUNCHES_GELU_PAIR, LAUNCHES_GELU_PAIR_F32
     if not x.is_cuda:
         return fused_linear_with_gelu_reference(x, w, b, out2_dtype=out2_dtype)
     if substitutions.GELU_IDENTITY:
@@ -596,11 +643,13 @@ def fused_linear_with_gelu(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     *lead, k = x.shape
     if w.dim() != 2 or w.shape[0] != k:
         raise ValueError(f"w has shape {tuple(w.shape)}, expected ({k}, N)")
-    if (out2_dtype or x.dtype) != torch.bfloat16:
-        raise TypeError("the kernel's GELU output is bf16")
     n = w.shape[1]
-    out, second = _grad_gemm("fused_linear_with_gelu", x, False, w, False,
-                             x.numel() // k if k else 0, n, k, (*lead, n),
-                             bias=b, out2=True, out2_gelu=True)
-    LAUNCHES_GELU_PAIR += 1
+    out, second = _grad_gemm(
+        "fused_linear_with_gelu", x, False, w, False, x.numel() // k if k else 0,
+        n, k, (*lead, n), bias=b, out2_dtype=out2_dtype or x.dtype,
+        out2_gelu=True)
+    if x.dtype == torch.float32:
+        LAUNCHES_GELU_PAIR_F32 += 1
+    else:
+        LAUNCHES_GELU_PAIR += 1
     return out, second
