@@ -109,9 +109,7 @@ one JSON object with every run's figures, the pairs and the gates.
 
 compares ptxas's report (``ops/_build.resource_usage``: registers a thread,
 spill stores and loads) of each kernel of ``PTXAS_SOURCES`` in DIR's
-sources and in this tree's, kernel by kernel under the same name (this
-tree's names mapped by ``PTXAS_RENAMES`` where a kernel gained a template
-argument): it
+sources and in this tree's, kernel by kernel under the same name: it
 prints both lines of each, the kernels only this tree has, and exits 1 if a
 kernel of DIR's compiles to other registers or spills here, or is gone. It
 needs the CUDA toolkit, not a card.
@@ -121,7 +119,6 @@ from __future__ import annotations
 
 import dataclasses
 import json
-import re
 import statistics
 import subprocess
 import sys
@@ -205,21 +202,11 @@ SWAP_WINDOWS = 3  # the library swaps: best of this many timings
 PROCESS_TIMEOUT = 900
 # --ptxas: the sources whose kernels gained forms beside them (the
 # attribution probe's stand-ins; the blockwise forward's 256- and 512-key
-# instances), so the old forms must compile as before.
-PTXAS_SOURCES = ("attention.cu", "quantize.cu", "attention_flash.cu")
-# A kernel's name in the parent's build where this tree's differs: the
-# blockwise forward gained its key tile as a template argument, and its
-# 128-key instance is the parent's kernel (demangled and mangled names).
-PTXAS_RENAMES = ((r"blockwise_fwd_kernel<((?:\(int\))?\d+), (?:\(int\))?128>",
-                  r"blockwise_fwd_kernel<\1>"),
-                 (r"blockwise_fwd_kernelILi(\d+)ELi128EE", r"blockwise_fwd_kernelILi\1EE"))
-
-
-def ptxas_name(name: str) -> str:
-    """This tree's kernel name as the parent's build calls it."""
-    for pattern, repl in PTXAS_RENAMES:
-        name = re.sub(pattern, repl, name)
-    return name
+# instances; the fp32 attention body's blockwise form and the fp32
+# backward's form with its statistics given), so the old forms must
+# compile as before.
+PTXAS_SOURCES = ("attention.cu", "quantize.cu", "attention_flash.cu", "attention_single.cu",
+                 "attention_ring.cu", "attention_bwd_f32.cu")
 
 
 def time_ms(fn, reps: int = REPS) -> float:
@@ -743,7 +730,7 @@ def ptxas_main(parent: str) -> int:
     same, out = True, {}
     for source in PTXAS_SOURCES:
         theirs = {k["name"]: k for k in theirs_build.resource_usage(source)}
-        ours = {ptxas_name(k["name"]): k for k in _build.resource_usage(source)}
+        ours = {k["name"]: k for k in _build.resource_usage(source)}
         out[source] = {"parent": theirs, "this": ours}
 
         def line(k):

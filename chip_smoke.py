@@ -155,7 +155,7 @@ line.
    same trace of ``F.layer_norm`` and ``x.float().sum(0)`` (none for the
    quantizes and the LN backward), and the trace's launches of the port's
    kernels against the calls.
-3i. fp32 on the card up to padded T = 1024: ``InferenceEngine(VIT_B_16_224,
+3i. fp32 on the card: ``InferenceEngine(VIT_B_16_224,
    param_dtype=torch.float32, compute_dtype=torch.float32,
    attention_impl="flash")`` (the per-layer chain on the fp32 GEMM and the
    fp32 slab attention) at batch 16 on phase 3's 40 images, and the same
@@ -167,7 +167,17 @@ line.
    compute_dtype=torch.float32, optimizer="adamw")`` in ``fused`` and
    ``flash``, 4 steps at batch 16 on a memorised batch: the loss falls,
    the launches of those steps (every fp32 form), and one step against
-   the plain links under phase 5's gates.
+   the plain links under phase 5's gates. After phase 5c, fp32 past padded
+   T = 1024 at ViT-L/16@512 (full depth and widths): the fp32 engine at
+   batch 16 on phase 3e's weights and decisive images (the per-op path, a
+   ViT-L layer's fp32 weights being past the fused layer's bound: 24
+   blockwise fp32 forwards a forward and no other kernel, probabilities
+   within 1e-4 of the plain fp32 path, 0 comparator mismatches), and ``Trainer(compute_dtype=torch.float32)``
+   in ``fused`` and ``flash``, 4 steps at batch 4 (the loss falls; the
+   launches: the blockwise forward's fp32 form 72 a ``fused`` step, with the
+   LSE and the fp32 blockwise backward 24 each a ``flash`` step), then one
+   step of each from ``random_params`` seed 1 against the plain links,
+   printed beside phase 5c's bf16 errors.
 5. The training main path: ``Trainer(VIT_B_16_224, device="cuda",
    compute_dtype=bf16, optimizer="adamw")`` from seeded ``init_params``,
    8 steps at batch 32 on a memorised seeded batch, in each route
@@ -248,6 +258,11 @@ line.
    JAX's key tile) on the slabs without and with the LSE and on split
    heads, under the 128-key rows' gate, with SDPA's time and the bound
    beside each; the LSE form of each gives the same bits over two runs.
+   Then the fp32 forms at each shape (rows 9-fp32 and 12-fp32): the
+   forward without and with the LSE at each key tile, on split heads, and
+   the backward, against their plain versions (1e-4 forward, 2e-5 of scale
+   backward), SDPA in fp32 beside each (its backend named), the same bits
+   over two runs.
 3e. The ViT-L/16@512 inference main path: ``InferenceEngine(vit_l_16_512,
    attention_impl="flash")`` in bf16 at batch 16, full depth and widths,
    on ``random_params`` seed 0 and 32 decisive images: 24 blockwise
@@ -263,7 +278,7 @@ line.
    ``step_noise.py``'s noise floor.
 4d. ViT-L/16@512 training throughput at batch 16: ms per AdamW step, img/s
    and peak memory of ``fused`` and ``flash``, and the split of a ``fused``
-   step.
+   step; then fp32 ``fused``, ``flash`` and ``xla`` steps at batch 8.
 2h. The kernel layer's public ops against their plain versions:
    ``flash_attention`` (the single-pass kernel) at ViT-B/16's heads (B = 16
    as split heads and as the permuted views of a packed GEMM output, B =
@@ -328,8 +343,8 @@ line.
 6. The public ops and the perf tools: one ViT-B/16 layer and its head
    composed of ``ops.layer_norm``, ``fused_linear``, ``flash_attention``,
    ``residual_layer_norm`` and ``softmax`` at B = 16, and ``flash_attention``
-   at T = 1025 (their launches; the layer against the same composition of
-   the plain versions); ``perf.profile_ops`` at ViT-B/16, bf16, ``flash``,
+   at T = 1025 in bf16 and fp32 (their launches; the layer against the same
+   composition of the plain versions); ``perf.profile_ops`` at ViT-B/16, bf16, ``flash``,
    B = 64 (the table, JAX's stage names, one single-pass launch);
    ``perf.device_kernel_table`` of the phase-3 engine's forward at B = 256,
    of the int8-weight and W8A8 engines' (phase 3b) at B = 256 and of the
@@ -654,6 +669,26 @@ LONG_TRAIN_PER_LAYER = {
     "flash": {"attention_flash_lse": 1, "attention_flash_k128": 1,
               "attention_flash_bwd": 1},
 }
+# Phase 3i's ViT-L/16@512 runs in fp32 (the blockwise kernels' fp32 forms):
+# the fp32 engine at LONG_BATCH on phase 3e's weights and decisive images;
+# fp32 Trainer in `fused` and `flash`, F32_TRAIN_STEPS steps at
+# LONG_F32_TRAIN_BATCH, then one step of each from random_params seed 1
+# against the plain links (phase 5's gates); their launches per layer. A
+# ViT-L layer's fp32 weights pass the fused layer's bound
+# (`fused_block.supports`, JAX's rule), so the fp32 engine takes the per-op
+# path: the attention core is its one kernel, the blockwise forward.
+LONG_F32_TRAIN_BATCH = 4
+LONG_F32_PER_LAYER = {"attention_flash_f32": 1, "attention_flash_k128": 1}
+LONG_F32_TRAIN_PER_LAYER = {
+    "fused": dict(F32_TRAIN_PER_LAYER["fused"], fused_bwd_mlp=0, fused_bwd_mlp_light=1,
+                  fused_bwd_mlp_wgrad=1, layernorm=6, attention_f32=0,
+                  attention_flash_f32=3, attention_flash_k128=3),
+    "flash": {"attention_flash_lse_f32": 1, "attention_flash_k128": 1,
+              "attention_flash_bwd_f32": 1},
+}
+# Phase 4d's fp32 AdamW steps at ViT-L/16@512 (beside its bf16 ones at
+# LONG_BATCH).
+LONG_F32_THROUGHPUT_BATCH = 8
 
 # Phase 2h: the kernel layer's public ops against their plain versions.
 # flash_attention's rows: (name, batch, heads, T, head dim, dtype, as the
@@ -688,11 +723,11 @@ RESIDUAL_LN_ROWS = (3152, 50432)
 # output's largest magnitude.
 SINGLE_F32_REL = 1e-5
 # Phase 6: the public ops composed into one ViT-B/16 layer and its head at
-# B = 16 (and flash_attention at ViT-L/16@512's T = 1025, B = 4): launches
-# of that run.
+# B = 16 (and flash_attention at ViT-L/16@512's T = 1025, B = 4, bf16 and
+# fp32): launches of that run.
 PUBLIC_PATH_COUNTS = {"layernorm": 1, "linear": 5, "attention_single": 1,
                       "layernorm_residual": 1, "attention_flash_split": 1,
-                      "attention_flash_k128": 1}
+                      "attention_flash_split_f32": 1, "attention_flash_k128": 2}
 PROFILE_BATCH = 64
 PROFILE_STAGES = ["patch_embed(+cls+pos)", "layer_norm", "qkv_proj",
                   "attention_core(packed)", "out_proj", "mlp_fc1_gelu", "mlp_fc2",
@@ -850,7 +885,14 @@ COUNTERS = {
     "linear_gelu_pair_f32": (linear, "LAUNCHES_GELU_PAIR_F32"),
     "attention_f32": (attention, "LAUNCHES_PACKED_F32"),
     "attention_bwd_f32": (attention, "LAUNCHES_BWD_F32"),
-    # The blockwise forward's launches by key tile (its three forms together).
+    # The blockwise kernels' fp32 forms: the forward on the slabs without
+    # and with the LSE, on split heads, and the backward.
+    "attention_flash_f32": (attention, "LAUNCHES_FLASH_F32"),
+    "attention_flash_lse_f32": (attention, "LAUNCHES_FLASH_LSE_F32"),
+    "attention_flash_split_f32": (attention, "LAUNCHES_FLASH_SPLIT_F32"),
+    "attention_flash_bwd_f32": (attention, "LAUNCHES_FLASH_BWD_F32"),
+    # The blockwise forward's launches by key tile (its three forms together,
+    # bf16 and fp32).
     **{f"attention_flash_k{bk}": (attention, f"LAUNCHES_FLASH_K{bk}")
        for bk in attention.FLASH_BLOCK_KS},
     **{counter: (probe, probe.FORMS[form].counter)
@@ -909,6 +951,11 @@ REPLACES = {
     "linear_gelu_pair_f32": "vit_with_opencl_tpu/ops/fused_block.py:704",
     "attention_f32": "vit_with_opencl_tpu/ops/attention.py:872",
     "attention_bwd_f32": "vit_with_opencl_tpu/ops/attention.py:463",
+    # _flash_kernel, _flash_kernel_lse and the backward pair in fp32.
+    "attention_flash_f32": "vit_with_opencl_tpu/ops/attention.py:85",
+    "attention_flash_lse_f32": "vit_with_opencl_tpu/ops/attention.py:140",
+    "attention_flash_split_f32": "vit_with_opencl_tpu/ops/attention.py:85",
+    "attention_flash_bwd_f32": "vit_with_opencl_tpu/ops/attention.py:586",
     # _flash_kernel at each key tile (JAX's block_k).
     **{f"attention_flash_k{bk}": "vit_with_opencl_tpu/ops/attention.py:85"
        for bk in attention.FLASH_BLOCK_KS},
@@ -956,6 +1003,10 @@ SOURCES = {
     "linear_gelu_pair_f32": _CSRC + "gemm_f32.cu",
     "attention_f32": _CSRC + "attention_single.cu",
     "attention_bwd_f32": _CSRC + "attention_bwd_f32.cu",
+    "attention_flash_f32": _CSRC + "attention_flash_f32.cu",
+    "attention_flash_lse_f32": _CSRC + "attention_flash_f32.cu",
+    "attention_flash_split_f32": _CSRC + "attention_flash_f32.cu",
+    "attention_flash_bwd_f32": _CSRC + "attention_bwd_f32.cu",
     **{f"attention_flash_k{bk}": _CSRC + "attention_flash.cu"
        for bk in attention.FLASH_BLOCK_KS},
     **{counter: _CSRC + "probe_overlap.cu" for counter, *_ in PROBE_FORMS.values()},
@@ -1662,7 +1713,7 @@ def run_cases(cases: list[dict], batch: int, name_prefix: str = "") -> list[dict
             except RuntimeError as exc:
                 print(f"  yardstick {label} refused: {str(exc).splitlines()[0]}")
         if "kernel_ops" in case:
-            print(f"  B={batch} {row['name']}: {case['ops']['bf16'] / row['ms'] / 1e9:.1f} "
+            print(f"  B={batch} {row['name']}: {sum(case['ops'].values()) / row['ms'] / 1e9:.1f} "
                   f"TFLOP/s of the function's work, "
                   f"{case['kernel_ops'] / row['ms'] / 1e9:.1f} TFLOP/s of the kernels' "
                   f"own (recomputation included)", flush=True)
@@ -2250,6 +2301,8 @@ def flash_kernel_rows(dev) -> list[dict]:
             cases.append(attn_bwd_case(qkv, do, nh, hd, torch.float32))
         cases += tuned_flash_cases(qkv, q, k, v, nh, hd, batch, t)
         rows += run_cases(cases, batch, f"{name} B={batch} T={t} hd={hd} ")
+        rows += flash_f32_rows(qkv.float(), do.float(), nh, hd, f"{name} B={batch} "
+                                                               f"T={t} hd={hd} ")
         for bk in FLASH_TUNED_KS:
             first, again = (attention.blockwise_attention_fwd(qkv, nh, hd, return_lse=True,
                                                               block_k=bk)
@@ -2269,6 +2322,84 @@ def flash_kernel_rows(dev) -> list[dict]:
               f"over two runs (no atomics)")
         del qkv, do, out, lse, q, k, v, cases, first, again
         torch.cuda.empty_cache()
+    return rows
+
+
+def flash_f32_rows(qkv, do, nh: int, hd: int, name_prefix: str) -> list[dict]:
+    """Phase 2g's fp32 rows (rows 9-fp32 and 12-fp32) on fp32 qkv and dO:
+    the blockwise forward's fp32 form on the slabs without and with the LSE
+    at each key tile (one kernel; the tile is a run-time step of its
+    running max), on split heads (``flash_attention``), and the fp32
+    blockwise backward on the plain fp32 forward's out and lse, each
+    against its plain version (F32_TOL and LSE_TOL forward, F32_GRAD_REL
+    backward); yardsticks SDPA in fp32 forward and backward, its backend
+    named. Bounds: the tensors read and written once; 4·T²·hd a head at the
+    fp32 peak forward, 10·T²·hd backward (the kernels' own work is 6 and
+    14). The 128-key slab, LSE, split-head and backward rows go into the
+    record (launches from phase 3i's ViT-L/16@512 runs and phase 6a); the
+    same bits over two calls for each tile with the LSE and for the
+    backward."""
+    F = torch.nn.functional
+    batch, t, three_d = qkv.shape
+    d, n = three_d // 3, batch * nh
+    out, lse = attention.blockwise_attention_fwd_reference(qkv, nh, hd, return_lse=True)
+    q, k, v = qkv.reshape(batch, t, 3, nh, hd).permute(2, 0, 3, 1, 4)
+    backend = sdpa_backend(q, k, v)
+    cfg = heads_cfg(nh, hd)
+    fwd_ops, fwd_bytes = {"fp32": 4 * n * t * t * hd}, batch * t * 4 * d * 4
+    cases = []
+    for bk in attention.FLASH_BLOCK_KS:
+        tag = "" if bk == 128 else f" block_k={bk}"
+        cases += [
+            dict(name=f"blockwise_attention_fwd{tag} (fp32; SDPA takes {backend})",
+                 counter="attention_flash_f32", tol=F32_TOL, min_same=0.0,
+                 record=bk == 128,
+                 kernel=lambda bk=bk: attention.blockwise_attention_fwd(
+                     qkv, nh, hd, block_k=bk)[0],
+                 plain=lambda bk=bk: attention.blockwise_attention_fwd_reference(
+                     qkv, nh, hd, block_k=bk)[0],
+                 library=lambda: F.scaled_dot_product_attention(q, k, v),
+                 bytes=fwd_bytes, ops=fwd_ops),
+            dict(name=f"blockwise_attention_fwd{tag} with LSE (fp32 out, fp32 lse)",
+                 counter="attention_flash_lse_f32", tol=[F32_TOL, LSE_TOL],
+                 min_same=[0.0, 0.0], record=bk == 128,
+                 kernel=lambda bk=bk: attention.blockwise_attention_fwd(
+                     qkv, nh, hd, return_lse=True, block_k=bk),
+                 plain=lambda bk=bk: attention.blockwise_attention_fwd_reference(
+                     qkv, nh, hd, return_lse=True, block_k=bk),
+                 library=lambda: F.scaled_dot_product_attention(q, k, v),
+                 bytes=fwd_bytes + n * t * 4, ops=fwd_ops),
+        ]
+    cases += [
+        dict(name="flash_attention (split heads, fp32)", counter="attention_flash_split_f32",
+             tol=F32_TOL, min_same=0.0,
+             kernel=lambda: attention.flash_attention(q, k, v, cfg),
+             plain=lambda: attention.flash_attention_reference(q, k, v, cfg),
+             library=lambda: F.scaled_dot_product_attention(q, k, v),
+             bytes=fwd_bytes, ops=fwd_ops),
+        _grad_case(f"blockwise_attention_bwd (fp32 dqkv; SDPA takes {backend})",
+                   "attention_flash_bwd_f32",
+                   lambda: attention.blockwise_attention_bwd(qkv, out, lse, do, nh, hd),
+                   lambda: attention.blockwise_attention_bwd_reference(
+                       qkv, out, lse, do, nh, hd),
+                   rel=F32_GRAD_REL, library=sdpa_backward(qkv, do, nh, hd),
+                   bytes=batch * t * 8 * d * 4 + n * t * 4,
+                   ops={"fp32": 10 * n * t * t * hd}, kernel_ops=14 * n * t * t * hd),
+    ]
+    with torch.inference_mode():
+        rows = run_cases(cases[:-1], batch, name_prefix)
+    rows += run_cases(cases[-1:], batch, name_prefix)
+    for bk in attention.FLASH_BLOCK_KS:
+        first, again = (attention.blockwise_attention_fwd(qkv, nh, hd, return_lse=True,
+                                                          block_k=bk) for _ in range(2))
+        check(torch.equal(first[0], again[0]) and torch.equal(first[1], again[1]),
+              f"{name_prefix}blockwise_attention_fwd (fp32) block_k={bk} with LSE: the "
+              f"same bits over two runs")
+    first, again = (attention.blockwise_attention_bwd(qkv, out, lse, do, nh, hd)
+                    for _ in range(2))
+    check(torch.equal(first, again),
+          f"{name_prefix}blockwise_attention_bwd (fp32): the same bits over two runs "
+          f"(no atomics)")
     return rows
 
 
@@ -2503,6 +2634,12 @@ def start_params(cfg, seed: int, dev) -> dict:
                             param_dtype=torch.float32, device=dev)
 
 
+# Each step check's errors, by (config name, route): (loss, mu, update
+# where resolved, update anywhere), so that a later phase can print its own
+# beside an earlier one's.
+STEP_ERRORS: dict = {}
+
+
 def one_step_vs_plain(tr: Trainer, route: str, images, labels, start: dict,
                       cfg=CFG) -> float:
     """One AdamW step of the Trainer ``tr`` (built on ``route``) from
@@ -2537,6 +2674,8 @@ def one_step_vs_plain(tr: Trainer, route: str, images, labels, start: dict,
         sure_err = max(sure_err, float(diff[sure].max()))
         any_err = max(any_err, float(diff.max()))
         mean_err = max(mean_err, float(diff.mean()))
+    STEP_ERRORS.setdefault((cfg.name, route), []).append(
+        (loss_err, mu_err, sure_err, any_err))
     print(f"  {cfg.name} {route}: one step vs the plain links: loss {loss:.6f} vs "
           f"{plain_loss:.6f} (rel {loss_err:.2e}); layer mu max rel err "
           f"{mu_err:.3e}; update difference {sure_err:.3e} lr where |mu| > "
@@ -2683,6 +2822,30 @@ def long_training_main_path(dev, host_params: dict) -> dict:
                   f"{STEP_NOISE_5C:.2e} (step_noise.py), gate {STEP_LOSS_REL}", flush=True)
         del tr
         torch.cuda.empty_cache()
+    return counts
+
+
+def long_fp32_main_path(dev, tmp: Path, params: dict, images: np.ndarray,
+                        ref_probs: np.ndarray) -> dict:
+    """Phase 3i at ViT-L/16@512 (T = 1025): fp32 past padded T = 1024 on the
+    blockwise kernels' fp32 forms, full depth and widths. The fp32 engine
+    (``InferenceEngine(LONG_CFG, param_dtype=torch.float32,
+    compute_dtype=torch.float32, attention_impl="flash")``) on phase 3e's
+    weights and decisive images at LONG_BATCH (``fp32_engine_run``), then
+    ``fp32_training`` at LONG_F32_TRAIN_BATCH, its step checks printed beside
+    phase 5c's bf16 ones. Returns {run: counts}."""
+    cfg = LONG_CFG
+    results.write_results(tmp / "answer.txt", ref_probs)
+    engine = InferenceEngine(cfg, params, batch_size=LONG_BATCH,
+                             param_dtype=torch.float32, compute_dtype=torch.float32,
+                             attention_impl="flash", device=dev)
+    counts = {"engine": fp32_engine_run(
+        engine, tmp, images, ref_probs, cfg,
+        {key: n * cfg.depth for key, n in LONG_F32_PER_LAYER.items()},
+        f"{cfg.name} fp32 flash engine")}
+    del engine
+    torch.cuda.empty_cache()
+    counts.update(fp32_training(dev, cfg, LONG_F32_TRAIN_BATCH, LONG_F32_TRAIN_PER_LAYER))
     return counts
 
 
@@ -3130,7 +3293,7 @@ def masked_width_rows(dev) -> list[dict]:
 USAGE_SOURCES = (("quantize.cu", False), ("layernorm.cu", False),
                  ("attention_ring.cu", True), ("attention_single.cu", True),
                  ("probe_overlap.cu", True), ("gemm_f32.cu", True),
-                 ("attention_bwd_f32.cu", True))
+                 ("attention_bwd_f32.cu", True), ("attention_flash_f32.cu", True))
 
 
 def resource_usages(sources) -> list:
@@ -3417,13 +3580,17 @@ def fp32_engine_run(engine, ws: Path, images, ref_probs, cfg, per_forward: dict,
     of ``per_forward`` once a forward), its probabilities against the plain
     fp32 path's (the answer file's source) within F32_PROB_TOL, and its
     result file against the answer file (the comparator)."""
+    torch.cuda.synchronize()
     reset_counts()
+    t0 = time.perf_counter()
     probs = engine.run(images)
     torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
     counts = read_counts()
     forwards = -(-len(images) // engine.batch_size)
     expected = {key: per_forward.get(key, 0) * forwards for key in COUNTERS}
-    check(counts == expected, f"{what}: launches of {forwards} forwards {counts}, "
+    check(counts == expected, f"{what}: launches of {forwards} forwards in {elapsed:.2f} s "
+                              f"(host clock, the first forward included) {counts}, "
                               f"expected {expected}")
     err = float(np.abs(probs - ref_probs).max())
     print(f"  {what}: probabilities vs the plain fp32 path: max abs err {err:.3e} "
@@ -3438,21 +3605,24 @@ def fp32_engine_run(engine, ws: Path, images, ref_probs, cfg, per_forward: dict,
     return counts
 
 
-def fp32_training(dev) -> dict:
+def fp32_training(dev, cfg=CFG, batch: int = F32_TRAIN_BATCH,
+                  per_layer: dict = F32_TRAIN_PER_LAYER) -> dict:
     """Phase 3i's training: ``Trainer(compute_dtype=torch.float32)`` on
-    ViT-B/16 in each of F32_ROUTES, F32_TRAIN_STEPS AdamW steps at
-    F32_TRAIN_BATCH on a memorised batch (the loss falls; the launches of
-    those steps), then one step against the plain links (phase 5's gates)."""
-    images, labels = train_batch(F32_TRAIN_BATCH, seed=3, cfg=CFG)
-    start = start_params(CFG, 1, dev)
+    ``cfg`` in each of F32_ROUTES, F32_TRAIN_STEPS AdamW steps at ``batch``
+    on a memorised batch (the loss falls; the launches of those steps,
+    ``per_layer[route]`` a layer a step), then one step from
+    ``random_params`` seed 1 against the plain links (phase 5's gates), its
+    errors printed beside an earlier bf16 step check's of ``cfg`` and the
+    route (phase 5c's at ViT-L/16@512)."""
+    images, labels = train_batch(batch, seed=3, cfg=cfg)
+    start = start_params(cfg, 1, dev)
     counts = {}
     for route in F32_ROUTES:
         logs = []
-        tr = Trainer(CFG, device=dev, lr=TRAIN_LR, optimizer="adamw",
+        tr = Trainer(cfg, device=dev, lr=TRAIN_LR, optimizer="adamw",
                      compute_dtype=torch.float32, attention_impl=route,
                      log_every=1, log_fn=logs.append, seed=0)
-        batches = data.memory_dataset(images, labels, F32_TRAIN_BATCH, epochs=None,
-                                      seed=1)
+        batches = data.memory_dataset(images, labels, batch, epochs=None, seed=1)
         torch.cuda.synchronize()
         reset_counts()
         t0 = time.perf_counter()
@@ -3461,20 +3631,30 @@ def fp32_training(dev) -> dict:
         elapsed = time.perf_counter() - t0
         counts[route] = read_counts()
         losses = [float(line.split("loss ")[1].split(",")[0]) for line in logs]
-        print(f"  fp32 {route}: {F32_TRAIN_STEPS} steps at B={F32_TRAIN_BATCH} in "
+        print(f"  {cfg.name} fp32 {route}: {F32_TRAIN_STEPS} steps at B={batch} in "
               f"{elapsed:.2f} s; losses {' '.join(f'{v:.4f}' for v in losses)}",
               flush=True)
         check(len(losses) == F32_TRAIN_STEPS and all(np.isfinite(losses))
               and losses[-1] < losses[0],
-              f"fp32 {route}: the loss falls over {F32_TRAIN_STEPS} steps "
+              f"{cfg.name} fp32 {route}: the loss falls over {F32_TRAIN_STEPS} steps "
               f"({losses[0]:.4f} -> {losses[-1]:.4f})")
-        expected = {key: F32_TRAIN_PER_LAYER[route].get(key, 0) * CFG.depth
-                    * F32_TRAIN_STEPS for key in COUNTERS}
-        check(counts[route] == expected, f"fp32 {route}: launches of {F32_TRAIN_STEPS} "
-                                         f"steps {counts[route]}, expected {expected}")
-        one_step_vs_plain(tr, f"{route} fp32", images, labels, start)
+        expected = {key: per_layer[route].get(key, 0) * cfg.depth * F32_TRAIN_STEPS
+                    for key in COUNTERS}
+        check(counts[route] == expected,
+              f"{cfg.name} fp32 {route}: launches of {F32_TRAIN_STEPS} steps "
+              f"{counts[route]}, expected {expected}")
+        one_step_vs_plain(tr, f"{route} fp32", images, labels, start, cfg)
+        fp32_errs = STEP_ERRORS[(cfg.name, f"{route} fp32")][-1]
+        for bf16_errs in STEP_ERRORS.get((cfg.name, route), []):
+            print(f"  {cfg.name} {route} step vs the plain links, (loss, mu, update "
+                  f"where resolved, update anywhere): fp32 "
+                  f"({', '.join(f'{e:.3e}' for e in fp32_errs)}) beside bf16 "
+                  f"({', '.join(f'{e:.3e}' for e in bf16_errs)}); gates ({STEP_LOSS_REL}, "
+                  f"{MU_REL}, {UPDATE_ATOL}, 2)", flush=True)
         del tr
         torch.cuda.empty_cache()
+    del start
+    torch.cuda.empty_cache()
     return counts
 
 
@@ -4232,9 +4412,9 @@ PLAIN_OPS = {"layer_norm": layernorm.layer_norm_reference,
 def public_ops_main_path(dev) -> dict:
     """Phase 6a: the kernel layer's public ops driven as a user calls them,
     at ViT-B/16's full width (one layer and the head at B = 16, seeded
-    weights) and ``flash_attention`` at ViT-L/16@512's T = 1025 (B = 4):
-    the launches of that run, the layer and its probabilities against the
-    same composition of the plain versions."""
+    weights) and ``flash_attention`` at ViT-L/16@512's T = 1025 (B = 4),
+    in bf16 and in fp32: the launches of that run, the layer and its
+    probabilities against the same composition of the plain versions."""
     gen = torch.Generator(device=dev).manual_seed(6)
     lp = layer_params(gen, dev)
     lp["head_w"] = (torch.randn((CFG.embed_dim, CFG.num_classes), generator=gen,
@@ -4246,9 +4426,11 @@ def public_ops_main_path(dev) -> dict:
     q, k, v = (torch.randn((4, LONG_CFG.num_heads, LONG_CFG.num_tokens,
                             LONG_CFG.head_dim), generator=gen, device=dev
                            ).to(torch.bfloat16) for _ in range(3))
+    q32, k32, v32 = (z.float() for z in (q, k, v))
     reset_counts()
     y, probs = public_layer(x, lp, CFG, PUBLIC_OPS)
     long_ctx = ops.flash_attention(q, k, v, long_cfg)
+    long_ctx32 = ops.flash_attention(q32, k32, v32, long_cfg)
     torch.cuda.synchronize()
     counts = read_counts()
     expected = {key: PUBLIC_PATH_COUNTS.get(key, 0) for key in COUNTERS}
@@ -4268,6 +4450,10 @@ def public_ops_main_path(dev) -> dict:
     check(within and same >= MIN_SAME_KERNEL,
           f"flash_attention at T = {LONG_CFG.num_tokens} vs its plain version: max "
           f"abs err {err:.3e}, {same:.2%} bit-identical")
+    err, within, _, _ = max_err(
+        long_ctx32, attention.flash_attention_reference(q32, k32, v32, long_cfg), F32_TOL)
+    check(within, f"flash_attention in fp32 at T = {LONG_CFG.num_tokens} vs its plain "
+                  f"version: max abs err {err:.3e} (tol {F32_TOL})")
     return counts
 
 
@@ -5059,7 +5245,7 @@ def main() -> int:
     large_rows = large_kernel_rows(dev)
     torch.cuda.empty_cache()
     phase("== phase 2g: the blockwise attention kernels at ViT-L/16@512's T = 1025 "
-          "(ViT-H/14@518's 1370, an odd tail) vs plain versions")
+          "(ViT-H/14@518's 1370, an odd tail, hd 128) vs plain versions, bf16 and fp32")
     flash_rows = flash_kernel_rows(dev)
     torch.cuda.empty_cache()
     with torch.inference_mode():
@@ -5155,6 +5341,13 @@ def main() -> int:
     phase("== phase 5c: ViT-L/16@512 training main path (Trainer, bf16, AdamW; "
           "flash and fused; a step of each vs the plain links)")
     long_train_counts = long_training_main_path(dev, long_params)
+    with tempfile.TemporaryDirectory() as tmp:
+        phase(f"== phase 3i ({LONG_CFG.name}): fp32 past padded T = 1024 "
+              f"(InferenceEngine(param_dtype=float32, compute_dtype=float32, "
+              f"attention_impl='flash') B={LONG_BATCH}; Trainer(compute_dtype=float32) "
+              f"{' and '.join(F32_ROUTES)}, B={LONG_F32_TRAIN_BATCH})")
+        long_f32_counts = long_fp32_main_path(dev, Path(tmp), long_params, long_images,
+                                              long_ref)
 
     phase("== phase 4: throughput")
     with torch.inference_mode():
@@ -5174,6 +5367,8 @@ def main() -> int:
     training_throughput(dev, LARGE_CFG, LARGE_THROUGHPUT_BATCH, ("fused", "flash"))
     phase("== phase 4d: ViT-L/16@512 training throughput")
     training_throughput(dev, LONG_CFG, LONG_BATCH, ("fused", "flash"))
+    training_throughput(dev, LONG_CFG, LONG_F32_THROUGHPUT_BATCH, ("fused", "flash", "xla"),
+                        compute_dtype=torch.float32)
     torch.cuda.empty_cache()
     with torch.inference_mode():
         phase(f"== phase 4e: {LONG_CFG.name} ring forward throughput, {MESH_SHARDS} "
@@ -5266,11 +5461,18 @@ def main() -> int:
     # backward from phase 5c's flash run, the packed backward from its fused
     # run (the other shapes are printed above).
     # The 256- and 512-key instances' slab rows from phase 6d's engine tuned
-    # to each (their LSE and split-head rows are printed above).
+    # to each (their LSE and split-head rows are printed above). The fp32
+    # forms' rows from phase 3i's ViT-L/16@512 runs: the forward from the
+    # fp32 engine's, the forward with the LSE and the backward from the
+    # fp32 flash steps'; the split-head row from phase 6a's public ops.
     long_runs = {"attention_flash": long_counts,
                  "attention_flash_lse": long_train_counts["flash"],
                  "attention_flash_bwd": long_train_counts["flash"],
                  "attention_bwd": long_train_counts["fused"],
+                 "attention_flash_f32": long_f32_counts["engine"],
+                 "attention_flash_lse_f32": long_f32_counts["flash"],
+                 "attention_flash_bwd_f32": long_f32_counts["flash"],
+                 "attention_flash_split_f32": public_counts,
                  **{f"attention_flash_k{bk}": tuned_runs.get(bk, {})
                     for bk in FLASH_TUNED_KS}}
     runs += [(long_runs[r["counter"]], r) for r in flash_rows

@@ -106,6 +106,22 @@ def test_f32_body_shared_memory_fits_a_block_at_every_head_dim(hd):
         assert 2 * smem <= 228 * 1024
 
 
+@pytest.mark.parametrize("hd", range(8, 129, 8))
+def test_f32_blockwise_bwd_shared_memory_fits_a_block_at_every_head_dim(hd):
+    """The fp32 blockwise backward's two kernels (csrc/attention_bwd_f32.cu
+    with the forward's statistics given): the dq kernel keeps q, dO and two
+    K and two V tiles beside its ds, the dK/dV kernel K, V and two q and two
+    dO tiles beside its p and two tiles' rows of (lse, dvec). The head dim
+    alone decides each, and each fits one block at every head dim (at hd
+    128 the closest: 218 and 219 KiB of 227)."""
+    dq, dkv = attention.f32_flash_bwd_smem_bytes(hd)
+    assert dq <= attention.MAX_SMEM_BYTES and dkv <= attention.MAX_SMEM_BYTES
+    # The statistics staging: two tiles of 64 rows of two floats.
+    assert dkv - dq == 2 * 64 * 2 * 4
+    # The forward's fp32 form is the fp32 body: its shared memory too.
+    assert attention.f32_attention_smem_bytes(hd) <= attention.MAX_SMEM_BYTES
+
+
 @pytest.mark.parametrize("t_loc,hd,units", [(257, 64, 2), (129, 64, 1), (197, 64, 2),
                                             (343, 80, 3), (1024, 64, 6), (37, 16, 1),
                                             (200, 128, 2)])

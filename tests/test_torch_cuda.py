@@ -971,12 +971,13 @@ def test_packed_attention_key_count_entry_is_the_single_pass_function(dev, t, kv
 
 def test_long_sequences_route_to_the_flash_kernels(dev):
     """Past SINGLE_PASS_MAX_T the packed and the trainable attention launch
-    the blockwise kernels and not the packed ones; fp32 inputs raise there
-    (the blockwise kernels take bf16). In the window of 849-1024 tokens at
-    hd 64, where JAX keeps the one-shot route and the packed kernel's first
-    form ran out of shared memory, the packed kernel runs (this test raised
-    there before any kernel took it), and fp32 runs on the fp32 slab
-    entry."""
+    the blockwise kernels and not the packed ones, in bf16 and in fp32 (the
+    blockwise kernels' fp32 forms, each against its plain version and the
+    same bits over two calls); mixed dtypes raise. In the window of
+    849-1024 tokens at hd 64, where JAX keeps the one-shot route and the
+    packed kernel's first form ran out of shared memory, the packed kernel
+    runs (this test raised there before any kernel took it), and fp32 runs
+    on the fp32 slab entry."""
     qkv = _rand((1, 1025, 3 * 64), dev, torch.bfloat16)
     counts = lambda: (attention.LAUNCHES, attention.LAUNCHES_BWD,  # noqa: E731
                       attention.LAUNCHES_FLASH, attention.LAUNCHES_FLASH_LSE,
@@ -990,10 +991,31 @@ def test_long_sequences_route_to_the_flash_kernels(dev):
     torch.cuda.synchronize()
     assert counts() == (before[0], before[1], before[2] + 1, before[3] + 1,
                         before[4] + 1)
-    with pytest.raises(NotImplementedError, match="bf16"):
-        attention.packed_fused_attention(qkv.float(), num_heads=1, head_dim=64)
-    with pytest.raises(NotImplementedError, match="bf16"):
-        attention.blockwise_attention_bwd(qkv.float(), qkv[..., :64].float(),
+    # fp32: the blockwise kernels' fp32 forms, under their own counts.
+    counts32 = lambda: (attention.LAUNCHES_FLASH_F32,  # noqa: E731
+                        attention.LAUNCHES_FLASH_LSE_F32, attention.LAUNCHES_FLASH_BWD_F32)
+    before, before32 = counts(), counts32()
+    q32 = qkv.float()
+    with torch.no_grad():
+        out32 = attention.packed_fused_attention(q32, num_heads=1, head_dim=64)
+        again = attention.packed_fused_attention(q32, num_heads=1, head_dim=64)
+    torch.cuda.synchronize()
+    assert counts32() == (before32[0] + 2, *before32[1:]) and counts() == before
+    assert out32.dtype == torch.float32 and torch.equal(out32, again)
+    _rel_close(out32, attention.packed_fused_attention_reference(q32, 1, 64),
+               SINGLE_F32_REL)
+    x32 = q32.clone().requires_grad_(True)
+    cot = _rand((1, 1025, 64), dev, seed=2)
+    (attention.packed_fused_attention_trainable(x32, 1, 64) * cot).sum().backward()
+    torch.cuda.synchronize()
+    assert counts32() == (before32[0] + 2, before32[1] + 1, before32[2] + 1)
+    assert counts() == before
+    ref_out, ref_lse = attention.blockwise_attention_fwd_reference(q32, 1, 64,
+                                                                   return_lse=True)
+    _rel_close(x32.grad, attention.blockwise_attention_bwd_reference(
+        q32, ref_out, ref_lse, cot, 1, 64), F32_GEMM_REL)
+    with pytest.raises(NotImplementedError, match="one dtype"):
+        attention.blockwise_attention_bwd(q32, qkv[..., :64],
                                           torch.zeros((1, 1, 1025), device=dev),
                                           qkv[..., :64].float(), 1, 64)
     with pytest.raises(RuntimeError, match="packed_fused_attention_trainable"):
@@ -1081,8 +1103,9 @@ def test_flash_attention_on_permuted_views(dev):
 def test_flash_attention_blockwise_on_split_heads(dev, b, nh, t, hd):
     """Past T = 1024: row 9's kernel through its strided entry, bit-equal
     to its slab entry on the same values, at each key tile it is built for
-    (256 and 512 against their plain versions too, counted by tile); a key
-    tile without an instance and fp32 raise on the card."""
+    (256 and 512 against their plain versions too, counted by tile), and
+    so is its fp32 form on fp32 views; a key tile without an instance
+    raises on the card, in either dtype."""
     cfg = _heads_cfg(nh, hd)
     q, k, v = (_rand((b, nh, t, hd), dev, torch.bfloat16, seed=i) for i in range(3))
     qkv = torch.stack([q, k, v]).permute(1, 3, 0, 2, 4).reshape(b, t, 3 * nh * hd)
@@ -1099,8 +1122,21 @@ def test_flash_attention_blockwise_on_split_heads(dev, b, nh, t, hd):
         assert torch.equal(out, slab.reshape(b, t, nh, hd).permute(0, 2, 1, 3))
     with pytest.raises(NotImplementedError, match="block_k"):
         attention.flash_attention(q, k, v, cfg, block_k=384)
-    with pytest.raises(NotImplementedError, match="bf16"):
-        attention.flash_attention(q.float(), k.float(), v.float(), cfg)
+    q32, k32, v32, qkv32 = (z.float() for z in (q, k, v, qkv))
+    for bk in attention.FLASH_BLOCK_KS:
+        counter = f"LAUNCHES_FLASH_K{bk}"
+        before = (attention.LAUNCHES_FLASH_SPLIT_F32, attention.LAUNCHES_FLASH_SPLIT,
+                  getattr(attention, counter))
+        out = attention.flash_attention(q32, k32, v32, cfg, block_k=bk)
+        torch.cuda.synchronize()
+        assert (attention.LAUNCHES_FLASH_SPLIT_F32, attention.LAUNCHES_FLASH_SPLIT,
+                getattr(attention, counter)) == (before[0] + 1, before[1], before[2] + 1)
+        _rel_close(out, attention.flash_attention_reference(q32, k32, v32, cfg,
+                                                            block_k=bk), SINGLE_F32_REL)
+        slab, _ = attention.blockwise_attention_fwd(qkv32.contiguous(), nh, hd, block_k=bk)
+        assert torch.equal(out, slab.reshape(b, t, nh, hd).permute(0, 2, 1, 3))
+    with pytest.raises(NotImplementedError, match="block_k"):
+        attention.flash_attention(q32, k32, v32, cfg, block_k=384)
 
 
 @pytest.mark.parametrize("b,t,nh,hd", FLASH_SHAPES + [(2, 1537, 2, 64), (1, 2049, 2, 128)])
@@ -1689,25 +1725,30 @@ def test_packed_attention_per_head_and_true_seq_len(dev, t, seq, dtype):
     """Per-head packing and true_seq_len on the card: up to padded T = 1024
     the packed kernel's key-count entry in bf16 (the single-pass kernel on
     strided views with kv_len in fp32), past it (slab packing) the blockwise
-    kernel with its kv_len; fp32 past 1024 and per-head packing past 1024
-    raise."""
+    kernel with its kv_len (its fp32 form in fp32, the same bits over two
+    calls); per-head packing past 1024 raises."""
     b, nh, hd = 2, 4, 64
     qkv = _rand((b, t, 3 * nh * hd), dev, dtype)
     long_seq = attention._is_long_seq(t)
     for packing in ("per_head", "slab"):
-        if long_seq and (packing == "per_head" or dtype == torch.float32):
-            error = "slab packing only" if packing == "per_head" else "bf16"
-            with pytest.raises(NotImplementedError, match=error):
+        if long_seq and packing == "per_head":
+            with pytest.raises(NotImplementedError, match="slab packing only"):
                 attention.packed_fused_attention(qkv, num_heads=nh, head_dim=hd,
                                                  packing=packing, true_seq_len=seq)
             continue
         if not long_seq and packing == "slab" and seq == t and dtype == torch.float32:
             continue  # the packed kernel takes bf16 only (unchanged)
-        before = (attention.LAUNCHES_SINGLE, attention.LAUNCHES_FLASH, attention.LAUNCHES)
+        before = (attention.LAUNCHES_SINGLE, attention.LAUNCHES_FLASH, attention.LAUNCHES,
+                  attention.LAUNCHES_FLASH_F32)
         out = attention.packed_fused_attention(qkv, num_heads=nh, head_dim=hd,
                                                packing=packing, true_seq_len=seq)
         torch.cuda.synchronize()
-        if long_seq:
+        if long_seq and dtype == torch.float32:
+            assert (attention.LAUNCHES_FLASH, attention.LAUNCHES_FLASH_F32) == (
+                before[1], before[3] + 1)
+            assert torch.equal(out, attention.packed_fused_attention(
+                qkv, num_heads=nh, head_dim=hd, packing=packing, true_seq_len=seq))
+        elif long_seq:
             assert attention.LAUNCHES_FLASH == before[1] + 1
         elif dtype == torch.float32:
             assert attention.LAUNCHES_SINGLE == before[0] + 1
@@ -2529,3 +2570,132 @@ def test_fp32_trainable_attention_and_layer_on_card(dev):
     _rel_close(x.grad, ref_dx, F32_GEMM_REL)
     for key, v in lp.items():
         _rel_close(v.grad, ref[key], 1e-4)
+
+
+# The blockwise kernels' fp32 forms (rows 9-fp32 and 12-fp32, past padded
+# T = 1024): plain FMA, no TF32, the sums in another order than the plain
+# versions' library calls (outputs within SINGLE_F32_REL of scale, the LSE
+# within LSE_REL, gradients within F32_GEMM_REL of each slab's scale).
+# ViT-L/16@512's T = 1025 at hd 64, ViT-H/14@518's 1370 at hd 80, one key
+# past 9 whole 128-key tiles at hd 128, JAX's odd tail 1337, and short or
+# narrow heads.
+FLASH_F32_SHAPES = [(2, 1025, 2, 64), (1, 1370, 2, 80), (1, 1153, 2, 128),
+                    (1, 1337, 1, 64), (2, 37, 2, 16), (1, 200, 1, 104)]
+
+
+@pytest.mark.parametrize("b,t,nh,hd", FLASH_F32_SHAPES)
+@pytest.mark.parametrize("block_k", attention.FLASH_BLOCK_KS)
+def test_flash_attention_fwd_fp32_kernel(dev, b, t, nh, hd, block_k):
+    """Row 9-fp32 at each key tile, with and without the LSE, over every
+    key and with keys masked from kv_len (a last block of one live key,
+    64-key tiles of the last block wholly masked), against the plain
+    version at the same tile; counted by form and by tile; the same bits
+    over two calls, with and without the LSE."""
+    qkv = _rand((b, t, 3 * nh * hd), dev, seed=t + hd + block_k)
+    tile = f"LAUNCHES_FLASH_K{block_k}"
+    for kv_len in sorted({t, max(1, t - 300), min(t, 129), 1}):
+        kw = dict(kv_len=kv_len, block_k=block_k)
+        before = (attention.LAUNCHES_FLASH_F32, attention.LAUNCHES_FLASH_LSE_F32,
+                  getattr(attention, tile), attention.LAUNCHES_FLASH,
+                  attention.LAUNCHES_FLASH_LSE)
+        out, lse = attention.blockwise_attention_fwd(qkv, nh, hd, return_lse=True, **kw)
+        plain, none = attention.blockwise_attention_fwd(qkv, nh, hd, **kw)
+        torch.cuda.synchronize()
+        assert (attention.LAUNCHES_FLASH_F32, attention.LAUNCHES_FLASH_LSE_F32,
+                getattr(attention, tile), attention.LAUNCHES_FLASH,
+                attention.LAUNCHES_FLASH_LSE) == (before[0] + 1, before[1] + 1,
+                                                  before[2] + 2, *before[3:])
+        assert none is None and out.dtype == torch.float32
+        assert lse.shape == (b, nh, t) and lse.dtype == torch.float32
+        ref, ref_lse = attention.blockwise_attention_fwd_reference(
+            qkv, nh, hd, return_lse=True, **kw)
+        _rel_close(out, ref, SINGLE_F32_REL)
+        _rel_close(lse, ref_lse, LSE_REL)
+        assert torch.equal(plain, out)
+        again, again_lse = attention.blockwise_attention_fwd(qkv, nh, hd,
+                                                             return_lse=True, **kw)
+        assert torch.equal(out, again) and torch.equal(lse, again_lse)
+
+
+def _slabs_close(got, ref, d, rel):
+    """dq, dk and dv (the three slabs of dqkv) each within ``rel`` of its
+    own scale."""
+    for i in range(3):
+        _rel_close(got[..., i * d:(i + 1) * d], ref[..., i * d:(i + 1) * d], rel)
+
+
+@pytest.mark.parametrize("b,t,nh,hd", FLASH_F32_SHAPES + [(4, 1025, 16, 64)])
+def test_flash_attention_bwd_fp32_kernel(dev, b, t, nh, hd):
+    """Row 12-fp32 (the dq kernel, which also writes dvec, and the dK/dV
+    kernel, with the forward's statistics given) on the plain forward's out
+    and lse against the plain version; ViT-L/16@512's heads at B = 4 too;
+    fp32 dqkv, the same bits over two calls (no atomics)."""
+    qkv = _rand((b, t, 3 * nh * hd), dev, seed=t + hd)
+    do = _rand((b, t, nh * hd), dev, std=0.01, seed=t + hd + 1)
+    out, lse = attention.blockwise_attention_fwd_reference(qkv, nh, hd, return_lse=True)
+    before = (attention.LAUNCHES_FLASH_BWD, attention.LAUNCHES_FLASH_BWD_F32)
+    dqkv = attention.blockwise_attention_bwd(qkv, out, lse, do, nh, hd)
+    torch.cuda.synchronize()
+    assert (attention.LAUNCHES_FLASH_BWD, attention.LAUNCHES_FLASH_BWD_F32) == (
+        before[0], before[1] + 1)
+    assert dqkv.dtype == torch.float32 and dqkv.shape == qkv.shape
+    _slabs_close(dqkv, attention.blockwise_attention_bwd_reference(qkv, out, lse, do, nh, hd),
+                 nh * hd, F32_GEMM_REL)
+    assert torch.equal(dqkv, attention.blockwise_attention_bwd(qkv, out, lse, do, nh, hd))
+
+
+def test_fp32_trainable_attention_past_1024_on_card(dev):
+    """fp32 training's attention at ViT-L/16@512's T = 1025 with 4 heads:
+    ``packed_fused_attention_trainable`` launches the blockwise forward's
+    fp32 form with the LSE and the fp32 blockwise backward, and its
+    gradient is the plain versions' (forward with the LSE, then the
+    backward on their out and lse)."""
+    b, t, nh, hd = 2, 1025, 4, 64
+    qkv = _rand((b, t, 3 * nh * hd), dev, seed=11)
+    cot = _rand((b, t, nh * hd), dev, seed=12)
+    x = qkv.clone().requires_grad_(True)
+    before = (attention.LAUNCHES_FLASH_LSE_F32, attention.LAUNCHES_FLASH_BWD_F32,
+              attention.LAUNCHES_PACKED_F32, attention.LAUNCHES_BWD_F32)
+    out = attention.packed_fused_attention_trainable(x, nh, hd)
+    (out * cot).sum().backward()
+    torch.cuda.synchronize()
+    assert (attention.LAUNCHES_FLASH_LSE_F32, attention.LAUNCHES_FLASH_BWD_F32,
+            attention.LAUNCHES_PACKED_F32, attention.LAUNCHES_BWD_F32) == (
+        before[0] + 1, before[1] + 1, before[2], before[3])
+    ref_out, ref_lse = attention.blockwise_attention_fwd_reference(qkv, nh, hd,
+                                                                   return_lse=True)
+    _rel_close(out.detach(), ref_out, SINGLE_F32_REL)
+    _slabs_close(x.grad, attention.blockwise_attention_bwd_reference(
+        qkv, ref_out, ref_lse, cot, nh, hd), nh * hd, F32_GEMM_REL)
+
+
+@pytest.mark.parametrize("hd", range(8, 129, 8))
+def test_flash_bwd_f32_geometry_matches_the_kernels(dev, hd):
+    """The host's copy of the fp32 blockwise backward's shared memory (the
+    dq and the dK/dV kernel's, which the CPU tests hold to one block) is
+    the kernels' own."""
+    geometry = _build.library().vit_flash_bwd_f32_geometry
+    assert (geometry(hd, 0), geometry(hd, 1)) == attention.f32_flash_bwd_smem_bytes(hd)
+    assert geometry(hd, 2) == -1
+
+
+def test_tune_and_save_fp32_on_card(dev, tmp_path):
+    """``perf.autotune.tune_and_save`` in fp32 at T = 1025 (a narrow config,
+    batch 1) sweeps the blockwise forward's fp32 form at each key tile and
+    saves a winner that ``lookup`` returns on this card."""
+    from vit_with_opencl_tpu_torch.perf import autotune
+
+    cfg = ViTConfig(name="long_f32", img_size=256, patch_size=8, embed_dim=128,
+                    depth=1, num_heads=2, num_classes=9)
+    assert attention._is_long_seq(cfg.num_tokens)
+    path = tmp_path / "tuning.json"
+    before = (attention.LAUNCHES_FLASH_F32, attention.LAUNCHES_FLASH)
+    result = autotune.tune_and_save(cfg, 1, dtype=torch.float32, path=path, iters=2,
+                                    device=dev)
+    table = result["blockwise_table_ms"]
+    assert set(table) == {str(bk) for bk in attention.FLASH_BLOCK_KS}
+    assert all(np.isfinite(v) and v > 0 for v in table.values())
+    assert result["blockwise_block_k"] in attention.FLASH_BLOCK_KS
+    assert attention.LAUNCHES_FLASH_F32 > before[0] and attention.LAUNCHES_FLASH == before[1]
+    saved = autotune.lookup(cfg, 1, torch.float32, path=path, device=dev)
+    assert saved["blockwise_block_k"] == result["blockwise_block_k"]

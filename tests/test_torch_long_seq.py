@@ -92,17 +92,18 @@ def _close(got, want, rel, min_same=None, what=""):
         assert same >= min_same, f"{what}: {same:.4f} < {min_same}"
 
 
-def _jax_flat_fwd(jq, t):
+def _jax_flat_fwd(jq, t, block_k=128):
     """JAX's blockwise forward as its trainable route calls it: split,
-    padded to 128, ``_blockwise_fwd_flat`` with the LSE; → (out [B, T, D],
-    lse [B, H, T], and the flat padded operands for the backward)."""
+    padded to ``block_k`` (a multiple of 128), ``_blockwise_fwd_flat`` with
+    the LSE; → (out [B, T, D], lse [B, H, T], and the flat padded operands
+    for the backward)."""
     b = jq.shape[0]
-    t_pad = -(-t // 128) * 128
+    t_pad = -(-t // block_k) * block_k
     pad = ((0, 0), (0, t_pad - t), (0, 0))
     qf, kf, vf = (jnp.pad(x, pad) for x in jattn._packed_split(jq, NH, HD))
     of, lse = jattn._blockwise_fwd_flat(
         qf, kf, vf, scale=float(1.0 / np.sqrt(HD)), seq_len=t, block_q=128,
-        block_k=128, interpret=True, return_lse=True)
+        block_k=block_k, interpret=True, return_lse=True)
     out = jattn._packed_merge(of[:, :t], b, NH, HD)
     return out, lse.reshape(b, NH, t_pad)[:, :, :t], (qf, kf, vf, of, lse)
 
@@ -127,6 +128,26 @@ def test_blockwise_forward_matches_jax(t, b, dtype):
     plain, none = attention.blockwise_attention_fwd(tq, NH, HD)
     assert none is None
     assert torch.equal(plain, out)
+
+
+@pytest.mark.parametrize("block_k", [256, 512])
+def test_blockwise_forward_f32_key_tiles_match_jax(block_k):
+    """The fp32 plain version (the fp32 kernel's function) at JAX's other
+    key tiles: ``_flash_kernel_lse``'s output and LSE at ``block_k`` 256
+    and 512, T = 1025 (a last tile of one live key), and the output
+    without the LSE. In fp32 the tile rounds nothing, so the result sits
+    within the 128-key tile's tolerance of JAX's."""
+    t, b = 1025, 2
+    a = _rand((b, t, 3 * NH * HD), 11)
+    jout, jlse, _ = _jax_flat_fwd(jnp.asarray(a, jnp.float32), t, block_k)
+    tq = torch.from_numpy(a)
+    out, lse = attention.blockwise_attention_fwd(tq, NH, HD, return_lse=True,
+                                                 block_k=block_k)
+    assert out.dtype == torch.float32 and tuple(lse.shape) == (b, NH, t)
+    np.testing.assert_allclose(_np(out), _np(jout), rtol=0, atol=F32_ATOL)
+    _close(lse, jlse, LSE_REL, what=f"block_k={block_k} lse")
+    plain, none = attention.blockwise_attention_fwd(tq, NH, HD, block_k=block_k)
+    assert none is None and torch.equal(plain, out)
 
 
 @pytest.mark.parametrize("t", [1025, 1337])
@@ -187,6 +208,34 @@ def test_blockwise_backward_matches_jax(t, b, dtype):
         _close(got, want, GRAD_REL["bf16"], MIN_SAME_GRAD, f"T={t} dqkv")
 
 
+@pytest.mark.parametrize("block_k", [256, 512])
+def test_blockwise_backward_f32_key_tiles_match_jax(block_k):
+    """The fp32 backward's plain version against ``blockwise_attention_bwd``
+    at JAX's key tiles 256 and 512 (T padded to a multiple of them), on
+    JAX's own forward at that tile: p is rebuilt from the LSE, so the tile
+    sets only the order of fp32 sums."""
+    t, b = 1025, 1
+    a = _rand((b, t, 3 * NH * HD), 12)
+    do = _rand((b, t, NH * HD), 13)
+    jout, jlse, (qf, kf, vf, of, lse_flat) = _jax_flat_fwd(
+        jnp.asarray(a, jnp.float32), t, block_k)
+    t_pad = of.shape[1]
+    dof = jnp.pad(jnp.asarray(do).reshape(b, t, NH, HD).transpose(0, 2, 1, 3)
+                  .reshape(b * NH, t, HD), ((0, 0), (0, t_pad - t), (0, 0)))
+    dq, dk, dv = jattn.blockwise_attention_bwd(
+        qf, kf, vf, of, lse_flat, dof, scale=float(1.0 / np.sqrt(HD)),
+        seq_len=t, block_q=128, block_k=block_k, interpret=True)
+    want = jnp.concatenate([jattn._packed_merge(x[:, :t], b, NH, HD)
+                            for x in (dq, dk, dv)], axis=-1)
+    tout = torch.from_numpy(_np(jout).copy())
+    tlse = torch.from_numpy(_np(jlse).copy())
+    got = attention.blockwise_attention_bwd(torch.from_numpy(a), tout, tlse,
+                                            torch.from_numpy(do), NH, HD,
+                                            block_k=block_k)
+    assert got.dtype == torch.float32
+    _close(got, want, GRAD_REL["f32"], what=f"block_k={block_k} dqkv")
+
+
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
 def test_trainable_long_route_grad_matches_jax(dtype):
     """``packed_fused_attention_trainable`` at T = 1025 under autograd
@@ -241,6 +290,37 @@ def test_long_seq_flash_forward_matches_jax(host_params, dtype):
                       kernels=vit.resolve_kernels("flash")).numpy()
     assert got.shape == (2, CFG.num_classes) and np.isfinite(got).all()
     np.testing.assert_allclose(got, want, atol=PROB_ATOL[dtype])
+    assert (got.argmax(-1) == want.argmax(-1)).all()
+
+
+def test_long_seq_fp32_engine_matches_jax_engine():
+    """The engine's fp32 parity mode (``param_dtype`` and ``compute_dtype``
+    fp32, ``attention_impl="flash"``: on the card the fp32 GEMM and, at
+    T = 1025, the blockwise forward's fp32 form in each layer's chain) on
+    the CPU, against the JAX engine in the same mode (its Pallas kernels in
+    interpret mode), on this file's config at depth 2. Tolerance: fp32
+    summation order, 1e-6 on probabilities (as at T = 197,
+    tests/test_torch_engine.py)."""
+    import dataclasses
+
+    from vit_with_opencl_tpu.engine import InferenceEngine as JInferenceEngine
+    from vit_with_opencl_tpu_torch.engine import InferenceEngine
+
+    cfg = dataclasses.replace(CFG, depth=2)
+    jcfg = dataclasses.replace(JCFG, depth=2)
+    params = fixtures.random_params(cfg, seed=8, scale=0.05)
+    images = fixtures.random_images(cfg, n=2, seed=9)
+    want = JInferenceEngine(jcfg, params, batch_size=2, param_dtype=jnp.float32,
+                            compute_dtype=jnp.float32,
+                            attention_impl="flash").run(images)
+    before = (attention.LAUNCHES_FLASH_F32, attention.LAUNCHES_FLASH)
+    engine = InferenceEngine(cfg, params, batch_size=2, param_dtype=torch.float32,
+                             compute_dtype=torch.float32, attention_impl="flash",
+                             device="cpu")
+    got = engine.run(images)
+    assert (attention.LAUNCHES_FLASH_F32, attention.LAUNCHES_FLASH) == before
+    assert got.shape == want.shape == (2, cfg.num_classes)
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
     assert (got.argmax(-1) == want.argmax(-1)).all()
 
 

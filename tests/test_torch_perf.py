@@ -167,6 +167,21 @@ def test_marks_fence_the_traced_runs(on_card):
         kernel_trace._between_marks(events[2:], on_card)
 
 
+def test_long_spins_are_guards_not_marks():
+    """On the card a long spin opens and closes the traced window: it is a
+    guard, not a mark, so the window between the two short spins counts."""
+    spin = {"ph": "X", "cat": "kernel",
+            "name": "void at::cuda::(anonymous namespace)::spin_kernel(long)"}
+    k = {"ph": "X", "cat": "kernel", "name": "void k<64>()", "dur": 2.0}
+    guard = dict(spin, dur=kernel_trace._MARK_MAX_US * 50)
+    events = [dict(guard, ts=0.0), dict(k, ts=6000.0), dict(spin, dur=1.0, ts=6010.0),
+              dict(k, ts=6020.0), dict(spin, dur=1.0, ts=6030.0), dict(k, ts=6040.0),
+              dict(guard, ts=6050.0)]
+    assert kernel_trace._between_marks(events, on_card=True) == [events[3]]
+    with pytest.raises(kernel_trace.LostMark, match="1 of its 2 marks"):
+        kernel_trace._between_marks(events[3:], on_card=True)
+
+
 def test_a_trace_that_lost_a_mark_is_taken_again(monkeypatch):
     """A trace whose first mark is missing is thrown away and taken again;
     when every one of TRACE_ATTEMPTS traces loses a mark, the table raises."""

@@ -1,5 +1,5 @@
-// One fp32 attention body on register tiles, for two functions that differ
-// in small ways (a template parameter, kRing):
+// One fp32 attention body on register tiles, for three functions that
+// differ in small ways (a template parameter, the form):
 //   single pass  (attention_single.cu, fp32: the single-pass attention's
 //                fp32 form) q, k, v, out strided [B, H, T, hd] views; q
 //                scaled in fp32 first; keys at and past kv_len masked; one
@@ -10,6 +10,14 @@
 //                per-key bias added (two roundings); the key blocks of
 //                block_k keys in order, each with its exact max, the row's
 //                (m, l, acc) carried in and out, un-normalised.
+//   blockwise    (attention_flash_f32.cu: the blockwise forward's fp32
+//                form) q, k, v, out strided views; the scores scaled (q is
+//                not); keys at and past kv_len masked; the key blocks of
+//                block_k keys in order, each with its exact max, from m =
+//                -inf, l = 0, o = 0; o normalised by 1 / l (l == 0 -> 1)
+//                and, where asked, lse = m + log(l) (l == 0 -> 1) written.
+// The blockwise form skips a block's 64-key tiles that hold no key below
+// kv_len (the other forms have none).
 // Per key block, two passes over its 64-key tiles: the block's exact row
 // max of s, then p = exp(s - m') (fp32, not rounded), its row sum and
 // o += p . V; between them the running max moves and o is rescaled by
@@ -46,6 +54,8 @@ constexpr int kK = 64;          // keys of a tile
 constexpr int kThreads = 256;   // 16 query groups x 16 key (or column) groups
 constexpr int kPPitch = 64 + 16;  // a row of p, in floats: two rows 16 banks apart
 static_assert(kQ == 64 && kK == 64, "the tiles below are 64 rows");
+// The body's forms (its template parameter).
+constexpr int kSinglePass = 0, kRingStep = 1, kBlockwise = 2;
 
 // Shared memory of a block, in floats: q [kQ][HDP + 4], K 2 x [kK][HDP + 4],
 // V 2 x [kK][HDP + 4], p [kQ][kPPitch], bias 2 x [kK].
@@ -217,12 +227,14 @@ __device__ __forceinline__ void begin_step(const Fetch& fetch, int s, int nsteps
   __syncthreads();
 }
 
-// What the two entries pass. Single pass: q, k, v, out views (image b =
+// What the entries pass. Single pass: q, k, v, out views (image b =
 // blockIdx.z, head h = blockIdx.y), T rows, keys below kv_len, block_k =
 // kv_len, scale multiplies q. Ring step: [n, t_loc, hd] (row group b =
 // blockIdx.z, h = 0), kv_len = T = t_loc, scale multiplies the scores,
 // bias [T], m_in, l_in [n, T] and acc_in (out's layout) in, m_out, l_out
-// and out (the accumulator) out.
+// and out (the accumulator) out. Blockwise: the single pass's views, keys
+// below kv_len in blocks of block_k, scale multiplies the scores; lse
+// [B, H, T] (H = gridDim.y) or null.
 struct Args {
   const float* q;
   const float* k;
@@ -237,10 +249,12 @@ struct Args {
   float* l_out;
   int T, kv_len, block_k, hd;
   float scale;
+  float* lse;
 };
 
-template <int HDP, bool kRing>
+template <int HDP, int kForm>
 __device__ __forceinline__ void attention_f32(const Args& a) {
+  constexpr bool kRing = kForm == kRingStep;
   using G = Geom<HDP>;
   constexpr int kChunks = G::kChunks, kCols = G::kCols, kPitch = G::kPitch;
   extern __shared__ __align__(16) float f32_smem[];
@@ -264,7 +278,7 @@ __device__ __forceinline__ void attention_f32(const Args& a) {
     float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
     if (q0 + r < T && 4 * c < hd)
       x = __ldg(reinterpret_cast<const float4*>(qb + (q0 + r) * a.qs.row + 4 * c));
-    if (!kRing) {
+    if (kForm == kSinglePass) {
       x.x *= scale;
       x.y *= scale;
       x.z *= scale;
@@ -299,16 +313,20 @@ __device__ __forceinline__ void attention_f32(const Args& a) {
   // Steps: key block s / (2 nt); of its 2 nt steps, [0, nt) are pass 1 (K
   // tiles and their biases), [nt, 2 nt) pass 2 (K and V tiles, the biases
   // again). Rows at and past the block's end arrive as zeros, and their
-  // bias as -inf (no max, p exactly 0).
+  // bias as -inf (no max, p exactly 0). The blockwise form's last block may
+  // hold whole tiles past kv_len (the other forms' blocks end at kv_len
+  // whole): their steps copy and compute nothing.
   const int nt = (block_k + kK - 1) / kK;
   const int nsteps = ((kv_len + block_k - 1) / block_k) * 2 * nt;
   auto fetch = [&](int s) {
     const int bi = s / (2 * nt), r = s % (2 * nt), tile = r % nt, buf = s & 1;
     const int j0 = bi * block_k + tile * kK, kend = min(bi * block_k + block_k, kv_len);
-    load_rows<HDP>(ks0 + buf * G::kTile, kb, a.ks.row, vs0 + buf * G::kTile, vb, a.vs.row,
-                   r >= nt, j0, kend, hd, t);
-    if (t < kK)
-      bs0[buf * kK + t] = j0 + t < kend ? (kRing ? __ldg(a.bias + j0 + t) : 0.f) : -INFINITY;
+    if (kForm != kBlockwise || j0 < kend) {
+      load_rows<HDP>(ks0 + buf * G::kTile, kb, a.ks.row, vs0 + buf * G::kTile, vb,
+                     a.vs.row, r >= nt, j0, kend, hd, t);
+      if (t < kK)
+        bs0[buf * kK + t] = j0 + t < kend ? (kRing ? __ldg(a.bias + j0 + t) : 0.f) : -INFINITY;
+    }
     cp_async_commit();
   };
   int s = 0;
@@ -319,7 +337,8 @@ __device__ __forceinline__ void attention_f32(const Args& a) {
   };
   // S of the step's K tile: queries qg + 16 i, keys kg + 16 j, summed over
   // hd in order; then the ring step's s * scale + bias (two roundings), the
-  // single pass's s + 0 (or -inf past kv_len).
+  // blockwise form's s * scale + 0 (or -inf past kv_len), the single pass's
+  // s + 0 (or -inf past kv_len).
   auto scores = [&](float (&sc)[4][4]) {
     const int buf = s & 1;
     products<HDP>(qs, ks0 + buf * G::kTile, qg, kg, 0.f, sc);
@@ -328,7 +347,8 @@ __device__ __forceinline__ void attention_f32(const Args& a) {
       const float bj = bs0[buf * kK + kg + 16 * j];
 #pragma unroll
       for (int i = 0; i < 4; ++i)
-        sc[i][j] = kRing ? __fadd_rn(__fmul_rn(sc[i][j], scale), bj) : __fadd_rn(sc[i][j], bj);
+        sc[i][j] = kForm == kSinglePass ? __fadd_rn(sc[i][j], bj)
+                                        : __fadd_rn(__fmul_rn(sc[i][j], scale), bj);
     }
   };
   float mb[4], lb[4], al[4];
@@ -386,16 +406,20 @@ __device__ __forceinline__ void attention_f32(const Args& a) {
     for (int tile = 0; tile < nt; ++tile) {
       float sc[4][4];
       begin_step(fetch, s, nsteps);
-      scores(sc);
-      max_into(sc);
+      if (kForm != kBlockwise || k0 + tile * kK < kend) {
+        scores(sc);
+        max_into(sc);
+      }
       end_step();
     }
     move_max();
     for (int tile = 0; tile < nt; ++tile) {
       float sc[4][4];
       begin_step(fetch, s, nsteps);
-      scores(sc);
-      pv(sc, min(kK, kend - (k0 + tile * kK)));
+      if (kForm != kBlockwise || k0 + tile * kK < kend) {
+        scores(sc);
+        pv(sc, min(kK, kend - (k0 + tile * kK)));
+      }
       end_step();
     }
     move_sum();
@@ -409,7 +433,10 @@ __device__ __forceinline__ void attention_f32(const Args& a) {
       a.m_out[static_cast<size_t>(b) * T + row] = m[i];
       a.l_out[static_cast<size_t>(b) * T + row] = l[i];
     }
-    const float inv = kRing ? 1.f : 1.f / l[i];
+    const float l_safe = kForm == kBlockwise && l[i] == 0.f ? 1.f : l[i];
+    if (kForm == kBlockwise && a.lse != nullptr && kg == 0)
+      a.lse[(static_cast<size_t>(b) * gridDim.y + h) * T + row] = m[i] + logf(l_safe);
+    const float inv = kRing ? 1.f : 1.f / l_safe;
     float* orow = head_base(a.out, a.os, b, h) + row * a.os.row;
 #pragma unroll
     for (int c = 0; c < kCols; ++c) {

@@ -491,7 +491,7 @@ namespace ring32 {
 template <int HDP>
 __global__ void __launch_bounds__(f32attn::kThreads, f32attn::min_blocks<HDP>())
 ring_step_f32_tiled_kernel(const __grid_constant__ f32attn::Args args) {
-  f32attn::attention_f32<HDP, true>(args);
+  f32attn::attention_f32<HDP, f32attn::kRingStep>(args);
 }
 
 // [n, t_loc, hd] as n images of one head.

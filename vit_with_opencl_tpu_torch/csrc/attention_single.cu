@@ -44,7 +44,7 @@ namespace single {
 template <int HDP>
 __global__ void __launch_bounds__(f32attn::kThreads, f32attn::min_blocks<HDP>())
 single_pass_f32_tiled_kernel(const __grid_constant__ f32attn::Args args) {
-  f32attn::attention_f32<HDP, false>(args);
+  f32attn::attention_f32<HDP, f32attn::kSinglePass>(args);
 }
 
 template <int HDP>

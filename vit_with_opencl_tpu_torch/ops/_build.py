@@ -105,6 +105,13 @@ SIGNATURES = {
                                         _I, _I, _F, _P],
     # head_dim, block_k, what (0, 1, 2) -> bytes, queries or stages
     "vit_flash_fwd_geometry": [_I, _I, _I],
+    # The fp32 forms (csrc/attention_flash_f32.cu): qkv, out, lse (or NULL),
+    # B, T, kv_len, num_heads, head_dim, block_k, scale, stream; and q, k, v,
+    # out, lse (or NULL), strides (12), B, T, kv_len, num_heads, head_dim,
+    # block_k, scale, stream
+    "vit_flash_attention_fwd_f32": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P],
+    "vit_flash_attention_fwd_strided_f32": [_P, _P, _P, _P, _P, _LL, _I, _I, _I,
+                                            _I, _I, _I, _F, _P],
     # q, k, v, out, dtype, strides (12), B, num_heads, T, kv_len, head_dim,
     # scale, stream
     "vit_single_pass_attention": [_P, _P, _P, _P, _I, _LL, _I, _I, _I, _I, _I,
@@ -112,6 +119,12 @@ SIGNATURES = {
     # qkv, out, lse, dout, dqkv, dvec, B, T, num_heads, head_dim, scale,
     # stream
     "vit_flash_attention_bwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
+    # Its fp32 form (csrc/attention_bwd_f32.cu): qkv, out, lse, dout, dqkv,
+    # stats, B, T, num_heads, head_dim, scale, stream
+    "vit_flash_attention_bwd_f32": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F,
+                                    _P],
+    # head_dim, what (0 the dq kernel, 1 the dK/dV kernel) -> bytes
+    "vit_flash_bwd_f32_geometry": [_I, _I],
     # a, a_trans, b, b_trans, bias, gelu_grad_of, out, out_bf16, out2,
     # out2_gelu, M, N, K, full, splits, split_k, workspace, stream
     "vit_gemm_grad": [_P, _I, _P, _I, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I,

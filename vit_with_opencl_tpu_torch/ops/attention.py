@@ -59,11 +59,19 @@ un-normalised, through ``csrc/attention_ring.cu``: bf16 on the Hopper parts
 products), fp32 on the register-tiled body of ``csrc/attention_f32.cuh``;
 its plain version is ``blockwise_ring_step_reference``.
 
+Past padded T = 1024 fp32 inputs take the blockwise kernels' fp32 forms:
+the forward (slabs, with or without the LSE, and split heads) is the
+blockwise form of the register-tiled fp32 body of ``csrc/attention_f32.cuh``
+(``csrc/attention_flash_f32.cu``: ``LAUNCHES_FLASH_F32``,
+``LAUNCHES_FLASH_LSE_F32``, ``LAUNCHES_FLASH_SPLIT_F32``), the backward the
+dq and dK/dV kernels of ``csrc/attention_bwd_f32.cu`` in their form with the
+statistics given (``LAUNCHES_FLASH_BWD_F32``); plain FMA on the CUDA cores,
+no TF32.
+
 Every wrapper launches a kernel for a CUDA tensor and computes its plain
-version for a CPU tensor; there is no other fallback. Not ported yet: fp32
-inputs to the blockwise kernels (past padded T = 1024), and a blockwise
-key tile other than 128, 256 and 512 on the card; those raise
-``NotImplementedError``.
+version for a CPU tensor; there is no other fallback. A blockwise key tile
+other than 128, 256 and 512 raises ``NotImplementedError`` on the card, in
+either dtype, and so do mixed dtypes.
 
 The backward, ``packed_attention_bwd``, replaces ``_packed_bwd_kernel``
 with the two kernels of ``csrc/attention_bwd.cu`` for bf16 qkv and dO, and
@@ -115,7 +123,7 @@ from . import _build, substitutions
 # forward on the slabs without and with the log-sum-exp, on split heads, and
 # the blockwise backward (one per call: its two kernels); the ring step.
 # And the blockwise forward's launches by key tile (its three forms
-# together), so that a run shows which instance it ran.
+# together, in either dtype), so that a run shows which instance it ran.
 LAUNCHES = 0
 LAUNCHES_BWD = 0
 LAUNCHES_SINGLE = 0
@@ -127,6 +135,12 @@ LAUNCHES_FLASH = 0
 LAUNCHES_FLASH_LSE = 0
 LAUNCHES_FLASH_SPLIT = 0
 LAUNCHES_FLASH_BWD = 0
+# The blockwise forward's and backward's fp32 forms (csrc/attention_flash_f32.cu,
+# csrc/attention_bwd_f32.cu), counted as the bf16 ones.
+LAUNCHES_FLASH_F32 = 0
+LAUNCHES_FLASH_LSE_F32 = 0
+LAUNCHES_FLASH_SPLIT_F32 = 0
+LAUNCHES_FLASH_BWD_F32 = 0
 LAUNCHES_RING = 0
 LAUNCHES_FLASH_K128 = 0
 LAUNCHES_FLASH_K256 = 0
@@ -353,9 +367,10 @@ def ring_kernel_units(n: int, t_loc: int, head_dim: int) -> int:
 
 
 # The fp32 attention body (csrc/attention_f32.cuh), shared by the
-# single-pass attention's and the ring step's fp32 forms: blocks of 64
-# queries, 64-key tiles; q, K and V row-major in rows of hd + 4 floats, p
-# [query][key] in rows of 64 + 16, K, V and the keys' bias double buffered.
+# single-pass attention's, the ring step's and the blockwise forward's fp32
+# forms: blocks of 64 queries, 64-key tiles; q, K and V row-major in rows of
+# hd + 4 floats, p [query][key] in rows of 64 + 16, K, V and the keys' bias
+# double buffered.
 F32_ROWS = 64
 F32_P_PITCH = F32_ROWS + 16
 
@@ -367,6 +382,18 @@ def f32_attention_smem_bytes(head_dim: int) -> int:
     hdp = -(-head_dim // 16) * 16
     floats = 5 * F32_ROWS * (hdp + 4) + F32_ROWS * F32_P_PITCH + 2 * F32_ROWS
     return 4 * floats
+
+
+def f32_flash_bwd_smem_bytes(head_dim: int) -> tuple:
+    """Shared memory of one block of each of the blockwise backward's fp32
+    kernels (csrc/attention_bwd_f32.cu in its form with the statistics
+    given: ``Smem::kDq``, ``Smem::kDkvGiven``): the dq kernel's q, dO, two K
+    and two V tiles and its ds; the dK/dV kernel's K, V, two q and two dO
+    tiles, its p and two tiles' rows of (lse, dvec); at the head dim padded
+    to a multiple of 16, any T. Returns (dq, dK/dV) bytes."""
+    hdp = -(-head_dim // 16) * 16
+    dq = 4 * (6 * F32_ROWS * (hdp + 4) + F32_ROWS * F32_P_PITCH)
+    return dq, dq + 4 * 2 * F32_ROWS * 2
 
 
 def _stats_rows(seq_len: int) -> int:
@@ -588,8 +615,13 @@ def blockwise_attention_fwd(qkv: torch.Tensor, num_heads: int, head_dim: int,
     the running max's step and part of the function: the kernel has an
     instance for each of ``FLASH_BLOCK_KS`` and raises
     ``NotImplementedError`` for any other. ``block_q`` is range-checked and
-    moves no result, on the card or in JAX (it only sets JAX's padding)."""
-    global LAUNCHES_FLASH, LAUNCHES_FLASH_LSE
+    moves no result, on the card or in JAX (it only sets JAX's padding).
+    bf16 qkv launches ``csrc/attention_flash.cu``'s kernel, fp32 the
+    blockwise form of the fp32 body (``csrc/attention_flash_f32.cu``; its
+    own counts, ``LAUNCHES_FLASH_F32`` and ``LAUNCHES_FLASH_LSE_F32``). In
+    fp32 p is not rounded for the PV product, so the tile sets only where
+    the running max moves and the order of fp32 sums; the kernel takes the
+    same three tiles."""
     b, t, three_d = qkv.shape
     d = num_heads * head_dim
     kv_len = t if kv_len is None else kv_len
@@ -604,28 +636,28 @@ def blockwise_attention_fwd(qkv: torch.Tensor, num_heads: int, head_dim: int,
                                                  kv_len=kv_len, block_q=block_q,
                                                  block_k=block_k)
     require_block_k(block_k)
-    if qkv.dtype != torch.bfloat16:
+    if qkv.dtype not in _build.DTYPE_CODES:
         raise NotImplementedError(
-            f"the CUDA blockwise attention kernel takes bf16 qkv, got {qkv.dtype}")
+            f"the CUDA blockwise attention kernel takes bf16 or fp32 qkv, got "
+            f"{qkv.dtype}")
     if head_dim % 8 or head_dim > 128:
         raise NotImplementedError(
             f"head_dim {head_dim}: the kernel takes multiples of 8 up to 128")
     _build.refuse_autograd("blockwise_attention_fwd", (qkv,),
                            "packed_fused_attention_trainable")
-    _build.require(qkv, "qkv", device=qkv.device, dtypes=(torch.bfloat16,))
+    _build.require(qkv, "qkv", device=qkv.device, dtypes=(qkv.dtype,))
     out = torch.empty((b, t, d), dtype=qkv.dtype, device=qkv.device)
     lse = (torch.empty((b, num_heads, t), dtype=torch.float32, device=qkv.device)
            if return_lse else None)
     if b == 0 or t == 0:
         return out, lse
-    err = _build.launch("vit_flash_attention_fwd", qkv,
-        qkv.data_ptr(), out.data_ptr(), lse.data_ptr() if return_lse else None,
+    f32 = qkv.dtype == torch.float32
+    err = _build.launch("vit_flash_attention_fwd_f32" if f32 else "vit_flash_attention_fwd",
+        qkv, qkv.data_ptr(), out.data_ptr(), lse.data_ptr() if return_lse else None,
         b, t, kv_len, num_heads, head_dim, int(block_k), _flash_scale(head_dim))
-    _build.check_launch(err, "blockwise_attention_fwd")
-    if return_lse:
-        LAUNCHES_FLASH_LSE += 1
-    else:
-        LAUNCHES_FLASH += 1
+    _build.check_launch(err, "blockwise_attention_fwd" + (" (fp32)" if f32 else ""))
+    name = "LAUNCHES_FLASH" + ("_LSE" if return_lse else "") + ("_F32" if f32 else "")
+    globals()[name] += 1
     _count_block_k(block_k)
     return out, lse
 
@@ -718,11 +750,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """softmax(QKᵀ / sqrt(hd)) V on split heads: [B, H, T, hd] → [B, H, T,
     hd] in q's dtype, the drop-in for ``models.vit.xla_attention`` (the same
     kernel-table slot). T ≤ ``SINGLE_PASS_MAX_T``: the single-pass kernel
-    (bf16 or fp32); longer: the blockwise kernel (bf16, at ``block_k`` 128,
-    256 or 512, the tile being part of its function; ``block_q`` moves
-    nothing). q, k and v may be strided views with a contiguous last axis
-    and 16-byte rows."""
-    global LAUNCHES_FLASH_SPLIT
+    (bf16 or fp32); longer: the blockwise kernel (bf16, or its fp32 form,
+    ``LAUNCHES_FLASH_SPLIT_F32``; at ``block_k`` 128, 256 or 512, the tile
+    being part of its function; ``block_q`` moves nothing). q, k and v may
+    be strided views with a contiguous last axis and 16-byte rows."""
+    global LAUNCHES_FLASH_SPLIT, LAUNCHES_FLASH_SPLIT_F32
     if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
         raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)} and v "
                          f"{tuple(v.shape)} must be one [B, H, T, hd] shape")
@@ -733,9 +765,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     b, nh, t, hd = q.shape
     if t <= SINGLE_PASS_MAX_T:
         return single_pass_attention(q, k, v, config.head_dim)
-    if q.dtype != torch.bfloat16:
+    if q.dtype not in _build.DTYPE_CODES:
         raise NotImplementedError(
-            f"the CUDA blockwise attention kernel takes bf16, got {q.dtype}")
+            f"the CUDA blockwise attention kernel takes bf16 or fp32, got {q.dtype}")
     require_block_k(block_k)
     if hd % 8 or hd > 128:
         raise NotImplementedError(
@@ -747,12 +779,19 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            "packed_fused_attention_trainable")
     if b == 0 or nh == 0:
         return out
-    err = _build.launch("vit_flash_attention_fwd_strided", q,
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), None,
-        _build.head_strides(q, k, v, out), b, t, nh, hd, int(block_k),
-        _flash_scale(config.head_dim))
-    _build.check_launch(err, "flash_attention")
-    LAUNCHES_FLASH_SPLIT += 1
+    strides, scale = _build.head_strides(q, k, v, out), _flash_scale(config.head_dim)
+    if q.dtype == torch.float32:
+        err = _build.launch("vit_flash_attention_fwd_strided_f32", q,
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), None, strides,
+            b, t, t, nh, hd, int(block_k), scale)
+        _build.check_launch(err, "flash_attention (fp32)")
+        LAUNCHES_FLASH_SPLIT_F32 += 1
+    else:
+        err = _build.launch("vit_flash_attention_fwd_strided", q,
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), None, strides,
+            b, t, nh, hd, int(block_k), scale)
+        _build.check_launch(err, "flash_attention")
+        LAUNCHES_FLASH_SPLIT += 1
     _count_block_k(block_k)
     return out
 
@@ -896,8 +935,11 @@ def blockwise_attention_bwd(qkv: torch.Tensor, out: torch.Tensor,
     the dK/dV kernel reads it. JAX's ``block_q``/``block_k`` are accepted
     (any positive sizes) and the kernels keep their own tiles: p is rebuilt
     elementwise from the forward's LSE, so JAX's tiles set only the order
-    of its fp32 sums, not a rounding point."""
-    global LAUNCHES_FLASH_BWD
+    of its fp32 sums, not a rounding point. bf16 launches
+    ``csrc/attention_flash.cu``'s kernels, fp32 (qkv, out and dO all fp32)
+    the two of ``csrc/attention_bwd_f32.cu`` in their form with the
+    statistics given (``LAUNCHES_FLASH_BWD_F32``)."""
+    global LAUNCHES_FLASH_BWD, LAUNCHES_FLASH_BWD_F32
     b, t, three_d = qkv.shape
     d = num_heads * head_dim
     if (three_d != 3 * d or tuple(do.shape) != (b, t, d)
@@ -911,18 +953,31 @@ def blockwise_attention_bwd(qkv: torch.Tensor, out: torch.Tensor,
     if not qkv.is_cuda:
         return blockwise_attention_bwd_reference(qkv, out, lse, do, num_heads,
                                                  head_dim)
-    if any(z.dtype != torch.bfloat16 for z in (qkv, out, do)):
+    if (qkv.dtype not in _build.DTYPE_CODES
+            or any(z.dtype != qkv.dtype for z in (out, do))):
         raise NotImplementedError(
-            f"the CUDA blockwise attention backward takes bf16 qkv, out and "
-            f"dO, got {qkv.dtype}, {out.dtype} and {do.dtype}")
+            f"the CUDA blockwise attention backward takes bf16 or fp32 qkv, "
+            f"out and dO of one dtype, got {qkv.dtype}, {out.dtype} and "
+            f"{do.dtype}")
     if head_dim % 8 or head_dim > 128:
         raise NotImplementedError(
             f"head_dim {head_dim}: the kernel takes multiples of 8 up to 128")
     for z, name in ((qkv, "qkv"), (out, "out"), (do, "do")):
-        _build.require(z, name, device=qkv.device, dtypes=(torch.bfloat16,))
+        _build.require(z, name, device=qkv.device, dtypes=(qkv.dtype,))
     _build.require(lse, "lse", device=qkv.device, dtypes=(torch.float32,))
     dqkv = torch.empty((b, t, 3 * d), dtype=qkv.dtype, device=qkv.device)
     if b == 0 or t == 0:
+        return dqkv
+    if qkv.dtype == torch.float32:
+        # Each row's (lse, dvec), written by the dq kernel for the dK/dV one.
+        stats = torch.empty((b, num_heads, _stats_rows(t), 2), dtype=torch.float32,
+                            device=qkv.device)
+        err = _build.launch("vit_flash_attention_bwd_f32", qkv,
+            qkv.data_ptr(), out.data_ptr(), lse.data_ptr(), do.data_ptr(),
+            dqkv.data_ptr(), stats.data_ptr(), b, t, num_heads, head_dim,
+            _flash_scale(head_dim))
+        _build.check_launch(err, "blockwise_attention_bwd (fp32)")
+        LAUNCHES_FLASH_BWD_F32 += 1
         return dqkv
     dvec = torch.empty((b, num_heads, t), dtype=torch.float32, device=qkv.device)
     err = _build.launch("vit_flash_attention_bwd", qkv,

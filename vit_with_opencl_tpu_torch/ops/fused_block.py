@@ -119,11 +119,13 @@ In fp32 (fp32 x and weights: the engine's parity mode, fp32 training) the
 same chains run with every activation in fp32: the GEMMs on the fp32 GEMM
 (``csrc/gemm_f32.cu``, its second outputs in fp32), the attention on the
 fp32 slab entry and the fp32 backward (``csrc/attention_single.cu``,
-``csrc/attention_bwd_f32.cu``) up to padded T = 1024. The LN backward's
-compile-time forms are for the two bf16 chains' dtype sets, so fp32's (fp32
-x, g and dx) takes its general form (``layernorm_bwd_any_width_kernel``);
-the column sums take fp32 rows in their one form. Past padded T = 1024 the
-blockwise kernels take bf16 only, and fp32 raises there.
+``csrc/attention_bwd_f32.cu``) up to padded T = 1024, and past it on the
+blockwise forward's fp32 form (``csrc/attention_flash_f32.cu``; the
+backward stage keeps the fp32 backward, which streams any T). The LN
+backward's compile-time forms are for the two bf16 chains' dtype sets, so
+fp32's (fp32 x, g and dx) takes its general form
+(``layernorm_bwd_any_width_kernel``); the column sums take fp32 rows in
+their one form.
 """
 
 from __future__ import annotations

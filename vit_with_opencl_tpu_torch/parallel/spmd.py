@@ -32,7 +32,8 @@ routes are the JAX package's:
   * ``flash`` — the same, with the attention core through
     ``ops/attention.packed_fused_attention_trainable`` (the packed kernel
     forward and ``packed_attention_bwd`` backward; past padded T = 1024 the
-    blockwise forward with its log-sum-exp and ``blockwise_attention_bwd``);
+    blockwise forward with its log-sum-exp and ``blockwise_attention_bwd``,
+    in bf16 or fp32 compute alike);
   * ``fused`` — ``flash``, and every encoder layer through
     ``ops/fused_block.fused_encoder_layer_trainable`` (the forward chain and
     the three-stage fused backward, its MLP stage split in the H-chunked

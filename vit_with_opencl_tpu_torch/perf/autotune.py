@@ -10,10 +10,12 @@ persistent grid, with no images per cell and no ragged route, and the GEMM
 core's tile is fixed; so the port has one knob, the blockwise forward's key
 tile ``block_k`` (``ops/attention.FLASH_BLOCK_KS``: 128, 256, 512), swept
 where the config's sequence passes ``SINGLE_PASS_MAX_T`` and the encoder
-takes the blockwise route. It is part of the function (p is rounded to bf16
-against the running max of each ``block_k``-key tile), so a tuned engine
-computes what JAX computes at that ``block_k``; ``block_q`` moves nothing
-and is not swept. JAX's grid knobs raise ``ValueError`` by name, here, in
+takes the blockwise route, in bf16 or fp32 (the forward's fp32 form takes
+the same tiles). It is part of the function (p is rounded to bf16 against
+the running max of each ``block_k``-key tile; in fp32 the tile sets where
+the max moves and the order of the sums), so a tuned engine computes what
+JAX computes at that ``block_k``; ``block_q`` moves nothing and is not
+swept. JAX's grid knobs raise ``ValueError`` by name, here, in
 ``models/vit.resolve_kernels`` and in ``parallel/spmd.make_train_step``;
 ``tune_fused_linear_blocks`` raises ``NotImplementedError``.
 

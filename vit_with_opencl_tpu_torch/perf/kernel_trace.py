@@ -68,6 +68,15 @@ def _select_events(events: List[dict], on_card: bool) -> List[dict]:
 # (``torch.cuda._sleep``), an empty named range on the CPU.
 _SPIN = "spin_kernel"
 _MARK = "vit-kernel-trace-mark"
+_MARK_CYCLES = 1000
+# On the card a long spin (about 5 ms at the H100's clock) opens and closes
+# the traced window, outside the marks: the tracer drops the events of the
+# first and last moments of its window now and then, and a call of a few
+# microseconds (the ring step alone) gave it too little to drop before its
+# first mark (all three traces of one run lost a mark). A spin longer than
+# _MARK_MAX_US is a guard, not a mark.
+_GUARD_CYCLES = 10_000_000
+_MARK_MAX_US = 100.0
 # A trace that lost a mark is taken again, up to this many traces in all
 # (on an H100 the ViT-Ti stack's trace at B = 16 lost its first mark in one
 # run of several).
@@ -83,7 +92,7 @@ def _mark(on_card: bool) -> None:
     """A mark in the trace after everything launched so far has run."""
     if on_card:
         torch.cuda.synchronize()
-        torch.cuda._sleep(1000)
+        torch.cuda._sleep(_MARK_CYCLES)
         torch.cuda.synchronize()
     else:
         with torch.profiler.record_function(_MARK):
@@ -97,7 +106,8 @@ def _between_marks(events: List[dict], on_card: bool) -> List[dict]:
     def is_mark(e: dict) -> bool:
         if on_card:
             return (str(e.get("cat", "")).lower() == "kernel"
-                    and _SPIN in str(e.get("name", "")))
+                    and _SPIN in str(e.get("name", ""))
+                    and float(e.get("dur", 0)) < _MARK_MAX_US)
         return e.get("name") == _MARK
 
     complete = [e for e in events if e.get("ph") == "X"]
@@ -128,7 +138,9 @@ def device_kernel_table(
     tracer drops events at the start of its window now and then (on an
     H100: the first launches of a ViT-B forward, the first 3.5 layers of a
     host-bound ViT-Ti stack), and the runs outside the marks take that
-    loss. A trace that still lost a mark is thrown away and taken again,
+    loss; on the card a spin of about 5 ms opens and closes the window
+    too, so that a call of microseconds leaves the tracer as much to drop.
+    A trace that still lost a mark is thrown away and taken again,
     up to TRACE_ATTEMPTS traces; the last one's loss raises.
     ``fn`` runs ``iters + 3`` times with one trace. Totals cover the
     ``iters`` runs; divide by ``iters`` for per-invocation numbers (the
@@ -149,12 +161,16 @@ def device_kernel_table(
     for attempt in range(TRACE_ATTEMPTS):
         with torch.profiler.profile(
                 activities=[activity.CUDA if on_card else activity.CPU]) as prof:
+            if on_card:
+                torch.cuda._sleep(_GUARD_CYCLES)
             fn(*args)
             _mark(on_card)
             for _ in range(iters):
                 fn(*args)
             _mark(on_card)
             fn(*args)
+            if on_card:
+                torch.cuda._sleep(_GUARD_CYCLES)
             sync()
         prof.export_chrome_trace(path)
         with open(path) as f:
